@@ -1,0 +1,82 @@
+"""Build the port's hand-written CUDA kernels at first use and load them.
+
+``csrc/<name>.cu`` holds kernels with plain ``extern "C"`` launchers. It is
+compiled by ``nvcc`` into ``csrc/build/lib<name>-<digest>.so`` (the digest
+covers the source and the flags, so an edited source never loads a stale
+library) and loaded with ``ctypes``. Nothing here runs at import time: the
+CPU tests import every module on a machine with no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = CSRC / "build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    """Path of the CUDA compiler: ``$CUDA_HOME/bin/nvcc``, then ``PATH``,
+    then the toolkit's default prefix. Raises when there is none."""
+    home = os.environ.get("CUDA_HOME")
+    for cand in (
+        os.path.join(home, "bin", "nvcc") if home else None,
+        shutil.which("nvcc"),
+        "/usr/local/cuda/bin/nvcc",
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise FileNotFoundError(
+        "nvcc not found (set CUDA_HOME): the port's CUDA kernels are built "
+        "from saturn_tpu_torch/csrc at first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_log(name: str) -> str:
+    """The ``nvcc`` output of the last build of ``csrc/<name>.cu`` (ptxas:
+    registers, spills and shared memory per kernel); empty if none."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, compiled first if no
+    library of the current source exists. Raises if ``nvcc`` fails."""
+    with _lock:
+        if name in _loaded:
+            return _loaded[name]
+        out = library_path(name)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.run(
+                [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            out.with_suffix(".log").write_text(proc.stdout)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}")
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        _loaded[name] = ctypes.CDLL(str(out))
+        return _loaded[name]
