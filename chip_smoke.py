@@ -7,25 +7,34 @@ Phases, in order; any failure is an exception and a non-zero exit:
 
 1. Device: the card's name and power limit (``nvidia-smi``), its compute
    capability, and the build of the CUDA kernels from
-   ``saturn_tpu_torch/csrc/flash_attn.cu``.
+   ``saturn_tpu_torch/csrc/flash_attn.cu`` and ``csrc/linear_ce.cu`` (one
+   ``nvcc`` each, started together), with each kernel's ptxas line.
 2. Kernels against their plain PyTorch versions: flash forward, dQ and
    dK/dV at the GPT-2-small training shape (B 8, H 12, T 512, D 64, bf16,
    causal), a grouped-query shape (B 2, H 32, KV 4, T 1024, D 64) and a
-   non-causal one; each kernel's device time, the plain version's and
-   SDPA's (the library yardstick), all read from torch.profiler, and the
-   kernel's bound on the card.
-3. The port's main path at full width: two GPT-2-small tasks (b8 x 512,
-   synthetic data, differing only in lr) through
+   non-causal one; the CE head's forward, dx and dW at the main shape
+   (N 4096, D 768, V 50304) in stash and in recompute mode and at an odd
+   shape (N 4000, V 50257, the last 64 labels ignored). Each kernel's device
+   time, the plain version's and the library call's (SDPA; the unfused
+   ``F.linear`` + ``F.cross_entropy``), all read from torch.profiler, and
+   the kernel's bound on the card.
+3. The port's main path at full width: a heterogeneous sweep of two
+   GPT-2-small tasks (b8 x 512, differing only in lr, ``pretraining_loss``)
+   and one BERT-base task (b8 x 512, ``mlm_loss``), synthetic data, through
    ``register_default_library`` -> ``search(["dp"])`` -> ``orchestrate``;
    every checkpoint must reach its ``batch_count`` with finite, falling
-   losses. The kernel launch counts of this phase go into the kernels line.
-4. The kernels on the training path: dp ``execute`` for 10 steps pinned to
-   flash attention, from the same init and batches as a run pinned to
-   dense; exactly 12 launches of each kernel per step, and the two loss
+   losses, and all six kernels must have run. The kernel launch counts of
+   this phase go into the kernels line.
+4. The kernels on the training path: dp ``execute`` of GPT-2-small for 10
+   steps pinned to flash attention, from the same init and batches as a run
+   pinned to dense and a flash run over the logits (a loss without the
+   fused-head tag); exactly 12 launches of each flash kernel and 1 of each
+   CE kernel per step where they apply, none elsewhere, and the three loss
    trajectories agree within the bf16 band.
-5. Where a step's time goes, for both pinned configs: synchronized per-step
-   times and a torch.profiler window (device busy share, each flash
-   kernel's launches and device time inside the step, top operators).
+5. Where a step's time goes, for the three pinned configs: synchronized
+   per-step times, peak device memory, and a torch.profiler window (device
+   busy share, each kernel's launches and device time inside the step, top
+   operators).
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
@@ -42,25 +51,45 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(REPO, "chiprun_out")
 CKPTS = os.path.join(REPO, "saturn_ckpts", "chip_smoke")
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
-BF16_BAND = 2e-2           # the bf16 tolerance of tests/test_flash.py
+BF16_BAND = 2e-2           # the bf16 tolerance of tests/test_flash.py and tests/test_ce.py
+CE_ROW_ATOL = 1e-4         # CE loss and lse (f32) against the plain version
+CE_GRAD_REL = 2e-3         # CE dx and dW against the plain version, by relative norm
+                           # (readings on an H100: at most 3.5e-4; loss and lse 7.6e-6)
 STEPS_PINNED = 10
-KERNEL_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
+# The main path's shapes: GPT-2-small and BERT-base, b8 x 512.
+DEVICE = "cuda"
+GPT2, BERT = "gpt2-small", "bert-base"
+BATCH, SEQ, VOCAB, LAYERS = 8, 512, 50304, 12
+FLASH_NAMES = ("flash_fwd", "flash_dq", "flash_dkv")
+CE_NAMES = ("ce_fwd", "ce_dx", "ce_dw")
+KERNEL_NAMES = FLASH_NAMES + CE_NAMES
 SOURCES = {
     "flash_fwd": "saturn_tpu/ops/flash.py:132",
     "flash_dq": "saturn_tpu/ops/flash.py:250",
     "flash_dkv": "saturn_tpu/ops/flash.py:276",
+    "ce_fwd": "saturn_tpu/ops/ce.py:208",
+    "ce_dx": "saturn_tpu/ops/ce.py:290",
+    "ce_dw": "saturn_tpu/ops/ce.py:314",
 }
-#: How each kernel's name begins in a profile (``csrc/flash_attn.cu``).
+#: How each kernel's launches begin in a profile, its main kernel first
+#: (``csrc/flash_attn.cu``, ``csrc/linear_ce.cu``); a CE wrapper's second
+#: kernel (the forward's combine, dx's split-K reduction) counts to its time.
 KERNEL_SYMBOLS = {
-    "flash_fwd": "(anonymous namespace)::fwd_kernel<",
-    "flash_dq": "(anonymous namespace)::dq_kernel<",
-    "flash_dkv": "(anonymous namespace)::dkv_kernel<",
+    "flash_fwd": ("(anonymous namespace)::fwd_kernel<",),
+    "flash_dq": ("(anonymous namespace)::dq_kernel<",),
+    "flash_dkv": ("(anonymous namespace)::dkv_kernel<",),
+    "ce_fwd": ("(anonymous namespace)::ce_fwd_kernel<",
+               "(anonymous namespace)::ce_fwd_combine_kernel"),
+    "ce_dx": ("(anonymous namespace)::ce_dx_kernel<",
+              "(anonymous namespace)::ce_dx_reduce_kernel"),
+    "ce_dw": ("(anonymous namespace)::ce_dw_kernel<",),
 }
 
 
@@ -73,6 +102,12 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def topology():
+    from saturn_tpu_torch.core.mesh import SliceTopology
+
+    return SliceTopology()
 
 
 def events_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -137,6 +172,28 @@ def device_ms(fn, n: int = 20, warmup: int = 3) -> float:
     return busy_ms(profiled(fn, n)[1]) / n
 
 
+def bound(flops: float, nbytes: float):
+    """(bound ms, what sets it) on the card."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_rows(rows, timings, work, lib_label):
+    """Device, event and plain times, bound and library time of each kernel."""
+    for name, (fn, plain, lib_ms) in timings.items():
+        flops, nbytes = work[name]
+        bound_ms, bound_by = bound(flops, nbytes)
+        rows[name].update(
+            ms=device_ms(fn), events_ms=events_ms(fn), plain_ms=device_ms(plain, n=5),
+            library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by, flops=flops, bytes=nbytes,
+        )
+        r = rows[name]
+        log(f"  {name}: device {r['ms']:.4f} ms (between CUDA events, host dispatch "
+            f"included: {r['events_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; "
+            f"{lib_label(name)} {lib_ms:.4f} ms), bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}")
+
+
 # ------------------------------------------------------------------ phase 2
 def kernel_inputs(B, H, KV, T, D, seed):
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -194,11 +251,10 @@ def check_kernels(flash, shape, causal, seed, timed):
     do4 = do.view(B, H, T, D)
 
     def sdpa_fwd_bwd():
-        out = torch.nn.functional.scaled_dot_product_attention(q4g, k4g, v4g, **sdpa_kw)
+        out = F.scaled_dot_product_attention(q4g, k4g, v4g, **sdpa_kw)
         torch.autograd.grad(out, (q4g, k4g, v4g), do4)
 
-    sdpa_fwd_ms = device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, **sdpa_kw))
+    sdpa_fwd_ms = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, **sdpa_kw))
     sdpa_fb_ms = device_ms(sdpa_fwd_bwd)
     timings = {
         "flash_fwd": (lambda: flash.flash_fwd(q, k, v, causal, H, KV),
@@ -210,34 +266,143 @@ def check_kernels(flash, shape, causal, seed, timed):
                       lambda: flash.flash_dkv_reference(q, k, v, do, lse, delta, causal, H, KV),
                       sdpa_fb_ms),
     }
-    for name, (fn, plain, lib_ms) in timings.items():
-        flops, nbytes = work(B, H, KV, T, D, causal)[name]
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        rows[name].update(
-            ms=device_ms(fn), events_ms=events_ms(fn), plain_ms=device_ms(plain, n=5),
-            library_ms=lib_ms, bound_ms=max(t_ops, t_bytes),
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
-            flops=flops, bytes=nbytes,
-        )
-        r = rows[name]
-        log(f"  {name}: device {r['ms']:.4f} ms (between CUDA events, host dispatch "
-            f"included: {r['events_ms']:.4f} ms; plain {r['plain_ms']:.4f} ms; SDPA "
-            f"{'fwd' if name == 'flash_fwd' else 'fwd+bwd'} {lib_ms:.4f} ms), bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']}")
+    time_rows(rows, timings, work(B, H, KV, T, D, causal),
+              lambda n: "SDPA " + ("fwd" if n == "flash_fwd" else "fwd+bwd"))
+    return rows
+
+
+def ce_work(N, D, V, stash):
+    """(FLOPs, bytes) per CE kernel: one product pass of 2 N V D (two in the
+    recompute-mode backward), each input read once, each output written once."""
+    ops = 2 * N * V * D
+    x_b, w_b, s_b, row_b, dw_b = N * D * 2, V * D * 2, N * V * 2, N * 4, V * D * 4
+    passes = 1 if stash else 2
+    return {
+        "ce_fwd": (ops, x_b + w_b + row_b + 2 * row_b + (s_b if stash else 0)),
+        "ce_dx": (passes * ops, (s_b if stash else x_b) + w_b + 3 * row_b + x_b),
+        "ce_dw": (passes * ops, (s_b if stash else w_b) + x_b + 3 * row_b + dw_b),
+    }
+
+
+def rel_err(got, want) -> float:
+    """||got - want|| / ||want|| over all elements, in f32."""
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def check_ce(ce, N, D, V, stash, seed, tail, timed):
+    """The CE kernels against their plain versions: x ~ N(0, 1), W ~
+    N(0, 0.05) in bf16, the cotangent of a summed loss (1 per counted row).
+
+    Tolerances: loss and lse (f32, the same arithmetic in another order)
+    within CE_ROW_ATOL absolute; the bf16 stash within one bf16 step of the
+    plain value (rtol 2^-7) plus CE_ROW_ATOL; dx and dW by relative norm,
+    within CE_GRAD_REL. The one-hot term dominates both gradients here (in
+    dW, -x summed into the label rows; the softmax part is spread thin over
+    all V rows), so dx and dW are also compared with every label ignored and
+    g = 1: the softmax part alone, by relative norm within CE_GRAD_REL."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn((N, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    w = (torch.randn((V, D), generator=gen, device=DEVICE) * 0.05).to(torch.bfloat16)
+    labels = torch.randint(0, V, (N,), generator=gen, device=DEVICE, dtype=torch.int32)
+    if tail:
+        labels[-tail:] = -1
+    g = (labels >= 0).float()
+    loss, lse, s = ce.ce_fwd(x, w, labels, stash)
+    dx = ce.ce_dx(x, w, labels, lse, g, s)
+    dw = ce.ce_dw(x, w, labels, lse, g, s)
+    loss_r, lse_r, s_r = ce.ce_fwd_reference(x, w, labels, stash)
+    dx_r = ce.ce_dx_reference(x, w, labels, lse, g, s_r)
+    dw_r = ce.ce_dw_reference(x, w, labels, lse, g, s_r)
+    none, ones = torch.full_like(labels, -1), torch.ones_like(g)
+    soft = (ce.ce_dx(x, w, none, lse, ones, s), ce.ce_dw(x, w, none, lse, ones, s))
+    soft_r = (ce.ce_dx_reference(x, w, none, lse, ones, s_r),
+              ce.ce_dw_reference(x, w, none, lse, ones, s_r))
+    torch.cuda.synchronize()
+    where = f"N={N} V={V} {'stash' if stash else 'recompute'}"
+    for name, t in (("loss", loss), ("lse", lse), ("dx", dx), ("dw", dw), ("softmax dx", soft[0]),
+                    ("softmax dw", soft[1])) + ((("stash", s),) if stash else ()):
+        if not torch.isfinite(t.float()).all():
+            raise AssertionError(f"ce {name} {where}: non-finite output")
+    counted = dx[:N - tail].float().abs().sum(1)
+    if tail and torch.count_nonzero(dx[-tail:]) or not (counted > 0).all():
+        raise AssertionError(f"ce {where}: an ignored row got a gradient or a counted row none")
+    errs = {}
+    for name, got, want in (("loss", loss, loss_r), ("lse", lse, lse_r)):
+        torch.testing.assert_close(got, want, rtol=0.0, atol=CE_ROW_ATOL,
+                                   msg=lambda m: f"ce {name} {where}: {m}")
+        errs[name] = (got - want).abs().max().item()
+    if stash:
+        torch.testing.assert_close(s.float(), s_r.float(), rtol=2.0 ** -7, atol=CE_ROW_ATOL,
+                                   msg=lambda m: f"ce stash {where}: {m}")
+        errs["stash"] = (s.float() - s_r.float()).abs().max().item()
+    rel = {"dx": rel_err(dx, dx_r), "dw": rel_err(dw, dw_r),
+           "softmax dx": rel_err(soft[0], soft_r[0]), "softmax dw": rel_err(soft[1], soft_r[1])}
+    bad = {k: v for k, v in rel.items() if not v <= CE_GRAD_REL}
+    if bad:
+        raise AssertionError(f"ce {where}: relative errors {bad} above {CE_GRAD_REL}")
+    errs["dx"] = (dx.float() - dx_r.float()).abs().max().item()
+    errs["dw"] = (dw - dw_r).abs().max().item()
+    rows = {
+        "ce_fwd": {"max_abs_err": max(errs[k] for k in ("loss", "lse", "stash") if k in errs),
+                   "loss_lse_max_abs_err": max(errs["loss"], errs["lse"]),
+                   "stash_max_abs_err": errs.get("stash")},
+        "ce_dx": {"max_abs_err": errs["dx"], "rel_err": rel["dx"],
+                  "softmax_rel_err": rel["softmax dx"]},
+        "ce_dw": {"max_abs_err": errs["dw"], "rel_err": rel["dw"],
+                  "softmax_rel_err": rel["softmax dw"]},
+    }
+    log(f"  CE kernels vs plain at D={D} {where} (ignored tail {tail}): max|err| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (loss, lse within {CE_ROW_ATOL:g}" + ("; stash within 2^-7 relative" if stash else "")
+        + "); relative "
+        + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+        + f" (within {CE_GRAD_REL:g})")
+    if not timed:
+        return rows
+
+    lab64 = labels.long()
+    xg, wg = x.detach().clone().requires_grad_(True), w.detach().clone().requires_grad_(True)
+
+    def lib_fwd():
+        return F.cross_entropy(F.linear(x, w).float(), lab64, ignore_index=-1, reduction="none")
+
+    def lib_fwd_bwd():
+        out = F.cross_entropy(F.linear(xg, wg).float(), lab64, ignore_index=-1,
+                              reduction="none")
+        torch.autograd.grad(out, (xg, wg), g)
+
+    lib_fwd_ms, lib_fb_ms = device_ms(lib_fwd), device_ms(lib_fwd_bwd)
+    timings = {
+        "ce_fwd": (lambda: ce.ce_fwd(x, w, labels, stash),
+                   lambda: ce.ce_fwd_reference(x, w, labels, stash), lib_fwd_ms),
+        "ce_dx": (lambda: ce.ce_dx(x, w, labels, lse, g, s),
+                  lambda: ce.ce_dx_reference(x, w, labels, lse, g, s_r), lib_fb_ms),
+        "ce_dw": (lambda: ce.ce_dw(x, w, labels, lse, g, s),
+                  lambda: ce.ce_dw_reference(x, w, labels, lse, g, s_r), lib_fb_ms),
+    }
+    time_rows(rows, timings, ce_work(N, D, V, stash),
+              lambda n: "linear + cross_entropy " + ("fwd" if n == "ce_fwd" else "fwd+bwd"))
     return rows
 
 
 # ------------------------------------------------------------------ phase 3
-def gpt2_task(sat, name, lr, batch_count, save_dir, **kwargs):
+def lm_task(sat, name, lr, batch_count, save_dir, model=GPT2, loss_fn=None, **kwargs):
+    """A GPT-2 (``pretraining_loss``) or BERT (``mlm_loss``, [MASK] id kept
+    out of the data) task at the main path's shapes, synthetic tokens."""
     from saturn_tpu_torch.data.lm_dataset import make_lm_dataset
+    from saturn_tpu_torch.models.bert import build_bert, mlm_loss
     from saturn_tpu_torch.models.gpt2 import build_gpt2
     from saturn_tpu_torch.models.loss import pretraining_loss
 
+    bert = model == BERT
+    build = build_bert if bert else build_gpt2
     return sat.Task(
-        get_model=lambda **kw: build_gpt2("gpt2-small", **kw),
-        get_dataloader=lambda: make_lm_dataset(context_length=512, batch_size=8,
-                                               vocab_size=50304, seed=0),
-        loss_fn=pretraining_loss,
+        get_model=lambda **kw: build(model, **kw),
+        get_dataloader=lambda: make_lm_dataset(context_length=SEQ, batch_size=BATCH,
+                                               vocab_size=VOCAB, seed=0,
+                                               reserved_ids=1 if bert else 0),
+        loss_fn=loss_fn or (mlm_loss if bert else pretraining_loss),
         hparams=sat.HParams(lr=lr, batch_count=batch_count, kwargs=kwargs),
         name=name,
         save_dir=save_dir,
@@ -247,8 +412,8 @@ def gpt2_task(sat, name, lr, batch_count, save_dir, **kwargs):
 def initial_loss(task) -> float:
     """Loss of the seed-0 init on batch 0 (where every run starts)."""
     spec = task.get_model(attention="dense")
-    model = spec.init_fn(torch.Generator().manual_seed(0), torch.device("cuda"))
-    tokens = torch.from_numpy(task.batch_at(0)).to("cuda", torch.long)
+    model = spec.init_fn(torch.Generator().manual_seed(0), torch.device(DEVICE))
+    tokens = torch.from_numpy(task.batch_at(0)).to(DEVICE, torch.long)
     with torch.no_grad():
         loss = task.loss_fn(spec.apply_fn(model, tokens), tokens).item()
     del model
@@ -256,19 +421,27 @@ def initial_loss(task) -> float:
     return loss
 
 
-def main_path(sat, flash, card):
-    from saturn_tpu_torch.core.mesh import SliceTopology
+def reset_counts(flash, ce) -> None:
+    flash.reset_launch_counts()
+    ce.reset_launch_counts()
+
+
+def counts(flash, ce):
+    return {**flash.LAUNCHES, **ce.LAUNCHES}
+
+
+def main_path(sat, flash, ce, card):
     from saturn_tpu_torch.solver import milp
     from saturn_tpu_torch.utils import checkpoint as ckpt
 
     names = sat.library.register_default_library()
-    tasks = [gpt2_task(sat, f"gpt2s-lr{i}", lr, 20, CKPTS)
-             for i, lr in enumerate((6e-4, 1e-3))]
-    loss0 = initial_loss(tasks[0])
-    topo = SliceTopology()
-    flash.reset_launch_counts()
+    tasks = [lm_task(sat, f"gpt2s-lr{i}", lr, 20, CKPTS) for i, lr in enumerate((6e-4, 1e-3))]
+    tasks.append(lm_task(sat, "bert-base", 1e-3, 20, CKPTS, model=BERT))
+    loss0 = {t.name: initial_loss(t) for t in tasks}
+    topo = topology()
+    reset_counts(flash, ce)
     t0 = time.perf_counter()
-    stats = sat.search(tasks, technique_names=["dp"])
+    stats = sat.search(tasks, technique_names=["dp"], topology=topo)
     t_search = time.perf_counter() - t0
     tech = tasks[0].strategies[1].executor
     log(f"  library {names}; search profiled {stats['trials_run']} (task, size) points, "
@@ -280,8 +453,7 @@ def main_path(sat, flash, card):
     if any(spb is None for *_, spb, _ in tech.trials):
         raise AssertionError("a trial did not fit in device memory: see the lines above")
     won = {t.name: t.strategies[1].params for t in tasks}
-    log(f"  chosen configs: {won}; flash won: "
-        f"{ {n: p.get('attention') == 'flash' for n, p in won.items()} }")
+    log(f"  chosen configs: {won}")
     interval = 2.0
     plan = milp.resolve(tasks, topo, None, interval)
     for n, a in plan.assignments.items():
@@ -290,7 +462,7 @@ def main_path(sat, flash, card):
     t0 = time.perf_counter()
     out = sat.orchestrate(tasks, interval=interval, topology=topo)
     t_orch = time.perf_counter() - t0
-    launches = dict(flash.LAUNCHES)
+    launches = counts(flash, ce)
     log(f"  orchestrate: completed {out['completed']} in {t_orch:.1f}s; "
         f"kernel launches over search + orchestrate {launches}")
     results = {}
@@ -300,51 +472,76 @@ def main_path(sat, flash, card):
             raise AssertionError(f"{t.name}: checkpoint step {saved['step']} != "
                                  f"batch_count {t.hparams.batch_count}")
         losses = np.asarray(t.last_losses)
-        if not np.isfinite(losses).all() or not losses[-1] < loss0:
+        if not np.isfinite(losses).all() or not losses[-1] < loss0[t.name]:
             raise AssertionError(f"{t.name}: losses {losses} not finite or not below "
-                                 f"the initial {loss0:.4f}")
-        tok_s = 8 * 512 / t.last_per_batch_s
-        log(f"  {t.name}: step {saved['step']}/{t.hparams.batch_count}, loss {loss0:.4f} -> "
-            f"{losses[-1]:.4f}, last interval {t.last_per_batch_s * 1e3:.2f} ms/step, "
-            f"{tok_s:.0f} tokens/s  [{card}]")
-        results[t.name] = {"config": won[t.name], "final_loss": float(losses[-1]),
+                                 f"the initial {loss0[t.name]:.4f}")
+        tok_s = BATCH * SEQ / t.last_per_batch_s
+        log(f"  {t.name}: step {saved['step']}/{t.hparams.batch_count}, loss "
+            f"{loss0[t.name]:.4f} -> {losses[-1]:.4f}, last interval "
+            f"{t.last_per_batch_s * 1e3:.2f} ms/step, {tok_s:.0f} tokens/s  [{card}]")
+        results[t.name] = {"config": won[t.name], "initial_loss": loss0[t.name],
+                           "final_loss": float(losses[-1]),
                            "ms_per_step": t.last_per_batch_s * 1e3, "tokens_per_s": tok_s}
     for name in KERNEL_NAMES:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the main path")
     trials = [{"task": n, "config": c, "s_per_batch": s} for n, _, c, s, _ in tech.trials]
-    return launches, {"initial_loss": loss0, "tasks": results, "trials": trials,
-                      "search_s": t_search, "orchestrate_s": t_orch}
+    return launches, {"tasks": results, "trials": trials, "search_s": t_search,
+                      "orchestrate_s": t_orch}
 
 
 # ------------------------------------------------------------------ phase 4
-def pinned_runs(sat, flash, card):
+def untagged_loss(logits, tokens):
+    """pretraining_loss without the fused-head tag: the step runs it over
+    the logits."""
+    from saturn_tpu_torch.models.loss import pretraining_loss
+
+    return pretraining_loss(logits, tokens)
+
+
+#: (label, attention, loss) of the pinned GPT-2-small runs.
+PINNED = (("flash", "flash", None), ("dense", "dense", None),
+          ("flash-logits", "flash", untagged_loss))
+
+
+def pinned_task(sat, label, attention, loss_fn):
+    task = lm_task(sat, f"pinned-{label}", 6e-4, STEPS_PINNED, os.path.join(CKPTS, label),
+                   loss_fn=loss_fn)
+    config = {"attention": attention, "remat": False}
+    return task, config
+
+
+def pinned_runs(sat, flash, ce, card):
     from saturn_tpu_torch.parallel.dp import DataParallel
 
     runs = {}
-    for attention in ("flash", "dense"):
-        task = gpt2_task(sat, f"pinned-{attention}", 6e-4, STEPS_PINNED,
-                         os.path.join(CKPTS, attention))
+    for label, attention, loss_fn in PINNED:
+        task, config = pinned_task(sat, label, attention, loss_fn)
         tech = DataParallel()
-        task.strategies[1] = sat.Strategy(tech, 1, {"attention": attention, "remat": False}, 0.0)
+        task.strategies[1] = sat.Strategy(tech, 1, config, 0.0)
         task.select_strategy(1)
-        flash.reset_launch_counts()
-        tech.execute(task, [torch.device("cuda", 0)], 0, override_batch_count=STEPS_PINNED)
-        runs[attention] = (task, dict(flash.LAUNCHES))
-        log(f"  pinned {attention}: {task.last_per_batch_s * 1e3:.2f} ms/step, "
-            f"{8 * 512 / task.last_per_batch_s:.0f} tokens/s, launches {runs[attention][1]}, "
+        reset_counts(flash, ce)
+        tech.execute(task, [torch.device(DEVICE, 0)], 0, override_batch_count=STEPS_PINNED)
+        runs[label] = (task, counts(flash, ce))
+        log(f"  pinned {label}: {task.last_per_batch_s * 1e3:.2f} ms/step, "
+            f"{BATCH * SEQ / task.last_per_batch_s:.0f} tokens/s, launches {runs[label][1]}, "
             f"losses {np.round(task.last_losses, 4).tolist()}  [{card}]")
-    want = 12 * STEPS_PINNED  # 12 layers, one launch of each kernel per layer per step
-    if runs["flash"][1] != {n: want for n in KERNEL_NAMES}:
-        raise AssertionError(f"flash run launched {runs['flash'][1]}, want {want} of each")
-    if any(runs["dense"][1].values()):
-        raise AssertionError(f"dense run launched flash kernels {runs['dense'][1]}")
-    a, b = (np.asarray(runs[x][0].last_losses) for x in ("flash", "dense"))
-    if not np.allclose(a, b, rtol=BF16_BAND, atol=BF16_BAND):
-        raise AssertionError(f"flash losses {a} vs dense {b} outside the bf16 band")
-    log(f"  flash vs dense loss trajectories: max |diff| {np.abs(a - b).max():.4e} (band 2e-2)")
+    for label, attention, loss_fn in PINNED:
+        # one launch of each flash kernel per layer per step, one of each CE
+        # kernel per step on the fused path
+        want = {n: (LAYERS * STEPS_PINNED if attention == "flash" else 0) for n in FLASH_NAMES}
+        want.update({n: (0 if loss_fn else STEPS_PINNED) for n in CE_NAMES})
+        if runs[label][1] != want:
+            raise AssertionError(f"{label} run launched {runs[label][1]}, want {want}")
+    ref = np.asarray(runs["flash"][0].last_losses)
+    for label in ("dense", "flash-logits"):
+        other = np.asarray(runs[label][0].last_losses)
+        if not np.allclose(other, ref, rtol=BF16_BAND, atol=BF16_BAND):
+            raise AssertionError(f"{label} losses {other} vs flash {ref} outside the bf16 band")
+        log(f"  flash vs {label} loss trajectories: max |diff| "
+            f"{np.abs(other - ref).max():.4e} (band 2e-2)")
     return {x: {"ms_per_step": runs[x][0].last_per_batch_s * 1e3,
-                "tokens_per_s": 8 * 512 / runs[x][0].last_per_batch_s,
+                "tokens_per_s": BATCH * SEQ / runs[x][0].last_per_batch_s,
                 "losses": runs[x][0].last_losses, "launches": runs[x][1]}
             for x in runs}
 
@@ -352,63 +549,68 @@ def pinned_runs(sat, flash, card):
 # ------------------------------------------------------------------ phase 5
 def profile_steps(sat, card, n_sync=8, n_prof=4):
     """Where a training step's time goes, for each pinned config: per-step
-    times with a synchronize after every step, then ``n_prof`` steps under
-    torch.profiler. From the profile: the device's busy time per step and
-    its idle share of the median synchronized step, each flash kernel's
-    launches and device time per step (phase 2's kernel times, read inside
-    the real step), and the top operators (``chiprun_out/profile_*.txt``)."""
+    times with a synchronize after every step and the peak device memory
+    over them, then ``n_prof`` steps under torch.profiler. From the profile:
+    the device's busy time per step and its idle share of the median
+    synchronized step, each kernel's launches and device time per step
+    (phase 2's kernel times, read inside the real step), and the top
+    operators (``chiprun_out/profile_*.txt``)."""
     from saturn_tpu_torch.parallel.dp import DataParallel
     from saturn_tpu_torch.utils import checkpoint as ckpt
 
     out = {}
-    dev = torch.device("cuda", 0)
-    for attention in ("flash", "dense"):
-        config = {"attention": attention, "remat": False}
-        task = gpt2_task(sat, f"pinned-{attention}", 6e-4, STEPS_PINNED,
-                         os.path.join(CKPTS, attention))
+    dev = torch.device(DEVICE, 0)
+    for label, attention, loss_fn in PINNED:
+        task, config = pinned_task(sat, label, attention, loss_fn)
         bundle = DataParallel().build(task, [dev], config)
         state = ckpt.restore(task.ckpt_path, bundle.empty())
         batch = bundle.stage(task.batch_at(0))
         for _ in range(2):
             state, _ = bundle.step(state, batch)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
         synced = []
         for _ in range(n_sync):
             t0 = time.perf_counter()
             state, _ = bundle.step(state, batch)
             torch.cuda.synchronize()
             synced.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev)
         # the step updates ``state`` in place
         prof, events = profiled(lambda: bundle.step(state, batch), n_prof)
         busy = busy_ms(events) / n_prof
         kernels = {}
-        for name, symbol in KERNEL_SYMBOLS.items():
-            mine = [(a, b) for n, a, b in events if symbol in n]
-            kernels[name] = {"launches_per_step": len(mine) / n_prof,
-                             "device_ms_per_step": sum(b - a for a, b in mine) / 1e3 / n_prof}
-        want = 12 if attention == "flash" else 0
-        if any(k["launches_per_step"] != want for k in kernels.values()):
-            raise AssertionError(f"{attention}: the profiler saw {kernels}, want {want} "
-                                 "launches of each flash kernel per step")
+        for name, symbols in KERNEL_SYMBOLS.items():
+            mine = [(n, a, b) for n, a, b in events if any(s in n for s in symbols)]
+            kernels[name] = {
+                "launches_per_step": sum(symbols[0] in n for n, _, _ in mine) / n_prof,
+                "device_ms_per_step": sum(b - a for _, a, b in mine) / 1e3 / n_prof}
+        want = {n: (LAYERS if attention == "flash" else 0) for n in FLASH_NAMES}
+        want.update({n: (0 if loss_fn else 1) for n in CE_NAMES})
+        seen = {n: k["launches_per_step"] for n, k in kernels.items()}
+        if seen != want:
+            raise AssertionError(f"{label}: the profiler saw {seen} launches per step, "
+                                 f"want {want}")
         try:
             table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25)
         except (KeyError, AttributeError, ValueError):
             table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=25)
-        with open(os.path.join(OUT, f"profile_{attention}.txt"), "w") as f:
+        with open(os.path.join(OUT, f"profile_{label}.txt"), "w") as f:
             f.write(table)
         step_ms = float(np.median(synced))
-        flash_ms = sum(k["device_ms_per_step"] for k in kernels.values())
+        flash_ms = sum(kernels[n]["device_ms_per_step"] for n in FLASH_NAMES)
+        ce_ms = sum(kernels[n]["device_ms_per_step"] for n in CE_NAMES)
         readbacks = sum("DtoH" in n for n, _, _ in events) / n_prof
-        out[attention] = {"synced_ms": synced, "device_busy_ms": busy,
-                          "idle_share": 1 - busy / step_ms, "kernels": kernels,
-                          "readbacks_per_step": readbacks}
-        log(f"  {attention}: synced steps {np.round(synced, 2).tolist()} ms (median "
-            f"{step_ms:.2f}); {readbacks:g} device-to-host copies per step; "
-            f"device busy {busy:.2f} ms/step, idle share "
+        out[label] = {"synced_ms": synced, "device_busy_ms": busy,
+                      "idle_share": 1 - busy / step_ms, "kernels": kernels,
+                      "readbacks_per_step": readbacks, "peak_bytes": peak}
+        log(f"  {label}: synced steps {np.round(synced, 2).tolist()} ms (median "
+            f"{step_ms:.2f}); peak memory {peak / 2**30:.2f} GiB; {readbacks:g} "
+            f"device-to-host copies per step; device busy {busy:.2f} ms/step, idle share "
             f"{1 - busy / step_ms:.3f} of the median synced step; flash kernels "
-            f"{flash_ms:.3f} ms/step on the device "
-            + ", ".join(f"{n} {k['device_ms_per_step'] / max(want, 1):.4f} ms/launch"
-                        for n, k in kernels.items()) + f"  [{card}]")
+            f"{flash_ms:.3f} ms/step, CE kernels {ce_ms:.3f} ms/step on the device; "
+            + ", ".join(f"{n} {k['device_ms_per_step'] / max(want[n], 1):.4f} ms/launch"
+                        for n, k in kernels.items() if want[n]) + f"  [{card}]")
         del state, bundle
         torch.cuda.empty_cache()
     return out
@@ -421,7 +623,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     import saturn_tpu_torch as sat
-    from saturn_tpu_torch.ops import flash
+    from saturn_tpu_torch.ops import ce, flash
     from saturn_tpu_torch.utils import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references in full f32
@@ -437,33 +639,42 @@ def main() -> int:
     log(f"  torch {torch.__version__} cuda {torch.version.cuda}; device {kind}, "
         f"capability {torch.cuda.get_device_capability(0)}")
     t0 = time.perf_counter()
-    cuda_build.load("flash_attn")
-    log(f"  built and loaded the CUDA kernels in {time.perf_counter() - t0:.1f}s")
-    report = cuda_build.build_log("flash_attn")
-    with open(os.path.join(OUT, "ptxas_flash_attn.log"), "w") as f:
-        f.write(report)
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    ptxas flash_attn: {line.strip()}")
+    sources = ("flash_attn", "linear_ce")
+    cuda_build.load_all(sources)
+    log(f"  built and loaded the CUDA kernels of {sources} in {time.perf_counter() - t0:.1f}s")
+    for src in sources:
+        report = cuda_build.build_log(src)
+        with open(os.path.join(OUT, f"ptxas_{src}.log"), "w") as f:
+            f.write(report)
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    ptxas {src}: {line.strip()}")
 
     log("phase 2: kernels against their plain versions")
-    main_shape = (8, 12, 12, 512, 64)
+    main_shape = (BATCH, 12, 12, SEQ, 64)
     rows = check_kernels(flash, main_shape, True, 0, timed=True)
     check_kernels(flash, (2, 32, 4, 1024, 64), True, 1, timed=False)
     check_kernels(flash, main_shape, False, 2, timed=False)
+    N, D = BATCH * SEQ, 768
+    rows.update(check_ce(ce, N, D, VOCAB, True, 3, 0, timed=True))
+    recompute = check_ce(ce, N, D, VOCAB, False, 4, 0, timed=True)
+    check_ce(ce, 4000, D, 50257, True, 5, 64, timed=False)
+    torch.cuda.empty_cache()
 
-    log("phase 3: search -> orchestrate, two GPT-2-small tasks b8x512")
-    launches, main_results = main_path(sat, flash, card)
+    log("phase 3: search -> orchestrate, two GPT-2-small tasks and one BERT-base task b8x512")
+    launches, main_results = main_path(sat, flash, ce, card)
 
     log("phase 4: the kernels on the training path (dp execute, pinned)")
-    pinned = pinned_runs(sat, flash, card)
+    pinned = pinned_runs(sat, flash, ce, card)
 
     log("phase 5: where a step's time goes (pinned configs)")
     step_profile = profile_steps(sat, card)
     shutil.rmtree(CKPTS, ignore_errors=True)
 
     kernels = [
-        {"name": n, "route": "cuda", "source": "saturn_tpu_torch/csrc/flash_attn.cu",
+        {"name": n, "route": "cuda",
+         "source": "saturn_tpu_torch/csrc/" + ("flash_attn.cu" if n in FLASH_NAMES
+                                              else "linear_ce.cu"),
          "replaces": SOURCES[n], "launches": launches[n],
          "max_abs_err": rows[n]["max_abs_err"], "ms": rows[n]["ms"],
          "plain_ms": rows[n]["plain_ms"], "bound_ms": rows[n]["bound_ms"],
@@ -472,8 +683,8 @@ def main() -> int:
     ]
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "kernels": kernels, "kernel_rows": rows,
-                   "main_path": main_results, "pinned": pinned,
-                   "step_profile": step_profile,
+                   "ce_recompute_rows": recompute, "main_path": main_results,
+                   "pinned": pinned, "step_profile": step_profile,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

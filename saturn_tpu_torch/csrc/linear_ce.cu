@@ -1,0 +1,839 @@
+// Fused linear + cross-entropy head for Hopper (sm_90a): forward, dx and dW.
+//
+// Replaces the three Pallas kernels of saturn_tpu/ops/ce.py:
+//   ce_fwd_kernel (+ ce_fwd_combine_kernel) <- _run_fwd       (pallas_call at ce.py:208, _fwd_kernel)
+//   ce_dx_kernel  (+ ce_dx_reduce_kernel)   <- _fused_ce_bwd  (pallas_call at ce.py:290, _dx_kernel)
+//   ce_dw_kernel                            <- _fused_ce_bwd  (pallas_call at ce.py:314, _dw_kernel)
+//
+// What they compute, for x (N, D) bf16, W (V, D) bf16 and labels (N,) int32
+// (negative = ignored): s = x W^T in f32 with the columns >= V at -1e30;
+// forward: lse = logsumexp over the vocab, loss = lse - s[label] (the label
+// logit from the f32 s, 0 for an ignored row), and in stash mode a bf16 copy
+// of s; backward: ds = (exp(s - lse) - onehot(label)) * g, rounded to bf16,
+// dx = ds W (bf16 out) and dW = ds^T x (f32 out). s comes from the stash or,
+// in recompute mode, from x W^T again in f32.
+//
+// What bounds them on an H100: each is one product of 2 N V D operations
+// (recompute mode adds a second), K = D (fwd), K = V (dx) or K = N (dW), far
+// above the card's ~295 operations per byte in bf16: bound by operations
+// (0.32 ms at N 4096, D 768, V 50304). In practice these simple kernels are
+// bound by their mma.sync issue rate and their shared-memory fragment loads.
+//
+// What the design does about it. Every kernel computes a 128 x 128 output
+// tile per block and stages the product's depth 32 at a time through shared
+// memory with cp.async, double-buffered. Products run on mma.sync m16n8k16
+// (bf16 in, f32 accumulate). Operands contiguous along the product's depth
+// are read with 32-bit shared loads; operands contiguous along the output
+// (W in dx, x in dW, the stash in dW) are staged as they lie in memory and
+// read with ldmatrix.trans.
+//
+// - ce_fwd: 4 warps, each owning 32 whole rows of the tile (all 128
+//   columns), so a row's running max and sum never leave the warp. Token
+//   tiles alone give N/128 = 32 blocks for 132 SMs, so the vocab is split
+//   across blocks: each writes partial (max, sum, label logit) rows in f32
+//   for its vocab range, and ce_fwd_combine_kernel forms lse and loss. The
+//   TPU kernel instead walks the whole vocab on one grid axis.
+// - ce_dx, ce_dw: 8 warps as 4 x 2 warps of 32 x 64. Each depth stage first
+//   turns its score tile into a ds tile in shared memory, every element
+//   once (stash mode: the stash tile in place; recompute mode: from the f32
+//   score tile x W^T held in registers), then runs the product with ds as
+//   the A operand, so the exponentials stay out of the mma loop. Every D
+//   tile forms its own ds tiles: D / 128 = 6 times over at D 768, the price
+//   of keeping the accumulator of a 128 x 128 tile in registers. In
+//   recompute mode this repeats the x W^T recompute as well; recompute is
+//   the long-context mode, off the main path.
+// - ce_dx: output tiles over (token, D) with the vocab as depth: at D 768
+//   that is only 192 tiles, so the vocab is split (split-K) into f32 partial
+//   sums that ce_dx_reduce_kernel adds in a fixed order and casts to bf16: no
+//   atomics, a result independent of scheduling. The D tiles of one token
+//   tile are neighbours in the grid, so they stream the same stash rows at
+//   about the same time and all but the first read come from L2.
+// - ce_dw: output tiles over (vocab, D), tokens as depth, the depth loop
+//   inside the block, f32 out, no atomics. The statistics of the next token
+//   chunk are loaded a stage ahead.
+// - The vocab is taken as it is (no pad to a tile multiple): loads past V or
+//   N are zero-filled and ds is 0 in columns >= V; g is 0 in rows >= N.
+// - The launchers choose the vocab splits of ce_fwd and ce_dx from the
+//   kernel's occupancy on the current device (units_per_split);
+//   ce_fwd_scratch and ce_dx_scratch tell the caller how much f32 scratch
+//   that split takes, so no caller mirrors the tiles or the split rule.
+//
+// Layout: x, W, dx row-major with row stride D (D % 64 == 0); the stash is
+// (N, ld_s) bf16 with ld_s % 8 == 0 and columns >= V unused; labels, lse, g,
+// loss are (N,) contiguous. Each launcher returns cudaGetLastError() as an int.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int BM = 128;              // output rows per block
+constexpr int BN = 128;              // output columns per block
+constexpr int BK = 32;               // depth per pipeline stage
+constexpr int WARPS = 4;             // each warp owns WM whole rows of the tile
+constexpr int THREADS = WARPS * 32;
+constexpr int WM = BM / WARPS;       // 32 rows: two 16-row mma tiles
+constexpr int MT = WM / 16;          // mma row tiles per warp
+constexpr int NT = BN / 8;           // mma column tiles per warp
+constexpr int PAD = 8;               // bf16 of row padding: 16 bytes, no bank conflicts
+constexpr int LDK = BK + PAD;        // row stride of a tile contiguous along the depth
+constexpr int LDN = BN + PAD;        // row stride of a tile contiguous along the output
+constexpr float NEG_INF = -1e30f;    // the mask value of the Pallas kernels
+
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !pred (src is
+// then not read).
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8i..8i+7
+// give the row addresses of matrix i, and register i of lane (g, t) receives
+// {M_i[2t][g], M_i[2t + 1][g]}.
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// ROWS x BK of a row-major matrix (rows r0.., columns c0..; R rows and C
+// columns exist, C % 8 == 0) -> shared memory at row stride LDK.
+template <int ROWS>
+__device__ __forceinline__ void load_k_tile(bf16* dst, const bf16* src, long long ld,
+                                            int r0, int R, int c0, int C) {
+  constexpr int SEG = BK / 8;
+  for (int i = threadIdx.x; i < ROWS * SEG; i += blockDim.x) {
+    const int r = i / SEG, c = (i % SEG) * 8;
+    const bool ok = r0 + r < R && c0 + c < C;
+    cp_async16(dst + r * LDK + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
+  }
+}
+
+// BK x BN of a row-major matrix (rows k0.., columns n0..) -> shared memory at
+// row stride LDN.
+__device__ __forceinline__ void load_n_tile(bf16* dst, const bf16* src, long long ld,
+                                            int k0, int K, int n0, int C) {
+  constexpr int SEG = BN / 8;
+  for (int i = threadIdx.x; i < BK * SEG; i += blockDim.x) {
+    const int r = i / SEG, c = (i % SEG) * 8;
+    const bool ok = k0 + r < K && n0 + c < C;
+    cp_async16(dst + r * LDN + c, ok ? src + (size_t)(k0 + r) * ld + n0 + c : src, ok);
+  }
+}
+
+// acc (RT*16 x CT*8) += A (RT*16 x 16) B^T (CT*8 x 16), depth columns k0..k0+15
+// of A and B, both row-major over the depth in shared memory. acc[i][n] is a
+// 16 x 8 tile in the mma.sync C layout: element e of lane (g, t) sits at row
+// 16 i + g + 8 (e / 2), column 8 n + 2 t + e % 2.
+template <int RT, int CT>
+__device__ __forceinline__ void mma_kk(float (*acc)[CT][4], const bf16* A, const bf16* B,
+                                       int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t a[RT][4];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const bf16* pa = A + (i * 16 + g) * LDK + k0 + 2 * t;
+    a[i][0] = ld32(pa);
+    a[i][1] = ld32(pa + 8 * LDK);
+    a[i][2] = ld32(pa + 8);
+    a[i][3] = ld32(pa + 8 * LDK + 8);
+  }
+#pragma unroll
+  for (int n = 0; n < CT; ++n) {
+    const bf16* pb = B + (n * 8 + g) * LDK + k0 + 2 * t;
+    const uint32_t b0 = ld32(pb), b1 = ld32(pb + 8);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) mma16816(acc[i][n], a[i], b0, b1);
+  }
+}
+
+// acc (MT*16 x CT*8) += a B: a holds the A fragments of MT 16 x 16 tiles at
+// depth kk*16; B points at the first of the CT*8 columns in a (BK x BN) tile
+// at row stride LDN, contiguous along the columns (read with ldmatrix.trans).
+template <int CT>
+__device__ __forceinline__ void mma_bt(float (*acc)[CT][4], uint32_t (*a)[4], const bf16* B,
+                                       int kk, int lane) {
+  const int i = lane >> 3, r = lane & 7;
+  const bf16* row = B + (kk * 16 + (i & 1) * 8 + r) * LDN + (i >> 1) * 8;
+#pragma unroll
+  for (int n = 0; n < CT; n += 2) {
+    uint32_t b[4];
+    ldsm_x4_t(b, row + n * 8);
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      mma16816(acc[m][n], a[m], b[0], b[1]);
+      mma16816(acc[m][n + 1], a[m], b[2], b[3]);
+    }
+  }
+}
+
+// A fragments of MT 16 x 16 tiles at depth kk*16 from a tile that is
+// row-major over the depth (row stride LDK), its first row at A.
+__device__ __forceinline__ void a_rows(uint32_t (*a)[4], const bf16* A, int kk, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const bf16* pa = A + (i * 16 + g) * LDK + kk * 16 + 2 * t;
+    a[i][0] = ld32(pa);
+    a[i][1] = ld32(pa + 8 * LDK);
+    a[i][2] = ld32(pa + 8);
+    a[i][3] = ld32(pa + 8 * LDK + 8);
+  }
+}
+
+// A fragments of MT 16 x 16 tiles at depth kk*16 from a tile stored
+// transposed, S[depth][row] at row stride LDN, the first row at column m0:
+// matrix q of ldmatrix covers rows + 8 (q % 2) and depth + 8 (q / 2).
+__device__ __forceinline__ void a_cols(uint32_t (*a)[4], const bf16* S, int kk, int m0,
+                                       int lane) {
+  const int li = lane >> 3, lr = lane & 7;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+    ldsm_x4_t(a[i], S + (kk * 16 + (li >> 1) * 8 + lr) * LDN + m0 + i * 16 + (li & 1) * 8);
+}
+
+// One element of the softmax gradient: (exp(s - lse) - [label == col]) * g,
+// 0 in the columns past the vocab.
+__device__ __forceinline__ float ds_of(float s, int col, int V, float lse, float g,
+                                       int label) {
+  if (col >= V) return 0.f;
+  return (__expf(s - lse) - (col == label ? 1.f : 0.f)) * g;
+}
+
+template <int CT>
+__device__ __forceinline__ void zero(float (*acc)[CT][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < CT; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+}
+
+// 16 consecutive bf16 scores at p (16-byte aligned) -> their ds, in place;
+// col is the vocab id of the first, the row statistics are given.
+__device__ __forceinline__ void ds_in_place16(bf16* p, int col, int V, float lse, float g,
+                                              int label) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint4 v = *reinterpret_cast<uint4*>(p + 8 * h);
+    uint32_t* u = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 sc = unpack_bf16(u[j]);
+      const int c = col + 8 * h + 2 * j;
+      u[j] = pack_bf16(ds_of(sc.x, c, V, lse, g, label), ds_of(sc.y, c + 1, V, lse, g, label));
+    }
+    *reinterpret_cast<uint4*>(p + 8 * h) = v;
+  }
+}
+
+// ------------------------------------------------------------------ forward
+// Block (token tile, vocab split); walks the split's vocab tiles. Writes the
+// split's running (max, sum of exp, label logit) per row into
+// part[0 | 1 | 2][split][row].
+template <bool STASH>
+__global__ void __launch_bounds__(THREADS)
+ce_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+              const int* __restrict__ labels, bf16* __restrict__ stash, long long ld_s,
+              float* __restrict__ part, int N, int V, int D, int tiles_per_split) {
+  __shared__ __align__(16) bf16 sX[2][BM * LDK];
+  __shared__ __align__(16) bf16 sW[2][BN * LDK];
+
+  const int row0 = blockIdx.x * BM, split = blockIdx.y, S = gridDim.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int n_vt = (V + BN - 1) / BN;
+  const int vt0 = split * tiles_per_split, vt1 = min(n_vt, vt0 + tiles_per_split);
+  const int nk = D / BK;
+
+  int lab[MT][2];
+  float m[MT][2], l[MT][2], lbl[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + warp * WM + i * 16 + h * 8 + g;
+      lab[i][h] = r < N ? labels[r] : -1;
+      m[i][h] = NEG_INF;
+      l[i][h] = 0.f;
+      lbl[i][h] = 0.f;
+    }
+
+  float acc[MT][NT][4];
+  for (int vt = vt0; vt < vt1; ++vt) {
+    const int col0 = vt * BN;
+    zero<NT>(acc);
+    load_k_tile<BM>(sX[0], x, D, row0, N, 0, D);
+    load_k_tile<BN>(sW[0], w, D, col0, V, 0, D);
+    cp_commit();
+    for (int kc = 0; kc < nk; ++kc) {
+      if (kc + 1 < nk) {
+        load_k_tile<BM>(sX[(kc + 1) & 1], x, D, row0, N, (kc + 1) * BK, D);
+        load_k_tile<BN>(sW[(kc + 1) & 1], w, D, col0, V, (kc + 1) * BK, D);
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();
+      const bf16* A = sX[kc & 1] + warp * WM * LDK;
+#pragma unroll
+      for (int k0 = 0; k0 < BK; k0 += 16) mma_kk<MT, NT>(acc, A, sW[kc & 1], k0, lane);
+      __syncthreads();  // every warp is done with this stage before it is refilled
+    }
+
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float mx = m[i][h];
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = col0 + n * 8 + 2 * t + e;
+            float s = acc[i][n][2 * h + e];
+            if (col >= V) s = NEG_INF;
+            acc[i][n][2 * h + e] = s;
+            mx = fmaxf(mx, s);
+            if (col == lab[i][h]) lbl[i][h] += s;
+          }
+        mx = quad_max(mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) sum += __expf(acc[i][n][2 * h] - mx) + __expf(acc[i][n][2 * h + 1] - mx);
+        l[i][h] = l[i][h] * __expf(m[i][h] - mx) + quad_sum(sum);
+        m[i][h] = mx;
+        if (STASH) {
+          const int r = row0 + warp * WM + i * 16 + h * 8 + g;
+          if (r < N) {
+            bf16* out = stash + (size_t)r * ld_s;
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              const int col = col0 + n * 8 + 2 * t;
+              if (col + 1 < V) {
+                *reinterpret_cast<uint32_t*>(out + col) =
+                    pack_bf16(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
+              } else if (col < V) {
+                out[col] = __float2bfloat16(acc[i][n][2 * h]);
+              }
+            }
+          }
+        }
+      }
+  }
+
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float b = quad_sum(lbl[i][h]);  // one lane of the quad holds the label column
+      const int r = row0 + warp * WM + i * 16 + h * 8 + g;
+      if (t == 0 && r < N) {
+        part[(size_t)split * N + r] = m[i][h];
+        part[(size_t)(S + split) * N + r] = l[i][h];
+        part[(size_t)(2 * S + split) * N + r] = b;
+      }
+    }
+}
+
+// One thread per row: lse = M + log sum_s l_s exp(m_s - M), loss = lse - label logit.
+__global__ void ce_fwd_combine_kernel(const float* __restrict__ part, float* __restrict__ loss,
+                                      float* __restrict__ lse, int N, int S) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= N) return;
+  float M = NEG_INF;
+  for (int s = 0; s < S; ++s) M = fmaxf(M, part[(size_t)s * N + r]);
+  float L = 0.f, b = 0.f;
+  for (int s = 0; s < S; ++s) {
+    L += part[(size_t)(S + s) * N + r] * __expf(part[(size_t)s * N + r] - M);
+    b += part[(size_t)(2 * S + s) * N + r];
+  }
+  const float z = M + logf(L);
+  lse[r] = z;
+  loss[r] = z - b;
+}
+
+// ------------------------------------------------------------- dx and dW
+// Both backward kernels run 8 warps (THREADS_BWD) over a 128 x 128 output
+// tile, as 4 x 2 warps of 32 x 64. Each depth stage first turns its score
+// tile into a ds tile in shared memory, every element once (stash mode: the
+// stash tile in place; recompute mode: the f32 score tile of x W^T, from
+// registers), then runs the product with ds as the A operand. Forming ds
+// apart from the product keeps the mma loop free of the exponentials.
+constexpr int THREADS_BWD = 256;
+constexpr int NTW = 64 / 8;          // mma column tiles per warp in dx and dW
+
+// Block (D tile, token tile, vocab split): part[split] (N x D, f32) = the
+// split's sum over vocab of ds W.
+template <bool STASH>
+__global__ void __launch_bounds__(THREADS_BWD, 2)
+ce_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+             const bf16* __restrict__ stash, long long ld_s, const int* __restrict__ labels,
+             const float* __restrict__ lse, const float* __restrict__ gr,
+             float* __restrict__ part, int N, int V, int D, int chunks_per_split) {
+  // sA: stash mode, the stash tile (BM tokens x BK vocab), turned into ds in
+  // place; recompute mode, the x tile (BM tokens x BK of D). sW: recompute
+  // mode, the W tile (BK vocab x BK of D); sDs: recompute mode, the ds tile.
+  // sB: the W tile of the product (BK vocab x BN of D).
+  __shared__ __align__(16) bf16 sA[2][BM * LDK];
+  __shared__ __align__(16) bf16 sW[STASH ? 1 : 2][STASH ? 8 : BK * LDK];
+  __shared__ __align__(16) bf16 sDs[STASH ? 8 : BM * LDK];
+  __shared__ __align__(16) bf16 sB[STASH ? 2 : 1][BK * LDN];
+  __shared__ float sLse[BM], sG[BM];
+  __shared__ int sLab[BM];
+
+  const int d0 = blockIdx.x * BN, row0 = blockIdx.y * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int n_kc = (V + BK - 1) / BK;
+  const int c0 = blockIdx.z * chunks_per_split, c1 = min(n_kc, c0 + chunks_per_split);
+
+  for (int i = threadIdx.x; i < BM; i += blockDim.x) {
+    const int r = row0 + i;
+    sLse[i] = r < N ? lse[r] : 0.f;
+    sG[i] = r < N ? gr[r] : 0.f;
+    sLab[i] = r < N ? labels[r] : -1;
+  }
+
+  float acc[MT][NTW][4];
+  zero<NTW>(acc);
+  uint32_t a[MT][4];
+
+  if (STASH) {
+    load_k_tile<BM>(sA[0], stash, ld_s, row0, N, c0 * BK, (int)ld_s);
+    load_n_tile(sB[0], w, D, c0 * BK, V, d0, D);
+    cp_commit();
+    for (int c = c0; c < c1; ++c) {
+      const int st = (c - c0) & 1;
+      if (c + 1 < c1) {
+        load_k_tile<BM>(sA[st ^ 1], stash, ld_s, row0, N, (c + 1) * BK, (int)ld_s);
+        load_n_tile(sB[st ^ 1], w, D, (c + 1) * BK, V, d0, D);
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();
+      {  // ds in place: thread -> row tid / 2, 16 vocab columns
+        const int r = threadIdx.x >> 1, cc = (threadIdx.x & 1) * 16;
+        ds_in_place16(sA[st] + r * LDK + cc, c * BK + cc, V, sLse[r], sG[r], sLab[r]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        a_rows(a, sA[st] + wm * WM * LDK, kk, lane);
+        mma_bt<NTW>(acc, a, sB[st] + wn * 64, kk, lane);
+      }
+      __syncthreads();  // every warp is done with this stage before it is refilled
+    }
+  } else {
+    const int nd = D / BK;
+    for (int c = c0; c < c1; ++c) {
+      // s (16 tokens of this warp x BK vocab) = x W^T over all of D, in f32
+      float s[1][BK / 8][4];
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) s[0][n][0] = s[0][n][1] = s[0][n][2] = s[0][n][3] = 0.f;
+      load_n_tile(sB[0], w, D, c * BK, V, d0, D);
+      load_k_tile<BM>(sA[0], x, D, row0, N, 0, D);
+      load_k_tile<BK>(sW[0], w, D, c * BK, V, 0, D);
+      cp_commit();
+      for (int dk = 0; dk < nd; ++dk) {
+        if (dk + 1 < nd) {
+          load_k_tile<BM>(sA[(dk + 1) & 1], x, D, row0, N, (dk + 1) * BK, D);
+          load_k_tile<BK>(sW[(dk + 1) & 1], w, D, c * BK, V, (dk + 1) * BK, D);
+          cp_commit();
+          cp_wait<1>();
+        } else {
+          cp_wait<0>();
+        }
+        __syncthreads();
+#pragma unroll
+        for (int k0 = 0; k0 < BK; k0 += 16)
+          mma_kk<1, BK / 8>(s, sA[dk & 1] + warp * 16 * LDK, sW[dk & 1], k0, lane);
+        __syncthreads();
+      }
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = warp * 16 + g + 8 * h, col = n * 8 + 2 * t, v = c * BK + col;
+          *reinterpret_cast<uint32_t*>(sDs + r * LDK + col) =
+              pack_bf16(ds_of(s[0][n][2 * h], v, V, sLse[r], sG[r], sLab[r]),
+                        ds_of(s[0][n][2 * h + 1], v + 1, V, sLse[r], sG[r], sLab[r]));
+        }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        a_rows(a, sDs + wm * WM * LDK, kk, lane);
+        mma_bt<NTW>(acc, a, sB[0] + wn * 64, kk, lane);
+      }
+      __syncthreads();  // sB, sA[0], sW[0] and sDs are refilled for the next chunk
+    }
+  }
+
+  float* out = part + (size_t)blockIdx.z * N * D;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + wm * WM + i * 16 + h * 8 + g;
+      if (r >= N) continue;
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        const int col = d0 + wn * 64 + n * 8 + 2 * t;
+        if (col < D)
+          *reinterpret_cast<float2*>(out + (size_t)r * D + col) =
+              make_float2(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
+      }
+    }
+}
+
+// dx = bf16(sum over the splits of part), in split order.
+__global__ void ce_dx_reduce_kernel(const float* __restrict__ part, bf16* __restrict__ dx,
+                                    long long n, int KS) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int k = 0; k < KS; ++k) v += part[k * n + i];
+    dx[i] = __float2bfloat16(v);
+  }
+}
+
+// Block (D tile, vocab tile): dW rows = sum over all tokens of ds^T x, in
+// f32. The statistics of a token chunk sit in shared memory beside it.
+template <bool STASH>
+__global__ void __launch_bounds__(THREADS_BWD, 2)
+ce_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+             const bf16* __restrict__ stash, long long ld_s, const int* __restrict__ labels,
+             const float* __restrict__ lse, const float* __restrict__ gr,
+             float* __restrict__ dw, int N, int V, int D) {
+  // sS: the ds tile as S[token][vocab] (BK tokens x BM vocab): stash mode,
+  // the stash tile turned into ds in place; recompute mode, written from the
+  // score tile. sWr, sXr: recompute mode, the W tile (BM vocab x BK of D)
+  // and the x tile (BK tokens x BK of D). sB: the x tile of the product
+  // (BK tokens x BN of D).
+  __shared__ __align__(16) bf16 sS[STASH ? 2 : 1][BK * LDN];
+  __shared__ __align__(16) bf16 sWr[STASH ? 1 : 2][STASH ? 8 : BM * LDK];
+  __shared__ __align__(16) bf16 sXr[STASH ? 1 : 2][STASH ? 8 : BK * LDK];
+  __shared__ __align__(16) bf16 sB[STASH ? 2 : 1][BK * LDN];
+  __shared__ float sL[2][BK], sG[2][BK];
+  __shared__ int sLab[2][BK];
+
+  const int d0 = blockIdx.x * BN, v0 = blockIdx.y * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int n_kc = (N + BK - 1) / BK;
+
+  // token statistics: thread i < BK holds those of token k0 + i in registers
+  // (issued a stage ahead, so the loads are in flight during the product)
+  // and stores them into stage st.
+  float nL = 0.f, nG = 0.f;
+  int nLab = -1;
+  auto fetch_stats = [&](int k0) {
+    const int r = k0 + threadIdx.x;
+    if (threadIdx.x < BK) {
+      nL = r < N ? lse[r] : 0.f;
+      nG = r < N ? gr[r] : 0.f;
+      nLab = r < N ? labels[r] : -1;
+    }
+  };
+  auto store_stats = [&](int st) {
+    if (threadIdx.x < BK) {
+      sL[st][threadIdx.x] = nL;
+      sG[st][threadIdx.x] = nG;
+      sLab[st][threadIdx.x] = nLab;
+    }
+  };
+
+  float acc[MT][NTW][4];
+  zero<NTW>(acc);
+  uint32_t a[MT][4];
+
+  if (STASH) {
+    load_n_tile(sS[0], stash, ld_s, 0, N, v0, (int)ld_s);
+    load_n_tile(sB[0], x, D, 0, N, d0, D);
+    cp_commit();
+    fetch_stats(0);
+    store_stats(0);
+    for (int c = 0; c < n_kc; ++c) {
+      const int st = c & 1;
+      if (c + 1 < n_kc) {
+        load_n_tile(sS[st ^ 1], stash, ld_s, (c + 1) * BK, N, v0, (int)ld_s);
+        load_n_tile(sB[st ^ 1], x, D, (c + 1) * BK, N, d0, D);
+        cp_commit();
+        fetch_stats((c + 1) * BK);
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();
+      {  // ds in place: thread -> token row tid / 8, 16 vocab columns
+        const int r = threadIdx.x >> 3, cc = (threadIdx.x & 7) * 16;
+        ds_in_place16(sS[st] + r * LDN + cc, v0 + cc, V, sL[st][r], sG[st][r], sLab[st][r]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        a_cols(a, sS[st], kk, wm * WM, lane);
+        mma_bt<NTW>(acc, a, sB[st] + wn * 64, kk, lane);
+      }
+      if (c + 1 < n_kc) store_stats(st ^ 1);  // last read in the previous stage
+      __syncthreads();
+    }
+  } else {
+    const int nd = D / BK;
+    for (int c = 0; c < n_kc; ++c) {
+      // s (16 vocab rows of this warp x BK tokens) = W x^T over all of D, in f32
+      float s[1][BK / 8][4];
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) s[0][n][0] = s[0][n][1] = s[0][n][2] = s[0][n][3] = 0.f;
+      load_n_tile(sB[0], x, D, c * BK, N, d0, D);
+      load_k_tile<BM>(sWr[0], w, D, v0, V, 0, D);
+      load_k_tile<BK>(sXr[0], x, D, c * BK, N, 0, D);
+      cp_commit();
+      fetch_stats(c * BK);
+      store_stats(0);
+      for (int dk = 0; dk < nd; ++dk) {
+        if (dk + 1 < nd) {
+          load_k_tile<BM>(sWr[(dk + 1) & 1], w, D, v0, V, (dk + 1) * BK, D);
+          load_k_tile<BK>(sXr[(dk + 1) & 1], x, D, c * BK, N, (dk + 1) * BK, D);
+          cp_commit();
+          cp_wait<1>();
+        } else {
+          cp_wait<0>();
+        }
+        __syncthreads();
+#pragma unroll
+        for (int k0 = 0; k0 < BK; k0 += 16)
+          mma_kk<1, BK / 8>(s, sWr[dk & 1] + warp * 16 * LDK, sXr[dk & 1], k0, lane);
+        __syncthreads();
+      }
+      // ds, stored transposed as S[token][vocab]
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = warp * 16 + g + 8 * (e >> 1), k = n * 8 + 2 * t + (e & 1);
+          sS[0][k * LDN + m] = __float2bfloat16(
+              ds_of(s[0][n][e], v0 + m, V, sL[0][k], sG[0][k], sLab[0][k]));
+        }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        a_cols(a, sS[0], kk, wm * WM, lane);
+        mma_bt<NTW>(acc, a, sB[0] + wn * 64, kk, lane);
+      }
+      __syncthreads();  // sB, sWr[0], sXr[0], sS and the statistics are refilled next chunk
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = v0 + wm * WM + i * 16 + h * 8 + g;
+      if (r >= V) continue;
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) {
+        const int col = d0 + wn * 64 + n * 8 + 2 * t;
+        if (col < D)
+          *reinterpret_cast<float2*>(dw + (size_t)r * D + col) =
+              make_float2(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
+      }
+    }
+}
+
+inline int cdiv(long long a, int b) { return (int)((a + b - 1) / b); }
+
+// Blocks of `kernel` at `threads` that the current device holds at once.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int threads, int* slots) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  *slots = per_sm * sms;
+  return e;
+}
+
+// Units of a reduction axis per block, when n_units are split over blocks
+// beside n_tiles output tiles: the first split count that fills at least
+// two waves of resident blocks with the last at least 90 % full, else the
+// one whose last wave is fullest (ties: the fewer splits).
+int units_per_split(int n_units, int n_tiles, int slots) {
+  int best_per = n_units;
+  double best_fill = -1.0;
+  const int cap = 8 * slots / n_tiles + 1;
+  const int max_splits = n_units < cap ? n_units : cap;
+  for (int splits = 1; splits <= max_splits; ++splits) {
+    const int per = cdiv(n_units, splits);
+    const long long blocks = (long long)cdiv(n_units, per) * n_tiles;
+    const double fill = (double)blocks / (double)(cdiv(blocks, slots) * (long long)slots);
+    if (blocks >= 2LL * slots && fill >= 0.9) return per;
+    if (fill > best_fill || (fill == best_fill && per > best_per)) {
+      best_fill = fill;
+      best_per = per;
+    }
+  }
+  return best_per;
+}
+
+// Vocab tiles per block of ce_fwd_kernel.
+cudaError_t fwd_split(int N, int V, bool stash, int* tiles_per_split) {
+  int slots = 0;
+  const cudaError_t e = stash ? resident_blocks(ce_fwd_kernel<true>, THREADS, &slots)
+                              : resident_blocks(ce_fwd_kernel<false>, THREADS, &slots);
+  if (e == cudaSuccess) *tiles_per_split = units_per_split(cdiv(V, BN), cdiv(N, BM), slots);
+  return e;
+}
+
+// Vocab chunks of BK per block of ce_dx_kernel.
+cudaError_t dx_split(int N, int V, int D, bool stash, int* chunks_per_split) {
+  int slots = 0;
+  const cudaError_t e = stash ? resident_blocks(ce_dx_kernel<true>, THREADS_BWD, &slots)
+                              : resident_blocks(ce_dx_kernel<false>, THREADS_BWD, &slots);
+  if (e == cudaSuccess)
+    *chunks_per_split = units_per_split(cdiv(V, BK), cdiv(N, BM) * cdiv(D, BN), slots);
+  return e;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Floats of scratch (`part`) that ce_fwd takes for these shapes on the
+// current device; a CUDA error as a negative number.
+long long ce_fwd_scratch(int N, int V, int stash) {
+  int tps = 0;
+  const cudaError_t e = fwd_split(N, V, stash != 0, &tps);
+  if (e != cudaSuccess) return -(long long)e;
+  return 3LL * cdiv(cdiv(V, BN), tps) * N;
+}
+
+// Floats of scratch (`part`) that ce_dx takes, as ce_fwd_scratch.
+long long ce_dx_scratch(int N, int V, int D, int stash) {
+  int cps = 0;
+  const cudaError_t e = dx_split(N, V, D, stash != 0, &cps);
+  if (e != cudaSuccess) return -(long long)e;
+  return (long long)cdiv(cdiv(V, BK), cps) * N * D;
+}
+
+// loss, lse (N,) f32; the stash (N, ld_s) bf16 when `stash` is not null;
+// part: ce_fwd_scratch(N, V, stash != null) f32 of scratch, which holds
+// per vocab split the partial (max, sum, label logit) rows.
+int ce_fwd(const void* x, const void* w, const void* labels, void* stash, long long ld_s,
+           void* part, void* loss, void* lse, int N, int V, int D, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int tiles_per_split = 0;
+  cudaError_t err = fwd_split(N, V, stash != nullptr, &tiles_per_split);
+  if (err != cudaSuccess) return (int)err;
+  const int S = cdiv(cdiv(V, BN), tiles_per_split);
+  const dim3 grid(cdiv(N, BM), S);
+  if (stash)
+    ce_fwd_kernel<true><<<grid, THREADS, 0, s>>>((const bf16*)x, (const bf16*)w,
+                                                 (const int*)labels, (bf16*)stash, ld_s,
+                                                 (float*)part, N, V, D, tiles_per_split);
+  else
+    ce_fwd_kernel<false><<<grid, THREADS, 0, s>>>((const bf16*)x, (const bf16*)w,
+                                                  (const int*)labels, nullptr, 0,
+                                                  (float*)part, N, V, D, tiles_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ce_fwd_combine_kernel<<<cdiv(N, 256), 256, 0, s>>>((const float*)part, (float*)loss,
+                                                     (float*)lse, N, S);
+  return (int)cudaGetLastError();
+}
+
+// dx (N, D) bf16; part: ce_dx_scratch(N, V, D, stash != null) f32 of
+// scratch, one (N, D) partial sum per vocab split. Stash mode when `stash`
+// is not null.
+int ce_dx(const void* x, const void* w, const void* stash, long long ld_s, const void* labels,
+          const void* lse, const void* g, void* part, void* dx, int N, int V, int D,
+          void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int chunks_per_split = 0;
+  cudaError_t err = dx_split(N, V, D, stash != nullptr, &chunks_per_split);
+  if (err != cudaSuccess) return (int)err;
+  const int KS = cdiv(cdiv(V, BK), chunks_per_split);
+  const dim3 grid(cdiv(D, BN), cdiv(N, BM), KS);
+  if (stash)
+    ce_dx_kernel<true><<<grid, THREADS_BWD, 0, s>>>(
+        (const bf16*)x, (const bf16*)w, (const bf16*)stash, ld_s, (const int*)labels,
+        (const float*)lse, (const float*)g, (float*)part, N, V, D, chunks_per_split);
+  else
+    ce_dx_kernel<false><<<grid, THREADS_BWD, 0, s>>>(
+        (const bf16*)x, (const bf16*)w, nullptr, 0, (const int*)labels, (const float*)lse,
+        (const float*)g, (float*)part, N, V, D, chunks_per_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long n = (long long)N * D;
+  const int blocks = cdiv(n, 256) < 4096 ? cdiv(n, 256) : 4096;
+  ce_dx_reduce_kernel<<<blocks, 256, 0, s>>>((const float*)part, (bf16*)dx,
+                                                               n, KS);
+  return (int)cudaGetLastError();
+}
+
+// dW (V, D) f32. Stash mode when `stash` is not null.
+int ce_dw(const void* x, const void* w, const void* stash, long long ld_s, const void* labels,
+          const void* lse, const void* g, void* dw, int N, int V, int D, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(cdiv(D, BN), cdiv(V, BM));
+  if (stash)
+    ce_dw_kernel<true><<<grid, THREADS_BWD, 0, s>>>((const bf16*)x, (const bf16*)w,
+                                                (const bf16*)stash, ld_s, (const int*)labels,
+                                                (const float*)lse, (const float*)g,
+                                                (float*)dw, N, V, D);
+  else
+    ce_dw_kernel<false><<<grid, THREADS_BWD, 0, s>>>((const bf16*)x, (const bf16*)w, nullptr, 0,
+                                                 (const int*)labels, (const float*)lse,
+                                                 (const float*)g, (float*)dw, N, V, D);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

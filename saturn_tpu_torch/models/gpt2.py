@@ -375,7 +375,38 @@ def build_gpt2(name: str = "gpt2-small", pretrained: Any = None, **overrides) ->
             "pretrained: Hugging Face checkpoint ingest (models/ingest.py) is "
             "a later item of the PyTorch port"
         )
-    cfg = resolve_attention(config_for(name, **overrides))
+    return spec_for(resolve_attention(config_for(name, **overrides)))
+
+
+def fused_head_ok(cfg: GPT2Config) -> bool:
+    """Whether a spec of ``cfg`` offers the fused head + loss: where the CUDA
+    CE kernels can run it (``ops.ce.ce_supported``), or on a machine without
+    a card, where the plain version serves. Elsewhere (f32 compute on the
+    card) the loss runs over the logits, by rule."""
+    from saturn_tpu_torch.ops.ce import ce_supported
+
+    return ce_supported(cfg) or not torch.cuda.is_available()
+
+
+def next_token_labels(tokens: torch.Tensor) -> torch.Tensor:
+    """Fused-head labels of ``pretraining_loss``: the next token, -1 at the
+    last position, so the mean runs over the B * (T - 1) real targets."""
+    return F.pad(tokens[:, 1:].to(torch.int32), (0, 1), value=-1)
+
+
+def spec_for(cfg: GPT2Config, *, inputs_fn=None, labels_fn=None,
+             objective: Optional[str] = None) -> ModelSpec:
+    """The ModelSpec of a resolved config (``build_gpt2`` and the BERT
+    factory build through it).
+
+    ``inputs_fn`` transforms the tokens before every forward entry point
+    (BERT's [MASK] substitution). ``labels_fn`` gives the fused head's labels
+    (-1 ignored) from the tokens, for the loss tagged ``objective``; a causal
+    config defaults to next-token labels, tagged "causal-lm". The fused loss
+    is set where ``fused_head_ok(cfg)`` holds."""
+    if labels_fn is None and cfg.causal:
+        labels_fn, objective = next_token_labels, "causal-lm"
+    inputs_fn = inputs_fn or (lambda tokens: tokens)
 
     def init_fn(generator: torch.Generator, device=None) -> GPT2:
         with torch.device("meta"):
@@ -389,23 +420,38 @@ def build_gpt2(name: str = "gpt2-small", pretrained: Any = None, **overrides) ->
             return GPT2(cfg)
 
     def apply_fn(model: GPT2, tokens: torch.Tensor) -> torch.Tensor:
-        return model(tokens)
+        return model(inputs_fn(tokens))
 
     def hidden_fn(model: GPT2, tokens: torch.Tensor) -> torch.Tensor:
         return model.hidden(tokens)
+
+    fused_loss_fn = fused_loss_parts_fn = None
+    if labels_fn is not None and fused_head_ok(cfg):
+        # Fused head + loss (ops/ce.py): the hidden states and the f32 tied
+        # wte go straight into the CE kernels, no (B, T, V) logits. The same
+        # objective as the tagged loss over apply_fn: CE against labels_fn's
+        # labels, mean over the labels that are not -1.
+        def _fused(model, tokens, reduction):
+            from saturn_tpu_torch.ops.ce import fused_linear_cross_entropy
+
+            return fused_linear_cross_entropy(model.hidden(inputs_fn(tokens)), model.wte,
+                                              labels_fn(tokens), reduction=reduction)
+
+        def fused_loss_fn(model, tokens):
+            return _fused(model, tokens, "mean")
+
+        def fused_loss_parts_fn(model, tokens):
+            # (loss_sum, valid_count) for callers that sum across devices
+            return _fused(model, tokens, "sum_count")
 
     return ModelSpec(
         init_fn=init_fn,
         apply_fn=apply_fn,
         config=cfg,
         hints={"block_param_key": "blocks", "n_layers": cfg.n_layers},
-        # The fused head + cross-entropy kernels (JAX ops/ce.py) are the next
-        # slice of the port; until they land, pretraining_loss runs over the
-        # logits here, as it does in the JAX package for any spec without a
-        # fused loss.
-        fused_loss_fn=None,
-        fused_loss_parts_fn=None,
-        fused_loss_objective=None,
+        fused_loss_fn=fused_loss_fn,
+        fused_loss_parts_fn=fused_loss_parts_fn,
+        fused_loss_objective=objective if fused_loss_fn else None,
         hidden_fn=hidden_fn,
         meta_init_fn=meta_init_fn,
     )

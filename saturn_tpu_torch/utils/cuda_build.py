@@ -1,6 +1,6 @@
 """Build the port's hand-written CUDA kernels at first use and load them.
 
-``csrc/<name>.cu`` holds kernels with plain ``extern "C"`` launchers. It is
+Each ``csrc/<name>.cu`` holds kernels with plain ``extern "C"`` launchers. It is
 compiled by ``nvcc`` into ``csrc/build/lib<name>-<digest>.so`` (the digest
 covers the source and the flags, so an edited source never loads a stale
 library) and loaded with ``ctypes``. Nothing here runs at import time: the
@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -59,24 +59,47 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _start_build(name: str):
+    """Start ``nvcc`` for ``csrc/<name>.cu`` unless its library exists;
+    returns (library path, temporary path, process) or None."""
+    out = library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.Popen(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    return out, tmp, proc
+
+
+def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """The loaded libraries for ``csrc/<name>.cu`` of each name. Sources with
+    no library of their current text are compiled first, one ``nvcc`` each,
+    all at once; every compiler is waited for before any failure raises."""
+    with _lock:
+        builds = {n: _start_build(n) for n in names if n not in _loaded}
+        failed = []
+        for name, build in builds.items():
+            if build is None:
+                continue
+            out, tmp, proc = build
+            log, _ = proc.communicate()
+            out.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed for csrc/{name}.cu:\n{log}")
+            else:
+                os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name in builds:
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
+        return {n: _loaded[n] for n in names}
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, compiled first if no
     library of the current source exists. Raises if ``nvcc`` fails."""
-    with _lock:
-        if name in _loaded:
-            return _loaded[name]
-        out = library_path(name)
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-            )
-            out.with_suffix(".log").write_text(proc.stdout)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{proc.stdout}")
-            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-        _loaded[name] = ctypes.CDLL(str(out))
-        return _loaded[name]
+    return load_all([name])[name]

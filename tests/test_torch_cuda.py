@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from saturn_tpu_torch.ops import flash
+from saturn_tpu_torch.ops import ce, flash
 
 BF16 = 2e-2
 
@@ -104,3 +104,111 @@ def test_cuda_rejects_what_the_kernels_do_not_take(cuda_device):
     q = q.to(torch.bfloat16)
     with pytest.raises(NotImplementedError, match="tile"):
         flash.flash_attention(q, q, q, block_q=128, block_k=128)
+
+
+def _ce_case(N, D, V, device, seed=0, tail=40):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((N, D)) * 0.5, dtype=torch.bfloat16, device=device)
+    w = torch.tensor(rng.standard_normal((V, D)) * 0.5, dtype=torch.bfloat16, device=device)
+    labels = rng.integers(0, V, N).astype(np.int32)
+    labels[N - tail:] = -1  # a tail of ignored rows
+    return x, w, torch.tensor(labels, device=device)
+
+
+#: CE loss and lse (f32, the same arithmetic in another order), absolute.
+CE_ROW_ATOL = 1e-4
+#: CE dx and dW against their plain versions (the same bf16 rounding of ds),
+#: by relative norm.
+CE_GRAD_REL = 1e-2
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stash", [True, False], ids=["stash", "recompute"])
+@pytest.mark.parametrize("D,V", [(64, 300), (128, 1000), (64, 1000), (128, 300)])
+def test_ce_kernels_match_plain(cuda_device, stash, D, V):
+    """Each CE kernel against its plain version, with g = 1 per counted row
+    (the cotangent of a summed loss) so the gradients are O(1); dx and dW
+    once with the labels and once with every label ignored and g = 1 (the
+    softmax part alone, which the one-hot term would otherwise hide)."""
+    N, tail = 256, 40
+    x, w, labels = _ce_case(N, D, V, cuda_device, seed=D + V, tail=tail)
+    g = (labels >= 0).float()
+    none, ones = torch.full_like(labels, -1), torch.ones_like(g)
+    before = dict(ce.LAUNCHES)
+    loss, lse, s = ce.ce_fwd(x, w, labels, stash)
+    dx = ce.ce_dx(x, w, labels, lse, g, s)
+    dw = ce.ce_dw(x, w, labels, lse, g, s)
+    launched = {n: ce.LAUNCHES[n] - before[n] for n in before}
+    soft = (ce.ce_dx(x, w, none, lse, ones, s), ce.ce_dw(x, w, none, lse, ones, s))
+    loss_r, lse_r, s_r = ce.ce_fwd_reference(x, w, labels, stash)
+    dx_r = ce.ce_dx_reference(x, w, labels, lse, g, s_r)
+    dw_r = ce.ce_dw_reference(x, w, labels, lse, g, s_r)
+    soft_r = (ce.ce_dx_reference(x, w, none, lse, ones, s_r),
+              ce.ce_dw_reference(x, w, none, lse, ones, s_r))
+    torch.cuda.synchronize()
+    for name, a, b in (("loss", loss, loss_r), ("lse", lse, lse_r)):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=CE_ROW_ATOL,
+                                   msg=lambda m: f"{name}: {m}")
+    if stash:  # one bf16 step of the plain value
+        torch.testing.assert_close(s.float(), s_r.float(), rtol=2.0 ** -7, atol=CE_ROW_ATOL)
+    for name, a, b in (("dx", dx, dx_r), ("dw", dw, dw_r), ("softmax dx", soft[0], soft_r[0]),
+                       ("softmax dw", soft[1], soft_r[1])):
+        assert _rel_err(a, b) <= CE_GRAD_REL, (name, _rel_err(a, b))
+    # the counted rows get a gradient, the ignored tail nothing
+    assert (dx[:N - tail].float().abs().sum(1) > 0).all()
+    assert torch.count_nonzero(dx[-tail:]) == 0
+    assert (dw.abs().sum(1) > 0).all() and (soft[1].abs().sum(1) > 0).all()
+    assert launched == {"ce_fwd": 1, "ce_dx": 1, "ce_dw": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stash", [True, False], ids=["stash", "recompute"])
+def test_fused_ce_grads_match_dense(cuda_device, stash):
+    """fused_linear_cross_entropy's autograd (the three kernels) against the
+    dense op's autograd, f32 head weight as on the training path. The dense
+    op keeps the softmax gradient in f32 where the kernels round it to bf16:
+    the gradients agree by relative norm within the bf16 band."""
+    x, w, labels = _ce_case(512, 128, 1000, cuda_device, seed=7)
+    out = []
+    for fn, kw in ((ce.fused_linear_cross_entropy, {"stash": stash}),
+                   (ce.dense_linear_cross_entropy, {})):
+        xg = x.detach().clone().requires_grad_(True)
+        wg = w.float().detach().clone().requires_grad_(True)
+        loss = fn(xg, wg, labels, **kw)
+        out.append([loss, *torch.autograd.grad(loss, (xg, wg))])
+    (loss, dx, dw), (loss_r, dx_r, dw_r) = out
+    assert dw.dtype == torch.float32
+    torch.testing.assert_close(loss, loss_r, rtol=0.0, atol=CE_ROW_ATOL)
+    for name, a, b in (("dx", dx, dx_r), ("dw", dw, dw_r)):
+        assert _rel_err(a, b) <= BF16, (name, _rel_err(a, b))
+    assert (dx[:-40].float().abs().sum(1) > 0).all() and torch.count_nonzero(dx[-40:]) == 0
+    assert (dw.abs().sum(1) > 0).all()
+
+
+@pytest.mark.cuda
+def test_ce_rejects_what_the_kernels_do_not_take(cuda_device):
+    x, w, labels = _ce_case(128, 64, 300, cuda_device)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ce.ce_fwd(x.float(), w, labels, True)
+    with pytest.raises(ValueError, match="d_model"):
+        ce.ce_fwd(x[:, :48].contiguous(), w[:, :48].contiguous(), labels, True)
+    with pytest.raises(NotImplementedError, match="tile"):
+        ce.fused_linear_cross_entropy(x, w, labels, block_n=64)
+    # every tensor on the card of x: labels, the row statistics, the stash
+    with pytest.raises(ValueError, match="must be on"):
+        ce.ce_fwd(x, w, labels.cpu(), True)
+    with pytest.raises(ValueError, match="must be on"):
+        ce.fused_linear_cross_entropy(x, w.float(), labels.cpu())
+    loss, lse, s = ce.ce_fwd(x, w, labels, True)
+    g = (labels >= 0).float()
+    with pytest.raises(ValueError, match="must be on"):
+        ce.ce_dx(x, w, labels, lse.cpu(), g, s)
+    with pytest.raises(ValueError, match="must be on"):
+        ce.ce_dw(x, w, labels, lse, g.cpu(), s)
+    with pytest.raises(ValueError, match="must be on"):
+        ce.ce_dw(x, w, labels, lse, g, s.cpu())

@@ -5,11 +5,13 @@ package.
   (f32; 1e-6: one elementwise update).
 - A 5-step ``test-tiny`` loss trajectory through the port's dp ``execute``
   matches the JAX package's own dp train step on the same init and batches
-  (f32 on both sides; 1e-4: five optimizer steps of f32 sums taken in
-  another order).
+  (f32 on both sides, both through the fused head with its bf16 logits
+  stash; 1e-4: five optimizer steps of f32 sums taken in another order).
 - Resuming from a mid-run checkpoint equals the uninterrupted run exactly
   (same process, same arithmetic), with the data cursor right.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -96,7 +98,14 @@ def _jax_trajectory(n_steps, save_dir):
     return params0, losses
 
 
-def test_dp_trajectory_matches_jax(tmp_path):
+def test_dp_trajectory_matches_jax(tmp_path, monkeypatch):
+    # Both sides take the fused head: the port's plain version, and the JAX
+    # Pallas kernels in interpret mode (the JAX model imports
+    # fused_linear_cross_entropy at call time), both with a bf16 logits stash.
+    from saturn_tpu.ops import ce as jce
+
+    monkeypatch.setattr(jce, "fused_linear_cross_entropy",
+                        functools.partial(jce.fused_linear_cross_entropy, interpret=True))
     params0, want = _jax_trajectory(5, str(tmp_path / "jax"))
     task, tech = _task(tmp_path)
     # start the port from the JAX init: a step-0 checkpoint of those weights
