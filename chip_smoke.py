@@ -8,16 +8,21 @@ Phases, in order; any failure is an exception and a non-zero exit:
 1. Device: the card's name and power limit (``nvidia-smi``), its compute
    capability, and the build of the CUDA kernels from
    ``saturn_tpu_torch/csrc/flash_attn.cu`` and ``csrc/linear_ce.cu`` (one
-   ``nvcc`` each, started together), with each kernel's ptxas line.
+   ``nvcc`` each, started together), with each kernel's ptxas line and the
+   wgmma / TMA / cp.async / mma.sync instructions in its SASS
+   (``cuobjdump``); the flash forward and dK/dV kernels must hold wgmma.
 2. Kernels against their plain PyTorch versions: flash forward, dQ and
    dK/dV at the GPT-2-small training shape (B 8, H 12, T 512, D 64, bf16,
-   causal), a grouped-query shape (B 2, H 32, KV 4, T 1024, D 64) and a
-   non-causal one; the CE head's forward, dx and dW at the main shape
-   (N 4096, D 768, V 50304) in stash and in recompute mode and at an odd
-   shape (N 4000, V 50257, the last 64 labels ignored). Each kernel's device
-   time, the plain version's and the library call's (SDPA; the unfused
-   ``F.linear`` + ``F.cross_entropy``), all read from torch.profiler, and
-   the kernel's bound on the card.
+   causal), a grouped-query shape (B 2, H 32, KV 4, T 1024, D 64), the main
+   shape non-causal, one tile (T 64), T 320 (T % 128 == 64) and head dim 128
+   with grouped queries (H 8, KV 2), causal and not; the CE head's forward,
+   dx and dW at the main shape (N 4096, D 768, V 50304) in stash and in
+   recompute mode and at an odd shape (N 4000, V 50257, the last 64 labels
+   ignored). Each kernel's device time, the plain version's and the library
+   call's, all read from torch.profiler, and the kernel's bound on the card.
+   The library call of a forward kernel is the library's forward (SDPA; the
+   unfused ``F.linear`` + ``F.cross_entropy``), of a backward kernel the
+   library's backward alone, run on a graph built outside the timed window.
 3. The port's main path at full width: a heterogeneous sweep of two
    GPT-2-small tasks (b8 x 512, differing only in lr, ``pretraining_loss``)
    and one BERT-base task (b8 x 512, ``mlm_loss``), synthetic data, through
@@ -38,12 +43,20 @@ Phases, in order; any failure is an exception and a non-zero exit:
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
+
+    python3 chip_smoke.py --flash-sweep
+
+builds the kernels and only times the flash forward and dK/dV kernels
+against SDPA's forward and backward alone over a sweep of sequence lengths
+and batch sizes (``chiprun_out/flash_sweep.json``): how their time scales
+with the work.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -59,6 +72,10 @@ CKPTS = os.path.join(REPO, "saturn_ckpts", "chip_smoke")
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 BF16_BAND = 2e-2           # the bf16 tolerance of tests/test_flash.py and tests/test_ce.py
+FLASH_LSE_ATOL = 1e-5      # flash lse (f32) against the plain version, absolute
+FLASH_O_ATOL = 2.0 ** -8   # flash o: one bf16 step of the plain value (rtol 2^-7) plus this
+FLASH_GRAD_REL = 2e-3      # flash dq, dk and dv against the plain version, by relative norm
+                           # (readings on an H100: lse at most 9.5e-7, gradients 4.4e-4)
 CE_ROW_ATOL = 1e-4         # CE loss and lse (f32) against the plain version
 CE_GRAD_REL = 2e-3         # CE dx and dW against the plain version, by relative norm
                            # (readings on an H100: at most 3.5e-4; loss and lse 7.6e-6)
@@ -95,6 +112,43 @@ KERNEL_SYMBOLS = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: Instructions counted in each kernel's SASS: wgmma, TMA tile loads,
+#: cp.async copies, mma.sync.
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
+#: Kernels whose SASS must hold wgmma, by source.
+WGMMA_KERNELS = {"flash_attn": ("fwd_kernel", "dkv_kernel")}
+
+
+def check_sass(cuda_build, src: str) -> None:
+    """Log, per kernel of the built library, how many of each SASS_OPS
+    instruction its SASS holds (``cuobjdump --dump-sass``); raise if a kernel
+    of WGMMA_KERNELS[src] is missing or holds no HGMMA."""
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(cuda_build.library_path(src))], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    with open(os.path.join(OUT, f"sass_{src}.txt"), "w") as f:
+        f.write(sass)
+    ops, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            ops[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            for op in SASS_OPS:
+                ops[fn][op] += op in line
+    required, seen = set(WGMMA_KERNELS.get(src, ())), set()
+    for fn, counts in sorted(ops.items()):
+        m = re.search(r"((?:ce_)?[a-z]+(?:_[a-z]+)?_kernel)(?:ILi(\d+)E)?", fn)
+        name = (f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)) if m else fn
+        log(f"    SASS {src} {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
+        if m and m.group(1) in required:
+            seen.add(m.group(1))
+            if not counts["HGMMA"]:
+                raise AssertionError(f"{name} in {src}: no HGMMA (wgmma) in its SASS")
+    if seen != required:
+        raise AssertionError(f"no SASS found for {required - seen} in {src}")
 
 
 def card_line() -> str:
@@ -146,30 +200,49 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
-def profiled(fn, n: int):
+class NoDeviceActivity(AssertionError):
+    """A profiled window in which torch.profiler saw no device work."""
+
+
+def profiled(fn, n: int, attempts: int = 5):
     """Run ``fn`` ``n`` times under torch.profiler, synchronized at the end;
-    returns the device events. Raises if the profiler saw no device work."""
+    returns the device events. torch.profiler now and then records none of a
+    window's device work, sometimes several windows running: such a window
+    is taken again, up to ``attempts`` windows in all, and then this raises."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    events = device_events(prof)
-    if not events:
-        raise AssertionError("torch.profiler recorded no device activity")
-    return prof, events
+    for attempt in range(attempts):
+        if attempt:
+            time.sleep(1.0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if events:
+            return prof, events
+    raise NoDeviceActivity(f"torch.profiler recorded no device activity in {attempts} windows")
 
 
-def device_ms(fn, n: int = 20, warmup: int = 3) -> float:
+def device_ms(fn, n: int = 20, warmup: int = 3, windows: int = 3) -> float:
     """Device milliseconds per call of ``fn``: the union of its kernels',
     copies' and memsets' intervals over ``n`` profiled calls, divided by
-    ``n``. Host work between launches (argument checks, allocation, the
-    ctypes call, autograd's bookkeeping) is left out."""
+    ``n``; the median of ``windows`` such windows, which leaves out a window
+    whose device events the profiler partly lost. Host work between launches
+    (argument checks, allocation, the ctypes call, autograd's bookkeeping) is
+    left out. Where the profiler records nothing at all, the time between
+    CUDA events instead (host dispatch included), and a line says so."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    return busy_ms(profiled(fn, n)[1]) / n
+    times = []
+    for _ in range(windows):
+        try:
+            times.append(busy_ms(profiled(fn, n)[1]) / n)
+        except NoDeviceActivity as e:
+            log(f"  ({e}: this time is between CUDA events, host dispatch included)")
+            return events_ms(fn, n, warmup=0)
+    return float(np.median(times))
 
 
 def bound(flops: float, nbytes: float):
@@ -215,7 +288,13 @@ def work(B, H, KV, T, D, causal):
 
 def check_kernels(flash, shape, causal, seed, timed):
     """Each kernel against its plain version on the same inputs; with
-    ``timed``, also the times. Returns {name: row}."""
+    ``timed``, also the times. Returns {name: row}.
+
+    Tolerances: lse (f32, the same arithmetic in another order) within
+    FLASH_LSE_ATOL; o within one bf16 step of the plain value (rtol 2^-7)
+    plus FLASH_O_ATOL: both versions round P to bf16, the kernel at each
+    tile's running max, the plain version at the final one; dq, dk and dv by
+    relative norm within FLASH_GRAD_REL."""
     B, H, KV, T, D = shape
     q, k, v, do = kernel_inputs(B, H, KV, T, D, seed)
     o, lse = flash.flash_fwd(q, k, v, causal, H, KV)
@@ -226,20 +305,34 @@ def check_kernels(flash, shape, causal, seed, timed):
     dq_ref = flash.flash_dq_reference(q, k, v, do, lse, delta, causal, H, KV)
     dk_ref, dv_ref = flash.flash_dkv_reference(q, k, v, do, lse, delta, causal, H, KV)
     torch.cuda.synchronize()
-    rows = {}
-    for name, pairs in (("flash_fwd", ((o, o_ref), (lse, lse_ref))),
-                        ("flash_dq", ((dq, dq_ref),)),
-                        ("flash_dkv", ((dk, dk_ref), (dv, dv_ref)))):
-        err = 0.0
-        for got, want in pairs:
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"{name} {shape} causal={causal}: non-finite output")
-            torch.testing.assert_close(got.float(), want.float(), rtol=BF16_BAND,
-                                       atol=BF16_BAND, msg=lambda m: f"{name} {shape}: {m}")
-            err = max(err, (got.float() - want.float()).abs().max().item())
-        rows[name] = {"max_abs_err": err}
-    log(f"  kernels vs plain at (B,H,KV,T,D)={shape} causal={causal}: " + ", ".join(
-        f"{n} max|err| {r['max_abs_err']:.3e}" for n, r in rows.items()) + " (band 2e-2)")
+    where = f"(B,H,KV,T,D)={shape} causal={causal}"
+    for name, got in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk), ("dv", dv)):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"flash {name} {where}: non-finite output")
+    torch.testing.assert_close(lse, lse_ref, rtol=0.0, atol=FLASH_LSE_ATOL,
+                               msg=lambda m: f"flash lse {where}: {m}")
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=2.0 ** -7, atol=FLASH_O_ATOL,
+                               msg=lambda m: f"flash o {where}: {m}")
+    rel = {"dq": rel_err(dq, dq_ref), "dk": rel_err(dk, dk_ref), "dv": rel_err(dv, dv_ref)}
+    bad = {n: r for n, r in rel.items() if not r <= FLASH_GRAD_REL}
+    if bad:
+        raise AssertionError(f"flash {where}: relative errors {bad} above {FLASH_GRAD_REL}")
+    err = {n: (got.float() - want.float()).abs().max().item()
+           for n, got, want in (("o", o, o_ref), ("lse", lse, lse_ref), ("dq", dq, dq_ref),
+                                ("dk", dk, dk_ref), ("dv", dv, dv_ref))}
+    # what the o check needs beyond one bf16 step: max(|err| - 2^-7 |plain|)
+    o_excess = ((o.float() - o_ref.float()).abs() - 2.0 ** -7 * o_ref.float().abs()).max().item()
+    rows = {
+        "flash_fwd": {"max_abs_err": max(err["o"], err["lse"]), "o_max_abs_err": err["o"],
+                      "lse_max_abs_err": err["lse"], "o_beyond_one_step": o_excess},
+        "flash_dq": {"max_abs_err": err["dq"], "rel_err": rel["dq"]},
+        "flash_dkv": {"max_abs_err": max(err["dk"], err["dv"]), "rel_err": max(rel["dk"], rel["dv"])},
+    }
+    log(f"  flash kernels vs plain at {where}: max|err| "
+        + ", ".join(f"{n} {e:.3e}" for n, e in err.items())
+        + f"; o beyond one bf16 step {o_excess:.3e} (within {FLASH_O_ATOL:g}), lse within "
+        + f"{FLASH_LSE_ATOL:g}; relative " + ", ".join(f"{n} {r:.3e}" for n, r in rel.items())
+        + f" (within {FLASH_GRAD_REL:g})")
     if not timed:
         return rows
 
@@ -250,25 +343,35 @@ def check_kernels(flash, shape, causal, seed, timed):
     v4g = v4.detach().clone().requires_grad_(True)
     do4 = do.view(B, H, T, D)
 
-    def sdpa_fwd_bwd():
-        out = F.scaled_dot_product_attention(q4g, k4g, v4g, **sdpa_kw)
-        torch.autograd.grad(out, (q4g, k4g, v4g), do4)
+    out4 = F.scaled_dot_product_attention(q4g, k4g, v4g, **sdpa_kw)  # the graph, built once
+
+    def sdpa_bwd():
+        torch.autograd.grad(out4, (q4g, k4g, v4g), do4, retain_graph=True)
 
     sdpa_fwd_ms = device_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, **sdpa_kw))
-    sdpa_fb_ms = device_ms(sdpa_fwd_bwd)
+    sdpa_bwd_ms = device_ms(sdpa_bwd)
     timings = {
         "flash_fwd": (lambda: flash.flash_fwd(q, k, v, causal, H, KV),
                       lambda: flash.flash_fwd_reference(q, k, v, causal, H, KV), sdpa_fwd_ms),
         "flash_dq": (lambda: flash.flash_dq(q, k, v, do, lse, delta, causal, H, KV),
                      lambda: flash.flash_dq_reference(q, k, v, do, lse, delta, causal, H, KV),
-                     sdpa_fb_ms),
+                     sdpa_bwd_ms),
         "flash_dkv": (lambda: flash.flash_dkv(q, k, v, do, lse, delta, causal, H, KV),
                       lambda: flash.flash_dkv_reference(q, k, v, do, lse, delta, causal, H, KV),
-                      sdpa_fb_ms),
+                      sdpa_bwd_ms),
     }
     time_rows(rows, timings, work(B, H, KV, T, D, causal),
-              lambda n: "SDPA " + ("fwd" if n == "flash_fwd" else "fwd+bwd"))
+              lambda n: "SDPA " + ("fwd" if n == "flash_fwd" else "bwd alone"))
+    log_backward_family("flash dq + dkv", rows["flash_dq"]["ms"] + rows["flash_dkv"]["ms"],
+                        "SDPA's backward alone", sdpa_bwd_ms)
     return rows
+
+
+def log_backward_family(kernels, kernels_ms, library, library_ms) -> None:
+    """One line comparing a family's summed backward kernels with the
+    library's backward alone (device times)."""
+    log(f"  {kernels}: {kernels_ms:.4f} ms against {library} {library_ms:.4f} ms "
+        f"({kernels_ms / library_ms:.2f}x)")
 
 
 def ce_work(N, D, V, stash):
@@ -367,22 +470,66 @@ def check_ce(ce, N, D, V, stash, seed, tail, timed):
     def lib_fwd():
         return F.cross_entropy(F.linear(x, w).float(), lab64, ignore_index=-1, reduction="none")
 
-    def lib_fwd_bwd():
-        out = F.cross_entropy(F.linear(xg, wg).float(), lab64, ignore_index=-1,
-                              reduction="none")
-        torch.autograd.grad(out, (xg, wg), g)
+    lib_out = F.cross_entropy(F.linear(xg, wg).float(), lab64, ignore_index=-1,
+                              reduction="none")  # the graph, built once
 
-    lib_fwd_ms, lib_fb_ms = device_ms(lib_fwd), device_ms(lib_fwd_bwd)
+    def lib_bwd():
+        torch.autograd.grad(lib_out, (xg, wg), g, retain_graph=True)
+
+    lib_fwd_ms, lib_bwd_ms = device_ms(lib_fwd), device_ms(lib_bwd)
     timings = {
         "ce_fwd": (lambda: ce.ce_fwd(x, w, labels, stash),
                    lambda: ce.ce_fwd_reference(x, w, labels, stash), lib_fwd_ms),
         "ce_dx": (lambda: ce.ce_dx(x, w, labels, lse, g, s),
-                  lambda: ce.ce_dx_reference(x, w, labels, lse, g, s_r), lib_fb_ms),
+                  lambda: ce.ce_dx_reference(x, w, labels, lse, g, s_r), lib_bwd_ms),
         "ce_dw": (lambda: ce.ce_dw(x, w, labels, lse, g, s),
-                  lambda: ce.ce_dw_reference(x, w, labels, lse, g, s_r), lib_fb_ms),
+                  lambda: ce.ce_dw_reference(x, w, labels, lse, g, s_r), lib_bwd_ms),
     }
     time_rows(rows, timings, ce_work(N, D, V, stash),
-              lambda n: "linear + cross_entropy " + ("fwd" if n == "ce_fwd" else "fwd+bwd"))
+              lambda n: "linear + cross_entropy " + ("fwd" if n == "ce_fwd" else "bwd alone"))
+    log_backward_family(f"ce dx + dw ({'stash' if stash else 'recompute'})",
+                        rows["ce_dx"]["ms"] + rows["ce_dw"]["ms"],
+                        "linear + cross_entropy's backward alone", lib_bwd_ms)
+    del lib_out
+    return rows
+
+
+#: (B, H, T, D, causal) of the flash sweep: T at the main batch, causal and
+#: not; the batch at the main T; head dim 128.
+SWEEP = ([(BATCH, 12, T, 64, True) for T in (64, 128, 256, 512, 1024, 2048, 4096)]
+         + [(BATCH, 12, T, 64, False) for T in (128, 256, 512, 1024)]
+         + [(B, 12, SEQ, 64, True) for B in (1, 2, 4, 16, 32)]
+         + [(4, 16, T, 128, True) for T in (512, 2048)])
+
+
+def flash_sweep(flash):
+    """Device times of flash_fwd and flash_dkv and of SDPA's forward and
+    backward alone over SWEEP; the forward's rate in TFLOP/s."""
+    rows = []
+    for B, H, T, D, causal in SWEEP:
+        q, k, v, do = kernel_inputs(B, H, H, T, D, 0)
+        o, lse = flash.flash_fwd(q, k, v, causal, H, H)
+        delta = (do.float() * o.float()).sum(-1)
+        q4, k4, v4 = (t.view(B, H, T, D).detach().clone().requires_grad_(True)
+                      for t in (q, k, v))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
+        n = T // 64
+        timings = {
+            "fwd_ms": lambda: flash.flash_fwd(q, k, v, causal, H, H),
+            "dkv_ms": lambda: flash.flash_dkv(q, k, v, do, lse, delta, causal, H, H),
+            "sdpa_fwd_ms": lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal),
+            "sdpa_bwd_ms": lambda: torch.autograd.grad(out4, (q4, k4, v4), do.view(B, H, T, D),
+                                                       retain_graph=True)}
+        row = {"B": B, "H": H, "T": T, "D": D, "causal": causal,
+               "tile_steps": B * H * (n * (n + 1) // 2 if causal else n * n),
+               **{name: device_ms(fn, windows=1) for name, fn in timings.items()}}
+        row["fwd_tflops"] = work(B, H, H, T, D, causal)["flash_fwd"][0] / row["fwd_ms"] / 1e9
+        rows.append(row)
+        log(f"  B{B} H{H} T{T} D{D} causal={causal}: {row['tile_steps']} tile steps; "
+            f"fwd {row['fwd_ms']:.4f} ms ({row['fwd_tflops']:.0f} TFLOP/s), SDPA fwd "
+            f"{row['sdpa_fwd_ms']:.4f}; dkv {row['dkv_ms']:.4f}, SDPA bwd alone "
+            f"{row['sdpa_bwd_ms']:.4f}")
+        del out4
     return rows
 
 
@@ -616,7 +763,7 @@ def profile_steps(sat, card, n_sync=8, n_prof=4):
     return out
 
 
-def main() -> int:
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
               file=sys.stderr)
@@ -649,12 +796,23 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas {src}: {line.strip()}")
+        check_sass(cuda_build, src)
+    if "--flash-sweep" in argv:
+        log("flash sweep")
+        rows = flash_sweep(flash)
+        with open(os.path.join(OUT, "flash_sweep.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "rows": rows}, f, indent=1)
+        return 0
 
     log("phase 2: kernels against their plain versions")
     main_shape = (BATCH, 12, 12, SEQ, 64)
     rows = check_kernels(flash, main_shape, True, 0, timed=True)
     check_kernels(flash, (2, 32, 4, 1024, 64), True, 1, timed=False)
     check_kernels(flash, main_shape, False, 2, timed=False)
+    for seed, shape in enumerate(((BATCH, 12, 12, 64, 64), (4, 12, 12, 320, 64),
+                                  (2, 8, 2, SEQ, 128)), start=10):
+        for causal in (True, False):
+            check_kernels(flash, shape, causal, seed, timed=False)
     N, D = BATCH * SEQ, 768
     rows.update(check_ce(ce, N, D, VOCAB, True, 3, 0, timed=True))
     recompute = check_ce(ce, N, D, VOCAB, False, 4, 0, timed=True)
@@ -695,4 +853,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

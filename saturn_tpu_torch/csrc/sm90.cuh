@@ -1,0 +1,232 @@
+// Hopper (sm_90a) building blocks for the port's hand-written kernels:
+// mbarriers, TMA tile loads and the host-side tensor-map encode, wgmma
+// shared-memory descriptors and the m64n64k16 bf16 products.
+//
+// Tiles: a 64-row bf16 tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
+// from 64 x 64 boxes (encode_tile_map) lies in shared memory as D / 64
+// column blocks of 8 KB, each 1024-byte aligned. In a block, row r sits at
+// 128 r bytes and its eight 16-byte chunks are XOR-swizzled by r % 8. wgmma
+// reads such a tile two ways:
+//   - K-major (desc_k): the columns are the product's depth (Q, K, V, dO as
+//     the left operand or as B = rows^T);
+//   - MN-major (desc_mn): the rows are the product's depth, the columns its
+//     output (V in P V, dO in P^T dO, Q in dS^T Q), through the transpose bit
+//     of the B operand; no transposed copy is made.
+
+#pragma once
+
+#include <cuda.h>          // CUtensorMap and its enums (types only: no -lcuda link)
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+constexpr int BOX = 64;                  // rows and columns of one TMA box
+constexpr int BLOCK_BYTES = BOX * BOX * 2;  // one 64 x 64 bf16 column block
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// The block's dynamic shared memory from its first 1024-byte boundary (the
+// 128-byte swizzle repeats every 1024 bytes): launch with 1 KB to spare.
+__device__ __forceinline__ unsigned char* smem_1024() {
+  extern __shared__ __align__(1024) unsigned char sm90_dynamic_smem[];
+  const uint32_t a = smem_addr(sm90_dynamic_smem);
+  return sm90_dynamic_smem + ((1024u - (a & 1023u)) & 1023u);
+}
+
+// ------------------------------------------------------------------ mbarrier
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// After every mbar_init of the block, before the barriers are used.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// Arrive and add `bytes` to the transaction count the phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`. A wait
+// of seconds can only be a deadlock: it traps, which the caller sees as a
+// launch failure, instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(a, parity)) {
+    if (clock64() - t0 > (1ll << 33)) __trap();
+  }
+}
+
+// ----------------------------------------------------------------------- TMA
+// One box of a 3-d tensor map at (c0, c1, c2), innermost first, into `dst`;
+// completes on `bar` (which must expect its bytes).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte aligned)
+// into `dst`; completes on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Host: a tensor map for BOX x BOX bf16 boxes of an (n, rows, cols) array
+// with contiguous columns and element strides row_stride and mat_stride,
+// written to shared memory with the 128-byte swizzle. cuTensorMapEncodeTiled
+// is looked up through the runtime, so nothing links against libcuda.
+// Returns a cudaError_t value, 0 on success.
+inline int encode_tile_map(CUtensorMap* map, const void* base, int cols, int rows, int n,
+                           long long row_stride, long long mat_stride) {
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return (int)err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorSymbolNotFound;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2, (cuuint64_t)mat_stride * 2};
+  const cuuint32_t box[3] = {BOX, BOX, 1}, unit[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// --------------------------------------------------------------------- wgmma
+// Shared-memory matrix descriptor with the 128-byte swizzle: start address,
+// leading and stride byte offsets, all in 16-byte units.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+// Columns [16 kk, 16 kk + 16) of a 64-row tile, K-major: the chunk's start
+// moves 32 bytes along the swizzled row, 8-row groups are 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_k(const void* tile, int kk) {
+  return desc_sw128(static_cast<const unsigned char*>(tile) + (kk / 4) * BLOCK_BYTES +
+                        (kk % 4) * 32,
+                    16, 1024);
+}
+
+// Rows [16 kk, 16 kk + 16) of one 64-column block, MN-major: the 64 columns
+// are one swizzle atom, groups of 8 rows are 1024 bytes apart.
+__device__ __forceinline__ uint64_t desc_mn(const void* block, int kk) {
+  return desc_sw128(static_cast<const unsigned char*>(block) + kk * 2048, 1024, 1024);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pin registers in place across the asynchronous products: the compiler may
+// neither read an accumulator before wgmma_wait nor reuse an operand
+// register while a product may still read it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define SM90_ACC32                                                                         \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, " \
+  "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define SM90_ACC32_OPERANDS(d)                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (64 x 64, f32) (+)= A (64 x 16) B^T, both from shared memory K-major
+// (B is 64 rows over the same depth); accumulate = 0 overwrites d.
+// Accumulator layout: warp w of the warpgroup holds rows 16 w + g and
+// 16 w + g + 8 (g = lane / 4); d[4 n + e] is row 16 w + g + 8 (e / 2),
+// column 8 n + 2 (lane % 4) + e % 2.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_ACC32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : SM90_ACC32_OPERANDS(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) B, with B
+// (16 x 64) read MN-major from shared memory through the transpose bit. A is
+// laid out as mma.sync's m16n8k16 A operand per warp: a[0] = row g, columns
+// 2 t..2 t+1; a[1] = row g + 8; a[2], a[3] the same at columns + 8 — which is
+// the accumulator layout of columns 16 kk..16 kk+15, packed in pairs.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_ACC32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : SM90_ACC32_OPERANDS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef SM90_ACC32
+#undef SM90_ACC32_OPERANDS
+
+}  // namespace sm90

@@ -12,9 +12,11 @@ what it computes, in the same (B*H, T, D) layout with lse and delta in f32:
 Each wrapper runs its kernel on a CUDA tensor (or raises on what the kernel
 does not take) and its plain PyTorch version on a CPU tensor; there is no
 fallback from one to the other. Each counts its kernel launches in
-``LAUNCHES``. The kernels tile at 64 x 64 for sm_90's shared memory and take
-bf16 with head dim 64 or 128 (every GPT-2 and Llama preset); see the note at
-the top of the CUDA source for what bounds them.
+``LAUNCHES``. The kernels tile at 64 x 64 and take bf16 with head dim 64 or
+128 (every GPT-2 and Llama preset). The forward and dK/dV kernels load their
+tiles with TMA into a ring of shared-memory stages and multiply on wgmma
+(helpers in ``csrc/sm90.cuh``); the note at the top of the CUDA source says
+what bounds them.
 """
 
 from __future__ import annotations
@@ -78,10 +80,12 @@ def _check_kernel_inputs(q: torch.Tensor, *others: torch.Tensor) -> None:
 
 
 def _row_stats(lse: torch.Tensor, delta: torch.Tensor):
-    """lse and delta as the kernels read them: contiguous f32 (B*H, T)."""
+    """lse and delta as the kernels read them: contiguous f32 (B*H, T),
+    16-byte aligned (the dK/dV kernel copies their rows in bulk)."""
     if lse.dtype != torch.float32 or delta.dtype != torch.float32:
         raise TypeError("flash kernels: lse and delta must be float32")
-    return lse.contiguous(), delta.contiguous()
+    return tuple(t.contiguous() if t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (lse, delta))
 
 
 def _launch(name: str, *args) -> None:

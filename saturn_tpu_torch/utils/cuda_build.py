@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` holds kernels with plain ``extern "C"`` launchers. It is
 compiled by ``nvcc`` into ``csrc/build/lib<name>-<digest>.so`` (the digest
-covers the source and the flags, so an edited source never loads a stale
-library) and loaded with ``ctypes``. Nothing here runs at import time: the
-CPU tests import every module on a machine with no ``nvcc``.
+covers the source, every ``csrc/*.cuh`` header and the flags, so an edited
+source or header never loads a stale library) and loaded with ``ctypes``.
+Nothing here runs at import time: the CPU tests import every module on a
+machine with no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -47,9 +48,13 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` lives: named by a digest of
+    the source, every header in ``csrc`` and the compiler flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_log(name: str) -> str:

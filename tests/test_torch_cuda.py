@@ -5,7 +5,10 @@ JAX, hence no ``tests/conftest.py``):
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
-bf16 inputs, compared in the bf16 band of ``tests/test_flash.py`` (2e-2).
+bf16 inputs. The flash kernels are held to their plain versions at the
+bounds of ``chip_smoke.check_kernels`` (lse absolute, o within one bf16 step,
+gradients by relative norm); the end-to-end attention gradients in the bf16
+band of ``tests/test_flash.py`` (2e-2).
 """
 
 import numpy as np
@@ -15,6 +18,13 @@ import torch
 from saturn_tpu_torch.ops import ce, flash
 
 BF16 = 2e-2
+#: flash lse (f32, the same arithmetic in another order), absolute.
+FLASH_LSE_ATOL = 1e-5
+#: flash o: one bf16 step of the plain value (rtol 2^-7) plus this; both
+#: versions round P to bf16, at different running maxima.
+FLASH_O_ATOL = 2.0 ** -8
+#: flash dq, dk and dv against their plain versions, by relative norm.
+FLASH_GRAD_REL = 2e-3
 
 
 @pytest.fixture
@@ -27,12 +37,16 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "causal,H,KV,D",
-    [(True, 4, 4, 64), (False, 4, 2, 64), (True, 8, 2, 128), (False, 4, 4, 128)],
+    "causal,H,KV,D,T",
+    [(True, 4, 4, 64, 256), (False, 4, 2, 64, 256), (True, 8, 2, 128, 256),
+     (False, 4, 4, 128, 256),
+     # one tile; T % 128 == 64; head dim 128 with grouped queries
+     (True, 4, 4, 64, 64), (False, 4, 2, 64, 64), (True, 4, 2, 64, 320),
+     (False, 4, 4, 64, 320), (True, 8, 2, 128, 320), (False, 8, 2, 128, 320),
+     (False, 8, 2, 128, 64)],
 )
-def test_kernels_match_plain(cuda_device, causal, H, KV, D):
-    rng = np.random.default_rng(H + KV + D)
-    T = 256
+def test_kernels_match_plain(cuda_device, causal, H, KV, D, T):
+    rng = np.random.default_rng(H + KV + D + T)
 
     def mk(n):
         return torch.tensor(rng.standard_normal((n, T, D)), dtype=torch.bfloat16,
@@ -48,9 +62,11 @@ def test_kernels_match_plain(cuda_device, causal, H, KV, D):
             flash.flash_dq_reference(q, k, v, do, lse, delta, causal, H, KV),
             *flash.flash_dkv_reference(q, k, v, do, lse, delta, causal, H, KV)]
     torch.cuda.synchronize()
-    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), got, want):
-        torch.testing.assert_close(a.float(), b.float(), rtol=BF16, atol=BF16,
-                                   msg=lambda m: f"{name}: {m}")
+    torch.testing.assert_close(got[1], want[1], rtol=0.0, atol=FLASH_LSE_ATOL)
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=2.0 ** -7,
+                               atol=FLASH_O_ATOL)
+    for name, a, b in zip(("dq", "dk", "dv"), got[2:], want[2:]):
+        assert _rel_err(a, b) <= FLASH_GRAD_REL, (name, _rel_err(a, b))
     assert {n: flash.LAUNCHES[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
 
