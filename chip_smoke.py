@@ -10,19 +10,23 @@ Phases, in order; any failure is an exception and a non-zero exit:
    ``saturn_tpu_torch/csrc/flash_attn.cu`` and ``csrc/linear_ce.cu`` (one
    ``nvcc`` each, started together), with each kernel's ptxas line and the
    wgmma / TMA / cp.async / mma.sync instructions in its SASS
-   (``cuobjdump``); the flash forward and dK/dV kernels must hold wgmma.
+   (``cuobjdump``); the flash forward and dK/dV kernels and the stash-mode
+   dW kernel must hold wgmma and TMA tile loads.
 2. Kernels against their plain PyTorch versions: flash forward, dQ and
    dK/dV at the GPT-2-small training shape (B 8, H 12, T 512, D 64, bf16,
    causal), a grouped-query shape (B 2, H 32, KV 4, T 1024, D 64), the main
    shape non-causal, one tile (T 64), T 320 (T % 128 == 64) and head dim 128
    with grouped queries (H 8, KV 2), causal and not; the CE head's forward,
    dx and dW at the main shape (N 4096, D 768, V 50304) in stash and in
-   recompute mode and at an odd shape (N 4000, V 50257, the last 64 labels
-   ignored). Each kernel's device time, the plain version's and the library
-   call's, all read from torch.profiler, and the kernel's bound on the card.
+   recompute mode, at an odd shape (N 4000, V 50257, the last 64 labels
+   ignored), and in stash mode at D 1024 and at D 64 (odd shape). Each
+   kernel's device time, the plain version's and the library call's, all
+   read from torch.profiler, and the kernel's bound on the card.
    The library call of a forward kernel is the library's forward (SDPA; the
    unfused ``F.linear`` + ``F.cross_entropy``), of a backward kernel the
    library's backward alone, run on a graph built outside the timed window.
+   Beside ``ce_dw``, the time of cuBLAS on its product alone (``torch.matmul``
+   of a bf16 (V, N) by the (N, D) x): a yardstick, in no table column.
 3. The port's main path at full width: a heterogeneous sweep of two
    GPT-2-small tasks (b8 x 512, differing only in lr, ``pretraining_loss``)
    and one BERT-base task (b8 x 512, ``mlm_loss``), synthetic data, through
@@ -50,6 +54,12 @@ builds the kernels and only times the flash forward and dK/dV kernels
 against SDPA's forward and backward alone over a sweep of sequence lengths
 and batch sizes (``chiprun_out/flash_sweep.json``): how their time scales
 with the work.
+
+    python3 chip_smoke.py --ce-bench
+
+builds the kernels and only checks and times the CE kernels at the main
+shape in stash mode, with the cuBLAS yardstick
+(``chiprun_out/ce_bench.json``).
 """
 
 from __future__ import annotations
@@ -106,7 +116,7 @@ KERNEL_SYMBOLS = {
                "(anonymous namespace)::ce_fwd_combine_kernel"),
     "ce_dx": ("(anonymous namespace)::ce_dx_kernel<",
               "(anonymous namespace)::ce_dx_reduce_kernel"),
-    "ce_dw": ("(anonymous namespace)::ce_dw_kernel<",),
+    "ce_dw": ("(anonymous namespace)::ce_dw_",),  # ce_dw_sm90_kernel<, recompute ce_dw_kernel
 }
 
 
@@ -117,19 +127,20 @@ def log(msg: str) -> None:
 #: Instructions counted in each kernel's SASS: wgmma, TMA tile loads,
 #: cp.async copies, mma.sync.
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
-#: Kernels whose SASS must hold wgmma, by source.
-WGMMA_KERNELS = {"flash_attn": ("fwd_kernel", "dkv_kernel")}
+#: Kernels whose SASS must hold wgmma and TMA tile loads, by source.
+WGMMA_KERNELS = {"flash_attn": ("fwd_kernel", "dkv_kernel"),
+                 "linear_ce": ("ce_dw_sm90_kernel",)}
 
 
-def check_sass(cuda_build, src: str) -> None:
-    """Log, per kernel of the built library, how many of each SASS_OPS
-    instruction its SASS holds (``cuobjdump --dump-sass``); raise if a kernel
-    of WGMMA_KERNELS[src] is missing or holds no HGMMA."""
-    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "--dump-sass", str(cuda_build.library_path(src))], check=True,
-                          capture_output=True, text=True, timeout=300).stdout
-    with open(os.path.join(OUT, f"sass_{src}.txt"), "w") as f:
-        f.write(sass)
+def sass_kernel_name(fn: str):
+    """(kernel name, its int template argument or None) of a mangled SASS
+    function name, or (fn, None) when it names no ``*_kernel``."""
+    m = re.search(r"((?:ce_)?[a-z]+(?:_[a-z]+)?(?:_sm90)?_kernel)(?:ILi(\d+)E)?", fn)
+    return (m.group(1), m.group(2)) if m else (fn, None)
+
+
+def sass_counts(sass: str):
+    """{mangled function name: {op: count}} of SASS_OPS in a SASS dump."""
     ops, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -138,15 +149,28 @@ def check_sass(cuda_build, src: str) -> None:
         elif fn is not None:
             for op in SASS_OPS:
                 ops[fn][op] += op in line
+    return ops
+
+
+def check_sass(cuda_build, src: str) -> None:
+    """Log, per kernel of the built library, how many of each SASS_OPS
+    instruction its SASS holds (``cuobjdump --dump-sass``); raise if a kernel
+    of WGMMA_KERNELS[src] is missing or holds no HGMMA or no UTMALDG."""
+    tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(cuda_build.library_path(src))], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    with open(os.path.join(OUT, f"sass_{src}.txt"), "w") as f:
+        f.write(sass)
     required, seen = set(WGMMA_KERNELS.get(src, ())), set()
-    for fn, counts in sorted(ops.items()):
-        m = re.search(r"((?:ce_)?[a-z]+(?:_[a-z]+)?_kernel)(?:ILi(\d+)E)?", fn)
-        name = (f"{m.group(1)}<{m.group(2)}>" if m.group(2) else m.group(1)) if m else fn
+    for fn, counts in sorted(sass_counts(sass).items()):
+        base, arg = sass_kernel_name(fn)
+        name = f"{base}<{arg}>" if arg else base
         log(f"    SASS {src} {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
-        if m and m.group(1) in required:
-            seen.add(m.group(1))
-            if not counts["HGMMA"]:
-                raise AssertionError(f"{name} in {src}: no HGMMA (wgmma) in its SASS")
+        if base in required:
+            seen.add(base)
+            missing = [op for op in ("HGMMA", "UTMALDG") if not counts[op]]
+            if missing:
+                raise AssertionError(f"{name} in {src}: no {' or '.join(missing)} in its SASS")
     if seen != required:
         raise AssertionError(f"no SASS found for {required - seen} in {src}")
 
@@ -491,6 +515,13 @@ def check_ce(ce, N, D, V, stash, seed, tail, timed):
                         rows["ce_dx"]["ms"] + rows["ce_dw"]["ms"],
                         "linear + cross_entropy's backward alone", lib_bwd_ms)
     del lib_out
+    if stash:
+        # cuBLAS on the product alone: a yardstick, not the kernel's library call
+        ds_t = s.t()  # a bf16 (V, N) operand laid out as the kernel reads dsᵀ
+        ms = device_ms(lambda: torch.matmul(ds_t, x))
+        rows["ce_dw"]["cublas_product_ms"] = ms
+        log(f"  cuBLAS yardstick for ce_dw's product: torch.matmul of the bf16 (V, N) dsᵀ by "
+            f"the (N, D) x, bf16 out: {ms:.4f} ms (ce_dw {rows['ce_dw']['ms']:.4f} ms)")
     return rows
 
 
@@ -803,6 +834,13 @@ def main(argv) -> int:
         with open(os.path.join(OUT, "flash_sweep.json"), "w") as f:
             json.dump({"card": card, "kind": kind, "rows": rows}, f, indent=1)
         return 0
+    N, D = BATCH * SEQ, 768
+    if "--ce-bench" in argv:
+        log("CE kernels at the main shape, stash mode")
+        rows = check_ce(ce, N, D, VOCAB, True, 3, 0, timed=True)
+        with open(os.path.join(OUT, "ce_bench.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "rows": rows}, f, indent=1)
+        return 0
 
     log("phase 2: kernels against their plain versions")
     main_shape = (BATCH, 12, 12, SEQ, 64)
@@ -813,10 +851,12 @@ def main(argv) -> int:
                                   (2, 8, 2, SEQ, 128)), start=10):
         for causal in (True, False):
             check_kernels(flash, shape, causal, seed, timed=False)
-    N, D = BATCH * SEQ, 768
     rows.update(check_ce(ce, N, D, VOCAB, True, 3, 0, timed=True))
     recompute = check_ce(ce, N, D, VOCAB, False, 4, 0, timed=True)
     check_ce(ce, 4000, D, 50257, True, 5, 64, timed=False)
+    # the other widths of the stash-mode dW kernel: D tiles of 256 and of 64
+    check_ce(ce, N, 1024, VOCAB, True, 6, 0, timed=False)
+    check_ce(ce, 4000, 64, 50257, True, 7, 64, timed=False)
     torch.cuda.empty_cache()
 
     log("phase 3: search -> orchestrate, two GPT-2-small tasks and one BERT-base task b8x512")

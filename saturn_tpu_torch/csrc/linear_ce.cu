@@ -3,7 +3,8 @@
 // Replaces the three Pallas kernels of saturn_tpu/ops/ce.py:
 //   ce_fwd_kernel (+ ce_fwd_combine_kernel) <- _run_fwd       (pallas_call at ce.py:208, _fwd_kernel)
 //   ce_dx_kernel  (+ ce_dx_reduce_kernel)   <- _fused_ce_bwd  (pallas_call at ce.py:290, _dx_kernel)
-//   ce_dw_kernel                            <- _fused_ce_bwd  (pallas_call at ce.py:314, _dw_kernel)
+//   ce_dw_sm90_kernel (stash mode),
+//   ce_dw_kernel (recompute mode)           <- _fused_ce_bwd  (pallas_call at ce.py:314, _dw_kernel)
 //
 // What they compute, for x (N, D) bf16, W (V, D) bf16 and labels (N,) int32
 // (negative = ignored): s = x W^T in f32 with the columns >= V at -1e30;
@@ -16,15 +17,16 @@
 // What bounds them on an H100: each is one product of 2 N V D operations
 // (recompute mode adds a second), K = D (fwd), K = V (dx) or K = N (dW), far
 // above the card's ~295 operations per byte in bf16: bound by operations
-// (0.32 ms at N 4096, D 768, V 50304). In practice these simple kernels are
+// (0.32 ms at N 4096, D 768, V 50304). In practice the mma.sync kernels are
 // bound by their mma.sync issue rate and their shared-memory fragment loads.
 //
-// What the design does about it. Every kernel computes a 128 x 128 output
-// tile per block and stages the product's depth 32 at a time through shared
-// memory with cp.async, double-buffered. Products run on mma.sync m16n8k16
-// (bf16 in, f32 accumulate). Operands contiguous along the product's depth
-// are read with 32-bit shared loads; operands contiguous along the output
-// (W in dx, x in dW, the stash in dW) are staged as they lie in memory and
+// What the design does about it. ce_dw_sm90_kernel, the dW of stash mode, is
+// built for Hopper: see its own note below. Every other kernel computes a
+// 128 x 128 output tile per block and stages the product's depth 32 at a
+// time through shared memory with cp.async, double-buffered. Products run on
+// mma.sync m16n8k16 (bf16 in, f32 accumulate). Operands contiguous along the
+// product's depth are read with 32-bit shared loads; operands contiguous
+// along the output (W in dx, x in dW) are staged as they lie in memory and
 // read with ldmatrix.trans.
 //
 // - ce_fwd: 4 warps, each owning 32 whole rows of the tile (all 128
@@ -33,24 +35,23 @@
 //   across blocks: each writes partial (max, sum, label logit) rows in f32
 //   for its vocab range, and ce_fwd_combine_kernel forms lse and loss. The
 //   TPU kernel instead walks the whole vocab on one grid axis.
-// - ce_dx, ce_dw: 8 warps as 4 x 2 warps of 32 x 64. Each depth stage first
-//   turns its score tile into a ds tile in shared memory, every element
-//   once (stash mode: the stash tile in place; recompute mode: from the f32
-//   score tile x W^T held in registers), then runs the product with ds as
-//   the A operand, so the exponentials stay out of the mma loop. Every D
-//   tile forms its own ds tiles: D / 128 = 6 times over at D 768, the price
-//   of keeping the accumulator of a 128 x 128 tile in registers. In
-//   recompute mode this repeats the x W^T recompute as well; recompute is
-//   the long-context mode, off the main path.
+// - ce_dx and the recompute-mode ce_dw: 8 warps as 4 x 2 warps of 32 x 64.
+//   Each depth stage first turns its score tile into a ds tile in shared
+//   memory, every element once (stash mode: the stash tile in place;
+//   recompute mode: from the f32 score tile x W^T held in registers), then
+//   runs the product with ds as the A operand, so the exponentials stay out
+//   of the mma loop. Every D tile forms its own ds tiles: D / 128 = 6 times
+//   over at D 768, the price of keeping the accumulator of a 128 x 128 tile
+//   in registers. In recompute mode this repeats the x W^T recompute as
+//   well; recompute is the long-context mode, off the main path.
 // - ce_dx: output tiles over (token, D) with the vocab as depth: at D 768
 //   that is only 192 tiles, so the vocab is split (split-K) into f32 partial
 //   sums that ce_dx_reduce_kernel adds in a fixed order and casts to bf16: no
 //   atomics, a result independent of scheduling. The D tiles of one token
 //   tile are neighbours in the grid, so they stream the same stash rows at
 //   about the same time and all but the first read come from L2.
-// - ce_dw: output tiles over (vocab, D), tokens as depth, the depth loop
-//   inside the block, f32 out, no atomics. The statistics of the next token
-//   chunk are loaded a stage ahead.
+// - ce_dw (both kernels): output tiles over (vocab, D), tokens as depth, the
+//   depth loop inside the block, f32 out, no atomics.
 // - The vocab is taken as it is (no pad to a tile multiple): loads past V or
 //   N are zero-filled and ds is 0 in columns >= V; g is 0 in rows >= N.
 // - The launchers choose the vocab splits of ce_fwd and ce_dx from the
@@ -65,6 +66,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -252,22 +255,26 @@ __device__ __forceinline__ void zero(float (*acc)[CT][4]) {
     for (int n = 0; n < CT; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
 }
 
-// 16 consecutive bf16 scores at p (16-byte aligned) -> their ds, in place;
+// 8 consecutive bf16 scores at p (16-byte aligned) -> their ds, in place;
 // col is the vocab id of the first, the row statistics are given.
+__device__ __forceinline__ void ds_in_place8(bf16* p, int col, int V, float lse, float g,
+                                             int label) {
+  uint4 v = *reinterpret_cast<uint4*>(p);
+  uint32_t* u = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 sc = unpack_bf16(u[j]);
+    const int c = col + 2 * j;
+    u[j] = pack_bf16(ds_of(sc.x, c, V, lse, g, label), ds_of(sc.y, c + 1, V, lse, g, label));
+  }
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+// The same for 16 consecutive scores.
 __device__ __forceinline__ void ds_in_place16(bf16* p, int col, int V, float lse, float g,
                                               int label) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    uint4 v = *reinterpret_cast<uint4*>(p + 8 * h);
-    uint32_t* u = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 sc = unpack_bf16(u[j]);
-      const int c = col + 8 * h + 2 * j;
-      u[j] = pack_bf16(ds_of(sc.x, c, V, lse, g, label), ds_of(sc.y, c + 1, V, lse, g, label));
-    }
-    *reinterpret_cast<uint4*>(p + 8 * h) = v;
-  }
+  ds_in_place8(p, col, V, lse, g, label);
+  ds_in_place8(p + 8, col + 8, V, lse, g, label);
 }
 
 // ------------------------------------------------------------------ forward
@@ -544,25 +551,23 @@ __global__ void ce_dx_reduce_kernel(const float* __restrict__ part, bf16* __rest
   }
 }
 
-// Block (D tile, vocab tile): dW rows = sum over all tokens of ds^T x, in
-// f32. The statistics of a token chunk sit in shared memory beside it.
-template <bool STASH>
+// Recompute mode. Block (D tile, vocab tile): dW rows = sum over all tokens
+// of ds^T x, in f32, with s = W x^T recomputed for each token chunk. The
+// statistics of a token chunk sit in shared memory beside it.
 __global__ void __launch_bounds__(THREADS_BWD, 2)
 ce_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-             const bf16* __restrict__ stash, long long ld_s, const int* __restrict__ labels,
-             const float* __restrict__ lse, const float* __restrict__ gr,
-             float* __restrict__ dw, int N, int V, int D) {
-  // sS: the ds tile as S[token][vocab] (BK tokens x BM vocab): stash mode,
-  // the stash tile turned into ds in place; recompute mode, written from the
-  // score tile. sWr, sXr: recompute mode, the W tile (BM vocab x BK of D)
-  // and the x tile (BK tokens x BK of D). sB: the x tile of the product
-  // (BK tokens x BN of D).
-  __shared__ __align__(16) bf16 sS[STASH ? 2 : 1][BK * LDN];
-  __shared__ __align__(16) bf16 sWr[STASH ? 1 : 2][STASH ? 8 : BM * LDK];
-  __shared__ __align__(16) bf16 sXr[STASH ? 1 : 2][STASH ? 8 : BK * LDK];
-  __shared__ __align__(16) bf16 sB[STASH ? 2 : 1][BK * LDN];
-  __shared__ float sL[2][BK], sG[2][BK];
-  __shared__ int sLab[2][BK];
+             const int* __restrict__ labels, const float* __restrict__ lse,
+             const float* __restrict__ gr, float* __restrict__ dw, int N, int V, int D) {
+  // sS: the ds tile as S[token][vocab] (BK tokens x BM vocab), written from
+  // the score tile. sWr, sXr: the W tile (BM vocab x BK of D) and the x tile
+  // (BK tokens x BK of D). sB: the x tile of the product (BK tokens x BN of D).
+  // sL, sG, sLab: the statistics of the chunk's tokens.
+  __shared__ __align__(16) bf16 sS[BK * LDN];
+  __shared__ __align__(16) bf16 sWr[2][BM * LDK];
+  __shared__ __align__(16) bf16 sXr[2][BK * LDK];
+  __shared__ __align__(16) bf16 sB[BK * LDN];
+  __shared__ float sL[BK], sG[BK];
+  __shared__ int sLab[BK];
 
   const int d0 = blockIdx.x * BN, v0 = blockIdx.y * BM;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -570,107 +575,57 @@ ce_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   const int wm = warp & 3, wn = warp >> 2;
   const int n_kc = (N + BK - 1) / BK;
 
-  // token statistics: thread i < BK holds those of token k0 + i in registers
-  // (issued a stage ahead, so the loads are in flight during the product)
-  // and stores them into stage st.
-  float nL = 0.f, nG = 0.f;
-  int nLab = -1;
-  auto fetch_stats = [&](int k0) {
-    const int r = k0 + threadIdx.x;
-    if (threadIdx.x < BK) {
-      nL = r < N ? lse[r] : 0.f;
-      nG = r < N ? gr[r] : 0.f;
-      nLab = r < N ? labels[r] : -1;
-    }
-  };
-  auto store_stats = [&](int st) {
-    if (threadIdx.x < BK) {
-      sL[st][threadIdx.x] = nL;
-      sG[st][threadIdx.x] = nG;
-      sLab[st][threadIdx.x] = nLab;
-    }
-  };
-
   float acc[MT][NTW][4];
   zero<NTW>(acc);
   uint32_t a[MT][4];
 
-  if (STASH) {
-    load_n_tile(sS[0], stash, ld_s, 0, N, v0, (int)ld_s);
-    load_n_tile(sB[0], x, D, 0, N, d0, D);
+  const int nd = D / BK;
+  for (int c = 0; c < n_kc; ++c) {
+    // s (16 vocab rows of this warp x BK tokens) = W x^T over all of D, in f32
+    float s[1][BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) s[0][n][0] = s[0][n][1] = s[0][n][2] = s[0][n][3] = 0.f;
+    load_n_tile(sB, x, D, c * BK, N, d0, D);
+    load_k_tile<BM>(sWr[0], w, D, v0, V, 0, D);
+    load_k_tile<BK>(sXr[0], x, D, c * BK, N, 0, D);
     cp_commit();
-    fetch_stats(0);
-    store_stats(0);
-    for (int c = 0; c < n_kc; ++c) {
-      const int st = c & 1;
-      if (c + 1 < n_kc) {
-        load_n_tile(sS[st ^ 1], stash, ld_s, (c + 1) * BK, N, v0, (int)ld_s);
-        load_n_tile(sB[st ^ 1], x, D, (c + 1) * BK, N, d0, D);
+    if (threadIdx.x < BK) {
+      const int r = c * BK + threadIdx.x;
+      sL[threadIdx.x] = r < N ? lse[r] : 0.f;
+      sG[threadIdx.x] = r < N ? gr[r] : 0.f;
+      sLab[threadIdx.x] = r < N ? labels[r] : -1;
+    }
+    for (int dk = 0; dk < nd; ++dk) {
+      if (dk + 1 < nd) {
+        load_k_tile<BM>(sWr[(dk + 1) & 1], w, D, v0, V, (dk + 1) * BK, D);
+        load_k_tile<BK>(sXr[(dk + 1) & 1], x, D, c * BK, N, (dk + 1) * BK, D);
         cp_commit();
-        fetch_stats((c + 1) * BK);
         cp_wait<1>();
       } else {
         cp_wait<0>();
       }
       __syncthreads();
-      {  // ds in place: thread -> token row tid / 8, 16 vocab columns
-        const int r = threadIdx.x >> 3, cc = (threadIdx.x & 7) * 16;
-        ds_in_place16(sS[st] + r * LDN + cc, v0 + cc, V, sL[st][r], sG[st][r], sLab[st][r]);
-      }
-      __syncthreads();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        a_cols(a, sS[st], kk, wm * WM, lane);
-        mma_bt<NTW>(acc, a, sB[st] + wn * 64, kk, lane);
-      }
-      if (c + 1 < n_kc) store_stats(st ^ 1);  // last read in the previous stage
+      for (int k0 = 0; k0 < BK; k0 += 16)
+        mma_kk<1, BK / 8>(s, sWr[dk & 1] + warp * 16 * LDK, sXr[dk & 1], k0, lane);
       __syncthreads();
     }
-  } else {
-    const int nd = D / BK;
-    for (int c = 0; c < n_kc; ++c) {
-      // s (16 vocab rows of this warp x BK tokens) = W x^T over all of D, in f32
-      float s[1][BK / 8][4];
+    // ds, stored transposed as S[token][vocab]
 #pragma unroll
-      for (int n = 0; n < BK / 8; ++n) s[0][n][0] = s[0][n][1] = s[0][n][2] = s[0][n][3] = 0.f;
-      load_n_tile(sB[0], x, D, c * BK, N, d0, D);
-      load_k_tile<BM>(sWr[0], w, D, v0, V, 0, D);
-      load_k_tile<BK>(sXr[0], x, D, c * BK, N, 0, D);
-      cp_commit();
-      fetch_stats(c * BK);
-      store_stats(0);
-      for (int dk = 0; dk < nd; ++dk) {
-        if (dk + 1 < nd) {
-          load_k_tile<BM>(sWr[(dk + 1) & 1], w, D, v0, V, (dk + 1) * BK, D);
-          load_k_tile<BK>(sXr[(dk + 1) & 1], x, D, c * BK, N, (dk + 1) * BK, D);
-          cp_commit();
-          cp_wait<1>();
-        } else {
-          cp_wait<0>();
-        }
-        __syncthreads();
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
-        for (int k0 = 0; k0 < BK; k0 += 16)
-          mma_kk<1, BK / 8>(s, sWr[dk & 1] + warp * 16 * LDK, sXr[dk & 1], k0, lane);
-        __syncthreads();
+      for (int e = 0; e < 4; ++e) {
+        const int m = warp * 16 + g + 8 * (e >> 1), k = n * 8 + 2 * t + (e & 1);
+        sS[k * LDN + m] =
+            __float2bfloat16(ds_of(s[0][n][e], v0 + m, V, sL[k], sG[k], sLab[k]));
       }
-      // ds, stored transposed as S[token][vocab]
+    __syncthreads();
 #pragma unroll
-      for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int m = warp * 16 + g + 8 * (e >> 1), k = n * 8 + 2 * t + (e & 1);
-          sS[0][k * LDN + m] = __float2bfloat16(
-              ds_of(s[0][n][e], v0 + m, V, sL[0][k], sG[0][k], sLab[0][k]));
-        }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        a_cols(a, sS[0], kk, wm * WM, lane);
-        mma_bt<NTW>(acc, a, sB[0] + wn * 64, kk, lane);
-      }
-      __syncthreads();  // sB, sWr[0], sXr[0], sS and the statistics are refilled next chunk
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      a_cols(a, sS, kk, wm * WM, lane);
+      mma_bt<NTW>(acc, a, sB + wn * 64, kk, lane);
     }
+    __syncthreads();  // sB, sWr[0], sXr[0], sS and the statistics are refilled next chunk
   }
 
 #pragma unroll
@@ -687,6 +642,190 @@ ce_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
               make_float2(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
       }
     }
+}
+
+// ------------------------------------------------ dW, stash mode, for Hopper
+// ce_dw_sm90_kernel: one block per (D tile of 64 NB columns, vocab tile of
+// 128 rows); dW tile = sum over all tokens of ds^T x, in f32.
+// - Tiles arrive by TMA (128-byte swizzle, sm90.cuh) into a ring of
+//   DW_STAGES stages of DW_CHUNK tokens: the stash chunk (tokens x 128 vocab,
+//   two 64-column blocks; the map spans V columns and N rows, so boxes past
+//   them are zero-filled) and the x chunk (tokens x 64 NB). Thread 0 refills
+//   a stage while the products run, with the chunk DW_STAGES ahead of the one
+//   that used it, freed by every thread a step before (no producer warp: it
+//   would hold registers the accumulators need).
+// - Two warpgroups, each owning 64 vocab rows (one column block of the stash
+//   chunk) and all 64 NB columns: NB f32 accumulators of 64 x 64 in
+//   registers, 32 NB per thread.
+// - ds once per block per element: after a chunk lands, each warpgroup turns
+//   its column block into ds in place in shared memory (the vocab column of
+//   a 16-byte chunk found by undoing the swizzle; columns >= V masked, since
+//   exp(0 - lse) of a zero-filled column is not 0; rows >= N have g = 0),
+//   then fences the writes to the async proxy and syncs on a named barrier
+//   before wgmma reads them. At D 768 a (token, vocab) element is formed
+//   D / (64 NB) = 3 times over, once per D tile (the mma.sync kernel formed
+//   it 6 times); the D tiles of a vocab tile are neighbours in the grid, so
+//   they run together and the stash streams from device memory about once.
+// - Products: wgmma m64n64k16 with A = ds^T read MN-major from the stash
+//   chunk (its rows are the depth, its columns the output rows) and B = the x
+//   chunk, MN-major too (wgmma_ss_mn): no transposed copy. The ds of chunk
+//   c + 1 is formed while the products of chunk c run.
+constexpr int DW_ROWS = 128;     // vocab rows per block: 64 per warpgroup
+constexpr int DW_CHUNK = 64;     // tokens per ring stage
+constexpr int DW_STAGES = 4;
+constexpr int DW_THREADS = 256;  // two warpgroups; thread 0 also issues the loads
+constexpr int DW_BLOCK = sm90::BOX * sm90::BOX;  // bf16 of one 64 x 64 column block
+
+template <int NB>
+struct DwSmem {
+  bf16 s[DW_STAGES][2 * DW_BLOCK];  // stash chunk, then its ds
+  bf16 x[DW_STAGES][NB * DW_BLOCK];
+  uint64_t full[DW_STAGES], empty[DW_STAGES];
+};
+
+// Token chunk c into ring stage c % DW_STAGES, as the stage's round
+// c / DW_STAGES: wait until every thread freed the previous round.
+template <int NB>
+__device__ __forceinline__ void load_dw_chunk(DwSmem<NB>& sm, const CUtensorMap* s_map,
+                                              const CUtensorMap* x_map, int c, int v0, int d0) {
+  const int st = c % DW_STAGES, round = c / DW_STAGES;
+  if (round > 0) sm90::mbar_wait(&sm.empty[st], (round - 1) & 1);
+  sm90::mbar_expect_tx(&sm.full[st], (2 + NB) * sm90::BLOCK_BYTES);
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+    sm90::tma_load_3d(sm.s[st] + b * DW_BLOCK, s_map, &sm.full[st], v0 + b * sm90::BOX,
+                      c * DW_CHUNK, 0);
+#pragma unroll
+  for (int cb = 0; cb < NB; ++cb)
+    sm90::tma_load_3d(sm.x[st] + cb * DW_BLOCK, x_map, &sm.full[st], d0 + cb * sm90::BOX,
+                      c * DW_CHUNK, 0);
+}
+
+// The statistics of one token (zeros past N: ds is 0 there).
+struct TokenStats {
+  float lse, g;
+  int label;
+};
+
+__device__ __forceinline__ TokenStats token_stats(const float* lse, const float* g,
+                                                  const int* labels, int k, int N) {
+  return k < N ? TokenStats{lse[k], g[k], labels[k]} : TokenStats{0.f, 0.f, -1};
+}
+
+template <int NB>
+__global__ void __launch_bounds__(DW_THREADS, 1)
+ce_dw_sm90_kernel(const __grid_constant__ CUtensorMap s_map,
+                  const __grid_constant__ CUtensorMap x_map, const int* __restrict__ labels,
+                  const float* __restrict__ lse, const float* __restrict__ gr,
+                  float* __restrict__ dw, int N, int V, int D) {
+  DwSmem<NB>& sm = *reinterpret_cast<DwSmem<NB>*>(sm90::smem_1024());
+  const int d0 = blockIdx.x * NB * sm90::BOX, v0 = blockIdx.y * DW_ROWS;
+  const int nc = (N + DW_CHUNK - 1) / DW_CHUNK;
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const bool leader = threadIdx.x == 0;
+  if (leader) {
+    for (int st = 0; st < DW_STAGES; ++st) {
+      sm90::mbar_init(&sm.full[st], 1);
+      sm90::mbar_init(&sm.empty[st], DW_THREADS);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+  if (leader)
+    for (int c = 0; c < DW_STAGES && c < nc; ++c) load_dw_chunk<NB>(sm, &s_map, &x_map, c, v0, d0);
+  __syncwarp();
+
+  // This thread's part of the ds: token row r of the warpgroup's column
+  // block, its logical 16-byte chunks 4 h .. 4 h + 3 (8 vocab columns each).
+  // The 8 threads of a quarter warp take 8 rows of one logical chunk, which
+  // the swizzle puts in 8 different bank groups.
+  const int r = ((t >> 4) << 3) | (t & 7), h = (t >> 3) & 1;
+  const int col0 = v0 + wg * sm90::BOX;
+  const auto form_ds = [&](int c, const TokenStats& s) {
+    const int st = c % DW_STAGES;
+    sm90::mbar_wait(&sm.full[st], (c / DW_STAGES) & 1);
+    unsigned char* row = reinterpret_cast<unsigned char*>(sm.s[st] + wg * DW_BLOCK) + r * 128;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int lc = 4 * h + j;
+      ds_in_place8(reinterpret_cast<bf16*>(row + ((lc ^ (r & 7)) << 4)), col0 + 8 * lc, V, s.lse,
+                   s.g, s.label);
+    }
+    sm90::fence_proxy_async();
+  };
+  const auto sync_warpgroup = [&] { sm90::named_barrier(1 + wg, 128); };
+
+  float acc[NB][32];
+#pragma unroll
+  for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+
+  if (nc > 0) {
+    TokenStats next = token_stats(lse, gr, labels, DW_CHUNK + r, N);
+    form_ds(0, token_stats(lse, gr, labels, r, N));
+    sync_warpgroup();
+    for (int c = 0; c < nc; ++c) {
+      const int st = c % DW_STAGES;
+#pragma unroll
+      for (int cb = 0; cb < NB; ++cb) sm90::fence_regs(acc[cb]);
+      sm90::wgmma_fence();
+      const bf16* a = sm.s[st] + wg * DW_BLOCK;
+#pragma unroll
+      for (int kk = 0; kk < DW_CHUNK / 16; ++kk)
+#pragma unroll
+        for (int cb = 0; cb < NB; ++cb)
+          sm90::wgmma_ss_mn(acc[cb], sm90::desc_mn(a, kk),
+                            sm90::desc_mn(sm.x[st] + cb * DW_BLOCK, kk));
+      sm90::wgmma_commit();
+      // while the products run: chunk c - 1 + DW_STAGES into the stage of
+      // chunk c - 1, which every thread freed at the end of the last step
+      if (leader && c >= 1 && c - 1 + DW_STAGES < nc)
+        load_dw_chunk<NB>(sm, &s_map, &x_map, c - 1 + DW_STAGES, v0, d0);
+      __syncwarp();
+      if (c + 1 < nc) {
+        const TokenStats cur = next;
+        next = token_stats(lse, gr, labels, (c + 2) * DW_CHUNK + r, N);
+        form_ds(c + 1, cur);
+      }
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int cb = 0; cb < NB; ++cb) sm90::fence_regs(acc[cb]);
+      sm90::mbar_arrive(&sm.empty[st]);
+      sync_warpgroup();  // the ds of chunk c + 1 is complete before its products
+    }
+  }
+
+  // accumulator element 4 n + e: row 16 warp + lane / 4 + 8 (e / 2) of the
+  // warpgroup's 64, column 8 n + 2 (lane % 4) + e % 2 of the column block
+  const int lane = t & 31, row0 = v0 + wg * 64 + (t >> 5) * 16 + (lane >> 2);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int v = row0 + 8 * hh;
+    if (v >= V) continue;
+    float* out = dw + (size_t)v * D + d0 + 2 * (lane & 3);
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<float2*>(out + cb * 64 + n * 8) =
+            make_float2(acc[cb][4 * n + 2 * hh], acc[cb][4 * n + 2 * hh + 1]);
+  }
+}
+
+template <int NB>
+int launch_dw_sm90(const CUtensorMap& s_map, const CUtensorMap& x_map, const void* labels,
+                   const void* lse, const void* g, void* dw, int N, int V, int D,
+                   cudaStream_t s) {
+  constexpr int smem = (int)sizeof(DwSmem<NB>) + 1024;  // room to align to 1024
+  const cudaError_t err = cudaFuncSetAttribute(
+      ce_dw_sm90_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(D / (NB * sm90::BOX), (V + DW_ROWS - 1) / DW_ROWS);  // D tiles fastest
+  ce_dw_sm90_kernel<NB><<<grid, DW_THREADS, smem, s>>>(s_map, x_map, (const int*)labels,
+                                                       (const float*)lse, (const float*)g,
+                                                       (float*)dw, N, V, D);
+  return (int)cudaGetLastError();
 }
 
 inline int cdiv(long long a, int b) { return (int)((a + b - 1) / b); }
@@ -819,21 +958,27 @@ int ce_dx(const void* x, const void* w, const void* stash, long long ld_s, const
   return (int)cudaGetLastError();
 }
 
-// dW (V, D) f32. Stash mode when `stash` is not null.
+// dW (V, D) f32. Stash mode (ce_dw_sm90_kernel, D tiles of 256 columns where
+// D allows, else 192, 128 or 64) when `stash` is not null; x, W and the
+// stash 16-byte aligned.
 int ce_dw(const void* x, const void* w, const void* stash, long long ld_s, const void* labels,
           const void* lse, const void* g, void* dw, int N, int V, int D, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(cdiv(D, BN), cdiv(V, BM));
-  if (stash)
-    ce_dw_kernel<true><<<grid, THREADS_BWD, 0, s>>>((const bf16*)x, (const bf16*)w,
-                                                (const bf16*)stash, ld_s, (const int*)labels,
-                                                (const float*)lse, (const float*)g,
-                                                (float*)dw, N, V, D);
-  else
-    ce_dw_kernel<false><<<grid, THREADS_BWD, 0, s>>>((const bf16*)x, (const bf16*)w, nullptr, 0,
-                                                 (const int*)labels, (const float*)lse,
-                                                 (const float*)g, (float*)dw, N, V, D);
-  return (int)cudaGetLastError();
+  if (!stash) {
+    ce_dw_kernel<<<dim3(cdiv(D, BN), cdiv(V, BM)), THREADS_BWD, 0, s>>>(
+        (const bf16*)x, (const bf16*)w, (const int*)labels, (const float*)lse, (const float*)g,
+        (float*)dw, N, V, D);
+    return (int)cudaGetLastError();
+  }
+  CUtensorMap s_map, x_map;
+  int err;
+  if ((err = sm90::encode_tile_map(&s_map, stash, V, N, 1, ld_s, (long long)N * ld_s)) ||
+      (err = sm90::encode_tile_map(&x_map, x, D, N, 1, D, (long long)N * D)))
+    return err;
+  if (D % 256 == 0) return launch_dw_sm90<4>(s_map, x_map, labels, lse, g, dw, N, V, D, s);
+  if (D % 192 == 0) return launch_dw_sm90<3>(s_map, x_map, labels, lse, g, dw, N, V, D, s);
+  if (D % 128 == 0) return launch_dw_sm90<2>(s_map, x_map, labels, lse, g, dw, N, V, D, s);
+  return launch_dw_sm90<1>(s_map, x_map, labels, lse, g, dw, N, V, D, s);
 }
 
 }  // extern "C"

@@ -10,8 +10,9 @@
 //   - K-major (desc_k): the columns are the product's depth (Q, K, V, dO as
 //     the left operand or as B = rows^T);
 //   - MN-major (desc_mn): the rows are the product's depth, the columns its
-//     output (V in P V, dO in P^T dO, Q in dS^T Q), through the transpose bit
-//     of the B operand; no transposed copy is made.
+//     output (V in P V, dO in P^T dO, Q in dS^T Q, x and the ds tile in
+//     ds^T x), through the transpose bit of the operand; no transposed copy
+//     is made.
 
 #pragma once
 
@@ -80,6 +81,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   while (!mbar_try_wait(a, parity)) {
     if (clock64() - t0 > (1ll << 33)) __trap();
   }
+}
+
+// Order this thread's generic writes to shared memory before later accesses
+// of the async proxy (wgmma operand reads, TMA): a wgmma that reads a tile
+// the threads wrote without it may see the old values.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15; __syncthreads uses 0) over `threads` threads, a
+// multiple of 32.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // ----------------------------------------------------------------------- TMA
@@ -210,6 +224,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : SM90_ACC32_OPERANDS(d)
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A B with both operands read MN-major from shared
+// memory (desc_mn) through both transpose bits: A (64 x 16) from a tile whose
+// rows are the depth and whose 64 columns are A's rows, B (16 x 64) as in
+// wgmma_rs. Accumulator layout as in wgmma_ss.
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_ACC32
+      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : SM90_ACC32_OPERANDS(d)
+      : "l"(a), "l"(b), "r"(1));
 }
 
 // d (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) B, with B

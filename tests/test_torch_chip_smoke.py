@@ -1,0 +1,67 @@
+"""``chip_smoke.py``'s reading of a kernel library's SASS, on the CPU: which
+kernel a mangled name is, and the rule that the Hopper kernels hold wgmma
+(HGMMA) and TMA tile loads (UTMALDG). Needs no card and no ``cuobjdump``."""
+
+import importlib.util
+import os
+from types import SimpleNamespace
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CE_NS = "_ZN45_GLOBAL__N__402d3476_12_linear_ce_cu_50600954"
+FLASH_NS = "_ZN46_GLOBAL__N__daeee7e7_13_flash_attn_cu_b294bfd0"
+DW_SM90 = CE_NS + "17ce_dw_sm90_kernelILi4EEEv14CUtensorMap_stS1_PKiPKfS5_Pfiii"
+
+
+@pytest.mark.parametrize("fn,name", [
+    (DW_SM90, ("ce_dw_sm90_kernel", "4")),
+    (CE_NS + "12ce_dw_kernelEPK13__nv_bfloat16S2_PKiPKfS6_Pfiii", ("ce_dw_kernel", None)),
+    (CE_NS + "21ce_fwd_combine_kernelEPKfPfS2_ii", ("ce_fwd_combine_kernel", None)),
+    (CE_NS + "19ce_dx_reduce_kernelEPKfP13__nv_bfloat16xi", ("ce_dx_reduce_kernel", None)),
+    (FLASH_NS + "10dkv_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_xiiiifi",
+     ("dkv_kernel", "128")),
+    (FLASH_NS + "10fwd_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfxiiiiifii",
+     ("fwd_kernel", "64")),
+    ("_Z9somethingv", ("_Z9somethingv", None)),
+])
+def test_sass_kernel_name(smoke, fn, name):
+    assert smoke.sass_kernel_name(fn) == name
+
+
+def _sass(ops):
+    return f"\t\tFunction : {DW_SM90}\n" + "".join(f"        /*0010*/ {op} R0, R1 ;\n" for op in ops)
+
+
+@pytest.mark.parametrize("ops,error", [
+    (["HGMMA.64x64x16.F32.BF16", "UTMALDG.3D", "HGMMA.64x64x16.F32.BF16"], None),
+    (["UTMALDG.3D", "LDGSTS.E.128"], "no HGMMA"),
+    (["HGMMA.64x64x16.F32.BF16", "HMMA.16816.F32.BF16"], "no UTMALDG"),
+    ([], "no HGMMA or UTMALDG"),
+])
+def test_check_sass_holds_the_dw_kernel_to_wgmma_and_tma(smoke, monkeypatch, tmp_path, ops,
+                                                         error):
+    sass = _sass(ops)
+    assert smoke.sass_counts(sass)[DW_SM90]["HGMMA"] == sum("HGMMA" in op for op in ops)
+    monkeypatch.setattr(smoke, "OUT", str(tmp_path))
+    monkeypatch.setattr(smoke, "subprocess",
+                        SimpleNamespace(run=lambda *a, **k: SimpleNamespace(stdout=sass)))
+    build = SimpleNamespace(nvcc=lambda: "/cuda/bin/nvcc", library_path=lambda src: src)
+    if error is None:
+        smoke.check_sass(build, "linear_ce")
+    else:
+        with pytest.raises(AssertionError, match=error):
+            smoke.check_sass(build, "linear_ce")
+    # the flash source requires its own kernels, which this dump lacks
+    with pytest.raises(AssertionError, match="no SASS found"):
+        smoke.check_sass(build, "flash_attn")

@@ -8,7 +8,10 @@ JAX, hence no ``tests/conftest.py``):
 bf16 inputs. The flash kernels are held to their plain versions at the
 bounds of ``chip_smoke.check_kernels`` (lse absolute, o within one bf16 step,
 gradients by relative norm); the end-to-end attention gradients in the bf16
-band of ``tests/test_flash.py`` (2e-2).
+band of ``tests/test_flash.py`` (2e-2). The CE kernels by relative norm,
+the stash-mode dW kernel at its edges (D tile widths, V and N that no tile
+divides, ignored rows, the softmax part alone, a non-uniform g) within the
+bound of ``chip_smoke.check_ce``.
 """
 
 import numpy as np
@@ -180,6 +183,53 @@ def test_ce_kernels_match_plain(cuda_device, stash, D, V):
     assert torch.count_nonzero(dx[-tail:]) == 0
     assert (dw.abs().sum(1) > 0).all() and (soft[1].abs().sum(1) > 0).all()
     assert launched == {"ce_fwd": 1, "ce_dx": 1, "ce_dw": 1}
+
+
+#: The stash-mode dW kernel against its plain version on the same stash, by
+#: relative norm (the bound of ``chip_smoke.check_ce``).
+CE_DW_REL = 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["tail", "softmax", "random_g"])
+@pytest.mark.parametrize(
+    "N,D,V",
+    # D tiles of 64, 128, 256 (3 and 4 of them), 192 and 64 (of D 320); V and
+    # N that no tile or token chunk divides
+    [(256, 64, 300), (256, 128, 1000), (256, 768, 1000), (256, 1024, 300),
+     (100, 192, 1000), (100, 320, 300), (4000, 768, 50257)],
+)
+def test_ce_dw_stash_edges(cuda_device, N, D, V, mode):
+    """The stash-mode dW kernel (ce_dw_sm90_kernel) against ce_dw_reference
+    on the kernel's own stash, with an ignored tail and g = 1 per counted row
+    (``tail``), every label ignored and g = 1 (``softmax``: the softmax part
+    alone), or a random non-uniform g (``random_g``). x has a scale that
+    grows along D and W another, so a descriptor that swaps or transposes an
+    operand gives another result."""
+    rng = np.random.default_rng(N + D + V)
+    x = torch.tensor(rng.standard_normal((N, D)) * np.linspace(1.0, 2.0, D),
+                     dtype=torch.bfloat16, device=cuda_device)
+    w = torch.tensor(rng.standard_normal((V, D)) * 0.05, dtype=torch.bfloat16,
+                     device=cuda_device)
+    labels_np = rng.integers(0, V, N).astype(np.int32)
+    labels_np[N - N // 8:] = -1
+    g_np = (labels_np >= 0).astype(np.float32)
+    if mode == "softmax":
+        labels_np[:], g_np[:] = -1, 1.0
+    elif mode == "random_g":
+        g_np *= rng.uniform(0.1, 2.0, N).astype(np.float32)
+    labels = torch.tensor(labels_np, device=cuda_device)
+    g = torch.tensor(g_np, device=cuda_device)
+    _, lse, s = ce.ce_fwd(x, w, labels, True)
+    before = ce.LAUNCHES["ce_dw"]
+    dw = ce.ce_dw(x, w, labels, lse, g, s)
+    launched = ce.LAUNCHES["ce_dw"] - before
+    want = ce.ce_dw_reference(x, w, labels, lse, g, s)
+    torch.cuda.synchronize()
+    assert dw.shape == (V, D) and dw.dtype == torch.float32 and launched == 1
+    assert torch.isfinite(dw).all()
+    assert _rel_err(dw, want) <= CE_DW_REL, _rel_err(dw, want)
+    assert (dw.abs().sum(1) > 0).all()
 
 
 @pytest.mark.cuda
