@@ -380,12 +380,6 @@ __device__ __forceinline__ void store_tile(bf16* out, int st, const float (&acc)
 }
 
 // ------------------------------------------------------------------ forward
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // `op` (max or sum) over the 16 values of one of this thread's two rows in a
 // 64 x 64 accumulator (elements 4 n + 2 h + {0, 1} for row half h), as a
 // tree: a short dependency chain.
@@ -420,12 +414,13 @@ __device__ __forceinline__ void softmax_step(float (&sc)[32], float (&m)[2], flo
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     mx[h] = quad_max(fmaxf(m[h], row_reduce(sc, h, [](float a, float b) { return fmaxf(a, b); })));
-    corr[h] = exp2_approx((m[h] - mx[h]) * scale_log2);
+    corr[h] = sm90::exp2_approx((m[h] - mx[h]) * scale_log2);
     m[h] = mx[h];
     mx[h] *= scale_log2;
   }
 #pragma unroll
-  for (int i = 0; i < 32; ++i) sc[i] = exp2_approx(fmaf(sc[i], scale_log2, -mx[(i >> 1) & 1]));
+  for (int i = 0; i < 32; ++i)
+    sc[i] = sm90::exp2_approx(fmaf(sc[i], scale_log2, -mx[(i >> 1) & 1]));
   const auto add = [](float a, float b) { return a + b; };
 #pragma unroll
   for (int h = 0; h < 2; ++h) l[h] = corr[h] * l[h] + row_reduce(sc, h, add);

@@ -255,26 +255,22 @@ __device__ __forceinline__ void zero(float (*acc)[CT][4]) {
     for (int n = 0; n < CT; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
 }
 
-// 8 consecutive bf16 scores at p (16-byte aligned) -> their ds, in place;
+// 16 consecutive bf16 scores at p (16-byte aligned) -> their ds, in place;
 // col is the vocab id of the first, the row statistics are given.
-__device__ __forceinline__ void ds_in_place8(bf16* p, int col, int V, float lse, float g,
-                                             int label) {
-  uint4 v = *reinterpret_cast<uint4*>(p);
-  uint32_t* u = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 sc = unpack_bf16(u[j]);
-    const int c = col + 2 * j;
-    u[j] = pack_bf16(ds_of(sc.x, c, V, lse, g, label), ds_of(sc.y, c + 1, V, lse, g, label));
-  }
-  *reinterpret_cast<uint4*>(p) = v;
-}
-
-// The same for 16 consecutive scores.
 __device__ __forceinline__ void ds_in_place16(bf16* p, int col, int V, float lse, float g,
                                               int label) {
-  ds_in_place8(p, col, V, lse, g, label);
-  ds_in_place8(p + 8, col + 8, V, lse, g, label);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint4 v = *reinterpret_cast<uint4*>(p + 8 * h);
+    uint32_t* u = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float2 sc = unpack_bf16(u[j]);
+      const int c = col + 8 * h + 2 * j;
+      u[j] = pack_bf16(ds_of(sc.x, c, V, lse, g, label), ds_of(sc.y, c + 1, V, lse, g, label));
+    }
+    *reinterpret_cast<uint4*>(p + 8 * h) = v;
+  }
 }
 
 // ------------------------------------------------------------------ forward
@@ -647,81 +643,125 @@ ce_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
 // ------------------------------------------------ dW, stash mode, for Hopper
 // ce_dw_sm90_kernel: one block per (D tile of 64 NB columns, vocab tile of
 // 128 rows); dW tile = sum over all tokens of ds^T x, in f32.
-// - Tiles arrive by TMA (128-byte swizzle, sm90.cuh) into a ring of
-//   DW_STAGES stages of DW_CHUNK tokens: the stash chunk (tokens x 128 vocab,
-//   two 64-column blocks; the map spans V columns and N rows, so boxes past
-//   them are zero-filled) and the x chunk (tokens x 64 NB). Thread 0 refills
-//   a stage while the products run, with the chunk DW_STAGES ahead of the one
-//   that used it, freed by every thread a step before (no producer warp: it
-//   would hold registers the accumulators need).
-// - Two warpgroups, each owning 64 vocab rows (one column block of the stash
-//   chunk) and all 64 NB columns: NB f32 accumulators of 64 x 64 in
-//   registers, 32 NB per thread.
-// - ds once per block per element: after a chunk lands, each warpgroup turns
-//   its column block into ds in place in shared memory (the vocab column of
-//   a 16-byte chunk found by undoing the swizzle; columns >= V masked, since
-//   exp(0 - lse) of a zero-filled column is not 0; rows >= N have g = 0),
-//   then fences the writes to the async proxy and syncs on a named barrier
-//   before wgmma reads them. At D 768 a (token, vocab) element is formed
-//   D / (64 NB) = 3 times over, once per D tile (the mma.sync kernel formed
-//   it 6 times); the D tiles of a vocab tile are neighbours in the grid, so
-//   they run together and the stash streams from device memory about once.
-// - Products: wgmma m64n64k16 with A = ds^T read MN-major from the stash
-//   chunk (its rows are the depth, its columns the output rows) and B = the x
-//   chunk, MN-major too (wgmma_ss_mn): no transposed copy. The ds of chunk
-//   c + 1 is formed while the products of chunk c run.
+// - Tiles arrive by TMA into a ring of DW_STAGES stages of DW_CHUNK tokens:
+//   the stash chunk (tokens x 128 vocab as two 64-column blocks, 128-byte
+//   swizzle; the map spans V columns and N rows, so boxes past them are
+//   zero-filled), the x chunk (tokens x 64 NB) and the chunk's lse, g and
+//   labels (1-d maps, zero past N, so g is 0 there). At the end of each step
+//   thread 0 refills the stage of the chunk before, which every thread freed
+//   a step earlier, with the chunk DW_STAGES ahead of it. There is no
+//   producer warp: with one (288 threads) ptxas capped each thread at 168
+//   registers, short of the 208 this kernel uses, and spilled.
+// - Two warpgroups, each owning 64 vocab rows and all 64 NB columns: NB f32
+//   accumulators of 64 x 64 in registers, 32 NB per thread.
+// - ds is formed in registers as the A operand of the product, never stored:
+//   each warp reads its 16 vocab rows x 16 tokens of the stash chunk with
+//   ldmatrix.trans (A = ds^T: the stash rows are the depth), which lands in
+//   wgmma's register A layout, turns each value into ds (one FFMA and one
+//   ex2 per element) and multiplies with wgmma RS against the x chunk read
+//   MN-major (m64n256k16 for a 256-column tile, else m64n64k16 per column
+//   block). A warpgroup waits for its own products before it forms the next
+//   operand, and the other warpgroup's products run meanwhile: keeping a
+//   batch in flight while the next operand is written makes ptxas serialize
+//   every wgmma (advisory C7513), and was no faster. Each (token, vocab)
+//   element is formed once per D tile: D / (64 NB) = 3 times at D 768 (the
+//   mma.sync kernel formed it 6 times); the D tiles of a vocab tile are
+//   neighbours in the grid, so they run together and the stash streams from
+//   device memory about once.
 constexpr int DW_ROWS = 128;     // vocab rows per block: 64 per warpgroup
 constexpr int DW_CHUNK = 64;     // tokens per ring stage
 constexpr int DW_STAGES = 4;
 constexpr int DW_THREADS = 256;  // two warpgroups; thread 0 also issues the loads
 constexpr int DW_BLOCK = sm90::BOX * sm90::BOX;  // bf16 of one 64 x 64 column block
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int NB>
 struct DwSmem {
-  bf16 s[DW_STAGES][2 * DW_BLOCK];  // stash chunk, then its ds
+  bf16 s[DW_STAGES][2 * DW_BLOCK];
   bf16 x[DW_STAGES][NB * DW_BLOCK];
+  float lse[DW_STAGES][DW_CHUNK], g[DW_STAGES][DW_CHUNK];
+  int label[DW_STAGES][DW_CHUNK];
   uint64_t full[DW_STAGES], empty[DW_STAGES];
+};
+
+// The tensor maps of ce_dw_sm90_kernel.
+struct DwMaps {
+  CUtensorMap s, x, lse, g, label;
 };
 
 // Token chunk c into ring stage c % DW_STAGES, as the stage's round
 // c / DW_STAGES: wait until every thread freed the previous round.
 template <int NB>
-__device__ __forceinline__ void load_dw_chunk(DwSmem<NB>& sm, const CUtensorMap* s_map,
-                                              const CUtensorMap* x_map, int c, int v0, int d0) {
-  const int st = c % DW_STAGES, round = c / DW_STAGES;
+__device__ __forceinline__ void load_dw_chunk(DwSmem<NB>& sm, const DwMaps& maps, int c, int v0,
+                                              int d0) {
+  const int st = c % DW_STAGES, round = c / DW_STAGES, k0 = c * DW_CHUNK;
   if (round > 0) sm90::mbar_wait(&sm.empty[st], (round - 1) & 1);
-  sm90::mbar_expect_tx(&sm.full[st], (2 + NB) * sm90::BLOCK_BYTES);
+  sm90::mbar_expect_tx(&sm.full[st], (2 + NB) * sm90::BLOCK_BYTES + 3 * DW_CHUNK * 4);
 #pragma unroll
   for (int b = 0; b < 2; ++b)
-    sm90::tma_load_3d(sm.s[st] + b * DW_BLOCK, s_map, &sm.full[st], v0 + b * sm90::BOX,
-                      c * DW_CHUNK, 0);
+    sm90::tma_load_3d(sm.s[st] + b * DW_BLOCK, &maps.s, &sm.full[st], v0 + b * sm90::BOX, k0, 0);
 #pragma unroll
   for (int cb = 0; cb < NB; ++cb)
-    sm90::tma_load_3d(sm.x[st] + cb * DW_BLOCK, x_map, &sm.full[st], d0 + cb * sm90::BOX,
-                      c * DW_CHUNK, 0);
+    sm90::tma_load_3d(sm.x[st] + cb * DW_BLOCK, &maps.x, &sm.full[st], d0 + cb * sm90::BOX, k0,
+                      0);
+  sm90::tma_load_1d(sm.lse[st], &maps.lse, &sm.full[st], k0);
+  sm90::tma_load_1d(sm.g[st], &maps.g, &sm.full[st], k0);
+  sm90::tma_load_1d(sm.label[st], &maps.label, &sm.full[st], k0);
 }
 
-// The statistics of one token (zeros past N: ds is 0 there).
-struct TokenStats {
-  float lse, g;
-  int label;
-};
-
-__device__ __forceinline__ TokenStats token_stats(const float* lse, const float* g,
-                                                  const int* labels, int k, int N) {
-  return k < N ? TokenStats{lse[k], g[k], labels[k]} : TokenStats{0.f, 0.f, -1};
+// This warp's A operand of one chunk, in place: a[kk] holds the stash values
+// of depth step kk (tokens 16 kk ..) as ldmatrix.trans left them, register
+// 2 hq + vh the tokens 16 kk + 8 hq + 2 t, + 1 and the vocab column
+// vcol + 8 vh (t = lane % 4, vcol = this lane's first column); each becomes
+// bf16 ds. exp(s - lse) is one FFMA and one ex2. CHECKED masks the columns
+// >= V (with a bit mask) and subtracts the one-hot label term; without it
+// neither occurs in this warp's columns.
+template <bool CHECKED>
+__device__ __forceinline__ void ds_operand(uint32_t (&a)[4][4], const float* lse, const float* g,
+                                           const int* label, int t, int vcol, int V) {
+#pragma unroll
+  for (int kk = 0; kk < DW_CHUNK / 16; ++kk)
+#pragma unroll
+    for (int hq = 0; hq < 2; ++hq) {
+      const int tok = 16 * kk + 8 * hq + 2 * t;
+      const float2 l = *reinterpret_cast<const float2*>(lse + tok);
+      const float2 gg = *reinterpret_cast<const float2*>(g + tok);
+      const float l2[2] = {l.x * LOG2E, l.y * LOG2E}, gt[2] = {gg.x, gg.y};
+      int lab[2] = {-1, -1};
+      if (CHECKED) {
+        const int2 lb = *reinterpret_cast<const int2*>(label + tok);
+        lab[0] = lb.x;
+        lab[1] = lb.y;
+      }
+#pragma unroll
+      for (int vh = 0; vh < 2; ++vh) {
+        const float2 sc = unpack_bf16(a[kk][2 * hq + vh]);
+        float d[2] = {sc.x, sc.y};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float ex = sm90::exp2_approx(fmaf(d[e], LOG2E, -l2[e]));
+          if (CHECKED) {
+            const int c = vcol + 8 * vh;
+            d[e] = (__int_as_float(__float_as_int(ex) & -(int)(c < V)) -
+                    (c == lab[e] ? 1.f : 0.f)) * gt[e];
+          } else {
+            d[e] = ex * gt[e];
+          }
+        }
+        a[kk][2 * hq + vh] = pack_bf16(d[0], d[1]);
+      }
+    }
 }
 
 template <int NB>
 __global__ void __launch_bounds__(DW_THREADS, 1)
-ce_dw_sm90_kernel(const __grid_constant__ CUtensorMap s_map,
-                  const __grid_constant__ CUtensorMap x_map, const int* __restrict__ labels,
-                  const float* __restrict__ lse, const float* __restrict__ gr,
-                  float* __restrict__ dw, int N, int V, int D) {
+ce_dw_sm90_kernel(const __grid_constant__ DwMaps maps, float* __restrict__ dw, int N, int V,
+                  int D) {
   DwSmem<NB>& sm = *reinterpret_cast<DwSmem<NB>*>(sm90::smem_1024());
   const int d0 = blockIdx.x * NB * sm90::BOX, v0 = blockIdx.y * DW_ROWS;
   const int nc = (N + DW_CHUNK - 1) / DW_CHUNK;
   const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
   const bool leader = threadIdx.x == 0;
   if (leader) {
     for (int st = 0; st < DW_STAGES; ++st) {
@@ -732,28 +772,17 @@ ce_dw_sm90_kernel(const __grid_constant__ CUtensorMap s_map,
   }
   __syncthreads();
   if (leader)
-    for (int c = 0; c < DW_STAGES && c < nc; ++c) load_dw_chunk<NB>(sm, &s_map, &x_map, c, v0, d0);
+    for (int c = 0; c < DW_STAGES && c < nc; ++c) load_dw_chunk<NB>(sm, maps, c, v0, d0);
   __syncwarp();
 
-  // This thread's part of the ds: token row r of the warpgroup's column
-  // block, its logical 16-byte chunks 4 h .. 4 h + 3 (8 vocab columns each).
-  // The 8 threads of a quarter warp take 8 rows of one logical chunk, which
-  // the swizzle puts in 8 different bank groups.
-  const int r = ((t >> 4) << 3) | (t & 7), h = (t >> 3) & 1;
-  const int col0 = v0 + wg * sm90::BOX;
-  const auto form_ds = [&](int c, const TokenStats& s) {
-    const int st = c % DW_STAGES;
-    sm90::mbar_wait(&sm.full[st], (c / DW_STAGES) & 1);
-    unsigned char* row = reinterpret_cast<unsigned char*>(sm.s[st] + wg * DW_BLOCK) + r * 128;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int lc = 4 * h + j;
-      ds_in_place8(reinterpret_cast<bf16*>(row + ((lc ^ (r & 7)) << 4)), col0 + 8 * lc, V, s.lse,
-                   s.g, s.label);
-    }
-    sm90::fence_proxy_async();
-  };
-  const auto sync_warpgroup = [&] { sm90::named_barrier(1 + wg, 128); };
+  // This warp's 16 vocab columns from vbase; ldmatrix: lane l gives row
+  // l % 8 of matrix l / 8 (tokens + 8 (l / 16), columns + 8 (l / 8 % 2)),
+  // its 16-byte chunk found through the swizzle (token % 8 == l % 8).
+  const int vbase = v0 + wg * sm90::BOX + warp * 16, vcol = vbase + (lane >> 2);
+  const int mi = lane >> 3, rr = lane & 7;
+  const int lm_off = wg * sm90::BLOCK_BYTES + ((mi >> 1) * 8 + rr) * 128 +
+                     (((2 * warp + (mi & 1)) ^ rr) << 4);
+  const bool tail = vbase + 16 > V;
 
   float acc[NB][32];
 #pragma unroll
@@ -761,47 +790,57 @@ ce_dw_sm90_kernel(const __grid_constant__ CUtensorMap s_map,
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
 
-  if (nc > 0) {
-    TokenStats next = token_stats(lse, gr, labels, DW_CHUNK + r, N);
-    form_ds(0, token_stats(lse, gr, labels, r, N));
-    sync_warpgroup();
-    for (int c = 0; c < nc; ++c) {
-      const int st = c % DW_STAGES;
+  uint32_t a[4][4];  // the A operand of a chunk: ds^T, 16 vocab rows x 64 tokens
+  for (int c = 0; c < nc; ++c) {
+    const int st = c % DW_STAGES;
+    sm90::mbar_wait(&sm.full[st], (c / DW_STAGES) & 1);
+    const unsigned char* s_tile = reinterpret_cast<const unsigned char*>(sm.s[st]) + lm_off;
 #pragma unroll
-      for (int cb = 0; cb < NB; ++cb) sm90::fence_regs(acc[cb]);
-      sm90::wgmma_fence();
-      const bf16* a = sm.s[st] + wg * DW_BLOCK;
+    for (int kk = 0; kk < DW_CHUNK / 16; ++kk) sm90::ldmatrix_x4_trans(a[kk], s_tile + kk * 2048);
+    bool hit = false;  // a label of the chunk among this warp's columns
 #pragma unroll
-      for (int kk = 0; kk < DW_CHUNK / 16; ++kk)
+    for (int i = 0; i < DW_CHUNK / 8; ++i) {
+      const int2 lb = *reinterpret_cast<const int2*>(sm.label[st] + 8 * i + 2 * (lane & 3));
+      hit |= (unsigned)(lb.x - vbase) < 16u || (unsigned)(lb.y - vbase) < 16u;
+    }
+    if (tail || __any_sync(~0u, hit))
+      ds_operand<true>(a, sm.lse[st], sm.g[st], sm.label[st], lane & 3, vcol, V);
+    else
+      ds_operand<false>(a, sm.lse[st], sm.g[st], sm.label[st], lane & 3, vcol, V);
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) sm90::fence_regs(acc[cb]);
+#pragma unroll
+    for (int kk = 0; kk < DW_CHUNK / 16; ++kk) sm90::fence_regs(a[kk]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DW_CHUNK / 16; ++kk) {
+      if constexpr (NB == 4) {
+        sm90::wgmma_rs_n256(acc, a[kk], sm90::desc_mn(sm.x[st], kk));
+      } else {
 #pragma unroll
         for (int cb = 0; cb < NB; ++cb)
-          sm90::wgmma_ss_mn(acc[cb], sm90::desc_mn(a, kk),
-                            sm90::desc_mn(sm.x[st] + cb * DW_BLOCK, kk));
-      sm90::wgmma_commit();
-      // while the products run: chunk c - 1 + DW_STAGES into the stage of
-      // chunk c - 1, which every thread freed at the end of the last step
-      if (leader && c >= 1 && c - 1 + DW_STAGES < nc)
-        load_dw_chunk<NB>(sm, &s_map, &x_map, c - 1 + DW_STAGES, v0, d0);
-      __syncwarp();
-      if (c + 1 < nc) {
-        const TokenStats cur = next;
-        next = token_stats(lse, gr, labels, (c + 2) * DW_CHUNK + r, N);
-        form_ds(c + 1, cur);
+          sm90::wgmma_rs(acc[cb], a[kk], sm90::desc_mn(sm.x[st] + cb * DW_BLOCK, kk));
       }
-      sm90::wgmma_wait<0>();
-#pragma unroll
-      for (int cb = 0; cb < NB; ++cb) sm90::fence_regs(acc[cb]);
-      sm90::mbar_arrive(&sm.empty[st]);
-      sync_warpgroup();  // the ds of chunk c + 1 is complete before its products
     }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) sm90::fence_regs(acc[cb]);
+#pragma unroll
+    for (int kk = 0; kk < DW_CHUNK / 16; ++kk) sm90::fence_regs(a[kk]);
+    sm90::mbar_arrive(&sm.empty[st]);
+    // chunk c - 1 + DW_STAGES into the stage of chunk c - 1, which every
+    // thread freed a step ago
+    if (leader && c >= 1 && c - 1 + DW_STAGES < nc)
+      load_dw_chunk<NB>(sm, maps, c - 1 + DW_STAGES, v0, d0);
+    __syncwarp();
   }
 
   // accumulator element 4 n + e: row 16 warp + lane / 4 + 8 (e / 2) of the
   // warpgroup's 64, column 8 n + 2 (lane % 4) + e % 2 of the column block
-  const int lane = t & 31, row0 = v0 + wg * 64 + (t >> 5) * 16 + (lane >> 2);
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    const int v = row0 + 8 * hh;
+    const int v = vcol + 8 * hh;
     if (v >= V) continue;
     float* out = dw + (size_t)v * D + d0 + 2 * (lane & 3);
 #pragma unroll
@@ -814,17 +853,13 @@ ce_dw_sm90_kernel(const __grid_constant__ CUtensorMap s_map,
 }
 
 template <int NB>
-int launch_dw_sm90(const CUtensorMap& s_map, const CUtensorMap& x_map, const void* labels,
-                   const void* lse, const void* g, void* dw, int N, int V, int D,
-                   cudaStream_t s) {
+int launch_dw_sm90(const DwMaps& maps, void* dw, int N, int V, int D, cudaStream_t s) {
   constexpr int smem = (int)sizeof(DwSmem<NB>) + 1024;  // room to align to 1024
   const cudaError_t err = cudaFuncSetAttribute(
       ce_dw_sm90_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(D / (NB * sm90::BOX), (V + DW_ROWS - 1) / DW_ROWS);  // D tiles fastest
-  ce_dw_sm90_kernel<NB><<<grid, DW_THREADS, smem, s>>>(s_map, x_map, (const int*)labels,
-                                                       (const float*)lse, (const float*)g,
-                                                       (float*)dw, N, V, D);
+  ce_dw_sm90_kernel<NB><<<grid, DW_THREADS, smem, s>>>(maps, (float*)dw, N, V, D);
   return (int)cudaGetLastError();
 }
 
@@ -959,8 +994,8 @@ int ce_dx(const void* x, const void* w, const void* stash, long long ld_s, const
 }
 
 // dW (V, D) f32. Stash mode (ce_dw_sm90_kernel, D tiles of 256 columns where
-// D allows, else 192, 128 or 64) when `stash` is not null; x, W and the
-// stash 16-byte aligned.
+// D allows, else 192, 128 or 64) when `stash` is not null; x, the stash,
+// labels, lse and g 16-byte aligned.
 int ce_dw(const void* x, const void* w, const void* stash, long long ld_s, const void* labels,
           const void* lse, const void* g, void* dw, int N, int V, int D, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -970,15 +1005,18 @@ int ce_dw(const void* x, const void* w, const void* stash, long long ld_s, const
         (float*)dw, N, V, D);
     return (int)cudaGetLastError();
   }
-  CUtensorMap s_map, x_map;
+  DwMaps maps;
   int err;
-  if ((err = sm90::encode_tile_map(&s_map, stash, V, N, 1, ld_s, (long long)N * ld_s)) ||
-      (err = sm90::encode_tile_map(&x_map, x, D, N, 1, D, (long long)N * D)))
+  if ((err = sm90::encode_tile_map(&maps.s, stash, V, N, 1, ld_s, (long long)N * ld_s)) ||
+      (err = sm90::encode_tile_map(&maps.x, x, D, N, 1, D, (long long)N * D)) ||
+      (err = sm90::encode_vec_map(&maps.lse, lse, N, CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) ||
+      (err = sm90::encode_vec_map(&maps.g, g, N, CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) ||
+      (err = sm90::encode_vec_map(&maps.label, labels, N, CU_TENSOR_MAP_DATA_TYPE_INT32)))
     return err;
-  if (D % 256 == 0) return launch_dw_sm90<4>(s_map, x_map, labels, lse, g, dw, N, V, D, s);
-  if (D % 192 == 0) return launch_dw_sm90<3>(s_map, x_map, labels, lse, g, dw, N, V, D, s);
-  if (D % 128 == 0) return launch_dw_sm90<2>(s_map, x_map, labels, lse, g, dw, N, V, D, s);
-  return launch_dw_sm90<1>(s_map, x_map, labels, lse, g, dw, N, V, D, s);
+  if (D % 256 == 0) return launch_dw_sm90<4>(maps, dw, N, V, D, s);
+  if (D % 192 == 0) return launch_dw_sm90<3>(maps, dw, N, V, D, s);
+  if (D % 128 == 0) return launch_dw_sm90<2>(maps, dw, N, V, D, s);
+  return launch_dw_sm90<1>(maps, dw, N, V, D, s);
 }
 
 }  // extern "C"

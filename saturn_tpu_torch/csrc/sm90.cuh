@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
-// mbarriers, TMA tile loads and the host-side tensor-map encode, wgmma
-// shared-memory descriptors and the m64n64k16 bf16 products.
+// mbarriers, TMA tile loads and the host-side tensor-map encodes, wgmma
+// shared-memory descriptors, the m64n64k16 and m64n256k16 bf16 products and
+// transposed ldmatrix.
 //
 // Tiles: a 64-row bf16 tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
 // from 64 x 64 boxes (encode_tile_map) lies in shared memory as D / 64
@@ -10,9 +11,8 @@
 //   - K-major (desc_k): the columns are the product's depth (Q, K, V, dO as
 //     the left operand or as B = rows^T);
 //   - MN-major (desc_mn): the rows are the product's depth, the columns its
-//     output (V in P V, dO in P^T dO, Q in dS^T Q, x and the ds tile in
-//     ds^T x), through the transpose bit of the operand; no transposed copy
-//     is made.
+//     output (V in P V, dO in P^T dO, Q in dS^T Q, x in ds^T x), through
+//     the transpose bit of the B operand; no transposed copy is made.
 
 #pragma once
 
@@ -83,17 +83,11 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
-// Order this thread's generic writes to shared memory before later accesses
-// of the async proxy (wgmma operand reads, TMA): a wgmma that reads a tile
-// the threads wrote without it may see the old values.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Barrier `id` (1..15; __syncthreads uses 0) over `threads` threads, a
-// multiple of 32.
-__device__ __forceinline__ void named_barrier(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+// 2^x on the special-function unit (ex2.approx, denormals flushed).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ----------------------------------------------------------------------- TMA
@@ -108,6 +102,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// One box of a 1-d tensor map at element c0 into `dst`; completes on `bar`.
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2}], [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte aligned)
 // into `dst`; completes on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
@@ -119,18 +123,15 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
-// Host: a tensor map for BOX x BOX bf16 boxes of an (n, rows, cols) array
-// with contiguous columns and element strides row_stride and mat_stride,
-// written to shared memory with the 128-byte swizzle. cuTensorMapEncodeTiled
-// is looked up through the runtime, so nothing links against libcuda.
-// Returns a cudaError_t value, 0 on success.
-inline int encode_tile_map(CUtensorMap* map, const void* base, int cols, int rows, int n,
-                           long long row_stride, long long mat_stride) {
-  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                             const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                             const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// Host: cuTensorMapEncodeTiled, looked up through the runtime, so nothing
+// links against libcuda. A cudaError_t value, 0 on success.
+inline int encode_tiled(EncodeTiled* out) {
+  static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -143,8 +144,20 @@ inline int encode_tile_map(CUtensorMap* map, const void* base, int cols, int row
 #endif
     if (err != cudaSuccess) return (int)err;
     if (found != cudaDriverEntryPointSuccess || fn == nullptr) return (int)cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<Encode>(fn);
+    encode = reinterpret_cast<EncodeTiled>(fn);
   }
+  *out = encode;
+  return 0;
+}
+
+// Host: a tensor map for BOX x BOX bf16 boxes of an (n, rows, cols) array
+// with contiguous columns and element strides row_stride and mat_stride,
+// written to shared memory with the 128-byte swizzle; what lies past the
+// array reads as 0. Returns a cudaError_t value, 0 on success.
+inline int encode_tile_map(CUtensorMap* map, const void* base, int cols, int rows, int n,
+                           long long row_stride, long long mat_stride) {
+  EncodeTiled encode;
+  if (const int err = encode_tiled(&encode)) return err;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)n};
   const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2, (cuuint64_t)mat_stride * 2};
   const cuuint32_t box[3] = {BOX, BOX, 1}, unit[3] = {1, 1, 1};
@@ -152,6 +165,20 @@ inline int encode_tile_map(CUtensorMap* map, const void* base, int cols, int row
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// Host: a tensor map for boxes of BOX 4-byte elements (`type`: float32 or
+// int32) of a contiguous (n,) array, 16-byte aligned; elements past n read
+// as 0. Returns a cudaError_t value, 0 on success.
+inline int encode_vec_map(CUtensorMap* map, const void* base, int n, CUtensorMapDataType type) {
+  EncodeTiled encode;
+  if (const int err = encode_tiled(&encode)) return err;
+  const cuuint64_t dims[1] = {(cuuint64_t)n}, strides[1] = {0};
+  const cuuint32_t box[1] = {BOX}, unit[1] = {1};
+  const CUresult r = encode(map, type, 1, const_cast<void*>(base), dims, strides, box, unit,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
@@ -171,10 +198,12 @@ __device__ __forceinline__ uint64_t desc_k(const void* tile, int kk) {
                     16, 1024);
 }
 
-// Rows [16 kk, 16 kk + 16) of one 64-column block, MN-major: the 64 columns
-// are one swizzle atom, groups of 8 rows are 1024 bytes apart.
+// Rows [16 kk, 16 kk + 16) of a tile's 64-column blocks, from the first at
+// `block`, MN-major: 64 columns are one swizzle atom, groups of 8 rows are
+// 1024 bytes apart, and the next 64 columns are the next block (the leading
+// byte offset, read only by a product wider than 64).
 __device__ __forceinline__ uint64_t desc_mn(const void* block, int kk) {
-  return desc_sw128(static_cast<const unsigned char*>(block) + kk * 2048, 1024, 1024);
+  return desc_sw128(static_cast<const unsigned char*>(block) + kk * 2048, BLOCK_BYTES, 1024);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -226,19 +255,6 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
-// d (64 x 64, f32) += A B with both operands read MN-major from shared
-// memory (desc_mn) through both transpose bits: A (64 x 16) from a tile whose
-// rows are the depth and whose 64 columns are A's rows, B (16 x 64) as in
-// wgmma_rs. Accumulator layout as in wgmma_ss.
-__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_ACC32
-      ", %32, %33, p, 1, 1, 1, 1;\n}\n"
-      : SM90_ACC32_OPERANDS(d)
-      : "l"(a), "l"(b), "r"(1));
-}
-
 // d (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) B, with B
 // (16 x 64) read MN-major from shared memory through the transpose bit. A is
 // laid out as mma.sync's m16n8k16 A operand per warp: a[0] = row g, columns
@@ -253,7 +269,36 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// wgmma_rs over 256 columns: B from four consecutive 64-column blocks,
+// d[cb] holding columns 64 cb .. 64 cb + 63 in the layout of wgmma_ss.
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[4][32], const uint32_t* a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
+      "%124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : SM90_ACC32_OPERANDS(d[0]), SM90_ACC32_OPERANDS(d[1]), SM90_ACC32_OPERANDS(d[2]),
+        SM90_ACC32_OPERANDS(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef SM90_ACC32
 #undef SM90_ACC32_OPERANDS
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8 i ..
+// 8 i + 7 give the row addresses of matrix i, and register i of lane (g, t)
+// receives {M_i[2 t][g], M_i[2 t + 1][g]}.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
 
 }  // namespace sm90

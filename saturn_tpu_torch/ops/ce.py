@@ -8,7 +8,9 @@ with ``ctypes``); each replaces one Pallas kernel of the JAX package:
 - ``ce_fwd`` <- ``_run_fwd`` / ``_fwd_kernel`` (JAX ``ce.py:208``): per-token
   loss and lse in f32, and in stash mode a bf16 copy of the logits;
 - ``ce_dx``  <- ``_fused_ce_bwd`` / ``_dx_kernel`` (JAX ``ce.py:290``);
-- ``ce_dw``  <- ``_fused_ce_bwd`` / ``_dw_kernel`` (JAX ``ce.py:314``).
+- ``ce_dw``  <- ``_fused_ce_bwd`` / ``_dw_kernel`` (JAX ``ce.py:314``); in
+  stash mode ``ce_dw_sm90_kernel`` (TMA and wgmma), in recompute mode the
+  mma.sync ``ce_dw_kernel``.
 
 The backward's score source is the stash (stash mode) or x·Wᵀ recomputed in
 f32 inside each kernel (recompute mode: no O(N·V) memory). Labels below 0
@@ -209,6 +211,8 @@ def ce_dw(x, w, labels, lse, g, stash=None) -> torch.Tensor:
     if not _on_cuda(x):
         return ce_dw_reference(x, w, labels, lse, g, stash)
     _check_kernel_inputs(x, w, labels, lse, g, stash=stash)
+    if stash is not None:  # the stash-mode kernel loads the rows by TMA: 16-byte aligned
+        labels, lse, g = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (labels, lse, g))
     N, D = x.shape
     V = w.shape[0]
     dw = torch.empty((V, D), dtype=torch.float32, device=x.device)
