@@ -11,7 +11,7 @@ Phases, in order; any failure is an exception and a non-zero exit:
    ``nvcc`` each, started together), with each kernel's ptxas line and the
    wgmma / TMA / cp.async / mma.sync instructions in its SASS
    (``cuobjdump``); the flash forward and dK/dV kernels and the stash-mode
-   dW kernel must hold wgmma and TMA tile loads.
+   dx and dW kernels must hold wgmma and TMA tile loads.
 2. Kernels against their plain PyTorch versions: flash forward, dQ and
    dK/dV at the GPT-2-small training shape (B 8, H 12, T 512, D 64, bf16,
    causal), a grouped-query shape (B 2, H 32, KV 4, T 1024, D 64), the main
@@ -25,8 +25,9 @@ Phases, in order; any failure is an exception and a non-zero exit:
    The library call of a forward kernel is the library's forward (SDPA; the
    unfused ``F.linear`` + ``F.cross_entropy``), of a backward kernel the
    library's backward alone, run on a graph built outside the timed window.
-   Beside ``ce_dw``, the time of cuBLAS on its product alone (``torch.matmul``
-   of a bf16 (V, N) by the (N, D) x): a yardstick, in no table column.
+   Beside ``ce_dx`` and ``ce_dw``, the time of cuBLAS on each one's product
+   alone (``torch.matmul`` of the bf16 (N, V) stash by the (V, D) W, of a
+   bf16 (V, N) by the (N, D) x): yardsticks, in no table column.
 3. The port's main path at full width: a heterogeneous sweep of two
    GPT-2-small tasks (b8 x 512, differing only in lr, ``pretraining_loss``)
    and one BERT-base task (b8 x 512, ``mlm_loss``), synthetic data, through
@@ -99,19 +100,21 @@ SOURCES = {
     "ce_dx": "saturn_tpu/ops/ce.py:290",
     "ce_dw": "saturn_tpu/ops/ce.py:314",
 }
-#: How each kernel's launches begin in a profile, its main kernel first
-#: (``csrc/flash_attn.cu``, ``csrc/linear_ce.cu``); a CE wrapper's second
-#: kernel (the forward's combine, dx's split-K reduction) counts to its time.
+#: How each kernel's launches begin in a profile (``csrc/flash_attn.cu``,
+#: ``csrc/linear_ce.cu``).
 KERNEL_SYMBOLS = {
     "flash_fwd": ("(anonymous namespace)::fwd_kernel<",),
     "flash_dq": ("(anonymous namespace)::dq_kernel<",),
     "flash_dkv": ("(anonymous namespace)::dkv_kernel<",),
     "ce_fwd": ("(anonymous namespace)::ce_fwd_kernel<",
                "(anonymous namespace)::ce_fwd_combine_kernel"),
-    "ce_dx": ("(anonymous namespace)::ce_dx_kernel<",
-              "(anonymous namespace)::ce_dx_reduce_kernel"),
+    # ce_dx_sm90_kernel<, the recompute-mode ce_dx_kernel, ce_dx_reduce_kernel
+    "ce_dx": ("(anonymous namespace)::ce_dx_",),
     "ce_dw": ("(anonymous namespace)::ce_dw_",),  # ce_dw_sm90_kernel<, recompute ce_dw_kernel
 }
+#: A CE wrapper's second kernel (the forward's combine, dx's split-K
+#: reduction): its time counts to the wrapper's, its launches do not.
+SECOND_KERNELS = ("ce_fwd_combine_kernel", "ce_dx_reduce_kernel")
 
 
 def log(msg: str) -> None:
@@ -123,7 +126,7 @@ def log(msg: str) -> None:
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
 #: Kernels whose SASS must hold wgmma and TMA tile loads, by source.
 WGMMA_KERNELS = {"flash_attn": ("fwd_kernel", "dkv_kernel"),
-                 "linear_ce": ("ce_dw_sm90_kernel",)}
+                 "linear_ce": ("ce_dx_sm90_kernel", "ce_dw_sm90_kernel")}
 
 
 def sass_kernel_name(fn: str):
@@ -510,7 +513,11 @@ def check_ce(ce, N, D, V, stash, seed, tail, timed):
                         "linear + cross_entropy's backward alone", lib_bwd_ms)
     del lib_out
     if stash:
-        # cuBLAS on the product alone: a yardstick, not the kernel's library call
+        # cuBLAS on each product alone: yardsticks, not the kernels' library call
+        ms = device_ms(lambda: torch.matmul(s, w))  # the bf16 (N, V) stash as ds
+        rows["ce_dx"]["cublas_product_ms"] = ms
+        log(f"  cuBLAS yardstick for ce_dx's product: torch.matmul of the bf16 (N, V) stash by "
+            f"the (V, D) W, bf16 out: {ms:.4f} ms (ce_dx {rows['ce_dx']['ms']:.4f} ms)")
         ds_t = s.t()  # a bf16 (V, N) operand laid out as the kernel reads dsᵀ
         ms = device_ms(lambda: torch.matmul(ds_t, x))
         rows["ce_dw"]["cublas_product_ms"] = ms
@@ -755,7 +762,8 @@ def profile_steps(sat, card, n_sync=8, n_prof=4):
         for name, symbols in KERNEL_SYMBOLS.items():
             mine = [(n, a, b) for n, a, b in events if any(s in n for s in symbols)]
             kernels[name] = {
-                "launches_per_step": sum(symbols[0] in n for n, _, _ in mine) / n_prof,
+                "launches_per_step": sum(not any(s in n for s in SECOND_KERNELS)
+                                         for n, _, _ in mine) / n_prof,
                 "device_ms_per_step": sum(b - a for _, a, b in mine) / 1e3 / n_prof}
         want = {n: (LAYERS if attention == "flash" else 0) for n in FLASH_NAMES}
         want.update({n: (0 if loss_fn else 1) for n in CE_NAMES})
@@ -843,7 +851,7 @@ def main(argv) -> int:
     rows.update(check_ce(ce, N, D, VOCAB, True, 3, 0, timed=True))
     recompute = check_ce(ce, N, D, VOCAB, False, 4, 0, timed=True)
     check_ce(ce, 4000, D, 50257, True, 5, 64, timed=False)
-    # the other widths of the stash-mode dW kernel: D tiles of 256 and of 64
+    # the other widths of the stash-mode dx and dW kernels: D tiles of 256 and of 64
     check_ce(ce, N, 1024, VOCAB, True, 6, 0, timed=False)
     check_ce(ce, 4000, 64, 50257, True, 7, 64, timed=False)
     torch.cuda.empty_cache()

@@ -2,7 +2,9 @@
 //
 // Replaces the three Pallas kernels of saturn_tpu/ops/ce.py:
 //   ce_fwd_kernel (+ ce_fwd_combine_kernel) <- _run_fwd       (pallas_call at ce.py:208, _fwd_kernel)
-//   ce_dx_kernel  (+ ce_dx_reduce_kernel)   <- _fused_ce_bwd  (pallas_call at ce.py:290, _dx_kernel)
+//   ce_dx_sm90_kernel (stash mode),
+//   ce_dx_kernel (recompute mode),
+//     each + ce_dx_reduce_kernel            <- _fused_ce_bwd  (pallas_call at ce.py:290, _dx_kernel)
 //   ce_dw_sm90_kernel (stash mode),
 //   ce_dw_kernel (recompute mode)           <- _fused_ce_bwd  (pallas_call at ce.py:314, _dw_kernel)
 //
@@ -20,14 +22,15 @@
 // (0.32 ms at N 4096, D 768, V 50304). In practice the mma.sync kernels are
 // bound by their mma.sync issue rate and their shared-memory fragment loads.
 //
-// What the design does about it. ce_dw_sm90_kernel, the dW of stash mode, is
-// built for Hopper: see its own note below. Every other kernel computes a
-// 128 x 128 output tile per block and stages the product's depth 32 at a
-// time through shared memory with cp.async, double-buffered. Products run on
-// mma.sync m16n8k16 (bf16 in, f32 accumulate). Operands contiguous along the
-// product's depth are read with 32-bit shared loads; operands contiguous
-// along the output (W in dx, x in dW) are staged as they lie in memory and
-// read with ldmatrix.trans.
+// What the design does about it. The two stash-mode backward kernels,
+// ce_dx_sm90_kernel and ce_dw_sm90_kernel, are built for Hopper (TMA rings,
+// wgmma, ds formed in registers): see their own notes below. Every other
+// kernel computes a 128 x 128 output tile per block and stages the product's
+// depth 32 at a time through shared memory with cp.async, double-buffered.
+// Products run on mma.sync m16n8k16 (bf16 in, f32 accumulate). Operands
+// contiguous along the product's depth are read with 32-bit shared loads;
+// operands contiguous along the output (W in dx, x in dW) are staged as they
+// lie in memory and read with ldmatrix.trans.
 //
 // - ce_fwd: 4 warps, each owning 32 whole rows of the tile (all 128
 //   columns), so a row's running max and sum never leave the warp. Token
@@ -35,21 +38,20 @@
 //   across blocks: each writes partial (max, sum, label logit) rows in f32
 //   for its vocab range, and ce_fwd_combine_kernel forms lse and loss. The
 //   TPU kernel instead walks the whole vocab on one grid axis.
-// - ce_dx and the recompute-mode ce_dw: 8 warps as 4 x 2 warps of 32 x 64.
-//   Each depth stage first turns its score tile into a ds tile in shared
-//   memory, every element once (stash mode: the stash tile in place;
-//   recompute mode: from the f32 score tile x W^T held in registers), then
-//   runs the product with ds as the A operand, so the exponentials stay out
-//   of the mma loop. Every D tile forms its own ds tiles: D / 128 = 6 times
-//   over at D 768, the price of keeping the accumulator of a 128 x 128 tile
-//   in registers. In recompute mode this repeats the x W^T recompute as
-//   well; recompute is the long-context mode, off the main path.
-// - ce_dx: output tiles over (token, D) with the vocab as depth: at D 768
-//   that is only 192 tiles, so the vocab is split (split-K) into f32 partial
-//   sums that ce_dx_reduce_kernel adds in a fixed order and casts to bf16: no
-//   atomics, a result independent of scheduling. The D tiles of one token
-//   tile are neighbours in the grid, so they stream the same stash rows at
-//   about the same time and all but the first read come from L2.
+// - The recompute-mode ce_dx and ce_dw: 8 warps as 4 x 2 warps of 32 x 64.
+//   Each depth stage first forms its f32 score tile x W^T in registers, turns
+//   it into a ds tile in shared memory, every element once, then runs the
+//   product with ds as the A operand. Every D tile repeats the x W^T
+//   recompute: D / 128 = 6 times over at D 768, the price of keeping the
+//   accumulator of a 128 x 128 tile in registers; recompute is the
+//   long-context mode, off the main path.
+// - ce_dx (both kernels): output tiles over (token, D) with the vocab as
+//   depth: at D 768 too few to fill the card, so the vocab is split
+//   (split-K) into f32 partial sums that ce_dx_reduce_kernel adds in a fixed
+//   order and casts to bf16: no atomics, a result independent of scheduling.
+//   The D tiles of one token tile are neighbours in the grid, so they stream
+//   the same stash rows at about the same time and all but the first read
+//   come from L2.
 // - ce_dw (both kernels): output tiles over (vocab, D), tokens as depth, the
 //   depth loop inside the block, f32 out, no atomics.
 // - The vocab is taken as it is (no pad to a tile multiple): loads past V or
@@ -255,24 +257,6 @@ __device__ __forceinline__ void zero(float (*acc)[CT][4]) {
     for (int n = 0; n < CT; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
 }
 
-// 16 consecutive bf16 scores at p (16-byte aligned) -> their ds, in place;
-// col is the vocab id of the first, the row statistics are given.
-__device__ __forceinline__ void ds_in_place16(bf16* p, int col, int V, float lse, float g,
-                                              int label) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    uint4 v = *reinterpret_cast<uint4*>(p + 8 * h);
-    uint32_t* u = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 sc = unpack_bf16(u[j]);
-      const int c = col + 8 * h + 2 * j;
-      u[j] = pack_bf16(ds_of(sc.x, c, V, lse, g, label), ds_of(sc.y, c + 1, V, lse, g, label));
-    }
-    *reinterpret_cast<uint4*>(p + 8 * h) = v;
-  }
-}
-
 // ------------------------------------------------------------------ forward
 // Block (token tile, vocab split); walks the split's vocab tiles. Writes the
 // split's running (max, sum of exp, label logit) per row into
@@ -400,32 +384,29 @@ __global__ void ce_fwd_combine_kernel(const float* __restrict__ part, float* __r
   loss[r] = z - b;
 }
 
-// ------------------------------------------------------------- dx and dW
-// Both backward kernels run 8 warps (THREADS_BWD) over a 128 x 128 output
-// tile, as 4 x 2 warps of 32 x 64. Each depth stage first turns its score
-// tile into a ds tile in shared memory, every element once (stash mode: the
-// stash tile in place; recompute mode: the f32 score tile of x W^T, from
-// registers), then runs the product with ds as the A operand. Forming ds
-// apart from the product keeps the mma loop free of the exponentials.
+// ------------------------------------------------- dx and dW, recompute mode
+// Both recompute-mode backward kernels run 8 warps (THREADS_BWD) over a
+// 128 x 128 output tile, as 4 x 2 warps of 32 x 64. Each depth stage first
+// forms the f32 score tile of x W^T in registers and turns it into a ds tile
+// in shared memory, every element once, then runs the product with ds as the
+// A operand. Forming ds apart from the product keeps the mma loop free of the
+// exponentials.
 constexpr int THREADS_BWD = 256;
 constexpr int NTW = 64 / 8;          // mma column tiles per warp in dx and dW
 
 // Block (D tile, token tile, vocab split): part[split] (N x D, f32) = the
 // split's sum over vocab of ds W.
-template <bool STASH>
 __global__ void __launch_bounds__(THREADS_BWD, 2)
 ce_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-             const bf16* __restrict__ stash, long long ld_s, const int* __restrict__ labels,
-             const float* __restrict__ lse, const float* __restrict__ gr,
-             float* __restrict__ part, int N, int V, int D, int chunks_per_split) {
-  // sA: stash mode, the stash tile (BM tokens x BK vocab), turned into ds in
-  // place; recompute mode, the x tile (BM tokens x BK of D). sW: recompute
-  // mode, the W tile (BK vocab x BK of D); sDs: recompute mode, the ds tile.
-  // sB: the W tile of the product (BK vocab x BN of D).
+             const int* __restrict__ labels, const float* __restrict__ lse,
+             const float* __restrict__ gr, float* __restrict__ part, int N, int V, int D,
+             int chunks_per_split) {
+  // sA: the x tile (BM tokens x BK of D); sW: the W tile (BK vocab x BK of
+  // D); sDs: the ds tile; sB: the W tile of the product (BK vocab x BN of D).
   __shared__ __align__(16) bf16 sA[2][BM * LDK];
-  __shared__ __align__(16) bf16 sW[STASH ? 1 : 2][STASH ? 8 : BK * LDK];
-  __shared__ __align__(16) bf16 sDs[STASH ? 8 : BM * LDK];
-  __shared__ __align__(16) bf16 sB[STASH ? 2 : 1][BK * LDN];
+  __shared__ __align__(16) bf16 sW[2][BK * LDK];
+  __shared__ __align__(16) bf16 sDs[BM * LDK];
+  __shared__ __align__(16) bf16 sB[BK * LDN];
   __shared__ float sLse[BM], sG[BM];
   __shared__ int sLab[BM];
 
@@ -447,76 +428,47 @@ ce_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   zero<NTW>(acc);
   uint32_t a[MT][4];
 
-  if (STASH) {
-    load_k_tile<BM>(sA[0], stash, ld_s, row0, N, c0 * BK, (int)ld_s);
-    load_n_tile(sB[0], w, D, c0 * BK, V, d0, D);
+  const int nd = D / BK;
+  for (int c = c0; c < c1; ++c) {
+    // s (16 tokens of this warp x BK vocab) = x W^T over all of D, in f32
+    float s[1][BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) s[0][n][0] = s[0][n][1] = s[0][n][2] = s[0][n][3] = 0.f;
+    load_n_tile(sB, w, D, c * BK, V, d0, D);
+    load_k_tile<BM>(sA[0], x, D, row0, N, 0, D);
+    load_k_tile<BK>(sW[0], w, D, c * BK, V, 0, D);
     cp_commit();
-    for (int c = c0; c < c1; ++c) {
-      const int st = (c - c0) & 1;
-      if (c + 1 < c1) {
-        load_k_tile<BM>(sA[st ^ 1], stash, ld_s, row0, N, (c + 1) * BK, (int)ld_s);
-        load_n_tile(sB[st ^ 1], w, D, (c + 1) * BK, V, d0, D);
+    for (int dk = 0; dk < nd; ++dk) {
+      if (dk + 1 < nd) {
+        load_k_tile<BM>(sA[(dk + 1) & 1], x, D, row0, N, (dk + 1) * BK, D);
+        load_k_tile<BK>(sW[(dk + 1) & 1], w, D, c * BK, V, (dk + 1) * BK, D);
         cp_commit();
         cp_wait<1>();
       } else {
         cp_wait<0>();
       }
       __syncthreads();
-      {  // ds in place: thread -> row tid / 2, 16 vocab columns
-        const int r = threadIdx.x >> 1, cc = (threadIdx.x & 1) * 16;
-        ds_in_place16(sA[st] + r * LDK + cc, c * BK + cc, V, sLse[r], sG[r], sLab[r]);
-      }
+#pragma unroll
+      for (int k0 = 0; k0 < BK; k0 += 16)
+        mma_kk<1, BK / 8>(s, sA[dk & 1] + warp * 16 * LDK, sW[dk & 1], k0, lane);
       __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        a_rows(a, sA[st] + wm * WM * LDK, kk, lane);
-        mma_bt<NTW>(acc, a, sB[st] + wn * 64, kk, lane);
-      }
-      __syncthreads();  // every warp is done with this stage before it is refilled
     }
-  } else {
-    const int nd = D / BK;
-    for (int c = c0; c < c1; ++c) {
-      // s (16 tokens of this warp x BK vocab) = x W^T over all of D, in f32
-      float s[1][BK / 8][4];
 #pragma unroll
-      for (int n = 0; n < BK / 8; ++n) s[0][n][0] = s[0][n][1] = s[0][n][2] = s[0][n][3] = 0.f;
-      load_n_tile(sB[0], w, D, c * BK, V, d0, D);
-      load_k_tile<BM>(sA[0], x, D, row0, N, 0, D);
-      load_k_tile<BK>(sW[0], w, D, c * BK, V, 0, D);
-      cp_commit();
-      for (int dk = 0; dk < nd; ++dk) {
-        if (dk + 1 < nd) {
-          load_k_tile<BM>(sA[(dk + 1) & 1], x, D, row0, N, (dk + 1) * BK, D);
-          load_k_tile<BK>(sW[(dk + 1) & 1], w, D, c * BK, V, (dk + 1) * BK, D);
-          cp_commit();
-          cp_wait<1>();
-        } else {
-          cp_wait<0>();
-        }
-        __syncthreads();
+    for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
-        for (int k0 = 0; k0 < BK; k0 += 16)
-          mma_kk<1, BK / 8>(s, sA[dk & 1] + warp * 16 * LDK, sW[dk & 1], k0, lane);
-        __syncthreads();
+      for (int h = 0; h < 2; ++h) {
+        const int r = warp * 16 + g + 8 * h, col = n * 8 + 2 * t, v = c * BK + col;
+        *reinterpret_cast<uint32_t*>(sDs + r * LDK + col) =
+            pack_bf16(ds_of(s[0][n][2 * h], v, V, sLse[r], sG[r], sLab[r]),
+                      ds_of(s[0][n][2 * h + 1], v + 1, V, sLse[r], sG[r], sLab[r]));
       }
+    __syncthreads();
 #pragma unroll
-      for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = warp * 16 + g + 8 * h, col = n * 8 + 2 * t, v = c * BK + col;
-          *reinterpret_cast<uint32_t*>(sDs + r * LDK + col) =
-              pack_bf16(ds_of(s[0][n][2 * h], v, V, sLse[r], sG[r], sLab[r]),
-                        ds_of(s[0][n][2 * h + 1], v + 1, V, sLse[r], sG[r], sLab[r]));
-        }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        a_rows(a, sDs + wm * WM * LDK, kk, lane);
-        mma_bt<NTW>(acc, a, sB[0] + wn * 64, kk, lane);
-      }
-      __syncthreads();  // sB, sA[0], sW[0] and sDs are refilled for the next chunk
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      a_rows(a, sDs + wm * WM * LDK, kk, lane);
+      mma_bt<NTW>(acc, a, sB + wn * 64, kk, lane);
     }
+    __syncthreads();  // sB, sA[0], sW[0] and sDs are refilled for the next chunk
   }
 
   float* out = part + (size_t)blockIdx.z * N * D;
@@ -863,17 +815,257 @@ int launch_dw_sm90(const DwMaps& maps, void* dw, int N, int V, int D, cudaStream
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------ dx, stash mode, for Hopper
+// ce_dx_sm90_kernel: one block per (D tile of 64 NB columns, token tile of
+// 128 rows, vocab split); part[split] (N x D, f32) = the split's sum over
+// its vocab of ds W. ce_dw_sm90_kernel's design with the roles transposed:
+// - Bound at N 4096, D 768, V 50304: the product, 2 N V D = 316 GFLOP, 0.32
+//   ms on the tensor cores. Beside it the ex2 of ds, N V D / (64 NB) = 618 M
+//   (each element once per D tile), about 0.17 ms on the special-function
+//   units if nothing hid it, and about 0.6 GB of device memory, 0.18 ms: the
+//   412 MB stash once, W (77 MB) once, the f32 partial sums written and read.
+// - Tiles arrive by TMA into a ring of DX_STAGES stages of DX_CHUNK vocab
+//   columns: the stash chunk (128 tokens x 64 vocab as two 64-row boxes;
+//   its map spans V columns and N rows) and the W chunk (64 vocab rows x
+//   64 NB columns; its map spans D columns and V rows), 128-byte swizzle,
+//   zero-filled past V and N. Thread 0 refills the stage of the chunk before,
+//   as in ce_dw_sm90_kernel; no producer warp.
+// - Two warpgroups, each owning 64 token rows and all 64 NB columns: NB f32
+//   accumulators of 64 x 64 in registers, 32 NB per thread.
+// - ds is formed in registers as the A operand, never stored: each warp reads
+//   its 16 token rows x 16 vocab columns per depth step with a plain
+//   ldmatrix (the stash rows are dx's rows, the vocab its depth), which lands
+//   in wgmma's register A layout, turns each value into ds (one FFMA, one
+//   ex2, one multiply by g) and multiplies with wgmma RS against the W chunk
+//   read MN-major (m64n256k16 for a 256-column tile, else m64n64k16 per
+//   column block). A thread's two rows are fixed for the whole vocab loop,
+//   so their lse, g and label sit in registers from the start. A warpgroup
+//   waits for its own products before it forms the next operand (anything
+//   else made ptxas serialize every wgmma in ce_dw_sm90_kernel).
+// - Columns >= V: the rows of W past V read as 0, so they add nothing as
+//   long as ds there is finite. It is exp(-lse) g there (the stash reads 0),
+//   which overflows for lse below about -88: the chunk that reaches past V
+//   therefore still masks ds to 0 there. The one-hot term is subtracted only
+//   by a warp whose 16 rows have a label in the chunk: rare, and that chunk
+//   takes the checked path; every other chunk runs branch-free.
+// - Split-K: at D 768 there are 32 x 3 = 96 output tiles for 132 SMs, so
+//   the vocab is split (dx_split: 4 splits, 384 blocks, one per SM). The grid
+//   runs D tiles fastest, then token tiles, then splits: the blocks in flight
+//   stream one split's range of W (about 19 MB) together from L2, where W
+//   (77 MB) would not fit whole.
+constexpr int DX_ROWS = 128;     // tokens per block: 64 per warpgroup
+constexpr int DX_CHUNK = 64;     // vocab columns per ring stage
+constexpr int DX_STAGES = 4;
+constexpr int DX_THREADS = 256;  // two warpgroups; thread 0 also issues the loads
+
+template <int NB>
+struct DxSmem {
+  bf16 s[DX_STAGES][2 * DW_BLOCK];
+  bf16 w[DX_STAGES][NB * DW_BLOCK];
+  uint64_t full[DX_STAGES], empty[DX_STAGES];
+};
+
+// The tensor maps of ce_dx_sm90_kernel.
+struct DxMaps {
+  CUtensorMap s, w;
+};
+
+template <int NB>
+constexpr int dx_smem() { return (int)sizeof(DxSmem<NB>) + 1024; }  // room to align to 1024
+
+// The i-th vocab chunk of the block (vocab columns k0..) into ring stage
+// i % DX_STAGES, as the stage's round i / DX_STAGES: wait until every thread
+// freed the previous round.
+template <int NB>
+__device__ __forceinline__ void load_dx_chunk(DxSmem<NB>& sm, const DxMaps& maps, int i, int k0,
+                                              int row0, int d0) {
+  const int st = i % DX_STAGES, round = i / DX_STAGES;
+  if (round > 0) sm90::mbar_wait(&sm.empty[st], (round - 1) & 1);
+  sm90::mbar_expect_tx(&sm.full[st], (2 + NB) * sm90::BLOCK_BYTES);
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+    sm90::tma_load_3d(sm.s[st] + b * DW_BLOCK, &maps.s, &sm.full[st], k0, row0 + b * sm90::BOX, 0);
+#pragma unroll
+  for (int cb = 0; cb < NB; ++cb)
+    sm90::tma_load_3d(sm.w[st] + cb * DW_BLOCK, &maps.w, &sm.full[st], d0 + cb * sm90::BOX, k0, 0);
+}
+
+// This warp's A operand of one vocab chunk, in place: a[kk][r] holds the
+// stash values of row g + 8 (r % 2) of the warp's 16 (g = lane / 4) at vocab
+// columns col + 16 kk + 8 (r / 2) and the one after (col: the chunk's first
+// + 2 (lane % 4)), as ldmatrix left them; each pair becomes bf16 ds. l2, gr,
+// lab: lse / ln 2, g and the label of the thread's two rows. CHECKED masks
+// the columns >= V (with a bit mask) and subtracts the one-hot label term;
+// without it neither occurs in this warp's rows.
+template <bool CHECKED>
+__device__ __forceinline__ void dx_ds_operand(uint32_t (&a)[4][4], const float (&l2)[2],
+                                              const float (&gr)[2], const int (&lab)[2], int col,
+                                              int V) {
+#pragma unroll
+  for (int kk = 0; kk < DX_CHUNK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int h = r & 1, c = col + 16 * kk + 8 * (r >> 1);
+      const float2 sc = unpack_bf16(a[kk][r]);
+      float d[2] = {sc.x, sc.y};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float ex = sm90::exp2_approx(fmaf(d[e], LOG2E, -l2[h]));
+        if (CHECKED) {
+          d[e] = (__int_as_float(__float_as_int(ex) & -(int)(c + e < V)) -
+                  (c + e == lab[h] ? 1.f : 0.f)) * gr[h];
+        } else {
+          d[e] = ex * gr[h];
+        }
+      }
+      a[kk][r] = pack_bf16(d[0], d[1]);
+    }
+}
+
+template <int NB>
+__global__ void __launch_bounds__(DX_THREADS, 1)
+ce_dx_sm90_kernel(const __grid_constant__ DxMaps maps, const int* __restrict__ labels,
+                  const float* __restrict__ lse, const float* __restrict__ gr,
+                  float* __restrict__ part, int N, int V, int D, int chunks_per_split) {
+  DxSmem<NB>& sm = *reinterpret_cast<DxSmem<NB>*>(sm90::smem_1024());
+  const int d0 = blockIdx.x * NB * sm90::BOX, row0 = blockIdx.y * DX_ROWS;
+  const int c0 = blockIdx.z * chunks_per_split;
+  const int nc = min((V + DX_CHUNK - 1) / DX_CHUNK - c0, chunks_per_split);
+  const int wg = threadIdx.x >> 7, t = threadIdx.x & 127;
+  const int warp = t >> 5, lane = t & 31;
+  const bool leader = threadIdx.x == 0;
+  if (leader) {
+    for (int st = 0; st < DX_STAGES; ++st) {
+      sm90::mbar_init(&sm.full[st], 1);
+      sm90::mbar_init(&sm.empty[st], DX_THREADS);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+  if (leader)
+    for (int i = 0; i < DX_STAGES && i < nc; ++i)
+      load_dx_chunk<NB>(sm, maps, i, (c0 + i) * DX_CHUNK, row0, d0);
+  __syncwarp();
+
+  // The statistics of this thread's two rows, g and g + 8 of its warp's 16
+  // (none past N: g = 0 there)
+  const int row = row0 + wg * sm90::BOX + warp * 16 + (lane >> 2);
+  float l2[2], gg[2];
+  int lab[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    l2[h] = r < N ? lse[r] * LOG2E : 0.f;
+    gg[h] = r < N ? gr[r] : 0.f;
+    lab[h] = r < N ? labels[r] : -1;
+  }
+  // ldmatrix: lane l gives row l % 8 of matrix l / 8 (rows + 8 (l / 8 % 2),
+  // vocab + 8 (l / 16)), its 16-byte chunk found through the swizzle (row % 8
+  // == l % 8)
+  const int lrow = warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1);
+  int lm_off[DX_CHUNK / 16];
+#pragma unroll
+  for (int kk = 0; kk < DX_CHUNK / 16; ++kk)
+    lm_off[kk] = wg * sm90::BLOCK_BYTES + lrow * 128 + (((2 * kk + (lane >> 4)) ^ (lane & 7)) << 4);
+
+  float acc[NB][32];
+#pragma unroll
+  for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+
+  uint32_t a[DX_CHUNK / 16][4];  // the A operand of a chunk: ds, 16 token rows x 64 vocab
+  for (int i = 0; i < nc; ++i) {
+    const int st = i % DX_STAGES, k0 = (c0 + i) * DX_CHUNK;
+    sm90::mbar_wait(&sm.full[st], (i / DX_STAGES) & 1);
+    const unsigned char* s_tile = reinterpret_cast<const unsigned char*>(sm.s[st]);
+#pragma unroll
+    for (int kk = 0; kk < DX_CHUNK / 16; ++kk) sm90::ldmatrix_x4(a[kk], s_tile + lm_off[kk]);
+    // a label of this warp's rows in the chunk, or columns past V
+    const bool hit = (unsigned)(lab[0] - k0) < (unsigned)DX_CHUNK ||
+                     (unsigned)(lab[1] - k0) < (unsigned)DX_CHUNK;
+    const int col = k0 + 2 * (lane & 3);
+    if (k0 + DX_CHUNK > V || __any_sync(~0u, hit))
+      dx_ds_operand<true>(a, l2, gg, lab, col, V);
+    else
+      dx_ds_operand<false>(a, l2, gg, lab, col, V);
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) sm90::fence_regs(acc[cb]);
+#pragma unroll
+    for (int kk = 0; kk < DX_CHUNK / 16; ++kk) sm90::fence_regs(a[kk]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DX_CHUNK / 16; ++kk) {
+      if constexpr (NB == 4) {
+        sm90::wgmma_rs_n256(acc, a[kk], sm90::desc_mn(sm.w[st], kk));
+      } else {
+#pragma unroll
+        for (int cb = 0; cb < NB; ++cb)
+          sm90::wgmma_rs(acc[cb], a[kk], sm90::desc_mn(sm.w[st] + cb * DW_BLOCK, kk));
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb) sm90::fence_regs(acc[cb]);
+#pragma unroll
+    for (int kk = 0; kk < DX_CHUNK / 16; ++kk) sm90::fence_regs(a[kk]);
+    sm90::mbar_arrive(&sm.empty[st]);
+    // chunk i - 1 + DX_STAGES into the stage of chunk i - 1, which every
+    // thread freed a step ago
+    if (leader && i >= 1 && i - 1 + DX_STAGES < nc)
+      load_dx_chunk<NB>(sm, maps, i - 1 + DX_STAGES, (c0 + i - 1 + DX_STAGES) * DX_CHUNK, row0,
+                        d0);
+    __syncwarp();
+  }
+
+  // accumulator element 4 n + e: row g + 8 (e / 2) of the warp's 16, column
+  // 8 n + 2 (lane % 4) + e % 2 of the column block
+  float* out = part + (size_t)blockIdx.z * N * D;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row + 8 * hh;
+    if (r >= N) continue;
+    float* o = out + (size_t)r * D + d0 + 2 * (lane & 3);
+#pragma unroll
+    for (int cb = 0; cb < NB; ++cb)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<float2*>(o + cb * 64 + n * 8) =
+            make_float2(acc[cb][4 * n + 2 * hh], acc[cb][4 * n + 2 * hh + 1]);
+  }
+}
+
 inline int cdiv(long long a, int b) { return (int)((a + b - 1) / b); }
 
-// Blocks of `kernel` at `threads` that the current device holds at once.
+// 64-column blocks per D tile of the stash-mode Hopper kernels: 256 columns
+// where D allows, else 192, 128 or 64.
+inline int sm90_blocks(int D) {
+  return D % 256 == 0 ? 4 : D % 192 == 0 ? 3 : D % 128 == 0 ? 2 : 1;
+}
+
+// Blocks of `kernel` at `threads` and `smem` bytes of dynamic shared memory
+// that the current device holds at once.
 template <typename Kernel>
-cudaError_t resident_blocks(Kernel kernel, int threads, int* slots) {
+cudaError_t resident_blocks(Kernel kernel, int threads, int smem, int* slots) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e == cudaSuccess && per_sm == 0) e = cudaErrorInvalidConfiguration;
   *slots = per_sm * sms;
   return e;
+}
+
+// Resident blocks of ce_dx_sm90_kernel<NB>, after allowing it its dynamic
+// shared memory (which the launch needs as well).
+template <int NB>
+cudaError_t dx_sm90_slots(int* slots) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      ce_dx_sm90_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, dx_smem<NB>());
+  return e != cudaSuccess ? e
+                          : resident_blocks(ce_dx_sm90_kernel<NB>, DX_THREADS, dx_smem<NB>(), slots);
 }
 
 // Units of a reduction axis per block, when n_units are split over blocks
@@ -901,20 +1093,46 @@ int units_per_split(int n_units, int n_tiles, int slots) {
 // Vocab tiles per block of ce_fwd_kernel.
 cudaError_t fwd_split(int N, int V, bool stash, int* tiles_per_split) {
   int slots = 0;
-  const cudaError_t e = stash ? resident_blocks(ce_fwd_kernel<true>, THREADS, &slots)
-                              : resident_blocks(ce_fwd_kernel<false>, THREADS, &slots);
+  const cudaError_t e = stash ? resident_blocks(ce_fwd_kernel<true>, THREADS, 0, &slots)
+                              : resident_blocks(ce_fwd_kernel<false>, THREADS, 0, &slots);
   if (e == cudaSuccess) *tiles_per_split = units_per_split(cdiv(V, BN), cdiv(N, BM), slots);
   return e;
 }
 
-// Vocab chunks of BK per block of ce_dx_kernel.
-cudaError_t dx_split(int N, int V, int D, bool stash, int* chunks_per_split) {
-  int slots = 0;
-  const cudaError_t e = stash ? resident_blocks(ce_dx_kernel<true>, THREADS_BWD, &slots)
-                              : resident_blocks(ce_dx_kernel<false>, THREADS_BWD, &slots);
-  if (e == cudaSuccess)
-    *chunks_per_split = units_per_split(cdiv(V, BK), cdiv(N, BM) * cdiv(D, BN), slots);
-  return e;
+// The vocab split of ce_dx: vocab chunks per block (of DX_CHUNK for
+// ce_dx_sm90_kernel in stash mode, of BK for ce_dx_kernel) and the number of
+// splits. In stash mode it also allows the kernel its shared memory.
+cudaError_t dx_split(int N, int V, int D, bool stash, int* chunks_per_split, int* splits) {
+  int slots = 0, chunk = BK, tiles = cdiv(N, BM) * cdiv(D, BN);
+  cudaError_t e;
+  if (stash) {
+    const int nb = sm90_blocks(D);
+    e = nb == 4   ? dx_sm90_slots<4>(&slots)
+        : nb == 3 ? dx_sm90_slots<3>(&slots)
+        : nb == 2 ? dx_sm90_slots<2>(&slots)
+                  : dx_sm90_slots<1>(&slots);
+    chunk = DX_CHUNK;
+    tiles = cdiv(N, DX_ROWS) * (D / (nb * sm90::BOX));
+  } else {
+    e = resident_blocks(ce_dx_kernel, THREADS_BWD, 0, &slots);
+  }
+  if (e != cudaSuccess) return e;
+  const int units = cdiv(V, chunk);
+  *chunks_per_split = units_per_split(units, tiles, slots);
+  *splits = cdiv(units, *chunks_per_split);
+  return cudaSuccess;
+}
+
+// Launch ce_dx_sm90_kernel<NB>, which dx_split allowed its shared memory.
+template <int NB>
+int launch_dx_sm90(const DxMaps& maps, const void* labels, const void* lse, const void* g,
+                   void* part, int N, int V, int D, int chunks_per_split, int splits,
+                   cudaStream_t s) {
+  const dim3 grid(D / (NB * sm90::BOX), cdiv(N, DX_ROWS), splits);  // D tiles fastest
+  ce_dx_sm90_kernel<NB><<<grid, DX_THREADS, dx_smem<NB>(), s>>>(
+      maps, (const int*)labels, (const float*)lse, (const float*)g, (float*)part, N, V, D,
+      chunks_per_split);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -932,10 +1150,10 @@ long long ce_fwd_scratch(int N, int V, int stash) {
 
 // Floats of scratch (`part`) that ce_dx takes, as ce_fwd_scratch.
 long long ce_dx_scratch(int N, int V, int D, int stash) {
-  int cps = 0;
-  const cudaError_t e = dx_split(N, V, D, stash != 0, &cps);
+  int cps = 0, splits = 0;
+  const cudaError_t e = dx_split(N, V, D, stash != 0, &cps, &splits);
   if (e != cudaSuccess) return -(long long)e;
-  return (long long)cdiv(cdiv(V, BK), cps) * N * D;
+  return (long long)splits * N * D;
 }
 
 // loss, lse (N,) f32; the stash (N, ld_s) bf16 when `stash` is not null;
@@ -965,37 +1183,42 @@ int ce_fwd(const void* x, const void* w, const void* labels, void* stash, long l
 }
 
 // dx (N, D) bf16; part: ce_dx_scratch(N, V, D, stash != null) f32 of
-// scratch, one (N, D) partial sum per vocab split. Stash mode when `stash`
-// is not null.
+// scratch, one (N, D) partial sum per vocab split. Stash mode
+// (ce_dx_sm90_kernel, D tiles as ce_dw's) when `stash` is not null; W and
+// the stash 16-byte aligned.
 int ce_dx(const void* x, const void* w, const void* stash, long long ld_s, const void* labels,
           const void* lse, const void* g, void* part, void* dx, int N, int V, int D,
           void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int chunks_per_split = 0;
-  cudaError_t err = dx_split(N, V, D, stash != nullptr, &chunks_per_split);
-  if (err != cudaSuccess) return (int)err;
-  const int KS = cdiv(cdiv(V, BK), chunks_per_split);
-  const dim3 grid(cdiv(D, BN), cdiv(N, BM), KS);
-  if (stash)
-    ce_dx_kernel<true><<<grid, THREADS_BWD, 0, s>>>(
-        (const bf16*)x, (const bf16*)w, (const bf16*)stash, ld_s, (const int*)labels,
-        (const float*)lse, (const float*)g, (float*)part, N, V, D, chunks_per_split);
-  else
-    ce_dx_kernel<false><<<grid, THREADS_BWD, 0, s>>>(
-        (const bf16*)x, (const bf16*)w, nullptr, 0, (const int*)labels, (const float*)lse,
-        (const float*)g, (float*)part, N, V, D, chunks_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int chunks_per_split = 0, KS = 0;
+  int err = (int)dx_split(N, V, D, stash != nullptr, &chunks_per_split, &KS);
+  if (err) return err;
+  if (stash) {
+    DxMaps maps;
+    if ((err = sm90::encode_tile_map(&maps.s, stash, V, N, 1, ld_s, (long long)N * ld_s)) ||
+        (err = sm90::encode_tile_map(&maps.w, w, D, V, 1, D, (long long)V * D)))
+      return err;
+    const int nb = sm90_blocks(D);
+    err = nb == 4   ? launch_dx_sm90<4>(maps, labels, lse, g, part, N, V, D, chunks_per_split, KS, s)
+          : nb == 3 ? launch_dx_sm90<3>(maps, labels, lse, g, part, N, V, D, chunks_per_split, KS, s)
+          : nb == 2 ? launch_dx_sm90<2>(maps, labels, lse, g, part, N, V, D, chunks_per_split, KS, s)
+                    : launch_dx_sm90<1>(maps, labels, lse, g, part, N, V, D, chunks_per_split, KS, s);
+  } else {
+    ce_dx_kernel<<<dim3(cdiv(D, BN), cdiv(N, BM), KS), THREADS_BWD, 0, s>>>(
+        (const bf16*)x, (const bf16*)w, (const int*)labels, (const float*)lse, (const float*)g,
+        (float*)part, N, V, D, chunks_per_split);
+    err = (int)cudaGetLastError();
+  }
+  if (err) return err;
   const long long n = (long long)N * D;
   const int blocks = cdiv(n, 256) < 4096 ? cdiv(n, 256) : 4096;
-  ce_dx_reduce_kernel<<<blocks, 256, 0, s>>>((const float*)part, (bf16*)dx,
-                                                               n, KS);
+  ce_dx_reduce_kernel<<<blocks, 256, 0, s>>>((const float*)part, (bf16*)dx, n, KS);
   return (int)cudaGetLastError();
 }
 
-// dW (V, D) f32. Stash mode (ce_dw_sm90_kernel, D tiles of 256 columns where
-// D allows, else 192, 128 or 64) when `stash` is not null; x, the stash,
-// labels, lse and g 16-byte aligned.
+// dW (V, D) f32. Stash mode (ce_dw_sm90_kernel, D tiles of sm90_blocks(D)
+// 64-column blocks) when `stash` is not null; x, the stash, labels, lse and
+// g 16-byte aligned.
 int ce_dw(const void* x, const void* w, const void* stash, long long ld_s, const void* labels,
           const void* lse, const void* g, void* dw, int N, int V, int D, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1013,10 +1236,11 @@ int ce_dw(const void* x, const void* w, const void* stash, long long ld_s, const
       (err = sm90::encode_vec_map(&maps.g, g, N, CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) ||
       (err = sm90::encode_vec_map(&maps.label, labels, N, CU_TENSOR_MAP_DATA_TYPE_INT32)))
     return err;
-  if (D % 256 == 0) return launch_dw_sm90<4>(maps, dw, N, V, D, s);
-  if (D % 192 == 0) return launch_dw_sm90<3>(maps, dw, N, V, D, s);
-  if (D % 128 == 0) return launch_dw_sm90<2>(maps, dw, N, V, D, s);
-  return launch_dw_sm90<1>(maps, dw, N, V, D, s);
+  const int nb = sm90_blocks(D);
+  return nb == 4   ? launch_dw_sm90<4>(maps, dw, N, V, D, s)
+         : nb == 3 ? launch_dw_sm90<3>(maps, dw, N, V, D, s)
+         : nb == 2 ? launch_dw_sm90<2>(maps, dw, N, V, D, s)
+                   : launch_dw_sm90<1>(maps, dw, N, V, D, s);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // mbarriers, TMA tile loads and the host-side tensor-map encodes, wgmma
 // shared-memory descriptors, the m64n64k16 and m64n256k16 bf16 products and
-// transposed ldmatrix.
+// ldmatrix, plain and transposed.
 //
 // Tiles: a 64-row bf16 tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
 // from 64 x 64 boxes (encode_tile_map) lies in shared memory as D / 64
@@ -11,8 +11,8 @@
 //   - K-major (desc_k): the columns are the product's depth (Q, K, V, dO as
 //     the left operand or as B = rows^T);
 //   - MN-major (desc_mn): the rows are the product's depth, the columns its
-//     output (V in P V, dO in P^T dO, Q in dS^T Q, x in ds^T x), through
-//     the transpose bit of the B operand; no transposed copy is made.
+//     output (V in P V, dO in P^T dO, Q in dS^T Q, x in ds^T x, W in ds W),
+//     through the transpose bit of the B operand; no transposed copy is made.
 
 #pragma once
 
@@ -297,6 +297,17 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[4][32], const uint32_t*
 // receives {M_i[2 t][g], M_i[2 t + 1][g]}.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, as they lie: lanes 8 i ..
+// 8 i + 7 give the row addresses of matrix i, and register i of lane (g, t)
+// receives {M_i[g][2 t], M_i[g][2 t + 1]}. With matrices 0-3 at (rows, depth)
+// + (0, 0), (8, 0), (0, 8), (8, 8) of a 16 x 16 tile that is row-major over
+// the depth, that is wgmma's register A layout (wgmma_rs).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }

@@ -7,7 +7,9 @@ with ``ctypes``); each replaces one Pallas kernel of the JAX package:
 
 - ``ce_fwd`` <- ``_run_fwd`` / ``_fwd_kernel`` (JAX ``ce.py:208``): per-token
   loss and lse in f32, and in stash mode a bf16 copy of the logits;
-- ``ce_dx``  <- ``_fused_ce_bwd`` / ``_dx_kernel`` (JAX ``ce.py:290``);
+- ``ce_dx``  <- ``_fused_ce_bwd`` / ``_dx_kernel`` (JAX ``ce.py:290``); in
+  stash mode ``ce_dx_sm90_kernel`` (TMA and wgmma), in recompute mode the
+  mma.sync ``ce_dx_kernel``, each with a split-K reduction pass;
 - ``ce_dw``  <- ``_fused_ce_bwd`` / ``_dw_kernel`` (JAX ``ce.py:314``); in
   stash mode ``ce_dw_sm90_kernel`` (TMA and wgmma), in recompute mode the
   mma.sync ``ce_dw_kernel``.

@@ -78,6 +78,36 @@ def test_matches_jax(v, stash, dtype):
         np.testing.assert_allclose(a, b, err_msg=name, **tol)
 
 
+#: The JAX op's (block_n, block_v, bn_dw, bv_dw) in these tests.
+JAX_BLOCKS = (64, 128, 64, 128)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_backward_plain_versions_match_jax_vjp_under_random_g(dtype):
+    """ce_dx_reference and ce_dw_reference, on the stash and lse of
+    ce_fwd_reference, against the VJP of the JAX ``_fused_ce`` (its Pallas
+    kernels in interpret mode) in stash mode at V 300 (ragged against the
+    vocab block), under a non-uniform per-token cotangent g, 0 on the ignored
+    rows: every other case here takes the mean's uniform g."""
+    v = 300
+    x, w, labels = _case(v=v, seed=11)
+    g = (np.random.default_rng(12).uniform(0.1, 2.0, len(labels)) * (labels >= 0))
+    g = g.astype(np.float32)
+    lab_j = jnp.asarray(labels)[:, None]
+    _, vjp = jax.vjp(lambda a, b: jce._fused_ce(a, b, lab_j, JAX_BLOCKS, v, True, True),
+                     jnp.asarray(x, getattr(jnp, dtype)), jnp.asarray(w))
+    want = [np.asarray(t, np.float32) for t in vjp(jnp.asarray(g)[:, None])]
+
+    xt = torch.tensor(x, dtype=getattr(torch, dtype))
+    wc, lab, gt = torch.tensor(w).to(xt.dtype), torch.tensor(labels), torch.tensor(g)
+    _, lse, s = tce.ce_fwd_reference(xt, wc, lab, stash=True)
+    dx = tce.ce_dx_reference(xt, wc, lab, lse, gt, s)
+    dw = tce.ce_dw_reference(xt, wc, lab, lse, gt, s)
+    assert dx.dtype == xt.dtype and dw.dtype == torch.float32
+    for name, a, b in (("dx", dx, want[0]), ("dw", dw, want[1])):
+        np.testing.assert_allclose(a.float().numpy(), b, err_msg=name, **BAND)
+
+
 def test_plain_versions_match_dense():
     """Each plain kernel version against autograd through the dense op."""
     x, w, labels = _case(v=300, seed=3)

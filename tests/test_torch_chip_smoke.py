@@ -1,9 +1,11 @@
 """``chip_smoke.py``'s reading of a kernel library's SASS, on the CPU: which
-kernel a mangled name is, and the rule that the Hopper kernels hold wgmma
-(HGMMA) and TMA tile loads (UTMALDG). Needs no card and no ``cuobjdump``."""
+kernel a mangled name is, and the rule that the Hopper kernels (the stash-mode
+CE dx and dW kernels here) are present and hold wgmma (HGMMA) and TMA tile
+loads (UTMALDG). Needs no card and no ``cuobjdump``."""
 
 import importlib.util
 import os
+import re
 from types import SimpleNamespace
 
 import pytest
@@ -22,10 +24,12 @@ def smoke():
 CE_NS = "_ZN45_GLOBAL__N__402d3476_12_linear_ce_cu_50600954"
 FLASH_NS = "_ZN46_GLOBAL__N__daeee7e7_13_flash_attn_cu_b294bfd0"
 DW_SM90 = CE_NS + "17ce_dw_sm90_kernelILi4EEEv14CUtensorMap_stS1_PKiPKfS5_Pfiii"
+DX_SM90 = CE_NS + "17ce_dx_sm90_kernelILi4EEEvNS_6DxMapsEPKiPKfS6_Pfiiii"
 
 
 @pytest.mark.parametrize("fn,name", [
     (DW_SM90, ("ce_dw_sm90_kernel", "4")),
+    (DX_SM90, ("ce_dx_sm90_kernel", "4")),
     (CE_NS + "12ce_dw_kernelEPK13__nv_bfloat16S2_PKiPKfS6_Pfiii", ("ce_dw_kernel", None)),
     (CE_NS + "21ce_fwd_combine_kernelEPKfPfS2_ii", ("ce_fwd_combine_kernel", None)),
     (CE_NS + "19ce_dx_reduce_kernelEPKfP13__nv_bfloat16xi", ("ce_dx_reduce_kernel", None)),
@@ -39,8 +43,18 @@ def test_sass_kernel_name(smoke, fn, name):
     assert smoke.sass_kernel_name(fn) == name
 
 
-def _sass(ops):
-    return f"\t\tFunction : {DW_SM90}\n" + "".join(f"        /*0010*/ {op} R0, R1 ;\n" for op in ops)
+def _sass(ops, fns=(DW_SM90, DX_SM90)):
+    """A SASS dump in which each function of ``fns`` holds ``ops``."""
+    body = "".join(f"        /*0010*/ {op} R0, R1 ;\n" for op in ops)
+    return "".join(f"\t\tFunction : {fn}\n" + body for fn in fns)
+
+
+def _fake_dump(smoke, monkeypatch, tmp_path, sass):
+    """A build whose ``cuobjdump`` prints ``sass``."""
+    monkeypatch.setattr(smoke, "OUT", str(tmp_path))
+    monkeypatch.setattr(smoke, "subprocess",
+                        SimpleNamespace(run=lambda *a, **k: SimpleNamespace(stdout=sass)))
+    return SimpleNamespace(nvcc=lambda: "/cuda/bin/nvcc", library_path=lambda src: src)
 
 
 @pytest.mark.parametrize("ops,error", [
@@ -51,12 +65,11 @@ def _sass(ops):
 ])
 def test_check_sass_holds_the_dw_kernel_to_wgmma_and_tma(smoke, monkeypatch, tmp_path, ops,
                                                          error):
+    """A dump of both Hopper CE kernels, each holding ``ops``."""
     sass = _sass(ops)
-    assert smoke.sass_counts(sass)[DW_SM90]["HGMMA"] == sum("HGMMA" in op for op in ops)
-    monkeypatch.setattr(smoke, "OUT", str(tmp_path))
-    monkeypatch.setattr(smoke, "subprocess",
-                        SimpleNamespace(run=lambda *a, **k: SimpleNamespace(stdout=sass)))
-    build = SimpleNamespace(nvcc=lambda: "/cuda/bin/nvcc", library_path=lambda src: src)
+    for fn in (DW_SM90, DX_SM90):
+        assert smoke.sass_counts(sass)[fn]["HGMMA"] == sum("HGMMA" in op for op in ops)
+    build = _fake_dump(smoke, monkeypatch, tmp_path, sass)
     if error is None:
         smoke.check_sass(build, "linear_ce")
     else:
@@ -65,3 +78,15 @@ def test_check_sass_holds_the_dw_kernel_to_wgmma_and_tma(smoke, monkeypatch, tmp
     # the flash source requires its own kernels, which this dump lacks
     with pytest.raises(AssertionError, match="no SASS found"):
         smoke.check_sass(build, "flash_attn")
+
+
+@pytest.mark.parametrize("present,missing", [(DW_SM90, "ce_dx_sm90_kernel"),
+                                             (DX_SM90, "ce_dw_sm90_kernel")])
+def test_check_sass_requires_both_hopper_ce_kernels(smoke, monkeypatch, tmp_path, present,
+                                                    missing):
+    """A dump in which only one Hopper CE kernel holds wgmma and TMA still
+    fails, naming the other."""
+    sass = _sass(["HGMMA.64x256x16.F32.BF16", "UTMALDG.3D"], fns=(present,))
+    build = _fake_dump(smoke, monkeypatch, tmp_path, sass)
+    with pytest.raises(AssertionError, match=re.escape(f"no SASS found for {{'{missing}'}}")):
+        smoke.check_sass(build, "linear_ce")

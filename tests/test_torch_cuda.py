@@ -9,9 +9,9 @@ bf16 inputs. The flash kernels are held to their plain versions at the
 bounds of ``chip_smoke.check_kernels`` (lse absolute, o within one bf16 step,
 gradients by relative norm); the end-to-end attention gradients in the bf16
 band of ``tests/test_flash.py`` (2e-2). The CE kernels by relative norm,
-the stash-mode dW kernel at its edges (D tile widths, V and N that no tile
-divides, ignored rows, the softmax part alone, a non-uniform g) within the
-bound of ``chip_smoke.check_ce``.
+the stash-mode dx and dW kernels at their edges (D tile widths, V and N that
+no tile divides, ignored rows, the softmax part alone, a non-uniform g)
+within the bound of ``chip_smoke.check_ce``.
 """
 
 import numpy as np
@@ -230,6 +230,56 @@ def test_ce_dw_stash_edges(cuda_device, N, D, V, mode):
     assert torch.isfinite(dw).all()
     assert _rel_err(dw, want) <= CE_DW_REL, _rel_err(dw, want)
     assert (dw.abs().sum(1) > 0).all()
+
+
+#: The stash-mode dx kernel against its plain version on the same stash, by
+#: relative norm (the bound of ``chip_smoke.check_ce``).
+CE_DX_REL = 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["tail", "softmax", "random_g"])
+@pytest.mark.parametrize(
+    "N,D,V",
+    # D tiles of 64, 128, 256 (3 and 4 of them), 192 and 64 (of D 320); V and
+    # N that no vocab chunk or token tile divides
+    [(256, 64, 300), (256, 128, 1000), (256, 768, 1000), (256, 1024, 300),
+     (100, 192, 1000), (100, 320, 300), (4000, 768, 50257)],
+)
+def test_ce_dx_stash_edges(cuda_device, N, D, V, mode):
+    """The stash-mode dx kernel (ce_dx_sm90_kernel) against ce_dx_reference
+    on the kernel's own stash, with an ignored tail and g = 1 per counted row
+    (``tail``), every label ignored and g = 1 (``softmax``: the softmax part
+    alone), or a random non-uniform g (``random_g``). x has a scale that
+    grows along D and W another, so a descriptor that swaps or transposes an
+    operand gives another result."""
+    rng = np.random.default_rng(N + D + V)
+    x = torch.tensor(rng.standard_normal((N, D)) * np.linspace(1.0, 2.0, D),
+                     dtype=torch.bfloat16, device=cuda_device)
+    w = torch.tensor(rng.standard_normal((V, D)) * 0.05, dtype=torch.bfloat16,
+                     device=cuda_device)
+    labels_np = rng.integers(0, V, N).astype(np.int32)
+    tail = N // 8
+    labels_np[N - tail:] = -1
+    g_np = (labels_np >= 0).astype(np.float32)
+    if mode == "softmax":
+        labels_np[:], g_np[:] = -1, 1.0
+    elif mode == "random_g":
+        g_np *= rng.uniform(0.1, 2.0, N).astype(np.float32)
+    labels = torch.tensor(labels_np, device=cuda_device)
+    g = torch.tensor(g_np, device=cuda_device)
+    _, lse, s = ce.ce_fwd(x, w, labels, True)
+    before = ce.LAUNCHES["ce_dx"]
+    dx = ce.ce_dx(x, w, labels, lse, g, s)
+    launched = ce.LAUNCHES["ce_dx"] - before
+    want = ce.ce_dx_reference(x, w, labels, lse, g, s)
+    torch.cuda.synchronize()
+    assert dx.shape == (N, D) and dx.dtype == torch.bfloat16 and launched == 1
+    assert torch.isfinite(dx.float()).all()
+    assert _rel_err(dx, want) <= CE_DX_REL, _rel_err(dx, want)
+    counted = N if mode == "softmax" else N - tail
+    assert (dx[:counted].float().abs().sum(1) > 0).all()
+    assert torch.count_nonzero(dx[counted:]) == 0
 
 
 @pytest.mark.cuda
