@@ -624,13 +624,13 @@ constexpr int DW_ROWS = 128;     // vocab rows per block: 64 per warpgroup
 constexpr int DW_CHUNK = 64;     // tokens per ring stage
 constexpr int DW_STAGES = 4;
 constexpr int DW_THREADS = 256;  // two warpgroups; thread 0 also issues the loads
-constexpr int DW_BLOCK = sm90::BOX * sm90::BOX;  // bf16 of one 64 x 64 column block
+constexpr int BOX_BF16 = sm90::BOX * sm90::BOX;  // bf16 of one 64 x 64 box (column block)
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int NB>
 struct DwSmem {
-  bf16 s[DW_STAGES][2 * DW_BLOCK];
-  bf16 x[DW_STAGES][NB * DW_BLOCK];
+  bf16 s[DW_STAGES][2 * BOX_BF16];
+  bf16 x[DW_STAGES][NB * BOX_BF16];
   float lse[DW_STAGES][DW_CHUNK], g[DW_STAGES][DW_CHUNK];
   int label[DW_STAGES][DW_CHUNK];
   uint64_t full[DW_STAGES], empty[DW_STAGES];
@@ -651,10 +651,10 @@ __device__ __forceinline__ void load_dw_chunk(DwSmem<NB>& sm, const DwMaps& maps
   sm90::mbar_expect_tx(&sm.full[st], (2 + NB) * sm90::BLOCK_BYTES + 3 * DW_CHUNK * 4);
 #pragma unroll
   for (int b = 0; b < 2; ++b)
-    sm90::tma_load_3d(sm.s[st] + b * DW_BLOCK, &maps.s, &sm.full[st], v0 + b * sm90::BOX, k0, 0);
+    sm90::tma_load_3d(sm.s[st] + b * BOX_BF16, &maps.s, &sm.full[st], v0 + b * sm90::BOX, k0, 0);
 #pragma unroll
   for (int cb = 0; cb < NB; ++cb)
-    sm90::tma_load_3d(sm.x[st] + cb * DW_BLOCK, &maps.x, &sm.full[st], d0 + cb * sm90::BOX, k0,
+    sm90::tma_load_3d(sm.x[st] + cb * BOX_BF16, &maps.x, &sm.full[st], d0 + cb * sm90::BOX, k0,
                       0);
   sm90::tma_load_1d(sm.lse[st], &maps.lse, &sm.full[st], k0);
   sm90::tma_load_1d(sm.g[st], &maps.g, &sm.full[st], k0);
@@ -771,7 +771,7 @@ ce_dw_sm90_kernel(const __grid_constant__ DwMaps maps, float* __restrict__ dw, i
       } else {
 #pragma unroll
         for (int cb = 0; cb < NB; ++cb)
-          sm90::wgmma_rs(acc[cb], a[kk], sm90::desc_mn(sm.x[st] + cb * DW_BLOCK, kk));
+          sm90::wgmma_rs(acc[cb], a[kk], sm90::desc_mn(sm.x[st] + cb * BOX_BF16, kk));
       }
     }
     sm90::wgmma_commit();
@@ -860,8 +860,8 @@ constexpr int DX_THREADS = 256;  // two warpgroups; thread 0 also issues the loa
 
 template <int NB>
 struct DxSmem {
-  bf16 s[DX_STAGES][2 * DW_BLOCK];
-  bf16 w[DX_STAGES][NB * DW_BLOCK];
+  bf16 s[DX_STAGES][2 * BOX_BF16];
+  bf16 w[DX_STAGES][NB * BOX_BF16];
   uint64_t full[DX_STAGES], empty[DX_STAGES];
 };
 
@@ -884,10 +884,10 @@ __device__ __forceinline__ void load_dx_chunk(DxSmem<NB>& sm, const DxMaps& maps
   sm90::mbar_expect_tx(&sm.full[st], (2 + NB) * sm90::BLOCK_BYTES);
 #pragma unroll
   for (int b = 0; b < 2; ++b)
-    sm90::tma_load_3d(sm.s[st] + b * DW_BLOCK, &maps.s, &sm.full[st], k0, row0 + b * sm90::BOX, 0);
+    sm90::tma_load_3d(sm.s[st] + b * BOX_BF16, &maps.s, &sm.full[st], k0, row0 + b * sm90::BOX, 0);
 #pragma unroll
   for (int cb = 0; cb < NB; ++cb)
-    sm90::tma_load_3d(sm.w[st] + cb * DW_BLOCK, &maps.w, &sm.full[st], d0 + cb * sm90::BOX, k0, 0);
+    sm90::tma_load_3d(sm.w[st] + cb * BOX_BF16, &maps.w, &sm.full[st], d0 + cb * sm90::BOX, k0, 0);
 }
 
 // This warp's A operand of one vocab chunk, in place: a[kk][r] holds the
@@ -1001,7 +1001,7 @@ ce_dx_sm90_kernel(const __grid_constant__ DxMaps maps, const int* __restrict__ l
       } else {
 #pragma unroll
         for (int cb = 0; cb < NB; ++cb)
-          sm90::wgmma_rs(acc[cb], a[kk], sm90::desc_mn(sm.w[st] + cb * DW_BLOCK, kk));
+          sm90::wgmma_rs(acc[cb], a[kk], sm90::desc_mn(sm.w[st] + cb * BOX_BF16, kk));
       }
     }
     sm90::wgmma_commit();
@@ -1064,8 +1064,8 @@ template <int NB>
 cudaError_t dx_sm90_slots(int* slots) {
   const cudaError_t e = cudaFuncSetAttribute(
       ce_dx_sm90_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, dx_smem<NB>());
-  return e != cudaSuccess ? e
-                          : resident_blocks(ce_dx_sm90_kernel<NB>, DX_THREADS, dx_smem<NB>(), slots);
+  if (e != cudaSuccess) return e;
+  return resident_blocks(ce_dx_sm90_kernel<NB>, DX_THREADS, dx_smem<NB>(), slots);
 }
 
 // Units of a reduction axis per block, when n_units are split over blocks
@@ -1107,10 +1107,11 @@ cudaError_t dx_split(int N, int V, int D, bool stash, int* chunks_per_split, int
   cudaError_t e;
   if (stash) {
     const int nb = sm90_blocks(D);
-    e = nb == 4   ? dx_sm90_slots<4>(&slots)
-        : nb == 3 ? dx_sm90_slots<3>(&slots)
-        : nb == 2 ? dx_sm90_slots<2>(&slots)
-                  : dx_sm90_slots<1>(&slots);
+    const auto slots_of = nb == 4   ? &dx_sm90_slots<4>
+                          : nb == 3 ? &dx_sm90_slots<3>
+                          : nb == 2 ? &dx_sm90_slots<2>
+                                    : &dx_sm90_slots<1>;
+    e = slots_of(&slots);
     chunk = DX_CHUNK;
     tiles = cdiv(N, DX_ROWS) * (D / (nb * sm90::BOX));
   } else {
@@ -1199,10 +1200,11 @@ int ce_dx(const void* x, const void* w, const void* stash, long long ld_s, const
         (err = sm90::encode_tile_map(&maps.w, w, D, V, 1, D, (long long)V * D)))
       return err;
     const int nb = sm90_blocks(D);
-    err = nb == 4   ? launch_dx_sm90<4>(maps, labels, lse, g, part, N, V, D, chunks_per_split, KS, s)
-          : nb == 3 ? launch_dx_sm90<3>(maps, labels, lse, g, part, N, V, D, chunks_per_split, KS, s)
-          : nb == 2 ? launch_dx_sm90<2>(maps, labels, lse, g, part, N, V, D, chunks_per_split, KS, s)
-                    : launch_dx_sm90<1>(maps, labels, lse, g, part, N, V, D, chunks_per_split, KS, s);
+    const auto launch = nb == 4   ? &launch_dx_sm90<4>
+                        : nb == 3 ? &launch_dx_sm90<3>
+                        : nb == 2 ? &launch_dx_sm90<2>
+                                  : &launch_dx_sm90<1>;
+    err = launch(maps, labels, lse, g, part, N, V, D, chunks_per_split, KS, s);
   } else {
     ce_dx_kernel<<<dim3(cdiv(D, BN), cdiv(N, BM), KS), THREADS_BWD, 0, s>>>(
         (const bf16*)x, (const bf16*)w, (const int*)labels, (const float*)lse, (const float*)g,
@@ -1237,10 +1239,11 @@ int ce_dw(const void* x, const void* w, const void* stash, long long ld_s, const
       (err = sm90::encode_vec_map(&maps.label, labels, N, CU_TENSOR_MAP_DATA_TYPE_INT32)))
     return err;
   const int nb = sm90_blocks(D);
-  return nb == 4   ? launch_dw_sm90<4>(maps, dw, N, V, D, s)
-         : nb == 3 ? launch_dw_sm90<3>(maps, dw, N, V, D, s)
-         : nb == 2 ? launch_dw_sm90<2>(maps, dw, N, V, D, s)
-                   : launch_dw_sm90<1>(maps, dw, N, V, D, s);
+  const auto launch = nb == 4   ? &launch_dw_sm90<4>
+                      : nb == 3 ? &launch_dw_sm90<3>
+                      : nb == 2 ? &launch_dw_sm90<2>
+                                : &launch_dw_sm90<1>;
+  return launch(maps, dw, N, V, D, s);
 }
 
 }  // extern "C"
