@@ -10,24 +10,27 @@ Phases, in order; any failure is an exception and a non-zero exit:
    ``saturn_tpu_torch/csrc/flash_attn.cu`` and ``csrc/linear_ce.cu`` (one
    ``nvcc`` each, started together), with each kernel's ptxas line and the
    wgmma / TMA / cp.async / mma.sync instructions in its SASS
-   (``cuobjdump``); the flash forward and dK/dV kernels and the stash-mode
-   dx and dW kernels must hold wgmma and TMA tile loads.
+   (``cuobjdump``); the flash forward and dK/dV kernels, the CE forward
+   and the stash-mode CE dx and dW kernels must hold wgmma and TMA tile
+   loads.
 2. Kernels against their plain PyTorch versions: flash forward, dQ and
    dK/dV at the GPT-2-small training shape (B 8, H 12, T 512, D 64, bf16,
    causal), a grouped-query shape (B 2, H 32, KV 4, T 1024, D 64), the main
    shape non-causal, one tile (T 64), T 320 (T % 128 == 64) and head dim 128
    with grouped queries (H 8, KV 2), causal and not; the CE head's forward,
-   dx and dW at the main shape (N 4096, D 768, V 50304) in stash and in
-   recompute mode, at an odd shape (N 4000, V 50257, the last 64 labels
-   ignored), and in stash mode at D 1024 and at D 64 (odd shape). Each
+   dx and dW at the main shape (N 4096, D 768, V 50304) and at an odd shape
+   (N 4000, V 50257, the last 64 labels ignored), each in stash and in
+   recompute mode, and in stash mode at D 1024 and at D 64 (odd shape). Each
    kernel's device time, the plain version's and the library call's, all
    read from torch.profiler, and the kernel's bound on the card.
    The library call of a forward kernel is the library's forward (SDPA; the
    unfused ``F.linear`` + ``F.cross_entropy``), of a backward kernel the
    library's backward alone, run on a graph built outside the timed window.
-   Beside ``ce_dx`` and ``ce_dw``, the time of cuBLAS on each one's product
-   alone (``torch.matmul`` of the bf16 (N, V) stash by the (V, D) W, of a
-   bf16 (V, N) by the (N, D) x): yardsticks, in no table column.
+   Beside each CE kernel, the time of cuBLAS on its product alone
+   (``torch.matmul`` of x by Wᵀ with a bf16 (N, V) result beside
+   ``ce_fwd``, of the bf16 (N, V) stash by the (V, D) W beside ``ce_dx``, of
+   a bf16 (V, N) by the (N, D) x beside ``ce_dw``): yardsticks, in no table
+   column.
 3. The port's main path at full width: a heterogeneous sweep of two
    GPT-2-small tasks (b8 x 512, differing only in lr, ``pretraining_loss``)
    and one BERT-base task (b8 x 512, ``mlm_loss``), synthetic data, through
@@ -106,8 +109,7 @@ KERNEL_SYMBOLS = {
     "flash_fwd": ("(anonymous namespace)::fwd_kernel<",),
     "flash_dq": ("(anonymous namespace)::dq_kernel<",),
     "flash_dkv": ("(anonymous namespace)::dkv_kernel<",),
-    "ce_fwd": ("(anonymous namespace)::ce_fwd_kernel<",
-               "(anonymous namespace)::ce_fwd_combine_kernel"),
+    "ce_fwd": ("(anonymous namespace)::ce_fwd_",),  # ce_fwd_sm90_kernel<, ce_fwd_combine_kernel
     # ce_dx_sm90_kernel<, the recompute-mode ce_dx_kernel, ce_dx_reduce_kernel
     "ce_dx": ("(anonymous namespace)::ce_dx_",),
     "ce_dw": ("(anonymous namespace)::ce_dw_",),  # ce_dw_sm90_kernel<, recompute ce_dw_kernel
@@ -126,13 +128,13 @@ def log(msg: str) -> None:
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
 #: Kernels whose SASS must hold wgmma and TMA tile loads, by source.
 WGMMA_KERNELS = {"flash_attn": ("fwd_kernel", "dkv_kernel"),
-                 "linear_ce": ("ce_dx_sm90_kernel", "ce_dw_sm90_kernel")}
+                 "linear_ce": ("ce_fwd_sm90_kernel", "ce_dx_sm90_kernel", "ce_dw_sm90_kernel")}
 
 
 def sass_kernel_name(fn: str):
-    """(kernel name, its int template argument or None) of a mangled SASS
-    function name, or (fn, None) when it names no ``*_kernel``."""
-    m = re.search(r"((?:ce_)?[a-z]+(?:_[a-z]+)?(?:_sm90)?_kernel)(?:ILi(\d+)E)?", fn)
+    """(kernel name, its int or bool template argument as digits, or None) of
+    a mangled SASS function name, or (fn, None) when it names no ``*_kernel``."""
+    m = re.search(r"((?:ce_)?[a-z]+(?:_[a-z]+)?(?:_sm90)?_kernel)(?:IL[ib](\d+)E)?", fn)
     return (m.group(1), m.group(2)) if m else (fn, None)
 
 
@@ -209,6 +211,20 @@ def device_events(prof):
         ((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
          if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)),
         key=lambda x: x[1])
+
+
+def step_kernels(events, n: int):
+    """{kernel name: {launches_per_step, device_ms_per_step}} of the device
+    events of ``n`` profiled steps, each kernel found by KERNEL_SYMBOLS; a
+    second kernel's time counts to its wrapper, its launches do not."""
+    kernels = {}
+    for name, symbols in KERNEL_SYMBOLS.items():
+        mine = [(e, a, b) for e, a, b in events if any(s in e for s in symbols)]
+        kernels[name] = {
+            "launches_per_step": sum(not any(s in e for s in SECOND_KERNELS)
+                                     for e, _, _ in mine) / n,
+            "device_ms_per_step": sum(b - a for _, a, b in mine) / 1e3 / n}
+    return kernels
 
 
 def busy_ms(events) -> float:
@@ -512,8 +528,12 @@ def check_ce(ce, N, D, V, stash, seed, tail, timed):
                         rows["ce_dx"]["ms"] + rows["ce_dw"]["ms"],
                         "linear + cross_entropy's backward alone", lib_bwd_ms)
     del lib_out
+    # cuBLAS on each product alone: yardsticks, not the kernels' library call
+    ms = device_ms(lambda: torch.matmul(x, w.t()))
+    rows["ce_fwd"]["cublas_product_ms"] = ms
+    log(f"  cuBLAS yardstick for ce_fwd's product: torch.matmul of the (N, D) x by the "
+        f"(D, V) Wᵀ, bf16 (N, V) out: {ms:.4f} ms (ce_fwd {rows['ce_fwd']['ms']:.4f} ms)")
     if stash:
-        # cuBLAS on each product alone: yardsticks, not the kernels' library call
         ms = device_ms(lambda: torch.matmul(s, w))  # the bf16 (N, V) stash as ds
         rows["ce_dx"]["cublas_product_ms"] = ms
         log(f"  cuBLAS yardstick for ce_dx's product: torch.matmul of the bf16 (N, V) stash by "
@@ -758,13 +778,7 @@ def profile_steps(sat, card, n_sync=8, n_prof=4):
         # the step updates ``state`` in place
         prof, events = profiled(lambda: bundle.step(state, batch), n_prof)
         busy = busy_ms(events) / n_prof
-        kernels = {}
-        for name, symbols in KERNEL_SYMBOLS.items():
-            mine = [(n, a, b) for n, a, b in events if any(s in n for s in symbols)]
-            kernels[name] = {
-                "launches_per_step": sum(not any(s in n for s in SECOND_KERNELS)
-                                         for n, _, _ in mine) / n_prof,
-                "device_ms_per_step": sum(b - a for _, a, b in mine) / 1e3 / n_prof}
+        kernels = step_kernels(events, n_prof)
         want = {n: (LAYERS if attention == "flash" else 0) for n in FLASH_NAMES}
         want.update({n: (0 if loss_fn else 1) for n in CE_NAMES})
         seen = {n: k["launches_per_step"] for n, k in kernels.items()}
@@ -851,6 +865,7 @@ def main(argv) -> int:
     rows.update(check_ce(ce, N, D, VOCAB, True, 3, 0, timed=True))
     recompute = check_ce(ce, N, D, VOCAB, False, 4, 0, timed=True)
     check_ce(ce, 4000, D, 50257, True, 5, 64, timed=False)
+    check_ce(ce, 4000, D, 50257, False, 8, 64, timed=False)
     # the other widths of the stash-mode dx and dW kernels: D tiles of 256 and of 64
     check_ce(ce, N, 1024, VOCAB, True, 6, 0, timed=False)
     check_ce(ce, 4000, 64, 50257, True, 7, 64, timed=False)

@@ -1,7 +1,8 @@
 // Fused linear + cross-entropy head for Hopper (sm_90a): forward, dx and dW.
 //
 // Replaces the three Pallas kernels of saturn_tpu/ops/ce.py:
-//   ce_fwd_kernel (+ ce_fwd_combine_kernel) <- _run_fwd       (pallas_call at ce.py:208, _fwd_kernel)
+//   ce_fwd_sm90_kernel (both modes)
+//     + ce_fwd_combine_kernel               <- _run_fwd       (pallas_call at ce.py:208, _fwd_kernel)
 //   ce_dx_sm90_kernel (stash mode),
 //   ce_dx_kernel (recompute mode),
 //     each + ce_dx_reduce_kernel            <- _fused_ce_bwd  (pallas_call at ce.py:290, _dx_kernel)
@@ -22,22 +23,21 @@
 // (0.32 ms at N 4096, D 768, V 50304). In practice the mma.sync kernels are
 // bound by their mma.sync issue rate and their shared-memory fragment loads.
 //
-// What the design does about it. The two stash-mode backward kernels,
-// ce_dx_sm90_kernel and ce_dw_sm90_kernel, are built for Hopper (TMA rings,
-// wgmma, ds formed in registers): see their own notes below. Every other
-// kernel computes a 128 x 128 output tile per block and stages the product's
-// depth 32 at a time through shared memory with cp.async, double-buffered.
-// Products run on mma.sync m16n8k16 (bf16 in, f32 accumulate). Operands
-// contiguous along the product's depth are read with 32-bit shared loads;
-// operands contiguous along the output (W in dx, x in dW) are staged as they
-// lie in memory and read with ldmatrix.trans.
+// What the design does about it. The forward (both modes) and the two
+// stash-mode backward kernels, ce_dx_sm90_kernel and ce_dw_sm90_kernel, are
+// built for Hopper (TMA rings, wgmma; ds formed in registers in the
+// backward): see their own notes below. The forward's token tiles alone
+// would not fill the card, so its vocab is split across blocks: each writes
+// partial (max, sum, label logit) rows in f32 for its vocab range, and
+// ce_fwd_combine_kernel forms lse and loss (the TPU kernel instead walks the
+// whole vocab on one grid axis). The recompute-mode backward kernels compute
+// a 128 x 128 output tile per block and stage the product's depth 32 at a
+// time through shared memory with cp.async, double-buffered. Products run on
+// mma.sync m16n8k16 (bf16 in, f32 accumulate). Operands contiguous along the
+// product's depth are read with 32-bit shared loads; operands contiguous
+// along the output (W in dx, x in dW) are staged as they lie in memory and
+// read with ldmatrix.trans.
 //
-// - ce_fwd: 4 warps, each owning 32 whole rows of the tile (all 128
-//   columns), so a row's running max and sum never leave the warp. Token
-//   tiles alone give N/128 = 32 blocks for 132 SMs, so the vocab is split
-//   across blocks: each writes partial (max, sum, label logit) rows in f32
-//   for its vocab range, and ce_fwd_combine_kernel forms lse and loss. The
-//   TPU kernel instead walks the whole vocab on one grid axis.
 // - The recompute-mode ce_dx and ce_dw: 8 warps as 4 x 2 warps of 32 x 64.
 //   Each depth stage first forms its f32 score tile x W^T in registers, turns
 //   it into a ds tile in shared memory, every element once, then runs the
@@ -78,11 +78,8 @@ typedef __nv_bfloat16 bf16;
 constexpr int BM = 128;              // output rows per block
 constexpr int BN = 128;              // output columns per block
 constexpr int BK = 32;               // depth per pipeline stage
-constexpr int WARPS = 4;             // each warp owns WM whole rows of the tile
-constexpr int THREADS = WARPS * 32;
-constexpr int WM = BM / WARPS;       // 32 rows: two 16-row mma tiles
+constexpr int WM = 32;               // rows of one warp's part of the tile
 constexpr int MT = WM / 16;          // mma row tiles per warp
-constexpr int NT = BN / 8;           // mma column tiles per warp
 constexpr int PAD = 8;               // bf16 of row padding: 16 bytes, no bank conflicts
 constexpr int LDK = BK + PAD;        // row stride of a tile contiguous along the depth
 constexpr int LDN = BN + PAD;        // row stride of a tile contiguous along the output
@@ -255,133 +252,6 @@ __device__ __forceinline__ void zero(float (*acc)[CT][4]) {
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int n = 0; n < CT; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
-}
-
-// ------------------------------------------------------------------ forward
-// Block (token tile, vocab split); walks the split's vocab tiles. Writes the
-// split's running (max, sum of exp, label logit) per row into
-// part[0 | 1 | 2][split][row].
-template <bool STASH>
-__global__ void __launch_bounds__(THREADS)
-ce_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-              const int* __restrict__ labels, bf16* __restrict__ stash, long long ld_s,
-              float* __restrict__ part, int N, int V, int D, int tiles_per_split) {
-  __shared__ __align__(16) bf16 sX[2][BM * LDK];
-  __shared__ __align__(16) bf16 sW[2][BN * LDK];
-
-  const int row0 = blockIdx.x * BM, split = blockIdx.y, S = gridDim.y;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int n_vt = (V + BN - 1) / BN;
-  const int vt0 = split * tiles_per_split, vt1 = min(n_vt, vt0 + tiles_per_split);
-  const int nk = D / BK;
-
-  int lab[MT][2];
-  float m[MT][2], l[MT][2], lbl[MT][2];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row0 + warp * WM + i * 16 + h * 8 + g;
-      lab[i][h] = r < N ? labels[r] : -1;
-      m[i][h] = NEG_INF;
-      l[i][h] = 0.f;
-      lbl[i][h] = 0.f;
-    }
-
-  float acc[MT][NT][4];
-  for (int vt = vt0; vt < vt1; ++vt) {
-    const int col0 = vt * BN;
-    zero<NT>(acc);
-    load_k_tile<BM>(sX[0], x, D, row0, N, 0, D);
-    load_k_tile<BN>(sW[0], w, D, col0, V, 0, D);
-    cp_commit();
-    for (int kc = 0; kc < nk; ++kc) {
-      if (kc + 1 < nk) {
-        load_k_tile<BM>(sX[(kc + 1) & 1], x, D, row0, N, (kc + 1) * BK, D);
-        load_k_tile<BN>(sW[(kc + 1) & 1], w, D, col0, V, (kc + 1) * BK, D);
-        cp_commit();
-        cp_wait<1>();
-      } else {
-        cp_wait<0>();
-      }
-      __syncthreads();
-      const bf16* A = sX[kc & 1] + warp * WM * LDK;
-#pragma unroll
-      for (int k0 = 0; k0 < BK; k0 += 16) mma_kk<MT, NT>(acc, A, sW[kc & 1], k0, lane);
-      __syncthreads();  // every warp is done with this stage before it is refilled
-    }
-
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float mx = m[i][h];
-#pragma unroll
-        for (int n = 0; n < NT; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = col0 + n * 8 + 2 * t + e;
-            float s = acc[i][n][2 * h + e];
-            if (col >= V) s = NEG_INF;
-            acc[i][n][2 * h + e] = s;
-            mx = fmaxf(mx, s);
-            if (col == lab[i][h]) lbl[i][h] += s;
-          }
-        mx = quad_max(mx);
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < NT; ++n) sum += __expf(acc[i][n][2 * h] - mx) + __expf(acc[i][n][2 * h + 1] - mx);
-        l[i][h] = l[i][h] * __expf(m[i][h] - mx) + quad_sum(sum);
-        m[i][h] = mx;
-        if (STASH) {
-          const int r = row0 + warp * WM + i * 16 + h * 8 + g;
-          if (r < N) {
-            bf16* out = stash + (size_t)r * ld_s;
-#pragma unroll
-            for (int n = 0; n < NT; ++n) {
-              const int col = col0 + n * 8 + 2 * t;
-              if (col + 1 < V) {
-                *reinterpret_cast<uint32_t*>(out + col) =
-                    pack_bf16(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
-              } else if (col < V) {
-                out[col] = __float2bfloat16(acc[i][n][2 * h]);
-              }
-            }
-          }
-        }
-      }
-  }
-
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float b = quad_sum(lbl[i][h]);  // one lane of the quad holds the label column
-      const int r = row0 + warp * WM + i * 16 + h * 8 + g;
-      if (t == 0 && r < N) {
-        part[(size_t)split * N + r] = m[i][h];
-        part[(size_t)(S + split) * N + r] = l[i][h];
-        part[(size_t)(2 * S + split) * N + r] = b;
-      }
-    }
-}
-
-// One thread per row: lse = M + log sum_s l_s exp(m_s - M), loss = lse - label logit.
-__global__ void ce_fwd_combine_kernel(const float* __restrict__ part, float* __restrict__ loss,
-                                      float* __restrict__ lse, int N, int S) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= N) return;
-  float M = NEG_INF;
-  for (int s = 0; s < S; ++s) M = fmaxf(M, part[(size_t)s * N + r]);
-  float L = 0.f, b = 0.f;
-  for (int s = 0; s < S; ++s) {
-    L += part[(size_t)(S + s) * N + r] * __expf(part[(size_t)s * N + r] - M);
-    b += part[(size_t)(2 * S + s) * N + r];
-  }
-  const float z = M + logf(L);
-  lse[r] = z;
-  loss[r] = z - b;
 }
 
 // ------------------------------------------------- dx and dW, recompute mode
@@ -1036,6 +906,250 @@ ce_dx_sm90_kernel(const __grid_constant__ DxMaps maps, const int* __restrict__ l
   }
 }
 
+// ------------------------------------------------------ forward, for Hopper
+// ce_fwd_sm90_kernel<STASH>: one block per (token tile of 128 rows, vocab
+// split); it walks the split's vocab tiles of 256 columns and writes the
+// split's running (max, sum of exp, label logit) per row into
+// part[0 | 1 | 2][split][row]; ce_fwd_combine_kernel forms lse and loss.
+// - Bound at N 4096, D 768, V 50304: the product, 2 N V D = 316 GFLOP, 0.32
+//   ms on the tensor cores. Beside it N V = 206 M exponentials (one per
+//   score, about 0.06 ms of the special-function units) and, in stash mode,
+//   the 412 MB bf16 stash written once (0.12 ms at 3.35 TB/s).
+// - Tiles arrive by TMA into a ring of FWD_STAGES stages over the flat
+//   sequence of (vocab tile, 64-wide D chunk) pairs, so the ring never drains
+//   between vocab tiles (at D 64 a tile is one chunk): the x chunk (128 tokens
+//   x 64, two 64-row boxes) and the W chunk (256 vocab rows x 64, four
+//   64-row boxes one after another: one K-major operand whose 8-row groups
+//   lie 1024 bytes apart), 128-byte swizzle. The x map spans N rows and the
+//   W map V rows, so boxes past them read as 0. x is re-read for every vocab
+//   tile, from L2 (6 MB at the main shape). Thread 0 refills the stage of
+//   the pair before, as in ce_dx_sm90_kernel; no producer warp.
+// - Two warpgroups, each owning 64 token rows and all 256 columns of the
+//   tile: wgmma SS m64n256k16, x and W both K-major, 128 f32 accumulators a
+//   thread. Both warpgroups read each stage, which is freed when both have.
+//   A warpgroup waits for its own products (wgmma_wait<0>) before it frees a
+//   stage or reads its accumulators; nothing else writes them while a batch
+//   is in flight, so ptxas keeps the products asynchronous.
+// - The epilogue of a tile runs on the accumulators in place, in the
+//   warpgroup that owns them, while the other warpgroup's products may run:
+//   the two drift apart and take turns. A thread holds two rows (g and g + 8
+//   of its warp's 16) at 64 columns each. Columns >= V are set to -1e30 only
+//   in the one tile that reaches past V. The tile's row max (a quad shuffle)
+//   is folded into the running max m; the thread's part of the running sum l
+//   takes exp(s - m) with one FFMA and one ex2 per score (quad-summed once,
+//   at the end). A row's label lies in at most one tile: a range check per
+//   row finds it, and only then does the thread that holds its column pick
+//   it. In stash mode each thread stores its bf16 pairs (4 bytes) straight
+//   from the accumulator layout; a quad covers 16 contiguous bytes of a row.
+// - The split: token tiles alone give N / 128 = 32 blocks for 132 SMs, so
+//   the vocab tiles are split over blocks (fwd_split: 17 tiles of 256 a
+//   block at the main shape, 12 splits, 384 blocks). The grid runs token
+//   tiles fastest, so the blocks in flight share a few splits' W (about 7 MB
+//   each) and all of x in L2.
+constexpr int FWD_ROWS = 128;     // tokens per block: 64 per warpgroup
+constexpr int FWD_COLS = 256;     // vocab columns per tile
+constexpr int FWD_STAGES = 4;
+constexpr int FWD_THREADS = 256;  // two warpgroups; thread 0 also issues the loads
+
+struct FwdSmem {
+  bf16 x[FWD_STAGES][2 * BOX_BF16];
+  bf16 w[FWD_STAGES][4 * BOX_BF16];
+  uint64_t full[FWD_STAGES], empty[FWD_STAGES];
+};
+
+// The tensor maps of ce_fwd_sm90_kernel.
+struct FwdMaps {
+  CUtensorMap x, w;
+};
+
+constexpr int fwd_smem() { return (int)sizeof(FwdSmem) + 1024; }  // room to align to 1024
+
+// Pair i of the block (vocab tile vt0 + i / nk, D chunk i % nk) into ring
+// stage i % FWD_STAGES, as the stage's round i / FWD_STAGES: wait until
+// every thread freed the previous round.
+__device__ __forceinline__ void load_fwd_pair(FwdSmem& sm, const FwdMaps& maps, int i, int nk,
+                                              int vt0, int row0) {
+  const int st = i % FWD_STAGES, round = i / FWD_STAGES;
+  const int col0 = (vt0 + i / nk) * FWD_COLS, k0 = (i % nk) * sm90::BOX;
+  if (round > 0) sm90::mbar_wait(&sm.empty[st], (round - 1) & 1);
+  sm90::mbar_expect_tx(&sm.full[st], 6 * sm90::BLOCK_BYTES);
+#pragma unroll
+  for (int b = 0; b < 2; ++b)
+    sm90::tma_load_3d(sm.x[st] + b * BOX_BF16, &maps.x, &sm.full[st], k0, row0 + b * sm90::BOX, 0);
+#pragma unroll
+  for (int b = 0; b < 4; ++b)
+    sm90::tma_load_3d(sm.w[st] + b * BOX_BF16, &maps.w, &sm.full[st], k0, col0 + b * sm90::BOX, 0);
+}
+
+// The epilogue of one vocab tile (columns col0..) on this thread's
+// accumulators: acc[cb][4 n + 2 h + e] is row `row` + 8 h, column
+// col0 + 64 cb + 8 n + 2 t + e. Folds the tile into the running max m[h],
+// this thread's part of the sum l[h] and, where the row's label lies in the
+// tile, the label logit lbl[h]; in stash mode writes the bf16 scores.
+template <bool STASH>
+__device__ __forceinline__ void fwd_epilogue(float (&acc)[4][32], float (&m)[2], float (&l)[2],
+                                             float (&lbl)[2], const int (&lab)[2], int col0,
+                                             int row, int t, int N, int V, bf16* stash,
+                                             long long ld_s) {
+  const bool tail = col0 + FWD_COLS > V;
+  if (STASH) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row + 8 * h >= N) continue;
+      bf16* out = stash + (size_t)(row + 8 * h) * ld_s + col0 + 2 * t;
+#pragma unroll
+      for (int cb = 0; cb < 4; ++cb)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          const int c = 64 * cb + 8 * n;  // + 2 t: this thread's pair
+          const float lo = acc[cb][4 * n + 2 * h], hi = acc[cb][4 * n + 2 * h + 1];
+          if (!tail || col0 + c + 2 * t + 1 < V)
+            *reinterpret_cast<uint32_t*>(out + c) = pack_bf16(lo, hi);
+          else if (col0 + c + 2 * t < V)
+            out[c] = __float2bfloat16(lo);
+        }
+    }
+  }
+  if (tail) {
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (col0 + 64 * cb + 8 * (i >> 2) + 2 * t + (i & 1) >= V) acc[cb][i] = NEG_INF;
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = lab[h] - col0;  // the label's column in the tile
+    if ((unsigned)c < (unsigned)FWD_COLS && ((c >> 1) & 3) == t) {
+      float v = 0.f;
+#pragma unroll
+      for (int cb = 0; cb < 4; ++cb)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (64 * cb + 8 * n + 2 * t + e == c) v = acc[cb][4 * n + 2 * h + e];
+      lbl[h] = v;
+    }
+    float mx[4], sum[4];
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) {
+      mx[cb] = acc[cb][2 * h];
+#pragma unroll
+      for (int i = 1; i < 16; ++i) mx[cb] = fmaxf(mx[cb], acc[cb][4 * (i >> 1) + 2 * h + (i & 1)]);
+    }
+    const float m_new = quad_max(fmaxf(fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3])), m[h]));
+    const float ml = m_new * LOG2E;
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) {
+      sum[cb] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        sum[cb] += sm90::exp2_approx(fmaf(acc[cb][4 * (i >> 1) + 2 * h + (i & 1)], LOG2E, -ml));
+    }
+    l[h] = l[h] * sm90::exp2_approx((m[h] - m_new) * LOG2E) + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+    m[h] = m_new;
+  }
+}
+
+template <bool STASH>
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+ce_fwd_sm90_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__ labels,
+                   bf16* __restrict__ stash, long long ld_s, float* __restrict__ part, int N,
+                   int V, int D, int tiles_per_split) {
+  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(sm90::smem_1024());
+  const int row0 = blockIdx.x * FWD_ROWS, split = blockIdx.y, S = gridDim.y;
+  const int vt0 = split * tiles_per_split;
+  const int nt = min((V + FWD_COLS - 1) / FWD_COLS - vt0, tiles_per_split);
+  const int nk = D / sm90::BOX, n_pairs = nt * nk;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const bool leader = threadIdx.x == 0;
+  if (leader) {
+    for (int st = 0; st < FWD_STAGES; ++st) {
+      sm90::mbar_init(&sm.full[st], 1);
+      sm90::mbar_init(&sm.empty[st], FWD_THREADS);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+  if (leader)
+    for (int i = 0; i < FWD_STAGES && i < n_pairs; ++i) load_fwd_pair(sm, maps, i, nk, vt0, row0);
+  __syncwarp();
+
+  // This thread's rows: row and row + 8 (none past N: label -1 there)
+  const int row = row0 + wg * sm90::BOX + warp * 16 + (lane >> 2);
+  int lab[2];
+  float m[2], l[2], lbl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lab[h] = row + 8 * h < N ? labels[row + 8 * h] : -1;
+    m[h] = NEG_INF;
+    l[h] = 0.f;
+    lbl[h] = 0.f;
+  }
+  float acc[4][32];
+#pragma unroll
+  for (int cb = 0; cb < 4; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+
+  for (int vt = 0, i = 0; vt < nt; ++vt) {
+    for (int kc = 0; kc < nk; ++kc, ++i) {
+      const int st = i % FWD_STAGES;
+      sm90::mbar_wait(&sm.full[st], (i / FWD_STAGES) & 1);
+      const bf16* x_rows = sm.x[st] + wg * BOX_BF16;  // this warpgroup's 64 rows
+#pragma unroll
+      for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < sm90::BOX / 16; ++kk)
+        sm90::wgmma_ss_n256(acc, sm90::desc_k(x_rows, kk), sm90::desc_k(sm.w[st], kk),
+                            kc > 0 || kk > 0);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+#pragma unroll
+      for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+      sm90::mbar_arrive(&sm.empty[st]);
+      // pair i - 1 + FWD_STAGES into the stage of pair i - 1, which every
+      // thread freed a step ago
+      if (leader && i >= 1 && i - 1 + FWD_STAGES < n_pairs)
+        load_fwd_pair(sm, maps, i - 1 + FWD_STAGES, nk, vt0, row0);
+      __syncwarp();
+    }
+    fwd_epilogue<STASH>(acc, m, l, lbl, lab, (vt0 + vt) * FWD_COLS, row, t, N, V, stash, ld_s);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float sum = quad_sum(l[h]);
+    const float b = quad_sum(lbl[h]);  // one lane of the quad holds the label column
+    const int r = row + 8 * h;
+    if (t == 0 && r < N) {
+      part[(size_t)split * N + r] = m[h];
+      part[(size_t)(S + split) * N + r] = sum;
+      part[(size_t)(2 * S + split) * N + r] = b;
+    }
+  }
+}
+
+// One thread per row: lse = M + log sum_s l_s exp(m_s - M), loss = lse - label logit.
+__global__ void ce_fwd_combine_kernel(const float* __restrict__ part, float* __restrict__ loss,
+                                      float* __restrict__ lse, int N, int S) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= N) return;
+  float M = NEG_INF;
+  for (int s = 0; s < S; ++s) M = fmaxf(M, part[(size_t)s * N + r]);
+  float L = 0.f, b = 0.f;
+  for (int s = 0; s < S; ++s) {
+    L += part[(size_t)(S + s) * N + r] * __expf(part[(size_t)s * N + r] - M);
+    b += part[(size_t)(2 * S + s) * N + r];
+  }
+  const float z = M + logf(L);
+  lse[r] = z;
+  loss[r] = z - b;
+}
+
 inline int cdiv(long long a, int b) { return (int)((a + b - 1) / b); }
 
 // 64-column blocks per D tile of the stash-mode Hopper kernels: 256 columns
@@ -1090,13 +1204,26 @@ int units_per_split(int n_units, int n_tiles, int slots) {
   return best_per;
 }
 
-// Vocab tiles per block of ce_fwd_kernel.
-cudaError_t fwd_split(int N, int V, bool stash, int* tiles_per_split) {
+// Resident blocks of ce_fwd_sm90_kernel<STASH>, after allowing it its
+// dynamic shared memory (which the launch needs as well).
+template <bool STASH>
+cudaError_t fwd_sm90_slots(int* slots) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      ce_fwd_sm90_kernel<STASH>, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem());
+  if (e != cudaSuccess) return e;
+  return resident_blocks(ce_fwd_sm90_kernel<STASH>, FWD_THREADS, fwd_smem(), slots);
+}
+
+// The vocab split of ce_fwd: vocab tiles per block and the number of
+// splits. It also allows the kernel its shared memory.
+cudaError_t fwd_split(int N, int V, bool stash, int* tiles_per_split, int* splits) {
   int slots = 0;
-  const cudaError_t e = stash ? resident_blocks(ce_fwd_kernel<true>, THREADS, 0, &slots)
-                              : resident_blocks(ce_fwd_kernel<false>, THREADS, 0, &slots);
-  if (e == cudaSuccess) *tiles_per_split = units_per_split(cdiv(V, BN), cdiv(N, BM), slots);
-  return e;
+  const cudaError_t e = stash ? fwd_sm90_slots<true>(&slots) : fwd_sm90_slots<false>(&slots);
+  if (e != cudaSuccess) return e;
+  const int units = cdiv(V, FWD_COLS);
+  *tiles_per_split = units_per_split(units, cdiv(N, FWD_ROWS), slots);
+  *splits = cdiv(units, *tiles_per_split);
+  return cudaSuccess;
 }
 
 // The vocab split of ce_dx: vocab chunks per block (of DX_CHUNK for
@@ -1143,10 +1270,10 @@ extern "C" {
 // Floats of scratch (`part`) that ce_fwd takes for these shapes on the
 // current device; a CUDA error as a negative number.
 long long ce_fwd_scratch(int N, int V, int stash) {
-  int tps = 0;
-  const cudaError_t e = fwd_split(N, V, stash != 0, &tps);
+  int tps = 0, splits = 0;
+  const cudaError_t e = fwd_split(N, V, stash != 0, &tps, &splits);
   if (e != cudaSuccess) return -(long long)e;
-  return 3LL * cdiv(cdiv(V, BN), tps) * N;
+  return 3LL * splits * N;
 }
 
 // Floats of scratch (`part`) that ce_dx takes, as ce_fwd_scratch.
@@ -1159,25 +1286,26 @@ long long ce_dx_scratch(int N, int V, int D, int stash) {
 
 // loss, lse (N,) f32; the stash (N, ld_s) bf16 when `stash` is not null;
 // part: ce_fwd_scratch(N, V, stash != null) f32 of scratch, which holds
-// per vocab split the partial (max, sum, label logit) rows.
+// per vocab split the partial (max, sum, label logit) rows. x and W 16-byte
+// aligned.
 int ce_fwd(const void* x, const void* w, const void* labels, void* stash, long long ld_s,
            void* part, void* loss, void* lse, int N, int V, int D, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int tiles_per_split = 0;
-  cudaError_t err = fwd_split(N, V, stash != nullptr, &tiles_per_split);
-  if (err != cudaSuccess) return (int)err;
-  const int S = cdiv(cdiv(V, BN), tiles_per_split);
-  const dim3 grid(cdiv(N, BM), S);
+  int tiles_per_split = 0, S = 0;
+  int err = (int)fwd_split(N, V, stash != nullptr, &tiles_per_split, &S);
+  if (err) return err;
+  FwdMaps maps;
+  if ((err = sm90::encode_tile_map(&maps.x, x, D, N, 1, D, (long long)N * D)) ||
+      (err = sm90::encode_tile_map(&maps.w, w, D, V, 1, D, (long long)V * D)))
+    return err;
+  const dim3 grid(cdiv(N, FWD_ROWS), S);  // token tiles fastest
   if (stash)
-    ce_fwd_kernel<true><<<grid, THREADS, 0, s>>>((const bf16*)x, (const bf16*)w,
-                                                 (const int*)labels, (bf16*)stash, ld_s,
-                                                 (float*)part, N, V, D, tiles_per_split);
+    ce_fwd_sm90_kernel<true><<<grid, FWD_THREADS, fwd_smem(), s>>>(
+        maps, (const int*)labels, (bf16*)stash, ld_s, (float*)part, N, V, D, tiles_per_split);
   else
-    ce_fwd_kernel<false><<<grid, THREADS, 0, s>>>((const bf16*)x, (const bf16*)w,
-                                                  (const int*)labels, nullptr, 0,
-                                                  (float*)part, N, V, D, tiles_per_split);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+    ce_fwd_sm90_kernel<false><<<grid, FWD_THREADS, fwd_smem(), s>>>(
+        maps, (const int*)labels, nullptr, 0, (float*)part, N, V, D, tiles_per_split);
+  if ((err = (int)cudaGetLastError())) return err;
   ce_fwd_combine_kernel<<<cdiv(N, 256), 256, 0, s>>>((const float*)part, (float*)loss,
                                                      (float*)lse, N, S);
   return (int)cudaGetLastError();

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
 // mbarriers, TMA tile loads and the host-side tensor-map encodes, wgmma
-// shared-memory descriptors, the m64n64k16 and m64n256k16 bf16 products and
-// ldmatrix, plain and transposed.
+// shared-memory descriptors, the m64n64k16 and m64n256k16 bf16 products
+// (each with A from shared memory or from registers) and ldmatrix, plain and
+// transposed.
 //
 // Tiles: a 64-row bf16 tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
 // from 64 x 64 boxes (encode_tile_map) lies in shared memory as D / 64
@@ -269,26 +270,48 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a, uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// wgmma_rs over 256 columns: B from four consecutive 64-column blocks,
-// d[cb] holding columns 64 cb .. 64 cb + 63 in the layout of wgmma_ss.
+// The 128 f32 accumulators of a 64 x 256 product, d[4][32]: d[cb] holds
+// columns 64 cb .. 64 cb + 63 in the layout of wgmma_ss.
+#define SM90_ACC128                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "                  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "         \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "         \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "         \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "         \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "         \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "         \
+  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "     \
+  "%124, %125, %126, %127}"
+#define SM90_ACC128_OPERANDS(d)                                                       \
+  SM90_ACC32_OPERANDS(d[0]), SM90_ACC32_OPERANDS(d[1]), SM90_ACC32_OPERANDS(d[2]), \
+      SM90_ACC32_OPERANDS(d[3])
+
+// wgmma_rs over 256 columns: B from four consecutive 64-column blocks.
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[4][32], const uint32_t* a, uint64_t b) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
-      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, "
-      "%124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
-      : SM90_ACC32_OPERANDS(d[0]), SM90_ACC32_OPERANDS(d[1]), SM90_ACC32_OPERANDS(d[2]),
-        SM90_ACC32_OPERANDS(d[3])
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SM90_ACC128
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : SM90_ACC128_OPERANDS(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// wgmma_ss over 256 columns: d (64 x 256, f32) (+)= A (64 x 16) B^T, both
+// K-major in shared memory, B 256 rows over the same depth whose 8-row groups
+// lie 1024 bytes apart (four 64-row tiles one after another, as desc_k reads
+// each); accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[4][32], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SM90_ACC128
+      ", %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : SM90_ACC128_OPERANDS(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+#undef SM90_ACC128
+#undef SM90_ACC128_OPERANDS
 #undef SM90_ACC32
 #undef SM90_ACC32_OPERANDS
 

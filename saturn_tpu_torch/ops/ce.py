@@ -6,7 +6,9 @@ in ``csrc/linear_ce.cu`` (built at first use by ``utils/cuda_build``, bound
 with ``ctypes``); each replaces one Pallas kernel of the JAX package:
 
 - ``ce_fwd`` <- ``_run_fwd`` / ``_fwd_kernel`` (JAX ``ce.py:208``): per-token
-  loss and lse in f32, and in stash mode a bf16 copy of the logits;
+  loss and lse in f32, and in stash mode a bf16 copy of the logits; in both
+  modes ``ce_fwd_sm90_kernel`` (TMA and wgmma), vocab-split, with a combine
+  pass;
 - ``ce_dx``  <- ``_fused_ce_bwd`` / ``_dx_kernel`` (JAX ``ce.py:290``); in
   stash mode ``ce_dx_sm90_kernel`` (TMA and wgmma), in recompute mode the
   mma.sync ``ce_dx_kernel``, each with a split-K reduction pass;
@@ -35,7 +37,8 @@ from typing import Any, Optional
 
 import torch
 
-#: Output rows and columns per CUDA block (``BM`` / ``BN`` in ``csrc/linear_ce.cu``).
+#: The one ``block_n`` / ``block_v`` that ``fused_linear_cross_entropy`` takes
+#: on CUDA: the kernels choose their own tiles.
 KERNEL_TILE = 128
 #: d_model must be a multiple of this for the kernels.
 KERNEL_D_MULTIPLE = 64
@@ -305,9 +308,11 @@ def fused_linear_cross_entropy(
     recomputes the score tiles there (no O(N·V) memory), None stashes while
     the stash (N·V·2 bytes) stays under ``STASH_BYTES_MAX``.
 
-    The CUDA kernels tile at 128 x 128: on a CUDA tensor a ``block_n`` or
-    ``block_v`` other than 128 raises ``NotImplementedError``. The plain
-    version (CPU tensors) has no tiles and ignores them.
+    The CUDA kernels choose their own tiles (the forward 128 tokens x 256
+    vocab columns, the backward 128 x 256 or 128 x 128 output tiles): on a
+    CUDA tensor a ``block_n`` or ``block_v`` other than None or 128 raises
+    ``NotImplementedError``. The plain version (CPU tensors) has no tiles and
+    ignores them.
     """
     if ignore_index >= 0:
         raise ValueError("ignore_index must be negative (labels are matched "
@@ -316,8 +321,8 @@ def fused_linear_cross_entropy(
         raise ValueError(f"unknown reduction {reduction!r}")
     if _on_cuda(x) and any(b not in (None, KERNEL_TILE) for b in (block_n, block_v)):
         raise NotImplementedError(
-            f"the CUDA CE kernels tile at {KERNEL_TILE}; blocks ({block_n}, {block_v}) "
-            "are a later item"
+            f"the CUDA CE kernels choose their own tiles and take block sizes None or "
+            f"{KERNEL_TILE}; blocks ({block_n}, {block_v}) are a later item"
         )
     D = x.shape[-1]
     x2 = x.reshape(-1, D).contiguous()

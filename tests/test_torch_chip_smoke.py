@@ -1,7 +1,8 @@
-"""``chip_smoke.py``'s reading of a kernel library's SASS, on the CPU: which
-kernel a mangled name is, and the rule that the Hopper kernels (the stash-mode
-CE dx and dW kernels here) are present and hold wgmma (HGMMA) and TMA tile
-loads (UTMALDG). Needs no card and no ``cuobjdump``."""
+"""``chip_smoke.py``'s reading of a kernel library's SASS and of a profile,
+on the CPU: which kernel a mangled name is, the rule that the Hopper kernels
+(the CE forward and the stash-mode CE dx and dW kernels here) are present and
+hold wgmma (HGMMA) and TMA tile loads (UTMALDG), and which kernel a profiled
+launch belongs to. Needs no card and no ``cuobjdump``."""
 
 import importlib.util
 import os
@@ -25,11 +26,16 @@ CE_NS = "_ZN45_GLOBAL__N__402d3476_12_linear_ce_cu_50600954"
 FLASH_NS = "_ZN46_GLOBAL__N__daeee7e7_13_flash_attn_cu_b294bfd0"
 DW_SM90 = CE_NS + "17ce_dw_sm90_kernelILi4EEEv14CUtensorMap_stS1_PKiPKfS5_Pfiii"
 DX_SM90 = CE_NS + "17ce_dx_sm90_kernelILi4EEEvNS_6DxMapsEPKiPKfS6_Pfiiii"
+FWD_SM90 = CE_NS + "18ce_fwd_sm90_kernelILb1EEEvNS_7FwdMapsEPKiP13__nv_bfloat16xPfiiii"
+FWD_SM90_RECOMPUTE = CE_NS + "18ce_fwd_sm90_kernelILb0EEEvNS_7FwdMapsEPKiP13__nv_bfloat16xPfiiii"
+HOPPER_CE = (FWD_SM90, FWD_SM90_RECOMPUTE, DX_SM90, DW_SM90)
 
 
 @pytest.mark.parametrize("fn,name", [
     (DW_SM90, ("ce_dw_sm90_kernel", "4")),
     (DX_SM90, ("ce_dx_sm90_kernel", "4")),
+    (FWD_SM90, ("ce_fwd_sm90_kernel", "1")),
+    (FWD_SM90_RECOMPUTE, ("ce_fwd_sm90_kernel", "0")),
     (CE_NS + "12ce_dw_kernelEPK13__nv_bfloat16S2_PKiPKfS6_Pfiii", ("ce_dw_kernel", None)),
     (CE_NS + "21ce_fwd_combine_kernelEPKfPfS2_ii", ("ce_fwd_combine_kernel", None)),
     (CE_NS + "19ce_dx_reduce_kernelEPKfP13__nv_bfloat16xi", ("ce_dx_reduce_kernel", None)),
@@ -43,7 +49,7 @@ def test_sass_kernel_name(smoke, fn, name):
     assert smoke.sass_kernel_name(fn) == name
 
 
-def _sass(ops, fns=(DW_SM90, DX_SM90)):
+def _sass(ops, fns=HOPPER_CE):
     """A SASS dump in which each function of ``fns`` holds ``ops``."""
     body = "".join(f"        /*0010*/ {op} R0, R1 ;\n" for op in ops)
     return "".join(f"\t\tFunction : {fn}\n" + body for fn in fns)
@@ -65,9 +71,9 @@ def _fake_dump(smoke, monkeypatch, tmp_path, sass):
 ])
 def test_check_sass_holds_the_dw_kernel_to_wgmma_and_tma(smoke, monkeypatch, tmp_path, ops,
                                                          error):
-    """A dump of both Hopper CE kernels, each holding ``ops``."""
+    """A dump of the Hopper CE kernels, each holding ``ops``."""
     sass = _sass(ops)
-    for fn in (DW_SM90, DX_SM90):
+    for fn in HOPPER_CE:
         assert smoke.sass_counts(sass)[fn]["HGMMA"] == sum("HGMMA" in op for op in ops)
     build = _fake_dump(smoke, monkeypatch, tmp_path, sass)
     if error is None:
@@ -81,12 +87,42 @@ def test_check_sass_holds_the_dw_kernel_to_wgmma_and_tma(smoke, monkeypatch, tmp
 
 
 @pytest.mark.parametrize("present,missing", [(DW_SM90, "ce_dx_sm90_kernel"),
-                                             (DX_SM90, "ce_dw_sm90_kernel")])
+                                             (DX_SM90, "ce_dw_sm90_kernel"),
+                                             (DX_SM90, "ce_fwd_sm90_kernel")])
 def test_check_sass_requires_both_hopper_ce_kernels(smoke, monkeypatch, tmp_path, present,
                                                     missing):
-    """A dump in which only one Hopper CE kernel holds wgmma and TMA still
-    fails, naming the other."""
-    sass = _sass(["HGMMA.64x256x16.F32.BF16", "UTMALDG.3D"], fns=(present,))
+    """A dump that holds ``present`` and every other Hopper CE kernel but
+    ``missing``, each with wgmma and TMA, still fails, naming the missing
+    one."""
+    fns = [present] + [fn for fn in HOPPER_CE
+                       if fn != present and smoke.sass_kernel_name(fn)[0] != missing]
+    sass = _sass(["HGMMA.64x256x16.F32.BF16", "UTMALDG.3D"], fns=fns)
     build = _fake_dump(smoke, monkeypatch, tmp_path, sass)
     with pytest.raises(AssertionError, match=re.escape(f"no SASS found for {{'{missing}'}}")):
         smoke.check_sass(build, "linear_ce")
+
+
+@pytest.mark.parametrize("arg", ["true", "false"])
+def test_step_kernels_counts_the_forward_without_its_combine_pass(smoke, arg):
+    """Two profiled steps: the forward kernel (either mode) is ``ce_fwd``'s
+    launch; its combine pass adds to ``ce_fwd``'s time but not to its
+    launches, as dx's reduce pass does to ``ce_dx``'s."""
+    ns = "(anonymous namespace)::"
+    step = [
+        (ns + f"ce_fwd_sm90_kernel<{arg}>(FwdMaps, int const*, __nv_bfloat16*, long long, "
+         "float*, int, int, int, int)", 0.0, 700.0),
+        (ns + "ce_fwd_combine_kernel(float const*, float*, float*, int, int)", 700.0, 710.0),
+        (ns + "ce_dx_sm90_kernel<4>(DxMaps, int const*, float const*, float const*, float*, "
+         "int, int, int, int)", 800.0, 1450.0),
+        (ns + "ce_dx_reduce_kernel(float const*, __nv_bfloat16*, long long, int)",
+         1450.0, 1470.0),
+        ("void at::native::elementwise_kernel<128, 4>(int, ...)", 1500.0, 1510.0),
+    ]
+    events = step + [(n, a + 5000.0, b + 5000.0) for n, a, b in step]
+    kernels = smoke.step_kernels(events, 2)
+    assert kernels["ce_fwd"] == {"launches_per_step": 1.0,
+                                 "device_ms_per_step": pytest.approx(0.71)}
+    assert kernels["ce_dx"] == {"launches_per_step": 1.0,
+                                "device_ms_per_step": pytest.approx(0.67)}
+    for name in ("ce_dw", "flash_fwd", "flash_dq", "flash_dkv"):
+        assert kernels[name] == {"launches_per_step": 0.0, "device_ms_per_step": 0.0}

@@ -11,7 +11,11 @@ gradients by relative norm); the end-to-end attention gradients in the bf16
 band of ``tests/test_flash.py`` (2e-2). The CE kernels by relative norm,
 the stash-mode dx and dW kernels at their edges (D tile widths, V and N that
 no tile divides, ignored rows, the softmax part alone, a non-uniform g)
-within the bound of ``chip_smoke.check_ce``.
+within the bound of ``chip_smoke.check_ce``; the CE forward at its edges (D
+of 1 to 16 chunks, V and N that no tile divides, labels at the first, last
+and ragged columns, a running max that moves across vocab tiles and splits)
+within the bounds of ``chip_smoke.check_ce`` (loss and lse absolute, the
+stash within one bf16 step).
 """
 
 import numpy as np
@@ -183,6 +187,61 @@ def test_ce_kernels_match_plain(cuda_device, stash, D, V):
     assert torch.count_nonzero(dx[-tail:]) == 0
     assert (dw.abs().sum(1) > 0).all() and (soft[1].abs().sum(1) > 0).all()
     assert launched == {"ce_fwd": 1, "ce_dx": 1, "ce_dw": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stash", [True, False], ids=["stash", "recompute"])
+@pytest.mark.parametrize(
+    "N,D,V",
+    # D of 1, 2, 3, 5, 12 and 16 chunks of 64; V of one partial vocab tile
+    # (200), a partial second tile (300), four tiles (1000) and GPT-2's vocab
+    # (50257: split over blocks, its last tile partial); N below one token
+    # tile, two tiles, and 31 tiles with a ragged 32 rows
+    [(100, 64, 200), (256, 128, 300), (100, 192, 1000), (256, 320, 1000), (256, 768, 300),
+     (100, 1024, 200), (4000, 768, 50257), (4000, 64, 50257), (256, 1024, 50257)],
+)
+def test_ce_fwd_edges(cuda_device, N, D, V, stash):
+    """The forward kernel (ce_fwd_sm90_kernel) against ce_fwd_reference. x has
+    a scale that grows along D and W another, so a descriptor that swaps or
+    transposes an operand gives another result. Rows r with r % 4 == k carry
+    10 u_k (u_k a unit vector), which W's planted column c_k = V (5 + k) / 8
+    - 1, equal to u_k, picks up: one large logit per row in a late vocab tile,
+    so the running max moves across tiles and, at V 50257, across vocab
+    splits. Labels at column 0, at V - 1, inside the last partial vocab tile
+    and at a planted column, an ignored tail of N / 8 rows."""
+    rng = np.random.default_rng(N + D + V)
+    u = rng.standard_normal((4, D))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    planted = [V * (5 + k) // 8 - 1 for k in range(4)]
+    x_np = rng.standard_normal((N, D)) * np.linspace(0.5, 1.5, D) + 10.0 * u[np.arange(N) % 4]
+    w_np = rng.standard_normal((V, D)) * 0.05
+    w_np[planted] = u
+    labels_np = rng.integers(0, V, N).astype(np.int32)
+    labels_np[:4] = [0, V - 1, (V - 1) // 256 * 256 + V % 256 // 2, planted[3]]
+    tail = N // 8
+    labels_np[N - tail:] = -1
+    x = torch.tensor(x_np, dtype=torch.bfloat16, device=cuda_device)
+    w = torch.tensor(w_np, dtype=torch.bfloat16, device=cuda_device)
+    labels = torch.tensor(labels_np, device=cuda_device)
+    before = ce.LAUNCHES["ce_fwd"]
+    loss, lse, s = ce.ce_fwd(x, w, labels, stash)
+    launched = ce.LAUNCHES["ce_fwd"] - before
+    loss_r, lse_r, s_r = ce.ce_fwd_reference(x, w, labels, stash)
+    torch.cuda.synchronize()
+    assert launched == 1
+    for t in (loss, lse):
+        assert t.shape == (N,) and t.dtype == torch.float32 and torch.isfinite(t).all()
+    torch.testing.assert_close(lse, lse_r, rtol=0.0, atol=CE_ROW_ATOL)
+    torch.testing.assert_close(loss, loss_r, rtol=0.0, atol=CE_ROW_ATOL)
+    # the planted logit (about 10) is the max of nearly every row
+    top = (x.float() @ w.float().t()).argmax(1).cpu().numpy()
+    assert np.mean(top == np.asarray(planted)[np.arange(N) % 4]) >= 0.9
+    assert torch.equal(loss[N - tail:], lse[N - tail:])  # an ignored row's label logit is 0
+    if stash:
+        assert s.shape == (N, V) and s.dtype == torch.bfloat16
+        torch.testing.assert_close(s.float(), s_r.float(), rtol=2.0 ** -7, atol=CE_ROW_ATOL)
+    else:
+        assert s is None and s_r is None
 
 
 #: The stash-mode dW kernel against its plain version on the same stash, by
