@@ -922,44 +922,58 @@ ce_dx_sm90_kernel(const __grid_constant__ DxMaps maps, const int* __restrict__ l
 //   64-row boxes one after another: one K-major operand whose 8-row groups
 //   lie 1024 bytes apart), 128-byte swizzle. The x map spans N rows and the
 //   W map V rows, so boxes past them read as 0. x is re-read for every vocab
-//   tile, from L2 (6 MB at the main shape). Thread 0 refills the stage of
-//   the pair before, as in ce_dx_sm90_kernel; no producer warp.
+//   tile, from L2 (6 MB at the main shape). Thread 0 refills each stage a
+//   step after every thread freed it; no producer warp.
 // - Two warpgroups, each owning 64 token rows and all 256 columns of the
 //   tile: wgmma SS m64n256k16, x and W both K-major, 128 f32 accumulators a
 //   thread. Both warpgroups read each stage, which is freed when both have.
-//   A warpgroup waits for its own products (wgmma_wait<0>) before it frees a
-//   stage or reads its accumulators; nothing else writes them while a batch
-//   is in flight, so ptxas keeps the products asynchronous.
+//   A warpgroup keeps one batch of products in flight: it issues pair i's
+//   before it waits for pair i - 1's (wgmma_wait<1>) and frees that stage,
+//   and waits for all of them (wgmma_wait<0>) only at the end of a tile,
+//   before it reads its accumulators. Nothing else writes them while a batch
+//   is in flight, so ptxas keeps the products asynchronous. Waiting for each
+//   pair's own batch instead left the tensor cores idle between batches
+//   (on an H100 at the main shape, 0.62 against 0.47 ms in recompute mode).
 // - The epilogue of a tile runs on the accumulators in place, in the
-//   warpgroup that owns them, while the other warpgroup's products may run:
-//   the two drift apart and take turns. A thread holds two rows (g and g + 8
-//   of its warp's 16) at 64 columns each. Columns >= V are set to -1e30 only
-//   in the one tile that reaches past V. The tile's row max (a quad shuffle)
-//   is folded into the running max m; the thread's part of the running sum l
-//   takes exp(s - m) with one FFMA and one ex2 per score (quad-summed once,
-//   at the end). A row's label lies in at most one tile: a range check per
-//   row finds it, and only then does the thread that holds its column pick
-//   it. In stash mode each thread stores its bf16 pairs (4 bytes) straight
-//   from the accumulator layout; a quad covers 16 contiguous bytes of a row.
+//   warpgroup that owns them, while the other warpgroup's products may run.
+//   A thread holds two rows (g and g + 8 of its warp's 16) at 64 columns
+//   each. Columns >= V are set to -1e30 only in the one tile that reaches
+//   past V. The tile's row max (a quad shuffle) is folded into the running
+//   max m; the thread's part of the running sum l takes exp(s - m) with one
+//   FFMA and one ex2 per score (quad-summed once, at the end). A row's label
+//   lies in at most one tile: a range check per row finds it, and only then
+//   does the thread that holds its column pick it.
+// - Stash mode: each warp writes its 16 rows of the tile in two halves of
+//   128 columns through stmatrix into its own staging tile (two 16 x 64
+//   boxes, 128-byte swizzle, 4 KB), which lane 0 stores with TMA; the stash
+//   map spans V columns and N rows, so the store clips there by itself. The
+//   first half is stored before the exponentials and the second after them,
+//   so the wait for the first store to read its staging tile is hidden.
+//   Direct 4-byte stores from the accumulator layout took 0.79 ms against
+//   0.54 (H100, main shape); staging a whole tile would cost a ring stage.
 // - The split: token tiles alone give N / 128 = 32 blocks for 132 SMs, so
-//   the vocab tiles are split over blocks (fwd_split: 17 tiles of 256 a
-//   block at the main shape, 12 splits, 384 blocks). The grid runs token
-//   tiles fastest, so the blocks in flight share a few splits' W (about 7 MB
-//   each) and all of x in L2.
+//   the vocab tiles are split over blocks (fwd_split: the fewest splits that
+//   fill the card's resident blocks to 90 %, 4 splits of 50 tiles and 128
+//   blocks at the main shape; 12 splits of 17 tiles in 2.9 waves were 4 %
+//   slower). The grid runs token tiles fastest, so the blocks in flight
+//   share x in L2.
 constexpr int FWD_ROWS = 128;     // tokens per block: 64 per warpgroup
 constexpr int FWD_COLS = 256;     // vocab columns per tile
 constexpr int FWD_STAGES = 4;
 constexpr int FWD_THREADS = 256;  // two warpgroups; thread 0 also issues the loads
+constexpr int STASH_ROWS = 16;    // rows of a warp's stash staging box
+constexpr int STASH_BOX = STASH_ROWS * sm90::BOX;  // bf16 of one 16 x 64 staging box
 
 struct FwdSmem {
   bf16 x[FWD_STAGES][2 * BOX_BF16];
   bf16 w[FWD_STAGES][4 * BOX_BF16];
+  bf16 stash[FWD_THREADS / 32][2 * STASH_BOX];  // per warp: 16 rows x 128 columns
   uint64_t full[FWD_STAGES], empty[FWD_STAGES];
 };
 
-// The tensor maps of ce_fwd_sm90_kernel.
+// The tensor maps of ce_fwd_sm90_kernel; s (16 x 64 boxes) only in stash mode.
 struct FwdMaps {
-  CUtensorMap x, w;
+  CUtensorMap x, w, s;
 };
 
 constexpr int fwd_smem() { return (int)sizeof(FwdSmem) + 1024; }  // room to align to 1024
@@ -971,7 +985,7 @@ __device__ __forceinline__ void load_fwd_pair(FwdSmem& sm, const FwdMaps& maps, 
                                               int vt0, int row0) {
   const int st = i % FWD_STAGES, round = i / FWD_STAGES;
   const int col0 = (vt0 + i / nk) * FWD_COLS, k0 = (i % nk) * sm90::BOX;
-  if (round > 0) sm90::mbar_wait(&sm.empty[st], (round - 1) & 1);
+  if (round > 0) sm90::mbar_wait_in_flight(&sm.empty[st], (round - 1) & 1);
   sm90::mbar_expect_tx(&sm.full[st], 6 * sm90::BLOCK_BYTES);
 #pragma unroll
   for (int b = 0; b < 2; ++b)
@@ -981,36 +995,61 @@ __device__ __forceinline__ void load_fwd_pair(FwdSmem& sm, const FwdMaps& maps, 
     sm90::tma_load_3d(sm.w[st] + b * BOX_BF16, &maps.w, &sm.full[st], k0, col0 + b * sm90::BOX, 0);
 }
 
+// Pair j's products are complete: free its stage. Thread 0 then refills the
+// stage of pair j - 1, which every thread freed a step earlier, with pair
+// j - 1 + FWD_STAGES.
+__device__ __forceinline__ void release_fwd_pair(FwdSmem& sm, const FwdMaps& maps, int j,
+                                                 int n_pairs, int nk, int vt0, int row0,
+                                                 bool leader) {
+  sm90::mbar_arrive(&sm.empty[j % FWD_STAGES]);
+  if (leader && j >= 1 && j - 1 + FWD_STAGES < n_pairs)
+    load_fwd_pair(sm, maps, j - 1 + FWD_STAGES, nk, vt0, row0);
+  __syncwarp();
+}
+
+// Half HALF (columns 128 HALF .. + 127 of the tile at col0) of this warp's 16
+// stash rows from srow, in bf16: stmatrix into the warp's staging tile, then
+// lane 0 stores its two 16 x 64 boxes with TMA. The staging tile is written
+// only after lane 0 saw the previous store read it.
+template <int HALF>
+__device__ __forceinline__ void store_stash_half(bf16* stg, const CUtensorMap* map,
+                                                 const float (&acc)[4][32], int col0, int srow,
+                                                 int lane) {
+  if (lane == 0) sm90::bulk_wait_read();
+  __syncwarp();
+  // lane l gives row l % 8 of matrix l / 8 (rows + 8 (l / 8 % 2), columns
+  // + 8 (l / 16)), its 16-byte chunk found through the swizzle
+  const int rr = lane & 7, mi = lane >> 3;
+  unsigned char* base = reinterpret_cast<unsigned char*>(stg) + (8 * (mi & 1) + rr) * 128;
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const float(&a)[32] = acc[2 * HALF + q];
+#pragma unroll
+    for (int n = 0; n < 8; n += 2)
+      sm90::stmatrix_x4(base + q * 2 * STASH_BOX + (((n + (mi >> 1)) ^ rr) << 4),
+                        pack_bf16(a[4 * n], a[4 * n + 1]), pack_bf16(a[4 * n + 2], a[4 * n + 3]),
+                        pack_bf16(a[4 * n + 4], a[4 * n + 5]),
+                        pack_bf16(a[4 * n + 6], a[4 * n + 7]));
+  }
+  sm90::fence_proxy_async();
+  __syncwarp();
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      sm90::tma_store_3d(map, stg + q * STASH_BOX, col0 + (2 * HALF + q) * sm90::BOX, srow, 0);
+    sm90::bulk_commit();
+  }
+}
+
 // The epilogue of one vocab tile (columns col0..) on this thread's
-// accumulators: acc[cb][4 n + 2 h + e] is row `row` + 8 h, column
-// col0 + 64 cb + 8 n + 2 t + e. Folds the tile into the running max m[h],
-// this thread's part of the sum l[h] and, where the row's label lies in the
-// tile, the label logit lbl[h]; in stash mode writes the bf16 scores.
-template <bool STASH>
+// accumulators: acc[cb][4 n + 2 h + e] is the thread's row h (g + 8 h of its
+// warp's 16), column col0 + 64 cb + 8 n + 2 t + e. Folds the tile into the
+// running max m[h], this thread's part of the sum l[h] and, where the row's
+// label lies in the tile, the label logit lbl[h].
 __device__ __forceinline__ void fwd_epilogue(float (&acc)[4][32], float (&m)[2], float (&l)[2],
                                              float (&lbl)[2], const int (&lab)[2], int col0,
-                                             int row, int t, int N, int V, bf16* stash,
-                                             long long ld_s) {
-  const bool tail = col0 + FWD_COLS > V;
-  if (STASH) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (row + 8 * h >= N) continue;
-      bf16* out = stash + (size_t)(row + 8 * h) * ld_s + col0 + 2 * t;
-#pragma unroll
-      for (int cb = 0; cb < 4; ++cb)
-#pragma unroll
-        for (int n = 0; n < 8; ++n) {
-          const int c = 64 * cb + 8 * n;  // + 2 t: this thread's pair
-          const float lo = acc[cb][4 * n + 2 * h], hi = acc[cb][4 * n + 2 * h + 1];
-          if (!tail || col0 + c + 2 * t + 1 < V)
-            *reinterpret_cast<uint32_t*>(out + c) = pack_bf16(lo, hi);
-          else if (col0 + c + 2 * t < V)
-            out[c] = __float2bfloat16(lo);
-        }
-    }
-  }
-  if (tail) {
+                                             int t, int V) {
+  if (col0 + FWD_COLS > V) {
 #pragma unroll
     for (int cb = 0; cb < 4; ++cb)
 #pragma unroll
@@ -1055,8 +1094,7 @@ __device__ __forceinline__ void fwd_epilogue(float (&acc)[4][32], float (&m)[2],
 template <bool STASH>
 __global__ void __launch_bounds__(FWD_THREADS, 1)
 ce_fwd_sm90_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__ labels,
-                   bf16* __restrict__ stash, long long ld_s, float* __restrict__ part, int N,
-                   int V, int D, int tiles_per_split) {
+                   float* __restrict__ part, int N, int V, int D, int tiles_per_split) {
   FwdSmem& sm = *reinterpret_cast<FwdSmem*>(sm90::smem_1024());
   const int row0 = blockIdx.x * FWD_ROWS, split = blockIdx.y, S = gridDim.y;
   const int vt0 = split * tiles_per_split;
@@ -1078,7 +1116,8 @@ ce_fwd_sm90_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__
   __syncwarp();
 
   // This thread's rows: row and row + 8 (none past N: label -1 there)
-  const int row = row0 + wg * sm90::BOX + warp * 16 + (lane >> 2);
+  const int srow = row0 + wg * sm90::BOX + warp * 16, row = srow + (lane >> 2);
+  bf16* stg = sm.stash[threadIdx.x >> 5];
   int lab[2];
   float m[2], l[2], lbl[2];
 #pragma unroll
@@ -1097,7 +1136,7 @@ ce_fwd_sm90_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__
   for (int vt = 0, i = 0; vt < nt; ++vt) {
     for (int kc = 0; kc < nk; ++kc, ++i) {
       const int st = i % FWD_STAGES;
-      sm90::mbar_wait(&sm.full[st], (i / FWD_STAGES) & 1);
+      sm90::mbar_wait_in_flight(&sm.full[st], (i / FWD_STAGES) & 1);
       const bf16* x_rows = sm.x[st] + wg * BOX_BF16;  // this warpgroup's 64 rows
 #pragma unroll
       for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
@@ -1107,18 +1146,21 @@ ce_fwd_sm90_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__
         sm90::wgmma_ss_n256(acc, sm90::desc_k(x_rows, kk), sm90::desc_k(sm.w[st], kk),
                             kc > 0 || kk > 0);
       sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-#pragma unroll
-      for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
-      sm90::mbar_arrive(&sm.empty[st]);
-      // pair i - 1 + FWD_STAGES into the stage of pair i - 1, which every
-      // thread freed a step ago
-      if (leader && i >= 1 && i - 1 + FWD_STAGES < n_pairs)
-        load_fwd_pair(sm, maps, i - 1 + FWD_STAGES, nk, vt0, row0);
-      __syncwarp();
+      if (kc > 0) {  // pair i's products in flight, pair i - 1's done
+        sm90::wgmma_wait<1>();
+        release_fwd_pair(sm, maps, i - 1, n_pairs, nk, vt0, row0, leader);
+      }
     }
-    fwd_epilogue<STASH>(acc, m, l, lbl, lab, (vt0 + vt) * FWD_COLS, row, t, N, V, stash, ld_s);
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+    release_fwd_pair(sm, maps, i - 1, n_pairs, nk, vt0, row0, leader);
+    const int col0 = (vt0 + vt) * FWD_COLS;
+    if (STASH) store_stash_half<0>(stg, &maps.s, acc, col0, srow, lane);
+    fwd_epilogue(acc, m, l, lbl, lab, col0, t, V);
+    if (STASH) store_stash_half<1>(stg, &maps.s, acc, col0, srow, lane);
   }
+  if (STASH && lane == 0) sm90::bulk_wait();
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -1184,9 +1226,9 @@ cudaError_t dx_sm90_slots(int* slots) {
 
 // Units of a reduction axis per block, when n_units are split over blocks
 // beside n_tiles output tiles: the first split count that fills at least
-// two waves of resident blocks with the last at least 90 % full, else the
-// one whose last wave is fullest (ties: the fewer splits).
-int units_per_split(int n_units, int n_tiles, int slots) {
+// `waves` waves of resident blocks with the last at least 90 % full, else
+// the one whose last wave is fullest (ties: the fewer splits).
+int units_per_split(int n_units, int n_tiles, int slots, int waves) {
   int best_per = n_units;
   double best_fill = -1.0;
   const int cap = 8 * slots / n_tiles + 1;
@@ -1195,7 +1237,7 @@ int units_per_split(int n_units, int n_tiles, int slots) {
     const int per = cdiv(n_units, splits);
     const long long blocks = (long long)cdiv(n_units, per) * n_tiles;
     const double fill = (double)blocks / (double)(cdiv(blocks, slots) * (long long)slots);
-    if (blocks >= 2LL * slots && fill >= 0.9) return per;
+    if (blocks >= (long long)waves * slots && fill >= 0.9) return per;
     if (fill > best_fill || (fill == best_fill && per > best_per)) {
       best_fill = fill;
       best_per = per;
@@ -1215,13 +1257,14 @@ cudaError_t fwd_sm90_slots(int* slots) {
 }
 
 // The vocab split of ce_fwd: vocab tiles per block and the number of
-// splits. It also allows the kernel its shared memory.
+// splits, the fewest that fill the resident blocks to 90 % (long blocks
+// beat more waves). It also allows the kernel its shared memory.
 cudaError_t fwd_split(int N, int V, bool stash, int* tiles_per_split, int* splits) {
   int slots = 0;
   const cudaError_t e = stash ? fwd_sm90_slots<true>(&slots) : fwd_sm90_slots<false>(&slots);
   if (e != cudaSuccess) return e;
   const int units = cdiv(V, FWD_COLS);
-  *tiles_per_split = units_per_split(units, cdiv(N, FWD_ROWS), slots);
+  *tiles_per_split = units_per_split(units, cdiv(N, FWD_ROWS), slots, 0);
   *splits = cdiv(units, *tiles_per_split);
   return cudaSuccess;
 }
@@ -1246,7 +1289,7 @@ cudaError_t dx_split(int N, int V, int D, bool stash, int* chunks_per_split, int
   }
   if (e != cudaSuccess) return e;
   const int units = cdiv(V, chunk);
-  *chunks_per_split = units_per_split(units, tiles, slots);
+  *chunks_per_split = units_per_split(units, tiles, slots, 2);
   *splits = cdiv(units, *chunks_per_split);
   return cudaSuccess;
 }
@@ -1286,25 +1329,27 @@ long long ce_dx_scratch(int N, int V, int D, int stash) {
 
 // loss, lse (N,) f32; the stash (N, ld_s) bf16 when `stash` is not null;
 // part: ce_fwd_scratch(N, V, stash != null) f32 of scratch, which holds
-// per vocab split the partial (max, sum, label logit) rows. x and W 16-byte
-// aligned.
+// per vocab split the partial (max, sum, label logit) rows. x, W and the
+// stash 16-byte aligned.
 int ce_fwd(const void* x, const void* w, const void* labels, void* stash, long long ld_s,
            void* part, void* loss, void* lse, int N, int V, int D, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   int tiles_per_split = 0, S = 0;
   int err = (int)fwd_split(N, V, stash != nullptr, &tiles_per_split, &S);
   if (err) return err;
-  FwdMaps maps;
+  FwdMaps maps = {};
   if ((err = sm90::encode_tile_map(&maps.x, x, D, N, 1, D, (long long)N * D)) ||
-      (err = sm90::encode_tile_map(&maps.w, w, D, V, 1, D, (long long)V * D)))
+      (err = sm90::encode_tile_map(&maps.w, w, D, V, 1, D, (long long)V * D)) ||
+      (stash && (err = sm90::encode_tile_map(&maps.s, stash, V, N, 1, ld_s, (long long)N * ld_s,
+                                             STASH_ROWS))))
     return err;
   const dim3 grid(cdiv(N, FWD_ROWS), S);  // token tiles fastest
   if (stash)
     ce_fwd_sm90_kernel<true><<<grid, FWD_THREADS, fwd_smem(), s>>>(
-        maps, (const int*)labels, (bf16*)stash, ld_s, (float*)part, N, V, D, tiles_per_split);
+        maps, (const int*)labels, (float*)part, N, V, D, tiles_per_split);
   else
     ce_fwd_sm90_kernel<false><<<grid, FWD_THREADS, fwd_smem(), s>>>(
-        maps, (const int*)labels, nullptr, 0, (float*)part, N, V, D, tiles_per_split);
+        maps, (const int*)labels, (float*)part, N, V, D, tiles_per_split);
   if ((err = (int)cudaGetLastError())) return err;
   ce_fwd_combine_kernel<<<cdiv(N, 256), 256, 0, s>>>((const float*)part, (float*)loss,
                                                      (float*)lse, N, S);

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
-// mbarriers, TMA tile loads and the host-side tensor-map encodes, wgmma
-// shared-memory descriptors, the m64n64k16 and m64n256k16 bf16 products
-// (each with A from shared memory or from registers) and ldmatrix, plain and
-// transposed.
+// mbarriers, TMA tile loads and stores and the host-side tensor-map encodes,
+// wgmma shared-memory descriptors, the m64n64k16 and m64n256k16 bf16 products
+// (each with A from shared memory or from registers), ldmatrix, plain and
+// transposed, and stmatrix.
 //
 // Tiles: a 64-row bf16 tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
 // from 64 x 64 boxes (encode_tile_map) lies in shared memory as D / 64
@@ -84,6 +84,20 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// mbar_wait for code that runs while wgmma batches are in flight. A trap
+// there would make ptxas wait for the batches before it, on every path, and
+// say so (advisory C7517); a wait of seconds therefore stores to address 0
+// instead, which ends the kernel with an illegal-address error just the same.
+__device__ __forceinline__ void mbar_wait_in_flight(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(a, parity)) {
+    if (clock64() - t0 > (1ll << 33))
+      asm volatile("st.global.u32 [%0], %1;\n" ::"l"(0ull), "r"(0) : "memory");
+  }
+}
+
 // 2^x on the special-function unit (ex2.approx, denormals flushed).
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -124,6 +138,39 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// One box from shared memory `src` into a 3-d tensor map at (c0, c1, c2);
+// what lies past the array is not written. Before it, the threads that wrote
+// `src` each call fence_proxy_async and then synchronize with this one.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(smem_addr(src))
+      : "memory");
+}
+
+// Make this thread's shared-memory writes visible to TMA (the async proxy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Close this thread's group of TMA stores issued since the last commit.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until this thread's committed TMA stores have read their shared
+// memory (it may then be written again).
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Wait until this thread's committed TMA stores are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -151,17 +198,18 @@ inline int encode_tiled(EncodeTiled* out) {
   return 0;
 }
 
-// Host: a tensor map for BOX x BOX bf16 boxes of an (n, rows, cols) array
-// with contiguous columns and element strides row_stride and mat_stride,
-// written to shared memory with the 128-byte swizzle; what lies past the
-// array reads as 0. Returns a cudaError_t value, 0 on success.
+// Host: a tensor map for boxes of BOX columns x box_rows rows of bf16 of an
+// (n, rows, cols) array with contiguous columns and element strides
+// row_stride and mat_stride, laid out in shared memory with the 128-byte
+// swizzle; what lies past the array reads as 0 (and a store does not write
+// it). Returns a cudaError_t value, 0 on success.
 inline int encode_tile_map(CUtensorMap* map, const void* base, int cols, int rows, int n,
-                           long long row_stride, long long mat_stride) {
+                           long long row_stride, long long mat_stride, int box_rows = BOX) {
   EncodeTiled encode;
   if (const int err = encode_tiled(&encode)) return err;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)n};
   const cuuint64_t strides[2] = {(cuuint64_t)row_stride * 2, (cuuint64_t)mat_stride * 2};
-  const cuuint32_t box[3] = {BOX, BOX, 1}, unit[3] = {1, 1, 1};
+  const cuuint32_t box[3] = {BOX, (cuuint32_t)box_rows, 1}, unit[3] = {1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
@@ -333,6 +381,18 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
+}
+
+// Four 8 x 8 bf16 matrices into shared memory, the inverse of ldmatrix_x4:
+// lanes 8 i .. 8 i + 7 give the row addresses of matrix i, and register i of
+// lane (g, t) holds {M_i[g][2 t], M_i[g][2 t + 1]}, which is the accumulator
+// layout of wgmma_ss packed in bf16 pairs.
+__device__ __forceinline__ void stmatrix_x4(void* p, uint32_t r0, uint32_t r1, uint32_t r2,
+                                            uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   smem_addr(p)),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
 }
 
 }  // namespace sm90

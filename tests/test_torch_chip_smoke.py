@@ -26,8 +26,8 @@ CE_NS = "_ZN45_GLOBAL__N__402d3476_12_linear_ce_cu_50600954"
 FLASH_NS = "_ZN46_GLOBAL__N__daeee7e7_13_flash_attn_cu_b294bfd0"
 DW_SM90 = CE_NS + "17ce_dw_sm90_kernelILi4EEEv14CUtensorMap_stS1_PKiPKfS5_Pfiii"
 DX_SM90 = CE_NS + "17ce_dx_sm90_kernelILi4EEEvNS_6DxMapsEPKiPKfS6_Pfiiii"
-FWD_SM90 = CE_NS + "18ce_fwd_sm90_kernelILb1EEEvNS_7FwdMapsEPKiP13__nv_bfloat16xPfiiii"
-FWD_SM90_RECOMPUTE = CE_NS + "18ce_fwd_sm90_kernelILb0EEEvNS_7FwdMapsEPKiP13__nv_bfloat16xPfiiii"
+FWD_SM90 = CE_NS + "18ce_fwd_sm90_kernelILb1EEEvNS_7FwdMapsEPKiPfiiii"
+FWD_SM90_RECOMPUTE = CE_NS + "18ce_fwd_sm90_kernelILb0EEEvNS_7FwdMapsEPKiPfiiii"
 HOPPER_CE = (FWD_SM90, FWD_SM90_RECOMPUTE, DX_SM90, DW_SM90)
 
 
@@ -109,8 +109,8 @@ def test_step_kernels_counts_the_forward_without_its_combine_pass(smoke, arg):
     launches, as dx's reduce pass does to ``ce_dx``'s."""
     ns = "(anonymous namespace)::"
     step = [
-        (ns + f"ce_fwd_sm90_kernel<{arg}>(FwdMaps, int const*, __nv_bfloat16*, long long, "
-         "float*, int, int, int, int)", 0.0, 700.0),
+        (ns + f"ce_fwd_sm90_kernel<{arg}>(FwdMaps, int const*, float*, int, int, int, int)",
+         0.0, 700.0),
         (ns + "ce_fwd_combine_kernel(float const*, float*, float*, int, int)", 700.0, 710.0),
         (ns + "ce_dx_sm90_kernel<4>(DxMaps, int const*, float const*, float const*, float*, "
          "int, int, int, int)", 800.0, 1450.0),
