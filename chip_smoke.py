@@ -841,8 +841,10 @@ def main(argv) -> int:
         with open(os.path.join(OUT, f"ptxas_{src}.log"), "w") as f:
             f.write(report)
         for line in report.splitlines():
-            # "Potential Performance Loss": ptxas serialized a kernel's wgmma
-            if "registers" in line or "spill" in line or "Performance Loss" in line:
+            # advisories C7510-C7519 ("Potential Performance Loss", an injected
+            # warpgroup.wait): ptxas serialized or delayed a kernel's wgmma
+            if ("registers" in line or "spill" in line or "(C751" in line
+                    or "Performance Loss" in line):
                 log(f"    ptxas {src}: {line.strip()}")
         check_sass(cuda_build, src)
     if "--flash-sweep" in argv:

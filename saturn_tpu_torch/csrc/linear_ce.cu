@@ -949,12 +949,13 @@ ce_dx_sm90_kernel(const __grid_constant__ DxMaps maps, const int* __restrict__ l
 //   map spans V columns and N rows, so the store clips there by itself. The
 //   first half is stored before the exponentials and the second after them,
 //   so the wait for the first store to read its staging tile is hidden.
-//   Direct 4-byte stores from the accumulator layout took 0.79 ms against
-//   0.54 (H100, main shape); staging a whole tile would cost a ring stage.
+//   Direct 4-byte stores from the accumulator layout took 0.73 ms against
+//   0.55 (H100, main shape, one batch in flight in both); staging a whole
+//   tile would cost a ring stage, and 3 stages starve the ring.
 // - The split: token tiles alone give N / 128 = 32 blocks for 132 SMs, so
 //   the vocab tiles are split over blocks (fwd_split: the fewest splits that
 //   fill the card's resident blocks to 90 %, 4 splits of 50 tiles and 128
-//   blocks at the main shape; 12 splits of 17 tiles in 2.9 waves were 4 %
+//   blocks at the main shape; 12 splits of 17 tiles in 2.9 waves were 3-4 %
 //   slower). The grid runs token tiles fastest, so the blocks in flight
 //   share x in L2.
 constexpr int FWD_ROWS = 128;     // tokens per block: 64 per warpgroup
@@ -985,7 +986,7 @@ __device__ __forceinline__ void load_fwd_pair(FwdSmem& sm, const FwdMaps& maps, 
                                               int vt0, int row0) {
   const int st = i % FWD_STAGES, round = i / FWD_STAGES;
   const int col0 = (vt0 + i / nk) * FWD_COLS, k0 = (i % nk) * sm90::BOX;
-  if (round > 0) sm90::mbar_wait_in_flight(&sm.empty[st], (round - 1) & 1);
+  if (round > 0) sm90::mbar_wait(&sm.empty[st], (round - 1) & 1);
   sm90::mbar_expect_tx(&sm.full[st], 6 * sm90::BLOCK_BYTES);
 #pragma unroll
   for (int b = 0; b < 2; ++b)
@@ -1136,7 +1137,7 @@ ce_fwd_sm90_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__
   for (int vt = 0, i = 0; vt < nt; ++vt) {
     for (int kc = 0; kc < nk; ++kc, ++i) {
       const int st = i % FWD_STAGES;
-      sm90::mbar_wait_in_flight(&sm.full[st], (i / FWD_STAGES) & 1);
+      sm90::mbar_wait(&sm.full[st], (i / FWD_STAGES) & 1);
       const bf16* x_rows = sm.x[st] + wg * BOX_BF16;  // this warpgroup's 64 rows
 #pragma unroll
       for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);

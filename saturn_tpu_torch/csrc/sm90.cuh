@@ -73,22 +73,11 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
 }
 
 // Wait for the completion of the barrier's phase of parity `parity`. A wait
-// of seconds can only be a deadlock: it traps, which the caller sees as a
-// launch failure, instead of hanging the card.
+// of seconds can only be a deadlock: it stores to address 0, which ends the
+// kernel with an illegal-address error at the caller's next synchronize,
+// instead of hanging the card. Not a trap: where wgmma batches are in flight,
+// ptxas would wait for them before the trap (advisory C7517).
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  if (mbar_try_wait(a, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(a, parity)) {
-    if (clock64() - t0 > (1ll << 33)) __trap();
-  }
-}
-
-// mbar_wait for code that runs while wgmma batches are in flight. A trap
-// there would make ptxas wait for the batches before it, on every path, and
-// say so (advisory C7517); a wait of seconds therefore stores to address 0
-// instead, which ends the kernel with an illegal-address error just the same.
-__device__ __forceinline__ void mbar_wait_in_flight(uint64_t* bar, uint32_t parity) {
   const uint32_t a = smem_addr(bar);
   if (mbar_try_wait(a, parity)) return;
   const long long t0 = clock64();
