@@ -932,8 +932,8 @@ ce_dx_sm90_kernel(const __grid_constant__ DxMaps maps, const int* __restrict__ l
 //   and waits for all of them (wgmma_wait<0>) only at the end of a tile,
 //   before it reads its accumulators. Nothing else writes them while a batch
 //   is in flight, so ptxas keeps the products asynchronous. Waiting for each
-//   pair's own batch instead left the tensor cores idle between batches
-//   (on an H100 at the main shape, 0.62 against 0.47 ms in recompute mode).
+//   pair's own batch instead left the tensor cores idle between batches: of
+//   the schedules tried on an H100 at the main shape, it was the slowest.
 // - The epilogue of a tile runs on the accumulators in place, in the
 //   warpgroup that owns them, while the other warpgroup's products may run.
 //   A thread holds two rows (g and g + 8 of its warp's 16) at 64 columns
@@ -949,14 +949,14 @@ ce_dx_sm90_kernel(const __grid_constant__ DxMaps maps, const int* __restrict__ l
 //   map spans V columns and N rows, so the store clips there by itself. The
 //   first half is stored before the exponentials and the second after them,
 //   so the wait for the first store to read its staging tile is hidden.
-//   Direct 4-byte stores from the accumulator layout took 0.73 ms against
-//   0.55 (H100, main shape, one batch in flight in both); staging a whole
-//   tile would cost a ring stage, and 3 stages starve the ring.
+//   Direct 4-byte stores from the accumulator layout were clearly slower on
+//   an H100 at the main shape; staging a whole tile would cost a ring stage,
+//   and 3 stages starve the ring.
 // - The split: token tiles alone give N / 128 = 32 blocks for 132 SMs, so
 //   the vocab tiles are split over blocks (fwd_split: the fewest splits that
 //   fill the card's resident blocks to 90 %, 4 splits of 50 tiles and 128
-//   blocks at the main shape; 12 splits of 17 tiles in 2.9 waves were 3-4 %
-//   slower). The grid runs token tiles fastest, so the blocks in flight
+//   blocks at the main shape; 12 splits of 17 tiles in 2.9 waves were
+//   slower on an H100). The grid runs token tiles fastest, so the blocks in flight
 //   share x in L2.
 constexpr int FWD_ROWS = 128;     // tokens per block: 64 per warpgroup
 constexpr int FWD_COLS = 256;     // vocab columns per tile
