@@ -10,14 +10,14 @@ Phases, in order; any failure is an exception and a non-zero exit:
    ``saturn_tpu_torch/csrc/flash_attn.cu`` and ``csrc/linear_ce.cu`` (one
    ``nvcc`` each, started together), with each kernel's ptxas line and the
    wgmma / TMA / cp.async / mma.sync instructions in its SASS
-   (``cuobjdump``); the flash forward and dK/dV kernels, the CE forward
-   and the stash-mode CE dx and dW kernels must hold wgmma and TMA tile
-   loads.
+   (``cuobjdump``); the three flash kernels, the CE forward and the
+   stash-mode CE dx and dW kernels must hold wgmma and TMA tile loads.
 2. Kernels against their plain PyTorch versions: flash forward, dQ and
    dK/dV at the GPT-2-small training shape (B 8, H 12, T 512, D 64, bf16,
    causal), a grouped-query shape (B 2, H 32, KV 4, T 1024, D 64), the main
-   shape non-causal, one tile (T 64), T 320 (T % 128 == 64) and head dim 128
-   with grouped queries (H 8, KV 2), causal and not; the CE head's forward,
+   shape non-causal (BERT-base's), one tile (T 64), T 320 (T % 128 == 64),
+   head dim 128 with grouped queries (H 8, KV 2) and, with long walks, (B 4,
+   H 16, KV 4, T 2048), causal and not; the CE head's forward,
    dx and dW at the main shape (N 4096, D 768, V 50304) and at an odd shape
    (N 4000, V 50257, the last 64 labels ignored), each in stash and in
    recompute mode, and in stash mode at D 1024 and at D 64 (odd shape). Each
@@ -54,10 +54,10 @@ The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 
     python3 chip_smoke.py --flash-sweep
 
-builds the kernels and only times the flash forward and dK/dV kernels
-against SDPA's forward and backward alone over a sweep of sequence lengths
-and batch sizes (``chiprun_out/flash_sweep.json``): how their time scales
-with the work.
+builds the kernels and only times the three flash kernels against SDPA's
+forward and backward alone (dQ + dK/dV against the backward) over a sweep
+of sequence lengths and batch sizes (``chiprun_out/flash_sweep.json``): how
+their time scales with the work.
 """
 
 from __future__ import annotations
@@ -127,7 +127,7 @@ def log(msg: str) -> None:
 #: cp.async copies, mma.sync.
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
 #: Kernels whose SASS must hold wgmma and TMA tile loads, by source.
-WGMMA_KERNELS = {"flash_attn": ("fwd_kernel", "dkv_kernel"),
+WGMMA_KERNELS = {"flash_attn": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
                  "linear_ce": ("ce_fwd_sm90_kernel", "ce_dx_sm90_kernel", "ce_dw_sm90_kernel")}
 
 
@@ -555,8 +555,9 @@ SWEEP = ([(BATCH, 12, T, 64, True) for T in (64, 128, 256, 512, 1024, 2048, 4096
 
 
 def flash_sweep(flash):
-    """Device times of flash_fwd and flash_dkv and of SDPA's forward and
-    backward alone over SWEEP; the forward's rate in TFLOP/s."""
+    """Device times of the three flash kernels and of SDPA's forward and
+    backward alone over SWEEP; the forward's rate in TFLOP/s, and dQ + dK/dV
+    against SDPA's backward alone."""
     rows = []
     for B, H, T, D, causal in SWEEP:
         q, k, v, do = kernel_inputs(B, H, H, T, D, 0)
@@ -568,6 +569,7 @@ def flash_sweep(flash):
         n = T // 64
         timings = {
             "fwd_ms": lambda: flash.flash_fwd(q, k, v, causal, H, H),
+            "dq_ms": lambda: flash.flash_dq(q, k, v, do, lse, delta, causal, H, H),
             "dkv_ms": lambda: flash.flash_dkv(q, k, v, do, lse, delta, causal, H, H),
             "sdpa_fwd_ms": lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal),
             "sdpa_bwd_ms": lambda: torch.autograd.grad(out4, (q4, k4, v4), do.view(B, H, T, D),
@@ -576,11 +578,12 @@ def flash_sweep(flash):
                "tile_steps": B * H * (n * (n + 1) // 2 if causal else n * n),
                **{name: device_ms(fn, windows=1) for name, fn in timings.items()}}
         row["fwd_tflops"] = work(B, H, H, T, D, causal)["flash_fwd"][0] / row["fwd_ms"] / 1e9
+        row["bwd_vs_sdpa"] = (row["dq_ms"] + row["dkv_ms"]) / row["sdpa_bwd_ms"]
         rows.append(row)
         log(f"  B{B} H{H} T{T} D{D} causal={causal}: {row['tile_steps']} tile steps; "
             f"fwd {row['fwd_ms']:.4f} ms ({row['fwd_tflops']:.0f} TFLOP/s), SDPA fwd "
-            f"{row['sdpa_fwd_ms']:.4f}; dkv {row['dkv_ms']:.4f}, SDPA bwd alone "
-            f"{row['sdpa_bwd_ms']:.4f}")
+            f"{row['sdpa_fwd_ms']:.4f}; dq {row['dq_ms']:.4f} + dkv {row['dkv_ms']:.4f} "
+            f"against SDPA bwd alone {row['sdpa_bwd_ms']:.4f} ({row['bwd_vs_sdpa']:.2f}x)")
         del out4
     return rows
 
@@ -858,9 +861,9 @@ def main(argv) -> int:
     main_shape = (BATCH, 12, 12, SEQ, 64)
     rows = check_kernels(flash, main_shape, True, 0, timed=True)
     check_kernels(flash, (2, 32, 4, 1024, 64), True, 1, timed=False)
-    check_kernels(flash, main_shape, False, 2, timed=False)
+    check_kernels(flash, main_shape, False, 2, timed=False)  # BERT-base's shape
     for seed, shape in enumerate(((BATCH, 12, 12, 64, 64), (4, 12, 12, 320, 64),
-                                  (2, 8, 2, SEQ, 128)), start=10):
+                                  (2, 8, 2, SEQ, 128), (4, 16, 4, 2048, 128)), start=10):
         for causal in (True, False):
             check_kernels(flash, shape, causal, seed, timed=False)
     N, D = BATCH * SEQ, 768

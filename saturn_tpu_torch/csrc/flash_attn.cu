@@ -27,46 +27,46 @@
 // the group members in its own loop, so dk/dv come back at KV heads with no
 // atomics and a result that does not depend on scheduling.
 //
-// fwd_kernel and dkv_kernel (Hopper design, helpers in sm90.cuh):
+// All three share one Hopper design (helpers in sm90.cuh):
 // - Tiles arrive by TMA (cp.async.bulk.tensor, 128-byte swizzle) into rings
 //   of STAGES shared-memory stages completed on mbarriers; the warpgroup
 //   frees a stage through a second mbarrier, and its thread 0 then reloads
 //   it with the tile STAGES ahead, so loads run under the math of the tiles
-//   before. The forward's K and V tiles have rings of their own (a K stage
-//   frees a step before its V). There is no producer warp: it would hold a
-//   consumer's register count while it waits, and a block of 128 threads
-//   instead of 160 lets 4 forward blocks (3 dK/dV blocks at D 64) share an
-//   SM instead of 3 (2).
+//   before. The forward's and dQ's K and V tiles have rings of their own (a
+//   stage of each frees once its last product is done). There is no
+//   producer warp: it would hold a consumer's register count while it
+//   waits, and a block of 128 threads instead of 160 lets 4 forward blocks
+//   (3 dK/dV blocks at D 64) share an SM instead of 3 (2).
 // - One warpgroup per 64-row tile runs the products on wgmma m64n64k16
-//   (bf16 in, f32 accumulate): S = Q K^T (fwd) and S^T = K Q^T, dP^T = V
-//   dO^T (dK/dV) with both operands read K-major from shared memory; O += P V
-//   (fwd), dV += P^T dO and dK += dS^T Q (dK/dV) with P, P^T and dS^T as the
-//   register A operand (the f32 accumulator rounded to bf16 pairs) and V, dO
-//   and Q read MN-major through the transpose bit of the B descriptor: no
-//   transposed copy of any tile is made.
+//   (bf16 in, f32 accumulate): S = Q K^T (fwd, dQ), dP = dO V^T (dQ), S^T =
+//   K Q^T and dP^T = V dO^T (dK/dV) with both operands read K-major from
+//   shared memory; O += P V (fwd), dQ += dS K (dQ), dV += P^T dO and dK +=
+//   dS^T Q (dK/dV) with P, dS, P^T and dS^T as the register A operand (the
+//   f32 accumulator rounded to bf16 pairs) and V, K, dO and Q read MN-major
+//   through the transpose bit of the B descriptor: no transposed copy of any
+//   tile is made.
 // - The forward shortens its chain: step j issues S_j = Q K_j^T and O +=
 //   P_{j-1} V_{j-1} together and runs the softmax of S_j while the second is
 //   in flight; each exponential is one FFMA and one ex2 (the scale folded into
 //   log2 units), row maxima and sums are trees, and a row's sum is reduced
 //   across its 4 threads once, at the end.
-// - Heavy tiles first: causal blocks are launched longest walk first (fwd:
-//   the last q tiles; dK/dV: the first kv tile), so the long blocks do not
-//   start last. The forward orders its blocks in groups of heads whose k and
-//   v fit in half the L2 together, which keeps them there at large B * H.
-// - Q (forward) or K and V (dK/dV) are loaded once per block; the dK/dV walk
-//   is over (group member x q tile), each stage bringing the Q and dO tiles
-//   and their lse and delta rows (bulk copies).
-//
-// dq_kernel keeps the first design: mma.sync m16n8k16 with 4 warps of 16
-// rows, tiles loaded synchronously by all threads with K also stored
-// transposed (load_tile_t).
+// - Heavy tiles first: causal blocks are launched longest walk first (fwd
+//   and dQ: the last q tiles; dK/dV: the first kv tile), so the long blocks
+//   do not start last. The forward and dQ order their blocks in groups of
+//   heads whose k and v fit in half the L2 together, which keeps them there
+//   at large B * H.
+// - Q (forward), Q and dO (dQ) or K and V (dK/dV) are loaded once per block;
+//   the dK/dV walk is over (group member x q tile), each stage bringing the Q
+//   and dO tiles and their lse and delta rows (bulk copies); dQ reads each
+//   thread's two lse and delta values once.
 //
 // Layout: q, o, do, dq are (B*H, T, D) and k, v, dk, dv are (B*KV, T, D),
 // bf16, row stride `*_st` and head stride `*_sh` in elements, rows and base
 // addresses 16-byte aligned. lse and delta are (B*H, T) f32, contiguous,
 // 16-byte aligned. T % 64 == 0, D in {64, 128}. Each launcher returns a
 // cudaError_t value as an int (a tensor map it could not encode, a refused
-// launch); a deadlocked stage ring traps rather than hangs.
+// launch); a deadlocked stage ring ends its kernel with an illegal-address
+// error (sm90::mbar_wait) rather than hanging.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,95 +79,12 @@ namespace {
 typedef __nv_bfloat16 bf16;
 
 constexpr int TILE = 64;             // q rows and kv rows per tile
-constexpr int WARPS = 4;             // each warp owns 16 rows of a tile
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD = 8;               // bf16 of row padding: 16 bytes, no bank conflicts
 constexpr float NEG_INF = -1e30f;    // the mask value of the Pallas kernels
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// acc (16 x N) += A (16 x K) * B^T, with A (16 rows) and B (N rows) both
-// row-major over K in shared memory. acc[n] is the n-th 16 x 8 accumulator
-// tile in the mma.sync C layout: element e of lane (g = lane/4, t = lane%4)
-// sits at row g + 8 * (e / 2), column 8 n + 2 t + e % 2.
-template <int N, int K>
-__device__ __forceinline__ void mma_smem(float (*acc)[4], const bf16* A, int lda,
-                                         const bf16* B, int ldb, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const bf16* pa = A + g * lda + k0 + 2 * t;
-    uint32_t a[4] = {ld32(pa), ld32(pa + 8 * lda), ld32(pa + 8),
-                     ld32(pa + 8 * lda + 8)};
-#pragma unroll
-    for (int n = 0; n < N / 8; ++n) {
-      const bf16* pb = B + (n * 8 + g) * ldb + k0 + 2 * t;
-      mma16816(acc[n], a, ld32(pb), ld32(pb + 8));
-    }
-  }
-}
-
-// acc (16 x N) += S (16 x K) * B^T, with S held in registers as K/8
-// accumulator tiles (rounded to bf16 here: the C layout of two neighbouring
-// 16 x 8 tiles is the A layout of one 16 x 16 operand) and B (N rows)
-// row-major over K in shared memory.
-template <int N, int K>
-__device__ __forceinline__ void mma_regs(float (*acc)[4], float (*s)[4],
-                                         const bf16* B, int ldb, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                     pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                     pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                     pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-    for (int n = 0; n < N / 8; ++n) {
-      const bf16* pb = B + (n * 8 + g) * ldb + kk * 16 + 2 * t;
-      mma16816(acc[n], a, ld32(pb), ld32(pb + 8));
-    }
-  }
-}
-
-// TILE x D rows of a (T, D) matrix (row stride st) -> shared memory at row
-// stride D + PAD, 16 bytes per thread per step.
-template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int st) {
-  constexpr int PER_ROW = D / 8;
-  for (int i = threadIdx.x; i < TILE * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
-    *reinterpret_cast<uint4*>(dst + r * (D + PAD) + c) =
-        *reinterpret_cast<const uint4*>(src + (size_t)r * st + c);
-  }
-}
-
-// The same tile stored transposed: dst[c][r] at row stride TILE + PAD.
-template <int D>
-__device__ __forceinline__ void load_tile_t(bf16* dst, const bf16* src, int st) {
-  constexpr int PER_ROW = D / 8;
-  for (int i = threadIdx.x; i < TILE * PER_ROW; i += THREADS) {
-    const int r = i / PER_ROW, c = (i % PER_ROW) * 8;
-    const uint4 v = *reinterpret_cast<const uint4*>(src + (size_t)r * st + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c + j) * (TILE + PAD) + r] = e[j];
-  }
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -180,98 +97,7 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Write a warp's 16 x D accumulator (times row factors f0 for row g, f1 for
-// row g + 8) as bf16 rows; `out` points at the warp's first row (stride st).
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, int st, float (*acc)[4],
-                                           float f0, float f1, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(out + (size_t)g * st + c) =
-        pack_bf16(acc[n][0] * f0, acc[n][1] * f0);
-    *reinterpret_cast<uint32_t*>(out + (size_t)(g + 8) * st + c) =
-        pack_bf16(acc[n][2] * f1, acc[n][3] * f1);
-  }
-}
-
-constexpr int tile_bytes(int D) { return TILE * (D + PAD) * 2; }
-constexpr int tile_t_bytes(int D) { return D * (TILE + PAD) * 2; }
-
-template <int D>
-constexpr int dq_smem() { return 4 * tile_bytes(D) + tile_t_bytes(D); }
-
-// ----------------------------------------------------------------------- dQ
-// One block per (q tile, bh). dq = scale * sum_kv P o (dP - delta) k, with
-// P = exp(scale q k^T - lse) and dP = do v^T.
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          bf16* __restrict__ dq, long long q_sh, int q_st, long long kv_sh,
-          int kv_st, int T, int H, int KV, float scale, int causal) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sdO = sQ + TILE * (D + PAD);
-  bf16* sK = sdO + TILE * (D + PAD);
-  bf16* sV = sK + TILE * (D + PAD);
-  bf16* sKt = sV + TILE * (D + PAD);
-
-  const int iq = blockIdx.x, bh = blockIdx.y;
-  const int bkv = (bh / H) * KV + (bh % H) / (H / KV);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* kh = k + bkv * kv_sh;
-  const bf16* vh = v + bkv * kv_sh;
-
-  load_tile<D>(sQ, q + bh * q_sh + (size_t)iq * TILE * q_st, q_st);
-  load_tile<D>(sdO, dout + bh * q_sh + (size_t)iq * TILE * q_st, q_st);
-  const bf16* sQw = sQ + warp * 16 * (D + PAD);
-  const bf16* sdOw = sdO + warp * 16 * (D + PAD);
-  const int wrow = iq * TILE + warp * 16, row = wrow + g;
-  const float lse_r[2] = {lse[(size_t)bh * T + row], lse[(size_t)bh * T + row + 8]};
-  const float del_r[2] = {delta[(size_t)bh * T + row], delta[(size_t)bh * T + row + 8]};
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int n_kv = causal ? iq + 1 : T / TILE;
-  for (int jk = 0; jk < n_kv; ++jk) {
-    __syncthreads();
-    load_tile<D>(sK, kh + (size_t)jk * TILE * kv_st, kv_st);
-    load_tile<D>(sV, vh + (size_t)jk * TILE * kv_st, kv_st);
-    load_tile_t<D>(sKt, kh + (size_t)jk * TILE * kv_st, kv_st);
-    __syncthreads();
-
-    float s[TILE / 8][4], dp[TILE / 8][4];
-#pragma unroll
-    for (int n = 0; n < TILE / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    }
-    mma_smem<TILE, D>(s, sQw, D + PAD, sK, D + PAD, lane);
-    mma_smem<TILE, D>(dp, sdOw, D + PAD, sV, D + PAD, lane);
-
-    const bool diag = causal && jk == iq;
-#pragma unroll
-    for (int n = 0; n < TILE / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[n][e] * scale;
-        if (diag && n * 8 + 2 * t + (e & 1) > warp * 16 + g + 8 * (e >> 1)) x = NEG_INF;
-        const float p = __expf(x - lse_r[e >> 1]);
-        s[n][e] = p * (dp[n][e] - del_r[e >> 1]);
-      }
-    }
-    mma_regs<D, TILE>(acc, s, sKt, TILE + PAD, lane);
-  }
-  store_rows<D>(dq + bh * q_sh + (size_t)wrow * q_st, q_st, acc, scale, scale, lane);
-}
-
-// ------------------------------------------- forward and dK/dV: TMA + wgmma
+// -------------------------------------------------------- TMA rings, wgmma
 constexpr int STAGES = 2;          // depth of the rings of walked tiles
 constexpr int WG_THREADS = 128;    // one warpgroup a block; its thread 0 issues the loads
 
@@ -284,6 +110,17 @@ struct FwdSmem {
   bf16 k[STAGES][TILE * D];
   bf16 v[STAGES][TILE * D];
   uint64_t q_full, k_full[STAGES], k_empty[STAGES], v_full[STAGES], v_empty[STAGES];
+};
+
+// Shared memory of dq_kernel: Q and dO loaded once, K and V in rings of
+// their own.
+template <int D>
+struct DqSmem {
+  bf16 q[TILE * D];
+  bf16 dout[TILE * D];
+  bf16 k[STAGES][TILE * D];
+  bf16 v[STAGES][TILE * D];
+  uint64_t qd_full, k_full[STAGES], k_empty[STAGES], v_full[STAGES], v_empty[STAGES];
 };
 
 template <int D>
@@ -379,6 +216,28 @@ __device__ __forceinline__ void store_tile(bf16* out, int st, const float (&acc)
     }
 }
 
+// The (bh, q tile) of a block of a forward or dQ grid. Blocks go in groups of
+// `group` heads whose k and v fit in L2 together (l2_group); within a group,
+// longest walk first (causal: the last q tiles), so the long blocks do not
+// start last.
+struct QTile {
+  int bh, iq;
+};
+
+__device__ __forceinline__ QTile q_tile_of_block(int BH, int n_tiles, int group, int causal) {
+  const int first = blockIdx.x / (group * n_tiles) * group;
+  const int heads = min(group, BH - first), in_group = blockIdx.x - first * n_tiles;
+  const int rank = in_group / heads;
+  return {first + in_group % heads, causal ? n_tiles - 1 - rank : rank};
+}
+
+// Host: heads whose k and v take at most 24 MB, half the H100's L2.
+inline int l2_group(int BH, int T, int D) {
+  const long long per_head = 4ll * T * D;
+  const long long group = 24000000ll / per_head < BH ? 24000000ll / per_head : BH;
+  return group > 0 ? (int)group : 1;
+}
+
 // ------------------------------------------------------------------ forward
 // `op` (max or sum) over the 16 values of one of this thread's two rows in a
 // 64 x 64 accumulator (elements 4 n + 2 h + {0, 1} for row half h), as a
@@ -426,9 +285,8 @@ __device__ __forceinline__ void softmax_step(float (&sc)[32], float (&m)[2], flo
   for (int h = 0; h < 2; ++h) l[h] = corr[h] * l[h] + row_reduce(sc, h, add);
 }
 
-// One block per (bh, q tile). o = softmax(scale q k^T) v, lse = scale m + log l.
-// Blocks are launched in groups of `group` heads, whose k/v fit in L2 together;
-// within a group, longest walk first (causal: the last q tiles). The products
+// One block per (bh, q tile), in q_tile_of_block's order. o = softmax(scale
+// q k^T) v, lse = scale m + log l. The products
 // of step j are issued together: S_j = Q K_j^T and O += P_{j-1} V_{j-1}; the
 // softmax of S_j runs while the second is in flight. Thread 0 reloads stages
 // while those products run, when its warp would wait for them anyway, and
@@ -442,10 +300,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
            float scale, int causal, int group) {
   FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(sm90::smem_1024());
   const int n_tiles = T / TILE;
-  const int g = blockIdx.x / (group * n_tiles), first = g * group;
-  const int heads = min(group, BH - first), in_group = blockIdx.x - first * n_tiles;
-  const int bh = first + in_group % heads, rank = in_group / heads;
-  const int iq = causal ? n_tiles - 1 - rank : rank;
+  const auto [bh, iq] = q_tile_of_block(BH, n_tiles, group, causal);
   const int bkv = (bh / H) * KV + (bh % H) / (H / KV);
   const int n_kv = causal ? iq + 1 : n_tiles;
   const bool leader = threadIdx.x == 0;
@@ -473,7 +328,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = lane & 3;
   const int r0 = warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
-  const float scale_log2 = scale * 1.4426950408889634f;
+  const float scale_log2 = scale * LOG2E;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
   float acc[D / 64][32], sc[32];
   uint32_t pa[16];  // P of the previous tile, the A operand of O += P V
@@ -552,6 +407,117 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     lse[row] = scale * m[0] + logf(l[0]);
     lse[row + 8] = scale * m[1] + logf(l[1]);
   }
+}
+
+// ----------------------------------------------------------------------- dQ
+// dS = P o (dP - delta), in place of the raw scores sc (q rows r0 and r0 + 8
+// by kv columns), with P = exp(scale sc - lse) as one FFMA and one ex2 (lse2
+// = lse log2(e)); on a causal diagonal tile P is 0 above the diagonal.
+__device__ __forceinline__ void ds_step(float (&sc)[32], const float (&dp)[32],
+                                        const float (&lse2)[2], const float (&del)[2],
+                                        float scale_log2, bool diag, int r0, int t) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int h = (i >> 1) & 1;
+    float p = sm90::exp2_approx(fmaf(sc[i], scale_log2, -lse2[h]));
+    if (diag && (i >> 2) * 8 + 2 * t + (i & 1) > r0 + 8 * h) p = 0.f;
+    sc[i] = p * (dp[i] - del[h]);
+  }
+}
+
+// One block per (bh, q tile), in q_tile_of_block's order; warp w owns q rows
+// 16 w..16 w + 15. dq = scale * sum_kv dS k, with dS = P o (dP - delta),
+// P = exp(scale q k^T - lse) and dP = do v^T. Step j: S = Q K_j^T and
+// dP = dO V_j^T as one batch, then dQ += dS K_j with dS (rounded to bf16)
+// as the register operand and K_j read MN-major. While the score products of
+// step j run, thread 0 reloads the stages that step j - 1 used (freed by
+// every warp at that step's end) with step j - 1 + STAGES.
+template <int D>
+__global__ void __launch_bounds__(WG_THREADS)
+dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+          const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+          const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
+          long long q_sh, int q_st, int BH, int T, int H, int KV, float scale, int causal,
+          int group) {
+  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(sm90::smem_1024());
+  const int n_tiles = T / TILE;
+  const auto [bh, iq] = q_tile_of_block(BH, n_tiles, group, causal);
+  const int bkv = (bh / H) * KV + (bh % H) / (H / KV);
+  const int n_kv = causal ? iq + 1 : n_tiles;
+  const bool leader = threadIdx.x == 0;
+  if (leader) {
+    sm90::mbar_init(&sm.qd_full, 1);
+    for (int st = 0; st < STAGES; ++st) {
+      sm90::mbar_init(&sm.k_full[st], 1);
+      sm90::mbar_init(&sm.v_full[st], 1);
+      sm90::mbar_init(&sm.k_empty[st], WG_THREADS);
+      sm90::mbar_init(&sm.v_empty[st], WG_THREADS);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+  if (leader) {
+    sm90::mbar_expect_tx(&sm.qd_full, 2 * TILE * D * 2);
+    load_tile_tma<D>(sm.q, &q_map, &sm.qd_full, iq * TILE, bh);
+    load_tile_tma<D>(sm.dout, &do_map, &sm.qd_full, iq * TILE, bh);
+    for (int j = 0; j < STAGES && j < n_kv; ++j) {
+      load_ring<D>(sm.k, sm.k_full, sm.k_empty, &k_map, j, bkv);
+      load_ring<D>(sm.v, sm.v_full, sm.v_empty, &v_map, j, bkv);
+    }
+  }
+  __syncwarp();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's q rows: r0 and r0 + 8
+  const float scale_log2 = scale * LOG2E;
+  const size_t row = (size_t)bh * T + iq * TILE + r0;
+  const float lse2[2] = {lse[row] * LOG2E, lse[row + 8] * LOG2E};
+  const float del[2] = {delta[row], delta[row + 8]};
+  float acc[D / 64][32];
+#pragma unroll
+  for (int cb = 0; cb < D / 64; ++cb) zero(acc[cb]);
+  sm90::mbar_wait(&sm.qd_full, 0);
+
+  for (int jk = 0; jk < n_kv; ++jk) {
+    const int s = jk % STAGES;
+    sm90::mbar_wait(&sm.k_full[s], (jk / STAGES) & 1);
+    sm90::mbar_wait(&sm.v_full[s], (jk / STAGES) & 1);
+    float sc[32], dp[32];
+    zero(sc);
+    zero(dp);
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    sm90::wgmma_fence();
+    product_ss<D>(sc, sm.q, sm.k[s]);
+    product_ss<D>(dp, sm.dout, sm.v[s]);
+    sm90::wgmma_commit();
+    if (leader && jk >= 1 && jk - 1 + STAGES < n_kv) {
+      load_ring<D>(sm.k, sm.k_full, sm.k_empty, &k_map, jk - 1 + STAGES, bkv);
+      load_ring<D>(sm.v, sm.v_full, sm.v_empty, &v_map, jk - 1 + STAGES, bkv);
+    }
+    __syncwarp();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    sm90::mbar_arrive(&sm.v_empty[s]);
+
+    ds_step(sc, dp, lse2, del, scale_log2, causal && jk == iq, r0, t);
+    uint32_t da[16];
+    to_operand(da, sc);
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) sm90::fence_regs(acc[cb]);
+    sm90::wgmma_fence();
+    product_rs<D>(acc, da, sm.k[s]);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < D / 64; ++cb) sm90::fence_regs(acc[cb]);
+    sm90::fence_regs(da);
+    sm90::mbar_arrive(&sm.k_empty[s]);
+  }
+
+  store_tile<D>(dq + bh * q_sh + (size_t)iq * TILE * q_st, q_st, acc, r0, t, scale, scale);
 }
 
 // -------------------------------------------------------------------- dK/dV
@@ -696,12 +662,23 @@ int launch_fwd(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& 
   constexpr int smem = smem_bytes<FwdSmem<D>>();
   const cudaError_t err = allow_smem(fwd_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  // heads whose k and v take at most 24 MB, half the H100's L2
-  const long long per_head = 4ll * T * (D + 0ll);
-  const int group = (int)(24000000ll / per_head < BH ? 24000000ll / per_head : BH);
   fwd_kernel<D><<<BH * (T / TILE), WG_THREADS, smem, s>>>(
       qm, km, vm, (bf16*)o, (float*)lse, q_sh, q_st, BH, T, H, KV, scale, causal,
-      group > 0 ? group : 1);
+      l2_group(BH, T, D));
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+              const CUtensorMap& dom, const void* lse, const void* delta, void* dq,
+              long long q_sh, int q_st, int BH, int T, int H, int KV, float scale, int causal,
+              cudaStream_t s) {
+  constexpr int smem = smem_bytes<DqSmem<D>>();
+  const cudaError_t err = allow_smem(dq_kernel<D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dq_kernel<D><<<BH * (T / TILE), WG_THREADS, smem, s>>>(
+      qm, km, vm, dom, (const float*)lse, (const float*)delta, (bf16*)dq, q_sh, q_st, BH, T, H,
+      KV, scale, causal, l2_group(BH, T, D));
   return (int)cudaGetLastError();
 }
 
@@ -743,25 +720,20 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dq, long long q_sh,
              int q_st, long long kv_sh, int kv_st, int BH, int T, int D, int H,
              int KV, float scale, int causal, void* stream) {
-  const dim3 grid(T / TILE, BH);
+  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  const int BKV = BH / H * KV;
+  CUtensorMap qm, km, vm, dom;
+  int err;
+  if ((err = sm90::encode_tile_map(&qm, q, D, T, BH, q_st, q_sh)) ||
+      (err = sm90::encode_tile_map(&km, k, D, T, BKV, kv_st, kv_sh)) ||
+      (err = sm90::encode_tile_map(&vm, v, D, T, BKV, kv_st, kv_sh)) ||
+      (err = sm90::encode_tile_map(&dom, dout, D, T, BH, q_st, q_sh)))
+    return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (D == 64) {
-    if ((err = allow_smem(dq_kernel<64>, dq_smem<64>())) != cudaSuccess) return (int)err;
-    dq_kernel<64><<<grid, THREADS, dq_smem<64>(), s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)delta, (bf16*)dq, q_sh, q_st, kv_sh,
-        kv_st, T, H, KV, scale, causal);
-  } else if (D == 128) {
-    if ((err = allow_smem(dq_kernel<128>, dq_smem<128>())) != cudaSuccess) return (int)err;
-    dq_kernel<128><<<grid, THREADS, dq_smem<128>(), s>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
-        (const float*)lse, (const float*)delta, (bf16*)dq, q_sh, q_st, kv_sh,
-        kv_st, T, H, KV, scale, causal);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return D == 64 ? launch_dq<64>(qm, km, vm, dom, lse, delta, dq, q_sh, q_st, BH, T, H, KV, scale,
+                                 causal, s)
+                 : launch_dq<128>(qm, km, vm, dom, lse, delta, dq, q_sh, q_st, BH, T, H, KV,
+                                  scale, causal, s);
 }
 
 int flash_dkv(const void* q, const void* k, const void* v, const void* dout,

@@ -13,10 +13,10 @@ Each wrapper runs its kernel on a CUDA tensor (or raises on what the kernel
 does not take) and its plain PyTorch version on a CPU tensor; there is no
 fallback from one to the other. Each counts its kernel launches in
 ``LAUNCHES``. The kernels tile at 64 x 64 and take bf16 with head dim 64 or
-128 (every GPT-2 and Llama preset). The forward and dK/dV kernels load their
-tiles with TMA into a ring of shared-memory stages and multiply on wgmma
-(helpers in ``csrc/sm90.cuh``); the note at the top of the CUDA source says
-what bounds them.
+128 (every GPT-2 and Llama preset). All three load their tiles with TMA
+into rings of shared-memory stages and multiply on wgmma (helpers in
+``csrc/sm90.cuh``); the note at the top of the CUDA source says what bounds
+them.
 """
 
 from __future__ import annotations

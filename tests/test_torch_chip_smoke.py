@@ -2,7 +2,8 @@
 on the CPU: which kernel a mangled name is, the rule that the Hopper kernels
 (the CE forward and the stash-mode CE dx and dW kernels here) are present and
 hold wgmma (HGMMA) and TMA tile loads (UTMALDG), and which kernel a profiled
-launch belongs to. Needs no card and no ``cuobjdump``."""
+launch belongs to; the same rule for the three flash kernels. Needs no card
+and no ``cuobjdump``."""
 
 import importlib.util
 import os
@@ -29,6 +30,13 @@ DX_SM90 = CE_NS + "17ce_dx_sm90_kernelILi4EEEvNS_6DxMapsEPKiPKfS6_Pfiiii"
 FWD_SM90 = CE_NS + "18ce_fwd_sm90_kernelILb1EEEvNS_7FwdMapsEPKiPfiiii"
 FWD_SM90_RECOMPUTE = CE_NS + "18ce_fwd_sm90_kernelILb0EEEvNS_7FwdMapsEPKiPfiiii"
 HOPPER_CE = (FWD_SM90, FWD_SM90_RECOMPUTE, DX_SM90, DW_SM90)
+FLASH_FWD = FLASH_NS + "10fwd_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfxiiiiifii"
+FLASH_DKV = (FLASH_NS
+             + "10dkv_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_xiiiifi")
+DQ_TAIL = "EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16xiiiiifii"
+FLASH_DQ64 = FLASH_NS + "9dq_kernelILi64" + DQ_TAIL
+FLASH_DQ128 = FLASH_NS + "9dq_kernelILi128" + DQ_TAIL
+HOPPER_FLASH = (FLASH_FWD, FLASH_DQ64, FLASH_DQ128, FLASH_DKV)
 
 
 @pytest.mark.parametrize("fn,name", [
@@ -39,10 +47,10 @@ HOPPER_CE = (FWD_SM90, FWD_SM90_RECOMPUTE, DX_SM90, DW_SM90)
     (CE_NS + "12ce_dw_kernelEPK13__nv_bfloat16S2_PKiPKfS6_Pfiii", ("ce_dw_kernel", None)),
     (CE_NS + "21ce_fwd_combine_kernelEPKfPfS2_ii", ("ce_fwd_combine_kernel", None)),
     (CE_NS + "19ce_dx_reduce_kernelEPKfP13__nv_bfloat16xi", ("ce_dx_reduce_kernel", None)),
-    (FLASH_NS + "10dkv_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_xiiiifi",
-     ("dkv_kernel", "128")),
-    (FLASH_NS + "10fwd_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfxiiiiifii",
-     ("fwd_kernel", "64")),
+    (FLASH_DKV, ("dkv_kernel", "128")),
+    (FLASH_FWD, ("fwd_kernel", "64")),
+    (FLASH_DQ64, ("dq_kernel", "64")),
+    (FLASH_DQ128, ("dq_kernel", "128")),
     ("_Z9somethingv", ("_Z9somethingv", None)),
 ])
 def test_sass_kernel_name(smoke, fn, name):
@@ -125,4 +133,56 @@ def test_step_kernels_counts_the_forward_without_its_combine_pass(smoke, arg):
     assert kernels["ce_dx"] == {"launches_per_step": 1.0,
                                 "device_ms_per_step": pytest.approx(0.67)}
     for name in ("ce_dw", "flash_fwd", "flash_dq", "flash_dkv"):
+        assert kernels[name] == {"launches_per_step": 0.0, "device_ms_per_step": 0.0}
+
+
+def test_check_sass_holds_the_flash_kernels_to_wgmma_and_tma(smoke, monkeypatch, tmp_path):
+    """A dump of the forward, dQ (both head dims) and dK/dV kernels, each
+    with wgmma and TMA tile loads, passes."""
+    sass = _sass(["HGMMA.64x64x16.F32.BF16", "UTMALDG.3D"], fns=HOPPER_FLASH)
+    smoke.check_sass(_fake_dump(smoke, monkeypatch, tmp_path, sass), "flash_attn")
+
+
+def test_check_sass_requires_the_dq_kernel(smoke, monkeypatch, tmp_path):
+    """Without dq_kernel the flash source fails, naming it."""
+    fns = [fn for fn in HOPPER_FLASH if fn not in (FLASH_DQ64, FLASH_DQ128)]
+    sass = _sass(["HGMMA.64x64x16.F32.BF16", "UTMALDG.3D"], fns=fns)
+    build = _fake_dump(smoke, monkeypatch, tmp_path, sass)
+    with pytest.raises(AssertionError, match=re.escape("no SASS found for {'dq_kernel'}")):
+        smoke.check_sass(build, "flash_attn")
+
+
+@pytest.mark.parametrize("ops,error", [(["HMMA.16816.F32.BF16", "UTMALDG.3D"], "no HGMMA"),
+                                       (["HMMA.16816.F32.BF16"], "no HGMMA or UTMALDG")])
+def test_check_sass_refuses_an_mma_sync_dq_kernel(smoke, monkeypatch, tmp_path, ops, error):
+    """A dq_kernel that multiplies on mma.sync (HMMA) fails, named with its
+    head dim, though the other flash kernels hold wgmma and TMA."""
+    hopper = _sass(["HGMMA.64x64x16.F32.BF16", "UTMALDG.3D"], fns=(FLASH_FWD, FLASH_DKV))
+    sass = hopper + _sass(ops, fns=(FLASH_DQ64,))
+    build = _fake_dump(smoke, monkeypatch, tmp_path, sass)
+    with pytest.raises(AssertionError, match=re.escape(f"dq_kernel<64> in flash_attn: {error}")):
+        smoke.check_sass(build, "flash_attn")
+
+
+def test_step_kernels_counts_each_flash_kernel(smoke):
+    """Two profiled steps of one layer: each flash kernel, dQ among them,
+    is one launch of its own wrapper per step."""
+    ns = "(anonymous namespace)::"
+    step = [
+        (ns + "fwd_kernel<64>(CUtensorMap, CUtensorMap, CUtensorMap, __nv_bfloat16*, float*, "
+         "long long, int, int, int, int, int, float, int, int)", 0.0, 17.0),
+        (ns + "dq_kernel<64>(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, float const*, "
+         "float const*, __nv_bfloat16*, long long, int, int, int, int, int, float, int, int)",
+         100.0, 125.0),
+        (ns + "dkv_kernel<64>(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, float const*, "
+         "float const*, __nv_bfloat16*, __nv_bfloat16*, long long, int, int, int, int, float, "
+         "int)", 125.0, 155.0),
+        ("void at::native::elementwise_kernel<128, 4>(int, ...)", 160.0, 170.0),
+    ]
+    events = step + [(n, a + 1000.0, b + 1000.0) for n, a, b in step]
+    kernels = smoke.step_kernels(events, 2)
+    for name, ms in (("flash_fwd", 0.017), ("flash_dq", 0.025), ("flash_dkv", 0.030)):
+        assert kernels[name] == {"launches_per_step": 1.0,
+                                 "device_ms_per_step": pytest.approx(ms)}
+    for name in ("ce_fwd", "ce_dx", "ce_dw"):
         assert kernels[name] == {"launches_per_step": 0.0, "device_ms_per_step": 0.0}

@@ -7,8 +7,10 @@ JAX, hence no ``tests/conftest.py``):
 
 bf16 inputs. The flash kernels are held to their plain versions at the
 bounds of ``chip_smoke.check_kernels`` (lse absolute, o within one bf16 step,
-gradients by relative norm); the end-to-end attention gradients in the bf16
-band of ``tests/test_flash.py`` (2e-2). The CE kernels by relative norm,
+gradients by relative norm), the dQ kernel also at its edges (one tile to
+walks of 32, D 64 and 128, grouped queries, a planted score per row in a
+late kv tile); the end-to-end attention gradients in the bf16 band of
+``tests/test_flash.py`` (2e-2). The CE kernels by relative norm,
 the stash-mode dx and dW kernels at their edges (D tile widths, V and N that
 no tile divides, ignored rows, the softmax part alone, a non-uniform g)
 within the bound of ``chip_smoke.check_ce``; the CE forward at its edges (D
@@ -76,6 +78,55 @@ def test_kernels_match_plain(cuda_device, causal, H, KV, D, T):
         assert _rel_err(a, b) <= FLASH_GRAD_REL, (name, _rel_err(a, b))
     assert {n: flash.LAUNCHES[n] - before[n] for n in before} == {
         "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("H,KV", [(4, 4), (4, 1)], ids=["mha", "gqa4"])
+@pytest.mark.parametrize("D", [64, 128])
+# one tile; three tiles (more than the ring's stages); walks of 5 and 32 tiles
+@pytest.mark.parametrize("T", [64, 192, 320, 2048])
+def test_flash_dq_edges(cuda_device, T, D, H, KV, causal):
+    """The dQ kernel (dq_kernel) against flash_dq_reference, with lse and
+    delta from the forward kernel on the same inputs. k has a scale that
+    grows along D and v is drawn apart from k, so a descriptor that swaps or
+    transposes an operand gives another result. Key 64 j of every head
+    carries a w_j (w_j a unit vector per kv tile) and q row r carries a
+    w_{j(r)}, with j(r) the row's diagonal tile (causal) or the last tile,
+    both scaled by a = ((ln T + 3) sqrt(D))^(1/2): one planted score of
+    ln T + 3 per row in the latest kv tile it sees, so P is near 1 there
+    (median 0.85-0.95) and near 0 elsewhere. Not higher: with P at 1, dS =
+    P (dP - delta) cancels to rounding noise."""
+    B, a = 2, ((np.log(T) + 3) * D ** 0.5) ** 0.5
+    rng = np.random.default_rng(T + D + H + KV + causal)
+    n_t = T // 64
+    w = rng.standard_normal((n_t, D))
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    q = rng.standard_normal((B * H, T, D))
+    k = rng.standard_normal((B * KV, T, D)) * np.linspace(0.5, 1.5, D)
+    v = rng.standard_normal((B * KV, T, D))
+    do = rng.standard_normal((B * H, T, D))
+    k[:, ::64] = a * w
+    target = np.arange(T) // 64 if causal else np.full(T, n_t - 1)
+    q += a * w[target]
+    q, k, v, do = (torch.tensor(x, dtype=torch.bfloat16, device=cuda_device)
+                   for x in (q, k, v, do))
+    o, lse = flash.flash_fwd(q, k, v, causal, H, KV)
+    delta = (do.float() * o.float()).sum(-1)
+    before = flash.LAUNCHES["flash_dq"]
+    dq = flash.flash_dq(q, k, v, do, lse, delta, causal, H, KV)
+    launched = flash.LAUNCHES["flash_dq"] - before
+    want = flash.flash_dq_reference(q, k, v, do, lse, delta, causal, H, KV)
+    torch.cuda.synchronize()
+    assert dq.shape == q.shape and dq.dtype == torch.bfloat16 and launched == 1
+    assert torch.isfinite(dq.float()).all()
+    assert _rel_err(dq, want) <= FLASH_GRAD_REL, _rel_err(dq, want)
+    # P at the planted key, from the forward kernel's lse: near 1 for most rows
+    kv_of = (torch.arange(B * H, device=cuda_device) // H) * KV + (
+        torch.arange(B * H, device=cuda_device) % H) // (H // KV)
+    planted = torch.as_tensor(target * 64, device=cuda_device)
+    s = (q.float() * k[kv_of][:, planted].float()).sum(-1) / D ** 0.5
+    assert torch.exp(s - lse).median().item() >= 0.8
 
 
 @pytest.mark.cuda
