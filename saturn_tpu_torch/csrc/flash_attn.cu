@@ -35,8 +35,8 @@
 //   before. The forward's and dQ's K and V tiles have rings of their own (a
 //   stage of each frees once its last product is done). There is no
 //   producer warp: it would hold a consumer's register count while it
-//   waits, and a block of 128 threads instead of 160 lets 4 forward blocks
-//   (3 dK/dV blocks at D 64) share an SM instead of 3 (2).
+//   waits, and a block of 128 threads instead of 160 lets 4 forward or dQ
+//   blocks (3 dK/dV blocks) share an SM at D 64 instead of 3 (2).
 // - One warpgroup per 64-row tile runs the products on wgmma m64n64k16
 //   (bf16 in, f32 accumulate): S = Q K^T (fwd, dQ), dP = dO V^T (dQ), S^T =
 //   K Q^T and dP^T = V dO^T (dK/dV) with both operands read K-major from
@@ -49,7 +49,11 @@
 //   P_{j-1} V_{j-1} together and runs the softmax of S_j while the second is
 //   in flight; each exponential is one FFMA and one ex2 (the scale folded into
 //   log2 units), row maxima and sums are trees, and a row's sum is reduced
-//   across its 4 threads once, at the end.
+//   across its 4 threads once, at the end. dQ keeps the plain chain (the
+//   score products, wait, dS, dQ += dS K, wait): its other resident blocks
+//   fill the waits, and the shortened chain would hold each K stage a step
+//   longer, which needs a third K stage (a block fewer per SM at D 128) and
+//   more live registers.
 // - Heavy tiles first: causal blocks are launched longest walk first (fwd
 //   and dQ: the last q tiles; dK/dV: the first kv tile), so the long blocks
 //   do not start last. The forward and dQ order their blocks in groups of
@@ -156,13 +160,14 @@ __device__ __forceinline__ void claim_stage(uint64_t* full, uint64_t* empty, int
   sm90::mbar_expect_tx(full, bytes);
 }
 
-// Kv tile j (rows 64 j.., matrix `mat`) into ring stage j % STAGES, as the
-// stage's round j / STAGES.
-template <int D>
-__device__ __forceinline__ void load_ring(bf16 (*ring)[TILE * D], uint64_t* full, uint64_t* empty,
-                                          const CUtensorMap* map, int j, int mat) {
-  const int st = j % STAGES;
-  claim_stage(&full[st], &empty[st], j / STAGES, TILE * D * 2);
+// Kv tile j (rows 64 j.., matrix `mat`) into stage j % N of a ring of N, as
+// the stage's round j / N.
+template <int D, int N>
+__device__ __forceinline__ void load_ring(bf16 (&ring)[N][TILE * D], uint64_t (&full)[N],
+                                          uint64_t (&empty)[N], const CUtensorMap* map, int j,
+                                          int mat) {
+  const int st = j % N;
+  claim_stage(&full[st], &empty[st], j / N, TILE * D * 2);
   load_tile_tma<D>(ring[st], map, &full[st], j * TILE, mat);
 }
 
@@ -431,9 +436,11 @@ __device__ __forceinline__ void ds_step(float (&sc)[32], const float (&dp)[32],
 // dP = dO V_j^T as one batch, then dQ += dS K_j with dS (rounded to bf16)
 // as the register operand and K_j read MN-major. While the score products of
 // step j run, thread 0 reloads the stages that step j - 1 used (freed by
-// every warp at that step's end) with step j - 1 + STAGES.
+// every warp at that step's end) with step j - 1 + STAGES. At D 64 the
+// registers are capped so that four blocks share an SM, as their shared
+// memory allows.
 template <int D>
-__global__ void __launch_bounds__(WG_THREADS)
+__global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 2)
 dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
           const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
           const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
