@@ -32,8 +32,8 @@
 //   of STAGES shared-memory stages completed on mbarriers; the warpgroup
 //   frees a stage through a second mbarrier, and its thread 0 then reloads
 //   it with the tile STAGES ahead, so loads run under the math of the tiles
-//   before. The forward's K and V tiles have rings of their own (a K stage
-//   frees a step before its V). There is no
+//   before. The forward's and dQ's K and V tiles have rings of their own (a
+//   stage of each frees once its last product is done). There is no
 //   producer warp: it would hold a consumer's register count while it
 //   waits, and a block of 128 threads instead of 160 lets 4 forward or dQ
 //   blocks (3 dK/dV blocks) share an SM at D 64 instead of 3 (2).
@@ -61,9 +61,8 @@
 //   at large B * H.
 // - Q (forward), Q and dO (dQ) or K and V (dK/dV) are loaded once per block;
 //   the dK/dV walk is over (group member x q tile), each stage bringing the Q
-//   and dO tiles and their lse and delta rows (bulk copies); each dQ stage
-//   brings a K and a V tile, and each thread reads its two lse and delta
-//   values once.
+//   and dO tiles and their lse and delta rows (bulk copies); dQ reads each
+//   thread's two lse and delta values once.
 //
 // Layout: q, o, do, dq are (B*H, T, D) and k, v, dk, dv are (B*KV, T, D),
 // bf16, row stride `*_st` and head stride `*_sh` in elements, rows and base
@@ -117,14 +116,15 @@ struct FwdSmem {
   uint64_t q_full, k_full[STAGES], k_empty[STAGES], v_full[STAGES], v_empty[STAGES];
 };
 
-// Shared memory of dq_kernel: Q and dO loaded once, a ring of K and V stages.
+// Shared memory of dq_kernel: Q and dO loaded once, K and V in rings of
+// their own (one ring of both made ptxas spill at D 64).
 template <int D>
 struct DqSmem {
   bf16 q[TILE * D];
   bf16 dout[TILE * D];
   bf16 k[STAGES][TILE * D];
   bf16 v[STAGES][TILE * D];
-  uint64_t qd_full, full[STAGES], empty[STAGES];
+  uint64_t qd_full, k_full[STAGES], k_empty[STAGES], v_full[STAGES], v_empty[STAGES];
 };
 
 template <int D>
@@ -414,17 +414,6 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
 }
 
 // ----------------------------------------------------------------------- dQ
-// Step j of a dQ walk into stage j % STAGES: the K and V tiles at row 64 j
-// of head bkv.
-template <int D>
-__device__ __forceinline__ void load_dq_step(DqSmem<D>& sm, const CUtensorMap* k_map,
-                                             const CUtensorMap* v_map, int j, int bkv) {
-  const int st = j % STAGES;
-  claim_stage(&sm.full[st], &sm.empty[st], j / STAGES, 2 * TILE * D * 2);
-  load_tile_tma<D>(sm.k[st], k_map, &sm.full[st], j * TILE, bkv);
-  load_tile_tma<D>(sm.v[st], v_map, &sm.full[st], j * TILE, bkv);
-}
-
 // dS = P o (dP - delta), in place of the raw scores sc (q rows r0 and r0 + 8
 // by kv columns), with P = exp(scale sc - lse) as one FFMA and one ex2 (lse2
 // = lse log2(e)); on a causal diagonal tile P is 0 above the diagonal.
@@ -445,8 +434,8 @@ __device__ __forceinline__ void ds_step(float (&sc)[32], const float (&dp)[32],
 // P = exp(scale q k^T - lse) and dP = do v^T. Step j: S = Q K_j^T and
 // dP = dO V_j^T as one batch, then dQ += dS K_j with dS (rounded to bf16)
 // as the register operand and K_j read MN-major. While the score products of
-// step j run, thread 0 reloads the stage that step j - 1 used (freed by
-// every warp at that step's end) with step j - 1 + STAGES. At D 64 the
+// step j run, thread 0 reloads the stages that step j - 1 used (freed by
+// every warp during that step) with step j - 1 + STAGES. At D 64 the
 // registers are capped so that four blocks share an SM, as their shared
 // memory allows.
 template <int D>
@@ -465,8 +454,10 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUt
   if (leader) {
     sm90::mbar_init(&sm.qd_full, 1);
     for (int st = 0; st < STAGES; ++st) {
-      sm90::mbar_init(&sm.full[st], 1);
-      sm90::mbar_init(&sm.empty[st], WG_THREADS);
+      sm90::mbar_init(&sm.k_full[st], 1);
+      sm90::mbar_init(&sm.v_full[st], 1);
+      sm90::mbar_init(&sm.k_empty[st], WG_THREADS);
+      sm90::mbar_init(&sm.v_empty[st], WG_THREADS);
     }
     sm90::fence_mbar_init();
   }
@@ -475,7 +466,10 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUt
     sm90::mbar_expect_tx(&sm.qd_full, 2 * TILE * D * 2);
     load_tile_tma<D>(sm.q, &q_map, &sm.qd_full, iq * TILE, bh);
     load_tile_tma<D>(sm.dout, &do_map, &sm.qd_full, iq * TILE, bh);
-    for (int j = 0; j < STAGES && j < n_kv; ++j) load_dq_step<D>(sm, &k_map, &v_map, j, bkv);
+    for (int j = 0; j < STAGES && j < n_kv; ++j) {
+      load_ring<D>(sm.k, sm.k_full, sm.k_empty, &k_map, j, bkv);
+      load_ring<D>(sm.v, sm.v_full, sm.v_empty, &v_map, j, bkv);
+    }
   }
   __syncwarp();
 
@@ -493,7 +487,8 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUt
 
   for (int jk = 0; jk < n_kv; ++jk) {
     const int s = jk % STAGES;
-    sm90::mbar_wait(&sm.full[s], (jk / STAGES) & 1);
+    sm90::mbar_wait(&sm.k_full[s], (jk / STAGES) & 1);
+    sm90::mbar_wait(&sm.v_full[s], (jk / STAGES) & 1);
     float sc[32], dp[32];
     zero(sc);
     zero(dp);
@@ -503,12 +498,15 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUt
     product_ss<D>(sc, sm.q, sm.k[s]);
     product_ss<D>(dp, sm.dout, sm.v[s]);
     sm90::wgmma_commit();
-    if (leader && jk >= 1 && jk - 1 + STAGES < n_kv)
-      load_dq_step<D>(sm, &k_map, &v_map, jk - 1 + STAGES, bkv);
+    if (leader && jk >= 1 && jk - 1 + STAGES < n_kv) {
+      load_ring<D>(sm.k, sm.k_full, sm.k_empty, &k_map, jk - 1 + STAGES, bkv);
+      load_ring<D>(sm.v, sm.v_full, sm.v_empty, &v_map, jk - 1 + STAGES, bkv);
+    }
     __syncwarp();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
     sm90::fence_regs(dp);
+    sm90::mbar_arrive(&sm.v_empty[s]);
 
     ds_step(sc, dp, lse2, del, scale_log2, causal && jk == iq, r0, t);
     uint32_t da[16];
@@ -522,7 +520,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUt
 #pragma unroll
     for (int cb = 0; cb < D / 64; ++cb) sm90::fence_regs(acc[cb]);
     sm90::fence_regs(da);
-    sm90::mbar_arrive(&sm.empty[s]);
+    sm90::mbar_arrive(&sm.k_empty[s]);
   }
 
   store_tile<D>(dq + bh * q_sh + (size_t)iq * TILE * q_st, q_st, acc, r0, t, scale, scale);
