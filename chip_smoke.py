@@ -34,20 +34,32 @@ Phases, in order; any failure is an exception and a non-zero exit:
 3. The port's main path at full width: a heterogeneous sweep of two
    GPT-2-small tasks (b8 x 512, differing only in lr, ``pretraining_loss``)
    and one BERT-base task (b8 x 512, ``mlm_loss``), synthetic data, through
-   ``register_default_library`` -> ``search(["dp"])`` -> ``orchestrate``;
-   every checkpoint must reach its ``batch_count`` with finite, falling
-   losses, and all six kernels must have run. The kernel launch counts of
-   this phase go into the kernels line.
+   ``register_default_library`` -> ``search(["dp"])`` -> ``orchestrate``
+   in intervals of INTERVAL_SHARE of the shortest task's profiled runtime,
+   so that each task runs several; every
+   checkpoint must reach its ``batch_count`` with finite, falling losses,
+   and all six kernels must have run. Trials time K-step windows (K =
+   ``max_window()``, 8) and the intervals run through them: each interval's
+   K, windows, tail, eager warm-up step and capture time are logged, and an
+   interval whose config did not change must not have restored the
+   checkpoint. The kernel launch counts of this phase go into the kernels
+   line.
 4. The kernels on the training path: dp ``execute`` of GPT-2-small for 10
    steps pinned to flash attention, from the same init and batches as a run
    pinned to dense and a flash run over the logits (a loss without the
-   fused-head tag); exactly 12 launches of each flash kernel and 1 of each
-   CE kernel per step where they apply, none elsewhere, and the three loss
-   trajectories agree within the bf16 band.
+   fused-head tag), each run twice: in windows of 8 (an eager step, the
+   capture, one window, a tail of one) and one step at a time. Exactly 12
+   launches of each flash kernel and 1 of each CE kernel per step where they
+   apply, none elsewhere, in both runs; the windowed losses equal the eager
+   ones within WINDOW_ATOL per step (the log says whether bitwise); the
+   three configs' trajectories agree within the bf16 band.
 5. Where a step's time goes, for the three pinned configs: synchronized
    per-step times, peak device memory, and a torch.profiler window (device
    busy share, each kernel's launches and device time inside the step, top
-   operators).
+   operators). For flash + fused also the steady-state per-batch time of 3
+   windows of 8 without a synchronize between them, beside the eager path's
+   over the same 24 steps, in turns; the device busy time and idle share
+   over the windows; the peak memory of the windows.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
@@ -62,6 +74,7 @@ their time scales with the work.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import re
@@ -88,6 +101,9 @@ CE_ROW_ATOL = 1e-4         # CE loss and lse (f32) against the plain version
 CE_GRAD_REL = 2e-3         # CE dx and dW against the plain version, by relative norm
                            # (readings on an H100: at most 3.5e-4; loss and lse 7.6e-6)
 STEPS_PINNED = 10
+WINDOW = 8                 # the window of phases 4 and 5 (DEFAULT_MAX_WINDOW)
+WINDOW_ATOL = 1e-5         # windowed against eager losses, absolute per step
+INTERVAL_SHARE = 0.55      # phase 3: interval over the shortest task's profiled runtime
 # The main path's shapes: GPT-2-small and BERT-base, b8 x 512.
 DEVICE = "cuda"
 GPT2, BERT = "gpt2-small", "bert-base"
@@ -633,6 +649,7 @@ def counts(flash, ce):
 
 
 def main_path(sat, flash, ce, card):
+    from saturn_tpu_torch.parallel import spmd_base
     from saturn_tpu_torch.solver import milp
     from saturn_tpu_torch.utils import checkpoint as ckpt
 
@@ -646,27 +663,53 @@ def main_path(sat, flash, ce, card):
     stats = sat.search(tasks, technique_names=["dp"], topology=topo)
     t_search = time.perf_counter() - t0
     tech = tasks[0].strategies[1].executor
+    k_trial = spmd_base.max_window()
     log(f"  library {names}; search profiled {stats['trials_run']} (task, size) points, "
-        f"{len(tech.trials)} configs, in {t_search:.1f}s:")
+        f"{len(tech.trials)} configs, in {t_search:.1f}s, each trial timing windows of "
+        f"K={k_trial}:")
     for task_name, size, config, spb, outcome in tech.trials:
         log(f"    trial {task_name} g={size} {config}: "
-            + (f"{spb:.6f} s/batch" if spb is not None else f"infeasible ({outcome})")
+            + (f"{spb:.6f} s/batch (K={k_trial} windows)" if spb is not None
+               else f"infeasible ({outcome})")
             + f"  [{card}]")
+    if k_trial != WINDOW:
+        raise AssertionError(f"trials timed windows of {k_trial}, want {WINDOW}")
     if any(spb is None for *_, spb, _ in tech.trials):
         raise AssertionError("a trial did not fit in device memory: see the lines above")
     won = {t.name: t.strategies[1].params for t in tasks}
     log(f"  chosen configs: {won}")
-    interval = 2.0
+    interval = INTERVAL_SHARE * min(t.strategies[1].runtime for t in tasks)
+    log(f"  interval {interval:.3f}s ({INTERVAL_SHARE} of the shortest profiled runtime)")
     plan = milp.resolve(tasks, topo, None, interval)
     for n, a in plan.assignments.items():
         log(f"  plan: {n} on block [{a.block.offset}:{a.block.end}] start {a.start:.3f}s "
             f"runtime {a.runtime:.3f}s (makespan {plan.makespan:.3f}s)")
+    dev = torch.device(DEVICE, 0)
+    torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     out = sat.orchestrate(tasks, interval=interval, topology=topo)
     t_orch = time.perf_counter() - t0
+    # live states, graphs and their pools of the tasks not yet finished
+    peak = {"allocated": torch.cuda.max_memory_allocated(dev),
+            "reserved": torch.cuda.max_memory_reserved(dev)}
     launches = counts(flash, ce)
-    log(f"  orchestrate: completed {out['completed']} in {t_orch:.1f}s; "
-        f"kernel launches over search + orchestrate {launches}")
+    log(f"  orchestrate: completed {out['completed']} in {t_orch:.1f}s; peak memory "
+        f"{peak['allocated'] / 2**30:.2f} GiB allocated, {peak['reserved'] / 2**30:.2f} GiB "
+        f"reserved; kernel launches over search + orchestrate {launches}")
+    unchanged = check_intervals(tech.intervals)
+    for r in tech.intervals:
+        log(f"    interval {r['task']} {r['config']}: {r['n']} batches, K={r['k']}, "
+            f"{r['windows']} windows, tail {r['tail']}"
+            + (f", eager warm-up step and capture {r['capture_s']:.3f}s" if r["warm"] else "")
+            + (", restored the checkpoint" if r["restored"] else ", no restore")
+            + (f", {r['per_batch_s'] * 1e3:.2f} ms/batch" if r["per_batch_s"] else "")
+            + f"; host s: state {r['state_s']:.3f}, units {r['run_s']:.3f}, checkpoint "
+            f"copy {r['save_s']:.3f}  [{card}]")
+    log(f"  {unchanged} intervals ran an unchanged config: none restored the checkpoint; "
+        f"{len(tech.intervals)} intervals, host s summed: state "
+        f"{sum(r['state_s'] for r in tech.intervals):.3f}, units "
+        f"{sum(r['run_s'] for r in tech.intervals):.3f}, checkpoint copy "
+        f"{sum(r['save_s'] for r in tech.intervals):.3f}")
     results = {}
     for t in tasks:
         saved = ckpt.load(t.ckpt_path)
@@ -687,9 +730,30 @@ def main_path(sat, flash, ce, card):
     for name in KERNEL_NAMES:
         if launches[name] == 0:
             raise AssertionError(f"{name} was never launched on the main path")
-    trials = [{"task": n, "config": c, "s_per_batch": s} for n, _, c, s, _ in tech.trials]
+    trials = [{"task": n, "config": c, "s_per_batch": s, "k": k_trial}
+              for n, _, c, s, _ in tech.trials]
     return launches, {"tasks": results, "trials": trials, "search_s": t_search,
-                      "orchestrate_s": t_orch}
+                      "orchestrate_s": t_orch, "orchestrate_peak_bytes": peak,
+                      "intervals": tech.intervals}
+
+
+def check_intervals(intervals) -> int:
+    """Raise unless the intervals ran through windows of WINDOW, and no
+    interval whose task ran the same config in its previous interval
+    restored the checkpoint; returns how many intervals kept their config."""
+    if not any(r["k"] == WINDOW and r["windows"] for r in intervals):
+        raise AssertionError(f"no interval ran windows of {WINDOW}: {intervals}")
+    last, unchanged = {}, 0
+    for r in intervals:
+        if last.get(r["task"]) == r["config"]:
+            unchanged += 1
+            if r["restored"]:
+                raise AssertionError(f"{r['task']} restored the checkpoint in an interval "
+                                     f"whose config {r['config']} did not change")
+        last[r["task"]] = r["config"]
+    if not unchanged:
+        raise AssertionError("no task ran two intervals: lower INTERVAL_SHARE")
+    return unchanged
 
 
 # ------------------------------------------------------------------ phase 4
@@ -706,46 +770,81 @@ PINNED = (("flash", "flash", None), ("dense", "dense", None),
           ("flash-logits", "flash", untagged_loss))
 
 
-def pinned_task(sat, label, attention, loss_fn):
-    task = lm_task(sat, f"pinned-{label}", 6e-4, STEPS_PINNED, os.path.join(CKPTS, label),
+def pinned_task(sat, label, attention, loss_fn, k=1):
+    """The pinned task of ``label``; its eager run (``k`` 1) keeps the
+    checkpoint that phase 5 reads."""
+    where = label if k == 1 else f"{label}-k{k}"
+    task = lm_task(sat, f"pinned-{where}", 6e-4, STEPS_PINNED, os.path.join(CKPTS, where),
                    loss_fn=loss_fn)
     config = {"attention": attention, "remat": False}
     return task, config
 
 
+def compare_windowed(label, windowed, eager) -> str:
+    """How the windowed losses hold against the eager ones: "bitwise", or
+    "within WINDOW_ATOL" with the largest difference; raise beyond it."""
+    w, e = np.asarray(windowed), np.asarray(eager)
+    if w.shape != e.shape:
+        raise AssertionError(f"{label}: {w.shape} windowed losses against {e.shape} eager")
+    if (w == e).all():
+        return "bitwise"
+    diff = np.abs(w - e).max()
+    if not diff <= WINDOW_ATOL:
+        raise AssertionError(f"{label}: windowed losses {w} vs eager {e}: max |diff| "
+                             f"{diff:.3e} above {WINDOW_ATOL:g}")
+    return f"within {WINDOW_ATOL:g} (max |diff| {diff:.3e})"
+
+
 def pinned_runs(sat, flash, ce, card):
     from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.utils import checkpoint as ckpt
 
     runs = {}
     for label, attention, loss_fn in PINNED:
-        task, config = pinned_task(sat, label, attention, loss_fn)
-        tech = DataParallel()
-        task.strategies[1] = sat.Strategy(tech, 1, config, 0.0)
-        task.select_strategy(1)
-        reset_counts(flash, ce)
-        tech.execute(task, [torch.device(DEVICE, 0)], 0, override_batch_count=STEPS_PINNED)
-        runs[label] = (task, counts(flash, ce))
-        log(f"  pinned {label}: {task.last_per_batch_s * 1e3:.2f} ms/step, "
-            f"{BATCH * SEQ / task.last_per_batch_s:.0f} tokens/s, launches {runs[label][1]}, "
-            f"losses {np.round(task.last_losses, 4).tolist()}  [{card}]")
+        for k in (WINDOW, 1):
+            task, config = pinned_task(sat, label, attention, loss_fn, k)
+            tech = DataParallel()
+            task.strategies[1] = sat.Strategy(tech, 1, config, 0.0)
+            task.select_strategy(1)
+            reset_counts(flash, ce)
+            tech.execute(task, [torch.device(DEVICE, 0)], 0,
+                         override_batch_count=STEPS_PINNED, window_size=k)
+            r = tech.intervals[-1]
+            runs[label, k] = (task, counts(flash, ce), r)
+            log(f"  pinned {label} K={k} ({r['windows']} windows, tail {r['tail']}"
+                + (", eager warm-up step" if r["warm"] else "") + "): "
+                f"{task.last_per_batch_s * 1e3:.2f} ms/step, "
+                f"{BATCH * SEQ / task.last_per_batch_s:.0f} tokens/s, launches "
+                f"{runs[label, k][1]}, losses {np.round(task.last_losses, 4).tolist()}  [{card}]")
     for label, attention, loss_fn in PINNED:
         # one launch of each flash kernel per layer per step, one of each CE
         # kernel per step on the fused path
         want = {n: (LAYERS * STEPS_PINNED if attention == "flash" else 0) for n in FLASH_NAMES}
         want.update({n: (0 if loss_fn else STEPS_PINNED) for n in CE_NAMES})
-        if runs[label][1] != want:
-            raise AssertionError(f"{label} run launched {runs[label][1]}, want {want}")
-    ref = np.asarray(runs["flash"][0].last_losses)
+        for k in (WINDOW, 1):
+            if runs[label, k][1] != want:
+                raise AssertionError(f"{label} K={k} run launched {runs[label, k][1]}, "
+                                     f"want {want}")
+        if not runs[label, WINDOW][2]["windows"]:
+            raise AssertionError(f"{label}: the K={WINDOW} run ran no window")
+        held = compare_windowed(label, runs[label, WINDOW][0].last_losses,
+                                runs[label, 1][0].last_losses)
+        log(f"  {label}: windowed losses against eager: {held}; exact launch counts in both")
+    for task, _, _ in runs.values():  # phase 5 measures one state at a time
+        task.release_live_state()
+        task.release_compiled()
+    ckpt.flush()
+    ref = np.asarray(runs["flash", 1][0].last_losses)
     for label in ("dense", "flash-logits"):
-        other = np.asarray(runs[label][0].last_losses)
+        other = np.asarray(runs[label, 1][0].last_losses)
         if not np.allclose(other, ref, rtol=BF16_BAND, atol=BF16_BAND):
             raise AssertionError(f"{label} losses {other} vs flash {ref} outside the bf16 band")
         log(f"  flash vs {label} loss trajectories: max |diff| "
             f"{np.abs(other - ref).max():.4e} (band 2e-2)")
-    return {x: {"ms_per_step": runs[x][0].last_per_batch_s * 1e3,
-                "tokens_per_s": BATCH * SEQ / runs[x][0].last_per_batch_s,
-                "losses": runs[x][0].last_losses, "launches": runs[x][1]}
-            for x in runs}
+    return {f"{x}-k{k}": {"ms_per_step": t.last_per_batch_s * 1e3,
+                          "tokens_per_s": BATCH * SEQ / t.last_per_batch_s,
+                          "losses": t.last_losses, "launches": c, "interval": r}
+            for (x, k), (t, c, r) in runs.items()}
 
 
 # ------------------------------------------------------------------ phase 5
@@ -810,6 +909,96 @@ def profile_steps(sat, card, n_sync=8, n_prof=4):
                         for n, k in kernels.items() if want[n]) + f"  [{card}]")
         del state, bundle
         torch.cuda.empty_cache()
+    return out
+
+
+def profile_windows(sat, card, k=WINDOW, n_windows=3, rounds=2):
+    """The flash + fused config in windows of ``k``: the steady-state
+    per-batch time of ``n_windows`` windows without a synchronize between
+    them, beside the eager path's over the same ``n_windows * k`` steps, in
+    turns (windows, steps, windows, steps, ...); the device busy time and
+    idle share over the windows (torch.profiler) and the peak memory of the
+    windows, allocated and reserved (the graph's pool is reserved)."""
+    from saturn_tpu_torch.data.prefetch import stage_tokens
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    dev = torch.device(DEVICE, 0)
+    label, attention, loss_fn = PINNED[0]
+    task, config = pinned_task(sat, label, attention, loss_fn)
+    bundle = DataParallel().build(task, [dev], config)
+    state = ckpt.restore(task.ckpt_path, bundle.empty())
+    n = n_windows * k
+    batches = [task.batch_at(i) for i in range(n)]
+    windows = [stage_tokens(np.stack(batches[w * k:(w + 1) * k]), dev).take()
+               for w in range(n_windows)]
+    steps = [bundle.stage(b) for b in batches]
+    window = bundle.fused(k)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, _ = bundle.warm_step(state, steps[0])
+    t0 = time.perf_counter()
+    state, _ = window(state, windows[0])  # the capture, then a replay
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+
+    def run_windows():
+        for w in windows:
+            window(state, w)
+
+    def run_steps():
+        for b in steps:
+            bundle.step(state, b)
+
+    run_windows()
+    torch.cuda.synchronize()
+    peak = {"allocated": torch.cuda.max_memory_allocated(dev),
+            "reserved": torch.cuda.max_memory_reserved(dev)}
+    times = {"windowed": [], "eager": []}
+    for _ in range(rounds):
+        for name, fn in (("windowed", run_windows), ("eager", run_steps)):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3 / n)
+    _, events = profiled(run_windows, 1)
+    busy = busy_ms(events) / n
+    kernels = step_kernels(events, n)
+    windowed_ms = float(np.median(times["windowed"]))
+    # the eager step's device time with the capturable optimizer and with the
+    # same optimizer not capturable (step counts on the host), in turns
+    opt = state["opt_state"]
+    accepted = inspect.signature(type(opt).__init__).parameters
+    plain = type(opt)(state["params"].parameters(),
+                      **{k: v for k, v in opt.defaults.items()
+                         if k in accepted and k != "capturable"},
+                      capturable=False) if "capturable" in opt.defaults else opt
+    plain.load_state_dict(opt.state_dict())
+    eager_busy = {"capturable": [], "plain": []}
+    for _ in range(rounds):
+        for name, o in (("capturable", opt), ("plain", plain)):
+            state["opt_state"] = o
+            eager_busy[name].append(busy_ms(profiled(lambda: bundle.step(state, steps[0]), 4)[1]) / 4)
+    state["opt_state"] = opt
+    out = {"k": k, "windows": n_windows, "capture_s": capture_s, "ms_per_batch": times,
+           "device_busy_ms": busy, "idle_share": 1 - busy / windowed_ms,
+           "readbacks_per_step": sum("DtoH" in e for e, _, _ in events) / n,
+           "kernels": kernels, "peak_bytes": peak, "eager_device_busy_ms": eager_busy}
+    log(f"  {label} in windows of {k}: capture {capture_s:.3f}s; per batch without a "
+        f"synchronize between steps, {n} steps, in turns: windowed "
+        f"{np.round(times['windowed'], 3).tolist()} ms, eager "
+        f"{np.round(times['eager'], 3).tolist()} ms; device busy {busy:.2f} ms/step, idle "
+        f"share {out['idle_share']:.3f} of the windowed batch; "
+        f"{out['readbacks_per_step']:g} device-to-host copies per step; peak memory "
+        f"{peak['allocated'] / 2**30:.2f} GiB allocated, {peak['reserved'] / 2**30:.2f} GiB "
+        f"reserved; launches per step seen by the profiler "
+        + ", ".join(f"{name} {kk['launches_per_step']:g}" for name, kk in kernels.items())
+        + f"; eager device busy per step, in turns: capturable {type(opt).__name__} "
+        f"{np.round(eager_busy['capturable'], 3).tolist()} ms, not capturable "
+        f"{np.round(eager_busy['plain'], 3).tolist()} ms  [{card}]")
+    bundle.release_windows()
+    del state, bundle, windows, steps
+    torch.cuda.empty_cache()
     return out
 
 
@@ -884,6 +1073,7 @@ def main(argv) -> int:
 
     log("phase 5: where a step's time goes (pinned configs)")
     step_profile = profile_steps(sat, card)
+    step_profile["flash-windows"] = profile_windows(sat, card)
     shutil.rmtree(CKPTS, ignore_errors=True)
 
     kernels = [

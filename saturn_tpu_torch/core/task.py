@@ -4,9 +4,10 @@ Counterpart of ``saturn_tpu/core/task.py``. A Task bundles lazy model and
 dataset factories, a loss, hyperparameters, and the profiled ``strategies``
 table the solver consumes. The data cursor has O(1) random access
 (``Dataset.batch(i)``); checkpoints are the full train state written by the
-executing technique (``utils/checkpoint.py``). The JAX package's quarantine
-skip-list and live device state belong to its health guardian and fused
-dispatch, which are later items here.
+executing technique (``utils/checkpoint.py``). ``_live_state`` keeps the
+train state on the device between intervals that run the same bundle. The
+JAX package's quarantine skip-list belongs to its health guardian, a later
+item here.
 """
 
 from __future__ import annotations
@@ -49,18 +50,32 @@ class HParams:
         """A torch optimizer with optax's math for the named optimizers:
         ``adamw`` is ``optax.adamw(lr)`` (b1 0.9, b2 0.999, eps 1e-8, weight
         decay 1e-4 on every parameter — torch's own AdamW default is 0.01),
-        ``adam`` is ``optax.adam(lr)``, ``sgd`` is ``optax.sgd(lr)``."""
+        ``adam`` is ``optax.adam(lr)``, ``sgd`` is ``optax.sgd(lr)``.
+
+        On the card AdamW and Adam are built ``capturable``: their step
+        counts live on the card, so a step reads nothing back to the host
+        and a CUDA graph can capture it (``parallel/spmd_base.py``); the
+        math is the same. SGD keeps no step count and takes no such flag.
+        A callable's optimizer is the user's to make."""
         import torch
 
         if callable(self.optimizer):
             return self.optimizer(params, self.lr)
+        params = list(params)
+        on_card = bool(params) and params[0].is_cuda
+        if self.optimizer == "sgd":
+            return torch.optim.SGD(params, lr=self.lr)
         if self.optimizer == "adamw":
-            return torch.optim.AdamW(params, lr=self.lr, betas=(0.9, 0.999),
-                                     eps=1e-8, weight_decay=1e-4)
-        if self.optimizer == "adam":
-            return torch.optim.Adam(params, lr=self.lr, betas=(0.9, 0.999),
-                                    eps=1e-8)
-        return torch.optim.SGD(params, lr=self.lr)
+            opt = torch.optim.AdamW(params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
+                                    weight_decay=1e-4, capturable=on_card)
+        else:
+            opt = torch.optim.Adam(params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
+                                   capturable=on_card)
+        # torch warns once per instance when a capturable optimizer steps
+        # outside a capture; here the eager steps (a window's warm-up, the
+        # tail) use it so on purpose
+        opt._warned_capturable_if_run_uncaptured = True
+        return opt
 
 
 class Task:
@@ -97,6 +112,10 @@ class Task:
         self.current_batch = 0  # data cursor, persists across intervals
         self.strategies: Dict[int, Strategy] = {}
         self.selected_strategy: Optional[Strategy] = None
+        # Device train state from the most recent interval, keyed by the
+        # executing bundle (task, config, devices): consecutive intervals
+        # under an unchanged assignment skip the checkpoint read.
+        self._live_state: Optional[tuple] = None
         # (strategy, realized per-batch seconds) noted by the executor and
         # folded in by the orchestrator between intervals
         self._pending_realized: Optional[tuple] = None
@@ -104,6 +123,24 @@ class Task:
         # per-step losses (host floats) and steady-state seconds per batch
         self.last_losses: List[float] = []
         self.last_per_batch_s: Optional[float] = None
+
+    def release_live_state(self) -> None:
+        """Drop the cached device train state (frees device memory). Safe on
+        a task that will run again: its next interval restores from the
+        checkpoint."""
+        self._live_state = None
+
+    def release_compiled(self) -> None:
+        """Release this task's bundles, CUDA graphs and graph memory pools in
+        every technique that profiled it. Only for tasks that will not run
+        again: a later interval would build and capture them anew."""
+        seen = set()
+        for strat in self.strategies.values():
+            ex = getattr(strat, "executor", None)
+            release = getattr(ex, "release_task", None)
+            if release is not None and id(ex) not in seen:
+                seen.add(id(ex))
+                release(self.name)
 
     # ------------------------------------------------------------------ model
     def get_model(self, **overrides):
@@ -137,10 +174,13 @@ class Task:
         return os.path.join(self.save_dir, f"{self.name}.pt")
 
     def has_ckpt(self) -> bool:
-        return os.path.exists(self.ckpt_path)
+        """Whether the checkpoint exists, once its in-flight write is done."""
+        from saturn_tpu_torch.utils import checkpoint as ckpt
+
+        return ckpt.exists(self.ckpt_path)
 
     def clear_ckpt(self) -> None:
-        if os.path.exists(self.ckpt_path):
+        if self.has_ckpt():
             os.unlink(self.ckpt_path)
 
     # -------------------------------------------------------------- schedule

@@ -4,7 +4,9 @@ Counterpart of ``saturn_tpu/executor/orchestrator.py``. Each round:
 forecast the interval from the plan, run it (``engine.execute``, which also
 advances each task's data cursor), fold each task's realized per-batch time
 into its strategies, and re-solve, adopting the fresh plan only past
-``threshold`` (``milp.resolve``); until no batches remain.
+``threshold`` (``milp.resolve``); until no batches remain. A task that
+completes gives back its live train state, bundles and CUDA graphs, and the
+run ends once every checkpoint write has reached the disk.
 
 The JAX package runs a training-health guardian by default and offers fault
 injection, elastic recovery, a durable journal, metrics and traces; here
@@ -19,6 +21,7 @@ from typing import List, Optional
 from saturn_tpu_torch.core.mesh import SliceTopology
 from saturn_tpu_torch.executor import engine
 from saturn_tpu_torch.solver import milp
+from saturn_tpu_torch.utils import checkpoint as ckpt
 
 logger = logging.getLogger("saturn_tpu_torch")
 
@@ -101,11 +104,15 @@ def orchestrate(
             if upd is not None and abs(upd[1] - upd[0]) > 0.25 * max(upd[0], 1e-9):
                 logger.info("estimate correction for %s: %.4fs -> %.4fs per batch",
                             t.name, upd[0], upd[1])
+        for t in completed:
+            t.release_live_state()
+            t.release_compiled()
         completed_names += [t.name for t in completed]
         task_list = [t for t in task_list if t not in completed]
         if task_list:
             plan = milp.resolve(task_list, topo, plan, interval, threshold,
                                 time_limit=tlimit)
             logger.info("re-solve: makespan %.1fs", plan.makespan)
+    ckpt.flush()
     logger.info("orchestration complete (%d completed)", len(completed_names))
     return {"completed": completed_names, "failed": {}}

@@ -357,7 +357,9 @@ class GPT2(nn.Module):
             if cfg.remat and torch.is_grad_enabled():
                 from torch.utils.checkpoint import checkpoint
 
-                x = checkpoint(blk, x, use_reentrant=False)
+                # the blocks draw no random numbers, so the RNG state needs
+                # no saving (reading it is illegal inside a CUDA graph capture)
+                x = checkpoint(blk, x, use_reentrant=False, preserve_rng_state=False)
             else:
                 x = blk(x)
         return self.ln_f(x)

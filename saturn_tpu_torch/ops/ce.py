@@ -24,8 +24,9 @@ autograd Function gives their rows a zero cotangent, hence zero gradient.
 Each wrapper runs its kernel on a CUDA tensor (or raises on what the kernel
 does not take) and its plain PyTorch version on a CPU tensor; there is no
 fallback from one to the other. Each counts its kernel launches in
-``LAUNCHES`` (the forward's combine pass and dx's split-K reduction are part
-of their wrapper's one launch). The plain versions round the stash to bf16
+``LAUNCHES``, a launch captured into a CUDA graph at each replay
+(``ops/launches.py``); the forward's combine pass and dx's split-K
+reduction are part of their wrapper's one launch. The plain versions round the stash to bf16
 exactly where the kernel does, so they hold against the Pallas kernels in
 interpret mode.
 """
@@ -33,9 +34,12 @@ interpret mode.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Any, Optional
 
 import torch
+
+from saturn_tpu_torch.ops import launches
 
 #: The one ``block_n`` / ``block_v`` that ``fused_linear_cross_entropy`` takes
 #: on CUDA: the kernels choose their own tiles.
@@ -46,6 +50,8 @@ KERNEL_D_MULTIPLE = 64
 # Auto stash threshold (the JAX package's): keep the bf16 logits stash while
 # it stays under 512 MiB, else recompute the score tiles in the backward.
 STASH_BYTES_MAX = 512 * 1024 * 1024
+#: From this vocab up, the JAX package tiles the vocab at 512 columns.
+JAX_WIDE_VOCAB = 2048
 
 #: Kernel launches per wrapper since the last ``reset_launch_counts``.
 LAUNCHES = {"ce_fwd": 0, "ce_dx": 0, "ce_dw": 0}
@@ -80,10 +86,11 @@ def _kernel(name: str):
 
 
 def _launch(name: str, *args) -> None:
+    """Launch through the ctypes binding; the last argument is the stream."""
     rc = _kernel(name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    launches.count(LAUNCHES, name, args[-1])
 
 
 def _scratch(name: str, device, *shape) -> torch.Tensor:
@@ -251,6 +258,35 @@ class _FusedCE(torch.autograd.Function):
 
 
 # ------------------------------------------------------------------- public
+def _auto_bv_dw(d_model: int) -> int:
+    """The JAX package's dW vocab block: a (bv_dw, D) f32 accumulator of at
+    most 4 MiB, rounded down to a power of two of at least 128."""
+    cap = min(1024, (1 << 20) // max(d_model, 1024))
+    return max(128, 1 << (cap.bit_length() - 1))
+
+
+def padded_vocab(V: int, D: int, block_v: Optional[int] = None) -> int:
+    """The vocab the JAX package pads W to (JAX ``ce.py:454-492``): to
+    ``block_v`` when given, else from ``JAX_WIDE_VOCAB`` up to a common
+    multiple of its two vocab blocks (512 and ``_auto_bv_dw(D)``), else to a
+    multiple of 128. Only the auto stash decision reads it: the kernels take
+    V as it is."""
+    if block_v is not None:
+        mult = int(block_v)
+    elif V >= JAX_WIDE_VOCAB:
+        mult = math.lcm(512, _auto_bv_dw(D))
+    else:
+        mult = 128
+    return -(-V // mult) * mult
+
+
+def auto_stash(N: int, V: int, D: int, block_v: Optional[int] = None) -> bool:
+    """``stash=None``'s decision: stash while the bf16 logits of the padded
+    vocab, ``N * padded_vocab * 2`` bytes, stay under ``STASH_BYTES_MAX``
+    (so both packages stash, or recompute, at the same N)."""
+    return N * padded_vocab(V, D, block_v) * 2 <= STASH_BYTES_MAX
+
+
 def dense_linear_cross_entropy(x, w, labels, *, ignore_index: int = -1) -> torch.Tensor:
     """Unfused reference: the same objective through plain PyTorch ops
     (f32 logits from the storage dtype), differentiable by autograd."""
@@ -305,8 +341,8 @@ def fused_linear_cross_entropy(
     both parts across shards before dividing.
 
     ``stash``: True keeps a bf16 logits stash for the backward, False
-    recomputes the score tiles there (no O(N·V) memory), None stashes while
-    the stash (N·V·2 bytes) stays under ``STASH_BYTES_MAX``.
+    recomputes the score tiles there (no O(N·V) memory), None decides as
+    the JAX package does (:func:`auto_stash`).
 
     The CUDA kernels choose their own tiles (the forward 128 tokens x 256
     vocab columns, the backward 128 x 256 or 128 x 128 output tiles): on a
@@ -329,7 +365,7 @@ def fused_linear_cross_entropy(
     lab = labels.reshape(-1).to(torch.int32).contiguous()
     N, V = x2.shape[0], w.shape[0]
     if stash is None:
-        stash = N * V * 2 <= STASH_BYTES_MAX
+        stash = auto_stash(N, V, D, block_v)
     per_tok = _FusedCE.apply(x2, w.float(), lab, bool(stash))
     valid = lab != ignore_index
     total = torch.where(valid, per_tok, 0.0).sum()

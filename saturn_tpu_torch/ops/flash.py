@@ -12,7 +12,8 @@ what it computes, in the same (B*H, T, D) layout with lse and delta in f32:
 Each wrapper runs its kernel on a CUDA tensor (or raises on what the kernel
 does not take) and its plain PyTorch version on a CPU tensor; there is no
 fallback from one to the other. Each counts its kernel launches in
-``LAUNCHES``. The kernels tile at 64 x 64 and take bf16 with head dim 64 or
+``LAUNCHES`` (a launch captured into a CUDA graph counts at each replay,
+``ops/launches.py``). The kernels tile at 64 x 64 and take bf16 with head dim 64 or
 128 (every GPT-2 and Llama preset). All three load their tiles with TMA
 into rings of shared-memory stages and multiply on wgmma (helpers in
 ``csrc/sm90.cuh``); the note at the top of the CUDA source says what bounds
@@ -26,6 +27,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+from saturn_tpu_torch.ops import launches
 
 NEG_INF = -1e30
 #: q rows and kv rows per CUDA tile (``TILE`` in ``csrc/flash_attn.cu``).
@@ -89,10 +92,11 @@ def _row_stats(lse: torch.Tensor, delta: torch.Tensor):
 
 
 def _launch(name: str, *args) -> None:
+    """Launch through the ctypes binding; the last argument is the stream."""
     rc = _kernel(name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    launches.count(LAUNCHES, name, args[-1])
 
 
 def _strides(q: torch.Tensor, k: torch.Tensor):

@@ -4,27 +4,40 @@ Counterpart of ``saturn_tpu/parallel/spmd_base.py``: the loss/grad/optimizer
 scaffold around a model's forward pass (with the same routing to a model's
 fused head+loss), the ``{params, opt_state, step}`` train state, the
 autotune grid crossed with the attention variants, ``search`` (keep the
-fastest config whose measured peak memory fits) and ``execute`` (resume from
-the checkpoint, run n steps, write the checkpoint, report the realized
+fastest config whose measured peak memory fits) and ``execute`` (one
+interval: resume, run n steps, write the checkpoint, report the realized
 per-batch time).
 
-This slice runs one device per task and dispatches one step at a time. The
-JAX package's fused K-step window, batch prefetcher, live-state caching and
-multi-device meshes are later items. The train step updates the model and
-the optimizer in place (PyTorch's idiom; it keeps one copy of the state).
+``execute`` runs an interval as the JAX package's ``interval_dispatches``
+does, on one device: ``n // K`` K-step windows plus an ``n % K`` tail of
+single steps, batches staged one unit ahead on a prefetch thread
+(``data/prefetch.py``), one loss readback per interval, the train state kept
+on the device for the next interval (``task._live_state``) and the
+checkpoint written in the background (``checkpoint.save_async``). A K-step
+window is the counterpart of the JAX package's ``lax.scan`` program: on the
+card a CUDA graph of K train steps, captured once per (bundle, K) and
+replayed with one host call; on the CPU the plain version, K eager steps.
+Trials time the window that ``execute`` dispatches. The co-scheduled
+``shared`` mode and multi-device meshes are later items. The train step
+updates the model and the optimizer in place (PyTorch's idiom; it keeps one
+copy of the state).
 """
 
 from __future__ import annotations
 
 import logging
+import os
+import threading
 import timeit
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from saturn_tpu_torch.core.technique import BaseTechnique
+from saturn_tpu_torch.data.prefetch import DevicePrefetcher, Staged, stage_tokens
+from saturn_tpu_torch.ops import launches
 from saturn_tpu_torch.utils import checkpoint as ckpt
 from saturn_tpu_torch.utils import timing
 
@@ -33,19 +46,244 @@ log = logging.getLogger("saturn_tpu_torch")
 #: Fraction of device memory a trial's measured peak may use.
 MEMORY_HEADROOM = 0.92
 
+# ------------------------------------------------------------ window policy
+#: Default ceiling on the window K. K trades the per-step host dispatch and
+#: loss readback against staged-batch memory ((K, B, T) tokens at once) and
+#: progress granularity (a window is all-or-nothing).
+DEFAULT_MAX_WINDOW = 8
+
+_ENV_MAX_WINDOW = "SATURN_TPU_MAX_WINDOW"
+
+
+def max_window() -> int:
+    """Ceiling on the window K (env ``SATURN_TPU_MAX_WINDOW``, the JAX
+    package's variable). ``<= 1`` runs every interval one step at a time."""
+    try:
+        k = int(os.environ.get(_ENV_MAX_WINDOW, DEFAULT_MAX_WINDOW))
+    except ValueError:
+        return DEFAULT_MAX_WINDOW
+    return max(1, k)
+
+
+def choose_window(n_batches: int, cap: Optional[int] = None) -> int:
+    """Window size K for an interval budget of ``n_batches``: the largest
+    window under the cap that the budget fills at least once; 1 when the
+    interval is too short or windows are off."""
+    cap = max_window() if cap is None else int(cap)
+    n = int(n_batches)
+    if cap <= 1 or n < 2:
+        return 1
+    return min(cap, n)
+
+
+def dispatch_signature() -> str:
+    """Signature of the dispatch mode, for a profile cache key: per-step and
+    windowed trials time different programs."""
+    k = max_window()
+    return f"fused-scan-v1:k{k}" if k > 1 else "per-step"
+
+
+#: A unit of an interval's plan: (kind, batch offset, batches). ``warm`` is
+#: an eager step run before the interval's first capture, ``window`` a
+#: K-step window, ``step`` an eager step of the tail.
+Unit = Tuple[str, int, int]
+
+
+def unit_plan(n: int, k: int, warm: bool) -> List[Unit]:
+    """The interval's units: ``n // K`` windows and an ``n % K`` tail of
+    single steps. With ``warm`` (the window is not captured on this state
+    yet) the first unit is an eager step, then ``(n - 1) // K`` windows and
+    a ``(n - 1) % K`` tail; where fewer than K batches follow that step the
+    interval captures nothing and runs every batch as a single step. Every
+    batch runs once, in order."""
+    if k <= 1 or (warm and n - 1 < k):
+        return [("step", j, 1) for j in range(n)]
+    lead = 1 if warm else 0
+    n_windows = (n - lead) // k
+    units: List[Unit] = [("warm", 0, 1)] if lead else []
+    units += [("window", lead + w * k, k) for w in range(n_windows)]
+    units += [("step", j, 1) for j in range(lead + n_windows * k, n)]
+    return units
+
+
+# ----------------------------------------------------------------- windows
+_CAPTURE_STREAMS: Dict[int, Any] = {}
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _capture_stream(device: torch.device):
+    """The stream every window of a card is captured on, and its warm-up
+    step runs on (so the libraries' per-stream state, such as cuBLAS's
+    workspace, exists before a capture)."""
+    with _CAPTURE_LOCK:
+        s = _CAPTURE_STREAMS.get(device.index)
+        if s is None:
+            s = _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
+        return s
+
+
+def _state_key(state: Dict[str, Any]) -> Tuple[int, ...]:
+    """The addresses a captured step reads and writes: parameters, buffers
+    and optimizer state. ``Optimizer.load_state_dict`` changes them."""
+    model, opt = state["params"], state["opt_state"]
+    ptrs = [id(model), id(opt)]
+    ptrs += [t.data_ptr() for t in model.parameters()]
+    ptrs += [t.data_ptr() for t in model.buffers()]
+    for per_param in opt.state.values():
+        ptrs += [v.data_ptr() for v in per_param.values() if isinstance(v, torch.Tensor)]
+    return tuple(ptrs)
+
+
+class _PlainWindow:
+    """A window's plain version, for a state on the CPU: K eager steps."""
+
+    def __init__(self, step: Callable, k: int):
+        self.step, self.k = step, k
+
+    def __call__(self, state, window: torch.Tensor):
+        losses = []
+        for j in range(self.k):
+            state, loss = self.step(state, window[j])
+            losses.append(loss.reshape(()))
+        return state, torch.stack(losses).float()
+
+    def release(self) -> None:
+        pass
+
+
+class _GraphWindow:
+    """K train steps (forward, backward, optimizer step, zero-grad) captured
+    as one CUDA graph, replayed with one host call.
+
+    Step j reads slice j of a static (K, B, T) buffer and writes its loss
+    to slot j of a static (K,) buffer. Before each replay the staged window
+    is copied into the static buffer on the current stream, after the
+    previous replay has read it (a device copy of K·B·T int64). The graph is
+    keyed to the addresses of the state it captured (``_state_key``): on
+    any other state, or after a restore into this one, it is captured anew.
+    Capture runs nothing, so the state's Python step count is put back
+    after it; each replay advances it by K and adds the launches the
+    kernel wrappers recorded during capture to their counts. A capture
+    needs an eager step of the same state first (the optimizer makes its
+    moments at its first step; capture may not allocate them lazily)."""
+
+    def __init__(self, step: Callable, k: int, device: torch.device, pool):
+        self.step, self.k, self.device, self.pool = step, k, device, pool
+        self.graph = None
+        self.key: Optional[Tuple[int, ...]] = None
+        self.static: Optional[torch.Tensor] = None
+        self.losses: Optional[torch.Tensor] = None
+        self.recorded: list = []
+
+    def captured_on(self, state) -> bool:
+        return self.graph is not None and self.key == _state_key(state)
+
+    def capture(self, state, shape) -> None:
+        """Capture the K steps on ``state`` for windows of ``shape``."""
+        self.release()
+        self.static = torch.zeros(tuple(shape), dtype=torch.long, device=self.device)
+        self.losses = torch.zeros(self.k, dtype=torch.float32, device=self.device)
+        graph = torch.cuda.CUDAGraph()
+        stream = _capture_stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        step0 = state["step"]
+        try:
+            # thread_local: the prefetch thread may pin host memory and the
+            # other tasks' threads may allocate while this thread captures
+            with launches.recording(stream.cuda_stream) as recorded:
+                with torch.cuda.graph(graph, pool=self.pool, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    for j in range(self.k):
+                        _, loss = self.step(state, self.static[j])
+                        self.losses[j].copy_(loss.reshape(()))
+        finally:
+            state["step"] = step0
+        self.graph, self.recorded, self.key = graph, recorded, _state_key(state)
+
+    def __call__(self, state, window: torch.Tensor):
+        if not self.captured_on(state):
+            self.capture(state, window.shape)
+        self.static.copy_(window)
+        self.graph.replay()
+        launches.replay(self.recorded)
+        state["step"] += self.k
+        return state, self.losses.clone()
+
+    def release(self) -> None:
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.key = self.static = self.losses = None
+        self.recorded = []
+
 
 @dataclass
 class _Bundle:
-    """Everything needed to run one (task, device, config) combination."""
+    """Everything needed to run one (task, device, config) combination,
+    built once per ``_bundle_key`` and kept until ``release_task``."""
 
     device: torch.device
     init: Callable[[], Dict[str, Any]]          # fresh state, seeded init
     empty: Callable[[], Dict[str, Any]]         # state to restore into
     step: Callable[[Dict[str, Any], torch.Tensor], Tuple[Dict[str, Any], torch.Tensor]]
+    _windows: Dict[int, Any] = field(default_factory=dict)
+    _pool: Any = None
+    _lock: Any = field(default_factory=threading.Lock)
 
     def stage(self, host_batch) -> torch.Tensor:
-        """A host (B, T) int batch on the device as int64 token ids."""
-        return torch.from_numpy(np.asarray(host_batch)).to(self.device, torch.long)
+        """A host (B, T) int batch on the device as int64 token ids, ready
+        on the current stream."""
+        return stage_tokens(host_batch, self.device).take()
+
+    def warm_step(self, state, batch: torch.Tensor):
+        """One eager train step before a capture: on the card it runs on the
+        capture stream, ordered after and before the current stream's work."""
+        if self.device.type != "cuda":
+            return self.step(state, batch)
+        stream = _capture_stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            batch.record_stream(stream)
+            state, loss = self.step(state, batch)
+        current.wait_stream(stream)
+        loss.record_stream(current)
+        return state, loss
+
+    def fused(self, k: int):
+        """The K-step window program ``(state, window) -> (state, losses)``,
+        made once per K: a CUDA graph on the card, K eager steps on the CPU
+        (a rule by device type). The windows of a bundle share one graph
+        memory pool: each is replayed alone and keeps no tensor in the pool
+        between replays."""
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"a window needs k >= 1, got {k}")
+        with self._lock:
+            win = self._windows.get(k)
+            if win is None:
+                if self.device.type == "cuda":
+                    if self._pool is None:
+                        self._pool = torch.cuda.graph_pool_handle()
+                    win = _GraphWindow(self.step, k, self.device, self._pool)
+                else:
+                    win = _PlainWindow(self.step, k)
+                self._windows[k] = win
+            return win
+
+    def has_window(self, k: int, state) -> bool:
+        """Whether the K-step window runs ``state`` without a capture."""
+        if self.device.type != "cuda":
+            return True
+        with self._lock:
+            win = self._windows.get(int(k))
+        return win is not None and win.captured_on(state)
+
+    def release_windows(self) -> None:
+        """Free every window's graph and the graph memory pool."""
+        with self._lock:
+            wins, self._windows, self._pool = list(self._windows.values()), {}, None
+        for win in wins:
+            win.release()
 
 
 class SPMDTechnique(BaseTechnique):
@@ -56,11 +294,21 @@ class SPMDTechnique(BaseTechnique):
     # Whether standard-loss tasks may route through the model's fused
     # head+loss (``ModelSpec.fused_loss_fn``).
     fused_loss_ok = True
+    # Whether this technique may run K-step windows at all.
+    fused_dispatch_ok = True
+    # The engine passes ``window_size`` to ``execute``.
+    supports_windows = True
 
     def __init__(self) -> None:
         # Every trial this instance ran: (task, size, config, seconds per
         # batch or None, outcome), for reports of the sweep (chip_smoke.py).
         self.trials: List[Tuple[str, int, Dict[str, Any], Optional[float], str]] = []
+        # Every interval this instance ran: its plan, whether it restored
+        # the checkpoint, and its realized time (chip_smoke.py).
+        self.intervals: List[Dict[str, Any]] = []
+        self._bundles: Dict[Any, _Bundle] = {}
+        self._bundles_lock = threading.Lock()
+        self._eager_noted: set = set()
 
     # ----------------------------------------------------------------- hooks
     def candidate_configs(self, task: Any, n_devices: int) -> List[Dict[str, Any]]:
@@ -116,7 +364,8 @@ class SPMDTechnique(BaseTechnique):
         ``init_state()`` draws the weights from a ``torch.Generator`` seeded
         0 (the JAX package inits from ``PRNGKey(0)``);
         ``init_state(materialize=False)`` allocates them uninitialised, for a
-        checkpoint to fill."""
+        checkpoint to fill. The step reads nothing back to the host, so a
+        CUDA graph can capture it."""
 
         def init_state(materialize: bool = True) -> Dict[str, Any]:
             if materialize:
@@ -166,23 +415,69 @@ class SPMDTechnique(BaseTechnique):
             out.append(dict(c, attention="dense"))
         return out
 
+    def _bundle_key(self, task: Any, devices: Sequence[Any], config: Dict[str, Any]):
+        return (
+            task.name,
+            tuple(sorted(config.items())),
+            tuple(str(d) for d in devices),
+        )
+
     def build(self, task: Any, devices: Sequence[Any], config: Dict[str, Any]) -> _Bundle:
+        """The bundle of (task, devices, config), built at its first use."""
         if len(devices) != 1:
             raise NotImplementedError(
                 f"{self.name}: multi-device blocks are a later item of the "
                 f"PyTorch port (got {len(devices)} devices)"
             )
+        key = self._bundle_key(task, devices, config)
+        with self._bundles_lock:
+            hit = self._bundles.get(key)
+        if hit is not None:
+            return hit
         device = torch.device(devices[0])
         spec = task.get_model(**self._model_overrides(config))
         init_state, train_step = self.make_step_fns(
             spec, task, config, device, task.get_dataset()
         )
-        return _Bundle(
+        bundle = _Bundle(
             device=device,
             init=init_state,
             empty=lambda: init_state(materialize=False),
             step=train_step,
         )
+        with self._bundles_lock:
+            return self._bundles.setdefault(key, bundle)
+
+    def release_task(self, task_name: str) -> None:
+        """Free a finished task's bundles, their CUDA graphs and graph
+        memory pools."""
+        with self._bundles_lock:
+            keys = [k for k in self._bundles if k[0] == task_name]
+            gone = [self._bundles.pop(k) for k in keys]
+        for bundle in gone:
+            bundle.release_windows()
+            if bundle.device.type == "cuda":
+                torch.cuda.empty_cache()
+
+    # ---------------------------------------------------------------- windows
+    def _fused_ok(self, config: Dict[str, Any], task: Any) -> bool:
+        """Whether this (config, task) may run K-step windows. A user's
+        optimizer callable may not: whether its step can be captured cannot
+        be checked, so such a task runs one step at a time (logged once)."""
+        if not self.fused_dispatch_ok:
+            return False
+        if callable(task.hparams.optimizer):
+            if task.name not in self._eager_noted:
+                self._eager_noted.add(task.name)
+                log.info("%s: task %s has a user optimizer callable; its intervals "
+                         "run one step at a time (K = 1)", self.name, task.name)
+            return False
+        return True
+
+    def _profile_window(self, config: Dict[str, Any], task: Any) -> int:
+        """The K a trial times: steady-state ``execute`` runs windows of the
+        largest size, so that is the program the solver's times describe."""
+        return max_window() if self._fused_ok(config, task) else 1
 
     # ---------------------------------------------------------------- search
     def search(
@@ -190,8 +485,9 @@ class SPMDTechnique(BaseTechnique):
     ) -> Tuple[Optional[Dict[str, Any]], Optional[float]]:
         """The fastest config of the grid whose measured peak fits in device
         memory. Running out of memory makes a config infeasible; any other
-        failure (a kernel that does not build or launch) propagates, so a
-        broken kernel is never hidden behind another config."""
+        failure (a kernel that does not build or launch, a capture that
+        fails) propagates, so a broken kernel is never hidden behind
+        another config."""
         if len(devices) != 1:
             return None, None  # multi-device blocks: a later item
         best: Tuple[Optional[Dict[str, Any]], Optional[float]] = (None, None)
@@ -210,20 +506,42 @@ class SPMDTechnique(BaseTechnique):
     def _try_config(
         self, task: Any, devices: Sequence[Any], config: Dict[str, Any]
     ) -> Optional[float]:
-        """Seconds per batch for one config; None = over device memory."""
+        """Seconds per batch of the program ``execute`` dispatches at steady
+        state for one config; None = over device memory.
+
+        With K > 1 (``_profile_window``): one eager warm-up step, then the
+        K-step window through ``timing.time_fused_window`` (its warm-up
+        call captures the graph), every window stack staged before the
+        timed region. The peak memory is taken over the same program, the
+        graph's pool included; the trial's graph and pool are freed after.
+        With K = 1: single steps through ``timing.time_train_step``."""
         bundle = self.build(task, devices, config)
         dev = bundle.device
+        k = self._profile_window(config, task)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
         timing.reset_peak_memory(dev)
         state = bundle.init()
         try:
-            batch = bundle.stage(task.get_dataset().batch(0))
-            t = timing.time_train_step(bundle.step, state, batch, n_timed=3, n_warmup=2)
+            if k > 1:
+                state, _ = bundle.warm_step(state, bundle.stage(task.batch_at(0)))
+
+                def stage(j: int) -> torch.Tensor:
+                    return stage_tokens(
+                        np.stack([task.batch_at(1 + j * k + i) for i in range(k)]), dev).take()
+
+                t = timing.time_fused_window(bundle.fused(k), state, stage, k,
+                                             n_timed=2, n_warmup=1)
+            else:
+                batch = bundle.stage(task.batch_at(0))
+                t = timing.time_train_step(bundle.step, state, batch, n_timed=3, n_warmup=2)
             peak = timing.peak_memory_bytes(dev)
         except torch.cuda.OutOfMemoryError:
             log.info("%s: config %s ran out of device memory", self.name, config)
             return None
         finally:
             del state
+            bundle.release_windows()
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
         limit = timing.device_memory_bytes(dev)
@@ -240,39 +558,113 @@ class SPMDTechnique(BaseTechnique):
         devices: Sequence[Any],
         tid: int,
         override_batch_count: Optional[int] = None,
+        window_size: Optional[int] = None,
     ) -> None:
-        """Run one interval of ``n`` batches, one step per dispatch.
+        """Run one interval of ``n`` batches (the JAX package's
+        ``interval_dispatches`` on one device, without its ``shared`` mode).
 
-        Resumes from the task's checkpoint when there is one (the data
-        cursor follows the restored step count), runs ``n`` steps from the
-        cursor, reads the losses back once at the end (``task.last_losses``),
-        notes the realized per-batch time of the steady-state steps (the
-        first step is warm-up), and writes the full train state."""
+        The state is the task's live state when the previous interval ran
+        this bundle, else the checkpoint (the data cursor follows its step
+        count), else a fresh init; the live state is dropped before the
+        first dispatch, so an interval that fails leaves none. K is
+        ``window_size`` (the engine's ``pick_window``) or ``choose_window(n)``,
+        1 where ``_fused_ok`` says no. The units (``unit_plan``) are staged
+        one ahead on a prefetch thread. Where the window is not captured on
+        this state yet, the first unit is an eager step, and the capture
+        follows it before the clock of the realized time starts. The losses
+        are read back once (``task.last_losses``); the realized per-batch
+        time counts the batches after the first unit. The interval ends
+        with ``checkpoint.save_async`` and the state kept live."""
         config = dict(task.selected_strategy.params or {})
         bundle = self.build(task, devices, config)
-        if task.has_ckpt():
+        key = self._bundle_key(task, devices, config)
+
+        t_begin = timeit.default_timer()
+        restored = False
+        live = task._live_state
+        if live is not None and live[0] == key:
+            state = live[1]
+        elif task.has_ckpt():
             state = ckpt.restore(task.ckpt_path, bundle.empty())
             task.current_batch = task.cursor_for_step(state["step"])
+            restored = True
         else:
             state = bundle.init()
+        task._live_state = None
 
         n = int(task.total_batches if override_batch_count is None else override_batch_count)
+        k = choose_window(n) if window_size is None else int(window_size)
+        k = max(1, min(k, max(n, 1)))
+        if k > 1 and not self._fused_ok(config, task):
+            k = 1
+        units = unit_plan(n, k, warm=k > 1 and not bundle.has_window(k, state))
+        window = bundle.fused(k) if any(u[0] == "window" for u in units) else None
         start = task.current_batch
-        losses: List[torch.Tensor] = []
+        dev = bundle.device
+
+        def stage(u: int) -> Staged:
+            kind, off, size = units[u]
+            if kind == "window":
+                host = np.stack([task.batch_at(start + off + j) for j in range(size)])
+            else:
+                host = task.batch_at(start + off)
+            return stage_tokens(host, dev)
+
+        unit_losses: List[torch.Tensor] = []
+        capture_s = None
         t_all0 = t_steady = timeit.default_timer()
-        for j in range(n):
-            state, loss = bundle.step(state, bundle.stage(task.batch_at(start + j)))
-            losses.append(loss)
-            if j == 0 and n > 1:
-                timing.synchronize(bundle.device)
-                t_steady = timeit.default_timer()
-        if losses:
+        state_s = t_all0 - t_begin
+        prefetch = DevicePrefetcher(len(units), stage, depth=2)
+        try:
+            for u, staged in enumerate(prefetch):
+                kind, _, size = units[u]
+                if kind == "window":
+                    state, loss = window(state, staged.take())
+                elif kind == "warm":
+                    state, loss = bundle.warm_step(state, staged.take())
+                    t0 = timeit.default_timer()
+                    window.capture(state, (k, *staged.shape))
+                    capture_s = timeit.default_timer() - t0
+                else:
+                    state, loss = bundle.step(state, staged.take())
+                unit_losses.append(loss.reshape(-1))
+                if u == 0 and len(units) > 1:
+                    # the first unit pays one-time costs (and, before a
+                    # window, the capture): keep it out of the realized time
+                    timing.synchronize(dev)
+                    t_steady = timeit.default_timer()
+        finally:
+            prefetch.close()
+
+        n_windows = sum(u[0] == "window" for u in units)
+        record = {"task": task.name, "config": config, "n": n, "k": k,
+                  "windows": n_windows, "tail": sum(u[0] == "step" for u in units),
+                  "warm": bool(units) and units[0][0] == "warm", "capture_s": capture_s,
+                  "restored": restored, "per_batch_s": None,
+                  # host seconds: getting the state (live, restore or
+                  # init), the units up to the loss readback, the
+                  # checkpoint's host copy (and the wait for the path's
+                  # previous write)
+                  "state_s": state_s, "run_s": None, "save_s": None}
+        if unit_losses:
             # one host readback per interval; it also drains the queue
-            task.last_losses = torch.stack(losses).float().cpu().tolist()
+            task.last_losses = torch.cat(unit_losses).float().cpu().tolist()
             t_end = timeit.default_timer()
-            per_batch = (t_end - t_steady) / (n - 1) if n > 1 else t_end - t_all0
+            if len(units) > 1:
+                per_batch = (t_end - t_steady) / max(n - units[0][2], 1)
+            else:
+                per_batch = (t_end - t_all0) / max(n, 1)
             task.last_per_batch_s = per_batch
             task.note_realized_per_batch(per_batch)
-            log.info("task %s [%s]: ran %d batches, loss %.4f, %.4fs/batch",
-                     task.name, self.name, n, task.last_losses[-1], per_batch)
-        ckpt.save(task.ckpt_path, state)
+            record["per_batch_s"] = per_batch
+            log.info("task %s [%s]: ran %d batches (K=%d, %d windows, tail %d%s%s), "
+                     "loss %.4f, %.4fs/batch", task.name, self.name, n, k, n_windows,
+                     record["tail"], ", eager warm-up step" if record["warm"] else "",
+                     ", restored from the checkpoint" if restored else "",
+                     task.last_losses[-1], per_batch)
+        t_save = timeit.default_timer()
+        record["run_s"] = t_save - t_all0
+        ckpt.save_async(task.ckpt_path, state)
+        record["save_s"] = timeit.default_timer() - t_save
+        self.intervals.append(record)
+        task._live_state = (key, state)

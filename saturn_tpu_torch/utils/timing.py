@@ -1,12 +1,14 @@
 """Step timing and device memory, measured on the device.
 
 Counterpart of ``saturn_tpu/utils/timing.py``: warm up, then time n
-steady-state steps between ``torch.cuda.synchronize`` calls (PyTorch returns
-before the card finishes, so an unsynchronised host clock would time the
-enqueue). The JAX package's compile-time memory analysis has no counterpart
-in eager PyTorch: a configuration's memory is the trial's measured peak,
-``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``,
-against the device's total memory.
+steady-state steps (or K-step windows) between ``torch.cuda.synchronize``
+calls (PyTorch returns before the card finishes, so an unsynchronised host
+clock would time the enqueue). The JAX package's compile-time memory
+analysis has no counterpart in eager PyTorch: a configuration's memory is
+the trial's measured peak against the device's total memory. The peak is
+what the caching allocator reserved (``max_memory_reserved`` after
+``reset_peak_memory_stats``), which holds a CUDA graph's private memory
+pool as well as the eager steps' blocks.
 """
 
 from __future__ import annotations
@@ -38,6 +40,32 @@ def time_train_step(
     return (timeit.default_timer() - t0) / n_timed
 
 
+def time_fused_window(
+    fused: Callable, state, stage: Callable[[int], object], k: int,
+    n_timed: int = 2, n_warmup: int = 1,
+) -> float:
+    """Mean seconds per BATCH of a K-step window program
+    ``fused(state, window) -> (state, losses)``.
+
+    ``stage(j)`` returns the device-staged (K, ...) window stack of call
+    ``j``; every stack is staged before the timed region, which holds only
+    the windows (at execute() time the prefetcher overlaps staging with
+    compute). Synchronized on the device at both ends. ``n_warmup >= 1``:
+    the warm-up call is where a window is captured."""
+    if n_warmup < 1:
+        raise ValueError("time_fused_window needs n_warmup >= 1")
+    windows = [stage(j) for j in range(n_warmup + n_timed)]
+    device = windows[0].device
+    for j in range(n_warmup):
+        state, _ = fused(state, windows[j])
+    synchronize(device)
+    t0 = timeit.default_timer()
+    for j in range(n_warmup, n_warmup + n_timed):
+        state, _ = fused(state, windows[j])
+    synchronize(device)
+    return (timeit.default_timer() - t0) / (n_timed * k)
+
+
 def reset_peak_memory(device) -> None:
     device = torch.device(device)
     if device.type == "cuda":
@@ -45,10 +73,11 @@ def reset_peak_memory(device) -> None:
 
 
 def peak_memory_bytes(device) -> int:
-    """Peak allocated bytes since the last reset; 0 off the card."""
+    """Peak bytes the caching allocator reserved since the last reset, CUDA
+    graph pools included; 0 off the card."""
     device = torch.device(device)
     if device.type == "cuda":
-        return int(torch.cuda.max_memory_allocated(device))
+        return int(torch.cuda.max_memory_reserved(device))
     return 0
 
 

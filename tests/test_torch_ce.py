@@ -268,3 +268,34 @@ def test_bert_routes_mlm_loss_only():
 
     assert _routed_losses(build_bert("bert-test-tiny"), pretraining_loss) == 0
     assert _routed_losses(build_bert("bert-test-tiny"), mlm_loss) == 1
+
+
+def _jax_auto_stash(N, V, D, block_v=None):
+    """The JAX package's ``stash=None`` decision (JAX ``ce.py:454-492``),
+    from its own block choice and ``_padded_vocab``."""
+    if block_v is not None:
+        bv = bv_dw = block_v
+    elif V >= 2048:
+        bv, bv_dw = 512, jce._auto_bv_dw(D)
+    else:
+        bv = bv_dw = ((V + 127) // 128) * 128
+    return N * jce._padded_vocab(V, (None, bv, None, bv_dw)) * 2 <= jce.STASH_BYTES_MAX
+
+
+@pytest.mark.parametrize("V,D,block_v", [
+    (50304, 768, None), (50304, 1024, None), (50257, 1600, None), (32000, 4096, None),
+    (256, 64, None), (300, 64, None), (1999, 128, None), (2048, 768, None),
+    (50304, 768, 128), (300, 64, 128),
+])
+def test_auto_stash_matches_jax(V, D, block_v):
+    """The auto stash decision equals the JAX package's, across the N where
+    the padded vocab moves it (GPT-2's 50304 pads to 51200 at D 768: N 5243
+    to 5336 recompute in both)."""
+    edge = tce.STASH_BYTES_MAX // (2 * V)
+    Ns = sorted({1, 4096, 5242, 5243, 5300, 5336, 5337, 8192, 65536,
+                 edge - 1, edge, edge + 1, tce.STASH_BYTES_MAX // (2 * tce.padded_vocab(V, D, block_v))})
+    for N in Ns:
+        assert tce.auto_stash(N, V, D, block_v) == _jax_auto_stash(N, V, D, block_v), (N, V, D)
+    if (V, D, block_v) == (50304, 768, None):
+        assert [tce.auto_stash(N, V, D) for N in (5242, 5243, 5300, 5336)] == [
+            True, False, False, False]

@@ -186,3 +186,45 @@ def test_step_kernels_counts_each_flash_kernel(smoke):
                                  "device_ms_per_step": pytest.approx(ms)}
     for name in ("ce_fwd", "ce_dx", "ce_dw"):
         assert kernels[name] == {"launches_per_step": 0.0, "device_ms_per_step": 0.0}
+
+
+def _interval(task, config, k=8, windows=1, restored=False):
+    return {"task": task, "config": config, "k": k, "windows": windows, "restored": restored}
+
+
+FLASH_CFG, DENSE_CFG = {"attention": "flash"}, {"attention": "dense"}
+
+
+@pytest.mark.parametrize("intervals,error", [
+    ([_interval("a", FLASH_CFG, restored=False), _interval("a", FLASH_CFG),
+      _interval("b", DENSE_CFG, k=3), _interval("b", FLASH_CFG, restored=True)], None),
+    ([_interval("a", FLASH_CFG), _interval("a", FLASH_CFG, restored=True)], "did not change"),
+    ([_interval("a", FLASH_CFG, k=4), _interval("a", FLASH_CFG, k=4)], "no interval ran windows"),
+    ([_interval("a", FLASH_CFG, windows=0), _interval("a", FLASH_CFG, windows=0)],
+     "no interval ran windows"),
+    ([_interval("a", FLASH_CFG), _interval("b", FLASH_CFG)], "no task ran two intervals"),
+])
+def test_check_intervals(smoke, intervals, error):
+    """Phase 3 holds its intervals to windows of 8 and to no restore where a
+    task's config did not change."""
+    if error is None:
+        assert smoke.check_intervals(intervals) == 1
+    else:
+        with pytest.raises(AssertionError, match=error):
+            smoke.check_intervals(intervals)
+
+
+@pytest.mark.parametrize("windowed,eager,want", [
+    ([5.25, 5.0], [5.25, 5.0], "bitwise"),
+    ([5.25, 5.000004], [5.25, 5.0], "within 1e-05"),
+    ([5.25, 5.0001], [5.25, 5.0], "above 1e-05"),
+    ([5.25], [5.25, 5.0], "windowed losses against"),
+])
+def test_compare_windowed(smoke, windowed, eager, want):
+    """Phase 4's windowed losses against the eager ones: bitwise, within
+    WINDOW_ATOL (and how far), or a failure."""
+    if want.startswith("above") or want.endswith("against"):
+        with pytest.raises(AssertionError, match=want):
+            smoke.compare_windowed("flash", windowed, eager)
+    else:
+        assert smoke.compare_windowed("flash", windowed, eager).startswith(want)

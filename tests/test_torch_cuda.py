@@ -17,7 +17,13 @@ within the bound of ``chip_smoke.check_ce``; the CE forward at its edges (D
 of 1 to 16 chunks, V and N that no tile divides, labels at the first, last
 and ragged columns, a running max that moves across vocab tiles and splits)
 within the bounds of ``chip_smoke.check_ce`` (loss and lse absolute, the
-stash within one bf16 step).
+stash within one bf16 step). The K-step window on a small GPT-2 (head dim
+64, flash and the CE head): its CUDA graph against eager steps within
+``WINDOW_ATOL`` per step (the bound of ``chip_smoke``'s phase 4), exact
+launch counts under replay, a capture after a restore and beside a
+staging thread, ``release_task`` giving the pool back; one step of each
+optimizer ``HParams.make_optimizer`` builds, replayed from a graph, against
+the same optimizer without ``capturable`` within 1e-6.
 """
 
 import numpy as np
@@ -438,3 +444,214 @@ def test_ce_rejects_what_the_kernels_do_not_take(cuda_device):
         ce.ce_dw(x, w, labels, lse, g.cpu(), s)
     with pytest.raises(ValueError, match="must be on"):
         ce.ce_dw(x, w, labels, lse, g, s.cpu())
+
+
+# ---------------------------------------------------------------- windows
+#: Windowed against eager losses, absolute per step (the bound of
+#: chip_smoke's phase 4; the same kernels in the same order give equality).
+WINDOW_ATOL = 1e-5
+#: The flash and CE kernels' width: head dim 64, d_model 128, T 128.
+SMALL = dict(d_model=128, n_heads=2, n_layers=2, seq_len=128, vocab_size=512)
+
+
+def _small_task(tmp_path, name, optimizer="adamw"):
+    from saturn_tpu_torch import HParams, Strategy, Task
+    from saturn_tpu_torch.data.lm_dataset import make_lm_dataset
+    from saturn_tpu_torch.models.gpt2 import build_gpt2
+    from saturn_tpu_torch.models.loss import pretraining_loss
+    from saturn_tpu_torch.parallel.dp import DataParallel
+
+    task = Task(
+        get_model=lambda **kw: build_gpt2("test-tiny", **{**SMALL, **kw}),
+        get_dataloader=lambda: make_lm_dataset(context_length=128, batch_size=4,
+                                               vocab_size=512, n_tokens=128 * 4 * 16),
+        loss_fn=pretraining_loss,
+        hparams=HParams(lr=1e-3, batch_count=40, optimizer=optimizer),
+        name=name, save_dir=str(tmp_path / name),
+    )
+    tech = DataParallel()
+    task.strategies[1] = Strategy(tech, 1, {"remat": False, "attention": "flash"}, 0.0)
+    task.select_strategy(1)
+    return task, tech
+
+
+def _counts():
+    return {**flash.LAUNCHES, **ce.LAUNCHES}
+
+
+def _run(task, tech, device, n, k):
+    before = _counts()
+    tech.execute(task, [device], 0, override_batch_count=n, window_size=k)
+    task.reconfigure(n)
+    return task.last_losses, {name: c - before[name] for name, c in _counts().items()}
+
+
+@pytest.mark.cuda
+def test_graphed_window_matches_eager_steps(cuda_device, tmp_path):
+    """execute in windows of 4 (an eager step, the capture, two windows and
+    a tail of one) against one step at a time: the same losses and the
+    exact launch counts (one of each flash kernel per layer per step, one
+    of each CE kernel per step) in both."""
+    runs = {}
+    for k in (4, 1):
+        task, tech = _small_task(tmp_path, f"k{k}")
+        runs[k] = _run(task, tech, cuda_device, 10, k)
+        rec = tech.intervals[-1]
+        assert (rec["windows"], rec["tail"], rec["warm"]) == ((2, 1, True) if k > 1 else (0, 10, False))
+    want = {"flash_fwd": 20, "flash_dq": 20, "flash_dkv": 20, "ce_fwd": 10, "ce_dx": 10, "ce_dw": 10}
+    assert runs[4][1] == want and runs[1][1] == want
+    np.testing.assert_allclose(runs[4][0], runs[1][0], rtol=0, atol=WINDOW_ATOL)
+
+
+@pytest.mark.cuda
+def test_graph_replay_counts_launches_exactly(cuda_device, tmp_path):
+    """A second interval replays the window captured in the first: no warm
+    step, no capture, and each replay adds the launches it holds."""
+    task, tech = _small_task(tmp_path, "replay")
+    _run(task, tech, cuda_device, 9, 4)
+    losses, launched = _run(task, tech, cuda_device, 8, 4)
+    rec = tech.intervals[-1]
+    assert (rec["windows"], rec["tail"], rec["warm"], rec["restored"]) == (2, 0, False, False)
+    assert launched == {"flash_fwd": 16, "flash_dq": 16, "flash_dkv": 16,
+                        "ce_fwd": 8, "ce_dx": 8, "ce_dw": 8}
+    assert np.isfinite(losses).all()
+
+
+@pytest.mark.cuda
+def test_restore_then_capture_again(cuda_device, tmp_path):
+    """A restore replaces the optimizer's state tensors: the window is
+    captured anew on the restored state, and the trajectory equals the
+    uninterrupted one-step-at-a-time run."""
+    whole, tech = _small_task(tmp_path, "whole")
+    ref, _ = _run(whole, tech, cuda_device, 18, 1)
+
+    task, tech = _small_task(tmp_path, "split")
+    first, _ = _run(task, tech, cuda_device, 9, 4)
+    bundle = tech.build(task, [cuda_device], dict(task.selected_strategy.params))
+    live = task._live_state[1]
+    assert bundle.has_window(4, live)
+    task.release_live_state()
+    second, _ = _run(task, tech, cuda_device, 9, 4)
+    rec = tech.intervals[-1]
+    assert rec["restored"] and rec["warm"] and (rec["windows"], rec["tail"]) == (2, 0)
+    assert not bundle.has_window(4, live)
+    np.testing.assert_allclose(first + second, ref, rtol=0, atol=WINDOW_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adamw", "adam", "sgd"])
+def test_capturable_optimizer_step_matches_plain(cuda_device, name):
+    """make_optimizer's optimizer on the card (capturable AdamW and Adam;
+    SGD as it is), one eager step then two replays of a captured step,
+    against the same optimizer without ``capturable`` stepping eagerly."""
+    from saturn_tpu_torch import HParams
+
+    rng = np.random.default_rng(0)
+    p0 = rng.standard_normal((64, 48)).astype(np.float32)
+    grads = [torch.tensor(rng.standard_normal((64, 48)), dtype=torch.float32,
+                          device=cuda_device) for _ in range(3)]
+    lr = 1e-2
+    tp = torch.nn.Parameter(torch.tensor(p0, device=cuda_device))
+    opt = HParams(lr=lr, batch_count=1, optimizer=name).make_optimizer([tp])
+    plain_p = torch.nn.Parameter(torch.tensor(p0, device=cuda_device))
+    plain = {"adamw": lambda ps: torch.optim.AdamW(ps, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                                   weight_decay=1e-4),
+             "adam": lambda ps: torch.optim.Adam(ps, lr=lr, betas=(0.9, 0.999), eps=1e-8),
+             "sgd": lambda ps: torch.optim.SGD(ps, lr=lr)}[name]([plain_p])
+    if name != "sgd":
+        assert opt.param_groups[0]["capturable"]
+    static_grad = torch.zeros_like(tp)
+    tp.grad = static_grad
+    static_grad.copy_(grads[0])
+    opt.step()
+    stream = torch.cuda.Stream(cuda_device)
+    stream.wait_stream(torch.cuda.current_stream(cuda_device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        opt.step()
+    for g in grads[1:]:
+        static_grad.copy_(g)
+        graph.replay()
+    for g in grads:
+        plain_p.grad = g.clone()
+        plain.step()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(tp.detach(), plain_p.detach(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_restore_puts_capturable_steps_on_the_card(cuda_device, tmp_path):
+    from saturn_tpu_torch import HParams
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    def state():
+        model = torch.nn.Linear(8, 8, device=cuda_device)
+        opt = HParams(batch_count=1).make_optimizer(model.parameters())
+        return {"params": model, "opt_state": opt, "step": 0}
+
+    s = state()
+    s["params"](torch.ones(2, 8, device=cuda_device)).sum().backward()
+    s["opt_state"].step()
+    ckpt.save(str(tmp_path / "ckpt.pt"), s)
+    restored = ckpt.restore(str(tmp_path / "ckpt.pt"), state())
+    for per_param in restored["opt_state"].state.values():
+        assert per_param["step"].device == cuda_device
+
+
+@pytest.mark.cuda
+def test_capture_while_another_thread_stages(cuda_device, tmp_path):
+    """A window is captured while another thread pins host memory and copies
+    batches to the card (the prefetcher's work): the capture holds, and the
+    windowed losses equal the eager ones."""
+    import threading
+
+    from saturn_tpu_torch.data.prefetch import stage_tokens
+
+    stop = threading.Event()
+    staged = []
+
+    def stager():
+        rng = np.random.default_rng(1)
+        size = 1 << 12
+        while not stop.is_set():
+            size = size * 2 if size < (1 << 22) else 1 << 12  # new pinned blocks
+            staged.append(stage_tokens(rng.integers(0, 512, size, dtype=np.int32),
+                                       cuda_device).take().sum())
+
+    runs = {}
+    for k in (4, 1):
+        task, tech = _small_task(tmp_path, f"thread-k{k}")
+        thread = threading.Thread(target=stager, daemon=True)
+        stop.clear()
+        thread.start()
+        try:
+            runs[k], _ = _run(task, tech, cuda_device, 9, k)
+        finally:
+            stop.set()
+            thread.join()
+    torch.cuda.synchronize()
+    assert len(staged) > 0
+    np.testing.assert_allclose(runs[4], runs[1], rtol=0, atol=WINDOW_ATOL)
+
+
+@pytest.mark.cuda
+def test_release_task_returns_the_pool(cuda_device, tmp_path):
+    """The live state, the window's graph and its memory pool go back to the
+    device once the task is released (measured on a second task, after the
+    first made the libraries' lasting per-stream state)."""
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    for name in ("release-warm", "release"):
+        task, tech = _small_task(tmp_path, name)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved(cuda_device)
+        _run(task, tech, cuda_device, 9, 4)
+        ckpt.flush()
+        held = torch.cuda.memory_reserved(cuda_device)
+        task.release_live_state()
+        task.release_compiled()
+        after = torch.cuda.memory_reserved(cuda_device)
+    print(f"reserved: before {before}, with the task {held}, after release {after}")
+    assert tech._bundles == {}
+    assert held > before and after <= before
