@@ -39,8 +39,9 @@ Phases, in order; any failure is an exception and a non-zero exit:
    so that each task runs several; every
    checkpoint must reach its ``batch_count`` with finite, falling losses,
    and all six kernels must have run. Trials time K-step windows (K =
-   ``max_window()``, 8) and the intervals run through them: each interval's
-   K, windows, tail, eager warm-up step and capture time are logged, and an
+   ``max_window()``, 8) and the intervals run through them, the tail and
+   short intervals through a window of one step: each interval's K,
+   windows, tail, eager warm-up step and capture time are logged, and an
    interval whose config did not change must not have restored the
    checkpoint. The kernel launch counts of this phase go into the kernels
    line.
@@ -48,7 +49,8 @@ Phases, in order; any failure is an exception and a non-zero exit:
    steps pinned to flash attention, from the same init and batches as a run
    pinned to dense and a flash run over the logits (a loss without the
    fused-head tag), each run twice: in windows of 8 (an eager step, the
-   capture, one window, a tail of one) and one step at a time. Exactly 12
+   captures, one window, a tail of one one-step window) and one step at a
+   time. Exactly 12
    launches of each flash kernel and 1 of each CE kernel per step where they
    apply, none elsewhere, in both runs; the windowed losses equal the eager
    ones within WINDOW_ATOL per step (the log says whether bitwise); the
@@ -59,7 +61,9 @@ Phases, in order; any failure is an exception and a non-zero exit:
    operators). For flash + fused also the steady-state per-batch time of 3
    windows of 8 without a synchronize between them, beside the eager path's
    over the same 24 steps, in turns; the device busy time and idle share
-   over the windows; the peak memory of the windows.
+   over the windows, with each kernel's launches per step as the profiler
+   saw them inside the replays (they must be phase 4's); the peak memory of
+   the windows.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
@@ -70,6 +74,13 @@ builds the kernels and only times the three flash kernels against SDPA's
 forward and backward alone (dQ + dK/dV against the backward) over a sweep
 of sequence lengths and batch sizes (``chiprun_out/flash_sweep.json``): how
 their time scales with the work.
+
+    python3 chip_smoke.py --staging-ab
+
+builds the kernels and only times flash + fused at b8 x 512 with each
+unit's batch staged inline, as ``execute`` stages it, against staging on a
+second thread one unit ahead, in windows of 8 and one step at a time
+(``chiprun_out/staging_ab.json``).
 """
 
 from __future__ import annotations
@@ -700,6 +711,7 @@ def main_path(sat, flash, ce, card):
     for r in tech.intervals:
         log(f"    interval {r['task']} {r['config']}: {r['n']} batches, K={r['k']}, "
             f"{r['windows']} windows, tail {r['tail']}"
+            + (" (one-step windows)" if r["k"] > 1 and r["tail"] else "")
             + (f", eager warm-up step and capture {r['capture_s']:.3f}s" if r["warm"] else "")
             + (", restored the checkpoint" if r["restored"] else ", no restore")
             + (f", {r['per_batch_s'] * 1e3:.2f} ms/batch" if r["per_batch_s"] else "")
@@ -770,6 +782,15 @@ PINNED = (("flash", "flash", None), ("dense", "dense", None),
           ("flash-logits", "flash", untagged_loss))
 
 
+def want_launches(attention, loss_fn, steps=1):
+    """Launches of each kernel in ``steps`` training steps: one of each flash
+    kernel per layer with flash attention, one of each CE kernel on the
+    fused head."""
+    want = {n: (LAYERS * steps if attention == "flash" else 0) for n in FLASH_NAMES}
+    want.update({n: (0 if loss_fn else steps) for n in CE_NAMES})
+    return want
+
+
 def pinned_task(sat, label, attention, loss_fn, k=1):
     """The pinned task of ``label``; its eager run (``k`` 1) keeps the
     checkpoint that phase 5 reads."""
@@ -817,10 +838,7 @@ def pinned_runs(sat, flash, ce, card):
                 f"{BATCH * SEQ / task.last_per_batch_s:.0f} tokens/s, launches "
                 f"{runs[label, k][1]}, losses {np.round(task.last_losses, 4).tolist()}  [{card}]")
     for label, attention, loss_fn in PINNED:
-        # one launch of each flash kernel per layer per step, one of each CE
-        # kernel per step on the fused path
-        want = {n: (LAYERS * STEPS_PINNED if attention == "flash" else 0) for n in FLASH_NAMES}
-        want.update({n: (0 if loss_fn else STEPS_PINNED) for n in CE_NAMES})
+        want = want_launches(attention, loss_fn, STEPS_PINNED)
         for k in (WINDOW, 1):
             if runs[label, k][1] != want:
                 raise AssertionError(f"{label} K={k} run launched {runs[label, k][1]}, "
@@ -881,8 +899,7 @@ def profile_steps(sat, card, n_sync=8, n_prof=4):
         prof, events = profiled(lambda: bundle.step(state, batch), n_prof)
         busy = busy_ms(events) / n_prof
         kernels = step_kernels(events, n_prof)
-        want = {n: (LAYERS if attention == "flash" else 0) for n in FLASH_NAMES}
-        want.update({n: (0 if loss_fn else 1) for n in CE_NAMES})
+        want = want_launches(attention, loss_fn)
         seen = {n: k["launches_per_step"] for n, k in kernels.items()}
         if seen != want:
             raise AssertionError(f"{label}: the profiler saw {seen} launches per step, "
@@ -919,8 +936,8 @@ def profile_windows(sat, card, k=WINDOW, n_windows=3, rounds=2):
     turns (windows, steps, windows, steps, ...); the device busy time and
     idle share over the windows (torch.profiler) and the peak memory of the
     windows, allocated and reserved (the graph's pool is reserved)."""
-    from saturn_tpu_torch.data.prefetch import stage_tokens
     from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.parallel.spmd_base import stage_tokens
     from saturn_tpu_torch.utils import checkpoint as ckpt
 
     dev = torch.device(DEVICE, 0)
@@ -930,7 +947,7 @@ def profile_windows(sat, card, k=WINDOW, n_windows=3, rounds=2):
     state = ckpt.restore(task.ckpt_path, bundle.empty())
     n = n_windows * k
     batches = [task.batch_at(i) for i in range(n)]
-    windows = [stage_tokens(np.stack(batches[w * k:(w + 1) * k]), dev).take()
+    windows = [stage_tokens(np.stack(batches[w * k:(w + 1) * k]), dev)
                for w in range(n_windows)]
     steps = [bundle.stage(b) for b in batches]
     window = bundle.fused(k)
@@ -964,6 +981,13 @@ def profile_windows(sat, card, k=WINDOW, n_windows=3, rounds=2):
     _, events = profiled(run_windows, 1)
     busy = busy_ms(events) / n
     kernels = step_kernels(events, n)
+    # the profiler's count inside the replays, independent of LAUNCHES (which
+    # a replay advances by what its capture recorded)
+    want = want_launches(attention, loss_fn)
+    seen = {name: kk["launches_per_step"] for name, kk in kernels.items()}
+    if seen != want:
+        raise AssertionError(f"{label} windows: the profiler saw {seen} launches per "
+                             f"step, want {want}")
     windowed_ms = float(np.median(times["windowed"]))
     # the eager step's device time with the capturable optimizer and with the
     # same optimizer not capturable (step counts on the host), in turns
@@ -998,6 +1022,70 @@ def profile_windows(sat, card, k=WINDOW, n_windows=3, rounds=2):
         f"{np.round(eager_busy['plain'], 3).tolist()} ms  [{card}]")
     bundle.release_windows()
     del state, bundle, windows, steps
+    torch.cuda.empty_cache()
+    return out
+
+
+def staging_ab(sat, card, k=WINDOW, n_windows=4, rounds=3):
+    """Staging inline on the dispatching thread (what ``execute`` does)
+    against staging on a second thread one unit ahead through a queue of
+    depth 2 (what the JAX package's ``DevicePrefetcher`` does), flash +
+    fused at b8 x 512 on one state: the per-batch time of ``n_windows``
+    windows of ``k``, and of the same steps one at a time, each run staging
+    its own batches from the host and ending in one loss readback, in turns
+    (inline, thread, then thread, inline, ``rounds`` times)."""
+    import queue
+    import threading
+
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.parallel.spmd_base import stage_tokens
+
+    dev = torch.device(DEVICE, 0)
+    task, config = pinned_task(sat, "flash", "flash", None)
+    bundle = DataParallel().build(task, [dev], config)
+    state = bundle.init()
+    n = n_windows * k
+
+    def stager(size):
+        def stage(u):
+            host = np.stack([task.batch_at(u * size + j) for j in range(size)])
+            return stage_tokens(host if size > 1 else host[0], dev)
+        return stage
+
+    def inline(count, stage):
+        for u in range(count):
+            yield stage(u)
+
+    def threaded(count, stage):
+        q = queue.Queue(maxsize=2)
+        producer = threading.Thread(target=lambda: [q.put(stage(u)) for u in range(count)],
+                                    daemon=True)
+        producer.start()
+        for _ in range(count):
+            yield q.get()
+        producer.join()
+
+    window = bundle.fused(k)
+    state, _ = bundle.warm_step(state, stager(1)(0))
+    window(state, stager(k)(0))  # the capture, then a replay
+    torch.cuda.synchronize()
+    out = {"card": card, "k": k, "batches": n}
+    for label, size, run in (("windowed", k, window), ("eager", 1, bundle.step)):
+        times = {"inline": [], "thread": []}
+        for r in range(rounds):
+            for mode in (("inline", "thread") if r % 2 == 0 else ("thread", "inline")):
+                feed = inline if mode == "inline" else threaded
+                t0 = time.perf_counter()
+                losses = [run(state, batch)[1].reshape(-1)
+                          for batch in feed(n // size, stager(size))]
+                torch.cat(losses).cpu()
+                times[mode].append((time.perf_counter() - t0) * 1e3 / n)
+        out[label] = times
+        log(f"  {label} ({n} batches per run, in turns): staged inline "
+            f"{np.round(times['inline'], 3).tolist()} ms/batch, on a thread "
+            f"{np.round(times['thread'], 3).tolist()} ms/batch  [{card}]")
+    bundle.release_windows()
+    del state, bundle
     torch.cuda.empty_cache()
     return out
 
@@ -1044,6 +1132,11 @@ def main(argv) -> int:
         rows = flash_sweep(flash)
         with open(os.path.join(OUT, "flash_sweep.json"), "w") as f:
             json.dump({"card": card, "kind": kind, "rows": rows}, f, indent=1)
+        return 0
+    if "--staging-ab" in argv:
+        log("staging: inline against a thread")
+        with open(os.path.join(OUT, "staging_ab.json"), "w") as f:
+            json.dump(staging_ab(sat, card), f, indent=1)
         return 0
 
     log("phase 2: kernels against their plain versions")

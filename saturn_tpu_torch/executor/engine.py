@@ -4,10 +4,10 @@ Counterpart of ``saturn_tpu/executor/engine.py``: each task gets a launcher
 thread that waits for the tasks its block depends on (the plan's ordering
 edges), runs its selected technique on its assigned block, advances its data
 cursor and signals completion. The plan's blocks keep concurrently running
-tasks on disjoint devices. The window size K of each task's interval comes
-from its batch budget (``pick_window``), under a ceiling resolved once per
-interval. The JAX package's watchdog, fault hooks, co-scheduled and fused
-launchers are later items.
+tasks on disjoint devices. Each technique's ``execute`` picks its own
+window size K (the JAX package's engine passes one, from ``pick_window``).
+The JAX package's watchdog, fault hooks, co-scheduled and fused launchers
+are later items.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from __future__ import annotations
 import logging
 import threading
 import timeit
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 from saturn_tpu_torch.core.mesh import SliceTopology
 from saturn_tpu_torch.solver.milp import Plan
@@ -56,34 +56,6 @@ def forecast(
     return relevant, batches, completed
 
 
-def pick_window(n_batches: int, cap: Optional[int] = None) -> int:
-    """Window size K for an interval's batch budget: the technique runs
-    ``n // K`` windows plus a tail of single steps. ``cap`` is the ceiling
-    the caller resolved once for the interval (:func:`_window_cap`), so a
-    change of ``SATURN_TPU_MAX_WINDOW`` mid-interval cannot split one
-    interval across two policies; ``None`` reads the environment."""
-    from saturn_tpu_torch.parallel.spmd_base import choose_window
-
-    return choose_window(n_batches, cap=cap)
-
-
-def _window_cap() -> int:
-    """The window ceiling (env ``SATURN_TPU_MAX_WINDOW``), read once per
-    interval at the top of :func:`execute`."""
-    from saturn_tpu_torch.parallel.spmd_base import max_window
-
-    return max_window()
-
-
-def _execute_kwargs(tech, n_batches: int, cap: Optional[int] = None) -> Dict[str, int]:
-    """The optional arguments this technique's ``execute`` takes: gated on
-    ``supports_windows``, so a plugin with the bare ``BaseTechnique``
-    signature keeps working."""
-    if getattr(tech, "supports_windows", False):
-        return {"window_size": pick_window(n_batches, cap)}
-    return {}
-
-
 def execute(
     run_tasks: Sequence,
     batches: Dict[str, int],
@@ -99,7 +71,6 @@ def execute(
     running = {t.name for t in run_tasks}
     errors: Dict[str, BaseException] = {}
     lock = threading.Lock()
-    cap = _window_cap()
 
     def launcher(task, tid: int):
         try:
@@ -111,9 +82,9 @@ def execute(
             n = batches[task.name]
             logger.info("interval: launching %s on block [%d:%d] for %d batches",
                         task.name, a.block.offset, a.block.end, n)
-            tech = task.selected_strategy.executor
-            tech.execute(task, topology.block_devices(a.block), tid,
-                         override_batch_count=n, **_execute_kwargs(tech, n, cap))
+            task.selected_strategy.executor.execute(
+                task, topology.block_devices(a.block), tid, override_batch_count=n
+            )
             task.reconfigure(n)
         except Exception as e:  # surfaced after the barrier
             with lock:

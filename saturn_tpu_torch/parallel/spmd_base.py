@@ -9,18 +9,18 @@ interval: resume, run n steps, write the checkpoint, report the realized
 per-batch time).
 
 ``execute`` runs an interval as the JAX package's ``interval_dispatches``
-does, on one device: ``n // K`` K-step windows plus an ``n % K`` tail of
-single steps, batches staged one unit ahead on a prefetch thread
-(``data/prefetch.py``), one loss readback per interval, the train state kept
-on the device for the next interval (``task._live_state``) and the
-checkpoint written in the background (``checkpoint.save_async``). A K-step
-window is the counterpart of the JAX package's ``lax.scan`` program: on the
-card a CUDA graph of K train steps, captured once per (bundle, K) and
+does, on one device: ``n // K`` K-step windows plus an ``n % K`` tail, each
+batch staged on the device just before its unit (``stage_tokens``: pinned
+host memory, a copy stream of its own), one loss readback per interval, the
+train state kept on the device for the next interval (``task._live_state``)
+and the checkpoint written in the background (``checkpoint.save_async``). A
+K-step window is the counterpart of the JAX package's ``lax.scan`` program:
+on the card a CUDA graph of K train steps, captured once per (bundle, K) and
 replayed with one host call; on the CPU the plain version, K eager steps.
-Trials time the window that ``execute`` dispatches. The co-scheduled
-``shared`` mode and multi-device meshes are later items. The train step
-updates the model and the optimizer in place (PyTorch's idiom; it keeps one
-copy of the state).
+The tail runs through a window of one step. Trials time the window that
+``execute`` dispatches. The co-scheduled ``shared`` mode and multi-device
+meshes are later items. The train step updates the model and the optimizer
+in place (PyTorch's idiom; it keeps one copy of the state).
 """
 
 from __future__ import annotations
@@ -36,7 +36,6 @@ import numpy as np
 import torch
 
 from saturn_tpu_torch.core.technique import BaseTechnique
-from saturn_tpu_torch.data.prefetch import DevicePrefetcher, Staged, stage_tokens
 from saturn_tpu_torch.ops import launches
 from saturn_tpu_torch.utils import checkpoint as ckpt
 from saturn_tpu_torch.utils import timing
@@ -65,63 +64,74 @@ def max_window() -> int:
     return max(1, k)
 
 
-def choose_window(n_batches: int, cap: Optional[int] = None) -> int:
-    """Window size K for an interval budget of ``n_batches``: the largest
-    window under the cap that the budget fills at least once; 1 when the
-    interval is too short or windows are off."""
-    cap = max_window() if cap is None else int(cap)
-    n = int(n_batches)
-    if cap <= 1 or n < 2:
-        return 1
-    return min(cap, n)
-
-
-def dispatch_signature() -> str:
-    """Signature of the dispatch mode, for a profile cache key: per-step and
-    windowed trials time different programs."""
-    k = max_window()
-    return f"fused-scan-v1:k{k}" if k > 1 else "per-step"
-
-
 #: A unit of an interval's plan: (kind, batch offset, batches). ``warm`` is
-#: an eager step run before the interval's first capture, ``window`` a
-#: K-step window, ``step`` an eager step of the tail.
+#: an eager step run before the state's first capture, ``window`` a window
+#: of K steps or, in the tail, of one; ``step`` an eager step (K = 1).
 Unit = Tuple[str, int, int]
 
 
 def unit_plan(n: int, k: int, warm: bool) -> List[Unit]:
-    """The interval's units: ``n // K`` windows and an ``n % K`` tail of
-    single steps. With ``warm`` (the window is not captured on this state
-    yet) the first unit is an eager step, then ``(n - 1) // K`` windows and
-    a ``(n - 1) % K`` tail; where fewer than K batches follow that step the
-    interval captures nothing and runs every batch as a single step. Every
-    batch runs once, in order."""
-    if k <= 1 or (warm and n - 1 < k):
+    """The interval's units: with K = 1, ``n`` eager steps; else ``n // K``
+    windows of K and an ``n % K`` tail of one-step windows. With ``warm``
+    (no window is captured on this state yet) the first unit is an eager
+    step, and the windows and the tail share the other ``n - 1`` batches.
+    Every batch runs once, in order."""
+    if k <= 1:
         return [("step", j, 1) for j in range(n)]
-    lead = 1 if warm else 0
+    lead = 1 if warm and n else 0
     n_windows = (n - lead) // k
     units: List[Unit] = [("warm", 0, 1)] if lead else []
     units += [("window", lead + w * k, k) for w in range(n_windows)]
-    units += [("step", j, 1) for j in range(lead + n_windows * k, n)]
+    units += [("window", j, 1) for j in range(lead + n_windows * k, n)]
     return units
 
 
-# ----------------------------------------------------------------- windows
-_CAPTURE_STREAMS: Dict[int, Any] = {}
-_CAPTURE_LOCK = threading.Lock()
+# ----------------------------------------------------------------- staging
+_STREAMS: Dict[Tuple[str, Any], Any] = {}
+_STREAMS_LOCK = threading.Lock()
 
 
-def _capture_stream(device: torch.device):
-    """The stream every window of a card is captured on, and its warm-up
-    step runs on (so the libraries' per-stream state, such as cuBLAS's
-    workspace, exists before a capture)."""
-    with _CAPTURE_LOCK:
-        s = _CAPTURE_STREAMS.get(device.index)
+def _side_stream(role: str, device: torch.device):
+    """The card's stream for one role, made at first use: ``copy`` stages
+    batches; ``capture`` captures every window and runs the warm-up steps
+    (so the libraries' per-stream state, such as cuBLAS's workspace, exists
+    before a capture)."""
+    with _STREAMS_LOCK:
+        s = _STREAMS.get((role, device.index))
         if s is None:
-            s = _CAPTURE_STREAMS[device.index] = torch.cuda.Stream(device)
+            s = _STREAMS[role, device.index] = torch.cuda.Stream(device)
         return s
 
 
+def stage_tokens(host, device) -> torch.Tensor:
+    """A host int array (``(B, T)`` or ``(K, B, T)``) on ``device`` as int64
+    token ids, ready for kernels on the current stream.
+
+    On the card the array goes through pinned host memory and a
+    ``non_blocking`` copy on the copy stream, so the copy runs beside the
+    work already queued; the current stream waits on an event recorded
+    after the copy, and ``record_stream`` keeps the caching allocator from
+    reusing the tensor before that stream's kernels have read it. Nothing
+    synchronizes the host. On the CPU it is the host array as a tensor."""
+    device = torch.device(device)
+    src = torch.from_numpy(np.ascontiguousarray(host))
+    if device.type != "cuda":
+        return src.to(device, torch.long)
+    pinned = torch.empty(src.shape, dtype=torch.long, pin_memory=True)
+    pinned.copy_(src)
+    copy = _side_stream("copy", device)
+    with torch.cuda.stream(copy):
+        out = torch.empty(src.shape, dtype=torch.long, device=device)
+        out.copy_(pinned, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(copy)
+    current = torch.cuda.current_stream(device)
+    current.wait_event(done)
+    out.record_stream(current)
+    return out
+
+
+# ----------------------------------------------------------------- windows
 def _state_key(state: Dict[str, Any]) -> Tuple[int, ...]:
     """The addresses a captured step reads and writes: parameters, buffers
     and optimizer state. ``Optimizer.load_state_dict`` changes them."""
@@ -139,6 +149,9 @@ class _PlainWindow:
 
     def __init__(self, step: Callable, k: int):
         self.step, self.k = step, k
+
+    def captured_on(self, state) -> bool:
+        return True  # nothing to capture
 
     def __call__(self, state, window: torch.Tensor):
         losses = []
@@ -164,8 +177,9 @@ class _GraphWindow:
     Capture runs nothing, so the state's Python step count is put back
     after it; each replay advances it by K and adds the launches the
     kernel wrappers recorded during capture to their counts. A capture
-    needs an eager step of the same state first (the optimizer makes its
-    moments at its first step; capture may not allocate them lazily)."""
+    needs a state that has stepped (the optimizer makes its moments at its
+    first step; capture may not allocate them lazily): ``execute`` runs an
+    eager step first on a state no window of its bundle has captured."""
 
     def __init__(self, step: Callable, k: int, device: torch.device, pool):
         self.step, self.k, self.device, self.pool = step, k, device, pool
@@ -184,12 +198,12 @@ class _GraphWindow:
         self.static = torch.zeros(tuple(shape), dtype=torch.long, device=self.device)
         self.losses = torch.zeros(self.k, dtype=torch.float32, device=self.device)
         graph = torch.cuda.CUDAGraph()
-        stream = _capture_stream(self.device)
+        stream = _side_stream("capture", self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
         step0 = state["step"]
         try:
-            # thread_local: the prefetch thread may pin host memory and the
-            # other tasks' threads may allocate while this thread captures
+            # thread_local: the other tasks' threads may pin host memory or
+            # allocate while this thread captures
             with launches.recording(stream.cuda_stream) as recorded:
                 with torch.cuda.graph(graph, pool=self.pool, stream=stream,
                                       capture_error_mode="thread_local"):
@@ -232,14 +246,14 @@ class _Bundle:
     def stage(self, host_batch) -> torch.Tensor:
         """A host (B, T) int batch on the device as int64 token ids, ready
         on the current stream."""
-        return stage_tokens(host_batch, self.device).take()
+        return stage_tokens(host_batch, self.device)
 
     def warm_step(self, state, batch: torch.Tensor):
         """One eager train step before a capture: on the card it runs on the
         capture stream, ordered after and before the current stream's work."""
         if self.device.type != "cuda":
             return self.step(state, batch)
-        stream = _capture_stream(self.device)
+        stream = _side_stream("capture", self.device)
         current = torch.cuda.current_stream(self.device)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
@@ -270,13 +284,23 @@ class _Bundle:
                 self._windows[k] = win
             return win
 
-    def has_window(self, k: int, state) -> bool:
-        """Whether the K-step window runs ``state`` without a capture."""
+    def warmed(self, state) -> bool:
+        """Whether a window may be captured on ``state`` without an eager
+        step first: a window of this bundle is captured on it (on the CPU
+        nothing is captured)."""
         if self.device.type != "cuda":
             return True
         with self._lock:
-            win = self._windows.get(int(k))
-        return win is not None and win.captured_on(state)
+            wins = list(self._windows.values())
+        return any(win.captured_on(state) for win in wins)
+
+    def capture(self, sizes, state, shape) -> None:
+        """Capture, on ``state``, every window of ``sizes`` not captured on
+        it yet, for batches of ``shape`` (B, T)."""
+        for k in sizes:
+            win = self.fused(k)
+            if not win.captured_on(state):
+                win.capture(state, (k, *shape))
 
     def release_windows(self) -> None:
         """Free every window's graph and the graph memory pool."""
@@ -294,10 +318,6 @@ class SPMDTechnique(BaseTechnique):
     # Whether standard-loss tasks may route through the model's fused
     # head+loss (``ModelSpec.fused_loss_fn``).
     fused_loss_ok = True
-    # Whether this technique may run K-step windows at all.
-    fused_dispatch_ok = True
-    # The engine passes ``window_size`` to ``execute``.
-    supports_windows = True
 
     def __init__(self) -> None:
         # Every trial this instance ran: (task, size, config, seconds per
@@ -460,12 +480,10 @@ class SPMDTechnique(BaseTechnique):
                 torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- windows
-    def _fused_ok(self, config: Dict[str, Any], task: Any) -> bool:
-        """Whether this (config, task) may run K-step windows. A user's
-        optimizer callable may not: whether its step can be captured cannot
-        be checked, so such a task runs one step at a time (logged once)."""
-        if not self.fused_dispatch_ok:
-            return False
+    def _fused_ok(self, task: Any) -> bool:
+        """Whether the task may run K-step windows. A user's optimizer
+        callable may not: whether its step can be captured cannot be
+        checked, so such a task runs one step at a time (logged once)."""
         if callable(task.hparams.optimizer):
             if task.name not in self._eager_noted:
                 self._eager_noted.add(task.name)
@@ -474,10 +492,12 @@ class SPMDTechnique(BaseTechnique):
             return False
         return True
 
-    def _profile_window(self, config: Dict[str, Any], task: Any) -> int:
-        """The K a trial times: steady-state ``execute`` runs windows of the
-        largest size, so that is the program the solver's times describe."""
-        return max_window() if self._fused_ok(config, task) else 1
+    def _window(self, task: Any, window_size: Optional[int] = None) -> int:
+        """The K of the task's windows, in trials and in ``execute``:
+        ``window_size`` if given, else ``max_window()``; 1 where
+        ``_fused_ok`` says no."""
+        k = max_window() if window_size is None else max(1, int(window_size))
+        return k if k == 1 or self._fused_ok(task) else 1
 
     # ---------------------------------------------------------------- search
     def search(
@@ -509,7 +529,7 @@ class SPMDTechnique(BaseTechnique):
         """Seconds per batch of the program ``execute`` dispatches at steady
         state for one config; None = over device memory.
 
-        With K > 1 (``_profile_window``): one eager warm-up step, then the
+        With K > 1 (``_window``): one eager warm-up step, then the
         K-step window through ``timing.time_fused_window`` (its warm-up
         call captures the graph), every window stack staged before the
         timed region. The peak memory is taken over the same program, the
@@ -517,7 +537,7 @@ class SPMDTechnique(BaseTechnique):
         With K = 1: single steps through ``timing.time_train_step``."""
         bundle = self.build(task, devices, config)
         dev = bundle.device
-        k = self._profile_window(config, task)
+        k = self._window(task)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         timing.reset_peak_memory(dev)
@@ -528,7 +548,7 @@ class SPMDTechnique(BaseTechnique):
 
                 def stage(j: int) -> torch.Tensor:
                     return stage_tokens(
-                        np.stack([task.batch_at(1 + j * k + i) for i in range(k)]), dev).take()
+                        np.stack([task.batch_at(1 + j * k + i) for i in range(k)]), dev)
 
                 t = timing.time_fused_window(bundle.fused(k), state, stage, k,
                                              n_timed=2, n_warmup=1)
@@ -567,14 +587,17 @@ class SPMDTechnique(BaseTechnique):
         this bundle, else the checkpoint (the data cursor follows its step
         count), else a fresh init; the live state is dropped before the
         first dispatch, so an interval that fails leaves none. K is
-        ``window_size`` (the engine's ``pick_window``) or ``choose_window(n)``,
-        1 where ``_fused_ok`` says no. The units (``unit_plan``) are staged
-        one ahead on a prefetch thread. Where the window is not captured on
-        this state yet, the first unit is an eager step, and the capture
-        follows it before the clock of the realized time starts. The losses
-        are read back once (``task.last_losses``); the realized per-batch
-        time counts the batches after the first unit. The interval ends
-        with ``checkpoint.save_async`` and the state kept live."""
+        ``_window(task, window_size)`` for every n: unlike the JAX
+        package's ``choose_window``, a budget under K does not shrink K, since
+        a new K would cost a capture; the tail and a short interval run
+        through the one-step window instead (``unit_plan``). On a state that
+        no window of the bundle has captured, the first unit is an eager
+        step; every capture the plan needs follows the first unit's staging,
+        before the clock of the realized time starts. Each unit's batch is
+        staged just before it, while the device runs the previous one. The
+        losses are read back once (``task.last_losses``); the realized
+        per-batch time counts the batches after the first unit. The interval
+        ends with ``checkpoint.save_async`` and the state kept live."""
         config = dict(task.selected_strategy.params or {})
         bundle = self.build(task, devices, config)
         key = self._bundle_key(task, devices, config)
@@ -593,53 +616,46 @@ class SPMDTechnique(BaseTechnique):
         task._live_state = None
 
         n = int(task.total_batches if override_batch_count is None else override_batch_count)
-        k = choose_window(n) if window_size is None else int(window_size)
-        k = max(1, min(k, max(n, 1)))
-        if k > 1 and not self._fused_ok(config, task):
-            k = 1
-        units = unit_plan(n, k, warm=k > 1 and not bundle.has_window(k, state))
-        window = bundle.fused(k) if any(u[0] == "window" for u in units) else None
+        k = self._window(task, window_size)
+        units = unit_plan(n, k, warm=k > 1 and not bundle.warmed(state))
+        sizes = sorted({size for kind, _, size in units if kind == "window"}, reverse=True)
         start = task.current_batch
-        dev = bundle.device
 
-        def stage(u: int) -> Staged:
-            kind, off, size = units[u]
+        def stage(kind: str, off: int, size: int) -> torch.Tensor:
             if kind == "window":
                 host = np.stack([task.batch_at(start + off + j) for j in range(size)])
             else:
                 host = task.batch_at(start + off)
-            return stage_tokens(host, dev)
+            return stage_tokens(host, bundle.device)
 
         unit_losses: List[torch.Tensor] = []
         capture_s = None
         t_all0 = t_steady = timeit.default_timer()
         state_s = t_all0 - t_begin
-        prefetch = DevicePrefetcher(len(units), stage, depth=2)
-        try:
-            for u, staged in enumerate(prefetch):
-                kind, _, size = units[u]
-                if kind == "window":
-                    state, loss = window(state, staged.take())
-                elif kind == "warm":
-                    state, loss = bundle.warm_step(state, staged.take())
-                    t0 = timeit.default_timer()
-                    window.capture(state, (k, *staged.shape))
-                    capture_s = timeit.default_timer() - t0
-                else:
-                    state, loss = bundle.step(state, staged.take())
-                unit_losses.append(loss.reshape(-1))
-                if u == 0 and len(units) > 1:
-                    # the first unit pays one-time costs (and, before a
-                    # window, the capture): keep it out of the realized time
-                    timing.synchronize(dev)
-                    t_steady = timeit.default_timer()
-        finally:
-            prefetch.close()
+        for u, (kind, off, size) in enumerate(units):
+            batch = stage(kind, off, size)
+            if kind == "warm":
+                state, loss = bundle.warm_step(state, batch)
+            if u == 0 and sizes:
+                t0 = timeit.default_timer()
+                bundle.capture(sizes, state, batch.shape[-2:])
+                capture_s = timeit.default_timer() - t0
+            if kind == "window":
+                state, loss = bundle.fused(size)(state, batch)
+            elif kind == "step":
+                state, loss = bundle.step(state, batch)
+            unit_losses.append(loss.reshape(-1))
+            if u == 0 and len(units) > 1:
+                # the first unit pays one-time costs (and the captures):
+                # keep it out of the realized time
+                timing.synchronize(bundle.device)
+                t_steady = timeit.default_timer()
 
-        n_windows = sum(u[0] == "window" for u in units)
+        n_windows = sum(kind == "window" and size == k for kind, _, size in units)
+        warm = bool(units) and units[0][0] == "warm"
         record = {"task": task.name, "config": config, "n": n, "k": k,
-                  "windows": n_windows, "tail": sum(u[0] == "step" for u in units),
-                  "warm": bool(units) and units[0][0] == "warm", "capture_s": capture_s,
+                  "windows": n_windows, "tail": n - int(warm) - n_windows * k,
+                  "warm": warm, "capture_s": capture_s,
                   "restored": restored, "per_batch_s": None,
                   # host seconds: getting the state (live, restore or
                   # init), the units up to the loss readback, the
@@ -659,7 +675,7 @@ class SPMDTechnique(BaseTechnique):
             record["per_batch_s"] = per_batch
             log.info("task %s [%s]: ran %d batches (K=%d, %d windows, tail %d%s%s), "
                      "loss %.4f, %.4fs/batch", task.name, self.name, n, k, n_windows,
-                     record["tail"], ", eager warm-up step" if record["warm"] else "",
+                     record["tail"], ", eager warm-up step" if warm else "",
                      ", restored from the checkpoint" if restored else "",
                      task.last_losses[-1], per_batch)
         t_save = timeit.default_timer()

@@ -49,8 +49,8 @@ def time_fused_window(
 
     ``stage(j)`` returns the device-staged (K, ...) window stack of call
     ``j``; every stack is staged before the timed region, which holds only
-    the windows (at execute() time the prefetcher overlaps staging with
-    compute). Synchronized on the device at both ends. ``n_warmup >= 1``:
+    the windows (in ``execute`` a unit's staging overlaps the device's work
+    on the previous unit). Synchronized on the device at both ends. ``n_warmup >= 1``:
     the warm-up call is where a window is captured."""
     if n_warmup < 1:
         raise ValueError("time_fused_window needs n_warmup >= 1")

@@ -228,3 +228,17 @@ def test_compare_windowed(smoke, windowed, eager, want):
             smoke.compare_windowed("flash", windowed, eager)
     else:
         assert smoke.compare_windowed("flash", windowed, eager).startswith(want)
+
+
+@pytest.mark.parametrize("attention,loss_fn,steps,flash_n,ce_n", [
+    ("flash", None, 1, 12, 1),
+    ("flash", "untagged", 10, 120, 0),
+    ("dense", None, 10, 0, 10),
+])
+def test_want_launches(smoke, attention, loss_fn, steps, flash_n, ce_n):
+    """What phases 4 and 5 hold the counts to: one launch of each flash
+    kernel per layer per step with flash attention, one of each CE kernel
+    per step on the fused head."""
+    want = smoke.want_launches(attention, loss_fn, steps)
+    assert want == {**{n: flash_n for n in smoke.FLASH_NAMES},
+                    **{n: ce_n for n in smoke.CE_NAMES}}

@@ -488,10 +488,10 @@ def _run(task, tech, device, n, k):
 
 @pytest.mark.cuda
 def test_graphed_window_matches_eager_steps(cuda_device, tmp_path):
-    """execute in windows of 4 (an eager step, the capture, two windows and
-    a tail of one) against one step at a time: the same losses and the
-    exact launch counts (one of each flash kernel per layer per step, one
-    of each CE kernel per step) in both."""
+    """execute in windows of 4 (an eager step, the captures, two windows and
+    a tail of one one-step window) against one step at a time: the same
+    losses and the exact launch counts (one of each flash kernel per layer
+    per step, one of each CE kernel per step) in both."""
     runs = {}
     for k in (4, 1):
         task, tech = _small_task(tmp_path, f"k{k}")
@@ -505,16 +505,27 @@ def test_graphed_window_matches_eager_steps(cuda_device, tmp_path):
 
 @pytest.mark.cuda
 def test_graph_replay_counts_launches_exactly(cuda_device, tmp_path):
-    """A second interval replays the window captured in the first: no warm
-    step, no capture, and each replay adds the launches it holds."""
+    """Later intervals replay, on the live state, the graphs captured
+    earlier: the second interval captures only its one-step window, the
+    third nothing. Each replay adds the launches it holds, and the 9 + 10 +
+    3 steps of the three intervals equal 22 steps taken one at a time from
+    the same init."""
+    whole, tech = _small_task(tmp_path, "replay-whole")
+    ref, _ = _run(whole, tech, cuda_device, 22, 1)
+
     task, tech = _small_task(tmp_path, "replay")
-    _run(task, tech, cuda_device, 9, 4)
-    losses, launched = _run(task, tech, cuda_device, 8, 4)
-    rec = tech.intervals[-1]
-    assert (rec["windows"], rec["tail"], rec["warm"], rec["restored"]) == (2, 0, False, False)
-    assert launched == {"flash_fwd": 16, "flash_dq": 16, "flash_dkv": 16,
-                        "ce_fwd": 8, "ce_dx": 8, "ce_dw": 8}
-    assert np.isfinite(losses).all()
+    bundle = tech.build(task, [cuda_device], dict(task.selected_strategy.params))
+    got = []
+    for n, plan in ((9, (2, 0, True)), (10, (2, 2, False)), (3, (0, 3, False))):
+        losses, launched = _run(task, tech, cuda_device, n, 4)
+        rec = tech.intervals[-1]
+        assert (rec["windows"], rec["tail"], rec["warm"]) == plan and not rec["restored"]
+        assert launched == {"flash_fwd": 2 * n, "flash_dq": 2 * n, "flash_dkv": 2 * n,
+                            "ce_fwd": n, "ce_dx": n, "ce_dw": n}
+        live = task._live_state[1]
+        assert bundle.fused(4).captured_on(live) and (n == 9 or bundle.fused(1).captured_on(live))
+        got += losses
+    np.testing.assert_allclose(got, ref, rtol=0, atol=WINDOW_ATOL)
 
 
 @pytest.mark.cuda
@@ -529,12 +540,12 @@ def test_restore_then_capture_again(cuda_device, tmp_path):
     first, _ = _run(task, tech, cuda_device, 9, 4)
     bundle = tech.build(task, [cuda_device], dict(task.selected_strategy.params))
     live = task._live_state[1]
-    assert bundle.has_window(4, live)
+    assert bundle.fused(4).captured_on(live)
     task.release_live_state()
     second, _ = _run(task, tech, cuda_device, 9, 4)
     rec = tech.intervals[-1]
     assert rec["restored"] and rec["warm"] and (rec["windows"], rec["tail"]) == (2, 0)
-    assert not bundle.has_window(4, live)
+    assert not bundle.fused(4).captured_on(live)
     np.testing.assert_allclose(first + second, ref, rtol=0, atol=WINDOW_ATOL)
 
 
@@ -601,11 +612,11 @@ def test_restore_puts_capturable_steps_on_the_card(cuda_device, tmp_path):
 @pytest.mark.cuda
 def test_capture_while_another_thread_stages(cuda_device, tmp_path):
     """A window is captured while another thread pins host memory and copies
-    batches to the card (the prefetcher's work): the capture holds, and the
-    windowed losses equal the eager ones."""
+    batches to the card (what another task's ``execute`` does): the capture
+    holds, and the windowed losses equal the eager ones."""
     import threading
 
-    from saturn_tpu_torch.data.prefetch import stage_tokens
+    from saturn_tpu_torch.parallel.spmd_base import stage_tokens
 
     stop = threading.Event()
     staged = []
@@ -616,7 +627,7 @@ def test_capture_while_another_thread_stages(cuda_device, tmp_path):
         while not stop.is_set():
             size = size * 2 if size < (1 << 22) else 1 << 12  # new pinned blocks
             staged.append(stage_tokens(rng.integers(0, 512, size, dtype=np.int32),
-                                       cuda_device).take().sum())
+                                       cuda_device).sum())
 
     runs = {}
     for k in (4, 1):

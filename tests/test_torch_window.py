@@ -1,11 +1,14 @@
 """The port's interval pipeline against the JAX package's, on the CPU.
 
-- The window policy (``choose_window``, ``max_window``,
-  ``dispatch_signature``) equals the JAX package's over n 0-40, caps 0-12
-  and the environment cases of ``tests/test_step_pipeline.py``.
-- The prefetcher has the JAX prefetcher's semantics (the cases of
-  ``tests/test_step_pipeline.py``): order, bounded depth, errors re-raised
-  at their position (``BaseException`` too), ``try_next``, ``close``.
+- The window ceiling (``max_window``) equals the JAX package's over the
+  environment cases of ``tests/test_step_pipeline.py``; the port's K is that
+  ceiling for every budget (the JAX package's ``choose_window`` shrinks it
+  to a shorter budget), and an interval's tail and a short interval run
+  through one-step windows.
+- The JAX prefetcher's semantics (order, bounded depth, errors re-raised at
+  their position, ``try_next``, ``close``, the shape contract), which the
+  port replaces by staging each unit inline on the consumer's thread
+  (``stage_tokens``).
 - A ``test-tiny`` ``execute`` in windows of 4 over 10 batches equals the
   per-step run bitwise (losses and final state: the plain window runs the
   same steps), and its losses lie within 1e-4 of those of the JAX
@@ -20,6 +23,7 @@
 
 import functools
 import threading
+import types
 
 import jax
 import numpy as np
@@ -37,9 +41,7 @@ from saturn_tpu.parallel.dp import DataParallel as JDataParallel
 from saturn_tpu.resilience.crash import SimulatedKill
 from saturn_tpu.utils import checkpoint as jckpt
 from saturn_tpu_torch import HParams, Strategy, Task
-from saturn_tpu_torch.data import prefetch
 from saturn_tpu_torch.data.lm_dataset import make_lm_dataset
-from saturn_tpu_torch.executor import engine
 from saturn_tpu_torch.models.convert import params_from_jax
 from saturn_tpu_torch.models.gpt2 import build_gpt2
 from saturn_tpu_torch.models.loss import pretraining_loss
@@ -61,38 +63,41 @@ def test_window_policy_matches_jax(monkeypatch, env):
         monkeypatch.setenv(ENV, env)
     assert spmd_base.DEFAULT_MAX_WINDOW == jspmd.DEFAULT_MAX_WINDOW
     assert spmd_base.max_window() == jspmd.max_window()
-    assert spmd_base.dispatch_signature() == jspmd.dispatch_signature()
-    assert engine._window_cap() == jspmd.max_window()
-    for n in range(41):
-        assert spmd_base.choose_window(n) == jspmd.choose_window(n), n
-        assert engine.pick_window(n) == jspmd.choose_window(n), n
-        for cap in range(13):
-            assert spmd_base.choose_window(n, cap) == jspmd.choose_window(n, cap), (n, cap)
+    task = types.SimpleNamespace(name="policy", hparams=HParams(batch_count=1))
+    tech = DataParallel()
+    # K is the ceiling whatever the budget; where the budget reaches it,
+    # that is the JAX package's K too
+    assert tech._window(task) == spmd_base.max_window()
+    for n in range(spmd_base.max_window(), 41):
+        assert tech._window(task) == jspmd.choose_window(n), n
+    for size in range(13):
+        assert tech._window(task, size) == max(1, size)
 
 
 @pytest.mark.parametrize("n,k,warm", [
     (0, 1, False), (1, 1, False), (10, 1, True), (10, 4, False), (10, 4, True),
     (8, 8, False), (8, 8, True), (9, 8, True), (17, 8, True), (3, 3, True), (24, 8, False),
+    (3, 8, True), (3, 8, False), (1, 8, True), (0, 8, True),
 ])
 def test_unit_plan_runs_every_batch_once(n, k, warm):
-    """Windows, then the tail; with ``warm`` an eager step first, where a
-    window follows it, else single steps only."""
+    """K = 1: eager steps. Else windows of K, then a tail of one-step
+    windows; with ``warm`` an eager step first."""
     units = spmd_base.unit_plan(n, k, warm)
     batches = [off + j for _, off, size in units for j in range(size)]
     assert batches == list(range(n))
-    kinds = [u[0] for u in units]
-    if k == 1 or (warm and n - 1 < k):  # no window: nothing to capture
-        assert kinds == ["step"] * n
+    if k == 1:
+        assert units == [("step", j, 1) for j in range(n)]
     else:
-        lead = int(warm)
+        lead = int(warm and n > 0)
         windows = (n - lead) // k
-        assert kinds == ["warm"] * lead + ["window"] * windows + ["step"] * (n - lead - windows * k)
-    assert all(size == k for kind, _, size in units if kind == "window")
+        assert [u[0] for u in units] == ["warm"] * lead + ["window"] * (n - lead - windows * (k - 1))
+        assert [size for _, _, size in units] == [1] * lead + [k] * windows + [1] * (
+            n - lead - windows * k)
 
 
 # --------------------------------------------------------------- prefetcher
-PREFETCHERS = [jprefetch.DevicePrefetcher, prefetch.DevicePrefetcher]
-IDS = ["jax", "port"]
+PREFETCHERS = [jprefetch.DevicePrefetcher]
+IDS = ["jax"]
 
 
 @pytest.mark.parametrize("cls", PREFETCHERS, ids=IDS)
@@ -149,7 +154,7 @@ def test_prefetcher_close_unblocks_parked_producer(cls):
         next(pf)
 
 
-@pytest.mark.parametrize("mod", [jprefetch, prefetch], ids=IDS)
+@pytest.mark.parametrize("mod", [jprefetch], ids=IDS)
 def test_prefetcher_try_next(mod):
     gate = threading.Event()
 
@@ -183,7 +188,7 @@ def test_prefetcher_try_next(mod):
         pf.close()
 
 
-@pytest.mark.parametrize("mod", [jprefetch, prefetch], ids=IDS)
+@pytest.mark.parametrize("mod", [jprefetch], ids=IDS)
 def test_prefetcher_shape_contract(mod):
     pf = mod.DevicePrefetcher(2, lambda i: np.zeros((4, 2, 3) if i else (2, 3)),
                               expect_shapes=[(2, 3)])
@@ -195,12 +200,12 @@ def test_prefetcher_shape_contract(mod):
         pf.close()
 
 
-def test_stage_tokens_on_the_cpu_is_the_host_batch():
-    host = np.arange(12, dtype=np.int32).reshape(3, 4)
-    staged = prefetch.stage_tokens(host, "cpu")
-    assert staged.event is None and staged.shape == (3, 4)
-    got = staged.take()
-    assert got.dtype == torch.long and got.device.type == "cpu"
+@pytest.mark.parametrize("shape", [(3, 4), (2, 3, 4)], ids=["step", "window"])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_stage_tokens_on_the_cpu_is_the_host_batch(shape, dtype):
+    host = np.arange(int(np.prod(shape)), dtype=dtype).reshape(shape)
+    got = spmd_base.stage_tokens(host, "cpu")
+    assert got.dtype == torch.long and got.device.type == "cpu" and got.shape == shape
     np.testing.assert_array_equal(got.numpy(), host)
 
 
@@ -294,6 +299,24 @@ def test_windowed_execute_equals_per_step_and_jax(tmp_path, monkeypatch):
     _assert_same_state(runs[4][1], runs[1][1])
     assert runs[4][1]["step"] == 10
     np.testing.assert_allclose(runs[4][0], want, rtol=TRAJ_TOL, atol=TRAJ_TOL)
+
+
+@pytest.mark.parametrize("n", [3, 8, 11])
+def test_k_is_the_ceiling_for_every_budget(tmp_path, monkeypatch, n):
+    """With no ``window_size`` K is ``max_window()`` whatever the budget:
+    ``n // K`` windows of K, the rest one-step windows, the losses and the
+    final state those of one step at a time."""
+    monkeypatch.setenv(ENV, "8")
+    runs = {}
+    for k in (None, 1):
+        task, tech = _task(tmp_path / f"k{k}", batch_count=n)
+        tech.execute(task, CPU, 0, override_batch_count=n, window_size=k)
+        rec = tech.intervals[-1]
+        assert (rec["k"], rec["windows"], rec["tail"]) == ((8, n // 8, n % 8) if k is None
+                                                           else (1, 0, n))
+        runs[k] = (task.last_losses, _state_dict(task))
+    assert runs[None][0] == runs[1][0]  # bitwise
+    _assert_same_state(runs[None][1], runs[1][1])
 
 
 def test_live_state_skips_the_restore(tmp_path, monkeypatch):
@@ -399,7 +422,7 @@ def test_user_optimizer_runs_one_step_at_a_time(tmp_path, caplog):
     task, tech = _task(tmp_path)
     task.hparams.optimizer = lambda params, lr: torch.optim.SGD(params, lr=lr)
     with caplog.at_level("INFO", logger="saturn_tpu_torch"):
-        assert tech._profile_window({}, task) == 1
+        assert tech._window(task) == 1
         tech.execute(task, CPU, 0, override_batch_count=6, window_size=4)
     assert tech.intervals[-1]["k"] == 1 and tech.intervals[-1]["tail"] == 6
     assert sum("user optimizer callable" in r.message for r in caplog.records) == 1
@@ -418,4 +441,6 @@ def test_orchestrate_releases_finished_tasks(tmp_path):
     sat.orchestrate([task], interval=1000.0, topology=topo)
     assert task._live_state is None and tech._bundles == {}
     assert ckpt.load(task.ckpt_path)["step"] == 6
-    assert [(r["k"], r["windows"]) for r in tech.intervals] == [(6, 1)]
+    # 6 batches under K = 8: no window of 8; the tail runs as one-step windows
+    assert [(r["k"], r["windows"], r["tail"]) for r in tech.intervals] == [
+        (spmd_base.max_window(), 0, 6)]
