@@ -7,16 +7,16 @@ solved exactly with HiGHS (``solver/lp.py``). The introspective re-solve
 (``resolve``) adopts a fresh plan only when it beats the previous plan slid
 down by one interval by more than ``threshold``.
 
-The JAX package seeds the MILP with its native C++ scheduler's plan; here
-the list-scheduling plan (``greedy_plan``, the native scheduler's
-constructor) is the incumbent, and above ``milp_task_limit`` tasks, where
-the JAX package hands over to the native scheduler, this raises. The
-co-location and fusion terms are later items.
+As in the JAX package, the native C++ scheduler (``native_sched``) seeds
+the MILP with its plan, and above ``milp_task_limit`` tasks it takes over
+the whole solve. The co-location and fusion terms and priority ``weights``
+are later items.
 """
 
 from __future__ import annotations
 
 import logging
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -88,16 +88,29 @@ class DeviceTimeline:
         for d in range(blk.offset, blk.end):
             self._events[d].append((start, end))
 
+    def place(self, blk: Block, runtime: float, slack: float) -> float:
+        """Book the earliest slack-padded slot for ``runtime`` on ``blk``;
+        returns the start time."""
+        st = self.earliest_free(blk, runtime + slack)
+        self.occupy(blk, st, st + runtime + slack)
+        return st
+
 
 def _min_finish_slot(t, topology: SliceTopology, timeline: DeviceTimeline,
-                     ordering_slack: float):
+                     ordering_slack: float, probe_cap: Optional[int] = None):
     """(finish, start, size, block, runtime) of the task's earliest-finishing
-    (strategy, block) slot, or None when no strategy fits."""
+    (strategy, block) slot, or None when no strategy fits. ``probe_cap``
+    stops the search, in the sorted option order, after that many slots once
+    one was found."""
     best = None
+    probes = 0
     for size, strat in sorted(t.feasible_strategies().items()):
         if size > topology.capacity:
             continue
         for blk in topology.blocks(size):
+            if probe_cap is not None and probes >= probe_cap and best is not None:
+                return best
+            probes += 1
             st = timeline.earliest_free(blk, strat.runtime + ordering_slack)
             fin = st + strat.runtime
             if best is None or fin < best[0]:
@@ -115,11 +128,14 @@ def warm_schedule(
     previous: Plan,
     ordering_slack: float = 1.0,
     insert_missing: bool = False,
+    insertion_probe_cap: Optional[int] = None,
 ) -> Optional[Plan]:
     """Fix-and-optimize warm start: keep each task's previous (size, block),
     list-schedule the starts under CURRENT runtimes in previous start order.
     Returns None if a task has no usable previous choice, unless
-    ``insert_missing``, which appends such tasks at their min-finish slot."""
+    ``insert_missing``, which appends such tasks at their min-finish slot
+    (at most ``insertion_probe_cap`` slots probed each, once one fits: the
+    anytime solver's tier 0)."""
     pinned: List[Tuple[object, int, Block, float]] = []
     loose: List = []
     for t in task_list:
@@ -138,11 +154,11 @@ def warm_schedule(
     timeline = DeviceTimeline(topology.capacity)
     assignments: Dict[str, Assignment] = {}
     for t, size, blk, rt in pinned:
-        st = timeline.earliest_free(blk, rt + ordering_slack)
-        timeline.occupy(blk, st, st + rt + ordering_slack)
+        st = timeline.place(blk, rt, ordering_slack)
         assignments[t.name] = Assignment(size, blk, st, rt)
     for t in sorted(loose, key=_longest_first):
-        best = _min_finish_slot(t, topology, timeline, ordering_slack)
+        best = _min_finish_slot(t, topology, timeline, ordering_slack,
+                                probe_cap=insertion_probe_cap)
         if best is None:
             return None
         fin, st, size, blk, rt = best
@@ -186,10 +202,18 @@ def solve(
     warm: Optional[Plan] = None,
 ) -> Plan:
     """Build and solve the joint strategy/placement/schedule MILP over each
-    task's feasible strategies. ``warm`` (the previous plan) and the
-    list-scheduling plan are incumbents: their best makespan is a cut, and
-    the answer when HiGHS strikes out. The JAX package's priority
-    ``weights`` serve its online service, which the port does not have yet."""
+    task's feasible strategies.
+
+    Above ``milp_task_limit`` tasks the exact MILP's pairwise ordering rows
+    explode, and the native scheduler (``native_sched``) takes over: the
+    same option set, a validated plan, seeded with ``warm``'s choices and
+    given ``time_limit`` (5 s when None). Below it a short native pass
+    (at most 1 s, taken off ``time_limit``) seeds the MILP: its plan and the
+    fix-and-optimize plan of ``warm`` are incumbents, the better one's
+    makespan is a cut, and it is the answer when HiGHS strikes out. A native
+    plan that fails validation gives way to ``greedy_plan``. The JAX
+    package's priority ``weights`` serve its online service, which the port
+    does not have yet."""
     for t in task_list:
         if not t.feasible_strategies():
             raise ValueError(f"task {t.name} has no feasible strategy; run search first")
@@ -197,18 +221,38 @@ def solve(
             raise ValueError(
                 f"task {t.name}: no strategy fits topology capacity {topology.capacity}"
             )
-    if len(task_list) > milp_task_limit:
-        raise NotImplementedError(
-            f"{len(task_list)} tasks > milp_task_limit={milp_task_limit}: the "
-            "native large-batch scheduler is a later item of the PyTorch port"
-        )
+    from saturn_tpu_torch.solver import native_sched
 
-    incumbent = greedy_plan(task_list, topology, ordering_slack)
-    if warm is not None:
-        wplan = warm_schedule(task_list, topology, warm, ordering_slack,
-                              insert_missing=True)
-        if wplan is not None and wplan.makespan < incumbent.makespan:
-            incumbent = wplan
+    wplan = (
+        warm_schedule(task_list, topology, warm, ordering_slack, insert_missing=True)
+        if warm is not None else None
+    )
+
+    if len(task_list) > milp_task_limit:
+        plan = native_sched.solve_native(
+            task_list, topology,
+            time_limit=time_limit if time_limit is not None else 5.0,
+            ordering_slack=ordering_slack, warm=warm,
+        )
+        if plan is not None:
+            log.info("large batch (%d tasks): native scheduler makespan %.1fs",
+                     len(task_list), plan.makespan)
+            if wplan is not None and wplan.makespan < plan.makespan:
+                return wplan
+            return plan
+        if wplan is not None:
+            return wplan
+        return greedy_plan(task_list, topology, ordering_slack)
+
+    t_pre = time.perf_counter()
+    incumbent = native_sched.solve_native(
+        task_list, topology, time_limit=min(1.0, time_limit or 1.0),
+        ordering_slack=ordering_slack, warm=warm,
+    )
+    if time_limit is not None:
+        time_limit = max(0.1, time_limit - (time.perf_counter() - t_pre))
+    if wplan is not None and (incumbent is None or wplan.makespan < incumbent.makespan):
+        incumbent = wplan
 
     m = Model("spase")
     choices: Dict[str, List[Tuple[int, Block, float]]] = {}
@@ -279,12 +323,16 @@ def solve(
     m.minimize(
         makespan + sum((sta[n] for n in names), Expr()) * (1e-6 / max(len(names), 1))
     )
-    m.add(makespan <= incumbent.makespan + 1e-6 * max(incumbent.makespan, 1.0))
+    if incumbent is not None:
+        m.add(makespan <= incumbent.makespan + 1e-6 * max(incumbent.makespan, 1.0))
 
     res = m.solve(time_limit=time_limit)
     if not res.ok:
-        log.info("MILP found nothing better than the incumbent in time — keeping it")
-        return incumbent
+        if incumbent is not None:
+            log.info("MILP found nothing better than the incumbent in time — keeping it")
+            return incumbent
+        log.warning("MILP infeasible or failed — taking the greedy plan")
+        return greedy_plan(task_list, topology, ordering_slack)
 
     assignments: Dict[str, Assignment] = {}
     for t in task_list:

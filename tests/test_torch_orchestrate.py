@@ -17,6 +17,12 @@ from saturn_tpu_torch.solver import milp
 from saturn_tpu_torch.utils import checkpoint as ckpt
 
 
+@pytest.fixture(autouse=True)
+def _own_profile_cache(tmp_path, monkeypatch):
+    """Every search here reads and writes a profile cache of its own test."""
+    monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
+
+
 def _tasks(tmp_path, lrs, batch_count=6):
     return [
         sat.Task(
@@ -37,7 +43,9 @@ def test_search_then_orchestrate_completes(tmp_path):
     tasks = _tasks(tmp_path, [1e-3, 3e-3])
     topo = SliceTopology([torch.device("cpu")])
     stats = sat.search(tasks, technique_names=["dp"], topology=topo)
-    assert stats["trials_run"] == 2
+    # the two tasks differ only in lr: one trial, and the default profile
+    # cache answers for the other
+    assert stats["trials_run"] == 1 and stats["cache_hits"] == 1
     for t in tasks:
         s = t.strategies[1]
         assert s.feasible and s.per_batch_time > 0 and s.params["remat"] in (False, True)
@@ -127,9 +135,3 @@ def test_milp_makespan_matches_jax(seed):
                 assert (a1.start + a1.runtime <= a2.start + 1e-6
                         or a2.start + a2.runtime <= a1.start + 1e-6)
 
-
-def test_milp_above_task_limit_raises():
-    marker = object()
-    jobs = [_Job(f"t{i}", {1: sat.Strategy(marker, 1, {}, 10.0)}) for i in range(3)]
-    with pytest.raises(NotImplementedError, match="milp_task_limit"):
-        milp.solve(jobs, SliceTopology(["d"]), milp_task_limit=2)
