@@ -2,8 +2,8 @@
 
 Counterpart of ``saturn_tpu/core/strategy.py``. The allocation unit is a
 power-of-two number of devices forming one aligned block (``core/mesh.py``).
-The fields the JAX package adds for its profile cache, cost-model
-interpolation, co-scheduling and fused stacking are later items.
+The fields the JAX package adds for cost-model interpolation,
+co-scheduling and fused stacking are later items.
 """
 
 from __future__ import annotations
@@ -44,6 +44,10 @@ class Strategy:
     params: Optional[Dict[str, Any]]   # autotuned knobs; None = infeasible
     runtime: float                     # est. remaining runtime, seconds
     per_batch_time: float = field(default=0.0)  # seconds per batch (profiled)
+    # the profile-cache entry this strategy was read from or written to, and
+    # its directory: the orchestrator upgrades it with realized times
+    cache_key: Optional[str] = None
+    cache_dir: Optional[str] = None
 
     def __post_init__(self) -> None:
         if self.apportionment < 1:

@@ -119,6 +119,9 @@ class Task:
         # (strategy, realized per-batch seconds) noted by the executor and
         # folded in by the orchestrator between intervals
         self._pending_realized: Optional[tuple] = None
+        # the strategy the most recent apply_realized_feedback measured: the
+        # orchestrator writes its per-batch time to the profile cache
+        self.last_feedback_strategy: Optional[Strategy] = None
         # the most recent interval as the executing technique measured it:
         # per-step losses (host floats) and steady-state seconds per batch
         self.last_losses: List[float] = []
@@ -223,6 +226,7 @@ class Task:
             if old > 0.0 else realized
         )
         strat._self_measured = True
+        self.last_feedback_strategy = strat
         strat.runtime = strat.per_batch_time * max(self.total_batches, 0)
         trial_base = getattr(strat, "_trial_per_batch", 0.0) or 0.0
         if trial_base > 0.0:

@@ -32,6 +32,13 @@ from saturn_tpu_torch.ops import ce as tce
 from saturn_tpu_torch.parallel.dp import DataParallel
 from saturn_tpu_torch.utils import checkpoint as ckpt
 
+
+@pytest.fixture(autouse=True)
+def _own_profile_cache(tmp_path, monkeypatch):
+    """Every search here reads and writes a profile cache of its own test."""
+    monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
+
+
 F32, FUSED, TRAJ = 1e-5, 1e-4, 1e-4
 CPU = [torch.device("cpu")]
 

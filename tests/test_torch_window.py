@@ -49,6 +49,13 @@ from saturn_tpu_torch.parallel import spmd_base
 from saturn_tpu_torch.parallel.dp import DataParallel
 from saturn_tpu_torch.utils import checkpoint as ckpt
 
+
+@pytest.fixture(autouse=True)
+def _own_profile_cache(tmp_path, monkeypatch):
+    """Every search here reads and writes a profile cache of its own test."""
+    monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
+
+
 TRAJ_TOL = 1e-4
 CPU = [torch.device("cpu")]
 ENV = "SATURN_TPU_MAX_WINDOW"
