@@ -6,8 +6,8 @@ table the solver consumes. The data cursor has O(1) random access
 (``Dataset.batch(i)``); checkpoints are the full train state written by the
 executing technique (``utils/checkpoint.py``). ``_live_state`` keeps the
 train state on the device between intervals that run the same bundle. The
-JAX package's quarantine skip-list belongs to its health guardian, a later
-item here.
+quarantine skip-list (set by the health guardian) takes dataset indices out
+of the training sequence; the cursor walks the surviving indices.
 """
 
 from __future__ import annotations
@@ -110,6 +110,15 @@ class Task:
             self.total_batches = hparams.batch_count
 
         self.current_batch = 0  # data cursor, persists across intervals
+        # Quarantine skip-list (health guardian): dataset indices excluded
+        # from the training sequence. The cursor walks the SURVIVING
+        # sequence — sorted non-quarantined indices — so ``batch_at``,
+        # staging and the restore cursor agree on which batch step k is.
+        self._quarantined: set = set()
+        self._surviving: Optional[List[int]] = None  # cache, None = dirty
+        # the health sentinel's EWMA carry [ewma, steps], advanced only by a
+        # healthy interval (``health/sentinel.py``)
+        self._sentinel_carry = None
         self.strategies: Dict[int, Strategy] = {}
         self.selected_strategy: Optional[Strategy] = None
         # Device train state from the most recent interval, keyed by the
@@ -160,16 +169,59 @@ class Task:
             self._dataset = self._get_dataloader()
         return self._dataset
 
-    def dataset_index(self, step: int) -> int:
-        return step % max(self.epoch_length, 1)
-
     def batch_at(self, step: int):
-        """O(1) random access to the batch for global step ``step``."""
+        """O(1) random access to the batch for global step ``step``,
+        skipping quarantined dataset indices."""
         return self.get_dataset().batch(self.dataset_index(step))
 
+    # ------------------------------------------------------------- quarantine
+    def quarantine_batches(self, indices) -> None:
+        """Exclude dataset indices from the training sequence (the health
+        guardian's skip-list). Refuses to quarantine the whole dataset — a
+        job with no surviving batch is an eviction, not a skip."""
+        add = {int(i) % max(self.epoch_length, 1) for i in indices}
+        if len(self._quarantined | add) >= self.epoch_length:
+            raise ValueError(
+                f"task {self.name}: quarantining {sorted(add)} would leave "
+                "no surviving batches"
+            )
+        self._quarantined |= add
+        self._surviving = None
+
+    def unquarantine_batches(self, indices=None) -> None:
+        """Lift quarantine for ``indices`` (or all, when ``None``)."""
+        if indices is None:
+            self._quarantined.clear()
+        else:
+            self._quarantined -= {int(i) for i in indices}
+        self._surviving = None
+
+    @property
+    def quarantined_batches(self) -> tuple:
+        return tuple(sorted(self._quarantined))
+
+    @property
+    def surviving_epoch_length(self) -> int:
+        """Epoch length after quarantine — the modulus for cursor math."""
+        return self.epoch_length - len(self._quarantined)
+
+    def _surviving_indices(self) -> List[int]:
+        if self._surviving is None:
+            q = self._quarantined
+            self._surviving = [i for i in range(self.epoch_length) if i not in q]
+        return self._surviving
+
+    def dataset_index(self, step: int) -> int:
+        """Map a cursor step to its dataset index through the skip-list."""
+        if not self._quarantined:
+            return step % max(self.epoch_length, 1)
+        surviving = self._surviving_indices()
+        return surviving[step % len(surviving)]
+
     def cursor_for_step(self, step: int) -> int:
-        """The data cursor for a restored global step."""
-        return step % max(self.epoch_length, 1)
+        """The data cursor for a restored global step, on the surviving
+        sequence."""
+        return step % max(self.surviving_epoch_length, 1)
 
     # ------------------------------------------------------------ checkpoints
     @property
@@ -190,7 +242,7 @@ class Task:
     def reconfigure(self, batch_count: int) -> None:
         """Advance the data cursor after an interval ran ``batch_count``."""
         self.current_batch = (self.current_batch + batch_count) % max(
-            self.epoch_length, 1
+            self.surviving_epoch_length, 1
         )
 
     def select_strategy(self, apportionment: int) -> None:
