@@ -36,8 +36,10 @@ import numpy as np
 import torch
 
 from saturn_tpu_torch.core.technique import BaseTechnique
+from saturn_tpu_torch.health import sentinel
 from saturn_tpu_torch.ops import launches
 from saturn_tpu_torch.utils import checkpoint as ckpt
+from saturn_tpu_torch.utils import metrics
 from saturn_tpu_torch.utils import timing
 
 log = logging.getLogger("saturn_tpu_torch")
@@ -499,6 +501,40 @@ class SPMDTechnique(BaseTechnique):
         k = max_window() if window_size is None else max(1, int(window_size))
         return k if k == 1 or self._fused_ok(task) else 1
 
+    # ---------------------------------------------------------------- health
+    def _screen(self, task: Any, losses: np.ndarray, units: List[Unit], start: int) -> None:
+        """Fold the interval's per-step losses through the sentinel (the JAX
+        package's ``spmd_base.py:1193-1282``, on the host): raise
+        ``NumericFaultError`` naming the dataset indices of the bad steps,
+        else advance the task's sentinel carry."""
+        cfg = sentinel.get_config()
+        if not cfg.enabled:
+            return
+        carry = task._sentinel_carry
+        rep = sentinel.fold(sentinel.carry_init() if carry is None else carry, losses, cfg)
+        fault = sentinel.inspect(rep)
+        if fault is None:
+            task._sentinel_carry = rep[:2].copy()
+            return
+        cause, first_off, bad_count = fault
+        window = next(u for u, (_, off, size) in enumerate(units)
+                      if off <= first_off < off + size)
+        # blame the exact bad steps, not the whole window: a window's healthy
+        # batches stay in the training sequence
+        bad = {int(j) for j in np.flatnonzero(~np.isfinite(losses))}
+        bad.add(int(first_off))
+        batches = tuple(sorted({task.dataset_index(start + j) for j in bad}))
+        metrics.event("task_numeric_fault", task=task.name, cause=cause, window=window,
+                      step=first_off, bad_count=bad_count, batches=list(batches))
+        log.warning("task %s: sentinel tripped (%s) at interval step %d (unit %d, "
+                    "%d bad step(s)) — discarding the interval", task.name, cause,
+                    first_off, window, bad_count)
+        raise sentinel.NumericFaultError(
+            task.name, window, cause, step=first_off,
+            loss=float(rep[sentinel.REP_LAST_LOSS]), batch_indices=batches,
+            bad_count=bad_count,
+        )
+
     # ---------------------------------------------------------------- search
     def search(
         self, task: Any, devices: Sequence[Any], tid: int
@@ -596,8 +632,14 @@ class SPMDTechnique(BaseTechnique):
         before the clock of the realized time starts. Each unit's batch is
         staged just before it, while the device runs the previous one. The
         losses are read back once (``task.last_losses``); the realized
-        per-batch time counts the batches after the first unit. The interval
-        ends with ``checkpoint.save_async`` and the state kept live."""
+        per-batch time counts the batches after the first unit. The sentinel
+        screens the read-back losses first (``_screen``): a non-finite loss
+        raises ``NumericFaultError`` before anything is published. A launch
+        the engine's watchdog abandoned (``task._abandoned`` set) publishes
+        nothing. Otherwise the interval ends with ``checkpoint.save_async``
+        and the state kept live."""
+        # set by the engine's watchdog when it abandons this launch
+        abandoned = getattr(task, "_abandoned", None)
         config = dict(task.selected_strategy.params or {})
         bundle = self.build(task, devices, config)
         key = self._bundle_key(task, devices, config)
@@ -662,10 +704,27 @@ class SPMDTechnique(BaseTechnique):
                   # checkpoint's host copy (and the wait for the path's
                   # previous write)
                   "state_s": state_s, "run_s": None, "save_s": None}
+        losses = None
         if unit_losses:
             # one host readback per interval; it also drains the queue
-            task.last_losses = torch.cat(unit_losses).float().cpu().tolist()
+            losses = torch.cat(unit_losses).float().cpu().numpy()
             t_end = timeit.default_timer()
+            # the sentinel screens every step's loss before anything of the
+            # interval is published: a fault drops the state, so the retry
+            # restores from the last checkpoint (and captures anew)
+            try:
+                self._screen(task, losses, units, start)
+            except sentinel.NumericFaultError:
+                state = None
+                raise
+        if abandoned is not None and abandoned.is_set():
+            # the engine's watchdog gave up on this launch: a late finish
+            # publishes nothing (the retry restores the last checkpoint)
+            log.warning("task %s: interval finished after the watchdog abandoned "
+                        "it; discarding it", task.name)
+            return
+        if losses is not None:
+            task.last_losses = losses.tolist()
             if len(units) > 1:
                 per_batch = (t_end - t_steady) / max(n - units[0][2], 1)
             else:

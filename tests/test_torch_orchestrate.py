@@ -88,10 +88,12 @@ def test_default_topology_needs_a_card(monkeypatch):
 def test_unported_orchestrate_options_raise(tmp_path):
     tasks = _tasks(tmp_path, [1e-3])
     topo = SliceTopology([torch.device("cpu")])
-    with pytest.raises(NotImplementedError, match="failure_policy"):
-        sat.orchestrate(tasks, topology=topo, failure_policy="drop")
     with pytest.raises(NotImplementedError, match="resume_dir"):
         sat.orchestrate(tasks, topology=topo, resume_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="fault_injector"):
+        sat.orchestrate(tasks, topology=topo, fault_injector=object())
+    with pytest.raises(NotImplementedError, match="trace_dir"):
+        sat.orchestrate(tasks, topology=topo, trace_dir=str(tmp_path))
 
 
 class _Job:
