@@ -34,9 +34,11 @@ Phases, in order; any failure is an exception and a non-zero exit:
 3. The port's main path at full width: a heterogeneous sweep of two
    GPT-2-small tasks (b8 x 512, differing only in lr, ``pretraining_loss``)
    and one BERT-base task (b8 x 512, ``mlm_loss``), synthetic data, through
-   ``register_default_library`` -> ``search(["dp"])`` -> ``orchestrate``
-   in intervals of INTERVAL_SHARE of the shortest task's profiled runtime,
-   so that each task runs several; every
+   ``register_default_library`` -> ``search(["dp"])`` (with a fresh profile
+   cache under ``chiprun_out/``, so its trials run: one per signature, the
+   second GPT-2 task is a cache hit) -> ``orchestrate`` (its defaults: the
+   anytime solver, the health guardian) in intervals of INTERVAL_SHARE of
+   the shortest task's profiled runtime, so that each task runs several; every
    checkpoint must reach its ``batch_count`` with finite, falling losses,
    and all six kernels must have run. Trials time K-step windows (K =
    ``max_window()``, 8) and the intervals run through them, the tail and
@@ -64,6 +66,24 @@ Phases, in order; any failure is an exception and a non-zero exit:
    over the windows, with each kernel's launches per step as the profiler
    saw them inside the replays (they must be phase 4's); the peak memory of
    the windows.
+6. A sweep past the MILP's task limit: 13 GPT-2-small tasks (b8 x 512,
+   synthetic data, 16 batches each) through ``search(["dp"])`` and
+   ``orchestrate`` with the defaults (the health guardian, the anytime
+   solver) and a fresh profile cache. Twelve differ only in lr
+   (``pretraining_loss``, the fused head); the 13th runs an untagged loss
+   over the logits that is NaN on its dataset's batch 12 (a marked row:
+   sqrt(-1) computed on the card inside the captured window). Checked:
+   the first search runs 2 trials (one per signature) and answers 11 from
+   the cache, a repeat search runs none; the 13th task faults after a
+   checkpoint, is retried from it, has batch 12 quarantined after its
+   second fault and completes; every checkpoint written holds finite
+   weights (checked before each write); every task completes with finite
+   losses below the initial one; the metrics file holds the solve, solver
+   tier, profile-cache and guardian events; the memory allocated falls
+   back once the tasks complete. Printed: the solve's tier, wall time and
+   makespan against the serial sum of runtimes, the peak memory, the
+   checkpoint bytes written (the phase then deletes its checkpoints) and
+   the phase's time. Its kernel launches join phase 3's in the kernels line.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
@@ -286,6 +306,27 @@ def profiled(fn, n: int, attempts: int = 5):
         if events:
             return prof, events
     raise NoDeviceActivity(f"torch.profiler recorded no device activity in {attempts} windows")
+
+
+def counted_profile(fn, calls: int, steps: int, want, label: str, attempts: int = 3):
+    """``profiled(fn, calls)``, ``steps`` training steps in all, whose
+    kernels' launches per step must be ``want`` (``step_kernels``); returns
+    (prof, events, kernels). Every launch of a
+    step or a graph replay happens, so a count below the want in one profile
+    is a lost trace event (seen on the card: 287 of 288): that profile is
+    taken again, up to ``attempts`` in all; a count above the want raises
+    at once, as does a count still short after the last attempt."""
+    for attempt in range(attempts):
+        prof, events = profiled(fn, calls)
+        kernels = step_kernels(events, steps)
+        seen = {name: k["launches_per_step"] for name, k in kernels.items()}
+        if seen == want:
+            return prof, events, kernels
+        if any(seen[x] > want[x] for x in want) or attempt == attempts - 1:
+            raise AssertionError(f"{label}: the profiler saw {seen} launches per step, "
+                                 f"want {want}")
+        log(f"  {label}: profile {attempt + 1} lost trace events ({seen} launches per "
+            f"step); taking it again")
 
 
 def device_ms(fn, n: int = 20, warmup: int = 3, windows: int = 3) -> float:
@@ -616,9 +657,11 @@ def flash_sweep(flash):
 
 
 # ------------------------------------------------------------------ phase 3
-def lm_task(sat, name, lr, batch_count, save_dir, model=GPT2, loss_fn=None, **kwargs):
+def lm_task(sat, name, lr, batch_count, save_dir, model=GPT2, loss_fn=None, wrap=None,
+            **kwargs):
     """A GPT-2 (``pretraining_loss``) or BERT (``mlm_loss``, [MASK] id kept
-    out of the data) task at the main path's shapes, synthetic tokens."""
+    out of the data) task at the main path's shapes, synthetic tokens
+    (passed through ``wrap`` when given)."""
     from saturn_tpu_torch.data.lm_dataset import make_lm_dataset
     from saturn_tpu_torch.models.bert import build_bert, mlm_loss
     from saturn_tpu_torch.models.gpt2 import build_gpt2
@@ -628,9 +671,9 @@ def lm_task(sat, name, lr, batch_count, save_dir, model=GPT2, loss_fn=None, **kw
     build = build_bert if bert else build_gpt2
     return sat.Task(
         get_model=lambda **kw: build(model, **kw),
-        get_dataloader=lambda: make_lm_dataset(context_length=SEQ, batch_size=BATCH,
-                                               vocab_size=VOCAB, seed=0,
-                                               reserved_ids=1 if bert else 0),
+        get_dataloader=lambda: (wrap or (lambda ds: ds))(make_lm_dataset(
+            context_length=SEQ, batch_size=BATCH, vocab_size=VOCAB, seed=0,
+            reserved_ids=1 if bert else 0)),
         loss_fn=loss_fn or (mlm_loss if bert else pretraining_loss),
         hparams=sat.HParams(lr=lr, batch_count=batch_count, kwargs=kwargs),
         name=name,
@@ -661,7 +704,7 @@ def counts(flash, ce):
 
 def main_path(sat, flash, ce, card):
     from saturn_tpu_torch.parallel import spmd_base
-    from saturn_tpu_torch.solver import milp
+    from saturn_tpu_torch.solver import anytime
     from saturn_tpu_torch.utils import checkpoint as ckpt
 
     names = sat.library.register_default_library()
@@ -671,11 +714,14 @@ def main_path(sat, flash, ce, card):
     topo = topology()
     reset_counts(flash, ce)
     t0 = time.perf_counter()
-    stats = sat.search(tasks, technique_names=["dp"], topology=topo)
+    cache_dir = os.path.join(OUT, "main_path_profile_cache")
+    shutil.rmtree(cache_dir, ignore_errors=True)  # its trials must run
+    stats = sat.search(tasks, technique_names=["dp"], topology=topo, profile_cache=cache_dir)
     t_search = time.perf_counter() - t0
     tech = tasks[0].strategies[1].executor
     k_trial = spmd_base.max_window()
-    log(f"  library {names}; search profiled {stats['trials_run']} (task, size) points, "
+    log(f"  library {names}; search profiled {stats['trials_run']} (task, size) points "
+        f"({stats['cache_hits']} profile-cache hits: the GPT-2 tasks differ only in lr), "
         f"{len(tech.trials)} configs, in {t_search:.1f}s, each trial timing windows of "
         f"K={k_trial}:")
     for task_name, size, config, spb, outcome in tech.trials:
@@ -691,7 +737,7 @@ def main_path(sat, flash, ce, card):
     log(f"  chosen configs: {won}")
     interval = INTERVAL_SHARE * min(t.strategies[1].runtime for t in tasks)
     log(f"  interval {interval:.3f}s ({INTERVAL_SHARE} of the shortest profiled runtime)")
-    plan = milp.resolve(tasks, topo, None, interval)
+    plan = anytime.anytime_resolve(tasks, topo, None, interval)
     for n, a in plan.assignments.items():
         log(f"  plan: {n} on block [{a.block.offset}:{a.block.end}] start {a.start:.3f}s "
             f"runtime {a.runtime:.3f}s (makespan {plan.makespan:.3f}s)")
@@ -896,14 +942,10 @@ def profile_steps(sat, card, n_sync=8, n_prof=4):
             synced.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated(dev)
         # the step updates ``state`` in place
-        prof, events = profiled(lambda: bundle.step(state, batch), n_prof)
-        busy = busy_ms(events) / n_prof
-        kernels = step_kernels(events, n_prof)
         want = want_launches(attention, loss_fn)
-        seen = {n: k["launches_per_step"] for n, k in kernels.items()}
-        if seen != want:
-            raise AssertionError(f"{label}: the profiler saw {seen} launches per step, "
-                                 f"want {want}")
+        prof, events, kernels = counted_profile(lambda: bundle.step(state, batch), n_prof,
+                                                n_prof, want, label)
+        busy = busy_ms(events) / n_prof
         try:
             table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=25)
         except (KeyError, AttributeError, ValueError):
@@ -978,16 +1020,11 @@ def profile_windows(sat, card, k=WINDOW, n_windows=3, rounds=2):
             fn()
             torch.cuda.synchronize()
             times[name].append((time.perf_counter() - t0) * 1e3 / n)
-    _, events = profiled(run_windows, 1)
-    busy = busy_ms(events) / n
-    kernels = step_kernels(events, n)
     # the profiler's count inside the replays, independent of LAUNCHES (which
     # a replay advances by what its capture recorded)
-    want = want_launches(attention, loss_fn)
-    seen = {name: kk["launches_per_step"] for name, kk in kernels.items()}
-    if seen != want:
-        raise AssertionError(f"{label} windows: the profiler saw {seen} launches per "
-                             f"step, want {want}")
+    _, events, kernels = counted_profile(run_windows, 1, n, want_launches(attention, loss_fn),
+                                         f"{label} windows")
+    busy = busy_ms(events) / n
     windowed_ms = float(np.median(times["windowed"]))
     # the eager step's device time with the capturable optimizer and with the
     # same optimizer not capturable (step counts on the host), in turns
@@ -1090,6 +1127,236 @@ def staging_ab(sat, card, k=WINDOW, n_windows=4, rounds=3):
     return out
 
 
+# ------------------------------------------------------------------ phase 6
+SWEEP_TASKS = 12           # lr points of GPT-2-small, fused head; a 13th runs the logits
+SWEEP_BATCHES = 16
+MARKED_BATCH = 12          # the 13th task's dataset index whose loss is NaN
+MARK = VOCAB - 1           # a whole row of this id marks that batch (synthetic data never does)
+SWEEP_INTERVAL_BATCHES = 9.5  # interval: this many of the 13th task's profiled batches
+
+
+class PoisonedDataset:
+    """A dataset whose batch ``index`` (modulo the epoch) has its first row
+    set to ``mark``: a loss that tests for the mark is NaN there."""
+
+    def __init__(self, base, index: int, mark: int):
+        self.base, self.index, self.mark = base, index, mark
+        self.batch_size = base.batch_size
+
+    def __len__(self) -> int:
+        return len(self.base)
+
+    def batch(self, i: int):
+        b = np.array(self.base.batch(i))
+        if i % len(self.base) == self.index:
+            b[0, :] = self.mark
+        return b
+
+    def example_batch(self):
+        return self.base.example_batch()
+
+
+def nan_on_mark_loss(logits, tokens):
+    """The pretraining loss over the logits (no fused-head tag), plus
+    sqrt(-1) = NaN on a batch whose first row is all ``MARK``: a NaN
+    computed on the card inside the captured window, through which no
+    gradient flows, so the weights stay finite."""
+    return untagged_loss(logits, tokens) + torch.sqrt(-(tokens[0] == MARK).all().float())
+
+
+def sweep_tasks(sat, save_dir):
+    """The sweep: SWEEP_TASKS GPT-2-small tasks that differ only in lr
+    (``pretraining_loss``, the fused head), and one whose loss runs over the
+    logits and is NaN on its batch MARKED_BATCH."""
+    tasks = [lm_task(sat, f"sweep-lr{i}", 2e-4 + 1e-4 * i, SWEEP_BATCHES, save_dir,
+                     model=GPT2) for i in range(SWEEP_TASKS)]
+    sick = lm_task(sat, "sweep-nan", 6e-4, SWEEP_BATCHES, save_dir, model=GPT2,
+                   loss_fn=nan_on_mark_loss,
+                   wrap=lambda ds: PoisonedDataset(ds, MARKED_BATCH, MARK))
+    return tasks + [sick]
+
+
+def check_search(stats, trials: int, hits: int) -> None:
+    """Raise unless a search ran ``trials`` (task, size) trials and answered
+    ``hits`` from the profile cache."""
+    got = (stats["trials_run"], stats["cache_hits"])
+    if got != (trials, hits):
+        raise AssertionError(f"search ran {got[0]} trials with {got[1]} cache hits, "
+                             f"want {trials} and {hits}")
+
+
+def nonfinite(tensors) -> list:
+    """Names of the tensors of a ``{name: tensor}`` map holding a NaN or Inf."""
+    names = list(tensors)
+    if not names:
+        return []
+    ok = torch.stack([torch.isfinite(tensors[n]).all() for n in names]).cpu()
+    return [n for n, good in zip(names, ok.tolist()) if not good]
+
+
+class CheckedWrites:
+    """Wrap ``checkpoint.save_async``: every state written must hold finite
+    weights (checked on the device before the host copy); records each
+    write's path and step."""
+
+    def __init__(self, ckpt):
+        self.ckpt, self.save = ckpt, ckpt.save_async
+        self.paths: list = []
+        self.steps: dict = {}  # path -> step of its last write
+
+    def __enter__(self):
+        def checked(path, state):
+            bad = nonfinite(dict(state["params"].named_parameters()))
+            if bad:
+                raise AssertionError(f"{path}: a checkpoint write of non-finite weights {bad}")
+            self.paths.append(path)
+            self.steps[path] = int(state["step"])
+            return self.save(path, state)
+
+        self.ckpt.save_async = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.ckpt.save_async = self.save
+
+    def bytes_written(self) -> int:
+        self.ckpt.flush()
+        return sum(os.path.getsize(p) for p in self.paths)
+
+
+def sweep_events(path: str, sick: str, index: int) -> dict:
+    """Read the sweep's metrics file back (``metrics.read_events``): it must
+    hold ``solve``, ``solver_tier``, ``profile_cache`` and ``health``
+    events, and ``sick``'s guardian trail must be fault, backoff, fault,
+    quarantine of ``[index]``, backoff, then its completion. Returns the
+    events by kind."""
+    from saturn_tpu_torch.utils import metrics
+
+    events = metrics.read_events(path)
+    by_kind: dict = {}
+    for e in events:
+        by_kind.setdefault(e["kind"], []).append(e)
+    for kind in ("solve", "solver_tier", "profile_cache", "health", "task_completed"):
+        if not by_kind.get(kind):
+            raise AssertionError(f"no {kind} event in {path}")
+    trail = [(e["code"], e.get("batches")) for e in by_kind["health"] if e["task"] == sick]
+    want = [("SAT-H001", None), ("SAT-H003", None), ("SAT-H001", None),
+            ("SAT-H010", [index]), ("SAT-H003", None)]
+    if trail != want:
+        raise AssertionError(f"{sick}: guardian trail {trail}, want {want}")
+    if sick not in [e["task"] for e in by_kind["task_completed"]]:
+        raise AssertionError(f"{sick} did not complete")
+    return by_kind
+
+
+def sweep_phase(sat, flash, ce, card):
+    """13 GPT-2-small tasks, past ``milp_task_limit``: search -> a repeat
+    search -> orchestrate with the defaults (the guardian, the anytime
+    ladder), a fresh profile cache and a metrics file."""
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    save_dir = os.path.join(CKPTS, "sweep")
+    cache_dir = os.path.join(OUT, "sweep_profile_cache")
+    events_path = os.path.join(OUT, "sweep_events.jsonl")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    if os.path.exists(events_path):
+        os.unlink(events_path)
+    tasks = sweep_tasks(sat, save_dir)
+    sick = tasks[-1]
+    loss0 = initial_loss(tasks[0])  # seed-0 init, batch 0: every task's start
+    topo = topology()
+    dev = torch.device(DEVICE, 0)
+    torch.cuda.empty_cache()
+    base_bytes = torch.cuda.memory_allocated(dev)
+    reset_counts(flash, ce)
+    t0 = time.perf_counter()
+    stats = sat.search(tasks, technique_names=["dp"], topology=topo,
+                       profile_cache=cache_dir, metrics_path=events_path)
+    t_search = time.perf_counter() - t0
+    check_search(stats, 2, len(tasks) - 2)
+    t0 = time.perf_counter()
+    again = sat.search(tasks, technique_names=["dp"], topology=topo, profile_cache=cache_dir)
+    t_again = time.perf_counter() - t0
+    check_search(again, 0, len(tasks))
+    log(f"  search: {stats['trials_run']} trials (fused head, logits), "
+        f"{stats['cache_hits']} profile-cache hits, {t_search:.1f}s; repeat search "
+        f"{again['trials_run']} trials, {again['cache_hits']} hits, {t_again:.1f}s  [{card}]")
+    configs = {t.name: t.strategies[1].params for t in tasks}
+    pbt = {t.name: t.strategies[1].per_batch_time for t in tasks}
+    log(f"  configs {configs[tasks[0].name]} (fused), {configs[sick.name]} (logits); "
+        f"profiled {pbt[tasks[0].name] * 1e3:.2f} and {pbt[sick.name] * 1e3:.2f} ms/batch")
+    interval = SWEEP_INTERVAL_BATCHES * pbt[sick.name]
+    serial = sum(t.strategies[1].runtime for t in tasks)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with CheckedWrites(ckpt) as writes:
+        out = sat.orchestrate(tasks, interval=interval, topology=topo,
+                              metrics_path=events_path)
+    t_orch = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    after = torch.cuda.memory_allocated(dev)
+    launches = counts(flash, ce)
+    if sorted(out["completed"]) != sorted(t.name for t in tasks) or out["failed"]:
+        raise AssertionError(f"sweep: completed {out['completed']}, failed {out['failed']}")
+    if after > base_bytes + 256 * 2**20:
+        raise AssertionError(f"sweep: {after / 2**30:.2f} GiB still allocated after every "
+                             f"task completed (before: {base_bytes / 2**30:.2f} GiB)")
+    events = sweep_events(events_path, sick.name, MARKED_BATCH)
+    tiers = events["solver_tier"]
+    first = tiers[0]
+    log(f"  interval {interval:.3f}s ({SWEEP_INTERVAL_BATCHES} of the logits task's batches); "
+        f"initial solve: tier {first['tier']} ({first['tier_name']}, tried "
+        f"{first['tiers_tried']}) in {first['wall_s'] * 1e3:.1f} ms of a "
+        f"{first['deadline_s'] * 1e3:.1f} ms deadline, makespan {first['makespan_s']:.3f}s "
+        f"against a serial sum of runtimes {serial:.3f}s (+ {len(tasks) - 1} x 1 s of "
+        f"ordering slack on one device); {len(tiers)} solves, tiers "
+        f"{sorted({e['tier'] for e in tiers})}, at most {max(e['wall_s'] for e in tiers) * 1e3:.1f}"
+        f" ms  [{card}]")
+    faults = [e for e in events.get("task_numeric_fault", []) if e["task"] == sick.name]
+    runs = [r for r in sick.strategies[1].executor.intervals if r["task"] == sick.name]
+    # the faulted attempts record nothing; the first after the quarantine restores
+    if sick.quarantined_batches != (MARKED_BATCH,) or not any(r["restored"] for r in runs):
+        raise AssertionError(f"{sick.name}: quarantined {sick.quarantined_batches}, "
+                             f"intervals {runs}")
+    log(f"  {sick.name}: {len(faults)} numeric faults at interval step "
+        f"{[e['step'] for e in faults]} (dataset batches {[e['batches'] for e in faults]}) "
+        f"after a checkpoint at step {runs[0]['n']}; batch {MARKED_BATCH} quarantined after "
+        f"the second; the next attempt restored that checkpoint and completed")
+    for t in tasks:
+        losses = np.asarray(t.last_losses)
+        if writes.steps.get(t.ckpt_path) != SWEEP_BATCHES:
+            raise AssertionError(f"{t.name}: last checkpoint at step "
+                                 f"{writes.steps.get(t.ckpt_path)}, want {SWEEP_BATCHES}")
+        if not np.isfinite(losses).all() or not losses[-1] < loss0:
+            raise AssertionError(f"{t.name}: losses {losses} not finite or not below {loss0}")
+    n_bytes = writes.bytes_written()
+    names = {t.name for t in tasks}
+    recs = [r for r in sick.strategies[1].executor.intervals if r["task"] in names]
+    split = {x: sum(r[f"{x}_s"] for r in recs) for x in ("state", "run", "save")}
+    log(f"  {len(recs)} intervals ran to their end, {sum(r['warm'] for r in recs)} with an "
+        f"eager warm-up step and captures ({sum(r['capture_s'] or 0 for r in recs):.1f}s of "
+        f"captures); host s summed: state {split['state']:.1f} (fresh inits and restores), "
+        f"units {split['run']:.1f}, checkpoint copy and wait {split['save']:.1f}  [{card}]")
+    log(f"  {len(out['completed'])} tasks completed in {t_orch:.1f}s, every final loss below "
+        f"the initial {loss0:.4f}; {len(writes.paths)} checkpoint writes, all finite, "
+        f"{n_bytes / 1e9:.2f} GB ({n_bytes / len(writes.paths) / 1e9:.2f} GB each); peak "
+        f"{peak / 2**30:.2f} GiB allocated, {after / 2**30:.2f} GiB after (before "
+        f"{base_bytes / 2**30:.2f}); launches {launches}  [{card}]")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    for name in KERNEL_NAMES:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was never launched in the sweep")
+    seconds = time.perf_counter() - t_phase
+    log(f"  sweep phase {seconds:.1f}s  [{card}]")
+    return launches, {"search": stats, "repeat_search": again, "search_s": t_search,
+                      "orchestrate_s": t_orch, "interval_s": interval, "serial_s": serial,
+                      "solver_tiers": tiers, "faults": faults, "host_s": split,
+                      "checkpoint_writes":
+                      len(writes.paths), "checkpoint_bytes": n_bytes, "peak_bytes": peak,
+                      "after_bytes": after, "before_bytes": base_bytes, "seconds": seconds}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
@@ -1167,6 +1434,11 @@ def main(argv) -> int:
     log("phase 5: where a step's time goes (pinned configs)")
     step_profile = profile_steps(sat, card)
     step_profile["flash-windows"] = profile_windows(sat, card)
+
+    log("phase 6: a sweep past milp_task_limit, 13 GPT-2-small tasks b8x512, defaults")
+    sweep_launches, sweep = sweep_phase(sat, flash, ce, card)
+    launches = {n: launches[n] + sweep_launches[n] for n in KERNEL_NAMES}
+    log(f"  main-path launches, phases 3 and 6: {launches}")
     shutil.rmtree(CKPTS, ignore_errors=True)
 
     kernels = [
@@ -1182,7 +1454,7 @@ def main(argv) -> int:
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "kernels": kernels, "kernel_rows": rows,
                    "ce_recompute_rows": recompute, "main_path": main_results,
-                   "pinned": pinned, "step_profile": step_profile,
+                   "pinned": pinned, "step_profile": step_profile, "sweep": sweep,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

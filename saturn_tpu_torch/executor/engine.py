@@ -16,6 +16,7 @@ from __future__ import annotations
 import logging
 import threading
 import timeit
+import traceback
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from saturn_tpu_torch.analysis.plan_verifier import check_launch_invariants
@@ -154,11 +155,13 @@ def execute(
                     return
                 task.reconfigure(n)
         except Exception as e:  # surfaced after the barrier
-            with hung_lock:
-                if task.name in hung:
-                    return
-                errors[task.name] = e
             logger.exception("task %s failed during interval", task.name)
+            # drop the failed launch's locals (its device tensors) now; the
+            # traceback keeps its text
+            traceback.clear_frames(e.__traceback__)
+            with hung_lock:
+                if task.name not in hung:
+                    errors[task.name] = e
         finally:
             events[task.name].set()
 

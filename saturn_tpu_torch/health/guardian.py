@@ -24,10 +24,10 @@ resets the streak via :meth:`TrainingGuardian.note_success`):
 Every transition is a ``health`` metrics event with the JAX package's
 stable ``SAT-H*`` codes. Only training faults are the guardian's
 (:meth:`TrainingGuardian.owns`): a kernel that does not build or launch is
-an ordinary failure and reaches the caller. The JAX package journals each
-transition and detaches repeat offenders from co-schedule groups; the port
-has neither a journal nor co-scheduling yet, so ``detach`` and ``restore``
-keep only what the policy reads.
+an ordinary failure and reaches the caller. The JAX package also journals
+each transition, replays the journal (``restore``) and detaches repeat
+offenders from co-schedule groups; the port has neither a journal nor
+co-scheduling yet, so those parts wait for them.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ import logging
 import os
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, FrozenSet, Iterable, List, Optional, Tuple
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 from saturn_tpu_torch.health.sentinel import NumericFaultError
 from saturn_tpu_torch.utils import metrics
@@ -122,7 +122,6 @@ class FaultDecision:
     attempt: int                      # consecutive fault count for this cause
     cooldown: int = 0                 # backoff, in intervals (retry only)
     quarantined: Tuple[int, ...] = () # dataset indices quarantined just now
-    detached: bool = False            # detached from its group just now
 
 
 class TrainingGuardian:
@@ -137,9 +136,6 @@ class TrainingGuardian:
         self._mu = threading.Lock()
         # (task, cause) -> consecutive faults; cleared by note_success.
         self._streak: Dict[Tuple[str, str], int] = {}
-        # task -> consecutive faults of ANY cause (drives group detach).
-        self._total: Dict[str, int] = {}
-        self._detached: set = set()
         # task -> first interval index it may run again (backoff parking).
         self._benched: Dict[str, int] = {}
 
@@ -170,10 +166,7 @@ class TrainingGuardian:
         )
 
     # -------------------------------------------------------------- policy
-    def on_fault(
-        self, task: Any, err: BaseException, interval_index: int,
-        in_group: bool = False,
-    ) -> FaultDecision:
+    def on_fault(self, task: Any, err: BaseException, interval_index: int) -> FaultDecision:
         """Classify one health fault and decide retry/evict. The caller has
         already rolled the task back (``release_live_state`` +
         ``rollback_forecast``); this only changes policy state and the
@@ -182,7 +175,6 @@ class TrainingGuardian:
         key = (task.name, cause)
         with self._mu:
             streak = self._streak[key] = self._streak.get(key, 0) + 1
-            total = self._total[task.name] = self._total.get(task.name, 0) + 1
         code = HEALTH_EVENT_CODES.get(
             "hung_dispatch" if cause == CAUSE_HUNG else "numeric_fault"
         )
@@ -199,14 +191,6 @@ class TrainingGuardian:
         ):
             quarantined = self.quarantine(task, err.batch_indices)
 
-        detached = False
-        if (
-            in_group
-            and task.name not in self._detached
-            and total >= self.config.detach_after
-        ):
-            self.detach(task.name)
-            detached = True
 
         budget = (
             self.config.hung_budget if cause == CAUSE_HUNG
@@ -221,10 +205,8 @@ class TrainingGuardian:
                 "guardian: evicting %s after %d consecutive %s fault(s)",
                 task.name, streak, cause,
             )
-            return FaultDecision(
-                "evict", cause=cause, attempt=streak,
-                quarantined=quarantined, detached=detached,
-            )
+            return FaultDecision("evict", cause=cause, attempt=streak,
+                                 quarantined=quarantined)
 
         cooldown = min(
             self.config.backoff_cap,
@@ -239,21 +221,16 @@ class TrainingGuardian:
         )
         logger.warning(
             "guardian: %s fault #%d on %s — rolled back, retrying after "
-            "%d-interval backoff%s%s",
-            cause, streak, task.name, cooldown,
+            "%d-interval backoff%s", cause, streak, task.name, cooldown,
             f", quarantined batches {list(quarantined)}" if quarantined else "",
-            ", detached from co-schedule group" if detached else "",
         )
-        return FaultDecision(
-            "retry", cause=cause, attempt=streak, cooldown=cooldown,
-            quarantined=quarantined, detached=detached,
-        )
+        return FaultDecision("retry", cause=cause, attempt=streak, cooldown=cooldown,
+                             quarantined=quarantined)
 
     def note_success(self, name: str) -> None:
-        """A clean interval resets the consecutive-fault ledgers (quarantine
-        and detach state persist — they are corrections, not penalties)."""
+        """A clean interval resets the consecutive-fault ledgers (the
+        quarantine persists — a correction, not a penalty)."""
         with self._mu:
-            self._total.pop(name, None)
             for key in [k for k in self._streak if k[0] == name]:
                 del self._streak[key]
 
@@ -278,18 +255,6 @@ class TrainingGuardian:
         )
         return idx
 
-    def detach(self, name: str) -> None:
-        """Mark the task detached from its co-schedule group (the port has
-        no co-scheduling yet: nothing reads this but ``detached_names``)."""
-        with self._mu:
-            self._detached.add(name)
-        metrics.event(
-            "health", code=HEALTH_EVENT_CODES["detach"], task=name,
-        )
-
-    def detached_names(self) -> FrozenSet[str]:
-        with self._mu:
-            return frozenset(self._detached)
 
     # -------------------------------------------------------------- parking
     def benched(self, name: str, interval_index: int) -> bool:
@@ -307,26 +272,3 @@ class TrainingGuardian:
     def resume_interval(self, name: str) -> Optional[int]:
         with self._mu:
             return self._benched.get(name)
-
-    # ------------------------------------------------------------- recovery
-    def restore(
-        self,
-        quarantined: Dict[str, List[int]],
-        detached: Iterable[str],
-        tasks: Iterable[Any] = (),
-    ) -> None:
-        """Re-apply saved health state to rebuilt tasks: quarantine
-        skip-lists onto the tasks, the detach set onto the guardian.
-        Budgets and backoff reset. Kept for the durability journal, which
-        will replay it."""
-        by_name = {t.name: t for t in tasks}
-        for name, idx in (quarantined or {}).items():
-            t = by_name.get(name)
-            if t is not None and idx:
-                t.quarantine_batches(idx)
-                logger.info(
-                    "recovery: re-applied quarantine of %d batch(es) to %s",
-                    len(idx), name,
-                )
-        with self._mu:
-            self._detached.update(detached or ())

@@ -115,17 +115,9 @@ class SentinelConfig:
         )
 
 
-_override: Optional[SentinelConfig] = None
-
-
-def set_config(cfg: Optional[SentinelConfig]) -> None:
-    """Process-wide override (tests / campaigns); ``None`` restores env."""
-    global _override
-    _override = cfg
-
-
 def get_config() -> SentinelConfig:
-    return _override if _override is not None else SentinelConfig.from_env()
+    """The sentinel's policy, read from the environment at each interval."""
+    return SentinelConfig.from_env()
 
 
 def carry_init() -> np.ndarray:

@@ -11,9 +11,11 @@ per-batch time).
 ``execute`` runs an interval as the JAX package's ``interval_dispatches``
 does, on one device: ``n // K`` K-step windows plus an ``n % K`` tail, each
 batch staged on the device just before its unit (``stage_tokens``: pinned
-host memory, a copy stream of its own), one loss readback per interval, the
-train state kept on the device for the next interval (``task._live_state``)
-and the checkpoint written in the background (``checkpoint.save_async``). A
+host memory, a copy stream of its own), one loss readback per interval,
+screened by the health sentinel before anything of the interval is
+published (``_screen``), the train state kept on the device for the next
+interval (``task._live_state``) and the checkpoint written in the
+background (``checkpoint.save_async``). A
 K-step window is the counterpart of the JAX package's ``lax.scan`` program:
 on the card a CUDA graph of K train steps, captured once per (bundle, K) and
 replayed with one host call; on the CPU the plain version, K eager steps.
@@ -646,9 +648,10 @@ class SPMDTechnique(BaseTechnique):
 
         t_begin = timeit.default_timer()
         restored = False
-        live = task._live_state
-        if live is not None and live[0] == key:
-            state = live[1]
+        # no local keeps the live state: a failed interval's traceback
+        # must not hold a train state's memory
+        if task._live_state is not None and task._live_state[0] == key:
+            state = task._live_state[1]
         elif task.has_ckpt():
             state = ckpt.restore(task.ckpt_path, bundle.empty())
             task.current_batch = task.cursor_for_step(state["step"])

@@ -136,6 +136,44 @@ def test_step_kernels_counts_the_forward_without_its_combine_pass(smoke, arg):
         assert kernels[name] == {"launches_per_step": 0.0, "device_ms_per_step": 0.0}
 
 
+def _flash_events(steps, drop=0, extra=0):
+    """``steps`` steps of 12 launches of each flash kernel, less ``drop``
+    forward launches, plus ``extra``."""
+    ns = "(anonymous namespace)::"
+    names = [ns + f"{k}_kernel<64>(...)" for k in ("fwd", "dq", "dkv")]
+    events = [(n, 10.0 * i, 10.0 * i + 5) for i in range(12 * steps) for n in names]
+    fwd = [e for e in events if "fwd_kernel" in e[0]]
+    events = [e for e in events if e not in fwd[:drop]]
+    return events + [(names[0], 1e6 + i, 1e6 + i + 1) for i in range(extra)]
+
+
+@pytest.mark.parametrize("profiles,error,taken", [
+    ([_flash_events(2)], None, 1),
+    ([_flash_events(2, drop=1), _flash_events(2)], None, 2),
+    ([_flash_events(2, drop=1)] * 3, "saw", 3),
+    ([_flash_events(2, extra=1), _flash_events(2)], "saw", 1),
+])
+def test_counted_profile_retakes_a_profile_that_lost_events(smoke, monkeypatch, profiles,
+                                                           error, taken):
+    """A graph replays all of its launches: a profile short of the want lost
+    trace events and is taken again (3 in all); one over the want fails."""
+    calls = []
+
+    def profiled(fn, n):
+        calls.append(n)
+        return None, profiles[len(calls) - 1]
+
+    monkeypatch.setattr(smoke, "profiled", profiled)
+    want = smoke.want_launches("flash", "untagged", 1)
+    if error is None:
+        _, _, kernels = smoke.counted_profile(lambda: None, 1, 2, want, "flash windows")
+        assert kernels["flash_fwd"]["launches_per_step"] == 12
+    else:
+        with pytest.raises(AssertionError, match=error):
+            smoke.counted_profile(lambda: None, 1, 2, want, "flash windows")
+    assert calls == [1] * taken
+
+
 def test_check_sass_holds_the_flash_kernels_to_wgmma_and_tma(smoke, monkeypatch, tmp_path):
     """A dump of the forward, dQ (both head dims) and dK/dV kernels, each
     with wgmma and TMA tile loads, passes."""
@@ -242,3 +280,124 @@ def test_want_launches(smoke, attention, loss_fn, steps, flash_n, ce_n):
     want = smoke.want_launches(attention, loss_fn, steps)
     assert want == {**{n: flash_n for n in smoke.FLASH_NAMES},
                     **{n: ce_n for n in smoke.CE_NAMES}}
+
+
+# ------------------------------------------------------- phase 6's helpers
+def test_poisoned_dataset_marks_one_batch(smoke):
+    """Only batch MARKED_BATCH (modulo the epoch) has its first row marked;
+    every other batch is the base dataset's."""
+    import numpy as np
+
+    from saturn_tpu_torch.data.lm_dataset import make_lm_dataset
+
+    base = make_lm_dataset(context_length=16, batch_size=2, vocab_size=64, n_tokens=16 * 2 * 8)
+    ds = smoke.PoisonedDataset(base, 5, 63)
+    assert len(ds) == len(base) == 8 and ds.batch_size == 2
+    for i in range(20):
+        b = ds.batch(i)
+        if i % 8 == 5:
+            assert (b[0] == 63).all() and (b[1] == base.batch(i)[1]).all()
+        else:
+            np.testing.assert_array_equal(b, base.batch(i))
+    assert not (base.batch(5)[0] == 63).all()  # the base is untouched
+
+
+def test_nan_on_mark_loss_is_nan_only_on_the_mark(smoke, monkeypatch):
+    """NaN on a marked batch, the pretraining loss elsewhere; the gradient
+    stays finite on both, so a faulted step leaves finite weights."""
+    import torch
+
+    from saturn_tpu_torch.models.loss import pretraining_loss
+
+    monkeypatch.setattr(smoke, "MARK", 63)
+    g = torch.Generator().manual_seed(0)
+    tokens = torch.randint(0, 60, (2, 16), generator=g)
+    for marked in (False, True):
+        t = tokens.clone()
+        if marked:
+            t[0] = 63
+        logits = torch.randn(2, 16, 64, generator=g, requires_grad=True)
+        loss = smoke.nan_on_mark_loss(logits, t)
+        assert torch.isnan(loss).item() is marked
+        if not marked:
+            assert loss.item() == pretraining_loss(logits, t).item()
+        loss.backward()
+        assert torch.isfinite(logits.grad).all()
+
+
+@pytest.mark.parametrize("stats,error", [
+    ({"trials_run": 2, "cache_hits": 11}, None),
+    ({"trials_run": 13, "cache_hits": 0}, "ran 13 trials with 0 cache hits"),
+    ({"trials_run": 2, "cache_hits": 10}, "want 2 and 11"),
+])
+def test_check_search_counts_trials_and_hits(smoke, stats, error):
+    if error is None:
+        smoke.check_search(stats, 2, 11)
+    else:
+        with pytest.raises(AssertionError, match=error):
+            smoke.check_search(stats, 2, 11)
+
+
+def test_checked_writes_refuse_a_non_finite_checkpoint(smoke, tmp_path):
+    """Every write is checked for finite weights before it happens; the
+    wrapper records each path and its last step, and counts the bytes."""
+    import torch
+
+    written = []
+
+    def save_async(path, state):
+        torch.save({"step": state["step"]}, path)
+        written.append(path)
+
+    ckpt = SimpleNamespace(save_async=save_async, flush=lambda: None)
+    model = torch.nn.Linear(3, 2)
+    path = str(tmp_path / "a.pt")
+    with smoke.CheckedWrites(ckpt) as writes:
+        ckpt.save_async(path, {"params": model, "step": 4})
+        ckpt.save_async(path, {"params": model, "step": 9})
+        with torch.no_grad():
+            model.weight[1, 2] = float("nan")
+        with pytest.raises(AssertionError, match="non-finite weights"):
+            ckpt.save_async(path, {"params": model, "step": 12})
+    assert ckpt.save_async is save_async  # unwrapped on exit
+    assert written == [path, path] and writes.steps == {path: 9}
+    assert writes.bytes_written() == 2 * os.path.getsize(path)
+    assert smoke.nonfinite(dict(model.named_parameters())) == ["weight"]
+    assert smoke.nonfinite({}) == []
+
+
+def _sweep_events_file(tmp_path, trail):
+    from saturn_tpu_torch.utils import metrics
+
+    path = str(tmp_path / "events.jsonl")
+    with metrics.scoped(path):
+        metrics.event("profile_cache", hit=False, task="sick", size=1, technique="dp")
+        metrics.event("solver_tier", tier=2, tier_name="lp_round", n_tasks=13)
+        metrics.event("solve", makespan_s=12.0, n_tasks=13)
+        for code, batches in trail:
+            fields = {"batches": batches} if batches is not None else {"cause": "nonfinite"}
+            metrics.event("health", code=code, task="sick", **fields)
+        metrics.event("health", code="SAT-H001", task="other", cause="nonfinite")
+        metrics.event("task_completed", task="sick")
+    return path
+
+
+GOOD_TRAIL = [("SAT-H001", None), ("SAT-H003", None), ("SAT-H001", None),
+              ("SAT-H010", [12]), ("SAT-H003", None)]
+
+
+@pytest.mark.parametrize("trail,error", [
+    (GOOD_TRAIL, None),
+    (GOOD_TRAIL[:3], "guardian trail"),
+    (GOOD_TRAIL[:3] + [("SAT-H010", [11])] + GOOD_TRAIL[4:], "guardian trail"),
+])
+def test_sweep_events_read_back(smoke, tmp_path, trail, error):
+    """The sweep's metrics file, read back through the port's reader: the
+    kinds the phase needs, and the faulting task's guardian trail."""
+    path = _sweep_events_file(tmp_path, trail)
+    if error is None:
+        by_kind = smoke.sweep_events(path, "sick", 12)
+        assert by_kind["solver_tier"][0]["tier"] == 2 and len(by_kind["health"]) == 6
+    else:
+        with pytest.raises(AssertionError, match=error):
+            smoke.sweep_events(path, "sick", 12)

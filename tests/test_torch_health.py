@@ -9,6 +9,7 @@ step by step); guardian decisions, skip-lists and event sequences exactly.
 
 import threading
 import time
+import weakref
 
 import jax.numpy as jnp
 import numpy as np
@@ -302,6 +303,9 @@ def _pin(task, tech, params, pbt=1.0):
 def test_execute_screens_before_the_checkpoint(tmp_path):
     """A NaN at batch 5 of an interval raises before the checkpoint is
     written and before the state is kept live; the carry does not move."""
+    # a process's first optimizer imports torch's compile machinery, whose
+    # frames keep that optimizer's caller alive: make it here
+    torch.optim.AdamW([torch.nn.Parameter(torch.zeros(1))])
     t = _task(tmp_path, "sick", poison=5)
     tech = DataParallel()
     _pin(t, tech, {"remat": False})
@@ -310,11 +314,14 @@ def test_execute_screens_before_the_checkpoint(tmp_path):
     t.reconfigure(4)
     carry = t._sentinel_carry.copy()
     assert carry[1] == 4.0 and ckpt.load(t.ckpt_path)["step"] == 4
+    live = weakref.ref(t._live_state[1]["params"])
     with pytest.raises(NumericFaultError) as err:
         tech.execute(t, CPU, 0, override_batch_count=4)
     e = err.value
     assert (e.cause, e.step, e.batch_indices, e.bad_count) == ("nonfinite", 1, (5,), 1)
-    assert t._live_state is None
+    # the faulted state is gone: nothing of the failed interval (its
+    # traceback included) holds its memory
+    assert t._live_state is None and live() is None
     assert ckpt.load(t.ckpt_path)["step"] == 4
     np.testing.assert_array_equal(t._sentinel_carry, carry)
     # quarantined, the retry restores step 4 and skips batch 5

@@ -33,7 +33,10 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import sys, saturn_tpu_torch, saturn_tpu_torch.models.gpt2, "
         "saturn_tpu_torch.parallel.dp, saturn_tpu_torch.executor.orchestrator, "
-        "saturn_tpu_torch.trial_runner.evaluator\n"
+        "saturn_tpu_torch.trial_runner.evaluator, saturn_tpu_torch.native, "
+        "saturn_tpu_torch.solver.native_sched, saturn_tpu_torch.solver.anytime, "
+        "saturn_tpu_torch.health, saturn_tpu_torch.analysis, "
+        "saturn_tpu_torch.utils.metrics, saturn_tpu_torch.utils.profile_cache\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (FORBIDDEN,)
     )
