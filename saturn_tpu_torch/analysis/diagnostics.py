@@ -23,7 +23,6 @@ SAT-P033   warning   deadline arithmetic: start + runtime overruns the deadline
 
 from __future__ import annotations
 
-import json
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -43,17 +42,6 @@ class Diagnostic:
     counterexample: Optional[Dict[str, Any]] = None
     category: str = "plan"
 
-    def to_json(self) -> Dict[str, Any]:
-        out: Dict[str, Any] = {
-            "code": self.code,
-            "severity": self.severity,
-            "message": self.message,
-            "category": self.category,
-        }
-        if self.counterexample is not None:
-            out["counterexample"] = self.counterexample
-        return out
-
 
 @dataclass
 class AnalysisReport:
@@ -70,28 +58,12 @@ class AnalysisReport:
         return [d for d in self.diagnostics if d.severity == "error"]
 
     @property
-    def warnings(self) -> List[Diagnostic]:
-        return [d for d in self.diagnostics if d.severity == "warning"]
-
-    @property
     def ok(self) -> bool:
         """True when no error-severity diagnostic was emitted."""
         return not self.errors
 
     def codes(self) -> List[str]:
         return [d.code for d in self.diagnostics]
-
-    def render(self) -> str:
-        """Human-readable multi-line rendering."""
-        n_e, n_w = len(self.errors), len(self.warnings)
-        lines = [f"{self.subject}: {'FAIL' if n_e else 'ok'} "
-                 f"({n_e} error(s), {n_w} warning(s))"]
-        for d in self.diagnostics:
-            lines.append(f"  {d.code} {d.severity}: {d.message}")
-            if d.counterexample:
-                lines.append("      counterexample: "
-                             + json.dumps(d.counterexample, sort_keys=True, default=str))
-        return "\n".join(lines)
 
 
 class PlanVerificationError(RuntimeError):

@@ -32,8 +32,8 @@ per-device *chain* dependencies (consecutive occupants of each device)
 instead of the O(N²) all-overlapping-pairs edge set — same race-freedom
 guarantee, linear size.
 
-``anytime_resolve`` mirrors ``milp.resolve``'s compare-and-swap contract
-and emits one ``solver_tier`` metrics event per call (tier chosen, wall
+``anytime_resolve`` keeps the compare-and-swap contract of the JAX
+package's ``milp.resolve`` and emits one ``solver_tier`` metrics event per call (tier chosen, wall
 time, deadline, job count, quality estimate). The JAX package's priority
 ``weights``, co-schedule exclusions and fusion groups are later items.
 
@@ -112,33 +112,8 @@ class AnytimeReport:
 
 
 # ---------------------------------------------------------------------------
-# frontier timeline: O(block size) placement for large plans
+# the frontier: O(block size) placement for large plans
 # ---------------------------------------------------------------------------
-
-class FrontierTimeline:
-    """Per-device next-free-time frontier.
-
-    Unlike :class:`~saturn_tpu_torch.solver.milp.DeviceTimeline` there is no
-    backfill — a task starts at the max frontier of its block — which trades
-    a little packing quality for O(block size) placement instead of
-    O(N log N) per call. The large-N tiers live on this.
-    """
-
-    __slots__ = ("free",)
-
-    def __init__(self, capacity: int):
-        self.free = [0.0] * capacity
-
-    def earliest_free(self, blk: Block) -> float:
-        return max(self.free[d] for d in range(blk.offset, blk.end))
-
-    def place(self, blk: Block, runtime: float, slack: float) -> float:
-        st = self.earliest_free(blk)
-        end = st + runtime + slack
-        for d in range(blk.offset, blk.end):
-            self.free[d] = end
-        return st
-
 
 def chain_dependencies(assignments: Dict[str, Assignment]) -> Dict[str, List[str]]:
     """Sparse per-device chain edges: on every device, each occupant depends
@@ -206,8 +181,10 @@ def _lpt_key(t) -> float:
 
 def _min_finish(free: List[float], options, cap: int, probe_cap: Optional[int] = None):
     """(finish, start, size, block, runtime) of the earliest-finishing option
-    on the frontier; ``options`` is ``[(size, runtime)]`` in sorted order,
-    ``probe_cap`` as in ``milp.warm_schedule``."""
+    on the frontier ``free`` (each device's next free time: no backfill,
+    unlike ``milp.DeviceTimeline``, so a placement costs O(block size));
+    ``options`` is ``[(size, runtime)]`` in sorted order, ``probe_cap`` as
+    in ``milp.warm_schedule``."""
     best = None
     probes = 0
     for size, rt in options:
@@ -257,7 +234,7 @@ def fast_greedy_plan(task_list: Sequence, topology: SliceTopology,
     choice. Same decision rule as ``milp.greedy_plan`` minus backfill —
     O(N · capacity) total."""
     cap = topology.capacity
-    free = FrontierTimeline(cap).free
+    free = [0.0] * cap
     assignments: Dict[str, Assignment] = {}
     for t in sorted(task_list, key=_lpt_key):
         best = _min_finish(free, _sized_options(t, cap), cap)
@@ -317,7 +294,7 @@ def incremental_plan(task_list: Sequence, topology: SliceTopology,
                        t.feasible_strategies()[a.apportionment].runtime))
     pinned.sort(key=lambda p: previous.assignments[p[0].name].start)
 
-    free = FrontierTimeline(cap).free
+    free = [0.0] * cap
     assignments: Dict[str, Assignment] = {}
     for t, size, blk, rt in pinned:
         st = max(free[d] for d in range(blk.offset, blk.end))
@@ -391,7 +368,7 @@ def partition_plan(task_list: Sequence, topology: SliceTopology,
     # Conflict-resolving merge: zipper all partitions by internal start.
     placed.sort(key=lambda p: (p[0], p[1]))
     cap = topology.capacity
-    free = FrontierTimeline(cap).free
+    free = [0.0] * cap
     assignments: Dict[str, Assignment] = {}
     for _, _, t, size, rt in placed:
         best = _min_finish(free, [(size, rt)], cap)
@@ -472,7 +449,7 @@ def lp_round_plan(task_list: Sequence, topology: SliceTopology,
     best_plan: Optional[Plan] = None
     for r in range(max(1, rounds)):
         rng = random.Random((seed << 8) ^ r) if r > 0 else None
-        free = FrontierTimeline(cap).free
+        free = [0.0] * cap
         assignments: Dict[str, Assignment] = {}
         for i in order:
             opts = per_task[i]
@@ -646,13 +623,15 @@ def anytime_resolve(task_list: Sequence, topology: SliceTopology,
                     warm: Optional[Plan] = None,
                     ordering_slack: float = 1.0,
                     source: str = "resolve", seed: int = 0) -> Plan:
-    """Deadline-bounded drop-in for ``milp.resolve``: tier-ladder fresh
-    solve + the introspective compare-and-swap, one ``solver_tier`` metrics
-    event per call.
+    """The deadline-bounded re-solve: a tier-ladder fresh solve and the
+    introspective compare-and-swap (adopt the fresh plan if there was no
+    previous one, the task set changed, or it beats the previous plan slid
+    down by ``interval`` by more than ``threshold``), one ``solver_tier``
+    metrics event per call.
 
-    ``previous`` plays its two ``milp.resolve`` roles (warm seed + CAS
-    incumbent); pass ``warm`` alone (with ``previous=None``) to seed the
-    ladder without the compare-and-swap."""
+    ``previous`` is both the warm seed and the compare-and-swap incumbent;
+    pass ``warm`` alone (with ``previous=None``) to seed the ladder without
+    the compare-and-swap."""
     dl = resolve_deadline(deadline, interval)
     warm_seed = warm if warm is not None else previous
     fresh, report = anytime_solve(task_list, topology, dl, previous=warm_seed,

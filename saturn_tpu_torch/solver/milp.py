@@ -4,8 +4,8 @@ Counterpart of ``saturn_tpu/solver/milp.py``: one joint binary per task over
 (block size, aligned block) options, start times, pairwise big-M ordering
 for tasks that may share a device, a makespan objective with an area cut,
 solved exactly with HiGHS (``solver/lp.py``). The introspective re-solve
-(``resolve``) adopts a fresh plan only when it beats the previous plan slid
-down by one interval by more than ``threshold``.
+is ``solver/anytime.anytime_resolve``, whose tiers call in here; the JAX
+package's ``milp.resolve`` has no caller in the port.
 
 As in the JAX package, the native C++ scheduler (``native_sched``) seeds
 the MILP with its plan, and above ``milp_task_limit`` tasks it takes over
@@ -24,10 +24,6 @@ from saturn_tpu_torch.core.mesh import Block, SliceTopology
 from saturn_tpu_torch.solver.lp import Expr, Model
 
 log = logging.getLogger("saturn_tpu_torch")
-
-#: Share of the time budget a re-solve gets when the previous plan gives a
-#: warm incumbent (the fix-and-optimize floor is already in hand).
-WARM_BUDGET_FRAC = 0.25
 
 
 @dataclass
@@ -347,41 +343,3 @@ def solve(
     plan.compute_dependencies()
     return plan
 
-
-def resolve(
-    task_list: List,
-    topology: SliceTopology,
-    previous: Optional[Plan],
-    interval: float,
-    threshold: float = 0.0,
-    time_limit: Optional[float] = None,
-) -> Plan:
-    """Introspective re-solve with compare-and-swap: adopt the fresh plan
-    iff there was no previous plan, the task set changed, or the fresh
-    makespan beats the previous plan slid down by ``interval`` by more than
-    ``threshold``; otherwise keep the slid plan. With a warm incumbent the
-    re-solve gets only ``WARM_BUDGET_FRAC`` of the time budget."""
-    tl = time_limit
-    if previous is not None and time_limit is not None:
-        if warm_schedule(task_list, topology, previous) is not None:
-            tl = max(1.0, time_limit * WARM_BUDGET_FRAC)
-    fresh = solve(task_list, topology, time_limit=tl, warm=previous)
-    if previous is None:
-        return fresh
-    prev_names = set(previous.assignments)
-    cur_names = {t.name for t in task_list}
-    if cur_names - prev_names or len(cur_names) < len(prev_names):
-        return fresh
-    slid = Plan(
-        assignments={
-            n: Assignment(a.apportionment, a.block, max(0.0, a.start - interval),
-                          a.runtime)
-            for n, a in previous.assignments.items()
-            if n in cur_names
-        },
-        makespan=max(0.0, previous.makespan - interval),
-    )
-    slid.compute_dependencies()
-    if fresh.makespan < slid.makespan - threshold:
-        return fresh
-    return slid

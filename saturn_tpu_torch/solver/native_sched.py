@@ -15,7 +15,7 @@ from __future__ import annotations
 import ctypes
 import logging
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Tuple
 
 from saturn_tpu_torch import native
 from saturn_tpu_torch.core.mesh import Block, SliceTopology

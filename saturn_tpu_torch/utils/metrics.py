@@ -34,7 +34,7 @@ class MetricsWriter:
 
     Each drain is a single ``write()`` of whole ``\\n``-terminated lines,
     so a crash can tear at most the last line in flight — what
-    ``read_events``/``tail_events`` skip and warn on. A crash between
+    ``read_events`` skips and warns on. A crash between
     flushes drops the buffered events: metrics are not a ledger.
     """
 
@@ -84,7 +84,7 @@ class MetricsWriter:
 
     def flush(self) -> None:
         """Write out everything buffered (interval-boundary durability for
-        live ``tail_events`` followers and post-run ``read_events``)."""
+        post-run ``read_events``)."""
         with self._lock:
             self._drain_locked()
 
@@ -117,12 +117,6 @@ def configure(path: Optional[str]) -> None:
         if _WRITER is not None:
             _WRITER.close()
         _WRITER = MetricsWriter(path) if path else None
-
-
-def enabled() -> bool:
-    """True when a metrics sink is configured — lets emitters skip *computing*
-    expensive event fields (a field that takes work to compute) when every event would be dropped anyway."""
-    return _WRITER is not None
 
 
 def event(kind: str, **fields) -> None:
@@ -170,45 +164,6 @@ def read_events(path: str, kind: Optional[str] = None) -> list:
             if kind is None or rec.get("kind") == kind:
                 out.append(rec)
     return out
-
-
-def tail_events(path: str, kind: Optional[str] = None,
-                poll_s: float = 0.2, stop=None, follow: bool = True):
-    """Generator over a live JSONL metrics stream (``tail -f`` semantics).
-
-    Yields events from the start of the file, then keeps polling for
-    appended lines every ``poll_s`` until ``stop`` (a ``threading.Event``)
-    is set — or returns at EOF when ``follow=False``. A partial trailing
-    line (the writer mid-append) is buffered, not parsed, so a torn tail
-    never raises and never yields a truncated record; the line is delivered
-    once its newline lands."""
-    buf = ""
-    with open(path) as fh:
-        while True:
-            chunk = fh.read(65536)
-            if chunk:
-                buf += chunk
-                while "\n" in buf:
-                    line, buf = buf.split("\n", 1)
-                    line = line.strip()
-                    if not line:
-                        continue
-                    try:
-                        rec = json.loads(line)
-                    except json.JSONDecodeError:
-                        # A mid-file torn line: a pre-crash writer's tail
-                        # that a restarted writer appended past.
-                        logger.warning(
-                            "metrics: skipping torn/corrupt line in %s "
-                            "(%d bytes)", path, len(line),
-                        )
-                        continue
-                    if kind is None or rec.get("kind") == kind:
-                        yield rec
-                continue
-            if not follow or (stop is not None and stop.is_set()):
-                return
-            time.sleep(poll_s)
 
 
 @contextlib.contextmanager
