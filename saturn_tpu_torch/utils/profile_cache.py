@@ -1,4 +1,4 @@
-"""Persistent profile cache: trial results that outlive the driver process.
+"""Persistent profile cache: trial results that outlive the process that ran them.
 
 Counterpart of ``saturn_tpu/utils/profile_cache.py``, with its file format:
 one JSON file per key, written through an atomic ``os.replace``, and a
