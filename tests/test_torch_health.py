@@ -67,6 +67,16 @@ def _own_profile_cache(tmp_path, monkeypatch):
     sat.library.register_default_library()
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread runs them faster than
+    many, and leaves the cores to the other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ----------------------------------------------------------------- sentinel
 FOLD_CASES = [
     ([5.5, 5.25, 5.125], None),

@@ -40,6 +40,16 @@ def _own_profile_cache(tmp_path, monkeypatch):
     sat.library.register_default_library()
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread runs them faster than
+    many, and leaves the cores to the other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def logits_loss(logits, tokens):
     """``pretraining_loss`` without its fused-head tag: the logits path."""
     return pretraining_loss(logits, tokens)

@@ -56,6 +56,16 @@ def _own_profile_cache(tmp_path, monkeypatch):
     monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The models here are tiny: one intra-op thread runs them faster than
+    many, and leaves the cores to the other test processes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TRAJ_TOL = 1e-4
 CPU = [torch.device("cpu")]
 ENV = "SATURN_TPU_MAX_WINDOW"
