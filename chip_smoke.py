@@ -308,12 +308,16 @@ def profiled(fn, n: int, attempts: int = 5):
     raise NoDeviceActivity(f"torch.profiler recorded no device activity in {attempts} windows")
 
 
+SHORT_PROFILES: list = []  # every profile short of its launch count, for chip_smoke.json
+
+
 def counted_profile(fn, calls: int, steps: int, want, label: str, attempts: int = 3):
     """``profiled(fn, calls)``, ``steps`` training steps in all, whose
     kernels' launches per step must be ``want`` (``step_kernels``); returns
     (prof, events, kernels). Every launch of a
     step or a graph replay happens, so a count below the want in one profile
     is a lost trace event (seen on the card: 287 of 288): that profile is
+    recorded in SHORT_PROFILES (which kernels, seen against wanted) and
     taken again, up to ``attempts`` in all; a count above the want raises
     at once, as does a count still short after the last attempt."""
     for attempt in range(attempts):
@@ -322,6 +326,9 @@ def counted_profile(fn, calls: int, steps: int, want, label: str, attempts: int 
         seen = {name: k["launches_per_step"] for name, k in kernels.items()}
         if seen == want:
             return prof, events, kernels
+        SHORT_PROFILES.append({"label": label, "attempt": attempt + 1, "steps": steps,
+                               "short": {x: [seen[x], want[x]] for x in want
+                                         if seen[x] != want[x]}})
         if any(seen[x] > want[x] for x in want) or attempt == attempts - 1:
             raise AssertionError(f"{label}: the profiler saw {seen} launches per step, "
                                  f"want {want}")
@@ -1159,8 +1166,11 @@ class PoisonedDataset:
 def nan_on_mark_loss(logits, tokens):
     """The pretraining loss over the logits (no fused-head tag), plus
     sqrt(-1) = NaN on a batch whose first row is all ``MARK``: a NaN
-    computed on the card inside the captured window, through which no
-    gradient flows, so the weights stay finite."""
+    computed on the card inside the captured window. No gradient flows
+    through it, so only the marked step's loss is non-finite and the
+    sentinel blames that batch alone (it blames every non-finite step, as
+    the JAX package does); that no faulted attempt writes a checkpoint is
+    held by the sequence of writes (``check_writes``)."""
     return untagged_loss(logits, tokens) + torch.sqrt(-(tokens[0] == MARK).all().float())
 
 
@@ -1196,21 +1206,19 @@ def nonfinite(tensors) -> list:
 
 class CheckedWrites:
     """Wrap ``checkpoint.save_async``: every state written must hold finite
-    weights (checked on the device before the host copy); records each
-    write's path and step."""
+    weights (checked on the device before the host copy); records every
+    write's (path, step) in order."""
 
     def __init__(self, ckpt):
         self.ckpt, self.save = ckpt, ckpt.save_async
-        self.paths: list = []
-        self.steps: dict = {}  # path -> step of its last write
+        self.writes: list = []  # (path, step) of every write, in order
 
     def __enter__(self):
         def checked(path, state):
             bad = nonfinite(dict(state["params"].named_parameters()))
             if bad:
                 raise AssertionError(f"{path}: a checkpoint write of non-finite weights {bad}")
-            self.paths.append(path)
-            self.steps[path] = int(state["step"])
+            self.writes.append((path, int(state["step"])))
             return self.save(path, state)
 
         self.ckpt.save_async = checked
@@ -1219,9 +1227,26 @@ class CheckedWrites:
     def __exit__(self, *exc):
         self.ckpt.save_async = self.save
 
+    def steps(self, path: str) -> list:
+        """The step of every write to ``path``, in order."""
+        return [step for p, step in self.writes if p == path]
+
     def bytes_written(self) -> int:
         self.ckpt.flush()
-        return sum(os.path.getsize(p) for p in self.paths)
+        return sum(os.path.getsize(p) for p, _ in self.writes)
+
+
+def check_writes(name: str, steps: list, runs: list, total: int) -> None:
+    """Raise unless a task's checkpoint writes (their steps, in order) are
+    one per interval of ``runs`` (the executor's records of the intervals
+    that ran to their end), each at the step where its interval ended, the
+    last at ``total``: an attempt that the sentinel faulted, or that the
+    watchdog abandoned, writes nothing."""
+    want = np.cumsum([r["n"] for r in runs]).tolist()
+    if steps != want or want[-1:] != [total]:
+        raise AssertionError(f"{name}: checkpoint writes at steps {steps}, want one at the "
+                             f"end of each interval that ran to its end, {want}, the last "
+                             f"at {total}")
 
 
 def sweep_events(path: str, sick: str, index: int) -> dict:
@@ -1322,12 +1347,13 @@ def sweep_phase(sat, flash, ce, card):
     log(f"  {sick.name}: {len(faults)} numeric faults at interval step "
         f"{[e['step'] for e in faults]} (dataset batches {[e['batches'] for e in faults]}) "
         f"after a checkpoint at step {runs[0]['n']}; batch {MARKED_BATCH} quarantined after "
-        f"the second; the next attempt restored that checkpoint and completed")
+        f"the second; the next attempt restored that checkpoint and completed; checkpoint "
+        f"writes at steps {writes.steps(sick.ckpt_path)}")
     for t in tasks:
         losses = np.asarray(t.last_losses)
-        if writes.steps.get(t.ckpt_path) != SWEEP_BATCHES:
-            raise AssertionError(f"{t.name}: last checkpoint at step "
-                                 f"{writes.steps.get(t.ckpt_path)}, want {SWEEP_BATCHES}")
+        check_writes(t.name, writes.steps(t.ckpt_path),
+                     [r for r in t.strategies[1].executor.intervals if r["task"] == t.name],
+                     SWEEP_BATCHES)
         if not np.isfinite(losses).all() or not losses[-1] < loss0:
             raise AssertionError(f"{t.name}: losses {losses} not finite or not below {loss0}")
     n_bytes = writes.bytes_written()
@@ -1339,8 +1365,9 @@ def sweep_phase(sat, flash, ce, card):
         f"captures); host s summed: state {split['state']:.1f} (fresh inits and restores), "
         f"units {split['run']:.1f}, checkpoint copy and wait {split['save']:.1f}  [{card}]")
     log(f"  {len(out['completed'])} tasks completed in {t_orch:.1f}s, every final loss below "
-        f"the initial {loss0:.4f}; {len(writes.paths)} checkpoint writes, all finite, "
-        f"{n_bytes / 1e9:.2f} GB ({n_bytes / len(writes.paths) / 1e9:.2f} GB each); peak "
+        f"the initial {loss0:.4f}; {len(writes.writes)} checkpoint writes, all finite, one "
+        f"per interval that ran to its end, {n_bytes / 1e9:.2f} GB "
+        f"({n_bytes / len(writes.writes) / 1e9:.2f} GB each); peak "
         f"{peak / 2**30:.2f} GiB allocated, {after / 2**30:.2f} GiB after (before "
         f"{base_bytes / 2**30:.2f}); launches {launches}  [{card}]")
     shutil.rmtree(save_dir, ignore_errors=True)
@@ -1352,8 +1379,9 @@ def sweep_phase(sat, flash, ce, card):
     return launches, {"search": stats, "repeat_search": again, "search_s": t_search,
                       "orchestrate_s": t_orch, "interval_s": interval, "serial_s": serial,
                       "solver_tiers": tiers, "faults": faults, "host_s": split,
-                      "checkpoint_writes":
-                      len(writes.paths), "checkpoint_bytes": n_bytes, "peak_bytes": peak,
+                      "checkpoint_writes": len(writes.writes),
+                      "sick_writes": writes.steps(sick.ckpt_path),
+                      "checkpoint_bytes": n_bytes, "peak_bytes": peak,
                       "after_bytes": after, "before_bytes": base_bytes, "seconds": seconds}
 
 
@@ -1455,7 +1483,10 @@ def main(argv) -> int:
         json.dump({"card": card, "kind": kind, "kernels": kernels, "kernel_rows": rows,
                    "ce_recompute_rows": recompute, "main_path": main_results,
                    "pinned": pinned, "step_profile": step_profile, "sweep": sweep,
+                   "short_profiles": SHORT_PROFILES,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
+    log(f"profiles short of their launch count, each taken again: {len(SHORT_PROFILES)} "
+        f"{SHORT_PROFILES}")
     log(f"done in {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(card_line())

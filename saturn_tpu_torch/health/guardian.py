@@ -49,8 +49,6 @@ HEALTH_EVENT_CODES = {
     "hung_dispatch": "SAT-H002",
     "backoff": "SAT-H003",
     "quarantine": "SAT-H010",
-    "unquarantine": "SAT-H011",
-    "detach": "SAT-H020",
     "evict": "SAT-H030",
 }
 
@@ -90,7 +88,6 @@ class GuardianConfig:
     retry_budget: int = 3        # consecutive numeric faults before evict
     hung_budget: int = 2         # consecutive hung dispatches before evict
     quarantine_after: int = 2    # consecutive data faults before quarantine
-    detach_after: int = 2        # consecutive faults before group detach
     backoff_base: int = 1        # cooldown intervals after the 1st fault
     backoff_cap: int = 8         # cooldown ceiling (intervals)
     watchdog: bool = True

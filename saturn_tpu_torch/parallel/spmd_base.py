@@ -504,20 +504,21 @@ class SPMDTechnique(BaseTechnique):
         return k if k == 1 or self._fused_ok(task) else 1
 
     # ---------------------------------------------------------------- health
-    def _screen(self, task: Any, losses: np.ndarray, units: List[Unit], start: int) -> None:
+    def _screen(self, task: Any, losses: np.ndarray, units: List[Unit],
+                start: int) -> Optional[np.ndarray]:
         """Fold the interval's per-step losses through the sentinel (the JAX
         package's ``spmd_base.py:1193-1282``, on the host): raise
         ``NumericFaultError`` naming the dataset indices of the bad steps,
-        else advance the task's sentinel carry."""
+        else return the advanced sentinel carry (None with the sentinel
+        off), which ``execute`` keeps only if it publishes the interval."""
         cfg = sentinel.get_config()
         if not cfg.enabled:
-            return
+            return None
         carry = task._sentinel_carry
         rep = sentinel.fold(sentinel.carry_init() if carry is None else carry, losses, cfg)
         fault = sentinel.inspect(rep)
         if fault is None:
-            task._sentinel_carry = rep[:2].copy()
-            return
+            return rep[:2].copy()
         cause, first_off, bad_count = fault
         window = next(u for u, (_, off, size) in enumerate(units)
                       if off <= first_off < off + size)
@@ -707,7 +708,7 @@ class SPMDTechnique(BaseTechnique):
                   # checkpoint's host copy (and the wait for the path's
                   # previous write)
                   "state_s": state_s, "run_s": None, "save_s": None}
-        losses = None
+        losses = carry = None
         if unit_losses:
             # one host readback per interval; it also drains the queue
             losses = torch.cat(unit_losses).float().cpu().numpy()
@@ -716,7 +717,7 @@ class SPMDTechnique(BaseTechnique):
             # interval is published: a fault drops the state, so the retry
             # restores from the last checkpoint (and captures anew)
             try:
-                self._screen(task, losses, units, start)
+                carry = self._screen(task, losses, units, start)
             except sentinel.NumericFaultError:
                 state = None
                 raise
@@ -726,6 +727,8 @@ class SPMDTechnique(BaseTechnique):
             log.warning("task %s: interval finished after the watchdog abandoned "
                         "it; discarding it", task.name)
             return
+        if carry is not None:
+            task._sentinel_carry = carry
         if losses is not None:
             task.last_losses = losses.tolist()
             if len(units) > 1:

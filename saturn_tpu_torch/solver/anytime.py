@@ -103,13 +103,6 @@ class AnytimeReport:
     def tier_name(self) -> str:
         return TIER_NAMES.get(self.tier, str(self.tier))
 
-    @property
-    def deadline_missed(self) -> bool:
-        """True when the front-end overran the budget it was given (the
-        ladder's contract is that this never happens; campaign harnesses
-        count these as hard failures)."""
-        return self.wall_s > self.deadline_s
-
 
 # ---------------------------------------------------------------------------
 # the frontier: O(block size) placement for large plans

@@ -156,8 +156,10 @@ def _flash_events(steps, drop=0, extra=0):
 def test_counted_profile_retakes_a_profile_that_lost_events(smoke, monkeypatch, profiles,
                                                            error, taken):
     """A graph replays all of its launches: a profile short of the want lost
-    trace events and is taken again (3 in all); one over the want fails."""
+    trace events and is taken again (3 in all); one over the want fails.
+    Every profile off the count is recorded, with its kernel and counts."""
     calls = []
+    monkeypatch.setattr(smoke, "SHORT_PROFILES", [])
 
     def profiled(fn, n):
         calls.append(n)
@@ -172,6 +174,11 @@ def test_counted_profile_retakes_a_profile_that_lost_events(smoke, monkeypatch, 
         with pytest.raises(AssertionError, match=error):
             smoke.counted_profile(lambda: None, 1, 2, want, "flash windows")
     assert calls == [1] * taken
+    short = 1 if error == "saw" and taken == 1 else taken - (error is None)
+    assert [r["attempt"] for r in smoke.SHORT_PROFILES] == list(range(1, short + 1))
+    for r in smoke.SHORT_PROFILES:
+        assert r["label"] == "flash windows" and list(r["short"]) == ["flash_fwd"]
+        assert r["short"]["flash_fwd"][1] == 12
 
 
 def test_check_sass_holds_the_flash_kernels_to_wgmma_and_tma(smoke, monkeypatch, tmp_path):
@@ -340,7 +347,8 @@ def test_check_search_counts_trials_and_hits(smoke, stats, error):
 
 def test_checked_writes_refuse_a_non_finite_checkpoint(smoke, tmp_path):
     """Every write is checked for finite weights before it happens; the
-    wrapper records each path and its last step, and counts the bytes."""
+    wrapper records every write's path and step in order, and counts the
+    bytes."""
     import torch
 
     written = []
@@ -360,10 +368,30 @@ def test_checked_writes_refuse_a_non_finite_checkpoint(smoke, tmp_path):
         with pytest.raises(AssertionError, match="non-finite weights"):
             ckpt.save_async(path, {"params": model, "step": 12})
     assert ckpt.save_async is save_async  # unwrapped on exit
-    assert written == [path, path] and writes.steps == {path: 9}
+    assert written == [path, path] and writes.writes == [(path, 4), (path, 9)]
+    assert writes.steps(path) == [4, 9] and writes.steps(str(tmp_path / "b.pt")) == []
     assert writes.bytes_written() == 2 * os.path.getsize(path)
     assert smoke.nonfinite(dict(model.named_parameters())) == ["weight"]
     assert smoke.nonfinite({}) == []
+
+
+@pytest.mark.parametrize("steps,error", [
+    ([9, 16], None),
+    ([9, 16, 16], "writes at steps"),   # a faulted attempt wrote
+    ([9], "writes at steps"),
+    ([], "writes at steps"),
+])
+def test_check_writes_one_per_kept_interval(smoke, steps, error):
+    """A task's writes are exactly one at the end of each interval that ran
+    to its end: a faulted attempt (no record) that wrote fails."""
+    runs = [{"n": 9, "restored": False}, {"n": 7, "restored": True}]
+    if error is None:
+        smoke.check_writes("sweep-nan", steps, runs, 16)
+    else:
+        with pytest.raises(AssertionError, match=error):
+            smoke.check_writes("sweep-nan", steps, runs, 16)
+    with pytest.raises(AssertionError, match="the last at 17"):
+        smoke.check_writes("sweep-nan", [9, 16], runs, 17)
 
 
 def _sweep_events_file(tmp_path, trail):

@@ -193,9 +193,13 @@ def test_guardian_config_from_env_matches_jax(monkeypatch):
                         ("SATURN_TPU_WATCHDOG_FACTOR", "3"),
                         ("SATURN_TPU_WATCHDOG_FLOOR_S", "7.5")):
         monkeypatch.setenv(name, value)
-    assert GuardianConfig.from_env().__dict__ == JGuardianConfig.from_env().__dict__
-    assert GuardianConfig().__dict__ == JGuardianConfig().__dict__
-    assert HEALTH_EVENT_CODES == guardian_mod.HEALTH_EVENT_CODES
+    # the port carries the knobs and codes its policy reads (no co-schedule
+    # detach yet): each equals the JAX package's of the same name
+    for got, jax_cfg in ((GuardianConfig.from_env(), JGuardianConfig.from_env()),
+                         (GuardianConfig(), JGuardianConfig())):
+        assert got.__dict__ == {f: getattr(jax_cfg, f) for f in got.__dict__}
+    assert HEALTH_EVENT_CODES == {k: guardian_mod.HEALTH_EVENT_CODES[k]
+                                  for k in HEALTH_EVENT_CODES}
     g = TrainingGuardian(GuardianConfig(watchdog_floor_s=60.0, watchdog_factor=8.0))
     assert g.window_deadline_s(10.0) == pytest.approx(140.0)
 
@@ -489,7 +493,8 @@ def test_failure_policy_raise_reaches_the_caller_through_the_guardian(tmp_path):
 # ------------------------------------------------------------------ watchdog
 def test_watchdog_abandons_a_wedged_launch_and_its_late_finish(tmp_path, monkeypatch):
     """Past the deadline the engine returns a HungDispatchError; the launch,
-    when it finally ends, writes no checkpoint and keeps no state."""
+    when it finally ends, writes no checkpoint, keeps no state and leaves
+    the sentinel carry where it was."""
     t = _task(tmp_path, "wedged", batch_count=2)
     tech = DataParallel()
     _pin(t, tech, {"remat": False})
@@ -515,3 +520,4 @@ def test_watchdog_abandons_a_wedged_launch_and_its_late_finish(tmp_path, monkeyp
             th.join(10.0)
     ckpt.flush()
     assert not t.has_ckpt() and t._live_state is None and t.current_batch == 0
+    assert t._sentinel_carry is None

@@ -177,6 +177,20 @@ def test_anytime_chain_dependencies_above_the_dense_limit():
     _assert_verified(jplan, plan, jjobs, jtopo, tjobs, topo)
 
 
+def test_anytime_frontier_incremental_above_the_backfill_limit():
+    """Past 160 tasks tier 0 places on the frontier (no backfill): the
+    survivors keep their slots and the delta lands where JAX puts it."""
+    jjobs, jtopo, tjobs, topo = _both(32, 200, 8)
+    jprev = janytime.fast_greedy_plan(jjobs[:-5], jtopo)
+    tprev = anytime.fast_greedy_plan(tjobs[:-5], topo)
+    jplan = janytime.incremental_plan(jjobs, jtopo, jprev)
+    plan = anytime.incremental_plan(tjobs, topo, tprev)
+    assert len(tjobs) > anytime._INCR_BACKFILL_N
+    assert _slots(plan) == pytest.approx(_slots(jplan), rel=REL)
+    assert plan.makespan == pytest.approx(jplan.makespan, rel=REL)
+    _assert_verified(jplan, plan, jjobs, jtopo, tjobs, topo)
+
+
 def test_anytime_resolve_slides_or_adopts_like_jax(monkeypatch):
     events = []
     monkeypatch.setattr(anytime.metrics, "event", lambda kind, **kw: events.append((kind, kw)))
