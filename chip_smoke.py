@@ -10,17 +10,23 @@ Phases, in order; any failure is an exception and a non-zero exit:
    ``saturn_tpu_torch/csrc/flash_attn.cu`` and ``csrc/linear_ce.cu`` (one
    ``nvcc`` each, started together), with each kernel's ptxas line and the
    wgmma / TMA / cp.async / mma.sync instructions in its SASS
-   (``cuobjdump``); the three flash kernels, the CE forward and the
-   stash-mode CE dx and dW kernels must hold wgmma and TMA tile loads.
+   (``cuobjdump``); the three flash kernels and the CE forward, ds, dx and
+   dW kernels must hold wgmma and TMA tile loads.
 2. Kernels against their plain PyTorch versions: flash forward, dQ and
    dK/dV at the GPT-2-small training shape (B 8, H 12, T 512, D 64, bf16,
    causal), a grouped-query shape (B 2, H 32, KV 4, T 1024, D 64), the main
    shape non-causal (BERT-base's), one tile (T 64), T 320 (T % 128 == 64),
    head dim 128 with grouped queries (H 8, KV 2) and, with long walks, (B 4,
    H 16, KV 4, T 2048), causal and not; the CE head's forward,
-   dx and dW at the main shape (N 4096, D 768, V 50304) and at an odd shape
-   (N 4000, V 50257, the last 64 labels ignored), each in stash and in
-   recompute mode, and in stash mode at D 1024 and at D 64 (odd shape). Each
+   dx and dW at the main shape (N 4096, D 768, V 50304), at an odd shape
+   (N 4000, V 50257, the last 64 labels ignored), at D 1024 and at D 64 (odd
+   shape), each in stash and in recompute mode, and in recompute mode over
+   five vocab slabs, the last ragged (N 6000, V 50257, labels at every slab's
+   edge columns, an ignored tail); the recompute-mode ds kernel alone on one
+   slab at the main and the five-slab shape; and the shapes of phase 4's
+   b8 x 1024 run: the CE head in recompute mode and its ds kernel at N 8192,
+   D 768, V 50304 (seven slabs), the flash kernels at B 8, H 12, T 1024,
+   causal. Each
    kernel's device time, the plain version's and the library call's, all
    read from torch.profiler, and the kernel's bound on the card.
    The library call of a forward kernel is the library's forward (SDPA; the
@@ -56,7 +62,12 @@ Phases, in order; any failure is an exception and a non-zero exit:
    launches of each flash kernel and 1 of each CE kernel per step where they
    apply, none elsewhere, in both runs; the windowed losses equal the eager
    ones within WINDOW_ATOL per step (the log says whether bitwise); the
-   three configs' trajectories agree within the bf16 band.
+   three configs' trajectories agree within the bf16 band. Then GPT-2-small
+   at its published context, b8 x 1024 (N 8192), where ``ce.auto_stash``
+   picks recompute mode: flash + fused head in windows of 8 and eager, and
+   flash over the logits eager as the loss reference, with the same checks,
+   the peak memory of each run, and the size of the recompute-mode ds
+   scratch (N x ``ce.slab_width`` bf16) held under ``ce.SLAB_BYTES_MAX``.
 5. Where a step's time goes, for the three pinned configs: synchronized
    per-step times, peak device memory, and a torch.profiler window (device
    busy share, each kernel's launches and device time inside the step, top
@@ -65,7 +76,8 @@ Phases, in order; any failure is an exception and a non-zero exit:
    over the same 24 steps, in turns; the device busy time and idle share
    over the windows, with each kernel's launches per step as the profiler
    saw them inside the replays (they must be phase 4's); the peak memory of
-   the windows.
+   the windows. The same windows profile for flash + fused at b8 x 1024
+   (recompute mode).
 6. A sweep past the MILP's task limit: 13 GPT-2-small tasks (b8 x 512,
    synthetic data, 16 batches each) through ``search(["dp"])`` and
    ``orchestrate`` with the defaults (the health guardian, the anytime
@@ -157,13 +169,16 @@ KERNEL_SYMBOLS = {
     "flash_dq": ("(anonymous namespace)::dq_kernel<",),
     "flash_dkv": ("(anonymous namespace)::dkv_kernel<",),
     "ce_fwd": ("(anonymous namespace)::ce_fwd_",),  # ce_fwd_sm90_kernel<, ce_fwd_combine_kernel
-    # ce_dx_sm90_kernel<, the recompute-mode ce_dx_kernel, ce_dx_reduce_kernel
+    # ce_dx_sm90_kernel<, ce_dx_reduce_kernel
     "ce_dx": ("(anonymous namespace)::ce_dx_",),
-    "ce_dw": ("(anonymous namespace)::ce_dw_",),  # ce_dw_sm90_kernel<, recompute ce_dw_kernel
+    "ce_dw": ("(anonymous namespace)::ce_dw_",),  # ce_dw_sm90_kernel<
 }
 #: A CE wrapper's second kernel (the forward's combine, dx's split-K
 #: reduction): its time counts to the wrapper's, its launches do not.
 SECOND_KERNELS = ("ce_fwd_combine_kernel", "ce_dx_reduce_kernel")
+#: The recompute-mode ds kernel: ce_dx and ce_dw each launch it once per
+#: vocab slab, just before the slab's product kernel.
+DS_SYMBOL = "(anonymous namespace)::ce_ds_sm90_kernel"
 
 
 def log(msg: str) -> None:
@@ -175,14 +190,18 @@ def log(msg: str) -> None:
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
 #: Kernels whose SASS must hold wgmma and TMA tile loads, by source.
 WGMMA_KERNELS = {"flash_attn": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
-                 "linear_ce": ("ce_fwd_sm90_kernel", "ce_dx_sm90_kernel", "ce_dw_sm90_kernel")}
+                 "linear_ce": ("ce_fwd_sm90_kernel", "ce_ds_sm90_kernel", "ce_dx_sm90_kernel",
+                               "ce_dw_sm90_kernel")}
 
 
 def sass_kernel_name(fn: str):
-    """(kernel name, its int or bool template argument as digits, or None) of
-    a mangled SASS function name, or (fn, None) when it names no ``*_kernel``."""
-    m = re.search(r"((?:ce_)?[a-z]+(?:_[a-z]+)?(?:_sm90)?_kernel)(?:IL[ib](\d+)E)?", fn)
-    return (m.group(1), m.group(2)) if m else (fn, None)
+    """(kernel name, its int or bool template arguments as digits joined by
+    commas, or None) of a mangled SASS function name, or (fn, None) when it
+    names no ``*_kernel``."""
+    m = re.search(r"((?:ce_)?[a-z]+(?:_[a-z]+)?(?:_sm90)?_kernel)(?:I((?:L[ib]\d+E)+)E)?", fn)
+    if not m:
+        return fn, None
+    return m.group(1), ",".join(re.findall(r"L[ib](\d+)E", m.group(2))) if m.group(2) else None
 
 
 def sass_counts(sass: str):
@@ -260,18 +279,65 @@ def device_events(prof):
         key=lambda x: x[1])
 
 
+class LaunchShapeError(AssertionError):
+    """A CE wrapper's kernels ran in a sequence that is no run of launches."""
+
+
+def ce_run_launches(name: str, run: str) -> int:
+    """Launches of the CE wrapper ``name`` in ``run``, the kinds of an
+    unbroken run of its events in order: "d" the ds kernel, "p" its product
+    kernel, "s" its second kernel. A launch is "p" or "ps" (the forward, and
+    stash mode's backward), or "dp" once per vocab slab and then "s" where
+    the wrapper has one (recompute mode); a recompute-mode launch that no
+    "s" ends ends the run, and one run holds launches of one mode. Any other
+    sequence raises: a product with no ds before it in a slab loop, two ds
+    in a row, a second kernel with no product before it. Two stash-mode
+    products in a row are two launches, which the exact launch counts catch
+    where one call ran its kernel twice."""
+    if not re.fullmatch(r"(?:ps?)+|(?:(?:dp)+s)*(?:dp)*", run):
+        raise LaunchShapeError(f"{name}: its kernels ran as {run!r} (d ds, p product, s second "
+                             f"kernel), not as launches of p[s] or (dp)+[s]")
+    return len(re.findall(r"(?:dp)+s?|ps?", run))
+
+
 def step_kernels(events, n: int):
     """{kernel name: {launches_per_step, device_ms_per_step}} of the device
-    events of ``n`` profiled steps, each kernel found by KERNEL_SYMBOLS; a
-    second kernel's time counts to its wrapper, its launches do not."""
-    kernels = {}
-    for name, symbols in KERNEL_SYMBOLS.items():
-        mine = [(e, a, b) for e, a, b in events if any(s in e for s in symbols)]
-        kernels[name] = {
-            "launches_per_step": sum(not any(s in e for s in SECOND_KERNELS)
-                                     for e, _, _ in mine) / n,
-            "device_ms_per_step": sum(b - a for _, a, b in mine) / 1e3 / n}
-    return kernels
+    events of ``n`` profiled steps, in order, each kernel found by
+    KERNEL_SYMBOLS; a ds kernel (DS_SYMBOL) belongs to the CE wrapper of the
+    next CE event. Each flash event is one launch of its wrapper. A CE
+    wrapper's launches are counted over each run of its events with no other
+    CE event between them, by ``ce_run_launches``: the time of its ds and
+    second kernels counts to the wrapper, their launches do not."""
+    owner = [next((name for name, symbols in KERNEL_SYMBOLS.items()
+                   if any(s in e for s in symbols)), None) for e, _, _ in events]
+    follows = None  # the CE wrapper of the next CE event
+    for i in reversed(range(len(events))):
+        if DS_SYMBOL in events[i][0]:
+            if follows is None:
+                raise LaunchShapeError(f"a ds kernel at {events[i][1]} us with no CE kernel "
+                                       f"after it")
+            owner[i] = follows
+        elif owner[i] in CE_NAMES:
+            follows = owner[i]
+    launches, device_us = dict.fromkeys(KERNEL_SYMBOLS, 0), dict.fromkeys(KERNEL_SYMBOLS, 0.0)
+    runs = []  # [CE wrapper, kinds of its events] of each unbroken run
+    for (e, a, b), name in zip(events, owner):
+        if name is None:
+            continue
+        device_us[name] += b - a
+        if name not in CE_NAMES:
+            launches[name] += 1
+            continue
+        kind = ("d" if DS_SYMBOL in e else "s" if any(s in e for s in SECOND_KERNELS)
+                else "p")
+        if runs and runs[-1][0] == name:
+            runs[-1][1] += kind
+        else:
+            runs.append([name, kind])
+    for name, run in runs:
+        launches[name] += ce_run_launches(name, run)
+    return {name: {"launches_per_step": launches[name] / n,
+                   "device_ms_per_step": device_us[name] / 1e3 / n} for name in KERNEL_SYMBOLS}
 
 
 def busy_ms(events) -> float:
@@ -319,10 +385,21 @@ def counted_profile(fn, calls: int, steps: int, want, label: str, attempts: int 
     is a lost trace event (seen on the card: 287 of 288): that profile is
     recorded in SHORT_PROFILES (which kernels, seen against wanted) and
     taken again, up to ``attempts`` in all; a count above the want raises
-    at once, as does a count still short after the last attempt."""
+    at once, as does a count still short after the last attempt. A profile
+    whose CE kernels ran out of shape (``LaunchShapeError``: a lost ds or
+    product event looks like one) is recorded and taken again the same way,
+    and raises if the last attempt is out of shape too."""
     for attempt in range(attempts):
         prof, events = profiled(fn, calls)
-        kernels = step_kernels(events, steps)
+        try:
+            kernels = step_kernels(events, steps)
+        except LaunchShapeError as e:
+            SHORT_PROFILES.append({"label": label, "attempt": attempt + 1, "steps": steps,
+                                   "out_of_shape": str(e)})
+            if attempt == attempts - 1:
+                raise
+            log(f"  {label}: profile {attempt + 1} out of shape ({e}); taking it again")
+            continue
         seen = {name: k["launches_per_step"] for name, k in kernels.items()}
         if seen == want:
             return prof, events, kernels
@@ -515,11 +592,16 @@ def check_ce(ce, N, D, V, stash, seed, tail, timed):
     within CE_GRAD_REL. The one-hot term dominates both gradients here (in
     dW, -x summed into the label rows; the softmax part is spread thin over
     all V rows), so dx and dW are also compared with every label ignored and
-    g = 1: the softmax part alone, by relative norm within CE_GRAD_REL."""
+    g = 1: the softmax part alone, by relative norm within CE_GRAD_REL. In
+    recompute mode the first rows' labels sit at the first and last column
+    of each vocab slab (``slab_labels``)."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
     x = torch.randn((N, D), generator=gen, device=DEVICE).to(torch.bfloat16)
     w = (torch.randn((V, D), generator=gen, device=DEVICE) * 0.05).to(torch.bfloat16)
     labels = torch.randint(0, V, (N,), generator=gen, device=DEVICE, dtype=torch.int32)
+    if not stash:
+        edges = slab_labels(ce, N, V)
+        labels[:len(edges)] = edges
     if tail:
         labels[-tail:] = -1
     g = (labels >= 0).float()
@@ -621,6 +703,67 @@ def check_ce(ce, N, D, V, stash, seed, tail, timed):
     return rows
 
 
+def slab_edges(ce, N, V):
+    """(first, last column + 1) of each vocab slab of recompute mode at N x V."""
+    vs = ce.slab_width(N, V)
+    return [(v0, min(V, v0 + vs)) for v0 in range(0, V, vs)]
+
+
+def slab_labels(ce, N, V):
+    """The first and the last column of each vocab slab, as int32 labels."""
+    return torch.tensor([c for v0, v1 in slab_edges(ce, N, V) for c in (v0, v1 - 1)],
+                        dtype=torch.int32, device=DEVICE)
+
+
+def check_ds(ce, N, D, V, seed, timed):
+    """The recompute-mode ds kernel alone (``ce.ce_ds_slab``) against its
+    plain version on one vocab slab: the second slab of
+    ``ce.slab_width(N, V)`` columns (the first where one holds the whole
+    vocab), labels at the edge
+    columns of every slab, a non-uniform g and an ignored tail of N / 16
+    rows. Both form ds in f32 and round it to bf16 once: within one bf16
+    step of the plain value (rtol 2^-7), and 2^-126 absolute, since ex2.approx
+    flushes what falls below the smallest normal float to 0. With ``timed``,
+    the kernel over the whole vocab as one slab (the work of every slab of a
+    recompute-mode backward kernel) beside its bound and its plain version."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    x = torch.randn((N, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+    w = (torch.randn((V, D), generator=gen, device=DEVICE) * 0.05).to(torch.bfloat16)
+    labels = torch.randint(0, V, (N,), generator=gen, device=DEVICE, dtype=torch.int32)
+    edges = slab_labels(ce, N, V)
+    labels[:len(edges)] = edges
+    labels[N - N // 16:] = -1
+    g = (torch.rand((N,), generator=gen, device=DEVICE) * 1.9 + 0.1) * (labels >= 0)
+    _, lse, _ = ce.ce_fwd(x, w, labels, False)
+    slabs = slab_edges(ce, N, V)
+    v0, v1 = slabs[1] if len(slabs) > 1 else slabs[0]
+    ds = ce.ce_ds_slab(x, w, labels, lse, g, v0, v1)
+    want = ce.ce_ds_slab_reference(x, w, labels, lse, g, v0, v1)
+    torch.cuda.synchronize()
+    where = f"N={N} D={D} V={V} slab {v0}:{v1}"
+    if ds.shape != want.shape or ds.dtype != torch.bfloat16 or not torch.isfinite(ds.float()).all():
+        raise AssertionError(f"ce ds {where}: {ds.shape} {ds.dtype} against {want.shape}, or "
+                             f"non-finite")
+    torch.testing.assert_close(ds.float(), want.float(), rtol=2.0 ** -7, atol=2.0 ** -126,
+                               msg=lambda m: f"ce ds {where}: {m}")
+    err = (ds.float() - want.float()).abs().max().item()
+    row = {"slab": [v0, v1], "max_abs_err": err, "rel_err": rel_err(ds, want)}
+    log(f"  CE ds kernel vs plain at {where}: max|err| {err:.3e}, relative {row['rel_err']:.3e} "
+        f"(within one bf16 step)")
+    if not timed:
+        return row
+    ops = 2 * N * V * D
+    nbytes = N * D * 2 + V * D * 2 + 3 * N * 4 + N * V * 2
+    bound_ms, bound_by = bound(ops, nbytes)
+    row.update(ms=device_ms(lambda: ce.ce_ds_slab(x, w, labels, lse, g, 0, V)),
+               plain_ms=device_ms(lambda: ce.ce_ds_slab_reference(x, w, labels, lse, g, 0, V),
+                                  n=5),
+               bound_ms=bound_ms, bound_by=bound_by)
+    log(f"  ce_ds over the whole vocab (V={V} as one slab): device {row['ms']:.4f} ms (plain "
+        f"{row['plain_ms']:.4f} ms), bound {bound_ms:.4f} ms by {bound_by}")
+    return row
+
+
 #: (B, H, T, D, causal) of the flash sweep: T at the main batch, causal and
 #: not; the batch at the main T; head dim 128.
 SWEEP = ([(BATCH, 12, T, 64, True) for T in (64, 128, 256, 512, 1024, 2048, 4096)]
@@ -665,10 +808,10 @@ def flash_sweep(flash):
 
 # ------------------------------------------------------------------ phase 3
 def lm_task(sat, name, lr, batch_count, save_dir, model=GPT2, loss_fn=None, wrap=None,
-            **kwargs):
+            seq=SEQ, **kwargs):
     """A GPT-2 (``pretraining_loss``) or BERT (``mlm_loss``, [MASK] id kept
-    out of the data) task at the main path's shapes, synthetic tokens
-    (passed through ``wrap`` when given)."""
+    out of the data) task at the main path's shapes (at ``seq`` tokens a
+    row), synthetic tokens (passed through ``wrap`` when given)."""
     from saturn_tpu_torch.data.lm_dataset import make_lm_dataset
     from saturn_tpu_torch.models.bert import build_bert, mlm_loss
     from saturn_tpu_torch.models.gpt2 import build_gpt2
@@ -677,9 +820,9 @@ def lm_task(sat, name, lr, batch_count, save_dir, model=GPT2, loss_fn=None, wrap
     bert = model == BERT
     build = build_bert if bert else build_gpt2
     return sat.Task(
-        get_model=lambda **kw: build(model, **kw),
+        get_model=lambda **kw: build(model, **{"seq_len": seq, **kw}),
         get_dataloader=lambda: (wrap or (lambda ds: ds))(make_lm_dataset(
-            context_length=SEQ, batch_size=BATCH, vocab_size=VOCAB, seed=0,
+            context_length=seq, batch_size=BATCH, vocab_size=VOCAB, seed=0,
             reserved_ids=1 if bert else 0)),
         loss_fn=loss_fn or (mlm_loss if bert else pretraining_loss),
         hparams=sat.HParams(lr=lr, batch_count=batch_count, kwargs=kwargs),
@@ -844,12 +987,12 @@ def want_launches(attention, loss_fn, steps=1):
     return want
 
 
-def pinned_task(sat, label, attention, loss_fn, k=1):
+def pinned_task(sat, label, attention, loss_fn, k=1, seq=SEQ):
     """The pinned task of ``label``; its eager run (``k`` 1) keeps the
     checkpoint that phase 5 reads."""
     where = label if k == 1 else f"{label}-k{k}"
     task = lm_task(sat, f"pinned-{where}", 6e-4, STEPS_PINNED, os.path.join(CKPTS, where),
-                   loss_fn=loss_fn)
+                   loss_fn=loss_fn, seq=seq)
     config = {"attention": attention, "remat": False}
     return task, config
 
@@ -918,6 +1061,88 @@ def pinned_runs(sat, flash, ce, card):
             for (x, k), (t, c, r) in runs.items()}
 
 
+LONG_SEQ = 1024  # GPT-2's published context (n_ctx); b8 x 1024 is N 8192, past the stash limit
+
+
+def long_context_runs(sat, flash, ce, card):
+    """GPT-2-small at b8 x LONG_SEQ, where ``ce.auto_stash`` picks recompute
+    mode for the fused head: ``pretraining_loss`` (stash=None) in windows of
+    8 and one step at a time, and the untagged loss over the logits one step
+    at a time as its loss reference, STEPS_PINNED steps each from the same
+    init and batches. Exact launch counts (12 of each flash kernel and 1 of
+    each CE kernel per step), windowed losses within WINDOW_ATOL of the
+    eager ones, fused within the bf16 band of the logits path; ms per step,
+    tokens/s and peak memory; the size of the ds scratch of one vocab slab
+    (N x ``ce.slab_width`` bf16, the one allocation recompute mode adds)
+    under ``ce.SLAB_BYTES_MAX``."""
+    from saturn_tpu_torch.models.gpt2 import build_gpt2
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    n_tokens = BATCH * LONG_SEQ
+    d_model = build_gpt2(GPT2, seq_len=LONG_SEQ).config.d_model
+    if ce.auto_stash(n_tokens, VOCAB, d_model):
+        raise AssertionError(f"auto_stash keeps the stash at N {n_tokens}: want recompute")
+    dev = torch.device(DEVICE, 0)
+    label = f"flash-{LONG_SEQ}"
+    runs = {}
+    for loss_fn, k in ((None, WINDOW), (None, 1), (untagged_loss, 1)):
+        where = label + ("-logits" if loss_fn else "")
+        task, config = pinned_task(sat, where, "flash", loss_fn, k, seq=LONG_SEQ)
+        tech = DataParallel()
+        task.strategies[1] = sat.Strategy(tech, 1, config, 0.0)
+        task.select_strategy(1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts(flash, ce)
+        tech.execute(task, [dev], 0, override_batch_count=STEPS_PINNED, window_size=k)
+        peak = {"allocated": torch.cuda.max_memory_allocated(dev),
+                "reserved": torch.cuda.max_memory_reserved(dev)}
+        r, launched = tech.intervals[-1], counts(flash, ce)
+        want = want_launches("flash", loss_fn, STEPS_PINNED)
+        if launched != want:
+            raise AssertionError(f"{where} K={k} run launched {launched}, want {want}")
+        if k > 1 and not r["windows"]:
+            raise AssertionError(f"{where}: the K={k} run ran no window")
+        runs[where, k] = (task, launched, r, peak)
+        log(f"  pinned {where} b{BATCH}x{LONG_SEQ} K={k} ({r['windows']} windows, tail "
+            f"{r['tail']}" + (", eager warm-up step" if r["warm"] else "") + "): "
+            f"{task.last_per_batch_s * 1e3:.2f} ms/step, "
+            f"{n_tokens / task.last_per_batch_s:.0f} tokens/s, peak memory "
+            f"{peak['allocated'] / 2**30:.2f} GiB allocated, {peak['reserved'] / 2**30:.2f} GiB "
+            f"reserved, launches {launched} (exact), losses "
+            f"{np.round(task.last_losses, 4).tolist()}  [{card}]")
+        task.release_live_state()  # one state on the card at a time
+        task.release_compiled()
+    ckpt.flush()
+    held = compare_windowed(label, runs[label, WINDOW][0].last_losses,
+                            runs[label, 1][0].last_losses)
+    fused = np.asarray(runs[label, 1][0].last_losses)
+    logits = np.asarray(runs[label + "-logits", 1][0].last_losses)
+    if not np.allclose(fused, logits, rtol=BF16_BAND, atol=BF16_BAND):
+        raise AssertionError(f"{label}: fused losses {fused} vs logits {logits} outside the "
+                             f"bf16 band")
+    scratch = n_tokens * ce.slab_width(n_tokens, VOCAB) * 2
+    if scratch > ce.SLAB_BYTES_MAX:
+        raise AssertionError(f"the ds scratch takes {scratch} bytes, above "
+                             f"{ce.SLAB_BYTES_MAX}")
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    log(f"  {label}: recompute mode (auto_stash at N {n_tokens}); windowed losses against "
+        f"eager: {held}; fused against logits: max |diff| {np.abs(fused - logits).max():.4e} "
+        f"(band 2e-2); ds scratch {scratch / 2**20:.1f} MiB (slab of "
+        f"{ce.slab_width(n_tokens, VOCAB)} columns, cap {ce.SLAB_BYTES_MAX / 2**20:.0f} MiB); "
+        f"{seconds:.1f}s")
+    return {"recompute": True, "slab_scratch_bytes": scratch, "windowed_vs_eager": held,
+            "seconds": seconds,
+            **{f"{x}-k{k}": {"ms_per_step": t.last_per_batch_s * 1e3,
+                             "tokens_per_s": n_tokens / t.last_per_batch_s,
+                             "losses": t.last_losses, "launches": c, "interval": r,
+                             "peak_bytes": p}
+               for (x, k), (t, c, r, p) in runs.items()}}
+
+
 # ------------------------------------------------------------------ phase 5
 def profile_steps(sat, card, n_sync=8, n_prof=4):
     """Where a training step's time goes, for each pinned config: per-step
@@ -978,20 +1203,44 @@ def profile_steps(sat, card, n_sync=8, n_prof=4):
     return out
 
 
-def profile_windows(sat, card, k=WINDOW, n_windows=3, rounds=2):
-    """The flash + fused config in windows of ``k``: the steady-state
-    per-batch time of ``n_windows`` windows without a synchronize between
-    them, beside the eager path's over the same ``n_windows * k`` steps, in
-    turns (windows, steps, windows, steps, ...); the device busy time and
-    idle share over the windows (torch.profiler) and the peak memory of the
-    windows, allocated and reserved (the graph's pool is reserved)."""
+def optimizer_ab(bundle, state, batch, rounds):
+    """The eager step's device time with the capturable optimizer and with
+    the same optimizer not capturable (step counts on the host), in turns."""
+    opt = state["opt_state"]
+    accepted = inspect.signature(type(opt).__init__).parameters
+    plain = type(opt)(state["params"].parameters(),
+                      **{k: v for k, v in opt.defaults.items()
+                         if k in accepted and k != "capturable"},
+                      capturable=False) if "capturable" in opt.defaults else opt
+    plain.load_state_dict(opt.state_dict())
+    eager_busy = {"capturable": [], "plain": []}
+    for _ in range(rounds):
+        for name, o in (("capturable", opt), ("plain", plain)):
+            state["opt_state"] = o
+            eager_busy[name].append(busy_ms(profiled(lambda: bundle.step(state, batch), 4)[1]) / 4)
+    state["opt_state"] = opt
+    return eager_busy
+
+
+def profile_windows(sat, card, k=WINDOW, n_windows=3, rounds=2, label="flash", seq=SEQ,
+                    compare_optimizers=True):
+    """The flash + fused config (the pinned task ``label`` at b x ``seq``)
+    in windows of ``k``: the steady-state per-batch time of ``n_windows``
+    windows without a synchronize between them, beside the eager path's over
+    the same ``n_windows * k`` steps, in turns (windows, steps, windows,
+    steps, ...); the device busy time and idle share over the windows
+    (torch.profiler), the flash and CE kernels' device time per step inside
+    them, and the peak memory of the windows, allocated and reserved (the
+    graph's pool is reserved). With ``compare_optimizers``, also
+    ``optimizer_ab``."""
     from saturn_tpu_torch.parallel.dp import DataParallel
     from saturn_tpu_torch.parallel.spmd_base import stage_tokens
     from saturn_tpu_torch.utils import checkpoint as ckpt
 
+    t_phase = time.perf_counter()
     dev = torch.device(DEVICE, 0)
-    label, attention, loss_fn = PINNED[0]
-    task, config = pinned_task(sat, label, attention, loss_fn)
+    _, attention, loss_fn = PINNED[0]
+    task, config = pinned_task(sat, label, attention, loss_fn, seq=seq)
     bundle = DataParallel().build(task, [dev], config)
     state = ckpt.restore(task.ckpt_path, bundle.empty())
     n = n_windows * k
@@ -1033,37 +1282,30 @@ def profile_windows(sat, card, k=WINDOW, n_windows=3, rounds=2):
                                          f"{label} windows")
     busy = busy_ms(events) / n
     windowed_ms = float(np.median(times["windowed"]))
-    # the eager step's device time with the capturable optimizer and with the
-    # same optimizer not capturable (step counts on the host), in turns
-    opt = state["opt_state"]
-    accepted = inspect.signature(type(opt).__init__).parameters
-    plain = type(opt)(state["params"].parameters(),
-                      **{k: v for k, v in opt.defaults.items()
-                         if k in accepted and k != "capturable"},
-                      capturable=False) if "capturable" in opt.defaults else opt
-    plain.load_state_dict(opt.state_dict())
-    eager_busy = {"capturable": [], "plain": []}
-    for _ in range(rounds):
-        for name, o in (("capturable", opt), ("plain", plain)):
-            state["opt_state"] = o
-            eager_busy[name].append(busy_ms(profiled(lambda: bundle.step(state, steps[0]), 4)[1]) / 4)
-    state["opt_state"] = opt
-    out = {"k": k, "windows": n_windows, "capture_s": capture_s, "ms_per_batch": times,
-           "device_busy_ms": busy, "idle_share": 1 - busy / windowed_ms,
+    flash_ms = sum(kernels[x]["device_ms_per_step"] for x in FLASH_NAMES)
+    ce_ms = sum(kernels[x]["device_ms_per_step"] for x in CE_NAMES)
+    eager_busy = optimizer_ab(bundle, state, steps[0], rounds) if compare_optimizers else None
+    out = {"seq": seq, "k": k, "windows": n_windows, "capture_s": capture_s,
+           "ms_per_batch": times, "device_busy_ms": busy, "idle_share": 1 - busy / windowed_ms,
+           "flash_ms_per_step": flash_ms, "ce_ms_per_step": ce_ms,
+           "seconds": time.perf_counter() - t_phase,
            "readbacks_per_step": sum("DtoH" in e for e, _, _ in events) / n,
            "kernels": kernels, "peak_bytes": peak, "eager_device_busy_ms": eager_busy}
-    log(f"  {label} in windows of {k}: capture {capture_s:.3f}s; per batch without a "
-        f"synchronize between steps, {n} steps, in turns: windowed "
+    log(f"  {label} b{BATCH}x{seq} in windows of {k}: capture {capture_s:.3f}s; per batch "
+        f"without a synchronize between steps, {n} steps, in turns: windowed "
         f"{np.round(times['windowed'], 3).tolist()} ms, eager "
         f"{np.round(times['eager'], 3).tolist()} ms; device busy {busy:.2f} ms/step, idle "
-        f"share {out['idle_share']:.3f} of the windowed batch; "
+        f"share {out['idle_share']:.3f} of the windowed batch; flash kernels {flash_ms:.3f} "
+        f"ms/step, CE kernels {ce_ms:.3f} ms/step; "
         f"{out['readbacks_per_step']:g} device-to-host copies per step; peak memory "
         f"{peak['allocated'] / 2**30:.2f} GiB allocated, {peak['reserved'] / 2**30:.2f} GiB "
         f"reserved; launches per step seen by the profiler "
         + ", ".join(f"{name} {kk['launches_per_step']:g}" for name, kk in kernels.items())
-        + f"; eager device busy per step, in turns: capturable {type(opt).__name__} "
-        f"{np.round(eager_busy['capturable'], 3).tolist()} ms, not capturable "
-        f"{np.round(eager_busy['plain'], 3).tolist()} ms  [{card}]")
+        + (f"; eager device busy per step, in turns: capturable "
+           f"{type(state['opt_state']).__name__} "
+           f"{np.round(eager_busy['capturable'], 3).tolist()} ms, not capturable "
+           f"{np.round(eager_busy['plain'], 3).tolist()} ms" if eager_busy else "")
+        + f"; {out['seconds']:.1f}s  [{card}]")
     bundle.release_windows()
     del state, bundle, windows, steps
     torch.cuda.empty_cache()
@@ -1446,11 +1688,21 @@ def main(argv) -> int:
     N, D = BATCH * SEQ, 768
     rows.update(check_ce(ce, N, D, VOCAB, True, 3, 0, timed=True))
     recompute = check_ce(ce, N, D, VOCAB, False, 4, 0, timed=True)
+    recompute["ce_ds"] = check_ds(ce, N, D, VOCAB, 9, timed=True)
     check_ce(ce, 4000, D, 50257, True, 5, 64, timed=False)
     check_ce(ce, 4000, D, 50257, False, 8, 64, timed=False)
-    # the other widths of the stash-mode dx and dW kernels: D tiles of 256 and of 64
-    check_ce(ce, N, 1024, VOCAB, True, 6, 0, timed=False)
-    check_ce(ce, 4000, 64, 50257, True, 7, 64, timed=False)
+    # the other widths of the dx and dW kernels in both modes: D tiles of 256 and of 64
+    for stash in (True, False):
+        check_ce(ce, N, 1024, VOCAB, stash, 6, 0, timed=False)
+        check_ce(ce, 4000, 64, 50257, stash, 7, 64, timed=False)
+    # recompute over 5 slabs, the last ragged, and N that no token tile divides
+    check_ce(ce, 6000, D, 50257, False, 11, 64, timed=False)
+    check_ds(ce, 6000, D, 50257, 12, timed=False)
+    # the shapes of phase 4's b8 x 1024 run: its CE head in recompute mode at N 8192, its
+    # flash kernels at T 1024
+    check_ce(ce, BATCH * LONG_SEQ, D, VOCAB, False, 13, 0, timed=False)
+    check_ds(ce, BATCH * LONG_SEQ, D, VOCAB, 14, timed=False)
+    check_kernels(flash, (BATCH, 12, 12, LONG_SEQ, 64), True, 15, timed=False)
     torch.cuda.empty_cache()
 
     log("phase 3: search -> orchestrate, two GPT-2-small tasks and one BERT-base task b8x512")
@@ -1458,10 +1710,13 @@ def main(argv) -> int:
 
     log("phase 4: the kernels on the training path (dp execute, pinned)")
     pinned = pinned_runs(sat, flash, ce, card)
+    pinned[f"b{BATCH}x{LONG_SEQ}"] = long_context_runs(sat, flash, ce, card)
 
     log("phase 5: where a step's time goes (pinned configs)")
     step_profile = profile_steps(sat, card)
     step_profile["flash-windows"] = profile_windows(sat, card)
+    step_profile[f"flash-{LONG_SEQ}-windows"] = profile_windows(
+        sat, card, label=f"flash-{LONG_SEQ}", seq=LONG_SEQ, compare_optimizers=False)
 
     log("phase 6: a sweep past milp_task_limit, 13 GPT-2-small tasks b8x512, defaults")
     sweep_launches, sweep = sweep_phase(sat, flash, ce, card)

@@ -2,12 +2,13 @@
 //
 // Replaces the three Pallas kernels of saturn_tpu/ops/ce.py:
 //   ce_fwd_sm90_kernel (both modes)
-//     + ce_fwd_combine_kernel               <- _run_fwd       (pallas_call at ce.py:208, _fwd_kernel)
-//   ce_dx_sm90_kernel (stash mode),
-//   ce_dx_kernel (recompute mode),
-//     each + ce_dx_reduce_kernel            <- _fused_ce_bwd  (pallas_call at ce.py:290, _dx_kernel)
-//   ce_dw_sm90_kernel (stash mode),
-//   ce_dw_kernel (recompute mode)           <- _fused_ce_bwd  (pallas_call at ce.py:314, _dw_kernel)
+//     + ce_fwd_combine_kernel           <- _run_fwd       (pallas_call at ce.py:208, _fwd_kernel)
+//   ce_dx_sm90_kernel<NB, false> (stash mode),
+//   ce_ds_sm90_kernel + ce_dx_sm90_kernel<NB, true> per vocab slab (recompute mode),
+//     each + ce_dx_reduce_kernel        <- _fused_ce_bwd  (pallas_call at ce.py:290, _dx_kernel)
+//   ce_dw_sm90_kernel<NB, false> (stash mode),
+//   ce_ds_sm90_kernel + ce_dw_sm90_kernel<NB, true> per vocab slab (recompute mode)
+//                                       <- _fused_ce_bwd  (pallas_call at ce.py:314, _dw_kernel)
 //
 // What they compute, for x (N, D) bf16, W (V, D) bf16 and labels (N,) int32
 // (negative = ignored): s = x W^T in f32 with the columns >= V at -1e30;
@@ -17,53 +18,51 @@
 // dx = ds W (bf16 out) and dW = ds^T x (f32 out). s comes from the stash or,
 // in recompute mode, from x W^T again in f32.
 //
-// What bounds them on an H100: each is one product of 2 N V D operations
-// (recompute mode adds a second), K = D (fwd), K = V (dx) or K = N (dW), far
-// above the card's ~295 operations per byte in bf16: bound by operations
-// (0.32 ms at N 4096, D 768, V 50304). In practice the mma.sync kernels are
-// bound by their mma.sync issue rate and their shared-memory fragment loads.
+// What bounds them on an H100: each product is 2 N V D operations, K = D
+// (fwd, ds), K = V (dx) or K = N (dW), far above the card's ~295 operations
+// per byte in bf16: bound by operations, 0.32 ms per product at N 4096,
+// D 768, V 50304. A recompute-mode backward kernel takes two products (s
+// again, then ds W or ds^T x): 0.64 ms.
 //
-// What the design does about it. The forward (both modes) and the two
-// stash-mode backward kernels, ce_dx_sm90_kernel and ce_dw_sm90_kernel, are
-// built for Hopper (TMA rings, wgmma; ds formed in registers in the
-// backward): see their own notes below. The forward's token tiles alone
-// would not fill the card, so its vocab is split across blocks: each writes
-// partial (max, sum, label logit) rows in f32 for its vocab range, and
-// ce_fwd_combine_kernel forms lse and loss (the TPU kernel instead walks the
-// whole vocab on one grid axis). The recompute-mode backward kernels compute
-// a 128 x 128 output tile per block and stage the product's depth 32 at a
-// time through shared memory with cp.async, double-buffered. Products run on
-// mma.sync m16n8k16 (bf16 in, f32 accumulate). Operands contiguous along the
-// product's depth are read with 32-bit shared loads; operands contiguous
-// along the output (W in dx, x in dW) are staged as they lie in memory and
-// read with ldmatrix.trans.
-//
-// - The recompute-mode ce_dx and ce_dw: 8 warps as 4 x 2 warps of 32 x 64.
-//   Each depth stage first forms its f32 score tile x W^T in registers, turns
-//   it into a ds tile in shared memory, every element once, then runs the
-//   product with ds as the A operand. Every D tile repeats the x W^T
-//   recompute: D / 128 = 6 times over at D 768, the price of keeping the
-//   accumulator of a 128 x 128 tile in registers; recompute is the
-//   long-context mode, off the main path.
-// - ce_dx (both kernels): output tiles over (token, D) with the vocab as
-//   depth: at D 768 too few to fill the card, so the vocab is split
-//   (split-K) into f32 partial sums that ce_dx_reduce_kernel adds in a fixed
-//   order and casts to bf16: no atomics, a result independent of scheduling.
-//   The D tiles of one token tile are neighbours in the grid, so they stream
-//   the same stash rows at about the same time and all but the first read
-//   come from L2.
-// - ce_dw (both kernels): output tiles over (vocab, D), tokens as depth, the
-//   depth loop inside the block, f32 out, no atomics.
+// What the design does about it. Every kernel is built for Hopper: TMA rings
+// on mbarriers feed wgmma, and ds is formed on the accumulators or in the
+// registers of the product's A operand (see each kernel's note below).
+// - The forward's token tiles alone would not fill the card, so its vocab is
+//   split across blocks: each writes partial (max, sum, label logit) rows in
+//   f32 for its vocab range, and ce_fwd_combine_kernel forms lse and loss
+//   (the TPU kernel instead walks the whole vocab on one grid axis).
+// - Stash mode: ce_dx_sm90_kernel and ce_dw_sm90_kernel read the bf16 stash
+//   by TMA and turn each value into ds in registers.
+// - Recompute mode walks the vocab in slabs of `slab` columns, whose ds the
+//   caller's bf16 (N, slab) scratch holds (ops/ce.slab_width keeps it at 128
+//   MiB or less whatever V is, so there is no O(N V) memory). Per slab,
+//   ce_ds_sm90_kernel (the forward's main loop: x W^T in f32 on wgmma, with
+//   an epilogue that forms ds and stores it in bf16 by TMA) writes the slab's
+//   ds, every element once, and the stash-mode product kernel, with ds given
+//   (GIVEN), reads it as it reads the stash, minus the ds transform. The
+//   product's time is then the stash mode's, and the score product is done
+//   once per wrapper call and not once per D tile.
+// - dx (both modes): output tiles over (token, D) with the vocab as depth:
+//   at D 768 too few to fill the card, so the vocab (of a slab) is split
+//   (split-K) into KS f32 partial sums; in recompute mode the first slab
+//   writes them and each later slab adds to them in stream order (a block
+//   owns its elements within each launch); ce_dx_reduce_kernel adds the KS
+//   sums in a fixed order and casts to bf16: no atomics, a result
+//   independent of scheduling.
+// - dW (both modes): output tiles over (vocab, D), tokens as depth, the
+//   depth loop inside the block, f32 out, no atomics; a slab's dW rows are
+//   complete within the slab.
 // - The vocab is taken as it is (no pad to a tile multiple): loads past V or
 //   N are zero-filled and ds is 0 in columns >= V; g is 0 in rows >= N.
-// - The launchers choose the vocab splits of ce_fwd and ce_dx from the
+// - The launchers choose the vocab splits of ce_fwd, ce_ds and ce_dx from the
 //   kernel's occupancy on the current device (units_per_split);
 //   ce_fwd_scratch and ce_dx_scratch tell the caller how much f32 scratch
 //   that split takes, so no caller mirrors the tiles or the split rule.
 //
 // Layout: x, W, dx row-major with row stride D (D % 64 == 0); the stash is
-// (N, ld_s) bf16 with ld_s % 8 == 0 and columns >= V unused; labels, lse, g,
-// loss are (N,) contiguous. Each launcher returns cudaGetLastError() as an int.
+// (N, ld_s) bf16 with ld_s % 8 == 0 and columns >= V unused, as is the ds
+// scratch of recompute mode with ld_s = slab; labels, lse, g, loss are (N,)
+// contiguous. Each launcher returns cudaGetLastError() as an int.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,28 +74,7 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int BM = 128;              // output rows per block
-constexpr int BN = 128;              // output columns per block
-constexpr int BK = 32;               // depth per pipeline stage
-constexpr int WM = 32;               // rows of one warp's part of the tile
-constexpr int MT = WM / 16;          // mma row tiles per warp
-constexpr int PAD = 8;               // bf16 of row padding: 16 bytes, no bank conflicts
-constexpr int LDK = BK + PAD;        // row stride of a tile contiguous along the depth
-constexpr int LDN = BN + PAD;        // row stride of a tile contiguous along the output
 constexpr float NEG_INF = -1e30f;    // the mask value of the Pallas kernels
-
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -107,31 +85,6 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !pred (src is
-// then not read).
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
-               "r"(pred ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8i..8i+7
-// give the row addresses of matrix i, and register i of lane (g, t) receives
-// {M_i[2t][g], M_i[2t + 1][g]}.
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -140,222 +93,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// ROWS x BK of a row-major matrix (rows r0.., columns c0..; R rows and C
-// columns exist, C % 8 == 0) -> shared memory at row stride LDK.
-template <int ROWS>
-__device__ __forceinline__ void load_k_tile(bf16* dst, const bf16* src, long long ld,
-                                            int r0, int R, int c0, int C) {
-  constexpr int SEG = BK / 8;
-  for (int i = threadIdx.x; i < ROWS * SEG; i += blockDim.x) {
-    const int r = i / SEG, c = (i % SEG) * 8;
-    const bool ok = r0 + r < R && c0 + c < C;
-    cp_async16(dst + r * LDK + c, ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok);
-  }
-}
-
-// BK x BN of a row-major matrix (rows k0.., columns n0..) -> shared memory at
-// row stride LDN.
-__device__ __forceinline__ void load_n_tile(bf16* dst, const bf16* src, long long ld,
-                                            int k0, int K, int n0, int C) {
-  constexpr int SEG = BN / 8;
-  for (int i = threadIdx.x; i < BK * SEG; i += blockDim.x) {
-    const int r = i / SEG, c = (i % SEG) * 8;
-    const bool ok = k0 + r < K && n0 + c < C;
-    cp_async16(dst + r * LDN + c, ok ? src + (size_t)(k0 + r) * ld + n0 + c : src, ok);
-  }
-}
-
-// acc (RT*16 x CT*8) += A (RT*16 x 16) B^T (CT*8 x 16), depth columns k0..k0+15
-// of A and B, both row-major over the depth in shared memory. acc[i][n] is a
-// 16 x 8 tile in the mma.sync C layout: element e of lane (g, t) sits at row
-// 16 i + g + 8 (e / 2), column 8 n + 2 t + e % 2.
-template <int RT, int CT>
-__device__ __forceinline__ void mma_kk(float (*acc)[CT][4], const bf16* A, const bf16* B,
-                                       int k0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  uint32_t a[RT][4];
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const bf16* pa = A + (i * 16 + g) * LDK + k0 + 2 * t;
-    a[i][0] = ld32(pa);
-    a[i][1] = ld32(pa + 8 * LDK);
-    a[i][2] = ld32(pa + 8);
-    a[i][3] = ld32(pa + 8 * LDK + 8);
-  }
-#pragma unroll
-  for (int n = 0; n < CT; ++n) {
-    const bf16* pb = B + (n * 8 + g) * LDK + k0 + 2 * t;
-    const uint32_t b0 = ld32(pb), b1 = ld32(pb + 8);
-#pragma unroll
-    for (int i = 0; i < RT; ++i) mma16816(acc[i][n], a[i], b0, b1);
-  }
-}
-
-// acc (MT*16 x CT*8) += a B: a holds the A fragments of MT 16 x 16 tiles at
-// depth kk*16; B points at the first of the CT*8 columns in a (BK x BN) tile
-// at row stride LDN, contiguous along the columns (read with ldmatrix.trans).
-template <int CT>
-__device__ __forceinline__ void mma_bt(float (*acc)[CT][4], uint32_t (*a)[4], const bf16* B,
-                                       int kk, int lane) {
-  const int i = lane >> 3, r = lane & 7;
-  const bf16* row = B + (kk * 16 + (i & 1) * 8 + r) * LDN + (i >> 1) * 8;
-#pragma unroll
-  for (int n = 0; n < CT; n += 2) {
-    uint32_t b[4];
-    ldsm_x4_t(b, row + n * 8);
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      mma16816(acc[m][n], a[m], b[0], b[1]);
-      mma16816(acc[m][n + 1], a[m], b[2], b[3]);
-    }
-  }
-}
-
-// A fragments of MT 16 x 16 tiles at depth kk*16 from a tile that is
-// row-major over the depth (row stride LDK), its first row at A.
-__device__ __forceinline__ void a_rows(uint32_t (*a)[4], const bf16* A, int kk, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < MT; ++i) {
-    const bf16* pa = A + (i * 16 + g) * LDK + kk * 16 + 2 * t;
-    a[i][0] = ld32(pa);
-    a[i][1] = ld32(pa + 8 * LDK);
-    a[i][2] = ld32(pa + 8);
-    a[i][3] = ld32(pa + 8 * LDK + 8);
-  }
-}
-
-// A fragments of MT 16 x 16 tiles at depth kk*16 from a tile stored
-// transposed, S[depth][row] at row stride LDN, the first row at column m0:
-// matrix q of ldmatrix covers rows + 8 (q % 2) and depth + 8 (q / 2).
-__device__ __forceinline__ void a_cols(uint32_t (*a)[4], const bf16* S, int kk, int m0,
-                                       int lane) {
-  const int li = lane >> 3, lr = lane & 7;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-    ldsm_x4_t(a[i], S + (kk * 16 + (li >> 1) * 8 + lr) * LDN + m0 + i * 16 + (li & 1) * 8);
-}
-
-// One element of the softmax gradient: (exp(s - lse) - [label == col]) * g,
-// 0 in the columns past the vocab.
-__device__ __forceinline__ float ds_of(float s, int col, int V, float lse, float g,
-                                       int label) {
-  if (col >= V) return 0.f;
-  return (__expf(s - lse) - (col == label ? 1.f : 0.f)) * g;
-}
-
-template <int CT>
-__device__ __forceinline__ void zero(float (*acc)[CT][4]) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < CT; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
-}
-
-// ------------------------------------------------- dx and dW, recompute mode
-// Both recompute-mode backward kernels run 8 warps (THREADS_BWD) over a
-// 128 x 128 output tile, as 4 x 2 warps of 32 x 64. Each depth stage first
-// forms the f32 score tile of x W^T in registers and turns it into a ds tile
-// in shared memory, every element once, then runs the product with ds as the
-// A operand. Forming ds apart from the product keeps the mma loop free of the
-// exponentials.
-constexpr int THREADS_BWD = 256;
-constexpr int NTW = 64 / 8;          // mma column tiles per warp in dx and dW
-
-// Block (D tile, token tile, vocab split): part[split] (N x D, f32) = the
-// split's sum over vocab of ds W.
-__global__ void __launch_bounds__(THREADS_BWD, 2)
-ce_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-             const int* __restrict__ labels, const float* __restrict__ lse,
-             const float* __restrict__ gr, float* __restrict__ part, int N, int V, int D,
-             int chunks_per_split) {
-  // sA: the x tile (BM tokens x BK of D); sW: the W tile (BK vocab x BK of
-  // D); sDs: the ds tile; sB: the W tile of the product (BK vocab x BN of D).
-  __shared__ __align__(16) bf16 sA[2][BM * LDK];
-  __shared__ __align__(16) bf16 sW[2][BK * LDK];
-  __shared__ __align__(16) bf16 sDs[BM * LDK];
-  __shared__ __align__(16) bf16 sB[BK * LDN];
-  __shared__ float sLse[BM], sG[BM];
-  __shared__ int sLab[BM];
-
-  const int d0 = blockIdx.x * BN, row0 = blockIdx.y * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int n_kc = (V + BK - 1) / BK;
-  const int c0 = blockIdx.z * chunks_per_split, c1 = min(n_kc, c0 + chunks_per_split);
-
-  for (int i = threadIdx.x; i < BM; i += blockDim.x) {
-    const int r = row0 + i;
-    sLse[i] = r < N ? lse[r] : 0.f;
-    sG[i] = r < N ? gr[r] : 0.f;
-    sLab[i] = r < N ? labels[r] : -1;
-  }
-
-  float acc[MT][NTW][4];
-  zero<NTW>(acc);
-  uint32_t a[MT][4];
-
-  const int nd = D / BK;
-  for (int c = c0; c < c1; ++c) {
-    // s (16 tokens of this warp x BK vocab) = x W^T over all of D, in f32
-    float s[1][BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[0][n][0] = s[0][n][1] = s[0][n][2] = s[0][n][3] = 0.f;
-    load_n_tile(sB, w, D, c * BK, V, d0, D);
-    load_k_tile<BM>(sA[0], x, D, row0, N, 0, D);
-    load_k_tile<BK>(sW[0], w, D, c * BK, V, 0, D);
-    cp_commit();
-    for (int dk = 0; dk < nd; ++dk) {
-      if (dk + 1 < nd) {
-        load_k_tile<BM>(sA[(dk + 1) & 1], x, D, row0, N, (dk + 1) * BK, D);
-        load_k_tile<BK>(sW[(dk + 1) & 1], w, D, c * BK, V, (dk + 1) * BK, D);
-        cp_commit();
-        cp_wait<1>();
-      } else {
-        cp_wait<0>();
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k0 = 0; k0 < BK; k0 += 16)
-        mma_kk<1, BK / 8>(s, sA[dk & 1] + warp * 16 * LDK, sW[dk & 1], k0, lane);
-      __syncthreads();
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = warp * 16 + g + 8 * h, col = n * 8 + 2 * t, v = c * BK + col;
-        *reinterpret_cast<uint32_t*>(sDs + r * LDK + col) =
-            pack_bf16(ds_of(s[0][n][2 * h], v, V, sLse[r], sG[r], sLab[r]),
-                      ds_of(s[0][n][2 * h + 1], v + 1, V, sLse[r], sG[r], sLab[r]));
-      }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      a_rows(a, sDs + wm * WM * LDK, kk, lane);
-      mma_bt<NTW>(acc, a, sB + wn * 64, kk, lane);
-    }
-    __syncthreads();  // sB, sA[0], sW[0] and sDs are refilled for the next chunk
-  }
-
-  float* out = part + (size_t)blockIdx.z * N * D;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = row0 + wm * WM + i * 16 + h * 8 + g;
-      if (r >= N) continue;
-#pragma unroll
-      for (int n = 0; n < NTW; ++n) {
-        const int col = d0 + wn * 64 + n * 8 + 2 * t;
-        if (col < D)
-          *reinterpret_cast<float2*>(out + (size_t)r * D + col) =
-              make_float2(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
-      }
-    }
 }
 
 // dx = bf16(sum over the splits of part), in split order.
@@ -369,127 +106,36 @@ __global__ void ce_dx_reduce_kernel(const float* __restrict__ part, bf16* __rest
   }
 }
 
-// Recompute mode. Block (D tile, vocab tile): dW rows = sum over all tokens
-// of ds^T x, in f32, with s = W x^T recomputed for each token chunk. The
-// statistics of a token chunk sit in shared memory beside it.
-__global__ void __launch_bounds__(THREADS_BWD, 2)
-ce_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-             const int* __restrict__ labels, const float* __restrict__ lse,
-             const float* __restrict__ gr, float* __restrict__ dw, int N, int V, int D) {
-  // sS: the ds tile as S[token][vocab] (BK tokens x BM vocab), written from
-  // the score tile. sWr, sXr: the W tile (BM vocab x BK of D) and the x tile
-  // (BK tokens x BK of D). sB: the x tile of the product (BK tokens x BN of D).
-  // sL, sG, sLab: the statistics of the chunk's tokens.
-  __shared__ __align__(16) bf16 sS[BK * LDN];
-  __shared__ __align__(16) bf16 sWr[2][BM * LDK];
-  __shared__ __align__(16) bf16 sXr[2][BK * LDK];
-  __shared__ __align__(16) bf16 sB[BK * LDN];
-  __shared__ float sL[BK], sG[BK];
-  __shared__ int sLab[BK];
-
-  const int d0 = blockIdx.x * BN, v0 = blockIdx.y * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int n_kc = (N + BK - 1) / BK;
-
-  float acc[MT][NTW][4];
-  zero<NTW>(acc);
-  uint32_t a[MT][4];
-
-  const int nd = D / BK;
-  for (int c = 0; c < n_kc; ++c) {
-    // s (16 vocab rows of this warp x BK tokens) = W x^T over all of D, in f32
-    float s[1][BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[0][n][0] = s[0][n][1] = s[0][n][2] = s[0][n][3] = 0.f;
-    load_n_tile(sB, x, D, c * BK, N, d0, D);
-    load_k_tile<BM>(sWr[0], w, D, v0, V, 0, D);
-    load_k_tile<BK>(sXr[0], x, D, c * BK, N, 0, D);
-    cp_commit();
-    if (threadIdx.x < BK) {
-      const int r = c * BK + threadIdx.x;
-      sL[threadIdx.x] = r < N ? lse[r] : 0.f;
-      sG[threadIdx.x] = r < N ? gr[r] : 0.f;
-      sLab[threadIdx.x] = r < N ? labels[r] : -1;
-    }
-    for (int dk = 0; dk < nd; ++dk) {
-      if (dk + 1 < nd) {
-        load_k_tile<BM>(sWr[(dk + 1) & 1], w, D, v0, V, (dk + 1) * BK, D);
-        load_k_tile<BK>(sXr[(dk + 1) & 1], x, D, c * BK, N, (dk + 1) * BK, D);
-        cp_commit();
-        cp_wait<1>();
-      } else {
-        cp_wait<0>();
-      }
-      __syncthreads();
-#pragma unroll
-      for (int k0 = 0; k0 < BK; k0 += 16)
-        mma_kk<1, BK / 8>(s, sWr[dk & 1] + warp * 16 * LDK, sXr[dk & 1], k0, lane);
-      __syncthreads();
-    }
-    // ds, stored transposed as S[token][vocab]
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int m = warp * 16 + g + 8 * (e >> 1), k = n * 8 + 2 * t + (e & 1);
-        sS[k * LDN + m] =
-            __float2bfloat16(ds_of(s[0][n][e], v0 + m, V, sL[k], sG[k], sLab[k]));
-      }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      a_cols(a, sS, kk, wm * WM, lane);
-      mma_bt<NTW>(acc, a, sB + wn * 64, kk, lane);
-    }
-    __syncthreads();  // sB, sWr[0], sXr[0], sS and the statistics are refilled next chunk
-  }
-
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = v0 + wm * WM + i * 16 + h * 8 + g;
-      if (r >= V) continue;
-#pragma unroll
-      for (int n = 0; n < NTW; ++n) {
-        const int col = d0 + wn * 64 + n * 8 + 2 * t;
-        if (col < D)
-          *reinterpret_cast<float2*>(dw + (size_t)r * D + col) =
-              make_float2(acc[i][n][2 * h], acc[i][n][2 * h + 1]);
-      }
-    }
-}
-
-// ------------------------------------------------ dW, stash mode, for Hopper
-// ce_dw_sm90_kernel: one block per (D tile of 64 NB columns, vocab tile of
-// 128 rows); dW tile = sum over all tokens of ds^T x, in f32.
+// ------------------------------------------------------------- dW, for Hopper
+// ce_dw_sm90_kernel<NB, GIVEN>: one block per (D tile of 64 NB columns, vocab
+// tile of 128 rows); dW tile = sum over all tokens of ds^T x, in f32. The
+// bf16 (N, V) operand is the stash (GIVEN false) or, in recompute mode, one
+// vocab slab's ds (GIVEN true: V is the slab's width, dw its first row).
 // - Tiles arrive by TMA into a ring of DW_STAGES stages of DW_CHUNK tokens:
-//   the stash chunk (tokens x 128 vocab as two 64-column blocks, 128-byte
+//   the operand's chunk (tokens x 128 vocab as two 64-column blocks, 128-byte
 //   swizzle; the map spans V columns and N rows, so boxes past them are
-//   zero-filled), the x chunk (tokens x 64 NB) and the chunk's lse, g and
-//   labels (1-d maps, zero past N, so g is 0 there). At the end of each step
-//   thread 0 refills the stage of the chunk before, which every thread freed
-//   a step earlier, with the chunk DW_STAGES ahead of it. There is no
-//   producer warp: with one (288 threads) ptxas capped each thread at 168
-//   registers, short of the 208 this kernel uses, and spilled.
+//   zero-filled), the x chunk (tokens x 64 NB) and, in stash mode, the
+//   chunk's lse, g and labels (1-d maps, zero past N, so g is 0 there). At
+//   the end of each step thread 0 refills the stage of the chunk before,
+//   which every thread freed a step earlier, with the chunk DW_STAGES ahead
+//   of it. There is no producer warp: with one (288 threads) ptxas capped
+//   each thread at 168 registers, short of the 208 this kernel uses, and
+//   spilled.
 // - Two warpgroups, each owning 64 vocab rows and all 64 NB columns: NB f32
 //   accumulators of 64 x 64 in registers, 32 NB per thread.
-// - ds is formed in registers as the A operand of the product, never stored:
-//   each warp reads its 16 vocab rows x 16 tokens of the stash chunk with
-//   ldmatrix.trans (A = ds^T: the stash rows are the depth), which lands in
-//   wgmma's register A layout, turns each value into ds (one FFMA and one
-//   ex2 per element) and multiplies with wgmma RS against the x chunk read
-//   MN-major (m64n256k16 for a 256-column tile, else m64n64k16 per column
-//   block). A warpgroup waits for its own products before it forms the next
-//   operand, and the other warpgroup's products run meanwhile: keeping a
-//   batch in flight while the next operand is written makes ptxas serialize
-//   every wgmma (advisory C7513), and was no faster. Each (token, vocab)
-//   element is formed once per D tile: D / (64 NB) = 3 times at D 768 (the
-//   mma.sync kernel formed it 6 times); the D tiles of a vocab tile are
-//   neighbours in the grid, so they run together and the stash streams from
-//   device memory about once.
+// - The A operand sits in registers: each warp reads its 16 vocab rows x 16
+//   tokens of the chunk with ldmatrix.trans (A = ds^T: the operand's rows are
+//   the depth), which lands in wgmma's register A layout; in stash mode it
+//   turns each value into ds (one FFMA and one ex2 per element). It
+//   multiplies with wgmma RS against the x chunk read MN-major (m64n256k16
+//   for a 256-column tile, else m64n64k16 per column block). A warpgroup
+//   waits for its own products before it forms the next operand, and the
+//   other warpgroup's products run meanwhile: keeping a batch in flight
+//   while the next operand is written makes ptxas serialize every wgmma
+//   (advisory C7513), and was no faster. In stash mode each (token, vocab)
+//   element is formed once per D tile: D / (64 NB) = 3 times at D 768; the
+//   D tiles of a vocab tile are neighbours in the grid, so they run together
+//   and the operand streams from device memory about once.
 constexpr int DW_ROWS = 128;     // vocab rows per block: 64 per warpgroup
 constexpr int DW_CHUNK = 64;     // tokens per ring stage
 constexpr int DW_STAGES = 4;
@@ -506,19 +152,23 @@ struct DwSmem {
   uint64_t full[DW_STAGES], empty[DW_STAGES];
 };
 
-// The tensor maps of ce_dw_sm90_kernel.
+// The tensor maps of ce_dw_sm90_kernel; lse, g and label only in stash mode.
 struct DwMaps {
   CUtensorMap s, x, lse, g, label;
 };
 
+template <int NB>
+constexpr int dw_smem() { return (int)sizeof(DwSmem<NB>) + 1024; }  // room to align to 1024
+
 // Token chunk c into ring stage c % DW_STAGES, as the stage's round
 // c / DW_STAGES: wait until every thread freed the previous round.
-template <int NB>
+template <int NB, bool GIVEN>
 __device__ __forceinline__ void load_dw_chunk(DwSmem<NB>& sm, const DwMaps& maps, int c, int v0,
                                               int d0) {
   const int st = c % DW_STAGES, round = c / DW_STAGES, k0 = c * DW_CHUNK;
   if (round > 0) sm90::mbar_wait(&sm.empty[st], (round - 1) & 1);
-  sm90::mbar_expect_tx(&sm.full[st], (2 + NB) * sm90::BLOCK_BYTES + 3 * DW_CHUNK * 4);
+  sm90::mbar_expect_tx(&sm.full[st],
+                       (2 + NB) * sm90::BLOCK_BYTES + (GIVEN ? 0 : 3 * DW_CHUNK * 4));
 #pragma unroll
   for (int b = 0; b < 2; ++b)
     sm90::tma_load_3d(sm.s[st] + b * BOX_BF16, &maps.s, &sm.full[st], v0 + b * sm90::BOX, k0, 0);
@@ -526,9 +176,11 @@ __device__ __forceinline__ void load_dw_chunk(DwSmem<NB>& sm, const DwMaps& maps
   for (int cb = 0; cb < NB; ++cb)
     sm90::tma_load_3d(sm.x[st] + cb * BOX_BF16, &maps.x, &sm.full[st], d0 + cb * sm90::BOX, k0,
                       0);
-  sm90::tma_load_1d(sm.lse[st], &maps.lse, &sm.full[st], k0);
-  sm90::tma_load_1d(sm.g[st], &maps.g, &sm.full[st], k0);
-  sm90::tma_load_1d(sm.label[st], &maps.label, &sm.full[st], k0);
+  if (!GIVEN) {
+    sm90::tma_load_1d(sm.lse[st], &maps.lse, &sm.full[st], k0);
+    sm90::tma_load_1d(sm.g[st], &maps.g, &sm.full[st], k0);
+    sm90::tma_load_1d(sm.label[st], &maps.label, &sm.full[st], k0);
+  }
 }
 
 // This warp's A operand of one chunk, in place: a[kk] holds the stash values
@@ -575,7 +227,7 @@ __device__ __forceinline__ void ds_operand(uint32_t (&a)[4][4], const float* lse
     }
 }
 
-template <int NB>
+template <int NB, bool GIVEN>
 __global__ void __launch_bounds__(DW_THREADS, 1)
 ce_dw_sm90_kernel(const __grid_constant__ DwMaps maps, float* __restrict__ dw, int N, int V,
                   int D) {
@@ -594,7 +246,7 @@ ce_dw_sm90_kernel(const __grid_constant__ DwMaps maps, float* __restrict__ dw, i
   }
   __syncthreads();
   if (leader)
-    for (int c = 0; c < DW_STAGES && c < nc; ++c) load_dw_chunk<NB>(sm, maps, c, v0, d0);
+    for (int c = 0; c < DW_STAGES && c < nc; ++c) load_dw_chunk<NB, GIVEN>(sm, maps, c, v0, d0);
   __syncwarp();
 
   // This warp's 16 vocab columns from vbase; ldmatrix: lane l gives row
@@ -604,7 +256,6 @@ ce_dw_sm90_kernel(const __grid_constant__ DwMaps maps, float* __restrict__ dw, i
   const int mi = lane >> 3, rr = lane & 7;
   const int lm_off = wg * sm90::BLOCK_BYTES + ((mi >> 1) * 8 + rr) * 128 +
                      (((2 * warp + (mi & 1)) ^ rr) << 4);
-  const bool tail = vbase + 16 > V;
 
   float acc[NB][32];
 #pragma unroll
@@ -619,16 +270,18 @@ ce_dw_sm90_kernel(const __grid_constant__ DwMaps maps, float* __restrict__ dw, i
     const unsigned char* s_tile = reinterpret_cast<const unsigned char*>(sm.s[st]) + lm_off;
 #pragma unroll
     for (int kk = 0; kk < DW_CHUNK / 16; ++kk) sm90::ldmatrix_x4_trans(a[kk], s_tile + kk * 2048);
-    bool hit = false;  // a label of the chunk among this warp's columns
+    if constexpr (!GIVEN) {
+      bool hit = false;  // a label of the chunk among this warp's columns
 #pragma unroll
-    for (int i = 0; i < DW_CHUNK / 8; ++i) {
-      const int2 lb = *reinterpret_cast<const int2*>(sm.label[st] + 8 * i + 2 * (lane & 3));
-      hit |= (unsigned)(lb.x - vbase) < 16u || (unsigned)(lb.y - vbase) < 16u;
+      for (int i = 0; i < DW_CHUNK / 8; ++i) {
+        const int2 lb = *reinterpret_cast<const int2*>(sm.label[st] + 8 * i + 2 * (lane & 3));
+        hit |= (unsigned)(lb.x - vbase) < 16u || (unsigned)(lb.y - vbase) < 16u;
+      }
+      if (vbase + 16 > V || __any_sync(~0u, hit))
+        ds_operand<true>(a, sm.lse[st], sm.g[st], sm.label[st], lane & 3, vcol, V);
+      else
+        ds_operand<false>(a, sm.lse[st], sm.g[st], sm.label[st], lane & 3, vcol, V);
     }
-    if (tail || __any_sync(~0u, hit))
-      ds_operand<true>(a, sm.lse[st], sm.g[st], sm.label[st], lane & 3, vcol, V);
-    else
-      ds_operand<false>(a, sm.lse[st], sm.g[st], sm.label[st], lane & 3, vcol, V);
 #pragma unroll
     for (int cb = 0; cb < NB; ++cb) sm90::fence_regs(acc[cb]);
 #pragma unroll
@@ -654,7 +307,7 @@ ce_dw_sm90_kernel(const __grid_constant__ DwMaps maps, float* __restrict__ dw, i
     // chunk c - 1 + DW_STAGES into the stage of chunk c - 1, which every
     // thread freed a step ago
     if (leader && c >= 1 && c - 1 + DW_STAGES < nc)
-      load_dw_chunk<NB>(sm, maps, c - 1 + DW_STAGES, v0, d0);
+      load_dw_chunk<NB, GIVEN>(sm, maps, c - 1 + DW_STAGES, v0, d0);
     __syncwarp();
   }
 
@@ -674,50 +327,54 @@ ce_dw_sm90_kernel(const __grid_constant__ DwMaps maps, float* __restrict__ dw, i
   }
 }
 
-template <int NB>
+template <int NB, bool GIVEN>
 int launch_dw_sm90(const DwMaps& maps, void* dw, int N, int V, int D, cudaStream_t s) {
-  constexpr int smem = (int)sizeof(DwSmem<NB>) + 1024;  // room to align to 1024
   const cudaError_t err = cudaFuncSetAttribute(
-      ce_dw_sm90_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ce_dw_sm90_kernel<NB, GIVEN>, cudaFuncAttributeMaxDynamicSharedMemorySize, dw_smem<NB>());
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(D / (NB * sm90::BOX), (V + DW_ROWS - 1) / DW_ROWS);  // D tiles fastest
-  ce_dw_sm90_kernel<NB><<<grid, DW_THREADS, smem, s>>>(maps, (float*)dw, N, V, D);
+  ce_dw_sm90_kernel<NB, GIVEN><<<grid, DW_THREADS, dw_smem<NB>(), s>>>(maps, (float*)dw, N, V, D);
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------ dx, stash mode, for Hopper
-// ce_dx_sm90_kernel: one block per (D tile of 64 NB columns, token tile of
-// 128 rows, vocab split); part[split] (N x D, f32) = the split's sum over
-// its vocab of ds W. ce_dw_sm90_kernel's design with the roles transposed:
+// ------------------------------------------------------------- dx, for Hopper
+// ce_dx_sm90_kernel<NB, GIVEN>: one block per (D tile of 64 NB columns, token
+// tile of 128 rows, vocab split); part[split] (N x D, f32) = the split's sum
+// over its vocab of ds W, or, with `accumulate`, part[split] plus it.
+// ce_dw_sm90_kernel's design with the roles transposed; the bf16 (N, V)
+// operand is the stash or, in recompute mode, one slab's ds (GIVEN: V is
+// the slab's width, the W map starts at the slab's first row):
 // - Bound at N 4096, D 768, V 50304: the product, 2 N V D = 316 GFLOP, 0.32
-//   ms on the tensor cores. Beside it the ex2 of ds, N V D / (64 NB) = 618 M
-//   (each element once per D tile), about 0.17 ms on the special-function
-//   units if nothing hid it, and about 0.6 GB of device memory, 0.18 ms: the
-//   412 MB stash once, W (77 MB) once, the f32 partial sums written and read.
+//   ms on the tensor cores. Beside it, in stash mode, the ex2 of ds,
+//   N V D / (64 NB) = 618 M (each element once per D tile), about 0.17 ms on
+//   the special-function units if nothing hid it, and about 0.6 GB of device
+//   memory, 0.18 ms: the 412 MB operand once, W (77 MB) once, the f32
+//   partial sums written and read.
 // - Tiles arrive by TMA into a ring of DX_STAGES stages of DX_CHUNK vocab
-//   columns: the stash chunk (128 tokens x 64 vocab as two 64-row boxes;
+//   columns: the operand's chunk (128 tokens x 64 vocab as two 64-row boxes;
 //   its map spans V columns and N rows) and the W chunk (64 vocab rows x
 //   64 NB columns; its map spans D columns and V rows), 128-byte swizzle,
 //   zero-filled past V and N. Thread 0 refills the stage of the chunk before,
 //   as in ce_dw_sm90_kernel; no producer warp.
 // - Two warpgroups, each owning 64 token rows and all 64 NB columns: NB f32
 //   accumulators of 64 x 64 in registers, 32 NB per thread.
-// - ds is formed in registers as the A operand, never stored: each warp reads
-//   its 16 token rows x 16 vocab columns per depth step with a plain
-//   ldmatrix (the stash rows are dx's rows, the vocab its depth), which lands
-//   in wgmma's register A layout, turns each value into ds (one FFMA, one
-//   ex2, one multiply by g) and multiplies with wgmma RS against the W chunk
-//   read MN-major (m64n256k16 for a 256-column tile, else m64n64k16 per
-//   column block). A thread's two rows are fixed for the whole vocab loop,
-//   so their lse, g and label sit in registers from the start. A warpgroup
-//   waits for its own products before it forms the next operand (anything
-//   else made ptxas serialize every wgmma in ce_dw_sm90_kernel).
+// - The A operand sits in registers: each warp reads its 16 token rows x 16
+//   vocab columns per depth step with a plain ldmatrix (the operand's rows
+//   are dx's rows, the vocab its depth), which lands in wgmma's register A
+//   layout; in stash mode it turns each value into ds (one FFMA, one ex2,
+//   one multiply by g). It multiplies with wgmma RS against the W chunk read
+//   MN-major (m64n256k16 for a 256-column tile, else m64n64k16 per column
+//   block). In stash mode a thread's two rows are fixed for the whole vocab
+//   loop, so their lse, g and label sit in registers from the start. A
+//   warpgroup waits for its own products before it forms the next operand
+//   (anything else made ptxas serialize every wgmma in ce_dw_sm90_kernel).
 // - Columns >= V: the rows of W past V read as 0, so they add nothing as
-//   long as ds there is finite. It is exp(-lse) g there (the stash reads 0),
-//   which overflows for lse below about -88: the chunk that reaches past V
-//   therefore still masks ds to 0 there. The one-hot term is subtracted only
-//   by a warp whose 16 rows have a label in the chunk: rare, and that chunk
-//   takes the checked path; every other chunk runs branch-free.
+//   long as ds there is finite. In stash mode it is exp(-lse) g there (the
+//   stash reads 0), which overflows for lse below about -88: the chunk that
+//   reaches past V therefore still masks ds to 0 there. The one-hot term is
+//   subtracted only by a warp whose 16 rows have a label in the chunk: rare,
+//   and that chunk takes the checked path; every other chunk runs
+//   branch-free. Given ds reads 0 past V.
 // - Split-K: at D 768 there are 32 x 3 = 96 output tiles for 132 SMs, so
 //   the vocab is split (dx_split: 4 splits, 384 blocks, one per SM). The grid
 //   runs D tiles fastest, then token tiles, then splits: the blocks in flight
@@ -792,11 +449,12 @@ __device__ __forceinline__ void dx_ds_operand(uint32_t (&a)[4][4], const float (
     }
 }
 
-template <int NB>
+template <int NB, bool GIVEN>
 __global__ void __launch_bounds__(DX_THREADS, 1)
 ce_dx_sm90_kernel(const __grid_constant__ DxMaps maps, const int* __restrict__ labels,
                   const float* __restrict__ lse, const float* __restrict__ gr,
-                  float* __restrict__ part, int N, int V, int D, int chunks_per_split) {
+                  float* __restrict__ part, int N, int V, int D, int chunks_per_split,
+                  int accumulate) {
   DxSmem<NB>& sm = *reinterpret_cast<DxSmem<NB>*>(sm90::smem_1024());
   const int d0 = blockIdx.x * NB * sm90::BOX, row0 = blockIdx.y * DX_ROWS;
   const int c0 = blockIdx.z * chunks_per_split;
@@ -817,17 +475,21 @@ ce_dx_sm90_kernel(const __grid_constant__ DxMaps maps, const int* __restrict__ l
       load_dx_chunk<NB>(sm, maps, i, (c0 + i) * DX_CHUNK, row0, d0);
   __syncwarp();
 
-  // The statistics of this thread's two rows, g and g + 8 of its warp's 16
-  // (none past N: g = 0 there)
+  // This thread's two rows, g and g + 8 of its warp's 16, and in stash mode
+  // their statistics (none past N: g = 0 there)
   const int row = row0 + wg * sm90::BOX + warp * 16 + (lane >> 2);
-  float l2[2], gg[2];
-  int lab[2];
+  float l2[2] = {0.f, 0.f}, gg[2] = {0.f, 0.f};
+  int lab[2] = {-1, -1};
+  if (!GIVEN) {
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = row + 8 * h;
-    l2[h] = r < N ? lse[r] * LOG2E : 0.f;
-    gg[h] = r < N ? gr[r] : 0.f;
-    lab[h] = r < N ? labels[r] : -1;
+    for (int h = 0; h < 2; ++h) {
+      const int r = row + 8 * h;
+      if (r < N) {
+        l2[h] = lse[r] * LOG2E;
+        gg[h] = gr[r];
+        lab[h] = labels[r];
+      }
+    }
   }
   // ldmatrix: lane l gives row l % 8 of matrix l / 8 (rows + 8 (l / 8 % 2),
   // vocab + 8 (l / 16)), its 16-byte chunk found through the swizzle (row % 8
@@ -851,14 +513,16 @@ ce_dx_sm90_kernel(const __grid_constant__ DxMaps maps, const int* __restrict__ l
     const unsigned char* s_tile = reinterpret_cast<const unsigned char*>(sm.s[st]);
 #pragma unroll
     for (int kk = 0; kk < DX_CHUNK / 16; ++kk) sm90::ldmatrix_x4(a[kk], s_tile + lm_off[kk]);
-    // a label of this warp's rows in the chunk, or columns past V
-    const bool hit = (unsigned)(lab[0] - k0) < (unsigned)DX_CHUNK ||
-                     (unsigned)(lab[1] - k0) < (unsigned)DX_CHUNK;
-    const int col = k0 + 2 * (lane & 3);
-    if (k0 + DX_CHUNK > V || __any_sync(~0u, hit))
-      dx_ds_operand<true>(a, l2, gg, lab, col, V);
-    else
-      dx_ds_operand<false>(a, l2, gg, lab, col, V);
+    if constexpr (!GIVEN) {
+      // a label of this warp's rows in the chunk, or columns past V
+      const bool hit = (unsigned)(lab[0] - k0) < (unsigned)DX_CHUNK ||
+                       (unsigned)(lab[1] - k0) < (unsigned)DX_CHUNK;
+      const int col = k0 + 2 * (lane & 3);
+      if (k0 + DX_CHUNK > V || __any_sync(~0u, hit))
+        dx_ds_operand<true>(a, l2, gg, lab, col, V);
+      else
+        dx_ds_operand<false>(a, l2, gg, lab, col, V);
+    }
 #pragma unroll
     for (int cb = 0; cb < NB; ++cb) sm90::fence_regs(acc[cb]);
 #pragma unroll
@@ -900,17 +564,26 @@ ce_dx_sm90_kernel(const __grid_constant__ DxMaps maps, const int* __restrict__ l
 #pragma unroll
     for (int cb = 0; cb < NB; ++cb)
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
-        *reinterpret_cast<float2*>(o + cb * 64 + n * 8) =
-            make_float2(acc[cb][4 * n + 2 * hh], acc[cb][4 * n + 2 * hh + 1]);
+      for (int n = 0; n < 8; ++n) {
+        float2* p = reinterpret_cast<float2*>(o + cb * 64 + n * 8);
+        float2 v = make_float2(acc[cb][4 * n + 2 * hh], acc[cb][4 * n + 2 * hh + 1]);
+        if (accumulate) {
+          const float2 before = *p;
+          v.x += before.x;
+          v.y += before.y;
+        }
+        *p = v;
+      }
   }
 }
 
-// ------------------------------------------------------ forward, for Hopper
+// ----------------------------------------------- forward and ds, for Hopper
 // ce_fwd_sm90_kernel<STASH>: one block per (token tile of 128 rows, vocab
 // split); it walks the split's vocab tiles of 256 columns and writes the
 // split's running (max, sum of exp, label logit) per row into
 // part[0 | 1 | 2][split][row]; ce_fwd_combine_kernel forms lse and loss.
+// ce_ds_sm90_kernel runs the same walk over one vocab slab and stores each
+// tile's ds instead (its note is at the kernel). Both run score_tiles.
 // - Bound at N 4096, D 768, V 50304: the product, 2 N V D = 316 GFLOP, 0.32
 //   ms on the tensor cores. Beside it N V = 206 M exponentials (one per
 //   score, about 0.06 ms of the special-function units) and, in stash mode,
@@ -953,7 +626,7 @@ ce_dx_sm90_kernel(const __grid_constant__ DxMaps maps, const int* __restrict__ l
 //   an H100 at the main shape; staging a whole tile would cost a ring stage,
 //   and 3 stages starve the ring.
 // - The split: token tiles alone give N / 128 = 32 blocks for 132 SMs, so
-//   the vocab tiles are split over blocks (fwd_split: the fewest splits that
+//   the vocab tiles are split over blocks (tile_split: the fewest splits that
 //   fill the card's resident blocks to 90 %, 4 splits of 50 tiles and 128
 //   blocks at the main shape; 12 splits of 17 tiles in 2.9 waves were
 //   slower on an H100). The grid runs token tiles fastest, so the blocks in flight
@@ -972,7 +645,8 @@ struct FwdSmem {
   uint64_t full[FWD_STAGES], empty[FWD_STAGES];
 };
 
-// The tensor maps of ce_fwd_sm90_kernel; s (16 x 64 boxes) only in stash mode.
+// The tensor maps of ce_fwd_sm90_kernel and ce_ds_sm90_kernel; s (16 x 64
+// boxes: the stash, or the ds slab) only where they store it.
 struct FwdMaps {
   CUtensorMap x, w, s;
 };
@@ -1008,8 +682,63 @@ __device__ __forceinline__ void release_fwd_pair(FwdSmem& sm, const FwdMaps& map
   __syncwarp();
 }
 
+// The main loop of ce_fwd_sm90_kernel and ce_ds_sm90_kernel: for each of the
+// block's nt vocab tiles from vt0, the 128 token rows from row0 times the
+// tile's 256 columns of x W^T in f32, after which epilogue(acc, col0) runs on
+// this warpgroup's 64 rows: acc[cb][4 n + 2 h + e] is the thread's row h (g
+// + 8 h of its warp's 16), column col0 + 64 cb + 8 n + 2 t + e.
+template <class Epilogue>
+__device__ __forceinline__ void score_tiles(FwdSmem& sm, const FwdMaps& maps, int row0, int vt0,
+                                            int nt, int D, Epilogue&& epilogue) {
+  const int nk = D / sm90::BOX, n_pairs = nt * nk;
+  const int wg = threadIdx.x >> 7;
+  const bool leader = threadIdx.x == 0;
+  if (leader) {
+    for (int st = 0; st < FWD_STAGES; ++st) {
+      sm90::mbar_init(&sm.full[st], 1);
+      sm90::mbar_init(&sm.empty[st], FWD_THREADS);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+  if (leader)
+    for (int i = 0; i < FWD_STAGES && i < n_pairs; ++i) load_fwd_pair(sm, maps, i, nk, vt0, row0);
+  __syncwarp();
+
+  float acc[4][32];
+#pragma unroll
+  for (int cb = 0; cb < 4; ++cb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
+
+  for (int vt = 0, i = 0; vt < nt; ++vt) {
+    for (int kc = 0; kc < nk; ++kc, ++i) {
+      const int st = i % FWD_STAGES;
+      sm90::mbar_wait(&sm.full[st], (i / FWD_STAGES) & 1);
+      const bf16* x_rows = sm.x[st] + wg * BOX_BF16;  // this warpgroup's 64 rows
+#pragma unroll
+      for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < sm90::BOX / 16; ++kk)
+        sm90::wgmma_ss_n256(acc, sm90::desc_k(x_rows, kk), sm90::desc_k(sm.w[st], kk),
+                            kc > 0 || kk > 0);
+      sm90::wgmma_commit();
+      if (kc > 0) {  // pair i's products in flight, pair i - 1's done
+        sm90::wgmma_wait<1>();
+        release_fwd_pair(sm, maps, i - 1, n_pairs, nk, vt0, row0, leader);
+      }
+    }
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+    release_fwd_pair(sm, maps, i - 1, n_pairs, nk, vt0, row0, leader);
+    epilogue(acc, (vt0 + vt) * FWD_COLS);
+  }
+}
+
 // Half HALF (columns 128 HALF .. + 127 of the tile at col0) of this warp's 16
-// stash rows from srow, in bf16: stmatrix into the warp's staging tile, then
+// rows of acc from srow, in bf16: stmatrix into the warp's staging tile, then
 // lane 0 stores its two 16 x 64 boxes with TMA. The staging tile is written
 // only after lane 0 saw the previous store read it.
 template <int HALF>
@@ -1042,9 +771,8 @@ __device__ __forceinline__ void store_stash_half(bf16* stg, const CUtensorMap* m
   }
 }
 
-// The epilogue of one vocab tile (columns col0..) on this thread's
-// accumulators: acc[cb][4 n + 2 h + e] is the thread's row h (g + 8 h of its
-// warp's 16), column col0 + 64 cb + 8 n + 2 t + e. Folds the tile into the
+// The forward's epilogue of one vocab tile (columns col0..) on this thread's
+// accumulators (laid out as score_tiles says): folds the tile into the
 // running max m[h], this thread's part of the sum l[h] and, where the row's
 // label lies in the tile, the label logit lbl[h].
 __device__ __forceinline__ void fwd_epilogue(float (&acc)[4][32], float (&m)[2], float (&l)[2],
@@ -1100,21 +828,8 @@ ce_fwd_sm90_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__
   const int row0 = blockIdx.x * FWD_ROWS, split = blockIdx.y, S = gridDim.y;
   const int vt0 = split * tiles_per_split;
   const int nt = min((V + FWD_COLS - 1) / FWD_COLS - vt0, tiles_per_split);
-  const int nk = D / sm90::BOX, n_pairs = nt * nk;
   const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
   const int t = lane & 3;
-  const bool leader = threadIdx.x == 0;
-  if (leader) {
-    for (int st = 0; st < FWD_STAGES; ++st) {
-      sm90::mbar_init(&sm.full[st], 1);
-      sm90::mbar_init(&sm.empty[st], FWD_THREADS);
-    }
-    sm90::fence_mbar_init();
-  }
-  __syncthreads();
-  if (leader)
-    for (int i = 0; i < FWD_STAGES && i < n_pairs; ++i) load_fwd_pair(sm, maps, i, nk, vt0, row0);
-  __syncwarp();
 
   // This thread's rows: row and row + 8 (none past N: label -1 there)
   const int srow = row0 + wg * sm90::BOX + warp * 16, row = srow + (lane >> 2);
@@ -1128,39 +843,11 @@ ce_fwd_sm90_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__
     l[h] = 0.f;
     lbl[h] = 0.f;
   }
-  float acc[4][32];
-#pragma unroll
-  for (int cb = 0; cb < 4; ++cb)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[cb][i] = 0.f;
-
-  for (int vt = 0, i = 0; vt < nt; ++vt) {
-    for (int kc = 0; kc < nk; ++kc, ++i) {
-      const int st = i % FWD_STAGES;
-      sm90::mbar_wait(&sm.full[st], (i / FWD_STAGES) & 1);
-      const bf16* x_rows = sm.x[st] + wg * BOX_BF16;  // this warpgroup's 64 rows
-#pragma unroll
-      for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < sm90::BOX / 16; ++kk)
-        sm90::wgmma_ss_n256(acc, sm90::desc_k(x_rows, kk), sm90::desc_k(sm.w[st], kk),
-                            kc > 0 || kk > 0);
-      sm90::wgmma_commit();
-      if (kc > 0) {  // pair i's products in flight, pair i - 1's done
-        sm90::wgmma_wait<1>();
-        release_fwd_pair(sm, maps, i - 1, n_pairs, nk, vt0, row0, leader);
-      }
-    }
-    sm90::wgmma_wait<0>();
-#pragma unroll
-    for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
-    release_fwd_pair(sm, maps, i - 1, n_pairs, nk, vt0, row0, leader);
-    const int col0 = (vt0 + vt) * FWD_COLS;
+  score_tiles(sm, maps, row0, vt0, nt, D, [&](float (&acc)[4][32], int col0) {
     if (STASH) store_stash_half<0>(stg, &maps.s, acc, col0, srow, lane);
     fwd_epilogue(acc, m, l, lbl, lab, col0, t, V);
     if (STASH) store_stash_half<1>(stg, &maps.s, acc, col0, srow, lane);
-  }
+  });
   if (STASH && lane == 0) sm90::bulk_wait();
 
 #pragma unroll
@@ -1193,36 +880,113 @@ __global__ void ce_fwd_combine_kernel(const float* __restrict__ part, float* __r
   loss[r] = z - b;
 }
 
+// Half HALF (columns 128 HALF .. + 127) of the ds epilogue on this thread's
+// accumulators (laid out as score_tiles says): ds = exp(s - lse) g, one FFMA,
+// one ex2 and one multiply per element, 0 in the columns >= V (only the tile
+// that reaches past V checks); then, in the one tile that holds a row's
+// label, the thread that holds its column subtracts g there (the one-hot
+// term). l2, gr, lab: lse / ln 2, g and the slab-relative label of the
+// thread's two rows.
+template <int HALF>
+__device__ __forceinline__ void ds_epilogue(float (&acc)[4][32], const float (&l2)[2],
+                                            const float (&gr)[2], const int (&lab)[2], int col0,
+                                            int t, int V) {
+  const bool edge = col0 + FWD_COLS > V;
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int h = (i >> 1) & 1, cb = 2 * HALF + q;
+      const float d = sm90::exp2_approx(fmaf(acc[cb][i], LOG2E, -l2[h])) * gr[h];
+      acc[cb][i] = edge && col0 + 64 * cb + 8 * (i >> 2) + 2 * t + (i & 1) >= V ? 0.f : d;
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int c = lab[h] - col0 - 128 * HALF;  // the label's column in this half
+    if ((unsigned)c < 128u && ((c >> 1) & 3) == t) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (64 * q + 8 * n + 2 * t + e == c) acc[2 * HALF + q][4 * n + 2 * h + e] -= gr[h];
+    }
+  }
+}
+
+// ce_ds_sm90_kernel: the ds of one vocab slab for the recompute-mode
+// backward. One block per (token tile of 128 rows, split of the slab's
+// vocab tiles of 256 columns); maps.w starts at the slab's first W row and
+// spans its V columns, maps.s is the bf16 (N, V) ds scratch of the slab.
+// - Bound at N 4096, D 768 over a whole vocab of 50304 (all slabs): the
+//   product, 0.32 ms, as the forward's; beside it the 412 MB of ds stored
+//   (0.12 ms) and one ex2 per element (0.06 ms).
+// - The forward's main loop (score_tiles) gives the f32 score tile; its
+//   epilogue forms ds on the accumulators in place, half a tile at a time
+//   (ds_epilogue), and stores each half through the stash path
+//   (store_stash_half: stmatrix, TMA store, clipped at V and N), so the
+//   exponentials of the second half run while the first half's store reads
+//   its staging tile. s is never rounded to bf16: ds is, once, as in the
+//   TPU kernel and the stash-mode product.
+// - lse, g and the label of a thread's two rows are loaded once per block,
+//   as the forward loads labels; labels arrive vocab-wide and are shifted by
+//   the slab's first column v_off.
+__global__ void __launch_bounds__(FWD_THREADS, 1)
+ce_ds_sm90_kernel(const __grid_constant__ FwdMaps maps, const int* __restrict__ labels,
+                  const float* __restrict__ lse, const float* __restrict__ gr, int N, int V,
+                  int D, int v_off, int tiles_per_split) {
+  FwdSmem& sm = *reinterpret_cast<FwdSmem*>(sm90::smem_1024());
+  const int row0 = blockIdx.x * FWD_ROWS, vt0 = blockIdx.y * tiles_per_split;
+  const int nt = min((V + FWD_COLS - 1) / FWD_COLS - vt0, tiles_per_split);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+
+  // This thread's rows: row and row + 8 (none past N: g = 0 there)
+  const int srow = row0 + wg * sm90::BOX + warp * 16, row = srow + (lane >> 2);
+  bf16* stg = sm.stash[threadIdx.x >> 5];
+  float l2[2] = {0.f, 0.f}, gg[2] = {0.f, 0.f};
+  int lab[2] = {-1, -1};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row + 8 * h;
+    if (r < N) {
+      l2[h] = lse[r] * LOG2E;
+      gg[h] = gr[r];
+      lab[h] = labels[r] - v_off;  // an ignored row's stays negative
+    }
+  }
+  score_tiles(sm, maps, row0, vt0, nt, D, [&](float (&acc)[4][32], int col0) {
+    ds_epilogue<0>(acc, l2, gg, lab, col0, t, V);
+    store_stash_half<0>(stg, &maps.s, acc, col0, srow, lane);
+    ds_epilogue<1>(acc, l2, gg, lab, col0, t, V);
+    store_stash_half<1>(stg, &maps.s, acc, col0, srow, lane);
+  });
+  if (lane == 0) sm90::bulk_wait();
+}
+
 inline int cdiv(long long a, int b) { return (int)((a + b - 1) / b); }
 
-// 64-column blocks per D tile of the stash-mode Hopper kernels: 256 columns
+// 64-column blocks per D tile of the Hopper dx and dW kernels: 256 columns
 // where D allows, else 192, 128 or 64.
 inline int sm90_blocks(int D) {
   return D % 256 == 0 ? 4 : D % 192 == 0 ? 3 : D % 128 == 0 ? 2 : 1;
 }
 
 // Blocks of `kernel` at `threads` and `smem` bytes of dynamic shared memory
-// that the current device holds at once.
+// that the current device holds at once, after allowing the kernel that
+// shared memory (which its launch needs as well).
 template <typename Kernel>
 cudaError_t resident_blocks(Kernel kernel, int threads, int smem, int* slots) {
   int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (e == cudaSuccess && per_sm == 0) e = cudaErrorInvalidConfiguration;
   *slots = per_sm * sms;
   return e;
-}
-
-// Resident blocks of ce_dx_sm90_kernel<NB>, after allowing it its dynamic
-// shared memory (which the launch needs as well).
-template <int NB>
-cudaError_t dx_sm90_slots(int* slots) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      ce_dx_sm90_kernel<NB>, cudaFuncAttributeMaxDynamicSharedMemorySize, dx_smem<NB>());
-  if (e != cudaSuccess) return e;
-  return resident_blocks(ce_dx_sm90_kernel<NB>, DX_THREADS, dx_smem<NB>(), slots);
 }
 
 // Units of a reduction axis per block, when n_units are split over blocks
@@ -1247,22 +1011,15 @@ int units_per_split(int n_units, int n_tiles, int slots, int waves) {
   return best_per;
 }
 
-// Resident blocks of ce_fwd_sm90_kernel<STASH>, after allowing it its
-// dynamic shared memory (which the launch needs as well).
-template <bool STASH>
-cudaError_t fwd_sm90_slots(int* slots) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      ce_fwd_sm90_kernel<STASH>, cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_smem());
-  if (e != cudaSuccess) return e;
-  return resident_blocks(ce_fwd_sm90_kernel<STASH>, FWD_THREADS, fwd_smem(), slots);
-}
-
-// The vocab split of ce_fwd: vocab tiles per block and the number of
-// splits, the fewest that fill the resident blocks to 90 % (long blocks
-// beat more waves). It also allows the kernel its shared memory.
-cudaError_t fwd_split(int N, int V, bool stash, int* tiles_per_split, int* splits) {
+// The vocab split of a kernel that walks vocab tiles of FWD_COLS for token
+// tiles of FWD_ROWS (ce_fwd_sm90_kernel, ce_ds_sm90_kernel) over V columns:
+// vocab tiles per block and the number of splits, the fewest that fill the
+// resident blocks to 90 % (long blocks beat more waves). It also allows the
+// kernel its shared memory.
+template <typename Kernel>
+cudaError_t tile_split(Kernel kernel, int N, int V, int* tiles_per_split, int* splits) {
   int slots = 0;
-  const cudaError_t e = stash ? fwd_sm90_slots<true>(&slots) : fwd_sm90_slots<false>(&slots);
+  const cudaError_t e = resident_blocks(kernel, FWD_THREADS, fwd_smem(), &slots);
   if (e != cudaSuccess) return e;
   const int units = cdiv(V, FWD_COLS);
   *tiles_per_split = units_per_split(units, cdiv(N, FWD_ROWS), slots, 0);
@@ -1270,40 +1027,81 @@ cudaError_t fwd_split(int N, int V, bool stash, int* tiles_per_split, int* split
   return cudaSuccess;
 }
 
-// The vocab split of ce_dx: vocab chunks per block (of DX_CHUNK for
-// ce_dx_sm90_kernel in stash mode, of BK for ce_dx_kernel) and the number of
-// splits. In stash mode it also allows the kernel its shared memory.
-cudaError_t dx_split(int N, int V, int D, bool stash, int* chunks_per_split, int* splits) {
-  int slots = 0, chunk = BK, tiles = cdiv(N, BM) * cdiv(D, BN);
-  cudaError_t e;
-  if (stash) {
-    const int nb = sm90_blocks(D);
-    const auto slots_of = nb == 4   ? &dx_sm90_slots<4>
-                          : nb == 3 ? &dx_sm90_slots<3>
-                          : nb == 2 ? &dx_sm90_slots<2>
-                                    : &dx_sm90_slots<1>;
-    e = slots_of(&slots);
-    chunk = DX_CHUNK;
-    tiles = cdiv(N, DX_ROWS) * (D / (nb * sm90::BOX));
-  } else {
-    e = resident_blocks(ce_dx_kernel, THREADS_BWD, 0, &slots);
-  }
+cudaError_t fwd_split(int N, int V, bool stash, int* tiles_per_split, int* splits) {
+  return stash ? tile_split(ce_fwd_sm90_kernel<true>, N, V, tiles_per_split, splits)
+               : tile_split(ce_fwd_sm90_kernel<false>, N, V, tiles_per_split, splits);
+}
+
+template <int NB, bool GIVEN>
+cudaError_t dx_sm90_slots(int* slots) {
+  return resident_blocks(ce_dx_sm90_kernel<NB, GIVEN>, DX_THREADS, dx_smem<NB>(), slots);
+}
+
+// The vocab split of ce_dx: vocab chunks of DX_CHUNK per block and the
+// number of splits KS, over the whole vocab in stash mode (slab 0), over one
+// slab of `slab` columns in recompute mode (each slab takes the same KS).
+// It also allows the kernel its shared memory.
+cudaError_t dx_split(int N, int V, int D, int slab, int* chunks_per_split, int* splits) {
+  const int nb = sm90_blocks(D);
+  cudaError_t (*slots_of)(int*);
+  if (slab)
+    slots_of = nb == 4 ? &dx_sm90_slots<4, true> : nb == 3 ? &dx_sm90_slots<3, true>
+             : nb == 2 ? &dx_sm90_slots<2, true> : &dx_sm90_slots<1, true>;
+  else
+    slots_of = nb == 4 ? &dx_sm90_slots<4, false> : nb == 3 ? &dx_sm90_slots<3, false>
+             : nb == 2 ? &dx_sm90_slots<2, false> : &dx_sm90_slots<1, false>;
+  int slots = 0;
+  const cudaError_t e = slots_of(&slots);
   if (e != cudaSuccess) return e;
-  const int units = cdiv(V, chunk);
+  const int units = cdiv(slab && slab < V ? slab : V, DX_CHUNK);
+  const int tiles = cdiv(N, DX_ROWS) * (D / (nb * sm90::BOX));
   *chunks_per_split = units_per_split(units, tiles, slots, 2);
   *splits = cdiv(units, *chunks_per_split);
   return cudaSuccess;
 }
 
-// Launch ce_dx_sm90_kernel<NB>, which dx_split allowed its shared memory.
-template <int NB>
+// Launch ce_dx_sm90_kernel<NB, GIVEN>, which dx_split allowed its shared memory.
+template <int NB, bool GIVEN>
 int launch_dx_sm90(const DxMaps& maps, const void* labels, const void* lse, const void* g,
                    void* part, int N, int V, int D, int chunks_per_split, int splits,
-                   cudaStream_t s) {
+                   int accumulate, cudaStream_t s) {
   const dim3 grid(D / (NB * sm90::BOX), cdiv(N, DX_ROWS), splits);  // D tiles fastest
-  ce_dx_sm90_kernel<NB><<<grid, DX_THREADS, dx_smem<NB>(), s>>>(
+  ce_dx_sm90_kernel<NB, GIVEN><<<grid, DX_THREADS, dx_smem<NB>(), s>>>(
       maps, (const int*)labels, (const float*)lse, (const float*)g, (float*)part, N, V, D,
-      chunks_per_split);
+      chunks_per_split, accumulate);
+  return (int)cudaGetLastError();
+}
+
+template <bool GIVEN>
+auto dx_launcher(int D) {
+  const int nb = sm90_blocks(D);
+  return nb == 4 ? &launch_dx_sm90<4, GIVEN> : nb == 3 ? &launch_dx_sm90<3, GIVEN>
+       : nb == 2 ? &launch_dx_sm90<2, GIVEN> : &launch_dx_sm90<1, GIVEN>;
+}
+
+template <bool GIVEN>
+auto dw_launcher(int D) {
+  const int nb = sm90_blocks(D);
+  return nb == 4 ? &launch_dw_sm90<4, GIVEN> : nb == 3 ? &launch_dw_sm90<3, GIVEN>
+       : nb == 2 ? &launch_dw_sm90<2, GIVEN> : &launch_dw_sm90<1, GIVEN>;
+}
+
+// ds of the vocab slab of columns v0 .. v0 + ws into ds (N, ld) bf16 (ld % 8
+// == 0): ce_ds_sm90_kernel.
+int launch_ds(const void* x, const void* w, const void* labels, const void* lse, const void* g,
+              void* ds, int ld, int v0, int ws, int N, int D, cudaStream_t s) {
+  int tiles_per_split = 0, S = 0;
+  int err = (int)tile_split(ce_ds_sm90_kernel, N, ws, &tiles_per_split, &S);
+  if (err) return err;
+  FwdMaps maps = {};
+  const bf16* w0 = static_cast<const bf16*>(w) + (size_t)v0 * D;
+  if ((err = sm90::encode_tile_map(&maps.x, x, D, N, 1, D, (long long)N * D)) ||
+      (err = sm90::encode_tile_map(&maps.w, w0, D, ws, 1, D, (long long)ws * D)) ||
+      (err = sm90::encode_tile_map(&maps.s, ds, ws, N, 1, ld, (long long)N * ld, STASH_ROWS)))
+    return err;
+  ce_ds_sm90_kernel<<<dim3(cdiv(N, FWD_ROWS), S), FWD_THREADS, fwd_smem(), s>>>(
+      maps, (const int*)labels, (const float*)lse, (const float*)g, N, ws, D, v0,
+      tiles_per_split);
   return (int)cudaGetLastError();
 }
 
@@ -1320,10 +1118,11 @@ long long ce_fwd_scratch(int N, int V, int stash) {
   return 3LL * splits * N;
 }
 
-// Floats of scratch (`part`) that ce_dx takes, as ce_fwd_scratch.
-long long ce_dx_scratch(int N, int V, int D, int stash) {
+// Floats of scratch (`part`) that ce_dx takes, as ce_fwd_scratch; slab: 0
+// in stash mode, the slab width in recompute mode.
+long long ce_dx_scratch(int N, int V, int D, int slab) {
   int cps = 0, splits = 0;
-  const cudaError_t e = dx_split(N, V, D, stash != 0, &cps, &splits);
+  const cudaError_t e = dx_split(N, V, D, slab, &cps, &splits);
   if (e != cudaSuccess) return -(long long)e;
   return (long long)splits * N * D;
 }
@@ -1357,67 +1156,83 @@ int ce_fwd(const void* x, const void* w, const void* labels, void* stash, long l
   return (int)cudaGetLastError();
 }
 
-// dx (N, D) bf16; part: ce_dx_scratch(N, V, D, stash != null) f32 of
-// scratch, one (N, D) partial sum per vocab split. Stash mode
-// (ce_dx_sm90_kernel, D tiles as ce_dw's) when `stash` is not null; W and
-// the stash 16-byte aligned.
-int ce_dx(const void* x, const void* w, const void* stash, long long ld_s, const void* labels,
-          const void* lse, const void* g, void* part, void* dx, int N, int V, int D,
-          void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The ds of one vocab slab (columns v0 .. v0 + ws) alone, into ds (N, ld)
+// bf16 (ld % 8 == 0, 16-byte aligned): what ce_dx and ce_dw run per slab in
+// recompute mode, for a check against its plain version.
+int ce_ds(const void* x, const void* w, const void* labels, const void* lse, const void* g,
+          void* ds, int ld, int v0, int ws, int N, int D, void* stream) {
+  return launch_ds(x, w, labels, lse, g, ds, ld, v0, ws, N, D, static_cast<cudaStream_t>(stream));
+}
+
+// dx (N, D) bf16; part: ce_dx_scratch(N, V, D, recompute ? ld_s : 0) f32 of
+// scratch, one (N, D) partial sum per vocab split. s is the stash (N, ld_s)
+// in stash mode; in recompute mode the ds scratch (N, ld_s) of one vocab
+// slab of ld_s columns, which each slab's ce_ds_sm90_kernel fills before
+// ce_dx_sm90_kernel<NB, true> reads it. W and s 16-byte aligned.
+int ce_dx(const void* x, const void* w, void* s, long long ld_s, int recompute,
+          const void* labels, const void* lse, const void* g, void* part, void* dx, int N, int V,
+          int D, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int slab = recompute ? (int)ld_s : 0;
   int chunks_per_split = 0, KS = 0;
-  int err = (int)dx_split(N, V, D, stash != nullptr, &chunks_per_split, &KS);
+  int err = (int)dx_split(N, V, D, slab, &chunks_per_split, &KS);
   if (err) return err;
-  if (stash) {
-    DxMaps maps;
-    if ((err = sm90::encode_tile_map(&maps.s, stash, V, N, 1, ld_s, (long long)N * ld_s)) ||
-        (err = sm90::encode_tile_map(&maps.w, w, D, V, 1, D, (long long)V * D)))
+  DxMaps maps = {};
+  if (!recompute) {
+    if ((err = sm90::encode_tile_map(&maps.s, s, V, N, 1, ld_s, (long long)N * ld_s)) ||
+        (err = sm90::encode_tile_map(&maps.w, w, D, V, 1, D, (long long)V * D)) ||
+        (err = dx_launcher<false>(D)(maps, labels, lse, g, part, N, V, D, chunks_per_split, KS,
+                                     0, st)))
       return err;
-    const int nb = sm90_blocks(D);
-    const auto launch = nb == 4   ? &launch_dx_sm90<4>
-                        : nb == 3 ? &launch_dx_sm90<3>
-                        : nb == 2 ? &launch_dx_sm90<2>
-                                  : &launch_dx_sm90<1>;
-    err = launch(maps, labels, lse, g, part, N, V, D, chunks_per_split, KS, s);
   } else {
-    ce_dx_kernel<<<dim3(cdiv(D, BN), cdiv(N, BM), KS), THREADS_BWD, 0, s>>>(
-        (const bf16*)x, (const bf16*)w, (const int*)labels, (const float*)lse, (const float*)g,
-        (float*)part, N, V, D, chunks_per_split);
-    err = (int)cudaGetLastError();
+    for (int v0 = 0; v0 < V; v0 += slab) {
+      const int ws = V - v0 < slab ? V - v0 : slab;
+      const bf16* w0 = static_cast<const bf16*>(w) + (size_t)v0 * D;
+      // every slab takes the first slab's KS splits (a ragged last slab
+      // spreads its chunks over them); the first writes part, the rest add
+      if ((err = launch_ds(x, w, labels, lse, g, s, slab, v0, ws, N, D, st)) ||
+          (err = sm90::encode_tile_map(&maps.s, s, ws, N, 1, slab, (long long)N * slab)) ||
+          (err = sm90::encode_tile_map(&maps.w, w0, D, ws, 1, D, (long long)ws * D)) ||
+          (err = dx_launcher<true>(D)(maps, nullptr, nullptr, nullptr, part, N, ws, D,
+                                      cdiv(cdiv(ws, DX_CHUNK), KS), KS, v0 > 0, st)))
+        return err;
+    }
   }
-  if (err) return err;
   const long long n = (long long)N * D;
   const int blocks = cdiv(n, 256) < 4096 ? cdiv(n, 256) : 4096;
-  ce_dx_reduce_kernel<<<blocks, 256, 0, s>>>((const float*)part, (bf16*)dx, n, KS);
+  ce_dx_reduce_kernel<<<blocks, 256, 0, st>>>((const float*)part, (bf16*)dx, n, KS);
   return (int)cudaGetLastError();
 }
 
-// dW (V, D) f32. Stash mode (ce_dw_sm90_kernel, D tiles of sm90_blocks(D)
-// 64-column blocks) when `stash` is not null; x, the stash, labels, lse and
-// g 16-byte aligned.
-int ce_dw(const void* x, const void* w, const void* stash, long long ld_s, const void* labels,
-          const void* lse, const void* g, void* dw, int N, int V, int D, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!stash) {
-    ce_dw_kernel<<<dim3(cdiv(D, BN), cdiv(V, BM)), THREADS_BWD, 0, s>>>(
-        (const bf16*)x, (const bf16*)w, (const int*)labels, (const float*)lse, (const float*)g,
-        (float*)dw, N, V, D);
-    return (int)cudaGetLastError();
-  }
-  DwMaps maps;
+// dW (V, D) f32, D tiles of sm90_blocks(D) 64-column blocks. s as for ce_dx:
+// the stash, or the ds scratch of one vocab slab of ld_s columns, each
+// slab's dW rows written by ce_dw_sm90_kernel<NB, true> at their offset.
+// x and s 16-byte aligned, and in stash mode labels, lse and g too.
+int ce_dw(const void* x, const void* w, void* s, long long ld_s, int recompute,
+          const void* labels, const void* lse, const void* g, void* dw, int N, int V, int D,
+          void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  DwMaps maps = {};
   int err;
-  if ((err = sm90::encode_tile_map(&maps.s, stash, V, N, 1, ld_s, (long long)N * ld_s)) ||
-      (err = sm90::encode_tile_map(&maps.x, x, D, N, 1, D, (long long)N * D)) ||
-      (err = sm90::encode_vec_map(&maps.lse, lse, N, CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) ||
-      (err = sm90::encode_vec_map(&maps.g, g, N, CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) ||
-      (err = sm90::encode_vec_map(&maps.label, labels, N, CU_TENSOR_MAP_DATA_TYPE_INT32)))
-    return err;
-  const int nb = sm90_blocks(D);
-  const auto launch = nb == 4   ? &launch_dw_sm90<4>
-                      : nb == 3 ? &launch_dw_sm90<3>
-                      : nb == 2 ? &launch_dw_sm90<2>
-                                : &launch_dw_sm90<1>;
-  return launch(maps, dw, N, V, D, s);
+  if ((err = sm90::encode_tile_map(&maps.x, x, D, N, 1, D, (long long)N * D))) return err;
+  if (!recompute) {
+    if ((err = sm90::encode_tile_map(&maps.s, s, V, N, 1, ld_s, (long long)N * ld_s)) ||
+        (err = sm90::encode_vec_map(&maps.lse, lse, N, CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) ||
+        (err = sm90::encode_vec_map(&maps.g, g, N, CU_TENSOR_MAP_DATA_TYPE_FLOAT32)) ||
+        (err = sm90::encode_vec_map(&maps.label, labels, N, CU_TENSOR_MAP_DATA_TYPE_INT32)))
+      return err;
+    return dw_launcher<false>(D)(maps, dw, N, V, D, st);
+  }
+  const int slab = (int)ld_s;
+  for (int v0 = 0; v0 < V; v0 += slab) {
+    const int ws = V - v0 < slab ? V - v0 : slab;
+    if ((err = launch_ds(x, w, labels, lse, g, s, slab, v0, ws, N, D, st)) ||
+        (err = sm90::encode_tile_map(&maps.s, s, ws, N, 1, slab, (long long)N * slab)) ||
+        (err = dw_launcher<true>(D)(maps, static_cast<float*>(dw) + (size_t)v0 * D, N, ws, D,
+                                    st)))
+      return err;
+  }
+  return 0;
 }
 
 }  // extern "C"

@@ -17,12 +17,15 @@ disk.
 Unlike the JAX package, the re-solve runs after the interval, not beside
 it, with the interval's feedback and failures already folded in. The JAX
 package's fault injection, elastic recovery, durable journal and traces
-are later items; those arguments raise when set.
+are later items; those arguments raise when set, and so does
+``SATURN_TPU_FAULTS``, from which the JAX package builds a fault injector
+when none is passed.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from typing import Dict, List, Optional
 
 from saturn_tpu_torch import analysis
@@ -150,6 +153,12 @@ def orchestrate(
     _refuse(trace_dir=trace_dir, fault_injector=fault_injector,
             health_monitor=health_monitor, resume_dir=resume_dir,
             crash_barrier=crash_barrier)
+    # where no injector is given, the JAX package builds one from this variable
+    if os.environ.get("SATURN_TPU_FAULTS", "").strip():
+        raise NotImplementedError(
+            "orchestrate: SATURN_TPU_FAULTS is set, and fault injection is not "
+            "carried by the PyTorch port yet (see ROADMAP.md, queue 1 item 5)"
+        )
     topo = topology if topology is not None else SliceTopology()
     names = [t.name for t in task_list]
     if len(set(names)) != len(names):

@@ -3,17 +3,21 @@
 Counterpart of ``saturn_tpu/library/__init__.py``: an in-process registry of
 ``BaseTechnique`` classes. The default library holds ``dp`` only in this
 slice; the other techniques, and the JAX package's optional dill persistence
-of user techniques, are later items (``ROADMAP.md``).
+of user techniques under ``SATURN_TPU_LIBRARY_PATH``, are later items
+(``ROADMAP.md``): ``register`` raises while that variable is set.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Type, Union
 
 from saturn_tpu_torch.core.strategy import Techniques
 from saturn_tpu_torch.core.technique import BaseTechnique
 
 _REGISTRY: Dict[str, Type[BaseTechnique]] = {}
+
+_ENV_PATH = "SATURN_TPU_LIBRARY_PATH"
 
 
 def register(name: str, technique_cls: Type[BaseTechnique]) -> None:
@@ -22,6 +26,11 @@ def register(name: str, technique_cls: Type[BaseTechnique]) -> None:
         raise TypeError(
             f"{technique_cls!r} is not a subclass of BaseTechnique; "
             "techniques must implement search() and execute()"
+        )
+    if os.environ.get(_ENV_PATH):  # where the JAX package persists the class with dill
+        raise NotImplementedError(
+            f"library.register: {_ENV_PATH} is set, and persisting techniques is "
+            "not carried by the PyTorch port yet (see ROADMAP.md, queue 1 item 3)"
         )
     _REGISTRY[name] = technique_cls
 

@@ -9,15 +9,17 @@ with ``ctypes``); each replaces one Pallas kernel of the JAX package:
   loss and lse in f32, and in stash mode a bf16 copy of the logits; in both
   modes ``ce_fwd_sm90_kernel`` (TMA and wgmma), vocab-split, with a combine
   pass;
-- ``ce_dx``  <- ``_fused_ce_bwd`` / ``_dx_kernel`` (JAX ``ce.py:290``); in
-  stash mode ``ce_dx_sm90_kernel`` (TMA and wgmma), in recompute mode the
-  mma.sync ``ce_dx_kernel``, each with a split-K reduction pass;
-- ``ce_dw``  <- ``_fused_ce_bwd`` / ``_dw_kernel`` (JAX ``ce.py:314``); in
-  stash mode ``ce_dw_sm90_kernel`` (TMA and wgmma), in recompute mode the
-  mma.sync ``ce_dw_kernel``.
+- ``ce_dx``  <- ``_fused_ce_bwd`` / ``_dx_kernel`` (JAX ``ce.py:290``):
+  ``ce_dx_sm90_kernel`` (TMA and wgmma) with a split-K reduction pass;
+- ``ce_dw``  <- ``_fused_ce_bwd`` / ``_dw_kernel`` (JAX ``ce.py:314``):
+  ``ce_dw_sm90_kernel`` (TMA and wgmma).
 
-The backward's score source is the stash (stash mode) or x·Wᵀ recomputed in
-f32 inside each kernel (recompute mode: no O(N·V) memory). Labels below 0
+The backward's score source is the stash (stash mode), or x·Wᵀ recomputed in
+f32 (recompute mode: no O(N·V) memory). In recompute mode each backward
+wrapper walks the vocab in slabs of :func:`slab_width` columns: per slab,
+``ce_ds_sm90_kernel`` forms the slab's bf16 ds into a scratch of at most
+``SLAB_BYTES_MAX`` bytes and the product kernel reads it as it reads the
+stash (:func:`ce_ds_slab` runs that ds kernel alone, for checks). Labels below 0
 are ignored: they match no vocab column, and the masked mean outside the
 autograd Function gives their rows a zero cotangent, hence zero gradient.
 
@@ -25,8 +27,9 @@ Each wrapper runs its kernel on a CUDA tensor (or raises on what the kernel
 does not take) and its plain PyTorch version on a CPU tensor; there is no
 fallback from one to the other. Each counts its kernel launches in
 ``LAUNCHES``, a launch captured into a CUDA graph at each replay
-(``ops/launches.py``); the forward's combine pass and dx's split-K
-reduction are part of their wrapper's one launch. The plain versions round the stash to bf16
+(``ops/launches.py``); the forward's combine pass, dx's split-K
+reduction and the slab loop of recompute mode are part of their wrapper's
+one launch. The plain versions round the stash to bf16
 exactly where the kernel does, so they hold against the Pallas kernels in
 interpret mode.
 """
@@ -52,6 +55,11 @@ KERNEL_D_MULTIPLE = 64
 STASH_BYTES_MAX = 512 * 1024 * 1024
 #: From this vocab up, the JAX package tiles the vocab at 512 columns.
 JAX_WIDE_VOCAB = 2048
+#: Recompute mode's bf16 ds scratch of one vocab slab stays at or under this
+#: (a quarter of ``STASH_BYTES_MAX``), whatever the vocab.
+SLAB_BYTES_MAX = 128 * 1024 * 1024
+#: Slabs are whole vocab tiles of the ds kernel.
+SLAB_COLS = 256
 
 #: Kernel launches per wrapper since the last ``reset_launch_counts``.
 LAUNCHES = {"ce_fwd": 0, "ce_dx": 0, "ce_dw": 0}
@@ -67,8 +75,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: (return type, argument types) of each exported function.
 _SIGNATURES = {
     "ce_fwd": (_I, [_P, _P, _P, _P, _L, _P, _P, _P, _I, _I, _I, _P]),
-    "ce_dx": (_I, [_P, _P, _P, _L, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "ce_dw": (_I, [_P, _P, _P, _L, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "ce_dx": (_I, [_P, _P, _P, _L, _I, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "ce_dw": (_I, [_P, _P, _P, _L, _I, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "ce_ds": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "ce_fwd_scratch": (_L, [_I, _I, _I]),
     "ce_dx_scratch": (_L, [_I, _I, _I, _I]),
 }
@@ -85,11 +94,16 @@ def _kernel(name: str):
     return fn
 
 
-def _launch(name: str, *args) -> None:
-    """Launch through the ctypes binding; the last argument is the stream."""
+def _call(name: str, *args) -> None:
+    """Launch through the ctypes binding; raise on a launch error."""
     rc = _kernel(name)(*args)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _launch(name: str, *args) -> None:
+    """Launch and count one launch of ``name``; the last argument is the stream."""
+    _call(name, *args)
     launches.count(LAUNCHES, name, args[-1])
 
 
@@ -176,6 +190,21 @@ def ce_dw_reference(x, w, labels, lse, g, stash=None) -> torch.Tensor:
     return torch.matmul(ds.float().t(), x.float())
 
 
+def ce_ds_slab_reference(x, w, labels, lse, g, v0: int, v1: int) -> torch.Tensor:
+    """Plain version of the ds kernel on the vocab slab ``v0:v1``: the (N,
+    v1 - v0) ds of f32 scores x·W[v0:v1]ᵀ, rounded to x's dtype."""
+    return _ds(_scores(x, w[v0:v1]), labels.long() - v0, lse, g).to(x.dtype)
+
+
+def slab_width(N: int, V: int) -> int:
+    """Vocab columns per slab of recompute mode: the largest multiple of
+    ``SLAB_COLS`` whose bf16 (N, slab) ds scratch fits in ``SLAB_BYTES_MAX``,
+    at least one tile, and no wider than the vocab rounded up to a tile (one
+    slab then takes it whole). The last slab holds what is left."""
+    fit = SLAB_BYTES_MAX // (2 * N) // SLAB_COLS * SLAB_COLS
+    return max(SLAB_COLS, min(fit, -(-V // SLAB_COLS) * SLAB_COLS))
+
+
 # ----------------------------------------------------------------- wrappers
 def ce_fwd(x, w, labels, stash: bool):
     """Forward kernel on (N, D) x, (V, D) W, (N,) int32 labels ->
@@ -198,8 +227,33 @@ def ce_fwd(x, w, labels, stash: bool):
     return loss, lse, buf[:, :V] if stash else None
 
 
-def _stash_args(stash):
-    return (stash.data_ptr(), stash.stride(0)) if stash is not None else (None, 0)
+def _operand(x, w, stash):
+    """(tensor, row stride, recompute flag) of the backward kernels' bf16
+    (N, ·) operand: the stash, or in recompute mode a new ds scratch of one
+    vocab slab (:func:`slab_width`), which the kernels fill slab by slab."""
+    if stash is not None:
+        return stash, stash.stride(0), 0
+    vs = slab_width(x.shape[0], w.shape[0])
+    return torch.empty((x.shape[0], vs), dtype=torch.bfloat16, device=x.device), vs, 1
+
+
+def ce_ds_slab(x, w, labels, lse, g, v0: int, v1: int) -> torch.Tensor:
+    """The ds kernel alone on the vocab slab ``v0:v1``: a bf16 (N, v1 - v0)
+    view (row stride rounded up to 8). Recompute-mode ``ce_dx`` and ``ce_dw``
+    run it per slab inside their own launch; this entry point serves checks
+    against :func:`ce_ds_slab_reference` and counts no launch."""
+    if not _on_cuda(x):
+        return ce_ds_slab_reference(x, w, labels, lse, g, v0, v1)
+    _check_kernel_inputs(x, w, labels, lse, g)
+    if not 0 <= v0 < v1 <= w.shape[0]:
+        raise ValueError(f"slab {v0}:{v1} outside the vocab of {w.shape[0]}")
+    N, D = x.shape
+    ld = -(-(v1 - v0) // 8) * 8
+    ds = torch.empty((N, ld), dtype=torch.bfloat16, device=x.device)
+    with torch.cuda.device(x.device):
+        _call("ce_ds", x.data_ptr(), w.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+              g.data_ptr(), ds.data_ptr(), ld, v0, v1 - v0, N, D, _stream(x))
+    return ds[:, :v1 - v0]
 
 
 def ce_dx(x, w, labels, lse, g, stash=None) -> torch.Tensor:
@@ -211,8 +265,9 @@ def ce_dx(x, w, labels, lse, g, stash=None) -> torch.Tensor:
     V = w.shape[0]
     dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        part = _scratch("ce_dx", x.device, N, V, D, int(stash is not None))
-        _launch("ce_dx", x.data_ptr(), w.data_ptr(), *_stash_args(stash),
+        s, ld, recompute = _operand(x, w, stash)
+        part = _scratch("ce_dx", x.device, N, V, D, ld if recompute else 0)
+        _launch("ce_dx", x.data_ptr(), w.data_ptr(), s.data_ptr(), ld, recompute,
                 labels.data_ptr(), lse.data_ptr(), g.data_ptr(), part.data_ptr(),
                 dx.data_ptr(), N, V, D, _stream(x))
     return dx
@@ -229,9 +284,10 @@ def ce_dw(x, w, labels, lse, g, stash=None) -> torch.Tensor:
     V = w.shape[0]
     dw = torch.empty((V, D), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        _launch("ce_dw", x.data_ptr(), w.data_ptr(), *_stash_args(stash),
-                labels.data_ptr(), lse.data_ptr(), g.data_ptr(), dw.data_ptr(),
-                N, V, D, _stream(x))
+        s, ld, recompute = _operand(x, w, stash)
+        _launch("ce_dw", x.data_ptr(), w.data_ptr(), s.data_ptr(), ld, recompute,
+                labels.data_ptr(), lse.data_ptr(), g.data_ptr(), dw.data_ptr(), N, V, D,
+                _stream(x))
     return dw
 
 
@@ -345,7 +401,7 @@ def fused_linear_cross_entropy(
     the JAX package does (:func:`auto_stash`).
 
     The CUDA kernels choose their own tiles (the forward 128 tokens x 256
-    vocab columns, the backward 128 x 256 or 128 x 128 output tiles): on a
+    vocab columns, the backward 128 x 256 down to 128 x 64 output tiles): on a
     CUDA tensor a ``block_n`` or ``block_v`` other than None or 128 raises
     ``NotImplementedError``. The plain version (CPU tensors) has no tiles and
     ignores them.

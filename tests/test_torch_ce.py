@@ -299,3 +299,91 @@ def test_auto_stash_matches_jax(V, D, block_v):
     if (V, D, block_v) == (50304, 768, None):
         assert [tce.auto_stash(N, V, D) for N in (5242, 5243, 5300, 5336)] == [
             True, False, False, False]
+
+
+# ------------------------------------------------ recompute mode's vocab slabs
+@pytest.mark.parametrize("N,V,want,last", [
+    (4096, 50304, 16384, 1152),   # at the cap: 4096 x 16384 x 2 bytes = 128 MiB
+    (8192, 50304, 8192, 1152),    # GPT-2-small at b8 x 1024
+    (6000, 50257, 11008, 6225),   # 43 tiles fit, not 44; a ragged last slab
+    (128, 50304, 50432, 50304),   # the whole vocab in one slab (rounded up to a tile)
+    (64, 300, 512, 300),
+    (64, 100, 256, 100),          # a vocab smaller than one tile
+    (1 << 20, 50304, 256, 128),   # at least one tile, even past the cap
+])
+def test_slab_width(N, V, want, last):
+    """The largest multiple of SLAB_COLS whose bf16 (N, slab) scratch fits
+    in SLAB_BYTES_MAX, no wider than the vocab rounded up to a tile, at
+    least one tile; ``last`` is the width of the last slab."""
+    vs = tce.slab_width(N, V)
+    assert vs == want and vs % tce.SLAB_COLS == 0
+    assert vs == tce.SLAB_COLS or N * vs * 2 <= tce.SLAB_BYTES_MAX
+    assert vs >= V or N * (vs + tce.SLAB_COLS) * 2 > tce.SLAB_BYTES_MAX
+    assert V - (-(-V // vs) - 1) * vs == last
+
+
+def test_ds_slabs_tile_the_softmax_gradient():
+    """ce_ds_slab (its plain version on CPU tensors) over consecutive slabs,
+    side by side, is the gradient of the g-weighted per-token loss with
+    respect to the f32 logits, from autograd: (softmax - onehot(label)) g,
+    labels at the slab edges, ignored rows 0."""
+    v, vs = 1000, 256
+    x, w, labels = _case(v=v, seed=21)
+    labels[:4] = [0, 255, 256, 999]
+    g = (np.random.default_rng(22).uniform(0.1, 2.0, len(labels)) * (labels >= 0))
+    xt, wt, lab, gt = (torch.tensor(a) for a in (x, w, labels, g.astype(np.float32)))
+    logits = (xt @ wt.t()).requires_grad_()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(1, lab.long().clamp_min(0)[:, None])[:, 0]
+    ((lse - picked) * gt).sum().backward()
+    got = torch.cat([tce.ce_ds_slab(xt, wt, lab, lse.detach(), gt, v0, min(v, v0 + vs))
+                     for v0 in range(0, v, vs)], dim=1)
+    torch.testing.assert_close(got, logits.grad, **RECOMPUTE)
+
+
+def _slab_backward(x, w, labels, lse, g, vs):
+    """dx and dW as the recompute-mode kernels form them: per vocab slab of
+    ``vs`` columns the slab's ds (ce_ds_slab), dx's slab products summed in
+    slab order in f32, each slab's dW rows written at their offset."""
+    N, V = x.shape[0], w.shape[0]
+    dx = torch.zeros((N, x.shape[1]))
+    dw = torch.empty((V, x.shape[1]))
+    for v0 in range(0, V, vs):
+        v1 = min(V, v0 + vs)
+        ds = tce.ce_ds_slab(x, w, labels, lse, g, v0, v1).float()
+        dx += ds @ w[v0:v1].float()
+        dw[v0:v1] = ds.t() @ x.float()
+    return dx.to(x.dtype), dw
+
+
+@pytest.mark.parametrize("v", [300, 1000])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slab_backward_matches_plain_and_jax_recompute_vjp(monkeypatch, dtype, v):
+    """Slab by slab (the cap set to one tile: 2 slabs at V 300, 4 at V 1000,
+    the last ragged), under a non-uniform g, 0 on the ignored rows, and
+    labels at the slab edges: dx and dW equal ce_dx_reference /
+    ce_dw_reference and the VJP of the JAX ``_fused_ce`` in recompute mode
+    (its Pallas kernels in interpret mode)."""
+    x, w, labels = _case(v=v, seed=v + 1)
+    monkeypatch.setattr(tce, "SLAB_BYTES_MAX", 2 * len(labels) * tce.SLAB_COLS)
+    vs = tce.slab_width(len(labels), v)
+    assert vs == tce.SLAB_COLS and -(-v // vs) == (2 if v == 300 else 4)
+    edges = [c for v0 in range(0, v, vs) for c in (v0, min(v, v0 + vs) - 1)]
+    labels[:len(edges)] = edges
+    g = (np.random.default_rng(v + 2).uniform(0.1, 2.0, len(labels)) * (labels >= 0))
+    g = g.astype(np.float32)
+    lab_j = jnp.asarray(labels)[:, None]
+    _, vjp = jax.vjp(lambda a, b: jce._fused_ce(a, b, lab_j, JAX_BLOCKS, v, True, False),
+                     jnp.asarray(x, getattr(jnp, dtype)), jnp.asarray(w))
+    want = [np.asarray(t, np.float32) for t in vjp(jnp.asarray(g)[:, None])]
+
+    xt = torch.tensor(x, dtype=getattr(torch, dtype))
+    wc, lab, gt = torch.tensor(w).to(xt.dtype), torch.tensor(labels), torch.tensor(g)
+    _, lse, _ = tce.ce_fwd_reference(xt, wc, lab, stash=False)
+    dx, dw = _slab_backward(xt, wc, lab, lse, gt, vs)
+    assert dx.dtype == xt.dtype and dw.dtype == torch.float32
+    tol = RECOMPUTE if dtype == "float32" else BAND
+    plain = (tce.ce_dx_reference(xt, wc, lab, lse, gt), tce.ce_dw_reference(xt, wc, lab, lse, gt))
+    for name, got, ref, jax_ref in (("dx", dx, plain[0], want[0]), ("dw", dw, plain[1], want[1])):
+        np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(), err_msg=name, **tol)
+        np.testing.assert_allclose(got.float().numpy(), jax_ref, err_msg=name, **tol)

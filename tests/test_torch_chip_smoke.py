@@ -1,8 +1,9 @@
 """``chip_smoke.py``'s reading of a kernel library's SASS and of a profile,
 on the CPU: which kernel a mangled name is, the rule that the Hopper kernels
-(the CE forward and the stash-mode CE dx and dW kernels here) are present and
-hold wgmma (HGMMA) and TMA tile loads (UTMALDG), and which kernel a profiled
-launch belongs to; the same rule for the three flash kernels. Needs no card
+(the CE forward, ds, dx and dW kernels here) are present and hold wgmma
+(HGMMA) and TMA tile loads (UTMALDG), and which kernel a profiled launch
+belongs to (a recompute-mode slab loop is one launch of its wrapper); the
+same rule for the three flash kernels. Needs no card
 and no ``cuobjdump``."""
 
 import importlib.util
@@ -25,11 +26,14 @@ def smoke():
 
 CE_NS = "_ZN45_GLOBAL__N__402d3476_12_linear_ce_cu_50600954"
 FLASH_NS = "_ZN46_GLOBAL__N__daeee7e7_13_flash_attn_cu_b294bfd0"
-DW_SM90 = CE_NS + "17ce_dw_sm90_kernelILi4EEEv14CUtensorMap_stS1_PKiPKfS5_Pfiii"
-DX_SM90 = CE_NS + "17ce_dx_sm90_kernelILi4EEEvNS_6DxMapsEPKiPKfS6_Pfiiii"
+DW_SM90 = CE_NS + "17ce_dw_sm90_kernelILi4ELb0EEEvNS_6DwMapsEPfiii"
+DX_SM90 = CE_NS + "17ce_dx_sm90_kernelILi4ELb0EEEvNS_6DxMapsEPKiPKfS6_Pfiiiii"
+DW_SM90_GIVEN = CE_NS + "17ce_dw_sm90_kernelILi3ELb1EEEvNS_6DwMapsEPfiii"
+DX_SM90_GIVEN = CE_NS + "17ce_dx_sm90_kernelILi3ELb1EEEvNS_6DxMapsEPKiPKfS6_Pfiiiii"
+DS_SM90 = CE_NS + "17ce_ds_sm90_kernelENS_7FwdMapsEPKiPKfS5_iiiii"
 FWD_SM90 = CE_NS + "18ce_fwd_sm90_kernelILb1EEEvNS_7FwdMapsEPKiPfiiii"
 FWD_SM90_RECOMPUTE = CE_NS + "18ce_fwd_sm90_kernelILb0EEEvNS_7FwdMapsEPKiPfiiii"
-HOPPER_CE = (FWD_SM90, FWD_SM90_RECOMPUTE, DX_SM90, DW_SM90)
+HOPPER_CE = (FWD_SM90, FWD_SM90_RECOMPUTE, DS_SM90, DX_SM90, DW_SM90, DX_SM90_GIVEN, DW_SM90_GIVEN)
 FLASH_FWD = FLASH_NS + "10fwd_kernelILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfxiiiiifii"
 FLASH_DKV = (FLASH_NS
              + "10dkv_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_xiiiifi")
@@ -40,8 +44,11 @@ HOPPER_FLASH = (FLASH_FWD, FLASH_DQ64, FLASH_DQ128, FLASH_DKV)
 
 
 @pytest.mark.parametrize("fn,name", [
-    (DW_SM90, ("ce_dw_sm90_kernel", "4")),
-    (DX_SM90, ("ce_dx_sm90_kernel", "4")),
+    (DW_SM90, ("ce_dw_sm90_kernel", "4,0")),
+    (DX_SM90, ("ce_dx_sm90_kernel", "4,0")),
+    (DW_SM90_GIVEN, ("ce_dw_sm90_kernel", "3,1")),
+    (DX_SM90_GIVEN, ("ce_dx_sm90_kernel", "3,1")),
+    (DS_SM90, ("ce_ds_sm90_kernel", None)),
     (FWD_SM90, ("ce_fwd_sm90_kernel", "1")),
     (FWD_SM90_RECOMPUTE, ("ce_fwd_sm90_kernel", "0")),
     (CE_NS + "12ce_dw_kernelEPK13__nv_bfloat16S2_PKiPKfS6_Pfiii", ("ce_dw_kernel", None)),
@@ -96,7 +103,8 @@ def test_check_sass_holds_the_dw_kernel_to_wgmma_and_tma(smoke, monkeypatch, tmp
 
 @pytest.mark.parametrize("present,missing", [(DW_SM90, "ce_dx_sm90_kernel"),
                                              (DX_SM90, "ce_dw_sm90_kernel"),
-                                             (DX_SM90, "ce_fwd_sm90_kernel")])
+                                             (DX_SM90, "ce_fwd_sm90_kernel"),
+                                             (DX_SM90, "ce_ds_sm90_kernel")])
 def test_check_sass_requires_both_hopper_ce_kernels(smoke, monkeypatch, tmp_path, present,
                                                     missing):
     """A dump that holds ``present`` and every other Hopper CE kernel but
@@ -134,6 +142,110 @@ def test_step_kernels_counts_the_forward_without_its_combine_pass(smoke, arg):
                                 "device_ms_per_step": pytest.approx(0.67)}
     for name in ("ce_dw", "flash_fwd", "flash_dq", "flash_dkv"):
         assert kernels[name] == {"launches_per_step": 0.0, "device_ms_per_step": 0.0}
+
+
+def test_step_kernels_counts_a_slab_loop_as_one_launch(smoke):
+    """Two profiled steps with the CE head in recompute mode: each of dx and
+    dW runs a ds kernel and its product kernel per vocab slab (two slabs
+    here); each ds kernel's time goes to the wrapper whose product follows
+    it, and each wrapper's slab loop is one launch, dx's ended by its reduce
+    pass."""
+    ns = "(anonymous namespace)::"
+    ds = ns + ("ce_ds_sm90_kernel(FwdMaps, int const*, float const*, float const*, int, int, "
+               "int, int, int)")
+    dx = ns + ("ce_dx_sm90_kernel<4, true>(DxMaps, int const*, float const*, float const*, "
+               "float*, int, int, int, int, int)")
+    dw = ns + "ce_dw_sm90_kernel<4, true>(DwMaps, float*, int, int, int)"
+    step = [
+        (ns + "ce_fwd_sm90_kernel<false>(FwdMaps, int const*, float*, int, int, int, int)",
+         0.0, 500.0),
+        (ns + "ce_fwd_combine_kernel(float const*, float*, float*, int, int)", 500.0, 510.0),
+        (ds, 600.0, 900.0), (dx, 900.0, 1200.0), (ds, 1200.0, 1300.0), (dx, 1300.0, 1400.0),
+        (ns + "ce_dx_reduce_kernel(float const*, __nv_bfloat16*, long long, int)",
+         1400.0, 1420.0),
+        (ds, 1420.0, 1720.0), (dw, 1720.0, 2120.0), (ds, 2120.0, 2220.0), (dw, 2220.0, 2370.0),
+        ("void at::native::elementwise_kernel<128, 4>(int, ...)", 2400.0, 2410.0),
+    ]
+    events = step + [(n, a + 5000.0, b + 5000.0) for n, a, b in step]
+    kernels = smoke.step_kernels(events, 2)
+    assert kernels["ce_fwd"] == {"launches_per_step": 1.0,
+                                 "device_ms_per_step": pytest.approx(0.51)}
+    assert kernels["ce_dx"] == {"launches_per_step": 1.0,
+                                "device_ms_per_step": pytest.approx(0.82)}
+    assert kernels["ce_dw"] == {"launches_per_step": 1.0,
+                                "device_ms_per_step": pytest.approx(0.95)}
+
+
+@pytest.mark.parametrize("run,launches", [
+    ("p", 1), ("ps", 1), ("pp", 2), ("psps", 2), ("dp", 1), ("dpdp", 1), ("dpdps", 1),
+    ("dpsdps", 2), ("dpsdp", 2),
+    ("dpp", None), ("dpdpp", None), ("ddp", None), ("dps" + "s", None), ("s", None),
+    ("pss", None), ("d", None), ("pd", None), ("dpd", None), ("dpdpsp", None),
+    ("pdp", None), ("psdps", None),
+])
+def test_ce_run_launches(smoke, run, launches):
+    """A CE wrapper's launch is p[s] or (dp)+[s]: stash-mode products in a
+    row count one launch each (so the exact counts catch a kernel run twice
+    in one call), and a product with no ds before it in a slab loop, two ds
+    in a row, a second kernel with no product before it or a run mixing the
+    two modes (a slab loop that lost its first ds event) raises."""
+    if launches is None:
+        with pytest.raises(smoke.LaunchShapeError, match="ran as"):
+            smoke.ce_run_launches("ce_dx", run)
+    else:
+        assert smoke.ce_run_launches("ce_dx", run) == launches
+
+
+def _recompute_step():
+    """One step of the CE head in recompute mode, two vocab slabs."""
+    ns = "(anonymous namespace)::"
+    ds = (ns + "ce_ds_sm90_kernel(FwdMaps, int const*, float const*, float const*, int, int, "
+          "int, int, int)", 300.0)
+    dx = (ns + "ce_dx_sm90_kernel<4, true>(DxMaps, int const*, float const*, float const*, "
+          "float*, int, int, int, int, int)", 300.0)
+    dw = (ns + "ce_dw_sm90_kernel<4, true>(DwMaps, float*, int, int, int)", 400.0)
+    return [(ns + "ce_fwd_sm90_kernel<false>(FwdMaps, int const*, float*, int, int, int, int)",
+             500.0),
+            (ns + "ce_fwd_combine_kernel(float const*, float*, float*, int, int)", 10.0),
+            ds, dx, ds, dx, (ns + "ce_dx_reduce_kernel(float const*, __nv_bfloat16*, long long, "
+                             "int)", 20.0),
+            ds, dw, ds, dw]
+
+
+def _timed(kernels):
+    out, t = [], 0.0
+    for name, us in kernels:
+        out.append((name, t, t + us))
+        t += us
+    return out
+
+
+@pytest.mark.parametrize("fault", ["dx product twice", "dw product twice", "ds twice",
+                                   "reduce twice", "ds last"])
+def test_step_kernels_rejects_a_slab_loop_out_of_shape(smoke, fault):
+    """A recompute-mode step whose slab loop ran a kernel too many times
+    fails, where counting each wrapper's run as one launch would hide it."""
+    step = _recompute_step()
+    i = {"dx product twice": 5, "dw product twice": 10, "ds twice": 7, "reduce twice": 6,
+         "ds last": 9}[fault]
+    step = step + [step[2]] if fault == "ds last" else step[:i + 1] + step[i:]
+    with pytest.raises(smoke.LaunchShapeError, match="ran as|no CE kernel after it"):
+        smoke.step_kernels(_timed(step * 2 if fault != "ds last" else step), 2)
+
+
+def test_step_kernels_counts_a_stash_product_run_twice(smoke):
+    """Stash mode: dW's product kernel run twice in a step counts as two
+    launches, which the exact launch count then rejects."""
+    ns = "(anonymous namespace)::"
+    dw = (ns + "ce_dw_sm90_kernel<4, false>(DwMaps, float*, int, int, int)", 400.0)
+    step = [(ns + "ce_fwd_sm90_kernel<true>(FwdMaps, int const*, float*, int, int, int, int)",
+             500.0),
+            (ns + "ce_dx_sm90_kernel<4, false>(DxMaps, int const*, float const*, float const*, "
+             "float*, int, int, int, int, int)", 300.0), dw, dw]
+    kernels = smoke.step_kernels(_timed(step * 2), 2)
+    assert kernels["ce_dw"] == {"launches_per_step": 2.0,
+                                "device_ms_per_step": pytest.approx(0.8)}
+    assert kernels["ce_fwd"]["launches_per_step"] == kernels["ce_dx"]["launches_per_step"] == 1.0
 
 
 def _flash_events(steps, drop=0, extra=0):
@@ -179,6 +291,35 @@ def test_counted_profile_retakes_a_profile_that_lost_events(smoke, monkeypatch, 
     for r in smoke.SHORT_PROFILES:
         assert r["label"] == "flash windows" and list(r["short"]) == ["flash_fwd"]
         assert r["short"]["flash_fwd"][1] == 12
+
+
+@pytest.mark.parametrize("bad", [1, 3])
+def test_counted_profile_retakes_a_slab_loop_out_of_shape(smoke, monkeypatch, bad):
+    """A recompute-mode profile that lost a ds event is out of shape: it is
+    recorded and taken again, and raises when every attempt is."""
+    step = _recompute_step()
+    good = _timed(step * 2)
+    lost = _timed(step[:7] + step[8:] + step)  # the first step lost a dw slab's ds
+    profiles = [lost] * bad + [good]
+    calls = []
+    monkeypatch.setattr(smoke, "SHORT_PROFILES", [])
+
+    def profiled(fn, n):
+        calls.append(n)
+        return None, profiles[len(calls) - 1]
+
+    monkeypatch.setattr(smoke, "profiled", profiled)
+    want = dict.fromkeys(smoke.KERNEL_SYMBOLS, 0.0)
+    want.update(ce_fwd=1.0, ce_dx=1.0, ce_dw=1.0)
+    if bad < 3:
+        _, _, kernels = smoke.counted_profile(lambda: None, 1, 2, want, "recompute windows")
+        assert kernels["ce_dw"]["launches_per_step"] == 1.0
+    else:
+        with pytest.raises(smoke.LaunchShapeError, match="ce_dw"):
+            smoke.counted_profile(lambda: None, 1, 2, want, "recompute windows")
+    assert len(calls) == min(bad + 1, 3)
+    assert [r["attempt"] for r in smoke.SHORT_PROFILES] == list(range(1, bad + 1))
+    assert all("ce_dw" in r["out_of_shape"] for r in smoke.SHORT_PROFILES)
 
 
 def test_check_sass_holds_the_flash_kernels_to_wgmma_and_tma(smoke, monkeypatch, tmp_path):

@@ -11,16 +11,19 @@ gradients by relative norm), the dQ kernel also at its edges (one tile to
 walks of 32, D 64 and 128, grouped queries, a planted score per row in a
 late kv tile); the end-to-end attention gradients in the bf16 band of
 ``tests/test_flash.py`` (2e-2). The CE kernels by relative norm,
-the stash-mode dx and dW kernels at their edges (D tile widths, V and N that
-no tile divides, ignored rows, the softmax part alone, a non-uniform g)
-within the bound of ``chip_smoke.check_ce``; the CE forward at its edges (D
+the dx and dW kernels at their edges in both modes (D tile widths, V and N
+that no tile divides, ignored rows, the softmax part alone, a non-uniform
+g; in recompute mode also several vocab slabs, the last ragged, labels at
+their edge columns) within the bound of ``chip_smoke.check_ce``; the
+recompute-mode ds kernel alone within one bf16 step; the CE forward at its edges (D
 of 1 to 16 chunks, V and N that no tile divides, labels at the first, last
 and ragged columns, a running max that moves across vocab tiles and splits)
 within the bounds of ``chip_smoke.check_ce`` (loss and lse absolute, the
 stash within one bf16 step). The K-step window on a small GPT-2 (head dim
 64, flash and the CE head): its CUDA graph against eager steps within
 ``WINDOW_ATOL`` per step (the bound of ``chip_smoke``'s phase 4), exact
-launch counts under replay, a capture after a restore and beside a
+launch counts under replay (also with the CE head in recompute mode), a
+capture after a restore and beside a
 staging thread, ``release_task`` giving the pool back; one step of each
 optimizer ``HParams.make_optimizer`` builds, replayed from a graph, against
 the same optimizer without ``capturable`` within 1e-6.
@@ -398,6 +401,104 @@ def test_ce_dx_stash_edges(cuda_device, N, D, V, mode):
     assert torch.count_nonzero(dx[counted:]) == 0
 
 
+#: The recompute-mode dx and dW (a ds kernel and the product kernel per vocab
+#: slab) against their plain versions, by relative norm (the bound of
+#: ``chip_smoke.check_ce``).
+CE_RECOMPUTE_REL = 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["tail", "softmax", "random_g"])
+@pytest.mark.parametrize(
+    "N,D,V,slab",
+    # D tiles of 64, 128, 256 (3 and 4 of them), 192 and 64 (of D 320); V and
+    # N that no tile divides; slabs of 256 or 512 columns forced through a
+    # smaller cap (2 and 4 slabs, the last ragged), or the cap's own (one
+    # slab; 4 and 5 slabs at GPT-2's vocab)
+    [(256, 64, 300, 256), (256, 128, 1000, 512), (256, 768, 1000, 256), (256, 1024, 300, None),
+     (100, 192, 1000, 256), (100, 320, 300, None), (4000, 768, 50257, None),
+     (6000, 768, 50257, None)],
+)
+def test_ce_recompute_edges(cuda_device, monkeypatch, N, D, V, slab, mode):
+    """Recompute-mode dx and dW against ce_dx_reference / ce_dw_reference,
+    with an ignored tail and g = 1 per counted row (``tail``), every label
+    ignored and g = 1 (``softmax``: the softmax part alone), or a random
+    non-uniform g (``random_g``). The first rows' labels sit at the first and
+    last column of every slab. x has a scale that grows along D and W
+    another, so a descriptor that swaps or transposes an operand gives
+    another result. One launch of each wrapper, whatever the slab count."""
+    if slab is not None:
+        monkeypatch.setattr(ce, "SLAB_BYTES_MAX", 2 * N * slab)
+    vs = ce.slab_width(N, V)
+    assert slab is None or vs == slab
+    edges = [c for v0 in range(0, V, vs) for c in (v0, min(V, v0 + vs) - 1)]
+    rng = np.random.default_rng(N + D + V)
+    x = torch.tensor(rng.standard_normal((N, D)) * np.linspace(1.0, 2.0, D),
+                     dtype=torch.bfloat16, device=cuda_device)
+    w = torch.tensor(rng.standard_normal((V, D)) * 0.05, dtype=torch.bfloat16,
+                     device=cuda_device)
+    labels_np = rng.integers(0, V, N).astype(np.int32)
+    labels_np[:len(edges)] = edges
+    tail = N // 8
+    labels_np[N - tail:] = -1
+    g_np = (labels_np >= 0).astype(np.float32)
+    if mode == "softmax":
+        labels_np[:], g_np[:] = -1, 1.0
+    elif mode == "random_g":
+        g_np *= rng.uniform(0.1, 2.0, N).astype(np.float32)
+    labels = torch.tensor(labels_np, device=cuda_device)
+    g = torch.tensor(g_np, device=cuda_device)
+    _, lse, s = ce.ce_fwd(x, w, labels, False)
+    before = dict(ce.LAUNCHES)
+    dx = ce.ce_dx(x, w, labels, lse, g)
+    dw = ce.ce_dw(x, w, labels, lse, g)
+    launched = {n: ce.LAUNCHES[n] - before[n] for n in ("ce_dx", "ce_dw")}
+    dx_r = ce.ce_dx_reference(x, w, labels, lse, g)
+    dw_r = ce.ce_dw_reference(x, w, labels, lse, g)
+    torch.cuda.synchronize()
+    assert s is None and launched == {"ce_dx": 1, "ce_dw": 1}
+    assert dx.shape == (N, D) and dx.dtype == torch.bfloat16
+    assert dw.shape == (V, D) and dw.dtype == torch.float32
+    assert torch.isfinite(dx.float()).all() and torch.isfinite(dw).all()
+    for name, got, want in (("dx", dx, dx_r), ("dw", dw, dw_r)):
+        assert _rel_err(got, want) <= CE_RECOMPUTE_REL, (name, _rel_err(got, want))
+    counted = N if mode == "softmax" else N - tail
+    assert (dx[:counted].float().abs().sum(1) > 0).all()
+    assert torch.count_nonzero(dx[counted:]) == 0
+    assert (dw.abs().sum(1) > 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,D,V,v0,v1", [(256, 64, 1000, 256, 512), (100, 128, 300, 256, 300),
+                                         (4000, 768, 50257, 49920, 50257)])
+def test_ce_ds_slab_matches_plain(cuda_device, N, D, V, v0, v1):
+    """The ds kernel alone on one vocab slab (ce_ds_slab) against
+    ce_ds_slab_reference: both form ds in f32 and round it to bf16 once, so
+    each value lies within one bf16 step of the plain one (ex2.approx
+    flushes what falls below the smallest normal float). Labels at the
+    slab's first and last column and just outside it, a non-uniform g, an
+    ignored tail. The entry point counts no launch."""
+    rng = np.random.default_rng(N + v0)
+    x = torch.tensor(rng.standard_normal((N, D)), dtype=torch.bfloat16, device=cuda_device)
+    w = torch.tensor(rng.standard_normal((V, D)) * 0.05, dtype=torch.bfloat16,
+                     device=cuda_device)
+    labels_np = rng.integers(0, V, N).astype(np.int32)
+    labels_np[:4] = [v0, v1 - 1, v0 - 1, min(v1, V - 1)]
+    labels_np[N - N // 8:] = -1
+    labels = torch.tensor(labels_np, device=cuda_device)
+    g = torch.tensor(rng.uniform(0.1, 2.0, N) * (labels_np >= 0), dtype=torch.float32,
+                     device=cuda_device)
+    _, lse, _ = ce.ce_fwd(x, w, labels, False)
+    before = dict(ce.LAUNCHES)
+    ds = ce.ce_ds_slab(x, w, labels, lse, g, v0, v1)
+    want = ce.ce_ds_slab_reference(x, w, labels, lse, g, v0, v1)
+    torch.cuda.synchronize()
+    assert ce.LAUNCHES == before
+    assert ds.shape == (N, v1 - v0) and ds.dtype == torch.bfloat16
+    torch.testing.assert_close(ds.float(), want.float(), rtol=2.0 ** -7, atol=2.0 ** -126)
+    assert (ds[:2].float().min(1).values < 0).all()  # the one-hot term at both edges
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("stash", [True, False], ids=["stash", "recompute"])
 def test_fused_ce_grads_match_dense(cuda_device, stash):
@@ -495,6 +596,27 @@ def test_graphed_window_matches_eager_steps(cuda_device, tmp_path):
     runs = {}
     for k in (4, 1):
         task, tech = _small_task(tmp_path, f"k{k}")
+        runs[k] = _run(task, tech, cuda_device, 10, k)
+        rec = tech.intervals[-1]
+        assert (rec["windows"], rec["tail"], rec["warm"]) == ((2, 1, True) if k > 1 else (0, 10, False))
+    want = {"flash_fwd": 20, "flash_dq": 20, "flash_dkv": 20, "ce_fwd": 10, "ce_dx": 10, "ce_dw": 10}
+    assert runs[4][1] == want and runs[1][1] == want
+    np.testing.assert_allclose(runs[4][0], runs[1][0], rtol=0, atol=WINDOW_ATOL)
+
+
+@pytest.mark.cuda
+def test_recompute_graphed_window_matches_eager_steps(cuda_device, tmp_path, monkeypatch):
+    """The graphed window with the CE head in recompute mode (the stash limit
+    set to 0, as above it) over two vocab slabs of 256 columns (the slab
+    cap set to one tile): the captured slab loop, its ds scratch taken from
+    the graph's pool, against one step at a time, with the exact launch
+    counts in both."""
+    monkeypatch.setattr(ce, "STASH_BYTES_MAX", 0)
+    monkeypatch.setattr(ce, "SLAB_BYTES_MAX", 2 * 4 * 128 * ce.SLAB_COLS)
+    assert not ce.auto_stash(4 * 128, 512, 128) and ce.slab_width(4 * 128, 512) == 256
+    runs = {}
+    for k in (4, 1):
+        task, tech = _small_task(tmp_path, f"recompute-k{k}")
         runs[k] = _run(task, tech, cuda_device, 10, k)
         rec = tech.intervals[-1]
         assert (rec["windows"], rec["tail"], rec["warm"]) == ((2, 1, True) if k > 1 else (0, 10, False))

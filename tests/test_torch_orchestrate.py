@@ -106,6 +106,39 @@ def test_unported_orchestrate_options_raise(tmp_path):
         sat.orchestrate(tasks, topology=topo, trace_dir=str(tmp_path))
 
 
+def test_fault_schedule_in_the_environment_raises(tmp_path, monkeypatch):
+    """SATURN_TPU_FAULTS, from which the JAX orchestrate builds a fault
+    injector when none is passed, raises in the port rather than running
+    without the faults; a blank value is unset for both packages."""
+    from saturn_tpu.resilience.faults import FaultInjector
+
+    tasks = _tasks(tmp_path, [1e-3])
+    topo = SliceTopology([torch.device("cpu")])
+    monkeypatch.setenv("SATURN_TPU_FAULTS", "1:trial_crash:lr0")
+    assert FaultInjector.from_env() is not None
+    with pytest.raises(NotImplementedError, match="SATURN_TPU_FAULTS"):
+        sat.orchestrate(tasks, topology=topo)
+    monkeypatch.setenv("SATURN_TPU_FAULTS", "  ")
+    assert FaultInjector.from_env() is None
+    with pytest.raises(ValueError, match="no profiled strategies"):
+        sat.orchestrate(tasks, topology=topo)
+
+
+def test_library_path_in_the_environment_raises(tmp_path, monkeypatch):
+    """SATURN_TPU_LIBRARY_PATH, under which the JAX library persists each
+    registered technique with dill, makes the port's register raise; nothing
+    is registered or written."""
+    from saturn_tpu_torch.parallel.dp import DataParallel
+
+    store = tmp_path / "udp"
+    monkeypatch.setenv("SATURN_TPU_LIBRARY_PATH", str(store))
+    with pytest.raises(NotImplementedError, match="SATURN_TPU_LIBRARY_PATH"):
+        sat.library.register("dp-env", DataParallel)
+    assert "dp-env" not in sat.library.registered_names() and not store.exists()
+    with pytest.raises(TypeError):  # the type check still comes first, as in JAX
+        sat.library.register("dp-env", object)
+
+
 class _Job:
     """A solver-facing task stand-in: a name and a strategy table."""
 
