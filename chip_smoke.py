@@ -96,6 +96,26 @@ Phases, in order; any failure is an exception and a non-zero exit:
    makespan against the serial sum of runtimes, the peak memory, the
    checkpoint bytes written (the phase then deletes its checkpoints) and
    the phase's time. Its kernel launches join phase 3's in the kernels line.
+7. Kill-replay of a sweep through the durability journal: two GPT-2-small
+   tasks (b8 x 512, flash + fused head, ``dp``, AdamW, 16 batches each,
+   differing only in lr; search from a profile cache of the phase's own,
+   seeded from phase 3's) in intervals of KILL_INTERVAL_SHARE of the
+   shortest profiled runtime, so that each task runs at least 3. One
+   uninterrupted ``orchestrate(resume_dir=A)`` is the reference; then a
+   chain on journal B and a second checkpoint directory, fresh tasks for
+   each incarnation: the first killed by ``CrashInjector("mid-fsync",
+   hit=2)`` (its journal tail torn), the second by ``("mid-interval",
+   hit=1)`` (its checkpoint written, its progress not committed), the third
+   running to the end. Checked: every task completes; each final checkpoint
+   is at step 16 with parameters and AdamW moments bitwise equal to the
+   reference run's; B replays strictly as one ``seq`` chain with the JAX
+   package's record kinds and three recoveries, its torn tail in a
+   ``.corrupt`` sidecar; B's progress is 16 for each task; the memory
+   allocated after each killed incarnation is back where it was before the
+   first; all six kernels ran. Printed: the journal's commit times, each
+   resume's replay, reconcile (with ``verify`` of each checkpoint) and fold
+   times, and the chain's time against the reference run's. Its launches
+   are logged apart and leave the kernels line as phases 3 and 6 made it.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
@@ -1627,6 +1647,262 @@ def sweep_phase(sat, flash, ce, card):
                       "after_bytes": after, "before_bytes": base_bytes, "seconds": seconds}
 
 
+# ------------------------------------------------------------------ phase 7
+KILL_BATCHES = 16
+KILL_INTERVAL_SHARE = 0.4  # of the shortest profiled runtime: about 6 batches an interval
+KILL_MIN_INTERVALS = 3     # intervals each task of the reference run must take
+KILL_CHAIN = (("mid-fsync", 2), ("mid-interval", 1), (None, None))  # (point, hit) per incarnation
+JOURNAL_KINDS = ("segment_open", "recovery", "plan_commit", "task_progress",
+                 "ckpt_published", "interval_commit", "task_completed")
+MEMORY_SLACK = 256 * 2**20  # bytes a phase may leave allocated beyond where it began
+
+
+class CallTimes:
+    """Time every call of the functions ``targets`` names (``label=(holder,
+    attribute)``) inside the block; ``seconds[label]`` lists them."""
+
+    def __init__(self, **targets):
+        self.targets = targets
+        self.seconds = {label: [] for label in targets}
+        self.saved = {}
+
+    def __enter__(self):
+        for label, (holder, attr) in self.targets.items():
+            self.saved[label] = fn = getattr(holder, attr)
+            setattr(holder, attr, self._timed(label, fn))
+        return self
+
+    def _timed(self, label, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.seconds[label].append(time.perf_counter() - t0)
+        return timed
+
+    def __exit__(self, *exc):
+        for label, (holder, attr) in self.targets.items():
+            setattr(holder, attr, self.saved[label])
+
+
+def check_same_state(name: str, want: dict, got: dict) -> None:
+    """Raise unless two checkpoint payloads (``checkpoint.load``) hold the
+    same step, parameters and optimizer state, bit for bit."""
+    if got["step"] != want["step"]:
+        raise AssertionError(f"{name}: step {got['step']}, want {want['step']}")
+    pairs = [(f"params[{k}]", got["params"].get(k), v) for k, v in want["params"].items()]
+    gs, ws = got["opt_state"]["state"], want["opt_state"]["state"]
+    if set(gs) != set(ws) or set(got["params"]) != set(want["params"]):
+        raise AssertionError(f"{name}: the checkpoints hold different entries")
+    for i, entry in ws.items():
+        pairs += [(f"opt_state[{i}][{k}]", gs[i].get(k), v) for k, v in entry.items()]
+    for label, g, w in pairs:
+        same = (torch.equal(g, w) if isinstance(w, torch.Tensor) and isinstance(g, torch.Tensor)
+                else g == w)
+        if not same:
+            raise AssertionError(f"{name}: {label} differs from the uninterrupted run's")
+    if got["opt_state"]["param_groups"] != want["opt_state"]["param_groups"]:
+        raise AssertionError(f"{name}: optimizer param groups differ")
+
+
+def check_progress(progress: dict, want: dict) -> None:
+    """Raise unless the journal's progress (``replay_batch_state``) counts
+    each task's batches exactly once."""
+    if progress != want:
+        raise AssertionError(f"journaled progress {progress}, want {want}")
+
+
+def check_memory(label: str, after: int, before: int, slack: int = MEMORY_SLACK) -> None:
+    if after > before + slack:
+        raise AssertionError(f"{label}: {after / 2**30:.3f} GiB allocated, "
+                             f"{before / 2**30:.3f} GiB before")
+
+
+def check_kill_journal(root: str, incarnations: int) -> dict:
+    """Raise unless the journal replays strictly as one ``seq`` chain over
+    ``incarnations`` recoveries, holds the JAX package's record kinds, and
+    its torn tail went to a ``.corrupt`` sidecar. Returns the record count
+    of each kind."""
+    from saturn_tpu_torch.durability import replay
+
+    recs = replay(root, strict=True)
+    seqs = [r["seq"] for r in recs]
+    if seqs != list(range(1, len(recs) + 1)):
+        raise AssertionError(f"{root}: seq {seqs} is not one chain from 1")
+    kinds: dict = {}
+    for r in recs:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    missing = [k for k in JOURNAL_KINDS if k not in kinds]
+    if missing or kinds.get("recovery") != incarnations:
+        raise AssertionError(f"{root}: record kinds {kinds}; missing {missing}, want "
+                             f"{incarnations} recovery records")
+    if not [n for n in os.listdir(root) if ".corrupt" in n]:
+        raise AssertionError(f"{root}: no .corrupt sidecar of the torn tail")
+    return kinds
+
+
+def idle_commits(jmod, root: str, n: int = 20) -> list:
+    """Seconds of ``n`` journal commits of one small record each into a
+    journal of its own, with no checkpoint write in flight."""
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    ckpt.flush()
+    shutil.rmtree(root, ignore_errors=True)
+    out = []
+    with jmod.Journal(root) as journal:
+        for i in range(n):
+            journal.append("task_progress", task="probe", batches=i)
+            t0 = time.perf_counter()
+            journal.commit()
+            out.append(time.perf_counter() - t0)
+    return out
+
+
+def kill_replay_phase(sat, flash, ce, card):
+    """Two GPT-2-small tasks (b8 x 512, fused head, differing only in lr):
+    one uninterrupted ``orchestrate(resume_dir=A)``, then a chain of three
+    incarnations on journal B with fresh tasks each, killed at ``mid-fsync``
+    (hit 2) and at ``mid-interval`` (hit 1), the third running to the end."""
+    import gc
+    import traceback
+
+    from saturn_tpu_torch.durability import journal as jmod
+    from saturn_tpu_torch.durability import recovery as rmod
+    from saturn_tpu_torch.executor import orchestrator
+    from saturn_tpu_torch.resilience import CrashInjector, SimulatedKill
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    root = os.path.join(CKPTS, "kill_replay")
+    journals = {k: os.path.join(OUT, f"kill_replay_journal_{k}") for k in "AB"}
+    cache_dir = os.path.join(OUT, "kill_replay_profile_cache")
+    for d in (root, cache_dir, *journals.values()):
+        shutil.rmtree(d, ignore_errors=True)
+    main_cache = os.path.join(OUT, "main_path_profile_cache")
+    if os.path.isdir(main_cache):  # phase 3 profiled this signature: no trial to run again
+        shutil.copytree(main_cache, cache_dir)
+    topo = topology()
+    dev = torch.device(DEVICE, 0)
+
+    def tasks_in(save_dir):
+        tasks = [lm_task(sat, f"kill-lr{i}", lr, KILL_BATCHES, save_dir)
+                 for i, lr in enumerate((6e-4, 1e-3))]
+        sat.search(tasks, technique_names=["dp"], topology=topo, profile_cache=cache_dir)
+        return tasks
+
+    reset_counts(flash, ce)
+    ref = tasks_in(os.path.join(root, "reference"))
+    interval = KILL_INTERVAL_SHARE * min(t.strategies[1].runtime for t in ref)
+    with CallTimes(commit=(jmod.Journal, "commit"), fsync=(os, "fsync")) as timer:
+        t0 = time.perf_counter()
+        out = sat.orchestrate(ref, interval=interval, topology=topo, resume_dir=journals["A"])
+        t_ref = time.perf_counter() - t0
+    names = sorted(t.name for t in ref)
+    if sorted(out["completed"]) != names or out["failed"]:
+        raise AssertionError(f"reference run: {out}")
+    records = ref[0].strategies[1].executor.intervals
+    runs = {n: [r["n"] for r in records if r["task"] == n] for n in names}
+    if min(len(v) for v in runs.values()) < KILL_MIN_INTERVALS:
+        raise AssertionError(f"reference intervals {runs}: lower KILL_INTERVAL_SHARE")
+    want = {t.name: ckpt.load(t.ckpt_path) for t in ref}
+    commit_s, fsync_s = timer.seconds["commit"], timer.seconds["fsync"]
+    idle_s = idle_commits(jmod, os.path.join(OUT, "kill_replay_journal_idle"))
+    log(f"  reference: interval {interval:.3f}s ({KILL_INTERVAL_SHARE} of the shortest "
+        f"profiled runtime), batches per interval {runs}, {t_ref:.1f}s; {len(commit_s)} "
+        f"journal commits, median {np.median(commit_s) * 1e3:.2f} ms, max "
+        f"{max(commit_s) * 1e3:.2f} ms; the run's {len(fsync_s)} fsyncs (the commits' and "
+        f"the journal's opening and closing) median {np.median(fsync_s) * 1e3:.2f} ms, max "
+        f"{max(fsync_s) * 1e3:.2f} ms; with no checkpoint "
+        f"write in flight a commit takes median {np.median(idle_s) * 1e3:.2f} ms, max "
+        f"{max(idle_s) * 1e3:.2f}  [{card}]")
+    del ref, records
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+
+    chain = []
+    t_chain = time.perf_counter()
+    for point, hit in KILL_CHAIN:
+        tasks = tasks_in(os.path.join(root, "chain"))
+        inj = CrashInjector(point, hit=hit) if point else None
+        timer = CallTimes(replay=(rmod, "replay_batch_state"),
+                          reconcile=(rmod, "reconcile_checkpoints"),
+                          fold=(orchestrator, "_fold_batch_recovery"),
+                          checkpoint_step=(orchestrator, "_checkpoint_step"),
+                          verify=(ckpt, "verify"), saved_step=(ckpt, "saved_step"),
+                          commit=(jmod.Journal, "commit"))
+        killed = None
+        t0 = time.perf_counter()
+        with timer:
+            try:
+                out = sat.orchestrate(tasks, interval=interval, topology=topo,
+                                      resume_dir=journals["B"],
+                                      crash_barrier=inj.barrier if inj else None)
+            except SimulatedKill as e:
+                killed = str(e)
+                traceback.clear_frames(e.__traceback__)
+        seconds = time.perf_counter() - t0
+        step = {n: timer.seconds[n][0] if timer.seconds[n] else None
+                for n in ("replay", "reconcile", "fold")}
+        # the fold's checkpoint reads: waiting for a write in flight, verify, the step
+        step["checkpoint_wait"] = (sum(timer.seconds["checkpoint_step"])
+                                   - sum(timer.seconds["verify"])
+                                   - sum(timer.seconds["saved_step"]))
+        entry = {"kill": point, "hit": hit, "killed": killed, "seconds": seconds,
+                 "recovery_s": step, "verify_s": timer.seconds["verify"],
+                 "saved_step_s": timer.seconds["saved_step"],
+                 "commit_s": timer.seconds["commit"],
+                 "progress": rmod.replay_batch_state(journals["B"]).progress}
+        if point is not None:
+            if killed is None:
+                raise AssertionError(f"the kill at {point} (hit {hit}) never fired: {out}")
+            for t in tasks:  # the dead incarnation's states, graphs and pools
+                t.release_live_state()
+                t.release_compiled()
+            del tasks
+            gc.collect()
+            entry["allocated_after"] = after = torch.cuda.memory_allocated(dev)
+            check_memory(f"after the kill at {point}", after, before)
+        chain.append(entry)
+        log(f"  incarnation {len(chain)}: " + (f"killed at {point} (hit {hit})" if killed
+                                                else "ran to the end")
+            + f" in {seconds:.1f}s; recovery s: replay {step['replay']:.4f}, reconcile "
+            f"{step['reconcile']:.3f}, fold {step['fold']:.3f} ({len(entry['verify_s'])} "
+            f"checkpoint(s) verified in {sum(entry['verify_s']):.3f}s, "
+            f"{step['checkpoint_wait']:.3f}s waiting for writes in flight); journaled progress "
+            f"{entry['progress']}"
+            + (f"; {entry['allocated_after'] / 2**30:.3f} GiB allocated after, "
+               f"{before / 2**30:.3f} before" if killed else "") + f"  [{card}]")
+    t_chain = time.perf_counter() - t_chain
+    if sorted(out["completed"]) != names or out["failed"]:
+        raise AssertionError(f"last incarnation: {out}")
+    for t in tasks:
+        check_same_state(t.name, want[t.name], ckpt.load(t.ckpt_path))
+    progress = rmod.replay_batch_state(journals["B"]).progress
+    check_progress(progress, {n: KILL_BATCHES for n in names})
+    kinds = check_kill_journal(journals["B"], len(KILL_CHAIN))
+    launches = counts(flash, ce)
+    for name in KERNEL_NAMES:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} was never launched in the kill-replay phase")
+    del tasks, want
+    shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"  every task at step {KILL_BATCHES}, parameters and AdamW moments bitwise equal "
+        f"to the reference run's; journal B replays strictly, {kinds}, its torn tail in a "
+        f".corrupt sidecar; launches {launches}")
+    log(f"  kill chain {t_chain:.1f}s against the reference run's {t_ref:.1f}s; phase "
+        f"{seconds:.1f}s  [{card}]")
+    return {"interval_s": interval, "reference_s": t_ref, "reference_intervals": runs,
+            "commit_s": {"median": float(np.median(commit_s)), "max": max(commit_s),
+                         "n": len(commit_s), "fsync": fsync_s,
+                         "idle_median": float(np.median(idle_s)), "idle_max": max(idle_s)},
+            "incarnations": chain, "chain_s": t_chain, "journal_kinds": kinds,
+            "progress": progress, "launches": launches, "allocated_before": before,
+            "seconds": seconds}
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
@@ -1722,6 +1998,9 @@ def main(argv) -> int:
     sweep_launches, sweep = sweep_phase(sat, flash, ce, card)
     launches = {n: launches[n] + sweep_launches[n] for n in KERNEL_NAMES}
     log(f"  main-path launches, phases 3 and 6: {launches}")
+
+    log("phase 7: kill-replay of a two-task GPT-2-small sweep b8x512 (resume_dir)")
+    kill_replay = kill_replay_phase(sat, flash, ce, card)
     shutil.rmtree(CKPTS, ignore_errors=True)
 
     kernels = [
@@ -1738,6 +2017,7 @@ def main(argv) -> int:
         json.dump({"card": card, "kind": kind, "kernels": kernels, "kernel_rows": rows,
                    "ce_recompute_rows": recompute, "main_path": main_results,
                    "pinned": pinned, "step_profile": step_profile, "sweep": sweep,
+                   "kill_replay": kill_replay,
                    "short_profiles": SHORT_PROFILES,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"profiles short of their launch count, each taken again: {len(SHORT_PROFILES)} "

@@ -113,6 +113,7 @@ def execute(
     topology: SliceTopology,
     failure_policy: str = "raise",
     guardian=None,
+    on_task_done=None,
 ) -> Dict[str, BaseException]:
     """Run one interval: every task on its block after the tasks it depends
     on, then a barrier. Returns ``{task name: error}`` of the tasks that
@@ -127,7 +128,10 @@ def execute(
     (batches x per-batch time); past it the launch is abandoned
     (``HungDispatchError``, see ``_join_with_watchdog``), and training
     faults (``guardian.owns``) are returned even under ``"raise"``: they
-    belong to the guardian's recovery policy."""
+    belong to the guardian's recovery policy. ``on_task_done(name, n)`` is
+    called from a task's launcher once its interval ran to its end and its
+    data cursor advanced (the durability journal's ``task_progress``): a
+    batch count it is given really ran."""
     check_launch_invariants([t.name for t in run_tasks], plan)
     events = {t.name: threading.Event() for t in run_tasks}
     running = {t.name for t in run_tasks}
@@ -154,6 +158,8 @@ def execute(
                 if task.name in hung:
                     return
                 task.reconfigure(n)
+            if on_task_done is not None:
+                on_task_done(task.name, n)
         except Exception as e:  # surfaced after the barrier
             logger.exception("task %s failed during interval", task.name)
             # drop the failed launch's locals (its device tensors) now; the

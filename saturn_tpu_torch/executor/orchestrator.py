@@ -14,12 +14,18 @@ remain. A task that completes gives back its live train state, bundles and
 CUDA graphs, and the run ends once every checkpoint write has reached the
 disk.
 
+With ``resume_dir`` the run is journaled there (``durability/``): every
+adopted plan, each task's batches after an interval that ran to its end,
+completions, failures, checkpoint publications and the guardian's
+transitions, group-committed at the end of each interval. A later
+``orchestrate`` on the same directory replays the journal and runs only
+what is left (``_fold_batch_recovery``).
+
 Unlike the JAX package, the re-solve runs after the interval, not beside
 it, with the interval's feedback and failures already folded in. The JAX
-package's fault injection, elastic recovery, durable journal and traces
-are later items; those arguments raise when set, and so does
-``SATURN_TPU_FAULTS``, from which the JAX package builds a fault injector
-when none is passed.
+package's fault injection, elastic recovery and traces are later items;
+those arguments raise when set, and so does ``SATURN_TPU_FAULTS``, from
+which the JAX package builds a fault injector when none is passed.
 """
 
 from __future__ import annotations
@@ -30,9 +36,12 @@ from typing import Dict, List, Optional
 
 from saturn_tpu_torch import analysis
 from saturn_tpu_torch.core.mesh import SliceTopology
+from saturn_tpu_torch.durability import journal as jmod
+from saturn_tpu_torch.durability import recovery as rmod
 from saturn_tpu_torch.executor import engine
 from saturn_tpu_torch.health.guardian import TrainingGuardian
-from saturn_tpu_torch.solver import anytime
+from saturn_tpu_torch.resilience.crash import SimulatedKill
+from saturn_tpu_torch.solver import anytime, milp
 from saturn_tpu_torch.utils import checkpoint as ckpt
 from saturn_tpu_torch.utils import metrics
 from saturn_tpu_torch.utils import profile_cache as pcache
@@ -49,12 +58,13 @@ def _refuse(**options) -> None:
             )
 
 
-def _gate_resolved_plan(candidate, previous, topo, tasks, interval: float):
+def _gate_resolved_plan(candidate, previous, topo, tasks, interval: float, journal,
+                        interval_index: int):
     """The verifier's gate on a re-solved plan. A candidate that fails
-    ``verify_or_raise`` is quarantined (a ``plan_quarantine`` event) and the
-    previous plan slid down by ``interval`` runs instead; only when that
-    plan cannot cover the tasks (a task it never placed) does the failure
-    propagate."""
+    ``verify_or_raise`` is quarantined (a ``plan_quarantine`` event and
+    journal record) and the previous plan slid down by ``interval`` runs
+    instead; only when that plan cannot cover the tasks (a task it never
+    placed) does the failure propagate."""
     try:
         analysis.verify_or_raise(candidate, topology=topo, tasks=tasks, source="re-solve")
         return candidate
@@ -62,6 +72,9 @@ def _gate_resolved_plan(candidate, previous, topo, tasks, interval: float):
         codes = sorted({d.code for d in e.report.errors})
         logger.error("re-solve plan quarantined (%s): %s", codes, e)
         metrics.event("plan_quarantine", source="re-solve", codes=codes)
+        if journal is not None:
+            journal.append("plan_quarantine", interval=interval_index + 1,
+                           source="re-solve", codes=codes)
         names = {t.name for t in tasks}
         if previous is None or names - set(previous.assignments):
             raise
@@ -103,6 +116,126 @@ def _finish(t) -> None:
     t.release_compiled()
 
 
+def _audit_replayed_plan(journal, plan_json: dict) -> None:
+    """The journal-replay audit: the run re-solves on resume all the same,
+    but a committed plan the static verifier rejects means the dead
+    incarnation launched, or was about to launch, a broken schedule: put a
+    ``plan_quarantine`` record on the journal."""
+    try:
+        report = analysis.verify_plan(milp.Plan.from_json(plan_json),
+                                      subject="journal-replay")
+    except (KeyError, TypeError, ValueError) as e:
+        logger.warning("replayed plan_commit undecodable: %s", e)
+        return
+    if not report.ok:
+        codes = sorted({d.code for d in report.errors})
+        logger.warning("the journal's committed plan fails static verification (%s): "
+                       "quarantined; resuming from a fresh solve", codes)
+        journal.log("plan_quarantine", source="journal-replay", codes=codes)
+
+
+def _checkpoint_step(task, sound: set) -> Optional[int]:
+    """The step of the task's checkpoint once its in-flight write landed, or
+    None without one. A file that recovery has not verified yet (its
+    ``ckpt_published`` record was lost) is verified here; one that fails
+    goes to a sidecar and counts as none."""
+    path = task.ckpt_path
+    if not ckpt.exists(path):
+        return None
+    if os.path.abspath(path) not in sound and not ckpt.verify(path):
+        sidecar = ckpt.quarantine(path)
+        logger.warning("resume: checkpoint %s of %s failed verification; quarantined to "
+                       "%s", path, task.name, sidecar)
+        return None
+    return ckpt.saved_step(path)
+
+
+def _fold_batch_recovery(task_list, state, completed, failed, sound, journal) -> List:
+    """Apply the replayed journal to a fresh task list: journaled-terminal
+    tasks never run again, and what each other task realized comes off its
+    budget (strategy runtimes re-derived from per-batch times).
+
+    What a task realized is its checkpoint's step where it has a sound
+    checkpoint, since that step also decides where its data cursor resumes
+    (``parallel/spmd_base.py``); the journal's progress otherwise. A
+    checkpoint can run ahead of the journal: each interval ends with its
+    checkpoint write, and a kill between that write and the interval's
+    commit loses the interval's ``task_progress``. The JAX package takes the
+    journal's count for the budget and the checkpoint's step for the
+    cursor, so such a task trains the lost interval's batches twice over
+    its total (``ROADMAP.md``, queue 3). Here the difference is journaled as
+    one more ``task_progress`` record, so that the journal counts every
+    batch of the checkpoint exactly once; it is negative where the
+    checkpoint is behind (a process killed before its last write landed),
+    since those batches run again."""
+    out = []
+    for t in task_list:
+        if t.name in state.completed:
+            completed.append(t.name)
+            logger.info("resume: %s already completed durably; skipping", t.name)
+            continue
+        if t.name in state.failed:
+            failed[t.name] = state.failed[t.name]
+            logger.info("resume: %s failed durably; not retrying", t.name)
+            continue
+        realized = journaled = state.progress.get(t.name, 0)
+        step = _checkpoint_step(t, sound)
+        if step is not None:
+            realized = step
+            if step != journaled:
+                journal.append("task_progress", task=t.name, batches=step - journaled)
+                logger.info("resume: %s's checkpoint is at step %d, the journal at %d",
+                            t.name, step, journaled)
+        if realized > 0:
+            t.total_batches = max(0, t.total_batches - realized)
+            for s in t.strategies.values():
+                if s.feasible:
+                    s.runtime = s.per_batch_time * t.total_batches
+            logger.info("resume: %s realized %d batch(es); %d remain", t.name, realized,
+                        t.total_batches)
+            if t.total_batches <= 0:
+                completed.append(t.name)
+                continue
+        out.append(t)
+    return out
+
+
+def _recover(journal, task_list, completed, failed):
+    """Replay the journal just opened on ``journal.root`` (its torn tail
+    already quarantined): audit the committed plan, verify the checkpoints
+    of the tasks still to run, fold the state into ``task_list`` and
+    journal a ``recovery`` record. Returns the tasks to run and the
+    replayed state."""
+    state = rmod.replay_batch_state(journal.root)
+    if state.plan:
+        _audit_replayed_plan(journal, state.plan)
+    live = {t.name for t in task_list} - set(state.completed) - set(state.failed)
+    sound = set(rmod.reconcile_checkpoints(
+        {n: p for n, p in state.checkpoints.items() if n in live}).values()) - {None}
+    task_list = _fold_batch_recovery(task_list, state, completed, failed, sound, journal)
+    journal.log("recovery", replayed_seq=state.last_seq, replayed_records=state.n_records,
+                completed=len(completed), remaining=len(task_list))
+    return task_list, state
+
+
+def _shutdown(journal, hook, unwinding: bool) -> None:
+    """Every exit but a simulated kill: wait for the checkpoint writes in
+    flight (their ``ckpt_published`` records still reach the journal), then
+    unhook and close the journal, which commits what is buffered. On an
+    error unwind a failed write is logged, not raised over the error."""
+    try:
+        ckpt.flush()
+    except Exception:
+        if not unwinding:
+            raise
+        logger.exception("a checkpoint write failed during the error unwind")
+    finally:
+        if hook is not None:
+            ckpt.remove_publish_hook(hook)
+        if journal is not None:
+            journal.close()
+
+
 def orchestrate(
     task_list: List,
     log: bool = False,
@@ -133,13 +266,27 @@ def orchestrate(
     checkpoint, then evicts it. ``metrics_path`` appends JSONL events
     (``utils/metrics.py``).
 
+    ``resume_dir`` is a write-ahead journal directory (``durability/``).
+    Each interval's realized batches, the adopted plans, completions,
+    failures, checkpoint publications and the guardian's transitions are
+    group-committed there. Running ``orchestrate(resume_dir=...)`` again
+    after a crash replays it (a torn tail is quarantined and the journal
+    rolled back to its last durable cut): tasks the journal records as
+    completed or failed do not run, and every other task runs only what it
+    has not realized (its checkpoint's step, or without a checkpoint the
+    journal's count). ``crash_barrier`` (a ``CrashInjector.barrier``, for
+    tests) threads kill points into the journal and the loop; it needs
+    ``resume_dir``.
+
     A ``TrainingGuardian`` runs by default (``health_guardian=False``
     disables it; a caller's guardian is used as it is): the sentinel
     screens every interval's losses, the engine's watchdog deadlines every
     launcher, and a training fault rolls the task back to its last
     checkpoint and retries it after a backoff (quarantining batches that
     fault again, evicting past the guardian's budget), apart from
-    ``max_task_retries``. ``recovery_policy`` and ``replan_degrade_factor``
+    ``max_task_retries``. Its transitions are journaled under
+    ``resume_dir``, and a resumed run re-applies the journaled quarantine
+    skip-lists. ``recovery_policy`` and ``replan_degrade_factor``
     only act under the health monitor, a later item, as in the JAX package.
 
     Returns ``{"completed": [names], "failed": {name: error string}}``.
@@ -151,8 +298,10 @@ def orchestrate(
             f"failure_policy must be 'raise', 'drop' or 'retry', got {failure_policy!r}"
         )
     _refuse(trace_dir=trace_dir, fault_injector=fault_injector,
-            health_monitor=health_monitor, resume_dir=resume_dir,
-            crash_barrier=crash_barrier)
+            health_monitor=health_monitor)
+    if crash_barrier is not None and resume_dir is None:
+        raise ValueError("crash_barrier requires resume_dir (it instruments the "
+                         "durability journal)")
     # where no injector is given, the JAX package builds one from this variable
     if os.environ.get("SATURN_TPU_FAULTS", "").strip():
         raise NotImplementedError(
@@ -170,29 +319,67 @@ def orchestrate(
                 f"task {t.name} has no profiled strategies — run search first"
             )
     tlimit = solver_time_limit if solver_time_limit is not None else interval / 2
-    guardian = None
-    if health_guardian is not False:
-        guardian = health_guardian if health_guardian is not None else TrainingGuardian()
+    task_list = list(task_list)
+    completed: List[str] = []
+    failed: Dict[str, str] = {}
+    journal = hook = None
     try:
         with metrics.scoped(metrics_path):
-            return _orchestrate_loop(list(task_list), topo, interval, threshold, tlimit,
-                                     failure_policy, max_task_retries, guardian)
-    finally:
-        # every exit path waits for the checkpoint writes in flight, so a
-        # caller that catches a failure still finds the landed checkpoints
-        ckpt.flush()
+            recovered = None
+            if resume_dir is not None:
+                journal = jmod.Journal(resume_dir, barrier=crash_barrier)
+                task_list, recovered = _recover(journal, task_list, completed, failed)
+
+                def hook(task_name, path):  # from the writer thread: the next commit
+                    journal.append("ckpt_published", task=task_name, path=path)
+
+                ckpt.add_publish_hook(hook)
+            guardian = None
+            if health_guardian is not False:
+                guardian = (health_guardian if health_guardian is not None
+                            else TrainingGuardian(journal=journal))
+                if guardian.journal is None:
+                    guardian.journal = journal
+                if recovered is not None:
+                    guardian.restore(recovered.quarantined, recovered.detached, task_list)
+            out = _orchestrate_loop(task_list, topo, interval, threshold, tlimit,
+                                    failure_policy, max_task_retries, guardian, journal,
+                                    completed, failed)
+    except SimulatedKill:
+        # a SIGKILL runs no handler: no checkpoint flush, no journal commit
+        # or close; what was buffered dies, and the next incarnation recovers
+        if hook is not None:
+            ckpt.remove_publish_hook(hook)
+        raise
+    except BaseException:
+        _shutdown(journal, hook, unwinding=True)
+        raise
+    # every other exit waits for the checkpoint writes in flight, so a
+    # caller (or a caller that catches a failure) finds them landed
+    _shutdown(journal, hook, unwinding=False)
+    return out
 
 
 def _orchestrate_loop(task_list, topo, interval, threshold, tlimit, failure_policy,
-                      max_task_retries, guardian) -> dict:
-    completed_names: List[str] = []
-    failed: Dict[str, str] = {}
+                      max_task_retries, guardian, journal, completed_names, failed) -> dict:
     retries: Dict[str, int] = {}
+    if not task_list:  # a resumed run whose journal holds every task terminal
+        logger.info("orchestration complete (%d completed, %d failed)",
+                    len(completed_names), len(failed))
+        return {"completed": completed_names, "failed": failed}
     plan = anytime.anytime_resolve(task_list, topo, None, interval, deadline=tlimit,
                                    source="orchestrator-initial")
     analysis.verify_or_raise(plan, topology=topo, tasks=task_list, source="fresh-solve")
     logger.info("initial plan: makespan %.1fs, %d tasks", plan.makespan, len(task_list))
     metrics.event("solve", makespan_s=plan.makespan, n_tasks=len(task_list))
+    on_done = None
+    if journal is not None:
+        journal.append("plan_commit", interval=0, makespan=plan.makespan,
+                       plan=plan.to_json())
+
+        def on_done(name, n):  # from a launcher thread; durable at the interval's end
+            if n > 0:
+                journal.append("task_progress", task=name, batches=int(n))
 
     interval_index = 0
     # tasks the guardian parked for a backoff: out of the forecast and the
@@ -215,12 +402,14 @@ def _orchestrate_loop(task_list, topo, interval, threshold, tlimit, failure_poli
             errors = engine.execute(
                 run_tasks, batches, interval, plan, topo,
                 failure_policy="raise" if failure_policy == "raise" else "drop",
-                guardian=guardian,
+                guardian=guardian, on_task_done=on_done,
             )
             if guardian is not None:
                 for t in run_tasks:
                     if t.name not in errors:
                         guardian.note_success(t.name)
+            if journal is not None:
+                journal.barrier("mid-interval", interval=interval_index)
         else:
             logger.info("idle interval: no task starts within %.1fs", interval)
 
@@ -240,6 +429,10 @@ def _orchestrate_loop(task_list, topo, interval, threshold, tlimit, failure_poli
             completed = [c for c in completed if c is not t]
             if guardian is not None and guardian.owns(err):
                 decision = guardian.on_fault(t, err, interval_index)
+                if journal is not None:
+                    # the quarantine record is durable already: a kill here
+                    # must find it on replay
+                    journal.barrier("post-rollback", task=name, interval=interval_index)
                 if decision.action == "retry":
                     parked.append(t)
                     logger.warning("task %s health fault (%s, attempt %d) — rolled "
@@ -257,23 +450,34 @@ def _orchestrate_loop(task_list, topo, interval, threshold, tlimit, failure_poli
                                    retries[name], max_task_retries + 1, err)
                     continue
             failed[name] = repr(err)
+            if journal is not None:
+                journal.append("task_failed", task=name, error=repr(err))
             metrics.event("task_failed", task=name, error=repr(err))
             logger.error("evicting task %s: %r", name, err)
             _finish(t)
 
-        for t in completed:
-            completed_names.append(t.name)
-            metrics.event("task_completed", task=t.name)
-            _finish(t)
         task_list = remaining
         if task_list:
             plan = _gate_resolved_plan(
                 anytime.anytime_resolve(task_list, topo, plan, interval, threshold,
                                         deadline=tlimit, source="orchestrator"),
-                plan, topo, task_list, interval,
+                plan, topo, task_list, interval, journal, interval_index,
             )
             logger.info("re-solve: makespan %.1fs", plan.makespan)
             metrics.event("solve", makespan_s=plan.makespan, n_tasks=len(task_list))
+            if journal is not None:
+                journal.append("plan_commit", interval=interval_index + 1,
+                               makespan=plan.makespan, plan=plan.to_json())
+        for t in completed:
+            completed_names.append(t.name)
+            if journal is not None:
+                journal.append("task_completed", task=t.name)
+            metrics.event("task_completed", task=t.name)
+            _finish(t)
+        if journal is not None:
+            # one group commit for the interval's progress, plan and verdicts
+            journal.append("interval_commit", interval=interval_index)
+            journal.commit()
         metrics.flush()
         interval_index += 1
     logger.info("orchestration complete (%d completed, %d failed)",

@@ -22,12 +22,16 @@ resets the streak via :meth:`TrainingGuardian.note_success`):
    evicted through the caller's failure path.
 
 Every transition is a ``health`` metrics event with the JAX package's
-stable ``SAT-H*`` codes. Only training faults are the guardian's
-(:meth:`TrainingGuardian.owns`): a kernel that does not build or launch is
-an ordinary failure and reaches the caller. The JAX package also journals
-each transition, replays the journal (``restore``) and detaches repeat
-offenders from co-schedule groups; the port has neither a journal nor
-co-scheduling yet, so those parts wait for them.
+stable ``SAT-H*`` codes and, given a durability journal, a journal record
+with the JAX package's fields: ``health_fault`` and ``health_backoff`` ride
+the next group commit, ``health_quarantine`` commits at once (a kill
+during the rollback that follows must replay it, or the restart faults on
+the same batch again). :meth:`TrainingGuardian.restore` re-applies the
+replayed skip-lists to the rebuilt tasks. Only training faults are the
+guardian's (:meth:`TrainingGuardian.owns`): a kernel that does not build or
+launch is an ordinary failure and reaches the caller. The JAX package also
+detaches repeat offenders from co-schedule groups; the port has no
+co-scheduling yet, so that part waits for it.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import logging
 import os
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 from saturn_tpu_torch.health.sentinel import NumericFaultError
 from saturn_tpu_torch.utils import metrics
@@ -128,8 +132,10 @@ class TrainingGuardian:
     interval barrier; the ledgers are guarded by a leaf lock because read
     paths (``benched``) may be reached from other threads."""
 
-    def __init__(self, config: Optional[GuardianConfig] = None):
+    def __init__(self, config: Optional[GuardianConfig] = None, journal=None):
         self.config = config if config is not None else GuardianConfig.from_env()
+        # a durability.Journal; the orchestrator sets it for a run with resume_dir
+        self.journal = journal
         self._mu = threading.Lock()
         # (task, cause) -> consecutive faults; cleared by note_success.
         self._streak: Dict[Tuple[str, str], int] = {}
@@ -179,6 +185,8 @@ class TrainingGuardian:
             "health", code=code, task=task.name, cause=cause,
             attempt=streak, interval=interval_index,
         )
+        self._journal("health_fault", task=task.name, cause=cause, attempt=streak,
+                      interval=interval_index, error=repr(err))
 
         quarantined: Tuple[int, ...] = ()
         if (
@@ -216,6 +224,8 @@ class TrainingGuardian:
             "health", code=HEALTH_EVENT_CODES["backoff"], task=task.name,
             cause=cause, attempt=streak, cooldown_intervals=cooldown,
         )
+        self._journal("health_backoff", task=task.name, cause=cause, attempt=streak,
+                      cooldown_intervals=cooldown, resume_interval=resume_at)
         logger.warning(
             "guardian: %s fault #%d on %s — rolled back, retrying after "
             "%d-interval backoff%s", cause, streak, task.name, cooldown,
@@ -233,7 +243,8 @@ class TrainingGuardian:
 
     # ---------------------------------------------------------- quarantine
     def quarantine(self, task: Any, indices: Iterable[int]) -> Tuple[int, ...]:
-        """Add dataset indices to the task's skip-list."""
+        """Add dataset indices to the task's skip-list; journaled with an
+        immediate commit."""
         idx = tuple(sorted({int(i) for i in indices}))
         if not idx:
             return ()
@@ -250,8 +261,9 @@ class TrainingGuardian:
             "health", code=HEALTH_EVENT_CODES["quarantine"], task=task.name,
             batches=list(idx),
         )
+        self._journal("health_quarantine", durable=True, task=task.name,
+                      indices=list(idx))
         return idx
-
 
     # -------------------------------------------------------------- parking
     def benched(self, name: str, interval_index: int) -> bool:
@@ -269,3 +281,27 @@ class TrainingGuardian:
     def resume_interval(self, name: str) -> Optional[int]:
         with self._mu:
             return self._benched.get(name)
+
+    # ------------------------------------------------------------- recovery
+    def restore(self, quarantined: Dict[str, List[int]], detached: Iterable[str],
+                tasks: Iterable[Any] = ()) -> None:
+        """Re-apply journaled health state after a crash: the quarantine
+        skip-lists onto the rebuilt tasks. ``detached`` (the JAX package's
+        co-schedule detach set) has no reader until the port co-schedules.
+        Streaks and backoffs start over, as in the JAX package: an
+        incarnation boundary is a clean slate for counting faults."""
+        by_name = {t.name: t for t in tasks}
+        for name, idx in (quarantined or {}).items():
+            t = by_name.get(name)
+            if t is not None and idx:
+                t.quarantine_batches(idx)
+                logger.info("recovery: re-applied the quarantine of %d batch(es) to %s",
+                            len(idx), name)
+
+    def _journal(self, kind: str, durable: bool = False, **data) -> None:
+        if self.journal is None:
+            return
+        if durable:
+            self.journal.log(kind, **data)
+        else:
+            self.journal.append(kind, **data)

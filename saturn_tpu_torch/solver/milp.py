@@ -58,6 +58,37 @@ class Plan:
                         deps[n1].append(n2)
         self.dependencies = deps
 
+    def to_json(self) -> dict:
+        """The JAX package's dict form (``plan_commit`` journal records), with
+        its co-schedule and fused groups empty: the port forms neither."""
+        return {
+            "makespan": self.makespan,
+            "assignments": {
+                n: [a.apportionment, a.block.offset, a.block.size, a.start, a.runtime]
+                for n, a in self.assignments.items()
+            },
+            "dependencies": self.dependencies,
+            "coschedule": [],
+            "fused": [],
+        }
+
+    @staticmethod
+    def from_json(d: dict) -> "Plan":
+        """A plan from :meth:`to_json`'s form, the JAX package's included.
+        Raises ``ValueError`` on co-schedule or fused groups, which the port
+        cannot run."""
+        for key in ("coschedule", "fused"):
+            if d.get(key):
+                raise ValueError(f"plan has {key} groups {d[key]}: the port runs neither")
+        return Plan(
+            assignments={
+                n: Assignment(int(app), Block(int(off), int(size)), float(st), float(rt))
+                for n, (app, off, size, st, rt) in d["assignments"].items()
+            },
+            makespan=float(d["makespan"]),
+            dependencies={k: list(v) for k, v in d["dependencies"].items()},
+        )
+
 
 class DeviceTimeline:
     """Per-device busy intervals with the earliest-free-slot rule (the

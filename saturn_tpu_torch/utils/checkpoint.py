@@ -4,14 +4,25 @@ Counterpart of ``saturn_tpu/utils/checkpoint.py``. The state holds the model
 (``params``, an ``nn.Module``), the optimizer (``opt_state``) and the step
 count; a checkpoint holds their ``state_dict``s and the step, written to a
 temporary file and renamed over ``task.ckpt_path`` so a reader never sees a
-half-written file.
+half-written file. That rename is the commit point: a publish hook
+(``add_publish_hook``, the durability journal's ``ckpt_published``) is
+called after it, and the crash harness's ``pre-manifest-rename`` barrier
+(``set_crash_barrier``) is crossed just before it, by the synchronous
+``save`` only: a kill raised inside ``save_async``'s writer thread could not
+end the process it simulates.
 
 ``save_async`` takes the host copy at the call and leaves the disk write to
 a thread, one in-flight write per path: every ``load``, ``restore``, second
 write and ``exists`` of that path waits for it first, and a failed write
 re-raises there (or at ``flush``), so a checkpoint that never reached the
-disk is never reported as saved. The JAX package's sharded manifest format
-and publish hooks are later items.
+disk is never reported as saved.
+
+A ``torch.save`` file is a zip archive with a CRC32 per member: ``verify``
+checks its central directory and every member's CRC without loading a
+tensor; ``load`` and ``restore`` move a file they cannot read to a
+``.corrupt`` sidecar (``quarantine``) and raise
+:class:`CheckpointCorruptError`. The JAX package's sharded manifest format
+is a later item; the single-file format has no ``mid-shard-write`` edge.
 """
 
 from __future__ import annotations
@@ -19,7 +30,8 @@ from __future__ import annotations
 import logging
 import os
 import threading
-from typing import Any, Dict
+import zipfile
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -38,10 +50,95 @@ def _payload(state: Dict[str, Any]) -> Dict[str, Any]:
     }
 
 
-def _write(path: str, payload: Dict[str, Any]) -> None:
+class CheckpointCorruptError(RuntimeError):
+    """A checkpoint exists on disk and cannot be read back. The file has
+    already been moved to a ``.corrupt`` sidecar when this is raised."""
+
+    def __init__(self, path: str, quarantined: str, cause: str):
+        self.path = path
+        self.quarantined = quarantined
+        super().__init__(f"checkpoint {path} is corrupt ({cause}); quarantined to "
+                         f"{quarantined}")
+
+
+def quarantine(path: str) -> str:
+    """Rename an unreadable checkpoint to the first free sidecar of
+    ``.corrupt``, ``.corrupt.1``, ... and return it (the path itself, the
+    file left in place, if the rename fails)."""
+    sidecar, n = path + ".corrupt", 0
+    while os.path.exists(sidecar):
+        n += 1
+        sidecar = f"{path}.corrupt.{n}"
+    try:
+        os.replace(path, sidecar)
+    except OSError:
+        log.exception("failed to quarantine %s", path)
+        return path
+    return sidecar
+
+
+def verify(path: str) -> bool:
+    """Whether ``path`` is a sound ``torch.save`` archive: its zip central
+    directory parses, it holds a ``data.pkl`` record, and every member's
+    CRC32 matches its bytes. Reads the file once and loads no tensor. False
+    for a missing, truncated or corrupt file; never raises."""
+    try:
+        with zipfile.ZipFile(path) as zf:
+            if not any(n.endswith("/data.pkl") for n in zf.namelist()):
+                return False
+            return zf.testzip() is None
+    except Exception:
+        return False
+
+
+_CRASH_BARRIER: Optional[Callable[[str, Dict[str, Any]], None]] = None
+_PUBLISH_HOOKS: List[Callable[[str, str], None]] = []
+
+
+def set_crash_barrier(cb: Optional[Callable[[str, Dict[str, Any]], None]]) -> None:
+    """Install (``None`` clears) the crash harness's callback, called as
+    ``cb("pre-manifest-rename", ctx)`` by ``save`` just before its rename."""
+    global _CRASH_BARRIER
+    _CRASH_BARRIER = cb
+
+
+def add_publish_hook(hook: Callable[[str, str], None]) -> None:
+    """Call ``hook(stem, absolute path)`` after every checkpoint lands, from
+    the thread that wrote it (the writer thread for ``save_async``). A hook
+    must be cheap; one that raises is logged and skipped."""
+    _PUBLISH_HOOKS.append(hook)
+
+
+def remove_publish_hook(hook: Callable[[str, str], None]) -> None:
+    try:
+        _PUBLISH_HOOKS.remove(hook)
+    except ValueError:
+        pass
+
+
+def _notify_published(path: str) -> None:
+    stem = os.path.splitext(os.path.basename(path))[0]
+    for hook in list(_PUBLISH_HOOKS):
+        try:
+            hook(stem, os.path.abspath(path))
+        except Exception:
+            log.exception("checkpoint publish hook failed for %s", path)
+
+
+def _write(path: str, payload: Dict[str, Any], barrier: bool = False) -> None:
+    """Write ``payload`` to a temporary file and rename it over ``path``;
+    ``barrier``: cross the crash harness's ``pre-manifest-rename`` first."""
     tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
-    torch.save(payload, tmp)
-    os.replace(tmp, path)
+    try:
+        torch.save(payload, tmp)
+        cb = _CRASH_BARRIER
+        if barrier and cb is not None:
+            cb("pre-manifest-rename", {"path": path, "tmp": tmp})
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    _notify_published(path)
 
 
 def _to_host(obj):
@@ -72,7 +169,7 @@ def _to_host(obj):
 
 def save(path: str, state: Dict[str, Any]) -> None:
     _wait_pending(path)
-    _write(path, _payload(state))
+    _write(path, _payload(state), barrier=True)
 
 
 def _wait_pending(path: str) -> None:
@@ -135,9 +232,26 @@ def exists(path: str) -> bool:
 
 def load(path: str, map_location="cpu") -> Dict[str, Any]:
     """The saved payload: ``{"params": state_dict, "opt_state":
-    optimizer state_dict, "step": int}``."""
+    optimizer state_dict, "step": int}``. A missing file raises
+    ``FileNotFoundError``; one that ``torch.load`` cannot read is
+    quarantined and raises :class:`CheckpointCorruptError` (a bit flip in a
+    tensor's bytes passes ``torch.load``: ``verify`` finds it)."""
     _wait_pending(path)
-    return torch.load(path, map_location=map_location, weights_only=True)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no checkpoint at {path}")
+    try:
+        return torch.load(path, map_location=map_location, weights_only=True)
+    except Exception as e:
+        sidecar = quarantine(path)
+        log.warning("checkpoint %s unreadable (%r); quarantined to %s", path, e, sidecar)
+        raise CheckpointCorruptError(path, sidecar, repr(e)) from e
+
+
+def saved_step(path: str) -> int:
+    """The step count of a checkpoint, its tensors memory-mapped and left
+    unread."""
+    _wait_pending(path)
+    return int(torch.load(path, map_location="cpu", weights_only=True, mmap=True)["step"])
 
 
 def restore(path: str, state: Dict[str, Any]) -> Dict[str, Any]:

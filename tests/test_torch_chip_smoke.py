@@ -570,3 +570,145 @@ def test_sweep_events_read_back(smoke, tmp_path, trail, error):
     else:
         with pytest.raises(AssertionError, match=error):
             smoke.sweep_events(path, "sick", 12)
+
+
+# ------------------------------------------------------------- phase 7
+def _payload(seed=0):
+    """A small GPT-2-shaped checkpoint payload: a module's and an AdamW's
+    state dicts after one step, and the step count."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    model = torch.nn.Sequential(torch.nn.Linear(6, 4), torch.nn.Linear(4, 3))
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=g))
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4)
+    model(torch.randn(5, 6, generator=g)).square().sum().backward()
+    opt.step()
+    return {"params": model.state_dict(), "opt_state": opt.state_dict(), "step": 16}
+
+
+def _plant(payload, fault):
+    import torch
+
+    if fault == "a parameter off by one ulp":
+        w = payload["params"]["1.weight"]
+        w[0, 0] = torch.nextafter(w[0, 0], torch.tensor(float("inf")))
+    elif fault == "a second moment off by one ulp":
+        v = payload["opt_state"]["state"][0]["exp_avg_sq"]
+        v[1, 2] = torch.nextafter(v[1, 2], torch.tensor(0.0))
+    elif fault == "the step":
+        payload["step"] = 19
+    elif fault == "an optimizer step count":
+        payload["opt_state"]["state"][2]["step"] += 1
+    elif fault == "a missing moment entry":
+        del payload["opt_state"]["state"][3]
+    return payload
+
+
+@pytest.mark.parametrize("fault,error", [
+    (None, None),
+    ("a parameter off by one ulp", r"params\[1.weight\] differs"),
+    ("a second moment off by one ulp", r"opt_state\[0\]\[exp_avg_sq\] differs"),
+    ("the step", "step 19, want 16"),
+    ("an optimizer step count", r"opt_state\[2\]\[step\] differs"),
+    ("a missing moment entry", "different entries"),
+])
+def test_check_same_state_is_bitwise(smoke, fault, error):
+    """The kill chain's final checkpoint against the reference run's: any
+    difference, one ulp included, fails."""
+    want, got = _payload(), _plant(_payload(), fault)
+    if error is None:
+        smoke.check_same_state("kill-lr0", want, got)
+    else:
+        with pytest.raises(AssertionError, match=error):
+            smoke.check_same_state("kill-lr0", want, got)
+
+
+@pytest.mark.parametrize("progress,error", [
+    ({"kill-lr0": 16, "kill-lr1": 16}, None),
+    ({"kill-lr0": 22, "kill-lr1": 16}, "journaled progress"),  # a lost interval counted twice
+    ({"kill-lr0": 10, "kill-lr1": 16}, "journaled progress"),  # a lost interval not counted
+    ({"kill-lr1": 16}, "journaled progress"),
+])
+def test_check_progress_counts_each_batch_once(smoke, progress, error):
+    want = {"kill-lr0": 16, "kill-lr1": 16}
+    if error is None:
+        smoke.check_progress(progress, want)
+    else:
+        with pytest.raises(AssertionError, match=error):
+            smoke.check_progress(progress, want)
+
+
+@pytest.mark.parametrize("after,error", [
+    (2**30, None),
+    (2**30 + 256 * 2**20, None),
+    (2**30 + 256 * 2**20 + 1, "after the kill"),
+    (7 * 2**30, "after the kill"),  # a killed incarnation's train states still held
+])
+def test_check_memory_after_a_kill(smoke, after, error):
+    if error is None:
+        smoke.check_memory("after the kill at mid-fsync", after, 2**30)
+    else:
+        with pytest.raises(AssertionError, match=error):
+            smoke.check_memory("after the kill at mid-fsync", after, 2**30)
+
+
+def _kill_chain_journal(root, fault=None):
+    """A three-incarnation journal as phase 7 leaves it, with ``fault``."""
+    from saturn_tpu_torch.durability import Journal
+    from saturn_tpu_torch.resilience import CrashInjector, SimulatedKill
+
+    kinds = ("plan_commit", "task_progress", "ckpt_published", "interval_commit",
+             "task_completed")
+    for n in range(3):
+        inj = CrashInjector("mid-fsync", hit=2) if n == 0 else None
+        j = Journal(root, barrier=inj.barrier if inj else None)
+        j.log("recovery")
+        for kind in kinds:
+            if kind != fault:
+                j.append(kind, task="kill-lr0")
+        try:
+            j.commit()
+        except SimulatedKill:
+            continue
+        j.close()
+    if fault == "no sidecar":
+        for name in os.listdir(root):
+            if ".corrupt" in name:
+                os.unlink(os.path.join(root, name))
+    if fault == "a seq gap":
+        seg = os.path.join(root, "wal-000003.jsonl")
+        with open(seg, "rb") as f:
+            lines = f.read().splitlines(keepends=True)
+        with open(seg, "wb") as f:
+            f.writelines(lines[:1] + lines[2:])
+
+
+@pytest.mark.parametrize("fault,error", [
+    (None, None),
+    ("task_completed", "missing"),
+    ("no sidecar", "no .corrupt sidecar"),
+    ("a seq gap", "corrupt or torn"),
+])
+def test_check_kill_journal(smoke, tmp_path, fault, error):
+    root = str(tmp_path / "B")
+    _kill_chain_journal(root, fault)
+    if error is None:
+        kinds = smoke.check_kill_journal(root, 3)
+        assert kinds["recovery"] == 3
+        with pytest.raises(AssertionError, match="want 4 recovery records"):
+            smoke.check_kill_journal(root, 4)
+    else:
+        with pytest.raises(Exception, match=error):
+            smoke.check_kill_journal(root, 3)
+
+
+def test_call_times_wraps_and_restores(smoke):
+    holder = SimpleNamespace(f=lambda x: x + 1)
+    f = holder.f
+    with smoke.CallTimes(f=(holder, "f")) as timer:
+        assert holder.f(1) == 2 and holder.f(2) == 3
+        assert holder.f is not f
+    assert holder.f is f and len(timer.seconds["f"]) == 2

@@ -36,6 +36,7 @@ def test_import_leaves_jax_unloaded():
         "saturn_tpu_torch.trial_runner.evaluator, saturn_tpu_torch.native, "
         "saturn_tpu_torch.solver.native_sched, saturn_tpu_torch.solver.anytime, "
         "saturn_tpu_torch.health, saturn_tpu_torch.analysis, "
+        "saturn_tpu_torch.durability, saturn_tpu_torch.resilience, "
         "saturn_tpu_torch.utils.metrics, saturn_tpu_torch.utils.profile_cache\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (FORBIDDEN,)
