@@ -26,7 +26,9 @@ Phases, in order; any failure is an exception and a non-zero exit:
    slab at the main and the five-slab shape; and the shapes of phase 4's
    b8 x 1024 run: the CE head in recompute mode and its ds kernel at N 8192,
    D 768, V 50304 (seven slabs), the flash kernels at B 8, H 12, T 1024,
-   causal. Each
+   causal; and head dim 256, GPT-J-6B's attention in phase 8b: timed at
+   (B 8, H 16, T 512), causal, checked with grouped queries at T 320, causal
+   and not, and on one tile. Each
    kernel's device time, the plain version's and the library call's, all
    read from torch.profiler, and the kernel's bound on the card.
    The library call of a forward kernel is the library's forward (SDPA; the
@@ -116,6 +118,38 @@ Phases, in order; any failure is an exception and a non-zero exit:
    resume's replay, reconcile (with ``verify`` of each checkpoint) and fold
    times, and the chain's time against the reference run's. Its launches
    are logged apart and leave the kernels line as phases 3 and 6 made it.
+8. Host offload (``parallel/offload.py``). a) GPT-2-small b8 x 512 over
+   the logits (an untagged loss), 4 steps one at a time from the seed-0
+   init under offload stream, offload bulk (remat off) and dp: the offload
+   losses within OFFLOAD_REL of dp's (the log says whether bitwise), exact
+   flash launches (12 of each kernel per step, the forward twice in
+   stream mode, which recomputes every block), the host state pinned, and
+   the memory each run holds on the card after its steps under dp's by at
+   least the AdamW moments. b) GPT-J-6B at its published shape (28
+   layers, d_model 4096, 16 heads, d_ff 16384, rotary 64, parallel
+   residual, vocab 50304, b8 x 512, bf16 compute, fp32 params, AdamW; cut
+   in depth only, to 24 layers, where the host has less than
+   HOST_MIN_BYTES of memory available or the save dir less than
+   DISK_MIN_BYTES free, and the facts logged): 8b-1, ``search(["dp",
+   "offload"])`` must find every dp config infeasible by the static screen
+   (no init drawn) and each offload config timed or out of device memory;
+   8b-2, at GPTJ_CKPT_LAYERS (the machine's cap on disk writes a call
+   holds no deeper checkpoint), ``search(["offload"])`` and
+   ``orchestrate`` train the winner for 4 batches to a checkpoint at step
+   4 with exactly one launch of each flash kernel (head dim 256) per layer
+   and step (the forward twice where blocks are recomputed); the
+   checkpoint, restored in place into a fresh host state, holds finite
+   weights, and stream against bulk on it and one batch agree within
+   STREAM_BULK_LOSS_REL (loss) and STREAM_BULK_GRAD_REL (gradients by
+   relative norm); the card's memory returns to where 8b-2 began. c)
+   GPT-J-6B at GPTJ_PARITY_LAYERS over the logits, 4 steps from one seed-0
+   init through each technique's bundle (no checkpoint) under offload
+   stream, offload bulk and dp: offload's losses within OFFLOAD_REL of dp's,
+   exact flash launches. Printed: each step's host->card, compute,
+   card->host and host-update seconds, the peak card memory, the pinned
+   host bytes, the checkpoint's bytes and write seconds, the host states'
+   draw seconds, the trials' kernel launches, and the bytes the run has
+   passed to write calls before 8b-2's checkpoint.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
@@ -133,6 +167,11 @@ builds the kernels and only times flash + fused at b8 x 512 with each
 unit's batch staged inline, as ``execute`` stages it, against staging on a
 second thread one unit ahead, in windows of 8 and one step at a time
 (``chiprun_out/staging_ab.json``).
+
+    python3 chip_smoke.py --offload
+
+builds the kernels, checks them at head dim 256 and runs phase 8
+(``chiprun_out/offload.json``).
 """
 
 from __future__ import annotations
@@ -826,6 +865,22 @@ def flash_sweep(flash):
     return rows
 
 
+#: GPT-J-6B's attention at b8 x 512 (phase 8b's path): B, H, KV, T, D.
+GPTJ_ATTN = (BATCH, 16, 16, SEQ, 256)
+
+
+def check_head_dim_256(flash):
+    """The flash kernels at head dim 256: timed at GPT-J-6B's shape (causal),
+    checked with grouped queries over a ragged walk (T 320), causal and not,
+    and on one tile."""
+    rows = check_kernels(flash, GPTJ_ATTN, True, 16, timed=True)
+    for seed, (shape, causal) in enumerate((((2, 8, 2, 320, 256), True),
+                                            ((2, 8, 2, 320, 256), False),
+                                            ((2, 4, 4, 64, 256), True)), start=17):
+        check_kernels(flash, shape, causal, seed, timed=False)
+    return rows
+
+
 # ------------------------------------------------------------------ phase 3
 def lm_task(sat, name, lr, batch_count, save_dir, model=GPT2, loss_fn=None, wrap=None,
             seq=SEQ, **kwargs):
@@ -1476,12 +1531,12 @@ class CheckedWrites:
         self.writes: list = []  # (path, step) of every write, in order
 
     def __enter__(self):
-        def checked(path, state):
+        def checked(path, state, **kwargs):
             bad = nonfinite(dict(state["params"].named_parameters()))
             if bad:
                 raise AssertionError(f"{path}: a checkpoint write of non-finite weights {bad}")
             self.writes.append((path, int(state["step"])))
-            return self.save(path, state)
+            return self.save(path, state, **kwargs)
 
         self.ckpt.save_async = checked
         return self
@@ -1903,6 +1958,492 @@ def kill_replay_phase(sat, flash, ce, card):
             "seconds": seconds}
 
 
+# ------------------------------------------------------------------ phase 8
+OFFLOAD_STEPS = 4
+OFFLOAD_REL = 1e-4          # offload against dp: the repo's trajectory tolerance, relative
+STREAM_BULK_LOSS_REL = 1e-5  # GPT-J-6B stream against bulk on one state and batch
+STREAM_BULK_GRAD_REL = 1e-3  # the same, gradients by relative norm
+STREAM = {"stream": True, "remat": True}
+BULK = {"stream": False, "remat": False}
+GPTJ = "gptj-6b"
+GPTJ_LAYERS, GPTJ_CUT_LAYERS = 28, 24  # 24: the shallowest whose dp state passes the headroom
+#: The depth of 8b-2, whose run writes a checkpoint of params and AdamW moments
+#: (12 bytes a parameter): the card's machine takes at most 45 GiB of disk writes
+#: a call, deleted files included, and 24 layers' checkpoint is 56.3 GiB. The
+#: run cannot read what is left of that budget (``bytes_written``), so the depth
+#: is the one a whole run has been seen to pass at.
+GPTJ_CKPT_LAYERS = 4
+#: The depth of 8c, GPT-J-6B offload against dp: dp's state (15.1 GiB) fits the card.
+GPTJ_PARITY_LAYERS = 4
+HOST_MIN_BYTES = 100 * 2**30  # host memory free for 28 layers' 65.3 GiB state, grads and the rest
+DISK_MIN_BYTES = 75e9         # disk free at the save dir for one 28-layer checkpoint (70 GB)
+
+
+def host_facts(free_text: str, nproc_text: str, df_text: str) -> dict:
+    """The host's memory (``free -b``), cores (``nproc``) and free disk
+    (``df -B1 --output=avail DIR``) as numbers: bytes and a count."""
+    lines = [ln.split() for ln in free_text.strip().splitlines()]
+    header = lines[0]
+    mem = next(ln for ln in lines if ln[0] == "Mem:")
+    values = dict(zip(header, (int(v) for v in mem[1:])))
+    return {"mem_total": values["total"], "mem_available": values["available"],
+            "cores": int(nproc_text.strip()),
+            "disk_free": int(df_text.strip().splitlines()[-1].strip())}
+
+
+def gptj_depth(facts: dict):
+    """GPT-J-6B's depth on this host and why it was cut (None if not): 28
+    layers where the host holds the offload state and its checkpoint, else
+    24."""
+    short = []
+    if facts["mem_available"] < HOST_MIN_BYTES:
+        short.append(f"{facts['mem_available'] / 2**30:.1f} GiB of host memory available, "
+                     f"under {HOST_MIN_BYTES / 2**30:.0f} GiB")
+    if facts["disk_free"] < DISK_MIN_BYTES:
+        short.append(f"{facts['disk_free'] / 1e9:.1f} GB of disk free at the save dir, "
+                     f"under {DISK_MIN_BYTES / 1e9:.0f} GB")
+    return (GPTJ_CUT_LAYERS, "; ".join(short)) if short else (GPTJ_LAYERS, None)
+
+
+SPLIT_KEYS = ("h2d_s", "compute_s", "d2h_s", "update_s", "step_s")
+
+
+def split_summary(splits) -> dict:
+    """Per-step lines and medians of offload steps' time splits
+    (``HostOffload.splits`` records)."""
+    lines = [f"step {r['step']}: host->card {r['h2d_s']:.3f}s ({r['h2d_bytes'] / 1e9:.2f} GB), "
+             f"compute {r['compute_s']:.3f}s, card->host {r['d2h_s']:.3f}s "
+             f"({r['d2h_bytes'] / 1e9:.2f} GB), host update {r['update_s']:.3f}s, "
+             f"step {r['step_s']:.3f}s" for r in splits]
+    median = {k: float(np.median([r[k] for r in splits])) if splits else None for k in SPLIT_KEYS}
+    return {"lines": lines, "median": median, "steps": len(splits)}
+
+
+def rel_diff(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def want_offload_launches(recompute: bool, steps: int, layers: int = LAYERS) -> dict:
+    """Flash launches of ``steps`` steps over the logits: one of each kernel
+    per layer, the forward twice where the blocks are recomputed."""
+    want = {n: layers * steps for n in FLASH_NAMES}
+    want["flash_fwd"] *= 2 if recompute else 1
+    want.update({n: 0 for n in CE_NAMES})
+    return want
+
+
+def bytes_written() -> int:
+    """Bytes this process has passed to write calls so far (``wchar`` of
+    ``/proc/self/io``), deleted files included. The chip machine counts a
+    call's disk writes on its host, where the run cannot read them."""
+    with open("/proc/self/io") as f:
+        return next(int(line.split()[1]) for line in f if line.startswith("wchar:"))
+
+
+def parity_programs():
+    """(label, technique class, config, whether the blocks are recomputed)
+    of the offload-against-dp runs over the logits."""
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.parallel.offload import HostOffload
+
+    return (("offload-stream", HostOffload, STREAM, True),
+            ("offload-bulk", HostOffload, BULK, False),
+            ("dp-logits", DataParallel, {"remat": False}, False))
+
+
+def offload_parity(sat, flash, ce, card):
+    """Phase 8a: offload stream and bulk against dp over the logits at
+    GPT-2-small, b8 x 512, from one seed-0 init, one step at a time."""
+    import gc
+
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    dev = torch.device(DEVICE, 0)
+    runs = {}
+    for label, cls, config, recompute in parity_programs():
+        task = lm_task(sat, f"parity-{label}", 6e-4, OFFLOAD_STEPS,
+                       os.path.join(CKPTS, "parity", label), loss_fn=untagged_loss)
+        tech = cls()
+        task.strategies[1] = sat.Strategy(tech, 1, config, 0.0)
+        task.select_strategy(1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        reset_counts(flash, ce)
+        t0 = time.perf_counter()
+        tech.execute(task, [dev], 0, override_batch_count=OFFLOAD_STEPS, window_size=1)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = counts(flash, ce)
+        want = want_offload_launches(recompute, OFFLOAD_STEPS)
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, want {want}")
+        state = task._live_state[1]
+        held = torch.cuda.memory_allocated(dev) - base
+        run = {"losses": task.last_losses, "launches": got, "held_bytes": held,
+               "seconds": seconds, "ms_per_step": task.last_per_batch_s * 1e3}
+        if "host" in state:
+            host = state["host"]
+            if not host.pinned() or not next(state["params"].parameters()).is_pinned():
+                raise AssertionError(f"{label}: the host state is not pinned")
+            run.update(pinned_bytes=host.nbytes(),
+                       splits=split_summary([r for r in tech.splits if r["task"] == task.name]))
+        runs[label] = run
+        log(f"  {label} {config}: losses {np.round(task.last_losses, 5).tolist()}, "
+            f"{run['ms_per_step']:.1f} ms/step, launches {got}, "
+            f"{held / 2**30:.3f} GiB held on the card after the steps"
+            + (f", {run['pinned_bytes'] / 2**30:.2f} GiB pinned on the host" if "host" in state
+               else "") + f"  [{card}]")
+        for line in run.get("splits", {}).get("lines", []):
+            log(f"    {line}  [{card}]")
+        task.release_live_state()
+        task.release_compiled()
+        ckpt.flush()
+    ref = runs["dp-logits"]
+    n_params = sum(p.numel() for p in lm_task(
+        sat, "parity-count", 6e-4, 1, CKPTS).get_model().abstract_init().parameters())
+    moments = 2 * 4 * n_params
+    for label in ("offload-stream", "offload-bulk"):
+        diff = rel_diff(runs[label]["losses"], ref["losses"])
+        bitwise = runs[label]["losses"] == ref["losses"]
+        if not diff <= OFFLOAD_REL:
+            raise AssertionError(f"{label}: losses {runs[label]['losses']} against dp's "
+                                 f"{ref['losses']}: {diff:.3e} relative, over {OFFLOAD_REL:g}")
+        below = ref["held_bytes"] - runs[label]["held_bytes"]
+        if below < moments:
+            raise AssertionError(f"{label} holds {runs[label]['held_bytes']} bytes on the card "
+                                 f"after its steps, dp {ref['held_bytes']}: under dp's by less "
+                                 f"than the AdamW moments ({moments})")
+        runs[label].update(loss_rel_diff=diff, bitwise=bitwise)
+        log(f"  {label} against dp over the logits: max relative loss difference {diff:.3e}"
+            f" ({'bitwise equal' if bitwise else 'not bitwise'}); {below / 1e9:.2f} GB less "
+            f"held on the card than dp (AdamW moments {moments / 1e9:.2f} GB)")
+    return runs
+
+
+class TechniqueSearches:
+    """Every technique instance whose ``search`` runs inside the block."""
+
+    def __enter__(self):
+        from saturn_tpu_torch.parallel.spmd_base import SPMDTechnique
+
+        self.cls, self.orig, self.seen = SPMDTechnique, SPMDTechnique.search, []
+
+        def search(tech, *args, **kwargs):
+            if tech not in self.seen:
+                self.seen.append(tech)
+            return self.orig(tech, *args, **kwargs)
+
+        SPMDTechnique.search = search
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.search = self.orig
+
+    def named(self, name):
+        return next(t for t in self.seen if t.name == name)
+
+
+def run_text(cmd) -> str:
+    return subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=60).stdout
+
+
+def gptj_task(sat, name, layers, save_dir, loss_fn=None):
+    """A GPT-J-6B task at ``layers`` layers (the rest at the published
+    shape), AdamW at the reference's lr, b8 x 512 synthetic tokens."""
+    task = lm_task(sat, name, 1e-4, OFFLOAD_STEPS, save_dir, model=GPTJ, loss_fn=loss_fn,
+                   n_layers=layers)
+    cfg = task.get_model().config
+    n = sum(p.numel() for p in task.get_model().abstract_init().parameters())
+    log(f"  {name}: GPT-J-6B at {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads, d_ff {cfg.ff_dim}, rotary {cfg.rotary_dim}, parallel residual "
+        f"{cfg.parallel_residual}, vocab {cfg.vocab_size}, attention {cfg.attention}, "
+        f"b{BATCH} x {SEQ}: {n:,} parameters; dp's fp32 params, grads and AdamW moments "
+        f"{16 * n / 2**30:.1f} GiB, a checkpoint (params and moments) {12 * n / 2**30:.1f} GiB")
+    return task, n
+
+
+def gptj_search(sat, flash, ce, card, searched_inits):
+    """Phase 8b-1: GPT-J-6B (cut in depth only where the host cannot hold
+    it): dp screened out before any init, offload's configs timed on one
+    shared host state."""
+    import gc
+
+    save_dir = os.path.join(CKPTS, "gptj")
+    os.makedirs(save_dir, exist_ok=True)
+    log(f"  host: free -g\n{run_text(['free', '-g']).rstrip()}")
+    facts = host_facts(run_text(["free", "-b"]), run_text(["nproc"]),
+                       run_text(["df", "-B1", "--output=avail", save_dir]))
+    log(f"  host: {facts['cores']} cores, {facts['mem_total'] / 2**30:.1f} GiB of memory "
+        f"({facts['mem_available'] / 2**30:.1f} GiB available), "
+        f"{facts['disk_free'] / 1e9:.1f} GB of disk free at {save_dir}")
+    layers, cut = gptj_depth(facts)
+    if cut:
+        log(f"  cut: GPT-J-6B at {layers} of its {GPTJ_LAYERS} layers, depth only: {cut}")
+    task, n_params = gptj_task(sat, "gptj-6b", layers, save_dir)
+    topo = topology()
+    sat.library.register_default_library()
+    cache_dir = os.path.join(OUT, "gptj_profile_cache")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    reset_counts(flash, ce)
+    t0 = time.perf_counter()
+    with TechniqueSearches() as searched, searched_inits:
+        stats = sat.search([task], technique_names=["dp", "offload"], topology=topo,
+                           profile_cache=cache_dir)
+    t_search = time.perf_counter() - t0
+    trial_launches = counts(flash, ce)
+    if not all(trial_launches[n] for n in FLASH_NAMES):
+        raise AssertionError(f"{task.name}: the trials launched the flash kernels "
+                             f"{trial_launches}, want each at head dim 256")
+    gc.collect()
+    dp, off = searched.named("dp"), searched.named("offload")
+    outcomes = {"dp": [(c, o) for _, _, c, _, o in dp.trials],
+                "offload": [(c, s, o) for _, _, c, s, o in off.trials]}
+    if not dp.trials or any(o != "static" for _, o in outcomes["dp"]):
+        raise AssertionError(f"dp trials {dp.trials}: want every config screened out statically")
+    if any(o not in ("ok", "memory") for *_, o in outcomes["offload"]):
+        raise AssertionError(f"offload trials {off.trials}")
+    for c, o in outcomes["dp"]:
+        log(f"    trial dp {c}: infeasible by the static screen, no init drawn")
+    for c, spb, o in outcomes["offload"]:
+        log(f"    trial offload {c}: " + (f"{spb:.3f} s/batch" if spb is not None
+                                          else "infeasible (out of device memory)")
+            + f"  [{card}]")
+    split = split_summary(list(off.splits))
+    for line in split["lines"]:
+        log(f"      trial {line}  [{card}]")
+    strat = task.strategies[1]
+    if not strat.feasible or strat.executor.name != "offload":
+        raise AssertionError(f"gptj-6b: no offload strategy won: {strat}")
+    log(f"  search: {stats}, {t_search:.1f}s; won: offload {strat.params} at "
+        f"{strat.per_batch_time:.3f} s/batch; the host state drawn in "
+        f"{searched_inits.seconds['state']} s, its buffers allocated and pinned in "
+        f"{searched_inits.seconds['buffer']} s; the trials' launches {trial_launches}  [{card}]")
+    return {"facts": facts, "layers": layers, "cut": cut, "params": n_params,
+            "stats": stats, "seconds": t_search, "trial_launches": trial_launches,
+            "dp": outcomes["dp"],
+            "offload": outcomes["offload"], "splits": split, "won": strat.params,
+            "s_per_batch": strat.per_batch_time}
+
+
+def grads_against(host, want: torch.Tensor):
+    """The host state's gradients against ``want`` (the same flat layout, on
+    the card), parameter by parameter: (relative norm of the difference,
+    whether bitwise equal)."""
+    num = den = 0.0
+    same = True
+    for _, off, n, _ in host.layout.entries:
+        got = host.grads[off:off + n].to(want.device, non_blocking=True)
+        ref = want[off:off + n]
+        same = same and torch.equal(got, ref)
+        num += float(((got - ref).double() ** 2).sum())
+        den += float((ref.double() ** 2).sum())
+    return (num / max(den, 1e-300)) ** 0.5, same
+
+
+def gptj_train(sat, flash, ce, card, inits):
+    """Phase 8b-2: GPT-J-6B at GPTJ_CKPT_LAYERS through search(["offload"])
+    -> orchestrate to a checkpoint at step OFFLOAD_STEPS, restored in place;
+    stream against bulk on that state and one batch."""
+    import gc
+
+    from saturn_tpu_torch.parallel.offload import HostOffload
+    from saturn_tpu_torch.parallel.spmd_base import stage_tokens
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    save_dir = os.path.join(CKPTS, "gptj")
+    os.makedirs(save_dir, exist_ok=True)
+    task, n_params = gptj_task(sat, "gptj-6b-ckpt", GPTJ_CKPT_LAYERS, save_dir)
+    dev = torch.device(DEVICE, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    topo = topology()
+    cache_dir = os.path.join(OUT, "gptj_profile_cache")
+    with inits:
+        sat.search([task], technique_names=["offload"], topology=topo, profile_cache=cache_dir)
+    strat = task.strategies[1]
+    off = strat.executor
+    log(f"  search(['offload']): won {strat.params} at {strat.per_batch_time:.3f} s/batch  "
+        f"[{card}]")
+    torch.cuda.reset_peak_memory_stats(dev)
+    n_before = len(off.splits)
+    written = bytes_written()
+    log(f"  written by this run before the checkpointed run: {written / 2**30:.2f} GiB "
+        f"(write calls, deleted files included)")
+    reset_counts(flash, ce)
+    t0 = time.perf_counter()
+    with CallTimes(write=(ckpt, "_write")) as writes, inits:
+        out = sat.orchestrate([task], interval=2.0 * strat.runtime + 60.0, topology=topo)
+        ckpt.flush()
+    t_orch = time.perf_counter() - t0
+    launches = counts(flash, ce)
+    want = want_offload_launches(bool(strat.params.get("stream") or strat.params.get("remat")),
+                                 OFFLOAD_STEPS, GPTJ_CKPT_LAYERS)
+    if launches != want:
+        raise AssertionError(f"{task.name}: orchestrate launched {launches}, want {want}")
+    log(f"  orchestrate's kernel launches (head dim 256): {launches}")
+    peak = {"allocated": torch.cuda.max_memory_allocated(dev),
+            "reserved": torch.cuda.max_memory_reserved(dev)}
+    if out["completed"] != [task.name]:
+        raise AssertionError(f"{task.name} did not complete: {out}")
+    steps = split_summary([r for r in list(off.splits)[n_before:] if r["task"] == task.name])
+    for line in steps["lines"]:
+        log(f"    {line}  [{card}]")
+    ckpt_bytes = os.path.getsize(task.ckpt_path)
+    log(f"  orchestrate: {t_orch:.1f}s, losses {np.round(task.last_losses, 4).tolist()}; peak "
+        f"{peak['allocated'] / 2**30:.2f} GiB allocated, {peak['reserved'] / 2**30:.2f} GiB "
+        f"reserved on the card; checkpoint {ckpt_bytes / 1e9:.2f} GB written in "
+        f"{writes.seconds['write']} s; host states drawn in {inits.seconds['state']} s "
+        f"(8b so far)  [{card}]")
+    if not np.isfinite(task.last_losses).all():
+        raise AssertionError(f"{task.name} losses {task.last_losses}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_memory(f"{task.name} after orchestrate", torch.cuda.memory_allocated(dev), before)
+
+    # stream against bulk, one state (the checkpoint, restored in place) and one batch
+    tech = HostOffload()
+    t0 = time.perf_counter()
+    state = ckpt.restore(task.ckpt_path, tech.build(task, [dev], STREAM).empty())
+    t_restore = time.perf_counter() - t0
+    host = state["host"]
+    if state["step"] != OFFLOAD_STEPS:
+        raise AssertionError(f"{task.name} checkpoint at step {state['step']}, "
+                             f"want {OFFLOAD_STEPS}")
+    bad = nonfinite(dict(state["params"].named_parameters()))
+    if bad:
+        raise AssertionError(f"{task.name} checkpoint holds non-finite weights: {bad}")
+    if not host.pinned():
+        raise AssertionError(f"{task.name}: the restored host state is not pinned")
+    log(f"  restored step {state['step']} in place in {t_restore:.1f}s: finite weights, "
+        f"{host.nbytes() / 2**30:.2f} GiB pinned on the host")
+    state["opt_state"].step = lambda: None  # the check takes no update
+    at = state["step"]
+    batch = stage_tokens(task.batch_at(0), dev)
+    _, loss_s = tech.build(task, [dev], STREAM).step(state, batch)
+    loss_s = loss_s.item()
+    grads_s = host.grads.to(dev)
+    _, loss_b = tech.build(task, [dev], {"stream": False, "remat": True}).step(state, batch)
+    loss_b = loss_b.item()
+    grad_rel, same = grads_against(host, grads_s)
+    bitwise = same and loss_s == loss_b
+    loss_rel = abs(loss_b - loss_s) / abs(loss_s)
+    check_split = split_summary(list(tech.splits))
+    for line in check_split["lines"]:
+        log(f"    check {line}  [{card}]")
+    del grads_s, batch
+    if not (loss_rel <= STREAM_BULK_LOSS_REL and grad_rel <= STREAM_BULK_GRAD_REL):
+        raise AssertionError(f"{task.name} stream loss {loss_s} against bulk {loss_b} "
+                             f"({loss_rel:.3e} relative), gradients {grad_rel:.3e} by relative "
+                             f"norm: over {STREAM_BULK_LOSS_REL:g} / {STREAM_BULK_GRAD_REL:g}")
+    log(f"  stream against bulk on step {at}'s state: loss {loss_s:.6f} / {loss_b:.6f} "
+        f"({loss_rel:.2e} relative), gradients {grad_rel:.2e} by relative norm "
+        f"({'bitwise equal' if bitwise else 'not bitwise'})")
+    pinned_bytes = host.nbytes()
+    del state, host
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_memory(f"{task.name} after the check", torch.cuda.memory_allocated(dev), before)
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return {"layers": GPTJ_CKPT_LAYERS, "params": n_params, "won": strat.params,
+            "s_per_batch": strat.per_batch_time, "orchestrate_s": t_orch,
+            "launches": launches, "written_before_bytes": written,
+            "losses": task.last_losses, "steps": steps, "peak_bytes": peak,
+            "pinned_bytes": pinned_bytes, "ckpt_bytes": ckpt_bytes,
+            "ckpt_write_s": writes.seconds["write"], "restore_s": t_restore,
+            "stream_vs_bulk": {"loss": [loss_s, loss_b], "loss_rel": loss_rel,
+                               "grad_rel": grad_rel, "bitwise": bitwise,
+                               "splits": check_split}}
+
+
+def bundle_steps(tech, task, config, dev, steps: int):
+    """``steps`` steps one at a time through the technique's bundle from the
+    seed-0 init, on the task's first batches; no checkpoint is written. The
+    per-step losses."""
+    from saturn_tpu_torch.parallel.spmd_base import stage_tokens
+
+    bundle = tech.build(task, [dev], config)
+    state = bundle.init()
+    losses = []
+    for i in range(steps):
+        state, loss = bundle.step(state, stage_tokens(task.batch_at(i), dev))
+        losses.append(loss.reshape(()))
+    out = torch.stack(losses).float().cpu().tolist()
+    del state, bundle
+    return out
+
+
+def gptj_parity(sat, flash, ce, card):
+    """Phase 8c: GPT-J-6B at GPTJ_PARITY_LAYERS over the logits (published
+    widths: head dim 256, rotary, parallel residual), 4 steps from one seed-0
+    init under offload stream, offload bulk and dp; no checkpoint (12 GB
+    each at this depth)."""
+    import gc
+
+    dev = torch.device(DEVICE, 0)
+    task, n_params = gptj_task(sat, "gptj-6b-parity", GPTJ_PARITY_LAYERS,
+                               os.path.join(CKPTS, "gptj-parity"), loss_fn=untagged_loss)
+    runs = {}
+    for label, cls, config, recompute in parity_programs():
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts(flash, ce)
+        t0 = time.perf_counter()
+        losses = bundle_steps(cls(), task, config, dev, OFFLOAD_STEPS)
+        seconds = time.perf_counter() - t0
+        got = counts(flash, ce)
+        want = want_offload_launches(recompute, OFFLOAD_STEPS, GPTJ_PARITY_LAYERS)
+        if got != want:
+            raise AssertionError(f"gptj {label}: launches {got}, want {want}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"gptj {label}: losses {losses}")
+        runs[label] = {"losses": losses, "launches": got, "seconds": seconds}
+        log(f"  {label} {config}: losses {np.round(losses, 5).tolist()}, launches {got}, "
+            f"{seconds:.1f}s with the init  [{card}]")
+    ref = runs["dp-logits"]["losses"]
+    for label in ("offload-stream", "offload-bulk"):
+        got = runs[label]["losses"]
+        diff = rel_diff(got, ref)
+        if not diff <= OFFLOAD_REL:
+            raise AssertionError(f"gptj {label}: losses {got} against dp's {ref}: "
+                                 f"{diff:.3e} relative, over {OFFLOAD_REL:g}")
+        runs[label].update(loss_rel_diff=diff, bitwise=got == ref)
+        log(f"  {label} against dp over the logits: max relative loss difference {diff:.3e} "
+            f"({'bitwise equal' if got == ref else 'not bitwise'})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layers": GPTJ_PARITY_LAYERS, "params": n_params, "runs": runs}
+
+
+def offload_phase(sat, flash, ce, card) -> dict:
+    from saturn_tpu_torch.parallel import offload as offload_mod
+
+    log("phase 8a: offload stream and bulk against dp over the logits, GPT-2-small b8x512")
+    t0 = time.perf_counter()
+    out = {"parity": offload_parity(sat, flash, ce, card)}
+    log(f"  phase 8a took {time.perf_counter() - t0:.1f}s")
+    for label, run, inits in (("8b-1", gptj_search, "search"), ("8b-2", gptj_train, "train")):
+        log(f"phase {label}: GPT-J-6B b8x512 on one card, "
+            + ("search(['dp', 'offload'])" if inits == "search"
+               else f"{GPTJ_CKPT_LAYERS} layers, search(['offload']) -> orchestrate"))
+        # every host state's allocation, pinning and draw, and its buffers alone
+        timer = CallTimes(state=(offload_mod, "make_host_state"),
+                          buffer=(offload_mod._HostBuffer, "__init__"))
+        t0 = time.perf_counter()
+        out[inits] = run(sat, flash, ce, card, timer)
+        out[inits].update(phase_s=time.perf_counter() - t0, host_state_s=timer.seconds["state"],
+                          host_buffer_s=timer.seconds["buffer"])
+        log(f"  phase {label} took {out[inits]['phase_s']:.1f}s")
+    log(f"phase 8c: GPT-J-6B b8x512 at {GPTJ_PARITY_LAYERS} layers, offload stream and bulk "
+        "against dp over the logits")
+    t0 = time.perf_counter()
+    out["parity_gptj"] = gptj_parity(sat, flash, ce, card)
+    log(f"  phase 8c took {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
@@ -1951,6 +2492,16 @@ def main(argv) -> int:
         with open(os.path.join(OUT, "staging_ab.json"), "w") as f:
             json.dump(staging_ab(sat, card), f, indent=1)
         return 0
+    if "--offload" in argv:
+        log("the flash kernels at head dim 256 (phase 8b's attention)")
+        rows_d256 = check_head_dim_256(flash)
+        offload = offload_phase(sat, flash, ce, card)
+        with open(os.path.join(OUT, "offload.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "kernel_rows_d256": rows_d256,
+                       "offload": offload,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1)
+        shutil.rmtree(CKPTS, ignore_errors=True)
+        return 0
 
     log("phase 2: kernels against their plain versions")
     main_shape = (BATCH, 12, 12, SEQ, 64)
@@ -1979,6 +2530,8 @@ def main(argv) -> int:
     check_ce(ce, BATCH * LONG_SEQ, D, VOCAB, False, 13, 0, timed=False)
     check_ds(ce, BATCH * LONG_SEQ, D, VOCAB, 14, timed=False)
     check_kernels(flash, (BATCH, 12, 12, LONG_SEQ, 64), True, 15, timed=False)
+    # GPT-J-6B's attention (phase 8b): head dim 256
+    rows_d256 = check_head_dim_256(flash)
     torch.cuda.empty_cache()
 
     log("phase 3: search -> orchestrate, two GPT-2-small tasks and one BERT-base task b8x512")
@@ -2003,26 +2556,35 @@ def main(argv) -> int:
     kill_replay = kill_replay_phase(sat, flash, ce, card)
     shutil.rmtree(CKPTS, ignore_errors=True)
 
-    kernels = [
-        {"name": n, "route": "cuda",
-         "source": "saturn_tpu_torch/csrc/" + ("flash_attn.cu" if n in FLASH_NAMES
-                                              else "linear_ce.cu"),
-         "replaces": SOURCES[n], "launches": launches[n],
-         "max_abs_err": rows[n]["max_abs_err"], "ms": rows[n]["ms"],
-         "plain_ms": rows[n]["plain_ms"], "bound_ms": rows[n]["bound_ms"],
-         "bound_by": rows[n]["bound_by"], "library_ms": rows[n]["library_ms"]}
-        for n in KERNEL_NAMES
-    ]
+    offload = offload_phase(sat, flash, ce, card)
+    shutil.rmtree(CKPTS, ignore_errors=True)
+
+    def entry(row, n_launches):
+        return {"launches": n_launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": row["library_ms"]}
+
+    kernels = []
+    for n in KERNEL_NAMES:
+        k = {"name": n, "route": "cuda",
+             "source": "saturn_tpu_torch/csrc/" + ("flash_attn.cu" if n in FLASH_NAMES
+                                                  else "linear_ce.cu"),
+             "replaces": SOURCES[n], **entry(rows[n], launches[n])}
+        if n in FLASH_NAMES:
+            # head dim 256 at GPT-J-6B's shape; launches: phase 8b-2's orchestrate
+            k["head_dim_256"] = entry(rows_d256[n], offload["train"]["launches"][n])
+        kernels.append(k)
     with open(os.path.join(OUT, "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "kernels": kernels, "kernel_rows": rows,
-                   "ce_recompute_rows": recompute, "main_path": main_results,
+                   "kernel_rows_d256": rows_d256, "ce_recompute_rows": recompute, "main_path": main_results,
                    "pinned": pinned, "step_profile": step_profile, "sweep": sweep,
-                   "kill_replay": kill_replay,
+                   "kill_replay": kill_replay, "offload": offload,
                    "short_profiles": SHORT_PROFILES,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"profiles short of their launch count, each taken again: {len(SHORT_PROFILES)} "
         f"{SHORT_PROFILES}")
-    log(f"done in {time.perf_counter() - t_start:.1f}s")
+    log(f"done in {time.perf_counter() - t_start:.1f}s; {bytes_written() / 2**30:.2f} GiB "
+        f"passed to write calls")
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

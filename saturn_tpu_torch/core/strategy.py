@@ -15,7 +15,7 @@ from typing import Any, Dict, Optional
 
 class Techniques(enum.Enum):
     """Built-in parallelism technique families (the JAX package's enum;
-    this slice ships DP only, the rest are in ``ROADMAP.md``)."""
+    the port ships DP and OFFLOAD, the rest are in ``ROADMAP.md``)."""
 
     DP = 1
     FSDP = 2

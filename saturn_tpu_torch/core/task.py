@@ -46,7 +46,7 @@ class HParams:
                 "or pass a callable (params, lr) -> torch.optim.Optimizer"
             )
 
-    def make_optimizer(self, params: Iterable[Any]):
+    def make_optimizer(self, params: Iterable[Any], host: bool = False):
         """A torch optimizer with optax's math for the named optimizers:
         ``adamw`` is ``optax.adamw(lr)`` (b1 0.9, b2 0.999, eps 1e-8, weight
         decay 1e-4 on every parameter — torch's own AdamW default is 0.01),
@@ -55,8 +55,12 @@ class HParams:
         On the card AdamW and Adam are built ``capturable``: their step
         counts live on the card, so a step reads nothing back to the host
         and a CUDA graph can capture it (``parallel/spmd_base.py``); the
-        math is the same. SGD keeps no step count and takes no such flag.
-        A callable's optimizer is the user's to make."""
+        math is the same. ``host``: the optimizer of a host-resident state
+        (``parallel/offload.py``), whose step runs on the host every train
+        step; AdamW and Adam then take torch's fused CPU kernel (one pass
+        over each parameter's p, g, m and v), the same math. SGD keeps no
+        step count and takes no such flag. A callable's optimizer is the
+        user's to make."""
         import torch
 
         if callable(self.optimizer):
@@ -65,12 +69,13 @@ class HParams:
         on_card = bool(params) and params[0].is_cuda
         if self.optimizer == "sgd":
             return torch.optim.SGD(params, lr=self.lr)
+        fused = True if host else None
         if self.optimizer == "adamw":
             opt = torch.optim.AdamW(params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
-                                    weight_decay=1e-4, capturable=on_card)
+                                    weight_decay=1e-4, capturable=on_card, fused=fused)
         else:
             opt = torch.optim.Adam(params, lr=self.lr, betas=(0.9, 0.999), eps=1e-8,
-                                   capturable=on_card)
+                                   capturable=on_card, fused=fused)
         # torch warns once per instance when a capturable optimizer steps
         # outside a capture; here the eager steps (a window's warm-up, the
         # tail) use it so on purpose

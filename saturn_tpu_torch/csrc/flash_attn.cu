@@ -64,10 +64,18 @@
 //   and dO tiles and their lse and delta rows (bulk copies); dQ reads each
 //   thread's two lse and delta values once.
 //
+// Head dim 256 (GPT-J's): the same three kernels with D / 64 = 4 column
+// blocks a tile. One block's shared memory then takes most of an SM (165 KB
+// forward, 198 KB dQ and dK/dV: one block an SM). The forward's and dQ's
+// accumulators fit the registers (128 f32 a thread); dK/dV's two would take
+// 256, so at D 256 a dK/dV block owns 128 of the D columns of dk and dv
+// (dkv_cols; grid.z = D / 128): each such block forms the full-depth S^T
+// and dP^T, and the pair of them does those two products twice.
+//
 // Layout: q, o, do, dq are (B*H, T, D) and k, v, dk, dv are (B*KV, T, D),
 // bf16, row stride `*_st` and head stride `*_sh` in elements, rows and base
 // addresses 16-byte aligned. lse and delta are (B*H, T) f32, contiguous,
-// 16-byte aligned. T % 64 == 0, D in {64, 128}. Each launcher returns a
+// 16-byte aligned. T % 64 == 0, D in {64, 128, 256}. Each launcher returns a
 // cudaError_t value as an int (a tensor map it could not encode, a refused
 // launch); a deadlocked stage ring ends its kernel with an illegal-address
 // error (sm90::mbar_wait) rather than hanging.
@@ -127,6 +135,11 @@ struct DqSmem {
   uint64_t qd_full, k_full[STAGES], k_empty[STAGES], v_full[STAGES], v_empty[STAGES];
 };
 
+// Columns of dk and dv one dK/dV block owns: all of them up to D 128, half at
+// D 256 (two 64 x 256 f32 accumulators would need 256 registers a thread).
+template <int D>
+__host__ __device__ constexpr int dkv_cols() { return D > 128 ? 128 : D; }
+
 template <int D>
 struct DkvSmem {
   bf16 k[TILE * D];
@@ -170,16 +183,16 @@ __device__ __forceinline__ void load_ring(bf16 (*ring)[TILE * D], uint64_t* full
   load_tile_tma<D>(ring[st], map, &full[st], j * TILE, mat);
 }
 
-// acc[cb] (64 x 64 column block cb of a 64 x D f32 result) += A B, A the
-// 64 x 64 bf16 register operand (4 depth steps of 4 pairs), B the 64 x D
-// tile `b` read MN-major.
-template <int D>
-__device__ __forceinline__ void product_rs(float (&acc)[D / 64][32], const uint32_t (&a)[16],
+// acc[cb] (64 x 64 column block cb of a 64 x 64 NCB f32 result) += A B, A
+// the 64 x 64 bf16 register operand (4 depth steps of 4 pairs), B the NCB
+// column blocks of a tile from `b` on, read MN-major.
+template <int NCB>
+__device__ __forceinline__ void product_rs(float (&acc)[NCB][32], const uint32_t (&a)[16],
                                            const bf16* b) {
 #pragma unroll
   for (int kk = 0; kk < TILE / 16; ++kk)
 #pragma unroll
-    for (int cb = 0; cb < D / 64; ++cb)
+    for (int cb = 0; cb < NCB; ++cb)
       sm90::wgmma_rs(acc[cb], a + 4 * kk, sm90::desc_mn(b + cb * TILE * 64, kk));
 }
 
@@ -203,13 +216,13 @@ __device__ __forceinline__ void zero(float (&r)[N]) {
   for (int i = 0; i < N; ++i) r[i] = 0.f;
 }
 
-// Write this thread's part of a 64 x D f32 result, times f0 in row r0 and
-// f1 in row r0 + 8, as bf16; `out` points at the tile's first row.
-template <int D>
-__device__ __forceinline__ void store_tile(bf16* out, int st, const float (&acc)[D / 64][32],
+// Write this thread's part of a 64 x 64 NCB f32 result, times f0 in row r0
+// and f1 in row r0 + 8, as bf16; `out` points at the result's first element.
+template <int NCB>
+__device__ __forceinline__ void store_tile(bf16* out, int st, const float (&acc)[NCB][32],
                                            int r0, int t, float f0, float f1) {
 #pragma unroll
-  for (int cb = 0; cb < D / 64; ++cb)
+  for (int cb = 0; cb < NCB; ++cb)
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const int c = cb * 64 + n * 8 + 2 * t;
@@ -363,7 +376,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     sm90::wgmma_fence();
     product_ss<D>(sc, sm.q, sm.k[s]);
     sm90::wgmma_commit();
-    product_rs<D>(acc, pa, sm.v[sp]);
+    product_rs<D / 64>(acc, pa, sm.v[sp]);
     sm90::wgmma_commit();
     // while the products run: K of tile jk + 1 and V of tile jk into the
     // stages of tiles jk + 1 - STAGES and jk - STAGES, freed in earlier steps
@@ -395,7 +408,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
 #pragma unroll
   for (int cb = 0; cb < D / 64; ++cb) sm90::fence_regs(acc[cb]);
   sm90::wgmma_fence();
-  product_rs<D>(acc, pa, sm.v[last]);
+  product_rs<D / 64>(acc, pa, sm.v[last]);
   sm90::wgmma_commit();
   sm90::wgmma_wait<0>();
 #pragma unroll
@@ -404,8 +417,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
 
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
-  store_tile<D>(o + bh * q_sh + (size_t)iq * TILE * q_st, q_st, acc, r0, t, 1.f / l[0],
-                1.f / l[1]);
+  store_tile<D / 64>(o + bh * q_sh + (size_t)iq * TILE * q_st, q_st, acc, r0, t, 1.f / l[0],
+                     1.f / l[1]);
   if (t == 0) {
     const size_t row = (size_t)bh * T + iq * TILE + r0;
     lse[row] = scale * m[0] + logf(l[0]);
@@ -439,7 +452,7 @@ __device__ __forceinline__ void ds_step(float (&sc)[32], const float (&dp)[32],
 // registers are capped so that four blocks share an SM, as their shared
 // memory allows.
 template <int D>
-__global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 2)
+__global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : D == 128 ? 2 : 1)
 dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
           const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
           const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
@@ -514,7 +527,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUt
 #pragma unroll
     for (int cb = 0; cb < D / 64; ++cb) sm90::fence_regs(acc[cb]);
     sm90::wgmma_fence();
-    product_rs<D>(acc, da, sm.k[s]);
+    product_rs<D / 64>(acc, da, sm.k[s]);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
@@ -523,7 +536,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUt
     sm90::mbar_arrive(&sm.k_empty[s]);
   }
 
-  store_tile<D>(dq + bh * q_sh + (size_t)iq * TILE * q_st, q_st, acc, r0, t, scale, scale);
+  store_tile<D / 64>(dq + bh * q_sh + (size_t)iq * TILE * q_st, q_st, acc, r0, t, scale, scale);
 }
 
 // -------------------------------------------------------------------- dK/dV
@@ -542,11 +555,12 @@ __device__ __forceinline__ void load_dkv_step(DkvSmem<D>& sm, const CUtensorMap*
   sm90::bulk_load(sm.delta[st], delta + row, TILE * 4, &sm.full[st]);
 }
 
-// One block per (bkv, kv tile); warp w owns kv rows 16 w..16 w + 15. Walks
-// the rep = H / KV q heads of the group and, for each, the q tiles at or
-// below the diagonal: dv = sum P^T do, dk = scale * sum (P o (dP - delta))^T
-// q. While the score products of step i run, thread 0 reloads the stage that
-// step i - 1 used (freed by every warp at its end) with step i - 1 + STAGES.
+// One block per (bkv, kv tile, column half at D 256); warp w owns kv rows
+// 16 w..16 w + 15. Walks the rep = H / KV q heads of the group and, for each,
+// the q tiles at or below the diagonal: dv = sum P^T do, dk = scale * sum
+// (P o (dP - delta))^T q, in the block's dkv_cols columns from c0. While the
+// score products of step i run, thread 0 reloads the stage that step i - 1
+// used (freed by every warp at its end) with step i - 1 + STAGES.
 template <int D>
 __global__ void __launch_bounds__(WG_THREADS)
 dkv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
@@ -557,6 +571,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(sm90::smem_1024());
   const int n_tiles = T / TILE;
   const int bkv = blockIdx.x, jk = blockIdx.y;  // jk = 0 walks the most q tiles
+  constexpr int NCB = dkv_cols<D>() / 64;          // column blocks of dk and dv here
+  const int c0 = blockIdx.z * dkv_cols<D>();
   const int rep = H / KV;
   const int first = causal ? jk : 0, n_q = n_tiles - first, n_steps = rep * n_q;
   const bool leader = threadIdx.x == 0;
@@ -584,9 +600,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = lane & 3;
   const int r0 = warp * 16 + (lane >> 2);  // this thread's kv rows: r0 and r0 + 8
-  float dk_acc[D / 64][32], dv_acc[D / 64][32];
+  float dk_acc[NCB][32], dv_acc[NCB][32];
 #pragma unroll
-  for (int cb = 0; cb < D / 64; ++cb) {
+  for (int cb = 0; cb < NCB; ++cb) {
     zero(dk_acc[cb]);
     zero(dv_acc[cb]);
   }
@@ -632,17 +648,18 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     to_operand(da, dpt);
 
 #pragma unroll
-    for (int cb = 0; cb < D / 64; ++cb) {
+    for (int cb = 0; cb < NCB; ++cb) {
       sm90::fence_regs(dv_acc[cb]);
       sm90::fence_regs(dk_acc[cb]);
     }
     sm90::wgmma_fence();
-    product_rs<D>(dv_acc, pa, sm.dout[s]);
-    product_rs<D>(dk_acc, da, sm.q[s]);
+    // column block c0 / 64 of a tile starts c0 * TILE elements in
+    product_rs<NCB>(dv_acc, pa, sm.dout[s] + c0 * TILE);
+    product_rs<NCB>(dk_acc, da, sm.q[s] + c0 * TILE);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
-    for (int cb = 0; cb < D / 64; ++cb) {
+    for (int cb = 0; cb < NCB; ++cb) {
       sm90::fence_regs(dv_acc[cb]);
       sm90::fence_regs(dk_acc[cb]);
     }
@@ -651,9 +668,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     sm90::mbar_arrive(&sm.empty[s]);
   }
 
-  const size_t off = bkv * kv_sh + (size_t)jk * TILE * kv_st;
-  store_tile<D>(dk + off, kv_st, dk_acc, r0, t, scale, scale);
-  store_tile<D>(dv + off, kv_st, dv_acc, r0, t, 1.f, 1.f);
+  const size_t off = bkv * kv_sh + (size_t)jk * TILE * kv_st + c0;
+  store_tile<NCB>(dk + off, kv_st, dk_acc, r0, t, scale, scale);
+  store_tile<NCB>(dv + off, kv_st, dv_acc, r0, t, 1.f, 1.f);
 }
 
 template <typename Kernel>
@@ -696,7 +713,7 @@ int launch_dkv(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& 
   constexpr int smem = smem_bytes<DkvSmem<D>>();
   const cudaError_t err = allow_smem(dkv_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  dkv_kernel<D><<<dim3(BKV, T / TILE), WG_THREADS, smem, s>>>(
+  dkv_kernel<D><<<dim3(BKV, T / TILE, D / dkv_cols<D>()), WG_THREADS, smem, s>>>(
       qm, km, vm, dom, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, kv_sh,
       kv_st, T, H, KV, scale, causal);
   return (int)cudaGetLastError();
@@ -709,7 +726,7 @@ extern "C" {
 int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
               long long q_sh, int q_st, long long kv_sh, int kv_st, int BH,
               int T, int D, int H, int KV, float scale, int causal, void* stream) {
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 128 && D != 256) return (int)cudaErrorInvalidValue;
   const int BKV = BH / H * KV;
   CUtensorMap qm, km, vm;
   int err;
@@ -718,15 +735,20 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
       (err = sm90::encode_tile_map(&vm, v, D, T, BKV, kv_st, kv_sh)))
     return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_fwd<64>(qm, km, vm, o, lse, q_sh, q_st, BH, T, H, KV, scale, causal, s)
-                 : launch_fwd<128>(qm, km, vm, o, lse, q_sh, q_st, BH, T, H, KV, scale, causal, s);
+#define SATURN_FWD(d) launch_fwd<d>(qm, km, vm, o, lse, q_sh, q_st, BH, T, H, KV, scale, causal, s)
+  switch (D) {
+    case 64: return SATURN_FWD(64);
+    case 128: return SATURN_FWD(128);
+    default: return SATURN_FWD(256);
+  }
+#undef SATURN_FWD
 }
 
 int flash_dq(const void* q, const void* k, const void* v, const void* dout,
              const void* lse, const void* delta, void* dq, long long q_sh,
              int q_st, long long kv_sh, int kv_st, int BH, int T, int D, int H,
              int KV, float scale, int causal, void* stream) {
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 128 && D != 256) return (int)cudaErrorInvalidValue;
   const int BKV = BH / H * KV;
   CUtensorMap qm, km, vm, dom;
   int err;
@@ -736,17 +758,21 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
       (err = sm90::encode_tile_map(&dom, dout, D, T, BH, q_st, q_sh)))
     return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_dq<64>(qm, km, vm, dom, lse, delta, dq, q_sh, q_st, BH, T, H, KV, scale,
-                                 causal, s)
-                 : launch_dq<128>(qm, km, vm, dom, lse, delta, dq, q_sh, q_st, BH, T, H, KV,
-                                  scale, causal, s);
+#define SATURN_DQ(d) \
+  launch_dq<d>(qm, km, vm, dom, lse, delta, dq, q_sh, q_st, BH, T, H, KV, scale, causal, s)
+  switch (D) {
+    case 64: return SATURN_DQ(64);
+    case 128: return SATURN_DQ(128);
+    default: return SATURN_DQ(256);
+  }
+#undef SATURN_DQ
 }
 
 int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dk, void* dv,
               long long q_sh, int q_st, long long kv_sh, int kv_st, int BKV,
               int T, int D, int H, int KV, float scale, int causal, void* stream) {
-  if (D != 64 && D != 128) return (int)cudaErrorInvalidValue;
+  if (D != 64 && D != 128 && D != 256) return (int)cudaErrorInvalidValue;
   const int BH = BKV / KV * H;
   CUtensorMap qm, km, vm, dom;
   int err;
@@ -756,10 +782,14 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
       (err = sm90::encode_tile_map(&dom, dout, D, T, BH, q_st, q_sh)))
     return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? launch_dkv<64>(qm, km, vm, dom, lse, delta, dk, dv, kv_sh, kv_st, BKV, T, H,
-                                  KV, scale, causal, s)
-                 : launch_dkv<128>(qm, km, vm, dom, lse, delta, dk, dv, kv_sh, kv_st, BKV, T,
-                                   H, KV, scale, causal, s);
+#define SATURN_DKV(d) \
+  launch_dkv<d>(qm, km, vm, dom, lse, delta, dk, dv, kv_sh, kv_st, BKV, T, H, KV, scale, causal, s)
+  switch (D) {
+    case 64: return SATURN_DKV(64);
+    case 128: return SATURN_DKV(128);
+    default: return SATURN_DKV(256);
+  }
+#undef SATURN_DKV
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
 """Technique library: register / deregister / retrieve parallelism plugins.
 
 Counterpart of ``saturn_tpu/library/__init__.py``: an in-process registry of
-``BaseTechnique`` classes. The default library holds ``dp`` only in this
-slice; the other techniques, and the JAX package's optional dill persistence
+``BaseTechnique`` classes. The default library holds ``dp`` and
+``offload``; the other techniques, and the JAX package's optional dill persistence
 of user techniques under ``SATURN_TPU_LIBRARY_PATH``, are later items
 (``ROADMAP.md``): ``register`` raises while that variable is set.
 """

@@ -347,12 +347,24 @@ class GPT2(nn.Module):
                 if isinstance(mod, LayerNorm):
                     mod.bias.zero_()
 
-    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Final hidden states (after ln_f), in the compute dtype."""
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Token (and, without rotary, position) embeddings in the compute
+        dtype: the input of the first block."""
         cfg = self.cfg
         x = F.embedding(tokens.long(), self.wte).to(cfg.dtype)
         if not cfg.rotary:
             x = x + self.wpe[: tokens.shape[-1]].to(cfg.dtype)
+        return x
+
+    def head(self, h: torch.Tensor) -> torch.Tensor:
+        """Logits of final hidden states (after ln_f): the tied head, products
+        in the compute dtype, fp32 logits for the loss."""
+        return F.linear(h, self.wte.to(self.cfg.dtype)).float()
+
+    def hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Final hidden states (after ln_f), in the compute dtype."""
+        cfg = self.cfg
+        x = self.embed(tokens)
         for blk in self.blocks:
             if cfg.remat and torch.is_grad_enabled():
                 from torch.utils.checkpoint import checkpoint
@@ -365,9 +377,7 @@ class GPT2(nn.Module):
         return self.ln_f(x)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.hidden(tokens)
-        # tied head, products in the compute dtype, fp32 logits for the loss
-        return F.linear(x, self.wte.to(self.cfg.dtype)).float()
+        return self.head(self.hidden(tokens))
 
 
 def build_gpt2(name: str = "gpt2-small", pretrained: Any = None, **overrides) -> ModelSpec:
@@ -427,6 +437,21 @@ def spec_for(cfg: GPT2Config, *, inputs_fn=None, labels_fn=None,
     def hidden_fn(model: GPT2, tokens: torch.Tensor) -> torch.Tensor:
         return model.hidden(tokens)
 
+    # Pipeline decomposition (the JAX package's ``hints["pipeline"]``): the
+    # embedding, one block and the head as functions over modules, for the
+    # techniques that run the blocks one at a time (offload streaming).
+    # ``other`` is a GPT2 whose wte, wpe and ln_f are the model's (its blocks
+    # may be left out); head(other, blocks(embed(other, tokens))) is
+    # ``apply_fn``, op for op.
+    def pipeline_embed(other: GPT2, tokens: torch.Tensor) -> torch.Tensor:
+        return other.embed(inputs_fn(tokens))
+
+    def pipeline_block(block: Block, x: torch.Tensor) -> torch.Tensor:
+        return block(x)
+
+    def pipeline_head(other: GPT2, x: torch.Tensor) -> torch.Tensor:
+        return other.head(other.ln_f(x))
+
     fused_loss_fn = fused_loss_parts_fn = None
     if labels_fn is not None and fused_head_ok(cfg):
         # Fused head + loss (ops/ce.py): the hidden states and the f32 tied
@@ -450,7 +475,18 @@ def spec_for(cfg: GPT2Config, *, inputs_fn=None, labels_fn=None,
         init_fn=init_fn,
         apply_fn=apply_fn,
         config=cfg,
-        hints={"block_param_key": "blocks", "n_layers": cfg.n_layers},
+        hints={
+            "block_param_key": "blocks",
+            "n_layers": cfg.n_layers,
+            "embed_param_keys": ("wte",) if cfg.rotary else ("wte", "wpe"),
+            "pipeline": {
+                "embed": pipeline_embed,
+                "block": pipeline_block,
+                "head": pipeline_head,
+                "act_shape": lambda batch, seqlen: (batch, seqlen, cfg.d_model),
+                "act_dtype": cfg.dtype,
+            },
+        },
         fused_loss_fn=fused_loss_fn,
         fused_loss_parts_fn=fused_loss_parts_fn,
         fused_loss_objective=objective if fused_loss_fn else None,

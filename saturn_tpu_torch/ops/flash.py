@@ -13,9 +13,9 @@ Each wrapper runs its kernel on a CUDA tensor (or raises on what the kernel
 does not take) and its plain PyTorch version on a CPU tensor; there is no
 fallback from one to the other. Each counts its kernel launches in
 ``LAUNCHES`` (a launch captured into a CUDA graph counts at each replay,
-``ops/launches.py``). The kernels tile at 64 x 64 and take bf16 with head dim 64 or
-128 (every GPT-2 and Llama preset). All three load their tiles with TMA
-into rings of shared-memory stages and multiply on wgmma (helpers in
+``ops/launches.py``). The kernels tile at 64 x 64 and take bf16 with head dim
+64, 128 (every GPT-2 and Llama preset) or 256 (GPT-J's). All three load their
+tiles with TMA into rings of shared-memory stages and multiply on wgmma (helpers in
 ``csrc/sm90.cuh``); the note at the top of the CUDA source says what bounds
 them.
 """
@@ -33,7 +33,7 @@ from saturn_tpu_torch.ops import launches
 NEG_INF = -1e30
 #: q rows and kv rows per CUDA tile (``TILE`` in ``csrc/flash_attn.cu``).
 KERNEL_TILE = 64
-KERNEL_HEAD_DIMS = (64, 128)
+KERNEL_HEAD_DIMS = (64, 128, 256)
 
 #: Kernel launches per wrapper since the last ``reset_launch_counts``.
 LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}

@@ -31,6 +31,7 @@ import logging
 import os
 import threading
 import timeit
+import traceback
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -323,6 +324,14 @@ class SPMDTechnique(BaseTechnique):
     # head+loss (``ModelSpec.fused_loss_fn``).
     fused_loss_ok = True
 
+    # Whether the train state lives in host memory (offload): it then runs
+    # one eager step at a time (``_fused_ok``), is written without a host
+    # copy, and is not screened against device memory (``_static_screen``).
+    host_state = False
+
+    # (warm-up, timed) steps of a one-step trial (``_try_config`` at K = 1)
+    trial_steps = (2, 3)
+
     def __init__(self) -> None:
         # Every trial this instance ran: (task, size, config, seconds per
         # batch or None, outcome), for reports of the sweep (chip_smoke.py).
@@ -485,16 +494,22 @@ class SPMDTechnique(BaseTechnique):
 
     # ---------------------------------------------------------------- windows
     def _fused_ok(self, task: Any) -> bool:
-        """Whether the task may run K-step windows. A user's optimizer
-        callable may not: whether its step can be captured cannot be
-        checked, so such a task runs one step at a time (logged once)."""
-        if callable(task.hparams.optimizer):
-            if task.name not in self._eager_noted:
-                self._eager_noted.add(task.name)
-                log.info("%s: task %s has a user optimizer callable; its intervals "
-                         "run one step at a time (K = 1)", self.name, task.name)
-            return False
-        return True
+        """Whether the task may run K-step windows. A host-resident state
+        may not (the JAX package's ``_fused_ok`` for pinned-host configs): its
+        step copies between host and device and updates on the host, which
+        a CUDA graph cannot hold. Nor may a user's optimizer callable:
+        whether its step can be captured cannot be checked. Such a task runs
+        one step at a time (logged once)."""
+        why = ("its state lives in host memory" if self.host_state
+               else "it has a user optimizer callable" if callable(task.hparams.optimizer)
+               else None)
+        if why is None:
+            return True
+        if task.name not in self._eager_noted:
+            self._eager_noted.add(task.name)
+            log.info("%s: task %s runs one step at a time (K = 1): %s", self.name,
+                     task.name, why)
+        return False
 
     def _window(self, task: Any, window_size: Optional[int] = None) -> int:
         """The K of the task's windows, in trials and in ``execute``:
@@ -551,6 +566,9 @@ class SPMDTechnique(BaseTechnique):
             return None, None  # multi-device blocks: a later item
         best: Tuple[Optional[Dict[str, Any]], Optional[float]] = (None, None)
         for config in self.candidate_configs(task, len(devices)):
+            if not self._static_screen(task, devices, config):
+                self.trials.append((task.name, len(devices), dict(config), None, "static"))
+                continue
             t = self._try_config(task, devices, config)
             if t is None:
                 self.trials.append((task.name, len(devices), dict(config), None, "memory"))
@@ -561,6 +579,40 @@ class SPMDTechnique(BaseTechnique):
             if best[1] is None or t < best[1]:
                 best = (dict(config), t)
         return best
+
+    def state_bytes(self, task: Any, config: Dict[str, Any]) -> int:
+        """Bytes of the train state a device-resident config keeps on the
+        device: parameters, their gradients and the optimizer's moments (two
+        per parameter for AdamW and Adam, none for SGD or a user's callable,
+        whose state is unknown), counted from the model on the meta device."""
+        model = task.get_model(**self._model_overrides(config)).abstract_init()
+        params = sum(p.numel() * p.element_size() for p in model.parameters())
+        moments = 2 if task.hparams.optimizer in ("adamw", "adam") else 0
+        return params * (2 + moments)
+
+    def _static_screen(self, task: Any, devices: Sequence[Any],
+                       config: Dict[str, Any]) -> bool:
+        """Whether a config may fit before anything is drawn: the port's
+        counterpart of the JAX package's compile-time ``_fits_memory`` for
+        the plain case. A device-resident config whose ``state_bytes``
+        exceed ``MEMORY_HEADROOM`` of device memory is infeasible without an
+        init (logged). Activations are left to the trial's measured peak;
+        a host-resident state is not screened."""
+        limit = timing.device_memory_bytes(devices[0])
+        if self.host_state or limit <= 0:
+            return True
+        need = self.state_bytes(task, config)
+        if need <= MEMORY_HEADROOM * limit:
+            return True
+        log.info("%s: config %s keeps %.2f GiB of train state (params, grads, optimizer "
+                 "moments) on the device, over %.2f GiB (%.0f%% of %.2f GiB): infeasible "
+                 "before any init", self.name, config, need / 2**30,
+                 MEMORY_HEADROOM * limit / 2**30, 100 * MEMORY_HEADROOM, limit / 2**30)
+        return False
+
+    def _trial_state(self, task: Any, bundle: _Bundle) -> Dict[str, Any]:
+        """The state a trial steps: a fresh init."""
+        return bundle.init()
 
     def _try_config(
         self, task: Any, devices: Sequence[Any], config: Dict[str, Any]
@@ -573,14 +625,15 @@ class SPMDTechnique(BaseTechnique):
         call captures the graph), every window stack staged before the
         timed region. The peak memory is taken over the same program, the
         graph's pool included; the trial's graph and pool are freed after.
-        With K = 1: single steps through ``timing.time_train_step``."""
+        With K = 1: ``trial_steps`` single steps through
+        ``timing.time_train_step``. The state is ``_trial_state``'s."""
         bundle = self.build(task, devices, config)
         dev = bundle.device
         k = self._window(task)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
         timing.reset_peak_memory(dev)
-        state = bundle.init()
+        state = self._trial_state(task, bundle)
         try:
             if k > 1:
                 state, _ = bundle.warm_step(state, bundle.stage(task.batch_at(0)))
@@ -593,10 +646,14 @@ class SPMDTechnique(BaseTechnique):
                                              n_timed=2, n_warmup=1)
             else:
                 batch = bundle.stage(task.batch_at(0))
-                t = timing.time_train_step(bundle.step, state, batch, n_timed=3, n_warmup=2)
+                warm, timed = self.trial_steps
+                t = timing.time_train_step(bundle.step, state, batch, n_timed=timed,
+                                           n_warmup=warm)
             peak = timing.peak_memory_bytes(dev)
-        except torch.cuda.OutOfMemoryError:
+        except torch.cuda.OutOfMemoryError as e:
             log.info("%s: config %s ran out of device memory", self.name, config)
+            # the failed step's frames hold its device tensors
+            traceback.clear_frames(e.__traceback__)
             return None
         finally:
             del state
@@ -649,17 +706,24 @@ class SPMDTechnique(BaseTechnique):
 
         t_begin = timeit.default_timer()
         restored = False
+        if self.host_state:
+            # a host state's checkpoint is written from the live tensors:
+            # they change, and another state is allocated, only after it
+            ckpt.wait(task.ckpt_path)
         # no local keeps the live state: a failed interval's traceback
         # must not hold a train state's memory
         if task._live_state is not None and task._live_state[0] == key:
             state = task._live_state[1]
-        elif task.has_ckpt():
-            state = ckpt.restore(task.ckpt_path, bundle.empty())
-            task.current_batch = task.cursor_for_step(state["step"])
-            restored = True
+            task._live_state = None
         else:
-            state = bundle.init()
-        task._live_state = None
+            # a state of another config goes before the new one is allocated
+            task.release_live_state()
+            if task.has_ckpt():
+                state = ckpt.restore(task.ckpt_path, bundle.empty())
+                task.current_batch = task.cursor_for_step(state["step"])
+                restored = True
+            else:
+                state = bundle.init()
 
         n = int(task.total_batches if override_batch_count is None else override_batch_count)
         k = self._window(task, window_size)
@@ -745,7 +809,7 @@ class SPMDTechnique(BaseTechnique):
                      task.last_losses[-1], per_batch)
         t_save = timeit.default_timer()
         record["run_s"] = t_save - t_all0
-        ckpt.save_async(task.ckpt_path, state)
+        ckpt.save_async(task.ckpt_path, state, snapshot=not self.host_state)
         record["save_s"] = timeit.default_timer() - t_save
         self.intervals.append(record)
         task._live_state = (key, state)

@@ -13,9 +13,13 @@ end the process it simulates.
 
 ``save_async`` takes the host copy at the call and leaves the disk write to
 a thread, one in-flight write per path: every ``load``, ``restore``, second
-write and ``exists`` of that path waits for it first, and a failed write
-re-raises there (or at ``flush``), so a checkpoint that never reached the
-disk is never reported as saved.
+write, ``exists`` and ``wait`` of that path waits for it first, and a failed
+write re-raises there (or at ``flush``), so a checkpoint that never reached
+the disk is never reported as saved. A state that already lives in host
+memory (offload's) is written with ``snapshot=False``: from its live
+tensors, with no second host copy; its owner calls ``wait`` before the
+state changes. ``restore`` copies such a state's checkpoint into its
+tensors in place, from a memory-mapped file.
 
 A ``torch.save`` file is a zip archive with a CRC32 per member: ``verify``
 checks its central directory and every member's CRC without loading a
@@ -172,6 +176,11 @@ def save(path: str, state: Dict[str, Any]) -> None:
     _write(path, _payload(state), barrier=True)
 
 
+def wait(path: str) -> None:
+    """Join the in-flight write of ``path``, if any; re-raise its failure."""
+    _wait_pending(path)
+
+
 def _wait_pending(path: str) -> None:
     """Join the in-flight write of ``path``; re-raise its failure."""
     key = os.path.abspath(path)
@@ -185,12 +194,22 @@ def _wait_pending(path: str) -> None:
         raise RuntimeError(f"async checkpoint write to {path} failed") from err
 
 
-def save_async(path: str, state: Dict[str, Any]) -> None:
+def save_async(path: str, state: Dict[str, Any], snapshot: bool = True) -> None:
     """``save`` with the disk write off the caller's path: the host copy of
     the state is taken here (the caller goes on updating the state in place),
-    ``torch.save`` and the atomic rename run on a thread."""
+    ``torch.save`` and the atomic rename run on a thread. ``snapshot=False``
+    writes the state's own tensors, which must be in host memory and must
+    not change before ``wait(path)`` returns."""
     _wait_pending(path)  # at most one in-flight write per path
-    snap = _to_host(_payload(state))
+    payload = _payload(state)
+    if snapshot:
+        snap = _to_host(payload)
+    else:
+        for t in payload["params"].values():
+            if t.device.type != "cpu":
+                raise ValueError(f"save_async({path!r}, snapshot=False) needs a state in "
+                                 f"host memory; a parameter is on {t.device}")
+        snap = payload
     key = os.path.abspath(path)
 
     def write():
@@ -230,17 +249,18 @@ def exists(path: str) -> bool:
     return os.path.exists(path)
 
 
-def load(path: str, map_location="cpu") -> Dict[str, Any]:
+def load(path: str, map_location="cpu", mmap: bool = False) -> Dict[str, Any]:
     """The saved payload: ``{"params": state_dict, "opt_state":
-    optimizer state_dict, "step": int}``. A missing file raises
-    ``FileNotFoundError``; one that ``torch.load`` cannot read is
-    quarantined and raises :class:`CheckpointCorruptError` (a bit flip in a
-    tensor's bytes passes ``torch.load``: ``verify`` finds it)."""
+    optimizer state_dict, "step": int}``, its tensors memory-mapped from the
+    file with ``mmap``. A missing file raises ``FileNotFoundError``; one
+    that ``torch.load`` cannot read is quarantined and raises
+    :class:`CheckpointCorruptError` (a bit flip in a tensor's bytes passes
+    ``torch.load``: ``verify`` finds it)."""
     _wait_pending(path)
     if not os.path.exists(path):
         raise FileNotFoundError(f"no checkpoint at {path}")
     try:
-        return torch.load(path, map_location=map_location, weights_only=True)
+        return torch.load(path, map_location=map_location, weights_only=True, mmap=mmap)
     except Exception as e:
         sidecar = quarantine(path)
         log.warning("checkpoint %s unreadable (%r); quarantined to %s", path, e, sidecar)
@@ -254,19 +274,48 @@ def saved_step(path: str) -> int:
     return int(torch.load(path, map_location="cpu", weights_only=True, mmap=True)["step"])
 
 
-def restore(path: str, state: Dict[str, Any]) -> Dict[str, Any]:
-    """Load a checkpoint into ``state`` (in place) and return it.
+def _in_place(opt) -> bool:
+    """Whether every parameter of ``opt`` already has its state tensors (a
+    host-resident state allocates them up front, in pinned memory)."""
+    params = [p for g in opt.param_groups for p in g["params"]]
+    return bool(params) and all(opt.state.get(p) for p in params)
 
-    The payload is read to the host; ``load_state_dict`` copies the weights
-    and moments to their parameters' device. It also places each
+
+def restore(path: str, state: Dict[str, Any]) -> Dict[str, Any]:
+    """Load a checkpoint into ``state`` (in place) and return it. A
+    checkpoint restores under any technique whose state has the same
+    parameters: the optimizer keeps its own settings (capturable on the
+    card, fused on the host), only its state is read.
+
+    Where the optimizer already holds its state tensors (a host-resident
+    state), the file is memory-mapped and every tensor is copied into the
+    state's own, so no second host copy of the state is made. Otherwise
+    the payload is read to the host and ``load_state_dict`` copies the
+    weights and moments to their parameters' device, placing each
     optimizer's step counts as that optimizer keeps them: a capturable one
     (every named optimizer of a task on the card, ``HParams.make_optimizer``)
     on the card, where a CUDA graph's optimizer step reads and advances
-    them; any other on the host. The optimizer's state tensors are new
+    them; any other on the host. The optimizer's state tensors are then new
     tensors, so a CUDA graph captured on ``state`` before this call is stale
     (``parallel/spmd_base.py`` captures again)."""
-    saved = load(path)
+    opt = state["opt_state"]
+    in_place = _in_place(opt)
+    saved = load(path, mmap=in_place)
     state["params"].load_state_dict(saved["params"])
-    state["opt_state"].load_state_dict(saved["opt_state"])
+    if in_place:
+        params = [p for g in opt.param_groups for p in g["params"]]
+        with torch.no_grad():
+            for i, per_param in saved["opt_state"]["state"].items():
+                own = opt.state[params[int(i)]]
+                for k, v in per_param.items():
+                    if isinstance(v, torch.Tensor):
+                        own[k].copy_(v)
+                    else:
+                        own[k] = v
+    else:
+        sd = saved["opt_state"]
+        keep = [{k: v for k, v in g.items() if k != "params"} for g in opt.param_groups]
+        sd = dict(sd, param_groups=[dict(g, **own) for g, own in zip(sd["param_groups"], keep)])
+        opt.load_state_dict(sd)
     state["step"] = int(saved["step"])
     return state

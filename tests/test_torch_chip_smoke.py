@@ -712,3 +712,101 @@ def test_call_times_wraps_and_restores(smoke):
         assert holder.f(1) == 2 and holder.f(2) == 3
         assert holder.f is not f
     assert holder.f is f and len(timer.seconds["f"]) == 2
+
+
+# ------------------------------------------------------------------ phase 8
+FREE_B = """               total        used        free      shared  buff/cache   available
+Mem:     103079215104  4294967296 96636764160     1048576  2147483648 98784247808
+Swap:               0           0           0
+"""
+
+
+def test_host_facts_reads_free_nproc_and_df(smoke):
+    facts = smoke.host_facts(FREE_B, "8\n", "       Avail\n 812345678901\n")
+    assert facts == {"mem_total": 103079215104, "mem_available": 98784247808, "cores": 8,
+                     "disk_free": 812345678901}
+
+
+@pytest.mark.parametrize("mem_gib,disk_gb,layers,why", [
+    (120, 200, 28, None),
+    (92, 200, 24, "host memory"),
+    (120, 60, 24, "disk"),
+    (92, 60, 24, "host memory available.*disk"),
+])
+def test_gptj_depth_cuts_depth_only_where_the_host_cannot_hold_it(smoke, mem_gib, disk_gb,
+                                                                  layers, why):
+    got, cut = smoke.gptj_depth({"mem_available": mem_gib * 2**30, "disk_free": disk_gb * 1e9})
+    assert got == layers
+    assert (cut is None) if why is None else re.search(why, cut)
+
+
+def test_split_summary_lines_and_medians(smoke):
+    recs = [dict(step=i + 1, h2d_s=0.5 + i, compute_s=0.2, d2h_s=0.4, update_s=3.0 + i,
+                 step_s=4.2 + 2 * i, h2d_bytes=23_400_000_000, d2h_bytes=23_400_000_000)
+            for i in range(3)]
+    out = smoke.split_summary(recs)
+    assert out["steps"] == 3 and out["median"]["h2d_s"] == 1.5 and out["median"]["update_s"] == 4.0
+    assert out["lines"][0] == ("step 1: host->card 0.500s (23.40 GB), compute 0.200s, "
+                               "card->host 0.400s (23.40 GB), host update 3.000s, step 4.200s")
+    assert smoke.split_summary([])["median"]["step_s"] is None
+
+
+@pytest.mark.parametrize("recompute,fwd", [(True, 2 * 12 * 4), (False, 12 * 4)])
+def test_offload_launches_count_the_recomputed_forward(smoke, recompute, fwd):
+    want = smoke.want_offload_launches(recompute, 4)
+    assert want == {"flash_fwd": fwd, "flash_dq": 48, "flash_dkv": 48,
+                    "ce_fwd": 0, "ce_dx": 0, "ce_dw": 0}
+
+
+def test_technique_searches_sees_each_instance_once(smoke):
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.parallel.offload import HostOffload
+    from saturn_tpu_torch.parallel.spmd_base import SPMDTechnique
+
+    orig = SPMDTechnique.search
+    dp, off = DataParallel(), HostOffload()
+    with smoke.TechniqueSearches() as seen:
+        for tech in (dp, off, dp):
+            assert tech.search(SimpleNamespace(name="t"), ["a", "b"], 0) == (None, None)
+    assert seen.seen == [dp, off] and seen.named("offload") is off
+    assert SPMDTechnique.search is orig
+
+
+def test_offload_launches_scale_with_the_layers(smoke):
+    """GPT-J-6B at 4 layers (phase 8c, the 8b-2 orchestrate): one launch of
+    each flash kernel per layer and step, the forward twice in stream mode."""
+    assert smoke.want_offload_launches(True, 4, 4)["flash_fwd"] == 32
+    assert smoke.want_offload_launches(False, 4, 4) == {
+        "flash_fwd": 16, "flash_dq": 16, "flash_dkv": 16, "ce_fwd": 0, "ce_dx": 0, "ce_dw": 0}
+
+
+def test_bytes_written_counts_write_calls(smoke, tmp_path):
+    before = smoke.bytes_written()
+    (tmp_path / "x.bin").write_bytes(b"\0" * (1 << 20))
+    assert smoke.bytes_written() - before >= 1 << 20
+
+
+def test_bundle_steps_offload_matches_dp_over_the_logits(smoke, tmp_path):
+    """Phase 8c's stepping helper on the CPU at test size: offload bulk and
+    stream follow dp over the logits (the repo's trajectory tolerance) and
+    write no checkpoint."""
+    import numpy as np
+    import torch
+
+    import saturn_tpu_torch as sat
+    from saturn_tpu_torch.data.lm_dataset import make_lm_dataset
+    from saturn_tpu_torch.models.gpt2 import build_gpt2
+
+    task = sat.Task(
+        get_model=lambda **kw: build_gpt2("gptj-test-tiny", **{"dtype": torch.float32, **kw}),
+        get_dataloader=lambda: make_lm_dataset(context_length=64, batch_size=4, vocab_size=256,
+                                               n_tokens=64 * 4 * 8),
+        loss_fn=smoke.untagged_loss, hparams=sat.HParams(lr=1e-3, batch_count=4),
+        name="parity", save_dir=str(tmp_path))
+    cpu = torch.device("cpu")
+    runs = {label: smoke.bundle_steps(cls(), task, config, cpu, 3)
+            for label, cls, config, _ in smoke.parity_programs()}
+    for label in ("offload-stream", "offload-bulk"):
+        np.testing.assert_allclose(runs[label], runs["dp-logits"], rtol=smoke.OFFLOAD_REL)
+    assert len(runs["dp-logits"]) == 3 and np.isfinite(runs["dp-logits"]).all()
+    assert not task.has_ckpt()

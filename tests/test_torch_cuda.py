@@ -26,7 +26,11 @@ launch counts under replay (also with the CE head in recompute mode), a
 capture after a restore and beside a
 staging thread, ``release_task`` giving the pool back; one step of each
 optimizer ``HParams.make_optimizer`` builds, replayed from a graph, against
-the same optimizer without ``capturable`` within 1e-6.
+the same optimizer without ``capturable`` within 1e-6. Host offload on the
+same model over the logits: stream and bulk against dp within 1e-4 per step
+(the first loss bitwise) with exact flash launches, the host state pinned
+with no moment on the card, two block buffers in stream mode, and a bulk
+trial that runs out of device memory infeasible with its memory returned.
 """
 
 import numpy as np
@@ -61,7 +65,10 @@ def cuda_device():
      # one tile; T % 128 == 64; head dim 128 with grouped queries
      (True, 4, 4, 64, 64), (False, 4, 2, 64, 64), (True, 4, 2, 64, 320),
      (False, 4, 4, 64, 320), (True, 8, 2, 128, 320), (False, 8, 2, 128, 320),
-     (False, 8, 2, 128, 64)],
+     (False, 8, 2, 128, 64),
+     # head dim 256 (GPT-J's): dK/dV in two column halves
+     (True, 4, 4, 256, 256), (False, 4, 2, 256, 320), (True, 8, 2, 256, 64),
+     (False, 4, 4, 256, 64)],
 )
 def test_kernels_match_plain(cuda_device, causal, H, KV, D, T):
     rng = np.random.default_rng(H + KV + D + T)
@@ -92,7 +99,7 @@ def test_kernels_match_plain(cuda_device, causal, H, KV, D, T):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("H,KV", [(4, 4), (4, 1)], ids=["mha", "gqa4"])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 # one tile; three tiles (more than the ring's stages); walks of 5 and 32 tiles
 @pytest.mark.parametrize("T", [64, 192, 320, 2048])
 def test_flash_dq_edges(cuda_device, T, D, H, KV, causal):
@@ -788,3 +795,136 @@ def test_release_task_returns_the_pool(cuda_device, tmp_path):
     print(f"reserved: before {before}, with the task {held}, after release {after}")
     assert tech._bundles == {}
     assert held > before and after <= before
+
+
+# ---------------------------------------------------------------- offload
+#: offload against dp over the logits, relative per step (the repo's
+#: trajectory tolerance; the host's fused AdamW rounds otherwise than dp's).
+OFFLOAD_REL = 1e-4
+OFFLOAD_STREAM = {"stream": True, "remat": True}
+OFFLOAD_BULK = {"stream": False, "remat": False}
+
+
+def _untagged(logits, tokens):
+    from saturn_tpu_torch.models.loss import pretraining_loss
+
+    return pretraining_loss(logits, tokens)
+
+
+def _offload_task(tmp_path, name, config, **model):
+    """``_small_task``'s model and data over the logits, under offload
+    (``config``) or dp (``config`` None)."""
+    from saturn_tpu_torch import Strategy
+    from saturn_tpu_torch.parallel.offload import HostOffload
+
+    task, tech = _small_task(tmp_path, name)
+    task.loss_fn = _untagged
+    if model:
+        from saturn_tpu_torch.models.gpt2 import build_gpt2
+
+        task._get_model = lambda **kw: build_gpt2("test-tiny", **{**SMALL, **model, **kw})
+    if config is not None:
+        tech = HostOffload()
+        task.strategies[1] = Strategy(tech, 1, dict(config), 0.0)
+        task.select_strategy(1)
+    return task, tech
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [OFFLOAD_STREAM, OFFLOAD_BULK], ids=["stream", "bulk"])
+def test_offload_losses_match_dp_over_the_logits(cuda_device, tmp_path, config):
+    """Four steps from one init: offload against dp over the logits within
+    OFFLOAD_REL, the first loss bitwise (the same kernels on the same
+    weights), exact flash launches (the forward twice where the blocks are
+    recomputed)."""
+    dp_task, dp = _offload_task(tmp_path, "dp", None)
+    want, _ = _run(dp_task, dp, cuda_device, 4, 1)
+    task, tech = _offload_task(tmp_path, "offload", config)
+    got, launched = _run(task, tech, cuda_device, 4, 1)
+    print(f"offload {config}: {got}; dp {want}")
+    assert got[0] == want[0]
+    np.testing.assert_allclose(got, want, rtol=OFFLOAD_REL, atol=0)
+    layers = SMALL["n_layers"] * 4
+    assert launched == {"flash_fwd": layers * (2 if config["stream"] else 1),
+                        "flash_dq": layers, "flash_dkv": layers,
+                        "ce_fwd": 0, "ce_dx": 0, "ce_dw": 0}
+
+
+@pytest.mark.cuda
+def test_offload_state_is_pinned_and_stays_on_the_host(cuda_device, tmp_path):
+    """After a step every host buffer is pinned, the parameters, gradients and
+    AdamW moments are views of them, no optimizer tensor is on the card, and
+    the card holds nothing of the state."""
+    task, tech = _offload_task(tmp_path, "pinned", OFFLOAD_BULK)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    _run(task, tech, cuda_device, 2, 1)
+    state = task._live_state[1]
+    host = state["host"]
+    assert host.pinned() and set(host.buffers) == {"params", "grads", "exp_avg", "exp_avg_sq"}
+    for p in state["params"].parameters():
+        assert p.device.type == "cpu" and p.is_pinned() and p.grad.is_pinned()
+        for v in state["opt_state"].state[p].values():
+            assert v.device.type == "cpu"
+            assert v.dim() == 0 or v.is_pinned()
+    # the staged batch and the losses are all that may remain on the card
+    assert torch.cuda.memory_allocated(cuda_device) - base < 2**20
+
+
+@pytest.mark.cuda
+def test_stream_prefetch_holds_two_block_buffers(cuda_device, tmp_path, monkeypatch):
+    """Stream mode fetches every block into one of two device buffers of one
+    block each, and frees them with the step."""
+    from saturn_tpu_torch.parallel import offload
+
+    streamers, copies = [], []
+    init, h2d = offload._Streamer.__init__, offload._Mover.h2d
+
+    def spy_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        streamers.append(self)
+
+    def spy_h2d(self, dst, src, after=None):
+        copies.append((dst.data_ptr(), dst.numel()))
+        return h2d(self, dst, src, after)
+
+    monkeypatch.setattr(offload._Streamer, "__init__", spy_init)
+    monkeypatch.setattr(offload._Mover, "h2d", spy_h2d)
+    task, tech = _offload_task(tmp_path, "stream", OFFLOAD_STREAM, n_layers=4)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(cuda_device)
+    _run(task, tech, cuda_device, 1, 1)
+    (streamer,) = streamers
+    layout = task._live_state[1]["host"].layout
+    assert len(streamer.bufs) == 2
+    assert all(b.numel() == layout.block_numel for b in streamer.bufs)
+    slots = {b.data_ptr() for b in streamer.bufs}
+    block_copies = [c for c in copies if c[0] in slots]
+    # forward fetches each of the 4 blocks once; backward fetches again all
+    # but the two its buffers still hold
+    assert len(block_copies) == 4 + 2
+    assert len(copies) == len(block_copies) + len(layout.runs)
+    del streamer, streamers[:]
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda_device) - base < 2**20
+
+
+@pytest.mark.cuda
+def test_oversized_bulk_config_is_infeasible_and_gives_memory_back(cuda_device, tmp_path):
+    """A bulk trial that runs out of device memory makes its config
+    infeasible, and the memory its step held goes back."""
+    task, tech = _offload_task(tmp_path, "oom", OFFLOAD_BULK, d_model=512, n_heads=8,
+                               n_layers=4, vocab_size=8192)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(cuda_device).total_memory
+    base = torch.cuda.memory_allocated(cuda_device)
+    cap = torch.cuda.memory_reserved(cuda_device) + 32 * 2**20  # under the 67 MB shadow
+    torch.cuda.set_per_process_memory_fraction(cap / total, cuda_device)
+    try:
+        assert tech._try_config(task, [cuda_device], OFFLOAD_BULK) is None
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0, cuda_device)
+    tech._shared.clear()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(cuda_device) <= base
