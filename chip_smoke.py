@@ -9,9 +9,11 @@ Phases, in order; any failure is an exception and a non-zero exit:
    capability, and the build of the CUDA kernels from
    ``saturn_tpu_torch/csrc/flash_attn.cu`` and ``csrc/linear_ce.cu`` (one
    ``nvcc`` each, started together), with each kernel's ptxas line and the
-   wgmma / TMA / cp.async / mma.sync instructions in its SASS
-   (``cuobjdump``); the three flash kernels and the CE forward, ds, dx and
-   dW kernels must hold wgmma and TMA tile loads.
+   wgmma / TMA / cp.async / mma.sync / setmaxnreg instructions in its SASS
+   (``cuobjdump``); the flash kernels (the forward at head dim 64 and 128,
+   the head-dim-256 forward, dQ, dK/dV) and the CE forward, ds, dx and dW
+   kernels must hold wgmma and TMA tile loads, the head-dim-256 forward
+   also setmaxnreg.
 2. Kernels against their plain PyTorch versions: flash forward, dQ and
    dK/dV at the GPT-2-small training shape (B 8, H 12, T 512, D 64, bf16,
    causal), a grouped-query shape (B 2, H 32, KV 4, T 1024, D 64), the main
@@ -27,8 +29,9 @@ Phases, in order; any failure is an exception and a non-zero exit:
    b8 x 1024 run: the CE head in recompute mode and its ds kernel at N 8192,
    D 768, V 50304 (seven slabs), the flash kernels at B 8, H 12, T 1024,
    causal; and head dim 256, GPT-J-6B's attention in phase 8b: timed at
-   (B 8, H 16, T 512), causal, checked with grouped queries at T 320, causal
-   and not, and on one tile. Each
+   (B 8, H 16, T 512), causal, checked with grouped queries at T 192 and
+   320, causal and not, on one tile, causal and not, at T 1024 and at B 1,
+   H 1, and the forward run twice bitwise equal. Each
    kernel's device time, the plain version's and the library call's, all
    read from torch.profiler, and the kernel's bound on the card.
    The library call of a forward kernel is the library's forward (SDPA; the
@@ -154,12 +157,18 @@ Phases, in order; any failure is an exception and a non-zero exit:
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
 
-    python3 chip_smoke.py --flash-sweep
+    python3 chip_smoke.py --flash-sweep [--head-dim D] [--root DIR]
 
 builds the kernels and only times the three flash kernels against SDPA's
 forward and backward alone (dQ + dK/dV against the backward) over a sweep
 of sequence lengths and batch sizes (``chiprun_out/flash_sweep.json``): how
-their time scales with the work.
+their time scales with the work. ``--head-dim`` keeps the sweep's rows at
+that head dim. ``--root`` times the port of another checkout instead (a
+``git archive`` of an earlier commit unpacked into a directory that
+``.gitignore`` lists), built from its own sources and not held to this
+script's SASS rules, into ``chiprun_out/flash_sweep_<DIR's name>.json``:
+run it beside this tree's sweep in one call to compare two commits on one
+card.
 
     python3 chip_smoke.py --staging-ab
 
@@ -224,7 +233,9 @@ SOURCES = {
 #: How each kernel's launches begin in a profile (``csrc/flash_attn.cu``,
 #: ``csrc/linear_ce.cu``).
 KERNEL_SYMBOLS = {
-    "flash_fwd": ("(anonymous namespace)::fwd_kernel<",),
+    # fwd_kernel<64>, fwd_kernel<128>; fwd_pingpong_kernel at head dim 256
+    "flash_fwd": ("(anonymous namespace)::fwd_kernel<",
+                  "(anonymous namespace)::fwd_pingpong_kernel("),
     "flash_dq": ("(anonymous namespace)::dq_kernel<",),
     "flash_dkv": ("(anonymous namespace)::dkv_kernel<",),
     "ce_fwd": ("(anonymous namespace)::ce_fwd_",),  # ce_fwd_sm90_kernel<, ce_fwd_combine_kernel
@@ -245,12 +256,16 @@ def log(msg: str) -> None:
 
 
 #: Instructions counted in each kernel's SASS: wgmma, TMA tile loads,
-#: cp.async copies, mma.sync.
-SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA")
+#: cp.async copies, mma.sync, setmaxnreg.
+SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA", "USETMAXREG")
 #: Kernels whose SASS must hold wgmma and TMA tile loads, by source.
-WGMMA_KERNELS = {"flash_attn": ("fwd_kernel", "dq_kernel", "dkv_kernel"),
+WGMMA_KERNELS = {"flash_attn": ("fwd_kernel", "fwd_pingpong_kernel", "dq_kernel",
+                                "dkv_kernel"),
                  "linear_ce": ("ce_fwd_sm90_kernel", "ce_ds_sm90_kernel", "ce_dx_sm90_kernel",
                                "ce_dw_sm90_kernel")}
+#: Of those, the kernels whose SASS must also hold setmaxnreg (their
+#: producer gives registers to their consumers), by source.
+SETMAXREG_KERNELS = {"flash_attn": ("fwd_pingpong_kernel",)}
 
 
 def sass_kernel_name(fn: str):
@@ -279,7 +294,8 @@ def sass_counts(sass: str):
 def check_sass(cuda_build, src: str) -> None:
     """Log, per kernel of the built library, how many of each SASS_OPS
     instruction its SASS holds (``cuobjdump --dump-sass``); raise if a kernel
-    of WGMMA_KERNELS[src] is missing or holds no HGMMA or no UTMALDG."""
+    of WGMMA_KERNELS[src] is missing or holds no HGMMA or no UTMALDG, or one
+    of SETMAXREG_KERNELS[src] holds no USETMAXREG."""
     tool = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", str(cuda_build.library_path(src))], check=True,
                           capture_output=True, text=True, timeout=300).stdout
@@ -292,7 +308,9 @@ def check_sass(cuda_build, src: str) -> None:
         log(f"    SASS {src} {name}: " + ", ".join(f"{op} {n}" for op, n in counts.items()))
         if base in required:
             seen.add(base)
-            missing = [op for op in ("HGMMA", "UTMALDG") if not counts[op]]
+            missing = [op for op in ("HGMMA", "UTMALDG")
+                       + (("USETMAXREG",) if base in SETMAXREG_KERNELS.get(src, ()) else ())
+                       if not counts[op]]
             if missing:
                 raise AssertionError(f"{name} in {src}: no {' or '.join(missing)} in its SASS")
     if seen != required:
@@ -824,19 +842,22 @@ def check_ds(ce, N, D, V, seed, timed):
 
 
 #: (B, H, T, D, causal) of the flash sweep: T at the main batch, causal and
-#: not; the batch at the main T; head dim 128.
+#: not; the batch at the main T; head dim 128; head dim 256 at GPT-J-6B's
+#: heads, causal T at b8 and T 512 not.
 SWEEP = ([(BATCH, 12, T, 64, True) for T in (64, 128, 256, 512, 1024, 2048, 4096)]
          + [(BATCH, 12, T, 64, False) for T in (128, 256, 512, 1024)]
          + [(B, 12, SEQ, 64, True) for B in (1, 2, 4, 16, 32)]
-         + [(4, 16, T, 128, True) for T in (512, 2048)])
+         + [(4, 16, T, 128, True) for T in (512, 2048)]
+         + [(BATCH, 16, T, 256, True) for T in (512, 1024, 2048)]
+         + [(BATCH, 16, SEQ, 256, False)])
 
 
-def flash_sweep(flash):
+def flash_sweep(flash, sweep=SWEEP):
     """Device times of the three flash kernels and of SDPA's forward and
-    backward alone over SWEEP; the forward's rate in TFLOP/s, and dQ + dK/dV
-    against SDPA's backward alone."""
+    backward alone over ``sweep`` (rows of SWEEP); the forward's rate in
+    TFLOP/s, and dQ + dK/dV against SDPA's backward alone."""
     rows = []
-    for B, H, T, D, causal in SWEEP:
+    for B, H, T, D, causal in sweep:
         q, k, v, do = kernel_inputs(B, H, H, T, D, 0)
         o, lse = flash.flash_fwd(q, k, v, causal, H, H)
         delta = (do.float() * o.float()).sum(-1)
@@ -870,14 +891,27 @@ GPTJ_ATTN = (BATCH, 16, 16, SEQ, 256)
 
 
 def check_head_dim_256(flash):
-    """The flash kernels at head dim 256: timed at GPT-J-6B's shape (causal),
-    checked with grouped queries over a ragged walk (T 320), causal and not,
-    and on one tile."""
+    """The flash kernels at head dim 256: timed at GPT-J-6B's shape (causal);
+    checked with grouped queries where T % 128 == 64 (the last q block's
+    second warpgroup has no rows: T 192, 320), causal and not, on one tile,
+    over walks of 16 (T 1024) and on a grid of four blocks (B 1, H 1); the
+    forward twice at GPT-J's shape, bitwise equal."""
     rows = check_kernels(flash, GPTJ_ATTN, True, 16, timed=True)
     for seed, (shape, causal) in enumerate((((2, 8, 2, 320, 256), True),
                                             ((2, 8, 2, 320, 256), False),
-                                            ((2, 4, 4, 64, 256), True)), start=17):
+                                            ((2, 8, 2, 192, 256), True),
+                                            ((2, 8, 2, 192, 256), False),
+                                            ((2, 4, 4, 64, 256), True),
+                                            ((2, 4, 4, 64, 256), False),
+                                            ((2, 16, 16, 1024, 256), True),
+                                            ((1, 1, 1, SEQ, 256), True)), start=17):
         check_kernels(flash, shape, causal, seed, timed=False)
+    B, H, KV, T, D = GPTJ_ATTN
+    q, k, v, _ = kernel_inputs(B, H, KV, T, D, 16)
+    first, second = flash.flash_fwd(q, k, v, True, H, KV), flash.flash_fwd(q, k, v, True, H, KV)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"flash forward at {GPTJ_ATTN}: two runs on the same inputs differ")
+    log(f"  flash forward at (B,H,KV,T,D)={GPTJ_ATTN}: two runs bitwise equal")
     return rows
 
 
@@ -2444,12 +2478,20 @@ def offload_phase(sat, flash, ce, card) -> dict:
     return out
 
 
+def option(argv, name: str, default=None):
+    """The value after ``name`` in ``argv``, or ``default``."""
+    return argv[argv.index(name) + 1] if name in argv else default
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
+    root = os.path.abspath(option(argv, "--root", REPO))  # whose port: --flash-sweep only
+    if root != REPO and "--flash-sweep" not in argv:
+        raise SystemExit("chip_smoke: --root goes with --flash-sweep")
+    sys.path.insert(0, root)
     import saturn_tpu_torch as sat
     from saturn_tpu_torch.ops import ce, flash
     from saturn_tpu_torch.utils import cuda_build
@@ -2480,12 +2522,18 @@ def main(argv) -> int:
             if ("registers" in line or "spill" in line or "(C751" in line
                     or "Performance Loss" in line):
                 log(f"    ptxas {src}: {line.strip()}")
-        check_sass(cuda_build, src)
+        if root == REPO:
+            check_sass(cuda_build, src)
     if "--flash-sweep" in argv:
-        log("flash sweep")
-        rows = flash_sweep(flash)
-        with open(os.path.join(OUT, "flash_sweep.json"), "w") as f:
-            json.dump({"card": card, "kind": kind, "rows": rows}, f, indent=1)
+        head_dim = option(argv, "--head-dim")
+        log(f"flash sweep of the port in {root}"
+            + (f", head dim {head_dim}" if head_dim else ""))
+        rows = flash_sweep(flash, [row for row in SWEEP
+                                   if head_dim is None or row[3] == int(head_dim)])
+        name = ("flash_sweep.json" if root == REPO
+                else f"flash_sweep_{os.path.basename(root)}.json")
+        with open(os.path.join(OUT, name), "w") as f:
+            json.dump({"card": card, "kind": kind, "root": root, "rows": rows}, f, indent=1)
         return 0
     if "--staging-ab" in argv:
         log("staging: inline against a thread")

@@ -34,9 +34,10 @@
 //   it with the tile STAGES ahead, so loads run under the math of the tiles
 //   before. The forward's and dQ's K and V tiles have rings of their own (a
 //   stage of each frees once its last product is done). There is no
-//   producer warp: it would hold a consumer's register count while it
-//   waits, and a block of 128 threads instead of 160 lets 4 forward or dQ
-//   blocks (3 dK/dV blocks) share an SM at D 64 instead of 3 (2).
+//   producer warp (but in the head-dim-256 forward, below): it would hold a
+//   consumer's register count while it waits, and a block of 128 threads
+//   instead of 160 lets 4 forward or dQ blocks (3 dK/dV blocks) share an SM
+//   at D 64 instead of 3 (2).
 // - One warpgroup per 64-row tile runs the products on wgmma m64n64k16
 //   (bf16 in, f32 accumulate): S = Q K^T (fwd, dQ), dP = dO V^T (dQ), S^T =
 //   K Q^T and dP^T = V dO^T (dK/dV) with both operands read K-major from
@@ -64,13 +65,24 @@
 //   and dO tiles and their lse and delta rows (bulk copies); dQ reads each
 //   thread's two lse and delta values once.
 //
-// Head dim 256 (GPT-J's): the same three kernels with D / 64 = 4 column
-// blocks a tile. One block's shared memory then takes most of an SM (165 KB
-// forward, 198 KB dQ and dK/dV: one block an SM). The forward's and dQ's
-// accumulators fit the registers (128 f32 a thread); dK/dV's two would take
+// Head dim 256 (GPT-J's): dQ and dK/dV are the same kernels with D / 64 = 4
+// column blocks a tile (198 KB of shared memory: one block an SM). dQ's
+// accumulator fits the registers (128 f32 a thread); dK/dV's two would take
 // 256, so at D 256 a dK/dV block owns 128 of the D columns of dk and dv
 // (dkv_cols; grid.z = D / 128): each such block forms the full-depth S^T
-// and dP^T, and the pair of them does those two products twice.
+// and dP^T, and the pair of them does those two products twice. The
+// forward is a kernel of its own, fwd_pingpong_kernel. fwd_kernel widened
+// to D 256 held one warpgroup an SM (165 KB), so the SM's tensor cores
+// idled whenever it formed a softmax, rescaled its 128 accumulators, waited
+// for its first 64 KB or stored O, and every 64-row tile read its head's K
+// and V through a ring of its own. A block of fwd_pingpong_kernel owns 128
+// q rows (197 KB): two consumer warpgroups of 64 rows share the K and V
+// rings, so each stage feeds both, and take turns on the tensor cores,
+// ordered by named barriers: one's products (S_j with P_{j-1} V_{j-1}) run
+// while the other forms its softmax. A producer warpgroup, whose registers
+// setmaxnreg gives to the consumers, issues every load; P V is one
+// m64n256k16 product per 16 kv rows; O goes through the consumer's Q tile
+// to one TMA store.
 //
 // Layout: q, o, do, dq are (B*H, T, D) and k, v, dk, dv are (B*KV, T, D),
 // bf16, row stride `*_st` and head stride `*_sh` in elements, rows and base
@@ -111,7 +123,7 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // -------------------------------------------------------- TMA rings, wgmma
 constexpr int STAGES = 2;          // depth of the rings of walked tiles
-constexpr int WG_THREADS = 128;    // one warpgroup a block; its thread 0 issues the loads
+constexpr int WG_THREADS = 128;    // a warpgroup: the whole block but in fwd_pingpong_kernel
 
 // Shared memory of fwd_kernel; every tile 1024-byte aligned (sm90.cuh). K and
 // V have rings of their own: a K stage is free once its scores are formed, a
@@ -426,6 +438,245 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   }
 }
 
+// ------------------------------------------------- forward at head dim 256
+// A block owns 128 q rows (PP_ROWS) in two consumer warpgroups of 64 rows,
+// which share one K ring and one V ring, and a producer warpgroup that
+// issues the loads.
+constexpr int PP_D = 256;
+constexpr int PP_CONSUMERS = 2;
+constexpr int PP_ROWS = PP_CONSUMERS * TILE;
+constexpr int PP_THREADS = (1 + PP_CONSUMERS) * WG_THREADS;
+// Registers a thread after setmaxnreg: 128 x 24 + 256 x 240 = 64512, what
+// __launch_bounds__(384, 1) gives the block (168 a thread).
+constexpr int PP_PRODUCER_REGS = 24;
+constexpr int PP_CONSUMER_REGS = 240;
+// Named barriers: 1 + c, consumer c's turn to issue products (both
+// consumers' 256 threads); 3 + c, consumer c's 128 threads before its O store.
+constexpr int BAR_TURN = 1;
+constexpr int BAR_STORE = 3;
+
+struct PingPongSmem {
+  bf16 q[PP_CONSUMERS][TILE * PP_D];  // consumer c's Q tile, then its O tile
+  bf16 k[STAGES][TILE * PP_D];
+  bf16 v[STAGES][TILE * PP_D];
+  uint64_t q_full[PP_CONSUMERS], k_full[STAGES], k_empty[STAGES], v_full[STAGES],
+      v_empty[STAGES];
+};
+
+// Kv tiles consumer c walks in q block ib: up to its diagonal tile 2 ib + c
+// (causal) or all of them; none where its rows lie past T.
+__device__ __forceinline__ int pp_walk(int ib, int c, int n_tiles, int causal) {
+  if (2 * ib + c >= n_tiles) return 0;
+  return causal ? 2 * ib + c + 1 : n_tiles;
+}
+
+// The order in which the consumers issue their products: turn k of
+// consumer 0 after turn k - 1 of consumer 1, turn k of consumer 1 after turn
+// k of consumer 0, so one's products run while the other forms its softmax.
+// A consumer takes walk + 1 turns (the last: P V of its last tile), none
+// when it walks none; `other` is the other one's count, and a turn waits for
+// / signals only a turn that exists, so every barrier phase is full.
+__device__ __forceinline__ void turn_begin(int c, int k, int other) {
+  if (c == 0 ? k >= 1 && k - 1 < other : k < other)
+    sm90::bar_sync(BAR_TURN + c, PP_CONSUMERS * WG_THREADS);
+}
+__device__ __forceinline__ void turn_end(int c, int k, int other) {
+  if (c == 0 ? k < other : k + 1 < other)
+    sm90::bar_arrive(BAR_TURN + 1 - c, PP_CONSUMERS * WG_THREADS);
+}
+
+// O (64 x 256 f32) += P V: P the register operand, V one m64n256k16 product
+// per 16 kv rows, read MN-major across its four column blocks.
+__device__ __forceinline__ void product_pv(float (&acc)[4][32], const uint32_t (&pa)[16],
+                                           const bf16* v) {
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk)
+    sm90::wgmma_rs_n256(acc, pa + 4 * kk, sm90::desc_mn(v, kk));
+}
+
+// Consumer c of a ping-pong block: the online softmax over kv tiles 0..n-1
+// (n >= 1) of its 64 q rows from q row `row0`, as fwd_kernel runs it (S_j
+// issued with P_{j-1} V_{j-1}), in turns with the other consumer; then O,
+// normalised, through its Q tile to one TMA store, and lse. `tid` is the
+// thread's index in its warpgroup.
+__device__ __forceinline__ void pp_consume(PingPongSmem& sm, const CUtensorMap* o_map,
+                                           float* __restrict__ lse, int c, int n, int other,
+                                           int diag, int bh, int row0, int T, float scale,
+                                           int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
+  const float scale_log2 = scale * LOG2E;
+  const bf16* q = sm.q[c];
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
+  float acc[4][32], sc[32];
+  uint32_t pa[16];
+#pragma unroll
+  for (int cb = 0; cb < 4; ++cb) zero(acc[cb]);
+  sm90::mbar_wait(&sm.q_full[c], 0);
+
+  sm90::mbar_wait(&sm.k_full[0], 0);
+  zero(sc);
+  sm90::fence_regs(sc);
+  turn_begin(c, 0, other);
+  sm90::wgmma_fence();
+  product_ss<PP_D>(sc, q, sm.k[0]);
+  sm90::wgmma_commit();
+  turn_end(c, 0, other);
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sc);
+  sm90::mbar_arrive(&sm.k_empty[0]);
+  softmax_step(sc, m, l, corr, scale_log2, diag == 0, r0, t);
+  to_operand(pa, sc);
+
+  for (int jk = 1; jk < n; ++jk) {
+    const int s = jk % STAGES, sp = (jk - 1) % STAGES;
+    sm90::mbar_wait(&sm.k_full[s], (jk / STAGES) & 1);
+    sm90::mbar_wait(&sm.v_full[sp], ((jk - 1) / STAGES) & 1);
+    zero(sc);
+    sm90::fence_regs(sc);
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+    turn_begin(c, jk, other);
+    sm90::wgmma_fence();
+    product_ss<PP_D>(sc, q, sm.k[s]);
+    sm90::wgmma_commit();
+    product_pv(acc, pa, sm.v[sp]);
+    sm90::wgmma_commit();
+    turn_end(c, jk, other);
+    sm90::wgmma_wait<1>();  // the scores; O += P V still in flight
+    sm90::fence_regs(sc);
+    sm90::mbar_arrive(&sm.k_empty[s]);
+    softmax_step(sc, m, l, corr, scale_log2, jk == diag, r0, t);
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+    sm90::fence_regs(pa);
+    sm90::mbar_arrive(&sm.v_empty[sp]);
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[cb][i] *= corr[(i >> 1) & 1];
+    to_operand(pa, sc);
+  }
+
+  const int last = (n - 1) % STAGES;
+  sm90::mbar_wait(&sm.v_full[last], ((n - 1) / STAGES) & 1);
+#pragma unroll
+  for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+  turn_begin(c, n, other);
+  sm90::wgmma_fence();
+  product_pv(acc, pa, sm.v[last]);
+  sm90::wgmma_commit();
+  turn_end(c, n, other);
+  sm90::wgmma_wait<0>();
+#pragma unroll
+  for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+  sm90::fence_regs(pa);
+  sm90::mbar_arrive(&sm.v_empty[last]);
+
+  // O into the Q tile (its last product is done), in the layout TMA loaded
+  // it: column block cb at 8 KB cb, row r at 128 r bytes, its 16-byte chunks
+  // swizzled by r % 8 (here lane / 4): a warp's 32 stores hit 32 banks.
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] = quad_sum(l[h]);
+    inv[h] = 1.f / l[h];
+  }
+  unsigned char* o_tile = reinterpret_cast<unsigned char*>(sm.q[c]);
+#pragma unroll
+  for (int cb = 0; cb < 4; ++cb)
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        *reinterpret_cast<uint32_t*>(o_tile + cb * sm90::BLOCK_BYTES + r * 128 +
+                                     ((nn ^ (r & 7)) << 4) + 4 * t) =
+            pack_bf16(acc[cb][4 * nn + 2 * h] * inv[h], acc[cb][4 * nn + 2 * h + 1] * inv[h]);
+      }
+  sm90::fence_proxy_async();
+  sm90::bar_sync(BAR_STORE + c, WG_THREADS);
+  if (tid == 0) {
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb)
+      sm90::tma_store_3d(o_map, sm.q[c] + cb * TILE * sm90::BOX, cb * sm90::BOX, row0, bh);
+    sm90::bulk_commit();
+  }
+  if (t == 0) {
+    const size_t row = (size_t)bh * T + row0 + r0;
+    lse[row] = scale * m[0] + logf(l[0]);
+    lse[row + 8] = scale * m[1] + logf(l[1]);
+  }
+  if (tid == 0) sm90::bulk_wait_read();  // the block's shared memory outlives the store's read
+}
+
+// The head-dim-256 forward (GPT-J's): one block per (bh, 128-row q block),
+// in q_tile_of_block's order over q blocks; o = softmax(scale q k^T) v,
+// lse = scale m + log l, as fwd_kernel computes them. Warpgroup 0 produces:
+// its thread 0 loads both Q tiles and walks the K ring, its thread 32 the V
+// ring, each over the kv tiles of the longer walk, so that every stage
+// serves both consumers. Warpgroups 1 and 2 consume, rows 0-63 and 64-127,
+// in turns. A consumer frees each stage it walks after its product, and the
+// stages of the tiles it does not walk (consumer 0's last tile on a causal
+// block, every tile where its rows lie past T) once they have arrived.
+__global__ void __launch_bounds__(PP_THREADS, 1)
+fwd_pingpong_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap o_map, float* __restrict__ lse, int BH,
+                    int T, int H, int KV, float scale, int causal, int group) {
+  PingPongSmem& sm = *reinterpret_cast<PingPongSmem*>(sm90::smem_1024());
+  const int n_tiles = T / TILE;
+  const auto [bh, ib] = q_tile_of_block(BH, (n_tiles + 1) / 2, group, causal);
+  const int bkv = (bh / H) * KV + (bh % H) / (H / KV);
+  const int walk0 = pp_walk(ib, 0, n_tiles, causal), walk1 = pp_walk(ib, 1, n_tiles, causal);
+  const int n_kv = max(walk0, walk1);
+  if (threadIdx.x == 0) {
+    for (int c = 0; c < PP_CONSUMERS; ++c) sm90::mbar_init(&sm.q_full[c], 1);
+    for (int st = 0; st < STAGES; ++st) {
+      sm90::mbar_init(&sm.k_full[st], 1);
+      sm90::mbar_init(&sm.v_full[st], 1);
+      sm90::mbar_init(&sm.k_empty[st], PP_CONSUMERS * WG_THREADS);
+      sm90::mbar_init(&sm.v_empty[st], PP_CONSUMERS * WG_THREADS);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  if (wg == 0) {
+    sm90::setmaxnreg_dec<PP_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {  // Q of consumer 0, K of tile 0, Q of consumer 1, the K ring
+      sm90::mbar_expect_tx(&sm.q_full[0], TILE * PP_D * 2);
+      load_tile_tma<PP_D>(sm.q[0], &q_map, &sm.q_full[0], ib * PP_ROWS, bh);
+      load_ring<PP_D>(sm.k, sm.k_full, sm.k_empty, &k_map, 0, bkv);
+      if (walk1 > 0) {
+        sm90::mbar_expect_tx(&sm.q_full[1], TILE * PP_D * 2);
+        load_tile_tma<PP_D>(sm.q[1], &q_map, &sm.q_full[1], ib * PP_ROWS + TILE, bh);
+      }
+      for (int j = 1; j < n_kv; ++j) load_ring<PP_D>(sm.k, sm.k_full, sm.k_empty, &k_map, j, bkv);
+    } else if (threadIdx.x == 32) {
+      for (int j = 0; j < n_kv; ++j) load_ring<PP_D>(sm.v, sm.v_full, sm.v_empty, &v_map, j, bkv);
+    }
+  } else {
+    sm90::setmaxnreg_inc<PP_CONSUMER_REGS>();
+    const int c = wg - 1, n = c == 0 ? walk0 : walk1, n_other = c == 0 ? walk1 : walk0;
+    const int other = n_other > 0 ? n_other + 1 : 0;  // the other consumer's turns
+    if (n > 0)
+      pp_consume(sm, &o_map, lse, c, n, other, causal ? 2 * ib + c : -1, bh,
+                 ib * PP_ROWS + c * TILE, T, scale, threadIdx.x - wg * WG_THREADS);
+    for (int j = n; j < n_kv; ++j) {
+      const int s = j % STAGES, parity = (j / STAGES) & 1;
+      sm90::mbar_wait(&sm.k_full[s], parity);
+      sm90::mbar_arrive(&sm.k_empty[s]);
+      sm90::mbar_wait(&sm.v_full[s], parity);
+      sm90::mbar_arrive(&sm.v_empty[s]);
+    }
+  }
+}
+
 // ----------------------------------------------------------------------- dQ
 // dS = P o (dP - delta), in place of the raw scores sc (q rows r0 and r0 + 8
 // by kv columns), with P = exp(scale sc - lse) as one FFMA and one ex2 (lse2
@@ -691,6 +942,21 @@ int launch_fwd(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& 
   return (int)cudaGetLastError();
 }
 
+int launch_fwd_pingpong(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                        const CUtensorMap& om, void* lse, int BH, int T, int H, int KV,
+                        float scale, int causal, cudaStream_t s) {
+  constexpr int smem = smem_bytes<PingPongSmem>();
+  const cudaError_t err = allow_smem(fwd_pingpong_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  // causal: heavy first across heads that share the L2; full: a head's q
+  // blocks one after another (group 1), so that those reading its k and v
+  // run together
+  fwd_pingpong_kernel<<<BH * ((T / TILE + 1) / 2), PP_THREADS, smem, s>>>(
+      qm, km, vm, om, (float*)lse, BH, T, H, KV, scale, causal,
+      causal ? l2_group(BH, T, PP_D) : 1);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_dq(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
               const CUtensorMap& dom, const void* lse, const void* delta, void* dq,
@@ -735,13 +1001,16 @@ int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
       (err = sm90::encode_tile_map(&vm, v, D, T, BKV, kv_st, kv_sh)))
     return err;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SATURN_FWD(d) launch_fwd<d>(qm, km, vm, o, lse, q_sh, q_st, BH, T, H, KV, scale, causal, s)
   switch (D) {
-    case 64: return SATURN_FWD(64);
-    case 128: return SATURN_FWD(128);
-    default: return SATURN_FWD(256);
+    case 64: return launch_fwd<64>(qm, km, vm, o, lse, q_sh, q_st, BH, T, H, KV, scale, causal, s);
+    case 128:
+      return launch_fwd<128>(qm, km, vm, o, lse, q_sh, q_st, BH, T, H, KV, scale, causal, s);
+    default: {
+      CUtensorMap om;
+      if ((err = sm90::encode_tile_map(&om, o, D, T, BH, q_st, q_sh))) return err;
+      return launch_fwd_pingpong(qm, km, vm, om, lse, BH, T, H, KV, scale, causal, s);
+    }
   }
-#undef SATURN_FWD
 }
 
 int flash_dq(const void* q, const void* k, const void* v, const void* dout,

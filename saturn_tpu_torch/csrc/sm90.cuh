@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
-// mbarriers, TMA tile loads and stores and the host-side tensor-map encodes,
-// wgmma shared-memory descriptors, the m64n64k16 and m64n256k16 bf16 products
-// (each with A from shared memory or from registers), ldmatrix, plain and
-// transposed, and stmatrix.
+// mbarriers, named barriers and setmaxnreg, TMA tile loads and stores and the
+// host-side tensor-map encodes, wgmma shared-memory descriptors, the
+// m64n64k16 and m64n256k16 bf16 products (each with A from shared memory or
+// from registers), ldmatrix, plain and transposed, and stmatrix.
 //
 // Tiles: a 64-row bf16 tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B
 // from 64 x 64 boxes (encode_tile_map) lies in shared memory as D / 64
@@ -85,6 +85,29 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (clock64() - t0 > (1ll << 33))
       asm volatile("st.global.u32 [%0], %1;\n" ::"l"(0ull), "r"(0) : "memory");
   }
+}
+
+// --------------------------------------------------- named barriers, registers
+// Named barrier `id` (1-15: __syncthreads takes 0) of `threads` threads, a
+// multiple of 32: bar_sync waits until that many have arrived or synced,
+// bar_arrive counts this thread's warp and goes on.
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Give back registers down to N a thread / take them up to N, for the whole
+// warpgroup (its four warps execute it together). A kernel that uses them
+// branches once into its roles and never reconverges, or ptxas ignores them.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // 2^x on the special-function unit (ex2.approx, denormals flushed).

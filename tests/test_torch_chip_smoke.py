@@ -40,6 +40,7 @@ FLASH_DKV = (FLASH_NS
 DQ_TAIL = "EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16xiiiiifii"
 FLASH_DQ64 = FLASH_NS + "9dq_kernelILi64" + DQ_TAIL
 FLASH_DQ128 = FLASH_NS + "9dq_kernelILi128" + DQ_TAIL
+FLASH_FWD_PP = FLASH_NS + "19fwd_pingpong_kernelE14CUtensorMap_stS0_S0_S0_Pfiiiifii"
 HOPPER_FLASH = (FLASH_FWD, FLASH_DQ64, FLASH_DQ128, FLASH_DKV)
 
 
@@ -58,6 +59,7 @@ HOPPER_FLASH = (FLASH_FWD, FLASH_DQ64, FLASH_DQ128, FLASH_DKV)
     (FLASH_FWD, ("fwd_kernel", "64")),
     (FLASH_DQ64, ("dq_kernel", "64")),
     (FLASH_DQ128, ("dq_kernel", "128")),
+    (FLASH_FWD_PP, ("fwd_pingpong_kernel", None)),
     ("_Z9somethingv", ("_Z9somethingv", None)),
 ])
 def test_sass_kernel_name(smoke, fn, name):
@@ -68,6 +70,13 @@ def _sass(ops, fns=HOPPER_CE):
     """A SASS dump in which each function of ``fns`` holds ``ops``."""
     body = "".join(f"        /*0010*/ {op} R0, R1 ;\n" for op in ops)
     return "".join(f"\t\tFunction : {fn}\n" + body for fn in fns)
+
+
+def _flash_sass(ops, pingpong=("HGMMA.64x256x16.F32.BF16", "UTMALDG.3D", "USETMAXREG.DEALLOC"),
+                fns=HOPPER_FLASH):
+    """A dump of the flash kernels ``fns``, each holding ``ops``, and of the
+    head-dim-256 forward holding ``pingpong`` (None: left out)."""
+    return _sass(ops, fns=fns) + ("" if pingpong is None else _sass(pingpong, fns=(FLASH_FWD_PP,)))
 
 
 def _fake_dump(smoke, monkeypatch, tmp_path, sass):
@@ -324,17 +333,45 @@ def test_counted_profile_retakes_a_slab_loop_out_of_shape(smoke, monkeypatch, ba
 
 def test_check_sass_holds_the_flash_kernels_to_wgmma_and_tma(smoke, monkeypatch, tmp_path):
     """A dump of the forward, dQ (both head dims) and dK/dV kernels, each
-    with wgmma and TMA tile loads, passes."""
-    sass = _sass(["HGMMA.64x64x16.F32.BF16", "UTMALDG.3D"], fns=HOPPER_FLASH)
+    with wgmma and TMA tile loads, and of the head-dim-256 forward, also with
+    setmaxnreg, passes."""
+    sass = _flash_sass(["HGMMA.64x64x16.F32.BF16", "UTMALDG.3D"])
     smoke.check_sass(_fake_dump(smoke, monkeypatch, tmp_path, sass), "flash_attn")
 
 
 def test_check_sass_requires_the_dq_kernel(smoke, monkeypatch, tmp_path):
     """Without dq_kernel the flash source fails, naming it."""
     fns = [fn for fn in HOPPER_FLASH if fn not in (FLASH_DQ64, FLASH_DQ128)]
-    sass = _sass(["HGMMA.64x64x16.F32.BF16", "UTMALDG.3D"], fns=fns)
+    sass = _flash_sass(["HGMMA.64x64x16.F32.BF16", "UTMALDG.3D"], fns=fns)
     build = _fake_dump(smoke, monkeypatch, tmp_path, sass)
     with pytest.raises(AssertionError, match=re.escape("no SASS found for {'dq_kernel'}")):
+        smoke.check_sass(build, "flash_attn")
+
+
+def test_check_sass_requires_the_pingpong_forward(smoke, monkeypatch, tmp_path):
+    """Without fwd_pingpong_kernel (the head-dim-256 forward) the flash
+    source fails, naming it, though every other flash kernel is there."""
+    sass = _flash_sass(["HGMMA.64x64x16.F32.BF16", "UTMALDG.3D"], pingpong=None)
+    build = _fake_dump(smoke, monkeypatch, tmp_path, sass)
+    with pytest.raises(AssertionError,
+                       match=re.escape("no SASS found for {'fwd_pingpong_kernel'}")):
+        smoke.check_sass(build, "flash_attn")
+
+
+@pytest.mark.parametrize("ops,error", [
+    (["HGMMA.64x256x16.F32.BF16", "UTMALDG.3D"], "no USETMAXREG"),
+    (["UTMALDG.3D", "USETMAXREG.TRY_ALLOC"], "no HGMMA"),
+    (["HMMA.16816.F32.BF16"], "no HGMMA or UTMALDG or USETMAXREG"),
+])
+def test_check_sass_holds_the_pingpong_forward_to_setmaxnreg(smoke, monkeypatch, tmp_path, ops,
+                                                             error):
+    """The head-dim-256 forward must hold wgmma, TMA tile loads and
+    setmaxnreg (its producer gives its registers to the consumers): one
+    without fails, named, though the other flash kernels hold theirs."""
+    sass = _flash_sass(["HGMMA.64x64x16.F32.BF16", "UTMALDG.3D"], pingpong=ops)
+    build = _fake_dump(smoke, monkeypatch, tmp_path, sass)
+    with pytest.raises(AssertionError,
+                       match=re.escape(f"fwd_pingpong_kernel in flash_attn: {error}")):
         smoke.check_sass(build, "flash_attn")
 
 
@@ -372,6 +409,37 @@ def test_step_kernels_counts_each_flash_kernel(smoke):
                                  "device_ms_per_step": pytest.approx(ms)}
     for name in ("ce_fwd", "ce_dx", "ce_dw"):
         assert kernels[name] == {"launches_per_step": 0.0, "device_ms_per_step": 0.0}
+
+
+def test_step_kernels_counts_the_pingpong_forward(smoke):
+    """At head dim 256 the forward is fwd_pingpong_kernel: one launch of
+    ``flash_fwd`` per event, beside dQ and dK/dV at 256."""
+    ns = "(anonymous namespace)::"
+    step = [
+        (ns + "fwd_pingpong_kernel(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, float*, "
+         "int, int, int, int, float, int, int)", 0.0, 57.0),
+        (ns + "dq_kernel<256>(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, float const*, "
+         "float const*, __nv_bfloat16*, long long, int, int, int, int, int, float, int, int)",
+         100.0, 210.0),
+        (ns + "dkv_kernel<256>(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, float const*, "
+         "float const*, __nv_bfloat16*, __nv_bfloat16*, long long, int, int, int, int, float, "
+         "int)", 210.0, 475.0),
+    ]
+    events = step + [(n, a + 1000.0, b + 1000.0) for n, a, b in step]
+    kernels = smoke.step_kernels(events, 2)
+    for name, ms in (("flash_fwd", 0.057), ("flash_dq", 0.110), ("flash_dkv", 0.265)):
+        assert kernels[name] == {"launches_per_step": 1.0,
+                                 "device_ms_per_step": pytest.approx(ms)}
+
+
+def test_flash_sweep_rows_at_head_dim_256(smoke):
+    """The sweep holds GPT-J's heads at head dim 256 (B 8, H 16): causal T
+    512, 1024 and 2048 and non-causal T 512; ``--head-dim`` picks them."""
+    rows = [row for row in smoke.SWEEP if row[3] == int(smoke.option(
+        ["--flash-sweep", "--head-dim", "256"], "--head-dim"))]
+    assert rows == [(8, 16, 512, 256, True), (8, 16, 1024, 256, True),
+                    (8, 16, 2048, 256, True), (8, 16, 512, 256, False)]
+    assert smoke.option(["--flash-sweep"], "--root", "repo") == "repo"
 
 
 def _interval(task, config, k=8, windows=1, restored=False):

@@ -9,7 +9,10 @@ bf16 inputs. The flash kernels are held to their plain versions at the
 bounds of ``chip_smoke.check_kernels`` (lse absolute, o within one bf16 step,
 gradients by relative norm), the dQ kernel also at its edges (one tile to
 walks of 32, D 64 and 128, grouped queries, a planted score per row in a
-late kv tile); the end-to-end attention gradients in the bf16 band of
+late kv tile), the head-dim-256 forward (``fwd_pingpong_kernel``) at its
+edges (one tile, T % 128 == 64 with grouped queries, walks of 16, a grid of
+four blocks), with dQ and dK/dV on its lse, and run twice bitwise equal;
+the end-to-end attention gradients in the bf16 band of
 ``tests/test_flash.py`` (2e-2). The CE kernels by relative norm,
 the dx and dW kernels at their edges in both modes (D tile widths, V and N
 that no tile divides, ignored rows, the softmax part alone, a non-uniform
@@ -143,6 +146,64 @@ def test_flash_dq_edges(cuda_device, T, D, H, KV, causal):
     planted = torch.as_tensor(target * 64, device=cuda_device)
     s = (q.float() * k[kv_of][:, planted].float()).sum(-1) / D ** 0.5
     assert torch.exp(s - lse).median().item() >= 0.8
+
+
+def _flash_d256_inputs(B, H, KV, T, device, seed):
+    rng = np.random.default_rng(seed)
+
+    def mk(n):
+        return torch.tensor(rng.standard_normal((n, T, 256)), dtype=torch.bfloat16,
+                            device=device)
+
+    return mk(B * H), mk(B * KV), mk(B * KV), mk(B * H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,T,causal", [
+    # one tile: the second warpgroup of the block has no rows
+    (2, 4, 4, 64, True), (2, 4, 4, 64, False),
+    # T % 128 == 64 with grouped queries: the last block's second warpgroup has no rows
+    (2, 8, 2, 192, True), (2, 8, 2, 192, False), (2, 8, 2, 320, True), (2, 8, 2, 320, False),
+    # walks of 16: the rings' parities wrap four times
+    (1, 4, 4, 1024, True), (1, 4, 4, 1024, False),
+    # four blocks, a grid far smaller than the card
+    (1, 1, 1, 512, True), (1, 1, 1, 512, False),
+])
+def test_flash_fwd_d256_edges(cuda_device, B, H, KV, T, causal):
+    """The head-dim-256 forward (fwd_pingpong_kernel: 128 q rows a block on
+    two warpgroups) against flash_fwd_reference at the bounds of
+    ``chip_smoke.check_kernels``, at its edges; the dQ and dK/dV kernels run
+    on its lse and are held to their plain versions."""
+    q, k, v, do = _flash_d256_inputs(B, H, KV, T, cuda_device, B + H + KV + T + causal)
+    before = flash.LAUNCHES["flash_fwd"]
+    o, lse = flash.flash_fwd(q, k, v, causal, H, KV)
+    launched = flash.LAUNCHES["flash_fwd"] - before
+    o_ref, lse_ref = flash.flash_fwd_reference(q, k, v, causal, H, KV)
+    delta = (do.float() * o.float()).sum(-1)
+    dq = flash.flash_dq(q, k, v, do, lse, delta, causal, H, KV)
+    dk, dv = flash.flash_dkv(q, k, v, do, lse, delta, causal, H, KV)
+    dq_ref = flash.flash_dq_reference(q, k, v, do, lse, delta, causal, H, KV)
+    dk_ref, dv_ref = flash.flash_dkv_reference(q, k, v, do, lse, delta, causal, H, KV)
+    torch.cuda.synchronize()
+    assert launched == 1
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, lse_ref, rtol=0.0, atol=FLASH_LSE_ATOL)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=2.0 ** -7, atol=FLASH_O_ATOL)
+    for name, a, b in (("dq", dq, dq_ref), ("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        assert _rel_err(a, b) <= FLASH_GRAD_REL, (name, _rel_err(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_fwd_d256_is_deterministic(cuda_device, causal):
+    """Two runs of the head-dim-256 forward on the same inputs give bitwise
+    equal o and lse (GPT-J's heads at T 512)."""
+    q, k, v, _ = _flash_d256_inputs(2, 16, 16, 512, cuda_device, 5)
+    first = flash.flash_fwd(q, k, v, causal, 16, 16)
+    second = flash.flash_fwd(q, k, v, causal, 16, 16)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -60,6 +60,22 @@ def test_flash_matches_jax(causal, kv_heads, dtype):
 
 
 @pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_matches_jax_at_head_dim_256(causal, dtype):
+    """GPT-J's head dim with grouped queries: the port's plain forward and
+    gradients (the yardstick of the card's head-dim-256 kernels) against
+    the JAX package's Pallas kernel."""
+    q, k, v, g = _inputs(B=1, H=2, KV=1, T=128, D=256, seed=11)
+    want = _jax(q, k, v, g, causal, getattr(jnp, dtype))
+    got = _torch(q, k, v, g, causal, getattr(torch, dtype), block_q=64, block_k=64)
+    for name, a, b, tol in zip(
+        ("o", "dq", "dk", "dv"), got, want,
+        (F32_FWD, F32_GRAD, F32_GRAD, F32_GRAD) if dtype == "float32" else (BF16,) * 4,
+    ):
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [True, False])
 def test_reference_matches_wrapper(causal):
     """flash_attention_reference (plain autograd) and the wrapper's
     forward / dQ / dK/dV plain versions agree in f32."""
