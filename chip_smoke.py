@@ -13,7 +13,7 @@ Phases, in order; any failure is an exception and a non-zero exit:
    (``cuobjdump``); the flash kernels (the forward at head dim 64 and 128,
    the head-dim-256 forward, dQ, dK/dV) and the CE forward, ds, dx and dW
    kernels must hold wgmma and TMA tile loads, the head-dim-256 forward
-   also setmaxnreg.
+   and dK/dV also setmaxnreg.
 2. Kernels against their plain PyTorch versions: flash forward, dQ and
    dK/dV at the GPT-2-small training shape (B 8, H 12, T 512, D 64, bf16,
    causal), a grouped-query shape (B 2, H 32, KV 4, T 1024, D 64), the main
@@ -31,7 +31,7 @@ Phases, in order; any failure is an exception and a non-zero exit:
    causal; and head dim 256, GPT-J-6B's attention in phase 8b: timed at
    (B 8, H 16, T 512), causal, checked with grouped queries at T 192 and
    320, causal and not, on one tile, causal and not, at T 1024 and at B 1,
-   H 1, and the forward run twice bitwise equal. Each
+   H 1, and the forward and dK/dV run twice bitwise equal. Each
    kernel's device time, the plain version's and the library call's, all
    read from torch.profiler, and the kernel's bound on the card.
    The library call of a forward kernel is the library's forward (SDPA; the
@@ -237,7 +237,9 @@ KERNEL_SYMBOLS = {
     "flash_fwd": ("(anonymous namespace)::fwd_kernel<",
                   "(anonymous namespace)::fwd_pingpong_kernel("),
     "flash_dq": ("(anonymous namespace)::dq_kernel<",),
-    "flash_dkv": ("(anonymous namespace)::dkv_kernel<",),
+    # dkv_kernel<64>, dkv_kernel<128>; dkv_wide_kernel at head dim 256
+    "flash_dkv": ("(anonymous namespace)::dkv_kernel<",
+                  "(anonymous namespace)::dkv_wide_kernel("),
     "ce_fwd": ("(anonymous namespace)::ce_fwd_",),  # ce_fwd_sm90_kernel<, ce_fwd_combine_kernel
     # ce_dx_sm90_kernel<, ce_dx_reduce_kernel
     "ce_dx": ("(anonymous namespace)::ce_dx_",),
@@ -260,12 +262,12 @@ def log(msg: str) -> None:
 SASS_OPS = ("HGMMA", "UTMALDG", "LDGSTS", "HMMA", "USETMAXREG")
 #: Kernels whose SASS must hold wgmma and TMA tile loads, by source.
 WGMMA_KERNELS = {"flash_attn": ("fwd_kernel", "fwd_pingpong_kernel", "dq_kernel",
-                                "dkv_kernel"),
+                                "dkv_kernel", "dkv_wide_kernel"),
                  "linear_ce": ("ce_fwd_sm90_kernel", "ce_ds_sm90_kernel", "ce_dx_sm90_kernel",
                                "ce_dw_sm90_kernel")}
 #: Of those, the kernels whose SASS must also hold setmaxnreg (their
 #: producer gives registers to their consumers), by source.
-SETMAXREG_KERNELS = {"flash_attn": ("fwd_pingpong_kernel",)}
+SETMAXREG_KERNELS = {"flash_attn": ("fwd_pingpong_kernel", "dkv_wide_kernel")}
 
 
 def sass_kernel_name(fn: str):
@@ -895,7 +897,7 @@ def check_head_dim_256(flash):
     checked with grouped queries where T % 128 == 64 (the last q block's
     second warpgroup has no rows: T 192, 320), causal and not, on one tile,
     over walks of 16 (T 1024) and on a grid of four blocks (B 1, H 1); the
-    forward twice at GPT-J's shape, bitwise equal."""
+    forward and dK/dV twice at GPT-J's shape, causal, bitwise equal."""
     rows = check_kernels(flash, GPTJ_ATTN, True, 16, timed=True)
     for seed, (shape, causal) in enumerate((((2, 8, 2, 320, 256), True),
                                             ((2, 8, 2, 320, 256), False),
@@ -907,11 +909,16 @@ def check_head_dim_256(flash):
                                             ((1, 1, 1, SEQ, 256), True)), start=17):
         check_kernels(flash, shape, causal, seed, timed=False)
     B, H, KV, T, D = GPTJ_ATTN
-    q, k, v, _ = kernel_inputs(B, H, KV, T, D, 16)
+    q, k, v, do = kernel_inputs(B, H, KV, T, D, 16)
     first, second = flash.flash_fwd(q, k, v, True, H, KV), flash.flash_fwd(q, k, v, True, H, KV)
     if not all(torch.equal(a, b) for a, b in zip(first, second)):
         raise AssertionError(f"flash forward at {GPTJ_ATTN}: two runs on the same inputs differ")
-    log(f"  flash forward at (B,H,KV,T,D)={GPTJ_ATTN}: two runs bitwise equal")
+    o, lse = first
+    delta = (do.float() * o.float()).sum(-1)
+    first, second = (flash.flash_dkv(q, k, v, do, lse, delta, True, H, KV) for _ in range(2))
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"flash dK/dV at {GPTJ_ATTN}: two runs on the same inputs differ")
+    log(f"  flash forward and dK/dV at (B,H,KV,T,D)={GPTJ_ATTN}: two runs bitwise equal")
     return rows
 
 

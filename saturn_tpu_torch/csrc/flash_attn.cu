@@ -34,7 +34,7 @@
 //   it with the tile STAGES ahead, so loads run under the math of the tiles
 //   before. The forward's and dQ's K and V tiles have rings of their own (a
 //   stage of each frees once its last product is done). There is no
-//   producer warp (but in the head-dim-256 forward, below): it would hold a
+//   producer warp (but in the head-dim-256 kernels, below): it would hold a
 //   consumer's register count while it waits, and a block of 128 threads
 //   instead of 160 lets 4 forward or dQ blocks (3 dK/dV blocks) share an SM
 //   at D 64 instead of 3 (2).
@@ -60,29 +60,43 @@
 //   do not start last. The forward and dQ order their blocks in groups of
 //   heads whose k and v fit in half the L2 together, which keeps them there
 //   at large B * H.
-// - Q (forward), Q and dO (dQ) or K and V (dK/dV) are loaded once per block;
+// - Q (forward), Q and dO (dQ) or K and V (dK/dV) are loaded once per tile;
 //   the dK/dV walk is over (group member x q tile), each stage bringing the Q
 //   and dO tiles and their lse and delta rows (bulk copies); dQ reads each
 //   thread's two lse and delta values once.
 //
-// Head dim 256 (GPT-J's): dQ and dK/dV are the same kernels with D / 64 = 4
-// column blocks a tile (198 KB of shared memory: one block an SM). dQ's
-// accumulator fits the registers (128 f32 a thread); dK/dV's two would take
-// 256, so at D 256 a dK/dV block owns 128 of the D columns of dk and dv
-// (dkv_cols; grid.z = D / 128): each such block forms the full-depth S^T
-// and dP^T, and the pair of them does those two products twice. The
-// forward is a kernel of its own, fwd_pingpong_kernel. fwd_kernel widened
-// to D 256 held one warpgroup an SM (165 KB), so the SM's tensor cores
-// idled whenever it formed a softmax, rescaled its 128 accumulators, waited
-// for its first 64 KB or stored O, and every 64-row tile read its head's K
-// and V through a ring of its own. A block of fwd_pingpong_kernel owns 128
-// q rows (197 KB): two consumer warpgroups of 64 rows share the K and V
-// rings, so each stage feeds both, and take turns on the tensor cores,
-// ordered by named barriers: one's products (S_j with P_{j-1} V_{j-1}) run
-// while the other forms its softmax. A producer warpgroup, whose registers
-// setmaxnreg gives to the consumers, issues every load; P V is one
-// m64n256k16 product per 16 kv rows; O goes through the consumer's Q tile
-// to one TMA store.
+// Head dim 256 (GPT-J's): dQ is the same kernel with D / 64 = 4 column
+// blocks a tile (198 KB of shared memory: one block an SM; its accumulator
+// takes 128 f32 a thread). The forward and dK/dV are kernels of their own,
+// each with a producer warpgroup, whose registers setmaxnreg gives to two
+// consumer warpgroups. fwd_kernel widened to D 256 held one warpgroup an SM
+// (165 KB), so the SM's tensor cores idled whenever it formed a softmax,
+// rescaled its 128 accumulators, waited for its first 64 KB or stored O, and
+// every 64-row tile read its head's K and V through a ring of its own. A
+// block of fwd_pingpong_kernel owns 128 q rows (197 KB): two consumer
+// warpgroups of 64 rows share the K and V rings, so each stage feeds both,
+// and take turns on the tensor cores, ordered by named barriers: one's
+// products (S_j with P_{j-1} V_{j-1}) run while the other forms its softmax.
+// P V is one m64n256k16 product per 16 kv rows; O goes through the
+// consumer's Q tile to one TMA store. dkv_kernel widened to D 256 could not
+// hold dk and dv (two 64 x 256 f32 accumulators, 256 registers a thread), so
+// two blocks each owned half of their columns and each formed the full-depth
+// S^T and dP^T: every score twice, every Q and dO tile read twice (0.2656
+// ms on an H100 at GPT-J's shape, 4.4x its bound). dkv_wide_kernel works
+// one 64-row kv tile at a time (226 KB) and splits the work by output:
+// consumer P forms S^T = K Q^T and P, hands P (f32) to consumer dS through
+// shared memory and accumulates dv += P^T dO; consumer dS forms dP^T = V
+// dO^T once S^T is done, then dS from P, and accumulates dk += dS^T Q. Each
+// score is formed once, each stage of Q and dO feeds both, the four
+// products split evenly between the two, and dV and dK take their A
+// operand from registers on m64n256k16. Its blocks are persistent, one an
+// SM, each walking kv tiles heavy with light: a tile's K and V load under
+// the last step of the one before, and dk and dv go out by TMA from that
+// step's stage. What bounds it: shared memory, where a step reads 128 KB
+// for the score products (SS at the full rate reads 128 B a cycle, all an
+// SM gives), 64 KB for dV and dK and 32 KB for the P hand-off, and TMA
+// writes 64 KB, about 2300 cycles against the tensor cores' 2048; and a
+// fixed cost a tile, a fifth of it the result store.
 //
 // Layout: q, o, do, dq are (B*H, T, D) and k, v, dk, dv are (B*KV, T, D),
 // bf16, row stride `*_st` and head stride `*_sh` in elements, rows and base
@@ -147,11 +161,8 @@ struct DqSmem {
   uint64_t qd_full, k_full[STAGES], k_empty[STAGES], v_full[STAGES], v_empty[STAGES];
 };
 
-// Columns of dk and dv one dK/dV block owns: all of them up to D 128, half at
-// D 256 (two 64 x 256 f32 accumulators would need 256 registers a thread).
-template <int D>
-__host__ __device__ constexpr int dkv_cols() { return D > 128 ? 128 : D; }
-
+// Shared memory of dkv_kernel (D 64 and 128): K and V loaded once, one ring
+// of (Q, dO, lse, delta) stages.
 template <int D>
 struct DkvSmem {
   bf16 k[TILE * D];
@@ -245,17 +256,18 @@ __device__ __forceinline__ void store_tile(bf16* out, int st, const float (&acc)
     }
 }
 
-// The (bh, q tile) of a block of a forward or dQ grid. Blocks go in groups of
-// `group` heads whose k and v fit in L2 together (l2_group); within a group,
-// longest walk first (causal: the last q tiles), so the long blocks do not
-// start last.
+// The (bh, q tile) of tile `k` (a block of a forward or dQ grid: blockIdx.x).
+// Tiles go in groups of `group` heads whose k and v fit in L2 together
+// (l2_group); within a group, longest walk first (causal: the last q tiles),
+// so the long blocks do not start last.
 struct QTile {
   int bh, iq;
 };
 
-__device__ __forceinline__ QTile q_tile_of_block(int BH, int n_tiles, int group, int causal) {
-  const int first = blockIdx.x / (group * n_tiles) * group;
-  const int heads = min(group, BH - first), in_group = blockIdx.x - first * n_tiles;
+__device__ __forceinline__ QTile q_tile_of_block(int BH, int n_tiles, int group, int causal,
+                                                int k) {
+  const int first = k / (group * n_tiles) * group;
+  const int heads = min(group, BH - first), in_group = k - first * n_tiles;
   const int rank = in_group / heads;
   return {first + in_group % heads, causal ? n_tiles - 1 - rank : rank};
 }
@@ -329,7 +341,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
            float scale, int causal, int group) {
   FwdSmem<D>& sm = *reinterpret_cast<FwdSmem<D>*>(sm90::smem_1024());
   const int n_tiles = T / TILE;
-  const auto [bh, iq] = q_tile_of_block(BH, n_tiles, group, causal);
+  const auto [bh, iq] = q_tile_of_block(BH, n_tiles, group, causal, blockIdx.x);
   const int bkv = (bh / H) * KV + (bh % H) / (H / KV);
   const int n_kv = causal ? iq + 1 : n_tiles;
   const bool leader = threadIdx.x == 0;
@@ -494,6 +506,43 @@ __device__ __forceinline__ void product_pv(float (&acc)[4][32], const uint32_t (
     sm90::wgmma_rs_n256(acc, pa + 4 * kk, sm90::desc_mn(v, kk));
 }
 
+// This thread's part of a 64 x 256 f32 accumulator, times f0 in row r0 and
+// f1 in row r0 + 8, as bf16 into `tile`, a 64 x 256 tile no product reads any
+// more, in the layout TMA loaded it: column block cb at 8 KB cb, row r at
+// 128 r bytes, its 16-byte chunks swizzled by r % 8 (here lane / 4), so a
+// warp's 32 stores hit 32 banks. Then a TMA store can write the tile out.
+__device__ __forceinline__ void stage_tile(bf16* tile, const float (&acc)[4][32], float f0,
+                                           float f1, int r0, int t) {
+  unsigned char* out = reinterpret_cast<unsigned char*>(tile);
+#pragma unroll
+  for (int cb = 0; cb < 4; ++cb)
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h;
+        const float f = h ? f1 : f0;
+        *reinterpret_cast<uint32_t*>(out + cb * sm90::BLOCK_BYTES + r * 128 +
+                                     ((nn ^ (r & 7)) << 4) + 4 * t) =
+            pack_bf16(acc[cb][4 * nn + 2 * h] * f, acc[cb][4 * nn + 2 * h + 1] * f);
+      }
+}
+
+// Thread `tid` of a warpgroup that staged `tile` (stage_tile): once all 128
+// have (named barrier `bar`), its thread 0 stores the tile at row `row0` of
+// matrix `mat` through `map`, four 64-column boxes.
+__device__ __forceinline__ void store_staged(const CUtensorMap* map, const bf16* tile, int bar,
+                                             int row0, int mat, int tid) {
+  sm90::fence_proxy_async();
+  sm90::bar_sync(bar, WG_THREADS);
+  if (tid == 0) {
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb)
+      sm90::tma_store_3d(map, tile + cb * TILE * sm90::BOX, cb * sm90::BOX, row0, mat);
+    sm90::bulk_commit();
+  }
+}
+
 // Consumer c of a ping-pong block: the online softmax over kv tiles 0..n-1
 // (n >= 1) of its 64 q rows from q row `row0`, as fwd_kernel runs it (S_j
 // issued with P_{j-1} V_{j-1}), in turns with the other consumer; then O,
@@ -575,35 +624,11 @@ __device__ __forceinline__ void pp_consume(PingPongSmem& sm, const CUtensorMap* 
   sm90::fence_regs(pa);
   sm90::mbar_arrive(&sm.v_empty[last]);
 
-  // O into the Q tile (its last product is done), in the layout TMA loaded
-  // it: column block cb at 8 KB cb, row r at 128 r bytes, its 16-byte chunks
-  // swizzled by r % 8 (here lane / 4): a warp's 32 stores hit 32 banks.
-  float inv[2];
+  // O into the Q tile (its last product is done), then one TMA store
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l[h] = quad_sum(l[h]);
-    inv[h] = 1.f / l[h];
-  }
-  unsigned char* o_tile = reinterpret_cast<unsigned char*>(sm.q[c]);
-#pragma unroll
-  for (int cb = 0; cb < 4; ++cb)
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = r0 + 8 * h;
-        *reinterpret_cast<uint32_t*>(o_tile + cb * sm90::BLOCK_BYTES + r * 128 +
-                                     ((nn ^ (r & 7)) << 4) + 4 * t) =
-            pack_bf16(acc[cb][4 * nn + 2 * h] * inv[h], acc[cb][4 * nn + 2 * h + 1] * inv[h]);
-      }
-  sm90::fence_proxy_async();
-  sm90::bar_sync(BAR_STORE + c, WG_THREADS);
-  if (tid == 0) {
-#pragma unroll
-    for (int cb = 0; cb < 4; ++cb)
-      sm90::tma_store_3d(o_map, sm.q[c] + cb * TILE * sm90::BOX, cb * sm90::BOX, row0, bh);
-    sm90::bulk_commit();
-  }
+  for (int h = 0; h < 2; ++h) l[h] = quad_sum(l[h]);
+  stage_tile(sm.q[c], acc, 1.f / l[0], 1.f / l[1], r0, t);
+  store_staged(o_map, sm.q[c], BAR_STORE + c, row0, bh, tid);
   if (t == 0) {
     const size_t row = (size_t)bh * T + row0 + r0;
     lse[row] = scale * m[0] + logf(l[0]);
@@ -629,7 +654,7 @@ fwd_pingpong_kernel(const __grid_constant__ CUtensorMap q_map,
                     int T, int H, int KV, float scale, int causal, int group) {
   PingPongSmem& sm = *reinterpret_cast<PingPongSmem*>(sm90::smem_1024());
   const int n_tiles = T / TILE;
-  const auto [bh, ib] = q_tile_of_block(BH, (n_tiles + 1) / 2, group, causal);
+  const auto [bh, ib] = q_tile_of_block(BH, (n_tiles + 1) / 2, group, causal, blockIdx.x);
   const int bkv = (bh / H) * KV + (bh % H) / (H / KV);
   const int walk0 = pp_walk(ib, 0, n_tiles, causal), walk1 = pp_walk(ib, 1, n_tiles, causal);
   const int n_kv = max(walk0, walk1);
@@ -711,7 +736,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUt
           int group) {
   DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(sm90::smem_1024());
   const int n_tiles = T / TILE;
-  const auto [bh, iq] = q_tile_of_block(BH, n_tiles, group, causal);
+  const auto [bh, iq] = q_tile_of_block(BH, n_tiles, group, causal, blockIdx.x);
   const int bkv = (bh / H) * KV + (bh % H) / (H / KV);
   const int n_kv = causal ? iq + 1 : n_tiles;
   const bool leader = threadIdx.x == 0;
@@ -793,8 +818,8 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUt
 // -------------------------------------------------------------------- dK/dV
 // Step i of a dK/dV walk into stage i % STAGES: the Q and dO tiles at row
 // 64 iq of head bh and their lse and delta rows.
-template <int D>
-__device__ __forceinline__ void load_dkv_step(DkvSmem<D>& sm, const CUtensorMap* q_map,
+template <int D, typename Smem>
+__device__ __forceinline__ void load_dkv_step(Smem& sm, const CUtensorMap* q_map,
                                               const CUtensorMap* do_map, const float* lse,
                                               const float* delta, int i, int iq, int bh, int T) {
   const int st = i % STAGES;
@@ -806,12 +831,22 @@ __device__ __forceinline__ void load_dkv_step(DkvSmem<D>& sm, const CUtensorMap*
   sm90::bulk_load(sm.delta[st], delta + row, TILE * 4, &sm.full[st]);
 }
 
-// One block per (bkv, kv tile, column half at D 256); warp w owns kv rows
-// 16 w..16 w + 15. Walks the rep = H / KV q heads of the group and, for each,
-// the q tiles at or below the diagonal: dv = sum P^T do, dk = scale * sum
-// (P o (dP - delta))^T q, in the block's dkv_cols columns from c0. While the
-// score products of step i run, thread 0 reloads the stage that step i - 1
-// used (freed by every warp at its end) with step i - 1 + STAGES.
+// The walk of a dK/dV block over kv tile jk of kv head bkv: the rep = H / KV
+// q heads of its group and, for each, the q tiles at or below the diagonal
+// (causal) or all of them. Step i is q tile row(i) of q head bh(i).
+struct DkvWalk {
+  int bkv, jk, first, n_q, n_steps, H, KV;
+  __device__ DkvWalk(int bkv_, int jk_, int n_tiles, int H_, int KV_, int causal)
+      : bkv(bkv_), jk(jk_), first(causal ? jk_ : 0), n_q(n_tiles - first),
+        n_steps(H_ / KV_ * n_q), H(H_), KV(KV_) {}
+  __device__ int row(int i) const { return first + i % n_q; }
+  __device__ int bh(int i) const { return (bkv / KV) * H + (bkv % KV) * (H / KV) + i / n_q; }
+};
+
+// One block per (bkv, kv tile); warp w owns kv rows 16 w..16 w + 15. dv =
+// sum P^T do, dk = scale * sum (P o (dP - delta))^T q over the walk. While
+// the score products of step i run, thread 0 reloads the stage that step
+// i - 1 used (freed by every warp at its end) with step i - 1 + STAGES.
 template <int D>
 __global__ void __launch_bounds__(WG_THREADS)
 dkv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
@@ -820,16 +855,10 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
            bf16* __restrict__ dk, bf16* __restrict__ dv, long long kv_sh, int kv_st, int T,
            int H, int KV, float scale, int causal) {
   DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(sm90::smem_1024());
-  const int n_tiles = T / TILE;
-  const int bkv = blockIdx.x, jk = blockIdx.y;  // jk = 0 walks the most q tiles
-  constexpr int NCB = dkv_cols<D>() / 64;          // column blocks of dk and dv here
-  const int c0 = blockIdx.z * dkv_cols<D>();
-  const int rep = H / KV;
-  const int first = causal ? jk : 0, n_q = n_tiles - first, n_steps = rep * n_q;
+  constexpr int NCB = D / 64;
+  const int jk = blockIdx.y;  // jk = 0 walks the most q tiles
+  const DkvWalk w(blockIdx.x, jk, T / TILE, H, KV, causal);
   const bool leader = threadIdx.x == 0;
-  // step i: q tile first + i % n_q of the group's member i / n_q
-  const auto bh_of = [&](int i) { return (bkv / KV) * H + (bkv % KV) * rep + i / n_q; };
-  const auto row_of = [&](int i) { return first + i % n_q; };
   if (leader) {
     sm90::mbar_init(&sm.kv_full, 1);
     for (int st = 0; st < STAGES; ++st) {
@@ -841,10 +870,10 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   __syncthreads();
   if (leader) {
     sm90::mbar_expect_tx(&sm.kv_full, 2 * TILE * D * 2);
-    load_tile_tma<D>(sm.k, &k_map, &sm.kv_full, jk * TILE, bkv);
-    load_tile_tma<D>(sm.v, &v_map, &sm.kv_full, jk * TILE, bkv);
-    for (int i = 0; i < STAGES && i < n_steps; ++i)
-      load_dkv_step<D>(sm, &q_map, &do_map, lse, delta, i, row_of(i), bh_of(i), T);
+    load_tile_tma<D>(sm.k, &k_map, &sm.kv_full, jk * TILE, w.bkv);
+    load_tile_tma<D>(sm.v, &v_map, &sm.kv_full, jk * TILE, w.bkv);
+    for (int i = 0; i < STAGES && i < w.n_steps; ++i)
+      load_dkv_step<D>(sm, &q_map, &do_map, lse, delta, i, w.row(i), w.bh(i), T);
   }
   __syncwarp();
 
@@ -859,8 +888,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
   }
   sm90::mbar_wait(&sm.kv_full, 0);
 
-  for (int i = 0; i < n_steps; ++i) {
-    const int s = i % STAGES, iq = row_of(i);
+  for (int i = 0; i < w.n_steps; ++i) {
+    const int s = i % STAGES, iq = w.row(i);
     sm90::mbar_wait(&sm.full[s], (i / STAGES) & 1);
     // st = S^T (kv rows x q columns), dpt = dP^T
     float st[32], dpt[32];
@@ -874,9 +903,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     sm90::wgmma_commit();
     // while the products run: step i - 1 + STAGES into the stage of step
     // i - 1, freed by every warp at that step's end
-    if (leader && i >= 1 && i - 1 + STAGES < n_steps)
-      load_dkv_step<D>(sm, &q_map, &do_map, lse, delta, i - 1 + STAGES, row_of(i - 1 + STAGES),
-                       bh_of(i - 1 + STAGES), T);
+    if (leader && i >= 1 && i - 1 + STAGES < w.n_steps)
+      load_dkv_step<D>(sm, &q_map, &do_map, lse, delta, i - 1 + STAGES, w.row(i - 1 + STAGES),
+                       w.bh(i - 1 + STAGES), T);
     __syncwarp();
     sm90::wgmma_wait<0>();
     sm90::fence_regs(st);
@@ -904,9 +933,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
       sm90::fence_regs(dk_acc[cb]);
     }
     sm90::wgmma_fence();
-    // column block c0 / 64 of a tile starts c0 * TILE elements in
-    product_rs<NCB>(dv_acc, pa, sm.dout[s] + c0 * TILE);
-    product_rs<NCB>(dk_acc, da, sm.q[s] + c0 * TILE);
+    product_rs<NCB>(dv_acc, pa, sm.dout[s]);
+    product_rs<NCB>(dk_acc, da, sm.q[s]);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
@@ -919,9 +947,274 @@ dkv_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CU
     sm90::mbar_arrive(&sm.empty[s]);
   }
 
-  const size_t off = bkv * kv_sh + (size_t)jk * TILE * kv_st + c0;
+  const size_t off = w.bkv * kv_sh + (size_t)jk * TILE * kv_st;
   store_tile<NCB>(dk + off, kv_st, dk_acc, r0, t, scale, scale);
   store_tile<NCB>(dv + off, kv_st, dv_acc, r0, t, 1.f, 1.f);
+}
+
+// --------------------------------------------------- dK/dV at head dim 256
+// A persistent block walks kv tiles one after another (wide_tile). Each
+// tile is one 64-row kv tile, worked by a producer warpgroup and two consumer
+// warpgroups that split the work by output. Consumer P (warpgroup 1) forms
+// S^T = K Q^T and P^T, passes P in f32 to consumer dS and holds dv; consumer
+// dS (warpgroup 2) forms dP^T = V dO^T, then dS^T from P, and holds dk. Each
+// holds one 64 x 256 f32 accumulator (128 registers a thread) and runs half
+// of each step's products. Registers as in fwd_pingpong_kernel.
+constexpr int WIDE_D = 256;
+constexpr int WIDE_THREADS = 3 * WG_THREADS;
+// Named barriers 1 (consumer P) and 2 (consumer dS): a consumer's 128
+// threads before its TMA store.
+constexpr int BAR_WIDE_STORE = 1;
+
+// P in f32 from consumer P to consumer dS, in the thread layout of their
+// accumulators (thread tid's 32 values as 8 float4 at [m][tid], so a warp's
+// 16-byte accesses fill whole wavefronts), double-buffered: the buffer of
+// step g is free again once consumer dS has read it (p_free). It reads it
+// before it frees step g's stage, which step g + 2 is loaded into, so
+// consumer P's wait on p_free at step g + 2 is as a rule already over.
+// Steps g count on across a block's tiles, so do the ring's rounds. s_done
+// (consumer P's S^T of step g is done) orders the score products: consumer
+// dS issues dP^T after it. K and V
+// have barriers of their own: a consumer frees its tile (P: K, dS: V) once
+// its last score product is done, so the next tile's load runs under the
+// last step. A consumer stages its result in the last step's stage (P: dv
+// in dO, dS: dk in Q, each once the other consumer's last product reading
+// it is done) and frees that stage once the TMA store has read it.
+struct DkvWideSmem {
+  bf16 k[TILE * WIDE_D];
+  bf16 v[TILE * WIDE_D];
+  bf16 q[STAGES][TILE * WIDE_D];
+  bf16 dout[STAGES][TILE * WIDE_D];
+  float4 p[2][8][WG_THREADS];
+  float lse[STAGES][TILE];
+  float delta[STAGES][TILE];
+  uint64_t k_full, v_full, k_empty, v_empty, full[STAGES], empty[STAGES], p_ready[2], p_free[2],
+      s_done[2];
+};
+
+// The kv tile of round r of this block, false when it has none, in
+// q_tile_of_block's order over the n kv tiles: heads in groups (`group`,
+// see launch_dkv_wide), within a group kv tile 0, the longest causal walk,
+// first. Block b of G takes tile r G + b in even rounds and r G + G - 1 - b
+// in odd ones: the snake pairs heavy walks of one round with light ones of
+// the next.
+struct WideTile {
+  int bkv, jk;
+};
+
+__device__ __forceinline__ bool wide_tile(WideTile& tile, int r, int n, int BKV, int n_tiles,
+                                          int group) {
+  const int G = gridDim.x, k = r * G + (r & 1 ? G - 1 - (int)blockIdx.x : (int)blockIdx.x);
+  if (k >= n) return false;
+  const QTile q = q_tile_of_block(BKV, n_tiles, group, 0, k);  // causal 0: rank order
+  tile = {q.bh, q.iq};
+  return true;
+}
+
+// Consumer P on one tile: per step S^T = K Q^T (kv rows x q columns), P =
+// exp(scale S - lse) (0 above a causal diagonal), P to consumer dS, dv +=
+// P^T dO with P^T the register operand and dO read MN-major across its four
+// column blocks; then dv through the last step's dO tile to one TMA store.
+// g: the block's steps before this tile; tt: its tiles before it. `tid` is
+// the thread's index in its warpgroup.
+__device__ __forceinline__ void wide_tile_p(DkvWideSmem& sm, const DkvWalk& w, int causal,
+                                            float scale, const CUtensorMap* dv_map, int g,
+                                            int tt, int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's kv rows: r0 and r0 + 8
+  const float scale_log2 = scale * LOG2E;
+  float acc[4][32], st[32];
+  uint32_t pa[16];
+#pragma unroll
+  for (int cb = 0; cb < 4; ++cb) zero(acc[cb]);
+  sm90::mbar_wait(&sm.k_full, tt & 1);
+
+  for (int i = 0; i < w.n_steps; ++i, ++g) {
+    const int s = g % STAGES, b = g & 1;
+    sm90::mbar_wait(&sm.full[s], (g / STAGES) & 1);
+    zero(st);
+    sm90::fence_regs(st);
+    sm90::wgmma_fence();
+    product_ss<WIDE_D>(st, sm.k, sm.q[s]);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(st);
+    sm90::mbar_arrive(&sm.s_done[b]);
+    if (i == w.n_steps - 1) sm90::mbar_arrive(&sm.k_empty);
+
+    const bool diag = causal && w.row(i) == w.jk;
+    const float* s_lse = sm.lse[s];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int qc = (j >> 2) * 8 + 2 * t + (j & 1);  // q column within the tile
+      const float p = sm90::exp2_approx(fmaf(st[j], scale_log2, -s_lse[qc] * LOG2E));
+      st[j] = diag && qc < r0 + 8 * ((j >> 1) & 1) ? 0.f : p;
+    }
+    // dv's product first, then P to consumer dS while it runs
+    to_operand(pa, st);
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+    sm90::wgmma_fence();
+    product_pv(acc, pa, sm.dout[s]);
+    sm90::wgmma_commit();
+    if (g >= 2) sm90::mbar_wait(&sm.p_free[b], ((g >> 1) - 1) & 1);
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+      sm.p[b][m][tid] = make_float4(st[4 * m], st[4 * m + 1], st[4 * m + 2], st[4 * m + 3]);
+    sm90::mbar_arrive(&sm.p_ready[b]);
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+    sm90::fence_regs(pa);
+    if (i < w.n_steps - 1) sm90::mbar_arrive(&sm.empty[s]);
+  }
+  // consumer dS read P of the last step after its dP^T, the last reader of dO
+  --g;
+  const int s = g % STAGES;
+  sm90::mbar_wait(&sm.p_free[g & 1], (g >> 1) & 1);
+  stage_tile(sm.dout[s], acc, 1.f, 1.f, r0, t);
+  store_staged(dv_map, sm.dout[s], BAR_WIDE_STORE, w.jk * TILE, w.bkv, tid);
+  if (tid == 0) {
+    sm90::bulk_wait_read();
+    sm90::mbar_arrive_count(&sm.empty[s], WG_THREADS);
+  }
+}
+
+// Consumer dS on one tile: per step, once consumer P's S^T is done (so the
+// two score products do not share the tensor cores and P's exponentials run
+// beside this one), dP^T = V dO^T, dS = P o (dP - delta) with P from
+// consumer P, then dk += dS^T Q with dS^T the register operand and Q read
+// MN-major; dk = scale * the sum, through the last step's Q tile (consumer
+// P's last S^T is done: this one waited for it) to one TMA store.
+__device__ __forceinline__ void wide_tile_ds(DkvWideSmem& sm, const DkvWalk& w, float scale,
+                                             const CUtensorMap* dk_map, int g, int tt, int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int r0 = warp * 16 + (lane >> 2);
+  float acc[4][32], dpt[32];
+  uint32_t da[16];
+#pragma unroll
+  for (int cb = 0; cb < 4; ++cb) zero(acc[cb]);
+  sm90::mbar_wait(&sm.v_full, tt & 1);
+
+  for (int i = 0; i < w.n_steps; ++i, ++g) {
+    const int s = g % STAGES, b = g & 1;
+    sm90::mbar_wait(&sm.full[s], (g / STAGES) & 1);
+    sm90::mbar_wait(&sm.s_done[b], (g >> 1) & 1);
+    zero(dpt);
+    sm90::fence_regs(dpt);
+    sm90::wgmma_fence();
+    product_ss<WIDE_D>(dpt, sm.v, sm.dout[s]);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dpt);
+    if (i == w.n_steps - 1) sm90::mbar_arrive(&sm.v_empty);
+
+    const float* s_del = sm.delta[s];
+    sm90::mbar_wait(&sm.p_ready[b], (g >> 1) & 1);
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      const float4 p = sm.p[b][m][tid];
+      const float pm[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 4 * m + e, qc = m * 8 + 2 * t + (j & 1);
+        dpt[j] = pm[e] * (dpt[j] - s_del[qc]);
+      }
+    }
+    sm90::mbar_arrive(&sm.p_free[b]);
+    to_operand(da, dpt);
+
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+    sm90::wgmma_fence();
+    product_pv(acc, da, sm.q[s]);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+    sm90::fence_regs(da);
+    if (i < w.n_steps - 1) sm90::mbar_arrive(&sm.empty[s]);
+  }
+  const int s = (g - 1) % STAGES;
+  stage_tile(sm.q[s], acc, scale, scale, r0, t);
+  store_staged(dk_map, sm.q[s], BAR_WIDE_STORE + 1, w.jk * TILE, w.bkv, tid);
+  if (tid == 0) {
+    sm90::bulk_wait_read();
+    sm90::mbar_arrive_count(&sm.empty[s], WG_THREADS);
+  }
+}
+
+// The head-dim-256 dK/dV (GPT-J's): persistent blocks, at most one an SM,
+// each walking its kv tiles (wide_tile); dk and dv as dkv_kernel computes
+// them. Warpgroup 0 produces: its thread 0 walks the ring of (Q, dO, lse,
+// delta) stages that both consumers read (the empty barriers count both
+// consumers' 256 threads) over all the block's tiles, its thread 32 loads
+// each tile's K and V once the tile before is done with them, so a tile's
+// first stages and its K and V load while the tile before finishes.
+// Warpgroups 1 and 2 are consumers P and dS.
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+dkv_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                const __grid_constant__ CUtensorMap do_map,
+                const __grid_constant__ CUtensorMap dk_map,
+                const __grid_constant__ CUtensorMap dv_map, const float* __restrict__ lse,
+                const float* __restrict__ delta, int BKV, int T, int H, int KV, float scale,
+                int causal, int group) {
+  DkvWideSmem& sm = *reinterpret_cast<DkvWideSmem*>(sm90::smem_1024());
+  const int n_tiles = T / TILE, n = BKV * n_tiles;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.k_full, 1);
+    sm90::mbar_init(&sm.v_full, 1);
+    sm90::mbar_init(&sm.k_empty, WG_THREADS);
+    sm90::mbar_init(&sm.v_empty, WG_THREADS);
+    for (int st = 0; st < STAGES; ++st) {
+      sm90::mbar_init(&sm.full[st], 1);
+      sm90::mbar_init(&sm.empty[st], 2 * WG_THREADS);
+    }
+    for (int b = 0; b < 2; ++b) {
+      sm90::mbar_init(&sm.p_ready[b], WG_THREADS);
+      sm90::mbar_init(&sm.p_free[b], WG_THREADS);
+      sm90::mbar_init(&sm.s_done[b], WG_THREADS);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  WideTile tile;
+  if (wg == 0) {
+    sm90::setmaxnreg_dec<PP_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      for (int r = 0, g = 0; wide_tile(tile, r, n, BKV, n_tiles, group); ++r) {
+        const DkvWalk w(tile.bkv, tile.jk, n_tiles, H, KV, causal);
+        for (int i = 0; i < w.n_steps; ++i, ++g)
+          load_dkv_step<WIDE_D>(sm, &q_map, &do_map, lse, delta, g, w.row(i), w.bh(i), T);
+      }
+    } else if (threadIdx.x == 32) {
+      for (int r = 0; wide_tile(tile, r, n, BKV, n_tiles, group); ++r) {
+        if (r > 0) sm90::mbar_wait(&sm.k_empty, (r - 1) & 1);
+        sm90::mbar_expect_tx(&sm.k_full, TILE * WIDE_D * 2);
+        load_tile_tma<WIDE_D>(sm.k, &k_map, &sm.k_full, tile.jk * TILE, tile.bkv);
+        if (r > 0) sm90::mbar_wait(&sm.v_empty, (r - 1) & 1);
+        sm90::mbar_expect_tx(&sm.v_full, TILE * WIDE_D * 2);
+        load_tile_tma<WIDE_D>(sm.v, &v_map, &sm.v_full, tile.jk * TILE, tile.bkv);
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<PP_CONSUMER_REGS>();
+    const int tid = threadIdx.x - wg * WG_THREADS;
+    for (int r = 0, g = 0; wide_tile(tile, r, n, BKV, n_tiles, group); ++r) {
+      const DkvWalk w(tile.bkv, tile.jk, n_tiles, H, KV, causal);
+      if (wg == 1)
+        wide_tile_p(sm, w, causal, scale, &dv_map, g, r, tid);
+      else
+        wide_tile_ds(sm, w, scale, &dk_map, g, r, tid);
+      g += w.n_steps;
+    }
+  }
 }
 
 template <typename Kernel>
@@ -979,9 +1272,31 @@ int launch_dkv(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& 
   constexpr int smem = smem_bytes<DkvSmem<D>>();
   const cudaError_t err = allow_smem(dkv_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
-  dkv_kernel<D><<<dim3(BKV, T / TILE, D / dkv_cols<D>()), WG_THREADS, smem, s>>>(
+  dkv_kernel<D><<<dim3(BKV, T / TILE), WG_THREADS, smem, s>>>(
       qm, km, vm, dom, (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, kv_sh,
       kv_st, T, H, KV, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv_wide(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                    const CUtensorMap& dom, const CUtensorMap& dkm, const CUtensorMap& dvm,
+                    const void* lse, const void* delta, int BKV, int T, int H, int KV,
+                    float scale, int causal, cudaStream_t s) {
+  constexpr int smem = smem_bytes<DkvWideSmem>();
+  static_assert(smem <= 232448, "dkv_wide_kernel: over the 227 KB a block may hold");
+  cudaError_t err = allow_smem(dkv_wide_kernel, smem);
+  int dev, sms;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  // one block an SM. causal: kv heads in groups whose Q and dO (the H / KV
+  // q heads of each) take at most half the L2, so the tiles reading one q
+  // tile run close together; full: a head's kv tiles one after another
+  // (group 1), all reading the same q tiles
+  const int n = BKV * (T / TILE);
+  dkv_wide_kernel<<<n < sms ? n : sms, WIDE_THREADS, smem, s>>>(
+      qm, km, vm, dom, dkm, dvm, (const float*)lse, (const float*)delta, BKV, T, H, KV, scale,
+      causal, causal ? l2_group(BKV, T * (H / KV), WIDE_D) : 1);
   return (int)cudaGetLastError();
 }
 
@@ -1056,7 +1371,14 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* dout,
   switch (D) {
     case 64: return SATURN_DKV(64);
     case 128: return SATURN_DKV(128);
-    default: return SATURN_DKV(256);
+    default: {
+      CUtensorMap dkm, dvm;
+      if ((err = sm90::encode_tile_map(&dkm, dk, D, T, BKV, kv_st, kv_sh)) ||
+          (err = sm90::encode_tile_map(&dvm, dv, D, T, BKV, kv_st, kv_sh)))
+        return err;
+      return launch_dkv_wide(qm, km, vm, dom, dkm, dvm, lse, delta, BKV, T, H, KV, scale, causal,
+                             s);
+    }
   }
 #undef SATURN_DKV
 }

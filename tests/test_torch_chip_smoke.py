@@ -41,7 +41,11 @@ DQ_TAIL = "EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16xiiiiifii"
 FLASH_DQ64 = FLASH_NS + "9dq_kernelILi64" + DQ_TAIL
 FLASH_DQ128 = FLASH_NS + "9dq_kernelILi128" + DQ_TAIL
 FLASH_FWD_PP = FLASH_NS + "19fwd_pingpong_kernelE14CUtensorMap_stS0_S0_S0_Pfiiiifii"
+FLASH_DKV_WIDE = (FLASH_NS + "15dkv_wide_kernelE14CUtensorMap_stS0_S0_S0_PKfS2_P13__nv_bfloat16"
+                  "S4_xiiiiifii")
 HOPPER_FLASH = (FLASH_FWD, FLASH_DQ64, FLASH_DQ128, FLASH_DKV)
+#: What the head-dim-256 kernels' SASS holds: wgmma, TMA tile loads, setmaxnreg.
+SETMAXREG_OPS = ("HGMMA.64x256x16.F32.BF16", "UTMALDG.3D", "USETMAXREG.DEALLOC")
 
 
 @pytest.mark.parametrize("fn,name", [
@@ -60,6 +64,7 @@ HOPPER_FLASH = (FLASH_FWD, FLASH_DQ64, FLASH_DQ128, FLASH_DKV)
     (FLASH_DQ64, ("dq_kernel", "64")),
     (FLASH_DQ128, ("dq_kernel", "128")),
     (FLASH_FWD_PP, ("fwd_pingpong_kernel", None)),
+    (FLASH_DKV_WIDE, ("dkv_wide_kernel", None)),
     ("_Z9somethingv", ("_Z9somethingv", None)),
 ])
 def test_sass_kernel_name(smoke, fn, name):
@@ -72,11 +77,13 @@ def _sass(ops, fns=HOPPER_CE):
     return "".join(f"\t\tFunction : {fn}\n" + body for fn in fns)
 
 
-def _flash_sass(ops, pingpong=("HGMMA.64x256x16.F32.BF16", "UTMALDG.3D", "USETMAXREG.DEALLOC"),
-                fns=HOPPER_FLASH):
-    """A dump of the flash kernels ``fns``, each holding ``ops``, and of the
-    head-dim-256 forward holding ``pingpong`` (None: left out)."""
-    return _sass(ops, fns=fns) + ("" if pingpong is None else _sass(pingpong, fns=(FLASH_FWD_PP,)))
+def _flash_sass(ops, pingpong=SETMAXREG_OPS, fns=HOPPER_FLASH, wide=SETMAXREG_OPS):
+    """A dump of the flash kernels ``fns``, each holding ``ops``, of the
+    head-dim-256 forward holding ``pingpong`` and of the head-dim-256 dK/dV
+    holding ``wide`` (None: left out)."""
+    return (_sass(ops, fns=fns)
+            + ("" if pingpong is None else _sass(pingpong, fns=(FLASH_FWD_PP,)))
+            + ("" if wide is None else _sass(wide, fns=(FLASH_DKV_WIDE,))))
 
 
 def _fake_dump(smoke, monkeypatch, tmp_path, sass):
@@ -375,6 +382,33 @@ def test_check_sass_holds_the_pingpong_forward_to_setmaxnreg(smoke, monkeypatch,
         smoke.check_sass(build, "flash_attn")
 
 
+def test_check_sass_requires_the_wide_dkv_kernel(smoke, monkeypatch, tmp_path):
+    """Without dkv_wide_kernel (the head-dim-256 dK/dV) the flash source
+    fails, naming it, though every other flash kernel is there."""
+    sass = _flash_sass(["HGMMA.64x64x16.F32.BF16", "UTMALDG.3D"], wide=None)
+    build = _fake_dump(smoke, monkeypatch, tmp_path, sass)
+    with pytest.raises(AssertionError,
+                       match=re.escape("no SASS found for {'dkv_wide_kernel'}")):
+        smoke.check_sass(build, "flash_attn")
+
+
+@pytest.mark.parametrize("ops,error", [
+    (["HGMMA.64x256x16.F32.BF16", "UTMALDG.3D"], "no USETMAXREG"),
+    (["UTMALDG.3D", "USETMAXREG.TRY_ALLOC"], "no HGMMA"),
+    (["HGMMA.64x64x16.F32.BF16", "USETMAXREG.DEALLOC"], "no UTMALDG"),
+])
+def test_check_sass_holds_the_wide_dkv_kernel_to_setmaxnreg(smoke, monkeypatch, tmp_path, ops,
+                                                            error):
+    """The head-dim-256 dK/dV must hold wgmma, TMA tile loads and setmaxnreg
+    (its producer gives its registers to the two consumers): one without
+    fails, named, though the other flash kernels hold theirs."""
+    sass = _flash_sass(["HGMMA.64x64x16.F32.BF16", "UTMALDG.3D"], wide=ops)
+    build = _fake_dump(smoke, monkeypatch, tmp_path, sass)
+    with pytest.raises(AssertionError,
+                       match=re.escape(f"dkv_wide_kernel in flash_attn: {error}")):
+        smoke.check_sass(build, "flash_attn")
+
+
 @pytest.mark.parametrize("ops,error", [(["HMMA.16816.F32.BF16", "UTMALDG.3D"], "no HGMMA"),
                                        (["HMMA.16816.F32.BF16"], "no HGMMA or UTMALDG")])
 def test_check_sass_refuses_an_mma_sync_dq_kernel(smoke, monkeypatch, tmp_path, ops, error):
@@ -428,6 +462,27 @@ def test_step_kernels_counts_the_pingpong_forward(smoke):
     events = step + [(n, a + 1000.0, b + 1000.0) for n, a, b in step]
     kernels = smoke.step_kernels(events, 2)
     for name, ms in (("flash_fwd", 0.057), ("flash_dq", 0.110), ("flash_dkv", 0.265)):
+        assert kernels[name] == {"launches_per_step": 1.0,
+                                 "device_ms_per_step": pytest.approx(ms)}
+
+
+def test_step_kernels_counts_the_wide_dkv_kernel(smoke):
+    """At head dim 256 dK/dV is dkv_wide_kernel: one launch of
+    ``flash_dkv`` per event, beside the forward and dQ at 256."""
+    ns = "(anonymous namespace)::"
+    step = [
+        (ns + "fwd_pingpong_kernel(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, float*, "
+         "int, int, int, int, float, int, int)", 0.0, 57.0),
+        (ns + "dq_kernel<256>(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, float const*, "
+         "float const*, __nv_bfloat16*, long long, int, int, int, int, int, float, int, int)",
+         100.0, 210.0),
+        (ns + "dkv_wide_kernel(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
+         "float const*, float const*, __nv_bfloat16*, __nv_bfloat16*, long long, int, int, int, "
+         "int, int, float, int, int)", 210.0, 330.0),
+    ]
+    events = step + [(n, a + 1000.0, b + 1000.0) for n, a, b in step]
+    kernels = smoke.step_kernels(events, 2)
+    for name, ms in (("flash_fwd", 0.057), ("flash_dq", 0.110), ("flash_dkv", 0.120)):
         assert kernels[name] == {"launches_per_step": 1.0,
                                  "device_ms_per_step": pytest.approx(ms)}
 

@@ -12,6 +12,8 @@ walks of 32, D 64 and 128, grouped queries, a planted score per row in a
 late kv tile), the head-dim-256 forward (``fwd_pingpong_kernel``) at its
 edges (one tile, T % 128 == 64 with grouped queries, walks of 16, a grid of
 four blocks), with dQ and dK/dV on its lse, and run twice bitwise equal;
+the head-dim-256 dK/dV (``dkv_wide_kernel``) at the same edges, with a
+planted score per row in a late kv tile, and run twice bitwise equal;
 the end-to-end attention gradients in the bf16 band of
 ``tests/test_flash.py`` (2e-2). The CE kernels by relative norm,
 the dx and dW kernels at their edges in both modes (D tile widths, V and N
@@ -69,7 +71,7 @@ def cuda_device():
      (True, 4, 4, 64, 64), (False, 4, 2, 64, 64), (True, 4, 2, 64, 320),
      (False, 4, 4, 64, 320), (True, 8, 2, 128, 320), (False, 8, 2, 128, 320),
      (False, 8, 2, 128, 64),
-     # head dim 256 (GPT-J's): dK/dV in two column halves
+     # head dim 256 (GPT-J's): the forward and dK/dV on two consumer warpgroups
      (True, 4, 4, 256, 256), (False, 4, 2, 256, 320), (True, 8, 2, 256, 64),
      (False, 4, 4, 256, 64)],
 )
@@ -116,20 +118,9 @@ def test_flash_dq_edges(cuda_device, T, D, H, KV, causal):
     ln T + 3 per row in the latest kv tile it sees, so P is near 1 there
     (median 0.85-0.95) and near 0 elsewhere. Not higher: with P at 1, dS =
     P (dP - delta) cancels to rounding noise."""
-    B, a = 2, ((np.log(T) + 3) * D ** 0.5) ** 0.5
-    rng = np.random.default_rng(T + D + H + KV + causal)
-    n_t = T // 64
-    w = rng.standard_normal((n_t, D))
-    w /= np.linalg.norm(w, axis=1, keepdims=True)
-    q = rng.standard_normal((B * H, T, D))
-    k = rng.standard_normal((B * KV, T, D)) * np.linspace(0.5, 1.5, D)
-    v = rng.standard_normal((B * KV, T, D))
-    do = rng.standard_normal((B * H, T, D))
-    k[:, ::64] = a * w
-    target = np.arange(T) // 64 if causal else np.full(T, n_t - 1)
-    q += a * w[target]
-    q, k, v, do = (torch.tensor(x, dtype=torch.bfloat16, device=cuda_device)
-                   for x in (q, k, v, do))
+    B = 2
+    q, k, v, do, target = _planted_inputs(B, H, KV, T, D, causal, cuda_device,
+                                          T + D + H + KV + causal)
     o, lse = flash.flash_fwd(q, k, v, causal, H, KV)
     delta = (do.float() * o.float()).sum(-1)
     before = flash.LAUNCHES["flash_dq"]
@@ -146,6 +137,26 @@ def test_flash_dq_edges(cuda_device, T, D, H, KV, causal):
     planted = torch.as_tensor(target * 64, device=cuda_device)
     s = (q.float() * k[kv_of][:, planted].float()).sum(-1) / D ** 0.5
     assert torch.exp(s - lse).median().item() >= 0.8
+
+
+def _planted_inputs(B, H, KV, T, D, causal, device, seed):
+    """bf16 q, k, v, do of (B*H or B*KV, T, D) and each q row's planted kv
+    tile (the dQ edge test's docstring says how)."""
+    a = ((np.log(T) + 3) * D ** 0.5) ** 0.5
+    rng = np.random.default_rng(seed)
+    n_t = T // 64
+    w = rng.standard_normal((n_t, D))
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    q = rng.standard_normal((B * H, T, D))
+    k = rng.standard_normal((B * KV, T, D)) * np.linspace(0.5, 1.5, D)
+    v = rng.standard_normal((B * KV, T, D))
+    do = rng.standard_normal((B * H, T, D))
+    k[:, ::64] = a * w
+    target = np.arange(T) // 64 if causal else np.full(T, n_t - 1)
+    q += a * w[target]
+    q, k, v, do = (torch.tensor(x, dtype=torch.bfloat16, device=device)
+                   for x in (q, k, v, do))
+    return q, k, v, do, target
 
 
 def _flash_d256_inputs(B, H, KV, T, device, seed):
@@ -201,6 +212,59 @@ def test_flash_fwd_d256_is_deterministic(cuda_device, causal):
     q, k, v, _ = _flash_d256_inputs(2, 16, 16, 512, cuda_device, 5)
     first = flash.flash_fwd(q, k, v, causal, 16, 16)
     second = flash.flash_fwd(q, k, v, causal, 16, 16)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,T,causal", [
+    # one tile
+    (2, 4, 4, 64, True), (2, 4, 4, 64, False),
+    # T % 128 == 64 with grouped queries (rep 4): the walk sums four q heads
+    (2, 8, 2, 192, True), (2, 8, 2, 192, False), (2, 8, 2, 320, True), (2, 8, 2, 320, False),
+    # walks of 16 (64 with the group): the ring's and the P buffers' parities wrap
+    (1, 4, 4, 1024, True), (1, 4, 4, 1024, False), (1, 8, 2, 1024, True),
+    # eight tiles, a grid far smaller than the card
+    (1, 1, 1, 512, True), (1, 1, 1, 512, False),
+    # 256 tiles: each persistent block walks two, the heavy with the light when causal
+    (4, 16, 4, 1024, True), (2, 8, 8, 1024, False),
+])
+def test_flash_dkv_d256_edges(cuda_device, B, H, KV, T, causal):
+    """The head-dim-256 dK/dV (dkv_wide_kernel: persistent blocks of one
+    kv tile at a time, one consumer warpgroup forming P and dv, the other dS
+    and dk) against
+    flash_dkv_reference within FLASH_GRAD_REL, one launch a call, at its
+    edges, with the dQ edge test's inputs: a planted score of ln T + 3 per q
+    row in the latest kv tile it sees, so that P is near 1 there and the
+    kv tile's P^T and dS^T are far from uniform; lse and delta from the
+    forward kernel on the same inputs."""
+    q, k, v, do, _ = _planted_inputs(B, H, KV, T, 256, causal, cuda_device,
+                                     B + H + KV + T + causal)
+    o, lse = flash.flash_fwd(q, k, v, causal, H, KV)
+    delta = (do.float() * o.float()).sum(-1)
+    before = flash.LAUNCHES["flash_dkv"]
+    dk, dv = flash.flash_dkv(q, k, v, do, lse, delta, causal, H, KV)
+    launched = flash.LAUNCHES["flash_dkv"] - before
+    dk_ref, dv_ref = flash.flash_dkv_reference(q, k, v, do, lse, delta, causal, H, KV)
+    torch.cuda.synchronize()
+    assert launched == 1
+    for name, got, want in (("dk", dk, dk_ref), ("dv", dv, dv_ref)):
+        assert got.shape == k.shape and got.dtype == torch.bfloat16, name
+        assert torch.isfinite(got.float()).all(), name
+        assert _rel_err(got, want) <= FLASH_GRAD_REL, (name, _rel_err(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_dkv_d256_is_deterministic(cuda_device, causal):
+    """Two runs of the head-dim-256 dK/dV on the same inputs give bitwise
+    equal dk and dv (GPT-J's heads at T 512): no atomics, a fixed order."""
+    q, k, v, do = _flash_d256_inputs(2, 16, 16, 512, cuda_device, 6)
+    o, lse = flash.flash_fwd(q, k, v, causal, 16, 16)
+    delta = (do.float() * o.float()).sum(-1)
+    first = flash.flash_dkv(q, k, v, do, lse, delta, causal, 16, 16)
+    second = flash.flash_dkv(q, k, v, do, lse, delta, causal, 16, 16)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)

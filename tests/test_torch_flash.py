@@ -59,13 +59,21 @@ def test_flash_matches_jax(causal, kv_heads, dtype):
         np.testing.assert_allclose(a, b, rtol=tol, atol=tol, err_msg=name)
 
 
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_flash_matches_jax_at_head_dim_256(causal, dtype):
+#: (B, H, KV, T) at head dim 256: two q heads on one kv head; and GQA rep 4
+#: at T 192 (T % 128 == 64: the last 128-row q block half empty).
+D256_SHAPES = {"": (1, 2, 1, 128), "-h8kv2t192": (1, 8, 2, 192)}
+
+
+@pytest.mark.parametrize("causal,dtype,shape", [
+    pytest.param(causal, dtype, shape, id=f"{dtype}-{causal}{suffix}")
+    for suffix, shape in D256_SHAPES.items()
+    for causal in (True, False) for dtype in ("float32", "bfloat16")])
+def test_flash_matches_jax_at_head_dim_256(causal, dtype, shape):
     """GPT-J's head dim with grouped queries: the port's plain forward and
     gradients (the yardstick of the card's head-dim-256 kernels) against
     the JAX package's Pallas kernel."""
-    q, k, v, g = _inputs(B=1, H=2, KV=1, T=128, D=256, seed=11)
+    B, H, KV, T = shape
+    q, k, v, g = _inputs(B=B, H=H, KV=KV, T=T, D=256, seed=11)
     want = _jax(q, k, v, g, causal, getattr(jnp, dtype))
     got = _torch(q, k, v, g, causal, getattr(torch, dtype), block_q=64, block_k=64)
     for name, a, b, tol in zip(
