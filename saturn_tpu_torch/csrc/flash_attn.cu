@@ -50,11 +50,11 @@
 //   P_{j-1} V_{j-1} together and runs the softmax of S_j while the second is
 //   in flight; each exponential is one FFMA and one ex2 (the scale folded into
 //   log2 units), row maxima and sums are trees, and a row's sum is reduced
-//   across its 4 threads once, at the end. dQ keeps the plain chain (the
-//   score products, wait, dS, dQ += dS K, wait): its other resident blocks
-//   fill the waits, and the shortened chain would hold each K stage a step
-//   longer, which needs a third K stage (a block fewer per SM at D 128) and
-//   more live registers.
+//   across its 4 threads once, at the end. dQ at D 64 and 128 keeps the
+//   plain chain (the score products, wait, dS, dQ += dS K, wait): its other
+//   resident blocks fill the waits, and the shortened chain would hold each
+//   K stage a step longer, which needs a third K stage (a block fewer per SM
+//   at D 128) and more live registers.
 // - Heavy tiles first: causal blocks are launched longest walk first (fwd
 //   and dQ: the last q tiles; dK/dV: the first kv tile), so the long blocks
 //   do not start last. The forward and dQ order their blocks in groups of
@@ -65,11 +65,9 @@
 //   and dO tiles and their lse and delta rows (bulk copies); dQ reads each
 //   thread's two lse and delta values once.
 //
-// Head dim 256 (GPT-J's): dQ is the same kernel with D / 64 = 4 column
-// blocks a tile (198 KB of shared memory: one block an SM; its accumulator
-// takes 128 f32 a thread). The forward and dK/dV are kernels of their own,
-// each with a producer warpgroup, whose registers setmaxnreg gives to two
-// consumer warpgroups. fwd_kernel widened to D 256 held one warpgroup an SM
+// Head dim 256 (GPT-J's): the three are kernels of their own, each with a
+// producer warpgroup, whose registers setmaxnreg gives to two consumer
+// warpgroups. fwd_kernel widened to D 256 held one warpgroup an SM
 // (165 KB), so the SM's tensor cores idled whenever it formed a softmax,
 // rescaled its 128 accumulators, waited for its first 64 KB or stored O, and
 // every 64-row tile read its head's K and V through a ring of its own. A
@@ -96,7 +94,27 @@
 // for the score products (SS at the full rate reads 128 B a cycle, all an
 // SM gives), 64 KB for dV and dK and 32 KB for the P hand-off, and TMA
 // writes 64 KB, about 2300 cycles against the tensor cores' 2048; and a
-// fixed cost a tile, a fifth of it the result store.
+// fixed cost a tile, a fifth of it the result store. dq_kernel widened to
+// D 256 held one warpgroup an SM (198 KB) that ran its chain alone (the
+// score products, a wait, dS, dQ += dS K on 16 m64n64k16, a wait), so the
+// tensor cores idled through every dS and every block's first 128 KB of
+// loads, and dq left by 4-byte stores (0.1105 ms at GPT-J's shape, 2.2x its
+// bound). dq_wide_kernel keeps dQ's walk per 64-row q tile (209 KB) and
+// splits each step by product: consumer S forms S = Q K_j^T and dP = dO
+// V_j^T and dS, hands dS (bf16) to consumer Q through a shared tile and
+// goes on to the next step's scores while consumer Q runs dq += dS K_j as
+// four m64n256k16 with both operands in shared memory. Its blocks are
+// persistent, one an SM, each walking q tiles heavy with light, a head's
+// tiles one after another (in L2 head groups as the forward orders its
+// blocks it was 15 % slower at GPT-J's shape): a tile's first K and V
+// stages load under the last steps of the one before, its Q and dO under
+// the last step's dS and dQ, and dq goes out by TMA from the last K stage.
+// What bounds it: at long walks the step, about 1.3 us for 1536
+// tensor-core cycles of work, with the score products on m64n64k16 reading
+// both operands from shared memory (without the dQ product a step took 17 %
+// less time, without dS's exponentials 6 %; Q and dO as register operands
+// or a K stage freed early gained nothing); at short walks the tile's fixed
+// cost and dq's writes to device memory (without any dq store 13 % faster).
 //
 // Layout: q, o, do, dq are (B*H, T, D) and k, v, dk, dv are (B*KV, T, D),
 // bf16, row stride `*_st` and head stride `*_sh` in elements, rows and base
@@ -196,14 +214,22 @@ __device__ __forceinline__ void claim_stage(uint64_t* full, uint64_t* empty, int
   sm90::mbar_expect_tx(full, bytes);
 }
 
-// Kv tile j (rows 64 j.., matrix `mat`) into ring stage j % STAGES, as the
-// stage's round j / STAGES.
+// Kv tile j (rows 64 j.., matrix `mat`) as the ring's step g: into stage
+// g % STAGES, as the stage's round g / STAGES. A block that walks one tile
+// loads its tile j at step j; a persistent block carries g on across tiles.
+template <int D>
+__device__ __forceinline__ void load_ring_at(bf16 (*ring)[TILE * D], uint64_t* full,
+                                             uint64_t* empty, const CUtensorMap* map, int g,
+                                             int j, int mat) {
+  const int st = g % STAGES;
+  claim_stage(&full[st], &empty[st], g / STAGES, TILE * D * 2);
+  load_tile_tma<D>(ring[st], map, &full[st], j * TILE, mat);
+}
+
 template <int D>
 __device__ __forceinline__ void load_ring(bf16 (*ring)[TILE * D], uint64_t* full, uint64_t* empty,
                                           const CUtensorMap* map, int j, int mat) {
-  const int st = j % STAGES;
-  claim_stage(&full[st], &empty[st], j / STAGES, TILE * D * 2);
-  load_tile_tma<D>(ring[st], map, &full[st], j * TILE, mat);
+  load_ring_at<D>(ring, full, empty, map, j, j, mat);
 }
 
 // acc[cb] (64 x 64 column block cb of a 64 x 64 NCB f32 result) += A B, A
@@ -506,26 +532,32 @@ __device__ __forceinline__ void product_pv(float (&acc)[4][32], const uint32_t (
     sm90::wgmma_rs_n256(acc, pa + 4 * kk, sm90::desc_mn(v, kk));
 }
 
-// This thread's part of a 64 x 256 f32 accumulator, times f0 in row r0 and
-// f1 in row r0 + 8, as bf16 into `tile`, a 64 x 256 tile no product reads any
-// more, in the layout TMA loaded it: column block cb at 8 KB cb, row r at
-// 128 r bytes, its 16-byte chunks swizzled by r % 8 (here lane / 4), so a
-// warp's 32 stores hit 32 banks. Then a TMA store can write the tile out.
+// This thread's part of a 64 x 64 f32 accumulator, times f0 in row r0 and f1
+// in row r0 + 8, as bf16 into `block`, one 64 x 64 column block in the
+// layout TMA loads it: row r at 128 r bytes, its 16-byte chunks swizzled by
+// r % 8 (here lane / 4), so a warp's 32 stores hit 32 banks.
+__device__ __forceinline__ void stage_block(bf16* block, const float (&acc)[32], float f0,
+                                            float f1, int r0, int t) {
+  unsigned char* out = reinterpret_cast<unsigned char*>(block);
+#pragma unroll
+  for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      const float f = h ? f1 : f0;
+      *reinterpret_cast<uint32_t*>(out + r * 128 + ((nn ^ (r & 7)) << 4) + 4 * t) =
+          pack_bf16(acc[4 * nn + 2 * h] * f, acc[4 * nn + 2 * h + 1] * f);
+    }
+}
+
+// A 64 x 256 f32 accumulator, as stage_block puts it, into `tile`, a 64 x 256
+// tile no product reads any more (column block cb at 8 KB cb). Then a TMA
+// store can write the tile out.
 __device__ __forceinline__ void stage_tile(bf16* tile, const float (&acc)[4][32], float f0,
                                            float f1, int r0, int t) {
-  unsigned char* out = reinterpret_cast<unsigned char*>(tile);
 #pragma unroll
   for (int cb = 0; cb < 4; ++cb)
-#pragma unroll
-    for (int nn = 0; nn < 8; ++nn)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = r0 + 8 * h;
-        const float f = h ? f1 : f0;
-        *reinterpret_cast<uint32_t*>(out + cb * sm90::BLOCK_BYTES + r * 128 +
-                                     ((nn ^ (r & 7)) << 4) + 4 * t) =
-            pack_bf16(acc[cb][4 * nn + 2 * h] * f, acc[cb][4 * nn + 2 * h + 1] * f);
-      }
+    stage_block(tile + cb * TILE * sm90::BOX, acc[cb], f0, f1, r0, t);
 }
 
 // Thread `tid` of a warpgroup that staged `tile` (stage_tile): once all 128
@@ -718,7 +750,8 @@ __device__ __forceinline__ void ds_step(float (&sc)[32], const float (&dp)[32],
   }
 }
 
-// One block per (bh, q tile), in q_tile_of_block's order; warp w owns q rows
+// dQ at head dim 64 and 128 (dq_wide_kernel below takes 256). One block per
+// (bh, q tile), in q_tile_of_block's order; warp w owns q rows
 // 16 w..16 w + 15. dq = scale * sum_kv dS k, with dS = P o (dP - delta),
 // P = exp(scale q k^T - lse) and dP = do v^T. Step j: S = Q K_j^T and
 // dP = dO V_j^T as one batch, then dQ += dS K_j with dS (rounded to bf16)
@@ -728,7 +761,7 @@ __device__ __forceinline__ void ds_step(float (&sc)[32], const float (&dp)[32],
 // registers are capped so that four blocks share an SM, as their shared
 // memory allows.
 template <int D>
-__global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : D == 128 ? 2 : 1)
+__global__ void __launch_bounds__(WG_THREADS, D == 64 ? 4 : 2)
 dq_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
           const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
           const float* __restrict__ lse, const float* __restrict__ delta, bf16* __restrict__ dq,
@@ -992,21 +1025,22 @@ struct DkvWideSmem {
       s_done[2];
 };
 
-// The kv tile of round r of this block, false when it has none, in
-// q_tile_of_block's order over the n kv tiles: heads in groups (`group`,
-// see launch_dkv_wide), within a group kv tile 0, the longest causal walk,
-// first. Block b of G takes tile r G + b in even rounds and r G + G - 1 - b
-// in odd ones: the snake pairs heavy walks of one round with light ones of
-// the next.
+// The tile of round r of a persistent block, false when it has none, in
+// q_tile_of_block's order over the n tiles of n_mat heads: heads in groups
+// (`group`, see the launchers), within a group the longest causal walk
+// first: tile 0 (dK/dV, heavy_last 0) or the last tile (dQ, heavy_last 1).
+// Block b of G takes tile r G + b in even rounds and r G + G - 1 - b in odd
+// ones: the snake pairs heavy walks of one round with light ones of the
+// next.
 struct WideTile {
-  int bkv, jk;
+  int mat, row;  // a head of the flattened batch (kv head: dK/dV) and its 64-row tile
 };
 
-__device__ __forceinline__ bool wide_tile(WideTile& tile, int r, int n, int BKV, int n_tiles,
-                                          int group) {
+__device__ __forceinline__ bool wide_tile(WideTile& tile, int r, int n, int n_mat, int n_tiles,
+                                          int group, int heavy_last) {
   const int G = gridDim.x, k = r * G + (r & 1 ? G - 1 - (int)blockIdx.x : (int)blockIdx.x);
   if (k >= n) return false;
-  const QTile q = q_tile_of_block(BKV, n_tiles, group, 0, k);  // causal 0: rank order
+  const QTile q = q_tile_of_block(n_mat, n_tiles, group, heavy_last, k);
   tile = {q.bh, q.iq};
   return true;
 }
@@ -1188,31 +1222,231 @@ dkv_wide_kernel(const __grid_constant__ CUtensorMap q_map,
   if (wg == 0) {
     sm90::setmaxnreg_dec<PP_PRODUCER_REGS>();
     if (threadIdx.x == 0) {
-      for (int r = 0, g = 0; wide_tile(tile, r, n, BKV, n_tiles, group); ++r) {
-        const DkvWalk w(tile.bkv, tile.jk, n_tiles, H, KV, causal);
+      for (int r = 0, g = 0; wide_tile(tile, r, n, BKV, n_tiles, group, 0); ++r) {
+        const DkvWalk w(tile.mat, tile.row, n_tiles, H, KV, causal);
         for (int i = 0; i < w.n_steps; ++i, ++g)
           load_dkv_step<WIDE_D>(sm, &q_map, &do_map, lse, delta, g, w.row(i), w.bh(i), T);
       }
     } else if (threadIdx.x == 32) {
-      for (int r = 0; wide_tile(tile, r, n, BKV, n_tiles, group); ++r) {
+      for (int r = 0; wide_tile(tile, r, n, BKV, n_tiles, group, 0); ++r) {
         if (r > 0) sm90::mbar_wait(&sm.k_empty, (r - 1) & 1);
         sm90::mbar_expect_tx(&sm.k_full, TILE * WIDE_D * 2);
-        load_tile_tma<WIDE_D>(sm.k, &k_map, &sm.k_full, tile.jk * TILE, tile.bkv);
+        load_tile_tma<WIDE_D>(sm.k, &k_map, &sm.k_full, tile.row * TILE, tile.mat);
         if (r > 0) sm90::mbar_wait(&sm.v_empty, (r - 1) & 1);
         sm90::mbar_expect_tx(&sm.v_full, TILE * WIDE_D * 2);
-        load_tile_tma<WIDE_D>(sm.v, &v_map, &sm.v_full, tile.jk * TILE, tile.bkv);
+        load_tile_tma<WIDE_D>(sm.v, &v_map, &sm.v_full, tile.row * TILE, tile.mat);
       }
     }
   } else {
     sm90::setmaxnreg_inc<PP_CONSUMER_REGS>();
     const int tid = threadIdx.x - wg * WG_THREADS;
-    for (int r = 0, g = 0; wide_tile(tile, r, n, BKV, n_tiles, group); ++r) {
-      const DkvWalk w(tile.bkv, tile.jk, n_tiles, H, KV, causal);
+    for (int r = 0, g = 0; wide_tile(tile, r, n, BKV, n_tiles, group, 0); ++r) {
+      const DkvWalk w(tile.mat, tile.row, n_tiles, H, KV, causal);
       if (wg == 1)
         wide_tile_p(sm, w, causal, scale, &dv_map, g, r, tid);
       else
         wide_tile_ds(sm, w, scale, &dk_map, g, r, tid);
       g += w.n_steps;
+    }
+  }
+}
+
+// ------------------------------------------------------- dQ at head dim 256
+// A persistent block walks q tiles one after another (wide_tile, the last q
+// tile, the longest causal walk, first). Each 64-row q tile is worked by a
+// producer warpgroup and two consumer warpgroups that split each step's
+// products: consumer S (warpgroup 1) forms S = Q K_j^T and dP = dO V_j^T and
+// from them dS, which it hands to consumer Q in bf16 through shared memory,
+// then goes on to the next step's scores; consumer Q (warpgroup 2) holds dq
+// (64 x 256 f32, 128 registers a thread) and runs dq += dS K_j on four
+// m64n256k16 products, A = dS and B = K_j read MN-major, both from shared
+// memory. Registers as in fwd_pingpong_kernel.
+constexpr int BAR_DQ_STORE = 1;  // named barrier: consumer Q's 128 threads before its TMA store
+
+// dS of step g goes through buffer g & 1, a 64 x 64 bf16 tile in the layout
+// TMA gives a column block (so desc_k reads it as wgmma's A operand): full
+// once consumer S wrote it (ds_full), free again once consumer Q's product
+// read it (ds_free). Q and dO are loaded once a tile and have barriers of
+// their own: consumer S frees each once its last product reading it is done,
+// so the next tile's Q loads under the last step's dP and both under its dS
+// and dQ. K and V walk rings whose step count g carries on across the
+// block's tiles: a K stage is freed by both consumers (its score product,
+// then dQ), a V stage by consumer S alone. Consumer Q stages the tile's dq
+// in its last K stage (nothing reads it any more) and frees that stage once
+// the TMA store has read it.
+struct DqWideSmem {
+  bf16 q[TILE * WIDE_D];
+  bf16 dout[TILE * WIDE_D];
+  bf16 k[STAGES][TILE * WIDE_D];
+  bf16 v[STAGES][TILE * WIDE_D];
+  bf16 ds[2][TILE * TILE];
+  uint64_t q_full, q_empty, do_full, do_empty, k_full[STAGES], k_empty[STAGES], v_full[STAGES],
+      v_empty[STAGES], ds_full[2], ds_free[2];
+};
+
+// Consumer S on q tile iq of head bh, kv tiles 0..n_kv-1: per step S and dP
+// (each score product over depth 256 as 16 m64n64k16, both operands K-major),
+// K_j and Q freed once S is done, V_j and dO once dP is; dS = P o (dP -
+// delta) as dq_kernel forms it (ds_step), rounded once to bf16 into its
+// buffer. g: the block's steps before this tile; tt: its tiles before it.
+__device__ __forceinline__ void dq_wide_tile_s(DqWideSmem& sm, const float* __restrict__ lse,
+                                               const float* __restrict__ delta, int bh, int iq,
+                                               int n_kv, int T, int causal, float scale, int g,
+                                               int tt, int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int r0 = warp * 16 + (lane >> 2);  // this thread's q rows: r0 and r0 + 8
+  const float scale_log2 = scale * LOG2E;
+  const size_t row = (size_t)bh * T + iq * TILE + r0;
+  const float lse2[2] = {lse[row] * LOG2E, lse[row + 8] * LOG2E};
+  const float del[2] = {delta[row], delta[row + 8]};
+  float sc[32], dp[32];
+  sm90::mbar_wait(&sm.q_full, tt & 1);
+  sm90::mbar_wait(&sm.do_full, tt & 1);
+
+  for (int j = 0; j < n_kv; ++j, ++g) {
+    const int s = g % STAGES, b = g & 1;
+    const bool last = j == n_kv - 1;
+    sm90::mbar_wait(&sm.k_full[s], (g / STAGES) & 1);
+    sm90::mbar_wait(&sm.v_full[s], (g / STAGES) & 1);
+    zero(sc);
+    zero(dp);
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+    sm90::wgmma_fence();
+    product_ss<WIDE_D>(sc, sm.q, sm.k[s]);
+    sm90::wgmma_commit();
+    product_ss<WIDE_D>(dp, sm.dout, sm.v[s]);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();  // S; dP still in flight
+    sm90::fence_regs(sc);
+    sm90::mbar_arrive(&sm.k_empty[s]);
+    if (last) sm90::mbar_arrive(&sm.q_empty);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(dp);
+    sm90::mbar_arrive(&sm.v_empty[s]);
+    if (last) sm90::mbar_arrive(&sm.do_empty);
+
+    ds_step(sc, dp, lse2, del, scale_log2, causal && j == iq, r0, t);
+    if (g >= 2) sm90::mbar_wait(&sm.ds_free[b], ((g >> 1) - 1) & 1);
+    stage_block(sm.ds[b], sc, 1.f, 1.f, r0, t);
+    sm90::fence_proxy_async();  // the generic-proxy stores, before wgmma reads them
+    sm90::mbar_arrive(&sm.ds_full[b]);
+  }
+}
+
+// Consumer Q on the same tile: per step dq += dS K_j, then dS's buffer and
+// (but at the last step) K_j's stage freed; dq = scale * the sum, through
+// the last step's K stage to one TMA store.
+__device__ __forceinline__ void dq_wide_tile_q(DqWideSmem& sm, const CUtensorMap* dq_map, int bh,
+                                               int iq, int n_kv, float scale, int g, int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const int t = lane & 3;
+  const int r0 = warp * 16 + (lane >> 2);
+  float acc[4][32];
+#pragma unroll
+  for (int cb = 0; cb < 4; ++cb) zero(acc[cb]);
+
+  for (int j = 0; j < n_kv; ++j, ++g) {
+    const int s = g % STAGES, b = g & 1;
+    sm90::mbar_wait(&sm.ds_full[b], (g >> 1) & 1);
+    sm90::mbar_wait(&sm.k_full[s], (g / STAGES) & 1);
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk)
+      sm90::wgmma_ss_n256_mn(acc, sm90::desc_k(sm.ds[b], kk), sm90::desc_mn(sm.k[s], kk));
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+#pragma unroll
+    for (int cb = 0; cb < 4; ++cb) sm90::fence_regs(acc[cb]);
+    sm90::mbar_arrive(&sm.ds_free[b]);
+    if (j < n_kv - 1) sm90::mbar_arrive(&sm.k_empty[s]);
+  }
+  const int s = (g - 1) % STAGES;
+  stage_tile(sm.k[s], acc, scale, scale, r0, t);
+  store_staged(dq_map, sm.k[s], BAR_DQ_STORE, iq * TILE, bh, tid);
+  if (tid == 0) {
+    sm90::bulk_wait_read();
+    sm90::mbar_arrive_count(&sm.k_empty[s], WG_THREADS);
+  }
+}
+
+// The head-dim-256 dQ (GPT-J's): persistent blocks, at most one an SM, each
+// walking its q tiles (wide_tile, group 1: a head's tiles one after
+// another, so the blocks running together read the same k and v, and each
+// round of blocks holds walks of every length); dq as dq_kernel computes
+// it. Warpgroup 0 produces: its thread 0 walks the K ring and its thread 32
+// the V ring over all the block's tiles, its thread 64 loads each tile's Q
+// and dO once the tile before is done with them, so a tile's first stages
+// load under the last steps of the one before. Warpgroups 1 and 2 are
+// consumers S and Q.
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+dq_wide_kernel(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               const __grid_constant__ CUtensorMap do_map,
+               const __grid_constant__ CUtensorMap dq_map, const float* __restrict__ lse,
+               const float* __restrict__ delta, int BH, int T, int H, int KV, float scale,
+               int causal) {
+  DqWideSmem& sm = *reinterpret_cast<DqWideSmem*>(sm90::smem_1024());
+  const int n_tiles = T / TILE, n = BH * n_tiles;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&sm.q_full, 1);
+    sm90::mbar_init(&sm.do_full, 1);
+    sm90::mbar_init(&sm.q_empty, WG_THREADS);
+    sm90::mbar_init(&sm.do_empty, WG_THREADS);
+    for (int st = 0; st < STAGES; ++st) {
+      sm90::mbar_init(&sm.k_full[st], 1);
+      sm90::mbar_init(&sm.v_full[st], 1);
+      sm90::mbar_init(&sm.k_empty[st], 2 * WG_THREADS);
+      sm90::mbar_init(&sm.v_empty[st], WG_THREADS);
+    }
+    for (int b = 0; b < 2; ++b) {
+      sm90::mbar_init(&sm.ds_full[b], WG_THREADS);
+      sm90::mbar_init(&sm.ds_free[b], WG_THREADS);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / WG_THREADS;
+  WideTile tile;
+  if (wg == 0) {
+    sm90::setmaxnreg_dec<PP_PRODUCER_REGS>();
+    if (threadIdx.x == 0 || threadIdx.x == 32) {  // the K ring, the V ring
+      const bool is_k = threadIdx.x == 0;
+      for (int r = 0, g = 0; wide_tile(tile, r, n, BH, n_tiles, 1, causal); ++r) {
+        const int bkv = (tile.mat / H) * KV + (tile.mat % H) / (H / KV);
+        const int n_kv = causal ? tile.row + 1 : n_tiles;
+        for (int j = 0; j < n_kv; ++j, ++g) {
+          if (is_k)
+            load_ring_at<WIDE_D>(sm.k, sm.k_full, sm.k_empty, &k_map, g, j, bkv);
+          else
+            load_ring_at<WIDE_D>(sm.v, sm.v_full, sm.v_empty, &v_map, g, j, bkv);
+        }
+      }
+    } else if (threadIdx.x == 64) {
+      for (int r = 0; wide_tile(tile, r, n, BH, n_tiles, 1, causal); ++r) {
+        if (r > 0) sm90::mbar_wait(&sm.q_empty, (r - 1) & 1);
+        sm90::mbar_expect_tx(&sm.q_full, TILE * WIDE_D * 2);
+        load_tile_tma<WIDE_D>(sm.q, &q_map, &sm.q_full, tile.row * TILE, tile.mat);
+        if (r > 0) sm90::mbar_wait(&sm.do_empty, (r - 1) & 1);
+        sm90::mbar_expect_tx(&sm.do_full, TILE * WIDE_D * 2);
+        load_tile_tma<WIDE_D>(sm.dout, &do_map, &sm.do_full, tile.row * TILE, tile.mat);
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<PP_CONSUMER_REGS>();
+    const int tid = threadIdx.x - wg * WG_THREADS;
+    for (int r = 0, g = 0; wide_tile(tile, r, n, BH, n_tiles, 1, causal); ++r) {
+      const int n_kv = causal ? tile.row + 1 : n_tiles;
+      if (wg == 1)
+        dq_wide_tile_s(sm, lse, delta, tile.mat, tile.row, n_kv, T, causal, scale, g, r, tid);
+      else
+        dq_wide_tile_q(sm, &dq_map, tile.mat, tile.row, n_kv, scale, g, tid);
+      g += n_kv;
     }
   }
 }
@@ -1261,6 +1495,23 @@ int launch_dq(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& v
   dq_kernel<D><<<BH * (T / TILE), WG_THREADS, smem, s>>>(
       qm, km, vm, dom, (const float*)lse, (const float*)delta, (bf16*)dq, q_sh, q_st, BH, T, H,
       KV, scale, causal, l2_group(BH, T, D));
+  return (int)cudaGetLastError();
+}
+
+int launch_dq_wide(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm,
+                   const CUtensorMap& dom, const CUtensorMap& dqm, const void* lse,
+                   const void* delta, int BH, int T, int H, int KV, float scale, int causal,
+                   cudaStream_t s) {
+  constexpr int smem = smem_bytes<DqWideSmem>();
+  static_assert(smem <= 232448, "dq_wide_kernel: over the 227 KB a block may hold");
+  cudaError_t err = allow_smem(dq_wide_kernel, smem);
+  int dev, sms;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int n = BH * (T / TILE);  // tiles; one block an SM
+  dq_wide_kernel<<<n < sms ? n : sms, WIDE_THREADS, smem, s>>>(
+      qm, km, vm, dom, dqm, (const float*)lse, (const float*)delta, BH, T, H, KV, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -1347,7 +1598,11 @@ int flash_dq(const void* q, const void* k, const void* v, const void* dout,
   switch (D) {
     case 64: return SATURN_DQ(64);
     case 128: return SATURN_DQ(128);
-    default: return SATURN_DQ(256);
+    default: {
+      CUtensorMap dqm;
+      if ((err = sm90::encode_tile_map(&dqm, dq, D, T, BH, q_st, q_sh))) return err;
+      return launch_dq_wide(qm, km, vm, dom, dqm, lse, delta, BH, T, H, KV, scale, causal, s);
+    }
   }
 #undef SATURN_DQ
 }

@@ -12,8 +12,9 @@
 //   - K-major (desc_k): the columns are the product's depth (Q, K, V, dO as
 //     the left operand or as B = rows^T);
 //   - MN-major (desc_mn): the rows are the product's depth, the columns its
-//     output (V in P V, dO in P^T dO, Q in dS^T Q, x in ds^T x, W in ds W),
-//     through the transpose bit of the B operand; no transposed copy is made.
+//     output (V in P V, dO in P^T dO, Q in dS^T Q, K in dS K, x in ds^T x,
+//     W in ds W), through the transpose bit of the B operand; no transposed
+//     copy is made.
 
 #pragma once
 
@@ -375,6 +376,18 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[4][32], uint64_t a, uin
       ", %128, %129, p, 1, 1, 0, 0;\n}\n"
       : SM90_ACC128_OPERANDS(d)
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 256, f32) += A (64 x 16) B: A K-major in shared memory (desc_k), B
+// (16 x 256) read MN-major through the transpose bit, as wgmma_rs_n256 reads
+// it (desc_mn over four consecutive 64-column blocks).
+__device__ __forceinline__ void wgmma_ss_n256_mn(float (&d)[4][32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " SM90_ACC128
+      ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : SM90_ACC128_OPERANDS(d)
+      : "l"(a), "l"(b), "r"(1));
 }
 
 #undef SM90_ACC128

@@ -15,9 +15,11 @@ fallback from one to the other. Each counts its kernel launches in
 ``LAUNCHES`` (a launch captured into a CUDA graph counts at each replay,
 ``ops/launches.py``). The kernels tile at 64 x 64 and take bf16 with head dim
 64, 128 (every GPT-2 and Llama preset) or 256 (GPT-J's; there the forward is
-``fwd_pingpong_kernel``, 128 q rows a block on two warpgroups in turns, and
-dK/dV ``dkv_wide_kernel``, persistent blocks that work one kv tile at a time
-on two warpgroups, one forming P and dv, the other dS and dk). All
+``fwd_pingpong_kernel``, 128 q rows a block on two warpgroups in turns, dQ
+``dq_wide_kernel``, persistent blocks that work one q tile at a time on two
+warpgroups, one forming the scores and dS, the other dq += dS K, and dK/dV
+``dkv_wide_kernel``, persistent blocks that work one kv tile at a time on
+two warpgroups, one forming P and dv, the other dS and dk). All
 three load their tiles with TMA into rings of shared-memory stages and
 multiply on wgmma (helpers in ``csrc/sm90.cuh``); the note at the top of the
 CUDA source says what bounds them.

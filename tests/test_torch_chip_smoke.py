@@ -43,6 +43,7 @@ FLASH_DQ128 = FLASH_NS + "9dq_kernelILi128" + DQ_TAIL
 FLASH_FWD_PP = FLASH_NS + "19fwd_pingpong_kernelE14CUtensorMap_stS0_S0_S0_Pfiiiifii"
 FLASH_DKV_WIDE = (FLASH_NS + "15dkv_wide_kernelE14CUtensorMap_stS0_S0_S0_PKfS2_P13__nv_bfloat16"
                   "S4_xiiiiifii")
+FLASH_DQ_WIDE = FLASH_NS + "14dq_wide_kernelE14CUtensorMap_stS0_S0_S0_S0_PKfS2_iiiifi"
 HOPPER_FLASH = (FLASH_FWD, FLASH_DQ64, FLASH_DQ128, FLASH_DKV)
 #: What the head-dim-256 kernels' SASS holds: wgmma, TMA tile loads, setmaxnreg.
 SETMAXREG_OPS = ("HGMMA.64x256x16.F32.BF16", "UTMALDG.3D", "USETMAXREG.DEALLOC")
@@ -65,6 +66,7 @@ SETMAXREG_OPS = ("HGMMA.64x256x16.F32.BF16", "UTMALDG.3D", "USETMAXREG.DEALLOC")
     (FLASH_DQ128, ("dq_kernel", "128")),
     (FLASH_FWD_PP, ("fwd_pingpong_kernel", None)),
     (FLASH_DKV_WIDE, ("dkv_wide_kernel", None)),
+    (FLASH_DQ_WIDE, ("dq_wide_kernel", None)),
     ("_Z9somethingv", ("_Z9somethingv", None)),
 ])
 def test_sass_kernel_name(smoke, fn, name):
@@ -77,13 +79,16 @@ def _sass(ops, fns=HOPPER_CE):
     return "".join(f"\t\tFunction : {fn}\n" + body for fn in fns)
 
 
-def _flash_sass(ops, pingpong=SETMAXREG_OPS, fns=HOPPER_FLASH, wide=SETMAXREG_OPS):
+def _flash_sass(ops, pingpong=SETMAXREG_OPS, fns=HOPPER_FLASH, wide=SETMAXREG_OPS,
+                dq_wide=SETMAXREG_OPS):
     """A dump of the flash kernels ``fns``, each holding ``ops``, of the
-    head-dim-256 forward holding ``pingpong`` and of the head-dim-256 dK/dV
-    holding ``wide`` (None: left out)."""
+    head-dim-256 forward holding ``pingpong``, of the head-dim-256 dK/dV
+    holding ``wide`` and of the head-dim-256 dQ holding ``dq_wide`` (None:
+    left out)."""
     return (_sass(ops, fns=fns)
             + ("" if pingpong is None else _sass(pingpong, fns=(FLASH_FWD_PP,)))
-            + ("" if wide is None else _sass(wide, fns=(FLASH_DKV_WIDE,))))
+            + ("" if wide is None else _sass(wide, fns=(FLASH_DKV_WIDE,)))
+            + ("" if dq_wide is None else _sass(dq_wide, fns=(FLASH_DQ_WIDE,))))
 
 
 def _fake_dump(smoke, monkeypatch, tmp_path, sass):
@@ -409,6 +414,33 @@ def test_check_sass_holds_the_wide_dkv_kernel_to_setmaxnreg(smoke, monkeypatch, 
         smoke.check_sass(build, "flash_attn")
 
 
+def test_check_sass_requires_the_wide_dq_kernel(smoke, monkeypatch, tmp_path):
+    """Without dq_wide_kernel (the head-dim-256 dQ) the flash source fails,
+    naming it, though every other flash kernel is there."""
+    sass = _flash_sass(["HGMMA.64x64x16.F32.BF16", "UTMALDG.3D"], dq_wide=None)
+    build = _fake_dump(smoke, monkeypatch, tmp_path, sass)
+    with pytest.raises(AssertionError,
+                       match=re.escape("no SASS found for {'dq_wide_kernel'}")):
+        smoke.check_sass(build, "flash_attn")
+
+
+@pytest.mark.parametrize("ops,error", [
+    (["HGMMA.64x256x16.F32.BF16", "UTMALDG.3D"], "no USETMAXREG"),
+    (["UTMALDG.3D", "USETMAXREG.TRY_ALLOC"], "no HGMMA"),
+    (["HGMMA.64x64x16.F32.BF16", "USETMAXREG.DEALLOC"], "no UTMALDG"),
+])
+def test_check_sass_holds_the_wide_dq_kernel_to_setmaxnreg(smoke, monkeypatch, tmp_path, ops,
+                                                           error):
+    """The head-dim-256 dQ must hold wgmma, TMA tile loads and setmaxnreg
+    (its producer gives its registers to the two consumers): one without
+    fails, named, though the other flash kernels hold theirs."""
+    sass = _flash_sass(["HGMMA.64x64x16.F32.BF16", "UTMALDG.3D"], dq_wide=ops)
+    build = _fake_dump(smoke, monkeypatch, tmp_path, sass)
+    with pytest.raises(AssertionError,
+                       match=re.escape(f"dq_wide_kernel in flash_attn: {error}")):
+        smoke.check_sass(build, "flash_attn")
+
+
 @pytest.mark.parametrize("ops,error", [(["HMMA.16816.F32.BF16", "UTMALDG.3D"], "no HGMMA"),
                                        (["HMMA.16816.F32.BF16"], "no HGMMA or UTMALDG")])
 def test_check_sass_refuses_an_mma_sync_dq_kernel(smoke, monkeypatch, tmp_path, ops, error):
@@ -485,6 +517,68 @@ def test_step_kernels_counts_the_wide_dkv_kernel(smoke):
     for name, ms in (("flash_fwd", 0.057), ("flash_dq", 0.110), ("flash_dkv", 0.120)):
         assert kernels[name] == {"launches_per_step": 1.0,
                                  "device_ms_per_step": pytest.approx(ms)}
+
+
+def test_step_kernels_counts_the_wide_dq_kernel(smoke):
+    """At head dim 256 dQ is dq_wide_kernel: one launch of ``flash_dq``
+    per event, beside the forward and dK/dV at 256."""
+    ns = "(anonymous namespace)::"
+    step = [
+        (ns + "fwd_pingpong_kernel(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, float*, "
+         "int, int, int, int, float, int, int)", 0.0, 57.0),
+        (ns + "dq_wide_kernel(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
+         "float const*, float const*, int, int, int, int, float, int)", 100.0, 175.0),
+        (ns + "dkv_wide_kernel(CUtensorMap, CUtensorMap, CUtensorMap, CUtensorMap, "
+         "CUtensorMap, CUtensorMap, float const*, float const*, int, int, int, int, float, "
+         "int, int)", 175.0, 275.0),
+    ]
+    events = step + [(n, a + 1000.0, b + 1000.0) for n, a, b in step]
+    kernels = smoke.step_kernels(events, 2)
+    for name, ms in (("flash_fwd", 0.057), ("flash_dq", 0.075), ("flash_dkv", 0.100)):
+        assert kernels[name] == {"launches_per_step": 1.0,
+                                 "device_ms_per_step": pytest.approx(ms)}
+
+
+def test_flash_sweep_takes_the_median_window_and_flags_a_time_under_its_bound(
+        smoke, monkeypatch):
+    """The sweep times each function as phase 2 does: the median of three
+    profiled windows that disagree (one short of device events). A time
+    under its bound is taken again: dQ's second reading stands, SDPA's
+    backward stays under its bound through three and is named in the row's
+    ``under_bound``; CPU tensors through the plain versions, a stubbed
+    profiler."""
+    import torch
+
+    from saturn_tpu_torch.ops import flash
+
+    # ms per call of each profiled window, in the order the sweep takes them
+    windows = [("fwd_ms", (0.5, 0.1, 0.3)),
+               ("dq_ms", (1e-9, 2e-9, 3e-9)), ("dq_ms", (0.05, 0.07, 0.06)),
+               ("dkv_ms", (0.2, 0.6, 0.4)), ("sdpa_fwd_ms", (0.7, 0.7, 0.2))]
+    windows += [("sdpa_bwd_ms", (0.9, 1e-9, 1e-9))] * 3
+    per_window = iter([ms for _, three in windows for ms in three])
+
+    def profiled(fn, n):
+        fn()
+        return None, [("k", 0.0, next(per_window) * n * 1e3)]
+
+    def inputs(B, H, KV, T, D, seed):
+        g = torch.Generator().manual_seed(seed)
+        return tuple(torch.randn((b, T, D), generator=g).to(torch.bfloat16)
+                     for b in (B * H, B * KV, B * KV, B * H))
+
+    monkeypatch.setattr(smoke, "profiled", profiled)
+    monkeypatch.setattr(smoke, "kernel_inputs", inputs)
+    monkeypatch.setattr(smoke.torch.cuda, "synchronize", lambda: None)
+    (row,) = smoke.flash_sweep(flash, [(1, 2, 64, 64, True)])
+    assert next(per_window, None) is None  # every window taken, no more
+    assert row["fwd_ms"] == pytest.approx(0.3) and row["dkv_ms"] == pytest.approx(0.4)
+    assert row["sdpa_fwd_ms"] == pytest.approx(0.7) and row["dq_ms"] == pytest.approx(0.06)
+    assert row["sdpa_bwd_ms"] == pytest.approx(1e-9)
+    assert row["retaken"] == {"dq_ms": 1, "sdpa_bwd_ms": 2}
+    assert row["under_bound"] == ["sdpa_bwd_ms"]
+    assert set(row["bound_ms"]) == {name for name, _ in windows}
+    assert 0 < row["bound_ms"]["dq_ms"] < row["bound_ms"]["sdpa_bwd_ms"]
 
 
 def test_flash_sweep_rows_at_head_dim_256(smoke):

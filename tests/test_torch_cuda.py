@@ -12,8 +12,10 @@ walks of 32, D 64 and 128, grouped queries, a planted score per row in a
 late kv tile), the head-dim-256 forward (``fwd_pingpong_kernel``) at its
 edges (one tile, T % 128 == 64 with grouped queries, walks of 16, a grid of
 four blocks), with dQ and dK/dV on its lse, and run twice bitwise equal;
-the head-dim-256 dK/dV (``dkv_wide_kernel``) at the same edges, with a
-planted score per row in a late kv tile, and run twice bitwise equal;
+the head-dim-256 dK/dV (``dkv_wide_kernel``) and dQ (``dq_wide_kernel``)
+at the same edges and at walks of 32 and grids where each persistent block
+walks several tiles, with a planted score per row in a late kv tile, and
+run twice bitwise equal;
 the end-to-end attention gradients in the bf16 band of
 ``tests/test_flash.py`` (2e-2). The CE kernels by relative norm,
 the dx and dW kernels at their edges in both modes (D tile widths, V and N
@@ -215,6 +217,62 @@ def test_flash_fwd_d256_is_deterministic(cuda_device, causal):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,T,causal", [
+    # one tile: every walk is one step
+    (2, 4, 4, 64, True), (2, 4, 4, 64, False),
+    # grouped queries (rep 4): four q heads read each kv head
+    (2, 8, 2, 192, True), (2, 8, 2, 192, False), (2, 8, 2, 320, True), (2, 8, 2, 320, False),
+    # walks of 16 and 32: the rings' and the dS buffers' parities wrap
+    (1, 4, 4, 1024, True), (1, 4, 4, 1024, False), (1, 8, 2, 1024, True),
+    (1, 2, 2, 2048, True), (1, 2, 2, 2048, False),
+    # eight tiles, a grid far smaller than the card
+    (1, 1, 1, 512, True), (1, 1, 1, 512, False),
+    # 1024 and 256 tiles: each persistent block walks several, heavy with light when causal
+    (4, 16, 4, 1024, True), (2, 8, 8, 1024, False),
+])
+def test_flash_dq_d256_edges(cuda_device, B, H, KV, T, causal):
+    """The head-dim-256 dQ (dq_wide_kernel: persistent blocks of one q
+    tile at a time, one consumer warpgroup forming the scores and dS, the
+    other dq += dS K) against flash_dq_reference within FLASH_GRAD_REL, one
+    launch a call, at its edges, with the dQ edge test's inputs: a planted
+    score of ln T + 3 per q row in the latest kv tile it sees, so that P is
+    near 1 there and dS is far from uniform; lse and delta from the forward
+    kernel on the same inputs."""
+    q, k, v, do, target = _planted_inputs(B, H, KV, T, 256, causal, cuda_device,
+                                          B + H + KV + T + causal)
+    o, lse = flash.flash_fwd(q, k, v, causal, H, KV)
+    delta = (do.float() * o.float()).sum(-1)
+    before = flash.LAUNCHES["flash_dq"]
+    dq = flash.flash_dq(q, k, v, do, lse, delta, causal, H, KV)
+    launched = flash.LAUNCHES["flash_dq"] - before
+    want = flash.flash_dq_reference(q, k, v, do, lse, delta, causal, H, KV)
+    torch.cuda.synchronize()
+    assert dq.shape == q.shape and dq.dtype == torch.bfloat16 and launched == 1
+    assert torch.isfinite(dq.float()).all()
+    assert _rel_err(dq, want) <= FLASH_GRAD_REL, _rel_err(dq, want)
+    # P at the planted key, from the forward kernel's lse: near 1 for most rows
+    kv_of = (torch.arange(B * H, device=cuda_device) // H) * KV + (
+        torch.arange(B * H, device=cuda_device) % H) // (H // KV)
+    planted = torch.as_tensor(target * 64, device=cuda_device)
+    s = (q.float() * k[kv_of][:, planted].float()).sum(-1) / 256 ** 0.5
+    assert torch.exp(s - lse).median().item() >= 0.8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_dq_d256_is_deterministic(cuda_device, causal):
+    """Two runs of the head-dim-256 dQ on the same inputs give bitwise
+    equal dq (GPT-J's heads at T 512): no atomics, a fixed order."""
+    q, k, v, do = _flash_d256_inputs(2, 16, 16, 512, cuda_device, 7)
+    o, lse = flash.flash_fwd(q, k, v, causal, 16, 16)
+    delta = (do.float() * o.float()).sum(-1)
+    first = flash.flash_dq(q, k, v, do, lse, delta, causal, 16, 16)
+    second = flash.flash_dq(q, k, v, do, lse, delta, causal, 16, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.cuda
