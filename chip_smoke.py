@@ -153,6 +153,43 @@ Phases, in order; any failure is an exception and a non-zero exit:
    host bytes, the checkpoint's bytes and write seconds, the host states'
    draw seconds, the trials' kernel launches, and the bytes the run has
    passed to write calls before 8b-2's checkpoint.
+9. What users hand the four calls and what they get back. a)
+   ``generate_corpus`` writes its default 120 MB; the native word tokenizer
+   (``native/tokenize.cpp``) reads the bundled corpus
+   (``examples/data/corpus.txt``), the generated one and its first 8 MB,
+   each into GPT-2's 50257-id vocab, timed (seconds, MB/s); its ids on the
+   bundled corpus and the 8 MB prefix are byte-identical to
+   ``_word_tokenize_python``'s. c) (run before b) a child process with an
+   empty ``SATURN_TPU_COMPILE_CACHE_DIR`` builds the CUDA kernels and the
+   native libraries into it (two ``nvcc``, two ``g++``, timed), a second
+   one loads them from it and starts no process at all, and each launches
+   the flash forward. b) the sweep driver,
+   ``saturn_tpu_torch.examples.lm_sweep``, run as ``python -m`` runs it
+   from a child launcher that passes ``trace_dir`` to its ``search`` and
+   ``orchestrate`` (lm_sweep has no flag for it), with 9c's compile cache
+   from the environment: GPT-2-small b8 x 512, two lrs, SWEEP_BATCH_COUNT
+   batches, ``dp``, the bundled corpus through the word tokenizer. Every
+   task must reach its steps; the two traces (search, orchestrate) must
+   name the flash forward, dQ, dK/dV and the CE forward, dx and dW kernels
+   as often as the launch counters counted them over the run (a trace
+   short of a count, lost events, is taken again once); their bytes and
+   export seconds are printed. d) a user's script defines a ``dp``
+   subclass in its ``__main__`` and registers it under
+   ``SATURN_TPU_LIBRARY_PATH``, beside two JAX-format ``.udp`` files; a
+   second process retrieves it by name (the ``.udp`` files left alone) and
+   trains GPT-2-small with it through ``search`` and ``orchestrate``. e)
+   GPT-2-small from an HF ``GPT2LMHeadModel``-named fp32 state dict (seeded
+   numpy, 50257 rows, 1024 positions): the first dp step's loss (bf16,
+   flash, fused head) within PRETRAINED_LOSS_REL of the same ingested
+   model's f32 loss on the CPU and at least PRETRAINED_CONTROL times that
+   far from a random init's, then ``search`` and ``orchestrate``. f) GPT-J-6B at
+   GPTJ_HF_LAYERS layers from an HF ``GPTJForCausalLM``-named fp16 state
+   dict (HF's 50400 embedding rows, so vocab_size 50432; about 2.5 GB):
+   offload bulk and dp over the logits from it, losses within OFFLOAD_REL,
+   exact flash launches at head dim 256; its logits within BF16_BAND (by
+   relative norm) of a plain f32 forward with HF's interleaved rotary,
+   and at least WRONG_ROTARY_MIN times further from one that rotates split
+   halves of HF's lanes (what ingest without the lane permutation gives).
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
@@ -183,6 +220,10 @@ second thread one unit ahead, in windows of 8 and one step at a time
 
 builds the kernels, checks them at head dim 256 and runs phase 8
 (``chiprun_out/offload.json``).
+
+    python3 chip_smoke.py --data
+
+builds the kernels and runs phase 9 (``chiprun_out/data.json``).
 """
 
 from __future__ import annotations
@@ -2528,6 +2569,661 @@ def offload_phase(sat, flash, ce, card) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ phase 9
+BUNDLED_CORPUS = os.path.join(REPO, "examples", "data", "corpus.txt")
+GPT2_VOCAB = 50257            # HF GPT-2's vocabulary: the word tokenizer's cap in 9a
+PLAIN_PREFIX_BYTES = 8 * 2**20  # 9a: the generated corpus's prefix also held to the plain version
+SWEEP_BATCH_COUNT = 16        # 9b: batches of each task of the traced sweep
+SWEEP_LRS = ("6e-4", "1e-3")
+PRETRAINED_STEPS = 3          # 9e's orchestrate and 9f's runs: steps of each
+#: 9e: the card's first loss against the ingested model's f32 loss on the
+#: CPU, relative (read at 2.42e-05 on an H100); the loss of a random init of
+#: the same spec must lie PRETRAINED_CONTROL times as far off, so that the
+#: check tells the ingested weights from a random draw.
+PRETRAINED_LOSS_REL = 5e-4
+PRETRAINED_CONTROL = 5.0
+GPTJ_HF_VOCAB = 50400         # HF GPT-J-6B's embedding rows (its tokenizer has 50257 ids)
+GPTJ_HF_PADDED = 50432        # the preset vocab that holds them, a multiple of 128
+GPTJ_HF_LAYERS = 4            # 9f: the depth of 8b-2 and 8c
+WRONG_ROTARY_MIN = 5.0        # 9f: the split-half forward's distance over the interleaved one's, at least
+#: 9b: a launcher that runs the sweep driver as ``python -m`` would, with
+#: ``trace_dir`` passed to its ``search`` and ``orchestrate`` (lm_sweep has
+#: no flag for it) and the compile cache from the environment; it writes the
+#: kernel launch counters over the whole run and the trace exports' seconds.
+SWEEP_LAUNCHER = r"""
+import functools, json, runpy, sys, time
+import torch.profiler
+import saturn_tpu_torch as sat
+from saturn_tpu_torch.ops import ce, flash
+out, trace_dir = sys.argv[1], sys.argv[2]
+exports = []
+handler_of = torch.profiler.tensorboard_trace_handler
+def timed_handler(*args, **kwargs):
+    handler = handler_of(*args, **kwargs)
+    def export(prof):
+        t0 = time.perf_counter()
+        handler(prof)
+        exports.append(time.perf_counter() - t0)
+    return export
+torch.profiler.tensorboard_trace_handler = timed_handler
+sat.search = functools.partial(sat.search, trace_dir=trace_dir)
+sat.orchestrate = functools.partial(sat.orchestrate, trace_dir=trace_dir)
+flash.reset_launch_counts()
+ce.reset_launch_counts()
+sys.argv = ["lm_sweep"] + sys.argv[3:]
+t0 = time.perf_counter()
+runpy.run_module("saturn_tpu_torch.examples.lm_sweep", run_name="__main__", alter_sys=True)
+with open(out, "w") as f:
+    json.dump({"launches": {**flash.LAUNCHES, **ce.LAUNCHES}, "export_s": exports,
+               "seconds": time.perf_counter() - t0}, f)
+"""
+#: 9c: load the port's compiled code (building it where the compile cache
+#: lacks it), recording every process started, and launch one kernel.
+BUILD_PROBE = r"""
+import json, subprocess, sys, time
+started = []
+class Popen(subprocess.Popen):
+    def __init__(self, args, *a, **k):
+        started.append(str(args[0]))
+        super().__init__(args, *a, **k)
+subprocess.Popen = Popen
+t0 = time.perf_counter()
+import torch
+from saturn_tpu_torch import native
+from saturn_tpu_torch.ops import flash
+from saturn_tpu_torch.utils import cuda_build
+t_import = time.perf_counter() - t0
+t0 = time.perf_counter()
+cuda_build.load_all(["flash_attn", "linear_ce"])
+native.load("spase")
+native.load("tokenize")
+t_load = time.perf_counter() - t0
+q = torch.randn(1, 2, 128, 64, device="cuda", dtype=torch.bfloat16)
+o = flash.flash_attention(q, q, q, causal=True)
+torch.cuda.synchronize()
+print(json.dumps({"started": started, "import_s": t_import, "load_s": t_load,
+                  "finite": bool(torch.isfinite(o).all()),
+                  "libraries": sorted(str(cuda_build.library_path(n)) for n in
+                                      ("flash_attn", "linear_ce"))
+                  + sorted(str(native.library_path(n)) for n in ("spase", "tokenize"))}))
+"""
+#: 9d: a user's script, its technique defined in ``__main__``.
+TECHNIQUE_SCRIPT = r'''
+"""A user's script: a dp subclass of its own, registered under
+SATURN_TPU_LIBRARY_PATH."""
+from saturn_tpu_torch import library
+from saturn_tpu_torch.parallel.dp import DataParallel
+
+
+class ScriptDP(DataParallel):
+    """dp under a name of its own, defined in the script that registers it."""
+
+    name = "script-dp"
+
+
+if __name__ == "__main__":
+    library.register("script-dp", ScriptDP)
+    print("registered", ScriptDP.__module__, ScriptDP.__qualname__)
+'''
+#: 9d: a second script that finds the technique by name and trains with it.
+TECHNIQUE_USER = r"""
+import json, os, sys
+import saturn_tpu_torch as sat
+from saturn_tpu_torch.data.lm_dataset import make_lm_dataset
+from saturn_tpu_torch.models.gpt2 import build_gpt2
+from saturn_tpu_torch.models.loss import pretraining_loss
+from saturn_tpu_torch.utils import checkpoint as ckpt
+names = sat.library.registered_names()
+cls = sat.library.retrieve("script-dp")
+try:
+    sat.library.retrieve("jax-only")
+    jax_only = "loaded"
+except KeyError:
+    jax_only = "absent"
+task = sat.Task(get_model=lambda **kw: build_gpt2("gpt2-small", **kw),
+                get_dataloader=lambda: make_lm_dataset(context_length=512, batch_size=8, seed=0),
+                loss_fn=pretraining_loss, hparams=sat.HParams(lr=6e-4, batch_count=int(sys.argv[2])),
+                name="script-dp-task", save_dir=sys.argv[1])
+task.clear_ckpt()
+stats = sat.search([task], technique_names=["script-dp"], profile_cache=False)
+strategy = task.strategies[1]
+result = sat.orchestrate([task], interval=60.0)
+print(json.dumps({"registered": names, "qualname": cls.__qualname__, "module": cls.__module__,
+                  "jax_only": jax_only, "trials": stats["trials_run"],
+                  "executor": type(strategy.executor).__qualname__,
+                  "completed": result["completed"], "step": ckpt.saved_step(task.ckpt_path),
+                  "losses": task.last_losses}))
+"""
+
+
+def tokenize_timed(lm_dataset, path: str, max_vocab: int, cache_dir: str) -> dict:
+    """The native tokenizer on ``path`` with an empty cache: ids, vocab
+    size, seconds and MB/s."""
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    ids, vocab = lm_dataset.word_tokenize_file(path, max_vocab=max_vocab, cache_dir=cache_dir)
+    seconds = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    return {"ids": ids, "vocab": vocab, "seconds": seconds, "mb": mb, "mb_per_s": mb / seconds,
+            "tokens": int(ids.size), "unk_share": float((ids == 1).mean())}
+
+
+def check_plain(lm_dataset, label: str, path: str, got: dict) -> float:
+    """Hold native ids to ``_word_tokenize_python`` on the same file, byte
+    for byte; returns the plain version's seconds."""
+    with open(path, "rb") as f:
+        data = f.read()
+    t0 = time.perf_counter()
+    ids, vocab = lm_dataset._word_tokenize_python(data, GPT2_VOCAB)
+    seconds = time.perf_counter() - t0
+    if vocab != got["vocab"] or ids.dtype != got["ids"].dtype \
+            or ids.tobytes() != got["ids"].tobytes():
+        raise AssertionError(f"9a {label}: native ids ({got['tokens']}, vocab {got['vocab']}) "
+                             f"differ from the plain version's ({ids.size}, vocab {vocab})")
+    return seconds
+
+
+def data_phase(card) -> dict:
+    """Phase 9a: the corpus generator and the native word tokenizer."""
+    from saturn_tpu_torch import native
+    from saturn_tpu_torch.data import corpus_gen, lm_dataset
+
+    t0 = time.perf_counter()
+    native.load("tokenize")  # its first build stays out of the tokenizer's times
+    build_s = time.perf_counter() - t0
+    log(f"  the native tokenizer built (or found built) and loaded in {build_s:.2f}s")
+    root = os.path.join(OUT, "data")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    corpus = os.path.join(root, "corpus_gen.txt")
+    t0 = time.perf_counter()
+    info = corpus_gen.generate_corpus(corpus)
+    gen_s = time.perf_counter() - t0
+    log(f"  generate_corpus: {info['bytes'] / 1e6:.1f} MB, {info['tokens']:,} tokens, "
+        f"{info['types']:,} types in {gen_s:.1f}s")
+    out = {"generate": {**info, "seconds": gen_s}, "tokenizer_load_s": build_s}
+    prefix = os.path.join(root, "corpus_gen_prefix.txt")
+    with open(corpus, "rb") as f:
+        head = f.read(PLAIN_PREFIX_BYTES)
+    with open(prefix, "wb") as f:
+        f.write(head[: head.rindex(b"\n") + 1])
+    for label, path in (("bundled", BUNDLED_CORPUS), ("generated", corpus),
+                        ("generated-prefix", prefix)):
+        got = tokenize_timed(lm_dataset, path, GPT2_VOCAB, os.path.join(root, f"cache_{label}"))
+        row = {k: v for k, v in got.items() if k != "ids"}
+        if label != "generated":
+            row["plain_s"] = check_plain(lm_dataset, label, path, got)
+        if not (got["ids"].max() < got["vocab"] <= GPT2_VOCAB):
+            raise AssertionError(f"9a {label}: ids up to {got['ids'].max()}, vocab {got['vocab']}")
+        out[label] = row
+        log(f"  native tokenizer, {label}: {row['mb']:.2f} MB, {row['tokens']:,} tokens, vocab "
+            f"{row['vocab']}, <unk> {row['unk_share']:.4f} in {row['seconds']:.2f}s "
+            f"({row['mb_per_s']:.1f} MB/s)"
+            + (f"; ids byte-identical to the plain version's ({row['plain_s']:.2f}s)"
+               if "plain_s" in row else "") + f"  [{card}]")
+    shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def trace_kernel_events(path: str):
+    """(name, start us, end us) of every kernel in a torch.profiler Chrome
+    trace, in order."""
+    with open(path) as f:
+        trace = json.load(f)
+    return sorted(((e["name"], float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in trace.get("traceEvents", []) if e.get("cat") == "kernel"),
+                  key=lambda x: x[1])
+
+
+def trace_launches(paths) -> dict:
+    """Launches of each kernel wrapper in the traces at ``paths``, read as
+    ``step_kernels`` reads a profile."""
+    total = dict.fromkeys(KERNEL_SYMBOLS, 0)
+    for path in paths:
+        for name, k in step_kernels(trace_kernel_events(path), 1).items():
+            total[name] += int(round(k["launches_per_step"]))
+    return total
+
+
+def child_env(**extra) -> dict:
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    env.update(extra)
+    return env
+
+
+def run_child(args, label: str, timeout: int, **env) -> subprocess.CompletedProcess:
+    """Run a child python process from the repo's root; its output goes to
+    ``chiprun_out/<label>.log``; a non-zero exit raises."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *args], cwd=REPO, env=child_env(**env),
+                          capture_output=True, text=True, timeout=timeout)
+    with open(os.path.join(OUT, f"{label}.log"), "w") as f:
+        f.write(proc.stdout + "\n--- stderr ---\n" + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: exit {proc.returncode}:\n{proc.stderr[-4000:]}")
+    proc.seconds = time.perf_counter() - t0
+    return proc
+
+
+def sweep_trace_phase(card, cache_dir: str, attempts: int = 2) -> dict:
+    """Phase 9b: the port's sweep driver on the bundled corpus, traced."""
+    for attempt in range(attempts):
+        trace_dir = os.path.join(OUT, "sweep_trace")
+        ckpts = os.path.join(CKPTS, "lm_sweep")
+        counts_path = os.path.join(OUT, "sweep_trace_counts.json")
+        for d in (trace_dir, ckpts, os.path.join(OUT, "sweep_profile_cache_9b")):
+            shutil.rmtree(d, ignore_errors=True)
+        args = ["--preset", GPT2, "--batch-sizes", str(BATCH), "--lrs", *SWEEP_LRS,
+                "--batch-count", str(SWEEP_BATCH_COUNT), "--techniques", "dp",
+                "--save-dir", ckpts]
+        proc = run_child(["-c", SWEEP_LAUNCHER, counts_path, trace_dir, *args],
+                         "sweep_trace", 900, SATURN_TPU_COMPILE_CACHE_DIR=cache_dir,
+                         SATURN_TPU_PROFILE_CACHE_DIR=os.path.join(OUT, "sweep_profile_cache_9b"))
+        steps = re.findall(r"trained steps=(\d+) remaining=(\d+)", proc.stdout)
+        if len(steps) != len(SWEEP_LRS) or any(
+                (int(s), int(r)) != (SWEEP_BATCH_COUNT, 0) for s, r in steps):
+            raise AssertionError(f"9b: lm_sweep's tasks ended at {steps}, want "
+                                 f"{SWEEP_BATCH_COUNT} steps each")
+        if "tokenizer=word" not in proc.stdout or "corpus.txt" not in proc.stdout:
+            raise AssertionError("9b: lm_sweep did not train on the bundled corpus")
+        with open(counts_path) as f:
+            counted = json.load(f)
+        traces = sorted(os.path.join(trace_dir, n) for n in os.listdir(trace_dir)
+                        if n.endswith(".pt.trace.json"))
+        if len(traces) != 2:
+            raise AssertionError(f"9b: {len(traces)} traces in {trace_dir}, want 2 "
+                                 f"(search, orchestrate)")
+        seen = trace_launches(traces)
+        want = {n: counted["launches"][n] for n in KERNEL_NAMES}
+        sizes = [os.path.getsize(p) for p in traces]  # search's, then orchestrate's
+        nbytes = sum(sizes)
+        row = {"traces": [os.path.basename(p) for p in traces], "trace_bytes": nbytes,
+               "trace_file_bytes": sizes,
+               "export_s": counted["export_s"], "launches": want, "trace_launches": seen,
+               "sweep_s": counted["seconds"], "process_s": proc.seconds, "steps": steps,
+               "attempt": attempt + 1}
+        log(f"  lm_sweep: {len(SWEEP_LRS)} tasks x {SWEEP_BATCH_COUNT} steps on the bundled "
+            f"corpus in {counted['seconds']:.1f}s ({proc.seconds:.1f}s with the process); "
+            f"traces {nbytes / 1e6:.1f} MB (search {sizes[0] / 1e6:.1f}, orchestrate "
+            f"{sizes[1] / 1e6:.1f}), exported in "
+            f"{', '.join(f'{s:.2f}s' for s in counted['export_s'])}  [{card}]")
+        log(f"  launch counters {want}; in the traces {seen}")
+        missing = [n for n in KERNEL_NAMES if not want[n]]
+        if missing:
+            raise AssertionError(f"9b: kernels {missing} never launched in the sweep")
+        if seen == want:
+            shutil.rmtree(trace_dir, ignore_errors=True)
+            shutil.rmtree(ckpts, ignore_errors=True)
+            return row
+        SHORT_PROFILES.append({"label": "9b trace", "attempt": attempt + 1,
+                               "short": {n: [seen[n], want[n]] for n in KERNEL_NAMES
+                                         if seen[n] != want[n]}})
+        if any(seen[n] > want[n] for n in KERNEL_NAMES) or attempt == attempts - 1:
+            raise AssertionError(f"9b: the traces hold {seen} launches, the counters {want}")
+        log("  the traces lost kernel events; running lm_sweep again")
+
+
+def compile_cache_phase(card, cache_dir: str) -> dict:
+    """Phase 9c: a fresh compile cache is built into, then loaded from with
+    no compiler started."""
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    runs = []
+    for label in ("build", "hit"):
+        proc = run_child(["-c", BUILD_PROBE], f"compile_cache_{label}", 900,
+                         SATURN_TPU_COMPILE_CACHE_DIR=cache_dir)
+        run = json.loads(proc.stdout.strip().splitlines()[-1])
+        run["process_s"] = proc.seconds
+        if not run["finite"]:
+            raise AssertionError(f"9c {label}: the flash forward gave non-finite values")
+        if any(os.path.dirname(p) != os.path.realpath(cache_dir) for p in run["libraries"]):
+            raise AssertionError(f"9c {label}: libraries outside the cache: {run['libraries']}")
+        runs.append(run)
+        log(f"  {label}: loaded {len(run['libraries'])} libraries in {run['load_s']:.2f}s "
+            f"({run['process_s']:.1f}s with the process), compilers started: "
+            f"{[os.path.basename(s) for s in run['started']]}  [{card}]")
+    built = sorted(os.path.basename(s) for s in runs[0]["started"])
+    if built != ["g++", "g++", "nvcc", "nvcc"]:
+        raise AssertionError(f"9c: the fresh cache's process started {built}, want two nvcc "
+                             f"and two g++")
+    if runs[1]["started"]:
+        raise AssertionError(f"9c: the second process started {runs[1]['started']}")
+    if runs[0]["libraries"] != runs[1]["libraries"]:
+        raise AssertionError("9c: the two processes loaded different libraries")
+    return {"build": runs[0], "hit": runs[1]}
+
+
+def technique_phase(card) -> dict:
+    """Phase 9d: a technique of a user's ``__main__`` script, registered in
+    one process and trained with in the next."""
+    store = os.path.join(OUT, "technique_library")
+    shutil.rmtree(store, ignore_errors=True)
+    os.makedirs(store)
+    script = os.path.join(OUT, "user_script.py")
+    with open(script, "w") as f:
+        f.write(TECHNIQUE_SCRIPT)
+    # JAX-format records: one under a name of its own and one beside the
+    # port's record of the same name; the port must load neither
+    for name in ("jax-only", "script-dp"):
+        with open(os.path.join(store, f"{name}.udp"), "wb") as f:
+            f.write(b"\x80\x04not a pickle the port may read")
+    run_child([script], "technique_register", 300, SATURN_TPU_LIBRARY_PATH=store)
+    files = sorted(os.listdir(store))
+    from saturn_tpu_torch import library
+
+    if files != sorted(["jax-only.udp", "script-dp.udp", "script-dp" + library.SUFFIX]):
+        raise AssertionError(f"9d: the store holds {files}")
+    save_dir = os.path.join(CKPTS, "script_dp")
+    proc = run_child(["-c", TECHNIQUE_USER, save_dir, str(PRETRAINED_STEPS)],
+                     "technique_use", 600, SATURN_TPU_LIBRARY_PATH=store)
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    if got["qualname"] != "ScriptDP" or got["executor"] != "ScriptDP" \
+            or got["jax_only"] != "absent" or "jax-only" in got["registered"]:
+        raise AssertionError(f"9d: {got}")
+    if got["step"] != PRETRAINED_STEPS or got["completed"] != ["script-dp-task"] \
+            or not np.isfinite(got["losses"]).all() or got["trials"] < 1:
+        raise AssertionError(f"9d: the persisted technique's run: {got}")
+    log(f"  {got['qualname']} from {got['module']} (registered by {os.path.basename(script)}): "
+        f"{got['trials']} trials, {got['step']} steps, losses "
+        f"{np.round(got['losses'], 4).tolist()}; JAX .udp files left alone; "
+        f"{proc.seconds:.1f}s  [{card}]")
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return {**got, "process_s": proc.seconds, "files": files}
+
+
+def seeded_normal(rng, shape, std: float, mean: float = 0.0, dtype=torch.float32):
+    """A tensor of N(mean, std) drawn in fp32 from the numpy generator ``rng``,
+    cast to ``dtype``."""
+    t = rng.standard_normal(shape, dtype=np.float32) * np.float32(std) + np.float32(mean)
+    return torch.from_numpy(t).to(dtype)
+
+
+def hf_gpt2_state_dict(cfg, seed: int, vocab: int = GPT2_VOCAB, n_positions: int = 1024,
+                       dtype=torch.float32) -> dict:
+    """A state dict in HF ``GPT2LMHeadModel`` naming and layout (Conv1D
+    weights (in, out), the ``transformer.`` prefix, the tied
+    ``lm_head.weight``) at ``cfg``'s widths, drawn from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    D, F_ = cfg.d_model, cfg.ff_dim
+
+    def draw(shape, std, mean=0.0):
+        return seeded_normal(rng, shape, std, mean, dtype)
+
+    sd = {"transformer.wte.weight": draw((vocab, D), 0.02),
+          "transformer.wpe.weight": draw((n_positions, D), 0.01)}
+    for i in range(cfg.n_layers):
+        h = f"transformer.h.{i}."
+        for ln in ("ln_1", "ln_2"):
+            sd[f"{h}{ln}.weight"] = draw((D,), 0.1, 1.0)
+            sd[f"{h}{ln}.bias"] = draw((D,), 0.01)
+        for name, shape in (("attn.c_attn", (D, 3 * D)), ("attn.c_proj", (D, D)),
+                            ("mlp.c_fc", (D, F_)), ("mlp.c_proj", (F_, D))):
+            sd[f"{h}{name}.weight"] = draw(shape, 0.02)
+            sd[f"{h}{name}.bias"] = draw(shape[1:], 0.01)
+    sd["transformer.ln_f.weight"] = draw((D,), 0.1, 1.0)
+    sd["transformer.ln_f.bias"] = draw((D,), 0.01)
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]  # tied, as HF saves it
+    return sd
+
+
+def hf_gptj_state_dict(cfg, seed: int, vocab: int = GPTJ_HF_VOCAB,
+                       dtype=torch.float16) -> dict:
+    """A state dict in HF ``GPTJForCausalLM`` naming and layout (Linear
+    weights (out, in), separate q/k/v with no biases, an untied ``lm_head``
+    with a bias) at ``cfg``'s widths, drawn from a numpy seed; fp16, the
+    dtype of HF's ``float16`` revision."""
+    rng = np.random.default_rng(seed)
+    D, F_ = cfg.d_model, cfg.ff_dim
+
+    def draw(shape, std, mean=0.0):
+        return seeded_normal(rng, shape, std, mean, dtype)
+
+    sd = {"transformer.wte.weight": draw((vocab, D), 0.02)}
+    for i in range(cfg.n_layers):
+        h = f"transformer.h.{i}."
+        sd[h + "ln_1.weight"] = draw((D,), 0.1, 1.0)
+        sd[h + "ln_1.bias"] = draw((D,), 0.01)
+        for n in ("q", "k", "v", "out"):
+            sd[f"{h}attn.{n}_proj.weight"] = draw((D, D), 0.02)
+        sd[h + "mlp.fc_in.weight"] = draw((F_, D), 0.02)
+        sd[h + "mlp.fc_in.bias"] = draw((F_,), 0.01)
+        sd[h + "mlp.fc_out.weight"] = draw((D, F_), 0.02)
+        sd[h + "mlp.fc_out.bias"] = draw((D,), 0.01)
+    sd["transformer.ln_f.weight"] = draw((D,), 0.1, 1.0)
+    sd["transformer.ln_f.bias"] = draw((D,), 0.01)
+    sd["lm_head.weight"] = draw((vocab, D), 0.02)
+    sd["lm_head.bias"] = draw((vocab,), 0.01)
+    return sd
+
+
+def interleaved_gptj_logits(sd: dict, cfg, tokens: torch.Tensor, interleaved: bool = True):
+    """The plain forward of an HF GPT-J state dict in f32 on ``tokens``'
+    device: HF's interleaved rotary (lane pairs (2i, 2i+1) of each head's
+    first ``rotary_dim`` lanes) on q and k, and otherwise the port's model:
+    eps 1e-6 norms, tanh GELU, the parallel residual, the tied head over
+    ``wte`` zero-padded to ``cfg.vocab_size``. ``interleaved=False`` rotates
+    split halves of the same lanes instead: the function of a mapping that
+    leaves HF's lanes where they are."""
+    from saturn_tpu_torch.models.gpt2 import NORM_EPS
+
+    dev = tokens.device
+
+    def w(key):
+        return sd[key].to(dev, torch.float32)
+
+    B, T = tokens.shape
+    D, H, hd = cfg.d_model, cfg.n_heads, cfg.head_dim
+    rd = cfg.rotary_dim or hd
+    wte = w("transformer.wte.weight")
+    x = wte[tokens.long()]
+    inv = 1.0 / (10000.0 ** (torch.arange(0, rd, 2, device=dev, dtype=torch.float32) / rd))
+    ang = torch.arange(T, device=dev, dtype=torch.float32)[:, None] * inv[None, :]
+
+    def rotate(t):
+        r, rest = t[..., :rd], t[..., rd:]
+        if interleaved:
+            sin, cos = ang.sin().repeat_interleave(2, -1), ang.cos().repeat_interleave(2, -1)
+            x1, x2 = r[..., ::2], r[..., 1::2]
+            turned = torch.stack((-x2, x1), dim=-1).flatten(-2)
+        else:
+            sin, cos = ang.sin().repeat(1, 2), ang.cos().repeat(1, 2)
+            x1, x2 = r[..., : rd // 2], r[..., rd // 2:]
+            turned = torch.cat((-x2, x1), dim=-1)
+        return torch.cat([r * cos + turned * sin, rest], dim=-1)
+
+    causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+    for i in range(cfg.n_layers):
+        p = f"transformer.h.{i}."
+        h = F.layer_norm(x, (D,), w(p + "ln_1.weight"), w(p + "ln_1.bias"), eps=NORM_EPS)
+        q, k, v = ((h @ w(f"{p}attn.{n}_proj.weight").T).view(B, T, H, hd).transpose(1, 2)
+                   for n in "qkv")
+        q, k = rotate(q), rotate(k)
+        scores = (q @ k.transpose(-1, -2)) / float(np.sqrt(hd))
+        probs = torch.softmax(scores.masked_fill(~causal, float("-inf")), dim=-1)
+        attn = (probs @ v).transpose(1, 2).reshape(B, T, D) @ w(p + "attn.out_proj.weight").T
+        mlp = F.gelu(h @ w(p + "mlp.fc_in.weight").T + w(p + "mlp.fc_in.bias"),
+                     approximate="tanh") @ w(p + "mlp.fc_out.weight").T + w(p + "mlp.fc_out.bias")
+        x = x + attn + mlp
+    x = F.layer_norm(x, (D,), w("transformer.ln_f.weight"), w("transformer.ln_f.bias"),
+                     eps=NORM_EPS)
+    head = torch.cat([wte, wte.new_zeros(cfg.vocab_size - wte.shape[0], D)])
+    return x @ head.T
+
+
+def rel_norm(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def pretrained_gpt2_phase(sat, flash, ce, card) -> dict:
+    """Phase 9e: GPT-2-small from an HF-named state dict under dp with the
+    fused head."""
+    from saturn_tpu_torch.models.gpt2 import build_gpt2, config_for
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    sat.library.register_default_library()
+    path = os.path.join(CKPTS, "hf_gpt2_small.pt")
+    os.makedirs(CKPTS, exist_ok=True)
+    t0 = time.perf_counter()
+    sd = hf_gpt2_state_dict(config_for(GPT2), seed=17)
+    torch.save(sd, path)
+    del sd
+    write_s = time.perf_counter() - t0
+    task = lm_task(sat, "gpt2s-pretrained", 6e-4, PRETRAINED_STEPS,
+                   os.path.join(CKPTS, "gpt2_pretrained"), pretrained=path)
+    dev = torch.device(DEVICE, 0)
+    reset_counts(flash, ce)
+    first = bundle_steps(DataParallel(), task, {"attention": "flash", "remat": False}, dev, 1)[0]
+    got = counts(flash, ce)
+    if got != want_launches("flash", None):
+        raise AssertionError(f"9e: the first step's launches {got}")
+    t0 = time.perf_counter()
+    tokens = torch.from_numpy(task.batch_at(0)).long()
+    cpu_loss = {}
+    for label, pretrained in (("ingested", path), ("random", None)):
+        spec = build_gpt2(GPT2, pretrained=pretrained, dtype=torch.float32, attention="dense")
+        model = spec.init_fn(torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            cpu_loss[label] = task.loss_fn(spec.apply_fn(model, tokens), tokens).item()
+        del model
+    cpu_s = time.perf_counter() - t0
+    want, random_loss = cpu_loss["ingested"], cpu_loss["random"]
+    diff = abs(first - want) / abs(want)
+    control = abs(first - random_loss) / abs(random_loss)
+    log(f"  first step's loss on the card (bf16, flash, fused head) {first:.6f}, the same "
+        f"ingested model's f32 loss on the CPU {want:.6f}: {diff:.2e} relative (limit "
+        f"{PRETRAINED_LOSS_REL:g}); a random init's f32 loss {random_loss:.6f}: {control:.2e} "
+        f"relative ({cpu_s:.1f}s on the CPU)  [{card}]")
+    if not diff <= PRETRAINED_LOSS_REL:
+        raise AssertionError(f"9e: {first} against {want}, over {PRETRAINED_LOSS_REL}")
+    if not control >= PRETRAINED_CONTROL * PRETRAINED_LOSS_REL:
+        raise AssertionError(f"9e: the card's loss {first} lies {control:.2e} from a random "
+                             f"init's {random_loss}, under {PRETRAINED_CONTROL:g} x the limit")
+    topo = topology()
+    stats = sat.search([task], technique_names=["dp"], topology=topo, profile_cache=False)
+    result = sat.orchestrate([task], interval=60.0, topology=topo)
+    step = ckpt.saved_step(task.ckpt_path)
+    losses = task.last_losses
+    if result["completed"] != [task.name] or step != PRETRAINED_STEPS \
+            or not np.isfinite(losses).all():
+        raise AssertionError(f"9e: orchestrate {result}, step {step}, losses {losses}")
+    log(f"  search ({stats['trials_run']} trials) -> orchestrate: {step} steps, losses "
+        f"{np.round(losses, 5).tolist()}  [{card}]")
+    task.release_live_state()
+    os.unlink(path)
+    shutil.rmtree(task.save_dir, ignore_errors=True)
+    return {"first_loss": first, "cpu_f32_loss": want, "rel_diff": diff,
+            "random_f32_loss": random_loss, "rel_diff_random": control, "write_s": write_s,
+            "cpu_s": cpu_s, "trials": stats["trials_run"], "step": step, "losses": losses}
+
+
+def pretrained_gptj_phase(sat, flash, ce, card) -> dict:
+    """Phase 9f: GPT-J-6B at GPTJ_HF_LAYERS layers from an fp16 HF-named
+    state dict, under offload bulk and dp, and its logits against the plain
+    interleaved-rotary forward."""
+    import gc
+
+    from saturn_tpu_torch.models.gpt2 import config_for
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.parallel.offload import HostOffload
+
+    cfg = config_for(GPTJ, n_layers=GPTJ_HF_LAYERS, vocab_size=GPTJ_HF_PADDED)
+    path = os.path.join(CKPTS, "hf_gptj_6b.pt")
+    os.makedirs(CKPTS, exist_ok=True)
+    written0 = bytes_written()
+    t0 = time.perf_counter()
+    sd = hf_gptj_state_dict(cfg, seed=23)
+    torch.save(sd, path)
+    write_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    log(f"  an HF GPT-J state dict, {GPTJ_HF_LAYERS} layers, vocab {GPTJ_HF_VOCAB}, fp16: "
+        f"{nbytes / 1e9:.2f} GB written in {write_s:.1f}s")
+    task = lm_task(sat, "gptj-pretrained", 1e-4, PRETRAINED_STEPS,
+                   os.path.join(CKPTS, "gptj_pretrained"), model=GPTJ, loss_fn=untagged_loss,
+                   n_layers=GPTJ_HF_LAYERS, vocab_size=GPTJ_HF_PADDED, pretrained=path)
+    dev = torch.device(DEVICE, 0)
+    runs = {}
+    for label, cls, config in (("offload-bulk", HostOffload, BULK),
+                               ("dp-logits", DataParallel, {"remat": False})):
+        gc.collect()
+        torch.cuda.empty_cache()
+        reset_counts(flash, ce)
+        t0 = time.perf_counter()
+        losses = bundle_steps(cls(), task, config, dev, PRETRAINED_STEPS)
+        seconds = time.perf_counter() - t0
+        got = counts(flash, ce)
+        want = want_offload_launches(False, PRETRAINED_STEPS, GPTJ_HF_LAYERS)
+        if got != want:
+            raise AssertionError(f"9f {label}: launches {got}, want {want}")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"9f {label}: losses {losses}")
+        runs[label] = {"losses": losses, "launches": got, "seconds": seconds}
+        log(f"  {label}: losses {np.round(losses, 5).tolist()}, launches {got}, {seconds:.1f}s "
+            f"with the ingest  [{card}]")
+    diff = rel_diff(runs["offload-bulk"]["losses"], runs["dp-logits"]["losses"])
+    if not diff <= OFFLOAD_REL:
+        raise AssertionError(f"9f: offload bulk against dp: {diff:.3e} relative, over "
+                             f"{OFFLOAD_REL:g}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec = task.get_model()
+    model = spec.init_fn(torch.Generator().manual_seed(0), dev)
+    tokens = torch.from_numpy(task.batch_at(0)).to(dev, torch.long)
+    with torch.no_grad():
+        logits = spec.apply_fn(model, tokens)
+        del model
+        torch.cuda.empty_cache()
+        ref = interleaved_gptj_logits(sd, cfg, tokens)
+        err = rel_norm(logits, ref)
+        del ref
+        wrong = rel_norm(logits, interleaved_gptj_logits(sd, cfg, tokens, interleaved=False))
+    del logits, sd
+    log(f"  logits (bf16, flash at head dim 256) against the plain interleaved-rotary f32 "
+        f"forward: {err:.3e} relative norm (band {BF16_BAND:g}); against split halves on HF's "
+        f"lanes: {wrong:.3e}  [{card}]")
+    if not err <= BF16_BAND or not wrong >= WRONG_ROTARY_MIN * err:
+        raise AssertionError(f"9f: logits {err:.3e} from the interleaved forward, {wrong:.3e} "
+                             f"from the split-half one")
+    os.unlink(path)
+    shutil.rmtree(task.save_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    written = bytes_written() - written0
+    log(f"  offload bulk against dp: {diff:.3e} relative; {written / 2**30:.2f} GiB passed to "
+        f"write calls in 9f")
+    return {"layers": GPTJ_HF_LAYERS, "file_bytes": nbytes, "write_s": write_s, "runs": runs,
+            "loss_rel_diff": diff, "logits_rel": err, "logits_rel_split_halves": wrong,
+            "bytes_written": written}
+
+
+def data_api_phase(sat, flash, ce, card) -> dict:
+    """Phase 9: what users hand the four calls and what they get back. 9c
+    runs before 9b, whose lm_sweep run then loads its kernels from 9c's cache."""
+    out = {}
+    cache_dir = os.path.join(OUT, "compile_cache")
+    torch.cuda.empty_cache()
+    for label, title, run in (
+            ("data", "9a: corpus_gen and the native word tokenizer", lambda: data_phase(card)),
+            ("compile_cache", "9c: the compile cache, built then hit",
+             lambda: compile_cache_phase(card, cache_dir)),
+            ("sweep", "9b: the sweep driver (lm_sweep) on the bundled corpus, traced",
+             lambda: sweep_trace_phase(card, cache_dir)),
+            ("technique", "9d: a persisted technique from a user's __main__",
+             lambda: technique_phase(card)),
+            ("gpt2", "9e: pretrained GPT-2-small (HF names) under dp, fused head",
+             lambda: pretrained_gpt2_phase(sat, flash, ce, card)),
+            ("gptj", f"9f: pretrained GPT-J-6B at {GPTJ_HF_LAYERS} layers (HF names, fp16) "
+                     f"under offload bulk and dp",
+             lambda: pretrained_gptj_phase(sat, flash, ce, card))):
+        log(f"phase {title}")
+        t0 = time.perf_counter()
+        out[label] = run()
+        out[label]["phase_s"] = time.perf_counter() - t0
+        log(f"  phase {title.split(':')[0]} took {out[label]['phase_s']:.1f}s")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    return out
+
+
 def option(argv, name: str, default=None):
     """The value after ``name`` in ``argv``, or ``default``."""
     return argv[argv.index(name) + 1] if name in argv else default
@@ -2589,6 +3285,14 @@ def main(argv) -> int:
         log("staging: inline against a thread")
         with open(os.path.join(OUT, "staging_ab.json"), "w") as f:
             json.dump(staging_ab(sat, card), f, indent=1)
+        return 0
+    if "--data" in argv:
+        data = data_api_phase(sat, flash, ce, card)
+        with open(os.path.join(OUT, "data.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "data": data,
+                       "short_profiles": SHORT_PROFILES,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1)
+        shutil.rmtree(CKPTS, ignore_errors=True)
         return 0
     if "--offload" in argv:
         log("the flash kernels at head dim 256 (phase 8b's attention)")
@@ -2657,6 +3361,9 @@ def main(argv) -> int:
     offload = offload_phase(sat, flash, ce, card)
     shutil.rmtree(CKPTS, ignore_errors=True)
 
+    data = data_api_phase(sat, flash, ce, card)
+    shutil.rmtree(CKPTS, ignore_errors=True)
+
     def entry(row, n_launches):
         return {"launches": n_launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -2676,7 +3383,7 @@ def main(argv) -> int:
         json.dump({"card": card, "kind": kind, "kernels": kernels, "kernel_rows": rows,
                    "kernel_rows_d256": rows_d256, "ce_recompute_rows": recompute, "main_path": main_results,
                    "pinned": pinned, "step_profile": step_profile, "sweep": sweep,
-                   "kill_replay": kill_replay, "offload": offload,
+                   "kill_replay": kill_replay, "offload": offload, "data": data,
                    "short_profiles": SHORT_PROFILES,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"profiles short of their launch count, each taken again: {len(SHORT_PROFILES)} "

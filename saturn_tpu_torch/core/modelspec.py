@@ -7,7 +7,10 @@ dtypes, no storage).
 
 - ``init_fn(generator, device) -> nn.Module``: weights drawn from the CPU
   ``torch.Generator`` (so one seed gives the same weights on every device),
-  then moved to ``device``.
+  or a pretrained model's weights, then moved to ``device``.
+- ``fill_fn(model, generator)``: writes those initial weights into a model
+  whose parameters are already allocated (``init_fn`` allocates and calls
+  it; host offload calls it on a model bound to its host buffers).
 - ``apply_fn(model, tokens) -> logits``.
 - ``hidden_fn(model, tokens) -> final hidden states`` (pre-head forward).
 - ``fused_loss_fn(model, tokens) -> loss``: the model's standard objective
@@ -37,6 +40,8 @@ class ModelSpec:
     hidden_fn: Optional[Callable[[Any, Any], Any]] = None
     #: ``() -> nn.Module`` on the meta device; set by the model factory.
     meta_init_fn: Optional[Callable[[], Any]] = None
+    #: ``(model, generator) -> None``: the initial weights into an allocated model.
+    fill_fn: Optional[Callable[[Any, Any], None]] = None
 
     def abstract_init(self):
         """The model on the meta device: every parameter's shape and dtype,

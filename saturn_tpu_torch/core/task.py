@@ -302,6 +302,26 @@ class Task:
     def feasible_strategies(self) -> Dict[int, Strategy]:
         return {g: s for g, s in self.strategies.items() if s.feasible}
 
+    def clone(self, name: Optional[str] = None, **hparam_overrides) -> "Task":
+        """A new task sharing this one's factories, dataset and profiled
+        strategies, with ``hparam_overrides`` (an lr sweep fans one search
+        out without profiling again: lr does not change the step time). The
+        strategies are copied, not shared: the solver's forecast changes
+        each task's remaining runtimes."""
+        import copy
+        from dataclasses import replace
+
+        hp = replace(self.hparams, **hparam_overrides) if hparam_overrides \
+            else copy.copy(self.hparams)
+        # the built dataset goes through, so the clone does not tokenize again;
+        # the factory itself is set back after
+        t = Task(get_model=self._get_model, get_dataloader=lambda: self.get_dataset(),
+                 loss_fn=self.loss_fn, hparams=hp, chip_range=self.chip_range,
+                 hints=dict(self.hints), name=name, save_dir=self.save_dir)
+        t._get_dataloader = self._get_dataloader
+        t.strategies = {g: copy.copy(s) for g, s in self.strategies.items()}
+        return t
+
     def __repr__(self) -> str:  # pragma: no cover
         return (
             f"Task(name={self.name!r}, total_batches={self.total_batches}, "

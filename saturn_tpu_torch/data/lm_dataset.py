@@ -4,8 +4,9 @@ A copy of ``saturn_tpu/data/lm_dataset.py`` (numpy only): ``batch(i)`` is O(1)
 random access, batches are dense int32 arrays of a fixed shape, and with no
 corpus the default is a deterministic synthetic Zipf-distributed token
 stream. A local text file is byte- or word-tokenized and cached as ``.npz``.
-The word tokenizer runs the pure-Python path; the JAX package's native
-tokenizer (``native/tokenize.cpp``) is a later item.
+The word tokenizer is native (``native/tokenize.cpp``, a copy of the JAX
+package's, built by ``g++`` at first use); a failed build raises, and
+``_word_tokenize_python`` is its plain version, held to it by the tests.
 """
 
 from __future__ import annotations
@@ -78,8 +79,7 @@ def byte_tokenize_file(path: str, cache_dir: str = ".saturn_data_cache") -> np.n
 
 
 def _word_tokenize_python(data: bytes, max_vocab: int):
-    """Word tokenizer with the semantics of the JAX package's
-    ``tokenize.cpp``: operates on raw bytes, ASCII-only
+    """The plain version of ``native/tokenize.cpp``: operates on raw bytes, ASCII-only
     lowercasing, ASCII-alnum runs are words, each non-space non-alnum byte is
     its own token, frequency-ranked vocab, 0=pad 1=<unk>. Multi-byte UTF-8
     chars split into byte tokens."""
@@ -106,7 +106,14 @@ def word_tokenize_file(
     cache_dir: str = ".saturn_data_cache",
 ) -> tuple:
     """Word-level tokenization of a local text file -> (ids, vocab_size),
-    cached as ``.npz`` keyed on (path, max_vocab)."""
+    by the native tokenizer (``native/tokenize.cpp``): one call counts the
+    tokens, a second fills the ids and writes the ranked vocabulary to
+    ``vocab_<key>.txt``. Cached as ``.npz`` keyed on (path, max_vocab), the
+    JAX package's cache format and key."""
+    import ctypes
+
+    from saturn_tpu_torch import native
+
     os.makedirs(cache_dir, exist_ok=True)
     key = hashlib.sha1(
         f"{os.path.abspath(path)}:{max_vocab}".encode()
@@ -115,10 +122,32 @@ def word_tokenize_file(
     if os.path.exists(cache):
         with np.load(cache) as z:
             return z["tokens"], int(z["vocab_size"])
-    with open(path, "rb") as f:
-        ids, vocab_size = _word_tokenize_python(f.read(), max_vocab)
-    np.savez(cache, tokens=ids, vocab_size=vocab_size)
-    return ids, vocab_size
+
+    fn = native.load("tokenize").word_tokenize_file
+    fn.argtypes = [
+        ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_int32), ctypes.c_long,
+        ctypes.POINTER(ctypes.c_int),
+    ]
+    fn.restype = ctypes.c_long
+    p = path.encode()
+    n = fn(p, max_vocab, None, None, 0, None)
+    if n < 0:
+        raise OSError(f"native word tokenizer: error {n} on {path!r} "
+                      f"(-1 unreadable, -2 max_vocab {max_vocab} under 3)")
+    ids = np.empty(n, dtype=np.int32)
+    vs = ctypes.c_int()
+    vocab_path = os.path.join(cache_dir, f"vocab_{key}.txt")
+    got = fn(
+        p, max_vocab, vocab_path.encode(),
+        ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        n, ctypes.byref(vs),
+    )
+    if got != n:
+        raise OSError(f"native word tokenizer: {path!r} changed between its count "
+                      f"({n} tokens) and its fill ({got})")
+    np.savez(cache, tokens=ids, vocab_size=vs.value)
+    return ids, int(vs.value)
 
 
 def make_lm_dataset(
@@ -134,7 +163,7 @@ def make_lm_dataset(
     """Dataloader factory for ``Task(get_dataloader=...)``.
 
     Uses ``corpus_path`` if given and present — ``tokenizer="byte"`` (ids are
-    raw bytes; vocab must be >= 256) or ``tokenizer="word"`` (a
+    raw bytes; vocab must be >= 256) or ``tokenizer="word"`` (the native
     frequency-ranked word vocab capped at ``vocab_size``) — else a synthetic
     stream of ``n_tokens`` tokens (default: enough for 64 batches).
 

@@ -23,8 +23,8 @@ what is left (``_fold_batch_recovery``).
 
 Unlike the JAX package, the re-solve runs after the interval, not beside
 it, with the interval's feedback and failures already folded in. The JAX
-package's fault injection, elastic recovery and traces are later items;
-those arguments raise when set, and so does ``SATURN_TPU_FAULTS``, from
+package's fault injection and elastic recovery are later items; those
+arguments raise when set, and so does ``SATURN_TPU_FAULTS``, from
 which the JAX package builds a fault injector when none is passed.
 """
 
@@ -43,7 +43,7 @@ from saturn_tpu_torch.health.guardian import TrainingGuardian
 from saturn_tpu_torch.resilience.crash import SimulatedKill
 from saturn_tpu_torch.solver import anytime, milp
 from saturn_tpu_torch.utils import checkpoint as ckpt
-from saturn_tpu_torch.utils import metrics
+from saturn_tpu_torch.utils import metrics, trace
 from saturn_tpu_torch.utils import profile_cache as pcache
 
 logger = logging.getLogger("saturn_tpu_torch")
@@ -264,7 +264,8 @@ def orchestrate(
     the failed task and keeps the rest running, ``"retry"`` gives it
     ``max_task_retries`` more intervals, each resuming from its last
     checkpoint, then evicts it. ``metrics_path`` appends JSONL events
-    (``utils/metrics.py``).
+    (``utils/metrics.py``); ``trace_dir`` records the run in a
+    torch.profiler trace there (``utils/trace.py``).
 
     ``resume_dir`` is a write-ahead journal directory (``durability/``).
     Each interval's realized batches, the adopted plans, completions,
@@ -297,8 +298,7 @@ def orchestrate(
         raise ValueError(
             f"failure_policy must be 'raise', 'drop' or 'retry', got {failure_policy!r}"
         )
-    _refuse(trace_dir=trace_dir, fault_injector=fault_injector,
-            health_monitor=health_monitor)
+    _refuse(fault_injector=fault_injector, health_monitor=health_monitor)
     if crash_barrier is not None and resume_dir is None:
         raise ValueError("crash_barrier requires resume_dir (it instruments the "
                          "durability journal)")
@@ -324,7 +324,7 @@ def orchestrate(
     failed: Dict[str, str] = {}
     journal = hook = None
     try:
-        with metrics.scoped(metrics_path):
+        with metrics.scoped(metrics_path), trace.profile_trace(trace_dir):
             recovered = None
             if resume_dir is not None:
                 journal = jmod.Journal(resume_dir, barrier=crash_barrier)

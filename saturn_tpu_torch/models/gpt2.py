@@ -18,6 +18,7 @@ sequence-parallel configs are later items and raise ``NotImplementedError``.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass, replace
 from typing import Any, Dict, Optional
 
@@ -381,13 +382,41 @@ class GPT2(nn.Module):
 
 
 def build_gpt2(name: str = "gpt2-small", pretrained: Any = None, **overrides) -> ModelSpec:
-    """Model factory for ``Task(get_model=...)``."""
-    if pretrained is not None:
-        raise NotImplementedError(
-            "pretrained: Hugging Face checkpoint ingest (models/ingest.py) is "
-            "a later item of the PyTorch port"
-        )
-    return spec_for(resolve_attention(config_for(name, **overrides)))
+    """Model factory for ``Task(get_model=...)``.
+
+    ``pretrained``: a local state-dict path (torch ``.pt`` / ``.bin`` or
+    ``.npz``) or a loaded mapping, in HF GPT-2 or GPT-J naming
+    (``models/ingest.py``). ``init_fn`` then returns those weights instead
+    of a random draw, under every technique. Shape-checked against the
+    preset here; a path is read once per (file, preset shape) and its
+    mapping kept in the ingest cache, which the spec reads again at each
+    init rather than holding it."""
+    cfg = resolve_attention(config_for(name, **overrides))
+    if pretrained is None:
+        return spec_for(cfg)
+    import logging
+
+    from saturn_tpu_torch.models import ingest
+
+    if isinstance(pretrained, (str, os.PathLike)):
+        path = os.fspath(pretrained)
+
+        def weights():
+            return ingest.cached_params_from_path(path, cfg)[0]
+
+        mapped, unused = ingest.cached_params_from_path(path, cfg)
+    else:
+        mapped, unused = ingest.params_from_state_dict(dict(pretrained), cfg)
+
+        def weights():
+            return mapped
+
+    if unused:
+        logging.getLogger("saturn_tpu_torch").info(
+            "pretrained ingest: %d unused tensors (%s...)", len(unused), ", ".join(unused[:4]))
+    with torch.device("meta"):
+        ingest.validate_against(mapped, GPT2(cfg))
+    return spec_for(cfg, weights=weights)
 
 
 def fused_head_ok(cfg: GPT2Config) -> bool:
@@ -407,7 +436,7 @@ def next_token_labels(tokens: torch.Tensor) -> torch.Tensor:
 
 
 def spec_for(cfg: GPT2Config, *, inputs_fn=None, labels_fn=None,
-             objective: Optional[str] = None) -> ModelSpec:
+             objective: Optional[str] = None, weights=None) -> ModelSpec:
     """The ModelSpec of a resolved config (``build_gpt2`` and the BERT
     factory build through it).
 
@@ -415,16 +444,26 @@ def spec_for(cfg: GPT2Config, *, inputs_fn=None, labels_fn=None,
     (BERT's [MASK] substitution). ``labels_fn`` gives the fused head's labels
     (-1 ignored) from the tokens, for the loss tagged ``objective``; a causal
     config defaults to next-token labels, tagged "causal-lm". The fused loss
-    is set where ``fused_head_ok(cfg)`` holds."""
+    is set where ``fused_head_ok(cfg)`` holds. ``weights`` (``() -> state
+    dict``) gives pretrained weights; without it the init is a draw from the
+    generator (``GPT2.reset_parameters``)."""
     if labels_fn is None and cfg.causal:
         labels_fn, objective = next_token_labels, "causal-lm"
     inputs_fn = inputs_fn or (lambda tokens: tokens)
+
+    @torch.no_grad()
+    def fill_fn(model: GPT2, generator: torch.Generator) -> None:
+        if weights is None:
+            model.reset_parameters(generator)
+        else:
+            # copies into the allocated parameters, cast to their dtype
+            model.load_state_dict(weights(), strict=True)
 
     def init_fn(generator: torch.Generator, device=None) -> GPT2:
         with torch.device("meta"):
             model = GPT2(cfg)
         model.to_empty(device="cpu")
-        model.reset_parameters(generator)
+        fill_fn(model, generator)
         return model.to(device) if device is not None else model
 
     def meta_init_fn() -> GPT2:
@@ -492,6 +531,7 @@ def spec_for(cfg: GPT2Config, *, inputs_fn=None, labels_fn=None,
         fused_loss_objective=objective if fused_loss_fn else None,
         hidden_fn=hidden_fn,
         meta_init_fn=meta_init_fn,
+        fill_fn=fill_fn,
     )
 
 

@@ -1,10 +1,12 @@
 """Native (C++) pieces of the control plane, built at first use, ctypes-bound.
 
-Counterpart of ``saturn_tpu/native/__init__.py``, for ``spase.cpp`` (the
-SPASE list scheduler with local search, a copy of the JAX package's). The
-source is compiled with ``g++ -O2 -std=c++17 -shared -fPIC`` into
-``_build/lib<name>-<digest>.so`` (the digest covers the source and the
-flags, so an edited source never loads a stale library) and loaded with
+Counterpart of ``saturn_tpu/native/__init__.py``, for copies of the JAX
+package's ``spase.cpp`` (the SPASE list scheduler with local search) and
+``tokenize.cpp`` (the corpus word tokenizer). A source is compiled with
+``g++ -O2 -std=c++17 -shared -fPIC`` into ``_build/lib<name>-<digest>.so``,
+or into the compile cache directory where one is set
+(``utils/compile_cache.py``); the digest covers the source and the flags,
+so an edited source never loads a stale library. It is loaded with
 ``ctypes``. A failed build or load raises: no Python stand-in takes the
 place of a native piece, so a broken build never hides behind a worse plan.
 Nothing runs at import time.
@@ -20,6 +22,8 @@ import threading
 from pathlib import Path
 from typing import Dict
 
+from saturn_tpu_torch.utils import compile_cache
+
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "_build"
 CXX_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
@@ -33,7 +37,7 @@ def library_path(name: str) -> Path:
     source and the flags."""
     h = hashlib.sha256((SRC_DIR / f"{name}.cpp").read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return compile_cache.build_dir(BUILD_DIR) / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(name: str) -> Path:
@@ -44,7 +48,7 @@ def build(name: str) -> Path:
     out = library_path(name)
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp.{os.getpid()}.{threading.get_ident()}")
     cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(SRC_DIR / f"{name}.cpp")]
     try:

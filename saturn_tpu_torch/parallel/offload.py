@@ -214,25 +214,32 @@ def make_host_state(spec: Any, task: Any, pin: bool, materialize: bool) -> Dict[
     the model's parameters are views of the host parameter buffer, their
     ``.grad`` views of the gradient buffer, and AdamW's or Adam's moments
     views of the moment buffers, made here (so pinned) rather than at the
-    first step. ``materialize`` draws the weights straight into the host
-    buffer from the seed-0 ``torch.Generator``, as ``spec.init_fn`` draws
-    them (the model's ``reset_parameters(generator)``); otherwise they are
-    left for a checkpoint to fill. Every live host state is released first
-    (``release_host_states``)."""
+    first step. ``materialize`` writes the initial weights straight into
+    the host buffer, as ``spec.init_fn`` makes them (``spec.fill_fn``: a
+    draw from the seed-0 ``torch.Generator``, or a pretrained model's
+    weights); otherwise they are left for a checkpoint to fill. Every live
+    host state is released first (``release_host_states``), and so is the
+    pretrained-weight cache (``models.ingest``), before the buffers are
+    allocated and after they are filled: a mapped GPT-J-6B is 12-24 GB
+    beside a 65 GiB host state."""
+    from saturn_tpu_torch.models import ingest
+
     release_host_states()
+    ingest.release_cache()
     opt_name = task.hparams.optimizer
     if callable(opt_name):
         raise NotImplementedError("offload: a user optimizer callable would allocate its "
                                   "state where the host buffers cannot hold it")
+    if spec.fill_fn is None:
+        raise NotImplementedError("offload: the model spec has no fill_fn(model, generator) "
+                                  "to write its weights into the host buffer")
     model = spec.abstract_init()
-    if not hasattr(model, "reset_parameters"):
-        raise NotImplementedError("offload: the model has no reset_parameters(generator) "
-                                  "to draw its weights into the host buffer")
     layout = Layout(model, spec.hints.get("block_param_key", "blocks"))
     host = HostState(layout, 2 if opt_name in ("adamw", "adam") else 0, pin)
     params = _bind(model, host.params, layout.entries)
     if materialize:
-        model.reset_parameters(torch.Generator().manual_seed(0))
+        spec.fill_fn(model, torch.Generator().manual_seed(0))
+        ingest.release_cache()
     for (name, off, n, shape), p in zip(layout.entries, params):
         p.grad = host.buffers["grads"].view(off, n, shape)
     opt = task.hparams.make_optimizer(params, host=True)

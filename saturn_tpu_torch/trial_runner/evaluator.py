@@ -23,7 +23,7 @@ from typing import Any, Dict, List, Optional, Sequence
 from saturn_tpu_torch import library as lib
 from saturn_tpu_torch.core.mesh import SliceTopology
 from saturn_tpu_torch.core.strategy import Strategy
-from saturn_tpu_torch.utils import metrics
+from saturn_tpu_torch.utils import compile_cache, metrics, trace
 from saturn_tpu_torch.utils import profile_cache as pcache
 
 logger = logging.getLogger("saturn_tpu_torch")
@@ -58,18 +58,21 @@ def search(
     ``SATURN_TPU_PROFILE_CACHE=0`` disables it), ``False`` turns caching off
     for this sweep, a path uses that directory. A cache hit costs no trial.
     ``metrics_path`` appends JSONL events (``trial``, ``profile_cache``,
-    ``trial_retry``). A technique whose ``search`` raises is retried
-    ``trial_retries`` times with exponential backoff; the last failure
-    propagates to the caller (a config that runs out of device memory is
-    infeasible, not a failure). ``trace_dir``, ``compile_cache_dir``,
+    ``trial_retry``). ``trace_dir`` records the sweep in a torch.profiler
+    trace there (``utils/trace.py``). ``compile_cache_dir`` keeps the
+    port's compiled kernels and native libraries in that directory for this
+    process and any later one pointed at it (``utils/compile_cache.py``,
+    the same as ``SATURN_TPU_COMPILE_CACHE_DIR``). A technique whose
+    ``search`` raises is retried ``trial_retries`` times with exponential
+    backoff; the last failure propagates to the caller (a config that runs
+    out of device memory is infeasible, not a failure).
     ``parallel_trials > 1`` and ``prune`` on a grid of ``PRUNE_MIN_GRID``
     sizes or more raise.
     """
     if log:
         logging.basicConfig(level=logging.INFO)
-    for name, value in (("trace_dir", trace_dir), ("compile_cache_dir", compile_cache_dir)):
-        if value is not None:
-            raise NotImplementedError(f"search({name}=...): a later item of the PyTorch port")
+    if compile_cache_dir:
+        compile_cache.enable(compile_cache_dir)
     if parallel_trials not in (None, 1):
         raise NotImplementedError("search(parallel_trials>1): trials run one at a time")
     topo = topology if topology is not None else SliceTopology()
@@ -78,7 +81,7 @@ def search(
             "anchor-size pruning is a later item of the PyTorch port; pass prune=False"
         )
     cache = pcache.resolve(profile_cache)
-    with metrics.scoped(metrics_path):
+    with metrics.scoped(metrics_path), trace.profile_trace(trace_dir):
         return _search_inner(tasks, technique_names, topo, cache,
                              trial_retries, retry_backoff_s)
 

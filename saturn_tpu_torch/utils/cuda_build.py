@@ -1,9 +1,11 @@
 """Build the port's hand-written CUDA kernels at first use and load them.
 
 Each ``csrc/<name>.cu`` holds kernels with plain ``extern "C"`` launchers. It is
-compiled by ``nvcc`` into ``csrc/build/lib<name>-<digest>.so`` (the digest
-covers the source, every ``csrc/*.cuh`` header and the flags, so an edited
-source or header never loads a stale library) and loaded with ``ctypes``.
+compiled by ``nvcc`` into ``csrc/build/lib<name>-<digest>.so``, or into the
+compile cache directory where one is set (``utils/compile_cache.py``); the
+digest covers the source, every ``csrc/*.cuh`` header and the flags, so an
+edited source or header never loads a stale library. It is loaded with
+``ctypes``.
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``.
 """
@@ -18,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Sequence
+
+from saturn_tpu_torch.utils import compile_cache
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -54,7 +58,7 @@ def library_path(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    return compile_cache.build_dir(BUILD_DIR) / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build_log(name: str) -> str:
@@ -70,7 +74,7 @@ def _start_build(name: str):
     out = library_path(name)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     proc = subprocess.Popen(
         [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],

@@ -1027,3 +1027,170 @@ def test_bundle_steps_offload_matches_dp_over_the_logits(smoke, tmp_path):
         np.testing.assert_allclose(runs[label], runs["dp-logits"], rtol=smoke.OFFLOAD_REL)
     assert len(runs["dp-logits"]) == 3 and np.isfinite(runs["dp-logits"]).all()
     assert not task.has_ckpt()
+
+
+# ------------------------------------------------------------------ phase 9
+def _trace_event(name, ts, dur, cat="kernel"):
+    return {"ph": "X", "cat": cat, "name": name, "pid": 0, "tid": 7, "ts": ts, "dur": dur}
+
+
+def test_trace_launches_reads_a_chrome_trace(smoke, tmp_path):
+    """Phase 9b's reading of torch.profiler traces: kernels found by symbol
+    across the files, a CE wrapper's second kernel and its recompute-mode
+    slab loop counted as one launch, other events (host operators, copies,
+    library kernels) left out, events out of order in the file sorted."""
+    import json
+
+    ns = "(anonymous namespace)::"
+    fwd = ns + "fwd_kernel<64>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, ...)"
+    pingpong = ns + "fwd_pingpong_kernel(CUtensorMap_st, ...)"
+    dq, dkv = ns + "dq_kernel<64>(...)", ns + "dkv_wide_kernel(...)"
+    ce_fwd = ns + "ce_fwd_sm90_kernel<true>(FwdMaps, int const*, float*, int, int, int, int)"
+    combine = ns + "ce_fwd_combine_kernel(float const*, float*, float*, int, int)"
+    ds = ns + "ce_ds_sm90_kernel(FwdMaps, int const*, float const*, float const*, int, int, int)"
+    dx = ns + "ce_dx_sm90_kernel<4, true>(DxMaps, ...)"
+    reduce = ns + "ce_dx_reduce_kernel(float const*, __nv_bfloat16*, long long, int)"
+    dw = ns + "ce_dw_sm90_kernel<4, false>(DwMaps, float*, int, int, int)"
+    first = [_trace_event(fwd, 10, 5), _trace_event(pingpong, 20, 5),
+             _trace_event("aten::addmm", 21, 3, cat="cpu_op"),
+             _trace_event("Memcpy HtoD (Pageable -> Device)", 22, 1, cat="gpu_memcpy"),
+             _trace_event(ce_fwd, 30, 5), _trace_event(combine, 35, 1),
+             _trace_event(ds, 40, 1), _trace_event(dx, 41, 2), _trace_event(ds, 43, 1),
+             _trace_event(dx, 44, 2), _trace_event(reduce, 46, 1),
+             _trace_event("void at::native::vectorized_elementwise_kernel<4>(...)", 47, 1),
+             _trace_event(dw, 48, 2), _trace_event(dq, 50, 2), _trace_event(dkv, 52, 2)]
+    second = [_trace_event(dkv, 90, 2), _trace_event(dq, 80, 2), _trace_event(fwd, 70, 2)]
+    paths = []
+    for i, events in enumerate((first, second)):
+        p = tmp_path / f"host_{i}.pt.trace.json"
+        p.write_text(json.dumps({"traceEvents": events, "deviceProperties": []}))
+        paths.append(str(p))
+    assert smoke.trace_launches(paths) == {"flash_fwd": 3, "flash_dq": 2, "flash_dkv": 2,
+                                           "ce_fwd": 1, "ce_dx": 1, "ce_dw": 1}
+    assert [e[0] for e in smoke.trace_kernel_events(paths[1])] == [fwd, dq, dkv]
+
+
+def test_trace_launches_rejects_a_slab_loop_out_of_shape(smoke, tmp_path):
+    import json
+
+    ns = "(anonymous namespace)::"
+    events = [_trace_event(ns + "ce_ds_sm90_kernel(...)", 1, 1),
+              _trace_event(ns + "ce_ds_sm90_kernel(...)", 2, 1),
+              _trace_event(ns + "ce_dw_sm90_kernel<4, true>(...)", 3, 1)]
+    p = tmp_path / "t.pt.trace.json"
+    p.write_text(json.dumps({"traceEvents": events}))
+    with pytest.raises(smoke.LaunchShapeError):
+        smoke.trace_launches([str(p)])
+
+
+def test_sweep_launcher_runs_lm_sweep_traced(smoke, tmp_path):
+    """Phase 9b's launcher on the CPU at test-tiny: lm_sweep runs as
+    ``-m`` runs it, ``search`` and ``orchestrate`` each write a trace, and
+    the counters (no kernel runs on the CPU) are written with each export's
+    seconds."""
+    import json
+    import subprocess
+    import sys
+
+    counts, traces = tmp_path / "counts.json", tmp_path / "traces"
+    env = smoke.child_env(SATURN_TPU_PROFILE_CACHE_DIR=str(tmp_path / "pc"))
+    out = subprocess.run(
+        [sys.executable, "-c", smoke.SWEEP_LAUNCHER, str(counts), str(traces), "--preset",
+         "test-tiny", "--platform", "cpu", "--batch-count", "2", "--techniques", "dp",
+         "--lrs", "1e-3", "--corpus", "synthetic", "--save-dir", str(tmp_path / "ck")],
+        env=env, cwd=tmp_path, check=True, capture_output=True, text=True, timeout=300).stdout
+    assert "trained steps=2 remaining=0" in out
+    got = json.loads(counts.read_text())
+    assert got["launches"] == dict.fromkeys(smoke.KERNEL_NAMES, 0)
+    assert len(got["export_s"]) == 2
+    files = sorted(str(p) for p in traces.glob("*.pt.trace.json"))
+    assert len(files) == 2 and smoke.trace_launches(files) == dict.fromkeys(smoke.KERNEL_NAMES, 0)
+
+
+@pytest.mark.parametrize("child", ["BUILD_PROBE", "TECHNIQUE_USER", "TECHNIQUE_SCRIPT",
+                                   "SWEEP_LAUNCHER"])
+def test_child_programs_parse(smoke, child):
+    import ast
+
+    ast.parse(getattr(smoke, child))
+
+
+def test_hf_gpt2_state_dict_names_and_layout(smoke):
+    """Phase 9e's writer: HF ``GPT2LMHeadModel.state_dict()`` names (the
+    ``transformer.`` prefix, the tied ``lm_head.weight``), Conv1D layout
+    (in, out), fp32, the vocab and positions asked for; the same seed gives
+    the same tensors."""
+    import torch
+
+    from saturn_tpu_torch.models.gpt2 import config_for
+
+    cfg = config_for("test-tiny")
+    sd = smoke.hf_gpt2_state_dict(cfg, 0, vocab=250, n_positions=128)
+    want = {"transformer.wte.weight": (250, 64), "transformer.wpe.weight": (128, 64),
+            "transformer.ln_f.weight": (64,), "transformer.ln_f.bias": (64,),
+            "lm_head.weight": (250, 64)}
+    for i in range(cfg.n_layers):
+        h = f"transformer.h.{i}."
+        want.update({h + "ln_1.weight": (64,), h + "ln_1.bias": (64,), h + "ln_2.weight": (64,),
+                     h + "ln_2.bias": (64,), h + "attn.c_attn.weight": (64, 192),
+                     h + "attn.c_attn.bias": (192,), h + "attn.c_proj.weight": (64, 64),
+                     h + "attn.c_proj.bias": (64,), h + "mlp.c_fc.weight": (64, 256),
+                     h + "mlp.c_fc.bias": (256,), h + "mlp.c_proj.weight": (256, 64),
+                     h + "mlp.c_proj.bias": (64,)})
+    assert {k: tuple(v.shape) for k, v in sd.items()} == want
+    assert {v.dtype for v in sd.values()} == {torch.float32}
+    assert sd["lm_head.weight"] is sd["transformer.wte.weight"]
+    again = smoke.hf_gpt2_state_dict(cfg, 0, vocab=250, n_positions=128)
+    assert all(torch.equal(again[k], v) for k, v in sd.items())
+
+
+def test_hf_gptj_state_dict_names_and_layout(smoke):
+    """Phase 9f's writer: HF ``GPTJForCausalLM.state_dict()`` names, Linear
+    layout (out, in), q/k/v/out projections without biases, an untied
+    ``lm_head`` with a bias, fp16 by default."""
+    import torch
+
+    from saturn_tpu_torch.models.gpt2 import config_for
+
+    cfg = config_for("gptj-test-tiny")
+    sd = smoke.hf_gptj_state_dict(cfg, 1, vocab=260)
+    want = {"transformer.wte.weight": (260, 64), "transformer.ln_f.weight": (64,),
+            "transformer.ln_f.bias": (64,), "lm_head.weight": (260, 64), "lm_head.bias": (260,)}
+    for i in range(cfg.n_layers):
+        h = f"transformer.h.{i}."
+        want.update({h + "ln_1.weight": (64,), h + "ln_1.bias": (64,),
+                     h + "attn.q_proj.weight": (64, 64), h + "attn.k_proj.weight": (64, 64),
+                     h + "attn.v_proj.weight": (64, 64), h + "attn.out_proj.weight": (64, 64),
+                     h + "mlp.fc_in.weight": (256, 64), h + "mlp.fc_in.bias": (256,),
+                     h + "mlp.fc_out.weight": (64, 256), h + "mlp.fc_out.bias": (64,)})
+    assert {k: tuple(v.shape) for k, v in sd.items()} == want
+    assert {v.dtype for v in sd.values()} == {torch.float16}
+    assert not torch.equal(sd["lm_head.weight"], sd["transformer.wte.weight"])
+
+
+def test_interleaved_reference_is_split_halves_on_permuted_lanes(smoke):
+    """The plain forward's two rotary conventions agree where they must:
+    interleaved pairs on HF's lanes are split halves on the lanes that
+    ``ingest.rotary_rows`` puts in split-half order (f32, 1e-5); on the
+    same lanes the two differ."""
+    import numpy as np
+    import torch
+
+    from saturn_tpu_torch.models import ingest
+    from saturn_tpu_torch.models.gpt2 import config_for
+
+    cfg = config_for("gptj-test-tiny")
+    sd = smoke.hf_gptj_state_dict(cfg, 2, vocab=256, dtype=torch.float32)
+    rows = ingest.rotary_rows(cfg.n_heads, cfg.head_dim, cfg.rotary_dim)
+    permuted = dict(sd)
+    for i in range(cfg.n_layers):
+        for n in ("q", "k"):
+            key = f"transformer.h.{i}.attn.{n}_proj.weight"
+            permuted[key] = sd[key][rows]
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (2, 64)))
+    want = smoke.interleaved_gptj_logits(sd, cfg, tokens)
+    got = smoke.interleaved_gptj_logits(permuted, cfg, tokens, interleaved=False)
+    assert want.shape == (2, 64, 256)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    assert smoke.rel_norm(smoke.interleaved_gptj_logits(sd, cfg, tokens, interleaved=False),
+                          want) > 1e-3

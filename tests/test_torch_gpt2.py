@@ -106,5 +106,7 @@ def test_unported_options_raise():
         tgpt2.config_for("moe-test-tiny")
     with pytest.raises(NotImplementedError, match="seq_axis"):
         tgpt2.config_for("test-tiny", seq_axis="seq")
-    with pytest.raises(NotImplementedError, match="pretrained"):
+    # pretrained weights are ported (tests/test_torch_ingest.py); a state
+    # dict of no known family raises as in JAX
+    with pytest.raises(ValueError, match="unrecognized state-dict family"):
         tgpt2.build_gpt2("test-tiny", pretrained={})

@@ -102,8 +102,8 @@ def test_unported_orchestrate_options_raise(tmp_path):
         sat.orchestrate(tasks, topology=topo, crash_barrier=lambda point, ctx: None)
     with pytest.raises(NotImplementedError, match="fault_injector"):
         sat.orchestrate(tasks, topology=topo, fault_injector=object())
-    with pytest.raises(NotImplementedError, match="trace_dir"):
-        sat.orchestrate(tasks, topology=topo, trace_dir=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="health_monitor"):
+        sat.orchestrate(tasks, topology=topo, health_monitor=object())
 
 
 def test_fault_schedule_in_the_environment_raises(tmp_path, monkeypatch):
@@ -125,18 +125,26 @@ def test_fault_schedule_in_the_environment_raises(tmp_path, monkeypatch):
 
 
 def test_library_path_in_the_environment_raises(tmp_path, monkeypatch):
-    """SATURN_TPU_LIBRARY_PATH, under which the JAX library persists each
-    registered technique with dill, makes the port's register raise; nothing
-    is registered or written."""
+    """Under SATURN_TPU_LIBRARY_PATH, where both packages persist each
+    registered technique, the port's register still raises on a class that
+    is no technique, as in JAX, and writes nothing; a technique it registers
+    lands in a file of the port's own suffix, beside which a JAX ``.udp``
+    name is left alone (tests/test_torch_library.py holds the rest)."""
     from saturn_tpu_torch.parallel.dp import DataParallel
 
     store = tmp_path / "udp"
     monkeypatch.setenv("SATURN_TPU_LIBRARY_PATH", str(store))
-    with pytest.raises(NotImplementedError, match="SATURN_TPU_LIBRARY_PATH"):
-        sat.library.register("dp-env", DataParallel)
-    assert "dp-env" not in sat.library.registered_names() and not store.exists()
-    with pytest.raises(TypeError):  # the type check still comes first, as in JAX
+    with pytest.raises(TypeError):  # the type check comes first, as in JAX
         sat.library.register("dp-env", object)
+    assert "dp-env" not in sat.library.registered_names() and not store.exists()
+    try:
+        sat.library.register("dp-env", DataParallel)
+        assert sorted(p.name for p in store.iterdir()) == [
+            "dp-env" + sat.library.SUFFIX]
+        assert not (store / "dp-env.udp").exists()
+    finally:
+        sat.library.deregister("dp-env")
+    assert not any(store.iterdir())
 
 
 class _Job:
