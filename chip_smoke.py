@@ -190,6 +190,40 @@ Phases, in order; any failure is an exception and a non-zero exit:
    relative norm) of a plain f32 forward with HF's interleaved rotary,
    and at least WRONG_ROTARY_MIN times further from one that rotates split
    halves of HF's lanes (what ingest without the lane permutation gives).
+10. Fused stacking and co-scheduled interleaving (``parallel/fused.py``,
+   the engine's group launchers), GPT-2-small, ``dp``, flash and the fused
+   head. a) ``search`` on four b8 x 512 tasks that differ only in lr
+   (FUSED_LRS; profile cache seeded from phase 3's): one fusion group
+   measured, every member's ``fused_per_batch_time`` and every solo
+   trial's ``host_fraction`` set; the lockstep time against four times the
+   solo per-batch time, and whether the solver's pricing fuses the group
+   (at b8 x 512 the stack ties four solo steps, so it need not). b) the
+   stacked program against four solo runs from
+   the same init and batches (an eager step, then one window of 8, a CUDA
+   graph): losses and final params within FUSED_LOSS_REL / FUSED_PARAM_REL
+   (the log says whether bitwise), the stacked window's launches exactly 12
+   per lockstep step of each flash kernel and 4 of each CE kernel, its peak
+   memory. c) the same sweep at b2 x 512 (FUSED_SMALL_BATCH rows a member,
+   where the stack takes about 0.78 of four solo steps): its search, whose
+   pricing must fuse the group, then ``orchestrate`` of the four with a
+   journal and a metrics file, in two intervals: the first plan fuses them
+   and passes the
+   verifier, the journal replays strictly, every checkpoint reaches
+   FUSED_BATCHES (one write per fused interval), ``fused_interval`` events
+   cover every member, the launches are exact; the solver's fused makespan
+   against its solo one. d) four tasks over the logits
+   (``nan_on_mark_loss``) in a hand-built fused plan through
+   ``engine.execute``: member 3's batch UNFUSE_MARKED is marked, member 2
+   detaches after the first window. Member 3 faults alone and writes
+   nothing, members 0 and 1 commit, member 2 is unfused (a synchronous
+   write at its step), resumes solo from it and ends at its budget with no
+   lost or repeated step (``check_writes``); launches exact. e) a
+   GPT-2-small and a BERT-base task in a hand-built co-schedule plan
+   (verified) through ``engine.execute``: both losses and checkpoints
+   bitwise equal to their solo runs; the interleaved wall time against the
+   serial one, the measured host fractions, and whether ``solve`` would
+   co-locate the pair at ``coschedule_min_gain``. Phase 10c's launches join
+   phases 3 and 6's in the kernels line.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
@@ -224,6 +258,17 @@ builds the kernels, checks them at head dim 256 and runs phase 8
     python3 chip_smoke.py --data
 
 builds the kernels and runs phase 9 (``chiprun_out/data.json``).
+
+    python3 chip_smoke.py --fused
+
+builds the kernels and runs phase 10 (``chiprun_out/fused.json``).
+
+    python3 chip_smoke.py --fused-profile
+
+builds the kernels and only profiles a stacked window of four GPT-2-small
+members against a solo window at b8 and b2 x 512: the lockstep time
+against four solo steps, and each kernel's device time in the stack less
+four times a solo step's (``chiprun_out/fused_profile.json``).
 """
 
 from __future__ import annotations
@@ -1008,10 +1053,11 @@ def check_head_dim_256(flash):
 
 # ------------------------------------------------------------------ phase 3
 def lm_task(sat, name, lr, batch_count, save_dir, model=GPT2, loss_fn=None, wrap=None,
-            seq=SEQ, **kwargs):
+            seq=SEQ, batch=None, **kwargs):
     """A GPT-2 (``pretraining_loss``) or BERT (``mlm_loss``, [MASK] id kept
     out of the data) task at the main path's shapes (at ``seq`` tokens a
-    row), synthetic tokens (passed through ``wrap`` when given)."""
+    row, ``batch`` rows a batch, BATCH by default), synthetic tokens (passed
+    through ``wrap`` when given)."""
     from saturn_tpu_torch.data.lm_dataset import make_lm_dataset
     from saturn_tpu_torch.models.bert import build_bert, mlm_loss
     from saturn_tpu_torch.models.gpt2 import build_gpt2
@@ -1022,7 +1068,7 @@ def lm_task(sat, name, lr, batch_count, save_dir, model=GPT2, loss_fn=None, wrap
     return sat.Task(
         get_model=lambda **kw: build(model, **{"seq_len": seq, **kw}),
         get_dataloader=lambda: (wrap or (lambda ds: ds))(make_lm_dataset(
-            context_length=seq, batch_size=BATCH, vocab_size=VOCAB, seed=0,
+            context_length=seq, batch_size=batch or BATCH, vocab_size=VOCAB, seed=0,
             reserved_ids=1 if bert else 0)),
         loss_fn=loss_fn or (mlm_loss if bert else pretraining_loss),
         hparams=sat.HParams(lr=lr, batch_count=batch_count, kwargs=kwargs),
@@ -1066,7 +1112,10 @@ def main_path(sat, flash, ce, card):
     t0 = time.perf_counter()
     cache_dir = os.path.join(OUT, "main_path_profile_cache")
     shutil.rmtree(cache_dir, ignore_errors=True)  # its trials must run
-    stats = sat.search(tasks, technique_names=["dp"], topology=topo, profile_cache=cache_dir)
+    # solo tasks (fusion=False): phase 10 runs the two GPT-2 lr points' kind of
+    # sweep fused
+    stats = sat.search(tasks, technique_names=["dp"], topology=topo, profile_cache=cache_dir,
+                       fusion=False)
     t_search = time.perf_counter() - t0
     tech = tasks[0].strategies[1].executor
     k_trial = spmd_base.max_window()
@@ -1094,7 +1143,7 @@ def main_path(sat, flash, ce, card):
     dev = torch.device(DEVICE, 0)
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    out = sat.orchestrate(tasks, interval=interval, topology=topo)
+    out = sat.orchestrate(tasks, interval=interval, topology=topo, fusion=False)
     t_orch = time.perf_counter() - t0
     # live states, graphs and their pools of the tasks not yet finished
     peak = {"allocated": torch.cuda.max_memory_allocated(dev),
@@ -1739,11 +1788,12 @@ def sweep_phase(sat, flash, ce, card):
     reset_counts(flash, ce)
     t0 = time.perf_counter()
     stats = sat.search(tasks, technique_names=["dp"], topology=topo,
-                       profile_cache=cache_dir, metrics_path=events_path)
+                       profile_cache=cache_dir, metrics_path=events_path, fusion=False)
     t_search = time.perf_counter() - t0
     check_search(stats, 2, len(tasks) - 2)
     t0 = time.perf_counter()
-    again = sat.search(tasks, technique_names=["dp"], topology=topo, profile_cache=cache_dir)
+    again = sat.search(tasks, technique_names=["dp"], topology=topo, profile_cache=cache_dir,
+                       fusion=False)
     t_again = time.perf_counter() - t0
     check_search(again, 0, len(tasks))
     log(f"  search: {stats['trials_run']} trials (fused head, logits), "
@@ -1759,7 +1809,7 @@ def sweep_phase(sat, flash, ce, card):
     t0 = time.perf_counter()
     with CheckedWrites(ckpt) as writes:
         out = sat.orchestrate(tasks, interval=interval, topology=topo,
-                              metrics_path=events_path)
+                              metrics_path=events_path, fusion=False)
     t_orch = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated(dev)
     after = torch.cuda.memory_allocated(dev)
@@ -1968,7 +2018,8 @@ def kill_replay_phase(sat, flash, ce, card):
     def tasks_in(save_dir):
         tasks = [lm_task(sat, f"kill-lr{i}", lr, KILL_BATCHES, save_dir)
                  for i, lr in enumerate((6e-4, 1e-3))]
-        sat.search(tasks, technique_names=["dp"], topology=topo, profile_cache=cache_dir)
+        sat.search(tasks, technique_names=["dp"], topology=topo, profile_cache=cache_dir,
+                   fusion=False)
         return tasks
 
     reset_counts(flash, ce)
@@ -1976,7 +2027,8 @@ def kill_replay_phase(sat, flash, ce, card):
     interval = KILL_INTERVAL_SHARE * min(t.strategies[1].runtime for t in ref)
     with CallTimes(commit=(jmod.Journal, "commit"), fsync=(os, "fsync")) as timer:
         t0 = time.perf_counter()
-        out = sat.orchestrate(ref, interval=interval, topology=topo, resume_dir=journals["A"])
+        out = sat.orchestrate(ref, interval=interval, topology=topo, resume_dir=journals["A"],
+                              fusion=False)
         t_ref = time.perf_counter() - t0
     names = sorted(t.name for t in ref)
     if sorted(out["completed"]) != names or out["failed"]:
@@ -2018,7 +2070,8 @@ def kill_replay_phase(sat, flash, ce, card):
             try:
                 out = sat.orchestrate(tasks, interval=interval, topology=topo,
                                       resume_dir=journals["B"],
-                                      crash_barrier=inj.barrier if inj else None)
+                                      crash_barrier=inj.barrier if inj else None,
+                                      fusion=False)
             except SimulatedKill as e:
                 killed = str(e)
                 traceback.clear_frames(e.__traceback__)
@@ -3224,6 +3277,548 @@ def data_api_phase(sat, flash, ce, card) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 10
+FUSED_LRS = (1e-4, 3e-4, 6e-4, 1e-3)   # 10a-10c: the members, differing only in lr
+FUSED_BATCHES = 16                    # 10c: each member's budget
+FUSED_INTERVAL_SHARE = 0.6            # 10c: interval over a member's solo runtime (2 intervals)
+# 10b: fused against solo after 9 steps, set from the card's readings (at most 1.14e-4 for
+# the losses, 1.23e-3 for the params; the batched products sum in another order, and AdamW
+# moves near-zero-gradient weights by up to lr on rounding noise), under BF16_BAND
+FUSED_LOSS_REL = 1e-3                 # losses, relative, per step
+FUSED_PARAM_REL = 5e-3                # params, by relative norm
+FUSED_SMALL_BATCH = 2                 # 10c: rows a batch of each member (stacking pays there)
+UNFUSE_BATCHES = 12                   # 10d: each member's budget
+UNFUSE_POLL = 2                       # 10d: member 2 detaches at its third poll (after the window)
+UNFUSE_MARKED = 4                     # 10d: member 3's dataset index whose loss is NaN
+COSCHEDULE_BATCHES = 10               # 10e: each member's budget
+
+
+def flash_per_step(config) -> int:
+    """Launches of each flash kernel per (lockstep) step under ``config``:
+    one per layer with flash attention (the members folded into its batch),
+    none with dense."""
+    return LAYERS if (config or {}).get("attention") == "flash" else 0
+
+
+def fused_tasks(sat, save_dir, loss_fn=None, wrap=None, batches=FUSED_BATCHES, prefix="fused",
+                batch=None):
+    """GPT-2-small tasks (b``batch`` x 512, BATCH rows by default) differing
+    only in lr (FUSED_LRS); ``wrap`` maps a member index to its dataset
+    wrapper."""
+    return [lm_task(sat, f"{prefix}-lr{i}", lr, batches, save_dir, model=GPT2, loss_fn=loss_fn,
+                    wrap=(wrap(i) if wrap else None), seq=SEQ, batch=batch)
+            for i, lr in enumerate(FUSED_LRS)]
+
+
+def seeded_cache(name: str) -> str:
+    """A fresh profile cache under chiprun_out/ seeded with the entries of
+    phase 3 (GPT-2-small and BERT-base at b8 x 512) and phase 6 (GPT-2-small
+    over the logits), where they ran."""
+    cache_dir = os.path.join(OUT, name)
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    os.makedirs(cache_dir)
+    for seed in ("main_path_profile_cache", "sweep_profile_cache"):
+        seed = os.path.join(OUT, seed)
+        for entry in (os.listdir(seed) if os.path.isdir(seed) else ()):
+            shutil.copy(os.path.join(seed, entry), cache_dir)
+    return cache_dir
+
+
+def stage_window(tasks, first: int, k: int):
+    """The (K, M, B, T) window of batches first..first+K-1 of ``tasks``."""
+    from saturn_tpu_torch.ops import stacking
+    from saturn_tpu_torch.parallel.spmd_base import stage_tokens
+
+    host = np.stack([stacking.stack_member_batches([t.batch_at(first + j) for t in tasks])
+                     for j in range(k)])
+    return stage_tokens(host, torch.device(DEVICE, 0))
+
+
+def fused_search(sat, card, tasks, topo, label="10a"):
+    """10a: search on the members; one fusion group measured, every member's
+    lockstep time and host fraction set. Returns what was measured and
+    whether the solver's pricing (``milp.fusion_priced_groups``, the JAX
+    package's rule) fuses the group."""
+    from saturn_tpu_torch.executor.orchestrator import _static_fusion_gate
+    from saturn_tpu_torch.solver import milp
+
+    cache_dir = seeded_cache("fused_profile_cache")
+    t0 = time.perf_counter()
+    stats = sat.search(tasks, technique_names=["dp"], topology=topo, profile_cache=cache_dir)
+    t_search = time.perf_counter() - t0
+    if stats["fused_groups"] != 1:
+        raise AssertionError(f"{label}: search measured {stats['fused_groups']} fused groups, "
+                             f"want 1")
+    strats = [t.strategies[1] for t in tasks]
+    if any(s.fused_per_batch_time is None for s in strats):
+        raise AssertionError(f"{label}: a member has no fused_per_batch_time")
+    if any(not s.host_fraction > 0.0 for s in strats):
+        raise AssertionError(f"{label}: host fractions {[s.host_fraction for s in strats]}")
+    lock = strats[0].fused_per_batch_time
+    solo = strats[0].per_batch_time
+    priced = milp.fusion_priced_groups(tasks, [[t.name for t in tasks]], topo,
+                                       fusion_fits=_static_fusion_gate(topo))
+    rows = tasks[0].get_dataset().batch_size
+    log(f"  {label} search, b{rows} x {SEQ}: {stats['trials_run']} trials, "
+        f"{stats['cache_hits']} cache hits, {stats['fused_groups']} fused group, "
+        f"{t_search:.1f}s; config {strats[0].params}; lockstep {lock * 1e3:.2f} ms for "
+        f"{len(tasks)} members against {len(tasks)} x solo {solo * 1e3:.2f} = "
+        f"{len(tasks) * solo * 1e3:.2f} ms ({len(tasks) * solo / lock:.3f}x); host fractions "
+        f"{[round(s.host_fraction, 5) for s in strats]}; the solver's pricing "
+        f"{'fuses' if priced else 'does not fuse'} the group  [{card}]")
+    return {"search": stats, "search_s": t_search, "config": strats[0].params,
+            "batch": rows, "lockstep_s": lock, "solo_per_batch_s": solo,
+            "host_fractions": [s.host_fraction for s in strats], "priced": bool(priced)}
+
+
+def fused_against_solo(sat, flash, ce, card, tasks, k=WINDOW):
+    """10b: the stacked program against four solo runs from the same init
+    (seed 0) and batches: an eager step, then one window of K (a CUDA graph),
+    for each. Losses and final params compared, launches of the stacked
+    window exact, its peak memory."""
+    from saturn_tpu_torch.parallel import fused
+    from saturn_tpu_torch.parallel.spmd_base import stage_tokens
+
+    dev = torch.device(DEVICE, 0)
+    tech = tasks[0].strategies[1].executor
+    config = dict(tasks[0].strategies[1].params)
+    solo_losses, solo_params, solo_ms = [], [], []
+    for t in tasks:
+        bundle = tech.build(t, [dev], config)
+        state = bundle.init()
+        state, l0 = bundle.warm_step(state, stage_tokens(t.batch_at(0), dev))
+        win = bundle.fused(k)
+        batch = stage_tokens(np.stack([t.batch_at(1 + j) for j in range(k)]), dev)
+        win.capture(state, batch.shape)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, ls = win(state, batch)
+        torch.cuda.synchronize()
+        solo_ms.append((time.perf_counter() - t0) * 1e3 / k)
+        solo_losses.append(torch.cat([l0.reshape(1).float(), ls]).cpu().numpy())
+        solo_params.append({n: p.detach().clone() for n, p in state["params"].named_parameters()})
+        del state, win
+        tech.release_task(t.name)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    prog = fused.build_fused_program(tasks, [dev], inner=tech, config=config)
+    state = fused.stack_state(prog, [prog.init_member_tree()] * len(tasks),
+                              [t.hparams.lr for t in tasks], [0] * len(tasks))
+    state, l0 = prog.bundle.warm_step(state, stage_window(tasks, 0, 1)[0])
+    win = prog.bundle.fused(k)
+    batch = stage_window(tasks, 1, k)
+    win.capture(state, batch.shape)
+    torch.cuda.synchronize()
+    reset_counts(flash, ce)
+    t0 = time.perf_counter()
+    state, ls = win(state, batch)
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t0) * 1e3 / k
+    launched = counts(flash, ce)
+    # over the eager step, the capture and the replay: the graph's pool is
+    # reserved memory
+    peak = {"allocated": torch.cuda.max_memory_allocated(dev),
+            "reserved": torch.cuda.max_memory_reserved(dev)}
+    m = len(tasks)
+    want = {**{n: flash_per_step(config) * k for n in FLASH_NAMES},
+            **{n: m * k for n in CE_NAMES}}
+    if launched != want:
+        raise AssertionError(f"10b: the stacked window launched {launched}, want {want}")
+    fused_losses = torch.cat([l0.reshape(1, m).float(), ls]).cpu().numpy()
+    rows, bitwise = [], True
+    for i, t in enumerate(tasks):
+        lrel = rel_diff(fused_losses[:, i], solo_losses[i])
+        num = den = 0.0
+        pmax = 0.0
+        for n, p in state["params"].named_parameters():
+            d = (p.detach()[i] - solo_params[i][n]).float()
+            num += float((d * d).sum())
+            den += float((solo_params[i][n].float() ** 2).sum())
+            pmax = max(pmax, float(d.abs().max()))
+        prel = (num / max(den, 1e-30)) ** 0.5
+        same = lrel == 0.0 and pmax == 0.0
+        bitwise = bitwise and same
+        rows.append({"task": t.name, "loss_rel": lrel, "param_rel_norm": prel,
+                     "param_max_abs": pmax, "bitwise": same,
+                     "fused_losses": fused_losses[:, i].tolist(),
+                     "solo_losses": solo_losses[i].tolist()})
+        log(f"  10b {t.name}: {k + 1} steps, losses {solo_losses[i][0]:.4f} -> "
+            f"{solo_losses[i][-1]:.4f} solo, {fused_losses[-1, i]:.4f} fused; fused against solo: "
+            f"losses {lrel:.3e} relative, params {prel:.3e} by relative norm, {pmax:.3e} max "
+            f"abs{' (bitwise)' if same else ''}  [{card}]")
+        if lrel > FUSED_LOSS_REL or prel > FUSED_PARAM_REL:
+            raise AssertionError(f"10b {t.name}: fused against solo {lrel:.3e} (losses), "
+                                 f"{prel:.3e} (params), over {FUSED_LOSS_REL} / "
+                                 f"{FUSED_PARAM_REL}")
+    log(f"  10b stacked window of {k}: {fused_ms:.2f} ms per lockstep step against solo "
+        f"{[round(x, 2) for x in solo_ms]} ms per step ({sum(solo_ms):.2f} summed; host clock, "
+        f"one replay each, synchronized); launches {launched} (exact); peak "
+        f"{peak['allocated'] / 2**30:.2f} GiB allocated, {peak['reserved'] / 2**30:.2f} GiB "
+        f"reserved; bitwise {bitwise}  [{card}]")
+    del state, win
+    fused.release_programs()
+    torch.cuda.empty_cache()
+    return {"rows": rows, "bitwise": bitwise, "lockstep_ms": fused_ms, "solo_ms": solo_ms,
+            "launches": launched, "peak_bytes": peak, "k": k}
+
+
+def fused_orchestrate(sat, flash, ce, card, tasks, topo):
+    """10c: orchestrate the members with a journal and a metrics file; the
+    plan fuses them, each reaches its budget."""
+    from saturn_tpu_torch import analysis, durability
+    from saturn_tpu_torch.solver import anytime, milp
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+    from saturn_tpu_torch.utils import metrics
+
+    journal = os.path.join(OUT, "fused_journal")
+    events_path = os.path.join(OUT, "fused_events.jsonl")
+    shutil.rmtree(journal, ignore_errors=True)
+    if os.path.exists(events_path):
+        os.unlink(events_path)
+    names = [t.name for t in tasks]
+    # the forecast gives each member interval / its solo per-batch time
+    # batches (the JAX package's rule), so this splits the budget in two
+    interval = FUSED_INTERVAL_SHARE * FUSED_BATCHES * tasks[0].strategies[1].per_batch_time
+    priced = anytime.anytime_resolve(tasks, topo, None, interval, fusion=[names])
+    solo = anytime.anytime_resolve(tasks, topo, None, interval)
+    serial = sum(t.strategies[1].runtime for t in tasks)
+    reset_counts(flash, ce)
+    t0 = time.perf_counter()
+    with CheckedWrites(ckpt) as writes:
+        out = sat.orchestrate(tasks, interval=interval, topology=topo, metrics_path=events_path,
+                              resume_dir=journal)
+    t_orch = time.perf_counter() - t0
+    launches = counts(flash, ce)
+    if sorted(out["completed"]) != sorted(names) or out["failed"]:
+        raise AssertionError(f"10c: completed {out['completed']}, failed {out['failed']}")
+    records = durability.replay(journal, strict=True)
+    commits = [r["data"]["plan"] for r in records if r["kind"] == "plan_commit"]
+    plan = milp.Plan.from_json(commits[0])
+    if plan.fused != [names]:
+        raise AssertionError(f"10c: the first plan's fusion groups {plan.fused}, want [{names}]")
+    analysis.verify_or_raise(plan, topology=topo, tasks=tasks, source="10c")
+    for t in tasks:
+        step = ckpt.load(t.ckpt_path)["step"]
+        if step != FUSED_BATCHES:
+            raise AssertionError(f"10c {t.name}: checkpoint step {step}, want {FUSED_BATCHES}")
+    evs = metrics.read_events(events_path, kind="fused_interval")
+    covered = {n for e in evs for n in e["members"]}
+    if covered != set(names):
+        raise AssertionError(f"10c: fused_interval events cover {sorted(covered)}")
+    lockstep = sum(e["batches"] for e in evs)
+    want = {**{n: flash_per_step(tasks[0].strategies[1].params) * lockstep for n in FLASH_NAMES},
+            **{n: len(names) * lockstep for n in CE_NAMES}}
+    if lockstep != FUSED_BATCHES or launches != want:
+        raise AssertionError(f"10c: {lockstep} lockstep steps, launches {launches}, want {want}")
+    for t in tasks:
+        steps = writes.steps(t.ckpt_path)
+        if steps != np.cumsum([e["batches"] for e in evs]).tolist():
+            raise AssertionError(f"10c {t.name}: checkpoint writes at {steps}")
+    log(f"  10c orchestrate: {len(evs)} fused intervals of {[e['batches'] for e in evs]} "
+        f"lockstep steps at {[round(e['per_step_s'] * 1e3, 2) for e in evs]} ms each, interval "
+        f"{interval:.3f}s, {t_orch:.1f}s; plan fused {plan.fused} (verified, replayed strictly "
+        f"from the journal: {len(commits)} plan commits); solver's makespan {priced.makespan:.3f}s "
+        f"fused against {solo.makespan:.3f}s solo ({solo.makespan / max(priced.makespan, 1e-9):.3f}"
+        f"x; the solo plan's serial sum of runtimes {serial:.3f}s, the rest its ordering slack "
+        f"between tasks on one device); every checkpoint at step {FUSED_BATCHES}; launches "
+        f"{launches} (exact)  [{card}]")
+    for t in tasks:
+        t.release_live_state()
+        t.release_compiled()
+    return launches, {"interval_s": interval, "orchestrate_s": t_orch,
+                      "fused_intervals": evs, "makespan_fused_s": priced.makespan,
+                      "makespan_solo_s": solo.makespan, "serial_runtime_s": serial,
+                      "plan_commits": len(commits),
+                      "launches": launches}
+
+
+class DetachAfterPolls:
+    """Make a task's ``_fused_detach`` flag read True from its
+    ``polls``-th read on: the stack's unit-boundary poll unfuses it there."""
+
+    def __init__(self, task, polls: int):
+        self.task, self.polls, self.reads = task, polls, 0
+        cls = type(task)
+        outer = self
+
+        def read(_):
+            outer.reads += 1
+            return outer.reads > outer.polls
+
+        task.__class__ = type("Detaching" + cls.__name__, (cls,),
+                              {"_fused_detach": property(read, lambda *_: None)})
+
+
+def unfuse_phase(sat, flash, ce, card, topo):
+    """10d: four members over the logits (``nan_on_mark_loss``) in a fused
+    plan through ``engine.execute``: member 3's batch UNFUSE_MARKED is
+    marked (a NaN on the card), member 2 detaches after the first window.
+    Member 3 faults alone, 0 and 1 commit, 2 resumes solo to its budget."""
+    from saturn_tpu_torch.core.mesh import Block
+    from saturn_tpu_torch.executor import engine
+    from saturn_tpu_torch.health import NumericFaultError
+    from saturn_tpu_torch.parallel import fused
+    from saturn_tpu_torch.solver import milp
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    save_dir = os.path.join(CKPTS, "unfuse")
+    tasks = fused_tasks(sat, save_dir, loss_fn=nan_on_mark_loss, batches=UNFUSE_BATCHES,
+                        prefix="unfuse",
+                        wrap=lambda i: ((lambda ds: PoisonedDataset(ds, UNFUSE_MARKED, MARK))
+                                        if i == 3 else None))
+    # the plan is hand-built: no fused trial
+    sat.search(tasks, technique_names=["dp"], topology=topo,
+               profile_cache=seeded_cache("unfuse_profile_cache"), fusion=False)
+    names = [t.name for t in tasks]
+    plan = milp.Plan({n: milp.Assignment(1, Block(0, 1), 0.0, 1.0) for n in names},
+                     makespan=1.0, fused=[names])
+    plan.compute_dependencies()
+    DetachAfterPolls(tasks[2], UNFUSE_POLL)
+    saves: list = []
+    real_save = ckpt.save
+
+    def counted_save(path, state):
+        saves.append((path, int(state["step"])))
+        return real_save(path, state)
+
+    reset_counts(flash, ce)
+    done: list = []
+    ckpt.save = counted_save
+    t0 = time.perf_counter()
+    try:
+        with CheckedWrites(ckpt) as writes:
+            errors = engine.execute(tasks, {n: UNFUSE_BATCHES for n in names}, 1000.0, plan,
+                                    topo, failure_policy="drop",
+                                    on_task_done=lambda n, b: done.append((n, b)))
+            ckpt.flush()
+    finally:
+        ckpt.save = real_save
+    seconds = time.perf_counter() - t0
+    launches = counts(flash, ce)
+    sick, leaver = tasks[3], tasks[2]
+    if set(errors) != {sick.name} or not isinstance(errors[sick.name], NumericFaultError):
+        raise AssertionError(f"10d: errors {errors}, want one numeric fault of {sick.name}")
+    steps = {t.name: writes.steps(t.ckpt_path) for t in tasks}
+    unfused_at = [s for p, s in saves if p == leaver.ckpt_path]
+    if len(unfused_at) != 1:
+        raise AssertionError(f"10d: {leaver.name} unfuse writes {unfused_at}")
+    d = unfused_at[0]
+    want = {names[0]: [UNFUSE_BATCHES], names[1]: [UNFUSE_BATCHES],
+            names[2]: [UNFUSE_BATCHES], names[3]: []}
+    if steps != want or not 0 < d < UNFUSE_BATCHES:
+        raise AssertionError(f"10d: async writes {steps}, want {want}; unfused at {d}")
+    runs = [r for r in leaver.strategies[1].executor.intervals if r["task"] == leaver.name]
+    check_writes(leaver.name, [d] + steps[leaver.name],
+                 [{"n": d}] + runs[-1:], UNFUSE_BATCHES)
+    if sorted(done) != sorted((n, UNFUSE_BATCHES) for n in names[:3]):
+        raise AssertionError(f"10d: progress {done}")
+    if leaver.current_batch != UNFUSE_BATCHES or not runs[-1]["restored"]:
+        raise AssertionError(f"10d: {leaver.name} cursor {leaver.current_batch}, "
+                             f"solo resume {runs[-1:]}")
+    lock = 2 * UNFUSE_BATCHES - d  # stack steps plus the leaver's solo steps
+    want_l = {**{n: flash_per_step(tasks[0].strategies[1].params) * lock for n in FLASH_NAMES},
+              **{n: 0 for n in CE_NAMES}}
+    if launches != want_l:
+        raise AssertionError(f"10d: launches {launches}, want {want_l}")
+    err = errors[sick.name]
+    log(f"  10d: {sick.name} faulted alone ({err.cause} at interval step {err.step}, dataset "
+        f"batches {list(err.batch_indices)}), no write; {names[0]}, {names[1]} committed at "
+        f"step {UNFUSE_BATCHES}; {leaver.name} unfused at step {d} (synchronous write), resumed "
+        f"solo from that checkpoint for {UNFUSE_BATCHES - d} batches and wrote step "
+        f"{steps[leaver.name]}; launches {launches} (exact: {lock} steps x "
+        f"{flash_per_step(tasks[0].strategies[1].params)}); "
+        f"{seconds:.1f}s  [{card}]")
+    for t in tasks:
+        t.release_live_state()
+        t.release_compiled()
+    fused.release_programs()
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return launches, {"unfused_at": d, "fault": {"task": sick.name, "cause": err.cause,
+                                                 "step": err.step},
+                      "writes": steps, "seconds": seconds}
+
+
+def coschedule_phase(sat, flash, ce, card, topo):
+    """10e: a GPT-2-small and a BERT-base task on one block, a hand-built
+    co-schedule plan through ``engine.execute``: both members' losses and
+    checkpoints equal their solo runs' bitwise."""
+    from saturn_tpu_torch import analysis
+    from saturn_tpu_torch.core.mesh import Block
+    from saturn_tpu_torch.executor import engine
+    from saturn_tpu_torch.solver import milp
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    save_dir = os.path.join(CKPTS, "coschedule")
+    cache = seeded_cache("coschedule_profile_cache")
+
+    def pair(suffix):
+        ts = [lm_task(sat, f"co-gpt2{suffix}", 6e-4, COSCHEDULE_BATCHES, save_dir, model=GPT2,
+                      seq=SEQ),
+              lm_task(sat, f"co-bert{suffix}", 1e-3, COSCHEDULE_BATCHES, save_dir, model=BERT,
+                      seq=SEQ)]
+        sat.search(ts, technique_names=["dp"], topology=topo, profile_cache=cache)
+        return ts
+
+    solos, co = pair("-solo"), pair("")
+    dev = torch.device(DEVICE, 0)
+    serial = []
+    for t in solos:
+        t.select_strategy(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.selected_strategy.executor.execute(t, [dev], 0, override_batch_count=COSCHEDULE_BATCHES)
+        torch.cuda.synchronize()
+        serial.append(time.perf_counter() - t0)
+        t.release_live_state()
+        t.release_compiled()
+    plan = milp.Plan({t.name: milp.Assignment(1, Block(0, 1), 0.0, t.strategies[1].runtime)
+                      for t in co}, makespan=max(t.strategies[1].runtime for t in co),
+                     coschedule=[[t.name for t in co]])
+    plan.compute_dependencies()
+    analysis.verify_or_raise(plan, topology=topo, tasks=co, source="10e")
+    reset_counts(flash, ce)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    errors = engine.execute(co, {t.name: COSCHEDULE_BATCHES for t in co}, 1000.0, plan, topo)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(flash, ce)
+    if errors:
+        raise AssertionError(f"10e: {errors}")
+    ckpt.flush()
+    for s, t in zip(solos, co):
+        if t.last_losses != s.last_losses:
+            raise AssertionError(f"10e {t.name}: losses {t.last_losses} differ from solo "
+                                 f"{s.last_losses}")
+        check_same_state(t.name, ckpt.load(s.ckpt_path), ckpt.load(t.ckpt_path))
+    hfs = {t.name: t.strategies[1].host_fraction for t in co}
+    choices = {t.name: [(1, Block(0, 1), t.strategies[1].runtime)] for t in co}
+    cands = milp.coschedule_candidates(co, choices, 1.15)
+    solved = milp.solve(co, topo, time_limit=5.0)
+    log(f"  10e: {co[0].name} + {co[1].name} interleaved on one block, {COSCHEDULE_BATCHES} "
+        f"batches each, losses and checkpoints bitwise equal to their solo runs; wall "
+        f"{wall:.3f}s interleaved against {sum(serial):.3f}s serial ({serial[0]:.3f} + "
+        f"{serial[1]:.3f}; both with their captures); host fractions "
+        f"{ {n: round(v, 5) for n, v in hfs.items()} }; solve at coschedule_min_gain 1.15: "
+        f"{'co-locates' if solved.coschedule else 'does not co-locate'} the pair "
+        f"(candidates {[(a, b) for a, b, _ in cands]}); launches {launches}  [{card}]")
+    for t in co:
+        t.release_live_state()
+        t.release_compiled()
+    shutil.rmtree(save_dir, ignore_errors=True)
+    return launches, {"wall_s": wall, "serial_s": serial, "host_fractions": hfs,
+                      "solver_coschedules": solved.coschedule, "candidates": len(cands)}
+
+
+def kernels_by_name(prof, steps: int) -> dict:
+    """{kernel name (90 characters): [ms per step, launches per step]} of a
+    torch.profiler run over ``steps`` steps."""
+    out: dict = {}
+    for name, a, b in device_events(prof):
+        row = out.setdefault(name[:90], [0.0, 0.0])
+        row[0] += (b - a) / 1e3 / steps
+        row[1] += 1.0 / steps
+    return out
+
+
+def fused_profile(sat, card, k=WINDOW, batches=(BATCH, FUSED_SMALL_BATCH)) -> dict:
+    """Where a stacked lockstep step's time goes against four solo steps:
+    one solo window and one stacked window of K (CUDA graphs, flash and the
+    fused head, from seed 0) at each batch, timed by CUDA events over four
+    replays and profiled over one; per kernel, the stack's device time less
+    four times the solo step's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from saturn_tpu_torch.parallel import fused
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.parallel.spmd_base import stage_tokens
+
+    sat.library.register_default_library()
+    dev = torch.device(DEVICE, 0)
+    tech, config = DataParallel(), {"remat": False, "attention": "flash"}
+    out = {}
+
+    def measure(win, state, batch, steps):
+        for _ in range(2):
+            win(state, batch)
+        ms = events_ms(lambda: win(state, batch), n=4, warmup=1) / k
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            win(state, batch)
+            torch.cuda.synchronize()
+        return ms, busy_ms(device_events(prof)) / steps, kernels_by_name(prof, steps)
+
+    for b in batches:
+        tasks = fused_tasks(sat, os.path.join(CKPTS, "fused_profile"), batch=b,
+                            prefix=f"profile-b{b}")
+        for t in tasks:
+            t.strategies[1] = sat.Strategy(tech, 1, config, 1.0, 1.0)
+            t.select_strategy(1)
+        t = tasks[0]
+        bundle = tech.build(t, [dev], config)
+        state = bundle.init()
+        state, _ = bundle.warm_step(state, stage_tokens(t.batch_at(0), dev))
+        win = bundle.fused(k)
+        batch = stage_tokens(np.stack([t.batch_at(1 + j) for j in range(k)]), dev)
+        win.capture(state, batch.shape)
+        solo = measure(win, state, batch, k)
+        del state, win
+        tech.release_task(t.name)
+        prog = fused.build_fused_program(tasks, [dev], inner=tech, config=config)
+        state = fused.stack_state(prog, [prog.init_member_tree()] * len(tasks),
+                                  [x.hparams.lr for x in tasks], [0] * len(tasks))
+        state, _ = prog.bundle.warm_step(state, stage_window(tasks, 0, 1)[0])
+        win = prog.bundle.fused(k)
+        batch = stage_window(tasks, 1, k)
+        win.capture(state, batch.shape)
+        stack = measure(win, state, batch, k)
+        del state, win
+        fused.release_programs()
+        torch.cuda.empty_cache()
+        m = len(tasks)
+        extra = sorted(((name, stack[2].get(name, [0.0, 0.0])[0]
+                         - m * solo[2].get(name, [0.0, 0.0])[0])
+                        for name in set(solo[2]) | set(stack[2])), key=lambda r: -abs(r[1]))
+        log(f"  b{b} x {SEQ}: stacked {stack[0]:.3f} ms per lockstep step (busy {stack[1]:.3f}) "
+            f"against {m} x solo {solo[0]:.3f} = {m * solo[0]:.3f} ms (busy {m} x {solo[1]:.3f}); "
+            f"{m * solo[0] / stack[0]:.3f}x  [{card}]")
+        for name, d in extra[:12]:
+            log(f"    {d:+8.3f} ms  {name}")
+        out[f"b{b}"] = {"stacked_ms": stack[0], "stacked_busy_ms": stack[1],
+                        "solo_ms": solo[0], "solo_busy_ms": solo[1],
+                        "extra_ms": extra[:30]}
+    shutil.rmtree(os.path.join(CKPTS, "fused_profile"), ignore_errors=True)
+    return out
+
+
+def fused_phase(sat, flash, ce, card) -> tuple:
+    """Phase 10: fused stacking and co-scheduled interleaving on one card."""
+    t_phase = time.perf_counter()
+    sat.library.register_default_library()
+    topo = topology()
+    save_dir = os.path.join(CKPTS, "fused")
+    log("phase 10: fused GPT-2-small x4 (lr sweep) and a co-scheduled pair, dp")
+    tasks = fused_tasks(sat, save_dir)
+    out = {"search": fused_search(sat, card, tasks, topo)}
+    out["against_solo"] = fused_against_solo(sat, flash, ce, card, tasks)
+    for t in tasks:
+        t.release_compiled()
+    small = fused_tasks(sat, save_dir, batch=FUSED_SMALL_BATCH, prefix="fused-b2")
+    out["search_small"] = fused_search(sat, card, small, topo, label="10c")
+    if not out["search_small"]["priced"]:
+        m = out["search_small"]
+        raise AssertionError(f"10c: the solver's pricing does not fuse the b{m['batch']} group: "
+                             f"lockstep {m['lockstep_s'] * 1e3:.2f} ms against 4 x solo "
+                             f"{4 * m['solo_per_batch_s'] * 1e3:.2f} ms")
+    launches, out["orchestrate"] = fused_orchestrate(sat, flash, ce, card, small, topo)
+    shutil.rmtree(save_dir, ignore_errors=True)
+    _, out["unfuse"] = unfuse_phase(sat, flash, ce, card, topo)
+    _, out["coschedule"] = coschedule_phase(sat, flash, ce, card, topo)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 10 {out['seconds']:.1f}s  [{card}]")
+    return launches, out
+
+
 def option(argv, name: str, default=None):
     """The value after ``name`` in ``argv``, or ``default``."""
     return argv[argv.index(name) + 1] if name in argv else default
@@ -3292,6 +3887,19 @@ def main(argv) -> int:
             json.dump({"card": card, "kind": kind, "data": data,
                        "short_profiles": SHORT_PROFILES,
                        "seconds": time.perf_counter() - t_start}, f, indent=1)
+        shutil.rmtree(CKPTS, ignore_errors=True)
+        return 0
+    if "--fused-profile" in argv:
+        log("where a stacked step's time goes, against four solo steps")
+        with open(os.path.join(OUT, "fused_profile.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "rows": fused_profile(sat, card)}, f,
+                      indent=1)
+        return 0
+    if "--fused" in argv:
+        _, fused_out = fused_phase(sat, flash, ce, card)
+        with open(os.path.join(OUT, "fused.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "fused": fused_out,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
         shutil.rmtree(CKPTS, ignore_errors=True)
         return 0
     if "--offload" in argv:
@@ -3364,6 +3972,11 @@ def main(argv) -> int:
     data = data_api_phase(sat, flash, ce, card)
     shutil.rmtree(CKPTS, ignore_errors=True)
 
+    fused_launches, fused_out = fused_phase(sat, flash, ce, card)
+    launches = {n: launches[n] + fused_launches[n] for n in KERNEL_NAMES}
+    log(f"  main-path launches, phases 3, 6 and 10c: {launches}")
+    shutil.rmtree(CKPTS, ignore_errors=True)
+
     def entry(row, n_launches):
         return {"launches": n_launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -3384,7 +3997,7 @@ def main(argv) -> int:
                    "kernel_rows_d256": rows_d256, "ce_recompute_rows": recompute, "main_path": main_results,
                    "pinned": pinned, "step_profile": step_profile, "sweep": sweep,
                    "kill_replay": kill_replay, "offload": offload, "data": data,
-                   "short_profiles": SHORT_PROFILES,
+                   "fused": fused_out, "short_profiles": SHORT_PROFILES,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"profiles short of their launch count, each taken again: {len(SHORT_PROFILES)} "
         f"{SHORT_PROFILES}")

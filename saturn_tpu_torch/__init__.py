@@ -56,6 +56,7 @@ def orchestrate(
     resume_dir=None,
     health_guardian=None,
     crash_barrier=None,
+    fusion=True,
 ):
     """Solve the SPASE problem and run the batch to completion (the
     signature of ``saturn_tpu.orchestrate``)."""
@@ -79,4 +80,5 @@ def orchestrate(
         resume_dir=resume_dir,
         health_guardian=health_guardian,
         crash_barrier=crash_barrier,
+        fusion=fusion,
     )

@@ -10,10 +10,21 @@ code       severity  meaning
 SAT-P001   error     device race: blocks overlap with no ordering path between
                      the two tasks
 SAT-P002   error     dependency cycle — the gang launch would deadlock
+SAT-P003   error     a task depends on a member of its own co-schedule or fusion group
 SAT-P010   warning   dependency names a task with no assignment in the plan
+SAT-P011   warning   co-schedule group names a task with no assignment
+SAT-P012   warning   co-schedule group has fewer than two assigned members
+SAT-P013   warning   task appears in two co-schedule groups
+SAT-P014   warning   fusion group names a task with no assignment
+SAT-P015   warning   fusion group has fewer than two assigned members
+SAT-P016   warning   task appears in two fusion groups
 SAT-P020   error     assignment block exceeds the topology's buddy capacity
 SAT-P021   error     assignment apportionment differs from its block size
 SAT-P022   error     task has no feasible strategy at the assigned apportionment
+SAT-P023   warning   co-schedule group members do not share one block
+SAT-P024   warning   co-scheduled task has no measured host fraction or bubble
+SAT-P025   error     fusion group members do not hold identical (size, block, start)
+SAT-P026   warning   fused task has no measured fused_per_batch_time
 SAT-P030   error     negative start time or negative runtime
 SAT-P031   error     task starts before a task it depends on
 SAT-P032   warning   recorded makespan is below the last assignment's end time

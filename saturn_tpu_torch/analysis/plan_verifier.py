@@ -5,24 +5,28 @@ default path calls — ``verify_plan`` / ``verify_or_raise`` (the gate on
 every fresh and re-solved plan) and ``check_launch_invariants`` (the
 engine's guard before each gang launch):
 
-- **Launch invariants**: device-block overlap races and dependency cycles.
-- **Structure**: dependencies that name unknown tasks.
+- **Launch invariants**: device-block overlap races, dependency cycles and
+  dependencies inside a co-schedule or fusion group, checked between the
+  groups of the condensed graph (``coschedule_find``, shared with the
+  engine).
+- **Structure**: dependencies and group members that name unknown tasks,
+  groups of fewer than two assigned members, a task in two groups.
 - **Feasibility** (with a topology and / or task list): blocks inside the
   buddy capacity, apportionment equal to block size, a feasible strategy at
-  the assigned size.
+  the assigned size; a co-schedule group on one block with measured host
+  fractions, a fusion group's members on identical slots with a measured
+  ``fused_per_batch_time``.
 - **Timeline**: non-negative starts and runtimes, start order consistent
   with the dependency edges, makespan and deadline arithmetic.
 
-Port plans carry no co-schedule or fusion groups yet, so the JAX package's
-group checks (SAT-P003, P011-P016, P023-P026) and its ``coschedule_find``
-have no counterpart; ``audit_journal`` waits for the durability journal.
-Pure Python over plan data.
+The JAX package's ``audit_journal`` has no counterpart yet. Pure Python
+over plan data.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 from saturn_tpu_torch.analysis.diagnostics import (
     AnalysisReport,
@@ -63,27 +67,74 @@ def _cycle(witness: str, nodes: List[str]) -> Diagnostic:
     )
 
 
-def _edges(order: List[str], plan: Any) -> Dict[str, set]:
+def coschedule_find(names: Iterable[str], plan: Any) -> Callable[[str], str]:
+    """Union-find root function over the plan's co-schedule and fusion
+    groups, restricted to ``names``. Members of one group are one condensed
+    node (co-schedule members run interleaved on one launcher, fusion
+    members as one stacked program), so ordering and races are checked
+    between groups, never inside one; groups that share a member merge.
+    The engine's launcher grouping uses the same function."""
+    running = set(names)
+    parent: Dict[str, str] = {n: n for n in running}
+
+    def find(n: str) -> str:
+        while parent[n] != n:
+            parent[n] = parent[parent[n]]  # path halving
+            n = parent[n]
+        return n
+
+    for attr in ("coschedule", "fused"):
+        for grp in getattr(plan, attr, None) or []:
+            members = [n for n in grp if n in running]
+            for a, b in zip(members, members[1:]):
+                ra, rb = find(a), find(b)
+                if ra != rb:
+                    parent[ra] = rb
+    return find
+
+
+def _condensed(order: List[str], plan: Any, find) -> Tuple[Dict[str, set], List[Diagnostic]]:
+    """Dependency edges between the condensed nodes of ``order``, and a
+    SAT-P003 diagnostic for each edge inside a group."""
     running = set(order)
-    return {
-        n: {d for d in plan.dependencies.get(n, ()) if d in running and d != n}
-        for n in order
-    }
+    out: List[Diagnostic] = []
+    cdeps: Dict[str, set] = {find(n): set() for n in order}
+    for n in order:
+        rn = find(n)
+        for d in plan.dependencies.get(n, ()):
+            if d not in running:
+                continue
+            rd = find(d)
+            if rd == rn:
+                if d != n:
+                    out.append(make(
+                        "SAT-P003", "error",
+                        f"plan makes co-scheduled task {n!r} depend on its "
+                        f"groupmate {d!r}: group members run interleaved on "
+                        "one launcher, so an intra-group completion wait "
+                        "would deadlock the group",
+                        counterexample={"task": n, "groupmate": d},
+                        category="launch",
+                    ))
+                continue
+            cdeps[rn].add(rd)
+    return cdeps, out
 
 
 def launch_diagnostics(names: Sequence[str], plan: Any, *,
                        force_exact: bool = False,
                        force_sweep: bool = False) -> List[Diagnostic]:
     """The gang-launch invariants as diagnostics, in the JAX package's
-    order: cycles, then pairwise races. A plan that violates them would run
-    two programs on one device at once or park launcher threads on events
-    that never fire. Above ``SWEEP_THRESHOLD`` tasks the per-device sweep
-    replaces the exact check (``force_exact`` / ``force_sweep`` pin it)."""
+    order: edges inside a group, cycles, then pairwise races, over the
+    condensed graph. A plan that violates them would run two programs on
+    one device at once or park launcher threads on events that never fire.
+    Above ``SWEEP_THRESHOLD`` tasks the per-device sweep replaces the exact
+    check (``force_exact`` / ``force_sweep`` pin it)."""
     if force_sweep or (not force_exact and len(set(names)) > SWEEP_THRESHOLD):
         return _launch_diagnostics_sweep(names, plan)
-    out: List[Diagnostic] = []
     order = list(dict.fromkeys(names))
-    deps = _edges(order, plan)
+    find = coschedule_find(order, plan)
+    deps, out = _condensed(order, plan, find)
     reach: Dict[str, set] = {}
 
     def reachable(r: str) -> set:
@@ -110,7 +161,10 @@ def launch_diagnostics(names: Sequence[str], plan: Any, *,
         for n2, a2 in items[i + 1:]:
             if a2 is None or not a1.block.overlaps(a2.block):
                 continue
-            if n1 not in reachable(n2) and n2 not in reachable(n1):
+            r1, r2 = find(n1), find(n2)
+            if r1 == r2:
+                continue  # one group: the shared block is the point
+            if r1 not in reachable(r2) and r2 not in reachable(r1):
                 out.append(_race(n1, a1, n2, a2))
     return out
 
@@ -121,9 +175,9 @@ def _launch_diagnostics_sweep(names: Sequence[str], plan: Any) -> List[Diagnosti
     edge (either direction). Sound, and stricter than the exact check: every
     solver-produced dependency shape (all overlapping pairs, or per-device
     chains) provides such edges."""
-    out: List[Diagnostic] = []
     order = list(dict.fromkeys(names))
-    deps = _edges(order, plan)
+    find = coschedule_find(order, plan)
+    deps, out = _condensed(order, plan, find)
 
     indeg: Dict[str, int] = {r: 0 for r in deps}
     for ds in deps.values():
@@ -153,7 +207,8 @@ def _launch_diagnostics_sweep(names: Sequence[str], plan: Any) -> List[Diagnosti
     for occ in per_device.values():
         occ.sort()
         for (_, n1), (_, n2) in zip(occ, occ[1:]):
-            if n1 == n2 or n1 in deps.get(n2, ()) or n2 in deps.get(n1, ()):
+            r1, r2 = find(n1), find(n2)
+            if r1 == r2 or r1 in deps.get(r2, ()) or r2 in deps.get(r1, ()):
                 continue
             key = (n1, n2) if n1 <= n2 else (n2, n1)
             if key in flagged:
@@ -181,6 +236,35 @@ def _structure_diagnostics(plan: Any) -> List[Diagnostic]:
                     f"dependency of {n!r} names unknown task {d!r} "
                     "(no assignment in the plan)",
                     counterexample={"task": n, "unknown": d},
+                    category="structure",
+                ))
+    groups = (("coschedule", "co-schedule", ("SAT-P011", "SAT-P012", "SAT-P013"),
+               "the engine merges them into one launcher", "nothing to interleave"),
+              ("fused", "fusion", ("SAT-P014", "SAT-P015", "SAT-P016"),
+               "one task can belong to only one stacked program", "nothing to stack"))
+    for attr, kind, (unknown, small, twice), twice_why, small_why in groups:
+        seen: Dict[str, int] = {}
+        for gi, grp in enumerate(getattr(plan, attr, None) or []):
+            for m in grp:
+                if m not in known:
+                    out.append(make(
+                        unknown, "warning", f"{kind} group {gi} names unknown task {m!r}",
+                        counterexample={"group": gi, "unknown": m}, category="structure",
+                    ))
+                if m in seen and seen[m] != gi:
+                    out.append(make(
+                        twice, "warning",
+                        f"task {m!r} appears in {kind} groups {seen[m]} and {gi} — "
+                        f"{twice_why}",
+                        counterexample={"task": m, "groups": [seen[m], gi]},
+                        category="structure",
+                    ))
+                seen.setdefault(m, gi)
+            if len([m for m in grp if m in known]) < 2:
+                out.append(make(
+                    small, "warning",
+                    f"{kind} group {gi} has fewer than two assigned members — {small_why}",
+                    counterexample={"group": gi, "members": list(grp)},
                     category="structure",
                 ))
     return out
@@ -223,6 +307,66 @@ def _feasibility_diagnostics(plan: Any, topology: Any,
                     "the sweep rejected or never measured",
                     counterexample={"task": n, "apportionment": a.apportionment,
                                     "known_sizes": sorted(getattr(t, "strategies", {}))},
+                    category="feasibility",
+                ))
+    for gi, grp in enumerate(getattr(plan, "coschedule", None) or []):
+        assigned = [(m, plan.assignments[m]) for m in grp if m in plan.assignments]
+        blocks = {(a.block.offset, a.block.size) for _, a in assigned}
+        if len(blocks) > 1:
+            out.append(make(
+                "SAT-P023", "warning",
+                f"co-schedule group {gi} members do not share one device "
+                "block — interleaving only hides bubbles when the group is "
+                "co-located",
+                counterexample={"group": gi, "blocks": sorted(blocks)},
+                category="feasibility",
+            ))
+        for m, a in assigned:
+            t = by_name.get(m)
+            if t is None:
+                continue
+            strat = getattr(t, "strategies", {}).get(a.apportionment)
+            hf = getattr(strat, "host_fraction", 0.0) if strat else 0.0
+            bubble = getattr(strat, "bubble_fraction", 0.0) if strat else 0.0
+            if (not hf or hf <= 0.0) and (not bubble or bubble <= 0.0):
+                out.append(make(
+                    "SAT-P024", "warning",
+                    f"co-scheduled task {m!r} has no measured host fraction "
+                    "or schedule bubble at its apportionment — the "
+                    "co-location term had no idle window to fill",
+                    counterexample={"task": m, "group": gi,
+                                    "apportionment": a.apportionment},
+                    category="feasibility",
+                ))
+    for gi, grp in enumerate(getattr(plan, "fused", None) or []):
+        assigned = [(m, plan.assignments[m]) for m in grp if m in plan.assignments]
+        slots = {(a.apportionment, a.block.offset, a.block.size, a.start)
+                 for _, a in assigned}
+        if len(slots) > 1:
+            out.append(make(
+                "SAT-P025", "error",
+                f"fusion group {gi} members do not hold IDENTICAL "
+                "(size, block, start) assignments — a stacked program is "
+                "one step on one block; divergent slots would dispatch the "
+                "same stack twice",
+                counterexample={"group": gi, "slots": sorted(slots)},
+                category="feasibility",
+            ))
+        for m, a in assigned:
+            t = by_name.get(m)
+            if t is None:
+                continue
+            strat = getattr(t, "strategies", {}).get(a.apportionment)
+            fpbt = getattr(strat, "fused_per_batch_time", None) if strat else None
+            if fpbt is None:
+                out.append(make(
+                    "SAT-P026", "warning",
+                    f"fused task {m!r} has no measured fused_per_batch_time "
+                    "at its apportionment — the fusion pre-pass prices "
+                    "strictly on measured lockstep cost, so this group was "
+                    "fused on guesswork",
+                    counterexample={"task": m, "group": gi,
+                                    "apportionment": a.apportionment},
                     category="feasibility",
                 ))
     return out

@@ -19,6 +19,11 @@ dtypes, no storage).
   ``fused_loss_parts_fn`` is the same as ``(loss_sum, valid_count)``.
 - ``apply_with_aux_fn(model, tokens) -> (logits, aux_loss)`` for models with
   an auxiliary training loss.
+- ``stacked_model_fn(n, device) -> nn.Module`` and ``stacked_loss_fn(model,
+  tokens, loss_fn=None) -> (n,) losses``: the model with every parameter
+  stacked on a leading member axis, and its per-member losses of (n, B, T)
+  tokens (the fused head where ``loss_fn`` is None), for fused stacking
+  (``parallel/fused.py``). A spec without them does not fuse.
 """
 
 from __future__ import annotations
@@ -42,6 +47,10 @@ class ModelSpec:
     meta_init_fn: Optional[Callable[[], Any]] = None
     #: ``(model, generator) -> None``: the initial weights into an allocated model.
     fill_fn: Optional[Callable[[Any, Any], None]] = None
+    #: ``(n, device) -> nn.Module`` with every parameter (n, *shape).
+    stacked_model_fn: Optional[Callable[[int, Any], Any]] = None
+    #: ``(stacked model, (n, B, T) tokens, loss_fn=None) -> (n,) losses``.
+    stacked_loss_fn: Optional[Callable[..., Any]] = None
 
     def abstract_init(self):
         """The model on the meta device: every parameter's shape and dtype,

@@ -2,8 +2,9 @@
 
 Counterpart of ``saturn_tpu/core/strategy.py``. The allocation unit is a
 power-of-two number of devices forming one aligned block (``core/mesh.py``).
-The fields the JAX package adds for cost-model interpolation,
-co-scheduling and fused stacking are later items.
+It carries the JAX package's co-scheduling and fused-stacking fields
+(``host_fraction``, ``fused_per_batch_time``, ``bubble_fraction``); its
+cost-model interpolation fields are a later item.
 """
 
 from __future__ import annotations
@@ -48,6 +49,26 @@ class Strategy:
     # its directory: the orchestrator upgrades it with realized times
     cache_key: Optional[str] = None
     cache_dir: Optional[str] = None
+    # Fraction of a steady-state batch spent on host work (staging the
+    # batch) rather than device compute, in [0, 1], measured by the trial
+    # (``SPMDTechnique._try_config``). The solver's co-location term reads
+    # it: 0.0 (unmeasured) predicts no interleave win, so such a strategy is
+    # never co-scheduled.
+    host_fraction: float = 0.0
+    # Seconds per lockstep step of a fused stack this task belongs to (every
+    # member advances one batch per lockstep step), measured by
+    # ``trial_runner.evaluator.profile_fused_group`` and updated by the
+    # engine's fused launcher (EWMA). None: never profiled, and the solver
+    # does not fuse on guesswork.
+    fused_per_batch_time: Optional[float] = None
+    # Device-idle fraction of a step from the schedule's bubble (pipeline
+    # warm-up and cool-down) a co-scheduled partner could fill. 0.0 for dp
+    # and offload, the port's techniques.
+    bubble_fraction: float = 0.0
+    # Peak device memory of the trial that measured this strategy, in bytes
+    # (None: not measured, a cache entry of an earlier schema). The fusion
+    # gate takes the activations a stack member adds from it.
+    peak_bytes: Optional[float] = None
 
     def __post_init__(self) -> None:
         if self.apportionment < 1:

@@ -21,6 +21,12 @@ transitions, group-committed at the end of each interval. A later
 ``orchestrate`` on the same directory replays the journal and runs only
 what is left (``_fold_batch_recovery``).
 
+Every solve gets the fusion groups of ``parallel.fused.fusion_candidates``
+and a residency gate from the static screen (``_static_fusion_gate``); the
+plan's fusion groups run as stacked programs and its co-schedule groups
+interleaved (``engine.execute``). A task the guardian detaches stays out of
+both at later solves.
+
 Unlike the JAX package, the re-solve runs after the interval, not beside
 it, with the interval's feedback and failures already folded in. The JAX
 package's fault injection and elastic recovery are later items; those
@@ -79,6 +85,56 @@ def _gate_resolved_plan(candidate, previous, topo, tasks, interval: float, journ
         if previous is None or names - set(previous.assignments):
             raise
         return anytime.slide(previous, names, interval)
+
+
+def _fusion_proposals(tasks) -> Optional[List[List[str]]]:
+    """Candidate fusion groups for a solve (same-fingerprint task names,
+    ``parallel.fused.fusion_candidates``). Proposing is free: only a group
+    whose members all carry a measured ``fused_per_batch_time`` can win the
+    pricing (``milp.fusion_priced_groups``)."""
+    from saturn_tpu_torch.parallel import fused
+
+    return fused.fusion_candidates(tasks) or None
+
+
+def _static_fusion_gate(topo):
+    """The solver's ``fusion_fits(member_tasks, size, n_members)`` from the
+    port's static screen (the JAX package asks memlens): a stack of N keeps
+    N x the fp32 parameters, gradients and optimizer moments
+    (``SPMDTechnique.state_bytes``) plus N x the activations of the solo
+    trial (its measured peak less its state) on the device; over
+    ``MEMORY_HEADROOM`` of the card is False (a veto, before any build).
+    None where it cannot tell (no card size, a strategy without a measured
+    peak whose state alone fits), never a veto. A member whose strategy
+    keeps its state in host memory (offload) never fuses: False."""
+    from saturn_tpu_torch.parallel.spmd_base import MEMORY_HEADROOM
+    from saturn_tpu_torch.utils import timing
+
+    def fits(member_tasks, size, n_members):
+        rep = member_tasks[0]
+        strat = rep.feasible_strategies().get(size)
+        tech = getattr(strat, "executor", None)
+        if tech is None or not hasattr(tech, "state_bytes"):
+            return None
+        if getattr(tech, "host_state", False):
+            return False
+        blocks = topo.blocks(size)
+        limit = timing.device_memory_bytes(topo.block_devices(blocks[0])[0]) if blocks else 0
+        if limit <= 0:
+            return None
+        state = tech.state_bytes(rep, dict(strat.params or {}))
+        if n_members * state > MEMORY_HEADROOM * limit:
+            return False
+        if strat.peak_bytes is None:
+            return None
+        act = max(float(strat.peak_bytes) - state, 0.0)
+        return n_members * (state + act) <= MEMORY_HEADROOM * limit
+
+    return fits
+
+
+def _in_group(plan, name: str) -> bool:
+    return any(name in g for g in (plan.coschedule or []) + (plan.fused or []))
 
 
 def _persist_realized(task) -> None:
@@ -254,6 +310,7 @@ def orchestrate(
     resume_dir: Optional[str] = None,
     health_guardian=None,
     crash_barrier=None,
+    fusion: bool = True,
 ) -> dict:
     """Run every task to completion, minimizing batch makespan.
 
@@ -289,6 +346,8 @@ def orchestrate(
     ``resume_dir``, and a resumed run re-applies the journaled quarantine
     skip-lists. ``recovery_policy`` and ``replan_degrade_factor``
     only act under the health monitor, a later item, as in the JAX package.
+    ``fusion=False`` proposes no fusion groups to the solver (the JAX
+    package always does).
 
     Returns ``{"completed": [names], "failed": {name: error string}}``.
     """
@@ -344,7 +403,7 @@ def orchestrate(
                     guardian.restore(recovered.quarantined, recovered.detached, task_list)
             out = _orchestrate_loop(task_list, topo, interval, threshold, tlimit,
                                     failure_policy, max_task_retries, guardian, journal,
-                                    completed, failed)
+                                    completed, failed, fusion)
     except SimulatedKill:
         # a SIGKILL runs no handler: no checkpoint flush, no journal commit
         # or close; what was buffered dies, and the next incarnation recovers
@@ -361,14 +420,25 @@ def orchestrate(
 
 
 def _orchestrate_loop(task_list, topo, interval, threshold, tlimit, failure_policy,
-                      max_task_retries, guardian, journal, completed_names, failed) -> dict:
+                      max_task_retries, guardian, journal, completed_names, failed,
+                      fusion=True) -> dict:
+    from saturn_tpu_torch.parallel import fused
+
     retries: Dict[str, int] = {}
+    gate = _static_fusion_gate(topo)
+
+    def group_args(tasks) -> dict:
+        excluded = guardian.detached_names() if guardian is not None else None
+        return {"coschedule_exclude": excluded,
+                "fusion": _fusion_proposals(tasks) if fusion else None,
+                "fusion_exclude": excluded, "fusion_fits": gate}
+
     if not task_list:  # a resumed run whose journal holds every task terminal
         logger.info("orchestration complete (%d completed, %d failed)",
                     len(completed_names), len(failed))
         return {"completed": completed_names, "failed": failed}
     plan = anytime.anytime_resolve(task_list, topo, None, interval, deadline=tlimit,
-                                   source="orchestrator-initial")
+                                   source="orchestrator-initial", **group_args(task_list))
     analysis.verify_or_raise(plan, topology=topo, tasks=task_list, source="fresh-solve")
     logger.info("initial plan: makespan %.1fs, %d tasks", plan.makespan, len(task_list))
     metrics.event("solve", makespan_s=plan.makespan, n_tasks=len(task_list))
@@ -428,7 +498,8 @@ def _orchestrate_loop(task_list, topo, interval, threshold, tlimit, failure_poli
             remaining = [r for r in remaining if r is not t]
             completed = [c for c in completed if c is not t]
             if guardian is not None and guardian.owns(err):
-                decision = guardian.on_fault(t, err, interval_index)
+                decision = guardian.on_fault(t, err, interval_index,
+                                             in_group=_in_group(plan, name))
                 if journal is not None:
                     # the quarantine record is durable already: a kill here
                     # must find it on replay
@@ -460,7 +531,8 @@ def _orchestrate_loop(task_list, topo, interval, threshold, tlimit, failure_poli
         if task_list:
             plan = _gate_resolved_plan(
                 anytime.anytime_resolve(task_list, topo, plan, interval, threshold,
-                                        deadline=tlimit, source="orchestrator"),
+                                        deadline=tlimit, source="orchestrator",
+                                        **group_args(task_list)),
                 plan, topo, task_list, interval, journal, interval_index,
             )
             logger.info("re-solve: makespan %.1fs", plan.makespan)
@@ -480,6 +552,8 @@ def _orchestrate_loop(task_list, topo, interval, threshold, tlimit, failure_poli
             journal.commit()
         metrics.flush()
         interval_index += 1
+    # the stacked programs' CUDA graphs and pools (their states are gone)
+    fused.release_programs()
     logger.info("orchestration complete (%d completed, %d failed)",
                 len(completed_names), len(failed))
     return {"completed": completed_names, "failed": failed}

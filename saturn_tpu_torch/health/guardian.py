@@ -18,7 +18,12 @@ resets the streak via :meth:`TrainingGuardian.note_success`):
    quarantines the faulting interval's dataset indices — the cursor rolled
    back, so a deterministic bad batch faults again at the same indices and
    the skip-list is exactly the fix;
-3. past ``retry_budget`` (``hung_budget`` for hung dispatches) the task is
+3. a task in a co-schedule or fusion group, at ``detach_after``
+   consecutive faults of any cause, is detached: it leaves its co-schedule
+   group, or gets the ``_fused_detach`` flag (a running stack unfuses it at
+   its next unit boundary, ``parallel/fused.py``), and every later solve
+   keeps it out of both (``detached_names``);
+4. past ``retry_budget`` (``hung_budget`` for hung dispatches) the task is
    evicted through the caller's failure path.
 
 Every transition is a ``health`` metrics event with the JAX package's
@@ -29,9 +34,7 @@ during the rollback that follows must replay it, or the restart faults on
 the same batch again). :meth:`TrainingGuardian.restore` re-applies the
 replayed skip-lists to the rebuilt tasks. Only training faults are the
 guardian's (:meth:`TrainingGuardian.owns`): a kernel that does not build or
-launch is an ordinary failure and reaches the caller. The JAX package also
-detaches repeat offenders from co-schedule groups; the port has no
-co-scheduling yet, so that part waits for it.
+launch is an ordinary failure and reaches the caller.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import logging
 import os
 import threading
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, List, Optional, Tuple
+from typing import Any, Dict, FrozenSet, Iterable, List, Optional, Tuple
 
 from saturn_tpu_torch.health.sentinel import NumericFaultError
 from saturn_tpu_torch.utils import metrics
@@ -53,6 +56,7 @@ HEALTH_EVENT_CODES = {
     "hung_dispatch": "SAT-H002",
     "backoff": "SAT-H003",
     "quarantine": "SAT-H010",
+    "detach": "SAT-H020",
     "evict": "SAT-H030",
 }
 
@@ -92,6 +96,7 @@ class GuardianConfig:
     retry_budget: int = 3        # consecutive numeric faults before evict
     hung_budget: int = 2         # consecutive hung dispatches before evict
     quarantine_after: int = 2    # consecutive data faults before quarantine
+    detach_after: int = 2        # consecutive faults before group detach
     backoff_base: int = 1        # cooldown intervals after the 1st fault
     backoff_cap: int = 8         # cooldown ceiling (intervals)
     watchdog: bool = True
@@ -123,6 +128,7 @@ class FaultDecision:
     attempt: int                      # consecutive fault count for this cause
     cooldown: int = 0                 # backoff, in intervals (retry only)
     quarantined: Tuple[int, ...] = () # dataset indices quarantined just now
+    detached: bool = False            # detached from its group just now
 
 
 class TrainingGuardian:
@@ -139,6 +145,9 @@ class TrainingGuardian:
         self._mu = threading.Lock()
         # (task, cause) -> consecutive faults; cleared by note_success.
         self._streak: Dict[Tuple[str, str], int] = {}
+        # task -> consecutive faults of any cause (drives group detach).
+        self._total: Dict[str, int] = {}
+        self._detached: set = set()
         # task -> first interval index it may run again (backoff parking).
         self._benched: Dict[str, int] = {}
 
@@ -169,15 +178,18 @@ class TrainingGuardian:
         )
 
     # -------------------------------------------------------------- policy
-    def on_fault(self, task: Any, err: BaseException, interval_index: int) -> FaultDecision:
+    def on_fault(self, task: Any, err: BaseException, interval_index: int,
+                 in_group: bool = False) -> FaultDecision:
         """Classify one health fault and decide retry/evict. The caller has
         already rolled the task back (``release_live_state`` +
-        ``rollback_forecast``); this only changes policy state and the
-        task's quarantine skip-list."""
+        ``rollback_forecast``); this only changes policy state, the task's
+        quarantine skip-list and, for a task of a co-schedule or fusion
+        group (``in_group``), its detach."""
         cause = self.cause_of(err)
         key = (task.name, cause)
         with self._mu:
             streak = self._streak[key] = self._streak.get(key, 0) + 1
+            total = self._total[task.name] = self._total.get(task.name, 0) + 1
         code = HEALTH_EVENT_CODES.get(
             "hung_dispatch" if cause == CAUSE_HUNG else "numeric_fault"
         )
@@ -196,6 +208,10 @@ class TrainingGuardian:
         ):
             quarantined = self.quarantine(task, err.batch_indices)
 
+        detached = False
+        if in_group and task.name not in self._detached and total >= self.config.detach_after:
+            self.detach(task)
+            detached = True
 
         budget = (
             self.config.hung_budget if cause == CAUSE_HUNG
@@ -211,7 +227,7 @@ class TrainingGuardian:
                 task.name, streak, cause,
             )
             return FaultDecision("evict", cause=cause, attempt=streak,
-                                 quarantined=quarantined)
+                                 quarantined=quarantined, detached=detached)
 
         cooldown = min(
             self.config.backoff_cap,
@@ -228,18 +244,38 @@ class TrainingGuardian:
                       cooldown_intervals=cooldown, resume_interval=resume_at)
         logger.warning(
             "guardian: %s fault #%d on %s — rolled back, retrying after "
-            "%d-interval backoff%s", cause, streak, task.name, cooldown,
+            "%d-interval backoff%s%s", cause, streak, task.name, cooldown,
             f", quarantined batches {list(quarantined)}" if quarantined else "",
+            ", detached from its group" if detached else "",
         )
         return FaultDecision("retry", cause=cause, attempt=streak, cooldown=cooldown,
-                             quarantined=quarantined)
+                             quarantined=quarantined, detached=detached)
 
     def note_success(self, name: str) -> None:
         """A clean interval resets the consecutive-fault ledgers (the
-        quarantine persists — a correction, not a penalty)."""
+        quarantine and the detach persist — corrections, not penalties)."""
         with self._mu:
+            self._total.pop(name, None)
             for key in [k for k in self._streak if k[0] == name]:
                 del self._streak[key]
+
+    # --------------------------------------------------------------- detach
+    def detach(self, task: Any) -> None:
+        """Keep the task out of co-schedule and fusion groups at every later
+        solve, and flag it (``_fused_detach``) so that a stack running it
+        unfuses it at its next unit boundary. Journaled with an immediate
+        commit (``health_detach``). ``task`` is a task or its name."""
+        name = getattr(task, "name", task)
+        if not isinstance(task, str):
+            task._fused_detach = True
+        with self._mu:
+            self._detached.add(name)
+        metrics.event("health", code=HEALTH_EVENT_CODES["detach"], task=name)
+        self._journal("health_detach", durable=True, task=name)
+
+    def detached_names(self) -> FrozenSet[str]:
+        with self._mu:
+            return frozenset(self._detached)
 
     # ---------------------------------------------------------- quarantine
     def quarantine(self, task: Any, indices: Iterable[int]) -> Tuple[int, ...]:
@@ -286,10 +322,10 @@ class TrainingGuardian:
     def restore(self, quarantined: Dict[str, List[int]], detached: Iterable[str],
                 tasks: Iterable[Any] = ()) -> None:
         """Re-apply journaled health state after a crash: the quarantine
-        skip-lists onto the rebuilt tasks. ``detached`` (the JAX package's
-        co-schedule detach set) has no reader until the port co-schedules.
-        Streaks and backoffs start over, as in the JAX package: an
-        incarnation boundary is a clean slate for counting faults."""
+        skip-lists onto the rebuilt tasks, the detach set onto the guardian
+        (and the ``_fused_detach`` flag onto its tasks). Streaks and
+        backoffs start over, as in the JAX package: an incarnation boundary
+        is a clean slate for counting faults."""
         by_name = {t.name: t for t in tasks}
         for name, idx in (quarantined or {}).items():
             t = by_name.get(name)
@@ -297,6 +333,11 @@ class TrainingGuardian:
                 t.quarantine_batches(idx)
                 logger.info("recovery: re-applied the quarantine of %d batch(es) to %s",
                             len(idx), name)
+        with self._mu:
+            self._detached.update(detached or ())
+        for name in detached or ():
+            if name in by_name:
+                by_name[name]._fused_detach = True
 
     def _journal(self, kind: str, durable: bool = False, **data) -> None:
         if self.journal is None:

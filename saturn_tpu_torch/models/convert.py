@@ -60,3 +60,21 @@ def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         for mod, leaves in stacked.items()
     }
     return tree
+
+
+def stacked_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The JAX package's fused stack of params (``saturn_tpu.parallel.fused``:
+    every leaf with a leading model axis, (M, ...)) -> the port's stacked
+    ``state_dict`` (``parallel/fused.py``: the solo names, every tensor
+    (M, ...)), member by member through :func:`params_from_jax`."""
+    node = tree
+    while isinstance(node, Mapping):
+        node = next(iter(node.values()))
+    n = int(np.shape(node)[0])
+
+    def member(node, i):
+        return {k: member(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
+                for k, v in node.items()}
+
+    members = [params_from_jax(member(tree, i)) for i in range(n)]
+    return {k: torch.stack([m[k] for m in members]) for k in members[0]}

@@ -243,6 +243,43 @@ def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
 
 
+def _attend(cfg: GPT2Config, qkv: torch.Tensor) -> torch.Tensor:
+    """Attention of a (B, T, D + 2 kv) qkv projection, before the output
+    projection: (B, T, D) in the compute dtype."""
+    dt = cfg.dtype
+    B, T, _ = qkv.shape
+    D, hd, kvh = cfg.d_model, cfg.head_dim, cfg.kv_heads
+    q, k, v = qkv.split([D, kvh * hd, kvh * hd], dim=-1)
+
+    def heads(t, n):
+        return t.reshape(B, T, n, hd).transpose(1, 2)
+
+    q, k, v = heads(q, cfg.n_heads), heads(k, kvh), heads(v, kvh)
+    if cfg.rotary:
+        rd = cfg.rotary_dim or hd
+        sin, cos = rotary_sin_cos(torch.arange(T, device=qkv.device), rd)
+        q = apply_rotary(q, sin, cos, rd)
+        k = apply_rotary(k, sin, cos, rd)
+    if cfg.attention == "flash":
+        from saturn_tpu_torch.ops.flash import flash_attention
+
+        # grouped k/v go to the kernels as they are
+        attn = flash_attention(q, k, v, causal=cfg.causal)
+    else:
+        if kvh != cfg.n_heads:
+            rep = cfg.n_heads // kvh
+            k = k.repeat_interleave(rep, dim=1)
+            v = v.repeat_interleave(rep, dim=1)
+        # bf16 products, fp32 softmax
+        scores = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(hd)
+        if cfg.causal:
+            mask = torch.ones(T, T, dtype=torch.bool, device=qkv.device).tril()
+            scores = scores.masked_fill(~mask, -1e30)
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        attn = torch.matmul(probs, v)
+    return attn.transpose(1, 2).reshape(B, T, D)
+
+
 class Block(nn.Module):
     """Pre-LN transformer block: sequential GPT-2 wiring (ln_1 -> attn,
     ln_2 -> mlp) or, with ``parallel_residual``, GPT-J's (one norm, attention
@@ -265,40 +302,8 @@ class Block(nn.Module):
             self.ln_2 = _norm(cfg)
 
     def attention(self, h: torch.Tensor) -> torch.Tensor:
-        cfg, dt = self.cfg, self.cfg.dtype
-        B, T, D = h.shape
-        hd, kvh = cfg.head_dim, cfg.kv_heads
-        qkv = _dense(self.qkv, h, dt)
-        q, k, v = qkv.split([D, kvh * hd, kvh * hd], dim=-1)
-
-        def heads(t, n):
-            return t.reshape(B, T, n, hd).transpose(1, 2)
-
-        q, k, v = heads(q, cfg.n_heads), heads(k, kvh), heads(v, kvh)
-        if cfg.rotary:
-            rd = cfg.rotary_dim or hd
-            sin, cos = rotary_sin_cos(torch.arange(T, device=h.device), rd)
-            q = apply_rotary(q, sin, cos, rd)
-            k = apply_rotary(k, sin, cos, rd)
-        if cfg.attention == "flash":
-            from saturn_tpu_torch.ops.flash import flash_attention
-
-            # grouped k/v go to the kernels as they are
-            attn = flash_attention(q, k, v, causal=cfg.causal)
-        else:
-            if kvh != cfg.n_heads:
-                rep = cfg.n_heads // kvh
-                k = k.repeat_interleave(rep, dim=1)
-                v = v.repeat_interleave(rep, dim=1)
-            # bf16 products, fp32 softmax
-            scores = torch.matmul(q, k.transpose(-1, -2)).float() / math.sqrt(hd)
-            if cfg.causal:
-                mask = torch.ones(T, T, dtype=torch.bool, device=h.device).tril()
-                scores = scores.masked_fill(~mask, -1e30)
-            probs = torch.softmax(scores, dim=-1).to(dt)
-            attn = torch.matmul(probs, v)
-        attn = attn.transpose(1, 2).reshape(B, T, D)
-        return _dense(self.attn_out, attn, dt)
+        dt = self.cfg.dtype
+        return _dense(self.attn_out, _attend(self.cfg, _dense(self.qkv, h, dt)), dt)
 
     def mlp(self, h: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
@@ -379,6 +384,99 @@ class GPT2(nn.Module):
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.head(self.hidden(tokens))
+
+
+# ------------------------------------------------------------------ stacked
+# The stacked forward of ``parallel/fused.py``: M members of one config whose
+# parameters are stacked on a leading member axis (a ``GPT2`` whose every
+# parameter is (M, *shape), ``stacked_model``), run as one program. The
+# dense products are batched over the member axis (``torch.baddbmm``, one
+# product for all members), norms, GELU and embeddings broadcast over it, and
+# attention takes the members folded into its batch, (M * B, H, T, D): the
+# flash kernels compute each row on its own, so one launch serves every
+# member. The fused CE head runs once per member, each on its own W and at
+# the member's own N = B * T, so ``ce.auto_stash`` picks the solo mode.
+
+
+def stacked_model(cfg: GPT2Config, n: int, device) -> "GPT2":
+    """A ``GPT2`` of ``cfg`` whose every parameter is an uninitialised
+    (n, *shape) tensor on ``device``: the solo names, stacked shapes."""
+    with torch.device("meta"):
+        model = GPT2(cfg)
+    for mod in model.modules():
+        for pname, p in list(mod.named_parameters(recurse=False)):
+            setattr(mod, pname, nn.Parameter(
+                torch.empty((int(n), *p.shape), dtype=p.dtype, device=device)))
+    return model
+
+
+def _stacked_norm(mod: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``LayerNorm`` / ``RMSNorm`` of (M, ..., D) with (M, D) parameters,
+    the solo numerics per member."""
+    xf = x.float()
+    shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+    scale = mod.scale.float().view(shape)
+    if isinstance(mod, RMSNorm):
+        ms = (xf * xf).mean(-1, keepdim=True)
+        return (xf * (torch.rsqrt(ms + NORM_EPS) * scale)).to(mod.dtype)
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    y = (xf - mu) * (torch.rsqrt(var + NORM_EPS) * scale)
+    return (y + mod.bias.float().view(shape)).to(mod.dtype)
+
+
+def _stacked_dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``_dense`` of (M, B, T, in) with (M, out, in) weights: one batched
+    product over the member axis, bias added inside it as ``F.linear``
+    adds it."""
+    M, B, T, _ = x.shape
+    w, b = layer.weight.to(dtype), layer.bias.to(dtype)
+    y = torch.baddbmm(b.unsqueeze(1), x.reshape(M, B * T, -1).to(dtype), w.transpose(1, 2))
+    return y.reshape(M, B, T, -1)
+
+
+def _stacked_block(blk: Block, x: torch.Tensor) -> torch.Tensor:
+    cfg, dt = blk.cfg, blk.cfg.dtype
+    M, B, T, D = x.shape
+
+    def attention(h):
+        qkv = _stacked_dense(blk.qkv, h, dt)
+        attn = _attend(cfg, qkv.reshape(M * B, T, -1)).reshape(M, B, T, D)
+        return _stacked_dense(blk.attn_out, attn, dt)
+
+    def mlp(h):
+        if cfg.mlp_act == "swiglu":
+            m = F.silu(_stacked_dense(blk.mlp_gate, h, dt)) * _stacked_dense(blk.mlp_in, h, dt)
+        else:
+            m = F.gelu(_stacked_dense(blk.mlp_in, h, dt), approximate="tanh")
+        return _stacked_dense(blk.mlp_out, m, dt)
+
+    h = _stacked_norm(blk.ln_1, x)
+    if cfg.parallel_residual:
+        return x + attention(h) + mlp(h)
+    x = x + attention(h)
+    return x + mlp(_stacked_norm(blk.ln_2, x))
+
+
+def stacked_hidden(model: "GPT2", tokens: torch.Tensor) -> torch.Tensor:
+    """Final hidden states (after ln_f) of (M, B, T) tokens through a
+    ``stacked_model``: (M, B, T, D) in the compute dtype."""
+    cfg = model.cfg
+    M, _, T = tokens.shape
+    V = model.wte.shape[1]
+    offsets = (torch.arange(M, device=tokens.device) * V).view(M, 1, 1)
+    x = F.embedding(tokens.long() + offsets, model.wte.reshape(M * V, -1)).to(cfg.dtype)
+    if not cfg.rotary:
+        x = x + model.wpe[:, :T].to(cfg.dtype).unsqueeze(1)
+    for blk in model.blocks:
+        if cfg.remat and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            x = checkpoint(_stacked_block, blk, x, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _stacked_block(blk, x)
+    return _stacked_norm(model.ln_f, x)
 
 
 def build_gpt2(name: str = "gpt2-small", pretrained: Any = None, **overrides) -> ModelSpec:
@@ -491,6 +589,26 @@ def spec_for(cfg: GPT2Config, *, inputs_fn=None, labels_fn=None,
     def pipeline_head(other: GPT2, x: torch.Tensor) -> torch.Tensor:
         return other.head(other.ln_f(x))
 
+    def stacked_loss_fn(model: GPT2, tokens: torch.Tensor, loss_fn=None) -> torch.Tensor:
+        """(M,) per-member losses of (M, B, T) tokens through a
+        ``stacked_model``: the fused head + loss on each member (``loss_fn``
+        None, where ``fused_loss_fn`` is set), else ``loss_fn`` over each
+        member's logits."""
+        M, B, T = tokens.shape
+        inputs = inputs_fn(tokens.reshape(M * B, T)).reshape(M, B, T)
+        h = stacked_hidden(model, inputs)
+        heads = model.wte.unbind(0)  # one gradient for all members (stack)
+        if loss_fn is None:
+            from saturn_tpu_torch.ops.ce import fused_linear_cross_entropy
+
+            labels = labels_fn(tokens.reshape(M * B, T)).reshape(M, B, T)
+            losses = [fused_linear_cross_entropy(h[m], heads[m], labels[m])
+                      for m in range(M)]
+        else:
+            losses = [loss_fn(F.linear(h[m], heads[m].to(cfg.dtype)).float(), tokens[m])
+                      for m in range(M)]
+        return torch.stack(losses)
+
     fused_loss_fn = fused_loss_parts_fn = None
     if labels_fn is not None and fused_head_ok(cfg):
         # Fused head + loss (ops/ce.py): the hidden states and the f32 tied
@@ -532,6 +650,8 @@ def spec_for(cfg: GPT2Config, *, inputs_fn=None, labels_fn=None,
         hidden_fn=hidden_fn,
         meta_init_fn=meta_init_fn,
         fill_fn=fill_fn,
+        stacked_model_fn=lambda n, device: stacked_model(cfg, n, device),
+        stacked_loss_fn=stacked_loss_fn,
     )
 
 

@@ -423,6 +423,9 @@ class HostOffload(SPMDTechnique):
     name = "offload"
     technique = Techniques.OFFLOAD
     host_state = True
+    # one eager step at a time with host copies inside: run sequentially in
+    # a co-schedule group
+    supports_coschedule = False
     # a GPT-J-6B step at 24 layers takes 2.4-4.1 s on an H100's host (PERF.md
     # section 5): one warm-up and two timed steps keep its three trials near 30 s
     trial_steps = (1, 2)

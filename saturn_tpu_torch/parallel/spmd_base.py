@@ -20,9 +20,11 @@ K-step window is the counterpart of the JAX package's ``lax.scan`` program:
 on the card a CUDA graph of K train steps, captured once per (bundle, K) and
 replayed with one host call; on the CPU the plain version, K eager steps.
 The tail runs through a window of one step. Trials time the window that
-``execute`` dispatches. The co-scheduled ``shared`` mode and multi-device
-meshes are later items. The train step updates the model and the optimizer
-in place (PyTorch's idiom; it keeps one copy of the state).
+``execute`` dispatches. ``execute`` drains ``interval_dispatches``, a
+generator of the unit dispatches that the engine's co-schedule launcher
+interleaves with another task's (``shared`` mode). Multi-device meshes are
+a later item. The train step updates the model and the optimizer in place
+(PyTorch's idiom; it keeps one copy of the state).
 """
 
 from __future__ import annotations
@@ -108,20 +110,18 @@ def _side_stream(role: str, device: torch.device):
         return s
 
 
-def stage_tokens(host, device) -> torch.Tensor:
-    """A host int array (``(B, T)`` or ``(K, B, T)``) on ``device`` as int64
-    token ids, ready for kernels on the current stream.
+def stage_async(host, device) -> Tuple[torch.Tensor, Any]:
+    """Start staging a host int array (``(B, T)`` or ``(K, B, T)``) on
+    ``device`` as int64 token ids: ``(tensor, event)``, where the event
+    (None on the CPU, where the tensor is ready) completes with the copy.
 
     On the card the array goes through pinned host memory and a
     ``non_blocking`` copy on the copy stream, so the copy runs beside the
-    work already queued; the current stream waits on an event recorded
-    after the copy, and ``record_stream`` keeps the caching allocator from
-    reusing the tensor before that stream's kernels have read it. Nothing
-    synchronizes the host. On the CPU it is the host array as a tensor."""
+    work already queued. ``ready`` makes a stream wait for it."""
     device = torch.device(device)
     src = torch.from_numpy(np.ascontiguousarray(host))
     if device.type != "cuda":
-        return src.to(device, torch.long)
+        return src.to(device, torch.long), None
     pinned = torch.empty(src.shape, dtype=torch.long, pin_memory=True)
     pinned.copy_(src)
     copy = _side_stream("copy", device)
@@ -130,10 +130,37 @@ def stage_tokens(host, device) -> torch.Tensor:
         out.copy_(pinned, non_blocking=True)
         done = torch.cuda.Event()
         done.record(copy)
-    current = torch.cuda.current_stream(device)
+    return out, done
+
+
+def ready(staged: torch.Tensor, done: Any) -> torch.Tensor:
+    """A staged tensor ready for kernels on the current stream: the stream
+    waits on the copy's event, and ``record_stream`` keeps the caching
+    allocator from reusing the tensor before that stream's kernels have
+    read it. Nothing synchronizes the host."""
+    if done is None:
+        return staged
+    current = torch.cuda.current_stream(staged.device)
     current.wait_event(done)
-    out.record_stream(current)
-    return out
+    staged.record_stream(current)
+    return staged
+
+
+def stage_tokens(host, device) -> torch.Tensor:
+    """A host int array (``(B, T)`` or ``(K, B, T)``) on ``device`` as int64
+    token ids, ready for kernels on the current stream (``stage_async``
+    then ``ready``). On the CPU it is the host array as a tensor."""
+    return ready(*stage_async(host, device))
+
+
+def host_fraction(t_host: float, t_device: float) -> float:
+    """Fraction of one steady-state batch spent staging it on the host: the
+    staging seconds against staging plus the device's per-batch time (the
+    JAX package's ``_host_fraction``). Above 0.5 a job is stage-bound, and
+    a compute-bound neighbour's windows can fill its device's idle time."""
+    t_host, t_device = max(0.0, float(t_host)), max(0.0, float(t_device))
+    total = t_host + t_device
+    return 0.0 if total <= 0.0 else t_host / total
 
 
 # ----------------------------------------------------------------- windows
@@ -152,17 +179,20 @@ def _state_key(state: Dict[str, Any]) -> Tuple[int, ...]:
 class _PlainWindow:
     """A window's plain version, for a state on the CPU: K eager steps."""
 
-    def __init__(self, step: Callable, k: int):
-        self.step, self.k = step, k
+    def __init__(self, step: Callable, k: int, loss_shape: Tuple[int, ...] = ()):
+        self.step, self.k, self.loss_shape = step, k, tuple(loss_shape)
 
     def captured_on(self, state) -> bool:
         return True  # nothing to capture
+
+    def capture(self, state, shape) -> None:
+        pass
 
     def __call__(self, state, window: torch.Tensor):
         losses = []
         for j in range(self.k):
             state, loss = self.step(state, window[j])
-            losses.append(loss.reshape(()))
+            losses.append(loss.reshape(self.loss_shape))
         return state, torch.stack(losses).float()
 
     def release(self) -> None:
@@ -173,9 +203,11 @@ class _GraphWindow:
     """K train steps (forward, backward, optimizer step, zero-grad) captured
     as one CUDA graph, replayed with one host call.
 
-    Step j reads slice j of a static (K, B, T) buffer and writes its loss
-    to slot j of a static (K,) buffer. Before each replay the staged window
-    is copied into the static buffer on the current stream, after the
+    Step j reads slice j of a static (K, B, T) buffer (a fused stack's
+    (K, M, B, T)) and writes its loss to slot j of a static (K,) buffer
+    ((K, M) for a stack's per-member losses, ``loss_shape``). Before each
+    replay the staged window is copied into the static buffer on the
+    current stream, after the
     previous replay has read it (a device copy of K·B·T int64). The graph is
     keyed to the addresses of the state it captured (``_state_key``): on
     any other state, or after a restore into this one, it is captured anew.
@@ -186,8 +218,10 @@ class _GraphWindow:
     first step; capture may not allocate them lazily): ``execute`` runs an
     eager step first on a state no window of its bundle has captured."""
 
-    def __init__(self, step: Callable, k: int, device: torch.device, pool):
+    def __init__(self, step: Callable, k: int, device: torch.device, pool,
+                 loss_shape: Tuple[int, ...] = ()):
         self.step, self.k, self.device, self.pool = step, k, device, pool
+        self.loss_shape = tuple(loss_shape)
         self.graph = None
         self.key: Optional[Tuple[int, ...]] = None
         self.static: Optional[torch.Tensor] = None
@@ -201,7 +235,8 @@ class _GraphWindow:
         """Capture the K steps on ``state`` for windows of ``shape``."""
         self.release()
         self.static = torch.zeros(tuple(shape), dtype=torch.long, device=self.device)
-        self.losses = torch.zeros(self.k, dtype=torch.float32, device=self.device)
+        self.losses = torch.zeros((self.k, *self.loss_shape), dtype=torch.float32,
+                                  device=self.device)
         graph = torch.cuda.CUDAGraph()
         stream = _side_stream("capture", self.device)
         stream.wait_stream(torch.cuda.current_stream(self.device))
@@ -214,7 +249,7 @@ class _GraphWindow:
                                       capture_error_mode="thread_local"):
                     for j in range(self.k):
                         _, loss = self.step(state, self.static[j])
-                        self.losses[j].copy_(loss.reshape(()))
+                        self.losses[j].copy_(loss.reshape(self.loss_shape))
         finally:
             state["step"] = step0
         self.graph, self.recorded, self.key = graph, recorded, _state_key(state)
@@ -235,6 +270,10 @@ class _GraphWindow:
         self.recorded = []
 
 
+def _config_key(config: Dict[str, Any]) -> Tuple:
+    return tuple(sorted(config.items()))
+
+
 @dataclass
 class _Bundle:
     """Everything needed to run one (task, device, config) combination,
@@ -244,6 +283,8 @@ class _Bundle:
     init: Callable[[], Dict[str, Any]]          # fresh state, seeded init
     empty: Callable[[], Dict[str, Any]]         # state to restore into
     step: Callable[[Dict[str, Any], torch.Tensor], Tuple[Dict[str, Any], torch.Tensor]]
+    # shape of one step's loss: () solo, (M,) for a fused stack of M
+    loss_shape: Tuple[int, ...] = ()
     _windows: Dict[int, Any] = field(default_factory=dict)
     _pool: Any = None
     _lock: Any = field(default_factory=threading.Lock)
@@ -283,9 +324,10 @@ class _Bundle:
                 if self.device.type == "cuda":
                     if self._pool is None:
                         self._pool = torch.cuda.graph_pool_handle()
-                    win = _GraphWindow(self.step, k, self.device, self._pool)
+                    win = _GraphWindow(self.step, k, self.device, self._pool,
+                                       self.loss_shape)
                 else:
-                    win = _PlainWindow(self.step, k)
+                    win = _PlainWindow(self.step, k, self.loss_shape)
                 self._windows[k] = win
             return win
 
@@ -342,6 +384,12 @@ class SPMDTechnique(BaseTechnique):
         self._bundles: Dict[Any, _Bundle] = {}
         self._bundles_lock = threading.Lock()
         self._eager_noted: set = set()
+        # what the trial of each (task, config) measured beside its time:
+        # the host fraction and the peak device memory
+        self._trial_extra: Dict[Any, Dict[str, float]] = {}
+        # the winning config's measurements of each (task, size) search,
+        # popped by the trial runner (``trial_report``)
+        self._reports: Dict[Any, Dict[str, float]] = {}
 
     # ----------------------------------------------------------------- hooks
     def candidate_configs(self, task: Any, n_devices: int) -> List[Dict[str, Any]]:
@@ -578,7 +626,18 @@ class SPMDTechnique(BaseTechnique):
                      task.name, t)
             if best[1] is None or t < best[1]:
                 best = (dict(config), t)
+                self._reports[(task.name, len(devices))] = dict(
+                    self._trial_extra.get((task.name, _config_key(config)), {}))
         return best
+
+    def trial_report(self, task_name: str, size: int) -> Dict[str, float]:
+        """Pop what the latest ``search`` of (task, size) measured of its
+        winning config beside its time: ``host_fraction`` (the staging
+        seconds of a batch against staging plus the device's per-batch
+        time) and ``peak_bytes`` (the trial's peak device memory). Empty
+        when no feasible search ran (the JAX package's pop-once
+        ``host_fraction_report``)."""
+        return self._reports.pop((task_name, int(size)), {})
 
     def state_bytes(self, task: Any, config: Dict[str, Any]) -> int:
         """Bytes of the train state a device-resident config keeps on the
@@ -626,7 +685,12 @@ class SPMDTechnique(BaseTechnique):
         timed region. The peak memory is taken over the same program, the
         graph's pool included; the trial's graph and pool are freed after.
         With K = 1: ``trial_steps`` single steps through
-        ``timing.time_train_step``. The state is ``_trial_state``'s."""
+        ``timing.time_train_step``. The state is ``_trial_state``'s.
+
+        Beside the time it measures the host fraction (``host_fraction``:
+        staging one unit's batches, synchronized, outside the timed region,
+        the least of three, per batch, against the per-batch time) and
+        keeps it and the peak memory for ``trial_report``."""
         bundle = self.build(task, devices, config)
         dev = bundle.device
         k = self._window(task)
@@ -647,9 +711,14 @@ class SPMDTechnique(BaseTechnique):
             else:
                 batch = bundle.stage(task.batch_at(0))
                 warm, timed = self.trial_steps
+
+                def stage(j: int) -> torch.Tensor:
+                    return bundle.stage(task.batch_at(j))
+
                 t = timing.time_train_step(bundle.step, state, batch, n_timed=timed,
                                            n_warmup=warm)
             peak = timing.peak_memory_bytes(dev)
+            t_host = min(self._staging_s(stage, dev) for _ in range(3)) / k
         except torch.cuda.OutOfMemoryError as e:
             log.info("%s: config %s ran out of device memory", self.name, config)
             # the failed step's frames hold its device tensors
@@ -665,9 +734,25 @@ class SPMDTechnique(BaseTechnique):
             log.info("%s: config %s peaked at %.2f GiB of %.2f GiB — infeasible",
                      self.name, config, peak / 2**30, limit / 2**30)
             return None
+        self._trial_extra[(task.name, _config_key(config))] = {
+            "host_fraction": host_fraction(t_host, t), "peak_bytes": float(peak)}
         return t
 
+    @staticmethod
+    def _staging_s(stage: Callable[[int], torch.Tensor], dev: torch.device) -> float:
+        """Seconds to stage one unit's batches on the device, synchronized."""
+        timing.synchronize(dev)
+        t0 = timeit.default_timer()
+        probe = stage(0)
+        timing.synchronize(dev)
+        del probe
+        return timeit.default_timer() - t0
+
     # --------------------------------------------------------------- execute
+    #: ``execute`` is a drain of ``interval_dispatches``, which the engine's
+    #: co-schedule launcher can interleave with another member's
+    supports_coschedule = True
+
     def execute(
         self,
         task: Any,
@@ -676,8 +761,30 @@ class SPMDTechnique(BaseTechnique):
         override_batch_count: Optional[int] = None,
         window_size: Optional[int] = None,
     ) -> None:
-        """Run one interval of ``n`` batches (the JAX package's
-        ``interval_dispatches`` on one device, without its ``shared`` mode).
+        """Run one interval of ``n`` batches (the JAX package's ``execute``
+        on one device): a full drain of :meth:`interval_dispatches`, so the
+        solo and the co-scheduled paths dispatch the same units in the same
+        order."""
+        for _ in self.interval_dispatches(task, devices, tid, override_batch_count,
+                                          window_size):
+            pass
+
+    def interval_dispatches(
+        self,
+        task: Any,
+        devices: Sequence[Any],
+        tid: int,
+        override_batch_count: Optional[int] = None,
+        window_size: Optional[int] = None,
+        shared: bool = False,
+    ):
+        """One interval as a generator of its unit dispatches (the JAX
+        package's ``interval_dispatches``). It yields ``("waiting", u)``
+        (shared mode only) while unit ``u``'s staged batch is still being
+        copied, ``("dispatched", u)`` once unit ``u`` is enqueued on the
+        device, and ``("drain", n_units)`` once every unit is; resuming past
+        the drain reads the losses back, screens them, publishes the
+        interval and writes the checkpoint.
 
         The state is the task's live state when the previous interval ran
         this bundle, else the checkpoint (the data cursor follows its step
@@ -697,7 +804,15 @@ class SPMDTechnique(BaseTechnique):
         raises ``NumericFaultError`` before anything is published. A launch
         the engine's watchdog abandoned (``task._abandoned`` set) publishes
         nothing. Otherwise the interval ends with ``checkpoint.save_async``
-        and the state kept live."""
+        and the state kept live.
+
+        ``shared=True`` is the co-schedule mode: the staging copy's event is
+        polled (``torch.cuda.Event.query``, where the JAX package asks its
+        prefetcher's ``try_next``) instead of waited on, the first unit is
+        not fenced, and the realized per-batch time is left to the engine's
+        group launcher (``task.last_per_batch_s`` stays as it was). The
+        device-side dispatch order is the solo path's, so each member's
+        losses and checkpoints equal its solo run's."""
         # set by the engine's watchdog when it abandons this launch
         abandoned = getattr(task, "_abandoned", None)
         config = dict(task.selected_strategy.params or {})
@@ -731,19 +846,24 @@ class SPMDTechnique(BaseTechnique):
         sizes = sorted({size for kind, _, size in units if kind == "window"}, reverse=True)
         start = task.current_batch
 
-        def stage(kind: str, off: int, size: int) -> torch.Tensor:
+        def stage(kind: str, off: int, size: int):
             if kind == "window":
                 host = np.stack([task.batch_at(start + off + j) for j in range(size)])
             else:
                 host = task.batch_at(start + off)
-            return stage_tokens(host, bundle.device)
+            return stage_async(host, bundle.device)
 
         unit_losses: List[torch.Tensor] = []
         capture_s = None
         t_all0 = t_steady = timeit.default_timer()
         state_s = t_all0 - t_begin
         for u, (kind, off, size) in enumerate(units):
-            batch = stage(kind, off, size)
+            staged, done = stage(kind, off, size)
+            if shared and done is not None:
+                while not done.query():
+                    yield ("waiting", u)
+            batch = ready(staged, done)
+            del staged
             if kind == "warm":
                 state, loss = bundle.warm_step(state, batch)
             if u == 0 and sizes:
@@ -755,18 +875,20 @@ class SPMDTechnique(BaseTechnique):
             elif kind == "step":
                 state, loss = bundle.step(state, batch)
             unit_losses.append(loss.reshape(-1))
-            if u == 0 and len(units) > 1:
+            if u == 0 and len(units) > 1 and not shared:
                 # the first unit pays one-time costs (and the captures):
                 # keep it out of the realized time
                 timing.synchronize(bundle.device)
                 t_steady = timeit.default_timer()
+            yield ("dispatched", u)
+        yield ("drain", len(units))
 
         n_windows = sum(kind == "window" and size == k for kind, _, size in units)
         warm = bool(units) and units[0][0] == "warm"
         record = {"task": task.name, "config": config, "n": n, "k": k,
                   "windows": n_windows, "tail": n - int(warm) - n_windows * k,
                   "warm": warm, "capture_s": capture_s,
-                  "restored": restored, "per_batch_s": None,
+                  "restored": restored, "per_batch_s": None, "shared": shared,
                   # host seconds: getting the state (live, restore or
                   # init), the units up to the loss readback, the
                   # checkpoint's host copy (and the wait for the path's
@@ -795,18 +917,20 @@ class SPMDTechnique(BaseTechnique):
             task._sentinel_carry = carry
         if losses is not None:
             task.last_losses = losses.tolist()
-            if len(units) > 1:
-                per_batch = (t_end - t_steady) / max(n - units[0][2], 1)
-            else:
-                per_batch = (t_end - t_all0) / max(n, 1)
-            task.last_per_batch_s = per_batch
-            task.note_realized_per_batch(per_batch)
-            record["per_batch_s"] = per_batch
-            log.info("task %s [%s]: ran %d batches (K=%d, %d windows, tail %d%s%s), "
-                     "loss %.4f, %.4fs/batch", task.name, self.name, n, k, n_windows,
+            if not shared:
+                if len(units) > 1:
+                    per_batch = (t_end - t_steady) / max(n - units[0][2], 1)
+                else:
+                    per_batch = (t_end - t_all0) / max(n, 1)
+                task.last_per_batch_s = per_batch
+                task.note_realized_per_batch(per_batch)
+                record["per_batch_s"] = per_batch
+            log.info("task %s [%s]: ran %d batches (K=%d, %d windows, tail %d%s%s%s), "
+                     "loss %.4f%s", task.name, self.name, n, k, n_windows,
                      record["tail"], ", eager warm-up step" if warm else "",
                      ", restored from the checkpoint" if restored else "",
-                     task.last_losses[-1], per_batch)
+                     ", co-scheduled" if shared else "", task.last_losses[-1],
+                     "" if shared else f", {record['per_batch_s']:.4f}s/batch")
         t_save = timeit.default_timer()
         record["run_s"] = t_save - t_all0
         ckpt.save_async(task.ckpt_path, state, snapshot=not self.host_state)

@@ -16,15 +16,17 @@ simulation keeps that contract:
   ``post-rollback`` (a faulted task was rolled back, its quarantine record
   is durable); the checkpoint writer's ``pre-manifest-rename`` (the file
   is written, the rename that publishes it is not done), crossed by the
-  synchronous ``checkpoint.save`` only;
+  synchronous ``checkpoint.save`` only; the fused stack's ``fused.unfuse``
+  (``parallel/fused.py``: a member is sliced out, its checkpoint not yet
+  written), through ``checkpoint.set_crash_barrier``;
 - ``CrashInjector("mid-fsync", hit=2)`` fires on exactly the second armed
   crossing of that barrier; :meth:`CrashInjector.seeded` draws the point
   and hit from a seed.
 
 ``KILL_POINTS`` keeps the JAX package's names, those of components the port
-does not have yet included (the sharded writer's ``mid-shard-write``, fused
-stacking, defragmentation waves): an injector armed at one of them never
-fires in the port.
+does not have yet included (the sharded writer's ``mid-shard-write``,
+defragmentation waves): an injector armed at one of them never fires in the
+port.
 """
 
 from __future__ import annotations

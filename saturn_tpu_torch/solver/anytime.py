@@ -34,8 +34,14 @@ guarantee, linear size.
 
 ``anytime_resolve`` keeps the compare-and-swap contract of the JAX
 package's ``milp.resolve`` and emits one ``solver_tier`` metrics event per call (tier chosen, wall
-time, deadline, job count, quality estimate). The JAX package's priority
-``weights``, co-schedule exclusions and fusion groups are later items.
+time, deadline, job count, quality estimate). Fusion groups are priced and
+collapsed once, before the ladder (``milp.fusion_reduce``): every tier
+places a winning group as one pseudo-task, and the adopted plan is expanded
+(``milp.fusion_expand``). Co-schedule groups come from the exact MILP only
+(tier 1 at one partition), and ``coschedule_exclude`` reaches it; a slid
+plan keeps the groups whose members all remain, and a group holding an
+excluded member makes the fresh plan win. The JAX package's priority
+``weights`` serve its online service (ROADMAP queue 1 item 8).
 
 Operator knobs (environment, the JAX package's names):
 
@@ -108,13 +114,18 @@ class AnytimeReport:
 # the frontier: O(block size) placement for large plans
 # ---------------------------------------------------------------------------
 
-def chain_dependencies(assignments: Dict[str, Assignment]) -> Dict[str, List[str]]:
+def chain_dependencies(assignments: Dict[str, Assignment],
+                       coschedule: Optional[List[List[str]]] = None,
+                       fused: Optional[List[List[str]]] = None) -> Dict[str, List[str]]:
     """Sparse per-device chain edges: on every device, each occupant depends
     on the previous occupant (start order). Any two tasks whose blocks
     overlap share at least one device, so they are connected through that
     device's chain — the same race-freedom property the O(N²)
     ``Plan.compute_dependencies`` edge set guarantees, at O(total occupancy)
-    size."""
+    size. Members of one co-schedule or one fusion group are exempt, as
+    there."""
+    group_of = {n: gi for gi, grp in enumerate(coschedule or []) for n in grp}
+    fgroup_of = {n: gi for gi, grp in enumerate(fused or []) for n in grp}
     per_device: Dict[int, List[Tuple[float, str]]] = {}
     for name, a in assignments.items():
         for d in range(a.block.offset, a.block.end):
@@ -123,6 +134,12 @@ def chain_dependencies(assignments: Dict[str, Assignment]) -> Dict[str, List[str
     for occ in per_device.values():
         occ.sort()
         for (_, n1), (_, n2) in zip(occ, occ[1:]):
+            g1, g2 = group_of.get(n1), group_of.get(n2)
+            if g1 is not None and g1 == g2:
+                continue
+            f1, f2 = fgroup_of.get(n1), fgroup_of.get(n2)
+            if f1 is not None and f1 == f2:
+                continue
             deps[n2].add(n1)
     return {name: sorted(d) for name, d in deps.items()}
 
@@ -131,7 +148,8 @@ def _set_dependencies(plan: Plan) -> None:
     """Scale-appropriate dependencies: chains above ``_CHAIN_DEP_N`` tasks,
     every overlapping pair below."""
     if len(plan.assignments) > _CHAIN_DEP_N:
-        plan.dependencies = chain_dependencies(plan.assignments)
+        plan.dependencies = chain_dependencies(plan.assignments, plan.coschedule,
+                                               plan.fused)
     else:
         plan.compute_dependencies()
 
@@ -330,19 +348,23 @@ def _partitions(task_list: Sequence, previous: Optional[Plan],
 
 def partition_plan(task_list: Sequence, topology: SliceTopology,
                    budget: float, ordering_slack: float = 1.0,
-                   previous: Optional[Plan] = None) -> Optional[Plan]:
+                   previous: Optional[Plan] = None,
+                   coschedule_exclude=None) -> Optional[Plan]:
     """Tier 1: solve each partition's MILP under its time slice, then stitch.
 
     The merge keeps each task's partition-chosen apportionment and its
     partition-internal start for ordering, then re-places every task on the
     frontier in global start order, choosing the min-finish block of the
     chosen size — always feasible, conflict-free by construction. A single
-    partition returns the exact plan untouched."""
+    partition returns the exact plan untouched, co-schedule groups included;
+    a stitch of several is serial (its re-placement cannot keep a pair's
+    shared slot), so their MILPs run without the co-location term."""
     t0 = time.perf_counter()
     parts = _partitions(task_list, previous, partition_max())
     if len(parts) == 1:
         return milp.solve(task_list, topology, time_limit=max(0.05, budget * 0.9),
-                          ordering_slack=ordering_slack, warm=previous)
+                          ordering_slack=ordering_slack, warm=previous,
+                          coschedule_exclude=coschedule_exclude)
 
     slice_budget = max(_MIN_PART_SLICE, (budget * 0.8) / len(parts))
     placed: List[Tuple[float, int, Any, int, float]] = []  # (start, pi, task, size, rt)
@@ -350,7 +372,8 @@ def partition_plan(task_list: Sequence, topology: SliceTopology,
         remaining = budget - (time.perf_counter() - t0)
         if remaining > slice_budget * 0.5:
             sub = milp.solve(part, topology, time_limit=min(slice_budget, remaining),
-                             ordering_slack=ordering_slack, warm=previous)
+                             ordering_slack=ordering_slack, warm=previous,
+                             coschedule_min_gain=1e9)
         else:
             # budget exhausted mid-ladder: the leftovers get the greedy rule
             sub = milp.greedy_plan(part, topology, ordering_slack)
@@ -487,15 +510,25 @@ def _est_lp(n: int) -> float:
 def anytime_solve(task_list: Sequence, topology: SliceTopology,
                   deadline: float, previous: Optional[Plan] = None,
                   ordering_slack: float = 1.0, seed: int = 0,
+                  coschedule_exclude=None,
+                  fusion: Optional[List[List[str]]] = None,
+                  fusion_exclude=None, fusion_fits=None,
                   ) -> Tuple[Plan, AnytimeReport]:
     """Race down the tier ladder; always returns a plan within ~``deadline``.
 
     A tier only starts when its (conservative) estimate fits the remaining
     budget after reserving the greedy floor, so the floor can always still
     run. The best-makespan plan among the tiers that ran is adopted, and the
-    report records which tier produced it."""
+    report records which tier produced it. ``fusion`` groups (with
+    ``fusion_exclude`` and ``fusion_fits``, ``milp.fusion_priced_groups``)
+    are collapsed before the ladder and expanded in the adopted plan."""
     t0 = time.perf_counter()
     _validate(task_list, topology)
+    winners: list = []
+    if fusion:
+        task_list, winners = milp.fusion_reduce(list(task_list), fusion, topology,
+                                                fusion_exclude=fusion_exclude,
+                                                fusion_fits=fusion_fits)
     n = len(task_list)
     deadline = max(float(deadline), 1e-3)
     floor_est = _est_floor(n)
@@ -528,7 +561,7 @@ def anytime_solve(task_list: Sequence, topology: SliceTopology,
         if n_parts <= _MAX_PARTS and budget >= n_parts * _MIN_PART_SLICE:
             tried.append(1)
             p1 = partition_plan(task_list, topology, budget, ordering_slack,
-                                previous=previous)
+                                previous=previous, coschedule_exclude=coschedule_exclude)
             if p1 is not None and (best is None or p1.makespan < best.makespan):
                 best, best_tier = p1, 1
         elif best is None and remaining() - floor_est >= _est_lp(n):
@@ -548,6 +581,8 @@ def anytime_solve(task_list: Sequence, topology: SliceTopology,
         best_tier = 3
 
     lb = max(cheap_lower_bound(task_list, topology), lp_bound) if n else 0.0
+    if winners:
+        best = milp.fusion_expand(best, winners)
     report = AnytimeReport(
         tier=best_tier, wall_s=time.perf_counter() - t0, deadline_s=deadline,
         n_tasks=n, n_loose=n_loose, makespan=best.makespan, lower_bound=lb,
@@ -596,7 +631,10 @@ def _emit_tier_event(report: AnytimeReport, source: str) -> None:
 
 def slide(previous: Plan, names, interval: float) -> Plan:
     """``previous`` restricted to ``names`` with every start slid down by
-    ``interval``: the plan compare-and-swap keeps, and the gate's fallback."""
+    ``interval``: the plan compare-and-swap keeps, and the gate's fallback.
+    A co-schedule or fusion group keeps the members that remain, while two
+    do (a stack of one is no stack)."""
+    names = set(names)
     slid = Plan(
         assignments={
             n: Assignment(a.apportionment, a.block, max(0.0, a.start - interval),
@@ -604,6 +642,10 @@ def slide(previous: Plan, names, interval: float) -> Plan:
             for n, a in previous.assignments.items() if n in names
         },
         makespan=max(0.0, previous.makespan - interval),
+        coschedule=[kept for grp in previous.coschedule
+                    if len(kept := [n for n in grp if n in names]) >= 2],
+        fused=[kept for grp in previous.fused
+               if len(kept := [n for n in grp if n in names]) >= 2],
     )
     _set_dependencies(slid)
     return slid
@@ -615,7 +657,10 @@ def anytime_resolve(task_list: Sequence, topology: SliceTopology,
                     deadline: Optional[float] = None,
                     warm: Optional[Plan] = None,
                     ordering_slack: float = 1.0,
-                    source: str = "resolve", seed: int = 0) -> Plan:
+                    source: str = "resolve", seed: int = 0,
+                    coschedule_exclude=None,
+                    fusion: Optional[List[List[str]]] = None,
+                    fusion_exclude=None, fusion_fits=None) -> Plan:
     """The deadline-bounded re-solve: a tier-ladder fresh solve and the
     introspective compare-and-swap (adopt the fresh plan if there was no
     previous one, the task set changed, or it beats the previous plan slid
@@ -624,11 +669,15 @@ def anytime_resolve(task_list: Sequence, topology: SliceTopology,
 
     ``previous`` is both the warm seed and the compare-and-swap incumbent;
     pass ``warm`` alone (with ``previous=None``) to seed the ladder without
-    the compare-and-swap."""
+    the compare-and-swap. ``coschedule_exclude``, ``fusion``,
+    ``fusion_exclude`` and ``fusion_fits`` go to :func:`anytime_solve`; a
+    slid plan whose group holds an excluded name loses to the fresh one."""
     dl = resolve_deadline(deadline, interval)
     warm_seed = warm if warm is not None else previous
     fresh, report = anytime_solve(task_list, topology, dl, previous=warm_seed,
-                                  ordering_slack=ordering_slack, seed=seed)
+                                  ordering_slack=ordering_slack, seed=seed,
+                                  coschedule_exclude=coschedule_exclude, fusion=fusion,
+                                  fusion_exclude=fusion_exclude, fusion_fits=fusion_fits)
     if previous is None:
         _emit_tier_event(report, source)
         return fresh
@@ -639,7 +688,9 @@ def anytime_resolve(task_list: Sequence, topology: SliceTopology,
         _emit_tier_event(report, source)
         return fresh
     slid = slide(previous, cur_names, interval)
-    if fresh.makespan < slid.makespan - threshold:
+    excluded = (set(coschedule_exclude or ()) & {n for g in slid.coschedule for n in g}
+                or set(fusion_exclude or ()) & {n for g in slid.fused for n in g})
+    if excluded or fresh.makespan < slid.makespan - threshold:
         _emit_tier_event(report, source)
         return fresh
     report.outcome = "slid"

@@ -144,6 +144,17 @@ class Model:
             raise TypeError(f"expected Constraint, got {type(c)}")
         self.constraints.append(c)
 
+    def link_when(self, gate, a, b, big_m: float) -> None:
+        """Force ``a == b`` (up to tolerance) when the binary ``gate`` is 1:
+        the big-M pair ``a - b <= M(1-gate)``, ``b - a <= M(1-gate)``, which
+        relaxes away at gate 0 (the SPASE co-location term pins a pair to
+        one option and one start with it)."""
+        g = Expr.of(gate)
+        ea, eb = Expr.of(a), Expr.of(b)
+        slack = (Expr.of(1.0) - g) * float(big_m)
+        self.add(ea - eb <= slack)
+        self.add(eb - ea <= slack)
+
     def minimize(self, e: Expr) -> None:
         self._objective = Expr.of(e)
 

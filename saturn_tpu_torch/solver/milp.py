@@ -9,8 +9,13 @@ package's ``milp.resolve`` has no caller in the port.
 
 As in the JAX package, the native C++ scheduler (``native_sched``) seeds
 the MILP with its plan, and above ``milp_task_limit`` tasks it takes over
-the whole solve. The co-location and fusion terms and priority ``weights``
-are later items.
+the whole solve. The co-location term packs a pair of tasks whose measured
+host fractions predict an interleave win onto one block at one start
+(``Plan.coschedule``), and the fusion pre-pass collapses each fusion group
+that its measured lockstep time prices ahead of serial and co-scheduled
+runs into one pseudo-task (``Plan.fused``), as in the JAX package. Its
+priority ``weights`` serve the online service (ROADMAP queue 1 item 8) and
+stay with it.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 from saturn_tpu_torch.core.mesh import Block, SliceTopology
 from saturn_tpu_torch.solver.lp import Expr, Model
@@ -43,14 +48,43 @@ class Plan:
     assignments: Dict[str, Assignment]          # task name -> slot
     makespan: float
     dependencies: Dict[str, List[str]] = field(default_factory=dict)
+    # Co-schedule groups: task names whose windows the engine interleaves
+    # on one block (one shared launcher) instead of ordering them. Made by
+    # the MILP's co-location term where the measured host fractions predict
+    # that one job's host phases hide under the other's device windows.
+    coschedule: List[List[str]] = field(default_factory=list)
+    # Fusion groups: task names the engine trains as one stacked program
+    # (``parallel/fused.py``), every member a batch per lockstep step. The
+    # members hold identical assignments by construction. Made only by the
+    # fusion pre-pass of :func:`solve`, where every member carries a measured
+    # ``fused_per_batch_time`` and the stack beats serial and co-scheduled.
+    fused: List[List[str]] = field(default_factory=list)
+
+    def coschedule_group_of(self) -> Dict[str, int]:
+        """task name -> index of its co-schedule group (absent = solo)."""
+        return {n: gi for gi, grp in enumerate(self.coschedule) for n in grp}
+
+    def fused_group_of(self) -> Dict[str, int]:
+        """task name -> index of its fusion group (absent = not fused)."""
+        return {n: gi for gi, grp in enumerate(self.fused) for n in grp}
 
     def compute_dependencies(self) -> None:
         """Edges between tasks whose blocks overlap: the later start depends
-        on the earlier one."""
+        on the earlier one. Members of one co-schedule group are exempt
+        (their overlap is the point: one launcher interleaves them), and so
+        are members of one fusion group (they are one program)."""
+        group_of = self.coschedule_group_of()
+        fgroup_of = self.fused_group_of()
         deps: Dict[str, List[str]] = {name: [] for name in self.assignments}
         items = list(self.assignments.items())
         for i, (n1, a1) in enumerate(items):
             for n2, a2 in items[i + 1 :]:
+                g1, g2 = group_of.get(n1), group_of.get(n2)
+                if g1 is not None and g1 == g2:
+                    continue
+                f1, f2 = fgroup_of.get(n1), fgroup_of.get(n2)
+                if f1 is not None and f1 == f2:
+                    continue
                 if a1.block.overlaps(a2.block):
                     if a1.start <= a2.start:
                         deps[n2].append(n1)
@@ -59,8 +93,7 @@ class Plan:
         self.dependencies = deps
 
     def to_json(self) -> dict:
-        """The JAX package's dict form (``plan_commit`` journal records), with
-        its co-schedule and fused groups empty: the port forms neither."""
+        """The JAX package's dict form (``plan_commit`` journal records)."""
         return {
             "makespan": self.makespan,
             "assignments": {
@@ -68,18 +101,14 @@ class Plan:
                 for n, a in self.assignments.items()
             },
             "dependencies": self.dependencies,
-            "coschedule": [],
-            "fused": [],
+            "coschedule": [list(g) for g in self.coschedule],
+            "fused": [list(g) for g in self.fused],
         }
 
     @staticmethod
     def from_json(d: dict) -> "Plan":
-        """A plan from :meth:`to_json`'s form, the JAX package's included.
-        Raises ``ValueError`` on co-schedule or fused groups, which the port
-        cannot run."""
-        for key in ("coschedule", "fused"):
-            if d.get(key):
-                raise ValueError(f"plan has {key} groups {d[key]}: the port runs neither")
+        """A plan from :meth:`to_json`'s form, the JAX package's included
+        (groups absent in older records read as none)."""
         return Plan(
             assignments={
                 n: Assignment(int(app), Block(int(off), int(size)), float(st), float(rt))
@@ -87,6 +116,8 @@ class Plan:
             },
             makespan=float(d["makespan"]),
             dependencies={k: list(v) for k, v in d["dependencies"].items()},
+            coschedule=[list(g) for g in d.get("coschedule", [])],
+            fused=[list(g) for g in d.get("fused", [])],
         )
 
 
@@ -220,6 +251,228 @@ def greedy_plan(
     return plan
 
 
+def _host_fraction_of(task, size: int) -> float:
+    """Measured host fraction of the task's strategy at ``size``, in [0, 1];
+    0.0 when unmeasured, which predicts no interleave win."""
+    strat = getattr(task, "strategies", {}).get(size)
+    if strat is None:
+        return 0.0
+    hf = float(getattr(strat, "host_fraction", 0.0) or 0.0)
+    return min(max(hf, 0.0), 1.0)
+
+
+def _fillable_fraction_of(task, size: int) -> float:
+    """Fraction of a steady-state batch in which the task's devices are idle
+    and a co-scheduled partner could run: the measured host fraction plus
+    the schedule's bubble fraction, clamped to [0, 1]."""
+    strat = getattr(task, "strategies", {}).get(size)
+    if strat is None:
+        return 0.0
+    hf = float(getattr(strat, "host_fraction", 0.0) or 0.0)
+    bubble = float(getattr(strat, "bubble_fraction", 0.0) or 0.0)
+    return min(max(hf, 0.0) + max(bubble, 0.0), 1.0)
+
+
+def coschedule_candidates(
+    task_list: List,
+    choices: Dict[str, List[Tuple[int, Block, float]]],
+    min_gain: float,
+) -> List[Tuple[str, str, List[Tuple[int, int, float]]]]:
+    """Task pairs whose measured host fractions predict an interleave win.
+
+    For each (size, block) option both tasks could take, the interleaved
+    pair holds the block for ``comb = max(rt1, rt2, dev1 + dev2)``, where
+    ``dev = (1 - fillable) * rt``: device phases serialize, host staging and
+    schedule bubbles hide under the partner's device windows. A pair is a
+    candidate when its best common option predicts ``(rt1 + rt2) / comb >=
+    min_gain``; two compute-bound jobs (gain 1.0) never are. Returns
+    ``(n1, n2, [(i1, i2, comb), ...])`` with option indices into each task's
+    choice list."""
+    by_name = {t.name: t for t in task_list}
+    names = [t.name for t in task_list]
+    out: List[Tuple[str, str, List[Tuple[int, int, float]]]] = []
+    for i, n1 in enumerate(names):
+        for n2 in names[i + 1 :]:
+            opt2 = {(s, b.offset, b.size): (j, rt) for j, (s, b, rt) in enumerate(choices[n2])}
+            common: List[Tuple[int, int, float]] = []
+            best_gain = 0.0
+            for i1, (s, b, rt1) in enumerate(choices[n1]):
+                hit = opt2.get((s, b.offset, b.size))
+                if hit is None:
+                    continue
+                i2, rt2 = hit
+                f1 = _fillable_fraction_of(by_name[n1], s)
+                f2 = _fillable_fraction_of(by_name[n2], s)
+                comb = max(rt1, rt2, (1.0 - f1) * rt1 + (1.0 - f2) * rt2)
+                common.append((i1, i2, comb))
+                if comb > 1e-9:
+                    best_gain = max(best_gain, (rt1 + rt2) / comb)
+            if common and best_gain >= min_gain:
+                out.append((n1, n2, common))
+    return out
+
+
+class _FusedPseudoTask:
+    """What the solver schedules in place of a whole fusion group: only the
+    sizes the group was priced at, so no solver path can place it at a size
+    its stacked program was never profiled for. Its strategies carry no host
+    or bubble fraction, which keeps it out of the co-location term."""
+
+    def __init__(self, name: str, strategies: Dict[int, Any]):
+        self.name = name
+        self.strategies = strategies
+
+    def feasible_strategies(self) -> Dict[int, Any]:
+        return self.strategies
+
+
+def _remaining_batches(strat) -> Optional[float]:
+    """Remaining batches implied by a strategy's runtime and per-batch time;
+    None where the per-batch time was never measured (fusion pricing does
+    not guess)."""
+    pbt = float(getattr(strat, "per_batch_time", 0.0) or 0.0)
+    if pbt <= 0.0:
+        return None
+    return max(0.0, float(strat.runtime) / pbt)
+
+
+def fusion_priced_groups(
+    task_list: List,
+    proposed: List[List[str]],
+    topology: SliceTopology,
+    fusion_exclude=None,
+    fusion_fits=None,
+) -> List[Tuple[List[str], int, float, float]]:
+    """Price each proposed fusion group on measured cost; keep the winners.
+
+    At each size where every member holds a feasible strategy with a
+    measured ``fused_per_batch_time``, the stack holds the block for
+    ``max_m(remaining batches) * max_m(fused_per_batch_time)`` (lockstep).
+    The group fuses only where that beats the serial sum of the members'
+    runtimes and the co-scheduled alternative (members paired longest with
+    longest, each pair at its interleaved occupancy, pairs serialized).
+    ``fusion_exclude`` drops members (the guardian's detached tasks); the
+    rest may still fuse if two remain. ``fusion_fits(member_tasks, size,
+    n_members)`` is the residency gate: False vetoes the size, None
+    (unknown) does not. Returns ``[(member names, size, fused runtime,
+    fused per-batch time)]``, each group at its best size."""
+    by_name = {t.name: t for t in task_list}
+    excl = set(fusion_exclude or ())
+    out: List[Tuple[List[str], int, float, float]] = []
+    claimed: set = set()
+    for group in proposed:
+        names = [n for n in group if n in by_name and n not in excl and n not in claimed]
+        if len(names) < 2:
+            continue
+        members = [by_name[n] for n in names]
+        common = None
+        for m in members:
+            sizes = {
+                s for s, strat in m.feasible_strategies().items()
+                if s <= topology.capacity
+                and getattr(strat, "fused_per_batch_time", None) is not None
+            }
+            common = sizes if common is None else (common & sizes)
+        best: Optional[Tuple[float, int, float]] = None  # (fused_rt, size, fpbt)
+        for size in sorted(common or ()):
+            strats = [m.feasible_strategies()[size] for m in members]
+            batches = [_remaining_batches(s) for s in strats]
+            if any(b is None for b in batches):
+                continue
+            fpbt = max(float(s.fused_per_batch_time) for s in strats)
+            fused_rt = max(batches) * fpbt
+            serial = sum(float(s.runtime) for s in strats)
+            ordered = sorted(zip(members, strats), key=lambda p: -float(p[1].runtime))
+            cosched = 0.0
+            i = 0
+            while i < len(ordered):
+                if i + 1 < len(ordered):
+                    (t1, s1), (t2, s2) = ordered[i], ordered[i + 1]
+                    f1 = _fillable_fraction_of(t1, size)
+                    f2 = _fillable_fraction_of(t2, size)
+                    rt1, rt2 = float(s1.runtime), float(s2.runtime)
+                    cosched += max(rt1, rt2, (1.0 - f1) * rt1 + (1.0 - f2) * rt2)
+                    i += 2
+                else:
+                    cosched += float(ordered[i][1].runtime)
+                    i += 1
+            if fused_rt >= min(serial, cosched):
+                continue
+            if fusion_fits is not None and fusion_fits(members, size, len(members)) is False:
+                continue
+            if best is None or fused_rt < best[0]:
+                best = (fused_rt, size, fpbt)
+        if best is not None:
+            fused_rt, size, fpbt = best
+            out.append((names, size, fused_rt, fpbt))
+            claimed.update(names)
+    return out
+
+
+def fusion_reduce(task_list: List, fusion: List[List[str]], topology: SliceTopology,
+                  fusion_exclude=None, fusion_fits=None):
+    """The fusion pre-pass: ``(reduced task list, winners)``, where each
+    group :func:`fusion_priced_groups` keeps becomes one
+    :class:`_FusedPseudoTask` named after its first member, with every size
+    the group was priced at; ``winners`` is empty when none is kept.
+    :func:`fusion_expand` maps a plan of the reduced list back."""
+    winners = fusion_priced_groups(task_list, fusion, topology,
+                                   fusion_exclude=fusion_exclude, fusion_fits=fusion_fits)
+    if not winners:
+        return list(task_list), []
+    from saturn_tpu_torch.core.strategy import Strategy
+
+    by_name = {t.name: t for t in task_list}
+    fused_member = {n for names, _, _, _ in winners for n in names}
+    reduced: List = []
+    for names, _, _, _ in winners:
+        strategies: Dict[int, Any] = {}
+        common = None
+        for n in names:
+            sizes = {
+                s for s, st in by_name[n].feasible_strategies().items()
+                if s <= topology.capacity
+                and getattr(st, "fused_per_batch_time", None) is not None
+                and _remaining_batches(st) is not None
+            }
+            common = sizes if common is None else (common & sizes)
+        for size in sorted(common or ()):
+            strats = [by_name[n].feasible_strategies()[size] for n in names]
+            fpbt = max(float(s.fused_per_batch_time) for s in strats)
+            fused_rt = max(_remaining_batches(s) for s in strats) * fpbt
+            if fusion_fits is not None and fusion_fits(
+                    [by_name[n] for n in names], size, len(names)) is False:
+                continue
+            strategies[size] = Strategy(
+                executor=strats[0].executor, apportionment=size,
+                params=dict(strats[0].params or {}), runtime=fused_rt,
+                per_batch_time=fpbt,
+            )
+        reduced.append(_FusedPseudoTask(names[0], strategies))
+    reduced.extend(t for t in task_list if t.name not in fused_member)
+    return reduced, winners
+
+
+def fusion_expand(inner: Plan, winners) -> Plan:
+    """A plan of :func:`fusion_reduce`'s list with every fusion group's
+    members holding their pseudo-task's assignment, and ``Plan.fused``
+    naming the groups."""
+    assignments = dict(inner.assignments)
+    for names, _, _, _ in winners:
+        rep_a = assignments[names[0]]
+        for n in names[1:]:
+            assignments[n] = Assignment(rep_a.apportionment, rep_a.block, rep_a.start,
+                                        rep_a.runtime)
+    plan = Plan(assignments=assignments, makespan=inner.makespan,
+                coschedule=inner.coschedule,
+                fused=[list(names) for names, _, _, _ in winners])
+    plan.compute_dependencies()
+    log.info("fusion pre-pass: %d group(s) priced in favor of stacking (%s)", len(winners),
+             "; ".join(f"{len(names)}@{size} fused={rt:.1f}s"
+                       for names, size, rt, _ in winners))
+    return plan
+
+
 def solve(
     task_list: List,
     topology: SliceTopology,
@@ -227,6 +480,11 @@ def solve(
     ordering_slack: float = 1.0,
     milp_task_limit: int = 12,
     warm: Optional[Plan] = None,
+    coschedule_min_gain: float = 1.15,
+    coschedule_exclude=None,
+    fusion: Optional[List[List[str]]] = None,
+    fusion_exclude=None,
+    fusion_fits=None,
 ) -> Plan:
     """Build and solve the joint strategy/placement/schedule MILP over each
     task's feasible strategies.
@@ -238,9 +496,19 @@ def solve(
     (at most 1 s, taken off ``time_limit``) seeds the MILP: its plan and the
     fix-and-optimize plan of ``warm`` are incumbents, the better one's
     makespan is a cut, and it is the answer when HiGHS strikes out. A native
-    plan that fails validation gives way to ``greedy_plan``. The JAX
-    package's priority ``weights`` serve its online service, which the port
-    does not have yet."""
+    plan that fails validation gives way to ``greedy_plan``.
+
+    ``coschedule_min_gain``: the least predicted pair speedup (serial sum
+    over interleaved occupancy, :func:`coschedule_candidates`) for a pair
+    to enter the co-location term; only the exact MILP forms co-schedule
+    groups. ``coschedule_exclude``: names kept out of it (the guardian's
+    detached tasks). ``fusion``: proposed fusion groups
+    (``parallel.fused.fusion_candidates``), priced by
+    :func:`fusion_priced_groups` with ``fusion_exclude`` and
+    ``fusion_fits``; each winner is solved as one pseudo-task by every
+    path and expanded after (:func:`fusion_reduce`, :func:`fusion_expand`).
+    The JAX package's priority ``weights`` serve its online service, which
+    the port does not have yet (ROADMAP queue 1 item 8)."""
     for t in task_list:
         if not t.feasible_strategies():
             raise ValueError(f"task {t.name} has no feasible strategy; run search first")
@@ -248,6 +516,16 @@ def solve(
             raise ValueError(
                 f"task {t.name}: no strategy fits topology capacity {topology.capacity}"
             )
+    if fusion:
+        reduced, winners = fusion_reduce(task_list, fusion, topology,
+                                         fusion_exclude=fusion_exclude,
+                                         fusion_fits=fusion_fits)
+        if winners:
+            inner = solve(reduced, topology, time_limit=time_limit,
+                          ordering_slack=ordering_slack, milp_task_limit=milp_task_limit,
+                          warm=warm, coschedule_min_gain=coschedule_min_gain,
+                          coschedule_exclude=coschedule_exclude)
+            return fusion_expand(inner, winners)
     from saturn_tpu_torch.solver import native_sched
 
     wplan = (
@@ -320,11 +598,56 @@ def solve(
         return e
 
     names = [t.name for t in task_list]
-    rt = {n: runtime_expr(n) for n in names}
-    for n in names:
-        m.add(makespan >= sta[n] + rt[n])
 
-    # Tasks sharing any device are fully ordered, with slack between them.
+    # Co-location term: a binary ``co`` per candidate pair pins both tasks
+    # to one common (size, block) option at one start; their ordering rows
+    # relax, and each member's effective runtime (what third parties on the
+    # block and the makespan see) rises to the pair's combined occupancy.
+    co_pairs = coschedule_candidates(task_list, choices, coschedule_min_gain)
+    if coschedule_exclude:
+        excl = set(coschedule_exclude)
+        co_pairs = [(n1, n2, c) for n1, n2, c in co_pairs
+                    if n1 not in excl and n2 not in excl]
+    co_of: Dict[Tuple[str, str], Any] = {}
+    eff: Dict[str, Expr] = {n: runtime_expr(n) for n in names}
+    per_task_cos: Dict[str, List] = {}
+    for n1, n2, common in co_pairs:
+        co = m.binary(f"co_{n1}_{n2}")
+        co_of[(n1, n2)] = co
+        per_task_cos.setdefault(n1, []).append(co)
+        per_task_cos.setdefault(n2, []).append(co)
+        common1 = {i1 for i1, _, _ in common}
+        common2 = {i2 for _, i2, _ in common}
+        for j, xi in enumerate(x[n1]):
+            if j not in common1:
+                m.add(Expr.of(xi) <= Expr.of(1.0) - co)
+        for j, xi in enumerate(x[n2]):
+            if j not in common2:
+                m.add(Expr.of(xi) <= Expr.of(1.0) - co)
+        for i1, i2, _ in common:
+            m.link_when(co, x[n1][i1], x[n2][i2], 1.0)
+        m.link_when(co, sta[n1], sta[n2], M)
+    if per_task_cos:
+        for n, cos in per_task_cos.items():
+            # one partner per task: groups stay pairs
+            if len(cos) > 1:
+                m.add(sum(cos[1:], Expr.of(cos[0])) <= 1)
+            ert = m.continuous(f"ert_{n}", lb=0.0, ub=M)
+            m.add(Expr.of(ert) >= runtime_expr(n))
+            eff[n] = Expr.of(ert)
+        for n1, n2, common in co_pairs:
+            co = co_of[(n1, n2)]
+            comb_expr = Expr()
+            for i1, _, comb in common:
+                comb_expr = comb_expr + x[n1][i1] * comb
+            m.add(eff[n1] >= comb_expr - (Expr.of(1.0) - co) * M)
+            m.add(eff[n2] >= comb_expr - (Expr.of(1.0) - co) * M)
+
+    for n in names:
+        m.add(makespan >= sta[n] + eff[n])
+
+    # Tasks sharing any device are fully ordered, with slack between them,
+    # unless their co binary is set.
     for i, n1 in enumerate(names):
         for n2 in names[i + 1 :]:
             if not any(
@@ -332,23 +655,40 @@ def solve(
             ):
                 continue
             boa = m.binary(f"boa_{n1}_{n2}")  # 1 => n1 before n2
+            co = co_of.get((n1, n2))
+            co_relax = Expr.of(co) * M if co is not None else Expr.of(0.0)
             for dev in range(topology.capacity):
                 o1, o2 = occ_expr(n1, dev), occ_expr(n2, dev)
-                m.add(sta[n2] >= sta[n1] + rt[n1] + ordering_slack
-                      - M * (1 - Expr.of(boa)) - M * (2 - o1 - o2))
-                m.add(sta[n1] >= sta[n2] + rt[n2] + ordering_slack
-                      - M * Expr.of(boa) - M * (2 - o1 - o2))
+                m.add(sta[n2] >= sta[n1] + eff[n1] + ordering_slack
+                      - M * (1 - Expr.of(boa)) - M * (2 - o1 - o2) - co_relax)
+                m.add(sta[n1] >= sta[n2] + eff[n2] + ordering_slack
+                      - M * Expr.of(boa) - M * (2 - o1 - o2) - co_relax)
 
-    # Area cut: the selected options' work cannot exceed makespan x capacity.
+    # Area cut: the selected options' work cannot exceed makespan x capacity;
+    # a co-scheduled pair's host phases take no device area.
     area = Expr()
     for t in task_list:
         for xi, (size, _, r) in zip(x[t.name], choices[t.name]):
             area = area + xi * (size * r)
+    for n1, n2, common in co_pairs:
+        co = co_of[(n1, n2)]
+        sav = m.continuous(f"sav_{n1}_{n2}", lb=0.0, ub=M * topology.capacity)
+        savings_expr = Expr()
+        for i1, i2, comb in common:
+            size, _, rt1 = choices[n1][i1]
+            _, _, rt2 = choices[n2][i2]
+            savings_expr = savings_expr + x[n1][i1] * (max(0.0, rt1 + rt2 - comb) * size)
+        m.add(Expr.of(sav) <= savings_expr)
+        m.add(Expr.of(sav) <= Expr.of(co) * (M * topology.capacity))
+        area = area - Expr.of(sav)
     m.add(makespan >= area * (1.0 / topology.capacity))
 
-    # tiny pressure toward early starts keeps solutions canonical
+    # tiny pressure against co-location among makespan-equal schedules, and
+    # toward early starts (keeps solutions canonical)
+    co_term = sum((Expr.of(c) for c in co_of.values()), Expr()) * (1e-4 * T)
     m.minimize(
         makespan + sum((sta[n] for n in names), Expr()) * (1e-6 / max(len(names), 1))
+        + co_term
     )
     if incumbent is not None:
         m.add(makespan <= incumbent.makespan + 1e-6 * max(incumbent.makespan, 1.0))
@@ -370,7 +710,7 @@ def solve(
             apportionment=size, block=blk,
             start=max(0.0, res.value(sta[t.name])), runtime=r,
         )
-    plan = Plan(assignments=assignments, makespan=res.value(makespan))
+    groups = [[n1, n2] for (n1, n2), co in co_of.items() if res.value(co) > 0.5]
+    plan = Plan(assignments=assignments, makespan=res.value(makespan), coschedule=groups)
     plan.compute_dependencies()
     return plan
-

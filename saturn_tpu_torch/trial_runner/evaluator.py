@@ -8,8 +8,13 @@ consulted for each grid point just before its trial would run, so the first
 task of a signature profiles it and the others with the same signature in
 the same sweep are cache hits (the JAX package looks every point up before
 any trial runs, so within one fresh sweep it profiles each of them). The
-JAX package's anchor-size pruning, static memory pruning and fused-group
-trials are later items; asking for them raises.
+JAX package's anchor-size pruning and static memory pruning are later
+items; asking for them raises. After the grid, the sweep proposes fusion
+groups (``parallel.fused.fusion_candidates``) and measures each one's
+stacked lockstep step (``profile_fused_group``), which the solver prices
+fusion on. A fused trial that raises for any reason other than running out
+of device memory ends the sweep, as a solo trial does (the JAX package
+skips such a group).
 """
 
 from __future__ import annotations
@@ -47,10 +52,12 @@ def search(
     compile_cache_dir: Optional[str] = None,
     trial_retries: int = 2,
     retry_backoff_s: float = 0.05,
+    fusion: bool = True,
 ) -> Dict[str, int]:
     """Fill ``task.strategies`` for every task in place; returns
-    ``{"trials_run", "cache_hits", "pruned"}`` (``pruned`` is 0: pruning is
-    a later item).
+    ``{"trials_run", "cache_hits", "pruned", "fused_groups"}`` (``pruned``
+    is 0: pruning is a later item; ``fused_groups`` counts the fusion groups
+    whose stacked step was measured).
 
     ``technique_names=None`` uses the whole library (registering the default
     library if nothing is registered). ``profile_cache``: ``None`` uses the
@@ -67,7 +74,8 @@ def search(
     backoff; the last failure propagates to the caller (a config that runs
     out of device memory is infeasible, not a failure).
     ``parallel_trials > 1`` and ``prune`` on a grid of ``PRUNE_MIN_GRID``
-    sizes or more raise.
+    sizes or more raise. ``fusion=False`` measures no fusion group (the JAX
+    package always does; the port's option keeps a sweep solo).
     """
     if log:
         logging.basicConfig(level=logging.INFO)
@@ -83,11 +91,11 @@ def search(
     cache = pcache.resolve(profile_cache)
     with metrics.scoped(metrics_path), trace.profile_trace(trace_dir):
         return _search_inner(tasks, technique_names, topo, cache,
-                             trial_retries, retry_backoff_s)
+                             trial_retries, retry_backoff_s, fusion)
 
 
 def _search_inner(tasks, technique_names, topo, cache, trial_retries,
-                  retry_backoff_s) -> Dict[str, int]:
+                  retry_backoff_s, fusion=True) -> Dict[str, int]:
     if technique_names is None and not lib.registered_names():
         lib.register_default_library()
     classes = lib.retrieve(technique_names)
@@ -98,7 +106,8 @@ def _search_inner(tasks, technique_names, topo, cache, trial_retries,
     topo_sig = pcache.topology_signature(topo) if cache is not None else ""
     runtime = pcache.runtime_signature() if cache is not None else None
 
-    def install(task, g: int, tech, params, per_batch: float, key) -> None:
+    def install(task, g: int, tech, params, per_batch: float, key,
+                host_fraction: float = 0.0, peak_bytes=None) -> None:
         total = per_batch * task.total_batches
         cur = task.strategies.get(g)
         if cur is None or not cur.feasible or total < cur.runtime:
@@ -106,6 +115,7 @@ def _search_inner(tasks, technique_names, topo, cache, trial_retries,
                 executor=tech, apportionment=g, params=params,
                 runtime=total, per_batch_time=per_batch, cache_key=key,
                 cache_dir=cache.root if key is not None else None,
+                host_fraction=float(host_fraction or 0.0), peak_bytes=peak_bytes,
             )
 
     trials = hits = 0
@@ -127,7 +137,8 @@ def _search_inner(tasks, technique_names, topo, cache, trial_retries,
                     logger.info("trial (%s, g=%d, %s): profile-cache hit (%s)",
                                 task.name, g, name, entry.get("source", "trial"))
                     if entry["feasible"]:
-                        install(task, g, tech, entry["params"], entry["per_batch_time"], key)
+                        install(task, g, tech, entry["params"], entry["per_batch_time"], key,
+                                entry.get("host_fraction", 0.0), entry.get("peak_bytes"))
                     continue
                 if cache is not None:
                     metrics.event("profile_cache", hit=False, task=task.name, size=g,
@@ -166,19 +177,110 @@ def _search_inner(tasks, technique_names, topo, cache, trial_retries,
                                   memory_infeasible=True)
                     continue
                 total = per_batch * task.total_batches
-                logger.info("trial (%s, g=%d, %s): %.4fs/batch, est total %.1fs "
-                            "(trial took %.1fs)", task.name, g, name, per_batch, total, dt)
+                reporter = getattr(tech, "trial_report", None)
+                report = reporter(task.name, g) if reporter else {}
+                hf = float(report.get("host_fraction", 0.0))
+                peak = report.get("peak_bytes")
+                logger.info("trial (%s, g=%d, %s): %.4fs/batch, est total %.1fs, host "
+                            "fraction %.4f (trial took %.1fs)", task.name, g, name,
+                            per_batch, total, hf, dt)
                 metrics.event("trial", task=task.name, size=g, technique=name,
                               feasible=True, per_batch_s=per_batch, est_total_s=total,
-                              params=params)
+                              params=params, host_fraction=round(hf, 4))
                 if cache is not None:
                     cache.put(key, technique=name, size=g, feasible=True,
-                              params=params, per_batch_time=per_batch)
-                install(task, g, tech, params, per_batch, key)
+                              params=params, per_batch_time=per_batch, host_fraction=hf,
+                              peak_bytes=peak)
+                install(task, g, tech, params, per_batch, key, hf, peak)
         for g in topo.valid_sizes():
             if g not in task.strategies:
                 task.strategies[g] = Strategy(None, g, None, DUMMY_RUNTIME)
     if trials or hits:
         logger.info("trial runner: sweep complete — %d trials run, %d cache hits",
                     trials, hits)
-    return {"trials_run": trials, "cache_hits": hits, "pruned": 0}
+    fused_groups = 0
+    from saturn_tpu_torch.parallel import fused
+
+    by_name = {t.name: t for t in tasks}
+    for names in fused.fusion_candidates(list(tasks)) if fusion else ():
+        group = [by_name[n] for n in names]
+        # a stack is device-resident: a member whose best is a host state
+        # (offload) does not fuse
+        if any(1 not in t.feasible_strategies()
+               or getattr(t.strategies[1].executor, "host_state", False) for t in group):
+            continue
+        if any(v > 0 for v in profile_fused_group(group, topology=topo).values()):
+            fused_groups += 1
+    if fused_groups:
+        logger.info("trial runner: %d fused group(s) measured", fused_groups)
+    return {"trials_run": trials, "cache_hits": hits, "pruned": 0,
+            "fused_groups": fused_groups}
+
+
+def profile_fused_group(
+    tasks: Sequence,
+    sizes: Optional[Sequence[int]] = None,
+    topology: Optional[SliceTopology] = None,
+    metrics_path: Optional[str] = None,
+) -> Dict[int, float]:
+    """Measure the fused stack of ``tasks`` and price its lockstep step.
+
+    At each size where every member holds a feasible strategy (only one
+    device is carried: size 1), time the stacked program on fresh member
+    states as ``execute`` dispatches it (``parallel.fused.time_stacked``:
+    windows of K on the card, CUDA graphs) and write the seconds per
+    lockstep step into every member's ``Strategy.fused_per_batch_time``
+    there. A size that runs out of device memory stays unpriced (never
+    fused); any other failure raises. Neither checkpoints nor moves a
+    cursor. Returns ``{size: seconds per lockstep step}``. Raises
+    ``ValueError`` for an unfusable group (fingerprints that differ or are
+    None, fewer than two members)."""
+    import torch
+
+    from saturn_tpu_torch.parallel import fused
+
+    members = list(tasks)
+    if len(members) < 2:
+        raise ValueError("a fused group needs at least 2 members")
+    fps = {fused.fusion_fingerprint(t) for t in members}
+    if len(fps) != 1 or None in fps:
+        raise ValueError("tasks are not fusable: fusion fingerprints differ or are None "
+                         f"({[t.name for t in members]})")
+    topo = topology if topology is not None else SliceTopology()
+    if sizes is None:
+        candidates = [g for g in topo.valid_sizes()
+                      if all(g in t.strategies and t.strategies[g].feasible for t in members)]
+    else:
+        valid = set(topo.valid_sizes())
+        candidates = [int(g) for g in sizes if int(g) in valid]
+    measured: Dict[int, float] = {}
+    names = [t.name for t in members]
+    with metrics.scoped(metrics_path):
+        for g in candidates:
+            if g != 1:
+                continue  # a stack runs on one device (``fused.usable_devices``)
+            devices = topo.blocks(g)[0].devices_of(topo.devices)
+            strat = members[0].strategies[g]
+            try:
+                per_step, info = fused.time_stacked(members, devices, inner=strat.executor,
+                                                    config=dict(strat.params or {}))
+            except torch.cuda.OutOfMemoryError as e:
+                import traceback
+
+                traceback.clear_frames(e.__traceback__)
+                logger.info("fused trial (%s, g=%d): out of device memory", "+".join(names), g)
+                metrics.event("trial_fused", tasks=names, size=g, n_members=len(members),
+                              feasible=False, error=repr(e))
+                continue
+            for m in members:
+                s = m.strategies.get(g)
+                if s is not None and s.feasible:
+                    s.fused_per_batch_time = per_step
+            measured[g] = per_step
+            logger.info("fused trial (%s, g=%d, N=%d): %.4fs/lockstep step (K=%d), peak "
+                        "%.2f GiB", "+".join(names), g, len(members), per_step, info["k"],
+                        info["peak_bytes"] / 2**30)
+            metrics.event("trial_fused", tasks=names, size=g, n_members=len(members),
+                          feasible=True, per_step_s=per_step, k=info["k"],
+                          peak_bytes=info["peak_bytes"])
+    return measured

@@ -106,6 +106,14 @@ def set_crash_barrier(cb: Optional[Callable[[str, Dict[str, Any]], None]]) -> No
     _CRASH_BARRIER = cb
 
 
+def barrier(point: str, **ctx: Any) -> None:
+    """Cross the crash harness's barrier ``point`` (the fused unfuse path's
+    ``fused.unfuse``) through the installed callback, if any."""
+    cb = _CRASH_BARRIER
+    if cb is not None:
+        cb(point, ctx)
+
+
 def add_publish_hook(hook: Callable[[str, str], None]) -> None:
     """Call ``hook(stem, absolute path)`` after every checkpoint lands, from
     the thread that wrote it (the writer thread for ``save_async``). A hook

@@ -45,8 +45,9 @@ from typing import Any, Dict, Optional
 log = logging.getLogger("saturn_tpu_torch")
 
 #: Bump when the fingerprint payload or entry schema changes meaning —
-#: old entries then miss instead of being misread.
-SCHEMA_VERSION = 1
+#: old entries then miss instead of being misread. 2: entries carry the
+#: trial's ``host_fraction`` (an entry of 1 would load it as 0.0).
+SCHEMA_VERSION = 2
 
 _ENV_DIR = "SATURN_TPU_PROFILE_CACHE_DIR"
 _ENV_TOGGLE = "SATURN_TPU_PROFILE_CACHE"
@@ -220,9 +221,15 @@ class ProfileCache:
         per_batch_time: Optional[float] = None,
         source: str = "trial",
         memory_infeasible: bool = False,
+        host_fraction: float = 0.0,
+        peak_bytes: Optional[float] = None,
     ) -> bool:
         """Atomically write one entry; False if the key or params are not
-        cacheable (non-JSON params of a plugin technique)."""
+        cacheable (non-JSON params of a plugin technique). ``host_fraction``
+        is the trial's staging-against-compute split, which the solver's
+        co-location term reads (the JAX package's field); ``peak_bytes`` the
+        trial's peak device memory, which the fusion gate reads (the
+        port's)."""
         if not key:
             return False
         entry = {
@@ -235,6 +242,8 @@ class ProfileCache:
             "per_batch_time": per_batch_time,
             "source": source,
             "memory_infeasible": bool(memory_infeasible),
+            "host_fraction": float(host_fraction),
+            "peak_bytes": None if peak_bytes is None else float(peak_bytes),
             "written": time.time(),
         }
         try:
@@ -259,7 +268,8 @@ class ProfileCache:
                       size: int) -> bool:
         """Upgrade (or create) an entry from a realized interval: it averages
         a whole interval of production batches, which is what the next sweep
-        should predict."""
+        should predict. The entry keeps the trial's ``host_fraction`` and
+        ``peak_bytes``."""
         if not key or per_batch_time <= 0.0:
             return False
         prev = self.get(key)
@@ -269,6 +279,8 @@ class ProfileCache:
             key, technique=technique, size=size, feasible=True,
             params=params if isinstance(params, dict) else {},
             per_batch_time=float(per_batch_time), source="realized",
+            host_fraction=float((prev or {}).get("host_fraction", 0.0) or 0.0),
+            peak_bytes=(prev or {}).get("peak_bytes"),
         )
 
     def __len__(self) -> int:

@@ -1194,3 +1194,66 @@ def test_interleaved_reference_is_split_halves_on_permuted_lanes(smoke):
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
     assert smoke.rel_norm(smoke.interleaved_gptj_logits(sd, cfg, tokens, interleaved=False),
                           want) > 1e-3
+
+
+def _counting(module, fn_name, key):
+    """``module.fn_name`` that counts a call on CPU tensors as one launch of
+    ``key`` (the kernels count only where they launch)."""
+    real = getattr(module, fn_name)
+
+    def counted(*args, **kwargs):
+        module.LAUNCHES[key] += 1
+        return real(*args, **kwargs)
+
+    return counted
+
+
+def test_phase_10_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 10 (fused stacking, the unfuse path, the co-scheduled pair) at
+    ``test-tiny`` on the CPU: every check of the phase holds with the kernel
+    wrappers counting their plain versions' calls."""
+    import torch
+
+    import saturn_tpu_torch as sat
+    from saturn_tpu_torch.core.mesh import SliceTopology
+    from saturn_tpu_torch.ops import ce, flash
+
+    monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
+    for name, value in (("DEVICE", "cpu"), ("GPT2", "test-tiny"), ("BERT", "bert-test-tiny"),
+                        ("BATCH", 4), ("SEQ", 64), ("VOCAB", 256), ("LAYERS", 2),
+                        ("MARK", 255), ("OUT", str(tmp_path / "out")),
+                        ("CKPTS", str(tmp_path / "ckpts"))):
+        monkeypatch.setattr(smoke, name, value)
+    os.makedirs(smoke.OUT)
+    monkeypatch.setattr(smoke, "topology", lambda: SliceTopology([torch.device("cpu")]))
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "max_memory_reserved", lambda *a, **k: 0)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(flash, "flash_supported", lambda cfg=None: True)
+    for module, fns in ((flash, ("flash_fwd", "flash_dq", "flash_dkv")),
+                        (ce, ("ce_fwd", "ce_dx", "ce_dw"))):
+        for fn in fns:
+            monkeypatch.setattr(module, fn, _counting(module, fn, fn))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches, out = smoke.fused_phase(sat, flash, ce, "cpu rehearsal")
+    finally:
+        torch.set_num_threads(n)
+    assert out["search"]["search"]["fused_groups"] == 1
+    assert out["orchestrate"]["plan_commits"] >= 2 and len(out["orchestrate"]["fused_intervals"]) == 2
+    assert launches["ce_fwd"] == 4 * smoke.FUSED_BATCHES
+    assert 0 < out["unfuse"]["unfused_at"] < smoke.UNFUSE_BATCHES
+    per = smoke.flash_per_step(out["search"]["config"])
+    assert out["against_solo"]["launches"]["flash_fwd"] == per * smoke.WINDOW
+
+
+def test_kernels_by_name_sums_per_step(smoke, monkeypatch):
+    """``--fused-profile``'s per-kernel table: device milliseconds and
+    launches of each kernel name per step."""
+    monkeypatch.setattr(smoke, "device_events",
+                        lambda prof: [("k1", 0.0, 1000.0), ("k1", 2000.0, 2500.0),
+                                      ("k2", 0.0, 4000.0)])
+    assert smoke.kernels_by_name(None, 2) == {"k1": [0.75, 1.0], "k2": [2.0, 0.5]}

@@ -38,6 +38,12 @@ same model over the logits: stream and bulk against dp within 1e-4 per step
 (the first loss bitwise) with exact flash launches, the host state pinned
 with no moment on the card, two block buffers in stream mode, and a bulk
 trial that runs out of device memory infeasible with its memory returned.
+Fused stacks: three members of the small GPT-2 in one stacked window of 4
+(a CUDA graph) against their solo runs within the bf16 band, with exact
+launch counts (each flash kernel once per layer per lockstep step, each CE
+kernel once per member per step); the stacked AdamW, Adam and SGD replayed
+from a graph against ``HParams.make_optimizer``'s on each member within
+1e-6.
 """
 
 import numpy as np
@@ -1111,3 +1117,105 @@ def test_oversized_bulk_config_is_infeasible_and_gives_memory_back(cuda_device, 
     tech._shared.clear()
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated(cuda_device) <= base
+
+
+# ------------------------------------------------------------ fused stacks
+#: The stacked window against solo runs, per step: the members' products are
+#: batched over the member axis (another cuBLAS kernel may sum in another
+#: order), so within the bf16 band of ``tests/test_flash.py``.
+FUSED_BAND = BF16
+
+
+@pytest.mark.cuda
+def test_stacked_window_matches_solo_runs(cuda_device, tmp_path):
+    """Three members of the small GPT-2 (flash and the CE head) in one
+    stacked window of 4, a CUDA graph, after an eager step: each member's
+    five losses within FUSED_BAND of its solo run (eager steps from the
+    same init and batches); the replay launches each flash kernel once per
+    layer per lockstep step (the members folded into its batch) and each CE
+    kernel once per member per step."""
+    from saturn_tpu_torch.ops import stacking
+    from saturn_tpu_torch.parallel import fused
+    from saturn_tpu_torch.parallel.spmd_base import stage_tokens
+
+    members = []
+    for i, lr in enumerate((1e-3, 2e-3, 5e-4)):
+        task, tech = _small_task(tmp_path, f"member{i}")
+        task.hparams.lr = lr
+        members.append(task)
+    solo = []
+    for task in members:
+        losses, _ = _run(task, task.selected_strategy.executor, cuda_device, 5, 1)
+        solo.append(losses)
+        task.current_batch = 0
+    prog = fused.build_fused_program(members, [cuda_device])
+    state = fused.stack_state(prog, [prog.init_member_tree()] * 3,
+                              [t.hparams.lr for t in members], [0, 0, 0])
+
+    def stage(first, k):
+        return stage_tokens(np.stack([stacking.stack_member_batches(
+            [t.batch_at(first + j) for t in members]) for j in range(k)]), cuda_device)
+
+    state, l0 = prog.bundle.warm_step(state, stage(0, 1)[0])
+    win = prog.bundle.fused(4)
+    batch = stage(1, 4)
+    win.capture(state, batch.shape)
+    before = _counts()
+    state, ls = win(state, batch)
+    launched = {n: c - before[n] for n, c in _counts().items()}
+    assert launched == {"flash_fwd": 8, "flash_dq": 8, "flash_dkv": 8,
+                        "ce_fwd": 12, "ce_dx": 12, "ce_dw": 12}
+    got = torch.cat([l0.reshape(1, 3).float(), ls]).cpu().numpy()
+    for i in range(3):
+        np.testing.assert_allclose(got[:, i], solo[i], rtol=FUSED_BAND, atol=0)
+    assert state["step"] == 5
+    fused.release_programs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["adamw", "adam", "sgd"])
+def test_stacked_optimizer_matches_make_optimizer_on_the_card(cuda_device, name):
+    """The stacked optimizer on the card, one eager step then four replays
+    of a captured step, against ``HParams.make_optimizer``'s (capturable)
+    torch optimizer on each member within 1e-6."""
+    from saturn_tpu_torch import HParams
+    from saturn_tpu_torch.parallel import fused
+
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    lrs = [1e-2, 3e-3]
+    p0 = torch.randn(2, 64, 32, generator=gen)
+    grads = [torch.randn(2, 64, 32, generator=gen).to(cuda_device) for _ in range(5)]
+    stacked = torch.nn.Parameter(p0.clone().to(cuda_device))
+    opt = fused.StackedOptimizer([stacked], name, lrs)
+    g_static = torch.zeros_like(stacked)
+
+    def step():
+        stacked.grad = g_static.clone()
+        opt.step()
+        opt.zero_grad()
+
+    g_static.copy_(grads[0])
+    step()
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph):
+            step()
+    torch.cuda.current_stream().wait_stream(side)
+    solo = [torch.nn.Parameter(p0[m].clone().to(cuda_device)) for m in range(2)]
+    topts = [HParams(lr=lr, batch_count=1, optimizer=name).make_optimizer([p])
+             for lr, p in zip(lrs, solo)]
+    for m in range(2):
+        solo[m].grad = grads[0][m].clone()
+        topts[m].step()
+    for g in grads[1:]:
+        g_static.copy_(g)
+        graph.replay()
+        for m in range(2):
+            solo[m].grad = g[m].clone()
+            topts[m].step()
+    torch.cuda.synchronize()
+    for m in range(2):
+        np.testing.assert_allclose(stacked.detach()[m].cpu().numpy(),
+                                   solo[m].detach().cpu().numpy(), rtol=1e-6, atol=1e-6)

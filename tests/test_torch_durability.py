@@ -444,8 +444,11 @@ def test_plan_json_matches_jax():
     assert plan.to_json() == jplan.to_json()
     back = milp.Plan.from_json(jplan.to_json())
     assert back == plan and back.to_json() == plan.to_json()
-    with pytest.raises(ValueError, match="coschedule"):
-        milp.Plan.from_json(dict(jplan.to_json(), coschedule=[["a", "b"]]))
+    # a JAX plan with groups reads back with them, and writes the same form
+    grouped = dict(jplan.to_json(), coschedule=[["a", "b"]], fused=[["a", "b"]])
+    back = milp.Plan.from_json(grouped)
+    assert back.coschedule == [["a", "b"]] and back.fused == [["a", "b"]]
+    assert back.to_json() == jmilp.Plan.from_json(grouped).to_json()
 
 
 # ------------------------------------------------------- guardian records

@@ -425,12 +425,14 @@ def test_thirteen_tasks_complete_under_the_default_guardian(tmp_path):
     tasks = [_task(tmp_path, f"lr{i}", batch_count=4, lr=1e-4 * (i + 1)) for i in range(12)]
     tasks.append(_task(tmp_path, "logits", batch_count=4, loss=logits_loss))
     topo = SliceTopology(CPU)
-    stats = sat.search(tasks, technique_names=["dp"], topology=topo)
-    assert stats == {"trials_run": 2, "cache_hits": 11, "pruned": 0}
+    # solo tasks (fusion=False): the 13-task plan goes through the ladder's
+    # partitions, not a fused pseudo-task
+    stats = sat.search(tasks, technique_names=["dp"], topology=topo, fusion=False)
+    assert stats == {"trials_run": 2, "cache_hits": 11, "pruned": 0, "fused_groups": 0}
     # one interval holds every task; 2 s of solving lets tier 1 split the
     # 13 tasks into two partitions of at most SATURN_TPU_PARTITION_MAX = 10
     out = sat.orchestrate(tasks, interval=1000.0, topology=topo, metrics_path=ev,
-                          solver_time_limit=2.0)
+                          solver_time_limit=2.0, fusion=False)
     assert sorted(out["completed"]) == sorted(t.name for t in tasks) and out["failed"] == {}
     first = metrics.read_events(ev, kind="solver_tier")[0]
     assert first["n_tasks"] == 13 and first["source"] == "orchestrator-initial"

@@ -168,7 +168,7 @@ def test_loss_function_is_in_the_port_key_and_not_in_the_jax_key(tmp_path):
 
     stats = sat.search(ports, technique_names=["dp"], topology=CPU_TOPO,
                        profile_cache=str(tmp_path / "port_entries"))
-    assert stats == {"trials_run": 2, "cache_hits": 0, "pruned": 0}
+    assert stats == {"trials_run": 2, "cache_hits": 0, "pruned": 0, "fused_groups": 0}
     assert len(pcache.ProfileCache(str(tmp_path / "port_entries"))) == 2
 
 
@@ -182,14 +182,14 @@ def test_second_search_runs_no_trial(tmp_path):
     tasks.append(_task(tmp_path, "untagged", loss=logits_loss))
     first = sat.search(tasks, technique_names=["dp"], topology=CPU_TOPO,
                        metrics_path=events)
-    assert first == {"trials_run": 2, "cache_hits": 2, "pruned": 0}
+    assert first == {"trials_run": 2, "cache_hits": 2, "pruned": 0, "fused_groups": 1}
     strategies = {t.name: (t.strategies[1].params, t.strategies[1].per_batch_time)
                   for t in tasks}
     assert strategies["lr0"] == strategies["lr1"] == strategies["lr2"]
     for t in tasks:
         t.strategies.clear()
     again = sat.search(tasks, technique_names=["dp"], topology=CPU_TOPO)
-    assert again == {"trials_run": 0, "cache_hits": 4, "pruned": 0}
+    assert again == {"trials_run": 0, "cache_hits": 4, "pruned": 0, "fused_groups": 1}
     assert strategies == {t.name: (t.strategies[1].params, t.strategies[1].per_batch_time)
                           for t in tasks}
     hits = [e["hit"] for e in metrics.read_events(events, kind="profile_cache")]
@@ -201,5 +201,5 @@ def test_profile_cache_false_profiles_every_task(tmp_path):
     tasks = [_task(tmp_path, "a"), _task(tmp_path, "b", lr=5e-3)]
     stats = sat.search(tasks, technique_names=["dp"], topology=CPU_TOPO,
                        profile_cache=False)
-    assert stats == {"trials_run": 2, "cache_hits": 0, "pruned": 0}
+    assert stats == {"trials_run": 2, "cache_hits": 0, "pruned": 0, "fused_groups": 1}
     assert tasks[0].strategies[1].cache_key is None
