@@ -84,7 +84,8 @@ Phases, in order; any failure is an exception and a non-zero exit:
    the windows. The same windows profile for flash + fused at b8 x 1024
    (recompute mode).
 6. A sweep past the MILP's task limit: 13 GPT-2-small tasks (b8 x 512,
-   synthetic data, 16 batches each) through ``search(["dp"])`` and
+   at SWEEP_LAYERS of its 12 layers, cut in depth only; synthetic data, 16
+   batches each) through ``search(["dp"])`` and
    ``orchestrate`` with the defaults (the health guardian, the anytime
    solver) and a fresh profile cache. Twelve differ only in lr
    (``pretraining_loss``, the fused head); the 13th runs an untagged loss
@@ -130,12 +131,13 @@ Phases, in order; any failure is an exception and a non-zero exit:
    the memory each run holds on the card after its steps under dp's by at
    least the AdamW moments. b) GPT-J-6B at its published shape (28
    layers, d_model 4096, 16 heads, d_ff 16384, rotary 64, parallel
-   residual, vocab 50304, b8 x 512, bf16 compute, fp32 params, AdamW; cut
-   in depth only, to 24 layers, where the host has less than
-   HOST_MIN_BYTES of memory available or the save dir less than
-   DISK_MIN_BYTES free, and the facts logged): 8b-1, ``search(["dp",
-   "offload"])`` must find every dp config infeasible by the static screen
-   (no init drawn) and each offload config timed or out of device memory;
+   residual, vocab 50304, b8 x 512, bf16 compute, fp32 params, AdamW; the
+   host's memory, cores and free disk logged): 8b-1, ``search(["dp"])`` at
+   the published depth must find every dp config infeasible by the static
+   screen on the meta-device model (no init drawn), and
+   ``search(["offload"])`` at
+   GPTJ_SEARCH_LAYERS (cut in depth only) must time each offload config
+   or find it out of device memory;
    8b-2, at GPTJ_CKPT_LAYERS (the machine's cap on disk writes a call
    holds no deeper checkpoint), ``search(["offload"])`` and
    ``orchestrate`` train the winner for 4 batches to a checkpoint at step
@@ -167,8 +169,9 @@ Phases, in order; any failure is an exception and a non-zero exit:
    ``saturn_tpu_torch.examples.lm_sweep``, run as ``python -m`` runs it
    from a child launcher that passes ``trace_dir`` to its ``search`` and
    ``orchestrate`` (lm_sweep has no flag for it), with 9c's compile cache
-   from the environment: GPT-2-small b8 x 512, two lrs, SWEEP_BATCH_COUNT
-   batches, ``dp``, the bundled corpus through the word tokenizer. Every
+   from the environment: GPT-2-small b8 x 512 at SWEEP_TRACE_LAYERS of its
+   12 layers (cut in depth only), two lrs, SWEEP_BATCH_COUNT batches,
+   ``dp``, the bundled corpus through the word tokenizer. Every
    task must reach its steps; the two traces (search, orchestrate) must
    name the flash forward, dQ, dK/dV and the CE forward, dx and dW kernels
    as often as the launch counters counted them over the run (a trace
@@ -177,14 +180,15 @@ Phases, in order; any failure is an exception and a non-zero exit:
    subclass in its ``__main__`` and registers it under
    ``SATURN_TPU_LIBRARY_PATH``, beside two JAX-format ``.udp`` files; a
    second process retrieves it by name (the ``.udp`` files left alone) and
-   trains GPT-2-small with it through ``search`` and ``orchestrate``. e)
+   trains GPT-2-small (at TECHNIQUE_LAYERS of its 12 layers, cut in depth
+   only) with it through ``search`` and ``orchestrate``. e)
    GPT-2-small from an HF ``GPT2LMHeadModel``-named fp32 state dict (seeded
    numpy, 50257 rows, 1024 positions): the first dp step's loss (bf16,
    flash, fused head) within PRETRAINED_LOSS_REL of the same ingested
    model's f32 loss on the CPU and at least PRETRAINED_CONTROL times that
    far from a random init's, then ``search`` and ``orchestrate``. f) GPT-J-6B at
    GPTJ_HF_LAYERS layers from an HF ``GPTJForCausalLM``-named fp16 state
-   dict (HF's 50400 embedding rows, so vocab_size 50432; about 2.5 GB):
+   dict (HF's 50400 embedding rows, so vocab_size 50432; about 1.6 GB):
    offload bulk and dp over the logits from it, losses within OFFLOAD_REL,
    exact flash launches at head dim 256; its logits within BF16_BAND (by
    relative norm) of a plain f32 forward with HF's interleaved rotary,
@@ -212,7 +216,8 @@ Phases, in order; any failure is an exception and a non-zero exit:
    FUSED_BATCHES (one write per fused interval), ``fused_interval`` events
    cover every member, the launches are exact; the solver's fused makespan
    against its solo one. d) four tasks over the logits
-   (``nan_on_mark_loss``) in a hand-built fused plan through
+   (``nan_on_mark_loss``) at SWEEP_LAYERS (phase 6's depth, whose profile
+   entry their search reuses) in a hand-built fused plan through
    ``engine.execute``: member 3's batch UNFUSE_MARKED is marked, member 2
    detaches after the first window. Member 3 faults alone and writes
    nothing, members 0 and 1 commit, member 2 is unfused (a synchronous
@@ -224,6 +229,38 @@ Phases, in order; any failure is an exception and a non-zero exit:
    serial one, the measured host fractions, and whether ``solve`` would
    co-locate the pair at ``coschedule_min_gain``. Phase 10c's launches join
    phases 3 and 6's in the kernels line.
+11. Fault injection, fleet health and elastic recovery
+   (``saturn_tpu_torch/resilience/``, the engine's fault hooks), two
+   GPT-2-small tasks (b8 x 512, ``dp``, flash and the fused head,
+   FAULT_BATCHES batches each, differing only in lr; searched once, profile
+   cache seeded from phase 3's; each run trains clones). a) the seed
+   CHAOS_SEED campaign (``run_campaign``) of the four health-fault classes
+   (a NaN and a 1e9 spike in the observed loss, a poisoned batch, a
+   CHAOS_STALL_S dispatch stall) with the sentinel's spike screen on, a
+   guardian whose watchdog deadline (CHAOS_WATCHDOG) is below the stall,
+   and a kill at ``post-rollback``: both tasks complete across one restart,
+   the poisoned batch is quarantined and the journal replays the
+   quarantine, a hung dispatch and a numeric fault were seen, every final
+   checkpoint equals byte for byte (``compare_checkpoints``) that of a
+   fault-free run with the quarantine applied beforehand, each task writes
+   one checkpoint per interval that ran to its end, and the launches are
+   exact (12 of each flash kernel and 1 of each CE kernel per step run,
+   discarded runs included). b) a drill through ``SATURN_TPU_FAULTS``: a
+   ``trial_crash`` at interval 0, ``device_loss`` of device 0 at interval
+   1 + DRILL_AFTER_SHARE of the unfaulted run's first launch,
+   ``device_return`` at interval 2 (``SATURN_TPU_GROW_HYSTERESIS=1``), a
+   ``straggler`` of DRILL_SLOWDOWN at interval 3. Checked: the crash costs
+   one retry and the preemption none; the run under the loss is discarded
+   (no checkpoint write) and its task requeued; the poll at interval 2
+   reports a grow gaining device 0 (journaled ``grow_event``; on one device
+   the loss no poll saw cancels into a grow, the JAX package's rule) and
+   the re-plan passes the verifier as ``migration-replan``; the straggler
+   raises no degrade (one device has no median); every checkpoint is at
+   its budget, bitwise the unfaulted run's, the journal replays strictly
+   with each task's batches once; the launches are exact. Printed: the
+   campaign's faults and discarded runs, ``replan_latency_s``, the seconds
+   of discarded work, the faulted run's wall time against the unfaulted
+   one's. Its launches join the kernels line.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
@@ -262,6 +299,10 @@ builds the kernels and runs phase 9 (``chiprun_out/data.json``).
     python3 chip_smoke.py --fused
 
 builds the kernels and runs phase 10 (``chiprun_out/fused.json``).
+
+    python3 chip_smoke.py --faults
+
+builds the kernels and runs phase 11 (``chiprun_out/faults.json``).
 
     python3 chip_smoke.py --fused-profile
 
@@ -1628,6 +1669,10 @@ def staging_ab(sat, card, k=WINDOW, n_windows=4, rounds=3):
 # ------------------------------------------------------------------ phase 6
 SWEEP_TASKS = 12           # lr points of GPT-2-small, fused head; a 13th runs the logits
 SWEEP_BATCHES = 16
+#: GPT-2-small's depth in the sweep, cut from 12 (depth only): its cost is
+#: per task (a fresh init, the captures, two checkpoint writes), and the
+#: script's time limit is shared by every phase
+SWEEP_LAYERS = 4
 MARKED_BATCH = 12          # the 13th task's dataset index whose loss is NaN
 MARK = VOCAB - 1           # a whole row of this id marks that batch (synthetic data never does)
 SWEEP_INTERVAL_BATCHES = 9.5  # interval: this many of the 13th task's profiled batches
@@ -1670,10 +1715,10 @@ def sweep_tasks(sat, save_dir):
     (``pretraining_loss``, the fused head), and one whose loss runs over the
     logits and is NaN on its batch MARKED_BATCH."""
     tasks = [lm_task(sat, f"sweep-lr{i}", 2e-4 + 1e-4 * i, SWEEP_BATCHES, save_dir,
-                     model=GPT2) for i in range(SWEEP_TASKS)]
+                     model=GPT2, n_layers=SWEEP_LAYERS) for i in range(SWEEP_TASKS)]
     sick = lm_task(sat, "sweep-nan", 6e-4, SWEEP_BATCHES, save_dir, model=GPT2,
                    loss_fn=nan_on_mark_loss,
-                   wrap=lambda ds: PoisonedDataset(ds, MARKED_BATCH, MARK))
+                   wrap=lambda ds: PoisonedDataset(ds, MARKED_BATCH, MARK), n_layers=SWEEP_LAYERS)
     return tasks + [sick]
 
 
@@ -2144,17 +2189,19 @@ STREAM_BULK_GRAD_REL = 1e-3  # the same, gradients by relative norm
 STREAM = {"stream": True, "remat": True}
 BULK = {"stream": False, "remat": False}
 GPTJ = "gptj-6b"
-GPTJ_LAYERS, GPTJ_CUT_LAYERS = 28, 24  # 24: the shallowest whose dp state passes the headroom
+GPTJ_LAYERS = 28             # the published depth: 8b-1's dp screen, on the meta device
+#: The depth of 8b-1's offload trials, which draw one host state: 24 layers'
+#: draw takes 80-106 s on an H100's host, a tenth of the script's time limit
+#: (cut in depth only).
+GPTJ_SEARCH_LAYERS = 4
 #: The depth of 8b-2, whose run writes a checkpoint of params and AdamW moments
 #: (12 bytes a parameter): the card's machine takes at most 45 GiB of disk writes
 #: a call, deleted files included, and 24 layers' checkpoint is 56.3 GiB. The
-#: run cannot read what is left of that budget (``bytes_written``), so the depth
-#: is the one a whole run has been seen to pass at.
-GPTJ_CKPT_LAYERS = 4
-#: The depth of 8c, GPT-J-6B offload against dp: dp's state (15.1 GiB) fits the card.
-GPTJ_PARITY_LAYERS = 4
-HOST_MIN_BYTES = 100 * 2**30  # host memory free for 28 layers' 65.3 GiB state, grads and the rest
-DISK_MIN_BYTES = 75e9         # disk free at the save dir for one 28-layer checkpoint (70 GB)
+#: run cannot read what is left of that budget (``bytes_written``), and the
+#: script's time limit is shared by every phase, so 8b-2, 8c and 9f run at 2.
+GPTJ_CKPT_LAYERS = 2
+#: The depth of 8c, GPT-J-6B offload against dp: dp's state fits the card.
+GPTJ_PARITY_LAYERS = 2
 
 
 def host_facts(free_text: str, nproc_text: str, df_text: str) -> dict:
@@ -2167,20 +2214,6 @@ def host_facts(free_text: str, nproc_text: str, df_text: str) -> dict:
     return {"mem_total": values["total"], "mem_available": values["available"],
             "cores": int(nproc_text.strip()),
             "disk_free": int(df_text.strip().splitlines()[-1].strip())}
-
-
-def gptj_depth(facts: dict):
-    """GPT-J-6B's depth on this host and why it was cut (None if not): 28
-    layers where the host holds the offload state and its checkpoint, else
-    24."""
-    short = []
-    if facts["mem_available"] < HOST_MIN_BYTES:
-        short.append(f"{facts['mem_available'] / 2**30:.1f} GiB of host memory available, "
-                     f"under {HOST_MIN_BYTES / 2**30:.0f} GiB")
-    if facts["disk_free"] < DISK_MIN_BYTES:
-        short.append(f"{facts['disk_free'] / 1e9:.1f} GB of disk free at the save dir, "
-                     f"under {DISK_MIN_BYTES / 1e9:.0f} GB")
-    return (GPTJ_CUT_LAYERS, "; ".join(short)) if short else (GPTJ_LAYERS, None)
 
 
 SPLIT_KEYS = ("h2d_s", "compute_s", "d2h_s", "update_s", "step_s")
@@ -2342,10 +2375,32 @@ def gptj_task(sat, name, layers, save_dir, loss_fn=None):
     return task, n
 
 
+def gptj_dp_screen(sat, topo, save_dir):
+    """8b-1's dp half, through the entry point: ``search`` with ``["dp"]`` on
+    GPT-J-6B at its published depth (GPTJ_LAYERS) must find every dp config
+    infeasible by the static screen (the meta-device model's fp32 params,
+    grads and AdamW moments against the card) before any init is drawn, and
+    leave the task no feasible strategy. Returns ``[(config, state bytes)]``
+    and the parameter count."""
+    task, n_params = gptj_task(sat, "gptj-6b-published", GPTJ_LAYERS, save_dir)
+    sat.library.register_default_library()
+    with TechniqueSearches() as searched:
+        sat.search([task], technique_names=["dp"], topology=topo, profile_cache=False)
+    dp = searched.named("dp")
+    outcomes = [(c, o) for name, _, c, _, o in dp.trials if name == task.name]
+    if not outcomes or any(o != "static" for _, o in outcomes):
+        raise AssertionError(f"dp trials {dp.trials}: want every config screened out "
+                             f"statically at {GPTJ_LAYERS} layers")
+    if task.feasible_strategies():
+        raise AssertionError(f"{task.name}: feasible strategies {task.feasible_strategies()} "
+                             f"after every dp config was screened out")
+    return [(c, dp.state_bytes(task, c)) for c, _ in outcomes], n_params
+
+
 def gptj_search(sat, flash, ce, card, searched_inits):
-    """Phase 8b-1: GPT-J-6B (cut in depth only where the host cannot hold
-    it): dp screened out before any init, offload's configs timed on one
-    shared host state."""
+    """Phase 8b-1: GPT-J-6B's dp configs screened out at its published
+    depth before any init; offload's configs timed on one shared host state
+    at GPTJ_SEARCH_LAYERS (cut in depth only)."""
     import gc
 
     save_dir = os.path.join(CKPTS, "gptj")
@@ -2356,18 +2411,18 @@ def gptj_search(sat, flash, ce, card, searched_inits):
     log(f"  host: {facts['cores']} cores, {facts['mem_total'] / 2**30:.1f} GiB of memory "
         f"({facts['mem_available'] / 2**30:.1f} GiB available), "
         f"{facts['disk_free'] / 1e9:.1f} GB of disk free at {save_dir}")
-    layers, cut = gptj_depth(facts)
-    if cut:
-        log(f"  cut: GPT-J-6B at {layers} of its {GPTJ_LAYERS} layers, depth only: {cut}")
-    task, n_params = gptj_task(sat, "gptj-6b", layers, save_dir)
     topo = topology()
-    sat.library.register_default_library()
+    screened, n_full = gptj_dp_screen(sat, topo, save_dir)
+    for c, need in screened:
+        log(f"    dp {c} at {GPTJ_LAYERS} layers: {need / 2**30:.1f} GiB of train state, "
+            f"infeasible by the static screen, no init drawn")
+    task, n_params = gptj_task(sat, "gptj-6b", GPTJ_SEARCH_LAYERS, save_dir)
     cache_dir = os.path.join(OUT, "gptj_profile_cache")
     shutil.rmtree(cache_dir, ignore_errors=True)
     reset_counts(flash, ce)
     t0 = time.perf_counter()
     with TechniqueSearches() as searched, searched_inits:
-        stats = sat.search([task], technique_names=["dp", "offload"], topology=topo,
+        stats = sat.search([task], technique_names=["offload"], topology=topo,
                            profile_cache=cache_dir)
     t_search = time.perf_counter() - t0
     trial_launches = counts(flash, ce)
@@ -2375,15 +2430,11 @@ def gptj_search(sat, flash, ce, card, searched_inits):
         raise AssertionError(f"{task.name}: the trials launched the flash kernels "
                              f"{trial_launches}, want each at head dim 256")
     gc.collect()
-    dp, off = searched.named("dp"), searched.named("offload")
-    outcomes = {"dp": [(c, o) for _, _, c, _, o in dp.trials],
+    off = searched.named("offload")
+    outcomes = {"dp": [(c, "static", need) for c, need in screened],
                 "offload": [(c, s, o) for _, _, c, s, o in off.trials]}
-    if not dp.trials or any(o != "static" for _, o in outcomes["dp"]):
-        raise AssertionError(f"dp trials {dp.trials}: want every config screened out statically")
     if any(o not in ("ok", "memory") for *_, o in outcomes["offload"]):
         raise AssertionError(f"offload trials {off.trials}")
-    for c, o in outcomes["dp"]:
-        log(f"    trial dp {c}: infeasible by the static screen, no init drawn")
     for c, spb, o in outcomes["offload"]:
         log(f"    trial offload {c}: " + (f"{spb:.3f} s/batch" if spb is not None
                                           else "infeasible (out of device memory)")
@@ -2398,7 +2449,8 @@ def gptj_search(sat, flash, ce, card, searched_inits):
         f"{strat.per_batch_time:.3f} s/batch; the host state drawn in "
         f"{searched_inits.seconds['state']} s, its buffers allocated and pinned in "
         f"{searched_inits.seconds['buffer']} s; the trials' launches {trial_launches}  [{card}]")
-    return {"facts": facts, "layers": layers, "cut": cut, "params": n_params,
+    return {"facts": facts, "layers": GPTJ_SEARCH_LAYERS, "dp_layers": GPTJ_LAYERS,
+            "dp_params": n_full, "params": n_params,
             "stats": stats, "seconds": t_search, "trial_launches": trial_launches,
             "dp": outcomes["dp"],
             "offload": outcomes["offload"], "splits": split, "won": strat.params,
@@ -2604,7 +2656,8 @@ def offload_phase(sat, flash, ce, card) -> dict:
     log(f"  phase 8a took {time.perf_counter() - t0:.1f}s")
     for label, run, inits in (("8b-1", gptj_search, "search"), ("8b-2", gptj_train, "train")):
         log(f"phase {label}: GPT-J-6B b8x512 on one card, "
-            + ("search(['dp', 'offload'])" if inits == "search"
+            + (f"the dp screen at {GPTJ_LAYERS} layers, search(['offload']) at "
+               f"{GPTJ_SEARCH_LAYERS}" if inits == "search"
                else f"{GPTJ_CKPT_LAYERS} layers, search(['offload']) -> orchestrate"))
         # every host state's allocation, pinning and draw, and its buffers alone
         timer = CallTimes(state=(offload_mod, "make_host_state"),
@@ -2627,8 +2680,13 @@ BUNDLED_CORPUS = os.path.join(REPO, "examples", "data", "corpus.txt")
 GPT2_VOCAB = 50257            # HF GPT-2's vocabulary: the word tokenizer's cap in 9a
 PLAIN_PREFIX_BYTES = 8 * 2**20  # 9a: the generated corpus's prefix also held to the plain version
 SWEEP_BATCH_COUNT = 16        # 9b: batches of each task of the traced sweep
+#: 9b: GPT-2-small's depth in the traced sweep, cut from 12 (depth only): its
+#: trials and steps run under the profiler, whose traces grow with the depth
+#: (592 MB at 12 layers), and the script's time limit is shared by every phase
+SWEEP_TRACE_LAYERS = 4
 SWEEP_LRS = ("6e-4", "1e-3")
 PRETRAINED_STEPS = 3          # 9e's orchestrate and 9f's runs: steps of each
+TECHNIQUE_LAYERS = 4          # 9d: GPT-2-small's depth in the user's run, cut from 12 (depth only)
 #: 9e: the card's first loss against the ingested model's f32 loss on the
 #: CPU, relative (read at 2.42e-05 on an H100); the loss of a random init of
 #: the same spec must lie PRETRAINED_CONTROL times as far off, so that the
@@ -2637,18 +2695,20 @@ PRETRAINED_LOSS_REL = 5e-4
 PRETRAINED_CONTROL = 5.0
 GPTJ_HF_VOCAB = 50400         # HF GPT-J-6B's embedding rows (its tokenizer has 50257 ids)
 GPTJ_HF_PADDED = 50432        # the preset vocab that holds them, a multiple of 128
-GPTJ_HF_LAYERS = 4            # 9f: the depth of 8b-2 and 8c
+GPTJ_HF_LAYERS = 2            # 9f: the depth of 8b-2 and 8c
 WRONG_ROTARY_MIN = 5.0        # 9f: the split-half forward's distance over the interleaved one's, at least
 #: 9b: a launcher that runs the sweep driver as ``python -m`` would, with
-#: ``trace_dir`` passed to its ``search`` and ``orchestrate`` (lm_sweep has
-#: no flag for it) and the compile cache from the environment; it writes the
-#: kernel launch counters over the whole run and the trace exports' seconds.
+#: ``trace_dir`` passed to its ``search`` and ``orchestrate`` and the model
+#: cut to a depth (lm_sweep has a flag for neither), the compile cache from
+#: the environment; it writes the kernel launch counters over the whole run
+#: and the trace exports' seconds.
 SWEEP_LAUNCHER = r"""
 import functools, json, runpy, sys, time
 import torch.profiler
 import saturn_tpu_torch as sat
+from saturn_tpu_torch.models import gpt2
 from saturn_tpu_torch.ops import ce, flash
-out, trace_dir = sys.argv[1], sys.argv[2]
+out, trace_dir, layers = sys.argv[1], sys.argv[2], int(sys.argv[3])
 exports = []
 handler_of = torch.profiler.tensorboard_trace_handler
 def timed_handler(*args, **kwargs):
@@ -2661,9 +2721,10 @@ def timed_handler(*args, **kwargs):
 torch.profiler.tensorboard_trace_handler = timed_handler
 sat.search = functools.partial(sat.search, trace_dir=trace_dir)
 sat.orchestrate = functools.partial(sat.orchestrate, trace_dir=trace_dir)
+gpt2.build_gpt2 = functools.partial(gpt2.build_gpt2, n_layers=layers)
 flash.reset_launch_counts()
 ce.reset_launch_counts()
-sys.argv = ["lm_sweep"] + sys.argv[3:]
+sys.argv = ["lm_sweep"] + sys.argv[4:]
 t0 = time.perf_counter()
 runpy.run_module("saturn_tpu_torch.examples.lm_sweep", run_name="__main__", alter_sys=True)
 with open(out, "w") as f:
@@ -2733,7 +2794,7 @@ try:
     jax_only = "loaded"
 except KeyError:
     jax_only = "absent"
-task = sat.Task(get_model=lambda **kw: build_gpt2("gpt2-small", **kw),
+task = sat.Task(get_model=lambda **kw: build_gpt2("gpt2-small", n_layers=int(sys.argv[3]), **kw),
                 get_dataloader=lambda: make_lm_dataset(context_length=512, batch_size=8, seed=0),
                 loss_fn=pretraining_loss, hparams=sat.HParams(lr=6e-4, batch_count=int(sys.argv[2])),
                 name="script-dp-task", save_dir=sys.argv[1])
@@ -2869,7 +2930,8 @@ def sweep_trace_phase(card, cache_dir: str, attempts: int = 2) -> dict:
         args = ["--preset", GPT2, "--batch-sizes", str(BATCH), "--lrs", *SWEEP_LRS,
                 "--batch-count", str(SWEEP_BATCH_COUNT), "--techniques", "dp",
                 "--save-dir", ckpts]
-        proc = run_child(["-c", SWEEP_LAUNCHER, counts_path, trace_dir, *args],
+        proc = run_child(["-c", SWEEP_LAUNCHER, counts_path, trace_dir,
+                          str(SWEEP_TRACE_LAYERS), *args],
                          "sweep_trace", 900, SATURN_TPU_COMPILE_CACHE_DIR=cache_dir,
                          SATURN_TPU_PROFILE_CACHE_DIR=os.path.join(OUT, "sweep_profile_cache_9b"))
         steps = re.findall(r"trained steps=(\d+) remaining=(\d+)", proc.stdout)
@@ -2895,8 +2957,8 @@ def sweep_trace_phase(card, cache_dir: str, attempts: int = 2) -> dict:
                "export_s": counted["export_s"], "launches": want, "trace_launches": seen,
                "sweep_s": counted["seconds"], "process_s": proc.seconds, "steps": steps,
                "attempt": attempt + 1}
-        log(f"  lm_sweep: {len(SWEEP_LRS)} tasks x {SWEEP_BATCH_COUNT} steps on the bundled "
-            f"corpus in {counted['seconds']:.1f}s ({proc.seconds:.1f}s with the process); "
+        log(f"  lm_sweep: {len(SWEEP_LRS)} tasks x {SWEEP_BATCH_COUNT} steps at "
+            f"{SWEEP_TRACE_LAYERS} layers on the bundled corpus in {counted['seconds']:.1f}s ({proc.seconds:.1f}s with the process); "
             f"traces {nbytes / 1e6:.1f} MB (search {sizes[0] / 1e6:.1f}, orchestrate "
             f"{sizes[1] / 1e6:.1f}), exported in "
             f"{', '.join(f'{s:.2f}s' for s in counted['export_s'])}  [{card}]")
@@ -2966,7 +3028,8 @@ def technique_phase(card) -> dict:
     if files != sorted(["jax-only.udp", "script-dp.udp", "script-dp" + library.SUFFIX]):
         raise AssertionError(f"9d: the store holds {files}")
     save_dir = os.path.join(CKPTS, "script_dp")
-    proc = run_child(["-c", TECHNIQUE_USER, save_dir, str(PRETRAINED_STEPS)],
+    proc = run_child(["-c", TECHNIQUE_USER, save_dir, str(PRETRAINED_STEPS),
+                      str(TECHNIQUE_LAYERS)],
                      "technique_use", 600, SATURN_TPU_LIBRARY_PATH=store)
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     if got["qualname"] != "ScriptDP" or got["executor"] != "ScriptDP" \
@@ -2976,7 +3039,7 @@ def technique_phase(card) -> dict:
             or not np.isfinite(got["losses"]).all() or got["trials"] < 1:
         raise AssertionError(f"9d: the persisted technique's run: {got}")
     log(f"  {got['qualname']} from {got['module']} (registered by {os.path.basename(script)}): "
-        f"{got['trials']} trials, {got['step']} steps, losses "
+        f"GPT-2-small at {TECHNIQUE_LAYERS} layers, {got['trials']} trials, {got['step']} steps, losses "
         f"{np.round(got['losses'], 4).tolist()}; JAX .udp files left alone; "
         f"{proc.seconds:.1f}s  [{card}]")
     shutil.rmtree(save_dir, ignore_errors=True)
@@ -3293,20 +3356,24 @@ UNFUSE_MARKED = 4                     # 10d: member 3's dataset index whose loss
 COSCHEDULE_BATCHES = 10               # 10e: each member's budget
 
 
-def flash_per_step(config) -> int:
-    """Launches of each flash kernel per (lockstep) step under ``config``:
-    one per layer with flash attention (the members folded into its batch),
-    none with dense."""
-    return LAYERS if (config or {}).get("attention") == "flash" else 0
+def flash_per_step(config, name: str = "flash_dq", layers: int = 0) -> int:
+    """Launches of flash kernel ``name`` per (lockstep) step under
+    ``config`` at ``layers`` (0: LAYERS): one per layer with flash
+    attention (the members folded into its batch), the forward twice with
+    remat (the backward recomputes each block), none with dense."""
+    config = config or {}
+    if config.get("attention") != "flash":
+        return 0
+    return (layers or LAYERS) * (2 if name == "flash_fwd" and config.get("remat") else 1)
 
 
 def fused_tasks(sat, save_dir, loss_fn=None, wrap=None, batches=FUSED_BATCHES, prefix="fused",
-                batch=None):
+                batch=None, **kwargs):
     """GPT-2-small tasks (b``batch`` x 512, BATCH rows by default) differing
     only in lr (FUSED_LRS); ``wrap`` maps a member index to its dataset
-    wrapper."""
+    wrapper; ``kwargs`` go to the model."""
     return [lm_task(sat, f"{prefix}-lr{i}", lr, batches, save_dir, model=GPT2, loss_fn=loss_fn,
-                    wrap=(wrap(i) if wrap else None), seq=SEQ, batch=batch)
+                    wrap=(wrap(i) if wrap else None), seq=SEQ, batch=batch, **kwargs)
             for i, lr in enumerate(FUSED_LRS)]
 
 
@@ -3420,7 +3487,7 @@ def fused_against_solo(sat, flash, ce, card, tasks, k=WINDOW):
     peak = {"allocated": torch.cuda.max_memory_allocated(dev),
             "reserved": torch.cuda.max_memory_reserved(dev)}
     m = len(tasks)
-    want = {**{n: flash_per_step(config) * k for n in FLASH_NAMES},
+    want = {**{n: flash_per_step(config, n) * k for n in FLASH_NAMES},
             **{n: m * k for n in CE_NAMES}}
     if launched != want:
         raise AssertionError(f"10b: the stacked window launched {launched}, want {want}")
@@ -3506,7 +3573,8 @@ def fused_orchestrate(sat, flash, ce, card, tasks, topo):
     if covered != set(names):
         raise AssertionError(f"10c: fused_interval events cover {sorted(covered)}")
     lockstep = sum(e["batches"] for e in evs)
-    want = {**{n: flash_per_step(tasks[0].strategies[1].params) * lockstep for n in FLASH_NAMES},
+    want = {**{n: flash_per_step(tasks[0].strategies[1].params, n) * lockstep
+               for n in FLASH_NAMES},
             **{n: len(names) * lockstep for n in CE_NAMES}}
     if lockstep != FUSED_BATCHES or launches != want:
         raise AssertionError(f"10c: {lockstep} lockstep steps, launches {launches}, want {want}")
@@ -3553,7 +3621,9 @@ def unfuse_phase(sat, flash, ce, card, topo):
     """10d: four members over the logits (``nan_on_mark_loss``) in a fused
     plan through ``engine.execute``: member 3's batch UNFUSE_MARKED is
     marked (a NaN on the card), member 2 detaches after the first window.
-    Member 3 faults alone, 0 and 1 commit, 2 resumes solo to its budget."""
+    Member 3 faults alone, 0 and 1 commit, 2 resumes solo to its budget.
+    At phase 6's depth (SWEEP_LAYERS, cut in depth only), whose profile
+    entry over the logits its search reuses."""
     from saturn_tpu_torch.core.mesh import Block
     from saturn_tpu_torch.executor import engine
     from saturn_tpu_torch.health import NumericFaultError
@@ -3565,7 +3635,7 @@ def unfuse_phase(sat, flash, ce, card, topo):
     tasks = fused_tasks(sat, save_dir, loss_fn=nan_on_mark_loss, batches=UNFUSE_BATCHES,
                         prefix="unfuse",
                         wrap=lambda i: ((lambda ds: PoisonedDataset(ds, UNFUSE_MARKED, MARK))
-                                        if i == 3 else None))
+                                        if i == 3 else None), n_layers=SWEEP_LAYERS)
     # the plan is hand-built: no fused trial
     sat.search(tasks, technique_names=["dp"], topology=topo,
                profile_cache=seeded_cache("unfuse_profile_cache"), fusion=False)
@@ -3616,7 +3686,8 @@ def unfuse_phase(sat, flash, ce, card, topo):
         raise AssertionError(f"10d: {leaver.name} cursor {leaver.current_batch}, "
                              f"solo resume {runs[-1:]}")
     lock = 2 * UNFUSE_BATCHES - d  # stack steps plus the leaver's solo steps
-    want_l = {**{n: flash_per_step(tasks[0].strategies[1].params) * lock for n in FLASH_NAMES},
+    want_l = {**{n: flash_per_step(tasks[0].strategies[1].params, n, SWEEP_LAYERS) * lock
+                 for n in FLASH_NAMES},
               **{n: 0 for n in CE_NAMES}}
     if launches != want_l:
         raise AssertionError(f"10d: launches {launches}, want {want_l}")
@@ -3626,7 +3697,7 @@ def unfuse_phase(sat, flash, ce, card, topo):
         f"step {UNFUSE_BATCHES}; {leaver.name} unfused at step {d} (synchronous write), resumed "
         f"solo from that checkpoint for {UNFUSE_BATCHES - d} batches and wrote step "
         f"{steps[leaver.name]}; launches {launches} (exact: {lock} steps x "
-        f"{flash_per_step(tasks[0].strategies[1].params)}); "
+        f"{flash_per_step(tasks[0].strategies[1].params, layers=SWEEP_LAYERS)}); "
         f"{seconds:.1f}s  [{card}]")
     for t in tasks:
         t.release_live_state()
@@ -3819,6 +3890,373 @@ def fused_phase(sat, flash, ce, card) -> tuple:
     return launches, out
 
 
+# ------------------------------------------------------------------ phase 11
+FAULT_BATCHES = 16                    # each task's budget
+CHAOS_NAMES = ("chaos-a", "chaos-b")  # tests/test_torch_chaos.py's names: the same schedule
+CHAOS_LRS = (6e-4, 1e-3)
+CHAOS_SEED = 11
+CHAOS_STALL_S = 14.0                  # 11a: the injected dispatch wedge
+#: 11a: the watchdog's deadline, floor s + factor x profiled work: below the
+#: stall, above a healthy first launch (a fresh init, the captures, 16
+#: steps, the checkpoint copy: about 5 s on an H100 80GB HBM3)
+CHAOS_WATCHDOG = (10.0, 2.0)
+CHAOS_INTERVAL_S = 1000.0             # 11a: every attempt runs its whole budget in one interval
+CHAOS_SOLVE_S = 0.25                  # 11a: the solver's deadline (not interval / 2)
+DRILL_NAMES = ("drill-lr0", "drill-lr1")
+DRILL_INTERVAL_SHARE = 0.6            # 11b: of the shortest profiled runtime (about 10 batches)
+DRILL_AFTER_SHARE = 0.25              # 11b: the loss lands this share into a first launch
+DRILL_SLOWDOWN = 4.0                  # 11b: the straggler of interval 3
+#: the sentinel's spike screen (off by default) on, so that it sees the campaign's 1e9 spike
+SENTINEL_SPIKE = {"SATURN_TPU_SENTINEL_SPIKE": "8", "SATURN_TPU_SENTINEL_WARMUP": "2"}
+
+
+class EnvSet:
+    """Set environment variables inside the block; restore them after."""
+
+    def __init__(self, **env):
+        self.env, self.saved = env, {}
+
+    def __enter__(self):
+        for k, v in self.env.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+class VerifiedSources:
+    """Record the ``source`` of every plan that ``analysis.verify_or_raise``
+    passes inside the block."""
+
+    def __init__(self, analysis):
+        self.analysis, self.sources = analysis, []
+
+    def __enter__(self):
+        self.real = real = self.analysis.verify_or_raise
+
+        def verify(plan, *args, **kwargs):
+            out = real(plan, *args, **kwargs)
+            self.sources.append(kwargs.get("source"))
+            return out
+
+        self.analysis.verify_or_raise = verify
+        return self
+
+    def __exit__(self, *exc):
+        self.analysis.verify_or_raise = self.real
+
+
+def fault_templates(sat, topo, names, save_dir, cache_dir):
+    """GPT-2-small tasks (b8 x 512, fused head, differing only in lr)
+    searched once with dp; each run trains clones of them."""
+    tasks = [lm_task(sat, name, lr, FAULT_BATCHES, save_dir) for name, lr in zip(names, CHAOS_LRS)]
+    sat.search(tasks, technique_names=["dp"], topology=topo, profile_cache=cache_dir, fusion=False)
+    return tasks
+
+
+def task_clones(templates, save_dir, quarantine=None):
+    """Fresh tasks of ``templates`` (their profiled strategies, one technique
+    instance) checkpointing into ``save_dir``, with ``quarantine`` applied."""
+    os.makedirs(save_dir, exist_ok=True)
+    out = []
+    for t in templates:
+        c = t.clone(name=t.name)
+        c.save_dir = save_dir
+        c.quarantine_batches((quarantine or {}).get(t.name, []))
+        out.append(c)
+    return out
+
+
+def release(tasks) -> None:
+    for t in tasks:
+        t.release_live_state()
+        t.release_compiled()
+
+
+def steps_since(tech, marks) -> int:
+    """Training steps the technique ran since ``marks`` (the lengths of its
+    published and discarded interval records then), discarded ones too."""
+    i0, d0 = marks
+    return sum(r["n"] for r in tech.intervals[i0:]) + sum(r["n"] for r in tech.discarded[d0:])
+
+
+def want_fault_launches(config, steps: int) -> dict:
+    return {**{n: flash_per_step(config, n) * steps for n in FLASH_NAMES},
+            **{n: steps for n in CE_NAMES}}
+
+
+def check_launches(label: str, launches: dict, want: dict) -> None:
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches}, want {want}")
+
+
+def chaos_campaign(sat, flash, ce, card, templates, topo):
+    """11a: the seeded campaign of the four health-fault classes, killed at
+    post-rollback once, against a fault-free run with its quarantine."""
+    import gc
+
+    from saturn_tpu_torch.durability import replay_batch_state
+    from saturn_tpu_torch.health import HEALTH_EVENT_CODES, GuardianConfig, TrainingGuardian
+    from saturn_tpu_torch.resilience import (CampaignSpec, campaign_schedule,
+                                             compare_checkpoints, run_campaign)
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+    from saturn_tpu_torch.utils import metrics
+
+    root = os.path.join(CKPTS, "chaos")
+    wal, events_path = os.path.join(OUT, "chaos_journal"), os.path.join(OUT, "chaos_events.jsonl")
+    for d in (root, wal):
+        shutil.rmtree(d, ignore_errors=True)
+    if os.path.exists(events_path):
+        os.unlink(events_path)
+    names = [t.name for t in templates]
+    tech, config = templates[0].strategies[1].executor, templates[0].strategies[1].params
+    pbt = max(t.strategies[1].per_batch_time for t in templates)
+    guardian_config = GuardianConfig(watchdog_floor_s=CHAOS_WATCHDOG[0],
+                                     watchdog_factor=CHAOS_WATCHDOG[1])
+    deadline = TrainingGuardian(guardian_config).window_deadline_s(FAULT_BATCHES * pbt)
+    if not deadline < CHAOS_STALL_S:
+        raise AssertionError(f"11a: the watchdog deadline {deadline:.2f}s is not below the "
+                             f"stall of {CHAOS_STALL_S}s")
+    spec = CampaignSpec(seed=CHAOS_SEED, kill_during_rollback=True, poison_range=FAULT_BATCHES,
+                        stall_s=CHAOS_STALL_S)
+    schedule = campaign_schedule(names, spec)
+    dev = torch.device(DEVICE, 0)
+    gc.collect()
+    before = torch.cuda.memory_allocated(dev)
+    after_kill = []
+
+    def on_kill(tasks):
+        release(tasks)
+        gc.collect()
+        after_kill.append(torch.cuda.memory_allocated(dev))
+
+    reset_counts(flash, ce)
+    marks = (len(tech.intervals), len(tech.discarded))
+    t0 = time.perf_counter()
+    with EnvSet(**SENTINEL_SPIKE), CheckedWrites(ckpt) as writes:
+        result = run_campaign(lambda: task_clones(templates, os.path.join(root, "campaign")),
+                              spec, wal, guardian_config=guardian_config, on_kill=on_kill,
+                              interval=CHAOS_INTERVAL_S, solver_time_limit=CHAOS_SOLVE_S,
+                              topology=topo, metrics_path=events_path, fusion=False)
+    seconds = time.perf_counter() - t0
+    launches, steps = counts(flash, ce), steps_since(tech, marks)
+    if sorted(result.completed) != sorted(names) or result.failed:
+        raise AssertionError(f"11a: completed {result.completed}, failed {result.failed}")
+    if result.kills != 1 or result.restarts != 1:
+        raise AssertionError(f"11a: {result.kills} kills, {result.restarts} restarts, want 1")
+    for label, after in zip(("the kill",), after_kill):
+        check_memory(f"11a after {label}", after, before)
+    replayed = replay_batch_state(wal)
+    if result.quarantined != replayed.quarantined or not result.quarantined:
+        raise AssertionError(f"11a: quarantine {result.quarantined}, the journal replays "
+                             f"{replayed.quarantined}")
+    poisoned = {e.task: set(e.batches) for e in schedule if e.kind == "batch_poison"}
+    for name, idx in poisoned.items():
+        if not idx <= set(result.quarantined.get(name, ())):
+            raise AssertionError(f"11a: {name}'s poisoned batches {sorted(idx)} not in its "
+                                 f"quarantine {result.quarantined}")
+    health = metrics.read_events(events_path, kind="health")
+    hung = [e for e in health if e.get("code") == HEALTH_EVENT_CODES["hung_dispatch"]]
+    numeric = [e for e in health if e.get("code") == HEALTH_EVENT_CODES["numeric_fault"]]
+    if not hung or not numeric:
+        raise AssertionError(f"11a: health events {health}: want a hung dispatch (the watchdog "
+                             f"ends the stall) and a numeric fault")
+    check_launches("11a campaign", launches, want_fault_launches(config, steps))
+    for name in names:
+        path = os.path.join(root, "campaign", f"{name}.pt")
+        if ckpt.load(path)["step"] != FAULT_BATCHES:
+            raise AssertionError(f"11a {name}: checkpoint step {ckpt.load(path)['step']}")
+        runs = [r for r in tech.intervals[marks[0]:] if r["task"] == name]
+        check_writes(name, writes.steps(path), runs, FAULT_BATCHES)
+    discarded = [r for r in tech.discarded[marks[1]:]]
+    faults = [(e.kind, e.task, e.step, e.batches, e.stall_s) for e in schedule]
+    log(f"  11a campaign (seed {CHAOS_SEED}): {faults}; "
+        f"{len(discarded)} interval(s) run and discarded "
+        f"({[(r['task'], r['discarded'], r['n']) for r in discarded]}), {len(hung)} hung "
+        f"dispatch(es) (deadline {deadline:.2f}s below the {CHAOS_STALL_S}s stall), "
+        f"{len(numeric)} numeric fault(s); killed at post-rollback and restarted once; "
+        f"quarantined {result.quarantined} (the journal replays it), detached "
+        f"{result.detached}; both complete at step {FAULT_BATCHES}; {steps} steps run, "
+        f"launches {launches} (exact); {seconds:.1f}s  [{card}]")
+    release(templates)
+
+    # the fault-free run over the same surviving batches
+    ref = task_clones(templates, os.path.join(root, "reference"), quarantine=result.quarantined)
+    reset_counts(flash, ce)
+    marks = (len(tech.intervals), len(tech.discarded))
+    t0 = time.perf_counter()
+    with EnvSet(**SENTINEL_SPIKE):
+        out = sat.orchestrate(ref, interval=CHAOS_INTERVAL_S, solver_time_limit=CHAOS_SOLVE_S,
+                              topology=topo, fusion=False)
+    t_ref = time.perf_counter() - t0
+    if sorted(out["completed"]) != sorted(names) or out["failed"]:
+        raise AssertionError(f"11a reference: {out}")
+    check_launches("11a reference", counts(flash, ce),
+                   want_fault_launches(config, steps_since(tech, marks)))
+    mismatches = compare_checkpoints(os.path.join(root, "campaign"),
+                                     os.path.join(root, "reference"), names=names)
+    if mismatches:
+        raise AssertionError(f"11a: the campaign's checkpoints against the fault-free run's: "
+                             f"{mismatches}")
+    release(ref)
+    log(f"  11a: every final checkpoint byte for byte the fault-free run's with the quarantine "
+        f"applied beforehand ({t_ref:.1f}s)  [{card}]")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, {"schedule": [str(e) for e in schedule], "seconds": seconds,
+                      "reference_s": t_ref, "kills": result.kills,
+                      "quarantined": result.quarantined, "detached": result.detached,
+                      "hung": len(hung), "numeric": len(numeric), "deadline_s": deadline,
+                      "discarded": [(r["task"], r["discarded"], r["n"]) for r in discarded],
+                      "steps": steps, "launches": launches}
+
+
+def preemption_drill(sat, flash, ce, card, templates, topo):
+    """11b: the same sweep through SATURN_TPU_FAULTS: a crash at interval 0,
+    device 0 lost during interval 1, back at interval 2, a straggler at
+    interval 3; against the same sweep unfaulted."""
+    from saturn_tpu_torch import analysis, durability
+    from saturn_tpu_torch.resilience import FleetHealthMonitor
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+    from saturn_tpu_torch.utils import metrics
+
+    root = os.path.join(CKPTS, "drill")
+    wal = os.path.join(OUT, "drill_journal")
+    events_path = os.path.join(OUT, "drill_events.jsonl")
+    clean_path = os.path.join(OUT, "drill_clean_events.jsonl")
+    for d in (root, wal):
+        shutil.rmtree(d, ignore_errors=True)
+    for p in (events_path, clean_path):
+        if os.path.exists(p):
+            os.unlink(p)
+    names = [t.name for t in templates]
+    tech, config = templates[0].strategies[1].executor, templates[0].strategies[1].params
+    interval = DRILL_INTERVAL_SHARE * min(t.strategies[1].runtime for t in templates)
+
+    reset_counts(flash, ce)
+    marks = (len(tech.intervals), len(tech.discarded))
+    clean = task_clones(templates, os.path.join(root, "clean"))
+    t0 = time.perf_counter()
+    out = sat.orchestrate(clean, interval=interval, topology=topo, metrics_path=clean_path,
+                          fusion=False)
+    t_clean = time.perf_counter() - t0
+    if sorted(out["completed"]) != sorted(names) or out["failed"]:
+        raise AssertionError(f"11b clean run: {out}")
+    check_launches("11b clean run", counts(flash, ce),
+                   want_fault_launches(config, steps_since(tech, marks)))
+    want = {t.name: ckpt.load(t.ckpt_path) for t in clean}
+    first = metrics.read_events(clean_path, kind="interval")[0]["elapsed_s"]
+    after_s = round(DRILL_AFTER_SHARE * first, 3)
+    release(clean)
+    del clean
+
+    schedule = (f"0:trial_crash:;1+{after_s}:device_loss:0;2:device_return:0;"
+                f"3:straggler:0@{DRILL_SLOWDOWN}")
+    reset_counts(flash, ce)
+    marks = (len(tech.intervals), len(tech.discarded))
+    tasks = task_clones(templates, os.path.join(root, "faulted"))
+    t0 = time.perf_counter()
+    with EnvSet(SATURN_TPU_FAULTS=schedule, SATURN_TPU_GROW_HYSTERESIS="1"), \
+            VerifiedSources(analysis) as verified, CheckedWrites(ckpt) as writes:
+        monitor = FleetHealthMonitor.for_topology(topo)
+        out = sat.orchestrate(tasks, interval=interval, topology=topo, health_monitor=monitor,
+                              failure_policy="retry", max_task_retries=1, resume_dir=wal,
+                              metrics_path=events_path, fusion=False)
+    t_fault = time.perf_counter() - t0
+    launches, steps = counts(flash, ce), steps_since(tech, marks)
+    if sorted(out["completed"]) != sorted(names) or out["failed"]:
+        raise AssertionError(f"11b: completed {out['completed']}, failed {out['failed']}")
+    ev = metrics.read_events(events_path)
+
+    def kinds(kind):
+        return [e for e in ev if e["kind"] == kind]
+
+    retries, preempted = kinds("task_retry"), kinds("task_preempted")
+    if len(retries) != 1 or "injected transient trial crash" not in retries[0]["error"]:
+        raise AssertionError(f"11b: retries {retries}: want the crash's one")
+    if not preempted:
+        raise AssertionError("11b: no task was preempted by the loss during interval 1")
+    intervals = kinds("interval")
+    if not intervals[0]["failed"] or not intervals[1]["preempted"] or intervals[1]["failed"]:
+        raise AssertionError(f"11b: interval events {intervals[:2]}: want the crash in the "
+                             f"first, the preemption in the second")
+    discarded = [r for r in tech.discarded[marks[1]:] if r["discarded"] == "preempted"]
+    if not discarded:
+        raise AssertionError(f"11b: no run was discarded: {tech.discarded[marks[1]:]}")
+    changes = kinds("topology_change")
+    if [(c["change"], c["gained"], c["lost"]) for c in changes] != [("grow", [0], [])]:
+        raise AssertionError(f"11b: topology changes {changes}: want one grow gaining device 0 "
+                             f"(the straggler of one device has no median to degrade against)")
+    recs = durability.replay(wal, strict=True)
+    grows = [r["data"] for r in recs if r["kind"] == "grow_event"]
+    if [(g["interval"], g["gained"]) for g in grows] != [(2, [0])]:
+        raise AssertionError(f"11b: journaled grow events {grows}: want one at interval 2")
+    if "migration-replan" not in verified.sources:
+        raise AssertionError(f"11b: verified plans {verified.sources}: no migration-replan")
+    recovery = kinds("recovery")
+    if len(recovery) != 1:
+        raise AssertionError(f"11b: recovery events {recovery}")
+    if monitor.max_slowdown([0]) != DRILL_SLOWDOWN:
+        raise AssertionError(f"11b: the straggler's slowdown {monitor.max_slowdown([0])}")
+    progress = durability.replay_batch_state(wal).progress
+    check_progress(progress, {n: FAULT_BATCHES for n in names})
+    check_launches("11b", launches, want_fault_launches(config, steps))
+    for t in tasks:
+        check_same_state(t.name, want[t.name], ckpt.load(t.ckpt_path))
+        runs = [r for r in tech.intervals[marks[0]:] if r["task"] == t.name]
+        check_writes(t.name, writes.steps(t.ckpt_path), runs, FAULT_BATCHES)
+    lost_s = sum(r["state_s"] + r["run_s"] for r in discarded)
+    latency = recovery[0]["replan_latency_s"]
+    log(f"  11b drill: SATURN_TPU_FAULTS={schedule!r} (the loss {after_s}s into interval 1, "
+        f"{DRILL_AFTER_SHARE} of the clean run's first launch, {first:.3f}s); interval "
+        f"{interval:.3f}s; the crash took 1 retry, the preemption none "
+        f"({[e['task'] for e in preempted]} requeued; {len(discarded)} run(s) discarded, "
+        f"{[(r['task'], r['n']) for r in discarded]}, {lost_s:.3f}s of discarded work); the "
+        f"poll at interval 2 reported grow gaining [0], re-plan verified "
+        f"(migration-replan), replan_latency_s {latency:.6f}; the straggler slowed device 0 "
+        f"by {monitor.max_slowdown([0])}x (latency EWMA {monitor.latency_ewma(0)}), no "
+        f"degrade on one device; every checkpoint at step {FAULT_BATCHES}, bitwise the "
+        f"unfaulted run's; journal progress {progress}; {steps} steps run, launches "
+        f"{launches} (exact); wall {t_fault:.1f}s against the unfaulted {t_clean:.1f}s  [{card}]")
+    release(tasks)
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, {"schedule": schedule, "interval_s": interval, "after_s": after_s,
+                      "first_launch_s": first, "faulted_s": t_fault, "clean_s": t_clean,
+                      "replan_latency_s": latency, "discarded_s": lost_s,
+                      "discarded": [(r["task"], r["n"]) for r in discarded],
+                      "preempted": [e["task"] for e in preempted],
+                      "latency_ewma_s": monitor.latency_ewma(0), "steps": steps,
+                      "launches": launches}
+
+
+def faults_phase(sat, flash, ce, card) -> tuple:
+    """Phase 11: fault injection, fleet health and elastic recovery on one
+    card: the chaos campaign (11a) and the preemption drill (11b)."""
+    t_phase = time.perf_counter()
+    sat.library.register_default_library()
+    topo = topology()
+    cache_dir = seeded_cache("faults_profile_cache")
+    save_dir = os.path.join(CKPTS, "faults_templates")
+    log("phase 11: fault injection and elastic recovery, two GPT-2-small tasks b8x512, dp")
+    out = {}
+    chaos = fault_templates(sat, topo, CHAOS_NAMES, save_dir, cache_dir)
+    launches, out["campaign"] = chaos_campaign(sat, flash, ce, card, chaos, topo)
+    release(chaos)
+    drill = fault_templates(sat, topo, DRILL_NAMES, save_dir, cache_dir)
+    drill_launches, out["drill"] = preemption_drill(sat, flash, ce, card, drill, topo)
+    release(drill)
+    launches = {n: launches[n] + drill_launches[n] for n in KERNEL_NAMES}
+    shutil.rmtree(save_dir, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 11 {out['seconds']:.1f}s  [{card}]")
+    return launches, out
+
+
 def option(argv, name: str, default=None):
     """The value after ``name`` in ``argv``, or ``default``."""
     return argv[argv.index(name) + 1] if name in argv else default
@@ -3902,6 +4340,13 @@ def main(argv) -> int:
                        "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
         shutil.rmtree(CKPTS, ignore_errors=True)
         return 0
+    if "--faults" in argv:
+        _, faults_out = faults_phase(sat, flash, ce, card)
+        with open(os.path.join(OUT, "faults.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "faults": faults_out,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
+        shutil.rmtree(CKPTS, ignore_errors=True)
+        return 0
     if "--offload" in argv:
         log("the flash kernels at head dim 256 (phase 8b's attention)")
         rows_d256 = check_head_dim_256(flash)
@@ -3977,6 +4422,11 @@ def main(argv) -> int:
     log(f"  main-path launches, phases 3, 6 and 10c: {launches}")
     shutil.rmtree(CKPTS, ignore_errors=True)
 
+    faults_launches, faults_out = faults_phase(sat, flash, ce, card)
+    launches = {n: launches[n] + faults_launches[n] for n in KERNEL_NAMES}
+    log(f"  main-path launches, phases 3, 6, 10c and 11: {launches}")
+    shutil.rmtree(CKPTS, ignore_errors=True)
+
     def entry(row, n_launches):
         return {"launches": n_launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -3997,7 +4447,7 @@ def main(argv) -> int:
                    "kernel_rows_d256": rows_d256, "ce_recompute_rows": recompute, "main_path": main_results,
                    "pinned": pinned, "step_profile": step_profile, "sweep": sweep,
                    "kill_replay": kill_replay, "offload": offload, "data": data,
-                   "fused": fused_out, "short_profiles": SHORT_PROFILES,
+                   "fused": fused_out, "faults": faults_out, "short_profiles": SHORT_PROFILES,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"profiles short of their launch count, each taken again: {len(SHORT_PROFILES)} "
         f"{SHORT_PROFILES}")

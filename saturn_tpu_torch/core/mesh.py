@@ -67,6 +67,9 @@ class SliceTopology:
         n = len(self.devices)
         if n < 1:
             raise ValueError("cannot build a topology over zero devices")
+        # each device's index in the topology the run started with (the
+        # health monitor's indices): ``subset`` keeps them across shrinks
+        self.base_indices: List[int] = list(range(n))
         # Usable capacity is the largest power of two <= N so buddy
         # allocation is well-formed on any device count.
         self.capacity = 1 << (n.bit_length() - 1)
@@ -84,6 +87,22 @@ class SliceTopology:
             out.append(s)
             s <<= 1
         return out
+
+    def subset(self, indices: Sequence[int]) -> "SliceTopology":
+        """A topology over the surviving devices at ``indices`` (sorted,
+        positions again from 0; the elastic replanner's shrink and grow
+        primitive). The port's topology has no slices: the survivors form
+        one pool, as the JAX package's do once a slice lost part of its
+        devices. Each survivor keeps its base index."""
+        idx = sorted(set(int(i) for i in indices))
+        if not idx:
+            raise ValueError("cannot build a topology over zero devices")
+        if idx[0] < 0 or idx[-1] >= len(self.devices):
+            raise ValueError(f"device indices {idx[0]}..{idx[-1]} out of range for "
+                             f"{len(self.devices)} devices")
+        sub = SliceTopology([self.devices[i] for i in idx])
+        sub.base_indices = [self.base_indices[i] for i in idx]
+        return sub
 
     def blocks(self, size: int) -> List[Block]:
         """All aligned blocks of a given size (the MILP's placement domain)."""

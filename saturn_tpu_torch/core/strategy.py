@@ -3,8 +3,8 @@
 Counterpart of ``saturn_tpu/core/strategy.py``. The allocation unit is a
 power-of-two number of devices forming one aligned block (``core/mesh.py``).
 It carries the JAX package's co-scheduling and fused-stacking fields
-(``host_fraction``, ``fused_per_batch_time``, ``bubble_fraction``); its
-cost-model interpolation fields are a later item.
+(``host_fraction``, ``fused_per_batch_time``, ``bubble_fraction``) and its
+``interpolated`` flag; the shardflow ``static_prior`` has no counterpart.
 """
 
 from __future__ import annotations
@@ -45,6 +45,12 @@ class Strategy:
     params: Optional[Dict[str, Any]]   # autotuned knobs; None = infeasible
     runtime: float                     # est. remaining runtime, seconds
     per_batch_time: float = field(default=0.0)  # seconds per batch (profiled)
+    # An estimate, not a measured trial: the elastic replanner synthesizes a
+    # strategy at a size never profiled from the Amdahl fit over the measured
+    # ones (``resilience/replan.py``). Cleared the first time a realized
+    # interval lands on it (``Task.apply_realized_feedback``); the profile
+    # cache takes its time only after that.
+    interpolated: bool = field(default=False)
     # the profile-cache entry this strategy was read from or written to, and
     # its directory: the orchestrator upgrades it with realized times
     cache_key: Optional[str] = None

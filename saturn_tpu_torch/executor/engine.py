@@ -10,7 +10,18 @@ guardian every launcher runs under a watchdog deadline. Each technique's
 one, from ``pick_window``). A fusion group of the plan runs on one launcher
 as one stacked program (``fused_launcher``), a co-schedule group on one
 launcher that interleaves its members' dispatches (``group_launcher``), as
-in the JAX package. The JAX package's fault hooks are later items.
+in the JAX package.
+
+With a health monitor (``resilience.FleetHealthMonitor``) the elastic hooks
+are on: each run's per-batch seconds feed straggler detection, and a device
+lost during the interval (a fault injector's timer, or a platform notice)
+aborts and requeues. A task not yet launched, or whose block lost a device
+before its interval was published, fails with ``PreemptedError``, which
+the orchestrator requeues without using a retry. With a fault injector the
+engine also injects the interval's transient crashes, dispatch stalls and
+loss poisoning, and arms the mid-interval timers. A launched CUDA graph
+cannot be stopped: the abort stops only work that has not started, and a
+loss during a run is seen when the run ends.
 """
 
 from __future__ import annotations
@@ -25,6 +36,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 from saturn_tpu_torch.analysis.plan_verifier import check_launch_invariants, coschedule_find
 from saturn_tpu_torch.core.mesh import SliceTopology
 from saturn_tpu_torch.health.guardian import HungDispatchError
+from saturn_tpu_torch.resilience.faults import PreemptedError
+from saturn_tpu_torch.resilience.health import block_indices
 from saturn_tpu_torch.solver.milp import Plan
 from saturn_tpu_torch.utils import metrics
 
@@ -103,11 +116,15 @@ def _fused_groups(run_tasks, plan) -> List[List]:
     return out
 
 
-def _join_with_watchdog(watch, t0, hung, hung_lock, errors, events) -> None:
+def _join_with_watchdog(watch, started, hung, hung_lock, errors, events) -> None:
     """Join launcher threads under their watchdog deadlines.
 
-    ``watch`` is ``[(thread, tasks, deadline_s | None)]``. A thread still
-    alive past its deadline is ABANDONED: each of its tasks gets a
+    ``watch`` is ``[(thread, tasks, deadline_s | None)]``; ``started`` maps a
+    thread's name to the moment it launched, once the tasks it depends on
+    finished: a launcher's clock starts there, not at the interval's start
+    (the JAX package's), so a task queued behind a stalled one on its block
+    is not abandoned with it. A thread still alive past its deadline is
+    ABANDONED: each of its tasks gets a
     ``HungDispatchError`` recorded on its behalf (the thread is wedged in a
     launch that cannot be cancelled), each task's ``_abandoned`` event is
     set so that a late finish publishes no state, their completion events
@@ -120,9 +137,10 @@ def _join_with_watchdog(watch, t0, hung, hung_lock, errors, events) -> None:
             if not th.is_alive():
                 pending.remove(entry)
                 continue
-            if deadline is None:
+            t_start = started.get(th.name)
+            if deadline is None or t_start is None:
                 continue
-            elapsed = timeit.default_timer() - t0
+            elapsed = timeit.default_timer() - t_start
             if elapsed > deadline:
                 logger.error("watchdog: abandoning launcher %s after %.1fs "
                              "(deadline %.1fs) — task(s) %s marked hung",
@@ -137,6 +155,33 @@ def _join_with_watchdog(watch, t0, hung, hung_lock, errors, events) -> None:
                 pending.remove(entry)
 
 
+class PublishGate:
+    """The moment a run's interval becomes its task's: called by the
+    technique after the loss readback and the sentinel, before anything of
+    the interval is published (``task._publish_gate``). It raises
+    ``PreemptedError`` when the block lost a device by then, so the interval
+    is discarded and no checkpoint is written that the data cursor would
+    not count; once it has passed, the interval stands, and a loss that
+    lands later counts from the next interval on. A technique that does not
+    call it is checked after its run instead, as the JAX package checks."""
+
+    def __init__(self, health, didx: List[int], label: str):
+        self.health, self.didx, self.label = health, didx, label
+        self.passed = False
+
+    def lost(self) -> bool:
+        return bool(self.didx) and self.health.any_lost(self.didx)
+
+    def __call__(self) -> None:
+        if self.lost():
+            raise PreemptedError(f"{self.label} lost devices mid-run")
+        self.passed = True
+
+    def after_run(self) -> None:
+        if not self.passed and self.lost():
+            raise PreemptedError(f"{self.label} lost devices mid-run")
+
+
 def execute(
     run_tasks: Sequence,
     batches: Dict[str, int],
@@ -146,6 +191,9 @@ def execute(
     failure_policy: str = "raise",
     guardian=None,
     on_task_done=None,
+    health=None,
+    faults=None,
+    interval_index: int = 0,
 ) -> Dict[str, BaseException]:
     """Run one interval: every task on its block after the tasks it depends
     on, then a barrier. Returns ``{task name: error}`` of the tasks that
@@ -160,13 +208,20 @@ def execute(
     interval; ``"drop"`` returns the failures for the orchestrator to handle.
     With a ``guardian`` (``health.TrainingGuardian``) each launcher is
     joined under a deadline of ``floor + factor x`` its profiled window time
-    (batches x per-batch time); past it the launch is abandoned
+    (batches x per-batch time), counted from its launch, once the tasks it
+    depends on finished; past it the launch is abandoned
     (``HungDispatchError``, see ``_join_with_watchdog``), and training
     faults (``guardian.owns``) are returned even under ``"raise"``: they
     belong to the guardian's recovery policy. ``on_task_done(name, n)`` is
     called from a task's launcher once its interval ran to its end and its
     data cursor advanced (the durability journal's ``task_progress``): a
-    batch count it is given really ran."""
+    batch count it is given really ran.
+
+    ``health`` (a ``resilience.FleetHealthMonitor``) and ``faults`` (a
+    ``resilience.FaultInjector``) turn on the elastic hooks of the module
+    docstring for interval ``interval_index``; the monitor's indices of a
+    block come from the block's positions (``resilience.health.block_indices``).
+    A ``PreemptedError`` is returned, never raised, under either policy."""
     check_launch_invariants([t.name for t in run_tasks], plan)
     events = {t.name: threading.Event() for t in run_tasks}
     running = {t.name for t in run_tasks}
@@ -175,28 +230,104 @@ def execute(
     # error and commits nothing
     hung: set = set()
     hung_lock = threading.Lock()
+    # launcher thread name -> when it launched, its dependencies done (the
+    # watchdog's clock)
+    started: Dict[str, float] = {}
+
+    def mark_started() -> None:
+        started[threading.current_thread().name] = timeit.default_timer()
+
+    abort = threading.Event()
+    timers = (faults.arm_watchdog(interval_index, health, abort)
+              if faults is not None and health is not None else [])
+
+    def block_didx(a) -> List[int]:
+        return block_indices(topology, a.block) if health is not None else []
+
+    def crash_or_preempt(names, a, didx) -> None:
+        """The injected crash, then the abort before launch: the fleet
+        changed under this interval, so no work starts that the re-plan
+        moves anyway."""
+        for name in names:
+            if faults is not None and faults.crashes(name, interval_index):
+                raise RuntimeError(f"injected transient trial crash for {name}")
+        if abort.is_set() or (didx and health.any_lost(didx)):
+            raise PreemptedError(f"task(s) {sorted(names)} preempted before launch "
+                                 f"(block [{a.block.offset}:{a.block.end}])")
+
+    def stall_then_check(name: str) -> bool:
+        """Apply an injected dispatch stall; True if the watchdog abandoned
+        this launch meanwhile (the caller returns without touching the
+        task: the attempt already failed)."""
+        stall = faults.dispatch_stall_s(name, interval_index) if faults is not None else 0.0
+        if stall > 0.0:
+            logger.warning("injected dispatch stall: wedging %s for %.1fs", name, stall)
+            time.sleep(stall)
+        return abandoned(name)
+
+    def set_poison(task) -> None:
+        """Hand the sentinel this interval's observation-level loss
+        poisoning, if the injector has one for the task."""
+        if faults is not None:
+            p = faults.numeric_plan(task.name, interval_index)
+            if p:
+                task._health_poison = p
+
+    def drop_gate(task, gate) -> None:
+        """Take this launch's gate off the task (not a later launch's: an
+        abandoned launcher can wake after the next interval set its own)."""
+        if gate is not None and vars(task).get("_publish_gate") is gate:
+            del task._publish_gate
+
+    def gate_for(task, a, didx) -> Optional[PublishGate]:
+        if health is None:
+            return None
+        gate = PublishGate(health, didx,
+                           f"task {task.name} (block [{a.block.offset}:{a.block.end}])")
+        task._publish_gate = gate
+        return gate
+
+    def note_failure(name: str, e: BaseException) -> None:
+        if isinstance(e, PreemptedError):
+            logger.warning("%s", e)
+        else:
+            logger.exception("task %s failed during interval", name)
 
     def launcher(task, tid: int):
+        gate = None
         try:
             for dep in plan.dependencies.get(task.name, ()):
                 if dep in running:
                     events[dep].wait()
+            mark_started()
             a = plan.assignments[task.name]
+            didx = block_didx(a)
+            crash_or_preempt([task.name], a, didx)
             task.select_strategy(a.apportionment)
             n = batches[task.name]
             logger.info("interval: launching %s on block [%d:%d] for %d batches",
                         task.name, a.block.offset, a.block.end, n)
+            if stall_then_check(task.name):
+                return  # the watchdog abandoned this launch during the stall
+            set_poison(task)
+            gate = gate_for(task, a, didx)
+            t_run = timeit.default_timer()
             task.selected_strategy.executor.execute(
                 task, topology.block_devices(a.block), tid, override_batch_count=n
             )
+            dt_run = timeit.default_timer() - t_run
+            if gate is not None:
+                gate.after_run()
             with hung_lock:
                 if task.name in hung:
                     return
                 task.reconfigure(n)
+            if didx:
+                health.note_step(didx, dt_run / max(n, 1))
             if on_task_done is not None:
                 on_task_done(task.name, n)
         except Exception as e:  # surfaced after the barrier
-            logger.exception("task %s failed during interval", task.name)
+            note_failure(task.name, e)
             # drop the failed launch's locals (its device tensors) now; the
             # traceback keeps its text
             traceback.clear_frames(e.__traceback__)
@@ -204,6 +335,7 @@ def execute(
                 if task.name not in hung:
                     errors[task.name] = e
         finally:
+            drop_gate(task, gate)
             events[task.name].set()
 
     def record_error(name: str, e: BaseException) -> None:
@@ -235,10 +367,16 @@ def execute(
                 for dep in plan.dependencies.get(t.name, ()):
                     if dep in running and dep not in names:
                         events[dep].wait()
+            mark_started()
             for t, tid in zip(members, tids):
                 try:
                     a = plan.assignments[t.name]
+                    didx = block_didx(a)
+                    crash_or_preempt([t.name], a, didx)
                     t.select_strategy(a.apportionment)
+                    if stall_then_check(t.name):
+                        return  # the watchdog abandoned the group during the stall
+                    set_poison(t)
                     tech = t.selected_strategy.executor
                     n = batches[t.name]
                     pbt = max(getattr(t.selected_strategy, "per_batch_time", 0.0), 1e-9)
@@ -252,9 +390,10 @@ def execute(
                                                     shared=True) if inter else None)
                     active.append({"task": t, "tech": tech, "gen": gen, "tid": tid, "n": n,
                                    "pbt": pbt, "devices": devices, "per_batch": None,
-                                   "interleaved": inter})
+                                   "interleaved": inter, "didx": didx,
+                                   "gate": gate_for(t, a, didx)})
                 except Exception as e:
-                    logger.exception("task %s failed during interval", t.name)
+                    note_failure(t.name, e)
                     record_error(t.name, e)
             pending = [m for m in active if m["gen"] is not None]
             drained: List[Dict] = []
@@ -268,7 +407,7 @@ def execute(
                         m["gen"] = None
                         continue
                     except Exception as e:
-                        logger.exception("task %s failed during interval", m["task"].name)
+                        note_failure(m["task"].name, e)
                         traceback.clear_frames(e.__traceback__)
                         record_error(m["task"].name, e)
                         pending.remove(m)
@@ -287,7 +426,7 @@ def execute(
                     for _ in m["gen"]:
                         pass
                 except Exception as e:
-                    logger.exception("task %s failed during interval", m["task"].name)
+                    note_failure(m["task"].name, e)
                     traceback.clear_frames(e.__traceback__)
                     record_error(m["task"].name, e)
                 finally:
@@ -316,10 +455,19 @@ def execute(
                 name = m["task"].name
                 if name in errors or m["per_batch"] is None:
                     continue
+                try:
+                    if m["gate"] is not None:
+                        m["gate"].after_run()
+                except PreemptedError as e:
+                    note_failure(name, e)
+                    record_error(name, e)
+                    continue
                 with hung_lock:
                     if name in hung:
                         continue
                     m["task"].reconfigure(m["n"])
+                if m["didx"]:
+                    health.note_step(m["didx"], m["per_batch"])
                 if on_task_done is not None:
                     on_task_done(name, m["n"])
         except Exception as e:
@@ -330,6 +478,8 @@ def execute(
             for m in active:
                 if m["gen"] is not None:
                     m["gen"].close()
+            for m in active:
+                drop_gate(m["task"], m["gate"])
             for t in members:
                 events[t.name].set()
 
@@ -351,19 +501,33 @@ def execute(
                 for dep in plan.dependencies.get(t.name, ()):
                     if dep in running and dep not in names:
                         events[dep].wait()
+            mark_started()
             a = plan.assignments[members[0].name]
             devices = topology.block_devices(a.block)
+            didx = block_didx(a)
+            crash_or_preempt([t.name for t in members], a, didx)
             for t in members:
                 t.select_strategy(a.apportionment)
+                set_poison(t)
+            if stall_then_check(members[0].name):
+                return  # the watchdog abandoned the group during the stall
             counts = [batches[t.name] for t in members]
             logger.info("interval: fused-launching %s on block [%d:%d] (lockstep %d batches "
                         "x %d members)", sorted(names), a.block.offset, a.block.end,
                         min(counts), len(members))
-            report = fused.run_fused_interval(members, devices, tids[0], batch_counts=counts)
+            gate = (PublishGate(health, didx, f"fused group {sorted(names)} (block "
+                                              f"[{a.block.offset}:{a.block.end}])")
+                    if health is not None else None)
+            report = fused.run_fused_interval(members, devices, tids[0], batch_counts=counts,
+                                              publish_gate=gate)
             if any(abandoned(t.name) for t in members):
                 logger.warning("fused group %s finished after the watchdog abandoned it; "
                                "discarding it", sorted(names))
                 return
+            if gate is not None:
+                gate.after_run()
+            if didx and report.per_step_s > 0:
+                health.note_step(didx, report.per_step_s)
             detached = {t.name: s for t, s in report.detached}
             for t in members:
                 mr = report.members.get(t.name)
@@ -405,7 +569,10 @@ def execute(
                     traceback.clear_frames(e.__traceback__)
                     record_error(t.name, e)
         except Exception as e:
-            logger.exception("fused group %s failed", sorted(names))
+            if isinstance(e, PreemptedError):
+                logger.warning("%s", e)
+            else:
+                logger.exception("fused group %s failed", sorted(names))
             traceback.clear_frames(e.__traceback__)
             for t in members:
                 record_error(t.name, e)
@@ -446,19 +613,27 @@ def execute(
     for th, _, _ in watch:
         th.start()
     if use_watchdog:
-        _join_with_watchdog(watch, t0, hung, hung_lock, errors, events)
+        _join_with_watchdog(watch, started, hung, hung_lock, errors, events)
     else:
         for th, _, _ in watch:
             th.join()
+    for tm in timers:
+        tm.cancel()
     elapsed = timeit.default_timer() - t0
     with hung_lock:
         errors = dict(errors)
+    preempted = sorted(n for n, e in errors.items() if isinstance(e, PreemptedError))
     metrics.event("interval", elapsed_s=elapsed, planned_s=interval,
-                  n_tasks=len(run_tasks), failed=sorted(errors))
+                  n_tasks=len(run_tasks),
+                  failed=sorted(n for n in errors if n not in preempted),
+                  preempted=preempted)
     metrics.flush()
     if failure_policy == "raise":
+        # preemptions and (with a guardian) training faults belong to the
+        # caller's recovery, not to the crash-the-batch path
         real = {n: e for n, e in errors.items()
-                if guardian is None or not guardian.owns(e)}
+                if not isinstance(e, PreemptedError)
+                and (guardian is None or not guardian.owns(e))}
         if real:
             name, err = next(iter(real.items()))
             raise RuntimeError(f"interval execution failed for task {name}") from err

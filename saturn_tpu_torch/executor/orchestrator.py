@@ -27,17 +27,22 @@ plan's fusion groups run as stacked programs and its co-schedule groups
 interleaved (``engine.execute``). A task the guardian detaches stays out of
 both at later solves.
 
+With a health monitor (``health_monitor``, or one built for a
+``fault_injector``, or for the injector that ``SATURN_TPU_FAULTS`` gives
+when none is passed) the loop is elastic: each interval starts with a
+health poll, and a shrink or grow re-plans over the surviving devices
+(``resilience.ElasticReplanner`` under ``recovery_policy``); a task
+preempted during an interval is requeued without using a retry.
+
 Unlike the JAX package, the re-solve runs after the interval, not beside
-it, with the interval's feedback and failures already folded in. The JAX
-package's fault injection and elastic recovery are later items; those
-arguments raise when set, and so does ``SATURN_TPU_FAULTS``, from
-which the JAX package builds a fault injector when none is passed.
+it, with the interval's feedback and failures already folded in.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import timeit
 from typing import Dict, List, Optional
 
 from saturn_tpu_torch import analysis
@@ -47,21 +52,15 @@ from saturn_tpu_torch.durability import recovery as rmod
 from saturn_tpu_torch.executor import engine
 from saturn_tpu_torch.health.guardian import TrainingGuardian
 from saturn_tpu_torch.resilience.crash import SimulatedKill
+from saturn_tpu_torch.resilience.faults import FaultInjector, PreemptedError
+from saturn_tpu_torch.resilience.health import FleetHealthMonitor
+from saturn_tpu_torch.resilience.replan import ElasticReplanner, get_policy
 from saturn_tpu_torch.solver import anytime, milp
 from saturn_tpu_torch.utils import checkpoint as ckpt
 from saturn_tpu_torch.utils import metrics, trace
 from saturn_tpu_torch.utils import profile_cache as pcache
 
 logger = logging.getLogger("saturn_tpu_torch")
-
-
-def _refuse(**options) -> None:
-    for name, value in options.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"orchestrate({name}=...): not carried by the PyTorch port yet "
-                "(see ROADMAP.md)"
-            )
 
 
 def _gate_resolved_plan(candidate, previous, topo, tasks, interval: float, journal,
@@ -133,6 +132,41 @@ def _static_fusion_gate(topo):
     return fits
 
 
+def _handle_topology_change(task_list, base_topo, health, replanner, change, plan,
+                            tlimit, failed):
+    """The elastic hook before an interval: re-plan over the monitor's
+    surviving devices, evict what cannot run there, verify the new plan
+    against the new topology (``migration-replan``: there is no covering
+    plan to fall back on, so a failure propagates) before any task moves,
+    then release each moved task's live state so that its next interval
+    restores its checkpoint on its new block. Returns the tasks, the
+    topology and the plan to go on with."""
+    t_detect = timeit.default_timer()
+    metrics.event("topology_change", **change.to_fields())
+    logger.warning("topology change (%s): lost=%s gained=%s stragglers=%s — replanning",
+                   change.kind, change.lost, change.gained, change.stragglers)
+    result = replanner.replan(task_list, base_topo, health.alive_indices(), change,
+                              previous_plan=plan, time_limit=tlimit)
+    evicted = set(result.evicted)
+    kept = [t for t in task_list if t.name not in evicted]
+    analysis.verify_or_raise(result.plan, topology=result.topology, tasks=kept,
+                             source="migration-replan")
+    for t in task_list:
+        if t.name in evicted:
+            failed[t.name] = f"evicted on topology change ({change.kind})"
+            metrics.event("task_failed", task=t.name, error=failed[t.name])
+            _finish(t)
+    by_name = {t.name: t for t in kept}
+    for name, d in sorted(result.migrations.items()):
+        if d["moved"] and name in by_name:
+            by_name[name].release_live_state()  # restores its checkpoint on the new block
+            metrics.event("migration", task=name, moved_from=d["from"], moved_to=d["to"])
+    metrics.event("recovery", policy=replanner.policy,
+                  replan_latency_s=timeit.default_timer() - t_detect,
+                  capacity=result.topology.capacity, n_tasks=len(kept))
+    return kept, result.topology, result.plan
+
+
 def _in_group(plan, name: str) -> bool:
     return any(name in g for g in (plan.coschedule or []) + (plan.fused or []))
 
@@ -140,9 +174,12 @@ def _in_group(plan, name: str) -> bool:
 def _persist_realized(task) -> None:
     """Write the task's freshly measured per-batch time to the profile-cache
     entry its strategy came from, so the next sweep starts from realized
-    numbers (the JAX package writes to the default cache)."""
+    numbers (the JAX package writes to the default cache). An interpolated
+    strategy is written only once its time was realized
+    (``Task.apply_realized_feedback`` clears the flag)."""
     strat = task.last_feedback_strategy
-    if strat is None or not strat.cache_key or not strat.feasible:
+    if (strat is None or not strat.cache_key or not strat.feasible
+            or strat.interpolated):
         return
     wrote = pcache.ProfileCache(strat.cache_dir).note_realized(
         strat.cache_key, strat.per_batch_time, strat.params,
@@ -344,8 +381,22 @@ def orchestrate(
     fault again, evicting past the guardian's budget), apart from
     ``max_task_retries``. Its transitions are journaled under
     ``resume_dir``, and a resumed run re-applies the journaled quarantine
-    skip-lists. ``recovery_policy`` and ``replan_degrade_factor``
-    only act under the health monitor, a later item, as in the JAX package.
+    skip-lists.
+
+    Elasticity (``resilience/``): ``health_monitor`` (a
+    ``FleetHealthMonitor``), or a ``fault_injector`` (a ``FaultInjector``;
+    without one, ``SATURN_TPU_FAULTS`` gives it, as in the JAX package),
+    turns the loop elastic. Each interval starts with a health poll; on a
+    shrink or grow the ``ElasticReplanner`` builds the topology and plan of
+    the surviving devices under ``recovery_policy`` (one of
+    ``resilience.RECOVERY_POLICIES`` or a registered one; an unknown name
+    raises, with or without a monitor) and ``replan_degrade_factor``. A
+    device lost during an interval aborts the work not yet started and
+    discards the runs on its block (``PreemptedError``); those tasks are
+    requeued without using ``max_task_retries`` and resume from their
+    checkpoints. A grow re-admits the tasks the guardian parked
+    (``grow_event`` and ``backlog_drain`` journal records).
+
     ``fusion=False`` proposes no fusion groups to the solver (the JAX
     package always does).
 
@@ -357,17 +408,19 @@ def orchestrate(
         raise ValueError(
             f"failure_policy must be 'raise', 'drop' or 'retry', got {failure_policy!r}"
         )
-    _refuse(fault_injector=fault_injector, health_monitor=health_monitor)
+    get_policy(recovery_policy)
     if crash_barrier is not None and resume_dir is None:
         raise ValueError("crash_barrier requires resume_dir (it instruments the "
                          "durability journal)")
-    # where no injector is given, the JAX package builds one from this variable
-    if os.environ.get("SATURN_TPU_FAULTS", "").strip():
-        raise NotImplementedError(
-            "orchestrate: SATURN_TPU_FAULTS is set, and fault injection is not "
-            "carried by the PyTorch port yet (see ROADMAP.md, queue 1 item 5)"
-        )
     topo = topology if topology is not None else SliceTopology()
+    if fault_injector is None:
+        fault_injector = FaultInjector.from_env()
+    if fault_injector is not None and health_monitor is None:
+        health_monitor = FleetHealthMonitor.for_topology(topo)
+    replanner = None
+    if health_monitor is not None:
+        replanner = ElasticReplanner(policy=recovery_policy,
+                                     degrade_factor=replan_degrade_factor)
     names = [t.name for t in task_list]
     if len(set(names)) != len(names):
         dupes = sorted({n for n in names if names.count(n) > 1})
@@ -403,7 +456,8 @@ def orchestrate(
                     guardian.restore(recovered.quarantined, recovered.detached, task_list)
             out = _orchestrate_loop(task_list, topo, interval, threshold, tlimit,
                                     failure_policy, max_task_retries, guardian, journal,
-                                    completed, failed, fusion)
+                                    completed, failed, fusion, health_monitor,
+                                    fault_injector, replanner)
     except SimulatedKill:
         # a SIGKILL runs no handler: no checkpoint flush, no journal commit
         # or close; what was buffered dies, and the next incarnation recovers
@@ -421,17 +475,16 @@ def orchestrate(
 
 def _orchestrate_loop(task_list, topo, interval, threshold, tlimit, failure_policy,
                       max_task_retries, guardian, journal, completed_names, failed,
-                      fusion=True) -> dict:
+                      fusion=True, health=None, faults=None, replanner=None) -> dict:
     from saturn_tpu_torch.parallel import fused
 
     retries: Dict[str, int] = {}
-    gate = _static_fusion_gate(topo)
 
     def group_args(tasks) -> dict:
         excluded = guardian.detached_names() if guardian is not None else None
         return {"coschedule_exclude": excluded,
                 "fusion": _fusion_proposals(tasks) if fusion else None,
-                "fusion_exclude": excluded, "fusion_fits": gate}
+                "fusion_exclude": excluded, "fusion_fits": _static_fusion_gate(topo)}
 
     if not task_list:  # a resumed run whose journal holds every task terminal
         logger.info("orchestration complete (%d completed, %d failed)",
@@ -451,6 +504,7 @@ def _orchestrate_loop(task_list, topo, interval, threshold, tlimit, failure_poli
             if n > 0:
                 journal.append("task_progress", task=name, batches=int(n))
 
+    base_topo = topo  # the health monitor's indices are the starting topology's
     interval_index = 0
     # tasks the guardian parked for a backoff: out of the forecast and the
     # re-solve until their resume interval
@@ -465,6 +519,39 @@ def _orchestrate_loop(task_list, topo, interval, threshold, tlimit, failure_poli
         if not task_list:
             interval_index += 1  # everyone is parked: let the backoff clock run
             continue
+        if health is not None:
+            # the elastic hook: this interval's scheduled faults, then at
+            # most one aggregated change
+            if faults is not None:
+                faults.apply_due(interval_index, health)
+            change = health.poll()
+            if change is not None and change.kind in ("shrink", "grow"):
+                if change.kind == "grow" and journal is not None:
+                    journal.log("grow_event", interval=interval_index,
+                                gained=list(change.gained), cause=change.cause,
+                                n_parked=len(parked), capacity=base_topo.capacity)
+                if change.kind == "grow" and parked:
+                    # returned capacity runs parked work now: end the backoffs
+                    # (streaks stay) and re-plan the parked tasks too
+                    if guardian is not None:
+                        guardian.unbench_all(cause="grow")
+                    names_back = sorted(t.name for t in parked)
+                    task_list.extend(parked)
+                    parked = []
+                    if journal is not None:
+                        journal.log("backlog_drain", interval=interval_index,
+                                    jobs=names_back, trigger="grow")
+                    metrics.event("backlog_drain", interval=interval_index,
+                                  jobs=names_back, trigger="grow")
+                    logger.info("grow: re-admitted parked %s ahead of backoff", names_back)
+                task_list, topo, plan = _handle_topology_change(
+                    task_list, base_topo, health, replanner, change, plan, tlimit, failed)
+                if not task_list:
+                    break
+            elif change is not None:  # degrade: advisory, no re-plan
+                metrics.event("topology_change", **change.to_fields())
+                logger.warning("degraded fleet: stragglers %s (policy %s keeps running)",
+                               change.stragglers, replanner.policy)
         run_tasks, batches, completed = engine.forecast(task_list, interval, plan)
         remaining = [t for t in task_list if t not in completed]
         errors: Dict[str, BaseException] = {}
@@ -472,7 +559,8 @@ def _orchestrate_loop(task_list, topo, interval, threshold, tlimit, failure_poli
             errors = engine.execute(
                 run_tasks, batches, interval, plan, topo,
                 failure_policy="raise" if failure_policy == "raise" else "drop",
-                guardian=guardian, on_task_done=on_done,
+                guardian=guardian, on_task_done=on_done, health=health, faults=faults,
+                interval_index=interval_index,
             )
             if guardian is not None:
                 for t in run_tasks:
@@ -497,6 +585,14 @@ def _orchestrate_loop(task_list, topo, interval, threshold, tlimit, failure_poli
             engine.rollback_forecast(t, batches.get(name, 0))
             remaining = [r for r in remaining if r is not t]
             completed = [c for c in completed if c is not t]
+            if isinstance(err, PreemptedError):
+                # the fleet's fault, not the task's: requeued without a
+                # retry; the next poll re-plans and it resumes from its
+                # checkpoint (its discarded run wrote none)
+                remaining.append(t)
+                metrics.event("task_preempted", task=name, error=repr(err))
+                logger.warning("task %s preempted — requeued for replan: %r", name, err)
+                continue
             if guardian is not None and guardian.owns(err):
                 decision = guardian.on_fault(t, err, interval_index,
                                              in_group=_in_group(plan, name))

@@ -318,6 +318,20 @@ class TrainingGuardian:
         with self._mu:
             return self._benched.get(name)
 
+    def unbench_all(self, cause: str = "grow") -> Tuple[str, ...]:
+        """End every backoff window now (a grow event: returned capacity runs
+        parked work at once). The streaks stay, so a flaky task's next fault
+        still backs off harder, as if its bench had expired."""
+        with self._mu:
+            released = tuple(sorted(self._benched))
+            self._benched.clear()
+        for name in released:
+            metrics.event("health", code=HEALTH_EVENT_CODES["backoff"], task=name,
+                          cause=cause, unbenched=True)
+        if released:
+            self._journal("health_unbench", tasks=list(released), cause=cause)
+        return released
+
     # ------------------------------------------------------------- recovery
     def restore(self, quarantined: Dict[str, List[int]], detached: Iterable[str],
                 tasks: Iterable[Any] = ()) -> None:

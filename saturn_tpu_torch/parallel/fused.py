@@ -47,7 +47,7 @@ import torch
 
 from saturn_tpu_torch.health import sentinel
 from saturn_tpu_torch.ops import stacking
-from saturn_tpu_torch.parallel.spmd_base import _Bundle, stage_tokens, unit_plan
+from saturn_tpu_torch.parallel.spmd_base import _Bundle, observed_losses, stage_tokens, unit_plan
 from saturn_tpu_torch.utils import checkpoint as ckpt
 from saturn_tpu_torch.utils import metrics, timing
 
@@ -514,6 +514,7 @@ def run_fused_interval(
     config: Optional[Dict[str, Any]] = None,
     window_size: Optional[int] = None,
     detach_requested: Optional[Callable[[Any], bool]] = None,
+    publish_gate: Optional[Callable[[], None]] = None,
 ) -> FusedIntervalReport:
     """One engine interval of a fused group: lockstep batches for every
     member through the stacked program.
@@ -531,7 +532,9 @@ def run_fused_interval(
     ``report.detached`` for the engine to resume solo. Sentinel faults are
     per member, over each member's loss column as ``sentinel.fold`` folds a
     solo interval: a faulted member's interval is discarded (no checkpoint,
-    no live state) while the others commit."""
+    no live state) while the others commit. ``publish_gate`` (the engine's
+    preemption check) is called after the readback, before any member's
+    fold or checkpoint: where it raises, the whole interval is discarded."""
     if not members:
         raise ValueError("run_fused_interval: empty group")
     detach_requested = detach_requested or (lambda t: bool(getattr(t, "_fused_detach", False)))
@@ -614,6 +617,12 @@ def run_fused_interval(
     # one readback for the interval, then the per-member folds
     host = [(names, torch.cat(mats).float().cpu().numpy()) for names, mats in segments]
     t_end = timeit.default_timer()
+    if publish_gate is not None:
+        try:
+            publish_gate()
+        except Exception:
+            state = None
+            raise
     # each member's column; a detached member's ends at its unfuse point
     # (its solo resume owns the rest)
     columns: Dict[str, List[np.ndarray]] = {nm: [] for nm in names0}
@@ -628,15 +637,19 @@ def run_fused_interval(
     for m in cur:
         vec = np.concatenate(columns[m.name]) if columns[m.name] else np.zeros(0, np.float32)
         report.losses[m.name] = vec.tolist()
+        # a fault injector's poisoning of this member's observed column,
+        # never of the stack's state (the solo path's ``_screen``)
+        poison = vars(m).pop("_health_poison", None)
         if not len(vec):
             continue
         if cfg.enabled:
+            seen = observed_losses(vec, poison, lambda j, m=m: m.dataset_index(starts[m.name] + j))
             carry = m._sentinel_carry if m._sentinel_carry is not None else sentinel.carry_init()
-            rep = sentinel.fold(carry, vec, cfg)
+            rep = sentinel.fold(carry, seen, cfg)
             fault = sentinel.inspect(rep)
             if fault is not None:
                 cause, first_off, bad_count = fault
-                bad = {int(j) for j in np.flatnonzero(~np.isfinite(vec))} | {int(first_off)}
+                bad = {int(j) for j in np.flatnonzero(~np.isfinite(seen))} | {int(first_off)}
                 batches = tuple(sorted({m.dataset_index(starts[m.name] + j) for j in bad}))
                 window = first_off // max(k, 1)
                 report.members[m.name].fault = sentinel.NumericFaultError(

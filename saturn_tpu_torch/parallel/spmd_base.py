@@ -153,6 +153,18 @@ def stage_tokens(host, device) -> torch.Tensor:
     return ready(*stage_async(host, device))
 
 
+def observed_losses(losses: np.ndarray, poison: Optional[dict],
+                    dataset_index_of: Callable[[int], int]) -> np.ndarray:
+    """The loss vector the sentinel observes: ``losses``, or a copy with a
+    fault injector's overrides (``sentinel.poison_overrides``) in place."""
+    ov = sentinel.poison_overrides(poison, len(losses), dataset_index_of) if poison else None
+    if ov is None:
+        return losses
+    out = np.array(losses, dtype=np.float32)
+    out[ov[0]] = ov[1]
+    return out
+
+
 def host_fraction(t_host: float, t_device: float) -> float:
     """Fraction of one steady-state batch spent staging it on the host: the
     staging seconds against staging plus the device's per-batch time (the
@@ -378,9 +390,12 @@ class SPMDTechnique(BaseTechnique):
         # Every trial this instance ran: (task, size, config, seconds per
         # batch or None, outcome), for reports of the sweep (chip_smoke.py).
         self.trials: List[Tuple[str, int, Dict[str, Any], Optional[float], str]] = []
-        # Every interval this instance ran: its plan, whether it restored
-        # the checkpoint, and its realized time (chip_smoke.py).
+        # Every interval this instance ran and published: its plan, whether
+        # it restored the checkpoint, and its realized time (chip_smoke.py);
+        # and every interval it ran and then discarded, the same record with
+        # ``discarded`` naming why ("numeric", "abandoned", "preempted")
         self.intervals: List[Dict[str, Any]] = []
+        self.discarded: List[Dict[str, Any]] = []
         self._bundles: Dict[Any, _Bundle] = {}
         self._bundles_lock = threading.Lock()
         self._eager_noted: set = set()
@@ -573,10 +588,17 @@ class SPMDTechnique(BaseTechnique):
         package's ``spmd_base.py:1193-1282``, on the host): raise
         ``NumericFaultError`` naming the dataset indices of the bad steps,
         else return the advanced sentinel carry (None with the sentinel
-        off), which ``execute`` keeps only if it publishes the interval."""
+        off), which ``execute`` keeps only if it publishes the interval.
+
+        A fault injector's poisoning for this interval (``task._health_poison``,
+        set by the engine, taken here either way) overwrites its slots of a
+        copy of the vector first: the sentinel observes the fault, the train
+        state never holds it."""
+        poison = vars(task).pop("_health_poison", None)
         cfg = sentinel.get_config()
         if not cfg.enabled:
             return None
+        losses = observed_losses(losses, poison, lambda j: task.dataset_index(start + j))
         carry = task._sentinel_carry
         rep = sentinel.fold(sentinel.carry_init() if carry is None else carry, losses, cfg)
         fault = sentinel.inspect(rep)
@@ -600,6 +622,12 @@ class SPMDTechnique(BaseTechnique):
             loss=float(rep[sentinel.REP_LAST_LOSS]), batch_indices=batches,
             bad_count=bad_count,
         )
+
+    def _discard(self, record: Dict[str, Any], why: str, t_all0: float) -> None:
+        """Keep the record of an interval that ran and was discarded."""
+        record["discarded"] = why
+        record["run_s"] = timeit.default_timer() - t_all0
+        self.discarded.append(record)
 
     # ---------------------------------------------------------------- search
     def search(
@@ -803,8 +831,10 @@ class SPMDTechnique(BaseTechnique):
         screens the read-back losses first (``_screen``): a non-finite loss
         raises ``NumericFaultError`` before anything is published. A launch
         the engine's watchdog abandoned (``task._abandoned`` set) publishes
-        nothing. Otherwise the interval ends with ``checkpoint.save_async``
-        and the state kept live.
+        nothing, and the engine's publish gate (``task._publish_gate``)
+        raises ``PreemptedError`` where the block lost a device. Otherwise
+        the interval ends with ``checkpoint.save_async`` and the state kept
+        live.
 
         ``shared=True`` is the co-schedule mode: the staging copy's event is
         polled (``torch.cuda.Event.query``, where the JAX package asks its
@@ -906,13 +936,25 @@ class SPMDTechnique(BaseTechnique):
                 carry = self._screen(task, losses, units, start)
             except sentinel.NumericFaultError:
                 state = None
+                self._discard(record, "numeric", t_all0)
                 raise
         if abandoned is not None and abandoned.is_set():
             # the engine's watchdog gave up on this launch: a late finish
             # publishes nothing (the retry restores the last checkpoint)
             log.warning("task %s: interval finished after the watchdog abandoned "
                         "it; discarding it", task.name)
+            self._discard(record, "abandoned", t_all0)
             return
+        gate = getattr(task, "_publish_gate", None)
+        if gate is not None:
+            # the engine's preemption check: a block that lost a device
+            # discards the interval before its checkpoint is written
+            try:
+                gate()
+            except Exception:
+                state = None
+                self._discard(record, "preempted", t_all0)
+                raise
         if carry is not None:
             task._sentinel_carry = carry
         if losses is not None:

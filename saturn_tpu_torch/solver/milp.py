@@ -92,6 +92,24 @@ class Plan:
                         deps[n1].append(n2)
         self.dependencies = deps
 
+    def migrations_from(self, previous: "Plan") -> Dict[str, dict]:
+        """Each task's placement against ``previous`` (the elastic
+        replanner's migration report): a task "moved" when its block size
+        or offset changed, so its next interval restores its checkpoint on
+        the new block instead of keeping its live state."""
+        out: Dict[str, dict] = {}
+        for name, a in self.assignments.items():
+            p = previous.assignments.get(name)
+            if p is None:
+                out[name] = {"moved": True, "from": None,
+                             "to": [a.apportionment, a.block.offset]}
+                continue
+            moved = (a.apportionment != p.apportionment or a.block.offset != p.block.offset
+                     or a.block.size != p.block.size)
+            out[name] = {"moved": moved, "from": [p.apportionment, p.block.offset],
+                         "to": [a.apportionment, a.block.offset]}
+        return out
+
     def to_json(self) -> dict:
         """The JAX package's dict form (``plan_commit`` journal records)."""
         return {

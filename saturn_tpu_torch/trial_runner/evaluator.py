@@ -23,7 +23,7 @@ import logging
 import random
 import time
 import timeit
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from saturn_tpu_torch import library as lib
 from saturn_tpu_torch.core.mesh import SliceTopology
@@ -37,6 +37,28 @@ DUMMY_RUNTIME = 1e6  # runtime of the infeasible placeholder strategy
 
 #: The JAX package prunes to anchor sizes from this many sizes up.
 PRUNE_MIN_GRID = 4
+
+
+def _fit_scaling_model(points: Sequence[Tuple[int, float]]):
+    """Least-squares Amdahl fit ``t(g) = a + b / g`` over measured (size,
+    per-batch seconds) points (the JAX package's; the elastic replanner
+    synthesizes sizes never profiled from it). A degenerate fit clamps to
+    the pure-serial or pure-parallel edge instead of going negative."""
+    import numpy as np
+
+    g = np.asarray([p[0] for p in points], dtype=float)
+    t = np.asarray([p[1] for p in points], dtype=float)
+    A = np.stack([np.ones_like(g), 1.0 / g], axis=1)
+    try:
+        (a, b), *_ = np.linalg.lstsq(A, t, rcond=None)
+    except np.linalg.LinAlgError:
+        a, b = float(t.mean()), 0.0
+    if a < 0.0 or b < 0.0:
+        if b < 0.0:  # time growing with devices is noise: the flat (serial) model
+            a, b = float(t.mean()), 0.0
+        else:
+            a, b = 0.0, float((t * g).mean())
+    return lambda size: a + b / float(size)
 
 
 def search(

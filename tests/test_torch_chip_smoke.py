@@ -944,17 +944,34 @@ def test_host_facts_reads_free_nproc_and_df(smoke):
                      "disk_free": 812345678901}
 
 
-@pytest.mark.parametrize("mem_gib,disk_gb,layers,why", [
-    (120, 200, 28, None),
-    (92, 200, 24, "host memory"),
-    (120, 60, 24, "disk"),
-    (92, 60, 24, "host memory available.*disk"),
-])
-def test_gptj_depth_cuts_depth_only_where_the_host_cannot_hold_it(smoke, mem_gib, disk_gb,
-                                                                  layers, why):
-    got, cut = smoke.gptj_depth({"mem_available": mem_gib * 2**30, "disk_free": disk_gb * 1e9})
-    assert got == layers
-    assert (cut is None) if why is None else re.search(why, cut)
+@pytest.mark.parametrize("card_gib,refused", [(80, True), (200, False)])
+def test_gptj_dp_screen_at_the_published_depth(smoke, monkeypatch, tmp_path, card_gib, refused):
+    """8b-1's dp half, through ``search(["dp"])``: on an 80 GB card every dp
+    config of GPT-J-6B at its 28 layers is refused by the static screen from
+    the meta-device model (87 GiB of fp32 params, grads and moments), with
+    no init drawn and no feasible strategy left; on a card that holds it the
+    phase fails (the trial itself stubbed: no 6B init here)."""
+    import torch
+
+    import saturn_tpu_torch as sat
+    from saturn_tpu_torch.core.mesh import SliceTopology
+    from saturn_tpu_torch.parallel.spmd_base import SPMDTechnique
+    from saturn_tpu_torch.utils import timing
+
+    monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
+    monkeypatch.setattr(timing, "device_memory_bytes", lambda dev: card_gib * 2**30)
+    inits = []
+    monkeypatch.setattr(SPMDTechnique, "_try_config",
+                        lambda self, task, devices, config: inits.append(config) or 1.0)
+    topo = SliceTopology([torch.device("cpu")])
+    if not refused:
+        with pytest.raises(AssertionError, match="screened out statically at 28 layers"):
+            smoke.gptj_dp_screen(sat, topo, str(tmp_path))
+        assert inits
+        return
+    screened, n = smoke.gptj_dp_screen(sat, topo, str(tmp_path))
+    assert n == 5_844_459_520 and screened and not inits
+    assert all(need == 16 * n for _, need in screened)
 
 
 def test_split_summary_lines_and_medians(smoke):
@@ -1084,10 +1101,10 @@ def test_trace_launches_rejects_a_slab_loop_out_of_shape(smoke, tmp_path):
 
 
 def test_sweep_launcher_runs_lm_sweep_traced(smoke, tmp_path):
-    """Phase 9b's launcher on the CPU at test-tiny: lm_sweep runs as
-    ``-m`` runs it, ``search`` and ``orchestrate`` each write a trace, and
-    the counters (no kernel runs on the CPU) are written with each export's
-    seconds."""
+    """Phase 9b's launcher on the CPU at test-tiny cut to one layer:
+    lm_sweep runs as ``-m`` runs it, ``search`` and ``orchestrate`` each
+    write a trace, and the counters (no kernel runs on the CPU) are written
+    with each export's seconds."""
     import json
     import subprocess
     import sys
@@ -1095,7 +1112,7 @@ def test_sweep_launcher_runs_lm_sweep_traced(smoke, tmp_path):
     counts, traces = tmp_path / "counts.json", tmp_path / "traces"
     env = smoke.child_env(SATURN_TPU_PROFILE_CACHE_DIR=str(tmp_path / "pc"))
     out = subprocess.run(
-        [sys.executable, "-c", smoke.SWEEP_LAUNCHER, str(counts), str(traces), "--preset",
+        [sys.executable, "-c", smoke.SWEEP_LAUNCHER, str(counts), str(traces), "1", "--preset",
          "test-tiny", "--platform", "cpu", "--batch-count", "2", "--techniques", "dp",
          "--lrs", "1e-3", "--corpus", "synthetic", "--save-dir", str(tmp_path / "ck")],
         env=env, cwd=tmp_path, check=True, capture_output=True, text=True, timeout=300).stdout
@@ -1246,7 +1263,7 @@ def test_phase_10_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     assert out["orchestrate"]["plan_commits"] >= 2 and len(out["orchestrate"]["fused_intervals"]) == 2
     assert launches["ce_fwd"] == 4 * smoke.FUSED_BATCHES
     assert 0 < out["unfuse"]["unfused_at"] < smoke.UNFUSE_BATCHES
-    per = smoke.flash_per_step(out["search"]["config"])
+    per = smoke.flash_per_step(out["search"]["config"], "flash_fwd")
     assert out["against_solo"]["launches"]["flash_fwd"] == per * smoke.WINDOW
 
 
@@ -1257,3 +1274,121 @@ def test_kernels_by_name_sums_per_step(smoke, monkeypatch):
                         lambda prof: [("k1", 0.0, 1000.0), ("k1", 2000.0, 2500.0),
                                       ("k2", 0.0, 4000.0)])
     assert smoke.kernels_by_name(None, 2) == {"k1": [0.75, 1.0], "k2": [2.0, 0.5]}
+
+
+def test_phase_11_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 11 (the chaos campaign and the preemption drill) at
+    ``test-tiny`` on the CPU: every check of the phase holds with the kernel
+    wrappers counting their plain versions' calls. The drill's loss lands
+    in a fixed order here: a run of the interval whose timer is armed waits
+    (10 s at most) for the timer's ``mark_lost`` before its losses are
+    screened, where on the card the loss lands a share into a launch that
+    takes longer."""
+    import threading
+
+    import torch
+
+    import saturn_tpu_torch as sat
+    from saturn_tpu_torch.core.mesh import SliceTopology
+    from saturn_tpu_torch.ops import ce, flash
+    from saturn_tpu_torch.parallel.spmd_base import SPMDTechnique
+    from saturn_tpu_torch.resilience import (CampaignSpec, FaultInjector, FleetHealthMonitor,
+                                             campaign_schedule)
+
+    monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
+    for name in ("SATURN_TPU_FAULTS", "SATURN_TPU_GROW_HYSTERESIS", "SATURN_TPU_SENTINEL",
+                 "SATURN_TPU_SENTINEL_SPIKE", "SATURN_TPU_WATCHDOG"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in (("DEVICE", "cpu"), ("GPT2", "test-tiny"), ("BERT", "bert-test-tiny"),
+                        ("BATCH", 4), ("SEQ", 64), ("VOCAB", 256), ("LAYERS", 2),
+                        ("OUT", str(tmp_path / "out")), ("CKPTS", str(tmp_path / "ckpts")),
+                        ("CHAOS_STALL_S", 7.0), ("CHAOS_WATCHDOG", (5.0, 1.0))):
+        monkeypatch.setattr(smoke, name, value)
+    os.makedirs(smoke.OUT)
+    monkeypatch.setattr(smoke, "topology", lambda: SliceTopology([torch.device("cpu")]))
+    monkeypatch.setattr(smoke.lm_task, "__defaults__",
+                        ("test-tiny",) + smoke.lm_task.__defaults__[1:3] + (64,)
+                        + smoke.lm_task.__defaults__[4:])
+    for fn in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(flash, "flash_supported", lambda cfg=None: True)
+    for module, fns in ((flash, ("flash_fwd", "flash_dq", "flash_dkv")),
+                        (ce, ("ce_fwd", "ce_dx", "ce_dw"))):
+        for fn in fns:
+            monkeypatch.setattr(module, fn, _counting(module, fn, fn))
+    armed, fired = threading.Event(), threading.Event()
+    arm, lost, screen = (FaultInjector.arm_watchdog, FleetHealthMonitor.mark_lost,
+                         SPMDTechnique._screen)
+
+    def arm_watchdog(self, *args, **kwargs):
+        timers = arm(self, *args, **kwargs)
+        if timers:
+            armed.set()
+        return timers
+
+    def mark_lost(self, *args, **kwargs):
+        lost(self, *args, **kwargs)
+        fired.set()
+
+    def held_screen(self, *args, **kwargs):
+        if armed.is_set() and not fired.is_set():
+            assert fired.wait(10.0), "the timer's loss never landed"
+        return screen(self, *args, **kwargs)
+
+    monkeypatch.setattr(FaultInjector, "arm_watchdog", arm_watchdog)
+    monkeypatch.setattr(FleetHealthMonitor, "mark_lost", mark_lost)
+    monkeypatch.setattr(SPMDTechnique, "_screen", held_screen)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches, out = smoke.faults_phase(sat, flash, ce, "cpu rehearsal")
+    finally:
+        torch.set_num_threads(n)
+    camp, drill = out["campaign"], out["drill"]
+    assert camp["kills"] == 1 and camp["hung"] >= 1 and camp["numeric"] >= 1
+    schedule = campaign_schedule(list(smoke.CHAOS_NAMES), CampaignSpec(
+        seed=smoke.CHAOS_SEED, poison_range=smoke.FAULT_BATCHES))
+    poison = next(e for e in schedule if e.kind == "batch_poison")
+    assert camp["quarantined"] == {poison.task: list(poison.batches)}
+    assert drill["preempted"] and drill["discarded"] and drill["replan_latency_s"] >= 0.0
+    assert launches["ce_fwd"] == camp["steps"] + drill["steps"]
+    assert launches["flash_fwd"] in (0, smoke.LAYERS * launches["ce_fwd"])
+    assert not os.environ.get("SATURN_TPU_FAULTS")
+
+
+@pytest.mark.parametrize("config,name,want", [
+    ({"attention": "flash", "remat": False}, "flash_fwd", 12),
+    ({"attention": "flash", "remat": True}, "flash_fwd", 24),
+    ({"attention": "flash", "remat": True}, "flash_dq", 12),
+    ({"attention": "flash", "remat": True}, "flash_dkv", 12),
+    ({"attention": "dense", "remat": True}, "flash_fwd", 0),
+    (None, "flash_dq", 0),
+])
+def test_flash_per_step_counts_the_remat_forward(smoke, config, name, want):
+    """With remat the backward recomputes each block: the flash forward
+    launches twice a layer, dQ and dK/dV once."""
+    assert smoke.flash_per_step(config, name) == want
+
+
+def test_fault_launches_and_steps_since(smoke):
+    """Phase 11's launch rule counts every step run, the discarded ones too."""
+    from types import SimpleNamespace
+
+    tech = SimpleNamespace(intervals=[{"n": 5}, {"n": 9}, {"n": 7}],
+                           discarded=[{"n": 4}, {"n": 3}])
+    steps = smoke.steps_since(tech, (1, 1))
+    assert steps == 9 + 7 + 3
+    want = smoke.want_fault_launches({"attention": "flash"}, steps)
+    assert want == {**{n: 12 * 19 for n in smoke.FLASH_NAMES},
+                    **{n: 19 for n in smoke.CE_NAMES}}
+    with pytest.raises(AssertionError, match="launches"):
+        smoke.check_launches("x", {**want, "ce_dw": 18}, want)
+
+
+def test_env_set_restores(smoke, monkeypatch):
+    monkeypatch.setenv("SATURN_TPU_KEEP", "1")
+    monkeypatch.delenv("SATURN_TPU_NEW", raising=False)
+    with smoke.EnvSet(SATURN_TPU_KEEP="2", SATURN_TPU_NEW="x"):
+        assert os.environ["SATURN_TPU_KEEP"] == "2" and os.environ["SATURN_TPU_NEW"] == "x"
+    assert os.environ["SATURN_TPU_KEEP"] == "1" and "SATURN_TPU_NEW" not in os.environ

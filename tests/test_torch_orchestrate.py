@@ -96,27 +96,39 @@ def test_default_topology_needs_a_card(monkeypatch):
 
 
 def test_unported_orchestrate_options_raise(tmp_path):
+    """What orchestrate still refuses up front: a crash barrier without a
+    journal, and an unknown recovery policy (the elastic options themselves
+    are carried: ``tests/test_torch_elastic.py``)."""
     tasks = _tasks(tmp_path, [1e-3])
     topo = SliceTopology([torch.device("cpu")])
     with pytest.raises(ValueError, match="crash_barrier requires resume_dir"):
         sat.orchestrate(tasks, topology=topo, crash_barrier=lambda point, ctx: None)
-    with pytest.raises(NotImplementedError, match="fault_injector"):
-        sat.orchestrate(tasks, topology=topo, fault_injector=object())
-    with pytest.raises(NotImplementedError, match="health_monitor"):
-        sat.orchestrate(tasks, topology=topo, health_monitor=object())
+    with pytest.raises(ValueError, match="unknown recovery policy"):
+        sat.orchestrate(tasks, topology=topo, fault_injector=sat.resilience.FaultInjector(),
+                        recovery_policy="bogus")
+    with pytest.raises(ValueError, match="unknown recovery policy"):
+        sat.orchestrate(tasks, topology=topo, health_monitor=object(),
+                        recovery_policy="bogus")
 
 
 def test_fault_schedule_in_the_environment_raises(tmp_path, monkeypatch):
-    """SATURN_TPU_FAULTS, from which the JAX orchestrate builds a fault
-    injector when none is passed, raises in the port rather than running
-    without the faults; a blank value is unset for both packages."""
+    """SATURN_TPU_FAULTS, from which both packages' orchestrate build a fault
+    injector when none is passed, is parsed as the JAX package parses it: a
+    malformed schedule raises the same error before anything runs; a blank
+    value is unset for both packages."""
     from saturn_tpu.resilience.faults import FaultInjector
 
     tasks = _tasks(tmp_path, [1e-3])
     topo = SliceTopology([torch.device("cpu")])
+    monkeypatch.setenv("SATURN_TPU_FAULTS", "1:trial_crash:lr0;nonsense")
+    with pytest.raises(ValueError, match="bad SATURN_TPU_FAULTS event 'nonsense'") as want:
+        FaultInjector.from_env()
+    with pytest.raises(ValueError, match="bad SATURN_TPU_FAULTS event 'nonsense'") as got:
+        sat.orchestrate(tasks, topology=topo)
+    assert str(got.value) == str(want.value)
     monkeypatch.setenv("SATURN_TPU_FAULTS", "1:trial_crash:lr0")
     assert FaultInjector.from_env() is not None
-    with pytest.raises(NotImplementedError, match="SATURN_TPU_FAULTS"):
+    with pytest.raises(ValueError, match="no profiled strategies"):
         sat.orchestrate(tasks, topology=topo)
     monkeypatch.setenv("SATURN_TPU_FAULTS", "  ")
     assert FaultInjector.from_env() is None
