@@ -103,9 +103,11 @@ Phases, in order; any failure is an exception and a non-zero exit:
    checkpoint bytes written (the phase then deletes its checkpoints) and
    the phase's time. Its kernel launches join phase 3's in the kernels line.
 7. Kill-replay of a sweep through the durability journal: two GPT-2-small
-   tasks (b8 x 512, flash + fused head, ``dp``, AdamW, 16 batches each,
-   differing only in lr; search from a profile cache of the phase's own,
-   seeded from phase 3's) in intervals of KILL_INTERVAL_SHARE of the
+   tasks (b8 x 512 at KILL_LAYERS of its 12 layers, cut in depth only,
+   flash + fused head, ``dp``, AdamW, 16 batches each, differing only in
+   lr; the first search runs the trials of that depth into a profile cache
+   of the phase's own, which phase 11 reuses) in intervals of
+   KILL_INTERVAL_SHARE of the
    shortest profiled runtime, so that each task runs at least 3. One
    uninterrupted ``orchestrate(resume_dir=A)`` is the reference; then a
    chain on journal B and a second checkpoint directory, fresh tasks for
@@ -231,9 +233,10 @@ Phases, in order; any failure is an exception and a non-zero exit:
    phases 3 and 6's in the kernels line.
 11. Fault injection, fleet health and elastic recovery
    (``saturn_tpu_torch/resilience/``, the engine's fault hooks), two
-   GPT-2-small tasks (b8 x 512, ``dp``, flash and the fused head,
-   FAULT_BATCHES batches each, differing only in lr; searched once, profile
-   cache seeded from phase 3's; each run trains clones). a) the seed
+   GPT-2-small tasks (b8 x 512 at FAULT_LAYERS of its 12 layers, cut in
+   depth only, ``dp``, flash and the fused head, FAULT_BATCHES batches each,
+   differing only in lr; searched once, profile cache seeded from phase 7's
+   entry of that depth; each run trains clones). a) the seed
    CHAOS_SEED campaign (``run_campaign``) of the four health-fault classes
    (a NaN and a 1e9 spike in the observed loss, a poisoned batch, a
    CHAOS_STALL_S dispatch stall) with the sentinel's spike screen on, a
@@ -261,6 +264,36 @@ Phases, in order; any failure is an exception and a non-zero exit:
    campaign's faults and discarded runs, ``replan_latency_s``, the seconds
    of discarded work, the faulted run's wall time against the unfaulted
    one's. Its launches join the kernels line.
+12. The online job service (``saturn_tpu_torch.serve``, ``SaturnService``):
+   GPT-2-small jobs at its full 12 layers (b8 x 512, ``dp``, flash and the
+   fused head, SERVICE_BATCHES batches each, differing only in lr), the
+   profile cache seeded from phase 3's, the interval SERVICE_INTERVAL_SHARE
+   of a job's profiled runtime. a) an uninterrupted service with a journal
+   and a metrics file: the client submits A (priority 1); once A runs, L
+   (priority 0) and H (priority 5) back to back; once both are admitted, C
+   (priority 0), cancelled once admitted. Checked: every admission warm (0
+   trials); H started before L; C evicted with "cancelled", never launched,
+   no checkpoint, no live state; A, L and H done at step 16 with finite
+   losses below the first, each over at least SERVICE_MIN_INTERVALS
+   intervals; the journal replays strictly as one ``seq`` chain with the
+   JAX service's record kinds, every committed plan passing the verifier
+   (``audit_journal``); exact launches; ``stop()`` raises nothing. b) A, L
+   and H again on a second journal, killed at SERVICE_KILL through
+   ``run_to_kill`` (the injector armed before ``start()``); the dead
+   service's writes joined and its states released, the memory allocated
+   back where it was before a); a fresh ``SaturnService`` with a
+   ``task_provider`` on the same journal: each remaining budget it hands
+   the provider is 16 less the job's verified checkpoint step (a job whose
+   checkpoint is at 16 comes back DONE), the live jobs re-admit warm, every
+   job ends done with params and AdamW moments bitwise a)'s, the journal
+   counts 16 batches a job over both incarnations, a recovery record each;
+   launches exact in each incarnation, logged apart. c) ``python -m
+   saturn_tpu_torch.service`` over a)'s metrics file, a child process, prints
+   A, L and H DONE and C EVICTED. Printed: each job's submit, admission,
+   start and end seconds, each re-solve's tier and seconds, the commit
+   times, the service's wall time against the jobs' step time, the
+   restart's replay, reconcile and re-admission seconds, the steps redone
+   after the kill, the phase's time. a)'s launches join the kernels line.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
@@ -303,6 +336,12 @@ builds the kernels and runs phase 10 (``chiprun_out/fused.json``).
     python3 chip_smoke.py --faults
 
 builds the kernels and runs phase 11 (``chiprun_out/faults.json``).
+
+    python3 chip_smoke.py --service
+
+builds the kernels and runs phase 12 (``chiprun_out/service.json``; with
+no phase 3 profile cache its template search runs the trials, and every
+admission after it is warm).
 
     python3 chip_smoke.py --fused-profile
 
@@ -1924,6 +1963,9 @@ def sweep_phase(sat, flash, ce, card):
 
 # ------------------------------------------------------------------ phase 7
 KILL_BATCHES = 16
+#: GPT-2-small's depth in phase 7, cut from 12 (depth only: the phase's
+#: checks do not depend on it); never above the model's own
+KILL_LAYERS = 4
 KILL_INTERVAL_SHARE = 0.4  # of the shortest profiled runtime: about 6 batches an interval
 KILL_MIN_INTERVALS = 3     # intervals each task of the reference run must take
 KILL_CHAIN = (("mid-fsync", 2), ("mid-interval", 1), (None, None))  # (point, hit) per incarnation
@@ -2054,14 +2096,13 @@ def kill_replay_phase(sat, flash, ce, card):
     cache_dir = os.path.join(OUT, "kill_replay_profile_cache")
     for d in (root, cache_dir, *journals.values()):
         shutil.rmtree(d, ignore_errors=True)
-    main_cache = os.path.join(OUT, "main_path_profile_cache")
-    if os.path.isdir(main_cache):  # phase 3 profiled this signature: no trial to run again
-        shutil.copytree(main_cache, cache_dir)
     topo = topology()
     dev = torch.device(DEVICE, 0)
 
     def tasks_in(save_dir):
-        tasks = [lm_task(sat, f"kill-lr{i}", lr, KILL_BATCHES, save_dir)
+        # the first search runs the trials of this depth, the others hit its entry
+        tasks = [lm_task(sat, f"kill-lr{i}", lr, KILL_BATCHES, save_dir,
+                         n_layers=min(KILL_LAYERS, LAYERS))
                  for i, lr in enumerate((6e-4, 1e-3))]
         sat.search(tasks, technique_names=["dp"], topology=topo, profile_cache=cache_dir,
                    fusion=False)
@@ -3379,12 +3420,13 @@ def fused_tasks(sat, save_dir, loss_fn=None, wrap=None, batches=FUSED_BATCHES, p
 
 def seeded_cache(name: str) -> str:
     """A fresh profile cache under chiprun_out/ seeded with the entries of
-    phase 3 (GPT-2-small and BERT-base at b8 x 512) and phase 6 (GPT-2-small
-    over the logits), where they ran."""
+    phase 3 (GPT-2-small and BERT-base at b8 x 512), phase 6 (GPT-2-small
+    over the logits) and phase 7 (GPT-2-small at KILL_LAYERS), where they
+    ran."""
     cache_dir = os.path.join(OUT, name)
     shutil.rmtree(cache_dir, ignore_errors=True)
     os.makedirs(cache_dir)
-    for seed in ("main_path_profile_cache", "sweep_profile_cache"):
+    for seed in ("main_path_profile_cache", "sweep_profile_cache", "kill_replay_profile_cache"):
         seed = os.path.join(OUT, seed)
         for entry in (os.listdir(seed) if os.path.isdir(seed) else ()):
             shutil.copy(os.path.join(seed, entry), cache_dir)
@@ -3892,13 +3934,16 @@ def fused_phase(sat, flash, ce, card) -> tuple:
 
 # ------------------------------------------------------------------ phase 11
 FAULT_BATCHES = 16                    # each task's budget
+#: GPT-2-small's depth in phase 11, cut from 12 (depth only; its search hits
+#: phase 7's profile entry of this depth); never above the model's
+FAULT_LAYERS = 4
 CHAOS_NAMES = ("chaos-a", "chaos-b")  # tests/test_torch_chaos.py's names: the same schedule
 CHAOS_LRS = (6e-4, 1e-3)
 CHAOS_SEED = 11
 CHAOS_STALL_S = 14.0                  # 11a: the injected dispatch wedge
 #: 11a: the watchdog's deadline, floor s + factor x profiled work: below the
 #: stall, above a healthy first launch (a fresh init, the captures, 16
-#: steps, the checkpoint copy: about 5 s on an H100 80GB HBM3)
+#: steps, the checkpoint copy: about 5 s at 12 layers on an H100 80GB HBM3)
 CHAOS_WATCHDOG = (10.0, 2.0)
 CHAOS_INTERVAL_S = 1000.0             # 11a: every attempt runs its whole budget in one interval
 CHAOS_SOLVE_S = 0.25                  # 11a: the solver's deadline (not interval / 2)
@@ -3955,7 +4000,8 @@ class VerifiedSources:
 def fault_templates(sat, topo, names, save_dir, cache_dir):
     """GPT-2-small tasks (b8 x 512, fused head, differing only in lr)
     searched once with dp; each run trains clones of them."""
-    tasks = [lm_task(sat, name, lr, FAULT_BATCHES, save_dir) for name, lr in zip(names, CHAOS_LRS)]
+    tasks = [lm_task(sat, name, lr, FAULT_BATCHES, save_dir, n_layers=fault_layers())
+             for name, lr in zip(names, CHAOS_LRS)]
     sat.search(tasks, technique_names=["dp"], topology=topo, profile_cache=cache_dir, fusion=False)
     return tasks
 
@@ -3986,8 +4032,13 @@ def steps_since(tech, marks) -> int:
     return sum(r["n"] for r in tech.intervals[i0:]) + sum(r["n"] for r in tech.discarded[d0:])
 
 
-def want_fault_launches(config, steps: int) -> dict:
-    return {**{n: flash_per_step(config, n) * steps for n in FLASH_NAMES},
+def fault_layers() -> int:
+    return min(FAULT_LAYERS, LAYERS)
+
+
+def want_fault_launches(config, steps: int, layers: int = 0) -> dict:
+    """Exact launches of ``steps`` steps at ``layers`` (0: LAYERS)."""
+    return {**{n: flash_per_step(config, n, layers) * steps for n in FLASH_NAMES},
             **{n: steps for n in CE_NAMES}}
 
 
@@ -4067,7 +4118,7 @@ def chaos_campaign(sat, flash, ce, card, templates, topo):
     if not hung or not numeric:
         raise AssertionError(f"11a: health events {health}: want a hung dispatch (the watchdog "
                              f"ends the stall) and a numeric fault")
-    check_launches("11a campaign", launches, want_fault_launches(config, steps))
+    check_launches("11a campaign", launches, want_fault_launches(config, steps, fault_layers()))
     for name in names:
         path = os.path.join(root, "campaign", f"{name}.pt")
         if ckpt.load(path)["step"] != FAULT_BATCHES:
@@ -4098,7 +4149,7 @@ def chaos_campaign(sat, flash, ce, card, templates, topo):
     if sorted(out["completed"]) != sorted(names) or out["failed"]:
         raise AssertionError(f"11a reference: {out}")
     check_launches("11a reference", counts(flash, ce),
-                   want_fault_launches(config, steps_since(tech, marks)))
+                   want_fault_launches(config, steps_since(tech, marks), fault_layers()))
     mismatches = compare_checkpoints(os.path.join(root, "campaign"),
                                      os.path.join(root, "reference"), names=names)
     if mismatches:
@@ -4148,7 +4199,7 @@ def preemption_drill(sat, flash, ce, card, templates, topo):
     if sorted(out["completed"]) != sorted(names) or out["failed"]:
         raise AssertionError(f"11b clean run: {out}")
     check_launches("11b clean run", counts(flash, ce),
-                   want_fault_launches(config, steps_since(tech, marks)))
+                   want_fault_launches(config, steps_since(tech, marks), fault_layers()))
     want = {t.name: ckpt.load(t.ckpt_path) for t in clean}
     first = metrics.read_events(clean_path, kind="interval")[0]["elapsed_s"]
     after_s = round(DRILL_AFTER_SHARE * first, 3)
@@ -4205,7 +4256,7 @@ def preemption_drill(sat, flash, ce, card, templates, topo):
         raise AssertionError(f"11b: the straggler's slowdown {monitor.max_slowdown([0])}")
     progress = durability.replay_batch_state(wal).progress
     check_progress(progress, {n: FAULT_BATCHES for n in names})
-    check_launches("11b", launches, want_fault_launches(config, steps))
+    check_launches("11b", launches, want_fault_launches(config, steps, fault_layers()))
     for t in tasks:
         check_same_state(t.name, want[t.name], ckpt.load(t.ckpt_path))
         runs = [r for r in tech.intervals[marks[0]:] if r["task"] == t.name]
@@ -4242,7 +4293,8 @@ def faults_phase(sat, flash, ce, card) -> tuple:
     topo = topology()
     cache_dir = seeded_cache("faults_profile_cache")
     save_dir = os.path.join(CKPTS, "faults_templates")
-    log("phase 11: fault injection and elastic recovery, two GPT-2-small tasks b8x512, dp")
+    log(f"phase 11: fault injection and elastic recovery, two GPT-2-small tasks b8x512 at "
+        f"{fault_layers()} of its {LAYERS} layers, dp")
     out = {}
     chaos = fault_templates(sat, topo, CHAOS_NAMES, save_dir, cache_dir)
     launches, out["campaign"] = chaos_campaign(sat, flash, ce, card, chaos, topo)
@@ -4254,6 +4306,379 @@ def faults_phase(sat, flash, ce, card) -> tuple:
     shutil.rmtree(save_dir, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 11 {out['seconds']:.1f}s  [{card}]")
+    return launches, out
+
+
+# ----------------------------------------------------------------- phase 12
+SERVICE_BATCHES = 16
+#: (name, lr, priority) of A, L, H and C, GPT-2-small jobs that differ only in lr
+SERVICE_JOBS = {"A": ("svc-a", 6e-4, 1.0), "L": ("svc-l", 1e-3, 0.0),
+                "H": ("svc-h", 3e-4, 5.0), "C": ("svc-c", 2e-4, 0.0)}
+SERVICE_INTERVAL_SHARE = 0.6  # of a job's profiled runtime: two intervals a job
+SERVICE_KILL = ("mid-interval", 2)  # 12b's kill: A's second interval ran, uncommitted
+SERVICE_MIN_INTERVALS = 2
+#: the record kinds the JAX package's service writes
+SERVICE_KINDS = ("segment_open", "recovery", "job_submitted", "job_admission", "job_state",
+                 "job_recovered", "job_deferred", "plan_commit", "plan_quarantine",
+                 "task_progress", "ckpt_published", "topology_change", "grow_event",
+                 "backlog_drain", "migration_intent", "migration_done", "migration_rollback",
+                 "defrag_wave", "tenant_charge", "health_quarantine", "health_unquarantine",
+                 "health_detach", "health_backoff", "health_unbench", "health_evict")
+SERVICE_REQUIRED = ("segment_open", "recovery", "job_submitted", "job_admission", "job_state",
+                    "plan_commit", "task_progress", "ckpt_published")
+
+
+def wait_for(client, job_id: str, pred, label: str, timeout: float = 300.0) -> dict:
+    """Poll a job's status until ``pred(snapshot)``; raise if it ends or
+    ``timeout`` passes first."""
+    deadline = time.monotonic() + timeout
+    while True:
+        snap = client.status(job_id)
+        if pred(snap):
+            return snap
+        if snap["state"] in ("DONE", "FAILED", "EVICTED") or time.monotonic() > deadline:
+            raise AssertionError(f"{label}: job {job_id} is {snap['state']} ({snap['error']})")
+        time.sleep(0.005)
+
+
+def service_jobs(sat, save_dir, keys) -> dict:
+    """The jobs' tasks, built (their datasets drawn) before any is submitted."""
+    return {k: lm_task(sat, SERVICE_JOBS[k][0], SERVICE_JOBS[k][1], SERVICE_BATCHES, save_dir)
+            for k in keys}
+
+
+def submit_jobs(svc, client, tasks) -> dict:
+    """A; once A is running, L and H back to back, under the queue's lock so
+    that one drain admits both; with C in ``tasks``, once L and H are
+    admitted, C, cancelled once it is admitted. Ordered by the jobs' states,
+    never by sleeps."""
+    def submit(k):
+        return client.submit(tasks[k], priority=SERVICE_JOBS[k][2],
+                             spec={"lr": SERVICE_JOBS[k][1]})
+
+    ids = {"A": submit("A")}
+    wait_for(client, ids["A"], lambda s: s["started_at"] is not None, "12: A never started")
+    with svc.queue._lock:  # re-entrant: the submits take it again
+        ids["L"] = submit("L")
+        ids["H"] = submit("H")
+    if "C" in tasks:
+        for k in ("L", "H"):
+            wait_for(client, ids[k], lambda s: s["admitted_at"] is not None,
+                     f"12: {k} never admitted")
+        ids["C"] = submit("C")
+        wait_for(client, ids["C"], lambda s: s["admitted_at"] is not None,
+                 "12: C never admitted")
+        if not client.cancel(ids["C"]):
+            raise AssertionError("12: C was terminal before its cancel")
+    return ids
+
+
+def job_steps(tasks) -> tuple:
+    """(steps run, steps run in discarded runs) over the techniques of
+    ``tasks`` (each admission profiles into a technique instance of its own)."""
+    techs = {id(t.strategies[1].executor): t.strategies[1].executor for t in tasks
+             if 1 in t.strategies}
+    return (sum(r["n"] for tech in techs.values() for r in tech.intervals),
+            sum(r["n"] for tech in techs.values() for r in tech.discarded))
+
+
+def check_service_journal(root: str, incarnations: int) -> dict:
+    """Raise unless the service's journal replays strictly as one ``seq``
+    chain, holds only the JAX service's record kinds (the required ones
+    among them), a recovery record per incarnation, and every committed
+    plan passes the verifier (``audit_journal``). Returns the count of
+    each kind."""
+    from saturn_tpu_torch import analysis
+    from saturn_tpu_torch.durability import replay
+
+    recs = replay(root, strict=True)
+    if [r["seq"] for r in recs] != list(range(1, len(recs) + 1)):
+        raise AssertionError(f"{root}: the records are not one seq chain from 1")
+    kinds: dict = {}
+    for r in recs:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    foreign = sorted(set(kinds) - set(SERVICE_KINDS))
+    missing = [k for k in SERVICE_REQUIRED if k not in kinds]
+    if foreign or missing:
+        raise AssertionError(f"{root}: record kinds {kinds}; not the JAX service's {foreign}, "
+                             f"missing {missing}")
+    got = [r["data"]["incarnation"] for r in recs if r["kind"] == "recovery"]
+    if got != list(range(1, incarnations + 1)):
+        raise AssertionError(f"{root}: recovery records {got}, want {incarnations} incarnations")
+    report = analysis.audit_journal(root)
+    if not report.ok:
+        raise AssertionError(f"{root}: the journal audit fails: {report.codes()}")
+    return kinds
+
+
+def job_progress(root: str) -> dict:
+    """task -> the sum of its ``task_progress`` records, every incarnation."""
+    from saturn_tpu_torch.durability import replay
+
+    out: dict = {}
+    for r in replay(root, strict=True):
+        if r["kind"] == "task_progress":
+            out[r["data"]["task"]] = out.get(r["data"]["task"], 0) + r["data"]["batches"]
+    return out
+
+
+def checkpoint_step(ckpt, path: str) -> int:
+    """The step of a verified checkpoint at ``path``, 0 without one."""
+    return ckpt.saved_step(path) if ckpt.exists(path) and ckpt.verify(path) else 0
+
+
+def service_phase(sat, flash, ce, card) -> tuple:
+    """Phase 12: the online service on the card. 12a an uninterrupted
+    service (admission, priority-weighted re-solves, a cancel), 12b the
+    same jobs killed at SERVICE_KILL and recovered by a fresh service, 12c
+    the CLI over 12a's metrics."""
+    import gc
+    import traceback
+
+    from saturn_tpu_torch.durability import journal as jmod
+    from saturn_tpu_torch.durability import recovery as rmod
+    from saturn_tpu_torch.durability import replay
+    from saturn_tpu_torch.resilience import CrashInjector, run_to_kill
+    from saturn_tpu_torch.service import SaturnService, ServiceClient
+    from saturn_tpu_torch.service import admission as adm
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+    from saturn_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    sat.library.register_default_library()
+    topo = topology()
+    cache_dir = seeded_cache("service_profile_cache")
+    root = os.path.join(CKPTS, "service")
+    journals = {k: os.path.join(OUT, f"service_journal_{k}") for k in "AB"}
+    events = {k: os.path.join(OUT, f"service_events_{k}.jsonl") for k in "AB"}
+    for d in (root, *journals.values()):
+        shutil.rmtree(d, ignore_errors=True)
+    for p in events.values():
+        if os.path.exists(p):
+            os.unlink(p)
+    log(f"phase 12: the online service, GPT-2-small jobs b8x512 ({LAYERS} layers), dp")
+    template = lm_task(sat, "svc-template", 6e-4, SERVICE_BATCHES, os.path.join(root, "t"))
+    t0 = time.perf_counter()
+    stats = sat.search([template], technique_names=["dp"], topology=topo,
+                       profile_cache=cache_dir, fusion=False)
+    t_search = time.perf_counter() - t0
+    strat = template.strategies[1]
+    config, pbt = dict(strat.params), strat.per_batch_time
+    interval = SERVICE_INTERVAL_SHARE * SERVICE_BATCHES * pbt
+    t0 = time.perf_counter()
+    loss0 = initial_loss(template)
+    t_loss0 = time.perf_counter() - t0
+    release([template])
+    del template, strat
+    dev = torch.device(DEVICE, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    out = {"config": config, "per_batch_s": pbt, "interval_s": interval,
+           "template_trials": stats["trials_run"], "template_search_s": t_search,
+           "initial_loss": loss0, "initial_loss_s": t_loss0}
+    log(f"  the jobs' profile: {config}, {pbt * 1e3:.3f} ms/batch ({stats['trials_run']} "
+        f"trial(s), {stats['cache_hits']} cache hit(s), {t_search:.1f}s); interval "
+        f"{interval:.3f}s ({SERVICE_INTERVAL_SHARE} of a job's runtime); the first loss "
+        f"{loss0:.4f} ({t_loss0:.1f}s)")
+
+    # ---- 12a: an uninterrupted service
+    tasks = service_jobs(sat, os.path.join(root, "A"), "ALHC")
+    reset_counts(flash, ce)
+    t0, m0 = time.perf_counter(), time.monotonic()
+    with CallTimes(commit=(jmod.Journal, "commit")) as timer:
+        svc, client = sat.serve(topology=topo, interval=interval, technique_names=["dp"],
+                                profile_cache=cache_dir, durability_dir=journals["A"],
+                                metrics_path=events["A"])
+        try:
+            ids = submit_jobs(svc, client, tasks)
+            snaps = {k: client.wait(j, timeout=600) for k, j in ids.items()}
+        finally:
+            svc.stop(timeout=600)  # raises what the loop raised
+    wall_a = time.perf_counter() - t0
+    launches = counts(flash, ce)
+    states = {k: (s["state"], s["error"]) for k, s in snaps.items()}
+    if states != {"A": ("DONE", None), "L": ("DONE", None), "H": ("DONE", None),
+                  "C": ("EVICTED", "cancelled")}:
+        raise AssertionError(f"12a: job states {states}")
+    if not snaps["H"]["started_at"] < snaps["L"]["started_at"]:
+        raise AssertionError(f"12a: H started at {snaps['H']['started_at']}, after L at "
+                             f"{snaps['L']['started_at']}")
+    admitted = [e for e in metrics.read_events(events["A"], kind="job_admitted")
+                if e["decision"] == "admit"]
+    if (sorted(e["job"] for e in admitted) != sorted(ids.values())
+            or any(e["trials_run"] or not e["warm"] for e in admitted)):
+        raise AssertionError(f"12a: admissions {admitted}: want every job once, warm")
+    kinds = check_service_journal(journals["A"], 1)
+    recs_a = replay(journals["A"], strict=True)
+    c_name = SERVICE_JOBS["C"][0]
+    if [r for r in recs_a if r["kind"] == "ckpt_published" and r["data"]["task"] == c_name]:
+        raise AssertionError("12a: C published a checkpoint")
+    if tasks["C"]._live_state is not None or [
+            r for r in tasks["C"].strategies[1].executor.intervals if r["task"] == c_name]:
+        raise AssertionError("12a: C ran, or holds a live state")
+    per_job = {}
+    for k in "ALH":
+        t = tasks[k]
+        saved = ckpt.load(t.ckpt_path)
+        losses = np.asarray(t.last_losses)
+        runs = [r for r in t.strategies[1].executor.intervals if r["task"] == t.name]
+        if saved["step"] != SERVICE_BATCHES or not np.isfinite(losses).all() \
+                or not losses[-1] < loss0:
+            raise AssertionError(f"12a {k}: step {saved['step']}, losses {losses} (first "
+                                 f"{loss0:.4f})")
+        if len(runs) < SERVICE_MIN_INTERVALS:
+            raise AssertionError(f"12a {k}: {len(runs)} interval(s): lower "
+                                 f"SERVICE_INTERVAL_SHARE")
+        per_job[k] = {"intervals": [r["n"] for r in runs], "final_loss": float(losses[-1]),
+                      "device_s": sum(r["n"] * (r["per_batch_s"] or 0.0) for r in runs),
+                      "run_s": sum(r["run_s"] for r in runs)}
+    steps, discarded = job_steps(tasks.values())
+    check_launches("12a", launches, want_fault_launches(config, steps + discarded))
+    tiers = [(e["tier_name"], e["wall_s"]) for e in
+             metrics.read_events(events["A"], kind="solver_tier") if e["source"] == "service"]
+    commit_s = timer.seconds["commit"]
+    device_s = sum(v["device_s"] for v in per_job.values())
+    for k, s in snaps.items():
+        marks = " -> ".join(f"{lbl} {s[f] - m0:.3f}" for lbl, f in (
+            ("submitted", "submitted_at"), ("admitted", "admitted_at"),
+            ("started", "started_at"), ("done", "finished_at")) if s[f] is not None)
+        log(f"    {k} ({s['task']}, priority {s['priority']}): {marks} s; {s['state']}"
+            + (f" ({s['error']})" if s["error"] else "")
+            + (f"; intervals {per_job[k]['intervals']}" if k in per_job else ""))
+    log(f"  12a: H before L, C evicted by its cancel, A/L/H at step {SERVICE_BATCHES}; "
+        f"journal {kinds}, every plan verified; {len(tiers)} re-solves (tier, s): {tiers}; "
+        f"{len(commit_s)} commits, median {np.median(commit_s) * 1e3:.2f} ms, max "
+        f"{max(commit_s) * 1e3:.2f} ms; {steps} steps, launches {launches} (exact); wall "
+        f"{wall_a:.1f}s against {device_s:.3f}s of the jobs' steps (batches x per-batch s)"
+        f"  [{card}]")
+    out["12a"] = {"states": states, "snapshots": snaps, "jobs": per_job, "journal": kinds,
+                  "tiers": tiers, "commit_s": commit_s, "wall_s": wall_a,
+                  "device_s": device_s, "steps": steps, "launches": launches}
+    want = {k: ckpt.load(tasks[k].ckpt_path) for k in "ALH"}
+    release(tasks.values())
+    del svc, client, tasks
+
+    # ---- 12b: the same jobs, killed and recovered
+    tasks_b = service_jobs(sat, os.path.join(root, "B"), "ALH")
+    reset_counts(flash, ce)
+    inj = CrashInjector(*SERVICE_KILL, armed=False)
+    t0 = time.perf_counter()
+    svc = SaturnService(topology=topo, interval=interval, technique_names=["dp"],
+                        profile_cache=cache_dir, durability_dir=journals["B"],
+                        metrics_path=events["B"], crash_barrier=inj.barrier)
+    inj.arm()  # before start(): the kill cannot race the loop's barriers
+    svc.start()
+    ids_b = submit_jobs(svc, ServiceClient(svc), tasks_b)
+    run_to_kill(inj, svc, timeout=300)  # the one kill this phase catches
+    t_kill = time.perf_counter() - t0
+    svc.stop(timeout=60)
+    killed_launches = counts(flash, ce)
+    killed_steps = sum(job_steps(tasks_b.values()))
+    check_launches("12b killed", killed_launches, want_fault_launches(config, killed_steps))
+    # the dead incarnation's writes land; its states, graphs and pools go
+    ckpt.flush()
+    release(r.task for r in svc.queue.jobs())
+    traceback.clear_frames(svc._error.__traceback__)
+    del svc, tasks_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    after_kill = torch.cuda.memory_allocated(dev)
+    check_memory("12b after the kill", after_kill, before)
+    names = {k: SERVICE_JOBS[k][0] for k in "ALH"}
+    ckpt_steps = {k: checkpoint_step(ckpt, os.path.join(root, "B", f"{n}.pt"))
+                  for k, n in names.items()}
+    specs = []
+
+    def provide(spec):
+        specs.append(spec)
+        return lm_task(sat, spec["task"], spec["spec"]["lr"], SERVICE_BATCHES,
+                       os.path.join(root, "B"))
+
+    reset_counts(flash, ce)
+    rt = CallTimes(replay=(rmod, "replay_service_state"),
+                   reconcile=(rmod, "reconcile_checkpoints"),
+                   follow=(rmod, "follow_checkpoints"),
+                   admit=(adm.AdmissionController, "admit"))
+    t0 = time.perf_counter()
+    with rt:
+        svc2 = SaturnService(topology=topo, interval=interval, technique_names=["dp"],
+                             profile_cache=cache_dir, durability_dir=journals["B"],
+                             metrics_path=events["B"], task_provider=provide)
+        t_recover = time.perf_counter() - t0
+        svc2.start()
+        client2 = ServiceClient(svc2)
+        try:
+            snaps_b = {k: client2.wait(j, timeout=600) for k, j in ids_b.items()}
+        finally:
+            svc2.stop(timeout=600)
+    wall_b = time.perf_counter() - t0
+    restart_launches = counts(flash, ce)
+    rebuilt = [r.task for r in svc2.queue.jobs() if hasattr(r.task, "strategies")
+               and 1 in r.task.strategies]
+    restart_steps = sum(job_steps(rebuilt))
+    check_launches("12b restart", restart_launches, want_fault_launches(config, restart_steps))
+    if {k: s["state"] for k, s in snaps_b.items()} != {k: "DONE" for k in "ALH"}:
+        raise AssertionError(f"12b: job states {snaps_b}")
+    by_name = {v: k for k, v in names.items()}
+    got_remaining = {by_name[s["task"]]: s["remaining_batches"] for s in specs}
+    want_remaining = {k: SERVICE_BATCHES - ckpt_steps[k] for k in got_remaining}
+    finished = sorted(k for k in "ALH" if k not in got_remaining)
+    if got_remaining != want_remaining or any(ckpt_steps[k] != SERVICE_BATCHES
+                                              for k in finished):
+        raise AssertionError(f"12b: remaining batches {got_remaining}, want 16 less each "
+                             f"verified checkpoint's step {ckpt_steps}; not rebuilt {finished}")
+    kinds_b = check_service_journal(journals["B"], 2)
+    recs_b = replay(journals["B"], strict=True)
+    second = max(i for i, r in enumerate(recs_b) if r["kind"] == "recovery")
+    readmits = [r["data"] for r in recs_b[second:] if r["kind"] == "job_admission"]
+    if (sorted(d["task"] for d in readmits) != sorted(names[k] for k in got_remaining)
+            or any(d["decision"] != "admit" or d["trials_run"] for d in readmits)):
+        raise AssertionError(f"12b: re-admissions {readmits}: want the live jobs, warm")
+    progress = job_progress(journals["B"])
+    if progress != {n: SERVICE_BATCHES for n in names.values()}:
+        raise AssertionError(f"12b: journaled progress {progress}")
+    for k, n in names.items():
+        check_same_state(n, want[k], ckpt.load(os.path.join(root, "B", f"{n}.pt")))
+    redone = killed_steps + restart_steps - len(names) * SERVICE_BATCHES
+    recovery = {"replay_s": rt.seconds["replay"], "reconcile_s": rt.seconds["reconcile"],
+                "follow_s": rt.seconds["follow"],
+                "readmit_s": rt.seconds["admit"][:len(got_remaining)],
+                "constructor_s": t_recover}
+    log(f"  12b: killed at {SERVICE_KILL} after {t_kill:.1f}s ({killed_steps} steps, "
+        f"launches {killed_launches}, exact); {after_kill / 2**30:.3f} GiB allocated after "
+        f"the kill, {before / 2**30:.3f} before 12a; checkpoint steps {ckpt_steps}, "
+        f"remaining batches handed to task_provider {got_remaining} ({finished} restored "
+        f"DONE); restart: replay {sum(recovery['replay_s']):.4f}s, reconcile "
+        f"{sum(recovery['reconcile_s']):.3f}s, follow {sum(recovery['follow_s']):.3f}s, "
+        f"re-admission {sum(recovery['readmit_s']):.3f}s (warm), the constructor "
+        f"{t_recover:.3f}s; {restart_steps} steps after it, launches {restart_launches} "
+        f"(exact); {redone} steps ({redone * pbt:.3f}s) redone; progress {progress}; every "
+        f"checkpoint bitwise 12a's; journal {kinds_b}; wall {wall_b:.1f}s  [{card}]")
+    out["12b"] = {"kill": list(SERVICE_KILL), "kill_s": t_kill, "checkpoint_steps": ckpt_steps,
+                  "remaining": got_remaining, "restored_done": finished,
+                  "recovery": recovery, "killed_steps": killed_steps,
+                  "restart_steps": restart_steps, "redone_steps": redone,
+                  "redone_s": redone * pbt, "progress": progress, "journal": kinds_b,
+                  "killed_launches": killed_launches, "restart_launches": restart_launches,
+                  "allocated_before": before, "allocated_after_kill": after_kill,
+                  "wall_s": wall_b}
+    release(rebuilt)
+    del svc2, client2, rebuilt
+
+    # ---- 12c: the CLI over 12a's metrics, in a child process
+    proc = run_child(["-m", "saturn_tpu_torch.service", events["A"]], "service_cli", timeout=300)
+    rows = {line.split()[1]: line.split()[2] for line in proc.stdout.splitlines()[1:]
+            if len(line.split()) >= 3 and line.split()[0].startswith("j")}
+    want_rows = {names[k]: "DONE" for k in "ALH"}
+    want_rows[c_name] = "EVICTED"
+    if rows != want_rows:
+        raise AssertionError(f"12c: the CLI printed {rows}, want {want_rows}:\n{proc.stdout}")
+    log(f"  12c: python -m saturn_tpu_torch.service printed {rows} in {proc.seconds:.1f}s")
+    out["12c"] = {"rows": rows, "seconds": proc.seconds}
+    shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12 {out['seconds']:.1f}s  [{card}]")
     return launches, out
 
 
@@ -4340,6 +4765,13 @@ def main(argv) -> int:
                        "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
         shutil.rmtree(CKPTS, ignore_errors=True)
         return 0
+    if "--service" in argv:
+        _, service_out = service_phase(sat, flash, ce, card)
+        with open(os.path.join(OUT, "service.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "service": service_out,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
+        shutil.rmtree(CKPTS, ignore_errors=True)
+        return 0
     if "--faults" in argv:
         _, faults_out = faults_phase(sat, flash, ce, card)
         with open(os.path.join(OUT, "faults.json"), "w") as f:
@@ -4407,7 +4839,8 @@ def main(argv) -> int:
     launches = {n: launches[n] + sweep_launches[n] for n in KERNEL_NAMES}
     log(f"  main-path launches, phases 3 and 6: {launches}")
 
-    log("phase 7: kill-replay of a two-task GPT-2-small sweep b8x512 (resume_dir)")
+    log(f"phase 7: kill-replay of a two-task GPT-2-small sweep b8x512 at "
+        f"{min(KILL_LAYERS, LAYERS)} of its {LAYERS} layers (resume_dir)")
     kill_replay = kill_replay_phase(sat, flash, ce, card)
     shutil.rmtree(CKPTS, ignore_errors=True)
 
@@ -4425,6 +4858,14 @@ def main(argv) -> int:
     faults_launches, faults_out = faults_phase(sat, flash, ce, card)
     launches = {n: launches[n] + faults_launches[n] for n in KERNEL_NAMES}
     log(f"  main-path launches, phases 3, 6, 10c and 11: {launches}")
+    shutil.rmtree(CKPTS, ignore_errors=True)
+
+    service_launches, service_out = service_phase(sat, flash, ce, card)
+    launches = {n: launches[n] + service_launches[n] for n in KERNEL_NAMES}
+    log(f"  main-path launches, phases 3, 6, 10c, 11 and 12a: {launches}")
+    with open(os.path.join(OUT, "service.json"), "w") as f:
+        json.dump({"card": card, "kind": kind, "service": service_out}, f, indent=1,
+                  default=str)
     shutil.rmtree(CKPTS, ignore_errors=True)
 
     def entry(row, n_launches):
@@ -4447,7 +4888,9 @@ def main(argv) -> int:
                    "kernel_rows_d256": rows_d256, "ce_recompute_rows": recompute, "main_path": main_results,
                    "pinned": pinned, "step_profile": step_profile, "sweep": sweep,
                    "kill_replay": kill_replay, "offload": offload, "data": data,
-                   "fused": fused_out, "faults": faults_out, "short_profiles": SHORT_PROFILES,
+                   "fused": fused_out, "faults": faults_out,
+                   "service": {k: service_out[k] for k in ("seconds", "interval_s")},
+                   "short_profiles": SHORT_PROFILES,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"profiles short of their launch count, each taken again: {len(SHORT_PROFILES)} "
         f"{SHORT_PROFILES}")

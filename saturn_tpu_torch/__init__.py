@@ -4,8 +4,9 @@ The PyTorch / NVIDIA H100 port of ``saturn_tpu``, beside it in this
 repository: the same four-call API — ``library.register`` a technique,
 build ``Task``s, ``search`` (profile task x block size x technique), then
 ``orchestrate`` (solve the SPASE MILP and run the plan in intervals with
-checkpoint / resume). Its entry points run on the card unless the caller
-passes an explicit CPU topology. It imports nothing of ``saturn_tpu`` or JAX.
+checkpoint / resume); ``serve`` starts the always-on service that takes
+jobs over time. Its entry points run on the card unless the caller passes
+an explicit CPU topology. It imports nothing of ``saturn_tpu`` or JAX.
 """
 
 from saturn_tpu_torch.core.strategy import Strategy, Techniques
@@ -26,6 +27,7 @@ __all__ = [
     "library",
     "search",
     "orchestrate",
+    "serve",
 ]
 
 
@@ -82,3 +84,15 @@ def orchestrate(
         crash_barrier=crash_barrier,
         fusion=fusion,
     )
+
+
+def serve(topology=None, **kw):
+    """Start an online job service (``saturn_tpu_torch.service.SaturnService``)
+    and return (service, client): the always-on counterpart of
+    ``orchestrate``. Jobs are submitted over time, admission profiles them
+    through the profile cache, and each interval boundary re-solves
+    incrementally (the signature of ``saturn_tpu.serve``)."""
+    from saturn_tpu_torch.service import SaturnService, ServiceClient
+
+    svc = SaturnService(topology=topology, **kw).start()
+    return svc, ServiceClient(svc)

@@ -29,6 +29,9 @@ SAT-P030   error     negative start time or negative runtime
 SAT-P031   error     task starts before a task it depends on
 SAT-P032   warning   recorded makespan is below the last assignment's end time
 SAT-P033   warning   deadline arithmetic: start + runtime overruns the deadline
+SAT-J000   info      the journal holds no plan_commit record
+SAT-J001   error     a replayed plan_commit record fails static verification
+SAT-J002   error     the journal is unreadable, or a plan_commit is undecodable
 ========== ========= ===========================================================
 """
 

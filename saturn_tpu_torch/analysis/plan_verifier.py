@@ -19,8 +19,11 @@ engine's guard before each gang launch):
 - **Timeline**: non-negative starts and runtimes, start order consistent
   with the dependency edges, makespan and deadline arithmetic.
 
-The JAX package's ``audit_journal`` has no counterpart yet. Pure Python
-over plan data.
+- **Journal audit** (``audit_journal``): every ``plan_commit`` of a
+  durability journal, so that a restart never resurrects a plan the
+  verifier rejects.
+
+Pure Python over plan data.
 """
 
 from __future__ import annotations
@@ -452,4 +455,55 @@ def verify_or_raise(plan: Any, topology: Any = None,
                          subject=source)
     if not report.ok:
         raise PlanVerificationError(report, source=source)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# journal audit
+# ---------------------------------------------------------------------------
+
+def audit_journal(root: str, topology: Any = None,
+                  tasks: Optional[Sequence[Any]] = None) -> AnalysisReport:
+    """Verify every ``plan_commit`` record of a durability journal: an
+    undecodable payload or an unreadable journal is SAT-J002, a plan that
+    fails verification SAT-J001 (each plan's own diagnostics follow), a
+    journal with no plan SAT-J000 (info)."""
+    report = AnalysisReport(subject=f"journal:{root}")
+    try:
+        from saturn_tpu_torch.durability import journal as _journal
+
+        records = _journal.replay(root)
+    except Exception as e:  # an unreadable tree, a corrupt segment
+        report.extend([make("SAT-J002", "error",
+                            f"journal at {root!r} unreadable: {type(e).__name__}: {e}",
+                            category="journal")])
+        return report
+    from saturn_tpu_torch.solver import milp
+
+    n_plans = 0
+    for rec in records:
+        if rec.get("kind") != "plan_commit":
+            continue
+        n_plans += 1
+        seq = rec.get("seq")
+        payload = (rec.get("data") or {}).get("plan")
+        try:
+            plan = milp.Plan.from_json(payload)
+        except Exception as e:
+            report.extend([make("SAT-J002", "error",
+                                f"plan_commit seq={seq} undecodable: {type(e).__name__}: {e}",
+                                counterexample={"seq": seq}, category="journal")])
+            continue
+        sub = verify_plan(plan, topology=topology, tasks=tasks, subject=f"plan_commit seq={seq}")
+        if not sub.ok:
+            codes = [d.code for d in sub.errors]
+            report.extend([make("SAT-J001", "error",
+                                f"plan_commit seq={seq} fails static verification ({codes}) "
+                                "— quarantine on replay",
+                                counterexample={"seq": seq, "codes": codes},
+                                category="journal")])
+        report.extend(sub.diagnostics)
+    if n_plans == 0:
+        report.extend([make("SAT-J000", "info", f"journal at {root!r} holds no plan_commit records",
+                            category="journal")])
     return report

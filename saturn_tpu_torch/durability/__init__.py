@@ -1,4 +1,4 @@
-"""Crash-safe durability: the write-ahead journal and batch recovery.
+"""Crash-safe durability: the write-ahead journal and recovery.
 
 Counterpart of ``saturn_tpu/durability/__init__.py``:
 
@@ -8,11 +8,12 @@ Counterpart of ``saturn_tpu/durability/__init__.py``:
   tail is quarantined to a ``.corrupt`` sidecar when the journal is
   opened. It writes the JAX package's format byte for byte.
 - :mod:`~saturn_tpu_torch.durability.recovery`: replays the journal into
-  the batch orchestrator's per-task progress and reconciles journaled
-  checkpoints against the disk.
+  the batch orchestrator's per-task progress or the online service's job
+  registry, and reconciles journaled checkpoints against the disk.
 
-``orchestrate(resume_dir=...)`` journals a run there and resumes from it;
-the kill-replay harness is :mod:`saturn_tpu_torch.resilience.crash`.
+``orchestrate(resume_dir=...)`` and ``SaturnService(durability_dir=...)``
+journal their runs there and resume from them; the kill-replay harness is
+:mod:`saturn_tpu_torch.resilience.crash`.
 """
 
 from saturn_tpu_torch.durability.journal import (
@@ -24,9 +25,16 @@ from saturn_tpu_torch.durability.journal import (
 )
 from saturn_tpu_torch.durability.recovery import (
     BatchRecovery,
+    JobReplay,
+    RecoveredTaskStub,
+    ServiceRecovery,
+    audit_plan_commits,
+    build_restore_records,
     fold_health_record,
+    follow_checkpoints,
     reconcile_checkpoints,
     replay_batch_state,
+    replay_service_state,
 )
 
 __all__ = [
@@ -36,7 +44,14 @@ __all__ = [
     "replay",
     "replay_reconciled",
     "BatchRecovery",
+    "JobReplay",
+    "RecoveredTaskStub",
+    "ServiceRecovery",
+    "audit_plan_commits",
+    "build_restore_records",
     "fold_health_record",
+    "follow_checkpoints",
     "reconcile_checkpoints",
     "replay_batch_state",
+    "replay_service_state",
 ]

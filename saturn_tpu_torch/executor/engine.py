@@ -194,6 +194,7 @@ def execute(
     health=None,
     faults=None,
     interval_index: int = 0,
+    on_task_start=None,
 ) -> Dict[str, BaseException]:
     """Run one interval: every task on its block after the tasks it depends
     on, then a barrier. Returns ``{task name: error}`` of the tasks that
@@ -215,7 +216,10 @@ def execute(
     belong to the guardian's recovery policy. ``on_task_done(name, n)`` is
     called from a task's launcher once its interval ran to its end and its
     data cursor advanced (the durability journal's ``task_progress``): a
-    batch count it is given really ran.
+    batch count it is given really ran. ``on_task_start(name)`` is called
+    from a task's launcher once its dependencies finished and the
+    preemption check passed, just before its technique runs (the online
+    service marks the job RUNNING there).
 
     ``health`` (a ``resilience.FleetHealthMonitor``) and ``faults`` (a
     ``resilience.FaultInjector``) turn on the elastic hooks of the module
@@ -304,6 +308,8 @@ def execute(
             didx = block_didx(a)
             crash_or_preempt([task.name], a, didx)
             task.select_strategy(a.apportionment)
+            if on_task_start is not None:
+                on_task_start(task.name)
             n = batches[task.name]
             logger.info("interval: launching %s on block [%d:%d] for %d batches",
                         task.name, a.block.offset, a.block.end, n)
@@ -374,6 +380,8 @@ def execute(
                     didx = block_didx(a)
                     crash_or_preempt([t.name], a, didx)
                     t.select_strategy(a.apportionment)
+                    if on_task_start is not None:
+                        on_task_start(t.name)
                     if stall_then_check(t.name):
                         return  # the watchdog abandoned the group during the stall
                     set_poison(t)
@@ -508,6 +516,8 @@ def execute(
             crash_or_preempt([t.name for t in members], a, didx)
             for t in members:
                 t.select_strategy(a.apportionment)
+                if on_task_start is not None:
+                    on_task_start(t.name)
                 set_poison(t)
             if stall_then_check(members[0].name):
                 return  # the watchdog abandoned the group during the stall

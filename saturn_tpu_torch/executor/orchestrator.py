@@ -193,10 +193,13 @@ def _persist_realized(task) -> None:
 def fold_realized_feedback(run_tasks) -> Dict[str, tuple]:
     """Fold each executed task's realized per-batch time into its strategy
     (EWMA, ``Task.apply_realized_feedback``) and its profile-cache entry.
-    Returns ``{name: (old, new)}`` for the tasks that produced an update."""
+    Returns ``{name: (old, new)}`` for the tasks that produced an update.
+    Shared by the interval loop and the online service; a duck-typed task
+    without the method has nothing to fold, as in the JAX package."""
     updates = {}
     for t in run_tasks:
-        upd = t.apply_realized_feedback()
+        apply_fb = getattr(t, "apply_realized_feedback", None)
+        upd = apply_fb() if apply_fb is not None else None
         if upd is not None:
             updates[t.name] = upd
             _persist_realized(t)

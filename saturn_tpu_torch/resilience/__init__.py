@@ -1,8 +1,7 @@
 """Resilience: fault injection, fleet health, elastic replanning, chaos
 campaigns and the kill-replay crash harness.
 
-Counterpart of ``saturn_tpu/resilience/__init__.py``, its batch half on
-one host:
+Counterpart of ``saturn_tpu/resilience/__init__.py`` on one host:
 
 - :mod:`~saturn_tpu_torch.resilience.faults`: deterministic, seeded fault
   injection (device loss, block preemption, stragglers, transient crashes,
@@ -11,12 +10,15 @@ one host:
   latency fed by the engine, typed :class:`TopologyChange` events;
 - :mod:`~saturn_tpu_torch.resilience.replan`: on a shrink or grow, the
   topology of the survivors and a plan for it under a recovery policy;
+  the defragmentation waves of the online service;
+- :mod:`~saturn_tpu_torch.resilience.grow`: the service's grow events,
+  backlog drains and two-phase defragmentation waves;
 - :mod:`~saturn_tpu_torch.resilience.chaos`: seeded health-fault
   campaigns with kill-replay;
 - :mod:`~saturn_tpu_torch.resilience.crash`: the kill-replay harness.
 
-The grow coordinator, defragmentation waves and network chaos go with the
-service (``ROADMAP.md``).
+Network chaos goes with the network gateway (``ROADMAP.md``, queue 1
+item 8).
 """
 
 from saturn_tpu_torch.resilience.chaos import (
@@ -40,8 +42,10 @@ from saturn_tpu_torch.resilience.faults import (
     PreemptedError,
     seeded_schedule,
 )
+from saturn_tpu_torch.resilience.grow import GrowCoordinator, default_resident_bytes
 from saturn_tpu_torch.resilience.health import DeviceHealth, FleetHealthMonitor, TopologyChange
-from saturn_tpu_torch.resilience.replan import RECOVERY_POLICIES, ElasticReplanner
+from saturn_tpu_torch.resilience.replan import (RECOVERY_POLICIES, DefragMove, DefragWave,
+                                                ElasticReplanner, plan_defrag_wave)
 
 __all__ = [
     "KILL_POINTS",
@@ -58,6 +62,11 @@ __all__ = [
     "TopologyChange",
     "ElasticReplanner",
     "RECOVERY_POLICIES",
+    "DefragMove",
+    "DefragWave",
+    "plan_defrag_wave",
+    "GrowCoordinator",
+    "default_resident_bytes",
     "HEALTH_FAULT_CLASSES",
     "CampaignSpec",
     "CampaignResult",

@@ -18,15 +18,19 @@ simulation keeps that contract:
   is written, the rename that publishes it is not done), crossed by the
   synchronous ``checkpoint.save`` only; the fused stack's ``fused.unfuse``
   (``parallel/fused.py``: a member is sliced out, its checkpoint not yet
-  written), through ``checkpoint.set_crash_barrier``;
+  written), through ``checkpoint.set_crash_barrier``; the online service's
+  defragmentation waves' ``defrag.pre-publish`` (the move's intent is
+  durable, the victim's checkpoint not yet re-journaled),
+  ``defrag.pre-commit`` (the victim's live state released, its
+  ``migration_done`` not yet committed) and ``defrag.post-commit``
+  (``resilience/grow.py``);
 - ``CrashInjector("mid-fsync", hit=2)`` fires on exactly the second armed
   crossing of that barrier; :meth:`CrashInjector.seeded` draws the point
   and hit from a seed.
 
-``KILL_POINTS`` keeps the JAX package's names, those of components the port
-does not have yet included (the sharded writer's ``mid-shard-write``,
-defragmentation waves): an injector armed at one of them never fires in the
-port.
+``KILL_POINTS`` keeps the JAX package's names, that of the sharded
+writer's ``mid-shard-write`` included, which the port's single-file
+checkpoints do not have: an injector armed there never fires in the port.
 """
 
 from __future__ import annotations

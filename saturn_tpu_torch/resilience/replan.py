@@ -1,7 +1,6 @@
 """Elastic replanning: shrink or grow the plan when the fleet changes shape.
 
-Counterpart of ``saturn_tpu/resilience/replan.py`` (its batch half; the
-defragmentation waves go with the service). On a
+Counterpart of ``saturn_tpu/resilience/replan.py``. On a
 :class:`~saturn_tpu_torch.resilience.health.TopologyChange` the orchestrator
 hands the surviving device set here. The replanner
 
@@ -37,15 +36,24 @@ analysis. The port vets it with the technique's static screen
 optimizer moments against the card's memory); where the screen cannot tell
 (no card size, a technique without a screen) the destination passes, as
 memlens lets it pass where it knows nothing.
+
+:func:`plan_defrag_wave` plans the online service's defragmentation waves
+(``resilience/grow.py`` executes them): running jobs whose live state pins
+device memory move to other blocks so that a deferred gang fits. The
+per-device need of a gang or a moved victim is memlens' compiled peak in
+the JAX package; here it is :func:`static_need_bytes`, the trial's
+measured peak (or the technique's fp32 state where no peak was measured),
+and the task's pinned bytes where neither is known.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-from saturn_tpu_torch.core.mesh import SliceTopology
+from saturn_tpu_torch.core.mesh import Block, SliceTopology
 from saturn_tpu_torch.core.strategy import Strategy
 from saturn_tpu_torch.solver import anytime, milp
 from saturn_tpu_torch.utils import metrics
@@ -310,3 +318,214 @@ class ElasticReplanner:
         plan = milp.Plan(assignments=assignments, makespan=makespan)
         plan.compute_dependencies()
         return plan
+
+
+# ----------------------------------------------------------------- defrag
+#: The JAX package's override of the per-device memory a capacity check
+#: assumes (memlens' ``ENV_CAPACITY``): a CPU host can model a card.
+ENV_CAPACITY = "SATURN_TPU_HBM_BYTES"
+#: The share of the card a destination may fill (the static screen's).
+_DEFRAG_HEADROOM = 0.92
+
+
+def capacity_bytes(topology: SliceTopology) -> int:
+    """Per-device memory: ``SATURN_TPU_HBM_BYTES`` first, then the first
+    device's (``utils.timing.device_memory_bytes``); 0 when neither knows,
+    and every capacity check then stands down."""
+    env = os.environ.get(ENV_CAPACITY)
+    if env:
+        try:
+            return max(int(float(env)), 0)
+        except ValueError:
+            log.warning("bad %s=%r ignored", ENV_CAPACITY, env)
+    from saturn_tpu_torch.utils import timing
+
+    try:
+        return max(int(timing.device_memory_bytes(topology.devices[0])), 0)
+    except (AttributeError, IndexError, RuntimeError, TypeError):
+        return 0
+
+
+def static_need(task, topology: SliceTopology, size: int,
+                cap_bytes: int) -> Optional[dict]:
+    """The static estimate of the per-device memory the task needs at a
+    size-``size`` block (the port's stand-in for memlens'
+    ``migration_fits``): the measured peak of the trial behind the
+    strategy, else its technique's fp32 params, grads and moments
+    (``state_bytes``). None (no verdict) without a capacity, a strategy at
+    that size, or a technique that can count its state."""
+    if cap_bytes <= 0:
+        return None
+    strat = task.feasible_strategies().get(size)
+    tech = getattr(strat, "executor", None)
+    if strat is None or not hasattr(tech, "state_bytes"):
+        return None
+    peak = getattr(strat, "peak_bytes", None)
+    need = (float(peak) if peak is not None
+            else float(tech.state_bytes(task, dict(strat.params or {}))))
+    return {"fits": need <= _DEFRAG_HEADROOM * cap_bytes, "peak_bytes": int(need),
+            "capacity_bytes": int(cap_bytes)}
+
+
+@dataclass(frozen=True)
+class DefragMove:
+    """One planned victim relocation: release the task's device-resident
+    live state (its checkpoint is current at every interval boundary) and
+    restore it on ``to_block`` instead of ``from_block`` next time."""
+
+    task: str
+    from_block: Tuple[int, int]  # (offset, size)
+    to_block: Tuple[int, int]
+    pinned_bytes: int            # per-device memory the move frees on the source
+    memlens: Optional[dict] = None  # the destination's static estimate (JAX's key)
+
+    def to_fields(self) -> dict:
+        d = {"task": self.task, "from": list(self.from_block), "to": list(self.to_block),
+             "pinned_bytes": self.pinned_bytes}
+        if self.memlens is not None:
+            d["memlens"] = self.memlens
+        return d
+
+
+@dataclass
+class DefragWave:
+    """A planned compaction wave: the moves, and the gangs that fit after."""
+
+    moves: List[DefragMove] = field(default_factory=list)
+    admitted: Dict[str, Tuple[int, int]] = field(default_factory=dict)
+    still_blocked: List[str] = field(default_factory=list)
+
+    @property
+    def empty(self) -> bool:
+        return not self.moves and not self.admitted
+
+
+def plan_defrag_wave(blocked_tasks: Sequence, live_tasks: Sequence, topology: SliceTopology,
+                     previous_plan: Optional[milp.Plan], resident_bytes: Callable,
+                     cap_bytes: Optional[int] = None) -> DefragWave:
+    """Plan a defragmentation wave: move running jobs to other blocks so
+    that a deferred gang's per-device need fits somewhere.
+
+    Between intervals a task's train state stays on its devices
+    (``task._live_state``); that pinned memory is what blocks a large
+    deferred gang when the schedule has room. Per destination block the
+    pinned live tasks overlapping it are the victims; each needs a
+    relocation block with headroom (its own size first, then halved
+    feasible sizes), and the gang is admitted when every victim relocates
+    and the gang's need fits the freed block. ``resident_bytes(task)`` is
+    the per-device bytes a task's live state pins (0 or unknown: not
+    counted). Deterministic: every candidate order is sorted. The caller
+    executes the moves (journaled in two phases) and drains again."""
+    if cap_bytes is None:
+        cap_bytes = capacity_bytes(topology)
+    wave = DefragWave()
+    if cap_bytes <= 0:
+        # no capacity model: occupancy never blocked anyone
+        wave.still_blocked = sorted(t.name for t in blocked_tasks)
+        return wave
+
+    def _pinned(t) -> int:
+        try:
+            return max(0, int(resident_bytes(t) or 0))
+        except (TypeError, ValueError):
+            return 0
+
+    # current placements of pinned live tasks: name -> (Block, task, bytes)
+    placements: Dict[str, Tuple[Block, object, int]] = {}
+    for t in live_tasks:
+        a = previous_plan.assignments.get(t.name) if previous_plan else None
+        b = _pinned(t)
+        if a is not None and b > 0:
+            placements[t.name] = (a.block, t, b)
+
+    occ: Dict[int, int] = {}  # device index -> pinned bytes
+    for blk, _t, b in placements.values():
+        for i in range(blk.offset, blk.end):
+            occ[i] = occ.get(i, 0) + b
+
+    def _headroom(blk: Block, extra_occupied: Dict[int, int]) -> int:
+        used = max(occ.get(i, 0) + extra_occupied.get(i, 0) for i in range(blk.offset, blk.end))
+        return cap_bytes - used
+
+    moved: Dict[str, Tuple[Block, Block, int, Optional[dict]]] = {}
+    reserved: Dict[int, int] = {}  # this wave's placements (gangs and victims)
+
+    def _per_device_need(task, size: int) -> int:
+        fit = static_need(task, topology, size, cap_bytes)
+        return int(fit["peak_bytes"]) if fit is not None else _pinned(task)
+
+    def _relocate(victim_name: str, forbidden: List[Block],
+                  extra: Dict[int, int]) -> Optional[Tuple[Block, int]]:
+        """A block the victim's live state can pin again after its restore."""
+        blk, vt, vb = placements[victim_name]
+        sizes: List[int] = []
+        g = blk.size
+        feas = set(vt.feasible_strategies())
+        while g >= 1:
+            if g in feas:
+                sizes.append(g)
+            g >>= 1
+        for size in sizes:
+            for cand in topology.blocks(size):
+                if cand.overlaps(blk) or any(cand.overlaps(f) for f in forbidden):
+                    continue
+                if _headroom(cand, extra) >= vb:
+                    return cand, size
+        return None
+
+    for bt in sorted(blocked_tasks, key=lambda t: t.name):
+        feas = sorted((g for g in bt.feasible_strategies() if g <= topology.capacity),
+                      reverse=True)
+        placed = False
+        for size in feas:
+            need = _per_device_need(bt, size)
+            for dest in topology.blocks(size):
+                victims = sorted(n for n, (blk, _t, _b) in placements.items()
+                                 if n not in moved and blk.overlaps(dest))
+                # the destination's occupancy once every victim vacates
+                merged = dict(reserved)
+                for n in victims:
+                    blk, _t, b = placements[n]
+                    for i in range(blk.offset, blk.end):
+                        merged[i] = merged.get(i, 0) - b
+                if _headroom(dest, merged) < need:
+                    continue
+                # every victim needs a home outside the destination
+                relocs: List[Tuple[str, Block, Block, int]] = []
+                trial_extra = dict(merged)
+                ok = True
+                for n in victims:
+                    r = _relocate(n, [dest], trial_extra)
+                    if r is None:
+                        ok = False
+                        break
+                    cand, _sz = r
+                    blk, _t, vb = placements[n]
+                    for i in range(cand.offset, cand.end):
+                        trial_extra[i] = trial_extra.get(i, 0) + vb
+                    relocs.append((n, blk, cand, vb))
+                if not ok:
+                    continue
+                for n, blk, cand, vb in relocs:
+                    vt = placements[n][1]
+                    moved[n] = (blk, cand, vb, static_need(vt, topology, cand.size, cap_bytes))
+                    for i in range(blk.offset, blk.end):
+                        occ[i] = occ.get(i, 0) - vb
+                    for i in range(cand.offset, cand.end):
+                        reserved[i] = reserved.get(i, 0) + vb
+                for i in range(dest.offset, dest.end):
+                    reserved[i] = reserved.get(i, 0) + need
+                wave.admitted[bt.name] = (dest.offset, dest.size)
+                placed = True
+                break
+            if placed:
+                break
+        if not placed:
+            wave.still_blocked.append(bt.name)
+
+    wave.moves = [
+        DefragMove(task=n, from_block=(f.offset, f.size), to_block=(t.offset, t.size),
+                   pinned_bytes=b, memlens=fit)
+        for n, (f, t, b, fit) in sorted(moved.items())
+    ]
+    return wave

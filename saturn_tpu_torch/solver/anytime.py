@@ -40,8 +40,12 @@ places a winning group as one pseudo-task, and the adopted plan is expanded
 (``milp.fusion_expand``). Co-schedule groups come from the exact MILP only
 (tier 1 at one partition), and ``coschedule_exclude`` reaches it; a slid
 plan keeps the groups whose members all remain, and a group holding an
-excluded member makes the fresh plan win. The JAX package's priority
-``weights`` serve its online service (ROADMAP queue 1 item 8).
+excluded member makes the fresh plan win. The online service's priority
+``weights`` reach every tier, as in the JAX package: tier 0 inserts the
+delta heaviest first, tier 1's MILPs take the weighted start-time
+tiebreak, tiers 2 and 3 list-schedule heaviest first (then the longest
+first); a fusion group weighs as its heaviest member. ``weights=None``
+leaves every plan as it was.
 
 Operator knobs (environment, the JAX package's names):
 
@@ -190,6 +194,12 @@ def _lpt_key(t) -> float:
     return -min(s.runtime for s in t.feasible_strategies().values())
 
 
+def _order_key(weights: Optional[Dict[str, float]]):
+    """Priority-then-LPT order (LPT alone without weights)."""
+    w = weights or {}
+    return lambda t: (-w.get(t.name, 0.0), _lpt_key(t))
+
+
 def _min_finish(free: List[float], options, cap: int, probe_cap: Optional[int] = None):
     """(finish, start, size, block, runtime) of the earliest-finishing option
     on the frontier ``free`` (each device's next free time: no backfill,
@@ -240,14 +250,15 @@ def cheap_lower_bound(task_list: Sequence, topology: SliceTopology) -> float:
 # ---------------------------------------------------------------------------
 
 def fast_greedy_plan(task_list: Sequence, topology: SliceTopology,
-                     ordering_slack: float = 1.0) -> Plan:
-    """Frontier list-scheduling floor: LPT order, min-finish (size, block)
-    choice. Same decision rule as ``milp.greedy_plan`` minus backfill —
-    O(N · capacity) total."""
+                     ordering_slack: float = 1.0,
+                     weights: Optional[Dict[str, float]] = None) -> Plan:
+    """Frontier list-scheduling floor: priority-then-LPT order, min-finish
+    (size, block) choice. Same decision rule as ``milp.greedy_plan`` minus
+    backfill — O(N · capacity) total."""
     cap = topology.capacity
     free = [0.0] * cap
     assignments: Dict[str, Assignment] = {}
-    for t in sorted(task_list, key=_lpt_key):
+    for t in sorted(task_list, key=_order_key(weights)):
         best = _min_finish(free, _sized_options(t, cap), cap)
         if best is None:
             raise ValueError(f"task {t.name}: no strategy fits topology capacity {cap}")
@@ -257,10 +268,10 @@ def fast_greedy_plan(task_list: Sequence, topology: SliceTopology,
     return _finish_plan(assignments)
 
 
-def _greedy_floor(task_list, topology, ordering_slack) -> Plan:
+def _greedy_floor(task_list, topology, ordering_slack, weights=None) -> Plan:
     if len(task_list) <= _CHAIN_DEP_N:
-        return milp.greedy_plan(task_list, topology, ordering_slack)
-    return fast_greedy_plan(task_list, topology, ordering_slack)
+        return milp.greedy_plan(task_list, topology, ordering_slack, weights=weights)
+    return fast_greedy_plan(task_list, topology, ordering_slack, weights)
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +297,7 @@ def split_delta(task_list: Sequence, topology: SliceTopology,
 
 def incremental_plan(task_list: Sequence, topology: SliceTopology,
                      previous: Plan, ordering_slack: float = 1.0,
+                     weights: Optional[Dict[str, float]] = None,
                      probe_cap: int = _INSERTION_PROBE_CAP) -> Optional[Plan]:
     """Tier 0: survivors keep their previous (size, block) in previous start
     order; the delta is inserted at probe-capped min-finish slots. Below
@@ -294,7 +306,8 @@ def incremental_plan(task_list: Sequence, topology: SliceTopology,
     O(N · block size)."""
     if len(task_list) <= _INCR_BACKFILL_N:
         return milp.warm_schedule(task_list, topology, previous, ordering_slack,
-                                  insert_missing=True, insertion_probe_cap=probe_cap)
+                                  insert_missing=True, weights=weights,
+                                  insertion_probe_cap=probe_cap)
 
     cap = topology.capacity
     pinned_t, loose = split_delta(task_list, topology, previous)
@@ -311,7 +324,7 @@ def incremental_plan(task_list: Sequence, topology: SliceTopology,
         st = max(free[d] for d in range(blk.offset, blk.end))
         _occupy(free, blk, st + rt + ordering_slack)
         assignments[t.name] = Assignment(size, blk, st, rt)
-    for t in sorted(loose, key=_lpt_key):
+    for t in sorted(loose, key=_order_key(weights)):
         best = _min_finish(free, _sized_options(t, cap), cap, probe_cap=probe_cap)
         if best is None:
             return None
@@ -348,6 +361,7 @@ def _partitions(task_list: Sequence, previous: Optional[Plan],
 
 def partition_plan(task_list: Sequence, topology: SliceTopology,
                    budget: float, ordering_slack: float = 1.0,
+                   weights: Optional[Dict[str, float]] = None,
                    previous: Optional[Plan] = None,
                    coschedule_exclude=None) -> Optional[Plan]:
     """Tier 1: solve each partition's MILP under its time slice, then stitch.
@@ -363,7 +377,7 @@ def partition_plan(task_list: Sequence, topology: SliceTopology,
     parts = _partitions(task_list, previous, partition_max())
     if len(parts) == 1:
         return milp.solve(task_list, topology, time_limit=max(0.05, budget * 0.9),
-                          ordering_slack=ordering_slack, warm=previous,
+                          ordering_slack=ordering_slack, weights=weights, warm=previous,
                           coschedule_exclude=coschedule_exclude)
 
     slice_budget = max(_MIN_PART_SLICE, (budget * 0.8) / len(parts))
@@ -372,11 +386,11 @@ def partition_plan(task_list: Sequence, topology: SliceTopology,
         remaining = budget - (time.perf_counter() - t0)
         if remaining > slice_budget * 0.5:
             sub = milp.solve(part, topology, time_limit=min(slice_budget, remaining),
-                             ordering_slack=ordering_slack, warm=previous,
+                             ordering_slack=ordering_slack, weights=weights, warm=previous,
                              coschedule_min_gain=1e9)
         else:
             # budget exhausted mid-ladder: the leftovers get the greedy rule
-            sub = milp.greedy_plan(part, topology, ordering_slack)
+            sub = milp.greedy_plan(part, topology, ordering_slack, weights=weights)
         for t in part:
             a = sub.assignments[t.name]
             placed.append((a.start, pi, t, a.apportionment, a.runtime))
@@ -401,7 +415,9 @@ def partition_plan(task_list: Sequence, topology: SliceTopology,
 # ---------------------------------------------------------------------------
 
 def lp_round_plan(task_list: Sequence, topology: SliceTopology,
-                  ordering_slack: float = 1.0, seed: int = 0, rounds: int = 3,
+                  ordering_slack: float = 1.0,
+                  weights: Optional[Dict[str, float]] = None,
+                  seed: int = 0, rounds: int = 3,
                   time_limit: float = 5.0) -> Tuple[Optional[Plan], float]:
     """Tier 2: apportionment LP, then rounding.
 
@@ -460,8 +476,10 @@ def lp_round_plan(task_list: Sequence, topology: SliceTopology,
         frac = [[max(0.0, float(res.x[1 + offsets[i] + k]))
                  for k in range(len(per_task[i]))] for i in range(n)]
 
-    # Rounding rounds; LPT order, shared across rounds.
-    order = sorted(range(n), key=lambda i: -min(rt for _, rt in per_task[i]))
+    # Rounding rounds; priority-then-LPT order, shared across rounds.
+    w = weights or {}
+    order = sorted(range(n), key=lambda i: (-w.get(names[i], 0.0),
+                                            -min(rt for _, rt in per_task[i])))
     best_plan: Optional[Plan] = None
     for r in range(max(1, rounds)):
         rng = random.Random((seed << 8) ^ r) if r > 0 else None
@@ -509,7 +527,8 @@ def _est_lp(n: int) -> float:
 
 def anytime_solve(task_list: Sequence, topology: SliceTopology,
                   deadline: float, previous: Optional[Plan] = None,
-                  ordering_slack: float = 1.0, seed: int = 0,
+                  ordering_slack: float = 1.0,
+                  weights: Optional[Dict[str, float]] = None, seed: int = 0,
                   coschedule_exclude=None,
                   fusion: Optional[List[List[str]]] = None,
                   fusion_exclude=None, fusion_fits=None,
@@ -521,7 +540,8 @@ def anytime_solve(task_list: Sequence, topology: SliceTopology,
     run. The best-makespan plan among the tiers that ran is adopted, and the
     report records which tier produced it. ``fusion`` groups (with
     ``fusion_exclude`` and ``fusion_fits``, ``milp.fusion_priced_groups``)
-    are collapsed before the ladder and expanded in the adopted plan."""
+    are collapsed before the ladder and expanded in the adopted plan;
+    ``weights`` reach every tier (a group weighs as its heaviest member)."""
     t0 = time.perf_counter()
     _validate(task_list, topology)
     winners: list = []
@@ -529,6 +549,7 @@ def anytime_solve(task_list: Sequence, topology: SliceTopology,
         task_list, winners = milp.fusion_reduce(list(task_list), fusion, topology,
                                                 fusion_exclude=fusion_exclude,
                                                 fusion_fits=fusion_fits)
+        weights = milp.fusion_weights(weights, winners)
     n = len(task_list)
     deadline = max(float(deadline), 1e-3)
     floor_est = _est_floor(n)
@@ -549,7 +570,7 @@ def anytime_solve(task_list: Sequence, topology: SliceTopology,
             and n_loose <= max(8, n // 4)
             and _est_incremental(n, n_loose) <= remaining() - floor_est):
         tried.append(0)
-        p0 = incremental_plan(task_list, topology, previous, ordering_slack,
+        p0 = incremental_plan(task_list, topology, previous, ordering_slack, weights,
                               probe_cap=_INSERTION_PROBE_CAP)
         if p0 is not None:
             best, best_tier = p0, 0
@@ -560,7 +581,7 @@ def anytime_solve(task_list: Sequence, topology: SliceTopology,
         budget = remaining() - floor_est
         if n_parts <= _MAX_PARTS and budget >= n_parts * _MIN_PART_SLICE:
             tried.append(1)
-            p1 = partition_plan(task_list, topology, budget, ordering_slack,
+            p1 = partition_plan(task_list, topology, budget, ordering_slack, weights,
                                 previous=previous, coschedule_exclude=coschedule_exclude)
             if p1 is not None and (best is None or p1.makespan < best.makespan):
                 best, best_tier = p1, 1
@@ -568,7 +589,7 @@ def anytime_solve(task_list: Sequence, topology: SliceTopology,
             # tier 2 — LP + rounding (the mid-scale workhorse)
             tried.append(2)
             p2, lp_bound = lp_round_plan(
-                task_list, topology, ordering_slack, seed=seed,
+                task_list, topology, ordering_slack, weights, seed=seed,
                 time_limit=max(0.05, (remaining() - floor_est) * 0.5),
             )
             if p2 is not None and (best is None or p2.makespan < best.makespan):
@@ -577,7 +598,7 @@ def anytime_solve(task_list: Sequence, topology: SliceTopology,
     # tier 3 — the never-fail floor
     if best is None:
         tried.append(3)
-        best = _greedy_floor(task_list, topology, ordering_slack)
+        best = _greedy_floor(task_list, topology, ordering_slack, weights)
         best_tier = 3
 
     lb = max(cheap_lower_bound(task_list, topology), lp_bound) if n else 0.0
@@ -655,6 +676,7 @@ def anytime_resolve(task_list: Sequence, topology: SliceTopology,
                     previous: Optional[Plan], interval: float,
                     threshold: float = 0.0,
                     deadline: Optional[float] = None,
+                    weights: Optional[Dict[str, float]] = None,
                     warm: Optional[Plan] = None,
                     ordering_slack: float = 1.0,
                     source: str = "resolve", seed: int = 0,
@@ -669,13 +691,13 @@ def anytime_resolve(task_list: Sequence, topology: SliceTopology,
 
     ``previous`` is both the warm seed and the compare-and-swap incumbent;
     pass ``warm`` alone (with ``previous=None``) to seed the ladder without
-    the compare-and-swap. ``coschedule_exclude``, ``fusion``,
+    the compare-and-swap. ``weights``, ``coschedule_exclude``, ``fusion``,
     ``fusion_exclude`` and ``fusion_fits`` go to :func:`anytime_solve`; a
     slid plan whose group holds an excluded name loses to the fresh one."""
     dl = resolve_deadline(deadline, interval)
     warm_seed = warm if warm is not None else previous
     fresh, report = anytime_solve(task_list, topology, dl, previous=warm_seed,
-                                  ordering_slack=ordering_slack, seed=seed,
+                                  ordering_slack=ordering_slack, weights=weights, seed=seed,
                                   coschedule_exclude=coschedule_exclude, fusion=fusion,
                                   fusion_exclude=fusion_exclude, fusion_fits=fusion_fits)
     if previous is None:

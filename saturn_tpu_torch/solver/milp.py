@@ -13,9 +13,12 @@ the whole solve. The co-location term packs a pair of tasks whose measured
 host fractions predict an interleave win onto one block at one start
 (``Plan.coschedule``), and the fusion pre-pass collapses each fusion group
 that its measured lockstep time prices ahead of serial and co-scheduled
-runs into one pseudo-task (``Plan.fused``), as in the JAX package. Its
-priority ``weights`` serve the online service (ROADMAP queue 1 item 8) and
-stay with it.
+runs into one pseudo-task (``Plan.fused``), as in the JAX package. The
+online service passes priority ``weights`` (task name -> urgency, from its
+admission controller): they order the inserted tasks of ``warm_schedule``
+and the list order of ``greedy_plan``, and in the exact MILP they replace
+the canonical early-start term with a weighted start-time tiebreak, as in
+the JAX package. ``weights=None`` leaves every plan as it was.
 """
 
 from __future__ import annotations
@@ -198,12 +201,20 @@ def _longest_first(t) -> float:
     return -min(s.runtime for s in t.feasible_strategies().values())
 
 
+def _priority_order(weights: Optional[Dict[str, float]]):
+    """The list order of the greedy rules: higher weight first, then the
+    longest first (with no weights, the longest first alone)."""
+    w = weights or {}
+    return lambda t: (-w.get(t.name, 0.0), _longest_first(t))
+
+
 def warm_schedule(
     task_list: List,
     topology: SliceTopology,
     previous: Plan,
     ordering_slack: float = 1.0,
     insert_missing: bool = False,
+    weights: Optional[Dict[str, float]] = None,
     insertion_probe_cap: Optional[int] = None,
 ) -> Optional[Plan]:
     """Fix-and-optimize warm start: keep each task's previous (size, block),
@@ -211,7 +222,9 @@ def warm_schedule(
     Returns None if a task has no usable previous choice, unless
     ``insert_missing``, which appends such tasks at their min-finish slot
     (at most ``insertion_probe_cap`` slots probed each, once one fits: the
-    anytime solver's tier 0)."""
+    anytime solver's tier 0), in descending ``weights`` order (priority
+    first, then the longest first): the online service's incremental warm
+    start, where an arrival perturbs the live plan instead of voiding it."""
     pinned: List[Tuple[object, int, Block, float]] = []
     loose: List = []
     for t in task_list:
@@ -232,7 +245,7 @@ def warm_schedule(
     for t, size, blk, rt in pinned:
         st = timeline.place(blk, rt, ordering_slack)
         assignments[t.name] = Assignment(size, blk, st, rt)
-    for t in sorted(loose, key=_longest_first):
+    for t in sorted(loose, key=_priority_order(weights)):
         best = _min_finish_slot(t, topology, timeline, ordering_slack,
                                 probe_cap=insertion_probe_cap)
         if best is None:
@@ -249,12 +262,13 @@ def warm_schedule(
 
 def greedy_plan(
     task_list: List, topology: SliceTopology, ordering_slack: float = 0.0,
+    weights: Optional[Dict[str, float]] = None,
 ) -> Plan:
-    """List scheduling: longest task first, each at its earliest-finishing
-    (strategy, block) slot."""
+    """List scheduling: longest task first (after the higher ``weights``,
+    where given), each at its earliest-finishing (strategy, block) slot."""
     timeline = DeviceTimeline(topology.capacity)
     assignments: Dict[str, Assignment] = {}
-    for t in sorted(task_list, key=_longest_first):
+    for t in sorted(task_list, key=_priority_order(weights)):
         best = _min_finish_slot(t, topology, timeline, ordering_slack)
         if best is None:
             raise ValueError(
@@ -433,7 +447,8 @@ def fusion_reduce(task_list: List, fusion: List[List[str]], topology: SliceTopol
     group :func:`fusion_priced_groups` keeps becomes one
     :class:`_FusedPseudoTask` named after its first member, with every size
     the group was priced at; ``winners`` is empty when none is kept.
-    :func:`fusion_expand` maps a plan of the reduced list back."""
+    :func:`fusion_expand` maps a plan of the reduced list back, and
+    :func:`fusion_weights` the priority weights onto the reduced list."""
     winners = fusion_priced_groups(task_list, fusion, topology,
                                    fusion_exclude=fusion_exclude, fusion_fits=fusion_fits)
     if not winners:
@@ -471,6 +486,17 @@ def fusion_reduce(task_list: List, fusion: List[List[str]], topology: SliceTopol
     return reduced, winners
 
 
+def fusion_weights(weights: Optional[Dict[str, float]], winners):
+    """``weights`` over :func:`fusion_reduce`'s list: a group's pseudo-task
+    weighs as its heaviest member. None stays None."""
+    if not weights:
+        return weights
+    out = dict(weights)
+    for names, _, _, _ in winners:
+        out[names[0]] = max((weights.get(n, 0.0) for n in names), default=0.0)
+    return out
+
+
 def fusion_expand(inner: Plan, winners) -> Plan:
     """A plan of :func:`fusion_reduce`'s list with every fusion group's
     members holding their pseudo-task's assignment, and ``Plan.fused``
@@ -498,6 +524,7 @@ def solve(
     ordering_slack: float = 1.0,
     milp_task_limit: int = 12,
     warm: Optional[Plan] = None,
+    weights: Optional[Dict[str, float]] = None,
     coschedule_min_gain: float = 1.15,
     coschedule_exclude=None,
     fusion: Optional[List[List[str]]] = None,
@@ -525,8 +552,12 @@ def solve(
     :func:`fusion_priced_groups` with ``fusion_exclude`` and
     ``fusion_fits``; each winner is solved as one pseudo-task by every
     path and expanded after (:func:`fusion_reduce`, :func:`fusion_expand`).
-    The JAX package's priority ``weights`` serve its online service, which
-    the port does not have yet (ROADMAP queue 1 item 8)."""
+
+    ``weights`` (task name -> nonnegative urgency, from the service's
+    admission controller) adds a priority term to the objective: among
+    makespan-equal schedules, higher-weight tasks start earlier. The term
+    is at most 0.5 % of the horizon, so it reorders and never trades
+    makespan away; the greedy and warm paths take the same order."""
     for t in task_list:
         if not t.feasible_strategies():
             raise ValueError(f"task {t.name} has no feasible strategy; run search first")
@@ -541,13 +572,15 @@ def solve(
         if winners:
             inner = solve(reduced, topology, time_limit=time_limit,
                           ordering_slack=ordering_slack, milp_task_limit=milp_task_limit,
-                          warm=warm, coschedule_min_gain=coschedule_min_gain,
+                          warm=warm, weights=fusion_weights(weights, winners),
+                          coschedule_min_gain=coschedule_min_gain,
                           coschedule_exclude=coschedule_exclude)
             return fusion_expand(inner, winners)
     from saturn_tpu_torch.solver import native_sched
 
     wplan = (
-        warm_schedule(task_list, topology, warm, ordering_slack, insert_missing=True)
+        warm_schedule(task_list, topology, warm, ordering_slack, insert_missing=True,
+                      weights=weights)
         if warm is not None else None
     )
 
@@ -565,7 +598,7 @@ def solve(
             return plan
         if wplan is not None:
             return wplan
-        return greedy_plan(task_list, topology, ordering_slack)
+        return greedy_plan(task_list, topology, ordering_slack, weights=weights)
 
     t_pre = time.perf_counter()
     incumbent = native_sched.solve_native(
@@ -701,13 +734,24 @@ def solve(
         area = area - Expr.of(sav)
     m.add(makespan >= area * (1.0 / topology.capacity))
 
-    # tiny pressure against co-location among makespan-equal schedules, and
-    # toward early starts (keeps solutions canonical)
+    # tiny pressure against co-location among makespan-equal schedules
     co_term = sum((Expr.of(c) for c in co_of.values()), Expr()) * (1e-4 * T)
-    m.minimize(
-        makespan + sum((sta[n] for n in names), Expr()) * (1e-6 / max(len(names), 1))
-        + co_term
-    )
+    if weights:
+        # priority pressure: weighted starts, normalized so the whole term
+        # is at most 0.5 % of the horizon (a tiebreak, never a makespan trade)
+        wsum = sum(max(weights.get(n, 0.0), 0.0) for n in names) or 1.0
+        wterm = Expr()
+        for n in names:
+            wn = max(weights.get(n, 0.0), 0.0)
+            if wn > 0.0:
+                wterm = wterm + sta[n] * (wn / wsum)
+        m.minimize(makespan + wterm * 5e-3 + co_term)
+    else:
+        # toward early starts (keeps solutions canonical)
+        m.minimize(
+            makespan + sum((sta[n] for n in names), Expr()) * (1e-6 / max(len(names), 1))
+            + co_term
+        )
     if incumbent is not None:
         m.add(makespan <= incumbent.makespan + 1e-6 * max(incumbent.makespan, 1.0))
 
@@ -717,7 +761,7 @@ def solve(
             log.info("MILP found nothing better than the incumbent in time — keeping it")
             return incumbent
         log.warning("MILP infeasible or failed — taking the greedy plan")
-        return greedy_plan(task_list, topology, ordering_slack)
+        return greedy_plan(task_list, topology, ordering_slack, weights=weights)
 
     assignments: Dict[str, Assignment] = {}
     for t in task_list:

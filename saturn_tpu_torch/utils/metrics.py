@@ -166,6 +166,40 @@ def read_events(path: str, kind: Optional[str] = None) -> list:
     return out
 
 
+def tail_events(path: str, kind: Optional[str] = None, poll_s: float = 0.2, stop=None,
+                follow: bool = True):
+    """Generator over a live JSONL metrics stream (``tail -f``): the events
+    from the start of the file, then every appended one, polling every
+    ``poll_s`` until ``stop`` (a ``threading.Event``) is set, or up to the
+    end of the file with ``follow=False``. A partial last line (the writer
+    mid-append) is held back until its newline lands; a torn line in the
+    middle (a crashed writer's tail that a restarted one appended past) is
+    skipped with a warning. The service's CLI reads it."""
+    buf = ""
+    with open(path) as fh:
+        while True:
+            chunk = fh.read(65536)
+            if chunk:
+                buf += chunk
+                while "\n" in buf:
+                    line, buf = buf.split("\n", 1)
+                    line = line.strip()
+                    if not line:
+                        continue
+                    try:
+                        rec = json.loads(line)
+                    except json.JSONDecodeError:
+                        logger.warning("metrics: skipping torn/corrupt line in %s (%d bytes)",
+                                       path, len(line))
+                        continue
+                    if kind is None or rec.get("kind") == kind:
+                        yield rec
+                continue
+            if not follow or (stop is not None and stop.is_set()):
+                return
+            time.sleep(poll_s)
+
+
 @contextlib.contextmanager
 def scoped(path: Optional[str]):
     """Route events to ``path`` for the enclosed region, then restore the

@@ -1392,3 +1392,56 @@ def test_env_set_restores(smoke, monkeypatch):
     with smoke.EnvSet(SATURN_TPU_KEEP="2", SATURN_TPU_NEW="x"):
         assert os.environ["SATURN_TPU_KEEP"] == "2" and os.environ["SATURN_TPU_NEW"] == "x"
     assert os.environ["SATURN_TPU_KEEP"] == "1" and "SATURN_TPU_NEW" not in os.environ
+
+
+def test_phase_12_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 12 (the online service: 12a's orderings and cancel, 12b's kill
+    and bitwise restart, 12c's table) at ``test-tiny`` on the CPU: every
+    check of the phase holds with the kernel wrappers counting their plain
+    versions' calls and ``torch.cuda``'s memory calls stubbed."""
+    import torch
+
+    import saturn_tpu_torch as sat
+    from saturn_tpu_torch.core.mesh import SliceTopology
+    from saturn_tpu_torch.ops import ce, flash
+
+    monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
+    for name in ("SATURN_TPU_FAULTS", "SATURN_TPU_GROW_HYSTERESIS", "SATURN_TPU_SENTINEL",
+                 "SATURN_TPU_SENTINEL_SPIKE", "SATURN_TPU_WATCHDOG", "SATURN_TPU_GROW_POLL",
+                 "SATURN_TPU_SOLVE_DEADLINE", "SATURN_TPU_HBM_BYTES"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in (("DEVICE", "cpu"), ("GPT2", "test-tiny"), ("BERT", "bert-test-tiny"),
+                        ("BATCH", 4), ("SEQ", 64), ("VOCAB", 256), ("LAYERS", 2),
+                        ("OUT", str(tmp_path / "out")), ("CKPTS", str(tmp_path / "ckpts"))):
+        monkeypatch.setattr(smoke, name, value)
+    os.makedirs(smoke.OUT)
+    monkeypatch.setattr(smoke, "topology", lambda: SliceTopology([torch.device("cpu")]))
+    monkeypatch.setattr(smoke.lm_task, "__defaults__",
+                        ("test-tiny",) + smoke.lm_task.__defaults__[1:3] + (64,)
+                        + smoke.lm_task.__defaults__[4:])
+    for fn in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(flash, "flash_supported", lambda cfg=None: True)
+    for module, fns in ((flash, ("flash_fwd", "flash_dq", "flash_dkv")),
+                        (ce, ("ce_fwd", "ce_dx", "ce_dw"))):
+        for fn in fns:
+            monkeypatch.setattr(module, fn, _counting(module, fn, fn))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches, out = smoke.service_phase(sat, flash, ce, "cpu rehearsal")
+    finally:
+        torch.set_num_threads(n)
+    a, b, c = out["12a"], out["12b"], out["12c"]
+    assert a["states"]["C"] == ("EVICTED", "cancelled")
+    assert a["snapshots"]["H"]["started_at"] < a["snapshots"]["L"]["started_at"]
+    assert launches == a["launches"] and launches["ce_fwd"] == a["steps"] == 3 * 16
+    assert launches["flash_fwd"] in (0, smoke.LAYERS * launches["ce_fwd"])
+    assert all(len(j["intervals"]) >= smoke.SERVICE_MIN_INTERVALS for j in a["jobs"].values())
+    assert b["progress"] == {smoke.SERVICE_JOBS[k][0]: 16 for k in "ALH"}
+    assert all(b["remaining"][k] == 16 - b["checkpoint_steps"][k] for k in b["remaining"])
+    assert b["killed_steps"] + b["restart_steps"] - b["redone_steps"] == 3 * 16
+    assert c["rows"] == {"svc-a": "DONE", "svc-l": "DONE", "svc-h": "DONE",
+                         "svc-c": "EVICTED"}
+    assert not os.path.exists(os.path.join(smoke.CKPTS, "service"))
