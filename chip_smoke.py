@@ -294,6 +294,30 @@ Phases, in order; any failure is an exception and a non-zero exit:
    times, the service's wall time against the jobs' step time, the
    restart's replay, reconcile and re-admission seconds, the steps redone
    after the kill, the phase's time. a)'s launches join the kernels line.
+12d. The network gateway (``service.gateway``, ``resilience.netchaos``):
+   the service on the card with phase 12's interval rule (at GATEWAY_BATCHES
+   a job), a ``GatewayServer`` on a loopback port and a ``GatewayClient``
+   in this process. 1) Three GPT-2-small jobs (12 layers, b8 x 512, dp)
+   submitted with dedup keys through a seeded ``kill_ack`` proxy and waited
+   for through a mixed-fault one: every job DONE at its budget with falling
+   losses, one ``job_submitted`` per key, at least one ``kill_ack`` injected
+   and the retried submit answered from the dedup table (a
+   ``gateway_dedup_hit`` with the original id). 2) Two more jobs, of
+   GATEWAY_KILL_BATCHES (more than an interval runs); the first, once it
+   ran, cancelled over the wire while the loop waits at its
+   ``mid-interval`` barrier, then the service killed there (a
+   ``CrashInjector``), before the boundary that would sweep the job; a
+   fresh service and gateway on the same journal hold it EVICTED
+   ("cancelled"), rebuilt by no ``task_provider`` call and launched by
+   nothing, the other job's resubmit gets its original id, is handed its
+   budget less its checkpoint's step and ends DONE, and the drain journals
+   ``gateway_drain``. Launches exact in each incarnation; the journal
+   replays strictly with the JAX service's record kinds and the gateway's,
+   every plan verified. Printed: the submit -> ACK seconds over the wire
+   and the share of them in ``queue.submit`` (its durable commit), the
+   faults by class, dedup hits, sheds, the commit times, the wall time
+   against the steps, the restart's replay, reconcile and re-admission
+   seconds. Its launches join the kernels line.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
@@ -343,6 +367,11 @@ builds the kernels and runs phase 12 (``chiprun_out/service.json``; with
 no phase 3 profile cache its template search runs the trials, and every
 admission after it is warm).
 
+    python3 chip_smoke.py --gateway
+
+builds the kernels and runs phase 12d (``chiprun_out/gateway.json``, the
+journal ``gateway_journal``, ``gateway_events.jsonl``).
+
     python3 chip_smoke.py --fused-profile
 
 builds the kernels and only profiles a stacked window of four GPT-2-small
@@ -360,6 +389,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -4382,12 +4412,12 @@ def job_steps(tasks) -> tuple:
             sum(r["n"] for tech in techs.values() for r in tech.discarded))
 
 
-def check_service_journal(root: str, incarnations: int) -> dict:
+def check_service_journal(root: str, incarnations: int, extra_kinds=()) -> dict:
     """Raise unless the service's journal replays strictly as one ``seq``
     chain, holds only the JAX service's record kinds (the required ones
-    among them), a recovery record per incarnation, and every committed
-    plan passes the verifier (``audit_journal``). Returns the count of
-    each kind."""
+    among them; ``extra_kinds`` allowed too), a recovery record per
+    incarnation, and every committed plan passes the verifier
+    (``audit_journal``). Returns the count of each kind."""
     from saturn_tpu_torch import analysis
     from saturn_tpu_torch.durability import replay
 
@@ -4397,7 +4427,7 @@ def check_service_journal(root: str, incarnations: int) -> dict:
     kinds: dict = {}
     for r in recs:
         kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
-    foreign = sorted(set(kinds) - set(SERVICE_KINDS))
+    foreign = sorted(set(kinds) - set(SERVICE_KINDS) - set(extra_kinds))
     missing = [k for k in SERVICE_REQUIRED if k not in kinds]
     if foreign or missing:
         raise AssertionError(f"{root}: record kinds {kinds}; not the JAX service's {foreign}, "
@@ -4682,6 +4712,336 @@ def service_phase(sat, flash, ce, card) -> tuple:
     return launches, out
 
 
+# ---------------------------------------------------------------- phase 12d
+GATEWAY_BATCHES = 8
+#: 12d-1's jobs (name, lr), submitted with dedup keys through a kill_ack proxy
+GATEWAY_JOBS = {"N1": ("gw-n1", 6e-4), "N2": ("gw-n2", 1e-3), "N3": ("gw-n3", 3e-4)}
+#: 12d-2's jobs: D cancelled over the wire, then the kill; E resubmitted after it
+GATEWAY_KILL_JOBS = {"D": ("gw-d", 2e-4), "E": ("gw-e", 8e-4)}
+#: 12d-2's budget a job: 4x what the interval was sized for, so that neither job
+#: finishes in the interval the cancel and the kill land in when the realized
+#: per-batch time comes in below the profiled one (the forecast runs the
+#: interval over the refreshed estimate)
+GATEWAY_KILL_BATCHES = 4 * GATEWAY_BATCHES
+GATEWAY_SEED = 11  # with 3 submits the kill_ack spec cuts the second one's answer
+GATEWAY_KINDS = ("gateway_dedup_hit", "gateway_shed", "gateway_drain")
+
+
+def gateway_counts(root: str) -> tuple:
+    """(job_submitted records per dedup key, dedup hits [(key, job)]) of a
+    journal."""
+    from saturn_tpu_torch.durability import replay
+
+    per_key: dict = {}
+    hits = []
+    for r in replay(root, strict=True):
+        d = r["data"]
+        if r["kind"] == "job_submitted" and d.get("dedup_key") is not None:
+            per_key[d["dedup_key"]] = per_key.get(d["dedup_key"], 0) + 1
+        elif r["kind"] == "gateway_dedup_hit":
+            hits.append((d["key"], d["job"]))
+    return per_key, hits
+
+
+class HeldKill:
+    """A crash barrier that stops the service loop at the first
+    ``mid-interval`` crossing after job ``hold``'s first launch until
+    :meth:`release`, then lets a ``CrashInjector`` at that barrier fire: a
+    kill after the cancel's commit and before the next boundary."""
+
+    def __init__(self, injector):
+        self.injector = injector
+        self.hold = None  # (queue, job id)
+        self.held = threading.Event()
+        self.go = threading.Event()
+
+    def barrier(self, point, ctx):
+        if point == "mid-interval" and self.hold is not None and not self.held.is_set():
+            queue, jid = self.hold
+            if queue.get(jid).started_at is not None:
+                self.held.set()
+                if not self.go.wait(300):
+                    raise AssertionError("12d-2: the loop was never released")
+        self.injector.barrier(point, ctx)
+
+    def release(self):
+        self.injector.arm()
+        self.go.set()
+
+
+def gateway_phase(sat, flash, ce, card) -> tuple:
+    """Phase 12d: the network gateway on the card. 12d-1 submits three jobs
+    with dedup keys through a seeded ``kill_ack`` proxy and waits through a
+    mixed-fault one; 12d-2 cancels an admitted job over the wire, kills the
+    service before the boundary that would sweep it, and restarts service
+    and gateway on the same journal, where the other job's resubmit gets
+    its original id."""
+    import gc
+    import traceback
+
+    from saturn_tpu_torch.durability import journal as jmod
+    from saturn_tpu_torch.durability import recovery as rmod
+    from saturn_tpu_torch.resilience import (CrashInjector, NetChaosProxy, NetChaosSpec,
+                                             single_fault_spec)
+    from saturn_tpu_torch.service import GatewayClient, GatewayServer, SaturnService
+    from saturn_tpu_torch.service import admission as adm
+    from saturn_tpu_torch.service.queue import SubmissionQueue
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    sat.library.register_default_library()
+    topo = topology()
+    cache_dir = seeded_cache("gateway_profile_cache")
+    root = os.path.join(CKPTS, "gateway")
+    journal = os.path.join(OUT, "gateway_journal")
+    events = os.path.join(OUT, "gateway_events.jsonl")
+    for d in (root, journal):
+        shutil.rmtree(d, ignore_errors=True)
+    if os.path.exists(events):
+        os.unlink(events)
+    log(f"phase 12d: the gateway, GPT-2-small jobs b{BATCH}x{SEQ} ({LAYERS} layers), dp, over "
+        f"loopback TCP through a seeded chaos proxy")
+    template = lm_task(sat, "gw-template", 6e-4, GATEWAY_BATCHES, os.path.join(root, "t"))
+    t0 = time.perf_counter()
+    stats = sat.search([template], technique_names=["dp"], topology=topo,
+                       profile_cache=cache_dir, fusion=False)
+    t_search = time.perf_counter() - t0
+    strat = template.strategies[1]
+    config, pbt = dict(strat.params), strat.per_batch_time
+    interval = SERVICE_INTERVAL_SHARE * GATEWAY_BATCHES * pbt
+    loss0 = initial_loss(template)
+    release([template])
+    del template, strat
+    dev = torch.device(DEVICE, 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated(dev)
+    lrs = {n: lr for n, lr in list(GATEWAY_JOBS.values()) + list(GATEWAY_KILL_JOBS.values())}
+    built: dict = {}  # name -> the tasks task_provider built for it
+    specs: list = []
+
+    def provide(spec):  # in a gateway reader thread, or in recovery: host work only
+        specs.append(spec)
+        task = lm_task(sat, spec["task"], lrs[spec["task"]], spec["total_batches"], root)
+        built.setdefault(spec["task"], []).append(task)
+        return task
+
+    out = {"config": config, "per_batch_s": pbt, "interval_s": interval,
+           "template_trials": stats["trials_run"], "template_search_s": t_search,
+           "initial_loss": loss0}
+    log(f"  the jobs' profile: {config}, {pbt * 1e3:.3f} ms/batch ({stats['trials_run']} "
+        f"trial(s), {stats['cache_hits']} cache hit(s), {t_search:.1f}s); interval "
+        f"{interval:.3f}s; the first loss {loss0:.4f}")
+
+    # ---- 12d-1: three jobs through the chaos proxy
+    held = HeldKill(CrashInjector("mid-interval", hit=1, armed=False))
+    reset_counts(flash, ce)
+    t0 = time.perf_counter()
+    timer = CallTimes(commit=(jmod.Journal, "commit"), admit=(SubmissionQueue, "submit"))
+    with timer:
+        svc = SaturnService(topology=topo, interval=interval, technique_names=["dp"],
+                            profile_cache=cache_dir, durability_dir=journal,
+                            metrics_path=events, task_provider=provide,
+                            crash_barrier=held.barrier)
+        svc.start()
+        gw = GatewayServer(svc).start()
+        names = {k: v[0] for k, v in GATEWAY_JOBS.items()}
+        keys = {k: f"12d:{n}" for k, n in names.items()}
+        ids, ack_s = {}, []
+        submit_spec = single_fault_spec(GATEWAY_SEED, "kill_ack", max_faults_per_conn=2)
+        with NetChaosProxy(*gw.address, submit_spec) as px:
+            with GatewayClient(*px.address, session="12d", seed=GATEWAY_SEED, timeout_s=30.0,
+                               max_attempts=10) as c:
+                for k in GATEWAY_JOBS:
+                    t1 = time.perf_counter()
+                    ids[k] = c.submit(name=names[k], total_batches=GATEWAY_BATCHES,
+                                      spec={"lr": lrs[names[k]]}, dedup_key=keys[k])
+                    ack_s.append(time.perf_counter() - t1)
+            submit_faults = dict(px.stats.injected)
+        admit_s = list(timer.seconds["admit"])
+        wait_spec = NetChaosSpec(seed=GATEWAY_SEED, fault_rate=0.25, max_faults_per_conn=2)
+        with NetChaosProxy(*gw.address, wait_spec) as px:
+            with GatewayClient(*px.address, session="12d", seed=GATEWAY_SEED + 1, timeout_s=2.0,
+                               max_attempts=20) as c:
+                snaps = {k: c.wait(j, timeout=600) for k, j in ids.items()}
+            wait_faults = dict(px.stats.injected)
+        wall_1 = time.perf_counter() - t0
+        launches_1 = counts(flash, ce)
+        tasks_1 = [t for k in GATEWAY_JOBS for t in built[names[k]]]
+        steps_1, discarded_1 = job_steps(tasks_1)
+        check_launches("12d-1", launches_1, want_fault_launches(config, steps_1 + discarded_1))
+        if any(s["state"] != "DONE" for s in snaps.values()):
+            raise AssertionError(f"12d-1: job states {snaps}")
+        per_key, hits = gateway_counts(journal)
+        if per_key != {keys[k]: 1 for k in GATEWAY_JOBS}:
+            raise AssertionError(f"12d-1: job_submitted records per key {per_key}")
+        if submit_faults.get("kill_ack", 0) < 1:
+            raise AssertionError(f"12d-1: the proxy injected {submit_faults}, no kill_ack")
+        by_key = {keys[k]: ids[k] for k in GATEWAY_JOBS}
+        if not hits or any(by_key.get(key) != job for key, job in hits):
+            raise AssertionError(f"12d-1: dedup hits {hits}, want the original ids {by_key}")
+        for k in GATEWAY_JOBS:
+            t = built[names[k]][-1]
+            losses = np.asarray(t.last_losses)
+            step = ckpt.load(t.ckpt_path)["step"]
+            if step != GATEWAY_BATCHES or not np.isfinite(losses).all() or not losses[-1] < loss0:
+                raise AssertionError(f"12d-1 {k}: step {step}, losses {losses}")
+        gw_stats_1 = gw.stats()
+        log(f"  12d-1: 3 jobs DONE at step {GATEWAY_BATCHES}, one job_submitted per key; submit "
+            f"faults {submit_faults}, wait faults {wait_faults}; dedup hits {hits} (the original "
+            f"ids); sheds {gw_stats_1['sheds']}; submit -> ACK over the wire median "
+            f"{np.median(ack_s) * 1e3:.2f} ms, max {max(ack_s) * 1e3:.2f} ms, of which "
+            f"queue.submit (its durable commit) {sum(admit_s) / sum(ack_s):.3f}; wall "
+            f"{wall_1:.1f}s against {steps_1 * pbt:.3f}s of steps ({steps_1}); launches "
+            f"{launches_1} (exact)  [{card}]")
+        out["12d-1"] = {"ids": ids, "states": {k: s["state"] for k, s in snaps.items()},
+                        "ack_s": ack_s, "admit_s": admit_s, "submit_faults": submit_faults,
+                        "wait_faults": wait_faults, "dedup_hits": hits,
+                        "gateway": gw_stats_1, "wall_s": wall_1, "steps": steps_1,
+                        "launches": launches_1}
+        release(tasks_1)
+
+        # ---- 12d-2: a wire cancel of an admitted job, then a kill before the boundary
+        reset_counts(flash, ce)
+        t0 = time.perf_counter()
+        knames = {k: v[0] for k, v in GATEWAY_KILL_JOBS.items()}
+        kkeys = {k: f"12d:{n}" for k, n in knames.items()}
+        with GatewayClient(*gw.address, session="12d-2", seed=GATEWAY_SEED + 2,
+                           timeout_s=30.0) as c:
+            kids = {}
+            for k in GATEWAY_KILL_JOBS:
+                kids[k] = c.submit(name=knames[k], total_batches=GATEWAY_KILL_BATCHES,
+                                   spec={"lr": lrs[knames[k]]}, dedup_key=kkeys[k])
+                if k == "D":
+                    held.hold = (svc.queue, kids["D"])
+            if not held.held.wait(300):
+                raise AssertionError("12d-2: D never ran an interval")
+            t1 = time.perf_counter()
+            answered = c.cancel(kids["D"])
+            cancel_s = time.perf_counter() - t1
+        if answered is not True:
+            raise AssertionError(f"12d-2: the cancel of an admitted D answered {answered}")
+        held.release()
+        if not held.injector.fired.wait(300):
+            raise AssertionError("12d-2: the kill never fired")
+        svc._thread.join(300)
+        if not svc.killed:
+            raise AssertionError("12d-2: the service outlived its kill")
+        gw._die(svc._error)  # the process is dead: its gateway too
+        svc.stop(timeout=60)
+    t_kill = time.perf_counter() - t0
+    commit_s = timer.seconds["commit"]
+    killed_launches = counts(flash, ce)
+    d_state = svc.queue.get(kids["D"]).state.value
+    killed_tasks = [t for k in GATEWAY_KILL_JOBS for t in built.get(knames[k], [])]
+    killed_steps = sum(job_steps(killed_tasks))
+    check_launches("12d-2 killed", killed_launches, want_fault_launches(config, killed_steps))
+    killed_e = sum(job_steps(built.get(knames["E"], [])))
+    ckpt.flush()
+    release(r.task for r in svc.queue.jobs())
+    traceback.clear_frames(svc._error.__traceback__)
+    del svc, gw, killed_tasks
+    gc.collect()
+    torch.cuda.empty_cache()
+    after_kill = torch.cuda.memory_allocated(dev)
+    check_memory("12d-2 after the kill", after_kill, before)
+    ckpt_e = checkpoint_step(ckpt, os.path.join(root, f"{knames['E']}.pt"))
+    n_specs = len(specs)
+
+    reset_counts(flash, ce)
+    rt = CallTimes(replay=(rmod, "replay_service_state"),
+                   reconcile=(rmod, "reconcile_checkpoints"),
+                   admit=(adm.AdmissionController, "admit"))
+    t0 = time.perf_counter()
+    with rt:
+        svc2 = SaturnService(topology=topo, interval=interval, technique_names=["dp"],
+                             profile_cache=cache_dir, durability_dir=journal,
+                             metrics_path=events, task_provider=provide)
+        t_recover = time.perf_counter() - t0
+        svc2.start()
+        gw2 = GatewayServer(svc2).start()
+        try:
+            with GatewayClient(*gw2.address, session="12d-2", seed=GATEWAY_SEED + 3,
+                               timeout_s=30.0) as c:
+                d_snap = c.status(kids["D"])
+                again = c.submit(name=knames["E"], total_batches=GATEWAY_KILL_BATCHES,
+                                 spec={"lr": lrs[knames["E"]]}, dedup_key=kkeys["E"])
+                e_snap = c.wait(kids["E"], timeout=600)
+        finally:
+            drained = gw2.shutdown(timeout=30.0, reason="12d")
+            svc2.stop(timeout=600)
+    wall_2 = time.perf_counter() - t0
+    restart_launches = counts(flash, ce)
+    rebuilt = [r.task for r in svc2.queue.jobs() if hasattr(r.task, "strategies")
+               and 1 in r.task.strategies]
+    restart_steps = sum(job_steps(rebuilt))
+    check_launches("12d-2 restart", restart_launches,
+                   want_fault_launches(config, restart_steps))
+    restart_specs = specs[n_specs:]
+    if (d_snap["state"], d_snap["error"]) != ("EVICTED", "cancelled") or any(
+            s["task"] == knames["D"] for s in restart_specs):
+        raise AssertionError(f"12d-2: D after the restart {d_snap}; specs {restart_specs}")
+    if [r.task.name for r in svc2.queue.jobs() if r.job_id == kids["D"]
+            and hasattr(r.task, "strategies") and r.task.strategies]:
+        raise AssertionError("12d-2: D was rebuilt")
+    if again != kids["E"] or e_snap["state"] != "DONE":
+        raise AssertionError(f"12d-2: E resubmitted as {again} (want {kids['E']}), {e_snap}")
+    handed = [s["remaining_batches"] for s in restart_specs if s["task"] == knames["E"]]
+    if handed != [GATEWAY_KILL_BATCHES - ckpt_e]:
+        raise AssertionError(f"12d-2: E handed {handed}, want {GATEWAY_KILL_BATCHES} less its "
+                             f"checkpoint's step {ckpt_e}")
+    redone = killed_e + restart_steps - GATEWAY_KILL_BATCHES
+    if redone != killed_e - ckpt_e:
+        raise AssertionError(f"12d-2: {redone} steps of E redone, want {killed_e - ckpt_e} (the "
+                             f"killed run's steps past its checkpoint)")
+    if ckpt.load(os.path.join(root, f"{knames['E']}.pt"))["step"] != GATEWAY_KILL_BATCHES:
+        raise AssertionError("12d-2: E's checkpoint is not at its budget")
+    kinds = check_service_journal(journal, 2, extra_kinds=GATEWAY_KINDS)
+    if not kinds.get("gateway_drain") or not drained:
+        raise AssertionError(f"12d-2: drain {drained}, journal {kinds}")
+    from saturn_tpu_torch.durability import replay_service_state
+
+    folded = replay_service_state(journal)
+    if (folded.jobs[kids["D"]].state, folded.jobs[kids["D"]].error) != ("EVICTED", "cancelled"):
+        raise AssertionError(f"12d-2: the journal holds D as {folded.jobs[kids['D']]}")
+    progress = job_progress(journal)
+    if (any(progress.get(n) != GATEWAY_BATCHES for n in names.values())
+            or progress.get(knames["E"]) != GATEWAY_KILL_BATCHES):
+        raise AssertionError(f"12d-2: journaled progress {progress}")
+    recovery = {"replay_s": rt.seconds["replay"], "reconcile_s": rt.seconds["reconcile"],
+                "readmit_s": rt.seconds["admit"], "constructor_s": t_recover}
+    log(f"  12d-2: D cancelled over the wire while {d_state} ({cancel_s * 1e3:.2f} ms, journaled), "
+        f"the service killed at mid-interval before the boundary ({t_kill:.1f}s, {killed_steps} "
+        f"steps, launches {killed_launches}, exact); {after_kill / 2**30:.3f} GiB allocated "
+        f"after the kill, {before / 2**30:.3f} before; restart: D EVICTED (cancelled), not "
+        f"rebuilt; E's resubmit got {again}, handed {handed} (checkpoint step {ckpt_e}), DONE, "
+        f"{redone} steps redone; replay {sum(recovery['replay_s']):.4f}s, reconcile "
+        f"{sum(recovery['reconcile_s']):.3f}s, re-admission {sum(recovery['readmit_s']):.3f}s, "
+        f"the constructor {t_recover:.3f}s; {restart_steps} steps, launches {restart_launches} "
+        f"(exact); drained clean {drained}; journal {kinds}; commits {len(commit_s)}, median "
+        f"{np.median(commit_s) * 1e3:.2f} ms, max {max(commit_s) * 1e3:.2f} ms; wall "
+        f"{wall_2:.1f}s  [{card}]")
+    out["12d-2"] = {"ids": kids, "cancel_s": cancel_s, "d_state_at_cancel": d_state,
+                    "kill_s": t_kill, "killed_steps": killed_steps,
+                    "killed_launches": killed_launches, "checkpoint_step_e": ckpt_e,
+                    "handed_e": handed, "redone_steps": redone, "recovery": recovery,
+                    "restart_steps": restart_steps, "restart_launches": restart_launches,
+                    "allocated_before": before, "allocated_after_kill": after_kill,
+                    "journal": kinds, "progress": progress, "commit_s": commit_s,
+                    "wall_s": wall_2}
+    launches = {n: launches_1[n] + killed_launches[n] + restart_launches[n]
+                for n in KERNEL_NAMES}
+    release(rebuilt)
+    del svc2, gw2, rebuilt
+    shutil.rmtree(root, ignore_errors=True)
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12d {out['seconds']:.1f}s ({out['12d-1']['steps'] + killed_steps + restart_steps}"
+        f" steps, {(out['12d-1']['steps'] + killed_steps + restart_steps) * pbt:.3f}s of them); "
+        f"launches {launches}  [{card}]")
+    return launches, out
+
+
 def option(argv, name: str, default=None):
     """The value after ``name`` in ``argv``, or ``default``."""
     return argv[argv.index(name) + 1] if name in argv else default
@@ -4762,6 +5122,13 @@ def main(argv) -> int:
         _, fused_out = fused_phase(sat, flash, ce, card)
         with open(os.path.join(OUT, "fused.json"), "w") as f:
             json.dump({"card": card, "kind": kind, "fused": fused_out,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
+        shutil.rmtree(CKPTS, ignore_errors=True)
+        return 0
+    if "--gateway" in argv:
+        _, gateway_out = gateway_phase(sat, flash, ce, card)
+        with open(os.path.join(OUT, "gateway.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "gateway": gateway_out,
                        "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
         shutil.rmtree(CKPTS, ignore_errors=True)
         return 0
@@ -4868,6 +5235,14 @@ def main(argv) -> int:
                   default=str)
     shutil.rmtree(CKPTS, ignore_errors=True)
 
+    gateway_launches, gateway_out = gateway_phase(sat, flash, ce, card)
+    launches = {n: launches[n] + gateway_launches[n] for n in KERNEL_NAMES}
+    log(f"  main-path launches, phases 3, 6, 10c, 11, 12a and 12d: {launches}")
+    with open(os.path.join(OUT, "gateway.json"), "w") as f:
+        json.dump({"card": card, "kind": kind, "gateway": gateway_out}, f, indent=1,
+                  default=str)
+    shutil.rmtree(CKPTS, ignore_errors=True)
+
     def entry(row, n_launches):
         return {"launches": n_launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -4890,6 +5265,7 @@ def main(argv) -> int:
                    "kill_replay": kill_replay, "offload": offload, "data": data,
                    "fused": fused_out, "faults": faults_out,
                    "service": {k: service_out[k] for k in ("seconds", "interval_s")},
+                   "gateway": {k: gateway_out[k] for k in ("seconds", "interval_s")},
                    "short_profiles": SHORT_PROFILES,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"profiles short of their launch count, each taken again: {len(SHORT_PROFILES)} "

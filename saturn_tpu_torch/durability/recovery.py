@@ -26,6 +26,14 @@ batch of the checkpoint once. The port's ``job_admission`` record also
 names the job's checkpoint path (``ckpt_path``, a field the JAX package
 does not write and ignores on replay), so a checkpoint whose
 ``ckpt_published`` record died uncommitted is found all the same.
+
+A cancel of an admitted job is journaled when it is asked for: a
+``job_state`` record of the job's current state, attempts and requeues
+with ``cancel_requested`` set. The JAX fold reads only the state, counts
+and error, so it leaves the job as it was; this fold keeps the flag, and
+:func:`build_restore_records` evicts such a live job as "cancelled"
+without rebuilding it (JAX has no such record and resurrects the job:
+``ROADMAP.md``, queue 3).
 """
 
 from __future__ import annotations
@@ -64,6 +72,7 @@ class JobReplay:
     dedup_key: Optional[str] = None
     tenant: Optional[str] = None
     ckpt_path: Optional[str] = None  # from the port's job_admission records
+    cancel_requested: bool = False   # a journaled cancel of the admitted job
 
     @property
     def terminal(self) -> bool:
@@ -90,8 +99,8 @@ class ServiceRecovery:
     #: dedup_key -> job_id, from ``job_submitted`` records
     dedup: Dict[str, str] = field(default_factory=dict)
     #: the highest journaled ``gateway_lease`` epoch and its owner, and every
-    #: acquisition [(epoch, owner, prev_owner)]: folded and kept for the
-    #: network gateway (``ROADMAP.md``, queue 1 item 8); nothing reads them yet
+    #: acquisition [(epoch, owner, prev_owner)]: the service seeds the
+    #: gateway's dedup table and a restarted replica set's lease from them
     lease_epoch: int = 0
     lease_owner: Optional[str] = None
     lease_history: List[Any] = field(default_factory=list)
@@ -219,6 +228,8 @@ def replay_service_state(root: str) -> ServiceRecovery:
                 j.requeues = int(d.get("requeues", j.requeues))
                 if d.get("error") is not None:
                     j.error = d["error"]
+                if d.get("cancel_requested"):
+                    j.cancel_requested = True
         elif kind == "job_admission":
             j = state.jobs.get(d.get("job", ""))
             if j is not None and d.get("ckpt_path"):
@@ -341,6 +352,8 @@ def follow_checkpoints(state: ServiceRecovery, sound: Dict[str, Optional[str]],
 
     changed: Dict[str, tuple] = {}
     for j in state.live_jobs():
+        if j.cancel_requested:
+            continue  # evicted on restore: its progress counts for nothing
         path = sound.get(j.task)
         if path is None and j.ckpt_path and ckpt.exists(j.ckpt_path):
             if ckpt.verify(j.ckpt_path):
@@ -386,12 +399,14 @@ def build_restore_records(state: ServiceRecovery,
     spec (``remaining_batches``: the original budget less what it
     realized) and returns a fresh task; the record re-enters the queue
     QUEUED and re-admits warm through the profile cache. A terminal job is
-    restored as an inert entry so ``status`` / ``wait`` keep answering.
-    Raises when live jobs exist and no provider does: dropping admitted
-    work silently is what this module exists to prevent."""
+    restored as an inert entry so ``status`` / ``wait`` keep answering; so
+    is a live job with a journaled cancel, EVICTED ("cancelled"), with no
+    provider call. Raises when live jobs exist and no provider does:
+    dropping admitted work silently is what this module exists to
+    prevent."""
     from saturn_tpu_torch.service.queue import JobRecord, JobRequest, JobState
 
-    live = state.live_jobs()
+    live = [j for j in state.live_jobs() if not j.cancel_requested]
     if live and task_provider is None:
         raise RuntimeError(
             f"journal holds {len(live)} live job(s) ({', '.join(j.job_id for j in live)}) but "
@@ -402,16 +417,18 @@ def build_restore_records(state: ServiceRecovery,
     for j in state.jobs.values():
         # every iteration of a live job realized: only its verdict was lost
         finished = not j.terminal and j.total_batches > 0 and j.realized >= j.total_batches
-        if j.terminal or finished:
+        cancelled = not j.terminal and not finished and j.cancel_requested
+        if j.terminal or finished or cancelled:
             req = JobRequest(task=RecoveredTaskStub(j.task, j.total_batches),
                              priority=j.priority, deadline_s=j.deadline_s,
                              max_retries=j.max_retries, spec=j.spec, dedup_key=j.dedup_key,
                              tenant=j.tenant)
+            verdict = (JobState.DONE if finished else JobState.EVICTED if cancelled
+                       else JobState(j.state))
             out.append(JobRecord(
-                job_id=j.job_id, request=req,
-                state=JobState.DONE if finished else JobState(j.state),
-                submitted_at=now, finished_at=now, attempts=j.attempts,
-                requeues=j.requeues, error=j.error))
+                job_id=j.job_id, request=req, state=verdict, submitted_at=now, finished_at=now,
+                attempts=j.attempts, requeues=j.requeues,
+                error="cancelled" if cancelled else j.error, cancel_requested=j.cancel_requested))
             continue
         task = task_provider({
             "job_id": j.job_id,

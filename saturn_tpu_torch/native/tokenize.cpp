@@ -19,7 +19,7 @@
 #include <cstdint>
 #include <cstdio>
 #include <cstring>
-#include <map>
+#include <list>
 #include <mutex>
 #include <utility>
 #include <string>
@@ -170,8 +170,17 @@ std::mutex g_cache_mu;
 // exactly that pattern. Entries are erased on fill, so only unpaired count
 // calls linger; the size cap bounds worst-case resident id streams
 // (~4 B/token each) if a caller counts many corpora and never fills.
+// Least recently used first out: the list runs from the newest use to the
+// oldest, a hit moves its entry to the front and an insert past the cap
+// drops the back.
 constexpr size_t kCacheCap = 4;
-std::map<std::pair<std::string, int>, Encoded> g_cache;
+using CacheKey = std::pair<std::string, int>;
+std::list<std::pair<CacheKey, Encoded>> g_cache;
+
+std::list<std::pair<CacheKey, Encoded>>::iterator cache_find(const CacheKey& key) {
+  return std::find_if(g_cache.begin(), g_cache.end(),
+                      [&](const std::pair<CacheKey, Encoded>& e) { return e.first == key; });
+}
 
 }  // namespace
 
@@ -193,17 +202,20 @@ long word_tokenize_file(const char* path, int max_vocab,
   long cur_size;
   double cur_mtime;
   stat_file(path, &cur_size, &cur_mtime);
-  const std::pair<std::string, int> key{path, max_vocab};
+  const CacheKey key{path, max_vocab};
 
   Encoded local;
   Encoded* enc = nullptr;
   {
     std::lock_guard<std::mutex> lock(g_cache_mu);
-    auto it = g_cache.find(key);
+    auto it = cache_find(key);
     if (it != g_cache.end()) {
       if (it->second.valid && it->second.file_size == cur_size &&
           it->second.file_mtime == cur_mtime) {
-        if (!out_ids) return static_cast<long>(it->second.ids.size());
+        if (!out_ids) {
+          g_cache.splice(g_cache.begin(), g_cache, it);  // the newest use
+          return static_cast<long>(it->second.ids.size());
+        }
         // Fill call: take ownership so the entry frees on return and the
         // build below never runs.
         local = std::move(it->second);
@@ -227,8 +239,10 @@ long word_tokenize_file(const char* path, int max_vocab,
     if (!out_ids) {
       const long n = static_cast<long>(local.ids.size());
       std::lock_guard<std::mutex> lock(g_cache_mu);
-      if (g_cache.size() >= kCacheCap) g_cache.erase(g_cache.begin());
-      g_cache[key] = std::move(local);
+      auto same = cache_find(key);  // a racing build of the same key
+      if (same != g_cache.end()) g_cache.erase(same);
+      if (g_cache.size() >= kCacheCap) g_cache.pop_back();
+      g_cache.emplace_front(key, std::move(local));
       return n;
     }
   }

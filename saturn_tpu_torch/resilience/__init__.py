@@ -15,10 +15,9 @@ Counterpart of ``saturn_tpu/resilience/__init__.py`` on one host:
   backlog drains and two-phase defragmentation waves;
 - :mod:`~saturn_tpu_torch.resilience.chaos`: seeded health-fault
   campaigns with kill-replay;
-- :mod:`~saturn_tpu_torch.resilience.crash`: the kill-replay harness.
-
-Network chaos goes with the network gateway (``ROADMAP.md``, queue 1
-item 8).
+- :mod:`~saturn_tpu_torch.resilience.crash`: the kill-replay harness;
+- :mod:`~saturn_tpu_torch.resilience.netchaos`: a seeded frame-aware TCP
+  proxy that attacks the wire in front of the service's gateway.
 """
 
 from saturn_tpu_torch.resilience.chaos import (
@@ -44,6 +43,8 @@ from saturn_tpu_torch.resilience.faults import (
 )
 from saturn_tpu_torch.resilience.grow import GrowCoordinator, default_resident_bytes
 from saturn_tpu_torch.resilience.health import DeviceHealth, FleetHealthMonitor, TopologyChange
+from saturn_tpu_torch.resilience.netchaos import (NET_FAULT_CLASSES, NetChaosProxy, NetChaosSpec,
+                                                  NetChaosStats, single_fault_spec)
 from saturn_tpu_torch.resilience.replan import (RECOVERY_POLICIES, DefragMove, DefragWave,
                                                 ElasticReplanner, plan_defrag_wave)
 
@@ -73,4 +74,9 @@ __all__ = [
     "campaign_schedule",
     "run_campaign",
     "compare_checkpoints",
+    "NET_FAULT_CLASSES",
+    "NetChaosSpec",
+    "NetChaosStats",
+    "NetChaosProxy",
+    "single_fault_spec",
 ]

@@ -157,8 +157,9 @@ class SubmissionQueue:
         self._tenant_admitted: Dict[str, int] = {}  # tenant -> SCHEDULED or RUNNING jobs
         self._seq = 0
         #: ``observer(event, rec)`` called under the queue lock after each
-        #: registry change ("submitted", "state", "recovered"): the
-        #: write-ahead journal's hook. Lock order: queue, then journal.
+        #: registry change ("submitted", "state", "recovered",
+        #: "cancel_requested"): the write-ahead journal's hook. Lock order:
+        #: queue, then journal.
         self.observer = observer
 
     def _notify_observer(self, event: str, rec: JobRecord) -> None:
@@ -362,15 +363,20 @@ class SubmissionQueue:
 
     def cancel(self, job_id: str) -> bool:
         """Ask for cancellation. A QUEUED job is evicted at once; an
-        admitted one is flagged and evicted at the next interval boundary.
-        False if the job is terminal already."""
+        admitted one is flagged and evicted at the next interval boundary,
+        and the observer hears of the request at once ("cancel_requested":
+        the journal commits it, so a kill before the boundary does not bring
+        the job back). False if the job is terminal already."""
         with self._lock:
             rec = self.get(job_id)
             if rec.state in TERMINAL_STATES:
                 return False
+            first = not rec.cancel_requested
             rec.cancel_requested = True
             if rec.state is JobState.QUEUED:
                 self._arrivals = [i for i in self._arrivals if i != job_id]
                 self.mark(rec, JobState.EVICTED, error="cancelled")
                 metrics.event("job_evicted", job=rec.job_id, task=rec.name, reason="cancelled")
+            elif first:
+                self._notify_observer("cancel_requested", rec)
             return True

@@ -20,10 +20,15 @@ plans hold; so does this one.
 
 Single host by construction: the port has no multi-host module
 (``ROADMAP.md``, queue 1 item 9), where the JAX service refuses a
-multi-host run. The network gateway and the compile-ahead pool
-(``compile_ahead``) are not ported (queue 1 item 8), nor what the JAX
-service keeps for them (the replayed dedup table and lease epoch, the
-time of the last pressure shed): the journal's fold keeps those records.
+multi-host run. What the network gateway (``service/gateway``) reads is
+kept as in the JAX service: the replayed dedup table and lease epoch and
+owner, and the time of the last pressure shed. The compile-ahead pool
+(``compile_ahead``) is not ported (queue 1 item 8b).
+
+A cancel of an admitted job is journaled when it is asked for (a
+``job_state`` record of the job's current state with ``cancel_requested``
+set, which the JAX fold reads as the state it already had), and a restart
+evicts such a job as "cancelled" without rebuilding it.
 """
 
 from __future__ import annotations
@@ -78,7 +83,7 @@ class SaturnService:
     it and resumes every live job. ``crash_barrier`` (a
     ``CrashInjector.barrier``, for tests) threads the kill points into the
     journal and the loop. ``compile_ahead`` must be None: the compile-ahead
-    pool is not ported (``ROADMAP.md``, queue 1 item 8)."""
+    pool is not ported (``ROADMAP.md``, queue 1 item 8b)."""
 
     def __init__(
         self,
@@ -110,7 +115,7 @@ class SaturnService:
         if compile_ahead is not None:
             raise NotImplementedError(
                 "compile_ahead: the compile-ahead pool is not ported yet (ROADMAP.md, queue 1 "
-                "item 8); pass None")
+                "item 8b); pass None")
         self.topology = topology if topology is not None else SliceTopology()
         self._base_topo = self.topology
         self.interval = interval
@@ -157,6 +162,18 @@ class SaturnService:
         self.killed = False
         self._recovered_plan: Optional[milp.Plan] = None
         self._recovered_health: Optional[tuple] = None
+        #: dedup_key -> job_id from the journal: the gateway's idempotency
+        #: table starts from it, so a retry across a restart maps to the
+        #: original admission
+        self.recovered_dedup: Dict[str, str] = {}
+        #: the highest journaled ``gateway_lease`` epoch and its owner: a
+        #: restarted replica set seeds its ``ReplicaLease`` from them, so a
+        #: fenced epoch is never issued again
+        self.recovered_lease_epoch = 0
+        self.recovered_lease_owner: Optional[str] = None
+        #: ``time.monotonic()`` of the last admission-pressure eviction: the
+        #: gateway shrinks its inflight window while it is recent
+        self.last_pressure_shed: Optional[float] = None
         #: the TenantLedger shared by admission and the shedder, wired before
         #: recovery so that replayed ``tenant_charge`` records re-seat it
         self.tenancy = tenancy
@@ -208,6 +225,9 @@ class SaturnService:
         if self.tenancy is not None and self.tenancy.journal is None:
             self.tenancy.journal = self.journal
         state = rmod.replay_service_state(durability_dir)
+        self.recovered_dedup = dict(state.dedup)
+        self.recovered_lease_epoch = state.lease_epoch
+        self.recovered_lease_owner = state.lease_owner
         if self.tenancy is not None and state.tenant_charges:
             self.tenancy.restore(state.tenant_charges)  # replaces, never adds
         sound: Dict[str, Optional[str]] = {}
@@ -235,8 +255,9 @@ class SaturnService:
             for rec in restored:
                 self.queue.restore(rec)
                 j = state.jobs.get(rec.job_id)
-                if j is not None and not j.terminal and rec.state is JobState.DONE:
-                    # every iteration realized, the DONE verdict lost
+                if j is not None and not j.terminal and rec.state in TERMINAL_STATES:
+                    # every iteration realized, the DONE verdict lost; or a
+                    # journaled cancel that no boundary swept
                     self._observe_job("state", rec)
             if state.quarantined or state.detached:
                 self._recovered_health = (state.quarantined, state.detached,
@@ -265,9 +286,9 @@ class SaturnService:
 
     def _observe_job(self, event: str, rec: JobRecord) -> None:
         """The queue's observer, into the journal (under the queue lock).
-        A submission commits at once (``submit()`` returning is the durable
-        ack); lifecycle edges ride the next group commit, except terminal
-        states, which commit."""
+        A submission and a cancel request commit at once (``submit()`` or
+        ``cancel()`` returning is the durable ack); lifecycle edges ride the
+        next group commit, except terminal states, which commit."""
         jnl = self.journal
         if jnl is None:
             return
@@ -280,6 +301,11 @@ class SaturnService:
                     tenant=rec.request.tenant)
         elif event == "recovered":
             jnl.append("job_recovered", job=rec.job_id, task=rec.name, requeues=rec.requeues)
+        elif event == "cancel_requested":
+            # the job's state unchanged (the JAX fold reads nothing new), the
+            # request durable before cancel() returns
+            jnl.log("job_state", job=rec.job_id, state=rec.state.value, attempts=rec.attempts,
+                    requeues=rec.requeues, error=rec.error, cancel_requested=True)
         elif event == "state":
             jnl.append("job_state", job=rec.job_id, state=rec.state.value,
                        attempts=rec.attempts, requeues=rec.requeues, error=rec.error)
@@ -734,6 +760,9 @@ class SaturnService:
                        plan: Optional[milp.Plan]) -> None:
         shed, proj, limit = project_pressure_shed(jobs, topo, plan, self.pressure_policy,
                                                   tenancy=self.tenancy)
+        if shed:
+            # the gateway's backpressure follows: it shrinks its window
+            self.last_pressure_shed = time.monotonic()
         for rec in shed:
             logger.warning("admission pressure: evicting %s (projection %.2fs > slack %.2fs)",
                            rec.job_id, proj, limit)

@@ -1229,11 +1229,14 @@ def test_phase_10_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     """Phase 10 (fused stacking, the unfuse path, the co-scheduled pair) at
     ``test-tiny`` on the CPU: every check of the phase holds with the kernel
     wrappers counting their plain versions' calls."""
+    import time
+
     import torch
 
     import saturn_tpu_torch as sat
     from saturn_tpu_torch.core.mesh import SliceTopology
     from saturn_tpu_torch.ops import ce, flash
+    from saturn_tpu_torch.utils import timing
 
     monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
     for name, value in (("DEVICE", "cpu"), ("GPT2", "test-tiny"), ("BERT", "bert-test-tiny"),
@@ -1253,6 +1256,15 @@ def test_phase_10_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
                         (ce, ("ce_fwd", "ce_dx", "ce_dw"))):
         for fn in fns:
             monkeypatch.setattr(module, fn, _counting(module, fn, fn))
+    # 10c's check that the solver fuses the b2 group compares a solo trial's
+    # window time with the stacked trial's, taken seconds apart. On a CPU
+    # shared with other tests the wall clock of either took the other
+    # processes' slices and inverted the 1.6x this host's stacking gains at
+    # test-tiny (lockstep 35.53 ms against 4 x solo 35.33); with one torch
+    # thread a trial's steps run on the calling thread, so the trials here
+    # time them by that thread's CPU clock, which other processes do not
+    # advance.
+    monkeypatch.setattr(timing, "timeit", SimpleNamespace(default_timer=time.thread_time))
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -1437,7 +1449,10 @@ def test_phase_12_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     assert a["states"]["C"] == ("EVICTED", "cancelled")
     assert a["snapshots"]["H"]["started_at"] < a["snapshots"]["L"]["started_at"]
     assert launches == a["launches"] and launches["ce_fwd"] == a["steps"] == 3 * 16
-    assert launches["flash_fwd"] in (0, smoke.LAYERS * launches["ce_fwd"])
+    # the profile picks remat or not by timing: with it a step runs each
+    # layer's forward twice
+    assert launches["flash_fwd"] == (smoke.flash_per_step(out["config"], "flash_fwd")
+                                     * launches["ce_fwd"])
     assert all(len(j["intervals"]) >= smoke.SERVICE_MIN_INTERVALS for j in a["jobs"].values())
     assert b["progress"] == {smoke.SERVICE_JOBS[k][0]: 16 for k in "ALH"}
     assert all(b["remaining"][k] == 16 - b["checkpoint_steps"][k] for k in b["remaining"])
@@ -1445,3 +1460,56 @@ def test_phase_12_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     assert c["rows"] == {"svc-a": "DONE", "svc-l": "DONE", "svc-h": "DONE",
                          "svc-c": "EVICTED"}
     assert not os.path.exists(os.path.join(smoke.CKPTS, "service"))
+
+
+def test_phase_12d_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 12d (the gateway: three jobs through a seeded ``kill_ack``
+    proxy and a mixed-fault one, a wire cancel of an admitted job, a kill
+    before the boundary that would sweep it, the restart on the same
+    journal) at ``test-tiny`` on the CPU: every check of the phase holds with
+    the kernel wrappers counting their plain versions' calls and
+    ``torch.cuda``'s memory calls stubbed."""
+    import torch
+
+    import saturn_tpu_torch as sat
+    from saturn_tpu_torch.core.mesh import SliceTopology
+    from saturn_tpu_torch.ops import ce, flash
+
+    monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
+    for name in ("SATURN_TPU_FAULTS", "SATURN_TPU_GROW_HYSTERESIS", "SATURN_TPU_SENTINEL",
+                 "SATURN_TPU_SENTINEL_SPIKE", "SATURN_TPU_WATCHDOG", "SATURN_TPU_GROW_POLL",
+                 "SATURN_TPU_SOLVE_DEADLINE", "SATURN_TPU_HBM_BYTES"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in (("DEVICE", "cpu"), ("GPT2", "test-tiny"), ("BERT", "bert-test-tiny"),
+                        ("BATCH", 4), ("SEQ", 64), ("VOCAB", 256), ("LAYERS", 2),
+                        ("OUT", str(tmp_path / "out")), ("CKPTS", str(tmp_path / "ckpts"))):
+        monkeypatch.setattr(smoke, name, value)
+    os.makedirs(smoke.OUT)
+    monkeypatch.setattr(smoke, "topology", lambda: SliceTopology([torch.device("cpu")]))
+    monkeypatch.setattr(smoke.lm_task, "__defaults__",
+                        ("test-tiny",) + smoke.lm_task.__defaults__[1:3] + (64,)
+                        + smoke.lm_task.__defaults__[4:])
+    for fn in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(flash, "flash_supported", lambda cfg=None: True)
+    for module, fns in ((flash, ("flash_fwd", "flash_dq", "flash_dkv")),
+                        (ce, ("ce_fwd", "ce_dx", "ce_dw"))):
+        for fn in fns:
+            monkeypatch.setattr(module, fn, _counting(module, fn, fn))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches, out = smoke.gateway_phase(sat, flash, ce, "cpu rehearsal")
+    finally:
+        torch.set_num_threads(n)
+    one, two = out["12d-1"], out["12d-2"]
+    assert set(one["states"].values()) == {"DONE"}
+    assert one["submit_faults"].get("kill_ack", 0) >= 1 and one["dedup_hits"]
+    assert two["handed_e"] == [smoke.GATEWAY_KILL_BATCHES - two["checkpoint_step_e"]]
+    assert two["redone_steps"] == 0 and two["journal"]["gateway_drain"] == 1
+    assert two["progress"][smoke.GATEWAY_KILL_JOBS["E"][0]] == smoke.GATEWAY_KILL_BATCHES
+    steps = one["steps"] + two["killed_steps"] + two["restart_steps"]
+    assert launches == out["launches"] and launches["ce_fwd"] == steps
+    assert launches["flash_fwd"] == smoke.flash_per_step(out["config"], "flash_fwd") * steps
+    assert not os.path.exists(os.path.join(smoke.CKPTS, "gateway"))

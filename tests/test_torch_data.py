@@ -109,6 +109,53 @@ def test_unreadable_corpus_raises(tmp_path):
                                       cache_dir=str(tmp_path / "c"))
 
 
+def _bind(lib):
+    fn = lib.word_tokenize_file
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p,
+                   ctypes.POINTER(ctypes.c_int32), ctypes.c_long, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_long
+    return fn
+
+
+def test_count_cache_keeps_the_recently_used_corpus(tmp_path):
+    """The count cache (4 entries) evicts the least recently used entry: a
+    corpus counted again between four other count calls stays cached, so
+    its fill returns the ids of the counted text even after the file was
+    rewritten to other words of the same size and mtime. Those ids equal
+    the JAX library's on that text; a fresh count then sees the new
+    text."""
+    fn = _bind(native.load("tokenize"))
+    jfn = _bind(jnative.load("tokenize"))
+    paths = {k: tmp_path / f"{k}.txt" for k in "abcde"}
+    for k, p in paths.items():
+        p.write_text(f"{k}one {k}two {k}one {k}three\n" * 20)
+    a = str(paths["a"]).encode()
+    n = fn(a, 64, None, None, 0, None)
+    for k in "bc":
+        fn(str(paths[k]).encode(), 64, None, None, 0, None)
+    assert fn(a, 64, None, None, 0, None) == n  # a hit: a is the newest entry
+    for k in "de":
+        fn(str(paths[k]).encode(), 64, None, None, 0, None)
+
+    def fill(f, path):
+        ids, vs = np.empty(n, dtype=np.int32), ctypes.c_int()
+        assert f(path, 64, None, ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), n,
+                 ctypes.byref(vs)) == n
+        return ids, vs.value
+
+    jfn(a, 64, None, None, 0, None)
+    want = fill(jfn, a)
+    st = os.stat(paths["a"])
+    paths["a"].write_text("aone aone atwo athree\n" * 20)  # the same size, other counts
+    os.utime(paths["a"], ns=(st.st_atime_ns, st.st_mtime_ns))
+    assert os.path.getsize(paths["a"]) == st.st_size
+    got = fill(fn, a)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1] == want[1]
+    assert fn(a, 64, None, None, 0, None) == n  # the fill took the entry: a fresh build
+    assert not np.array_equal(fill(fn, a)[0], want[0])
+
+
 def test_interleaved_corpora_and_vocab_caps(tmp_path):
     """The two-call protocol on the port's library: interleaved count calls
     for two corpora and two caps each fill from their own cached build, and

@@ -910,6 +910,36 @@ def test_restore_records_rebuild_the_remaining_budget(tmp_path):
         dur.build_restore_records(state, None)
 
 
+def test_restore_records_evict_a_journaled_cancel(tmp_path):
+    """A live job whose cancel was journaled comes back EVICTED
+    ("cancelled") without a provider call, also where no provider is
+    given; the JAX package's records of the same journal rebuild it (its
+    fold reads the record as the state the job had)."""
+    wal = str(tmp_path / "wal")
+    j = dur.Journal(wal)
+    j.append("job_submitted", job="j0001-c", task="c", total_batches=60, spec={"sizes": [2]})
+    for st in ("PROFILING", "SCHEDULED", "RUNNING"):
+        j.append("job_state", job="j0001-c", state=st, attempts=0, requeues=0, error=None)
+    j.append("job_state", job="j0001-c", state="RUNNING", attempts=0, requeues=0, error=None,
+             cancel_requested=True)
+    j.append("task_progress", task="c", job="j0001-c", batches=12)
+    j.commit()
+    j.close()
+    state = dur.replay_service_state(wal)
+    assert state.jobs["j0001-c"].cancel_requested and not state.live_jobs()[0].terminal
+    specs = []
+    for provide in (None, lambda spec: specs.append(spec)):
+        (rec,) = dur.build_restore_records(state, provide)
+        assert (rec.state, rec.error, rec.cancel_requested) == (JobState.EVICTED, "cancelled",
+                                                                True)
+        assert rec.task.strategies == {}
+    assert not specs
+    jstate = jdur.replay_service_state(wal)
+    assert jstate.jobs["j0001-c"].state == "RUNNING"
+    with pytest.raises(RuntimeError, match="task_provider"):
+        jdur.recovery.build_restore_records(jstate, None)
+
+
 # ------------------------------------------------ the checkpoint-following budget
 def _tiny_state(step, seed=0):
     torch.manual_seed(seed)
@@ -962,7 +992,13 @@ def test_a_resumed_budget_follows_the_checkpoint(tmp_path, ckpt_step, named_by):
 
 
 # ------------------------------------------------------------- kill-replay
-TOTALS = {"job-a": 90, "job-b": 90, "job-c": 60, "job-d": 60}
+#: An interval runs 50 batches a job (0.2 s over 0.004 s), and each of the
+#: first two kills leaves at most one interval of it durable (mid-interval at
+#: the second interval; the mid-fsync tear takes only the last record of
+#: interval 1's commits). Every budget is over 100, so the post-checkpoint
+#: kill always finds work left: at 90 and 60 how many commits the second
+#: incarnation made before its tear decided whether any was.
+TOTALS = {"job-a": 150, "job-b": 150, "job-c": 120, "job-d": 120}
 PRIORITIES = {"job-a": 0.0, "job-b": 1.0, "job-c": 2.0, "job-d": 3.0}
 
 
