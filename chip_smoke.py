@@ -319,6 +319,36 @@ Phases, in order; any failure is an exception and a non-zero exit:
    against the steps, the restart's replay, reconcile and re-admission
    seconds. Its launches join the kernels line.
 
+12e. The compile-ahead pool (``tenancy/compile_ahead.py``, the service's
+   ``compile_ahead``): two GPT-2-small jobs (b8 x 512 at FAULT_LAYERS of its
+   12 layers, cut in depth only, ``dp``, flash and the fused head,
+   CA_BATCHES batches each, differing only in lr; profile cache seeded from
+   phase 7's entry of that depth) through a durable ``SaturnService``, once
+   without a pool and once with ``CompileAheadPool(workers=1)``. Their task
+   class's ``compile_ahead(topology)`` hands the pool the builds of
+   CA_SOURCES (``prewarm_build``'s pairs, keyed by each library's digest
+   name) at ADMIT, and its first model build takes them from the pool.
+   Checked: both jobs DONE in each run; each build's ``requested``,
+   ``ready`` and ``hit`` records in the journal, ``replay_service_state``'s
+   ``compile_ahead`` fold equal to the records' counts, the ledger's
+   ``hit_rate`` 1.0 with no miss; exact launches in each run; the losses
+   and the final checkpoints with the pool bitwise those without. Printed:
+   each job's admit -> first step seconds with and without the pool, the
+   pool's ledger. The pool run's launches join the kernels line.
+13. The digital twin (``saturn_tpu_torch/twin/``) on the card's host: it
+   runs no kernel. a) the synth campaign (``CampaignConfig()``'s defaults,
+   seed 7) and ``tests/test_twin.py``'s storm, each twice with
+   ``SATURN_TPU_PARTITION_MAX=4`` and a TWIN_SOLVE_S solve deadline: the
+   two runs' ``events.jsonl`` and ``ledger.json`` bitwise equal, no
+   deadline miss, the storm's jobs all completed or failed. b) phase 12a's
+   journal replayed in trace mode (one virtual device, 12a's interval and
+   its measured per-batch time): every journaled submission once; printed,
+   each job's submit -> done in the twin against the journal's, the
+   makespan ratio, the tier and verdict share deltas (12a's metrics file is
+   the tier reference), ``within_band`` and the terms outside the band (not
+   gated: 12a's first intervals are host-bound, which the twin does not
+   model).
+
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
 
@@ -371,6 +401,16 @@ admission after it is warm).
 
 builds the kernels and runs phase 12d (``chiprun_out/gateway.json``, the
 journal ``gateway_journal``, ``gateway_events.jsonl``).
+
+    python3 chip_smoke.py --compile-ahead
+
+builds the kernels and runs phase 12e (``chiprun_out/compile_ahead.json``;
+with no phase 7 profile cache its template search runs the trials).
+
+    python3 chip_smoke.py --twin
+
+builds the kernels and runs phase 12 (13b's journal) and phase 13
+(``chiprun_out/twin.json``, the campaigns under ``chiprun_out/twin/``).
 
     python3 chip_smoke.py --fused-profile
 
@@ -1163,11 +1203,11 @@ def check_head_dim_256(flash):
 
 # ------------------------------------------------------------------ phase 3
 def lm_task(sat, name, lr, batch_count, save_dir, model=GPT2, loss_fn=None, wrap=None,
-            seq=SEQ, batch=None, **kwargs):
+            seq=SEQ, batch=None, task_cls=None, **kwargs):
     """A GPT-2 (``pretraining_loss``) or BERT (``mlm_loss``, [MASK] id kept
     out of the data) task at the main path's shapes (at ``seq`` tokens a
     row, ``batch`` rows a batch, BATCH by default), synthetic tokens (passed
-    through ``wrap`` when given)."""
+    through ``wrap`` when given), of class ``task_cls`` (``sat.Task``)."""
     from saturn_tpu_torch.data.lm_dataset import make_lm_dataset
     from saturn_tpu_torch.models.bert import build_bert, mlm_loss
     from saturn_tpu_torch.models.gpt2 import build_gpt2
@@ -1175,7 +1215,7 @@ def lm_task(sat, name, lr, batch_count, save_dir, model=GPT2, loss_fn=None, wrap
 
     bert = model == BERT
     build = build_bert if bert else build_gpt2
-    return sat.Task(
+    return (task_cls or sat.Task)(
         get_model=lambda **kw: build(model, **{"seq_len": seq, **kw}),
         get_dataloader=lambda: (wrap or (lambda ds: ds))(make_lm_dataset(
             context_length=seq, batch_size=batch or BATCH, vocab_size=VOCAB, seed=0,
@@ -4506,7 +4546,8 @@ def service_phase(sat, flash, ce, card) -> tuple:
     before = torch.cuda.memory_allocated(dev)
     out = {"config": config, "per_batch_s": pbt, "interval_s": interval,
            "template_trials": stats["trials_run"], "template_search_s": t_search,
-           "initial_loss": loss0, "initial_loss_s": t_loss0}
+           "initial_loss": loss0, "initial_loss_s": t_loss0, "journals": journals,
+           "events": events}
     log(f"  the jobs' profile: {config}, {pbt * 1e3:.3f} ms/batch ({stats['trials_run']} "
         f"trial(s), {stats['cache_hits']} cache hit(s), {t_search:.1f}s); interval "
         f"{interval:.3f}s ({SERVICE_INTERVAL_SHARE} of a job's runtime); the first loss "
@@ -5042,6 +5083,309 @@ def gateway_phase(sat, flash, ce, card) -> tuple:
     return launches, out
 
 
+# ---------------------------------------------------------------- phase 12e
+CA_BATCHES = 8
+#: 12e's jobs (name, lr): GPT-2-small at FAULT_LAYERS, phase 7's and 11's depth
+CA_JOBS = {"P": ("ca-p", 6e-4), "Q": ("ca-q", 1e-3)}
+#: the builds a job hands the pool at ADMIT: the CUDA sources of its kernels
+CA_SOURCES = ("flash_attn", "linear_ce")
+CA_ACQUIRE_S = 120.0  # how long a job's first model build waits for a build in flight
+
+
+def prewarm_task_class(sat):
+    """A task whose builds (CA_SOURCES) the service's compile-ahead pool
+    starts at ADMIT (its ``compile_ahead`` hook), and whose first model
+    build after that takes them from the pool (``acquire``: a hit when the
+    pool got there first). Without a pool it is a plain task. ``losses``
+    keeps every interval's ``last_losses``."""
+    from saturn_tpu_torch.tenancy.compile_ahead import build_thunks
+
+    class PrewarmTask(sat.Task):
+        ca_pool = None
+        _ca_keys = None
+
+        @property
+        def last_losses(self):
+            return self._last_losses
+
+        @last_losses.setter
+        def last_losses(self, value):
+            self._last_losses = value
+            self.__dict__.setdefault("losses", []).extend(value)
+
+        def compile_ahead(self, topology):
+            pairs = build_thunks(CA_SOURCES)
+            self._ca_keys = [k for k, _ in pairs]
+            return pairs
+
+        def get_model(self, **overrides):
+            keys, self._ca_keys = self._ca_keys, None
+            for key in keys or ():
+                if self.ca_pool.acquire(key, timeout=CA_ACQUIRE_S) is None:
+                    raise AssertionError(f"12e: {self.name}: build {key} missed the pool "
+                                         f"({self.ca_pool.error(key)})")
+            return super().get_model(**overrides)
+
+    return PrewarmTask
+
+
+def compile_ahead_run(sat, flash, ce, topo, cache_dir, interval, root, label, pool):
+    """12e's two jobs through a durable service, with ``pool`` or without."""
+    from saturn_tpu_torch.service import SaturnService, ServiceClient
+
+    cls = prewarm_task_class(sat)
+    tasks = {k: lm_task(sat, name, lr, CA_BATCHES, os.path.join(root, label),
+                        n_layers=fault_layers(), task_cls=cls)
+             for k, (name, lr) in CA_JOBS.items()}
+    for t in tasks.values():
+        t.ca_pool = pool
+    journal = os.path.join(OUT, f"compile_ahead_journal_{label}")
+    shutil.rmtree(journal, ignore_errors=True)
+    reset_counts(flash, ce)
+    t0 = time.perf_counter()
+    svc = SaturnService(topology=topo, interval=interval, technique_names=["dp"],
+                        profile_cache=cache_dir, durability_dir=journal, compile_ahead=pool)
+    if pool is not None and pool.journal is not svc.journal:
+        raise AssertionError("12e: the service did not give the pool its journal")
+    svc.start()
+    client = ServiceClient(svc)
+    try:
+        ids = {k: client.submit(t, spec={"lr": CA_JOBS[k][1]}) for k, t in tasks.items()}
+        snaps = {k: client.wait(j, timeout=600) for k, j in ids.items()}
+    finally:
+        svc.stop(timeout=600)
+    wall = time.perf_counter() - t0
+    launches = counts(flash, ce)
+    if {k: s["state"] for k, s in snaps.items()} != {k: "DONE" for k in CA_JOBS}:
+        raise AssertionError(f"12e {label}: job states {snaps}")
+    return tasks, snaps, launches, journal, wall
+
+
+def compile_ahead_phase(sat, flash, ce, card) -> tuple:
+    """Phase 12e: the compile-ahead pool on the card. The same two jobs
+    through a durable service without a pool and with one: the pool's
+    ``requested`` / ``ready`` / ``hit`` records per build, its hit rate 1.0,
+    exact launches, and the same losses and checkpoints bit for bit."""
+    from saturn_tpu_torch.durability import recovery as rmod
+    from saturn_tpu_torch.durability import replay
+    from saturn_tpu_torch.tenancy import CompileAheadPool
+    from saturn_tpu_torch.tenancy.compile_ahead import build_thunks
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    t_phase = time.perf_counter()
+    sat.library.register_default_library()
+    topo = topology()
+    cache_dir = seeded_cache("compile_ahead_profile_cache")
+    root = os.path.join(CKPTS, "compile_ahead")
+    shutil.rmtree(root, ignore_errors=True)
+    layers = fault_layers()
+    log(f"phase 12e: the compile-ahead pool, two GPT-2-small jobs b{BATCH}x{SEQ} at {layers} "
+        f"of its {LAYERS} layers, dp")
+    template = lm_task(sat, "ca-template", 6e-4, CA_BATCHES, os.path.join(root, "t"),
+                       n_layers=layers)
+    stats = sat.search([template], technique_names=["dp"], topology=topo,
+                       profile_cache=cache_dir, fusion=False)
+    strat = template.strategies[1]
+    config, pbt = dict(strat.params), strat.per_batch_time
+    interval = SERVICE_INTERVAL_SHARE * CA_BATCHES * pbt
+    release([template])
+    del template, strat
+    out = {"config": config, "per_batch_s": pbt, "interval_s": interval,
+           "template_trials": stats["trials_run"]}
+    log(f"  the jobs' profile: {config}, {pbt * 1e3:.3f} ms/batch ({stats['trials_run']} "
+        f"trial(s)); interval {interval:.3f}s")
+    keys = [k for k, _ in build_thunks(CA_SOURCES)]
+    runs = {}
+    for label in ("plain", "pool"):
+        pool = CompileAheadPool(workers=1) if label == "pool" else None
+        tasks, snaps, launches, journal, wall = compile_ahead_run(
+            sat, flash, ce, topo, cache_dir, interval, root, label, pool)
+        steps, discarded = job_steps(tasks.values())
+        check_launches(f"12e {label}", launches,
+                       want_fault_launches(config, steps + discarded, layers))
+        kinds = check_service_journal(journal, 1, extra_kinds=("compile_ahead",))
+        first_step = {k: s["started_at"] - s["admitted_at"] for k, s in snaps.items()}
+        if any(len(t.losses) != CA_BATCHES or not np.isfinite(t.losses).all()
+               for t in tasks.values()):
+            raise AssertionError(f"12e {label}: losses {[t.losses for t in tasks.values()]}")
+        runs[label] = {"first_step_s": first_step, "launches": launches, "steps": steps,
+                       "journal": kinds, "wall_s": wall,
+                       "losses": {k: t.losses for k, t in tasks.items()},
+                       "states": {k: ckpt.load(t.ckpt_path) for k, t in tasks.items()}}
+        if pool is not None:
+            ledger = pool.ledger()
+            records = [r["data"] for r in replay(journal, strict=True)
+                       if r["kind"] == "compile_ahead"]
+            per_key = {key: sorted({d["status"] for d in records if d["key"] == key})
+                       for key in keys}
+            want_counts: dict = {}
+            for d in records:
+                want_counts[d["status"]] = want_counts.get(d["status"], 0) + 1
+            folded = rmod.replay_service_state(journal).compile_ahead
+            if any(v != ["hit", "ready", "requested"] for v in per_key.values()):
+                raise AssertionError(f"12e: the journal's compile_ahead statuses per build "
+                                     f"{per_key}")
+            if folded != want_counts or ledger["hit_rate"] != 1.0 \
+                    or ledger["requested"] != len(keys) or ledger["ahead_misses"]:
+                raise AssertionError(f"12e: the fold {folded} of {want_counts}, the ledger "
+                                     f"{ledger}")
+            runs[label]["ledger"] = ledger
+            runs[label]["folded"] = folded
+        release(tasks.values())
+        del tasks
+        log(f"  12e {label}: admit -> first step "
+            + ", ".join(f"{k} {v:.3f}s" for k, v in first_step.items())
+            + f"; {steps} steps, launches {launches} (exact); journal {kinds}"
+            + (f"; pool ledger {runs[label]['ledger']}, fold {runs[label]['folded']}"
+               if pool is not None else "") + f"; wall {wall:.1f}s  [{card}]")
+    for k in CA_JOBS:
+        if runs["pool"]["losses"][k] != runs["plain"]["losses"][k]:
+            raise AssertionError(f"12e {k}: losses with the pool {runs['pool']['losses'][k]}, "
+                                 f"without {runs['plain']['losses'][k]}")
+        check_same_state(CA_JOBS[k][0], runs["plain"]["states"][k], runs["pool"]["states"][k])
+    for run in runs.values():
+        del run["states"]
+    out["runs"] = runs
+    shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  12e: losses and checkpoints with the pool bitwise those without; phase 12e "
+        f"{out['seconds']:.1f}s  [{card}]")
+    return runs["pool"]["launches"], out
+
+
+# ----------------------------------------------------------------- phase 13
+TWIN_SOLVE_S = 30.0  # 13a: every tier the ladder tries finishes inside it (tests/test_twin.py)
+#: 13a's storm: tests/test_twin.py's STORM_CFG
+TWIN_STORM = dict(n_jobs=24, n_slices=2, interval_s=12.0, total_batches=6,
+                  solve_deadline_s=TWIN_SOLVE_S, metrics=False, seed=3, storm=True,
+                  storm_p_preempt=0.6, storm_p_crash=0.5, storm_p_straggler=0.3,
+                  outage_intervals=1, max_intervals=80)
+
+
+def band_terms(fid: dict) -> list:
+    """The terms of a fidelity comparison that left its band."""
+    band = fid["band"]
+    lo, hi = band["makespan_ratio"]
+    terms = [f"tier {t} ({d})" for t, d in fid["tier_share_deltas"].items()
+             if d > band["tier_share_delta"]]
+    terms += [f"verdict {v} ({d})" for v, d in fid["verdict_share_deltas"].items()
+              if d > band["verdict_share_delta"]]
+    if not lo <= fid["makespan_ratio"] <= hi:
+        terms.append(f"makespan ratio {fid['makespan_ratio']}")
+    return terms
+
+
+def journal_jobs(root: str) -> dict:
+    """task -> (submit ts, terminal ts, terminal state) from a service journal."""
+    from saturn_tpu_torch.durability import replay_reconciled
+
+    names, out = {}, {}
+    for r in replay_reconciled(root):
+        d = r["data"]
+        if r["kind"] == "job_submitted":
+            names[d["job"]] = d["task"]
+            out[d["task"]] = [r["ts"], None, None]
+        elif r["kind"] == "job_state" and d["state"] in ("DONE", "FAILED", "EVICTED"):
+            out[names[d["job"]]][1:] = [r["ts"], d["state"]]
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def twin_phase(card, service_out) -> dict:
+    """Phase 13: the digital twin on the card's host. 13a the synth and
+    storm campaigns, each twice; 13b phase 12a's journal replayed in trace
+    mode at 12a's measured per-batch time and interval."""
+    from saturn_tpu_torch.analysis.cli import _twin_fidelity
+    from saturn_tpu_torch.twin.runner import CampaignConfig, run_campaign
+    from saturn_tpu_torch.twin.trace import load_trace
+
+    t_phase = time.perf_counter()
+    root = os.path.join(OUT, "twin")
+    shutil.rmtree(root, ignore_errors=True)
+    import scipy
+
+    # tier 1's MILPs (HiGHS through scipy) decide the campaigns' plans: their
+    # bytes repeat on one installation, not across scipy versions
+    log(f"phase 13: the digital twin (twin/) on the card's host (scipy {scipy.__version__}, "
+        f"numpy {np.__version__})")
+    out = {}
+    with EnvSet(SATURN_TPU_PARTITION_MAX="4"):
+        for label, cfg in (("synth", CampaignConfig(solve_deadline_s=TWIN_SOLVE_S, seed=7)),
+                           ("storm", CampaignConfig(**TWIN_STORM))):
+            runs = [run_campaign(cfg, os.path.join(root, f"{label}-{i}")) for i in range(2)]
+            blobs = []
+            for i in range(2):
+                with open(os.path.join(root, f"{label}-{i}", "events.jsonl"), "rb") as f, \
+                        open(os.path.join(root, f"{label}-{i}", "ledger.json"), "rb") as g:
+                    blobs.append((f.read(), g.read()))
+            s = runs[0]
+            if blobs[0] != blobs[1] or not blobs[0][0]:
+                raise AssertionError(f"13a {label}: the two runs' events or ledgers differ")
+            if s["status"] != "ok" or s["deadline_misses"]:
+                raise AssertionError(f"13a {label}: {s['status']}, {s['deadline_misses']} "
+                                     f"deadline misses")
+            if label == "storm" and s["completed"] + s["failed"] != cfg.n_jobs:
+                raise AssertionError(f"13a storm: {s['completed']} completed + {s['failed']} "
+                                     f"failed of {cfg.n_jobs}")
+            keep = ("submitted", "shed_total", "completed", "failed", "evicted", "solves",
+                    "tier_counts", "tier_shares", "intervals", "makespan_s",
+                    "topology_changes", "crashes", "preemption_requeues")
+            out[f"13a-{label}"] = {**{k: s[k] for k in keep},
+                                   "wall_s": [r["wall_s"] for r in runs]}
+            log(f"  13a {label}: events and ledger bitwise equal over 2 runs; "
+                f"{s['submitted']} submitted, {s['completed']} completed, {s['failed']} failed, "
+                f"{s['evicted']} evicted, {s['shed_total']} shed; tiers {s['tier_shares']}; "
+                f"{s['intervals']} intervals, {s['makespan_s']:.1f} sim s in "
+                f"{runs[0]['wall_s']:.2f} / {runs[1]['wall_s']:.2f} s wall  [{card}]")
+
+    # 13b: phase 12a's journal through the twin
+    a = service_out["12a"]
+    journal, metrics_path = service_out["journals"]["A"], service_out["events"]["A"]
+    pbt = a["device_s"] / a["steps"]
+    interval = service_out["interval_s"]
+    cfg = CampaignConfig(trace_dir=journal, n_slices=1, chips_per_slice=1, interval_s=interval,
+                         solve_deadline_s=interval / 2, flat_per_batch_s=pbt, metrics=False,
+                         seed=0)
+    twin_dir = os.path.join(root, "replay-12a")
+    s = run_campaign(cfg, twin_dir)
+    trace = load_trace(journal)
+    with open(os.path.join(twin_dir, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    admitted = [e["task"] for e in events if e["kind"] == "admission"]
+    if (s["submitted"] != len(trace.jobs) or s["duplicates"] or s["shed_total"]
+            or sorted(admitted) != sorted(j.name for j in trace.jobs)):
+        raise AssertionError(f"13b: {s['submitted']} submitted, admissions {admitted}, of the "
+                             f"journal's {[j.name for j in trace.jobs]}")
+    fid = _twin_fidelity(s, journal, metrics_path)
+    at = {j.name: j.at_s for j in trace.jobs}
+    done = {e["task"]: e["t"] for e in events if e["kind"] == "job_completed"}
+    real = journal_jobs(journal)
+    t0 = min(v[0] for v in real.values())
+    per_job = {n: {"twin_s": done[n] - at[n] if n in done else None,
+                   "real_s": (v[1] - v[0]) if v[1] is not None else None,
+                   "real_state": v[2], "submit_s": v[0] - t0}
+               for n, v in sorted(real.items(), key=lambda kv: kv[1][0])}
+    terms = band_terms(fid)
+    out["13b"] = {"per_batch_s": pbt, "interval_s": interval, "per_job": per_job,
+                  "twin_makespan_s": s["makespan_s"],
+                  "real_makespan_s": fid["reference"]["real_makespan_s"],
+                  "fidelity": fid, "out_of_band": terms, "tier_counts": s["tier_counts"]}
+    def secs(x):
+        return "none" if x is None else f"{x:.3f}s"
+
+    for n, v in per_job.items():
+        log(f"    {n}: submitted at {v['submit_s']:.3f}s; submit -> done twin "
+            f"{secs(v['twin_s'])}, journal {secs(v['real_s'])} ({v['real_state']})")
+    log(f"  13b: 12a's journal ({len(trace.jobs)} submissions, each once) in trace mode at "
+        f"{pbt * 1e3:.3f} ms/batch and a {interval:.3f}s interval: makespan twin "
+        f"{s['makespan_s']:.3f}s against the journal's {fid['reference']['real_makespan_s']:.3f}s"
+        f" (ratio {fid['makespan_ratio']}); tier deltas {fid['tier_share_deltas']}, verdict "
+        f"deltas {fid['verdict_share_deltas']}; within_band {fid['within_band']}"
+        + (f", out of band: {terms}" if terms else "") + f"  [{card}]")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 13 {out['seconds']:.1f}s  [{card}]")
+    return out
+
+
 def option(argv, name: str, default=None):
     """The value after ``name`` in ``argv``, or ``default``."""
     return argv[argv.index(name) + 1] if name in argv else default
@@ -5122,6 +5466,21 @@ def main(argv) -> int:
         _, fused_out = fused_phase(sat, flash, ce, card)
         with open(os.path.join(OUT, "fused.json"), "w") as f:
             json.dump({"card": card, "kind": kind, "fused": fused_out,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
+        shutil.rmtree(CKPTS, ignore_errors=True)
+        return 0
+    if "--compile-ahead" in argv:
+        _, ca_out = compile_ahead_phase(sat, flash, ce, card)
+        with open(os.path.join(OUT, "compile_ahead.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "compile_ahead": ca_out,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
+        shutil.rmtree(CKPTS, ignore_errors=True)
+        return 0
+    if "--twin" in argv:
+        _, service_out = service_phase(sat, flash, ce, card)  # 13b replays 12a's journal
+        twin_out = twin_phase(card, service_out)
+        with open(os.path.join(OUT, "twin.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "twin": twin_out,
                        "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
         shutil.rmtree(CKPTS, ignore_errors=True)
         return 0
@@ -5243,6 +5602,18 @@ def main(argv) -> int:
                   default=str)
     shutil.rmtree(CKPTS, ignore_errors=True)
 
+    ca_launches, ca_out = compile_ahead_phase(sat, flash, ce, card)
+    launches = {n: launches[n] + ca_launches[n] for n in KERNEL_NAMES}
+    log(f"  main-path launches, phases 3, 6, 10c, 11, 12a, 12d and 12e: {launches}")
+    with open(os.path.join(OUT, "compile_ahead.json"), "w") as f:
+        json.dump({"card": card, "kind": kind, "compile_ahead": ca_out}, f, indent=1,
+                  default=str)
+    shutil.rmtree(CKPTS, ignore_errors=True)
+
+    twin_out = twin_phase(card, service_out)
+    with open(os.path.join(OUT, "twin.json"), "w") as f:
+        json.dump({"card": card, "kind": kind, "twin": twin_out}, f, indent=1, default=str)
+
     def entry(row, n_launches):
         return {"launches": n_launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -5266,6 +5637,8 @@ def main(argv) -> int:
                    "fused": fused_out, "faults": faults_out,
                    "service": {k: service_out[k] for k in ("seconds", "interval_s")},
                    "gateway": {k: gateway_out[k] for k in ("seconds", "interval_s")},
+                   "compile_ahead": {k: ca_out[k] for k in ("seconds", "interval_s")},
+                   "twin": {"seconds": twin_out["seconds"]},
                    "short_profiles": SHORT_PROFILES,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"profiles short of their launch count, each taken again: {len(SHORT_PROFILES)} "

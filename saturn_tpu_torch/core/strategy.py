@@ -4,7 +4,9 @@ Counterpart of ``saturn_tpu/core/strategy.py``. The allocation unit is a
 power-of-two number of devices forming one aligned block (``core/mesh.py``).
 It carries the JAX package's co-scheduling and fused-stacking fields
 (``host_fraction``, ``fused_per_batch_time``, ``bubble_fraction``) and its
-``interpolated`` flag; the shardflow ``static_prior`` has no counterpart.
+``interpolated`` and ``static_prior`` flags. The port has no shardflow, so
+the digital twin's oracle (``twin/oracle.py``) is the one producer of
+``static_prior`` strategies.
 """
 
 from __future__ import annotations
@@ -51,6 +53,12 @@ class Strategy:
     # interval lands on it (``Task.apply_realized_feedback``); the profile
     # cache takes its time only after that.
     interpolated: bool = field(default=False)
+    # A prior, not a trial: the twin's analytic oracle priced it (the JAX
+    # package's shardflow cold-start priors carry the same flag). Counted
+    # as ``n_static_prior`` by the anytime solver, kept by a strategy the
+    # replanner synthesizes from priors alone, and cleared by the first
+    # realized interval (``Task.apply_realized_feedback``).
+    static_prior: bool = field(default=False)
     # the profile-cache entry this strategy was read from or written to, and
     # its directory: the orchestrator upgrades it with realized times
     cache_key: Optional[str] = None

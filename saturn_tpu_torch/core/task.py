@@ -283,8 +283,10 @@ class Task:
             if old > 0.0 else realized
         )
         strat._self_measured = True
-        # a realized measurement makes an interpolated estimate a measured one
+        # a realized measurement makes an interpolated estimate, or a prior,
+        # a measured one
         strat.interpolated = False
+        strat.static_prior = False
         self.last_feedback_strategy = strat
         strat.runtime = strat.per_batch_time * max(self.total_batches, 0)
         trial_base = getattr(strat, "_trial_per_batch", 0.0) or 0.0

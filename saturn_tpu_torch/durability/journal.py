@@ -270,9 +270,13 @@ class Journal:
         root: str,
         segment_max_bytes: int = 4 * 1024 * 1024,
         barrier: Optional[Callable[[str, Dict[str, Any]], None]] = None,
+        sync: bool = True,
     ):
         self.root = root
         self.segment_max_bytes = segment_max_bytes
+        # False: write the same bytes without an fsync (a simulator's journal,
+        # ``twin/runner.py``); nothing it writes survives a power cut
+        self.sync = sync
         self._barrier_cb = barrier
         # re-entrant: ``log`` commits under the lock it appended under
         self._lock = threading.RLock()
@@ -309,9 +313,11 @@ class Journal:
         with open(tmp, "wb") as f:
             f.write(header)
             f.flush()
-            os.fsync(f.fileno())
+            if self.sync:
+                os.fsync(f.fileno())
         os.replace(tmp, path)
-        _fsync_dir(self.root)
+        if self.sync:
+            _fsync_dir(self.root)
         self._path = path
         self._fh = open(path, "ab")
         self._size = os.path.getsize(path)
@@ -320,7 +326,8 @@ class Journal:
     def _rotate(self) -> None:
         self.barrier("pre-rotate", path=self._path)
         self._fh.flush()
-        os.fsync(self._fh.fileno())
+        if self.sync:
+            os.fsync(self._fh.fileno())
         self._fh.close()
         self._segment_index += 1
         self._open_segment()
@@ -361,7 +368,8 @@ class Journal:
             # that recovery quarantines
             self.barrier("mid-fsync", path=self._path, start=start,
                          end=start + len(payload))
-            os.fsync(self._fh.fileno())
+            if self.sync:
+                os.fsync(self._fh.fileno())
             self._size += len(payload)
             self.barrier("post-commit", path=self._path, seq=self._seq)
             if self._size >= self.segment_max_bytes:
@@ -382,7 +390,8 @@ class Journal:
             self.commit()
             self._closed = True
             self._fh.flush()
-            os.fsync(self._fh.fileno())
+            if self.sync:
+                os.fsync(self._fh.fileno())
             self._fh.close()
 
     def __enter__(self) -> "Journal":

@@ -159,7 +159,11 @@ def _handle_topology_change(task_list, base_topo, health, replanner, change, pla
     by_name = {t.name: t for t in kept}
     for name, d in sorted(result.migrations.items()):
         if d["moved"] and name in by_name:
-            by_name[name].release_live_state()  # restores its checkpoint on the new block
+            # restores its checkpoint on the new block; a duck-typed task
+            # (the twin's) holds no live state
+            release = getattr(by_name[name], "release_live_state", None)
+            if release is not None:
+                release()
             metrics.event("migration", task=name, moved_from=d["from"], moved_to=d["to"])
     metrics.event("recovery", policy=replanner.policy,
                   replan_latency_s=timeit.default_timer() - t_detect,
@@ -177,7 +181,7 @@ def _persist_realized(task) -> None:
     numbers (the JAX package writes to the default cache). An interpolated
     strategy is written only once its time was realized
     (``Task.apply_realized_feedback`` clears the flag)."""
-    strat = task.last_feedback_strategy
+    strat = getattr(task, "last_feedback_strategy", None)
     if (strat is None or not strat.cache_key or not strat.feasible
             or strat.interpolated):
         return
@@ -207,9 +211,12 @@ def fold_realized_feedback(run_tasks) -> Dict[str, tuple]:
 
 
 def _finish(t) -> None:
-    """Give back a task's device state, bundles and CUDA graphs."""
-    t.release_live_state()
-    t.release_compiled()
+    """Give back a task's device state, bundles and CUDA graphs (a
+    duck-typed task without them has nothing to give back)."""
+    for name in ("release_live_state", "release_compiled"):
+        release = getattr(t, name, None)
+        if release is not None:
+            release()
 
 
 def _audit_replayed_plan(journal, plan_json: dict) -> None:

@@ -187,13 +187,16 @@ class ElasticReplanner:
         if capacity in feas:
             return []  # a profiled size fits: nothing to synthesize
         anchor = feas[min(pts, key=lambda p: p[0])[0]]
+        # a fit over priors alone is a prior too
+        all_static = all(getattr(feas[g], "static_prior", False) for g, _ in pts)
         # one synthesized size: the capacity, the largest that fits
         pbt = max(float(model(capacity)), 1e-9)
         task.strategies[capacity] = Strategy(
             executor=anchor.executor, apportionment=capacity,
             params=dict(anchor.params or {}),
             runtime=pbt * max(task.total_batches, 0), per_batch_time=pbt,
-            interpolated=True, bubble_fraction=anchor.bubble_fraction,
+            interpolated=True, static_prior=all_static,
+            bubble_fraction=anchor.bubble_fraction,
         )
         return [capacity]
 

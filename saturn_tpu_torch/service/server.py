@@ -22,8 +22,10 @@ Single host by construction: the port has no multi-host module
 (``ROADMAP.md``, queue 1 item 9), where the JAX service refuses a
 multi-host run. What the network gateway (``service/gateway``) reads is
 kept as in the JAX service: the replayed dedup table and lease epoch and
-owner, and the time of the last pressure shed. The compile-ahead pool
-(``compile_ahead``) is not ported (queue 1 item 8b).
+owner, and the time of the last pressure shed. With a compile-ahead pool
+(``compile_ahead``, ``tenancy/compile_ahead.py``) an admitted job's builds
+start at once: a task exposing ``compile_ahead(topology)`` hands the pool
+its ``(key, thunk)`` pairs.
 
 A cancel of an admitted job is journaled when it is asked for (a
 ``job_state`` record of the job's current state with ``cancel_requested``
@@ -82,8 +84,9 @@ class SaturnService:
     the same directory with a ``task_provider`` (``spec -> task``) replays
     it and resumes every live job. ``crash_barrier`` (a
     ``CrashInjector.barrier``, for tests) threads the kill points into the
-    journal and the loop. ``compile_ahead`` must be None: the compile-ahead
-    pool is not ported (``ROADMAP.md``, queue 1 item 8b)."""
+    journal and the loop. ``compile_ahead`` (a ``CompileAheadPool``) takes
+    an admitted job's builds; the service journals into it where it has no
+    journal of its own, and closes it at ``stop()``."""
 
     def __init__(
         self,
@@ -112,10 +115,6 @@ class SaturnService:
     ):
         if log:
             logging.basicConfig(level=logging.INFO)
-        if compile_ahead is not None:
-            raise NotImplementedError(
-                "compile_ahead: the compile-ahead pool is not ported yet (ROADMAP.md, queue 1 "
-                "item 8b); pass None")
         self.topology = topology if topology is not None else SliceTopology()
         self._base_topo = self.topology
         self.interval = interval
@@ -178,6 +177,8 @@ class SaturnService:
         #: recovery so that replayed ``tenant_charge`` records re-seat it
         self.tenancy = tenancy
         self.admission.tenancy = tenancy
+        #: the CompileAheadPool fed at ADMIT, or None
+        self.compile_ahead = compile_ahead
         # grow events, backlog drains and defrag waves; built before recovery
         # (which seeds its wave sequence), the journal attached after
         from saturn_tpu_torch.resilience.grow import GrowCoordinator
@@ -224,6 +225,9 @@ class SaturnService:
         self.admission.journal = self.journal
         if self.tenancy is not None and self.tenancy.journal is None:
             self.tenancy.journal = self.journal
+        if self.compile_ahead is not None and getattr(self.compile_ahead, "journal",
+                                                      None) is None:
+            self.compile_ahead.journal = self.journal
         state = rmod.replay_service_state(durability_dir)
         self.recovered_dedup = dict(state.dedup)
         self.recovered_lease_epoch = state.lease_epoch
@@ -335,6 +339,8 @@ class SaturnService:
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout)
+        if self.compile_ahead is not None and not self.killed:
+            self.compile_ahead.close()
         if self._error is not None and not self.killed:
             raise RuntimeError("service loop crashed") from self._error
 
@@ -655,11 +661,32 @@ class SaturnService:
             if dec.action == ADMIT:
                 jobs[rec.name] = rec
                 newly_admitted.append(rec)
+                self._prewarm_admitted(rec, topo)
             elif dec.action == DEFER:
                 self.queue.requeue(rec)
             else:  # REJECT
                 self.queue.mark(rec, JobState.FAILED, error=dec.reason)
         return newly_admitted
+
+    def _prewarm_admitted(self, rec: JobRecord, topo) -> None:
+        """Compile-ahead: once admission has picked the job's strategies,
+        hand its builds to the background pool, so that its first dispatch
+        finds them loaded. Duck-typed: a task exposing
+        ``compile_ahead(topology)`` yields ``(key, thunk)`` pairs; a task
+        without the hook, or a hook that raises, costs nothing."""
+        pool = self.compile_ahead
+        if pool is None:
+            return
+        hook = getattr(rec.task, "compile_ahead", None)
+        if hook is None:
+            return
+        try:
+            pairs = hook(topo) or ()
+        except Exception as e:
+            logger.debug("compile-ahead hook failed for %s: %r", rec.job_id, e)
+            return
+        for key, thunk in pairs:
+            pool.prewarm(key, thunk, job=rec.job_id, tenant=rec.tenant)
 
     def _maybe_defrag_wave(self, jobs: Dict[str, JobRecord], topo, plan,
                            interval_index: int) -> Optional[str]:

@@ -108,10 +108,19 @@ class AnytimeReport:
     quality: Optional[float]  # makespan / lower_bound (>= 1.0; None if no lb)
     tiers_tried: List[int] = field(default_factory=list)
     outcome: str = "fresh"    # "fresh" or "slid" (compare-and-swap kept old)
+    # assignments of the adopted plan that rest on priors
+    # (``Strategy.static_prior``) rather than trials
+    n_static_prior: int = 0
 
     @property
     def tier_name(self) -> str:
         return TIER_NAMES.get(self.tier, str(self.tier))
+
+    @property
+    def deadline_missed(self) -> bool:
+        """The ladder overran its budget (its contract is that it never
+        does; the twin's campaigns count each one)."""
+        return self.wall_s > self.deadline_s
 
 
 # ---------------------------------------------------------------------------
@@ -604,11 +613,16 @@ def anytime_solve(task_list: Sequence, topology: SliceTopology,
     lb = max(cheap_lower_bound(task_list, topology), lp_bound) if n else 0.0
     if winners:
         best = milp.fusion_expand(best, winners)
+    by_name = {getattr(t, "name", None): t for t in task_list}
+    n_static = sum(
+        1 for name, a in best.assignments.items()
+        if getattr(getattr(by_name.get(name), "strategies", {}).get(a.apportionment),
+                   "static_prior", False))
     report = AnytimeReport(
         tier=best_tier, wall_s=time.perf_counter() - t0, deadline_s=deadline,
         n_tasks=n, n_loose=n_loose, makespan=best.makespan, lower_bound=lb,
         quality=(best.makespan / lb) if lb > 1e-9 else None,
-        tiers_tried=tried,
+        tiers_tried=tried, n_static_prior=n_static,
     )
     best.anytime = report
     return best, report
@@ -646,7 +660,7 @@ def _emit_tier_event(report: AnytimeReport, source: str) -> None:
         quality=(round(report.quality, 4) if report.quality is not None else None),
         tiers_tried=list(report.tiers_tried),
         outcome=report.outcome,
-        n_static_prior=0,  # the port has no static priors: every entry is measured
+        n_static_prior=report.n_static_prior,
     )
 
 

@@ -1513,3 +1513,151 @@ def test_phase_12d_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     assert launches == out["launches"] and launches["ce_fwd"] == steps
     assert launches["flash_fwd"] == smoke.flash_per_step(out["config"], "flash_fwd") * steps
     assert not os.path.exists(os.path.join(smoke.CKPTS, "gateway"))
+
+
+def _cpu_service_setup(smoke, monkeypatch, tmp_path):
+    """What the service rehearsals share: ``test-tiny`` on one CPU device,
+    the kernel wrappers counting their plain versions' calls, ``torch.cuda``'s
+    memory calls stubbed."""
+    import torch
+
+    from saturn_tpu_torch.core.mesh import SliceTopology
+    from saturn_tpu_torch.ops import ce, flash
+
+    monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
+    for name in ("SATURN_TPU_FAULTS", "SATURN_TPU_GROW_HYSTERESIS", "SATURN_TPU_SENTINEL",
+                 "SATURN_TPU_SENTINEL_SPIKE", "SATURN_TPU_WATCHDOG", "SATURN_TPU_GROW_POLL",
+                 "SATURN_TPU_SOLVE_DEADLINE", "SATURN_TPU_HBM_BYTES",
+                 "SATURN_TPU_PARTITION_MAX"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in (("DEVICE", "cpu"), ("GPT2", "test-tiny"), ("BERT", "bert-test-tiny"),
+                        ("BATCH", 4), ("SEQ", 64), ("VOCAB", 256), ("LAYERS", 2),
+                        ("OUT", str(tmp_path / "out")), ("CKPTS", str(tmp_path / "ckpts"))):
+        monkeypatch.setattr(smoke, name, value)
+    os.makedirs(smoke.OUT)
+    monkeypatch.setattr(smoke, "topology", lambda: SliceTopology([torch.device("cpu")]))
+    monkeypatch.setattr(smoke.lm_task, "__defaults__",
+                        ("test-tiny",) + smoke.lm_task.__defaults__[1:3] + (64,)
+                        + smoke.lm_task.__defaults__[4:])
+    for fn in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(flash, "flash_supported", lambda cfg=None: True)
+    for module, fns in ((flash, ("flash_fwd", "flash_dq", "flash_dkv")),
+                        (ce, ("ce_fwd", "ce_dx", "ce_dw"))):
+        for fn in fns:
+            monkeypatch.setattr(module, fn, _counting(module, fn, fn))
+    return flash, ce
+
+
+def test_phase_12e_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 12e (the compile-ahead pool in the service: the builds'
+    requested / ready / hit records and their fold, a hit rate of 1.0, exact
+    launches, bitwise the run without a pool) at ``test-tiny`` on the CPU,
+    with the native ``spase`` library as the build the jobs hand the pool
+    (the CUDA sources need ``nvcc``)."""
+    import torch
+
+    import saturn_tpu_torch as sat
+    from saturn_tpu_torch import native
+
+    flash, ce = _cpu_service_setup(smoke, monkeypatch, tmp_path)
+    monkeypatch.setattr(smoke, "CA_SOURCES", ("spase",))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches, out = smoke.compile_ahead_phase(sat, flash, ce, "cpu rehearsal")
+    finally:
+        torch.set_num_threads(n)
+    pool, plain = out["runs"]["pool"], out["runs"]["plain"]
+    key = native.library_path("spase").name
+    assert pool["ledger"]["hit_rate"] == 1.0 and pool["ledger"]["requested"] == 1
+    # one build requested by the first job, a duplicate for the second; each
+    # job's first model build takes it from the pool
+    assert pool["folded"] == {"requested": 1, "ready": 1, "hit": 2}
+    assert pool["journal"]["compile_ahead"] == 4 and "compile_ahead" not in plain["journal"]
+    assert launches == pool["launches"] and launches["ce_fwd"] == pool["steps"] == 2 * 8
+    assert plain["launches"] == pool["launches"] and plain["losses"] == pool["losses"]
+    assert all(len(v) == smoke.CA_BATCHES for v in pool["losses"].values())
+    assert set(pool["first_step_s"]) == set(smoke.CA_JOBS)
+    assert key in open(os.path.join(smoke.OUT, "compile_ahead_journal_pool",
+                                    sorted(os.listdir(os.path.join(
+                                        smoke.OUT, "compile_ahead_journal_pool")))[0])).read()
+    assert not os.path.exists(os.path.join(smoke.CKPTS, "compile_ahead"))
+
+
+def test_phase_13_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 13 (13a's synth and storm campaigns twice each, bitwise; 13b a
+    service journal replayed in trace mode with every submission once) on
+    the CPU, over the journal and metrics of a port ``SaturnService`` run of
+    sleeping jobs, one cancelled, in place of phase 12a's."""
+    import threading
+    import time
+
+    import torch
+
+    from saturn_tpu_torch.core.mesh import SliceTopology
+    from saturn_tpu_torch.core.strategy import Strategy
+    from saturn_tpu_torch.core.technique import BaseTechnique
+    from saturn_tpu_torch.service import SaturnService, ServiceClient
+
+    class Sleep(BaseTechnique):
+        name = "rehearsal-sleep"
+
+        def __init__(self):
+            self.lock, self.steps = threading.Lock(), 0
+
+        def execute(self, task, devices, tid, override_batch_count=None):
+            with self.lock:
+                self.steps += override_batch_count or 1
+            time.sleep(0.004 * (override_batch_count or 1))
+
+        def search(self, task, devices, tid):
+            return {}, 0.004
+
+    class Job:
+        def __init__(self, name, total, tech):
+            self.name, self.total_batches, self.current_batch = name, total, 0
+            self.epoch_length, self.hints, self.chip_range = 1000, {}, None
+            self.strategies = {1: Strategy(tech, 1, {}, 0.004 * total, 0.004)}
+            self.selected_strategy = None
+
+        def feasible_strategies(self):
+            return dict(self.strategies)
+
+        def select_strategy(self, g):
+            self.selected_strategy = self.strategies[g]
+
+        def reconfigure(self, n):
+            self.current_batch = (self.current_batch + n) % self.epoch_length
+
+    monkeypatch.setattr(smoke, "OUT", str(tmp_path / "out"))
+    os.makedirs(smoke.OUT)
+    monkeypatch.delenv("SATURN_TPU_PARTITION_MAX", raising=False)
+    tech, interval = Sleep(), 0.1
+    journal, metrics = str(tmp_path / "journal_A"), str(tmp_path / "events_A.jsonl")
+    svc = SaturnService(topology=SliceTopology([torch.device("cpu")]), interval=interval,
+                        poll_s=0.02, durability_dir=journal, metrics_path=metrics,
+                        health_guardian=False, technique_names=["rehearsal-sleep"]).start()
+    client = ServiceClient(svc)
+    try:
+        ids = [client.submit(Job(f"svc-{k}", 40, tech), spec={"lr": 1e-3}) for k in "alh"]
+        cancelled = client.submit(Job("svc-c", 400, tech), spec={"lr": 1e-3})
+        assert client.cancel(cancelled)
+        states = [client.wait(j, timeout=60)["state"] for j in ids + [cancelled]]
+    finally:
+        svc.stop(timeout=60)
+    assert states == ["DONE"] * 3 + ["EVICTED"]
+    service_out = {"12a": {"device_s": tech.steps * 0.004, "steps": tech.steps},
+                   "interval_s": interval, "journals": {"A": journal}, "events": {"A": metrics}}
+    out = smoke.twin_phase("cpu rehearsal", service_out)
+    assert os.environ.get("SATURN_TPU_PARTITION_MAX") is None
+    synth, storm, replay = out["13a-synth"], out["13a-storm"], out["13b"]
+    assert synth["completed"] > 0 and len(synth["wall_s"]) == 2
+    assert storm["completed"] + storm["failed"] == smoke.TWIN_STORM["n_jobs"]
+    assert storm["topology_changes"] >= 2
+    assert sorted(replay["per_job"]) == ["svc-a", "svc-c", "svc-h", "svc-l"]
+    assert replay["per_job"]["svc-c"]["real_state"] == "EVICTED"
+    assert all(v["twin_s"] is not None for v in replay["per_job"].values())
+    assert replay["fidelity"]["reference"]["trace_dir"] == journal
+    assert replay["out_of_band"] == smoke.band_terms(replay["fidelity"])

@@ -823,6 +823,37 @@ def test_crash_barrier_without_resume_dir_raises(tmp_path):
     assert tech.calls == []
 
 
+def test_unsynced_journal_writes_the_same_bytes_without_fsync(tmp_path, monkeypatch):
+    """``Journal(sync=False)`` (the twin's): the bytes of ``sync=True`` and
+    not one fsync; both packages' journals make the same calls."""
+    from saturn_tpu.durability import journal as j_jmod
+
+    def write(mod, root, sync):
+        calls = []
+        real = os.fsync
+        monkeypatch.setattr(os, "fsync", lambda fd: (calls.append(fd), real(fd))[1])
+        clock = iter(range(1000))
+        monkeypatch.setattr(mod.time, "time", lambda: float(next(clock)))
+        jnl = mod.Journal(str(root), segment_max_bytes=400, sync=sync)
+        for i in range(6):
+            jnl.append("job_state", job=f"j{i}", state="RUNNING", attempts=i)
+            if i % 2:
+                jnl.commit()
+        jnl.log("job_submitted", job="j9", task="t")
+        jnl.close()
+        monkeypatch.undo()
+        segs = sorted(n for n in os.listdir(root))
+        return calls, [(n.split("-")[0], open(os.path.join(root, n), "rb").read()
+                        .replace(str(os.getpid()).encode(), b"PID")) for n in segs]
+
+    synced_calls, synced = write(jmod, tmp_path / "a", True)
+    calls, unsynced = write(jmod, tmp_path / "b", False)
+    assert calls == [] and len(synced_calls) > 0
+    assert unsynced == synced and len(synced) > 1  # it rotated
+    j_calls, j_unsynced = write(j_jmod, tmp_path / "c", False)
+    assert j_calls == [] and j_unsynced == unsynced
+
+
 def test_journal_module_keeps_the_jax_encoding():
     assert jmod._JSON_OPTS == jdur.journal._JSON_OPTS
     body = {"seq": 7, "ts": 1.5, "kind": "x", "data": {"b": [1, 2], "a": "é"}}

@@ -469,6 +469,48 @@ def test_realized_feedback_clears_interpolated(tmp_path):
     assert os.listdir(tmp_path / "cache")
 
 
+@pytest.mark.parametrize("priors", [(True, True), (True, False), (False, False)])
+def test_static_prior_through_replan_solve_and_feedback_matches_jax(tmp_path, priors):
+    """``Strategy.static_prior``: a size the replanner synthesizes from
+    priors alone is a prior, the anytime report counts the plan's priors
+    (``n_static_prior``), and the first realized interval clears the flag;
+    the same in both packages."""
+    from saturn_tpu import HParams as JHParams, Task as JTask
+    from saturn_tpu.solver import anytime as janytime
+    from saturn_tpu_torch.solver import anytime
+
+    pkgs = {
+        "torch": (Strategy, FakeTech(), replan.ElasticReplanner(), anytime, sat.Task,
+                  sat.HParams, lambda n: SliceTopology([torch.device("cpu")] * n)),
+        "jax": (JStrategy, JFakeTech(), jreplan.ElasticReplanner(), janytime, JTask, JHParams,
+                lambda n: JSliceTopology([object() for _ in range(n)])),
+    }
+    out = {}
+    for key, (strat_cls, tech, replanner, any_mod, task_cls, hp_cls, topo) in pkgs.items():
+        t = FakeTask("sp", 40, [2, 4], tech, strat_cls, pbts={2: 0.02, 4: 0.011})
+        for g, flag in zip((2, 4), priors):
+            t.strategies[g].static_prior = flag
+        added = replanner._synthesize(t, 1)
+        syn = t.strategies[1]
+        other = FakeTask("measured", 40, [2], tech, strat_cls)
+        _plan, report = any_mod.anytime_solve([t, other], topo(4), 5.0)
+        counted = sum(t.strategies[a.apportionment].static_prior
+                      for n, a in _plan.assignments.items() if n == "sp")
+        real = task_cls(get_model=lambda **kw: None, get_dataloader=lambda: [0] * 4,
+                        loss_fn=None, hparams=hp_cls(batch_count=4), name="fb",
+                        save_dir=str(tmp_path / key))
+        s = strat_cls(tech, 1, {}, 0.4, 0.1, static_prior=True)
+        real.strategies = {1: s}
+        real.select_strategy(1)
+        real.note_realized_per_batch(0.2)
+        real.apply_realized_feedback()
+        out[key] = (added, syn.static_prior, syn.interpolated, syn.per_batch_time,
+                    report.n_static_prior, counted, s.static_prior)
+    assert out["torch"] == out["jax"]
+    assert out["torch"][1] == all(priors) and out["torch"][2]
+    assert out["torch"][4] == out["torch"][5] and out["torch"][6] is False
+
+
 # --------------------------------------------------------------- orchestrate
 class Run:
     """What one package needs for a fake elastic run: the count of losses

@@ -41,7 +41,9 @@ def test_import_leaves_jax_unloaded():
         "saturn_tpu_torch.utils.metrics, saturn_tpu_torch.utils.profile_cache, "
         "saturn_tpu_torch.utils.trace, saturn_tpu_torch.utils.compile_cache, "
         "saturn_tpu_torch.models.ingest, saturn_tpu_torch.data.corpus_gen, "
-        "saturn_tpu_torch.examples.lm_sweep, saturn_tpu_torch.library\n"
+        "saturn_tpu_torch.examples.lm_sweep, saturn_tpu_torch.library, "
+        "saturn_tpu_torch.twin.runner, saturn_tpu_torch.tenancy.compile_ahead, "
+        "saturn_tpu_torch.analysis.cli\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (JAX,)
     )

@@ -192,8 +192,17 @@ def test_signatures_are_the_jax_packages():
 
 
 def test_compile_ahead_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        service.SaturnService(topology=topo(1), compile_ahead=object())
+    """Named when ``compile_ahead`` raised ``NotImplementedError``: the pool
+    is ported now, so the option is taken as the JAX service takes it (the
+    pool fed at ADMIT, closed at ``stop()``; ``tests/test_torch_tenancy.py``
+    drives it)."""
+    from saturn_tpu_torch.tenancy import CompileAheadPool
+
+    pool = CompileAheadPool(workers=1)
+    svc = service.SaturnService(topology=topo(1), compile_ahead=pool)
+    assert svc.compile_ahead is pool and pool.journal is None
+    svc.stop()
+    assert not pool.prewarm("k", lambda: 1)  # closed by stop()
 
 
 def test_serve_without_a_card_raises(monkeypatch):

@@ -1,6 +1,7 @@
-"""The port's tenant ledger and the service's tenant gates against the JAX
-package's (the cases of ``tests/test_tenancy.py`` without the gateway,
-lease and compile-ahead pool, which the port does not have).
+"""The port's tenant ledger, the service's tenant gates and the
+compile-ahead pool against the JAX package's (the cases of
+``tests/test_tenancy.py`` without the gateway and lease, which
+``tests/test_torch_gateway.py`` holds).
 
 - ``TenantLedger``: quotas, charges, budgets, fair targets and shares, the
   clamped multiplier, ``restore`` and ``snapshot``: each case runs on both
@@ -13,6 +14,12 @@ lease and compile-ahead pool, which the port does not have).
   its tenant, restarted on the same journal, re-seats the ledger from the
   ``tenant_charge`` records and does not double them; both packages' folds
   of the journal agree.
+- ``CompileAheadPool``: the six cases of the JAX suite run on both
+  packages' pools with the same answers; one prewarm / acquire sequence
+  gives both the same ledger and journal statuses; ``prewarm_build`` keys
+  a build by its library's digest name and loads it; a service with a pool
+  prewarms at ADMIT and journals ``requested`` / ``ready`` / ``hit``, which
+  both packages' ``replay_service_state`` fold alike.
 
 Tolerances: none but float sums, compared to 1e-9.
 """
@@ -31,6 +38,7 @@ from saturn_tpu.core.technique import BaseTechnique as JBaseTechnique
 from saturn_tpu.durability import replay_service_state as j_replay_service_state
 from saturn_tpu.service import SaturnService as JSaturnService
 from saturn_tpu.service.queue import JobRequest as JJobRequest
+from saturn_tpu.tenancy import CompileAheadPool as JCompileAheadPool
 from saturn_tpu.tenancy import model as jmodel
 from saturn_tpu_torch.core.mesh import SliceTopology
 from saturn_tpu_torch.core.strategy import Strategy
@@ -39,7 +47,8 @@ from saturn_tpu_torch.durability import replay_service_state
 from saturn_tpu_torch.resilience import CrashInjector, run_to_kill
 from saturn_tpu_torch.service import SaturnService, ServiceClient
 from saturn_tpu_torch.service.queue import JobRequest
-from saturn_tpu_torch.tenancy import model
+from saturn_tpu_torch.tenancy import CompileAheadPool, model
+from saturn_tpu_torch.tenancy.compile_ahead import build_thunks
 
 pytestmark = pytest.mark.service
 
@@ -117,6 +126,9 @@ class FakeJournal:
         self.records.append((kind, data))
 
     log = append
+
+    def of(self, kind):
+        return [d for k, d in self.records if k == kind]
 
 
 # ------------------------------------------------------------ the ledger
@@ -335,3 +347,249 @@ def test_charges_survive_a_kill_without_doubling(tmp_path):
     assert state.tenant_charges == pytest.approx(jstate.tenant_charges)
     assert state.tenant_charges["default"] == pytest.approx(led3.charged("default"))
     assert state.tenant_charges["default"] == pytest.approx((30 + 400) * 0.001 * 2)
+
+
+# ------------------------------------------------------- compile-ahead pool
+def _pool_hit(pool_cls):
+    jnl = FakeJournal()
+    pool = pool_cls(workers=2, journal=jnl)
+    try:
+        ok = pool.prewarm("k1", lambda: "exe-1", job="j1", tenant="acme")
+        idle = pool.wait_idle(timeout=5.0)
+        got = pool.acquire("k1")
+        return ok, idle, got, pool.ledger(), jnl.records
+    finally:
+        pool.close()
+
+
+def _pool_duplicates(pool_cls):
+    pool = pool_cls(workers=1)
+    try:
+        first, second = pool.prewarm("k", lambda: 1), pool.prewarm("k", lambda: 2)
+        idle = pool.wait_idle(timeout=5.0)
+        third = pool.prewarm("k", lambda: 3)  # already ready
+        return first, second, idle, third, pool.acquire("k"), pool.ledger()
+    finally:
+        pool.close()
+
+
+def _pool_error(pool_cls):
+    pool = pool_cls(workers=1)
+    try:
+        def boom():
+            raise RuntimeError("nvcc says no")
+
+        ok = pool.prewarm("bad", boom)
+        idle = pool.wait_idle(timeout=5.0)
+        return ok, idle, pool.acquire("bad"), pool.error("bad"), pool.ledger()
+    finally:
+        pool.close()
+
+
+def _pool_waits_inflight(pool_cls):
+    pool = pool_cls(workers=1)
+    try:
+        pool.prewarm("slow", lambda: (time.sleep(0.2), "done")[1])
+        return pool.acquire("slow", timeout=5.0), pool.ledger()
+    finally:
+        pool.close()
+
+
+def _pool_unknown_key(pool_cls):
+    pool = pool_cls(workers=1)
+    try:
+        return pool.acquire("never-asked"), pool.ledger()
+    finally:
+        pool.close()
+
+
+def _pool_closed(pool_cls):
+    pool = pool_cls(workers=1)
+    pool.close()
+    return pool.prewarm("k", lambda: 1), pool.ledger()
+
+
+POOL_CASES = [_pool_hit, _pool_duplicates, _pool_error, _pool_waits_inflight,
+              _pool_unknown_key, _pool_closed]
+
+
+@pytest.mark.parametrize("case", POOL_CASES, ids=lambda c: c.__name__)
+def test_compile_ahead_pool_cases_match_jax(case):
+    assert case(CompileAheadPool) == case(JCompileAheadPool)
+
+
+def test_compile_ahead_pool_answers_what_the_jax_suite_asserts():
+    ok, idle, got, led, records = _pool_hit(CompileAheadPool)
+    assert ok and idle and got == "exe-1"
+    assert led["requested"] == 1 and led["ready"] == 1
+    assert led["ahead_hits"] == 1 and led["hit_rate"] == 1.0
+    assert [d["status"] for k, d in records if k == "compile_ahead"] == \
+        ["requested", "ready", "hit"]
+    first, second, idle, third, got, led = _pool_duplicates(CompileAheadPool)
+    assert first and not second and idle and not third and got == 1
+    assert led["duplicates"] == 2
+    ok, idle, got, err, led = _pool_error(CompileAheadPool)
+    assert ok and idle and got is None and "nvcc says no" in err
+    assert led["errors"] == 1 and led["ahead_misses"] == 1
+    assert _pool_waits_inflight(CompileAheadPool)[0] == "done"
+    got, led = _pool_unknown_key(CompileAheadPool)
+    assert got is None and led["ahead_misses"] == 1
+    assert _pool_closed(CompileAheadPool)[0] is False
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_seeded_pool_sequence_gives_the_jax_ledger_and_statuses(seed):
+    rng = np.random.default_rng(seed)
+    script = []
+    for _ in range(12):
+        op = ("prewarm", "prewarm_bad", "wait", "acquire")[int(rng.integers(0, 4))]
+        script.append((op, f"k{int(rng.integers(0, 4))}"))
+
+    def run(pool_cls):
+        jnl = FakeJournal()
+        pool = pool_cls(workers=2, journal=jnl)
+        out = []
+        try:
+            for op, key in script:
+                if op == "prewarm":
+                    out.append(pool.prewarm(key, lambda key=key: f"exe-{key}", job="j"))
+                elif op == "prewarm_bad":
+                    out.append(pool.prewarm(key, lambda: 1 / 0, job="j"))
+                elif op == "wait":
+                    out.append(pool.wait_idle(timeout=5.0))
+                else:
+                    pool.wait_idle(timeout=5.0)  # the worker's order is not the script's
+                    out.append(pool.acquire(key))
+            pool.wait_idle(timeout=5.0)
+            # the workers' ready / error records interleave with the caller's
+            # requested / hit / miss in thread order: compare per key
+            per_key = {}
+            for kind, d in jnl.records:
+                per_key.setdefault(d["key"], []).append(d["status"])
+            return out, pool.ledger(), per_key
+        finally:
+            pool.close()
+
+    assert run(CompileAheadPool) == run(JCompileAheadPool)
+
+
+def test_prewarm_build_keys_by_digest_and_loads():
+    from saturn_tpu_torch import native
+    from saturn_tpu_torch.utils import cuda_build
+
+    pairs = build_thunks(["flash_attn", "linear_ce", "spase"])
+    assert [k for k, _ in pairs] == [cuda_build.library_path("flash_attn").name,
+                                     cuda_build.library_path("linear_ce").name,
+                                     native.library_path("spase").name]
+    with pytest.raises(KeyError):
+        build_thunks(["no_such_source"])
+    jnl = FakeJournal()
+    pool = CompileAheadPool(workers=1, journal=jnl)
+    try:
+        keys = pool.prewarm_build(["spase"], job="j-1", tenant="acme")
+        assert keys == [native.library_path("spase").name]
+        assert pool.wait_idle(timeout=300.0)
+        assert pool.acquire(keys[0]) is native.load("spase")  # loaded once, shared
+        assert pool.prewarm_build(["spase"]) == keys and pool.ledger()["duplicates"] == 1
+    finally:
+        pool.close()
+    assert [d["status"] for d in jnl.of("compile_ahead")] == ["requested", "ready", "hit"]
+    assert jnl.of("compile_ahead")[0]["job"] == "j-1"
+
+
+def _prewarm_service_run(pkg, wal):
+    """One job with the compile-ahead hook through a durable service with a
+    pool (``TestServiceCompileAhead`` of the JAX suite)."""
+    tech_cls, task_cls = pkg.fakes
+
+    class PrewarmTask(task_cls):
+        def compile_ahead(self, topology):
+            return [(f"ca-{self.name}", lambda: f"exe-{self.name}")]
+
+    class BrokenHookTask(task_cls):
+        def compile_ahead(self, topology):
+            raise RuntimeError("a hook that raises costs nothing")
+
+    tech = tech_cls()
+    pool = (CompileAheadPool if pkg is PKGS["torch"] else JCompileAheadPool)(workers=1)
+    svc = _service(pkg, durability_dir=wal, health_guardian=False, compile_ahead=pool,
+                   task_provider=lambda p: task_cls(p["task"], p["remaining_batches"],
+                                                    p["spec"]["sizes"], tech))
+    assert svc.compile_ahead is pool and pool.journal is svc.journal
+    svc.start()
+    try:
+        rec = svc.queue.submit(pkg.JobRequest(task=PrewarmTask("pw-0", 3, [4, 8], tech),
+                                              spec={"sizes": [4, 8]}))
+        broken = svc.queue.submit(pkg.JobRequest(task=BrokenHookTask("pw-1", 3, [4, 8], tech),
+                                                 spec={"sizes": [4, 8]}))
+        states = [svc.queue.wait(r.job_id, timeout=30).state.value for r in (rec, broken)]
+        assert pool.wait_idle(timeout=5.0)
+        got = pool.acquire("ca-pw-0")
+        led = pool.ledger()
+    finally:
+        svc.stop(timeout=30)
+    return states, got, led
+
+
+def test_service_prewarms_at_admit_and_journals(tmp_path):
+    states, got, led = _prewarm_service_run(PKGS["torch"], str(tmp_path / "wal"))
+    assert states == ["DONE", "DONE"] and got == "exe-pw-0"
+    assert led["requested"] == 1 and led["ready"] == 1 and led["hit_rate"] == 1.0
+    # the lifecycle is durable, and both packages fold it alike
+    state = replay_service_state(str(tmp_path / "wal"))
+    assert state.compile_ahead == {"requested": 1, "ready": 1, "hit": 1}
+    assert j_replay_service_state(str(tmp_path / "wal")).compile_ahead == state.compile_ahead
+    jwal = str(tmp_path / "jwal")
+    assert _prewarm_service_run(PKGS["jax"], jwal) == (states, got, led)
+    assert replay_service_state(jwal).compile_ahead == state.compile_ahead
+
+
+def test_pool_ledger_holds_under_concurrent_prewarm_and_acquire():
+    """More threads than cores prewarm and acquire overlapping keys with a
+    short switch interval: every key is built once, and the ledger accounts
+    for every call (a lost update would break a count)."""
+    import os
+    import sys
+
+    n_threads, n_keys, rounds = 2 * (os.cpu_count() or 4), 16, 20
+    built, built_lock = [], threading.Lock()
+
+    def thunk(key):
+        with built_lock:
+            built.append(key)
+        return key
+
+    pool = CompileAheadPool(workers=4)
+    calls = {"prewarm": 0, "acquire": 0}
+    calls_lock = threading.Lock()
+
+    def worker(seed):
+        rng = np.random.default_rng(seed)
+        for _ in range(rounds):
+            key = f"k{int(rng.integers(0, n_keys))}"
+            pool.prewarm(key, lambda key=key: thunk(key))
+            got = pool.acquire(key, timeout=5.0)
+            assert got in (None, key)
+            with calls_lock:
+                calls["prewarm"] += 1
+                calls["acquire"] += 1
+
+    saved = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(s,)) for s in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert pool.wait_idle(timeout=10.0)
+    finally:
+        sys.setswitchinterval(saved)
+        pool.close()
+    led = pool.ledger()
+    assert sorted(built) == sorted(set(built))  # each key built once
+    assert led["requested"] == led["ready"] == len(built)
+    assert led["requested"] + led["duplicates"] == calls["prewarm"]
+    assert led["ahead_hits"] + led["ahead_misses"] == calls["acquire"]
+    assert led["ahead_misses"] == 0  # every acquire waited out its own key's build
