@@ -123,7 +123,8 @@ Phases, in order; any failure is an exception and a non-zero exit:
    first; all six kernels ran. Printed: the journal's commit times, each
    resume's replay, reconcile (with ``verify`` of each checkpoint) and fold
    times, and the chain's time against the reference run's. Its launches
-   are logged apart and leave the kernels line as phases 3 and 6 made it.
+   are logged apart and leave the kernels line as phases 3, 14 and 6 made
+   it.
 8. Host offload (``parallel/offload.py``). a) GPT-2-small b8 x 512 over
    the logits (an untagged loss), 4 steps one at a time from the seed-0
    init under offload stream, offload bulk (remat off) and dp: the offload
@@ -230,7 +231,7 @@ Phases, in order; any failure is an exception and a non-zero exit:
    bitwise equal to their solo runs; the interleaved wall time against the
    serial one, the measured host fractions, and whether ``solve`` would
    co-locate the pair at ``coschedule_min_gain``. Phase 10c's launches join
-   phases 3 and 6's in the kernels line.
+   phases 3, 14 and 6's in the kernels line.
 11. Fault injection, fleet health and elastic recovery
    (``saturn_tpu_torch/resilience/``, the engine's fault hooks), two
    GPT-2-small tasks (b8 x 512 at FAULT_LAYERS of its 12 layers, cut in
@@ -265,9 +266,10 @@ Phases, in order; any failure is an exception and a non-zero exit:
    of discarded work, the faulted run's wall time against the unfaulted
    one's. Its launches join the kernels line.
 12. The online job service (``saturn_tpu_torch.serve``, ``SaturnService``):
-   GPT-2-small jobs at its full 12 layers (b8 x 512, ``dp``, flash and the
-   fused head, SERVICE_BATCHES batches each, differing only in lr), the
-   profile cache seeded from phase 3's, the interval SERVICE_INTERVAL_SHARE
+   GPT-2-small jobs at FAULT_LAYERS of its 12 layers (cut in depth only;
+   b8 x 512, ``dp``, flash and the fused head, SERVICE_BATCHES batches
+   each, differing only in lr), the profile cache seeded from phase 7's
+   entry of that depth, the interval SERVICE_INTERVAL_SHARE
    of a job's profiled runtime. a) an uninterrupted service with a journal
    and a metrics file: the client submits A (priority 1); once A runs, L
    (priority 0) and H (priority 5) back to back; once both are admitted, C
@@ -297,8 +299,9 @@ Phases, in order; any failure is an exception and a non-zero exit:
 12d. The network gateway (``service.gateway``, ``resilience.netchaos``):
    the service on the card with phase 12's interval rule (at GATEWAY_BATCHES
    a job), a ``GatewayServer`` on a loopback port and a ``GatewayClient``
-   in this process. 1) Three GPT-2-small jobs (12 layers, b8 x 512, dp)
-   submitted with dedup keys through a seeded ``kill_ack`` proxy and waited
+   in this process. 1) Three GPT-2-small jobs (b8 x 512 at FAULT_LAYERS of
+   its 12 layers, cut in depth only, dp; profile cache seeded
+   from phase 7's entry of that depth) submitted with dedup keys through a seeded ``kill_ack`` proxy and waited
    for through a mixed-fault one: every job DONE at its budget with falling
    losses, one ``job_submitted`` per key, at least one ``kill_ack`` injected
    and the retried submit answered from the dedup table (a
@@ -348,6 +351,34 @@ Phases, in order; any failure is an exception and a non-zero exit:
    the tier reference), ``within_band`` and the terms outside the band (not
    gated: 12a's first intervals are host-bound, which the twin does not
    model).
+14. Multi-device blocks, rehearsed on one card (run after phase 3, before
+   the phases that write the most): a block whose positions name card 0
+   more than once holds one model replica per position
+   (``parallel/spmd_base.py``, ``parallel/collectives.py``). a) GPT-2-small
+   b8 x 512 (12 layers, dp, flash, fused head, remat off) on two replicas
+   against one replica at b8: an eager step then a window of 8, the first
+   loss within MD_LOSS0_REL, the losses within MD_LOSS_REL and the
+   parameters within MD_PARAM_REL by relative norm, the replicas bitwise
+   equal after each unit, exactly twice one replica's launches, no
+   device-to-host copy in a step; then BERT-base's first loss on two
+   replicas against one at b8, on ``mlm_loss`` and on a padded MLM
+   objective whose replicas count different labels, each through the fused
+   head's parts and over the logits, within MD_LOSS0_REL. Printed: both
+   GPT-2 runs' milliseconds per batch and peak memory (a rehearsal says
+   nothing of the speed of several cards). b) ``search(prune=True)`` of a
+   GPT-2-small task at MD_LAYERS over card 0 eight times: only the anchor
+   sizes 1, 4 and 8 trialled (one step at a time, MD_SEARCH_ENV), size 2
+   filled from the fit,
+   ``parallel_trials`` resolved to 1, a topology signature apart from eight
+   cards'; then ``orchestrate`` of its plan, verified, to its budget with
+   exact launches. c) the same task on card 0 twice loses position 1 with
+   no return during interval 1 (``seeded_schedule(MD_ELASTIC_SEED)``): the
+   interval is discarded, the pool shrinks, the replanner synthesizes size
+   1, the task restores its checkpoint onto one replica and ends at its
+   budget with exact launches; printed, the seconds of work discarded and
+   ``replan_latency_s``. d) 14a's GPT-2 run on cards 0 and 1 through NCCL,
+   where the machine has two cards; else one line says it did not run (not
+   a pass). 14b's and 14c's launches join the kernels line.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
@@ -411,6 +442,11 @@ with no phase 7 profile cache its template search runs the trials).
 
 builds the kernels and runs phase 12 (13b's journal) and phase 13
 (``chiprun_out/twin.json``, the campaigns under ``chiprun_out/twin/``).
+
+    python3 chip_smoke.py --multi-device [--14a] [--14b] [--14c] [--14d]
+
+builds the kernels and runs phase 14, or the sub-phases named
+(``chiprun_out/multi_device.json``).
 
     python3 chip_smoke.py --fused-profile
 
@@ -4413,7 +4449,8 @@ def wait_for(client, job_id: str, pred, label: str, timeout: float = 300.0) -> d
 
 def service_jobs(sat, save_dir, keys) -> dict:
     """The jobs' tasks, built (their datasets drawn) before any is submitted."""
-    return {k: lm_task(sat, SERVICE_JOBS[k][0], SERVICE_JOBS[k][1], SERVICE_BATCHES, save_dir)
+    return {k: lm_task(sat, SERVICE_JOBS[k][0], SERVICE_JOBS[k][1], SERVICE_BATCHES, save_dir,
+                       n_layers=fault_layers())
             for k in keys}
 
 
@@ -4526,8 +4563,10 @@ def service_phase(sat, flash, ce, card) -> tuple:
     for p in events.values():
         if os.path.exists(p):
             os.unlink(p)
-    log(f"phase 12: the online service, GPT-2-small jobs b8x512 ({LAYERS} layers), dp")
-    template = lm_task(sat, "svc-template", 6e-4, SERVICE_BATCHES, os.path.join(root, "t"))
+    log(f"phase 12: the online service, GPT-2-small jobs b8x512 ({fault_layers()} of its "
+        f"{LAYERS} layers), dp")
+    template = lm_task(sat, "svc-template", 6e-4, SERVICE_BATCHES, os.path.join(root, "t"),
+                       n_layers=fault_layers())
     t0 = time.perf_counter()
     stats = sat.search([template], technique_names=["dp"], topology=topo,
                        profile_cache=cache_dir, fusion=False)
@@ -4605,7 +4644,8 @@ def service_phase(sat, flash, ce, card) -> tuple:
                       "device_s": sum(r["n"] * (r["per_batch_s"] or 0.0) for r in runs),
                       "run_s": sum(r["run_s"] for r in runs)}
     steps, discarded = job_steps(tasks.values())
-    check_launches("12a", launches, want_fault_launches(config, steps + discarded))
+    check_launches("12a", launches, want_fault_launches(config, steps + discarded,
+                                                               fault_layers()))
     tiers = [(e["tier_name"], e["wall_s"]) for e in
              metrics.read_events(events["A"], kind="solver_tier") if e["source"] == "service"]
     commit_s = timer.seconds["commit"]
@@ -4646,7 +4686,7 @@ def service_phase(sat, flash, ce, card) -> tuple:
     svc.stop(timeout=60)
     killed_launches = counts(flash, ce)
     killed_steps = sum(job_steps(tasks_b.values()))
-    check_launches("12b killed", killed_launches, want_fault_launches(config, killed_steps))
+    check_launches("12b killed", killed_launches, want_fault_launches(config, killed_steps, fault_layers()))
     # the dead incarnation's writes land; its states, graphs and pools go
     ckpt.flush()
     release(r.task for r in svc.queue.jobs())
@@ -4664,7 +4704,7 @@ def service_phase(sat, flash, ce, card) -> tuple:
     def provide(spec):
         specs.append(spec)
         return lm_task(sat, spec["task"], spec["spec"]["lr"], SERVICE_BATCHES,
-                       os.path.join(root, "B"))
+                       os.path.join(root, "B"), n_layers=fault_layers())
 
     reset_counts(flash, ce)
     rt = CallTimes(replay=(rmod, "replay_service_state"),
@@ -4688,7 +4728,7 @@ def service_phase(sat, flash, ce, card) -> tuple:
     rebuilt = [r.task for r in svc2.queue.jobs() if hasattr(r.task, "strategies")
                and 1 in r.task.strategies]
     restart_steps = sum(job_steps(rebuilt))
-    check_launches("12b restart", restart_launches, want_fault_launches(config, restart_steps))
+    check_launches("12b restart", restart_launches, want_fault_launches(config, restart_steps, fault_layers()))
     if {k: s["state"] for k, s in snaps_b.items()} != {k: "DONE" for k in "ALH"}:
         raise AssertionError(f"12b: job states {snaps_b}")
     by_name = {v: k for k, v in names.items()}
@@ -4840,9 +4880,10 @@ def gateway_phase(sat, flash, ce, card) -> tuple:
         shutil.rmtree(d, ignore_errors=True)
     if os.path.exists(events):
         os.unlink(events)
-    log(f"phase 12d: the gateway, GPT-2-small jobs b{BATCH}x{SEQ} ({LAYERS} layers), dp, over "
-        f"loopback TCP through a seeded chaos proxy")
-    template = lm_task(sat, "gw-template", 6e-4, GATEWAY_BATCHES, os.path.join(root, "t"))
+    log(f"phase 12d: the gateway, GPT-2-small jobs b{BATCH}x{SEQ} ({fault_layers()} of its "
+        f"{LAYERS} layers), dp, over loopback TCP through a seeded chaos proxy")
+    template = lm_task(sat, "gw-template", 6e-4, GATEWAY_BATCHES, os.path.join(root, "t"),
+                       n_layers=fault_layers())
     t0 = time.perf_counter()
     stats = sat.search([template], technique_names=["dp"], topology=topo,
                        profile_cache=cache_dir, fusion=False)
@@ -4863,7 +4904,8 @@ def gateway_phase(sat, flash, ce, card) -> tuple:
 
     def provide(spec):  # in a gateway reader thread, or in recovery: host work only
         specs.append(spec)
-        task = lm_task(sat, spec["task"], lrs[spec["task"]], spec["total_batches"], root)
+        task = lm_task(sat, spec["task"], lrs[spec["task"]], spec["total_batches"], root,
+                       n_layers=fault_layers())
         built.setdefault(spec["task"], []).append(task)
         return task
 
@@ -4910,7 +4952,8 @@ def gateway_phase(sat, flash, ce, card) -> tuple:
         launches_1 = counts(flash, ce)
         tasks_1 = [t for k in GATEWAY_JOBS for t in built[names[k]]]
         steps_1, discarded_1 = job_steps(tasks_1)
-        check_launches("12d-1", launches_1, want_fault_launches(config, steps_1 + discarded_1))
+        check_launches("12d-1", launches_1, want_fault_launches(config, steps_1 + discarded_1,
+                                                                   fault_layers()))
         if any(s["state"] != "DONE" for s in snaps.values()):
             raise AssertionError(f"12d-1: job states {snaps}")
         per_key, hits = gateway_counts(journal)
@@ -4976,7 +5019,7 @@ def gateway_phase(sat, flash, ce, card) -> tuple:
     d_state = svc.queue.get(kids["D"]).state.value
     killed_tasks = [t for k in GATEWAY_KILL_JOBS for t in built.get(knames[k], [])]
     killed_steps = sum(job_steps(killed_tasks))
-    check_launches("12d-2 killed", killed_launches, want_fault_launches(config, killed_steps))
+    check_launches("12d-2 killed", killed_launches, want_fault_launches(config, killed_steps, fault_layers()))
     killed_e = sum(job_steps(built.get(knames["E"], [])))
     ckpt.flush()
     release(r.task for r in svc.queue.jobs())
@@ -5017,7 +5060,7 @@ def gateway_phase(sat, flash, ce, card) -> tuple:
                and 1 in r.task.strategies]
     restart_steps = sum(job_steps(rebuilt))
     check_launches("12d-2 restart", restart_launches,
-                   want_fault_launches(config, restart_steps))
+                   want_fault_launches(config, restart_steps, fault_layers()))
     restart_specs = specs[n_specs:]
     if (d_snap["state"], d_snap["error"]) != ("EVICTED", "cancelled") or any(
             s["task"] == knames["D"] for s in restart_specs):
@@ -5386,6 +5429,490 @@ def twin_phase(card, service_out) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 14
+MD_CONFIG = {"attention": "flash", "remat": False}
+MD_LOSS0_REL = 1e-5      # a first loss of two replicas against one replica at the full batch
+MD_LOSS_REL = 1e-3       # 14a's losses over an eager step and a window (phase 10b's bounds for
+MD_PARAM_REL = 5e-3      # another summation order); its parameters, by relative norm
+MD_LAYERS = 4            # 14b and 14c's depth
+MD_SEARCH_POSITIONS = 8  # 14b: [card 0] * 8, sizes 1, 2, 4, 8
+MD_SEARCH_BATCHES = 24
+# 14b runs one step at a time: its checks (the anchors, the fill, the plan,
+# the launches) do not depend on K, and capturing windows of 8 replicas is
+# most of its time; 14a and 14c run windows
+MD_SEARCH_ENV = {"SATURN_TPU_MAX_WINDOW": "1"}
+MD_ELASTIC_BATCHES = 96  # 14c: three intervals of 32 batches
+MD_ELASTIC_SEED = 27     # seeded_schedule(27, 3, 2), preemptions only: position 1, 0.165 s
+                         # into interval 1
+MD_PREEMPT_ONLY = dict(p_preempt=0.5, p_crash=0.0, p_straggler=0.0)
+PAD_ID = 0               # 14a's padded MLM objective: the pad id is no label
+
+
+def md_devices(n: int, distinct: bool = False):
+    """``n`` positions: card 0 repeated, or cards 0..n-1."""
+    return [torch.device(DEVICE, i if distinct else 0) for i in range(n)]
+
+
+def replicas_equal(state) -> bool:
+    from saturn_tpu_torch.parallel.spmd_base import replicas
+
+    reps = replicas(state)
+    return all(torch.equal(a, b.to(a.device)) for rep in reps[1:]
+               for a, b in zip(reps[0]["params"].parameters(), rep["params"].parameters()))
+
+
+def dtoh_copies(fn, n: int = 2) -> float:
+    """Device-to-host copies per call of ``fn``, from a torch.profiler
+    window of ``n`` calls."""
+    _, events = profiled(fn, n)
+    return sum("DtoH" in name for name, _, _ in events) / n
+
+
+def flat_params(state) -> torch.Tensor:
+    return torch.cat([p.detach().float().reshape(-1) for p in state["params"].parameters()])
+
+
+def md_state(bundle, base=None):
+    """A fresh train state of ``bundle``: its seed-0 init, or, given
+    ``base`` (the state dict of a seed-0 init of the same model), those
+    weights copied into every replica of an uninitialised state, with fresh
+    optimizers: the same state without drawing the weights again."""
+    from saturn_tpu_torch.parallel.spmd_base import replicas
+
+    if base is None:
+        return bundle.init()
+    state = bundle.empty()
+    for rep in replicas(state):
+        rep["params"].load_state_dict(base)
+    return state
+
+
+def md_gpt2_run(sat, flash, ce, devices, base=None) -> dict:
+    """GPT-2-small b8 x 512 (dp, flash, fused head, remat off) on
+    ``devices``: an eager step, then a window of WINDOW steps (WINDOW eager
+    steps over distinct cards, where a block runs K = 1), from the seed-0
+    init (``md_state``). Launches of each unit, whether the replicas are
+    bitwise equal after each, the milliseconds per batch of the window, the
+    peak memory, the device-to-host copies of two more eager steps, and
+    (``base``) the init's weights."""
+    from saturn_tpu_torch.core.mesh import physical_groups
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.parallel.spmd_base import stage_tokens
+    from saturn_tpu_torch.utils import timing
+
+    task = lm_task(sat, f"md-gpt2-{len(devices)}", 6e-4, 1 + WINDOW, os.path.join(CKPTS, "md"))
+    tech = DataParallel()
+    bundle = tech.build(task, devices, MD_CONFIG)
+    dev = bundle.device
+    state = md_state(bundle, base)
+    drawn = None if base is not None else {k: v.clone()
+                                           for k, v in state["params"].state_dict().items()}
+    for d in set(bundle.devices):
+        timing.synchronize(d)
+        timing.reset_peak_memory(d)
+    reset_counts(flash, ce)
+    state, loss = bundle.step(state, bundle.stage(task.batch_at(0)))
+    eager, equal = counts(flash, ce), [replicas_equal(state)]
+    stack = stage_tokens(np.stack([task.batch_at(1 + i) for i in range(WINDOW)]), dev)
+    graphed = len(physical_groups(devices)) == 1
+    if graphed:
+        bundle.capture([WINDOW], state, stack.shape[-2:])
+    reset_counts(flash, ce)
+    timing.synchronize(dev)
+    t0 = time.perf_counter()
+    if graphed:
+        state, losses = bundle.fused(WINDOW)(state, stack)
+    else:
+        out = []
+        for i in range(WINDOW):
+            state, one = bundle.step(state, stack[i])
+            out.append(one)
+        losses = torch.stack(out)
+    timing.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / WINDOW
+    window = counts(flash, ce)
+    equal.append(replicas_equal(state))
+    peak = max(timing.peak_memory_bytes(d) for d in set(bundle.devices))
+    result = {"losses": [float(loss)] + [float(x) for x in losses.reshape(-1).tolist()],
+              "params": flat_params(state), "eager": eager, "window": window,
+              "replicas_equal": equal, "ms_per_batch": ms, "peak_bytes": peak,
+              "graphed": graphed, "base": drawn}
+    batch = bundle.stage(task.batch_at(0))
+    result["dtoh_per_step"] = dtoh_copies(lambda: bundle.step(state, batch))
+    del state, batch, stack
+    tech.release_task(task.name)
+    return result
+
+
+def rel(got: float, want: float) -> float:
+    return abs(got - want) / max(abs(want), 1e-30)
+
+
+def md_step_check(sat, flash, ce, card, devices, label) -> dict:
+    """14a / 14d's GPT-2-small run on ``devices`` against one replica."""
+    one = md_gpt2_run(sat, flash, ce, md_devices(1))
+    many = md_gpt2_run(sat, flash, ce, devices, base=one.pop("base"))
+    many.pop("base")
+    n = len(devices)
+    want_eager = want_launches("flash", None, 1)
+    if one["eager"] != want_eager or one["window"] != want_launches("flash", None, WINDOW):
+        raise AssertionError(f"{label}: one replica launched {one['eager']} / {one['window']}, "
+                             f"want {want_eager} a step")
+    for unit in ("eager", "window"):
+        want = {k: n * v for k, v in one[unit].items()}
+        if many[unit] != want:
+            raise AssertionError(f"{label}: {n} replicas launched {many[unit]} in the {unit} "
+                                 f"unit, want {want} ({n}x one replica's)")
+    loss0 = rel(many["losses"][0], one["losses"][0])
+    if not loss0 <= MD_LOSS0_REL:
+        raise AssertionError(f"{label}: first loss {many['losses'][0]} against "
+                             f"{one['losses'][0]}: rel {loss0:.3e} > {MD_LOSS0_REL:g}")
+    loss_rel = max(rel(a, b) for a, b in zip(many["losses"], one["losses"]))
+    if not loss_rel <= MD_LOSS_REL:
+        raise AssertionError(f"{label}: losses {many['losses']} against {one['losses']}: "
+                             f"rel {loss_rel:.3e} > {MD_LOSS_REL:g}")
+    a, b = many.pop("params"), one.pop("params")
+    param_rel = float((a.to(b.device) - b).norm() / b.norm())
+    del a, b
+    if not param_rel <= MD_PARAM_REL:
+        raise AssertionError(f"{label}: parameters after {1 + WINDOW} steps at rel norm "
+                             f"{param_rel:.3e} > {MD_PARAM_REL:g}")
+    if not all(many["replicas_equal"]):
+        raise AssertionError(f"{label}: replicas not bitwise equal after each unit: "
+                             f"{many['replicas_equal']}")
+    if many["dtoh_per_step"] or one["dtoh_per_step"]:
+        raise AssertionError(f"{label}: device-to-host copies per step {many['dtoh_per_step']} "
+                             f"({n} replicas), {one['dtoh_per_step']} (one)")
+    log(f"  {label}: GPT-2-small b{BATCH}x{SEQ} dp flash + fused head, {n} replicas on "
+        f"{[str(d) for d in devices]} against one: first loss rel {loss0:.2e} (bound "
+        f"{MD_LOSS0_REL:g}), losses over an eager step and "
+        f"{'a window' if many['graphed'] else 'eager steps'} of {WINDOW} rel "
+        f"{loss_rel:.2e} (bound {MD_LOSS_REL:g}), parameters rel norm {param_rel:.2e} "
+        f"(bound {MD_PARAM_REL:g}); replicas bitwise equal after each unit; launches "
+        f"{many['eager']} a step ({n}x one replica's), 0 device-to-host copies a step; "
+        f"{many['ms_per_batch']:.2f} ms/batch against {one['ms_per_batch']:.2f}, peak "
+        f"{many['peak_bytes'] / 2**30:.2f} GiB against {one['peak_bytes'] / 2**30:.2f} GiB  "
+        f"[{card}]")
+    torch.cuda.empty_cache()
+    return {"one": one, "many": many, "loss0_rel": loss0, "loss_rel": loss_rel,
+            "param_rel": param_rel}
+
+
+def pad_mlm_loss(logits, tokens):
+    """Mean CE at BERT's masked positions that do not hold PAD_ID."""
+    from saturn_tpu_torch.models.bert import _mask
+
+    B, T = tokens.shape
+    m = (_mask(T, tokens.device)[None, :] & (tokens != PAD_ID)).float()
+    per = F.cross_entropy(logits.float().reshape(B * T, -1), tokens.reshape(-1).long(),
+                          reduction="none").reshape(B, T)
+    return (per * m).sum() / m.sum().clamp_min(1)
+
+
+pad_mlm_loss.supports_fused_head = "mlm-pad"
+
+
+def untagged(fn):
+    def loss(logits, tokens):
+        return fn(logits, tokens)
+    return loss
+
+
+def pad_bert(**kw):
+    """BERT-base whose fused head also takes PAD_ID as no label (the
+    objective of ``pad_mlm_loss``)."""
+    from saturn_tpu_torch.models import bert, gpt2
+
+    cfg = bert.build_bert(BERT, **kw).config
+    mask_id = cfg.vocab_size - 1
+
+    def inputs(tokens):
+        m = bert._mask(tokens.shape[-1], tokens.device)[None, :]
+        return torch.where(m, torch.full_like(tokens, mask_id), tokens)
+
+    def labels(tokens):
+        keep = bert._mask(tokens.shape[-1], tokens.device)[None, :] & (tokens != PAD_ID)
+        return torch.where(keep, tokens.to(torch.int32), -1)
+
+    return gpt2.spec_for(cfg, inputs_fn=inputs, labels_fn=labels, objective="mlm-pad")
+
+
+def uneven_batch(seed: int = 14) -> np.ndarray:
+    """A b8 x 512 BERT batch whose first half of rows hold PAD_ID at 80 % of
+    their positions: the padded objective's replicas count different
+    numbers of labels."""
+    rng = np.random.default_rng(seed)
+    batch = rng.integers(1, VOCAB - 1, size=(BATCH, SEQ))
+    batch[:BATCH // 2][rng.random((BATCH // 2, SEQ)) < 0.8] = PAD_ID
+    return batch
+
+
+def md_bert_first_losses(sat, flash, ce, card, devices) -> dict:
+    """BERT-base's first loss on ``devices`` against one replica at b8, on
+    ``mlm_loss`` and the padded objective, each through the fused head's
+    parts and over the logits (an untagged copy)."""
+    from saturn_tpu_torch.data.lm_dataset import make_lm_dataset
+    from saturn_tpu_torch.models.bert import build_bert, mlm_loss
+    from saturn_tpu_torch.parallel.dp import DataParallel
+
+    batch = uneven_batch()
+    out, base = {}, None
+    for objective, tagged, model in (("mlm", mlm_loss, lambda **kw: build_bert(BERT, **kw)),
+                                     ("mlm-pad", pad_mlm_loss, pad_bert)):
+        for route, loss_fn in (("fused", tagged), ("logits", untagged(tagged))):
+            got = {}
+            for n, devs in ((1, md_devices(1)), (len(devices), devices)):
+                task = sat.Task(get_model=lambda **kw: model(**{"seq_len": SEQ, **kw}),
+                                get_dataloader=lambda: make_lm_dataset(
+                                    context_length=SEQ, batch_size=BATCH, vocab_size=VOCAB,
+                                    seed=0, reserved_ids=1),
+                                loss_fn=loss_fn, hparams=sat.HParams(lr=1e-3, batch_count=1),
+                                name=f"md-bert-{objective}-{route}-{n}",
+                                save_dir=os.path.join(CKPTS, "md"))
+                tech = DataParallel()
+                bundle = tech.build(task, devs, MD_CONFIG)
+                state = md_state(bundle, base)
+                if base is None:  # one seed-0 draw for every run: one BERT-base shape
+                    base = {k: v.clone() for k, v in state["params"].state_dict().items()}
+                reset_counts(flash, ce)
+                _, loss = bundle.step(state, bundle.stage(batch))
+                got[n] = (float(loss), counts(flash, ce)["ce_fwd"])
+                del state
+                tech.release_task(task.name)
+            r = rel(got[len(devices)][0], got[1][0])
+            want_ce = len(devices) if route == "fused" else 0
+            if got[len(devices)][1] != want_ce or got[1][1] != (1 if route == "fused" else 0):
+                raise AssertionError(f"14a BERT {objective} {route}: CE forward launches "
+                                     f"{got[len(devices)][1]} / {got[1][1]}")
+            if not r <= MD_LOSS0_REL:
+                raise AssertionError(f"14a BERT {objective} {route}: first loss "
+                                     f"{got[len(devices)][0]} against {got[1][0]}: rel {r:.3e} "
+                                     f"> {MD_LOSS0_REL:g}")
+            out[f"{objective}-{route}"] = {"loss": got[len(devices)][0], "one": got[1][0],
+                                           "rel": r}
+    from saturn_tpu_torch.models.bert import _mask
+
+    keep = (_mask(SEQ, "cpu")[None, :] & (torch.from_numpy(batch) != PAD_ID)).sum(1)
+    rows = BATCH // len(devices)
+    counts_by_row = [int(keep[r * rows:(r + 1) * rows].sum()) for r in range(len(devices))]
+    if len(set(counts_by_row)) < 2:
+        raise AssertionError(f"14a: the padded batch's replicas hold {counts_by_row} labels")
+    log(f"  14a BERT-base b{BATCH}x{SEQ}, {len(devices)} replicas against one, first loss: "
+        + ", ".join(f"{k} rel {v['rel']:.2e}" for k, v in out.items())
+        + f" (bound {MD_LOSS0_REL:g}; the padded objective's replicas count {counts_by_row} "
+        f"labels, mlm_loss's static mask the same in every row)  [{card}]")
+    out["pad_label_counts"] = counts_by_row
+    return out
+
+
+def md_search_phase(sat, flash, ce, card) -> tuple:
+    """14b: search(prune=True) of a GPT-2-small task at MD_LAYERS over
+    [card 0] * 8, then orchestrate of its plan."""
+    from saturn_tpu_torch import analysis
+    from saturn_tpu_torch.core.mesh import SliceTopology
+    from saturn_tpu_torch.trial_runner import evaluator
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+    from saturn_tpu_torch.utils import metrics
+    from saturn_tpu_torch.utils import profile_cache as pcache
+
+    topo = SliceTopology(md_devices(MD_SEARCH_POSITIONS))
+    save_dir = os.path.join(CKPTS, "md_search")
+    cache_dir = os.path.join(OUT, "md_search_profile_cache")
+    events = os.path.join(OUT, "md_search_events.jsonl")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    if os.path.exists(events):
+        os.unlink(events)
+    task = lm_task(sat, "md-search", 6e-4, MD_SEARCH_BATCHES, save_dir, n_layers=MD_LAYERS)
+    workers = evaluator._default_parallelism(topo)
+    if workers != 1:
+        raise AssertionError(f"14b: parallel_trials resolves to {workers} on {topo.devices}")
+    sig = pcache.topology_signature(topo)
+    cards = f"{torch.cuda.get_device_name(0) if DEVICE == 'cuda' else 'cpu'}x8:cap8"
+    if sig == cards or not sig.endswith(":distinct1"):
+        raise AssertionError(f"14b: the rehearsal's topology signature {sig!r} against eight "
+                             f"cards' {cards!r}")
+    t0 = time.perf_counter()
+    with EnvSet(**MD_SEARCH_ENV):
+        stats = sat.search([task], technique_names=["dp"], topology=topo,
+                           profile_cache=cache_dir, metrics_path=events, fusion=False)
+    search_s = time.perf_counter() - t0
+    tech = task.strategies[1].executor
+    trialled = sorted({size for name, size, _, _, _ in tech.trials if name == task.name})
+    if trialled != [1, 4, 8]:
+        raise AssertionError(f"14b: trialled sizes {trialled}, want the anchors [1, 4, 8]")
+    s2 = task.strategies[2]
+    interp = metrics.read_events(events, kind="trial_interpolated")
+    if not (s2.feasible and s2.interpolated) or [e["size"] for e in interp] != [2]:
+        raise AssertionError(f"14b: size 2 {s2}, interpolated events {interp}")
+    table = {g: (s.per_batch_time, dict(s.params or {}), s.interpolated)
+             for g, s in sorted(task.strategies.items()) if s.feasible}
+    reset_counts(flash, ce)
+    marks = (len(tech.intervals), len(tech.discarded))
+    interval = INTERVAL_SHARE * min(s.runtime for s in task.feasible_strategies().values())
+    t0 = time.perf_counter()
+    with VerifiedSources(analysis) as verified, EnvSet(**MD_SEARCH_ENV):
+        out = sat.orchestrate([task], interval=interval, topology=topo, fusion=False)
+    run_s = time.perf_counter() - t0
+    launches = counts(flash, ce)
+    if out["completed"] != [task.name] or out["failed"]:
+        raise AssertionError(f"14b: {out}")
+    step = ckpt.load(task.ckpt_path)["step"]
+    if step != MD_SEARCH_BATCHES:
+        raise AssertionError(f"14b: checkpoint step {step}, want {MD_SEARCH_BATCHES}")
+    if not verified.sources:
+        raise AssertionError("14b: no plan went through the plan verifier")
+    runs = tech.intervals[marks[0]:] + tech.discarded[marks[1]:]
+    want = md_want_launches(runs)
+    check_launches("14b", launches, want)
+    sizes = sorted({r["replicas"] for r in runs})
+    log(f"  14b search(prune=True) over {MD_SEARCH_POSITIONS} positions of one card "
+        f"(signature {sig!r}, parallel_trials 1): trials {stats['trials_run']} at sizes "
+        f"{trialled}, size 2 from the fit ({s2.per_batch_time * 1e3:.2f} ms/batch), table "
+        f"{ {g: round(t * 1e3, 3) for g, (t, _, _) in table.items()} } ms/batch, "
+        f"{search_s:.1f}s; orchestrate ran blocks of {sizes} to step {step} "
+        f"(plans verified: {verified.sources}), launches {launches} (exact), {run_s:.1f}s  "
+        f"[{card}]")
+    task.release_live_state()
+    task.release_compiled()
+    return launches, {"trialled": trialled, "stats": stats, "signature": sig,
+                      "table_ms": {g: t * 1e3 for g, (t, _, _) in table.items()},
+                      "search_s": search_s, "run_s": run_s, "sizes_run": sizes,
+                      "launches": launches}
+
+
+def md_want_launches(runs) -> dict:
+    """Exact launches of interval records ``runs`` at MD_LAYERS: each step
+    of each replica launches its kernels."""
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    for r in runs:
+        steps = r["n"] * r["replicas"]
+        for name in FLASH_NAMES:
+            want[name] += flash_per_step(r["config"], name, MD_LAYERS) * steps
+        for name in CE_NAMES:
+            want[name] += steps
+    return want
+
+
+def md_elastic_phase(sat, flash, ce, card) -> tuple:
+    """14c: a dp task on both positions of [card 0] * 2 loses position 1,
+    with no return, during interval 1 (a seeded slice_preemption); it
+    shrinks to one replica, restores the checkpoint there and ends at its
+    full budget."""
+    from saturn_tpu_torch import analysis
+    from saturn_tpu_torch.core.mesh import SliceTopology
+    from saturn_tpu_torch.resilience import FaultInjector, seeded_schedule
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+    from saturn_tpu_torch.utils import metrics
+
+    topo = SliceTopology(md_devices(2))
+    save_dir = os.path.join(CKPTS, "md_elastic")
+    cache_dir = os.path.join(OUT, "md_elastic_profile_cache")
+    events = os.path.join(OUT, "md_elastic_events.jsonl")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    if os.path.exists(events):
+        os.unlink(events)
+    schedule = seeded_schedule(MD_ELASTIC_SEED, 3, 2, **MD_PREEMPT_ONLY)
+    if [(e.at_interval, e.kind, e.devices) for e in schedule] != [(1, "slice_preemption", (1,))]:
+        raise AssertionError(f"14c: seeded schedule {schedule}")
+    task = lm_task(sat, "md-elastic", 6e-4, MD_ELASTIC_BATCHES, save_dir, n_layers=MD_LAYERS)
+    task.chip_range = [2]  # profiled at 2 replicas only: the replanner synthesizes size 1
+    sat.search([task], technique_names=["dp"], topology=topo, profile_cache=cache_dir,
+               fusion=False)
+    strat = task.strategies[2]
+    tech = strat.executor
+    interval = strat.runtime / 3
+    reset_counts(flash, ce)
+    marks = (len(tech.intervals), len(tech.discarded))
+    t0 = time.perf_counter()
+    with VerifiedSources(analysis) as verified:
+        out = sat.orchestrate([task], interval=interval, topology=topo, fusion=False,
+                              fault_injector=FaultInjector(schedule=schedule),
+                              failure_policy="retry", max_task_retries=1,
+                              metrics_path=events)
+    run_s = time.perf_counter() - t0
+    launches = counts(flash, ce)
+    if out["completed"] != [task.name] or out["failed"]:
+        raise AssertionError(f"14c: {out}")
+    step = ckpt.load(task.ckpt_path)["step"]
+    if step != MD_ELASTIC_BATCHES:
+        raise AssertionError(f"14c: checkpoint step {step}, want {MD_ELASTIC_BATCHES}")
+    ev = metrics.read_events(events)
+
+    def kinds(kind):
+        return [e for e in ev if e["kind"] == kind]
+
+    changes = [(c["change"], c["lost"], c["gained"]) for c in kinds("topology_change")]
+    if changes != [("shrink", [1], [])]:
+        raise AssertionError(f"14c: topology changes {changes}")
+    replans = [e.get("synthesized") for e in kinds("replan")]
+    migrations = [(m["moved_from"], m["moved_to"]) for m in kinds("migration")]
+    if replans != [{task.name: [1]}] or migrations != [([2, 0], [1, 0])]:
+        raise AssertionError(f"14c: replans {replans}, migrations {migrations}")
+    if "migration-replan" not in verified.sources:
+        raise AssertionError(f"14c: verified plans {verified.sources}")
+    discarded = [r for r in tech.discarded[marks[1]:] if r["discarded"] == "preempted"]
+    if [e["task"] for e in kinds("task_preempted")] != [task.name] or not discarded:
+        raise AssertionError(f"14c: preempted {kinds('task_preempted')}, discarded "
+                             f"{tech.discarded[marks[1]:]}: the loss did not land mid-interval")
+    runs = tech.intervals[marks[0]:]
+    after = [r for r in runs if r["replicas"] == 1]
+    if not after or not after[0]["restored"] or {r["replicas"] for r in discarded} != {2}:
+        raise AssertionError(f"14c: runs {[(r['replicas'], r['n'], r['restored']) for r in runs]}"
+                             f", discarded {[(r['replicas'], r['n']) for r in discarded]}")
+    check_launches("14c", launches, md_want_launches(runs + tech.discarded[marks[1]:]))
+    lost_s = sum(r["state_s"] + r["run_s"] for r in discarded)
+    latency = kinds("recovery")[0]["replan_latency_s"]
+    log(f"  14c elastic: seeded_schedule({MD_ELASTIC_SEED}) = {schedule[0]}; interval "
+        f"{interval:.3f}s; runs (replicas, batches, restored) "
+        f"{[(r['replicas'], r['n'], r['restored']) for r in runs]}; discarded "
+        f"{[(r['replicas'], r['n']) for r in discarded]} ({lost_s:.3f}s of work); shrink "
+        f"lost [1], size 1 synthesized, migrated [2, 0] -> [1, 0], re-plan verified, "
+        f"replan_latency_s {latency:.6f}; step {step}; launches {launches} (exact); "
+        f"{run_s:.1f}s  [{card}]")
+    task.release_live_state()
+    task.release_compiled()
+    return launches, {"schedule": str(schedule[0]), "interval_s": interval,
+                      "discarded_s": lost_s, "replan_latency_s": latency, "run_s": run_s,
+                      "runs": [(r["replicas"], r["n"], r["restored"]) for r in runs],
+                      "launches": launches}
+
+
+def multi_device_phase(sat, flash, ce, card, parts=("14a", "14b", "14c", "14d")) -> tuple:
+    """Phase 14: multi-device blocks rehearsed on one card (positions that
+    name card 0 more than once): 14a the replicated step at full width,
+    14b the control path, 14c the elastic shrink; 14d the step over two
+    real cards, where the machine has them."""
+    t_phase = time.perf_counter()
+    sat.library.register_default_library()
+    launches, out = dict.fromkeys(KERNEL_NAMES, 0), {}
+    log(f"phase 14: multi-device blocks ({', '.join(parts)})")
+    if "14a" in parts:
+        t0 = time.perf_counter()
+        out["14a"] = md_step_check(sat, flash, ce, card, md_devices(2), "14a")
+        out["14a"]["bert"] = md_bert_first_losses(sat, flash, ce, card, md_devices(2))
+        out["14a"]["seconds"] = time.perf_counter() - t0
+    if "14b" in parts:
+        got, out["14b"] = md_search_phase(sat, flash, ce, card)
+        launches = {n: launches[n] + got[n] for n in KERNEL_NAMES}
+    if "14c" in parts:
+        got, out["14c"] = md_elastic_phase(sat, flash, ce, card)
+        launches = {n: launches[n] + got[n] for n in KERNEL_NAMES}
+    if "14d" in parts:
+        cards = torch.cuda.device_count() if DEVICE == "cuda" else 0
+        if cards >= 2:
+            out["14d"] = md_step_check(sat, flash, ce, card, md_devices(2, distinct=True), "14d")
+        else:
+            out["14d"] = {"ran": False, "why": f"{cards} CUDA device(s); NCCL across two "
+                                                f"cards needs two"}
+            log(f"  14d did not run: this machine has {cards} CUDA device(s), and the NCCL sum "
+                f"across distinct cards needs two (not a pass)")
+    for d in ("md", "md_search", "md_elastic"):
+        shutil.rmtree(os.path.join(CKPTS, d), ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 14 {out['seconds']:.1f}s  [{card}]")
+    return launches, out
+
+
 def option(argv, name: str, default=None):
     """The value after ``name`` in ``argv``, or ``default``."""
     return argv[argv.index(name) + 1] if name in argv else default
@@ -5505,6 +6032,15 @@ def main(argv) -> int:
                        "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
         shutil.rmtree(CKPTS, ignore_errors=True)
         return 0
+    if "--multi-device" in argv:
+        parts = tuple(p for p in ("14a", "14b", "14c", "14d") if f"--{p}" in argv)
+        _, md_out = multi_device_phase(sat, flash, ce, card,
+                                       parts or ("14a", "14b", "14c", "14d"))
+        with open(os.path.join(OUT, "multi_device.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "multi_device": md_out,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
+        shutil.rmtree(CKPTS, ignore_errors=True)
+        return 0
     if "--offload" in argv:
         log("the flash kernels at head dim 256 (phase 8b's attention)")
         rows_d256 = check_head_dim_256(flash)
@@ -5550,6 +6086,14 @@ def main(argv) -> int:
     log("phase 3: search -> orchestrate, two GPT-2-small tasks and one BERT-base task b8x512")
     launches, main_results = main_path(sat, flash, ce, card)
 
+    # phase 14 runs here, before the phases that write the most to the disk
+    md_launches, md_out = multi_device_phase(sat, flash, ce, card)
+    launches = {n: launches[n] + md_launches[n] for n in KERNEL_NAMES}
+    log(f"  main-path launches, phases 3, 14b and 14c: {launches}")
+    with open(os.path.join(OUT, "multi_device.json"), "w") as f:
+        json.dump({"card": card, "kind": kind, "multi_device": md_out}, f, indent=1,
+                  default=str)
+
     log("phase 4: the kernels on the training path (dp execute, pinned)")
     pinned = pinned_runs(sat, flash, ce, card)
     pinned[f"b{BATCH}x{LONG_SEQ}"] = long_context_runs(sat, flash, ce, card)
@@ -5563,7 +6107,7 @@ def main(argv) -> int:
     log("phase 6: a sweep past milp_task_limit, 13 GPT-2-small tasks b8x512, defaults")
     sweep_launches, sweep = sweep_phase(sat, flash, ce, card)
     launches = {n: launches[n] + sweep_launches[n] for n in KERNEL_NAMES}
-    log(f"  main-path launches, phases 3 and 6: {launches}")
+    log(f"  main-path launches, phases 3, 14 and 6: {launches}")
 
     log(f"phase 7: kill-replay of a two-task GPT-2-small sweep b8x512 at "
         f"{min(KILL_LAYERS, LAYERS)} of its {LAYERS} layers (resume_dir)")
@@ -5578,17 +6122,17 @@ def main(argv) -> int:
 
     fused_launches, fused_out = fused_phase(sat, flash, ce, card)
     launches = {n: launches[n] + fused_launches[n] for n in KERNEL_NAMES}
-    log(f"  main-path launches, phases 3, 6 and 10c: {launches}")
+    log(f"  main-path launches, phases 3, 14, 6 and 10c: {launches}")
     shutil.rmtree(CKPTS, ignore_errors=True)
 
     faults_launches, faults_out = faults_phase(sat, flash, ce, card)
     launches = {n: launches[n] + faults_launches[n] for n in KERNEL_NAMES}
-    log(f"  main-path launches, phases 3, 6, 10c and 11: {launches}")
+    log(f"  main-path launches, phases 3, 14, 6, 10c and 11: {launches}")
     shutil.rmtree(CKPTS, ignore_errors=True)
 
     service_launches, service_out = service_phase(sat, flash, ce, card)
     launches = {n: launches[n] + service_launches[n] for n in KERNEL_NAMES}
-    log(f"  main-path launches, phases 3, 6, 10c, 11 and 12a: {launches}")
+    log(f"  main-path launches, phases 3, 14, 6, 10c, 11 and 12a: {launches}")
     with open(os.path.join(OUT, "service.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "service": service_out}, f, indent=1,
                   default=str)
@@ -5596,7 +6140,7 @@ def main(argv) -> int:
 
     gateway_launches, gateway_out = gateway_phase(sat, flash, ce, card)
     launches = {n: launches[n] + gateway_launches[n] for n in KERNEL_NAMES}
-    log(f"  main-path launches, phases 3, 6, 10c, 11, 12a and 12d: {launches}")
+    log(f"  main-path launches, phases 3, 14, 6, 10c, 11, 12a and 12d: {launches}")
     with open(os.path.join(OUT, "gateway.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "gateway": gateway_out}, f, indent=1,
                   default=str)
@@ -5604,7 +6148,7 @@ def main(argv) -> int:
 
     ca_launches, ca_out = compile_ahead_phase(sat, flash, ce, card)
     launches = {n: launches[n] + ca_launches[n] for n in KERNEL_NAMES}
-    log(f"  main-path launches, phases 3, 6, 10c, 11, 12a, 12d and 12e: {launches}")
+    log(f"  main-path launches, phases 3, 14, 6, 10c, 11, 12a, 12d and 12e: {launches}")
     with open(os.path.join(OUT, "compile_ahead.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "compile_ahead": ca_out}, f, indent=1,
                   default=str)
@@ -5639,6 +6183,7 @@ def main(argv) -> int:
                    "gateway": {k: gateway_out[k] for k in ("seconds", "interval_s")},
                    "compile_ahead": {k: ca_out[k] for k in ("seconds", "interval_s")},
                    "twin": {"seconds": twin_out["seconds"]},
+                   "multi_device": {"seconds": md_out["seconds"]},
                    "short_profiles": SHORT_PROFILES,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"profiles short of their launch count, each taken again: {len(SHORT_PROFILES)} "

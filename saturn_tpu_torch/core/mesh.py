@@ -4,6 +4,13 @@ Counterpart of ``saturn_tpu/core/mesh.py``. The pool is a flat list of
 devices; allocation is buddy-style: block sizes are powers of two and a
 block of size ``s`` starts at a multiple of ``s``, so two blocks either nest
 or are disjoint — the property the MILP's non-overlap constraints need.
+
+A position of the pool is a replica's place, not necessarily a card of its
+own: a list may name one device more than once (``[cuda:0, cuda:0]``, or
+``[cpu] * n`` in the CPU tests), and a block over such positions holds one
+model replica per position on the devices they name (``parallel/
+spmd_base.py``). :func:`physical_groups` says which positions share a
+device, and ``SliceTopology.distinct`` how many devices the pool holds.
 """
 
 from __future__ import annotations
@@ -17,6 +24,30 @@ log = logging.getLogger("saturn_tpu_torch")
 
 def _is_pow2(n: int) -> bool:
     return n >= 1 and (n & (n - 1)) == 0
+
+
+def _physical_key(device: Any) -> Any:
+    """What identifies the device a position names: ``str(torch.device)``
+    for a torch device or a device string (``cuda`` is ``cuda:0``), the
+    object itself for anything else (the tests' fake devices)."""
+    import torch
+
+    if isinstance(device, (torch.device, str)):
+        d = torch.device(device)
+        if d.type == "cuda" and d.index is None:
+            d = torch.device("cuda", 0)
+        return str(d)
+    return device
+
+
+def physical_groups(devices: Sequence[Any]) -> List[List[int]]:
+    """The positions of ``devices`` grouped by the device they name, each
+    group in position order and the groups in order of first appearance:
+    ``[cuda:0, cuda:1, cuda:0]`` gives ``[[0, 2], [1]]``."""
+    groups: dict = {}
+    for i, d in enumerate(devices):
+        groups.setdefault(_physical_key(d), []).append(i)
+    return list(groups.values())
 
 
 @dataclass(frozen=True)
@@ -48,9 +79,12 @@ class Block:
 class SliceTopology:
     """The device pool the scheduler allocates from.
 
-    ``devices=None`` takes every ``torch.cuda`` device and raises when there
-    is none: the port runs on the card unless the caller asks for the CPU
-    with an explicit list, e.g. ``SliceTopology([torch.device("cpu")])``.
+    ``devices=None`` takes every ``torch.cuda`` device once and raises when
+    there is none: the port runs on the card unless the caller asks for the
+    CPU with an explicit list, e.g. ``SliceTopology([torch.device("cpu")])``.
+    An explicit list may repeat a device (a rehearsal of a multi-device
+    block on fewer cards): ``distinct`` counts the devices, ``shared``
+    says whether any two positions name one device.
     """
 
     def __init__(self, devices: Optional[Sequence[Any]] = None):
@@ -79,6 +113,16 @@ class SliceTopology:
                 "uses the largest power-of-two capacity, %d)",
                 n - self.capacity, n, self.capacity,
             )
+
+    @property
+    def distinct(self) -> int:
+        """How many distinct devices the positions name."""
+        return len(physical_groups(self.devices))
+
+    @property
+    def shared(self) -> bool:
+        """Whether two positions name one device."""
+        return self.distinct < len(self.devices)
 
     def valid_sizes(self) -> List[int]:
         """All allocatable block sizes: powers of two up to capacity."""

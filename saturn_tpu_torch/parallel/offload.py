@@ -423,6 +423,8 @@ class HostOffload(SPMDTechnique):
     name = "offload"
     technique = Techniques.OFFLOAD
     host_state = True
+    # one device: its ``zero`` config over several devices is a later item
+    replicates = False
     # one eager step at a time with host copies inside: run sequentially in
     # a co-schedule group
     supports_coschedule = False

@@ -22,13 +22,27 @@ replayed with one host call; on the CPU the plain version, K eager steps.
 The tail runs through a window of one step. Trials time the window that
 ``execute`` dispatches. ``execute`` drains ``interval_dispatches``, a
 generator of the unit dispatches that the engine's co-schedule launcher
-interleaves with another task's (``shared`` mode). Multi-device meshes are
-a later item. The train step updates the model and the optimizer in place
-(PyTorch's idiom; it keeps one copy of the state).
+interleaves with another task's (``shared`` mode). The train step updates
+the model and the optimizer in place (PyTorch's idiom; it keeps one copy of
+the state).
+
+A block of n positions holds n model replicas, one per position, all driven
+by the thread that runs the block (``replicated_step_fns``): the JAX
+package's dp over a ``data`` axis of n devices, as one process rather than
+one per rank. Replica r takes rows ``[r·B/n, (r+1)·B/n)`` of the batch (the
+contiguous split of JAX's ``data`` sharding), the replicas' gradients are
+summed in place by the block's reducer (``parallel/collectives.py``: NCCL
+across distinct cards, one on-device sum where positions share a card), and
+each replica steps its own optimizer on the same sums, so the replicas stay
+bitwise equal. Positions may name one device more than once (``[cuda:0,
+cuda:0]``): such a block rehearses the multi-device step on one card, with
+K-step CUDA-graph windows as on one device. A block over distinct cards runs
+one step at a time (K = 1, ``_fused_ok``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -176,15 +190,26 @@ def host_fraction(t_host: float, t_device: float) -> float:
 
 
 # ----------------------------------------------------------------- windows
+def replicas(state: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """The replicas of a train state, replica 0 first: ``state["replicas"]``
+    for a block of several positions, else the state itself."""
+    return state.get("replicas") or [state]
+
+
 def _state_key(state: Dict[str, Any]) -> Tuple[int, ...]:
-    """The addresses a captured step reads and writes: parameters, buffers
-    and optimizer state. ``Optimizer.load_state_dict`` changes them."""
-    model, opt = state["params"], state["opt_state"]
-    ptrs = [id(model), id(opt)]
-    ptrs += [t.data_ptr() for t in model.parameters()]
-    ptrs += [t.data_ptr() for t in model.buffers()]
-    for per_param in opt.state.values():
-        ptrs += [v.data_ptr() for v in per_param.values() if isinstance(v, torch.Tensor)]
+    """The addresses a captured step reads and writes: every replica's
+    parameters, buffers, gradient buffer and optimizer state.
+    ``Optimizer.load_state_dict`` changes them."""
+    ptrs: List[int] = []
+    for rep in replicas(state):
+        model, opt = rep["params"], rep["opt_state"]
+        ptrs += [id(model), id(opt)]
+        ptrs += [t.data_ptr() for t in model.parameters()]
+        ptrs += [t.data_ptr() for t in model.buffers()]
+        if rep.get("grads") is not None:
+            ptrs.append(rep["grads"].data_ptr())
+        for per_param in opt.state.values():
+            ptrs += [v.data_ptr() for v in per_param.values() if isinstance(v, torch.Tensor)]
     return tuple(ptrs)
 
 
@@ -288,8 +313,11 @@ def _config_key(config: Dict[str, Any]) -> Tuple:
 
 @dataclass
 class _Bundle:
-    """Everything needed to run one (task, device, config) combination,
-    built once per ``_bundle_key`` and kept until ``release_task``."""
+    """Everything needed to run one (task, devices, config) combination,
+    built once per ``_bundle_key`` and kept until ``release_task``.
+    ``device`` is the block's first position's device, where batches are
+    staged, windows captured and losses read back; ``devices`` every
+    position's."""
 
     device: torch.device
     init: Callable[[], Dict[str, Any]]          # fresh state, seeded init
@@ -297,9 +325,14 @@ class _Bundle:
     step: Callable[[Dict[str, Any], torch.Tensor], Tuple[Dict[str, Any], torch.Tensor]]
     # shape of one step's loss: () solo, (M,) for a fused stack of M
     loss_shape: Tuple[int, ...] = ()
+    devices: Tuple[torch.device, ...] = ()
     _windows: Dict[int, Any] = field(default_factory=dict)
     _pool: Any = None
     _lock: Any = field(default_factory=threading.Lock)
+
+    def __post_init__(self) -> None:
+        if not self.devices:
+            self.devices = (self.device,)
 
     def stage(self, host_batch) -> torch.Tensor:
         """A host (B, T) int batch on the device as int64 token ids, ready
@@ -378,6 +411,11 @@ class SPMDTechnique(BaseTechnique):
     # head+loss (``ModelSpec.fused_loss_fn``).
     fused_loss_ok = True
 
+    # Whether the fused head may run on a block of several replicas (each
+    # replica's ``(loss_sum, valid_count)`` parts summed before the divide):
+    # a purely batch-splitting technique with replicated parameters (dp)
+    fused_loss_shardable = False
+
     # Whether the train state lives in host memory (offload): it then runs
     # one eager step at a time (``_fused_ok``), is written without a host
     # copy, and is not screened against device memory (``_static_screen``).
@@ -385,6 +423,16 @@ class SPMDTechnique(BaseTechnique):
 
     # (warm-up, timed) steps of a one-step trial (``_try_config`` at K = 1)
     trial_steps = (2, 3)
+
+    # Whether a block of several positions may run this technique as one
+    # replica per position (``replicated_step_fns``); offload keeps one device
+    replicates = True
+
+    # Per-device memory never grows with the block size: each replica takes
+    # a smaller share of the batch. The trial runner prunes the sizes below
+    # one that ran out of memory only where no two positions share a device
+    # (there a block's replicas add up on one card).
+    memory_monotone = True
 
     def __init__(self) -> None:
         # Every trial this instance ran: (task, size, config, seconds per
@@ -403,8 +451,10 @@ class SPMDTechnique(BaseTechnique):
         # the host fraction and the peak device memory
         self._trial_extra: Dict[Any, Dict[str, float]] = {}
         # the winning config's measurements of each (task, size) search,
-        # popped by the trial runner (``trial_report``)
+        # popped by the trial runner (``trial_report``), and why an
+        # infeasible one found none (``search_report``)
         self._reports: Dict[Any, Dict[str, float]] = {}
+        self._search_reports: Dict[Any, Dict[str, Any]] = {}
 
     # ----------------------------------------------------------------- hooks
     def candidate_configs(self, task: Any, n_devices: int) -> List[Dict[str, Any]]:
@@ -485,6 +535,135 @@ class SPMDTechnique(BaseTechnique):
 
         return init_state, train_step
 
+    def replicated_step_fns(
+        self, spec: Any, task: Any, devices: Sequence[torch.device],
+    ) -> Tuple[Any, Any]:
+        """(init_state, train_step) of a block of n positions, one model
+        replica per position (the JAX package's dp over a ``data`` axis of
+        n devices, ``spmd_base.py:463-512``).
+
+        The state is replica 0's ``{params, opt_state, step}`` (what a
+        checkpoint holds) plus ``replicas``: every replica's model,
+        optimizer and flat gradient buffer (each parameter's ``.grad`` is a
+        view of it; the step zeroes it, where the one-device step sets the
+        gradients to None). ``init_state()`` draws replica 0 from the
+        generator seeded 0 and copies it into the others, so they start
+        bitwise equal.
+
+        The step gives replica r rows ``[r·B/n, (r+1)·B/n)`` of the batch
+        (staged on the first position's device, copied to the others'),
+        sums the replicas' gradients with the block's reducer
+        (``collectives.BlockReducer``) and steps every replica's optimizer
+        on the same sums. The loss routes as the JAX package's does:
+
+        - through the model's fused head where the one-device rule takes
+          it and the model offers ``fused_loss_parts_fn`` (dp's
+          ``fused_loss_shardable``): each replica computes its
+          ``(loss_sum, valid_count)``, the reducer sums both, and each
+          replica back-propagates its own sum over the global count, so
+          uneven counts weigh as over the whole batch;
+        - else over the logits: the replicas' logits are concatenated on
+          the first position's device, the task's ``loss_fn`` runs once
+          over the whole batch (exact for any loss, as GSPMD evaluates it),
+          and autograd carries each replica's share back through the
+          concatenation, across devices. This holds the whole batch's
+          logits and their gradient on the first device at once, as the
+          one-device step at the full batch does.
+
+        The step reads nothing back to the host; over distinct devices the
+        first device's stream waits for the others' work at its end, so a
+        synchronize of the first device covers the whole step."""
+        from saturn_tpu_torch.parallel.collectives import BlockReducer
+
+        if spec.apply_with_aux_fn is not None:
+            raise NotImplementedError(
+                f"{self.name}: auxiliary-loss models are a later item of the PyTorch port"
+            )
+        devices = [torch.device(d) for d in devices]
+        n, dev0 = len(devices), devices[0]
+        reducer = BlockReducer(devices)
+        loss_fn = task.loss_fn
+        parts_fn = getattr(spec, "fused_loss_parts_fn", None)
+        tag = getattr(loss_fn, "supports_fused_head", None)
+        fused = (parts_fn is not None and self.fused_loss_ok and self.fused_loss_shardable
+                 and tag is not None and tag == getattr(spec, "fused_loss_objective", None))
+
+        def replica(model, device) -> Dict[str, Any]:
+            params = list(model.parameters())
+            dtypes = {p.dtype for p in params}
+            if len(dtypes) != 1:
+                raise NotImplementedError(
+                    f"{self.name}: a replicated block keeps one gradient buffer of one "
+                    f"dtype; the model's parameters have {sorted(map(str, dtypes))}")
+            flat = torch.zeros(sum(p.numel() for p in params), dtype=params[0].dtype,
+                               device=device)
+            off = 0
+            for p in params:
+                p.grad = flat[off:off + p.numel()].view_as(p)
+                off += p.numel()
+            return {"params": model,
+                    "opt_state": task.hparams.make_optimizer(model.parameters()),
+                    "grads": flat}
+
+        def init_state(materialize: bool = True) -> Dict[str, Any]:
+            if materialize:
+                first = spec.init_fn(torch.Generator().manual_seed(0), dev0)
+            else:
+                first = spec.abstract_init().to_empty(device=dev0)
+            reps = []
+            for r, dev in enumerate(devices):
+                model = first
+                if r:
+                    model = spec.abstract_init().to_empty(device=dev)
+                    if materialize:
+                        model.load_state_dict(first.state_dict())
+                reps.append(replica(model, dev))
+            return {"params": first, "opt_state": reps[0]["opt_state"], "step": 0,
+                    "replicas": reps}
+
+        def device_of(dev):
+            return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+        def train_step(state, batch):
+            reps = state["replicas"]
+            rows = batch.shape[0] // n
+            chunks = [batch[r * rows:(r + 1) * rows] for r in range(n)]
+            chunks = [c if c.device == dev else c.to(dev, non_blocking=True)
+                      for c, dev in zip(chunks, devices)]
+            if fused:
+                parts = []
+                for rep, chunk, dev in zip(reps, chunks, devices):
+                    with device_of(dev):
+                        parts.append(parts_fn(rep["params"], chunk))
+                sums = reducer.sum_parts(parts)
+                for (s_r, _), total, dev in zip(parts, sums, devices):
+                    with device_of(dev):
+                        (s_r / total[1].clamp_min(1.0)).backward()
+                loss = sums[0][0] / sums[0][1].clamp_min(1.0)
+            else:
+                logits = []
+                for rep, chunk, dev in zip(reps, chunks, devices):
+                    with device_of(dev):
+                        logits.append(spec.apply_fn(rep["params"], chunk).to(dev0))
+                loss = loss_fn(torch.cat(logits), batch)
+                loss.backward()
+                del logits
+            reducer.all_reduce_([rep["grads"] for rep in reps])
+            for rep, dev in zip(reps, devices):
+                with device_of(dev):
+                    rep["opt_state"].step()
+                    rep["grads"].zero_()
+            if reducer.distinct:
+                current = torch.cuda.current_stream(dev0)
+                for dev in {d for d in devices if d != dev0}:
+                    done = torch.cuda.Event()
+                    done.record(torch.cuda.current_stream(dev))
+                    current.wait_event(done)
+            state["step"] += 1
+            return state, loss.detach()
+
+        return init_state, train_step
+
     # -------------------------------------------------------------- building
     def _model_overrides(self, config: Dict[str, Any]) -> Dict[str, Any]:
         out = {}
@@ -518,28 +697,48 @@ class SPMDTechnique(BaseTechnique):
             tuple(str(d) for d in devices),
         )
 
+    def _block_refusal(self, task: Any, n: int) -> Optional[str]:
+        """Why a block of ``n`` positions cannot run ``task`` (None: it
+        can): a technique without replicas, or a batch that ``n`` does not
+        divide (the JAX package's ``_build_uncached`` raises there and its
+        search skips the config)."""
+        if n == 1:
+            return None
+        if not self.replicates:
+            return f"{self.name} runs on one device (got a block of {n})"
+        batch = task.get_dataset().batch_size
+        if batch % n:
+            return f"batch_size {batch} not divisible by data={n}"
+        return None
+
     def build(self, task: Any, devices: Sequence[Any], config: Dict[str, Any]) -> _Bundle:
-        """The bundle of (task, devices, config), built at its first use."""
-        if len(devices) != 1:
-            raise NotImplementedError(
-                f"{self.name}: multi-device blocks are a later item of the "
-                f"PyTorch port (got {len(devices)} devices)"
-            )
+        """The bundle of (task, devices, config), built at its first use.
+        A block of several positions holds one replica per position
+        (``replicated_step_fns``); ``ValueError`` where ``_block_refusal``
+        says it cannot."""
+        why = self._block_refusal(task, len(devices))
+        if why is not None:
+            raise ValueError(f"{self.name}: {why}")
         key = self._bundle_key(task, devices, config)
         with self._bundles_lock:
             hit = self._bundles.get(key)
         if hit is not None:
             return hit
-        device = torch.device(devices[0])
+        devs = tuple(torch.device(d) for d in devices)
+        device = devs[0]
         spec = task.get_model(**self._model_overrides(config))
-        init_state, train_step = self.make_step_fns(
-            spec, task, config, device, task.get_dataset()
-        )
+        if len(devs) == 1:
+            init_state, train_step = self.make_step_fns(
+                spec, task, config, device, task.get_dataset()
+            )
+        else:
+            init_state, train_step = self.replicated_step_fns(spec, task, devs)
         bundle = _Bundle(
             device=device,
             init=init_state,
             empty=lambda: init_state(materialize=False),
             step=train_step,
+            devices=devs,
         )
         with self._bundles_lock:
             return self._bundles.setdefault(key, bundle)
@@ -556,30 +755,38 @@ class SPMDTechnique(BaseTechnique):
                 torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- windows
-    def _fused_ok(self, task: Any) -> bool:
-        """Whether the task may run K-step windows. A host-resident state
-        may not (the JAX package's ``_fused_ok`` for pinned-host configs): its
-        step copies between host and device and updates on the host, which
-        a CUDA graph cannot hold. Nor may a user's optimizer callable:
-        whether its step can be captured cannot be checked. Such a task runs
-        one step at a time (logged once)."""
+    def _fused_ok(self, task: Any, devices: Sequence[Any] = ()) -> bool:
+        """Whether the task may run K-step windows on ``devices``. A
+        host-resident state may not (the JAX package's ``_fused_ok`` for
+        pinned-host configs): its step copies between host and device and
+        updates on the host, which a CUDA graph cannot hold. Nor may a
+        user's optimizer callable: whether its step can be captured cannot
+        be checked. Nor may a block over distinct cards: a CUDA graph is
+        captured on one device's stream, and the step's NCCL sum and the
+        other cards' work are not in it. Such a task runs one step at a
+        time (logged once per reason)."""
+        from saturn_tpu_torch.core.mesh import physical_groups
+
         why = ("its state lives in host memory" if self.host_state
                else "it has a user optimizer callable" if callable(task.hparams.optimizer)
+               else f"its block spans {len(physical_groups(devices))} distinct devices"
+               if len(physical_groups(devices)) > 1
                else None)
         if why is None:
             return True
-        if task.name not in self._eager_noted:
-            self._eager_noted.add(task.name)
+        if (task.name, why) not in self._eager_noted:
+            self._eager_noted.add((task.name, why))
             log.info("%s: task %s runs one step at a time (K = 1): %s", self.name,
                      task.name, why)
         return False
 
-    def _window(self, task: Any, window_size: Optional[int] = None) -> int:
-        """The K of the task's windows, in trials and in ``execute``:
-        ``window_size`` if given, else ``max_window()``; 1 where
-        ``_fused_ok`` says no."""
+    def _window(self, task: Any, window_size: Optional[int] = None,
+                devices: Sequence[Any] = ()) -> int:
+        """The K of the task's windows on ``devices``, in trials and in
+        ``execute``: ``window_size`` if given, else ``max_window()``; 1
+        where ``_fused_ok`` says no."""
         k = max_window() if window_size is None else max(1, int(window_size))
-        return k if k == 1 or self._fused_ok(task) else 1
+        return k if k == 1 or self._fused_ok(task, devices) else 1
 
     # ---------------------------------------------------------------- health
     def _screen(self, task: Any, losses: np.ndarray, units: List[Unit],
@@ -637,26 +844,49 @@ class SPMDTechnique(BaseTechnique):
         memory. Running out of memory makes a config infeasible; any other
         failure (a kernel that does not build or launch, a capture that
         fails) propagates, so a broken kernel is never hidden behind
-        another config."""
-        if len(devices) != 1:
-            return None, None  # multi-device blocks: a later item
+        another config. A block that ``_block_refusal`` refuses (a batch
+        its positions do not divide) yields no config and runs nothing;
+        ``search_report`` then says memory was not the reason."""
+        n = len(devices)
+        why = self._block_refusal(task, n)
+        if why is not None:
+            log.info("%s on task %s, block of %d: infeasible (%s)", self.name, task.name, n,
+                     why)
+            self.trials.append((task.name, n, {}, None, "block"))
+            self._search_reports[(task.name, n)] = {"memory_infeasible": False}
+            return None, None
         best: Tuple[Optional[Dict[str, Any]], Optional[float]] = (None, None)
-        for config in self.candidate_configs(task, len(devices)):
+        n_configs = n_memory = 0
+        for config in self.candidate_configs(task, n):
+            n_configs += 1
             if not self._static_screen(task, devices, config):
-                self.trials.append((task.name, len(devices), dict(config), None, "static"))
+                self.trials.append((task.name, n, dict(config), None, "static"))
+                n_memory += 1
                 continue
             t = self._try_config(task, devices, config)
             if t is None:
-                self.trials.append((task.name, len(devices), dict(config), None, "memory"))
+                self.trials.append((task.name, n, dict(config), None, "memory"))
+                n_memory += 1
                 continue
             self.trials.append((task.name, len(devices), dict(config), t, "ok"))
             log.info("%s trial %s on task %s: %.6fs/batch", self.name, config,
                      task.name, t)
             if best[1] is None or t < best[1]:
                 best = (dict(config), t)
-                self._reports[(task.name, len(devices))] = dict(
+                self._reports[(task.name, n)] = dict(
                     self._trial_extra.get((task.name, _config_key(config)), {}))
+        if best[1] is None:
+            self._search_reports[(task.name, n)] = {
+                "memory_infeasible": n_configs > 0 and n_memory == n_configs}
         return best
+
+    def search_report(self, task_name: str, size: int) -> Optional[Dict[str, Any]]:
+        """Pop why the latest infeasible ``search`` of (task, size) found no
+        config: ``{"memory_infeasible": bool}``, True when every config
+        failed the static screen or ran out of memory (the JAX package's
+        report; the trial runner caches and prunes on it). None after a
+        feasible search."""
+        return self._search_reports.pop((task_name, int(size)), None)
 
     def trial_report(self, task_name: str, size: int) -> Dict[str, float]:
         """Pop what the latest ``search`` of (task, size) measured of its
@@ -681,19 +911,23 @@ class SPMDTechnique(BaseTechnique):
                        config: Dict[str, Any]) -> bool:
         """Whether a config may fit before anything is drawn: the port's
         counterpart of the JAX package's compile-time ``_fits_memory`` for
-        the plain case. A device-resident config whose ``state_bytes``
+        the plain case. A device-resident config whose ``state_bytes``,
+        times the replicas that share the most loaded device of the block,
         exceed ``MEMORY_HEADROOM`` of device memory is infeasible without an
         init (logged). Activations are left to the trial's measured peak;
         a host-resident state is not screened."""
+        from saturn_tpu_torch.core.mesh import physical_groups
+
         limit = timing.device_memory_bytes(devices[0])
         if self.host_state or limit <= 0:
             return True
-        need = self.state_bytes(task, config)
+        shared = max(len(g) for g in physical_groups(devices)) if self.replicates else 1
+        need = self.state_bytes(task, config) * shared
         if need <= MEMORY_HEADROOM * limit:
             return True
         log.info("%s: config %s keeps %.2f GiB of train state (params, grads, optimizer "
-                 "moments) on the device, over %.2f GiB (%.0f%% of %.2f GiB): infeasible "
-                 "before any init", self.name, config, need / 2**30,
+                 "moments, %d replica(s)) on the device, over %.2f GiB (%.0f%% of %.2f GiB): "
+                 "infeasible before any init", self.name, config, need / 2**30, shared,
                  MEMORY_HEADROOM * limit / 2**30, 100 * MEMORY_HEADROOM, limit / 2**30)
         return False
 
@@ -721,10 +955,11 @@ class SPMDTechnique(BaseTechnique):
         keeps it and the peak memory for ``trial_report``."""
         bundle = self.build(task, devices, config)
         dev = bundle.device
-        k = self._window(task)
+        k = self._window(task, devices=devices)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-        timing.reset_peak_memory(dev)
+        for d in set(bundle.devices):
+            timing.reset_peak_memory(d)
         state = self._trial_state(task, bundle)
         try:
             if k > 1:
@@ -745,7 +980,7 @@ class SPMDTechnique(BaseTechnique):
 
                 t = timing.time_train_step(bundle.step, state, batch, n_timed=timed,
                                            n_warmup=warm)
-            peak = timing.peak_memory_bytes(dev)
+            peak = max(timing.peak_memory_bytes(d) for d in set(bundle.devices))
             t_host = min(self._staging_s(stage, dev) for _ in range(3)) / k
         except torch.cuda.OutOfMemoryError as e:
             log.info("%s: config %s ran out of device memory", self.name, config)
@@ -871,7 +1106,7 @@ class SPMDTechnique(BaseTechnique):
                 state = bundle.init()
 
         n = int(task.total_batches if override_batch_count is None else override_batch_count)
-        k = self._window(task, window_size)
+        k = self._window(task, window_size, devices)
         units = unit_plan(n, k, warm=k > 1 and not bundle.warmed(state))
         sizes = sorted({size for kind, _, size in units if kind == "window"}, reverse=True)
         start = task.current_batch
@@ -916,6 +1151,7 @@ class SPMDTechnique(BaseTechnique):
         n_windows = sum(kind == "window" and size == k for kind, _, size in units)
         warm = bool(units) and units[0][0] == "warm"
         record = {"task": task.name, "config": config, "n": n, "k": k,
+                  "replicas": len(devices),
                   "windows": n_windows, "tail": n - int(warm) - n_windows * k,
                   "warm": warm, "capture_s": capture_s,
                   "restored": restored, "per_batch_s": None, "shared": shared,

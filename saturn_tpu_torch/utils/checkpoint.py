@@ -27,6 +27,9 @@ tensor; ``load`` and ``restore`` move a file they cannot read to a
 ``.corrupt`` sidecar (``quarantine``) and raise
 :class:`CheckpointCorruptError`. The JAX package's sharded manifest format
 is a later item; the single-file format has no ``mid-shard-write`` edge.
+A multi-device block's state is replicated: its checkpoint is replica 0's,
+and ``restore`` fills every replica of the block it restores into, of any
+size.
 """
 
 from __future__ import annotations
@@ -305,11 +308,35 @@ def restore(path: str, state: Dict[str, Any]) -> Dict[str, Any]:
     on the card, where a CUDA graph's optimizer step reads and advances
     them; any other on the host. The optimizer's state tensors are then new
     tensors, so a CUDA graph captured on ``state`` before this call is stale
-    (``parallel/spmd_base.py`` captures again)."""
-    opt = state["opt_state"]
-    in_place = _in_place(opt)
+    (``parallel/spmd_base.py`` captures again).
+
+    A state of several replicas (``state["replicas"]``, a multi-device
+    block's; its checkpoint holds replica 0) gets the same payload in every
+    replica, so they leave bitwise equal whatever block size wrote it."""
+    in_place = _in_place(state["opt_state"])
     saved = load(path, mmap=in_place)
-    state["params"].load_state_dict(saved["params"])
+    for r, rep in enumerate(state.get("replicas") or [state]):
+        if r and not next(rep["params"].parameters()).is_cuda:
+            # ``load_state_dict`` keeps a host tensor it need not move: a
+            # second host replica takes copies, not replica 0's moments
+            saved = dict(saved, opt_state=_clone_tensors(saved["opt_state"]))
+        _restore_replica(rep["params"], rep["opt_state"], saved, in_place)
+    state["step"] = int(saved["step"])
+    return state
+
+
+def _clone_tensors(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.clone()
+    if isinstance(obj, dict):
+        return {k: _clone_tensors(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_clone_tensors(v) for v in obj)
+    return obj
+
+
+def _restore_replica(model, opt, saved: Dict[str, Any], in_place: bool) -> None:
+    model.load_state_dict(saved["params"])
     if in_place:
         params = [p for g in opt.param_groups for p in g["params"]]
         with torch.no_grad():
@@ -325,5 +352,3 @@ def restore(path: str, state: Dict[str, Any]) -> Dict[str, Any]:
         keep = [{k: v for k, v in g.items() if k != "params"} for g in opt.param_groups]
         sd = dict(sd, param_groups=[dict(g, **own) for g, own in zip(sd["param_groups"], keep)])
         opt.load_state_dict(sd)
-    state["step"] = int(saved["step"])
-    return state

@@ -19,7 +19,8 @@ The key is the port's own (``fingerprint``):
   through the fused head and an untagged one over the logits, two programs
   with different times; the JAX key leaves the loss out;
 - the technique and the block size;
-- the topology, with the device kind (the card's name, or ``cpu``);
+- the topology, with the device kind (the card's name, or ``cpu``) and,
+  where positions share a device, the count of distinct devices;
 - the ``torch`` and CUDA versions and the window ceiling ``max_window()``;
 - a hash of the kernel sources under ``csrc/``: a kernel redesign changes
   the time per batch.
@@ -132,9 +133,16 @@ def _device_kind(device: Any) -> str:
 
 
 def topology_signature(topo: Any) -> str:
-    """The pool: its device kinds and count, and the buddy capacity."""
+    """The pool: its device kinds and count, and the buddy capacity; and,
+    where positions share a device (a rehearsal such as ``[cuda:0,
+    cuda:0]``), how many distinct devices they name, so that a rehearsal's
+    timings are never served to a pool of as many real cards."""
+    from saturn_tpu_torch.core.mesh import physical_groups
+
     kinds = sorted({_device_kind(d) for d in topo.devices})
-    return f"{'+'.join(kinds)}x{len(topo.devices)}:cap{topo.capacity}"
+    sig = f"{'+'.join(kinds)}x{len(topo.devices)}:cap{topo.capacity}"
+    distinct = len(physical_groups(topo.devices))
+    return sig if distinct == len(topo.devices) else f"{sig}:distinct{distinct}"
 
 
 def kernel_sources_digest() -> str:

@@ -999,9 +999,12 @@ def test_technique_searches_sees_each_instance_once(smoke):
 
     orig = SPMDTechnique.search
     dp, off = DataParallel(), HostOffload()
+    # a batch of 3 on a block of 2: every technique's search finds no config
+    # and draws nothing
+    task = SimpleNamespace(name="t", get_dataset=lambda: SimpleNamespace(batch_size=3))
     with smoke.TechniqueSearches() as seen:
         for tech in (dp, off, dp):
-            assert tech.search(SimpleNamespace(name="t"), ["a", "b"], 0) == (None, None)
+            assert tech.search(task, ["a", "b"], 0) == (None, None)
     assert seen.seen == [dp, off] and seen.named("offload") is off
     assert SPMDTechnique.search is orig
 
@@ -1661,3 +1664,55 @@ def test_phase_13_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     assert all(v["twin_s"] is not None for v in replay["per_job"].values())
     assert replay["fidelity"]["reference"]["trace_dir"] == journal
     assert replay["out_of_band"] == smoke.band_terms(replay["fidelity"])
+
+
+def test_phase_14_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 14 (multi-device blocks) at ``test-tiny`` / ``bert-test-tiny``
+    b8 x 64 on the CPU, the block's positions all naming the CPU: every
+    check of 14a-14c holds with the kernel wrappers counting their plain
+    versions' calls (the device-to-host count, a torch.profiler reading of
+    the card, reads 0 here), and 14d says it did not run. 14c's trials and
+    intervals run windows of 2."""
+    import torch
+
+    import saturn_tpu_torch as sat
+    from saturn_tpu_torch.ops import ce, flash
+
+    monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
+    for name in ("SATURN_TPU_FAULTS", "SATURN_TPU_GROW_HYSTERESIS", "SATURN_TPU_WATCHDOG"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in (("DEVICE", "cpu"), ("GPT2", "test-tiny"), ("BERT", "bert-test-tiny"),
+                        ("BATCH", 8), ("SEQ", 64), ("VOCAB", 256), ("LAYERS", 2),
+                        ("MD_LAYERS", 2), ("OUT", str(tmp_path / "out")),
+                        ("CKPTS", str(tmp_path / "ckpts"))):
+        monkeypatch.setattr(smoke, name, value)
+    os.makedirs(smoke.OUT)
+    monkeypatch.setattr(smoke.lm_task, "__defaults__",
+                        ("test-tiny",) + smoke.lm_task.__defaults__[1:3] + (64,)
+                        + smoke.lm_task.__defaults__[4:])
+    monkeypatch.setattr(smoke, "dtoh_copies", lambda fn, n=2: 0.0)
+    # 14c's trials time windows of 2 here, not of 8 (14a takes its own, 14b runs K = 1)
+    monkeypatch.setenv("SATURN_TPU_MAX_WINDOW", "2")
+    for fn in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(flash, "flash_supported", lambda cfg=None: True)
+    for module, fns in ((flash, ("flash_fwd", "flash_dq", "flash_dkv")),
+                        (ce, ("ce_fwd", "ce_dx", "ce_dw"))):
+        for fn in fns:
+            monkeypatch.setattr(module, fn, _counting(module, fn, fn))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches, out = smoke.multi_device_phase(sat, flash, ce, "cpu rehearsal")
+    finally:
+        torch.set_num_threads(n)
+    a = out["14a"]
+    assert a["loss0_rel"] <= smoke.MD_LOSS0_REL and a["param_rel"] <= smoke.MD_PARAM_REL
+    assert a["many"]["replicas_equal"] == [True, True]
+    assert a["many"]["eager"]["ce_fwd"] == 2 and a["many"]["eager"]["flash_fwd"] == 4
+    assert len(set(a["bert"]["pad_label_counts"])) == 2
+    assert out["14b"]["trialled"] == [1, 4, 8] and out["14b"]["signature"].endswith(":distinct1")
+    assert out["14c"]["runs"][-1][0] == 1 and out["14c"]["replan_latency_s"] >= 0.0
+    assert out["14d"]["ran"] is False
+    assert launches["ce_fwd"] == out["14b"]["launches"]["ce_fwd"] + out["14c"]["launches"]["ce_fwd"]
+    assert launches["flash_fwd"] in (0, smoke.MD_LAYERS * launches["ce_fwd"])
