@@ -185,8 +185,9 @@ Phases, in order; any failure is an exception and a non-zero exit:
    second process retrieves it by name (the ``.udp`` files left alone) and
    trains GPT-2-small (at TECHNIQUE_LAYERS of its 12 layers, cut in depth
    only) with it through ``search`` and ``orchestrate``. e)
-   GPT-2-small from an HF ``GPT2LMHeadModel``-named fp32 state dict (seeded
-   numpy, 50257 rows, 1024 positions): the first dp step's loss (bf16,
+   GPT-2-small at PRETRAINED_LAYERS of its 12 layers (cut in depth only)
+   from an HF ``GPT2LMHeadModel``-named fp32 state dict (seeded numpy,
+   50257 rows, 1024 positions): the first dp step's loss (bf16,
    flash, fused head) within PRETRAINED_LOSS_REL of the same ingested
    model's f32 loss on the CPU and at least PRETRAINED_CONTROL times that
    far from a random init's, then ``search`` and ``orchestrate``. f) GPT-J-6B at
@@ -198,20 +199,22 @@ Phases, in order; any failure is an exception and a non-zero exit:
    and at least WRONG_ROTARY_MIN times further from one that rotates split
    halves of HF's lanes (what ingest without the lane permutation gives).
 10. Fused stacking and co-scheduled interleaving (``parallel/fused.py``,
-   the engine's group launchers), GPT-2-small, ``dp``, flash and the fused
-   head. a) ``search`` on four b8 x 512 tasks that differ only in lr
-   (FUSED_LRS; profile cache seeded from phase 3's): one fusion group
+   the engine's group launchers), GPT-2-small at FUSED_LAYERS of its 12
+   layers (cut in depth only), ``dp``, flash and the fused head. a)
+   ``search`` on four b8 x 512 tasks that differ only in lr (FUSED_LRS;
+   profile cache seeded from phases 6 and 7's entries of that depth): one fusion group
    measured, every member's ``fused_per_batch_time`` and every solo
    trial's ``host_fraction`` set; the lockstep time against four times the
    solo per-batch time, and whether the solver's pricing fuses the group
-   (at b8 x 512 the stack ties four solo steps, so it need not). b) the
+   (at b8 x 512 it need not). b) the
    stacked program against four solo runs from
    the same init and batches (an eager step, then one window of 8, a CUDA
    graph): losses and final params within FUSED_LOSS_REL / FUSED_PARAM_REL
-   (the log says whether bitwise), the stacked window's launches exactly 12
-   per lockstep step of each flash kernel and 4 of each CE kernel, its peak
+   (the log says whether bitwise), the stacked window's launches exactly
+   one per layer and lockstep step of each flash kernel and 4 of each CE
+   kernel, its peak
    memory. c) the same sweep at b2 x 512 (FUSED_SMALL_BATCH rows a member,
-   where the stack takes about 0.78 of four solo steps): its search, whose
+   where stacking pays): its search, whose
    pricing must fuse the group, then ``orchestrate`` of the four with a
    journal and a metrics file, in two intervals: the first plan fuses them
    and passes the
@@ -226,7 +229,8 @@ Phases, in order; any failure is an exception and a non-zero exit:
    nothing, members 0 and 1 commit, member 2 is unfused (a synchronous
    write at its step), resumes solo from it and ends at its budget with no
    lost or repeated step (``check_writes``); launches exact. e) a
-   GPT-2-small and a BERT-base task in a hand-built co-schedule plan
+   GPT-2-small and a BERT-base task (at FUSED_LAYERS) in a hand-built
+   co-schedule plan
    (verified) through ``engine.execute``: both losses and checkpoints
    bitwise equal to their solo runs; the interleaved wall time against the
    serial one, the measured host fractions, and whether ``solve`` would
@@ -379,6 +383,38 @@ Phases, in order; any failure is an exception and a non-zero exit:
    ``replan_latency_s``. d) 14a's GPT-2 run on cards 0 and 1 through NCCL,
    where the machine has two cards; else one line says it did not run (not
    a pass). 14b's and 14c's launches join the kernels line.
+15. The sharded train state (``parallel/fsdp.py``, ``sharding.py``,
+   ``ops/collective_matmul.py``, the manifest of ``utils/checkpoint.py``),
+   rehearsed on one card (run after phase 14): a) GPT-2-small b8 x 512 (12
+   layers, flash, remat off) under fsdp on card 0 twice against dp on the
+   same block with its fused head off (the logits, fsdp's route at n > 1):
+   an eager step then a window of 8, losses and parameters bitwise; the
+   ZeRO-3 program (``overlap``) prefetched against serial, bitwise, its
+   losses within MD_LOSS_REL of dp's; 12 launches of each flash kernel per
+   replica and step and no CE launch in every run, no device-to-host copy
+   in a step of fsdp and of the prefetched program. Printed: each run's
+   milliseconds per batch and peak memory above what the card held before
+   it (a rehearsal, not a claim). b) dp's state of a) (1.49 GB) written as
+   a manifest and, for the write times, as the single ``torch.save`` file
+   the port wrote before it, in turns (single, manifest, manifest,
+   single); the manifest verifies and restores bitwise under fsdp at 2
+   positions and dp at 1, each then takes an eager step and a window: fsdp
+   bitwise dp's own state going on, dp at 1 (the fused head) within
+   BF16_BAND (another loss route); a copy with a truncated shard file
+   fails ``verify`` and its restore quarantines and raises. Printed: each
+   write's host-copy and disk
+   seconds and bytes. c) at FSDP_LAYERS (depth only): ``search`` with dp and
+   fsdp registered over card 0 twice (trials one step at a time) and
+   ``orchestrate`` of its plan to its budget, verified, launches exact; then
+   14c's drill on an fsdp task (its search a hit of that cache): position 1 lost with no return in interval
+   1, size 1 synthesized, the 2-position sharded state restored onto one
+   position from the manifest, that interval's first loss bitwise an eager
+   step from a copy of the checkpoint it read, launches exact; printed,
+   ``replan_latency_s`` and the seconds of work discarded. d) NCCL's
+   gather and reduce-scatter across cards 0 and 1 against their plain
+   versions and a)'s check there, where the machine has two cards; else one
+   line says it did not run (not a pass). 15c's launches join the kernels
+   line.
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
@@ -447,6 +483,11 @@ builds the kernels and runs phase 12 (13b's journal) and phase 13
 
 builds the kernels and runs phase 14, or the sub-phases named
 (``chiprun_out/multi_device.json``).
+
+    python3 chip_smoke.py --fsdp [--15a] [--15b] [--15c] [--15d]
+
+builds the kernels and runs phase 15, or the sub-phases named (15b runs
+15a first; ``chiprun_out/fsdp.json``).
 
     python3 chip_smoke.py --fused-profile
 
@@ -710,18 +751,27 @@ class NoDeviceActivity(AssertionError):
 
 def profiled(fn, n: int, attempts: int = 5):
     """Run ``fn`` ``n`` times under torch.profiler, synchronized at the end;
-    returns the device events. torch.profiler now and then records none of a
-    window's device work, sometimes several windows running: such a window
-    is taken again, up to ``attempts`` windows in all, and then this raises."""
-    from torch.profiler import ProfilerActivity, profile
+    returns the device events. One more call runs first under the profiler
+    as its warm-up step, synchronized and not recorded: on one card the
+    tracer lost the same launch of every window that began with the
+    recorded calls (a flash forward of 48, three windows running).
+    torch.profiler now and then records none of a window's device work,
+    sometimes several windows running: such a window is taken again, up to
+    ``attempts`` windows in all, and then this raises."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for attempt in range(attempts):
         if attempt:
             time.sleep(1.0)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
+            prof.step()
         events = device_events(prof)
         if events:
             return prof, events
@@ -1413,11 +1463,11 @@ PINNED = (("flash", "flash", None), ("dense", "dense", None),
           ("flash-logits", "flash", untagged_loss))
 
 
-def want_launches(attention, loss_fn, steps=1):
-    """Launches of each kernel in ``steps`` training steps: one of each flash
-    kernel per layer with flash attention, one of each CE kernel on the
-    fused head."""
-    want = {n: (LAYERS * steps if attention == "flash" else 0) for n in FLASH_NAMES}
+def want_launches(attention, loss_fn, steps=1, layers=0):
+    """Launches of each kernel in ``steps`` training steps at ``layers`` (0:
+    LAYERS): one of each flash kernel per layer with flash attention, one
+    of each CE kernel on the fused head."""
+    want = {n: ((layers or LAYERS) * steps if attention == "flash" else 0) for n in FLASH_NAMES}
     want.update({n: (0 if loss_fn else steps) for n in CE_NAMES})
     return want
 
@@ -1914,7 +1964,7 @@ class CheckedWrites:
 
     def bytes_written(self) -> int:
         self.ckpt.flush()
-        return sum(os.path.getsize(p) for p, _ in self.writes)
+        return sum(dir_bytes(p) for p, _ in self.writes)
 
 
 def check_writes(name: str, steps: list, runs: list, total: int) -> None:
@@ -2668,7 +2718,7 @@ def gptj_train(sat, flash, ce, card, inits):
     steps = split_summary([r for r in list(off.splits)[n_before:] if r["task"] == task.name])
     for line in steps["lines"]:
         log(f"    {line}  [{card}]")
-    ckpt_bytes = os.path.getsize(task.ckpt_path)
+    ckpt_bytes = dir_bytes(task.ckpt_path)
     log(f"  orchestrate: {t_orch:.1f}s, losses {np.round(task.last_losses, 4).tolist()}; peak "
         f"{peak['allocated'] / 2**30:.2f} GiB allocated, {peak['reserved'] / 2**30:.2f} GiB "
         f"reserved on the card; checkpoint {ckpt_bytes / 1e9:.2f} GB written in "
@@ -2834,6 +2884,7 @@ SWEEP_TRACE_LAYERS = 4
 SWEEP_LRS = ("6e-4", "1e-3")
 PRETRAINED_STEPS = 3          # 9e's orchestrate and 9f's runs: steps of each
 TECHNIQUE_LAYERS = 4          # 9d: GPT-2-small's depth in the user's run, cut from 12 (depth only)
+PRETRAINED_LAYERS = 4         # 9e: GPT-2-small's depth, cut from 12 (depth only)
 #: 9e: the card's first loss against the ingested model's f32 loss on the
 #: CPU, relative (read at 2.42e-05 on an H100); the loss of a random init of
 #: the same spec must lie PRETRAINED_CONTROL times as far off, so that the
@@ -3328,23 +3379,25 @@ def pretrained_gpt2_phase(sat, flash, ce, card) -> dict:
     path = os.path.join(CKPTS, "hf_gpt2_small.pt")
     os.makedirs(CKPTS, exist_ok=True)
     t0 = time.perf_counter()
-    sd = hf_gpt2_state_dict(config_for(GPT2), seed=17)
+    sd = hf_gpt2_state_dict(config_for(GPT2, n_layers=PRETRAINED_LAYERS), seed=17)
     torch.save(sd, path)
     del sd
     write_s = time.perf_counter() - t0
     task = lm_task(sat, "gpt2s-pretrained", 6e-4, PRETRAINED_STEPS,
-                   os.path.join(CKPTS, "gpt2_pretrained"), pretrained=path)
+                   os.path.join(CKPTS, "gpt2_pretrained"), pretrained=path,
+                   n_layers=PRETRAINED_LAYERS)
     dev = torch.device(DEVICE, 0)
     reset_counts(flash, ce)
     first = bundle_steps(DataParallel(), task, {"attention": "flash", "remat": False}, dev, 1)[0]
     got = counts(flash, ce)
-    if got != want_launches("flash", None):
+    if got != want_launches("flash", None, layers=PRETRAINED_LAYERS):
         raise AssertionError(f"9e: the first step's launches {got}")
     t0 = time.perf_counter()
     tokens = torch.from_numpy(task.batch_at(0)).long()
     cpu_loss = {}
     for label, pretrained in (("ingested", path), ("random", None)):
-        spec = build_gpt2(GPT2, pretrained=pretrained, dtype=torch.float32, attention="dense")
+        spec = build_gpt2(GPT2, pretrained=pretrained, dtype=torch.float32, attention="dense",
+                          n_layers=PRETRAINED_LAYERS)
         model = spec.init_fn(torch.Generator().manual_seed(0))
         with torch.no_grad():
             cpu_loss[label] = task.loss_fn(spec.apply_fn(model, tokens), tokens).item()
@@ -3501,6 +3554,9 @@ UNFUSE_BATCHES = 12                   # 10d: each member's budget
 UNFUSE_POLL = 2                       # 10d: member 2 detaches at its third poll (after the window)
 UNFUSE_MARKED = 4                     # 10d: member 3's dataset index whose loss is NaN
 COSCHEDULE_BATCHES = 10               # 10e: each member's budget
+FUSED_LAYERS = 4                      # 10a-10c and 10e: GPT-2-small's and BERT-base's depth,
+                                      # cut from 12 (depth only; their searches hit phase 6's
+                                      # and phase 7's entries of that depth)
 
 
 def flash_per_step(config, name: str = "flash_dq", layers: int = 0) -> int:
@@ -3516,9 +3572,11 @@ def flash_per_step(config, name: str = "flash_dq", layers: int = 0) -> int:
 
 def fused_tasks(sat, save_dir, loss_fn=None, wrap=None, batches=FUSED_BATCHES, prefix="fused",
                 batch=None, **kwargs):
-    """GPT-2-small tasks (b``batch`` x 512, BATCH rows by default) differing
-    only in lr (FUSED_LRS); ``wrap`` maps a member index to its dataset
-    wrapper; ``kwargs`` go to the model."""
+    """GPT-2-small tasks (b``batch`` x 512, BATCH rows by default, at
+    FUSED_LAYERS unless ``n_layers`` says) differing only in lr
+    (FUSED_LRS); ``wrap`` maps a member index to its dataset wrapper;
+    ``kwargs`` go to the model."""
+    kwargs.setdefault("n_layers", FUSED_LAYERS)
     return [lm_task(sat, f"{prefix}-lr{i}", lr, batches, save_dir, model=GPT2, loss_fn=loss_fn,
                     wrap=(wrap(i) if wrap else None), seq=SEQ, batch=batch, **kwargs)
             for i, lr in enumerate(FUSED_LRS)]
@@ -3635,7 +3693,7 @@ def fused_against_solo(sat, flash, ce, card, tasks, k=WINDOW):
     peak = {"allocated": torch.cuda.max_memory_allocated(dev),
             "reserved": torch.cuda.max_memory_reserved(dev)}
     m = len(tasks)
-    want = {**{n: flash_per_step(config, n) * k for n in FLASH_NAMES},
+    want = {**{n: flash_per_step(config, n, FUSED_LAYERS) * k for n in FLASH_NAMES},
             **{n: m * k for n in CE_NAMES}}
     if launched != want:
         raise AssertionError(f"10b: the stacked window launched {launched}, want {want}")
@@ -3721,7 +3779,7 @@ def fused_orchestrate(sat, flash, ce, card, tasks, topo):
     if covered != set(names):
         raise AssertionError(f"10c: fused_interval events cover {sorted(covered)}")
     lockstep = sum(e["batches"] for e in evs)
-    want = {**{n: flash_per_step(tasks[0].strategies[1].params, n) * lockstep
+    want = {**{n: flash_per_step(tasks[0].strategies[1].params, n, FUSED_LAYERS) * lockstep
                for n in FLASH_NAMES},
             **{n: len(names) * lockstep for n in CE_NAMES}}
     if lockstep != FUSED_BATCHES or launches != want:
@@ -3872,9 +3930,9 @@ def coschedule_phase(sat, flash, ce, card, topo):
 
     def pair(suffix):
         ts = [lm_task(sat, f"co-gpt2{suffix}", 6e-4, COSCHEDULE_BATCHES, save_dir, model=GPT2,
-                      seq=SEQ),
+                      seq=SEQ, n_layers=FUSED_LAYERS),
               lm_task(sat, f"co-bert{suffix}", 1e-3, COSCHEDULE_BATCHES, save_dir, model=BERT,
-                      seq=SEQ)]
+                      seq=SEQ, n_layers=FUSED_LAYERS)]
         sat.search(ts, technique_names=["dp"], topology=topo, profile_cache=cache)
         return ts
 
@@ -3969,7 +4027,7 @@ def fused_profile(sat, card, k=WINDOW, batches=(BATCH, FUSED_SMALL_BATCH)) -> di
 
     for b in batches:
         tasks = fused_tasks(sat, os.path.join(CKPTS, "fused_profile"), batch=b,
-                            prefix=f"profile-b{b}")
+                            prefix=f"profile-b{b}", n_layers=LAYERS)
         for t in tasks:
             t.strategies[1] = sat.Strategy(tech, 1, config, 1.0, 1.0)
             t.select_strategy(1)
@@ -5913,6 +5971,577 @@ def multi_device_phase(sat, flash, ce, card, parts=("14a", "14b", "14c", "14d"))
     return launches, out
 
 
+# ----------------------------------------------------------------- phase 15
+FSDP_CONFIG = {"attention": "flash", "remat": False, "offload": False}
+FSDP_OVERLAP = dict(FSDP_CONFIG, overlap=True)
+FSDP_LAYERS = 4            # 15c's depth
+FSDP_SEARCH_BATCHES = 24
+FSDP_ELASTIC_BATCHES = 96  # 15c's drill: three intervals of 32 batches
+FSDP_ELASTIC_SEED = 27     # seeded_schedule(27, 3, 2), preemptions only: position 1 in interval 1
+
+
+def fsdp_want_launches(runs, layers: int) -> dict:
+    """Exact launches of fsdp and dp interval records ``runs`` at ``layers``:
+    every replica of every step launches its flash kernels; the CE kernels
+    run where the step takes the fused head (dp; fsdp on one position
+    outside the ZeRO-3 program) and not over the logits (fsdp at n > 1)."""
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    for r in runs:
+        steps = r["n"] * r["replicas"]
+        for name in FLASH_NAMES:
+            want[name] += flash_per_step(r["config"], name, layers) * steps
+        fused = r.get("technique") == "dp" or (r["replicas"] == 1
+                                               and not r["config"].get("overlap"))
+        for name in CE_NAMES:
+            want[name] += steps if fused else 0
+    return want
+
+
+def flat_full(state) -> dict:
+    from saturn_tpu_torch.parallel.spmd_base import full_params
+
+    return {k: v.clone() for k, v in full_params(state).items()}
+
+
+def fsdp_run(sat, flash, ce, tech, devices, config, label: str, keep: bool = False,
+             dtoh: bool = True) -> dict:
+    """GPT-2-small b8 x 512 (flash, ``pretraining_loss``, remat off) under
+    ``tech`` on ``devices`` from the seed-0 init: an eager step, then a
+    window of WINDOW steps (a CUDA graph where the positions share a card,
+    else WINDOW eager steps). The losses, the parameters after, each unit's
+    launches, the ms per batch of the window, the peak memory and the
+    device-to-host copies of two more eager steps; with ``keep`` the task,
+    bundle and state."""
+    from saturn_tpu_torch.core.mesh import physical_groups
+    from saturn_tpu_torch.parallel.spmd_base import stage_tokens
+    from saturn_tpu_torch.utils import timing
+
+    task = lm_task(sat, f"fsdp-{label}", 6e-4, 2 + 2 * WINDOW, os.path.join(CKPTS, "fsdp"))
+    bundle = tech.build(task, devices, config)
+    dev = bundle.device
+    # what the card holds before this run (an earlier run's kept state):
+    # the run's peak is counted above it
+    held = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    state = bundle.init()
+    for d in set(bundle.devices):
+        timing.synchronize(d)
+        timing.reset_peak_memory(d)
+    reset_counts(flash, ce)
+    state, loss = bundle.step(state, bundle.stage(task.batch_at(0)))
+    eager = counts(flash, ce)
+    stack = stage_tokens(np.stack([task.batch_at(1 + i) for i in range(WINDOW)]), dev)
+    graphed = len(physical_groups(devices)) == 1
+    if graphed:
+        bundle.capture([WINDOW], state, stack.shape[-2:])
+    reset_counts(flash, ce)
+    timing.synchronize(dev)
+    t0 = time.perf_counter()
+    if graphed:
+        state, losses = bundle.fused(WINDOW)(state, stack)
+    else:
+        out = []
+        for i in range(WINDOW):
+            state, one = bundle.step(state, stack[i])
+            out.append(one)
+        losses = torch.stack(out)
+    timing.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / WINDOW
+    window = counts(flash, ce)
+    peak = max(timing.peak_memory_bytes(d) for d in set(bundle.devices)) - held
+    result = {"losses": [float(loss)] + [float(x) for x in losses.reshape(-1).tolist()],
+              "params": flat_full(state), "eager": eager, "window": window,
+              "ms_per_batch": ms, "peak_bytes": peak, "graphed": graphed}
+    if keep:
+        result.update(task=task, bundle=bundle, state=state, tech=tech)
+        return result
+    if dtoh:
+        batch = bundle.stage(task.batch_at(0))
+        result["dtoh_per_step"] = dtoh_copies(lambda: bundle.step(state, batch))
+        del batch
+    del state, stack
+    tech.release_task(task.name)
+    return result
+
+
+def same_params(a: dict, b: dict) -> list:
+    """The names whose tensors differ in a bit."""
+    return [k for k in a if not torch.equal(a[k], b[k].to(a[k].device))]
+
+
+def fsdp_step_check(sat, flash, ce, card, devices, label: str) -> dict:
+    """15a / 15d: fsdp against dp on the same block and loss route (the
+    logits: fsdp's rule at n > 1, dp with its fused head off), and the
+    ZeRO-3 program prefetched against serial. Keeps dp's run for 15b."""
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.parallel.fsdp import FSDP
+
+    n = len(devices)
+    dp = DataParallel()
+    dp.fused_loss_shardable = False  # the logits route, as fsdp's at n > 1
+    ref = fsdp_run(sat, flash, ce, dp, devices, {"attention": "flash", "remat": False},
+                   f"{label}-dp", keep=True)
+    runs = {"fsdp": fsdp_run(sat, flash, ce, FSDP(), devices, FSDP_CONFIG, f"{label}-fsdp")}
+    for prefetch in (True, False):
+        tech = FSDP()
+        tech.prefetch = prefetch
+        # the device-to-host count of the prefetched program (the serial one
+        # differs in where its gathers run, not in what it reads back)
+        runs[f"zero3-{'prefetch' if prefetch else 'serial'}"] = fsdp_run(
+            sat, flash, ce, tech, devices, FSDP_OVERLAP, f"{label}-z{int(prefetch)}",
+            dtoh=prefetch)
+    want = {name: (LAYERS * n if name in FLASH_NAMES else 0) for name in KERNEL_NAMES}
+    for name, run in [("dp", ref)] + list(runs.items()):
+        if run["eager"] != want or run["window"] != {k: WINDOW * v for k, v in want.items()}:
+            raise AssertionError(f"{label} {name}: launches {run['eager']} / {run['window']}, "
+                                 f"want {want} a step")
+        if run.get("dtoh_per_step"):
+            raise AssertionError(f"{label} {name}: {run['dtoh_per_step']} device-to-host "
+                                 f"copies a step")
+    got = runs["fsdp"]
+    if got["losses"] != ref["losses"] or same_params(ref["params"], got["params"]):
+        raise AssertionError(f"{label}: fsdp losses {got['losses']} against dp's "
+                             f"{ref['losses']}, differing parameters "
+                             f"{same_params(ref['params'], got['params'])[:4]}")
+    pre, ser = runs["zero3-prefetch"], runs["zero3-serial"]
+    if pre["losses"] != ser["losses"] or same_params(pre["params"], ser["params"]):
+        raise AssertionError(f"{label}: prefetched losses {pre['losses']} against serial "
+                             f"{ser['losses']}, differing parameters "
+                             f"{same_params(pre['params'], ser['params'])[:4]}")
+    zero3_rel = max(rel(a, b) for a, b in zip(pre["losses"], ref["losses"]))
+    if not zero3_rel <= MD_LOSS_REL:
+        raise AssertionError(f"{label}: the ZeRO-3 program's losses {pre['losses']} against "
+                             f"dp's {ref['losses']}: rel {zero3_rel:.3e} > {MD_LOSS_REL:g}")
+    times = {name: (run["ms_per_batch"], run["peak_bytes"] / 2**30)
+             for name, run in [("dp", ref)] + list(runs.items())}
+    log(f"  {label}: GPT-2-small b{BATCH}x{SEQ} on {[str(d) for d in devices]}, flash, over "
+        f"the logits: fsdp bitwise dp (an eager step and "
+        f"{'a window' if ref['graphed'] else 'eager steps'} of {WINDOW}: {len(ref['losses'])} "
+        f"losses, every parameter); the ZeRO-3 program prefetched bitwise serial, its losses "
+        f"rel {zero3_rel:.2e} of dp's (each replica's mean over its rows); launches {want} a "
+        f"step in every run, 0 device-to-host copies a step (fsdp, ZeRO-3 prefetched); "
+        f"ms/batch and peak GiB above the card's holdings before each run "
+        + ", ".join(f"{k} {ms:.2f} / {gib:.2f}" for k, (ms, gib) in times.items())
+        + f"  [{card}]")
+    for run in runs.values():
+        run.pop("params")
+    torch.cuda.empty_cache()
+    out = {"runs": {k: {kk: v for kk, v in run.items() if kk != "params"}
+                    for k, run in runs.items()},
+           "dp": {k: ref[k] for k in ("losses", "ms_per_batch", "peak_bytes", "eager", "window",
+                                      "graphed")},
+           "zero3_loss_rel": zero3_rel, "ms_peak": times}
+    return out, ref
+
+
+def dir_bytes(path: str) -> int:
+    """Bytes of a checkpoint on disk: its manifest and its shard files."""
+    import glob
+
+    return sum(os.path.getsize(p) for p in [path] + glob.glob(glob.escape(path) + ".g*.npz"))
+
+
+def timed_writes(path: str, legacy: str, state) -> dict:
+    """The manifest's write (``save_async``: its host copy, then the disk
+    write on its thread) and the single ``torch.save`` file of the port
+    before it (its pinned host copy, then ``torch.save``), of one state, in
+    turns: single, manifest, manifest, single (the first host copy of a run
+    also pays the pinned allocations the others reuse)."""
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+    from saturn_tpu_torch.utils import timing
+
+    dev = torch.device(DEVICE, 0)
+    out = {"manifest": [], "single": []}
+    for kind in ("single", "manifest", "manifest", "single"):
+        timing.synchronize(dev)
+        t0 = time.perf_counter()
+        if kind == "manifest":
+            ckpt.save_async(path, state)
+            copy_s = time.perf_counter() - t0
+            ckpt.flush()
+        else:
+            host = legacy_host_copy({"params": state["params"].state_dict(),
+                                     "opt_state": state["opt_state"].state_dict(),
+                                     "step": int(state["step"])})
+            copy_s = time.perf_counter() - t0
+            torch.save(host, legacy)
+            del host
+        out[kind].append((copy_s, time.perf_counter() - t0 - copy_s))
+    out["manifest_bytes"], out["single_bytes"] = dir_bytes(path), os.path.getsize(legacy)
+    os.unlink(legacy)
+    return out
+
+
+def fsdp_manifest_check(sat, flash, ce, card, ref) -> dict:
+    """15b: dp's state of 15a written as a manifest (and, for the write
+    times, as the single ``torch.save`` file the port wrote before it),
+    restored under fsdp at 2 positions and dp at 1, one more eager step and
+    window each, against dp's own state going on; a copy with a truncated
+    shard file."""
+    import glob
+
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.parallel.fsdp import FSDP
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    task, state, bundle = ref.pop("task"), ref.pop("state"), ref.pop("bundle")
+    path = task.ckpt_path
+    writes = timed_writes(path, os.path.join(CKPTS, "fsdp", "single.pt"), state)
+    if not ckpt.verify(path):
+        raise AssertionError("15b: the manifest does not verify")
+    want = flat_full(state)
+    step0 = int(state["step"])
+
+    def more(bundle, state) -> list:
+        """One eager step and a window of WINDOW from ``step0``."""
+        state, loss = bundle.step(state, bundle.stage(task.batch_at(step0)))
+        stack = bundle.stage(np.stack([task.batch_at(step0 + 1 + i) for i in range(WINDOW)]))
+        state, losses = bundle.fused(WINDOW)(state, stack)
+        return [float(loss)] + [float(x) for x in losses.tolist()], flat_full(state)
+
+    runs = {"dp-2 (its own state)": more(bundle, state)}
+    del state
+    ref["tech"].release_task(task.name)
+    torch.cuda.empty_cache()
+    for name, tech, n, config in (("fsdp-2", FSDP(), 2, FSDP_CONFIG),
+                                  ("dp-1", DataParallel(), 1,
+                                   {"attention": "flash", "remat": False})):
+        b = tech.build(task, md_devices(n), config)
+        got = ckpt.restore_sharded(path, b.empty())
+        if same_params(want, flat_full(got)) or got["step"] != step0:
+            raise AssertionError(f"15b {name}: the restored state differs from the saved one")
+        runs[name] = more(b, got)
+        del got
+        tech.release_task(task.name)
+    (dl, dp_params), (fl, fsdp_params) = runs["dp-2 (its own state)"], runs["fsdp-2"]
+    if fl != dl or same_params(dp_params, fsdp_params):
+        raise AssertionError(f"15b: fsdp restored {fl} against dp's own state {dl}")
+    one = runs["dp-1"][0]
+    one_rel = max(rel(a, b) for a, b in zip(one, dl))
+    if not (np.isfinite(one).all() and one_rel <= BF16_BAND):
+        raise AssertionError(f"15b: dp at 1 restored {one} against dp at 2 {dl}: rel "
+                             f"{one_rel:.3e}")
+    # a copy with one truncated shard file
+    bad_dir = os.path.join(CKPTS, "fsdp_bad")
+    os.makedirs(bad_dir, exist_ok=True)
+    bad = os.path.join(bad_dir, os.path.basename(path))
+    shutil.copy(path, bad)
+    shards = glob.glob(glob.escape(path) + ".g*.npz")
+    for s in shards:
+        shutil.copy(s, bad_dir)
+    victim = os.path.join(bad_dir, os.path.basename(shards[0]))
+    with open(victim, "r+b") as f:
+        f.truncate(os.path.getsize(victim) // 2)
+    if ckpt.verify(bad):
+        raise AssertionError("15b: a truncated shard file verifies")
+    try:
+        ckpt.restore_sharded(bad, FSDP().build(task, md_devices(2), FSDP_CONFIG).empty())
+    except ckpt.CheckpointCorruptError as e:
+        quarantined = e.quarantined
+    else:
+        raise AssertionError("15b: a truncated shard file restored")
+    if quarantined != bad + ".corrupt" or os.path.exists(bad):
+        raise AssertionError(f"15b: quarantined to {quarantined}")
+    shutil.rmtree(bad_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    def pairs(kind):
+        return ", ".join(f"{c:.3f} + {w:.3f}" for c, w in writes[kind])
+
+    log(f"  15b: dp's state (2 positions, step {step0}): the manifest "
+        f"{writes['manifest_bytes'] / 1e9:.3f} GB, host copy + disk write {pairs('manifest')} "
+        f"s; the single torch.save file of before {writes['single_bytes'] / 1e9:.3f} GB, "
+        f"{pairs('single')} s (in turns: single, manifest, manifest, single); verify True; "
+        f"restored bitwise under fsdp at 2 and dp at 1; one more step and window: fsdp bitwise "
+        f"dp's own state going on, dp at 1 (the fused head) rel {one_rel:.2e}; a truncated "
+        f"shard file fails verify, its restore quarantined and raised  [{card}]")
+    return {"writes": writes, "one_rel": one_rel,
+            "losses": {k: v[0] for k, v in runs.items()}}
+
+
+def legacy_host_copy(obj):
+    """A pinned host copy of a payload, every copy queued before one wait
+    (the single-file writer's snapshot before the manifest)."""
+    streams = {}
+
+    def copy(o):
+        if isinstance(o, torch.Tensor):
+            if not o.is_cuda:
+                return o.detach().clone()
+            host = torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+            host.copy_(o.detach(), non_blocking=True)
+            streams.setdefault(o.device, torch.cuda.current_stream(o.device))
+            return host
+        if isinstance(o, dict):
+            return {k: copy(v) for k, v in o.items()}
+        if isinstance(o, (list, tuple)):
+            return type(o)(copy(v) for v in o)
+        return o
+
+    out = copy(obj)
+    for stream in streams.values():
+        stream.synchronize()
+    return out
+
+
+def interval_runs(techs) -> list:
+    """Every published and discarded interval record of ``techs``, each
+    with its technique's name."""
+    return [dict(r, technique=t.name) for t in techs for r in t.intervals + t.discarded]
+
+
+def fsdp_search_phase(sat, flash, ce, card) -> tuple:
+    """15c-1: search of a GPT-2-small task at FSDP_LAYERS with dp and fsdp
+    registered, over [card 0] * 2 (trials one step at a time), then
+    orchestrate of its plan to the budget."""
+    from saturn_tpu_torch import analysis
+    from saturn_tpu_torch.core.mesh import SliceTopology
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+    from saturn_tpu_torch.utils import metrics
+
+    topo = SliceTopology(md_devices(2))
+    cache_dir = os.path.join(OUT, "fsdp_profile_cache")
+    events = os.path.join(OUT, "fsdp_search_events.jsonl")
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    if os.path.exists(events):
+        os.unlink(events)
+    task = lm_task(sat, "fsdp-search", 6e-4, FSDP_SEARCH_BATCHES,
+                   os.path.join(CKPTS, "fsdp_search"), n_layers=FSDP_LAYERS)
+    task.chip_range = [2]
+    t0 = time.perf_counter()
+    with EnvSet(**MD_SEARCH_ENV):
+        sat.search([task], technique_names=["dp", "fsdp"], topology=topo,
+                   profile_cache=cache_dir, metrics_path=events, fusion=False)
+    search_s = time.perf_counter() - t0
+    trials = [e for e in metrics.read_events(events) if e["kind"] == "trial"]
+    # each lane's fastest config at each size, and its seconds a batch
+    trialled = {name: [(e["size"], e["params"], e["per_batch_s"]) for e in trials
+                       if e["technique"] == name and e["feasible"]] for name in ("dp", "fsdp")}
+    if not trialled["dp"] or not trialled["fsdp"]:
+        raise AssertionError(f"15c: feasible trials {trialled}, want dp and fsdp")
+    techs = {id(s.executor): s.executor for s in task.strategies.values() if s.feasible}
+    techs = list(techs.values())
+    reset_counts(flash, ce)
+    marks = [(len(t.intervals), len(t.discarded)) for t in techs]
+    t0 = time.perf_counter()
+    with VerifiedSources(analysis) as verified, EnvSet(**MD_SEARCH_ENV):
+        out = sat.orchestrate([task], interval=task.strategies[2].runtime / 2, topology=topo,
+                              fusion=False)
+    run_s = time.perf_counter() - t0
+    launches = counts(flash, ce)
+    step = ckpt.saved_step(task.ckpt_path)
+    if out["completed"] != [task.name] or step != FSDP_SEARCH_BATCHES or not verified.sources:
+        raise AssertionError(f"15c: {out}, step {step}, verified {verified.sources}")
+    runs = [dict(r, technique=t.name) for t, (i, d) in zip(techs, marks)
+            for r in t.intervals[i:] + t.discarded[d:]]
+    check_launches("15c", launches, fsdp_want_launches(runs, FSDP_LAYERS))
+    ran = sorted({(r["technique"], r["replicas"]) for r in runs})
+    log(f"  15c search: GPT-2-small at {FSDP_LAYERS} layers over [card 0] * 2, dp and fsdp "
+        f"registered: each lane's fastest (size, config, s/batch) {trialled}, "
+        f"{search_s:.1f}s; the plan "
+        f"ran (technique, positions) {ran} to step {step}, verified, launches {launches} "
+        f"(exact), {run_s:.1f}s  [{card}]")
+    task.release_live_state()
+    task.release_compiled()
+    return launches, {"trialled": trialled, "ran": ran, "search_s": search_s, "run_s": run_s,
+                      "launches": launches}
+
+
+def fsdp_elastic_phase(sat, flash, ce, card) -> tuple:
+    """15c-2: an fsdp task on both positions of [card 0] * 2 loses position
+    1, with no return, during interval 1 (14c's seeded schedule); size 1 is
+    synthesized and its sharded state restored onto one position from the
+    manifest. The restoring interval's first loss is bitwise one eager step
+    from a copy of that checkpoint (the unfaulted run's)."""
+    import glob
+
+    from saturn_tpu_torch import analysis
+    from saturn_tpu_torch.core.mesh import SliceTopology
+    from saturn_tpu_torch.parallel.fsdp import FSDP
+    from saturn_tpu_torch.resilience import FaultInjector, seeded_schedule
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+    from saturn_tpu_torch.utils import metrics
+
+    topo = SliceTopology(md_devices(2))
+    save_dir = os.path.join(CKPTS, "fsdp_elastic")
+    copy_dir = os.path.join(CKPTS, "fsdp_elastic_first")
+    # 15c-1's cache: the drill's task has that task's signature, so its
+    # search is a cache hit
+    cache_dir = os.path.join(OUT, "fsdp_profile_cache")
+    events = os.path.join(OUT, "fsdp_elastic_events.jsonl")
+    if os.path.exists(events):
+        os.unlink(events)
+    schedule = seeded_schedule(FSDP_ELASTIC_SEED, 3, 2, **MD_PREEMPT_ONLY)
+    if [(e.at_interval, e.kind, e.devices) for e in schedule] != [(1, "slice_preemption", (1,))]:
+        raise AssertionError(f"15c: seeded schedule {schedule}")
+    task = lm_task(sat, "fsdp-elastic", 6e-4, FSDP_ELASTIC_BATCHES, save_dir,
+                   n_layers=FSDP_LAYERS)
+    task.chip_range = [2]  # profiled at 2 positions only: the replanner synthesizes size 1
+    with EnvSet(**MD_SEARCH_ENV):
+        sat.search([task], technique_names=["fsdp"], topology=topo, profile_cache=cache_dir,
+                   fusion=False)
+    strat = task.strategies[2]
+    tech = strat.executor
+    interval = strat.runtime / 3
+    os.makedirs(copy_dir, exist_ok=True)
+
+    def keep_first(stem, path):
+        # the first publication, which the restore after the loss reads
+        if stem == task.name and not os.listdir(copy_dir):
+            for f in [path] + glob.glob(glob.escape(path) + ".g*.npz"):
+                shutil.copy(f, copy_dir)
+
+    reset_counts(flash, ce)
+    marks = (len(tech.intervals), len(tech.discarded))
+    ckpt.add_publish_hook(keep_first)
+    t0 = time.perf_counter()
+    try:
+        with VerifiedSources(analysis) as verified:
+            out = sat.orchestrate([task], interval=interval, topology=topo, fusion=False,
+                                  fault_injector=FaultInjector(schedule=schedule),
+                                  failure_policy="retry", max_task_retries=1,
+                                  metrics_path=events)
+    finally:
+        ckpt.remove_publish_hook(keep_first)
+    run_s = time.perf_counter() - t0
+    launches = counts(flash, ce)
+    if out["completed"] != [task.name] or out["failed"]:
+        raise AssertionError(f"15c drill: {out}")
+    step = ckpt.saved_step(task.ckpt_path)
+    if step != FSDP_ELASTIC_BATCHES:
+        raise AssertionError(f"15c drill: checkpoint step {step}, want {FSDP_ELASTIC_BATCHES}")
+    ev = metrics.read_events(events)
+
+    def kinds(kind):
+        return [e for e in ev if e["kind"] == kind]
+
+    changes = [(c["change"], c["lost"], c["gained"]) for c in kinds("topology_change")]
+    migrations = [(m["moved_from"], m["moved_to"]) for m in kinds("migration")]
+    if changes != [("shrink", [1], [])] or migrations != [([2, 0], [1, 0])]:
+        raise AssertionError(f"15c drill: topology changes {changes}, migrations {migrations}")
+    if "migration-replan" not in verified.sources:
+        raise AssertionError(f"15c drill: verified plans {verified.sources}")
+    discarded = [r for r in tech.discarded[marks[1]:] if r["discarded"] == "preempted"]
+    runs = tech.intervals[marks[0]:]
+    after = [r for r in runs if r["replicas"] == 1]
+    if not discarded or not after or not after[0]["restored"]:
+        shape = [(r["replicas"], r["n"], r["restored"]) for r in runs]
+        raise AssertionError(f"15c drill: runs {shape}, discarded {discarded}")
+    check_launches("15c drill", launches,
+                   fsdp_want_launches([dict(r, technique="fsdp")
+                                       for r in runs + tech.discarded[marks[1]:]],
+                                      FSDP_LAYERS))
+    # the unfaulted run's first step from the checkpoint the restore read
+    first = os.path.join(copy_dir, os.path.basename(task.ckpt_path))
+    start = ckpt.saved_step(first)
+    ref_tech = FSDP()
+    bundle = ref_tech.build(task, md_devices(1), dict(after[0]["config"]))
+    state = ckpt.restore_sharded(first, bundle.empty())
+    _, loss = bundle.step(state, bundle.stage(task.batch_at(task.cursor_for_step(start))))
+    want = float(loss)
+    del state
+    ref_tech.release_task(task.name)
+    if after[0]["first_loss"] != want:
+        raise AssertionError(f"15c drill: the restoring interval's first loss "
+                             f"{after[0]['first_loss']} against {want} from step {start}")
+    lost_s = sum(r["state_s"] + r["run_s"] for r in discarded)
+    latency = kinds("recovery")[0]["replan_latency_s"]
+    shutil.rmtree(copy_dir, ignore_errors=True)
+    log(f"  15c drill: fsdp {strat.params} at 2 positions, seeded_schedule("
+        f"{FSDP_ELASTIC_SEED}) = {schedule[0]}; interval {interval:.3f}s; runs (positions, "
+        f"batches, restored) {[(r['replicas'], r['n'], r['restored']) for r in runs]}; "
+        f"discarded {[(r['replicas'], r['n']) for r in discarded]} ({lost_s:.3f}s of work); "
+        f"the 2-position sharded state restored onto one position from the manifest (step "
+        f"{start}), first loss {want:.6f} bitwise the unfaulted run's; replan_latency_s "
+        f"{latency:.6f}; step {step}; launches {launches} (exact); {run_s:.1f}s  [{card}]")
+    task.release_live_state()
+    task.release_compiled()
+    return launches, {"schedule": str(schedule[0]), "interval_s": interval, "start": start,
+                      "first_loss": want, "discarded_s": lost_s, "replan_latency_s": latency,
+                      "run_s": run_s, "launches": launches,
+                      "runs": [(r["replicas"], r["n"], r["restored"]) for r in runs]}
+
+
+def nccl_check(card) -> dict:
+    """15d: ``BlockReducer.all_gather`` and ``reduce_scatter`` across cards
+    0 and 1 through NCCL against their plain versions (exact: a gather is a
+    copy, a sum of two terms rounds once either way)."""
+    from saturn_tpu_torch.parallel.collectives import BlockReducer
+
+    devices = md_devices(2, distinct=True)
+    red = BlockReducer(devices)
+    g = torch.Generator().manual_seed(15)
+    full = torch.randn(768, 2304, generator=g)
+    parts = [torch.randn(768, 2304, generator=g) for _ in devices]
+    out = {}
+    for d in (0, 1):
+        exts = [tuple((0, s) if i != d else (r * s // 2, (r + 1) * s // 2)
+                      for i, s in enumerate(full.shape)) for r in range(2)]
+        sl = [tuple(slice(a, b) for a, b in e) for e in exts]
+        fulls = [torch.empty_like(full, device=dev) for dev in devices]
+        red.all_gather([full[s].contiguous().to(dev) for s, dev in zip(sl, devices)], fulls, exts)
+        gathered = all(torch.equal(f.cpu(), full) for f in fulls)
+        shards = [torch.empty(full[s].shape, device=dev) for s, dev in zip(sl, devices)]
+        red.reduce_scatter([p.to(dev) for p, dev in zip(parts, devices)], shards, exts)
+        want = parts[0] + parts[1]
+        scattered = all(torch.equal(sh.cpu(), want[s]) for sh, s in zip(shards, sl))
+        if not (gathered and scattered):
+            raise AssertionError(f"15d: dimension {d}: gather {gathered}, reduce-scatter "
+                                 f"{scattered}")
+        out[f"dim{d}"] = True
+    log(f"  15d: NCCL all_gather and reduce_scatter across cards 0 and 1 equal their plain "
+        f"versions (split along dimension 0 and 1)  [{card}]")
+    return out
+
+
+def fsdp_phase(sat, flash, ce, card, parts=("15a", "15b", "15c", "15d")) -> tuple:
+    """Phase 15: the sharded train state on one card (positions that name
+    card 0 twice): 15a fsdp against dp at full width, 15b the manifest,
+    15c search -> orchestrate with dp and fsdp and the loss drill; 15d NCCL
+    across two cards, where the machine has them."""
+    t_phase = time.perf_counter()
+    sat.library.register_default_library()
+    launches, out = dict.fromkeys(KERNEL_NAMES, 0), {}
+    log(f"phase 15: sharded train state ({', '.join(parts)})")
+    ref = None
+    if "15a" in parts or "15b" in parts:
+        t0 = time.perf_counter()
+        out["15a"], ref = fsdp_step_check(sat, flash, ce, card, md_devices(2), "15a")
+        out["15a"]["seconds"] = time.perf_counter() - t0
+    if "15b" in parts:
+        t0 = time.perf_counter()
+        out["15b"] = fsdp_manifest_check(sat, flash, ce, card, ref)
+        out["15b"]["seconds"] = time.perf_counter() - t0
+    elif ref is not None:
+        ref["tech"].release_task(ref["task"].name)
+    ref = None
+    torch.cuda.empty_cache()
+    if "15c" in parts:
+        t0 = time.perf_counter()
+        got, out["15c"] = fsdp_search_phase(sat, flash, ce, card)
+        launches = {n: launches[n] + got[n] for n in KERNEL_NAMES}
+        got, out["15c"]["drill"] = fsdp_elastic_phase(sat, flash, ce, card)
+        launches = {n: launches[n] + got[n] for n in KERNEL_NAMES}
+        out["15c"]["seconds"] = time.perf_counter() - t0
+    if "15d" in parts:
+        cards = torch.cuda.device_count() if DEVICE == "cuda" else 0
+        if cards >= 2:
+            out["15d"] = nccl_check(card)
+            out["15d"]["step"], ref = fsdp_step_check(sat, flash, ce, card,
+                                                      md_devices(2, distinct=True), "15d")
+            ref["tech"].release_task(ref["task"].name)
+            ref = None
+        else:
+            out["15d"] = {"ran": False, "why": f"{cards} CUDA device(s); NCCL across two "
+                                                f"cards needs two"}
+            log(f"  15d did not run: this machine has {cards} CUDA device(s), and NCCL's "
+                f"gather and reduce-scatter across distinct cards need two (not a pass)")
+    for d in ("fsdp", "fsdp_search", "fsdp_elastic"):
+        shutil.rmtree(os.path.join(CKPTS, d), ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 15 {out['seconds']:.1f}s  [{card}]")
+    return launches, out
+
+
 def option(argv, name: str, default=None):
     """The value after ``name`` in ``argv``, or ``default``."""
     return argv[argv.index(name) + 1] if name in argv else default
@@ -6041,6 +6670,14 @@ def main(argv) -> int:
                        "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
         shutil.rmtree(CKPTS, ignore_errors=True)
         return 0
+    if "--fsdp" in argv:
+        parts = tuple(p for p in ("15a", "15b", "15c", "15d") if f"--{p}" in argv)
+        _, fsdp_out = fsdp_phase(sat, flash, ce, card, parts or ("15a", "15b", "15c", "15d"))
+        with open(os.path.join(OUT, "fsdp.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "fsdp": fsdp_out,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
+        shutil.rmtree(CKPTS, ignore_errors=True)
+        return 0
     if "--offload" in argv:
         log("the flash kernels at head dim 256 (phase 8b's attention)")
         rows_d256 = check_head_dim_256(flash)
@@ -6083,80 +6720,108 @@ def main(argv) -> int:
     rows_d256 = check_head_dim_256(flash)
     torch.cuda.empty_cache()
 
+    phase_s = {"1-2": time.perf_counter() - t_start}
+
+    def mark(label: str) -> None:
+        """The seconds since the previous mark, under ``label``."""
+        phase_s[label] = time.perf_counter() - t_start - sum(phase_s.values())
+
     log("phase 3: search -> orchestrate, two GPT-2-small tasks and one BERT-base task b8x512")
     launches, main_results = main_path(sat, flash, ce, card)
+    mark("3")
 
     # phase 14 runs here, before the phases that write the most to the disk
     md_launches, md_out = multi_device_phase(sat, flash, ce, card)
+    mark("14")
     launches = {n: launches[n] + md_launches[n] for n in KERNEL_NAMES}
     log(f"  main-path launches, phases 3, 14b and 14c: {launches}")
     with open(os.path.join(OUT, "multi_device.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "multi_device": md_out}, f, indent=1,
                   default=str)
 
+    fsdp_launches, fsdp_out = fsdp_phase(sat, flash, ce, card)
+    mark("15")
+    launches = {n: launches[n] + fsdp_launches[n] for n in KERNEL_NAMES}
+    log(f"  main-path launches, phases 3, 14b, 14c and 15c: {launches}")
+    with open(os.path.join(OUT, "fsdp.json"), "w") as f:
+        json.dump({"card": card, "kind": kind, "fsdp": fsdp_out}, f, indent=1, default=str)
+
     log("phase 4: the kernels on the training path (dp execute, pinned)")
     pinned = pinned_runs(sat, flash, ce, card)
     pinned[f"b{BATCH}x{LONG_SEQ}"] = long_context_runs(sat, flash, ce, card)
+    mark("4")
 
     log("phase 5: where a step's time goes (pinned configs)")
     step_profile = profile_steps(sat, card)
     step_profile["flash-windows"] = profile_windows(sat, card)
     step_profile[f"flash-{LONG_SEQ}-windows"] = profile_windows(
         sat, card, label=f"flash-{LONG_SEQ}", seq=LONG_SEQ, compare_optimizers=False)
+    mark("5")
 
     log("phase 6: a sweep past milp_task_limit, 13 GPT-2-small tasks b8x512, defaults")
     sweep_launches, sweep = sweep_phase(sat, flash, ce, card)
+    mark("6")
     launches = {n: launches[n] + sweep_launches[n] for n in KERNEL_NAMES}
-    log(f"  main-path launches, phases 3, 14 and 6: {launches}")
+    log(f"  main-path launches, phases 3, 14, 15 and 6: {launches}")
 
     log(f"phase 7: kill-replay of a two-task GPT-2-small sweep b8x512 at "
         f"{min(KILL_LAYERS, LAYERS)} of its {LAYERS} layers (resume_dir)")
     kill_replay = kill_replay_phase(sat, flash, ce, card)
     shutil.rmtree(CKPTS, ignore_errors=True)
+    mark("7")
 
     offload = offload_phase(sat, flash, ce, card)
     shutil.rmtree(CKPTS, ignore_errors=True)
+    mark("8")
 
     data = data_api_phase(sat, flash, ce, card)
     shutil.rmtree(CKPTS, ignore_errors=True)
+    mark("9")
 
     fused_launches, fused_out = fused_phase(sat, flash, ce, card)
+    mark("10")
     launches = {n: launches[n] + fused_launches[n] for n in KERNEL_NAMES}
-    log(f"  main-path launches, phases 3, 14, 6 and 10c: {launches}")
+    log(f"  main-path launches, phases 3, 14, 15, 6 and 10c: {launches}")
     shutil.rmtree(CKPTS, ignore_errors=True)
 
     faults_launches, faults_out = faults_phase(sat, flash, ce, card)
+    mark("11")
     launches = {n: launches[n] + faults_launches[n] for n in KERNEL_NAMES}
-    log(f"  main-path launches, phases 3, 14, 6, 10c and 11: {launches}")
+    log(f"  main-path launches, phases 3, 14, 15, 6, 10c and 11: {launches}")
     shutil.rmtree(CKPTS, ignore_errors=True)
 
     service_launches, service_out = service_phase(sat, flash, ce, card)
+    mark("12")
     launches = {n: launches[n] + service_launches[n] for n in KERNEL_NAMES}
-    log(f"  main-path launches, phases 3, 14, 6, 10c, 11 and 12a: {launches}")
+    log(f"  main-path launches, phases 3, 14, 15, 6, 10c, 11 and 12a: {launches}")
     with open(os.path.join(OUT, "service.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "service": service_out}, f, indent=1,
                   default=str)
     shutil.rmtree(CKPTS, ignore_errors=True)
 
     gateway_launches, gateway_out = gateway_phase(sat, flash, ce, card)
+    mark("12d")
     launches = {n: launches[n] + gateway_launches[n] for n in KERNEL_NAMES}
-    log(f"  main-path launches, phases 3, 14, 6, 10c, 11, 12a and 12d: {launches}")
+    log(f"  main-path launches, phases 3, 14, 15, 6, 10c, 11, 12a and 12d: {launches}")
     with open(os.path.join(OUT, "gateway.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "gateway": gateway_out}, f, indent=1,
                   default=str)
     shutil.rmtree(CKPTS, ignore_errors=True)
 
     ca_launches, ca_out = compile_ahead_phase(sat, flash, ce, card)
+    mark("12e")
     launches = {n: launches[n] + ca_launches[n] for n in KERNEL_NAMES}
-    log(f"  main-path launches, phases 3, 14, 6, 10c, 11, 12a, 12d and 12e: {launches}")
+    log(f"  main-path launches, phases 3, 14, 15, 6, 10c, 11, 12a, 12d and 12e: {launches}")
     with open(os.path.join(OUT, "compile_ahead.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "compile_ahead": ca_out}, f, indent=1,
                   default=str)
     shutil.rmtree(CKPTS, ignore_errors=True)
 
     twin_out = twin_phase(card, service_out)
+    mark("13")
     with open(os.path.join(OUT, "twin.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "twin": twin_out}, f, indent=1, default=str)
+    log("seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items()))
 
     def entry(row, n_launches):
         return {"launches": n_launches, "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -6184,7 +6849,8 @@ def main(argv) -> int:
                    "compile_ahead": {k: ca_out[k] for k in ("seconds", "interval_s")},
                    "twin": {"seconds": twin_out["seconds"]},
                    "multi_device": {"seconds": md_out["seconds"]},
-                   "short_profiles": SHORT_PROFILES,
+                   "fsdp": {"seconds": fsdp_out["seconds"]},
+                   "short_profiles": SHORT_PROFILES, "phase_s": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"profiles short of their launch count, each taken again: {len(SHORT_PROFILES)} "
         f"{SHORT_PROFILES}")

@@ -240,8 +240,9 @@ class Task:
         return ckpt.exists(self.ckpt_path)
 
     def clear_ckpt(self) -> None:
+        """Remove the checkpoint: its manifest and shard files."""
         if self.has_ckpt():
-            os.unlink(self.ckpt_path)
+            ckpt.delete(self.ckpt_path)
 
     # -------------------------------------------------------------- schedule
     def reconfigure(self, batch_count: int) -> None:

@@ -20,15 +20,28 @@ collective a step, not one per parameter):
 
 Nothing falls back: NCCL missing or failing on distinct devices raises, and
 so does a block that mixes device types.
+
+A sharded state (fsdp, ``parallel/spmd_base.sharded_step_fns``) gathers and
+reduce-scatters instead: ``all_gather`` fills every position's full tensor
+with every position's block, ``reduce_scatter`` leaves each position the
+block of the sum that it owns. Positions that share a device gather by
+on-device copies and reduce by one sum in position order, then slice (the
+same sums as ``all_reduce_``, held in pieces); distinct devices (one
+position each) use ``torch.cuda.nccl.all_gather`` / ``reduce_scatter``, and
+``broadcast`` / ``reduce`` where one position owns a whole tensor (a stacked
+leaf split over its layer axis). A block that mixes shared and distinct
+devices does not shard.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from saturn_tpu_torch.core.mesh import physical_groups
+
+Extent = Tuple[Tuple[int, int], ...]
 
 
 class BlockReducer:
@@ -56,12 +69,7 @@ class BlockReducer:
         """Replace each replica's tensor (``tensors[r]`` on its position's
         device, all of one shape) by the sum over the replicas, in place.
         Reads nothing back to the host."""
-        if len(tensors) != self.n:
-            raise ValueError(f"{len(tensors)} tensors for a block of {self.n} replicas")
-        for group in self.groups:
-            lead = tensors[group[0]]
-            for r in group[1:]:
-                lead.add_(tensors[r])
+        self.sum_to_leads_(tensors)
         if self.distinct:
             from torch.cuda import nccl
 
@@ -74,6 +82,119 @@ class BlockReducer:
             lead = tensors[group[0]]
             for r in group[1:]:
                 tensors[r].copy_(lead)
+
+    def sum_to_leads_(self, tensors: Sequence[torch.Tensor]) -> None:
+        """Sum each device group's tensors into its first position's, in
+        position order (the on-device half of ``all_reduce_``)."""
+        if len(tensors) != self.n:
+            raise ValueError(f"{len(tensors)} tensors for a block of {self.n} replicas")
+        for group in self.groups:
+            lead = tensors[group[0]]
+            for r in group[1:]:
+                lead.add_(tensors[r])
+
+    def _sharding_mode(self) -> str:
+        if not self.distinct:
+            return "shared"
+        if any(len(g) > 1 for g in self.groups):
+            raise ValueError("a block that mixes shared and distinct devices does not shard: "
+                             f"{[str(d) for d in self.devices]}")
+        return "distinct"
+
+    @staticmethod
+    def _split(extents: Sequence[Optional[Extent]], shape) -> Tuple[str, int]:
+        """How the positions' extents cut a tensor: ``("even", d)`` (equal
+        blocks along dimension d, in position order) or ``("owner", r)``
+        (position r holds it whole, the others nothing)."""
+        held = [r for r, e in enumerate(extents) if e is not None]
+        if len(held) == 1 and all(b - a == s for (a, b), s in zip(extents[held[0]], shape)):
+            return "owner", held[0]
+        if len(held) == len(extents):
+            dims = {d for e in extents for d, ((a, b), s) in enumerate(zip(e, shape))
+                    if b - a != s}
+            if len(dims) == 1:
+                return "even", dims.pop()
+        raise ValueError(f"extents {list(extents)} of {tuple(shape)} are neither an even split "
+                         f"nor one owner")
+
+    @staticmethod
+    def _slices(ext: Extent):
+        return tuple(slice(a, b) for a, b in ext)
+
+    def all_gather(self, shards: Sequence[Optional[torch.Tensor]],
+                   fulls: Sequence[torch.Tensor], extents: Sequence[Optional[Extent]]) -> None:
+        """Fill every position's full tensor ``fulls[r]`` with every
+        position's block: ``shards[s]`` is position s's block, its extent
+        ``extents[s]`` (None: it holds none). Reads nothing back to the
+        host."""
+        mode = self._sharding_mode()
+        if mode == "shared":
+            lead = fulls[0]
+            for s, e in enumerate(extents):
+                if e is not None:
+                    lead[self._slices(e)].copy_(shards[s])
+            for r in range(1, self.n):
+                fulls[r].copy_(lead)
+            return
+        from torch.cuda import nccl
+
+        how, d = self._split(extents, fulls[0].shape)
+        if how == "owner":
+            fulls[d].copy_(shards[d])
+            self._nccl_check(nccl, fulls)
+            nccl.broadcast(list(fulls), root=d)
+            return
+        n, shape = self.n, fulls[0].shape
+        block = list(shape)
+        block[d] //= n
+        bufs = [torch.empty((n, *block), dtype=f.dtype, device=f.device) for f in fulls]
+        ins = [s.contiguous() for s in shards]
+        self._nccl_check(nccl, ins)
+        nccl.all_gather(ins, [b.view(-1) for b in bufs])
+        for f, b in zip(fulls, bufs):
+            f.copy_(b.movedim(0, d).reshape(shape))
+
+    def reduce_scatter(self, fulls: Sequence[torch.Tensor],
+                       shards: Sequence[Optional[torch.Tensor]],
+                       extents: Sequence[Optional[Extent]]) -> None:
+        """Leave each position the block ``extents[r]`` of the sum of every
+        position's ``fulls[r]`` in ``shards[r]``. On a shared device the
+        sum is taken in position order into ``fulls[0]`` (which it
+        overwrites), as ``all_reduce_`` takes it."""
+        mode = self._sharding_mode()
+        if mode == "shared":
+            self.sum_to_leads_(fulls)
+            self.scatter_from_lead(fulls[0], shards, extents)
+            return
+        from torch.cuda import nccl
+
+        how, d = self._split(extents, fulls[0].shape)
+        self._nccl_check(nccl, fulls)
+        if how == "owner":
+            nccl.reduce(list(fulls), root=d)
+            shards[d].copy_(fulls[d])
+            return
+        n = self.n
+        ins = [f.unflatten(d, (n, f.shape[d] // n)).movedim(d, 0).contiguous().view(-1)
+               for f in fulls]
+        outs = [torch.empty(s.shape, dtype=s.dtype, device=s.device) for s in shards]
+        nccl.reduce_scatter(ins, [o.view(-1) for o in outs])
+        for s, o in zip(shards, outs):
+            s.copy_(o)
+
+    def scatter_from_lead(self, summed: torch.Tensor, shards: Sequence[Optional[torch.Tensor]],
+                          extents: Sequence[Optional[Extent]]) -> None:
+        """On a shared device: each position's block of an already summed
+        tensor into its shard."""
+        for s, e in enumerate(extents):
+            if e is not None:
+                shards[s].copy_(summed[self._slices(e)])
+
+    @staticmethod
+    def _nccl_check(nccl, tensors) -> None:
+        if not nccl.is_available(list(tensors)):
+            raise RuntimeError("NCCL cannot run over these tensors across devices "
+                               f"{[str(t.device) for t in tensors]}")
 
     def sum_parts(self, parts: Sequence[Sequence[torch.Tensor]]) -> List[torch.Tensor]:
         """The sums of the replicas' ``(loss_sum, valid_count)`` parts: one

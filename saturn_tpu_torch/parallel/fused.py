@@ -22,9 +22,9 @@ lockstep time (``Strategy.fused_per_batch_time``), the solver prices fusion
 against solo and co-scheduled runs (``solver/milp.py``), and the engine's
 fused launcher drives :func:`run_fused_interval`. Its unfuse path slices a
 member out of the stack at a unit boundary (a guardian detach), crosses the
-``fused.unfuse`` crash barrier, checkpoints the member in the single-file
-format a solo run restores (where the JAX package writes its sharded
-manifest), emits a ``fused_unfuse`` event and goes on with the other members.
+``fused.unfuse`` crash barrier, checkpoints the member as the sharded
+manifest a solo run restores (in the JAX tree, as the JAX package writes a
+member's), emits a ``fused_unfuse`` event and goes on with the other members.
 
 Only one device is carried: a stack never spans a multi-device block
 (``usable_devices``), and a task whose ``chip_range`` allows more than one
@@ -214,10 +214,12 @@ class StackedOptimizer:
 class _SoloView:
     """A member's parameters as a module's ``state_dict`` and
     ``named_parameters`` (what a checkpoint write reads of
-    ``state["params"]``)."""
+    ``state["params"]``); ``jax_layout`` where the solo model has the JAX
+    package's tree (``models/convert.jax_layout``)."""
 
-    def __init__(self, sd: "OrderedDict[str, torch.Tensor]"):
+    def __init__(self, sd: "OrderedDict[str, torch.Tensor]", jax_layout: bool = False):
         self._sd = sd
+        self.jax_layout = jax_layout
 
     def state_dict(self):
         return self._sd
@@ -239,6 +241,14 @@ class FusedProgram:
     names: List[str]                   # the parameter names, in order
     _init_tree: Any = None
     _lock: Any = field(default_factory=threading.Lock)
+
+    @property
+    def jax_layout(self) -> bool:
+        """Whether a member's solo model has the JAX package's tree, which
+        its checkpoint then keys by (``models/convert.state_layout``)."""
+        from saturn_tpu_torch.models.convert import jax_layout
+
+        return jax_layout(self.spec.abstract_init())
 
     def new_state(self, lrs: Sequence[float]) -> Dict[str, Any]:
         """An uninitialised stacked state of the program's N members:
@@ -310,7 +320,7 @@ class FusedProgram:
             else:
                 opt.state[p] = {"step": n_steps.clone(), "exp_avg": tree["exp_avg"][n],
                                 "exp_avg_sq": tree["exp_avg_sq"][n]}
-        return {"params": _SoloView(params), "opt_state": opt,
+        return {"params": _SoloView(params, self.jax_layout), "opt_state": opt,
                 "step": int(state["base"][i]) + int(state["step"])}
 
 

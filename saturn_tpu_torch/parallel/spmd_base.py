@@ -38,6 +38,14 @@ bitwise equal. Positions may name one device more than once (``[cuda:0,
 cuda:0]``): such a block rehearses the multi-device step on one card, with
 K-step CUDA-graph windows as on one device. A block over distinct cards runs
 one step at a time (K = 1, ``_fused_ok``).
+
+A technique that shards its state (``shards_state``: fsdp) holds the train
+state in pieces instead (``sharded_step_fns``): each position steps its
+optimizer on its extent of every leaf under ``param_rules``, gathers the
+full parameters for its forward and reduce-scatters the gradients. Such a
+state carries its ``placement`` (the specs and the mesh), by which the
+checkpoint writes and restores it (a state without one is replicated over
+its positions); ``full_params`` reads a sharded state's parameters whole.
 """
 
 from __future__ import annotations
@@ -196,9 +204,40 @@ def replicas(state: Dict[str, Any]) -> List[Dict[str, Any]]:
     return state.get("replicas") or [state]
 
 
+def full_params(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """The state's parameters by name, whole, on the first position's
+    device: a replicated state's are its model's; a sharded state's are
+    assembled from every position's shard (its models hold the gathered
+    parameters of the last step's forward, before that step's update)."""
+    reps = replicas(state)
+    shards = [rep.get("shards") or {} for rep in reps]
+    model = reps[0]["params"]
+    out = {name: p.detach() for name, p in model.named_parameters()}
+    if not any(shards):
+        return out
+    from saturn_tpu_torch.models import convert
+    from saturn_tpu_torch.parallel import sharding
+
+    pl = state["placement"]
+    layout = convert.state_layout(model, reps[0]["opt_state"])
+    for leaf in layout:
+        if leaf.kind != "param" or not any(n in shards[0] for n in leaf.names):
+            continue
+        exts = sharding.extents(tuple(pl["specs"].get(leaf.key, ())), leaf.shape,
+                                pl["mesh_axes"])
+        for j, name in enumerate(leaf.names):
+            full = torch.empty_like(out[name])
+            for r, e in enumerate(exts):
+                pe = leaf.port_extent(e, j)
+                if pe is not None:
+                    full[tuple(slice(a, b) for a, b in pe)] = shards[r][name].to(full.device)
+            out[name] = full
+    return out
+
+
 def _state_key(state: Dict[str, Any]) -> Tuple[int, ...]:
     """The addresses a captured step reads and writes: every replica's
-    parameters, buffers, gradient buffer and optimizer state.
+    parameters, buffers, gradient buffer, shards and optimizer state.
     ``Optimizer.load_state_dict`` changes them."""
     ptrs: List[int] = []
     for rep in replicas(state):
@@ -208,6 +247,10 @@ def _state_key(state: Dict[str, Any]) -> Tuple[int, ...]:
         ptrs += [t.data_ptr() for t in model.buffers()]
         if rep.get("grads") is not None:
             ptrs.append(rep["grads"].data_ptr())
+        for shard in (rep.get("shards") or {}).values():
+            ptrs.append(shard.data_ptr())
+            if shard.grad is not None:
+                ptrs.append(shard.grad.data_ptr())
         for per_param in opt.state.values():
             ptrs += [v.data_ptr() for v in per_param.values() if isinstance(v, torch.Tensor)]
     return tuple(ptrs)
@@ -402,6 +445,99 @@ class _Bundle:
             win.release()
 
 
+# ------------------------------------------------------- a block's replicas
+def _device_of(dev: torch.device):
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
+def _flat_grads(name: str, model, device) -> torch.Tensor:
+    """One zeroed gradient buffer for all of ``model``'s parameters, each
+    parameter's ``.grad`` a view of it (one collective a step, not one per
+    parameter)."""
+    params = list(model.parameters())
+    dtypes = {p.dtype for p in params}
+    if len(dtypes) != 1:
+        raise NotImplementedError(
+            f"{name}: a block keeps one gradient buffer of one dtype; the model's "
+            f"parameters have {sorted(map(str, dtypes))}")
+    flat = torch.zeros(sum(p.numel() for p in params), dtype=params[0].dtype, device=device)
+    off = 0
+    for p in params:
+        p.grad = flat[off:off + p.numel()].view_as(p)
+        off += p.numel()
+    return flat
+
+
+def _replica_models(spec, devices: Sequence[torch.device], materialize: bool) -> list:
+    """One model per position: the first drawn from the generator seeded 0
+    (or allocated uninitialised), the others copies of it, so every replica
+    starts bitwise equal."""
+    dev0 = devices[0]
+    if materialize:
+        first = spec.init_fn(torch.Generator().manual_seed(0), dev0)
+    else:
+        first = spec.abstract_init().to_empty(device=dev0)
+    models = [first]
+    for dev in devices[1:]:
+        model = spec.abstract_init().to_empty(device=dev)
+        if materialize:
+            model.load_state_dict(first.state_dict())
+        models.append(model)
+    return models
+
+
+def _chunks(batch: torch.Tensor, devices: Sequence[torch.device]) -> list:
+    """Rows ``[r·B/n, (r+1)·B/n)`` of the batch for position r, on its
+    device."""
+    n = len(devices)
+    rows = batch.shape[0] // n
+    chunks = [batch[r * rows:(r + 1) * rows] for r in range(n)]
+    return [c if c.device == dev else c.to(dev, non_blocking=True)
+            for c, dev in zip(chunks, devices)]
+
+
+def _block_loss_backward(spec, loss_fn, models, chunks, devices, batch, parts_fn, reducer):
+    """The forward and backward of a block's replicas (each model on its
+    rows), the gradients left in each model's ``.grad``; the loss, detached.
+
+    With ``parts_fn`` (the fused head's ``(loss_sum, valid_count)``) each
+    replica's parts are summed by the reducer and each replica
+    back-propagates its own sum over the global count. Without, the
+    replicas' logits are concatenated on the first device, the loss runs
+    once over the whole batch (exact for any loss), and autograd carries
+    each replica's share back through the concatenation."""
+    dev0 = devices[0]
+    if parts_fn is not None:
+        parts = []
+        for model, chunk, dev in zip(models, chunks, devices):
+            with _device_of(dev):
+                parts.append(parts_fn(model, chunk))
+        sums = reducer.sum_parts(parts)
+        for (s_r, _), total, dev in zip(parts, sums, devices):
+            with _device_of(dev):
+                (s_r / total[1].clamp_min(1.0)).backward()
+        return (sums[0][0] / sums[0][1].clamp_min(1.0)).detach()
+    logits = []
+    for model, chunk, dev in zip(models, chunks, devices):
+        with _device_of(dev):
+            logits.append(spec.apply_fn(model, chunk).to(dev0))
+    loss = loss_fn(torch.cat(logits), batch)
+    loss.backward()
+    return loss.detach()
+
+
+def _join_devices(reducer, devices: Sequence[torch.device]) -> None:
+    """Over distinct devices, make the first device's stream wait for the
+    others' work, so a synchronize of the first covers the whole step."""
+    if reducer.distinct:
+        dev0 = devices[0]
+        current = torch.cuda.current_stream(dev0)
+        for dev in {d for d in devices if d != dev0}:
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+            current.wait_event(done)
+
+
 class SPMDTechnique(BaseTechnique):
     """Base for techniques expressible as a placement of one train step."""
 
@@ -428,6 +564,10 @@ class SPMDTechnique(BaseTechnique):
     # replica per position (``replicated_step_fns``); offload keeps one device
     replicates = True
 
+    # Whether a block of several positions shards the train state by
+    # ``param_rules`` (``sharded_step_fns``, fsdp) rather than replicating it
+    shards_state = False
+
     # Per-device memory never grows with the block size: each replica takes
     # a smaller share of the batch. The trial runner prunes the sizes below
     # one that ran out of memory only where no two positions share a device
@@ -439,7 +579,8 @@ class SPMDTechnique(BaseTechnique):
         # batch or None, outcome), for reports of the sweep (chip_smoke.py).
         self.trials: List[Tuple[str, int, Dict[str, Any], Optional[float], str]] = []
         # Every interval this instance ran and published: its plan, whether
-        # it restored the checkpoint, and its realized time (chip_smoke.py);
+        # it restored the checkpoint, its first loss and its realized time
+        # (chip_smoke.py);
         # and every interval it ran and then discarded, the same record with
         # ``discarded`` naming why ("numeric", "abandoned", "preempted")
         self.intervals: List[Dict[str, Any]] = []
@@ -580,7 +721,6 @@ class SPMDTechnique(BaseTechnique):
                 f"{self.name}: auxiliary-loss models are a later item of the PyTorch port"
             )
         devices = [torch.device(d) for d in devices]
-        n, dev0 = len(devices), devices[0]
         reducer = BlockReducer(devices)
         loss_fn = task.loss_fn
         parts_fn = getattr(spec, "fused_loss_parts_fn", None)
@@ -589,78 +729,213 @@ class SPMDTechnique(BaseTechnique):
                  and tag is not None and tag == getattr(spec, "fused_loss_objective", None))
 
         def replica(model, device) -> Dict[str, Any]:
-            params = list(model.parameters())
-            dtypes = {p.dtype for p in params}
-            if len(dtypes) != 1:
-                raise NotImplementedError(
-                    f"{self.name}: a replicated block keeps one gradient buffer of one "
-                    f"dtype; the model's parameters have {sorted(map(str, dtypes))}")
-            flat = torch.zeros(sum(p.numel() for p in params), dtype=params[0].dtype,
-                               device=device)
-            off = 0
-            for p in params:
-                p.grad = flat[off:off + p.numel()].view_as(p)
-                off += p.numel()
             return {"params": model,
                     "opt_state": task.hparams.make_optimizer(model.parameters()),
-                    "grads": flat}
+                    "grads": _flat_grads(self.name, model, device)}
 
         def init_state(materialize: bool = True) -> Dict[str, Any]:
-            if materialize:
-                first = spec.init_fn(torch.Generator().manual_seed(0), dev0)
-            else:
-                first = spec.abstract_init().to_empty(device=dev0)
-            reps = []
-            for r, dev in enumerate(devices):
-                model = first
-                if r:
-                    model = spec.abstract_init().to_empty(device=dev)
-                    if materialize:
-                        model.load_state_dict(first.state_dict())
-                reps.append(replica(model, dev))
-            return {"params": first, "opt_state": reps[0]["opt_state"], "step": 0,
+            reps = [replica(model, dev)
+                    for model, dev in zip(_replica_models(spec, devices, materialize), devices)]
+            return {"params": reps[0]["params"], "opt_state": reps[0]["opt_state"], "step": 0,
                     "replicas": reps}
-
-        def device_of(dev):
-            return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
 
         def train_step(state, batch):
             reps = state["replicas"]
-            rows = batch.shape[0] // n
-            chunks = [batch[r * rows:(r + 1) * rows] for r in range(n)]
-            chunks = [c if c.device == dev else c.to(dev, non_blocking=True)
-                      for c, dev in zip(chunks, devices)]
-            if fused:
-                parts = []
-                for rep, chunk, dev in zip(reps, chunks, devices):
-                    with device_of(dev):
-                        parts.append(parts_fn(rep["params"], chunk))
-                sums = reducer.sum_parts(parts)
-                for (s_r, _), total, dev in zip(parts, sums, devices):
-                    with device_of(dev):
-                        (s_r / total[1].clamp_min(1.0)).backward()
-                loss = sums[0][0] / sums[0][1].clamp_min(1.0)
-            else:
-                logits = []
-                for rep, chunk, dev in zip(reps, chunks, devices):
-                    with device_of(dev):
-                        logits.append(spec.apply_fn(rep["params"], chunk).to(dev0))
-                loss = loss_fn(torch.cat(logits), batch)
-                loss.backward()
-                del logits
+            chunks = _chunks(batch, devices)
+            loss = _block_loss_backward(spec, loss_fn, [rep["params"] for rep in reps], chunks,
+                                        devices, batch, parts_fn if fused else None, reducer)
             reducer.all_reduce_([rep["grads"] for rep in reps])
             for rep, dev in zip(reps, devices):
-                with device_of(dev):
+                with _device_of(dev):
                     rep["opt_state"].step()
                     rep["grads"].zero_()
-            if reducer.distinct:
-                current = torch.cuda.current_stream(dev0)
-                for dev in {d for d in devices if d != dev0}:
-                    done = torch.cuda.Event()
-                    done.record(torch.cuda.current_stream(dev))
-                    current.wait_event(done)
+            _join_devices(reducer, devices)
             state["step"] += 1
-            return state, loss.detach()
+            return state, loss
+
+        return init_state, train_step
+
+    def sharded_step_fns(
+        self, spec: Any, task: Any, devices: Sequence[torch.device], config: Dict[str, Any],
+    ) -> Tuple[Any, Any]:
+        """(init_state, train_step) of a block of n positions whose train
+        state is sharded by ``param_rules`` (fsdp: the JAX package's GSPMD
+        step over a ``data`` axis of n devices, and its ZeRO-3 program).
+
+        The rule is applied to each leaf's JAX path and JAX shape
+        (``models/convert.state_layout``), then read onto the port's
+        per-layer tensors: position r holds the extent r of each leaf
+        (``parallel/sharding.extent``) of the fp32 parameters and of the
+        optimizer's moments, in ``shards`` by parameter name (a leaf the
+        rule keeps whole is the model's own parameter, as in dp), and steps
+        an optimizer over them. Every position also holds a full model, the
+        gather buffer its forward and backward run on, with one flat
+        gradient buffer. The state is position 0's model and optimizer,
+        ``replicas`` and ``placement`` (the specs and the mesh), which the
+        checkpoint writes and restores by.
+
+        The step gathers the full parameters into every replica
+        (``BlockReducer.all_gather``), runs replica r on rows ``[r·B/n,
+        (r+1)·B/n)``, reduces the gradients (sharded leaves
+        reduce-scattered to their owners, the others all-reduced) and steps
+        each position's optimizer on its shards only. On a shared device
+        the sums are one sum of the flat buffers in position order, as dp's,
+        then sliced: the same sums, held in pieces. The loss routes over
+        the logits as dp's does without the fused head (fsdp's
+        ``fused_loss_shardable`` is False, the JAX package's rule for a
+        block of n > 1). With ``config["overlap"]`` the step is the ZeRO-3
+        program (``ops/collective_matmul.zero3_loss_and_grads``): each
+        replica runs the model's pipeline hints layer by layer, gathering
+        layer k+1 under layer k (``prefetch``, on a side stream of each
+        card) or layer k on the critical path, each replica's loss its
+        rows' mean, the gradients' sums divided by n."""
+        from saturn_tpu_torch.models import convert
+        from saturn_tpu_torch.ops.collective_matmul import zero3_loss_and_grads
+        from saturn_tpu_torch.parallel import sharding
+        from saturn_tpu_torch.parallel.collectives import BlockReducer
+
+        if spec.apply_with_aux_fn is not None:
+            raise NotImplementedError(
+                f"{self.name}: auxiliary-loss models are a later item of the PyTorch port")
+        if callable(task.hparams.optimizer):
+            raise NotImplementedError(
+                f"{self.name}: a sharded state steps a named optimizer (adamw, adam, sgd); "
+                f"a user's optimizer callable is a later item of the PyTorch port")
+        devices = [torch.device(d) for d in devices]
+        n = len(devices)
+        reducer = BlockReducer(devices)
+        loss_fn = task.loss_fn
+        zero3 = bool(config.get("overlap"))
+        prefetch = bool(getattr(self, "prefetch", True))
+        kind = "sgd" if task.hparams.optimizer == "sgd" else "adam"
+        meta = spec.abstract_init()
+        shapes = {name: tuple(p.shape) for name, p in meta.named_parameters()}
+        layout = convert.state_layout(meta, None, kind=kind)
+        mesh_axes = {"data": n}
+        rules = self.param_rules(task, config)
+        specs = sharding.pspec_tree({leaf.key: leaf.shape for leaf in layout}, rules, mesh_axes)
+        params = [leaf for leaf in layout if leaf.kind == "param"]
+        by_key = {leaf.key: leaf for leaf in params}
+        for leaf in layout:
+            if leaf.kind in convert.MOMENTS:
+                own = by_key["params/" + leaf.key.split("/", 3)[3]]
+                if specs[leaf.key] != specs[own.key]:
+                    raise ValueError(f"{self.name}: {leaf.key} is placed {specs[leaf.key]}, its "
+                                     f"parameter {specs[own.key]}: a position's optimizer "
+                                     f"steps its shard with its moments")
+        # name -> every position's port extent (None: holds none) of the
+        # parameters some position holds only part of
+        exts: Dict[str, List[Any]] = {}
+        layer_of: Dict[str, Optional[int]] = {}
+        for leaf in params:
+            per_pos = sharding.extents(specs[leaf.key], leaf.shape, mesh_axes)
+            for j, name in enumerate(leaf.names):
+                pe = [leaf.port_extent(e, j) for e in per_pos]
+                if any(e != tuple((0, d) for d in shapes[name]) for e in pe):
+                    exts[name] = pe
+                    layer_of[name] = j if leaf.stacked else None
+        placement = {"specs": specs, "mesh_axes": mesh_axes}
+        hints = spec.hints.get("pipeline") if zero3 else None
+        if zero3 and hints is None:
+            raise ValueError(f"{self.name}: overlap needs the model's pipeline hints")
+        block_key = spec.hints.get("block_param_key", "blocks")
+        n_layers = int(spec.hints.get("n_layers", 0)) if zero3 else 0
+        by_layer: Dict[Optional[int], List[str]] = {}
+        for name, k in layer_of.items():
+            by_layer.setdefault(k if zero3 else None, []).append(name)
+
+        def replica(r: int, model, device, materialize: bool) -> Dict[str, Any]:
+            """Position r: its model (the gather buffer) with a flat
+            gradient buffer, its shards (each with a gradient buffer of its
+            own) and an optimizer over the shards and the whole leaves."""
+            grads = _flat_grads(self.name, model, device)
+            shards: Dict[str, torch.Tensor] = {}
+            for name, p in model.named_parameters():
+                if name not in exts:
+                    continue
+                e = exts[name][r]
+                if e is None:
+                    shards[name] = torch.empty((0,), dtype=p.dtype, device=device)
+                    continue
+                block = p.detach()[tuple(slice(a, b) for a, b in e)]
+                shard = block.clone(memory_format=torch.contiguous_format) if materialize \
+                    else torch.empty(block.shape, dtype=p.dtype, device=device)
+                shard.grad = torch.zeros_like(shard)
+                shards[name] = shard
+            stepped = [shards.get(name, p) for name, p in model.named_parameters()]
+            return {"params": model, "opt_state": task.hparams.make_optimizer(stepped),
+                    "grads": grads, "shards": shards}
+
+        def init_state(materialize: bool = True) -> Dict[str, Any]:
+            models = _replica_models(spec, devices, materialize)
+            reps = [replica(r, model, dev, materialize)
+                    for r, (model, dev) in enumerate(zip(models, devices))]
+            return {"params": reps[0]["params"], "opt_state": reps[0]["opt_state"], "step": 0,
+                    "replicas": reps, "placement": placement}
+
+        def named(rep):
+            return dict(rep["params"].named_parameters())
+
+        def gather(reps, names) -> None:
+            with torch.no_grad():
+                models = [named(rep) for rep in reps]
+                for name in names:
+                    reducer.all_gather([rep["shards"][name] for rep in reps],
+                                       [m[name] for m in models], exts[name])
+
+        def reduce(reps) -> None:
+            models = [named(rep) for rep in reps]
+            if not reducer.distinct:
+                reducer.sum_to_leads_([rep["grads"] for rep in reps])
+                lead = models[0]
+                for name, p in lead.items():
+                    if name in exts:
+                        reducer.scatter_from_lead(
+                            p.grad, [rep["shards"][name].grad for rep in reps], exts[name])
+                    else:
+                        for m in models[1:]:
+                            m[name].grad.copy_(p.grad)
+            else:
+                for name in models[0]:
+                    grads = [m[name].grad for m in models]
+                    if name in exts:
+                        reducer.reduce_scatter(grads, [rep["shards"][name].grad for rep in reps],
+                                               exts[name])
+                    else:
+                        reducer.all_reduce_(grads)
+            if zero3 and n > 1:
+                for rep in reps:
+                    with _device_of(rep["grads"].device):
+                        grads = [p.grad for g in rep["opt_state"].param_groups for p in g["params"]
+                                 if p.grad is not None and p.numel()]
+                        torch._foreach_div_(grads, float(n))
+
+        def train_step(state, batch):
+            reps = state["replicas"]
+            chunks = _chunks(batch, devices)
+            if zero3:
+                gather(reps, by_layer.get(None, []))
+                streams = ([_side_stream("gather", d) for d in dict.fromkeys(devices)]
+                           if prefetch and devices[0].type == "cuda" else [])
+                loss = zero3_loss_and_grads(
+                    [rep["params"] for rep in reps], chunks, devices=devices,
+                    gather_layer=lambda k: gather(reps, by_layer.get(k, [])),
+                    gather_streams=streams, n_layers=n_layers, embed_fn=hints["embed"],
+                    block_fn=hints["block"], head_fn=hints["head"], loss_fn=loss_fn,
+                    block_key=block_key, prefetch=prefetch,
+                    remat=bool(config.get("remat", False)))
+            else:
+                gather(reps, list(exts))
+                loss = _block_loss_backward(spec, loss_fn, [rep["params"] for rep in reps],
+                                            chunks, devices, batch, None, reducer)
+            reduce(reps)
+            for rep, dev in zip(reps, devices):
+                with _device_of(dev):
+                    rep["opt_state"].step()
+                    rep["grads"].zero_()
+            _join_devices(reducer, devices)
+            state["step"] += 1
+            return state, loss
 
         return init_state, train_step
 
@@ -697,7 +972,7 @@ class SPMDTechnique(BaseTechnique):
             tuple(str(d) for d in devices),
         )
 
-    def _block_refusal(self, task: Any, n: int) -> Optional[str]:
+    def _block_refusal(self, task: Any, n: int, devices: Sequence[Any] = ()) -> Optional[str]:
         """Why a block of ``n`` positions cannot run ``task`` (None: it
         can): a technique without replicas, or a batch that ``n`` does not
         divide (the JAX package's ``_build_uncached`` raises there and its
@@ -716,7 +991,7 @@ class SPMDTechnique(BaseTechnique):
         A block of several positions holds one replica per position
         (``replicated_step_fns``); ``ValueError`` where ``_block_refusal``
         says it cannot."""
-        why = self._block_refusal(task, len(devices))
+        why = self._block_refusal(task, len(devices), devices)
         if why is not None:
             raise ValueError(f"{self.name}: {why}")
         key = self._bundle_key(task, devices, config)
@@ -731,6 +1006,8 @@ class SPMDTechnique(BaseTechnique):
             init_state, train_step = self.make_step_fns(
                 spec, task, config, device, task.get_dataset()
             )
+        elif self.shards_state:
+            init_state, train_step = self.sharded_step_fns(spec, task, devs, config)
         else:
             init_state, train_step = self.replicated_step_fns(spec, task, devs)
         bundle = _Bundle(
@@ -742,6 +1019,14 @@ class SPMDTechnique(BaseTechnique):
         )
         with self._bundles_lock:
             return self._bundles.setdefault(key, bundle)
+
+    def param_rules(self, task: Any, config: Dict[str, Any]):
+        """The rule ``(path, shape, mesh_axes) -> spec`` that places the
+        train state's leaves over a block (``parallel/sharding.py``):
+        replicated unless a technique shards."""
+        from saturn_tpu_torch.parallel.sharding import replicated_rules
+
+        return replicated_rules
 
     def release_task(self, task_name: str) -> None:
         """Free a finished task's bundles, their CUDA graphs and graph
@@ -848,7 +1133,7 @@ class SPMDTechnique(BaseTechnique):
         its positions do not divide) yields no config and runs nothing;
         ``search_report`` then says memory was not the reason."""
         n = len(devices)
-        why = self._block_refusal(task, n)
+        why = self._block_refusal(task, n, devices)
         if why is not None:
             log.info("%s on task %s, block of %d: infeasible (%s)", self.name, task.name, n,
                      why)
@@ -897,22 +1182,29 @@ class SPMDTechnique(BaseTechnique):
         ``host_fraction_report``)."""
         return self._reports.pop((task_name, int(size)), {})
 
-    def state_bytes(self, task: Any, config: Dict[str, Any]) -> int:
+    def state_bytes(self, task: Any, config: Dict[str, Any], size: int = 1) -> int:
         """Bytes of the train state a device-resident config keeps on the
-        device: parameters, their gradients and the optimizer's moments (two
-        per parameter for AdamW and Adam, none for SGD or a user's callable,
-        whose state is unknown), counted from the model on the meta device."""
+        device for one replica of a block of ``size`` positions: parameters,
+        their gradients and the optimizer's moments (two per parameter for
+        AdamW and Adam, none for SGD or a user's callable, whose state is
+        unknown), counted from the model on the meta device. A replicated
+        state's share does not depend on ``size``."""
+        params, moments = self._param_bytes(task, config)
+        return params * (2 + moments)
+
+    def _param_bytes(self, task: Any, config: Dict[str, Any]) -> Tuple[int, int]:
+        """(bytes of the fp32 parameters, moments per parameter)."""
         model = task.get_model(**self._model_overrides(config)).abstract_init()
         params = sum(p.numel() * p.element_size() for p in model.parameters())
-        moments = 2 if task.hparams.optimizer in ("adamw", "adam") else 0
-        return params * (2 + moments)
+        return params, 2 if task.hparams.optimizer in ("adamw", "adam") else 0
 
     def _static_screen(self, task: Any, devices: Sequence[Any],
                        config: Dict[str, Any]) -> bool:
         """Whether a config may fit before anything is drawn: the port's
         counterpart of the JAX package's compile-time ``_fits_memory`` for
-        the plain case. A device-resident config whose ``state_bytes``,
-        times the replicas that share the most loaded device of the block,
+        the plain case. A device-resident config whose ``state_bytes`` at
+        the block's size, times the replicas that share the most loaded
+        device of the block,
         exceed ``MEMORY_HEADROOM`` of device memory is infeasible without an
         init (logged). Activations are left to the trial's measured peak;
         a host-resident state is not screened."""
@@ -922,7 +1214,7 @@ class SPMDTechnique(BaseTechnique):
         if self.host_state or limit <= 0:
             return True
         shared = max(len(g) for g in physical_groups(devices)) if self.replicates else 1
-        need = self.state_bytes(task, config) * shared
+        need = self.state_bytes(task, config, len(devices)) * shared
         if need <= MEMORY_HEADROOM * limit:
             return True
         log.info("%s: config %s keeps %.2f GiB of train state (params, grads, optimizer "
@@ -1050,8 +1342,10 @@ class SPMDTechnique(BaseTechnique):
         interval and writes the checkpoint.
 
         The state is the task's live state when the previous interval ran
-        this bundle, else the checkpoint (the data cursor follows its step
-        count), else a fresh init; the live state is dropped before the
+        this bundle, else the checkpoint placed by this bundle's rule
+        (``checkpoint.restore_sharded``: a state of another technique,
+        config or block restores without a full host tree; the data cursor
+        follows its step count), else a fresh init; the live state is dropped before the
         first dispatch, so an interval that fails leaves none. K is
         ``_window(task, window_size)`` for every n: unlike the JAX
         package's ``choose_window``, a budget under K does not shrink K, since
@@ -1099,6 +1393,10 @@ class SPMDTechnique(BaseTechnique):
             # a state of another config goes before the new one is allocated
             task.release_live_state()
             if task.has_ckpt():
+                # the checkpoint's shards placed by this bundle's rule
+                # (``restore`` is ``restore_sharded`` under the state's own
+                # placement): a state of another technique, config or block
+                # restores here
                 state = ckpt.restore(task.ckpt_path, bundle.empty())
                 task.current_batch = task.cursor_for_step(state["step"])
                 restored = True
@@ -1165,6 +1463,7 @@ class SPMDTechnique(BaseTechnique):
             # one host readback per interval; it also drains the queue
             losses = torch.cat(unit_losses).float().cpu().numpy()
             t_end = timeit.default_timer()
+            record["first_loss"] = float(losses[0])
             # the sentinel screens every step's loss before anything of the
             # interval is published: a fault drops the state, so the retry
             # restores from the last checkpoint (and captures anew)

@@ -14,9 +14,12 @@ simulation keeps that contract:
   ``post-commit``, ``pre-rotate`` and ``post-rename``; the orchestrator's
   ``mid-interval`` (the interval ran, its progress is not durable) and
   ``post-rollback`` (a faulted task was rolled back, its quarantine record
-  is durable); the checkpoint writer's ``pre-manifest-rename`` (the file
-  is written, the rename that publishes it is not done), crossed by the
-  synchronous ``checkpoint.save`` only; the fused stack's ``fused.unfuse``
+  is durable); the checkpoint writer's ``mid-shard-write`` (the shard
+  file is staged, its rename not done) and ``pre-manifest-rename`` (the
+  shards are durable, the manifest rename that publishes them is not
+  done), crossed by the synchronous ``checkpoint.save`` only; a kill at
+  either leaves the previous generation the published one; the fused
+  stack's ``fused.unfuse``
   (``parallel/fused.py``: a member is sliced out, its checkpoint not yet
   written), through ``checkpoint.set_crash_barrier``; the online service's
   defragmentation waves' ``defrag.pre-publish`` (the move's intent is
@@ -28,9 +31,7 @@ simulation keeps that contract:
   crossing of that barrier; :meth:`CrashInjector.seeded` draws the point
   and hit from a seed.
 
-``KILL_POINTS`` keeps the JAX package's names, that of the sharded
-writer's ``mid-shard-write`` included, which the port's single-file
-checkpoints do not have: an injector armed there never fires in the port.
+``KILL_POINTS`` keeps the JAX package's names.
 """
 
 from __future__ import annotations

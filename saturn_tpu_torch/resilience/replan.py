@@ -354,8 +354,9 @@ def static_need(task, topology: SliceTopology, size: int,
     """The static estimate of the per-device memory the task needs at a
     size-``size`` block (the port's stand-in for memlens'
     ``migration_fits``): the measured peak of the trial behind the
-    strategy, else its technique's fp32 params, grads and moments
-    (``state_bytes``). None (no verdict) without a capacity, a strategy at
+    strategy, else its technique's fp32 params, grads and moments per
+    device at that size (``state_bytes``: fsdp's shard plus its gathered
+    parameters and gradients). None (no verdict) without a capacity, a strategy at
     that size, or a technique that can count its state."""
     if cap_bytes <= 0:
         return None
@@ -364,8 +365,13 @@ def static_need(task, topology: SliceTopology, size: int,
     if strat is None or not hasattr(tech, "state_bytes"):
         return None
     peak = getattr(strat, "peak_bytes", None)
-    need = (float(peak) if peak is not None
-            else float(tech.state_bytes(task, dict(strat.params or {}))))
+    config = dict(strat.params or {})
+    if peak is not None:
+        need = float(peak)
+    elif getattr(tech, "shards_state", False):
+        need = float(tech.state_bytes(task, config, size))
+    else:
+        need = float(tech.state_bytes(task, config))
     return {"fits": need <= _DEFRAG_HEADROOM * cap_bytes, "peak_bytes": int(need),
             "capacity_bytes": int(cap_bytes)}
 

@@ -155,9 +155,12 @@ def kernel_sources_digest() -> str:
 
 def runtime_signature() -> Dict[str, Any]:
     """The software the time depends on: torch and CUDA versions, the
-    window ceiling and the kernel sources."""
+    window ceiling, the kernel sources and the overlapped programs' version
+    (``ops/collective_matmul.overlap_signature``: a serial profile must
+    never price an overlapped program)."""
     import torch
 
+    from saturn_tpu_torch.ops.collective_matmul import overlap_signature
     from saturn_tpu_torch.parallel.spmd_base import max_window
 
     return {
@@ -165,6 +168,7 @@ def runtime_signature() -> Dict[str, Any]:
         "cuda": torch.version.cuda,
         "max_window": max_window(),
         "kernels": kernel_sources_digest(),
+        "overlap": overlap_signature(),
     }
 
 

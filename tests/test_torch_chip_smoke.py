@@ -1244,7 +1244,7 @@ def test_phase_10_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
     for name, value in (("DEVICE", "cpu"), ("GPT2", "test-tiny"), ("BERT", "bert-test-tiny"),
                         ("BATCH", 4), ("SEQ", 64), ("VOCAB", 256), ("LAYERS", 2),
-                        ("MARK", 255), ("OUT", str(tmp_path / "out")),
+                        ("FUSED_LAYERS", 2), ("MARK", 255), ("OUT", str(tmp_path / "out")),
                         ("CKPTS", str(tmp_path / "ckpts"))):
         monkeypatch.setattr(smoke, name, value)
     os.makedirs(smoke.OUT)
@@ -1716,3 +1716,56 @@ def test_phase_14_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     assert out["14d"]["ran"] is False
     assert launches["ce_fwd"] == out["14b"]["launches"]["ce_fwd"] + out["14c"]["launches"]["ce_fwd"]
     assert launches["flash_fwd"] in (0, smoke.MD_LAYERS * launches["ce_fwd"])
+
+
+def test_phase_15_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 15 (the sharded train state) at ``test-tiny`` b8 x 64 on the
+    CPU, the block's positions naming the CPU: every check of 15a-15c holds
+    with the kernel wrappers counting their plain versions' calls (the
+    device-to-host count, a torch.profiler reading of the card, reads 0
+    here), and 15d says it did not run. 15c's intervals run windows of 2."""
+    import torch
+
+    import saturn_tpu_torch as sat
+    from saturn_tpu_torch.ops import ce, flash
+
+    monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
+    for name in ("SATURN_TPU_FAULTS", "SATURN_TPU_GROW_HYSTERESIS", "SATURN_TPU_WATCHDOG"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in (("DEVICE", "cpu"), ("GPT2", "test-tiny"), ("BERT", "bert-test-tiny"),
+                        ("BATCH", 8), ("SEQ", 64), ("VOCAB", 256), ("LAYERS", 2),
+                        ("FSDP_LAYERS", 2), ("OUT", str(tmp_path / "out")),
+                        ("CKPTS", str(tmp_path / "ckpts"))):
+        monkeypatch.setattr(smoke, name, value)
+    os.makedirs(smoke.OUT)
+    monkeypatch.setattr(smoke.lm_task, "__defaults__",
+                        ("test-tiny",) + smoke.lm_task.__defaults__[1:3] + (64,)
+                        + smoke.lm_task.__defaults__[4:])
+    monkeypatch.setattr(smoke, "dtoh_copies", lambda fn, n=2: 0.0)
+    monkeypatch.setenv("SATURN_TPU_MAX_WINDOW", "2")
+    for fn in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(flash, "flash_supported", lambda cfg=None: True)
+    for module, fns in ((flash, ("flash_fwd", "flash_dq", "flash_dkv")),
+                        (ce, ("ce_fwd", "ce_dx", "ce_dw"))):
+        for fn in fns:
+            monkeypatch.setattr(module, fn, _counting(module, fn, fn))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches, out = smoke.fsdp_phase(sat, flash, ce, "cpu rehearsal")
+    finally:
+        torch.set_num_threads(n)
+    a = out["15a"]
+    assert set(a["runs"]) == {"fsdp", "zero3-prefetch", "zero3-serial"}
+    assert a["dp"]["eager"]["flash_fwd"] == 4 and a["dp"]["eager"]["ce_fwd"] == 0
+    assert a["zero3_loss_rel"] <= smoke.MD_LOSS_REL
+    b = out["15b"]
+    assert b["losses"]["fsdp-2"] == b["losses"]["dp-2 (its own state)"]
+    assert b["writes"]["manifest_bytes"] > 0 and len(b["writes"]["manifest"]) == 2
+    c = out["15c"]
+    assert c["trialled"]["dp"] and c["trialled"]["fsdp"]
+    assert c["drill"]["runs"][-1][0] == 1 and c["drill"]["replan_latency_s"] >= 0.0
+    assert out["15d"]["ran"] is False
+    assert launches["flash_fwd"] == (c["launches"]["flash_fwd"]
+                                     + c["drill"]["launches"]["flash_fwd"])

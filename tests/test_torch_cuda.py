@@ -43,7 +43,12 @@ Fused stacks: three members of the small GPT-2 in one stacked window of 4
 launch counts (each flash kernel once per layer per lockstep step, each CE
 kernel once per member per step); the stacked AdamW, Adam and SGD replayed
 from a graph against ``HParams.make_optimizer``'s on each member within
-1e-6.
+1e-6. The sharded state: ``BlockReducer``'s gather and reduce-scatter on
+one card (split along either dimension, or one owner) and across two cards
+where the machine has them, bitwise their plain versions; fsdp's window on
+the card twice (its gathers and reduce-scatters in the graph) bitwise dp's
+over the logits; the ZeRO-3 program's side-stream prefetch in the graph
+bitwise its serial gathers, with and without remat.
 """
 
 import numpy as np
@@ -1219,3 +1224,121 @@ def test_stacked_optimizer_matches_make_optimizer_on_the_card(cuda_device, name)
     for m in range(2):
         np.testing.assert_allclose(stacked.detach()[m].cpu().numpy(),
                                    solo[m].detach().cpu().numpy(), rtol=1e-6, atol=1e-6)
+
+
+# ------------------------------------------------- the sharded train state
+def _extents(shape, n, d):
+    """Position r's block of ``shape`` split evenly along dimension ``d``
+    over n positions."""
+    return [tuple((r * s // n, (r + 1) * s // n) if i == d else (0, s)
+                  for i, s in enumerate(shape)) for r in range(n)]
+
+
+def _collective_case(devices, shape, exts, seed):
+    """``all_gather`` and ``reduce_scatter`` of ``BlockReducer`` over
+    ``devices`` against their plain versions: the gather a copy, bitwise;
+    the reduce-scatter the sum in position order, bitwise."""
+    from saturn_tpu_torch.parallel.collectives import BlockReducer
+
+    red = BlockReducer(devices)
+    g = torch.Generator().manual_seed(seed)
+    full = torch.randn(shape, generator=g)
+    sl = [None if e is None else tuple(slice(a, b) for a, b in e) for e in exts]
+    shards = [None if s is None else full[s].contiguous().to(d) for s, d in zip(sl, devices)]
+    fulls = [torch.empty(shape, device=d) for d in devices]
+    red.all_gather(shards, fulls, exts)
+    for f in fulls:
+        assert torch.equal(f.cpu(), full)
+    parts = [torch.randn(shape, generator=g) for _ in devices]
+    want = parts[0].clone()
+    for p in parts[1:]:
+        want += p
+    outs = [None if s is None else torch.empty(full[s].shape, device=d)
+            for s, d in zip(sl, devices)]
+    red.reduce_scatter([p.to(d) for p, d in zip(parts, devices)], outs, exts)
+    for o, s in zip(outs, sl):
+        if s is not None:
+            assert torch.equal(o.cpu(), want[s])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("d", [0, 1])
+def test_gather_and_reduce_scatter_on_one_card(cuda_device, n, d):
+    shape = (64, 96)
+    _collective_case([cuda_device] * n, shape, _extents(shape, n, d), seed=n + d)
+    # a whole tensor one position owns (a stacked leaf split over its layers)
+    whole = [None] * n
+    whole[1] = ((0, 64), (0, 96))
+    _collective_case([cuda_device] * n, shape, whole, seed=7 + n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [0, 1])
+def test_gather_and_reduce_scatter_across_two_cards(cuda_device, d):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL across distinct devices")
+    devices = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    shape = (64, 96)
+    _collective_case(devices, shape, _extents(shape, 2, d), seed=d)
+    _collective_case(devices, shape, [((0, 64), (0, 96)), None], seed=3 + d)
+
+
+def _fsdp_window(tmp_path, tech, config, name):
+    """An eager step then a window of 4 of the small GPT-2 on the card
+    twice, over the logits: the losses, the parameters and the launches."""
+    from saturn_tpu_torch.parallel.spmd_base import full_params, stage_tokens
+
+    task, _ = _small_task(tmp_path, name)
+    task.loss_fn = _untagged
+    dev = torch.device("cuda", 0)
+    bundle = tech.build(task, [dev, dev], config)
+    state = bundle.init()
+    state, loss = bundle.step(state, bundle.stage(task.batch_at(0)))
+    stack = stage_tokens(np.stack([task.batch_at(1 + i) for i in range(4)]), dev)
+    bundle.capture([4], state, stack.shape[-2:])
+    before = _counts()
+    state, losses = bundle.fused(4)(state, stack)
+    launched = {k: c - before[k] for k, c in _counts().items()}
+    out = ([float(loss)] + losses.tolist(), {k: v.clone() for k, v in full_params(state).items()},
+           launched)
+    tech.release_task(task.name)
+    return out
+
+
+@pytest.mark.cuda
+def test_fsdp_window_on_one_card_is_bitwise_dp_over_the_logits(cuda_device, tmp_path):
+    """fsdp on the card twice, its gathers and reduce-scatters captured in
+    the window's graph, against dp on the same block over the logits: the
+    same losses and parameters, bit for bit, and each replica's launches."""
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.parallel.fsdp import FSDP
+
+    config = {"remat": False, "attention": "flash"}
+    dl, dp_params, dn = _fsdp_window(tmp_path, DataParallel(), config, "dp")
+    fl, fsdp_params, fn = _fsdp_window(tmp_path, FSDP(), dict(config, offload=False), "fsdp")
+    assert fl == dl and fn == dn
+    assert fn == {"flash_fwd": 16, "flash_dq": 16, "flash_dkv": 16, "ce_fwd": 0, "ce_dx": 0,
+                  "ce_dw": 0}
+    for k in dp_params:
+        assert torch.equal(dp_params[k], fsdp_params[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_zero3_prefetch_on_a_side_stream_is_bitwise_serial(cuda_device, tmp_path, remat):
+    """The ZeRO-3 program with layer k+1's gather on a side stream, captured
+    in the window's graph, against each gather on the critical path."""
+    from saturn_tpu_torch.parallel.fsdp import FSDP
+
+    runs = []
+    for prefetch in (True, False):
+        tech = FSDP()
+        tech.prefetch = prefetch
+        runs.append(_fsdp_window(tmp_path, tech, {"remat": remat, "attention": "flash",
+                                                  "offload": False, "overlap": True},
+                                 f"z{int(prefetch)}{int(remat)}"))
+    (la, pa, na), (lb, pb, nb) = runs
+    assert la == lb and na == nb
+    for k in pa:
+        assert torch.equal(pa[k], pb[k]), k

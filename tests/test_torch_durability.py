@@ -338,17 +338,21 @@ def _truncate(path):
 
 
 def _flip_tensor_byte(path):
-    """Flip one byte inside the first tensor record's data."""
+    """Flip one byte inside the first array member's data of the
+    checkpoint's shard file (the manifest names it)."""
+    import glob
     import struct
     import zipfile
 
-    with zipfile.ZipFile(path) as zf:
-        info = next(i for i in zf.infolist() if i.filename.endswith("/data/0"))
-    raw = bytearray(open(path, "rb").read())
+    shard = glob.glob(glob.escape(path) + ".g*.r0.npz")[0]
+    with zipfile.ZipFile(shard) as zf:
+        info = next(i for i in zf.infolist() if i.filename.endswith(".npy"))
+    raw = bytearray(open(shard, "rb").read())
     name_len, extra_len = struct.unpack("<HH", raw[info.header_offset + 26:
                                                    info.header_offset + 30])
-    raw[info.header_offset + 30 + name_len + extra_len + 5] ^= 0xFF
-    open(path, "wb").write(bytes(raw))
+    # past the member's npy header (128 bytes) into its data
+    raw[info.header_offset + 30 + name_len + extra_len + 128 + 5] ^= 0xFF
+    open(shard, "wb").write(bytes(raw))
 
 
 @pytest.mark.parametrize("damage", [_truncate, _flip_tensor_byte], ids=["truncated", "bit-flip"])
@@ -362,7 +366,7 @@ def test_damaged_checkpoint_fails_verify_and_goes_to_a_sidecar(tmp_path, damage)
         with pytest.raises(ckpt.CheckpointCorruptError) as err:
             ckpt.restore(path, _state(1))
         assert err.value.quarantined == path + ".corrupt"
-    else:  # torch.load takes a flipped tensor byte: recovery's verify finds it
+    else:  # a reader takes a flipped array byte: recovery's verify finds it
         assert dur.reconcile_checkpoints({"t": [path, path]}) == {"t": None}
     assert os.path.exists(path + ".corrupt") and not os.path.exists(path)
     # a second quarantine of the same path never overwrites the first
@@ -407,9 +411,10 @@ def test_publish_hook_fires_after_the_rename(tmp_path, save):
 
 
 def test_kill_before_the_rename_keeps_the_previous_checkpoint(tmp_path):
-    """``pre-manifest-rename``: the new file is written and not renamed; the
-    previous checkpoint stays whole, no temporary file is left, no hook
-    fires. ``save_async``'s writer thread never crosses the barrier."""
+    """``pre-manifest-rename``: the new shard file is written, the manifest
+    not renamed; the previous checkpoint stays whole, no temporary file is
+    left, no hook fires. ``save_async``'s writer thread never crosses the
+    barrier."""
     path = str(tmp_path / "t.pt")
     ckpt.save(path, _state(0))
     seen = []
@@ -427,7 +432,8 @@ def test_kill_before_the_rename_keeps_the_previous_checkpoint(tmp_path):
         ckpt.set_crash_barrier(None)
         ckpt.remove_publish_hook(hook)
     assert ckpt.verify(path) and ckpt.load(path)["step"] == 4 and seen == ["t"]
-    assert os.listdir(tmp_path) == ["t.pt"]
+    names = os.listdir(tmp_path)
+    assert "t.pt" in names and not [n for n in names if n.endswith(".tmp")]
 
 
 # ------------------------------------------------------------ plan records
