@@ -415,6 +415,28 @@ Phases, in order; any failure is an exception and a non-zero exit:
    versions and a)'s check there, where the machine has two cards; else one
    line says it did not run (not a pass). 15c's launches join the kernels
    line.
+16. Tensor parallelism (``parallel/tp.py``, ``spmd_base.tp_step_fns``,
+   ``models/gpt2.tp_logits``, ``collectives.ModelGroup``), rehearsed on one
+   card (run after phase 15): a) GPT-2-small b8 x 512 (12 layers, flash,
+   remat off) under tp 2 x data 1 on card 0 twice against dp on the same
+   block over the logits: an eager step then a window of 8, the 9 losses
+   within MD_LOSS_REL and the parameters within MD_PARAM_REL by relative
+   norm (the row-parallel partial products in bf16, their model-group sum
+   and the bias add in fp32), every replicated leaf bitwise across the
+   positions, each split leaf at its shard shape, every flash launch on
+   H / tp heads, 12 launches of each flash kernel a position and step, no
+   CE launch, no device-to-host copy; tp's ``overlap`` config bitwise
+   fsdp's ZeRO-3 program (the same program at tp 2 x data 1). Printed:
+   each run's milliseconds per batch and peak memory beside 15a's. b) at
+   TP_LAYERS: tp 2 x data 2 with ``zero`` on card 0 four times (a leaf
+   split over both axes), two steps, a manifest; restored under dp at 1
+   and fsdp at 2 bitwise, one more step each, the first losses printed.
+   c) at TP_LAYERS: ``search`` with dp, fsdp and tp over card 0 twice
+   (trials one step at a time; dp and fsdp hit 15c's profile cache) and
+   ``orchestrate`` of its plan to its budget, verified, launches exact;
+   16c's launches join the kernels line. d) a) over cards 0 and 1 (the
+   model group's NCCL sums), where the machine has two cards; else one line
+   says it did not run (not a pass).
 
 The last lines are the kernels JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Details go to ``chiprun_out/``.
@@ -488,6 +510,12 @@ builds the kernels and runs phase 14, or the sub-phases named
 
 builds the kernels and runs phase 15, or the sub-phases named (15b runs
 15a first; ``chiprun_out/fsdp.json``).
+
+    python3 chip_smoke.py --tp [--16a] [--16b] [--16c] [--16d]
+
+builds the kernels and runs phase 16, or the sub-phases named (without
+phase 15's profile cache 16c runs every lane's trials; output in
+``chiprun_out/tp.json``).
 
     python3 chip_smoke.py --fused-profile
 
@@ -2880,11 +2908,12 @@ SWEEP_BATCH_COUNT = 16        # 9b: batches of each task of the traced sweep
 #: 9b: GPT-2-small's depth in the traced sweep, cut from 12 (depth only): its
 #: trials and steps run under the profiler, whose traces grow with the depth
 #: (592 MB at 12 layers), and the script's time limit is shared by every phase
-SWEEP_TRACE_LAYERS = 4
+#: (4 before phase 16, cut to 2 for its time)
+SWEEP_TRACE_LAYERS = 2
 SWEEP_LRS = ("6e-4", "1e-3")
 PRETRAINED_STEPS = 3          # 9e's orchestrate and 9f's runs: steps of each
-TECHNIQUE_LAYERS = 4          # 9d: GPT-2-small's depth in the user's run, cut from 12 (depth only)
-PRETRAINED_LAYERS = 4         # 9e: GPT-2-small's depth, cut from 12 (depth only)
+TECHNIQUE_LAYERS = 2          # 9d: GPT-2-small's depth in the user's run, cut from 12 (depth only)
+PRETRAINED_LAYERS = 2         # 9e: GPT-2-small's depth, cut from 12 (depth only; 4 before phase 16)
 #: 9e: the card's first loss against the ingested model's f32 loss on the
 #: CPU, relative (read at 2.42e-05 on an H100); the loss of a random init of
 #: the same spec must lie PRETRAINED_CONTROL times as far off, so that the
@@ -5981,10 +6010,11 @@ FSDP_ELASTIC_SEED = 27     # seeded_schedule(27, 3, 2), preemptions only: positi
 
 
 def fsdp_want_launches(runs, layers: int) -> dict:
-    """Exact launches of fsdp and dp interval records ``runs`` at ``layers``:
-    every replica of every step launches its flash kernels; the CE kernels
-    run where the step takes the fused head (dp; fsdp on one position
-    outside the ZeRO-3 program) and not over the logits (fsdp at n > 1)."""
+    """Exact launches of dp, fsdp and tp interval records ``runs`` at
+    ``layers``: every replica (tp: every position, on its heads) of every
+    step launches its flash kernels; the CE kernels run where the step
+    takes the fused head (dp; fsdp on one position outside the ZeRO-3
+    program) and not over the logits (fsdp and tp at n > 1)."""
     want = dict.fromkeys(KERNEL_NAMES, 0)
     for r in runs:
         steps = r["n"] * r["replicas"]
@@ -6071,7 +6101,8 @@ def same_params(a: dict, b: dict) -> list:
 def fsdp_step_check(sat, flash, ce, card, devices, label: str) -> dict:
     """15a / 15d: fsdp against dp on the same block and loss route (the
     logits: fsdp's rule at n > 1, dp with its fused head off), and the
-    ZeRO-3 program prefetched against serial. Keeps dp's run for 15b."""
+    ZeRO-3 program prefetched against serial. Keeps dp's run for 15b, and
+    in it the prefetched program's as ``zero3`` (for 16a)."""
     from saturn_tpu_torch.parallel.dp import DataParallel
     from saturn_tpu_torch.parallel.fsdp import FSDP
 
@@ -6122,6 +6153,7 @@ def fsdp_step_check(sat, flash, ce, card, devices, label: str) -> dict:
         f"ms/batch and peak GiB above the card's holdings before each run "
         + ", ".join(f"{k} {ms:.2f} / {gib:.2f}" for k, (ms, gib) in times.items())
         + f"  [{card}]")
+    ref["zero3"] = dict(pre)  # 16a holds tp's overlap config to it
     for run in runs.values():
         run.pop("params")
     torch.cuda.empty_cache()
@@ -6493,11 +6525,14 @@ def nccl_check(card) -> dict:
     return out
 
 
-def fsdp_phase(sat, flash, ce, card, parts=("15a", "15b", "15c", "15d")) -> tuple:
+def fsdp_phase(sat, flash, ce, card, parts=("15a", "15b", "15c", "15d"),
+               keep=None) -> tuple:
     """Phase 15: the sharded train state on one card (positions that name
     card 0 twice): 15a fsdp against dp at full width, 15b the manifest,
     15c search -> orchestrate with dp and fsdp and the loss drill; 15d NCCL
-    across two cards, where the machine has them."""
+    across two cards, where the machine has them. ``keep`` (a dict) gets
+    15a's dp and ZeRO-3 runs, their losses and parameters, and its ms a
+    batch and peak memory, which 16a compares tp with."""
     t_phase = time.perf_counter()
     sat.library.register_default_library()
     launches, out = dict.fromkeys(KERNEL_NAMES, 0), {}
@@ -6513,6 +6548,11 @@ def fsdp_phase(sat, flash, ce, card, parts=("15a", "15b", "15c", "15d")) -> tupl
         out["15b"]["seconds"] = time.perf_counter() - t0
     elif ref is not None:
         ref["tech"].release_task(ref["task"].name)
+    if keep is not None and ref is not None:
+        keep["dp"] = {k: ref[k] for k in ("losses", "params", "ms_per_batch", "peak_bytes",
+                                          "eager", "window", "graphed")}
+        keep["zero3"] = ref["zero3"]
+        keep["ms_peak"] = out["15a"]["ms_peak"]
     ref = None
     torch.cuda.empty_cache()
     if "15c" in parts:
@@ -6539,6 +6579,321 @@ def fsdp_phase(sat, flash, ce, card, parts=("15a", "15b", "15c", "15d")) -> tupl
         shutil.rmtree(os.path.join(CKPTS, d), ignore_errors=True)
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 15 {out['seconds']:.1f}s  [{card}]")
+    return launches, out
+
+
+# ----------------------------------------------------------------- phase 16
+TP_CONFIG = {"tp": 2, "remat": False, "zero": False, "attention": "flash"}
+TP_OVERLAP = {"tp": 2, "remat": False, "zero": True, "overlap": True, "attention": "flash"}
+TP_ZERO = {"tp": 2, "remat": False, "zero": True, "attention": "flash"}
+TP_LAYERS = 4            # 16b and 16c's depth
+TP_SEARCH_BATCHES = 16
+
+
+def tp_extents_held(state, cfg) -> list:
+    """Where a position holds other than its extents: the split leaves of
+    every position at their shard shapes (qkv's column block in
+    ``shards``, the whole qkv its gather buffer)."""
+    from saturn_tpu_torch.parallel.spmd_base import replicas
+
+    reps = replicas(state)
+    tp = state["placement"]["mesh_axes"]["model"]
+    D, F, V = cfg.d_model, cfg.ff_dim, cfg.vocab_size
+    qkv = D + 2 * cfg.kv_heads * cfg.head_dim
+    want = {"wte": (V // tp, D), "mlp_in.weight": (F // tp, D), "mlp_in.bias": (F // tp,),
+            "attn_out.weight": (D, D // tp), "mlp_out.weight": (D, F // tp)}
+    bad = []
+    for r, rep in enumerate(reps):
+        named = dict(rep["params"].named_parameters())
+        for name, p in named.items():
+            key = name.split(".", 2)[-1] if name.startswith("blocks.") else name
+            if key in want and tuple(p.shape) != want[key]:
+                bad.append((r, name, tuple(p.shape)))
+        for k in range(cfg.n_layers):
+            shard = rep["shards"][f"blocks.{k}.qkv.weight"]
+            if tuple(shard.shape) != (qkv // tp, D):
+                bad.append((r, f"blocks.{k}.qkv shard", tuple(shard.shape)))
+    return bad
+
+
+def tp_replicated_equal(state) -> list:
+    """The replicated leaves (held whole, not in ``shards``) that differ in
+    a bit between position 0 and another position."""
+    from saturn_tpu_torch.parallel.spmd_base import replicas
+
+    reps = replicas(state)
+    first = dict(reps[0]["params"].named_parameters())
+    return [name for rep in reps[1:] for name, p in rep["params"].named_parameters()
+            if name not in rep["shards"] and not torch.equal(first[name], p.to(first[name].device))]
+
+
+def tp_step_check(sat, flash, ce, card, devices, label: str, from15=None) -> dict:
+    """16a / 16d: tp at full width against dp over the logits on the same
+    block (15a's route): the losses and parameters within the fused
+    stack's bounds (the row-parallel sums reassociate), the replicated
+    leaves bitwise across the positions, the split ones at their shard
+    shapes, each flash launch on H / tp heads, no CE launch, no
+    device-to-host copy; and tp's overlap config bitwise fsdp's ZeRO-3
+    program at tp 2 x data 1 (the same program). ``from15``: 15a's dp and
+    ZeRO-3 runs on this block (``fsdp_phase``'s ``keep``), compared with
+    and printed beside; without it both run here."""
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.parallel.fsdp import FSDP
+    from saturn_tpu_torch.parallel.tp import TensorParallel
+
+    # the overlap config at tp 2 x data 1 and fsdp's ZeRO-3 program must
+    # name one step: 15a's run stands in for the latter in the whole script
+    same = {k: v for k, v in TP_OVERLAP.items() if k not in ("tp", "zero")}
+    if same != {k: v for k, v in FSDP_OVERLAP.items() if k != "offload"}:
+        raise AssertionError(f"{label}: TP_OVERLAP {TP_OVERLAP} is not FSDP_OVERLAP "
+                             f"{FSDP_OVERLAP}'s program")
+    n = len(devices)
+    if from15:
+        ref, zero3 = from15["dp"], from15["zero3"]
+    else:
+        dp = DataParallel()
+        dp.fused_loss_shardable = False  # the logits route, as tp's
+        ref = fsdp_run(sat, flash, ce, dp, devices, {"attention": "flash", "remat": False},
+                       f"{label}-dp")
+        zero3 = fsdp_run(sat, flash, ce, FSDP(), devices, FSDP_OVERLAP, f"{label}-fsdp-zero3",
+                         dtoh=False)
+    heads = []
+    real = flash.flash_attention
+
+    def spy(q, k, v, **kw):
+        heads.append(int(q.shape[1]))
+        return real(q, k, v, **kw)
+
+    flash.flash_attention = spy
+    try:
+        got = fsdp_run(sat, flash, ce, TensorParallel(), devices, TP_CONFIG, f"{label}-tp",
+                       keep=True)
+    finally:
+        flash.flash_attention = real
+    task, bundle, state = got.pop("task"), got.pop("bundle"), got.pop("state")
+    cfg = task.get_model().config
+    shapes = tp_extents_held(state, cfg)
+    differing = tp_replicated_equal(state)
+    batch = bundle.stage(task.batch_at(0))
+    got["dtoh_per_step"] = dtoh_copies(lambda: bundle.step(state, batch))
+    del batch, state
+    got.pop("tech").release_task(task.name)
+    torch.cuda.empty_cache()
+    runs = {"tp": got,
+            "tp-overlap": fsdp_run(sat, flash, ce, TensorParallel(), devices, TP_OVERLAP,
+                                   f"{label}-tp-overlap", dtoh=False),
+            "fsdp-zero3": zero3}
+    want = {name: (LAYERS * n if name in FLASH_NAMES else 0) for name in KERNEL_NAMES}
+    for name, run in [("dp", ref)] + list(runs.items()):
+        if run["eager"] != want or run["window"] != {k: WINDOW * v for k, v in want.items()}:
+            raise AssertionError(f"{label} {name}: launches {run['eager']} / {run['window']}, "
+                                 f"want {want} a step")
+        if run.get("dtoh_per_step"):
+            raise AssertionError(f"{label} {name}: {run['dtoh_per_step']} device-to-host "
+                                 f"copies a step")
+    per_head = cfg.n_heads // TP_CONFIG["tp"]
+    if not heads or set(heads) != {per_head}:
+        raise AssertionError(f"{label}: flash launched on {sorted(set(heads))} heads, want "
+                             f"{per_head}")
+    if shapes or differing:
+        raise AssertionError(f"{label}: positions off their extents {shapes[:4]}, replicated "
+                             f"leaves differing {differing[:4]}")
+    loss_rel = max(rel(a, b) for a, b in zip(got["losses"], ref["losses"]))
+    names = sorted(ref["params"])
+    a = torch.cat([ref["params"][k].float().reshape(-1) for k in names])
+    b = torch.cat([got["params"][k].float().reshape(-1).to(a.device) for k in names])
+    param_rel = float((b - a).norm() / a.norm())
+    if not (np.isfinite(got["losses"]).all() and loss_rel <= MD_LOSS_REL
+            and param_rel <= MD_PARAM_REL):
+        raise AssertionError(f"{label}: tp losses {got['losses']} against dp's {ref['losses']}: "
+                             f"rel {loss_rel:.3e} (bound {MD_LOSS_REL:g}), parameters rel norm "
+                             f"{param_rel:.3e} (bound {MD_PARAM_REL:g})")
+    ov, z3 = runs["tp-overlap"], runs["fsdp-zero3"]
+    if ov["losses"] != z3["losses"] or same_params(z3["params"], ov["params"]):
+        raise AssertionError(f"{label}: tp's overlap config {ov['losses']} against fsdp's "
+                             f"ZeRO-3 program {z3['losses']}, differing parameters "
+                             f"{same_params(z3['params'], ov['params'])[:4]}")
+    times = {name: (run["ms_per_batch"], run["peak_bytes"] / 2**30)
+             for name, run in [("dp", ref)] + list(runs.items())}
+    before = (from15 or {}).get("ms_peak")
+    log(f"  {label}: GPT-2-small b{BATCH}x{SEQ} on {[str(d) for d in devices]}, flash, tp "
+        f"{TP_CONFIG['tp']} x data {n // TP_CONFIG['tp']}: {len(got['losses'])} losses rel "
+        f"{loss_rel:.2e} of dp's over the logits (bound {MD_LOSS_REL:g}), parameters rel norm "
+        f"{param_rel:.2e} (bound {MD_PARAM_REL:g}); the row-parallel partial products bf16, "
+        f"their model-group sum and the bias add fp32; replicated leaves bitwise across the "
+        f"positions, split leaves at their shard shapes; each flash launch on {per_head} of "
+        f"{cfg.n_heads} heads; launches {want} a step, 0 CE; {got['dtoh_per_step']:g} "
+        f"device-to-host copies a step; the overlap config bitwise fsdp's ZeRO-3 program"
+        f"{' (15a' + chr(39) + 's runs of dp and of it)' if from15 else ''}; ms/"
+        f"batch and peak GiB above the card's holdings "
+        + ", ".join(f"{k} {ms:.2f} / {gib:.2f}" for k, (ms, gib) in times.items())
+        + ("" if not before else "; 15a's " + ", ".join(
+            f"{k} {ms:.2f} / {gib:.2f}" for k, (ms, gib) in before.items()
+            if k not in ("dp", "zero3-prefetch")))
+        + f"  [{card}]")
+    torch.cuda.empty_cache()
+    return {"runs": {k: {kk: v for kk, v in run.items() if kk != "params"}
+                     for k, run in runs.items()},
+            "dp": {k: ref[k] for k in ("losses", "ms_per_batch", "peak_bytes", "eager", "window",
+                                       "graphed")},
+            "loss_rel": loss_rel, "param_rel": param_rel, "heads": per_head,
+            "ms_peak": times, "ms_peak_15a": before}
+
+
+def tp_manifest_check(sat, flash, ce, card) -> dict:
+    """16b: a tp 2 x data 2 state with ``zero`` (attn_out's kernel split
+    over both axes) on [card 0] * 4 at TP_LAYERS, two steps, written as a
+    manifest; restored under dp at one position and fsdp at two, every
+    parameter bitwise the written one, and one more step under each."""
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.parallel.fsdp import FSDP
+    from saturn_tpu_torch.parallel.tp import TensorParallel
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+
+    task = lm_task(sat, "tp-manifest", 6e-4, 8, os.path.join(CKPTS, "tp"), n_layers=TP_LAYERS)
+    tech = TensorParallel()
+    bundle = tech.build(task, md_devices(4), TP_ZERO)
+    state = bundle.init()
+    losses = []
+    for i in range(2):
+        state, loss = bundle.step(state, bundle.stage(task.batch_at(i)))
+        losses.append(float(loss))
+    specs = state["placement"]["specs"]
+    two_d = [k for k, v in specs.items() if "model" in str(v) and "data" in str(v)]
+    if not two_d:
+        raise AssertionError(f"16b: no leaf split over both axes in {sorted(specs)[:4]}...")
+    want = flat_full(state)
+    path = task.ckpt_path
+    t0 = time.perf_counter()
+    ckpt.save(path, state)
+    save_s = time.perf_counter() - t0
+    del state
+    tech.release_task(task.name)
+    if not ckpt.verify(path):
+        raise AssertionError("16b: the manifest does not verify")
+    first = {}
+    for name, other, n, config in (("dp-1", DataParallel(), 1,
+                                    {"attention": "flash", "remat": False}),
+                                   ("fsdp-2", FSDP(), 2, FSDP_CONFIG)):
+        b = other.build(task, md_devices(n), config)
+        got = ckpt.restore_sharded(path, b.empty())
+        if got["step"] != 2 or same_params(want, flat_full(got)):
+            raise AssertionError(f"16b {name}: the restored state differs from the saved one "
+                                 f"{same_params(want, flat_full(got))[:4]}")
+        got, loss = b.step(got, b.stage(task.batch_at(2)))
+        first[name] = float(loss)
+        del got
+        other.release_task(task.name)
+    if not all(np.isfinite(v) for v in first.values()):
+        raise AssertionError(f"16b: first losses after the restores {first}")
+    torch.cuda.empty_cache()
+    log(f"  16b: tp 2 x data 2 with zero on [card 0] * 4 at {TP_LAYERS} layers, losses "
+        f"{losses}; {len(two_d)} leaves split over both axes ({two_d[0]}); the manifest "
+        f"{dir_bytes(path) / 1e9:.3f} GB written in {save_s:.2f}s, verify True; restored "
+        f"bitwise under dp at 1 and fsdp at 2, first loss after each "
+        + ", ".join(f"{k} {v:.6f}" for k, v in first.items()) + f"  [{card}]")
+    return {"losses": losses, "two_d": len(two_d), "save_s": save_s, "first_losses": first}
+
+
+def tp_search_phase(sat, flash, ce, card) -> tuple:
+    """16c: search of a GPT-2-small task at TP_LAYERS with dp, fsdp and tp
+    over [card 0] * 2 (trials one step at a time; 15c's profile cache, so
+    where phase 15 ran only tp's trials run), then orchestrate of its plan
+    to the budget, verified, launches exact."""
+    from saturn_tpu_torch import analysis
+    from saturn_tpu_torch.core.mesh import SliceTopology
+    from saturn_tpu_torch.utils import checkpoint as ckpt
+    from saturn_tpu_torch.utils import metrics
+
+    topo = SliceTopology(md_devices(2))
+    cache_dir = os.path.join(OUT, "fsdp_profile_cache")
+    events = os.path.join(OUT, "tp_search_events.jsonl")
+    if os.path.exists(events):
+        os.unlink(events)
+    task = lm_task(sat, "tp-search", 6e-4, TP_SEARCH_BATCHES, os.path.join(CKPTS, "tp_search"),
+                   n_layers=TP_LAYERS)
+    task.chip_range = [2]
+    t0 = time.perf_counter()
+    with EnvSet(**MD_SEARCH_ENV):
+        sat.search([task], technique_names=["dp", "fsdp", "tp"], topology=topo,
+                   profile_cache=cache_dir, metrics_path=events, fusion=False)
+    search_s = time.perf_counter() - t0
+    ev = metrics.read_events(events)
+    trials = [e for e in ev if e["kind"] == "trial"]
+    hits = {e["technique"] for e in ev if e["kind"] == "profile_cache" and e["hit"]}
+    lanes = {e["technique"] for e in trials} | hits
+    tp_trials = [(e["params"], e["per_batch_s"]) for e in trials
+                 if e["technique"] == "tp" and e["feasible"]]
+    if lanes != {"dp", "fsdp", "tp"} or not tp_trials:
+        raise AssertionError(f"16c: lanes {lanes} (cache hits {hits}), tp's feasible trials "
+                             f"{tp_trials}")
+    techs = list({id(s.executor): s.executor for s in task.strategies.values()
+                  if s.feasible}.values())
+    reset_counts(flash, ce)
+    marks = [(len(t.intervals), len(t.discarded)) for t in techs]
+    t0 = time.perf_counter()
+    with VerifiedSources(analysis) as verified, EnvSet(**MD_SEARCH_ENV):
+        out = sat.orchestrate([task], interval=task.strategies[2].runtime / 2, topology=topo,
+                              fusion=False)
+    run_s = time.perf_counter() - t0
+    launches = counts(flash, ce)
+    step = ckpt.saved_step(task.ckpt_path)
+    if out["completed"] != [task.name] or step != TP_SEARCH_BATCHES or not verified.sources:
+        raise AssertionError(f"16c: {out}, step {step}, verified {verified.sources}")
+    runs = [dict(r, technique=t.name) for t, (i, d) in zip(techs, marks)
+            for r in t.intervals[i:] + t.discarded[d:]]
+    check_launches("16c", launches, fsdp_want_launches(runs, TP_LAYERS))
+    ran = sorted({(r["technique"], r["replicas"]) for r in runs})
+    fastest = min(tp_trials, key=lambda t: t[1])
+    log(f"  16c search: GPT-2-small at {TP_LAYERS} layers over [card 0] * 2, dp, fsdp and tp "
+        f"registered: {len(trials)} trial events, cache hits {sorted(hits)}, tp's fastest "
+        f"{fastest[0]} "
+        f"{fastest[1] * 1e3:.1f} ms/batch, {search_s:.1f}s; the plan ran (technique, "
+        f"positions) {ran} to step {step}, verified, launches {launches} (exact), "
+        f"{run_s:.1f}s  [{card}]")
+    task.release_live_state()
+    task.release_compiled()
+    return launches, {"tp_trials": tp_trials, "hits": sorted(hits), "ran": ran,
+                      "search_s": search_s,
+                      "run_s": run_s, "launches": launches}
+
+
+def tp_phase(sat, flash, ce, card, parts=("16a", "16b", "16c", "16d"), from15=None) -> tuple:
+    """Phase 16: tensor parallelism on one card (positions that name card
+    0 two and four times): 16a tp against dp at full width and its overlap
+    config against fsdp's ZeRO-3 program, 16b a 2-D split state's manifest,
+    16c search -> orchestrate with dp, fsdp and tp; 16d the model groups'
+    NCCL sums across two cards, where the machine has them. ``from15``:
+    15a's dp and ZeRO-3 runs (``fsdp_phase``'s ``keep``) for 16a."""
+    t_phase = time.perf_counter()
+    sat.library.register_default_library()
+    launches, out = dict.fromkeys(KERNEL_NAMES, 0), {}
+    log(f"phase 16: tensor parallelism ({', '.join(parts)})")
+    if "16a" in parts:
+        t0 = time.perf_counter()
+        out["16a"] = tp_step_check(sat, flash, ce, card, md_devices(2), "16a", from15)
+        out["16a"]["seconds"] = time.perf_counter() - t0
+    if "16b" in parts:
+        t0 = time.perf_counter()
+        out["16b"] = tp_manifest_check(sat, flash, ce, card)
+        out["16b"]["seconds"] = time.perf_counter() - t0
+    if "16c" in parts:
+        t0 = time.perf_counter()
+        launches, out["16c"] = tp_search_phase(sat, flash, ce, card)
+        out["16c"]["seconds"] = time.perf_counter() - t0
+    if "16d" in parts:
+        cards = torch.cuda.device_count() if DEVICE == "cuda" else 0
+        if cards >= 2:
+            out["16d"] = tp_step_check(sat, flash, ce, card, md_devices(2, distinct=True), "16d")
+        else:
+            out["16d"] = {"ran": False, "why": f"{cards} CUDA device(s); the model group's "
+                                                f"NCCL sums across two cards need two"}
+            log(f"  16d did not run: this machine has {cards} CUDA device(s), and the model "
+                f"group's NCCL sums across distinct cards need two (not a pass)")
+    for d in ("tp", "tp_search"):
+        shutil.rmtree(os.path.join(CKPTS, d), ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 16 {out['seconds']:.1f}s  [{card}]")
     return launches, out
 
 
@@ -6678,6 +7033,14 @@ def main(argv) -> int:
                        "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
         shutil.rmtree(CKPTS, ignore_errors=True)
         return 0
+    if "--tp" in argv:
+        parts = tuple(p for p in ("16a", "16b", "16c", "16d") if f"--{p}" in argv)
+        _, tp_out = tp_phase(sat, flash, ce, card, parts or ("16a", "16b", "16c", "16d"))
+        with open(os.path.join(OUT, "tp.json"), "w") as f:
+            json.dump({"card": card, "kind": kind, "tp": tp_out,
+                       "seconds": time.perf_counter() - t_start}, f, indent=1, default=str)
+        shutil.rmtree(CKPTS, ignore_errors=True)
+        return 0
     if "--offload" in argv:
         log("the flash kernels at head dim 256 (phase 8b's attention)")
         rows_d256 = check_head_dim_256(flash)
@@ -6739,12 +7102,21 @@ def main(argv) -> int:
         json.dump({"card": card, "kind": kind, "multi_device": md_out}, f, indent=1,
                   default=str)
 
-    fsdp_launches, fsdp_out = fsdp_phase(sat, flash, ce, card)
+    from15 = {}
+    fsdp_launches, fsdp_out = fsdp_phase(sat, flash, ce, card, keep=from15)
     mark("15")
     launches = {n: launches[n] + fsdp_launches[n] for n in KERNEL_NAMES}
     log(f"  main-path launches, phases 3, 14b, 14c and 15c: {launches}")
     with open(os.path.join(OUT, "fsdp.json"), "w") as f:
         json.dump({"card": card, "kind": kind, "fsdp": fsdp_out}, f, indent=1, default=str)
+
+    tp_launches, tp_out = tp_phase(sat, flash, ce, card, from15=from15)
+    from15 = None
+    mark("16")
+    launches = {n: launches[n] + tp_launches[n] for n in KERNEL_NAMES}
+    log(f"  main-path launches, phases 3, 14b, 14c, 15c and 16c: {launches}")
+    with open(os.path.join(OUT, "tp.json"), "w") as f:
+        json.dump({"card": card, "kind": kind, "tp": tp_out}, f, indent=1, default=str)
 
     log("phase 4: the kernels on the training path (dp execute, pinned)")
     pinned = pinned_runs(sat, flash, ce, card)
@@ -6762,7 +7134,7 @@ def main(argv) -> int:
     sweep_launches, sweep = sweep_phase(sat, flash, ce, card)
     mark("6")
     launches = {n: launches[n] + sweep_launches[n] for n in KERNEL_NAMES}
-    log(f"  main-path launches, phases 3, 14, 15 and 6: {launches}")
+    log(f"  main-path launches, phases 3, 14, 15, 16 and 6: {launches}")
 
     log(f"phase 7: kill-replay of a two-task GPT-2-small sweep b8x512 at "
         f"{min(KILL_LAYERS, LAYERS)} of its {LAYERS} layers (resume_dir)")
@@ -6781,7 +7153,7 @@ def main(argv) -> int:
     fused_launches, fused_out = fused_phase(sat, flash, ce, card)
     mark("10")
     launches = {n: launches[n] + fused_launches[n] for n in KERNEL_NAMES}
-    log(f"  main-path launches, phases 3, 14, 15, 6 and 10c: {launches}")
+    log(f"  main-path launches, phases 3, 14, 15, 16, 6 and 10c: {launches}")
     shutil.rmtree(CKPTS, ignore_errors=True)
 
     faults_launches, faults_out = faults_phase(sat, flash, ce, card)
@@ -6850,6 +7222,7 @@ def main(argv) -> int:
                    "twin": {"seconds": twin_out["seconds"]},
                    "multi_device": {"seconds": md_out["seconds"]},
                    "fsdp": {"seconds": fsdp_out["seconds"]},
+                   "tp": {"seconds": tp_out["seconds"]},
                    "short_profiles": SHORT_PROFILES, "phase_s": phase_s,
                    "seconds": time.perf_counter() - t_start}, f, indent=1)
     log(f"profiles short of their launch count, each taken again: {len(SHORT_PROFILES)} "

@@ -18,7 +18,8 @@ from typing import Any, Dict, Optional
 
 class Techniques(enum.Enum):
     """Built-in parallelism technique families (the JAX package's enum;
-    the port ships DP and OFFLOAD, the rest are in ``ROADMAP.md``)."""
+    the port ships DP, FSDP, TENSOR and OFFLOAD, the rest are in
+    ``ROADMAP.md``)."""
 
     DP = 1
     FSDP = 2

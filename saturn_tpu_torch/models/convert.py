@@ -22,19 +22,30 @@ import numpy as np
 import torch
 
 
-def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX param tree (leaves array-like) -> the port's ``state_dict``."""
+def params_from_jax(tree: Mapping[str, Any],
+                    extents: Optional[Mapping[str, Any]] = None) -> Dict[str, torch.Tensor]:
+    """JAX param tree (leaves array-like) -> the port's ``state_dict``.
+
+    With ``extents`` (``{"blocks/qkv/kernel": ((start, stop), ...), ...}``,
+    a leaf's block per JAX dimension, as ``sharding.extent`` gives it) the
+    tree holds one mesh position's blocks and the result is that
+    position's tensors (tp's and fsdp's per-position form): a stacked
+    leaf's block names the layers it covers, each layer's block transposed
+    for a kernel. A leaf the mapping leaves out is whole."""
     out: Dict[str, torch.Tensor] = {}
+    extents = extents or {}
     for key, val in tree.items():
         if key == "blocks":
             for mod, leaves in val.items():
                 for leaf, arr in leaves.items():
                     arr = np.asarray(arr)
-                    for i in range(arr.shape[0]):
+                    first = extents.get(f"blocks/{mod}/{leaf}", ((0, arr.shape[0]),))[0][0]
+                    for j in range(arr.shape[0]):
+                        i = first + j
                         if leaf == "kernel":
-                            out[f"blocks.{i}.{mod}.weight"] = torch.tensor(arr[i].T)
+                            out[f"blocks.{i}.{mod}.weight"] = torch.tensor(arr[j].T)
                         else:
-                            out[f"blocks.{i}.{mod}.{leaf}"] = torch.tensor(arr[i])
+                            out[f"blocks.{i}.{mod}.{leaf}"] = torch.tensor(arr[j])
         elif isinstance(val, Mapping):
             for leaf, arr in val.items():
                 out[f"{key}.{leaf}"] = torch.tensor(np.asarray(arr))
@@ -45,7 +56,9 @@ def params_from_jax(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
 def params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of :func:`params_from_jax`: a ``state_dict`` -> the JAX
-    tree layout, leaves as numpy arrays."""
+    tree layout, leaves as numpy arrays. One position's tensors (each its
+    extent, a stacked leaf's layers those it holds) give that position's
+    blocks."""
     tree: Dict[str, Any] = {}
     stacked: Dict[str, Dict[str, Dict[int, np.ndarray]]] = {}
     for name, t in state.items():
@@ -114,6 +127,13 @@ class Leaf:
     stacked: bool = False
     transpose: bool = False
     kind: str = "param"
+
+    @property
+    def port_shape(self) -> Tuple[int, ...]:
+        """The shape of each of ``names``: the JAX shape without its layer
+        axis, reversed for a transposed kernel."""
+        shape = self.shape[1:] if self.stacked else self.shape
+        return tuple(reversed(shape)) if self.transpose else tuple(shape)
 
     def port_extent(self, jax_extent, j: int):
         """The block of ``names[j]`` inside a JAX block ``jax_extent`` (its

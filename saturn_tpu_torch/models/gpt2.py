@@ -246,15 +246,28 @@ def _dense(layer: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
 def _attend(cfg: GPT2Config, qkv: torch.Tensor) -> torch.Tensor:
     """Attention of a (B, T, D + 2 kv) qkv projection, before the output
     projection: (B, T, D) in the compute dtype."""
+    return _attend_heads(cfg, qkv, cfg.n_heads, cfg.kv_heads)
+
+
+def _attend_heads(cfg: GPT2Config, qkv: torch.Tensor, n_q: int, n_kv: int,
+                  expand: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of ``n_q`` query heads over ``n_kv`` key / value heads
+    from a (B, T, (n_q + 2 n_kv) hd) projection: (B, T, n_q hd), heads
+    flattened head-major. ``expand`` (tp: a position's heads that read
+    their kv groups unevenly) gives each query head's kv head, which is
+    then repeated per query head."""
     dt = cfg.dtype
     B, T, _ = qkv.shape
-    D, hd, kvh = cfg.d_model, cfg.head_dim, cfg.kv_heads
-    q, k, v = qkv.split([D, kvh * hd, kvh * hd], dim=-1)
+    hd = cfg.head_dim
+    q, k, v = qkv.split([n_q * hd, n_kv * hd, n_kv * hd], dim=-1)
 
     def heads(t, n):
         return t.reshape(B, T, n, hd).transpose(1, 2)
 
-    q, k, v = heads(q, cfg.n_heads), heads(k, kvh), heads(v, kvh)
+    q, k, v = heads(q, n_q), heads(k, n_kv), heads(v, n_kv)
+    if expand is not None:
+        k, v = k.index_select(1, expand), v.index_select(1, expand)
+        n_kv = n_q
     if cfg.rotary:
         rd = cfg.rotary_dim or hd
         sin, cos = rotary_sin_cos(torch.arange(T, device=qkv.device), rd)
@@ -264,10 +277,11 @@ def _attend(cfg: GPT2Config, qkv: torch.Tensor) -> torch.Tensor:
         from saturn_tpu_torch.ops.flash import flash_attention
 
         # grouped k/v go to the kernels as they are
-        attn = flash_attention(q, k, v, causal=cfg.causal)
+        with _on(q):
+            attn = flash_attention(q, k, v, causal=cfg.causal)
     else:
-        if kvh != cfg.n_heads:
-            rep = cfg.n_heads // kvh
+        if n_kv != n_q:
+            rep = n_q // n_kv
             k = k.repeat_interleave(rep, dim=1)
             v = v.repeat_interleave(rep, dim=1)
         # bf16 products, fp32 softmax
@@ -277,7 +291,15 @@ def _attend(cfg: GPT2Config, qkv: torch.Tensor) -> torch.Tensor:
             scores = scores.masked_fill(~mask, -1e30)
         probs = torch.softmax(scores, dim=-1).to(dt)
         attn = torch.matmul(probs, v)
-    return attn.transpose(1, 2).reshape(B, T, D)
+    return attn.transpose(1, 2).reshape(B, T, n_q * hd)
+
+
+def _on(t: torch.Tensor):
+    """The tensor's card as the current device (a kernel launched through
+    ctypes runs on the current device's context), or nothing on the CPU."""
+    import contextlib
+
+    return torch.cuda.device(t.device) if t.is_cuda else contextlib.nullcontext()
 
 
 class Block(nn.Module):
@@ -479,6 +501,171 @@ def stacked_hidden(model: "GPT2", tokens: torch.Tensor) -> torch.Tensor:
     return _stacked_norm(model.ln_f, x)
 
 
+# --------------------------------------------------------- tensor parallel
+# tp's forward (``parallel/tp.py``, ``spmd_base.tp_step_fns``): the JAX
+# package's ``tensor_parallel_rules`` placement run by hand. A block of
+# data x tp positions holds one ``GPT2`` per position whose parameters are
+# that position's extents (``mlp_in`` (F/tp, D), ``attn_out`` (D, D/tp),
+# ``wte`` (V/tp, D); the norms, ``wpe`` and the row-parallel biases whole,
+# and ``qkv`` whole as well: gathered from its column blocks before the
+# step, since those blocks do not line up with heads). A leaf the rule
+# leaves whole because tp does not divide its dimension (a vocabulary of
+# 50257, an odd d_ff) is split all the same, by ``tp_part``: every
+# position then holds it whole and computes with its part, and its
+# gradient is summed over the model group. Position r sits at
+# model coordinate r % tp of data row r // tp; ``groups[d]`` is the
+# ``parallel.collectives.ModelGroup`` of row d, whose ``f`` (identity
+# forward, group sum backward) goes before every column-parallel product
+# and whose ``g`` (group sum forward) after every row-parallel one. Every
+# function takes and returns one tensor per position.
+
+
+def _grouped(groups, tp: int, xs, op: str) -> list:
+    """``groups[d].f`` or ``.g`` over the positions of each data row."""
+    out = []
+    for d, grp in enumerate(groups):
+        out += getattr(grp, op)(xs[d * tp:(d + 1) * tp])
+    return out
+
+
+def tp_part(w: torch.Tensor, full: int, tp: int, m: int, dim: int = 0) -> torch.Tensor:
+    """Model coordinate m's part of a leaf split over ``model`` along
+    ``dim`` (``full`` long whole): the leaf itself where the position
+    holds its extent, else (the rule left it whole: tp does not divide
+    ``full``) its indices ``[m full // tp, (m+1) full // tp)``, which are
+    the extent when tp does divide."""
+    if w.shape[dim] != full:
+        return w
+    a, b = m * full // tp, (m + 1) * full // tp
+    return w.narrow(dim, a, b - a)
+
+
+def tp_head_split(cfg: GPT2Config, tp: int, m: int):
+    """Model coordinate m's share of attention: ``(slices, n_q, n_kv,
+    expand)``, the (start, stop) rows of the whole qkv weight holding its
+    query heads ``[m H/tp, (m+1) H/tp)`` and the key and value heads those
+    read (GQA: the groups ``h // (H / kv)``; two positions may read one
+    group), the counts of both, and, where the heads read their groups
+    unevenly, ``(h0, rep, g0)``: query head h reads local kv head
+    ``h // rep - g0`` for h from h0 (else None)."""
+    H, kvh, hd, D = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_model
+    n_q = H // tp
+    h0, h1 = m * n_q, (m + 1) * n_q
+    rep = H // kvh
+    g0, g1 = h0 // rep, (h1 - 1) // rep + 1
+    kv = kvh * hd
+    slices = [(h0 * hd, h1 * hd), (D + g0 * hd, D + g1 * hd), (D + kv + g0 * hd, D + kv + g1 * hd)]
+    groups = [h // rep - g0 for h in range(h0, h1)]
+    n_kv = g1 - g0
+    even = n_q % n_kv == 0 and groups == [i // (n_q // n_kv) for i in range(n_q)]
+    return slices, n_q, n_kv, None if even else (h0, rep, g0)
+
+
+def _tp_attention(blk: Block, h: torch.Tensor, tp: int, m: int) -> torch.Tensor:
+    """Position m's heads: its rows of the gathered qkv, attention over
+    them (flash on the card), before the output projection:
+    (B, T, D / tp) in the compute dtype."""
+    cfg, dt = blk.cfg, blk.cfg.dtype
+    slices, n_q, n_kv, expand = tp_head_split(cfg, tp, m)
+    w = torch.cat([blk.qkv.weight[a:b] for a, b in slices])
+    bias = torch.cat([blk.qkv.bias[a:b] for a, b in slices])
+    qkv = F.linear(h.to(dt), w.to(dt), bias.to(dt))
+    idx = None
+    if expand is not None:
+        # made on the device (a CUDA graph captures no host-to-device copy)
+        h0, rep, g0 = expand
+        idx = torch.div(torch.arange(h0, h0 + n_q, device=h.device), rep,
+                        rounding_mode="floor") - g0
+    return _attend_heads(cfg, qkv, n_q, n_kv, idx)
+
+
+def _row_parallel(groups, tp: int, parts, biases, dt) -> list:
+    """The outputs of a row-parallel product from the positions' partial
+    products (each in the compute dtype): the model group's sum taken in
+    fp32, the bias added once after it in fp32, one rounding to ``dt``."""
+    sums = _grouped(groups, tp, [p.float() for p in parts], "g")
+    return [(s + b.to(dt).float()).to(dt) for s, b in zip(sums, biases)]
+
+
+def tp_block(blocks, xs, groups, tp: int) -> list:
+    """One layer over every position: ``blocks[r]`` is position r's block,
+    ``xs[r]`` its copy of the residual stream (the same on every position
+    of a data row)."""
+    cfg, dt = blocks[0].cfg, blocks[0].cfg.dtype
+
+    def attention(hs):
+        parts = [F.linear(_tp_attention(blk, h, tp, r % tp), blk.attn_out.weight.to(dt))
+                 for r, (blk, h) in enumerate(zip(blocks, hs))]
+        return _row_parallel(groups, tp, parts, [blk.attn_out.bias for blk in blocks], dt)
+
+    def column(layer, h, m):
+        w, b = (tp_part(t, cfg.ff_dim, tp, m) for t in (layer.weight, layer.bias))
+        return F.linear(h.to(dt), w.to(dt), b.to(dt))
+
+    def mlp(hs):
+        parts = []
+        for r, (blk, h) in enumerate(zip(blocks, hs)):
+            m = r % tp
+            if cfg.mlp_act == "swiglu":
+                a = F.silu(column(blk.mlp_gate, h, m)) * column(blk.mlp_in, h, m)
+            else:
+                a = F.gelu(column(blk.mlp_in, h, m), approximate="tanh")
+            w = tp_part(blk.mlp_out.weight, cfg.ff_dim, tp, m, dim=1)
+            parts.append(F.linear(a.to(dt), w.to(dt)))
+        return _row_parallel(groups, tp, parts, [blk.mlp_out.bias for blk in blocks], dt)
+
+    hs = _grouped(groups, tp, [blk.ln_1(x) for blk, x in zip(blocks, xs)], "f")
+    if cfg.parallel_residual:
+        return [x + a + m for x, a, m in zip(xs, attention(hs), mlp(hs))]
+    xs = [x + a for x, a in zip(xs, attention(hs))]
+    hs = _grouped(groups, tp, [blk.ln_2(x) for blk, x in zip(blocks, xs)], "f")
+    return [x + m for x, m in zip(xs, mlp(hs))]
+
+
+def tp_embed(models, tokens, groups, tp: int) -> list:
+    """The vocab-parallel embedding: each position looks its data row's
+    tokens up in its wte rows (``tp_part``; zero for the others), the
+    model group sums them (one term is not zero: the sum is the lookup),
+    then the positions are added as in ``GPT2.embed``."""
+    cfg = models[0].cfg
+    V = cfg.vocab_size
+    parts = []
+    for r, (model, t) in enumerate(zip(models, tokens)):
+        w = tp_part(model.wte, V, tp, r % tp)
+        rows = w.shape[0]
+        ids = t.long() - (r % tp) * V // tp
+        inside = (ids >= 0) & (ids < rows)
+        e = F.embedding(ids.clamp(0, rows - 1), w)
+        parts.append(e.masked_fill(~inside.unsqueeze(-1), 0.0))
+    xs = [x.to(cfg.dtype) for x in _grouped(groups, tp, parts, "g")]
+    if not cfg.rotary:
+        T = tokens[0].shape[-1]
+        xs = [x + model.wpe[:T].to(cfg.dtype) for x, model in zip(xs, models)]
+    return xs
+
+
+def tp_logits(models, tokens, groups, tp: int) -> list:
+    """Position r's logits: the vocab columns ``[m V // tp, (m+1) V // tp)``
+    (m = r % tp) of its data row's tokens, fp32. ``remat`` checkpoints each
+    layer of every position, its collectives included."""
+    cfg = models[0].cfg
+    xs = tp_embed(models, tokens, groups, tp)
+    for k in range(cfg.n_layers):
+        blocks = [model.blocks[k] for model in models]
+        if cfg.remat and torch.is_grad_enabled():
+            from torch.utils.checkpoint import checkpoint
+
+            def layer(*xs, blocks=blocks):
+                return tuple(tp_block(blocks, list(xs), groups, tp))
+
+            xs = list(checkpoint(layer, *xs, use_reentrant=False, preserve_rng_state=False))
+        else:
+            xs = tp_block(blocks, xs, groups, tp)
+    hs = _grouped(groups, tp, [model.ln_f(x) for model, x in zip(models, xs)], "f")
+    return [F.linear(h, tp_part(model.wte, cfg.vocab_size, tp, r % tp).to(cfg.dtype)).float()
+            for r, (model, h) in enumerate(zip(models, hs))]
+
+
 def build_gpt2(name: str = "gpt2-small", pretrained: Any = None, **overrides) -> ModelSpec:
     """Model factory for ``Task(get_model=...)``.
 
@@ -634,6 +821,14 @@ def spec_for(cfg: GPT2Config, *, inputs_fn=None, labels_fn=None,
         config=cfg,
         hints={
             "block_param_key": "blocks",
+            # tp's forward (``tp_logits``) and the leaves it gathers whole
+            # over the model group before use (their column blocks do not
+            # line up with heads)
+            "tensor_parallel": {
+                "logits": lambda models, tokens, groups, tp: tp_logits(
+                    models, [inputs_fn(t) for t in tokens], groups, tp),
+                "gathered": r"(^|/)blocks/qkv/(kernel|bias)$",
+            },
             "n_layers": cfg.n_layers,
             "embed_param_keys": ("wte",) if cfg.rotary else ("wte", "wpe"),
             "pipeline": {

@@ -1,14 +1,29 @@
-"""ZeRO-3 prefetch: layer k+1's gather under layer k's compute.
+"""Collective matmul and ZeRO-3 prefetch: overlap-friendly sharded matmuls.
 
-Counterpart of the ZeRO-3 half of ``saturn_tpu/ops/collective_matmul.py``
-(the ring gather and the collective matmul go with TP). The block stack's
-leaves are sharded over the block's positions (``zero3_block_rules``:
-each stacked leaf's largest dimension after the layer axis; the embeddings,
-norms and head replicated), and the step gathers one layer at a time.
-``prefetch=True`` issues layer k+1's gather on a side stream of each card,
-ordered by events, before layer k computes, so the copies ride under it;
-``prefetch=False`` gathers each layer on the critical path. A gather is a
-copy: the two orders compute the same bits, with and without remat.
+Counterpart of ``saturn_tpu/ops/collective_matmul.py``. The port runs a
+block's positions in one process, so where the JAX package's functions run
+inside ``shard_map`` on one device's shard, these take the list of every
+position's tensor (position r's on its device) and return one per position.
+
+The TP half. ``ring_all_gather`` gathers the positions' chunks by S - 1
+neighbour hops, each chunk placed by its source index, so every position
+ends with the in-order concatenation; a hop is a copy to the next
+position's device (an on-device copy where positions share a card, a peer
+copy on a side stream across cards). ``allgather_matmul`` is ``x @ W`` for
+a weight split on its contracting dimension: serial, the ring gather then
+one product; overlapped, hop s + 1 issued before partial product s and the
+partials accumulated, which reassociates the contraction (close to the
+serial form, not bitwise).
+
+The ZeRO-3 half. The block stack's leaves are sharded over the block's
+positions (``zero3_block_rules``: each stacked leaf's largest dimension
+after the layer axis; the embeddings, norms and head replicated), and the
+step gathers one layer at a time. ``prefetch=True`` issues layer k+1's
+gather on a side stream of each card, ordered by events, before layer k
+computes, so the copies ride under it; ``prefetch=False`` gathers each
+layer on the critical path. A gather is a copy: the two orders compute the
+same bits, with and without remat. fsdp runs it over a ``data`` axis, tp's
+``overlap`` config over ``model`` with the batch over both axes.
 
 As in the JAX package's program each replica's loss is the mean over its
 own rows, the step's loss the mean of the replicas' losses, and the
@@ -33,6 +48,82 @@ OVERLAP_SET_VERSION = 1
 def overlap_signature() -> str:
     """The overlap machinery's signature, for cache identities."""
     return f"comm-overlap-v{OVERLAP_SET_VERSION}"
+
+
+# ------------------------------------------------------------ ring gather
+def _side(device: torch.device):
+    from saturn_tpu_torch.parallel.spmd_base import _side_stream
+
+    return _side_stream("hop", device)
+
+
+def _hop(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` copied to ``device``: an on-device copy on the same device;
+    across cards, a peer copy on the destination's side stream, ordered
+    after both cards' current work and before the destination's next."""
+    if t.device == device:
+        return t.clone()
+    if device.type != "cuda" or t.device.type != "cuda":
+        raise ValueError(f"a hop between {t.device} and {device} needs two CUDA devices")
+    side = _side(device)
+    side.wait_stream(torch.cuda.current_stream(t.device))
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        out = torch.empty(t.shape, dtype=t.dtype, device=device)
+        out.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(device).wait_stream(side)
+    t.record_stream(side)
+    out.record_stream(torch.cuda.current_stream(device))
+    return out
+
+
+def ring_all_gather(xs: Sequence[torch.Tensor], *, axis: int = 0) -> List[torch.Tensor]:
+    """Every position's chunk ``xs[r]`` gathered along ``axis`` by S - 1
+    neighbour hops: after hop s position r holds the chunk of position
+    (r - s) % S and places it at that source's offset, so each position
+    ends with the in-order concatenation, on its device (the JAX package's
+    ``ring_all_gather`` inside ``shard_map``)."""
+    S = len(xs)
+    if S == 1:
+        return [xs[0]]
+    c = xs[0].shape[axis]
+    devices = [x.device for x in xs]
+    bufs = [x.new_empty(x.shape[:axis] + (c * S,) + x.shape[axis + 1:]) for x in xs]
+    cur = list(xs)
+    for s in range(S):
+        nxt = ([_hop(cur[(r - 1) % S], devices[r]) for r in range(S)] if s + 1 < S else None)
+        for r in range(S):
+            bufs[r].narrow(axis, ((r - s) % S) * c, c).copy_(cur[r])
+        cur = nxt
+    return bufs
+
+
+# ------------------------------------------------------ collective matmul
+def allgather_matmul(xs: Sequence[torch.Tensor], w_shards: Sequence[torch.Tensor], *,
+                     overlap: bool = True) -> List[torch.Tensor]:
+    """``x @ W`` on every position, for a ``(K, N)`` weight split on its
+    contracting dimension: ``w_shards[r]`` is position r's ``(K/S, N)``
+    row block, ``xs[r]`` its ``(..., K)`` copy of the replicated input.
+    Serial (``overlap=False``): the ring gather, then one product per
+    position. Overlapped: hop s + 1 is issued before partial product s,
+    and each position accumulates ``x[..., block] @ chunk`` from a zero
+    start in the hops' order."""
+    S = len(xs)
+    if S == 1:
+        return [xs[0] @ w_shards[0]]
+    if not overlap:
+        return [x @ w for x, w in zip(xs, ring_all_gather(w_shards, axis=0))]
+    devices = [x.device for x in xs]
+    c = w_shards[0].shape[0]
+    accs = [x.new_zeros(x.shape[:-1] + (w.shape[-1],)) for x, w in zip(xs, w_shards)]
+    cur = list(w_shards)
+    for s in range(S):
+        nxt = ([_hop(cur[(r - 1) % S], devices[r]) for r in range(S)] if s + 1 < S else None)
+        for r in range(S):
+            src = (r - s) % S
+            accs[r] = accs[r] + xs[r].narrow(-1, src * c, c) @ cur[r]
+        cur = nxt
+    return accs
 
 
 def _block_dim(shape: Tuple[int, ...], n_shard: int, min_size: int) -> Optional[int]:

@@ -35,7 +35,7 @@ devices does not shard.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -104,9 +104,12 @@ class BlockReducer:
     @staticmethod
     def _split(extents: Sequence[Optional[Extent]], shape) -> Tuple[str, int]:
         """How the positions' extents cut a tensor: ``("even", d)`` (equal
-        blocks along dimension d, in position order) or ``("owner", r)``
-        (position r holds it whole, the others nothing)."""
+        blocks along dimension d, in position order), ``("owner", r)``
+        (position r holds it whole, the others nothing) or ``("repeated",
+        -1)`` (several positions hold one extent)."""
         held = [r for r, e in enumerate(extents) if e is not None]
+        if len({extents[r] for r in held}) < len(held):
+            return "repeated", -1
         if len(held) == 1 and all(b - a == s for (a, b), s in zip(extents[held[0]], shape)):
             return "owner", held[0]
         if len(held) == len(extents):
@@ -139,6 +142,20 @@ class BlockReducer:
         from torch.cuda import nccl
 
         how, d = self._split(extents, fulls[0].shape)
+        if how == "repeated":
+            # each extent's first holder fills it in a zeroed buffer; the sum
+            # of the buffers is every block once (x + 0 is x)
+            first = {}
+            for s, e in enumerate(extents):
+                if e is not None:
+                    first.setdefault(e, s)
+            for r, f in enumerate(fulls):
+                f.zero_()
+                if extents[r] is not None and first[extents[r]] == r:
+                    f[self._slices(extents[r])].copy_(shards[r])
+            self._nccl_check(nccl, fulls)
+            nccl.all_reduce(list(fulls))
+            return
         if how == "owner":
             fulls[d].copy_(shards[d])
             self._nccl_check(nccl, fulls)
@@ -170,6 +187,12 @@ class BlockReducer:
 
         how, d = self._split(extents, fulls[0].shape)
         self._nccl_check(nccl, fulls)
+        if how == "repeated":
+            nccl.all_reduce(list(fulls))
+            for s, e in enumerate(extents):
+                if e is not None:
+                    shards[s].copy_(fulls[s][self._slices(e)])
+            return
         if how == "owner":
             nccl.reduce(list(fulls), root=d)
             shards[d].copy_(fulls[d])
@@ -205,3 +228,70 @@ class BlockReducer:
                 for s, c in parts]
         self.all_reduce_(vecs)
         return vecs
+
+
+# ------------------------------------------------- tp's Megatron operators
+def _sum_over(reducer: BlockReducer, xs: Sequence[Optional[torch.Tensor]],
+              like: Sequence[Tuple[Any, ...]]) -> List[torch.Tensor]:
+    """The group's sum of ``xs`` (None counts as zeros of ``like``'s
+    ``(shape, dtype, device)``), one tensor per position, every one the
+    same bits; ``xs`` are not changed."""
+    outs = [_zeros(m) if x is None else x.detach().clone() for x, m in zip(xs, like)]
+    reducer.all_reduce_(outs)
+    return outs
+
+
+def _meta(x: torch.Tensor) -> Tuple[Any, ...]:
+    return (tuple(x.shape), x.dtype, x.device)
+
+
+def _zeros(meta):
+    shape, dtype, device = meta
+    return torch.zeros(shape, dtype=dtype, device=device)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    """Megatron's f: the identity forward, the group's sum backward."""
+
+    @staticmethod
+    def forward(ctx, reducer, *xs):
+        ctx.reducer = reducer
+        ctx.like = [_meta(x) for x in xs]
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *_sum_over(ctx.reducer, grads, ctx.like))
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """Megatron's g: the group's sum forward, the identity backward."""
+
+    @staticmethod
+    def forward(ctx, reducer, *xs):
+        return tuple(_sum_over(reducer, xs, [_meta(x) for x in xs]))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *grads)
+
+
+class ModelGroup:
+    """The tp positions of one data row (devices ``devices``, in model
+    order) and their Megatron operators. On a shared device a sum is one
+    sum in position order, copied to every position; across cards an NCCL
+    all-reduce over the group's devices (``BlockReducer``). A CUDA graph
+    captures the shared form."""
+
+    def __init__(self, devices: Sequence[torch.device]):
+        self.reducer = BlockReducer(devices)
+
+    def f(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Before a column-parallel product: the replicated input as it is,
+        its gradients summed over the group."""
+        return list(_CopyToGroup.apply(self.reducer, *xs))
+
+    def g(self, xs: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """After a row-parallel product: the partial outputs summed over
+        the group, the gradient passed to each as it is."""
+        return list(_SumOverGroup.apply(self.reducer, *xs))

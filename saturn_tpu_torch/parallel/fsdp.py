@@ -97,18 +97,6 @@ class FSDP(SPMDTechnique):
             return super().make_step_fns(spec, task, config, device, ds)
         return self.sharded_step_fns(spec, task, [device], config)
 
-    def _block_refusal(self, task: Any, n: int, devices=()):
-        """dp's rule (a batch the block's size divides), and a block whose
-        positions either share one device or each hold their own: the
-        gathers and reduce-scatters take one of the two forms."""
-        from saturn_tpu_torch.core.mesh import physical_groups
-
-        groups = physical_groups(devices) if devices else []
-        if len(groups) > 1 and any(len(g) > 1 for g in groups):
-            return (f"a block that mixes shared and distinct devices does not shard "
-                    f"({[str(d) for d in devices]})")
-        return super()._block_refusal(task, n, devices)
-
     def state_bytes(self, task, config, size: int = 1) -> int:
         """One replica's bytes on its device at a block of ``size``: the
         gathered parameters and their flat gradients whole, the shard of

@@ -129,10 +129,10 @@ def enforce_spec(spec: Spec, shape: Tuple[int, ...], mesh_axes, path: str = "",
 
 
 def spec_str(spec: Spec) -> str:
-    """``spec`` as JAX prints the ``PartitionSpec``: ``PartitionSpec(None,
-    'data')``; ``PartitionSpec()`` for a replicated leaf."""
-    return "PartitionSpec(" + ", ".join(repr(tuple(e) if isinstance(e, list) else e)
-                                        for e in spec) + ")"
+    """``spec`` as JAX prints the ``PartitionSpec`` (a tuple's repr):
+    ``PartitionSpec(None, 'data')``, ``PartitionSpec(None,)`` for one
+    entry, ``PartitionSpec()`` for a replicated leaf."""
+    return "PartitionSpec" + repr(tuple(tuple(e) if isinstance(e, list) else e for e in spec))
 
 
 def mesh_coords(r: int, mesh_axes: Dict[str, int]) -> Dict[str, int]:

@@ -207,8 +207,10 @@ def replicas(state: Dict[str, Any]) -> List[Dict[str, Any]]:
 def full_params(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The state's parameters by name, whole, on the first position's
     device: a replicated state's are its model's; a sharded state's are
-    assembled from every position's shard (its models hold the gathered
-    parameters of the last step's forward, before that step's update)."""
+    assembled from every position's shard (fsdp's models hold the gathered
+    parameters of the last step's forward, before that step's update;
+    tp's only their extents, the placement's ``layout`` the whole
+    shapes)."""
     reps = replicas(state)
     shards = [rep.get("shards") or {} for rep in reps]
     model = reps[0]["params"]
@@ -219,18 +221,19 @@ def full_params(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     from saturn_tpu_torch.parallel import sharding
 
     pl = state["placement"]
-    layout = convert.state_layout(model, reps[0]["opt_state"])
+    layout = pl.get("layout") or convert.state_layout(model, reps[0]["opt_state"])
     for leaf in layout:
         if leaf.kind != "param" or not any(n in shards[0] for n in leaf.names):
             continue
         exts = sharding.extents(tuple(pl["specs"].get(leaf.key, ())), leaf.shape,
                                 pl["mesh_axes"])
         for j, name in enumerate(leaf.names):
-            full = torch.empty_like(out[name])
+            full = out[name].new_empty(leaf.port_shape)
             for r, e in enumerate(exts):
                 pe = leaf.port_extent(e, j)
                 if pe is not None:
-                    full[tuple(slice(a, b) for a, b in pe)] = shards[r][name].to(full.device)
+                    full[tuple(slice(a, b) for a, b in pe)] = shards[r][name].detach().to(
+                        full.device)
             out[name] = full
     return out
 
@@ -538,6 +541,76 @@ def _join_devices(reducer, devices: Sequence[torch.device]) -> None:
             current.wait_event(done)
 
 
+def _sizes(ext) -> Tuple[int, ...]:
+    return tuple(b - a for a, b in ext)
+
+
+def _slices(ext) -> Tuple[slice, ...]:
+    return tuple(slice(a, b) for a, b in ext)
+
+
+def _spec_axes(spec) -> set:
+    out = set()
+    for entry in spec:
+        if entry is not None:
+            out.update(entry if isinstance(entry, (tuple, list)) else (entry,))
+    return out
+
+
+def _without_axis(spec, axis: str) -> Tuple[Any, ...]:
+    """``spec`` with ``axis`` taken out of every entry."""
+    out = []
+    for entry in spec:
+        if isinstance(entry, (tuple, list)):
+            rest = tuple(a for a in entry if a != axis)
+            entry = None if not rest else rest[0] if len(rest) == 1 else rest
+        elif entry == axis:
+            entry = None
+        out.append(entry)
+    return tuple(out)
+
+
+def _shaped_model(spec, shapes: Dict[str, Tuple[int, ...]], device) -> Any:
+    """The spec's model with every parameter an uninitialised tensor on
+    ``device``, of ``shapes[name]`` where given, else its own shape."""
+    model = spec.abstract_init()
+    for mod_name, mod in model.named_modules():
+        for pname, p in list(mod.named_parameters(recurse=False)):
+            name = f"{mod_name}.{pname}" if mod_name else pname
+            setattr(mod, pname, torch.nn.Parameter(torch.empty(
+                shapes.get(name, tuple(p.shape)), dtype=p.dtype, device=device)))
+    return model
+
+
+@dataclass
+class _TPPlan:
+    """The placement of a tp state (``SPMDTechnique._tp_plan``): per
+    parameter name, every position's stored and compute extent and its
+    kind."""
+
+    mesh_axes: Dict[str, int]
+    placement: Dict[str, Any]
+    kinds: Dict[str, str] = field(default_factory=dict)
+    stored: Dict[str, List[Any]] = field(default_factory=dict)
+    compute: Dict[str, List[Any]] = field(default_factory=dict)
+    # held whole over 'model' but computed in parts: summed over the group
+    partial: List[str] = field(default_factory=list)
+
+    def names(self, kind: str) -> List[str]:
+        return [name for name, k in self.kinds.items() if k == kind]
+
+    def shapes(self, r: int) -> Dict[str, Tuple[int, ...]]:
+        """Position r's compute shapes of the parameters it does not hold
+        whole."""
+        return {name: _sizes(self.compute[name][r]) for name, k in self.kinds.items()
+                if k in ("split", "data")}
+
+    def relative(self, name: str, r: int):
+        """Position r's stored extent inside its compute extent."""
+        return tuple((a - c, b - c) for (a, b), (c, _) in zip(self.stored[name][r],
+                                                             self.compute[name][r]))
+
+
 class SPMDTechnique(BaseTechnique):
     """Base for techniques expressible as a placement of one train step."""
 
@@ -567,6 +640,11 @@ class SPMDTechnique(BaseTechnique):
     # Whether a block of several positions shards the train state by
     # ``param_rules`` (``sharded_step_fns``, fsdp) rather than replicating it
     shards_state = False
+
+    # Whether a block of several positions splits each layer's compute over
+    # a ``model`` axis (``tp_step_fns``, tp) rather than running whole
+    # models; its ``overlap`` configs run ``sharded_step_fns``
+    splits_compute = False
 
     # Per-device memory never grows with the block size: each replica takes
     # a smaller share of the batch. The trial runner prunes the sizes below
@@ -759,8 +837,12 @@ class SPMDTechnique(BaseTechnique):
         self, spec: Any, task: Any, devices: Sequence[torch.device], config: Dict[str, Any],
     ) -> Tuple[Any, Any]:
         """(init_state, train_step) of a block of n positions whose train
-        state is sharded by ``param_rules`` (fsdp: the JAX package's GSPMD
-        step over a ``data`` axis of n devices, and its ZeRO-3 program).
+        state is sharded by ``param_rules`` over the ``mesh_spec`` mesh
+        (fsdp: the JAX package's GSPMD step over a ``data`` axis of n
+        devices, and its ZeRO-3 program; tp's ``overlap`` configs: the
+        ZeRO-3 program over ``(data, model)``, the block leaves split over
+        ``model`` and repeated over ``data``, each holder reducing over
+        every position and keeping its extent).
 
         The rule is applied to each leaf's JAX path and JAX shape
         (``models/convert.state_layout``), then read onto the port's
@@ -789,40 +871,20 @@ class SPMDTechnique(BaseTechnique):
         layer k+1 under layer k (``prefetch``, on a side stream of each
         card) or layer k on the critical path, each replica's loss its
         rows' mean, the gradients' sums divided by n."""
-        from saturn_tpu_torch.models import convert
         from saturn_tpu_torch.ops.collective_matmul import zero3_loss_and_grads
         from saturn_tpu_torch.parallel import sharding
         from saturn_tpu_torch.parallel.collectives import BlockReducer
 
-        if spec.apply_with_aux_fn is not None:
-            raise NotImplementedError(
-                f"{self.name}: auxiliary-loss models are a later item of the PyTorch port")
-        if callable(task.hparams.optimizer):
-            raise NotImplementedError(
-                f"{self.name}: a sharded state steps a named optimizer (adamw, adam, sgd); "
-                f"a user's optimizer callable is a later item of the PyTorch port")
         devices = [torch.device(d) for d in devices]
         n = len(devices)
         reducer = BlockReducer(devices)
         loss_fn = task.loss_fn
         zero3 = bool(config.get("overlap"))
         prefetch = bool(getattr(self, "prefetch", True))
-        kind = "sgd" if task.hparams.optimizer == "sgd" else "adam"
         meta = spec.abstract_init()
         shapes = {name: tuple(p.shape) for name, p in meta.named_parameters()}
-        layout = convert.state_layout(meta, None, kind=kind)
-        mesh_axes = {"data": n}
-        rules = self.param_rules(task, config)
-        specs = sharding.pspec_tree({leaf.key: leaf.shape for leaf in layout}, rules, mesh_axes)
+        mesh_axes, layout, specs = self._placed_layout(spec, task, config, n, meta)
         params = [leaf for leaf in layout if leaf.kind == "param"]
-        by_key = {leaf.key: leaf for leaf in params}
-        for leaf in layout:
-            if leaf.kind in convert.MOMENTS:
-                own = by_key["params/" + leaf.key.split("/", 3)[3]]
-                if specs[leaf.key] != specs[own.key]:
-                    raise ValueError(f"{self.name}: {leaf.key} is placed {specs[leaf.key]}, its "
-                                     f"parameter {specs[own.key]}: a position's optimizer "
-                                     f"steps its shard with its moments")
         # name -> every position's port extent (None: holds none) of the
         # parameters some position holds only part of
         exts: Dict[str, List[Any]] = {}
@@ -939,6 +1001,250 @@ class SPMDTechnique(BaseTechnique):
 
         return init_state, train_step
 
+    def tp_step_fns(
+        self, spec: Any, task: Any, devices: Sequence[torch.device], config: Dict[str, Any],
+    ) -> Tuple[Any, Any]:
+        """(init_state, train_step) of a block of n = data x tp positions
+        that splits each layer's compute over a ``model`` axis (tp: the JAX
+        package's GSPMD step over its ``("data", "model")`` mesh, Megatron's
+        column- and row-parallel products written out).
+
+        A function of its own, not a branch of ``sharded_step_fns``: there
+        every position runs a whole model on gathered parameters and the
+        positions meet only in the loss and the gradient sums; here a
+        position's model holds only its extents, and the forward exchanges
+        activations inside every layer (``models/gpt2.tp_logits``), so the
+        state, the forward and the reduction all differ.
+
+        **State.** The rule is applied to each leaf's JAX path and shape
+        (``_placed_layout``) and read onto the port's tensors
+        (``_tp_plan``). Position r (data row r // tp, model coordinate
+        r % tp) holds in ``shards`` its extent of every leaf the rule
+        splits, and a model built at its compute shapes: a leaf split over
+        ``model`` only is that extent itself (``mlp_in`` (F/tp, D), ``wte``
+        (V/tp, D)); a leaf the rule also splits over ``data`` (``zero``)
+        is held at its ``model`` extent, gathered over the position's data
+        group before use; the spec's ``gathered`` leaves (``qkv``, whose
+        column blocks do not line up with heads) are held whole, gathered
+        over the model group. A replicated leaf is the model's own. The
+        optimizer steps the shards and the replicated leaves, so the
+        moments follow their parameters. ``placement`` carries the specs,
+        the ``{"data", "model"}`` mesh and the whole ``layout`` by which the
+        checkpoint writes and restores the state.
+
+        **Step.** Gather; position r takes its data row's rows of the
+        batch; the model's ``tensor_parallel`` forward gives each
+        position's vocab slice of the logits; the slices are concatenated
+        over ``model`` and the rows over ``data`` on the first position's
+        device, ``task.loss_fn`` runs once over the whole batch and
+        autograd carries each slice back through the model groups' f and g.
+        The gradients are then summed over each data group (one flat buffer
+        per position, every position of a data group laid out alike), the
+        gathered leaves' reduce-scattered over each model group back to
+        their extents (two positions that computed one kv group add up
+        there), the data-split leaves' sliced to their shards, and every
+        position steps its optimizer. A replicated leaf's gradient is the
+        same on every position of a model group (f and g hand each the
+        whole sum), so it is summed over ``data`` only; but a leaf the rule
+        targets and leaves whole over ``model`` (tp does not divide its
+        dimension: ``wte`` at a vocabulary of 50257) is computed in parts
+        (``models/gpt2.tp_part``), so its gradient is summed over the model
+        group as well. The step reads nothing back to the host."""
+        from saturn_tpu_torch.parallel.collectives import BlockReducer, ModelGroup
+
+        hints = spec.hints.get("tensor_parallel")
+        if hints is None:
+            raise NotImplementedError(f"{self.name}: the model has no tensor-parallel forward "
+                                      f"(ModelSpec.hints['tensor_parallel'])")
+        devices = [torch.device(d) for d in devices]
+        n = len(devices)
+        plan = self._tp_plan(spec, task, config, n)
+        tp, rows_of = plan.mesh_axes["model"], plan.mesh_axes["data"]
+        groups = [ModelGroup(devices[d * tp:(d + 1) * tp]) for d in range(rows_of)]
+        data_reducers = [BlockReducer(devices[m::tp]) for m in range(tp)]
+        reducer = BlockReducer(devices)
+        loss_fn, forward = task.loss_fn, hints["logits"]
+
+        def replica(r: int, device, full: Optional[Dict[str, torch.Tensor]]) -> Dict[str, Any]:
+            model = _shaped_model(spec, plan.shapes(r), device)
+            grads = _flat_grads(self.name, model, device)
+            named = dict(model.named_parameters())
+            shards: Dict[str, torch.Tensor] = {}
+            for name, how in plan.kinds.items():
+                if how == "split":
+                    shards[name] = named[name]
+                elif how != "whole":
+                    shard = named[name].new_empty(_sizes(plan.stored[name][r]))
+                    shard.grad = torch.zeros_like(shard)
+                    shards[name] = shard
+            if full is not None:
+                with torch.no_grad():
+                    for name, p in named.items():
+                        p.copy_(full[name][_slices(plan.compute[name][r])])
+                    for name, shard in shards.items():
+                        if shard is not named[name]:
+                            shard.copy_(full[name][_slices(plan.stored[name][r])])
+            stepped = [shards.get(name, p) for name, p in model.named_parameters()]
+            return {"params": model, "opt_state": task.hparams.make_optimizer(stepped),
+                    "grads": grads, "shards": shards}
+
+        def init_state(materialize: bool = True) -> Dict[str, Any]:
+            full = None
+            if materialize:
+                # drawn in host memory: no device holds the whole model
+                model = spec.init_fn(torch.Generator().manual_seed(0), None)
+                full = {name: p.detach() for name, p in model.named_parameters()}
+            reps = [replica(r, dev, full) for r, dev in enumerate(devices)]
+            del full
+            return {"params": reps[0]["params"], "opt_state": reps[0]["opt_state"], "step": 0,
+                    "replicas": reps, "placement": plan.placement}
+
+        def members(r0: int, step: int, count: int) -> List[int]:
+            return list(range(r0, r0 + step * count, step))
+
+        def gather(reps) -> None:
+            with torch.no_grad():
+                named = [dict(rep["params"].named_parameters()) for rep in reps]
+                for name in plan.names("data"):
+                    for m, red in enumerate(data_reducers):
+                        pos = members(m, tp, rows_of)
+                        red.all_gather([reps[r]["shards"][name] for r in pos],
+                                       [named[r][name] for r in pos],
+                                       [plan.relative(name, r) for r in pos])
+                for name in plan.names("gathered"):
+                    for d, grp in enumerate(groups):
+                        pos = members(d * tp, 1, tp)
+                        grp.reducer.all_gather([reps[r]["shards"][name] for r in pos],
+                                               [named[r][name] for r in pos],
+                                               [plan.stored[name][r] for r in pos])
+
+        def reduce(reps) -> None:
+            if rows_of > 1:
+                for m, red in enumerate(data_reducers):
+                    red.all_reduce_([reps[r]["grads"] for r in members(m, tp, rows_of)])
+            named = [dict(rep["params"].named_parameters()) for rep in reps]
+            for name in plan.names("gathered"):
+                for d, grp in enumerate(groups):
+                    pos = members(d * tp, 1, tp)
+                    grp.reducer.reduce_scatter([named[r][name].grad for r in pos],
+                                               [reps[r]["shards"][name].grad for r in pos],
+                                               [plan.stored[name][r] for r in pos])
+            for name in plan.partial:
+                for d, grp in enumerate(groups):
+                    grp.reducer.all_reduce_([named[r][name].grad for r in members(d * tp, 1, tp)])
+            for name in plan.names("data"):
+                for r, rep in enumerate(reps):
+                    rep["shards"][name].grad.copy_(
+                        named[r][name].grad[_slices(plan.relative(name, r))])
+
+        def train_step(state, batch):
+            reps = state["replicas"]
+            gather(reps)
+            rows = batch.shape[0] // rows_of
+            tokens = []
+            for r, dev in enumerate(devices):
+                c = batch[(r // tp) * rows:(r // tp + 1) * rows]
+                tokens.append(c if c.device == dev else c.to(dev, non_blocking=True))
+            logits = forward([rep["params"] for rep in reps], tokens, groups, tp)
+            dev0 = devices[0]
+            whole = torch.cat([torch.cat([logits[d * tp + m].to(dev0) for m in range(tp)], dim=-1)
+                               for d in range(rows_of)])
+            del logits
+            loss = loss_fn(whole, batch)
+            loss.backward()
+            reduce(reps)
+            for rep, dev in zip(reps, devices):
+                with _device_of(dev):
+                    rep["opt_state"].step()
+                    rep["grads"].zero_()
+            _join_devices(reducer, devices)
+            state["step"] += 1
+            return state, loss.detach()
+
+        return init_state, train_step
+
+    def _tp_plan(self, spec: Any, task: Any, config: Dict[str, Any], n: int) -> "_TPPlan":
+        """Where every parameter of a tp state lives on a block of n
+        (``tp_step_fns``): each position's stored extent (its extent under
+        the rule's spec) and compute extent (the spec without ``data``;
+        whole for the model's ``gathered`` leaves), in the port tensor's
+        coordinates, and the parameter's kind: ``whole`` (replicated),
+        ``split`` (stored is compute), ``gathered`` or ``data``. The forward
+        splits every leaf the rule targets over ``model``; one it places
+        there only at a model extent of 1 (tp does not divide its
+        dimension) is ``partial``: whole over ``model``, computed in parts."""
+        import re
+
+        from saturn_tpu_torch.parallel import sharding
+
+        mesh_axes, layout, specs = self._placed_layout(spec, task, config, n)
+        rules = self.param_rules(task, config)
+        unit = {axis: 1 for axis in mesh_axes}
+        pattern = re.compile((spec.hints.get("tensor_parallel") or {}).get("gathered", "$^"))
+        plan = _TPPlan(mesh_axes=mesh_axes,
+                       placement={"specs": specs, "mesh_axes": mesh_axes, "layout": layout})
+        for leaf in layout:
+            if leaf.kind != "param":
+                continue
+            spec_ = specs[leaf.key]
+            split = "model" in _spec_axes(spec_)
+            partial = not split and "model" in _spec_axes(rules(leaf.key, leaf.shape, unit))
+            gathered = split and bool(pattern.search(leaf.key))
+            if gathered and "data" in _spec_axes(spec_):
+                raise NotImplementedError(f"{self.name}: {leaf.key} is gathered over the model "
+                                          f"group and split over data ({spec_})")
+            cspec = () if gathered else _without_axis(spec_, "data")
+            stored = sharding.extents(spec_, leaf.shape, mesh_axes)
+            compute = sharding.extents(cspec, leaf.shape, mesh_axes)
+            whole = tuple((0, d) for d in leaf.port_shape)
+            for j, name in enumerate(leaf.names):
+                st = [leaf.port_extent(e, j) for e in stored]
+                cp = [leaf.port_extent(e, j) for e in compute]
+                if any(e is None for e in st + cp):
+                    raise NotImplementedError(f"{self.name}: {leaf.key} is split over its layer "
+                                              f"axis ({spec_})")
+                plan.stored[name], plan.compute[name] = st, cp
+                if partial:
+                    plan.partial.append(name)
+                plan.kinds[name] = ("whole" if all(e == whole for e in st)
+                                    else "split" if st == cp
+                                    else "gathered" if gathered else "data")
+        return plan
+
+    def _placed_layout(self, spec: Any, task: Any, config: Dict[str, Any], n: int,
+                       meta: Any = None):
+        """``(mesh_axes, layout, specs)`` of a sharded state on a block of
+        n: the mesh of ``mesh_spec``, every leaf of the train state
+        (``models/convert.state_layout`` of the meta-device model) and its
+        spec under ``param_rules``, applied to the JAX path and shape.
+        Raises where the model or the optimizer cannot be sharded, or a
+        moment is placed apart from its parameter."""
+        from saturn_tpu_torch.models import convert
+        from saturn_tpu_torch.parallel import sharding
+
+        if spec.apply_with_aux_fn is not None:
+            raise NotImplementedError(
+                f"{self.name}: auxiliary-loss models are a later item of the PyTorch port")
+        if callable(task.hparams.optimizer):
+            raise NotImplementedError(
+                f"{self.name}: a sharded state steps a named optimizer (adamw, adam, sgd); "
+                f"a user's optimizer callable is a later item of the PyTorch port")
+        kind = "sgd" if task.hparams.optimizer == "sgd" else "adam"
+        layout = convert.state_layout(spec.abstract_init() if meta is None else meta, None,
+                                      kind=kind)
+        mesh_axes = dict(zip(*self.mesh_spec(n, task, config)))
+        specs = sharding.pspec_tree({leaf.key: leaf.shape for leaf in layout},
+                                    self.param_rules(task, config), mesh_axes)
+        by_key = {leaf.key: leaf for leaf in layout if leaf.kind == "param"}
+        for leaf in layout:
+            if leaf.kind in convert.MOMENTS:
+                own = by_key["params/" + leaf.key.split("/", 3)[3]]
+                if specs[leaf.key] != specs[own.key]:
+                    raise ValueError(f"{self.name}: {leaf.key} is placed {specs[leaf.key]}, its "
+                                     f"parameter {specs[own.key]}: a position's optimizer "
+                                     f"steps its shard with its moments")
+        return mesh_axes, layout, specs
+
     # -------------------------------------------------------------- building
     def _model_overrides(self, config: Dict[str, Any]) -> Dict[str, Any]:
         out = {}
@@ -973,25 +1279,59 @@ class SPMDTechnique(BaseTechnique):
         )
 
     def _block_refusal(self, task: Any, n: int, devices: Sequence[Any] = ()) -> Optional[str]:
-        """Why a block of ``n`` positions cannot run ``task`` (None: it
-        can): a technique without replicas, or a batch that ``n`` does not
-        divide (the JAX package's ``_build_uncached`` raises there and its
-        search skips the config)."""
+        """Why a block of ``n`` positions cannot run ``task`` whatever the
+        config (None: it can): a technique without replicas; one that
+        shards its state on a block that mixes shared and distinct devices
+        (its gathers and reduce-scatters take one of the two forms); or,
+        where the mesh is one ``data`` axis over the block whatever the
+        config (all but tp), the batch rule of ``_config_refusal``."""
         if n == 1:
             return None
         if not self.replicates:
             return f"{self.name} runs on one device (got a block of {n})"
-        batch = task.get_dataset().batch_size
-        if batch % n:
-            return f"batch_size {batch} not divisible by data={n}"
+        if self.shards_state and devices:
+            from saturn_tpu_torch.core.mesh import physical_groups
+
+            groups = physical_groups(devices)
+            if len(groups) > 1 and any(len(g) > 1 for g in groups):
+                return (f"a block that mixes shared and distinct devices does not shard "
+                        f"({[str(d) for d in devices]})")
+        if not self.splits_compute:
+            return self._config_refusal(task, n, {})
         return None
+
+    def _config_refusal(self, task: Any, n: int, config: Dict[str, Any]) -> Optional[str]:
+        """Why a block of ``n`` positions cannot run one config of the grid
+        (None: it can): a batch that the mesh axes of ``batch_spec`` do not
+        divide (dp and fsdp: the block's size). The JAX package's
+        ``_build_uncached`` raises there and its search skips the config."""
+        sizes = dict(zip(*self.mesh_spec(n, task, config)))
+        axes = [axis for entry in self.batch_spec(config)
+                for axis in (entry if isinstance(entry, tuple) else (entry,))]
+        split = int(np.prod([sizes[axis] for axis in axes]))
+        batch = task.get_dataset().batch_size
+        if batch % split:
+            return f"batch_size {batch} not divisible by {'*'.join(axes)}={split}"
+        return None
+
+    def batch_spec(self, config: Dict[str, Any]) -> Tuple[Any, ...]:
+        """The token batch's spec over the mesh axes: its rows over
+        ``data``."""
+        return ("data",)
+
+    def mesh_spec(self, n_devices: int, task: Any,
+                  config: Dict[str, Any]) -> Tuple[Tuple[str, ...], Tuple[int, ...]]:
+        """``(axis names, axis sizes)`` of the block's mesh: one ``data``
+        axis over its positions unless a technique says otherwise."""
+        return ("data",), (n_devices,)
 
     def build(self, task: Any, devices: Sequence[Any], config: Dict[str, Any]) -> _Bundle:
         """The bundle of (task, devices, config), built at its first use.
         A block of several positions holds one replica per position
         (``replicated_step_fns``); ``ValueError`` where ``_block_refusal``
-        says it cannot."""
-        why = self._block_refusal(task, len(devices), devices)
+        or ``_config_refusal`` says it cannot."""
+        why = (self._block_refusal(task, len(devices), devices)
+               or self._config_refusal(task, len(devices), config))
         if why is not None:
             raise ValueError(f"{self.name}: {why}")
         key = self._bundle_key(task, devices, config)
@@ -1006,6 +1346,8 @@ class SPMDTechnique(BaseTechnique):
             init_state, train_step = self.make_step_fns(
                 spec, task, config, device, task.get_dataset()
             )
+        elif self.splits_compute and not config.get("overlap"):
+            init_state, train_step = self.tp_step_fns(spec, task, devs, config)
         elif self.shards_state:
             init_state, train_step = self.sharded_step_fns(spec, task, devs, config)
         else:
@@ -1130,8 +1472,10 @@ class SPMDTechnique(BaseTechnique):
         failure (a kernel that does not build or launch, a capture that
         fails) propagates, so a broken kernel is never hidden behind
         another config. A block that ``_block_refusal`` refuses (a batch
-        its positions do not divide) yields no config and runs nothing;
-        ``search_report`` then says memory was not the reason."""
+        its positions do not divide) yields no config and runs nothing, a
+        config that ``_config_refusal`` refuses runs nothing; where no
+        config is left, ``search_report`` says memory was not the
+        reason."""
         n = len(devices)
         why = self._block_refusal(task, n, devices)
         if why is not None:
@@ -1144,6 +1488,12 @@ class SPMDTechnique(BaseTechnique):
         n_configs = n_memory = 0
         for config in self.candidate_configs(task, n):
             n_configs += 1
+            why = self._config_refusal(task, n, config)
+            if why is not None:
+                log.info("%s trial %s on task %s: infeasible (%s)", self.name, config,
+                         task.name, why)
+                self.trials.append((task.name, n, dict(config), None, "block"))
+                continue
             if not self._static_screen(task, devices, config):
                 self.trials.append((task.name, n, dict(config), None, "static"))
                 n_memory += 1

@@ -26,7 +26,8 @@ the JAX tree's, the extents mesh-agnostic. ``restore`` / ``restore_sharded``
 place a checkpoint onto any state: each position of the state's block reads
 only the blocks its extent needs (``parallel/sharding.extent`` under the
 state's ``placement``: replicated for dp and one device, a rule's specs for
-fsdp), one leaf at a time, so no host ever holds the whole state twice.
+fsdp and tp, over the block's ``data`` or ``data`` x ``model`` mesh), one
+leaf at a time, so no host ever holds the whole state twice.
 
 ``save_async`` takes the host copy (pinned, one device-to-host copy per
 tensor) at the call and leaves the disk write to a thread, one in-flight
@@ -295,6 +296,12 @@ class _View:
 
 
 def _layout(state: Dict[str, Any]) -> List[convert.Leaf]:
+    """The state's leaves: its placement's ``layout`` where it keeps one
+    (tp, whose positions' models hold only their extents), else position
+    0's model and optimizer's."""
+    layout = (state.get("placement") or {}).get("layout")
+    if layout is not None:
+        return layout
     rep = _positions(state)[0]
     return convert.state_layout(rep["params"], rep["opt_state"])
 

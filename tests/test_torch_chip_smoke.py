@@ -1714,8 +1714,13 @@ def test_phase_14_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     assert out["14b"]["trialled"] == [1, 4, 8] and out["14b"]["signature"].endswith(":distinct1")
     assert out["14c"]["runs"][-1][0] == 1 and out["14c"]["replan_latency_s"] >= 0.0
     assert out["14d"]["ran"] is False
-    assert launches["ce_fwd"] == out["14b"]["launches"]["ce_fwd"] + out["14c"]["launches"]["ce_fwd"]
-    assert launches["flash_fwd"] in (0, smoke.MD_LAYERS * launches["ce_fwd"])
+    for name in launches:
+        assert launches[name] == out["14b"]["launches"][name] + out["14c"]["launches"][name]
+    # each sub-phase's plan runs one attention variant; 14b's and 14c's
+    # searches each pick flash or dense by their trials' times
+    for part in ("14b", "14c"):
+        got = out[part]["launches"]
+        assert got["flash_fwd"] in (0, smoke.MD_LAYERS * got["ce_fwd"]), part
 
 
 def test_phase_15_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
@@ -1769,3 +1774,62 @@ def test_phase_15_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     assert out["15d"]["ran"] is False
     assert launches["flash_fwd"] == (c["launches"]["flash_fwd"]
                                      + c["drill"]["launches"]["flash_fwd"])
+
+
+def test_phase_16_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 16 (tensor parallelism) at ``test-tiny`` b8 x 64 on the CPU,
+    the block's positions naming the CPU: every check of 16a-16c holds with
+    the kernel wrappers counting their plain versions' calls (the
+    device-to-host count, a torch.profiler reading of the card, reads 0
+    here), and 16d says it did not run. Phase 15's 15a and 15c run first,
+    as in the whole script: 16a compares tp with 15a's dp and ZeRO-3 runs,
+    and 16c's dp and fsdp lanes are 15c's cache hits, so only tp's trials
+    run."""
+    import torch
+
+    import saturn_tpu_torch as sat
+    from saturn_tpu_torch.ops import ce, flash
+
+    monkeypatch.setenv("SATURN_TPU_PROFILE_CACHE_DIR", str(tmp_path / "profile_cache"))
+    for name in ("SATURN_TPU_FAULTS", "SATURN_TPU_GROW_HYSTERESIS", "SATURN_TPU_WATCHDOG"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in (("DEVICE", "cpu"), ("GPT2", "test-tiny"), ("BERT", "bert-test-tiny"),
+                        ("BATCH", 8), ("SEQ", 64), ("VOCAB", 256), ("LAYERS", 2),
+                        ("TP_LAYERS", 2), ("FSDP_LAYERS", 2), ("OUT", str(tmp_path / "out")),
+                        ("CKPTS", str(tmp_path / "ckpts"))):
+        monkeypatch.setattr(smoke, name, value)
+    os.makedirs(smoke.OUT)
+    monkeypatch.setattr(smoke.lm_task, "__defaults__",
+                        ("test-tiny",) + smoke.lm_task.__defaults__[1:3] + (64,)
+                        + smoke.lm_task.__defaults__[4:])
+    monkeypatch.setattr(smoke, "dtoh_copies", lambda fn, n=2: 0.0)
+    monkeypatch.setenv("SATURN_TPU_MAX_WINDOW", "2")
+    for fn in ("synchronize", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a, **k: None)
+    monkeypatch.setattr(flash, "flash_supported", lambda cfg=None: True)
+    for module, fns in ((flash, ("flash_fwd", "flash_dq", "flash_dkv")),
+                        (ce, ("ce_fwd", "ce_dx", "ce_dw"))):
+        for fn in fns:
+            monkeypatch.setattr(module, fn, _counting(module, fn, fn))
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        from15 = {}
+        smoke.fsdp_phase(sat, flash, ce, "cpu rehearsal", parts=("15a", "15c"), keep=from15)
+        launches, out = smoke.tp_phase(sat, flash, ce, "cpu rehearsal", from15=from15)
+    finally:
+        torch.set_num_threads(n)
+    a = out["16a"]
+    assert set(a["runs"]) == {"tp", "tp-overlap", "fsdp-zero3"}
+    assert a["heads"] == 2 and a["runs"]["tp"]["eager"]["flash_fwd"] == 4
+    assert a["runs"]["tp"]["eager"]["ce_fwd"] == 0 and a["dp"]["eager"]["ce_fwd"] == 0
+    assert a["loss_rel"] <= smoke.MD_LOSS_REL and a["param_rel"] <= smoke.MD_PARAM_REL
+    assert a["runs"]["tp-overlap"]["losses"] == a["runs"]["fsdp-zero3"]["losses"]
+    assert a["dp"]["losses"] == from15["dp"]["losses"] and set(a["ms_peak_15a"]) == {
+        "dp", "fsdp", "zero3-prefetch", "zero3-serial"}
+    b = out["16b"]
+    assert b["two_d"] > 0 and set(b["first_losses"]) == {"dp-1", "fsdp-2"}
+    c = out["16c"]
+    assert c["tp_trials"] and c["ran"] and c["run_s"] > 0 and c["hits"] == ["dp", "fsdp"]
+    assert out["16d"]["ran"] is False
+    assert launches == c["launches"] and launches["ce_fwd"] >= 0

@@ -48,7 +48,12 @@ one card (split along either dimension, or one owner) and across two cards
 where the machine has them, bitwise their plain versions; fsdp's window on
 the card twice (its gathers and reduce-scatters in the graph) bitwise dp's
 over the logits; the ZeRO-3 program's side-stream prefetch in the graph
-bitwise its serial gathers, with and without remat.
+bitwise its serial gathers, with and without remat. Tensor parallelism: the
+model group's f and g replayed from a graph bitwise their eager run (and
+across two cards against one, where the machine has them); tp's window on
+the card twice against dp over the logits within phase 16a's bound, its
+overlap config bitwise fsdp's ZeRO-3 program; the ring gather and the
+collective matmul on the card.
 """
 
 import numpy as np
@@ -1271,6 +1276,8 @@ def test_gather_and_reduce_scatter_on_one_card(cuda_device, n, d):
     whole = [None] * n
     whole[1] = ((0, 64), (0, 96))
     _collective_case([cuda_device] * n, shape, whole, seed=7 + n)
+    # an extent several positions hold (tp's overlap config over data x model)
+    _collective_case([cuda_device] * n, shape, _extents(shape, 2, d) * (n // 2), seed=11 + n)
 
 
 @pytest.mark.cuda
@@ -1282,6 +1289,9 @@ def test_gather_and_reduce_scatter_across_two_cards(cuda_device, d):
     shape = (64, 96)
     _collective_case(devices, shape, _extents(shape, 2, d), seed=d)
     _collective_case(devices, shape, [((0, 64), (0, 96)), None], seed=3 + d)
+    # both positions hold one extent: the gather a sum over zero-filled
+    # buffers, the reduce-scatter an all-reduce sliced
+    _collective_case(devices, shape, [((0, 64), (0, 96))] * 2, seed=5 + d)
 
 
 def _fsdp_window(tmp_path, tech, config, name):
@@ -1342,3 +1352,142 @@ def test_zero3_prefetch_on_a_side_stream_is_bitwise_serial(cuda_device, tmp_path
     assert la == lb and na == nb
     for k in pa:
         assert torch.equal(pa[k], pb[k]), k
+
+
+# ------------------------------------------------- tensor parallelism
+def _group_case(devices, capture: bool):
+    """The model group's f and g over ``devices``: forward and backward of
+    ``sum_r w_r * g(f(x)_r * a_r)`` (a row-parallel sum after a
+    column-parallel scaling), eagerly or replayed from a CUDA graph. The
+    outputs and gradients, on the first device."""
+    from saturn_tpu_torch.parallel.collectives import ModelGroup
+
+    grp = ModelGroup(devices)
+    g = torch.Generator().manual_seed(25)
+    x0 = torch.randn(64, 96, generator=g)
+    scales = [torch.randn(96, generator=g) for _ in devices]
+    weights = [torch.randn(64, 96, generator=g) for _ in devices]
+    xs = [x0.to(d).requires_grad_() for d in devices]
+    a = [s.to(d) for s, d in zip(scales, devices)]
+    w = [t.to(d) for t, d in zip(weights, devices)]
+
+    def step():
+        for x in xs:
+            x.grad = None
+        hs = grp.f(xs)
+        ys = grp.g([h * s for h, s in zip(hs, a)])
+        total = sum((y * ww).sum().to(devices[0]) for y, ww in zip(ys, w))
+        total.backward()
+        return torch.stack([y.detach().to(devices[0]) for y in ys]), torch.stack(
+            [x.grad.to(devices[0]) for x in xs])
+
+    if not capture:
+        return step()
+    stream = torch.cuda.Stream(devices[0])
+    stream.wait_stream(torch.cuda.current_stream(devices[0]))
+    with torch.cuda.stream(stream):
+        step()  # warm-up: autograd's streams and the allocator before the capture
+    torch.cuda.current_stream(devices[0]).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        ys, grads = step()
+    graph.replay()
+    torch.cuda.synchronize(devices[0])
+    return ys.clone(), grads.clone()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 4])
+def test_model_group_f_and_g_under_graph_capture(cuda_device, n):
+    """f and g of positions that share the card, replayed from a graph,
+    bitwise their eager run; every position holds the same sum and the
+    same gradient (the sum over the group of each position's)."""
+    devices = [cuda_device] * n
+    ys, grads = _group_case(devices, capture=True)
+    ys_eager, grads_eager = _group_case(devices, capture=False)
+    assert torch.equal(ys, ys_eager) and torch.equal(grads, grads_eager)
+    for r in range(1, n):
+        assert torch.equal(ys[r], ys[0]) and torch.equal(grads[r], grads[0])
+
+
+@pytest.mark.cuda
+def test_model_group_f_and_g_across_two_cards(cuda_device):
+    """16d's path: the model group's sums across distinct cards (NCCL)
+    against the same group on one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL across distinct devices")
+    ys, grads = _group_case([torch.device("cuda", 0), torch.device("cuda", 1)], capture=False)
+    ys1, grads1 = _group_case([cuda_device] * 2, capture=False)
+    torch.testing.assert_close(ys, ys1, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(grads, grads1, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_tp_window_on_one_card_against_dp_over_the_logits(cuda_device, tmp_path):
+    """tp 2 on the card twice, its model-group sums and qkv gathers in the
+    window's graph, against dp on the same block over the logits: the
+    losses within phase 16a's bound (the row-parallel sums reassociate),
+    each position's flash launches, no CE launch; the overlap config
+    bitwise fsdp's ZeRO-3 program."""
+    from saturn_tpu_torch.parallel.dp import DataParallel
+    from saturn_tpu_torch.parallel.fsdp import FSDP
+    from saturn_tpu_torch.parallel.tp import TensorParallel
+
+    dl, _, dn = _fsdp_window(tmp_path, DataParallel(), {"remat": False, "attention": "flash"},
+                             "dp")
+    tl, _, tn = _fsdp_window(tmp_path, TensorParallel(),
+                             {"tp": 2, "remat": False, "zero": False, "attention": "flash"}, "tp")
+    assert tn == dn == {"flash_fwd": 16, "flash_dq": 16, "flash_dkv": 16, "ce_fwd": 0,
+                        "ce_dx": 0, "ce_dw": 0}
+    np.testing.assert_allclose(tl, dl, rtol=1e-3)
+    ol, op, _ = _fsdp_window(tmp_path, TensorParallel(),
+                             {"tp": 2, "remat": False, "zero": True, "overlap": True,
+                              "attention": "flash"}, "tpo")
+    zl, zp, _ = _fsdp_window(tmp_path, FSDP(), {"remat": False, "attention": "flash",
+                                                "offload": False, "overlap": True}, "z")
+    assert ol == zl
+    for k in zp:
+        assert torch.equal(op[k], zp[k]), k
+
+
+@pytest.mark.cuda
+def test_tp_step_across_two_cards(cuda_device, tmp_path):
+    """16d's path at the small GPT-2: tp over cards 0 and 1 (one step at a
+    time) against tp on card 0 twice, within the bf16 band."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL across distinct devices")
+    from saturn_tpu_torch.parallel.tp import TensorParallel
+
+    config = {"tp": 2, "remat": False, "zero": False, "attention": "flash"}
+    task, _ = _small_task(tmp_path, "tp2")
+    task.loss_fn = _untagged
+    out = []
+    for devices in ([torch.device("cuda", 0), torch.device("cuda", 1)], [cuda_device] * 2):
+        tech = TensorParallel()
+        bundle = tech.build(task, devices, config)
+        state = bundle.init()
+        losses = []
+        for i in range(3):
+            state, loss = bundle.step(state, bundle.stage(task.batch_at(i)))
+            losses.append(float(loss))
+        out.append(losses)
+        tech.release_task(task.name)
+    np.testing.assert_allclose(out[0], out[1], rtol=BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [False, True])
+def test_allgather_matmul_on_the_card(cuda_device, overlap):
+    """The TP half of ``ops/collective_matmul.py`` on positions that share
+    the card: the ring gather bitwise the whole weight, the product within
+    f32 rounding of the plain one."""
+    from saturn_tpu_torch.ops import collective_matmul as cm
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(5, 16, generator=g).to(cuda_device)
+    w = torch.randn(16, 10, generator=g).to(cuda_device)
+    for S in (1, 2, 4):
+        for gathered in cm.ring_all_gather(list(w.chunk(S)), axis=0):
+            assert torch.equal(gathered, w)
+        for y in cm.allgather_matmul([x] * S, list(w.chunk(S)), overlap=overlap):
+            torch.testing.assert_close(y, x @ w, rtol=1e-5, atol=1e-5)

@@ -519,7 +519,7 @@ class _Job:
 
 
 def test_sweep_over_dp_and_offload_matches_the_jax_plan(tmp_path):
-    assert sat.library.register_default_library() == ["dp", "fsdp", "offload"]
+    assert sat.library.register_default_library() == ["dp", "fsdp", "tp", "offload"]
     tasks = [_task(tmp_path, name=f"lr{i}", lr=lr, batch_count=6)
              for i, lr in enumerate((1e-3, 3e-3))]
     topo = SliceTopology([torch.device("cpu")])
